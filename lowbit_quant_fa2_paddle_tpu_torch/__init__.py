@@ -1,0 +1,37 @@
+"""lowbit_quant_fa2_paddle_tpu_torch — the low-bit FlashAttention-2 library
+in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of ``lowbit_quant_fa2_paddle_tpu`` (JAX/Pallas on TPU), which stays
+beside it as the reference. This package imports ``torch`` and never
+``jax``. Ported so far: the INT8-QK attention forward with its quantizer
+(kernels A and C1), the fp FA-2 baseline on the same kernel, and the DiT
+denoiser that runs them. On CPU tensors every kernel runs its plain PyTorch
+version; on CUDA tensors it launches the kernel, built with nvcc at first
+use.
+"""
+
+from lowbit_quant_fa2_paddle_tpu_torch.core import (
+    lowbit_fa_attn,
+    lowbit_fa_qk_int8_pv_fp16,
+    lowbit_fa_qk_int8_pv_fp16_cuda,
+    lowbit_fa_qk_int8_pv_fp16_triton,
+    manual_scaled_dot_product_attention,
+    sageattn,
+    sageattn_qk_int8_pv_fp16_cuda,
+    sageattn_qk_int8_pv_fp16_triton,
+)
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import flash_attention_fp
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "lowbit_fa_attn",
+    "lowbit_fa_qk_int8_pv_fp16",
+    "flash_attention_fp",
+    "lowbit_fa_qk_int8_pv_fp16_triton",
+    "lowbit_fa_qk_int8_pv_fp16_cuda",
+    "sageattn",
+    "sageattn_qk_int8_pv_fp16_triton",
+    "sageattn_qk_int8_pv_fp16_cuda",
+    "manual_scaled_dot_product_attention",
+]

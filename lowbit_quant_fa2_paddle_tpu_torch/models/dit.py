@@ -1,0 +1,208 @@
+"""DiT denoiser (CogVideoX-2b class) on the low-bit attention API.
+
+Counterpart of ``lowbit_quant_fa2_paddle_tpu/models/dit.py`` as an
+``nn.Module``. The attention implementation is chosen per call:
+
+* ``attn_impl="exact"`` — fp32 reference attention (``ops/reference.py``);
+* ``attn_impl="fp"``    — kernel A in its bf16 FA-2 mode (the baseline);
+* ``attn_impl="int8"``  — smooth-K INT8 QK through kernels C1 and A (the
+  product).
+
+``"int8_t"`` / ``"fp_t"`` (the TPU package's transposed-space dataflow, a
+layout device of the TPU) run the plain ``"int8"`` / ``"fp"`` paths. The
+other TPU impls raise until their kernels are ported.
+
+Flagship config: CogVideoX-2b's geometry, 30 heads × head_dim 64, hidden
+1920, depth 30, ~17.8k tokens for a 49×480×720 video latent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lowbit_quant_fa2_paddle_tpu_torch.core import lowbit_fa_qk_int8_pv_fp16
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import _not_ported, flash_attention_fp
+from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    dim: int = 1920
+    depth: int = 30
+    num_heads: int = 30
+    mlp_ratio: float = 4.0
+    time_embed_dim: int = 256
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.num_heads
+
+
+def tiny_config(**kw) -> DiTConfig:
+    base = dict(dim=128, depth=2, num_heads=4, time_embed_dim=32)
+    base.update(kw)
+    return DiTConfig(**base)
+
+
+def cogvideox_2b_config(**kw) -> DiTConfig:
+    """CogVideoX-2b attention geometry (30 heads, head_dim 64)."""
+    base = dict(dim=1920, depth=30, num_heads=30, time_embed_dim=512)
+    base.update(kw)
+    return DiTConfig(**base)
+
+
+_UNPORTED_IMPLS = {"int8_v8": "3d", "int4": "3e", "int4_t": "3e", "int8_train": "10", "flash_train": "10"}
+
+
+def _attention(q, k, v, impl: str):
+    """q/k/v: [B, H, S, D] (HND)."""
+    if impl == "exact":
+        return attention_reference(q, k, v)
+    if impl in ("fp", "fp_t"):
+        return flash_attention_fp(q, k, v).to(q.dtype)
+    if impl in ("int8", "int8_t"):
+        return lowbit_fa_qk_int8_pv_fp16(q, k, v)
+    if impl in _UNPORTED_IMPLS:
+        raise _not_ported(f"attn_impl={impl!r}", _UNPORTED_IMPLS[impl])
+    raise ValueError(f"unknown attn_impl {impl!r}")
+
+
+def _layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm without affine: f32 statistics, population variance."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, dtype: torch.dtype) -> torch.Tensor:
+    """Sinusoidal embedding ``[cos, sin]`` of diffusion timesteps ``t`` [B]."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    ang = t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1).to(dtype)
+
+
+class DiTBlock(nn.Module):
+    def __init__(self, cfg: DiTConfig, device=None):
+        super().__init__()
+        d, mlp_d = cfg.dim, int(cfg.mlp_ratio * cfg.dim)
+        kw = dict(device=device, dtype=cfg.dtype)
+        self.num_heads = cfg.num_heads
+        self.qkv = nn.Linear(d, 3 * d, **kw)
+        self.proj = nn.Linear(d, d, **kw)
+        self.mlp_in = nn.Linear(d, mlp_d, **kw)
+        self.mlp_out = nn.Linear(mlp_d, d, **kw)
+        # adaLN modulation: shift/scale/gate for attention and MLP.
+        self.ada = nn.Linear(cfg.time_embed_dim, 6 * d, **kw)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        b, s, d = x.shape
+        h = self.num_heads
+        mod = self.ada(F.silu(c))[:, None, :]
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = mod.chunk(6, dim=-1)
+        xa = _layer_norm(x) * (1 + sc_a) + sh_a
+        qkv = self.qkv(xa).reshape(b, s, 3, h, d // h)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, S, hd]
+        o = _attention(q, k, v, attn_impl).transpose(1, 2).reshape(b, s, d).to(x.dtype)
+        x = x + g_a * self.proj(o)
+        xm = _layer_norm(x) * (1 + sc_m) + sh_m
+        return x + g_m * self.mlp_out(F.gelu(self.mlp_in(xm), approximate="tanh"))
+
+
+class DiT(nn.Module):
+    """Denoiser: ``forward(x [B, S, dim], t [B])`` -> predicted noise."""
+
+    def __init__(self, cfg: DiTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        te = cfg.time_embed_dim
+        kw = dict(device=device, dtype=cfg.dtype)
+        self.t_in = nn.Linear(te, te, **kw)
+        self.t_out = nn.Linear(te, te, **kw)
+        self.blocks = nn.ModuleList(DiTBlock(cfg, device) for _ in range(cfg.depth))
+        self.final = nn.Linear(cfg.dim, cfg.dim, **kw)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, attn_impl: str = "int8") -> torch.Tensor:
+        c = timestep_embedding(t, self.cfg.time_embed_dim, self.cfg.dtype)
+        c = self.t_out(F.silu(self.t_in(c)))
+        for blk in self.blocks:
+            x = blk(x, c, attn_impl)
+        return self.final(_layer_norm(x))
+
+
+def dit_forward(model: DiT, x: torch.Tensor, t: torch.Tensor, *, attn_impl: str = "int8") -> torch.Tensor:
+    """Denoiser forward: ``x`` [B, S, dim] noisy latents, ``t`` [B] timesteps
+    -> predicted noise [B, S, dim]. The blocks run as a Python loop (the TPU
+    package's ``scan_blocks`` is a compile-time device)."""
+    return model(x, t, attn_impl=attn_impl)
+
+
+def _empty_model(cfg: DiTConfig, device) -> DiT:
+    """A DiT with uninitialised storage on ``device`` (default CPU), without
+    the default init pass."""
+    return DiT(cfg, device="meta").to_empty(device="cpu" if device is None else device)
+
+
+@torch.no_grad()
+def init_dit_params(cfg: DiTConfig, generator: torch.Generator, device=None) -> DiT:
+    """Random DiT drawn from the TPU package's init distributions: each dense
+    ``w ~ N(0, 1/d_in)`` (``final``: ``N(0, 0.02²)``), zero biases; adaLN
+    ``w ~ N(0, 0.02²)`` with gate biases 1 for the two gates and 0 for
+    shifts and scales, so every block exercises its attention. ``generator``
+    must live on ``device``."""
+    model = _empty_model(cfg, device)
+    dev = model.final.weight.device
+
+    def dense(lin: nn.Linear, scale: Optional[float] = None) -> None:
+        scale = 1.0 / math.sqrt(lin.in_features) if scale is None else scale
+        w = torch.randn(lin.out_features, lin.in_features, generator=generator, device=dev)
+        lin.weight.copy_(w * scale)
+        lin.bias.zero_()
+
+    dense(model.t_in)
+    dense(model.t_out)
+    d = cfg.dim
+    for blk in model.blocks:
+        for lin in (blk.qkv, blk.proj, blk.mlp_in, blk.mlp_out):
+            dense(lin)
+        dense(blk.ada, 0.02)
+        blk.ada.bias[2 * d : 3 * d] = 1.0  # g_a
+        blk.ada.bias[5 * d :] = 1.0  # g_m
+    dense(model.final, 0.02)
+    return model
+
+
+@torch.no_grad()
+def params_from_jax(tree: Mapping[str, Any], cfg: DiTConfig, device=None) -> DiT:
+    """Load the TPU package's DiT param pytree, given as numpy arrays
+    (``{"t_embed": {"in", "out"}, "blocks": [...], "final"}``, each dense a
+    ``{"w": [d_in, d_out], "b": [d_out]}``). ``w`` is transposed for
+    ``nn.Linear``; values are cast to ``cfg.dtype``."""
+    model = _empty_model(cfg, device)
+    if len(tree["blocks"]) != cfg.depth:
+        raise ValueError(f"tree has {len(tree['blocks'])} blocks, config depth {cfg.depth}")
+
+    def load(lin: nn.Linear, p: Mapping[str, Any]) -> None:
+        w = torch.from_numpy(np.array(p["w"], dtype=np.float32))
+        b = torch.from_numpy(np.array(p["b"], dtype=np.float32))
+        if tuple(w.shape) != (lin.in_features, lin.out_features):
+            raise ValueError(f"weight {tuple(w.shape)} does not fit {lin}")
+        lin.weight.copy_(w.T)
+        lin.bias.copy_(b)
+
+    load(model.t_in, tree["t_embed"]["in"])
+    load(model.t_out, tree["t_embed"]["out"])
+    for blk, p in zip(model.blocks, tree["blocks"]):
+        for name in ("qkv", "proj", "mlp_in", "mlp_out", "ada"):
+            load(getattr(blk, name), p[name])
+    load(model.final, tree["final"])
+    return model

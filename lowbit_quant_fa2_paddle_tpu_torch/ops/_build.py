@@ -1,0 +1,98 @@
+"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+
+Every ``csrc/*.cu`` of this package is compiled for Hopper (``sm_90a``) into
+one shared library with a plain C interface, at first use, into
+``csrc/build/`` keyed by a hash of the sources and flags. Nothing here runs
+at import: the CPU tests import every module on a machine with no nvcc.
+
+No ``--use_fast_math``: the INT8 codes depend on IEEE division and on exact
+round-half-away-from-zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import List, Optional
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+BUILD_DIR = os.path.join(CSRC_DIR, "build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
+]
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C entry points and their argument types (see the extern "C" blocks in csrc/).
+_SIGNATURES = {
+    "lowbit_quant_int8": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "lowbit_attn_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[str]:
+    """The kernel sources: every ``.cu`` under ``csrc/``, sorted."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> str:
+    """Where the library for the current sources lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"liblowbit_kernels_{h.hexdigest()[:16]}.so")
+
+
+def nvcc_command(out_path: str, nvcc: str = "nvcc") -> List[str]:
+    return [nvcc, *NVCC_FLAGS, "-o", out_path, *sources()]
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this source hash has none."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            proc = subprocess.run(nvcc_command(tmp, _nvcc()), capture_output=True, text=True)
+            with open(path + ".log", "w") as f:
+                f.write(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (a ``cudaError_t``)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with cudaError {err}")

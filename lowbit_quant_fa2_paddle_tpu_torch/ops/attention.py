@@ -1,0 +1,296 @@
+"""FlashAttention-2 forward with INT8 or bf16 QK and bf16 PV (kernel A).
+
+PyTorch/CUDA counterpart of the forward kernels in
+``lowbit_quant_fa2_paddle_tpu/ops/attention.py``. On the TPU two schedules
+(K-major ``lowbit_attention_km`` and Q-major ``lowbit_attention``) exist
+because of the matrix unit's lane layout; on the GPU one kernel,
+``csrc/attention_fwd.cu``, carries the features of the DiT path and takes
+natural layouts: ``q [B,H,Sq,D]``, ``k``/``v [B,Hk,Sk,D]``, ``o [B,H,Sq,D]``.
+
+The operand types select the mode:
+
+* ``q`` int8 codes + ``q_scale``, ``k`` int8 codes + ``k_scale``: INT8 QK;
+* ``q`` float, ``k`` int8 codes + ``k_scale``: Q is quantized per token
+  inside the kernel (the TPU kernel's ``fused_quant_q``), then INT8 QK;
+* ``q`` and ``k`` float: the FA-2 baseline, bf16 QK (f32 Q/K are rounded to
+  bf16 first).
+
+PV always runs bf16 × bf16 → f32, V rounded to bf16 as the TPU kernel's
+default ``pv_dtype`` does. The LSE comes back in base 2, ``-1e30`` for rows
+with no visible key.
+
+``lowbit_attention`` takes the plain PyTorch version below for tensors on the
+CPU and launches the kernel for CUDA tensors; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
+from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import absmax_scale, quant_codes
+from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import _repeat_kv
+
+LOG2E = math.log2(math.e)
+MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
+NEG_INIT = -1e30
+
+#: Keys per KV tile of kernel A (``BKV`` in csrc/attention_fwd.cu); the plain
+#: version follows the same tiles.
+KV_TILE = 64
+#: Elements of one chunk of f32 logits in the plain version (1 GiB).
+_PLAIN_CHUNK_ELEMS = 1 << 28
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1, item {item})")
+
+
+def attention_fwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_scale: Optional[torch.Tensor],
+    k_scale: Optional[torch.Tensor],
+    v_mean: Optional[torch.Tensor],
+    *,
+    causal: bool,
+    sm_scale_log2e: float,
+    out_dtype: torch.dtype,
+):
+    """Plain PyTorch version of kernel A on the kernel's own inputs.
+
+    ``q_scale`` (int8 ``q`` only) already carries ``sm_scale * log2(e)``.
+    Works through q-row chunks so the f32 logits stay within 1 GiB. The
+    softmax follows the kernel's online recurrence over KV tiles of
+    ``KV_TILE`` keys, written in closed form: tile ``j`` rounds its P against
+    the running maximum ``m_j`` and is weighted by ``2^(m_j - m_last)``, so P
+    rounds to bf16 exactly where the kernel rounds it and the two differ only
+    in summation order. Returns ``(o, lse2)``.
+    """
+    b, h, s_q, _ = q.shape
+    s_k = k.shape[2]
+    dev = q.device
+    c = torch.tensor(sm_scale_log2e, dtype=torch.float32, device=dev)
+    quant = k.dtype == torch.int8
+    n_tiles = -(-s_k // KV_TILE)
+    kf = _repeat_kv(k if quant else k.to(torch.bfloat16), h).float()
+    vf = _repeat_kv(v.to(torch.bfloat16), h).float()
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, n_tiles * KV_TILE - s_k))
+    ks = _repeat_kv(k_scale.float()[:, :, None, :], h) if quant else None
+    vm = _repeat_kv(v_mean.float()[:, :, None, :], h) if v_mean is not None else None
+    col = torch.arange(s_k, device=dev)
+    rows = max(1, _PLAIN_CHUNK_ELEMS // (b * h * n_tiles * KV_TILE))
+    outs, lses = [], []
+    for lo in range(0, s_q, rows):
+        qc = q[:, :, lo : lo + rows]
+        if not quant:
+            s = (qc.to(torch.bfloat16).float() @ kf.transpose(-1, -2)) * c
+        else:
+            if qc.dtype == torch.int8:
+                codes, qs = qc.float(), q_scale[:, :, lo : lo + rows].float()
+            else:
+                sc = absmax_scale(qc.float().abs().amax(dim=-1, keepdim=True))
+                codes, qs = quant_codes(qc.float(), sc).float(), sc[..., 0] * c
+            # Integer-valued f32 products: exact while |sum| < 2^24.
+            s = ((codes @ kf.transpose(-1, -2)) * ks) * qs[..., None]
+        if causal:
+            row = lo + torch.arange(qc.shape[2], device=dev)
+            s = s.masked_fill(col[None, :] > row[:, None], MASK_VALUE)
+        n = qc.shape[2]
+        s = torch.nn.functional.pad(s, (0, n_tiles * KV_TILE - s_k), value=MASK_VALUE)
+        s = s.view(b, h, n, n_tiles, KV_TILE)
+        m_run = torch.cummax(s.amax(dim=-1), dim=-1).values.clamp_min(NEG_INIT)  # [b,h,n,T]
+        p = torch.exp2((s - m_run[..., None]).to(torch.bfloat16).float()).to(torch.bfloat16).float()
+        del s
+        m = m_run[..., -1:]
+        w = torch.exp2(m_run - m)
+        l = (p.sum(dim=-1) * w).sum(dim=-1, keepdim=True)
+        o = (p * w[..., None]).view(b, h, n, n_tiles * KV_TILE) @ vf
+        del p
+        empty = l == 0.0
+        ls = torch.where(empty, torch.ones_like(l), l)
+        o = o / ls
+        if vm is not None:
+            o = o + (~empty).float() * vm
+        outs.append(o.to(out_dtype))
+        lses.append(torch.where(empty, torch.full_like(l, NEG_INIT), m + torch.log2(ls))[..., 0])
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def _attention_fwd_cuda(q, k, v, q_scale, k_scale, v_mean, *, causal, sm_scale_log2e, out_dtype, need_lse):
+    """Launch kernel A. Head dims below 64 (or between 64 and 128) are
+    zero-padded: zero Q/K columns leave QK^T and the Q absmax unchanged."""
+    b, h, s_q, d = q.shape
+    hk, s_k = k.shape[1], k.shape[2]
+    if d > 128:
+        raise _not_ported(f"head_dim {d} > 128 on the GPU", "3h")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"batch and heads are CUDA grid dims (at most 65535): {b}, {h}")
+    dp = 64 if d <= 64 else 128
+    quant = k.dtype == torch.int8
+    if q.dtype == torch.int8:
+        mode = 0
+    elif quant:
+        mode = 1 if q.dtype == torch.bfloat16 else 2
+        q = q if mode == 1 else q.float()
+    else:
+        mode = 3
+        q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    v = v.to(torch.bfloat16)
+    if dp != d:
+        q, k, v = (torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k, v))
+        v_mean = torch.nn.functional.pad(v_mean, (0, dp - d)) if v_mean is not None else None
+    tensors = [q, k, v] + [x for x in (q_scale, k_scale, v_mean) if x is not None]
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("attention inputs must all be on one device")
+    # cp.async moves 16-byte chunks: rows must start on 16-byte boundaries.
+    q, k, v = (x if x.is_contiguous() and x.data_ptr() % 16 == 0 else x.clone(memory_format=torch.contiguous_format)
+               for x in (q, k, v))
+    q_scale = q_scale.float().contiguous() if q_scale is not None else None
+    k_scale = k_scale.float().contiguous() if k_scale is not None else None
+    v_mean = v_mean.float().contiguous() if v_mean is not None else None
+    out_f32 = out_dtype != torch.bfloat16
+    o = torch.empty((b, h, s_q, dp), dtype=torch.float32 if out_f32 else torch.bfloat16, device=q.device)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device) if need_lse else None
+    ptrs = [x.data_ptr() if x is not None else None for x in (q, k, v, q_scale, k_scale, v_mean, o, lse)]
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.lowbit_attn_fwd(
+            *ptrs,
+            b, h, hk, s_q, s_k, dp, mode, int(out_f32), int(causal), sm_scale_log2e,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(err, "lowbit_attention")
+    lowbit_attention.launches += 1
+    o = o[..., :d]
+    return (o if o.dtype == out_dtype else o.to(out_dtype)), lse
+
+
+def lowbit_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_scale: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    *,
+    v_scale: Optional[torch.Tensor] = None,
+    v_mean: Optional[torch.Tensor] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    is_causal: bool = False,
+    window_size: Optional[int] = None,
+    sink_size: int = 0,
+    q_position_offset: int = 0,
+    sm_scale: Optional[float] = None,
+    k_packed_int4: bool = False,
+    k_pack_bits: int = 8,
+    pv_int8: bool = False,
+    logit_cap: float = 0.0,
+    pv_dtype: torch.dtype = torch.bfloat16,
+    out_dtype: Optional[torch.dtype] = None,
+    return_lse: bool = False,
+):
+    """Attention forward (kernel A) on natural layouts; see the module note
+    for the modes. ``q_scale`` ``[B,H,Sq]`` / ``k_scale`` ``[B,Hk,Sk]`` are
+    per-row dequant scales (``sm_scale·log2e`` is folded into ``q_scale``
+    here, as in the TPU launcher); ``v_mean`` ``[B,Hk,D]`` is added back to
+    rows with at least one visible key (smooth-V). ``sm_scale`` defaults to
+    ``1/sqrt(D)``. Causal masking is top-left aligned: key ``c`` is visible
+    to query ``r`` iff ``c <= r``.
+
+    Returns ``o`` ``[B,H,Sq,D]`` (bf16 when QK is quantized, else
+    ``v.dtype``, unless ``out_dtype``) and, with ``return_lse``, the base-2
+    LSE ``[B,H,Sq]``.
+    """
+    if window_size is not None or sink_size:
+        raise _not_ported("window_size/sink_size", "3f")
+    if q_segment_ids is not None or kv_segment_ids is not None:
+        raise _not_ported("segment ids", "3f")
+    if bias is not None:
+        raise _not_ported("bias", "3f")
+    if logit_cap:
+        raise _not_ported("logit_cap", "3f")
+    if q_position_offset:
+        raise _not_ported("q_position_offset", "3f")
+    if k_packed_int4 or k_pack_bits != 8:
+        raise _not_ported("packed INT4/INT2 K", "3e")
+    if v_scale is not None or pv_int8 or v.dtype == torch.int8:
+        raise _not_ported("INT8 V / pv_int8", "3d")
+    if pv_dtype != torch.bfloat16:
+        raise _not_ported("fp32 PV operands", "3g")
+
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("q and k must be [B, H, S, D]")
+    b, h, s_q, d = q.shape
+    _, hk, s_k, _ = k.shape
+    if tuple(k.shape) != (b, hk, s_k, d) or tuple(v.shape) != (b, hk, s_k, d):
+        raise ValueError(f"k/v must be [B, Hk, Sk, D] with D={d}: {tuple(k.shape)}, {tuple(v.shape)}")
+    if hk == 0 or h % hk:
+        raise ValueError(f"query heads {h} not a multiple of kv heads {hk}")
+    if s_k < 1:
+        raise ValueError("need at least one key")
+    q_int8, k_int8 = q.dtype == torch.int8, k.dtype == torch.int8
+    if q_int8 and (not k_int8 or q_scale is None or k_scale is None):
+        raise ValueError("int8 q needs int8 k codes and both q_scale and k_scale")
+    if k_int8 and k_scale is None:
+        raise ValueError("int8 k needs k_scale")
+    if not q_int8 and q_scale is not None:
+        raise ValueError("q_scale goes with int8 q codes; float q is quantized in-kernel")
+    if not k_int8 and k_scale is not None:
+        raise ValueError("k_scale goes with int8 k codes")
+    if q_scale is not None and tuple(q_scale.shape) != (b, h, s_q):
+        raise ValueError(f"q_scale must be [B, H, Sq], got {tuple(q_scale.shape)}")
+    if k_scale is not None and tuple(k_scale.shape) != (b, hk, s_k):
+        raise ValueError(f"k_scale must be [B, Hk, Sk], got {tuple(k_scale.shape)}")
+    if v_mean is not None and tuple(v_mean.shape) != (b, hk, d):
+        raise ValueError(f"v_mean must be [B, Hk, D], got {tuple(v_mean.shape)}")
+
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    sm_scale_log2e = float(sm_scale) * LOG2E
+    if q_int8:
+        q_scale = q_scale.float() * torch.tensor(sm_scale_log2e, dtype=torch.float32, device=q_scale.device)
+    if out_dtype is None:
+        out_dtype = torch.bfloat16 if k_int8 else v.dtype
+
+    args = (q, k, v, q_scale, k_scale, v_mean)
+    if q.device.type == "cpu":
+        o, lse = attention_fwd_plain(*args, causal=is_causal, sm_scale_log2e=sm_scale_log2e, out_dtype=out_dtype)
+    elif q.device.type == "cuda":
+        o, lse = _attention_fwd_cuda(
+            *args, causal=is_causal, sm_scale_log2e=sm_scale_log2e, out_dtype=out_dtype, need_lse=return_lse
+        )
+    else:
+        raise ValueError(f"lowbit_attention runs on cpu or cuda tensors, not {q.device}")
+    return (o, lse) if return_lse else o
+
+
+#: Launches of kernel A in this process (CPU calls do not count).
+lowbit_attention.launches = 0
+
+
+def flash_attention_fp(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    is_causal: bool = False,
+    window_size: Optional[int] = None,
+    sink_size: int = 0,
+    sm_scale: Optional[float] = None,
+    return_lse: bool = False,
+):
+    """Floating-point FlashAttention-2 on kernel A — the baseline the low-bit
+    path is compared against. HND in, HND out (``v.dtype``); with
+    ``return_lse`` also the base-2 LSE, as the TPU function returns it."""
+    if q.dtype == torch.int8 or k.dtype == torch.int8:
+        raise ValueError("flash_attention_fp takes float q/k; int8 codes need scales")
+    return lowbit_attention(
+        q, k, v, is_causal=is_causal, window_size=window_size, sink_size=sink_size,
+        sm_scale=sm_scale, return_lse=return_lse,
+    )

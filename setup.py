@@ -18,10 +18,19 @@ setup(
         "lowbit_quant_fa2_paddle_tpu.utils",
         "lowbit_quant_fa2_paddle_tpu.host",
         "lowbit_quant_fa2_paddle_tpu.evalkit",
+        # The PyTorch/CUDA port. Its kernels (csrc/*.cu) are built with nvcc
+        # at first use on the GPU, not here.
+        "lowbit_quant_fa2_paddle_tpu_torch",
+        "lowbit_quant_fa2_paddle_tpu_torch.ops",
+        "lowbit_quant_fa2_paddle_tpu_torch.models",
+        "lowbit_quant_fa2_paddle_tpu_torch.utils",
     ],
     # Bundled measured autotune defaults (utils/tuning._bundled_path) must
     # ship in built distributions, not just the repo checkout.
-    package_data={"lowbit_quant_fa2_paddle_tpu.utils": ["tuning_defaults.json"]},
+    package_data={
+        "lowbit_quant_fa2_paddle_tpu.utils": ["tuning_defaults.json"],
+        "lowbit_quant_fa2_paddle_tpu_torch": ["csrc/*.cu"],
+    },
     ext_modules=[
         Extension(
             "lowbit_quant_fa2_paddle_tpu.host._lowbit_host",

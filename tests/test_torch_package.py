@@ -1,0 +1,112 @@
+"""Package checks for the PyTorch/CUDA port, plus its kernel-vs-plain tests.
+
+The CPU checks: importing the port loads no JAX; CPU tensors never touch a
+kernel (launch counters stay 0); the kernels build for sm_90a from this
+repository's sources only, with exact (not fast) math.
+
+The tests marked ``gpu`` compare each CUDA kernel with its plain PyTorch
+version on the card and skip without one. This file imports no JAX, so on a
+machine without it they run with
+``python -m pytest --noconftest tests/test_torch_package.py -m gpu``.
+"""
+
+import math
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int8, quant_int8_plain
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch as p\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.models.dit\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lowbit_quant_fa2_paddle_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_cpu_tensors_launch_no_kernel():
+    n_q, n_a = quant_int8.launches, lowbit_attention.launches
+    x = torch.randn(1, 2, 70, 64)
+    codes, scale = quant_int8(x, gran="per_token")
+    lowbit_attention(x, codes, x, None, scale)
+    lowbit_attention(x, x, x)
+    assert (quant_int8.launches, lowbit_attention.launches) == (n_q, n_a)
+
+
+def test_build_command_targets_sm90a_from_repo_sources():
+    cmd = _build.nvcc_command("out.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+    srcs = [a for a in cmd if a.endswith(".cu")]
+    assert sorted(os.path.basename(s) for s in srcs) == ["attention_fwd.cu", "quant_int8.cu"]
+    assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
+    assert _build.CSRC_DIR.startswith(os.path.join(REPO, "lowbit_quant_fa2_paddle_tpu_torch"))
+    assert os.path.dirname(_build.library_path()) == _build.BUILD_DIR
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        assert "lowbit_quant_fa2_paddle_tpu_torch/csrc/build/" in f.read().split()
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gran,block,s", [("per_token", 128, 1000), ("per_block", 64, 1000), ("per_block", 128, 512)])
+def test_quant_kernel_equals_plain(cuda, gran, block, s):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(2, 3, s, 64, generator=g, device=cuda).bfloat16()
+    km = torch.randn(2, 3, 1, 64, generator=g, device=cuda)
+    codes, scale = quant_int8(x, km, gran=gran, block=block)
+    want_c, want_s = quant_int8_plain(x, km, per_token=gran == "per_token", block=block)
+    assert torch.equal(codes, want_c) and torch.equal(scale, want_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "mode,causal,h,hk,d,s",
+    [("fused", False, 4, 4, 64, 1000), ("fused", True, 8, 2, 64, 777), ("int8", False, 4, 2, 128, 300),
+     ("fp", True, 4, 4, 64, 1000), ("fp", False, 2, 1, 128, 129)],
+)
+def test_attention_kernel_matches_plain(cuda, mode, causal, h, hk, d, s):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(1, h, s, d, generator=g, device=cuda).bfloat16()
+    k = torch.randn(1, hk, s, d, generator=g, device=cuda).bfloat16()
+    v = torch.randn(1, hk, s, d, generator=g, device=cuda).bfloat16()
+    vm = torch.randn(1, hk, d, generator=g, device=cuda)
+    q_scale = k_scale = None
+    if mode != "fp":
+        k, k_scale = quant_int8(k, gran="per_token")
+    if mode == "int8":
+        q, q_scale = quant_int8(q, gran="per_token")
+    o, lse = lowbit_attention(q, k, v, q_scale, k_scale, v_mean=vm, is_causal=causal, return_lse=True)
+    c = torch.tensor(1.0 / math.sqrt(d) * LOG2E, dtype=torch.float32, device=cuda)
+    qs = q_scale * c if q_scale is not None else None
+    o_ref, lse_ref = attention_fwd_plain(q, k, v, qs, k_scale, vm, causal=causal,
+                                         sm_scale_log2e=float(c), out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert float(cosine_similarity(o, o_ref)) >= 0.9999
+    assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
