@@ -10,12 +10,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and each kernel's registers and spills;
 3. kernel C1 (quant_int8) against its plain PyTorch version on the card at
    the CogVideoX-2b K shape b1 h30 s17776 d64 with the K mean, per token and
-   per block, and at a ragged s1000: codes and scales must be equal;
+   per block, at a ragged s1000, and at the LLM prefill's K (b4 h8 s32704
+   d128): codes and scales must be equal;
 4. kernel A (lowbit_attention) against its plain version: int8 with Q
    quantized in the kernel, int8 with external Q codes, fp, causal, GQA
-   8q/2kv, d128, ragged s1000, smooth-V, with and without the LSE, and at
-   b1 h30 s17776 d64 (int8 and fp), timed beside PyTorch's SDPA as a
-   baseline. The plain version rounds P where the
+   8q/2kv, d128, ragged s1000, smooth-V, the LLM prefill (causal GQA
+   32q/8kv d128 s32704) and the checkpoint's prefill, with and without the
+   LSE, and at b1 h30 s17776 d64 (int8 and fp), timed beside PyTorch's SDPA
+   as a baseline. The plain version rounds P where the
    kernel does and differs only in summation order, so the bounds are
    cos >= 0.99999, max|do| <= 2e-2 (a bf16 ulp of outputs up to 4 is 1.6e-2)
    and max|dlse| <= 1e-3;
@@ -25,7 +27,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
    attn_impl="int8", then 3 with "fp". The frames must be finite and agree
    (cos >= 0.999), and the launch counters must show every attention call
    went through kernel A (90 per impl) and every K quantization through C1
-   (90).
+   (90);
+6. kernel D (decode_attention) against its plain version: int8 and bf16
+   caches at b4 h32 hk8 d128 S_max 32768 with lengths [32768, 1, 4097, 0],
+   d64 MHA, d32 GQA 8q/2kv, and the checkpoint's b64 S_max 128 with f32
+   queries, with and without the LSE. Both sides are f32
+   and differ only in summation order: cos >= 0.99999, max|do| <= one bf16
+   ulp of max|o|, max|dlse| <= 1e-4. Timed at every length 32768 for both
+   caches, with the GB/s of cache bytes streamed;
+7. the trained checkpoint eval_out/arith_llm.npz: greedy generate of 4
+   tokens on 64 three-shot addition prompts, with the int8 and the bf16
+   cache; task exact-match >= 0.98 in both, launch counts per mode;
+8. LLM main path at full width (dim 4096, 32 query heads x 128, 8 KV heads,
+   vocab 256, bf16, depth 32, random weights from a seeded generator):
+   generate 64 tokens at b4 from a 32,704-token prompt with max_seq 32768,
+   first with the int8 cache, then (freed) with the bf16 cache. Prints
+   prefill seconds, decode ms per token, peak memory; the first decode
+   step's int8-vs-bf16 logits cos must be >= 0.999, and the counters must
+   show depth A and C1 launches per prefill and depth x 63 D launches.
 
 Then one JSON line of kernel records, and last
 ``{"ok": true, "device": {...}}``.
@@ -33,9 +52,11 @@ Then one JSON line of kernel records, and last
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import statistics
 import re
 import subprocess
 import sys
@@ -124,6 +145,17 @@ def quant_phase(gen):
         log(f"[C1] s{s} {gran}: codes_equal={torch.equal(codes, want_c)} scales_equal={torch.equal(scale, want_s)}")
         if not (torch.equal(codes, want_c) and torch.equal(scale, want_s)):
             raise AssertionError(f"kernel C1 differs from its plain version at s{s} {gran}: {dc} {ds}")
+    # The LLM prefill's K: b4, 8 KV heads, 32,704 tokens, d128, per token.
+    k = (torch.randn(4, 8, 32704, 128, generator=gen, device="cuda") + 0.5).bfloat16()
+    km = k_mean(k)
+    codes, scale = quant_int8(k, km, gran="per_token")
+    want_c, want_s = quant_int8_plain(k, km, per_token=True, block=128)
+    torch.cuda.synchronize()
+    log(f"[C1] LLM prefill K b4 h8 s32704 d128 per_token: codes_equal={torch.equal(codes, want_c)} "
+        f"scales_equal={torch.equal(scale, want_s)}")
+    if not (torch.equal(codes, want_c) and torch.equal(scale, want_s)):
+        raise AssertionError("kernel C1 differs from its plain version at the LLM prefill K shape")
+    del k, km, codes, scale, want_c, want_s
     k = torch.randn(B, H, S, D, generator=gen, device="cuda").bfloat16()
     km = k_mean(k)
     ms = cuda_time_ms(lambda: quant_int8(k, km, gran="per_token"), warmup=3, reps=20)
@@ -132,13 +164,13 @@ def quant_phase(gen):
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
-def attn_inputs(gen, h, hk, s, d, mode, causal=False, smooth_v=False):
+def attn_inputs(gen, h, hk, s, d, mode, causal=False, smooth_v=False, dtype=torch.bfloat16):
     from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E
     from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import k_mean, quant_int8
 
-    q = torch.randn(1, h, s, d, generator=gen, device="cuda").bfloat16()
-    k = (torch.randn(1, hk, s, d, generator=gen, device="cuda") + 0.3).bfloat16()
-    v = torch.randn(1, hk, s, d, generator=gen, device="cuda").bfloat16()
+    q = torch.randn(1, h, s, d, generator=gen, device="cuda").to(dtype)
+    k = (torch.randn(1, hk, s, d, generator=gen, device="cuda") + 0.3).to(dtype)
+    v = torch.randn(1, hk, s, d, generator=gen, device="cuda").to(dtype)
     vm = torch.randn(1, hk, d, generator=gen, device="cuda") if smooth_v else None
     c = 1.0 / math.sqrt(d) * LOG2E
     q_scale = k_scale = qs = None
@@ -167,6 +199,11 @@ def attention_phase(gen):
         ("fp d128 causal", dict(h=8, hk=4, s=1500, d=128, mode="fp", causal=True)),
         ("int8 ragged s1000", dict(h=8, hk=8, s=1000, d=64, mode="int8")),
         ("int8 smooth-V", dict(h=8, hk=8, s=1000, d=64, mode="fused", smooth_v=True)),
+        # The LLM prefill (one batch row of b4): causal GQA 32q/8kv at d128.
+        ("int8 causal GQA 32q/8kv d128 s32704", dict(h=32, hk=8, s=32704, d=128, mode="fused", causal=True)),
+        # The checkpoint's prefill: f32, d32 padded to 64 by the API.
+        ("int8 causal GQA 8q/2kv d64 s36 f32", dict(h=8, hk=2, s=36, d=64, mode="fused", causal=True,
+                                                    dtype=torch.float32)),
     ]
     for name, kw in cases:
         kargs, pargs, opts, c = attn_inputs(gen, **kw)
@@ -269,6 +306,195 @@ def main_path_phase():
     }
 
 
+def decode_inputs(gen, b, h, hk, d, s, bits, lengths, q_dtype=torch.bfloat16):
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import quantize_token
+
+    k = torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
+    (kq, ks), (vq, vs) = quantize_token(k, bits=bits), quantize_token(v, bits=bits)
+    q = torch.randn(b, h, d, generator=gen, device="cuda").to(q_dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kernel_args = (q, kq, vq, ks, lens)
+    plain_args = (q, kq, vq, ks, vs if bits == 8 else None, lens)
+    plain_kw = dict(sm_scale=1.0 / math.sqrt(d), int_qk=bits == 8, out_dtype=q.dtype)
+    return kernel_args, dict(v_scale=vs, kv_bits=bits), plain_args, plain_kw
+
+
+def decode_phase(gen):
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    b, h, hk, d, s = 4, 32, 8, 128, 32768
+    cases = [
+        ("d128 GQA 32q/8kv s32768", dict(b=b, h=h, hk=hk, d=d, s=s, lengths=[s, 1, 4097, 0])),
+        ("d64 MHA s5000", dict(b=2, h=8, hk=8, d=64, s=5000, lengths=[5000, 77])),
+        ("d32 GQA 8q/2kv s1000", dict(b=3, h=8, hk=2, d=32, s=1000, lengths=[1000, 0, 513])),
+        # The checkpoint's decode: b64, S_max 128, lengths 36-38, f32 queries.
+        ("d32 GQA 8q/2kv b64 s128 f32", dict(b=64, h=8, hk=2, d=32, s=128, lengths=[36 + i % 3 for i in range(64)],
+                                             q_dtype=torch.float32)),
+    ]
+    records = {}
+    for bits, mode in ((8, "int8"), (16, "bf16")):
+        worst = 0.0
+        for name, kw in cases:
+            kargs, kkw, pargs, pkw = decode_inputs(gen, bits=bits, **kw)
+            o, lse = decode_attention(*kargs, **kkw, return_lse=True)
+            o_ref, lse_ref = decode_attention_plain(*pargs, **pkw)
+            torch.cuda.synchronize()
+            r = stats(o, o_ref, lse, lse_ref)
+            ulp = 2.0 ** (math.floor(math.log2(float(o_ref.float().abs().max()))) - 7)
+            empty = [i for i, n in enumerate(kw["lengths"]) if n == 0]
+            empty_ok = all(float(o[i].float().abs().max()) == 0.0 and bool((lse[i] == -1e30).all()) for i in empty)
+            fields = " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items())
+            log(f"[D] {mode} {name}: {fields} bf16_ulp={ulp:.3g} empty_rows_ok={empty_ok}")
+            if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= ulp and r["max_dlse"] <= 1e-4 and empty_ok):
+                raise AssertionError(f"kernel D disagrees with its plain version ({mode}, {name}): {r}")
+            worst = max(worst, r["max_do"])
+            if name.startswith("d128"):  # the no-LSE launch writes the same output
+                if not torch.equal(decode_attention(*kargs, **kkw), o):
+                    raise AssertionError("kernel D output differs with return_lse=False")
+            del kargs, pargs, o, o_ref
+        kargs, kkw, pargs, pkw = decode_inputs(gen, b, h, hk, d, s, bits, [s] * b)
+        ms = cuda_time_ms(lambda: decode_attention(*kargs, **kkw), warmup=5, reps=50)
+        plain_ms = cuda_time_ms(lambda: decode_attention_plain(*pargs, **pkw), warmup=1, reps=5)
+        q, kq, vq, ks, _ = kargs
+        nbytes = sum(x.numel() * x.element_size() for x in (kq, vq, ks)) + (ks.numel() * 4 if bits == 8 else 0)
+        gbps = nbytes / (ms * 1e-3) / 1e9
+        log(f"[D] {mode} b{b} h{h} hk{hk} d{d} s{s} (all lengths {s}): kernel {ms:.4f} ms "
+            f"({gbps:.1f} GB/s of {nbytes / 1e6:.1f} MB cache), plain {plain_ms:.4f} ms")
+        records[mode] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "gbps": gbps}
+        del kargs, pargs
+    return records
+
+
+def count_reset():
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import decode_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int8
+
+    quant_int8.launches = lowbit_attention.launches = decode_attention.launches = 0
+
+
+def counts():
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import decode_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int8
+
+    return {"A": lowbit_attention.launches, "C1": quant_int8.launches, "D": decode_attention.launches}
+
+
+def check_counts(where, got, depth, decode_steps):
+    want = {"A": depth, "C1": depth, "D": depth * decode_steps}
+    log(f"[{where}] launches {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"{where}: launch counts {got} != {want}")
+
+
+def checkpoint_phase():
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm, train
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.checkpoint import load_params_npz
+
+    tree = load_params_npz(os.path.join(REPO, "eval_out", "arith_llm.npz"))
+    prompts, answers = train.make_eval_prompts(64, few_shot=3)
+    prompt = torch.from_numpy(prompts).cuda()
+    out = {}
+    for mode, bits in (("int8", 8), ("bf16", 16)):
+        cfg = train.arith_llm_config(kv_bits=bits)
+        model = llm.params_from_jax(tree, cfg, device="cuda")
+        count_reset()
+        toks = llm.generate(model, prompt, train.ANS_LEN, cfg).cpu().numpy()
+        check_counts(f"ckpt {mode}", counts(), cfg.depth, train.ANS_LEN - 1)
+        acc = sum(train.grade_answer(row, a) for row, a in zip(toks, answers)) / len(answers)
+        log(f"[ckpt] {mode} cache: task exact-match {acc:.4f} on {len(answers)} prompts; "
+            f"first answers {[train.decode_ids(r) for r in toks[:4]]}")
+        if acc < 0.98:
+            raise AssertionError(f"checkpoint exact-match {acc} < 0.98 with the {mode} cache")
+        out[mode] = (acc, toks)
+    agree = float((out["int8"][1] == out["bf16"][1]).mean())
+    log(f"[ckpt] int8 vs bf16 cache token agreement {agree:.4f}")
+    return {"exact_match": {m: out[m][0] for m in out}, "token_agreement": agree}
+
+
+class StepClock:
+    """Host clock around each synchronised step of ``generate``: the final
+    norm runs once at the end of the prefill and once per decode step, so a
+    hook on it synchronises the card and stamps the time; it also keeps the
+    first decode step's logits."""
+
+    def __init__(self, model):
+        self.model, self.stamps, self.first_logits = model, [], None
+        self.handle = model.ln_f.register_forward_hook(self._hook)
+
+    def _hook(self, module, inputs, out):
+        if out.dim() == 2 and self.first_logits is None:
+            self.first_logits = torch.nn.functional.linear(out, self.model.embed.weight).float()
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+    def remove(self):
+        self.handle.remove()
+
+
+def full_width_phase():
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+
+    b, prompt_len, n_new = 4, 32704, 64
+    cfg = llm.LLMConfig(vocab=256, dim=4096, depth=32, num_heads=32, num_kv_heads=8, max_seq=32768,
+                        dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = llm.init_llm_params(cfg, gen, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab, (b, prompt_len), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[llm] dim {cfg.dim} depth {cfg.depth} heads {cfg.num_heads}x{cfg.head_dim} kv heads {cfg.num_kv_heads} "
+        f"vocab {cfg.vocab} bf16: {n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
+    llm.generate(model, prompt[:, :256], 2, dataclasses.replace(cfg, max_seq=512))  # warm-up, not counted
+    res = {}
+    for mode, bits in (("int8", 8), ("bf16", 16)):
+        cfg_m = dataclasses.replace(cfg, kv_bits=bits)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        clock = StepClock(model)
+        count_reset()
+        t0 = time.perf_counter()
+        toks = llm.generate(model, prompt, n_new, cfg_m)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        got = counts()
+        clock.remove()
+        peak = torch.cuda.max_memory_allocated()
+        stamps = clock.stamps
+        if len(stamps) != n_new:
+            raise AssertionError(f"{len(stamps)} final-norm calls, want {n_new}")
+        prefill_s = stamps[0] - t0
+        step_ms = [(b_ - a_) * 1e3 for a_, b_ in zip(stamps, stamps[1:])]
+        med = statistics.median(step_ms)
+        row_bytes = cfg.head_dim * (1 if bits == 8 else 2) + 4  # codes or bf16 row, f32 scale
+        cache_gb = cfg.depth * 2 * b * cfg.num_kv_heads * cfg.max_seq * row_bytes / 1e9
+        log(f"[llm] {mode} cache ({cache_gb:.2f} GB over {cfg.depth} layers): prefill {prefill_s:.3f} s, "
+            f"decode {med:.3f} ms/token (median of {len(step_ms)}; min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
+            f"total {t_end - t0:.2f} s, peak {peak / 2**30:.2f} GiB")
+        check_counts(f"llm {mode}", got, cfg.depth, n_new - 1)
+        if tuple(toks.shape) != (b, n_new) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"bad generated tokens: shape {tuple(toks.shape)}")
+        if not bool(torch.isfinite(clock.first_logits).all()):
+            raise AssertionError("non-finite first-step logits")
+        res[mode] = {"prefill_s": prefill_s, "decode_ms_per_token": med, "step_ms": step_ms, "peak_gib": peak / 2**30,
+                     "launches": got, "tokens": toks.cpu(), "logits": clock.first_logits}
+        del toks, clock
+    cos = float(cosine_similarity(res["int8"]["logits"], res["bf16"]["logits"]))
+    agree = float((res["int8"]["tokens"] == res["bf16"]["tokens"]).float().mean())
+    log(f"[llm] first decode step logits cos int8 vs bf16 cache {cos:.6f}; generated-token agreement {agree:.4f}")
+    if cos < 0.999:
+        raise AssertionError(f"int8 vs bf16 cache first-step logits cos {cos} < 0.999")
+    for mode in res:
+        del res[mode]["tokens"], res[mode]["logits"]
+    return res
+
+
 def main():
     smi = device_phase()
     sys.path.insert(0, REPO)
@@ -280,6 +506,12 @@ def main():
     attn = attention_phase(gen)
     torch.cuda.empty_cache()
     dit_r = main_path_phase()
+    torch.cuda.empty_cache()
+    dec = decode_phase(gen)
+    torch.cuda.empty_cache()
+    checkpoint_phase()
+    torch.cuda.empty_cache()
+    llm_r = full_width_phase()
     src = f"{PKG}/csrc"
     kernels = [
         dict(name="quant_int8", route="cuda", source=f"{src}/quant_int8.cu",
@@ -293,6 +525,11 @@ def main():
              replaces="lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502",
              launches=dit_r["launches"]["attention_fp"],
              **{k: attn["fp"][k] for k in ("max_abs_err", "ms", "plain_ms")}),
+    ] + [
+        dict(name=f"decode_attention ({mode} cache)", route="cuda", source=f"{src}/decode_attention.cu",
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
+             launches=llm_r[mode]["launches"]["D"], **dec[mode])
+        for mode in ("int8", "bf16")
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     log(json.dumps({"kernels": kernels}))

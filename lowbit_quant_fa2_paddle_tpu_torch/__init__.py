@@ -4,10 +4,11 @@ in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of ``lowbit_quant_fa2_paddle_tpu`` (JAX/Pallas on TPU), which stays
 beside it as the reference. This package imports ``torch`` and never
 ``jax``. Ported so far: the INT8-QK attention forward with its quantizer
-(kernels A and C1), the fp FA-2 baseline on the same kernel, and the DiT
-denoiser that runs them. On CPU tensors every kernel runs its plain PyTorch
-version; on CUDA tensors it launches the kernel, built with nvcc at first
-use.
+(kernels A and C1), the fp FA-2 baseline on the same kernel, the DiT
+denoiser that runs them, and LLM generation over an int8 or bf16 KV cache
+with single-token decode attention (kernel D). On CPU tensors every kernel
+runs its plain PyTorch version; on CUDA tensors it launches the kernel,
+built with nvcc at first use.
 """
 
 from lowbit_quant_fa2_paddle_tpu_torch.core import (

@@ -1,0 +1,359 @@
+"""GQA transformer LM on the low-bit stack: causal INT8 prefill (kernels C1
+and A) -> quantized KV cache -> split-KV decode (kernel D).
+
+Counterpart of ``lowbit_quant_fa2_paddle_tpu/models/llm.py`` as an
+``nn.Module``. Blocks hold bias-free ``wq``/``wk``/``wv``/``wo``/``w1``/``w2``
+and RMS norms ``ln1``/``ln2``; the model holds ``embed`` (tied with the
+output projection) and ``ln_f``. Everything runs without autograd.
+
+Cache precision per side is ``kv_bits``/``k_bits``/``v_bits`` in {16, 8}
+(bf16 rows or int8 codes). Not ported yet, each raising
+``NotImplementedError``: 4-bit caches, ``window_size``/``sink_size``,
+chunked prefill, speculative decoding (ROADMAP item 7), and weight
+quantization ``w_bits`` (item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lowbit_quant_fa2_paddle_tpu_torch.core import lowbit_fa_qk_int8_pv_fp16
+from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as dec
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import _not_ported
+from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
+
+
+@dataclasses.dataclass(frozen=True)
+class LLMConfig:
+    vocab: int = 256
+    dim: int = 256
+    depth: int = 2
+    num_heads: int = 8
+    num_kv_heads: int = 2
+    max_seq: int = 512
+    rope_theta: float = 10000.0
+    dtype: torch.dtype = torch.float32
+    kv_bits: int = 8
+    k_bits: Optional[int] = None
+    v_bits: Optional[int] = None
+    w_bits: Optional[int] = None
+    window_size: Optional[int] = None
+    sink_size: int = 0
+
+    def __post_init__(self):
+        if self.w_bits is not None:
+            raise _not_ported("weight-quantized LLM (w_bits)", "9")
+        if self.window_size is not None or self.sink_size:
+            raise _not_ported("sliding-window / sink LLM", "7")
+        dec._check_bits(self.eff_k_bits, self.eff_v_bits)
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.num_heads
+
+    @property
+    def eff_k_bits(self) -> int:
+        return self.kv_bits if self.k_bits is None else self.k_bits
+
+    @property
+    def eff_v_bits(self) -> int:
+        return self.kv_bits if self.v_bits is None else self.v_bits
+
+
+def tiny_llm_config(**kw) -> LLMConfig:
+    return LLMConfig(**kw)
+
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    n = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (n * w.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm with f32 statistics and a learned scale (no bias)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _rms_norm(x, self.weight)
+
+
+class LLMBlock(nn.Module):
+    def __init__(self, cfg: LLMConfig, device=None):
+        super().__init__()
+        d, kv_d = cfg.dim, cfg.num_kv_heads * cfg.head_dim
+        kw = dict(bias=False, device=device, dtype=cfg.dtype)
+        self.wq = nn.Linear(d, d, **kw)
+        self.wk = nn.Linear(d, kv_d, **kw)
+        self.wv = nn.Linear(d, kv_d, **kw)
+        self.wo = nn.Linear(d, d, **kw)
+        self.w1 = nn.Linear(d, 4 * d, **kw)
+        self.w2 = nn.Linear(4 * d, d, **kw)
+        self.ln1 = RMSNorm(d, cfg.dtype, device)
+        self.ln2 = RMSNorm(d, cfg.dtype, device)
+
+
+class LLM(nn.Module):
+    def __init__(self, cfg: LLMConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab, cfg.dim, device=device, dtype=cfg.dtype)
+        self.blocks = nn.ModuleList(LLMBlock(cfg, device) for _ in range(cfg.depth))
+        self.ln_f = RMSNorm(cfg.dim, cfg.dtype, device)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and the tied output projection ``x @ embed^T``."""
+        return F.linear(self.ln_f(x), self.embed.weight)
+
+
+_WQ_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2")
+
+
+def _empty_model(cfg: LLMConfig, device) -> LLM:
+    model = LLM(cfg, device="meta").to_empty(device="cpu" if device is None else device)
+    return model.requires_grad_(False)
+
+
+@torch.no_grad()
+def init_llm_params(cfg: LLMConfig, generator: torch.Generator, device=None) -> LLM:
+    """Random LLM from the JAX package's init distributions: each dense
+    ``w ~ N(0, 1/d_in)``, ``embed ~ N(0, 0.02²)``, norms ones. ``generator``
+    must live on ``device``."""
+    model = _empty_model(cfg, device)
+    dev = model.embed.weight.device
+
+    def normal(shape, scale):
+        return torch.randn(*shape, generator=generator, device=dev).mul_(scale)
+
+    model.embed.weight.copy_(normal((cfg.vocab, cfg.dim), 0.02))
+    for blk in model.blocks:
+        for key in _WQ_KEYS:
+            lin = getattr(blk, key)
+            lin.weight.copy_(normal((lin.out_features, lin.in_features), 1.0 / math.sqrt(lin.in_features)))
+        blk.ln1.weight.fill_(1.0)
+        blk.ln2.weight.fill_(1.0)
+    model.ln_f.weight.fill_(1.0)
+    return model
+
+
+@torch.no_grad()
+def params_from_jax(tree: Mapping[str, Any], cfg: LLMConfig, device=None) -> LLM:
+    """Load the JAX package's LLM param tree, given as numpy arrays
+    (``{"embed": [vocab, dim], "blocks": [{"wq": [in, out], ...,
+    "ln1", "ln2"}, ...], "ln_f"}``). Dense weights are transposed for
+    ``nn.Linear``; values are cast to ``cfg.dtype``."""
+    model = _empty_model(cfg, device)
+    if len(tree["blocks"]) != cfg.depth:
+        raise ValueError(f"tree has {len(tree['blocks'])} blocks, config depth {cfg.depth}")
+
+    def arr(x) -> torch.Tensor:
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    def load(param: torch.Tensor, x, transpose=False) -> None:
+        t = arr(x)
+        t = t.T if transpose else t
+        if tuple(t.shape) != tuple(param.shape):
+            raise ValueError(f"weight {tuple(t.shape)} does not fit {tuple(param.shape)}")
+        param.copy_(t)
+
+    load(model.embed.weight, tree["embed"])
+    load(model.ln_f.weight, tree["ln_f"])
+    for blk, p in zip(model.blocks, tree["blocks"]):
+        for key in _WQ_KEYS:
+            load(getattr(blk, key).weight, p[key], transpose=True)
+        load(blk.ln1.weight, p["ln1"])
+        load(blk.ln2.weight, p["ln2"])
+    return model
+
+
+def quantize_llm_params(params: LLM, *, bits: int = 8) -> LLM:
+    raise _not_ported("quantize_llm_params (packed weights, kernels F1/F2)", "9")
+
+
+def _mm(x: torch.Tensor, w: nn.Linear) -> torch.Tensor:
+    """Dense matmul ``x @ w`` (PyTorch's, as the JAX package leaves it to XLA)."""
+    return w(x)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, H, S, D]; positions: [B, S] (may live on the device)."""
+    d = x.shape[-1]
+    exponent = -torch.arange(0, d // 2, dtype=torch.float32, device=x.device) / (d // 2)
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    ang = positions.float()[:, None, :, None] * freqs  # [B, 1, S, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., : d // 2], x[..., d // 2 :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def _attn_prefill(q, k, v, attn_impl: str):
+    if attn_impl in ("int8", "int8_t"):
+        return lowbit_fa_qk_int8_pv_fp16(q, k, v, is_causal=True)
+    if attn_impl in ("ref", "exact"):
+        return attention_reference(q, k, v, is_causal=True)
+    raise ValueError(f"unknown attn_impl {attn_impl!r}")
+
+
+def _qkv(blk: LLMBlock, x: torch.Tensor, cfg: LLMConfig):
+    b, s, _ = x.shape
+    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xa = blk.ln1(x)
+    q = _mm(xa, blk.wq).reshape(b, s, h, hd).transpose(1, 2)
+    k = _mm(xa, blk.wk).reshape(b, s, hk, hd).transpose(1, 2)
+    v = _mm(xa, blk.wv).reshape(b, s, hk, hd).transpose(1, 2)
+    return q, k, v
+
+
+def _mlp(blk: LLMBlock, x: torch.Tensor) -> torch.Tensor:
+    return x + _mm(F.silu(_mm(blk.ln2(x), blk.w1)), blk.w2)
+
+
+@torch.no_grad()
+def llm_prefill(
+    params: LLM,
+    tokens: torch.Tensor,  # [B, S]
+    cfg: LLMConfig,
+    *,
+    attn_impl: str = "int8",
+) -> Tuple[torch.Tensor, List[dict]]:
+    """Run the prompt through the model; returns ``(logits [B, S, vocab],
+    per-layer quantized KV caches)`` with every cache at ``max_seq`` rows and
+    ``length = S``. ``attn_impl``: ``"int8"`` (kernels C1 and A; ``"int8_t"``
+    is the same) or ``"ref"`` (the exact fp32 oracle)."""
+    b, s = tokens.shape
+    hk, hd = cfg.num_kv_heads, cfg.head_dim
+    x = params.embed(tokens)
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    caches = []
+    for blk in params.blocks:
+        q, k, v = _qkv(blk, x, cfg)
+        q = _rope(q, pos, cfg.rope_theta)
+        k = _rope(k, pos, cfg.rope_theta)
+        o = _attn_prefill(q, k, v, attn_impl)
+        x = x + _mm(o.transpose(1, 2).reshape(b, s, -1).to(x.dtype), blk.wo)
+        x = _mlp(blk, x)
+
+        # The layer's cache from the prefill K/V, quantized per token.
+        cache = dec.init_kv_cache(b, hk, cfg.max_seq, hd, k_bits=cfg.eff_k_bits, v_bits=cfg.eff_v_bits,
+                                  device=x.device)
+        kq, ks = dec.quantize_token(k, bits=cfg.eff_k_bits)
+        vq, vs = dec.quantize_token(v, bits=cfg.eff_v_bits)
+        cache["k"][:, :, :s] = kq
+        cache["v"][:, :, :s] = vq
+        cache["k_scale"][:, :, :s] = ks
+        cache["v_scale"][:, :, :s] = vs
+        cache["length"].fill_(s)
+        caches.append(cache)
+        del q, k, v, o, kq, vq
+    return params.logits(x), caches
+
+
+def merge_lse(o1: torch.Tensor, l1: torch.Tensor, o2: torch.Tensor, l2: torch.Tensor) -> torch.Tensor:
+    """Merge two partial attentions over disjoint key sets via their base-2
+    LSEs (the contract of ring attention and prefix reuse)."""
+    m = torch.maximum(l1, l2)
+    w1 = torch.exp2(l1 - m)
+    w2 = torch.exp2(l2 - m)
+    den = w1 + w2
+    o = o1.float() * (w1 / den)[..., None] + o2.float() * (w2 / den)[..., None]
+    return o.to(o1.dtype)
+
+
+@torch.no_grad()
+def llm_decode_step(
+    params: LLM,
+    token: torch.Tensor,  # [B]
+    caches: List[dict],
+    cfg: LLMConfig,
+) -> Tuple[torch.Tensor, List[dict]]:
+    """One autoregressive step through kernel D: appends the token's K/V to
+    every layer's cache (in place; see ``ops.decode.append_kv``) and returns
+    ``(logits [B, vocab], caches)``. The position is each cache's device
+    ``length``; nothing is read back to the host."""
+    b = token.shape[0]
+    x = params.embed(token)[:, None, :]  # [B, 1, D]
+    pos = caches[0]["length"][:, None]  # [B, 1]
+    new_caches = []
+    for blk, cache in zip(params.blocks, caches):
+        q, k, v = _qkv(blk, x, cfg)
+        q = _rope(q, pos, cfg.rope_theta)[:, :, 0]  # [B, H, hd]
+        k = _rope(k, pos, cfg.rope_theta)[:, :, 0]
+        cache = dec.append_kv(cache, k, v[:, :, 0])
+        o = dec.decode_attention(
+            q, cache["k"], cache["v"], cache["k_scale"], cache["length"],
+            v_scale=cache["v_scale"], k_bits=cfg.eff_k_bits, v_bits=cfg.eff_v_bits,
+        )  # [B, H, hd]
+        x = x + _mm(o.reshape(b, 1, -1).to(x.dtype), blk.wo)
+        x = _mlp(blk, x)
+        new_caches.append(cache)
+    return params.logits(x[:, 0]), new_caches
+
+
+@torch.no_grad()
+def decode_tokens(
+    params: LLM,
+    token: torch.Tensor,  # [B], the token fed at the current position
+    caches: List[dict],
+    n: int,
+    cfg: LLMConfig,
+) -> Tuple[torch.Tensor, List[dict]]:
+    """Greedy-decode ``n`` tokens: a Python loop of :func:`llm_decode_step`
+    with the argmax kept on the device, so no step waits for the host (the
+    JAX package's ``lax.scan``; a CUDA graph of the loop is later work).
+    Returns ``(tokens [B, n] int32, caches)``; the same as looping
+    :func:`llm_decode_step` by hand."""
+    tok = token.to(torch.int32)
+    out = []
+    for _ in range(n):
+        logits, caches = llm_decode_step(params, tok, caches, cfg)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1), caches
+
+
+@torch.no_grad()
+def generate(
+    params: LLM,
+    prompt: torch.Tensor,  # [B, S]
+    n_new: int,
+    cfg: LLMConfig,
+    *,
+    attn_impl: str = "int8",
+) -> torch.Tensor:
+    """Greedy generation: prefill, then :func:`decode_tokens`. Returns
+    ``[B, n_new]`` int32 tokens."""
+    logits, caches = llm_prefill(params, prompt, cfg, attn_impl=attn_impl)
+    token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    del logits
+    if n_new == 1:
+        return token[:, None]
+    toks, _ = decode_tokens(params, token, caches, n_new - 1, cfg)
+    return torch.cat([token[:, None], toks], dim=1)
+
+
+def rollback_caches(caches: List[dict], lengths: torch.Tensor) -> List[dict]:
+    """Set every layer cache's length: rows past it are dead (every consumer
+    masks ``pos < length``) and the next append overwrites them."""
+    return [{**c, "length": lengths} for c in caches]
+
+
+def llm_prefill_chunked(*args, **kwargs):
+    raise _not_ported("llm_prefill_chunked (chunked prefill with LSE merge)", "7")
+
+
+def llm_verify_step(*args, **kwargs):
+    raise _not_ported("llm_verify_step (multi-token verify)", "7")
+
+
+def speculative_generate(*args, **kwargs):
+    raise _not_ported("speculative_generate", "7")

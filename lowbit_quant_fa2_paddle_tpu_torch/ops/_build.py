@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-Every ``csrc/*.cu`` of this package is compiled for Hopper (``sm_90a``) into
-one shared library with a plain C interface, at first use, into
-``csrc/build/`` keyed by a hash of the sources and flags. Nothing here runs
-at import: the CPU tests import every module on a machine with no nvcc.
+Every ``csrc/*.cu`` of this package is compiled for Hopper (``sm_90a``), one
+nvcc process per source, all started together, and linked into one shared
+library with a plain C interface, at first use, into ``csrc/build/`` keyed
+by a hash of the sources and flags. Nothing here runs at import: the CPU
+tests import every module on a machine with no nvcc.
 
 No ``--use_fast_math``: the INT8 codes depend on IEEE division and on exact
 round-half-away-from-zero.
@@ -18,13 +19,13 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
 ]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -33,6 +34,8 @@ _SIGNATURES = {
     "lowbit_quant_int8": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _P],
     "lowbit_attn_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "lowbit_decode_attn": [_P] * 10 + [_I] * 12 + [_F, _P],
+    "lowbit_decode_ctas_per_sm": [_I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -63,8 +66,31 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"liblowbit_kernels_{h.hexdigest()[:16]}.so")
 
 
-def nvcc_command(out_path: str, nvcc: str = "nvcc") -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", out_path, *sources()]
+def nvcc_commands(out_path: str, nvcc: str = "nvcc") -> Tuple[List[List[str]], List[str]]:
+    """One compile command per source (objects beside ``out_path``) and the
+    link command that makes the shared library ``out_path``."""
+    objs = [f"{out_path}.{os.path.splitext(os.path.basename(src))[0]}.o" for src in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj] for src, obj in zip(sources(), objs)]
+    return compiles, [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", out_path, *objs]
+
+
+def _build(path: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    compiles, link = nvcc_commands(tmp, _nvcc())
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in compiles]
+    outs = [p.communicate()[0] for p in procs]
+    with open(path + ".log", "w") as f:
+        f.write("".join(outs))
+    for src, p, out in zip(sources(), procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}) on {src}:\n{out[-8000:]}")
+    proc = subprocess.run(link, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    for cmd in compiles:
+        os.remove(cmd[-1])
+    os.replace(tmp, path)
 
 
 def library() -> ctypes.CDLL:
@@ -75,14 +101,7 @@ def library() -> ctypes.CDLL:
             return _lib
         path = library_path()
         if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            proc = subprocess.run(nvcc_command(tmp, _nvcc()), capture_output=True, text=True)
-            with open(path + ".log", "w") as f:
-                f.write(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-            os.replace(tmp, path)
+            _build(path)
         lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,0 +1,271 @@
+"""Port parity: the quantized KV cache ops and decode attention (kernel D) of
+the PyTorch package against the JAX package.
+
+Inputs come from numpy with a seed and go to both sides. JAX runs its Pallas
+decode kernel in interpret mode on the CPU; the port runs its plain version.
+
+* ``quantize_token``/``append_kv``: codes and scales bit for bit, against the
+  JAX functions as they run compiled (``jax.jit``), including exact .5 ties
+  and the rows past the written length. Compiled XLA forms the scale
+  ``amax/127 + 1e-7`` as one fma; JAX run op by op divides and then adds,
+  which moves ~28% of scales by one ulp (test_jax_eager_scale_is_not_the_fma).
+* ``decode_attention``: both sides compute in f32 and differ only in
+  summation order (JAX online over blocks of up to 2048 keys, the port in
+  closed form): cos >= 0.999999, max|do| <= 2e-6 and max|dlse| <= 1e-5 on
+  outputs of magnitude ~1 (measured on a CPU: max|do| <= 3.6e-7, max|dlse|
+  <= 9.6e-7). bf16 queries give bf16 outputs, equal here.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lowbit_quant_fa2_paddle_tpu.ops import decode as jd
+from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as td
+from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import absmax_scale
+
+COS_MIN, MAX_DO, MAX_DLSE = 0.999999, 2e-6, 1e-5
+
+
+def _np(x) -> np.ndarray:
+    return np.array(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
+
+
+def _torch(x) -> torch.Tensor:
+    t = torch.from_numpy(_np(x))
+    return t.to(torch.bfloat16) if x.dtype == jnp.bfloat16 else t
+
+
+def _bits_equal(port: torch.Tensor, want) -> None:
+    """Same dtype class and the same bits."""
+    assert port.dtype == (torch.bfloat16 if want.dtype == jnp.bfloat16 else torch.from_numpy(np.array(want)).dtype)
+    got = port.float().numpy() if port.dtype == torch.bfloat16 else port.numpy()
+    exp = _np(want)
+    assert got.shape == exp.shape
+    np.testing.assert_array_equal(got.view(np.uint8), exp.view(np.uint8))
+
+
+def _rows_with_ties(rng, shape):
+    """f32 rows whose quantization hits exact .5 ties: after the row maximum
+    fixes the scale, some entries are set to (n + 0.5) * scale wherever the
+    f32 division gives n + 0.5 back exactly."""
+    x = (rng.standard_normal(shape) * 3).astype(np.float32)
+    flat = x.reshape(-1, shape[-1])
+    amax = np.abs(flat).max(axis=1)
+    scale = absmax_scale(torch.from_numpy(amax)[:, None])[:, 0].numpy()
+    ties = 0
+    for i in range(flat.shape[0]):
+        for j in rng.choice(np.arange(1, shape[-1]), size=8, replace=False):
+            n = int(rng.integers(-120, 120))
+            y = np.float32(n + 0.5) * scale[i]
+            if abs(y) < amax[i] and y / scale[i] == np.float32(n + 0.5) and np.abs(flat[i]).argmax() != j:
+                flat[i, j] = y
+                ties += 1
+    return x, ties
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantize_token_matches_jax(bits):
+    x, ties = _rows_with_ties(np.random.default_rng(0), (3, 2, 40, 64))
+    assert ties > 100
+    jc, js = jax.jit(lambda a: jd.quantize_token(a, bits=bits))(jnp.asarray(x))
+    tc, ts = td.quantize_token(torch.from_numpy(x), bits=bits)
+    _bits_equal(tc, jc)
+    _bits_equal(ts, js)
+
+
+def test_quantize_token_rounds_ties_away_from_zero():
+    scale = absmax_scale(torch.tensor([[127.0]]))[0, 0]
+    x = torch.stack([torch.tensor(127.0), 0.5 * scale, -0.5 * scale, torch.tensor(0.0)])[None]
+    codes, got = td.quantize_token(x)
+    assert float(got[0]) == float(scale)
+    assert codes.tolist() == [[127, 1, -1, 0]]  # torch.round gives 0 and -0
+
+
+def test_jax_eager_scale_is_not_the_fma():
+    """JAX run op by op computes ``amax / 127`` and then ``+ 1e-7`` (two
+    roundings); compiled, XLA emits one fma. The port follows the compiled
+    form everywhere, so it matches JAX's decode (jitted) bit for bit, and
+    JAX's eager prefill up to one ulp of some scales (ROADMAP Queue 3)."""
+    x = (np.random.default_rng(1).standard_normal((4, 3, 500, 64)) * 3).astype(np.float32)
+    eager = np.asarray(jd.quantize_token(jnp.asarray(x))[1])
+    jitted = np.asarray(jax.jit(jd.quantize_token)(jnp.asarray(x))[1])
+    port = td.quantize_token(torch.from_numpy(x))[1].numpy()
+    np.testing.assert_array_equal(port, jitted)
+    differ = eager != jitted
+    assert 0.05 < differ.mean() < 0.6
+    assert np.abs(eager.view(np.int32) - jitted.view(np.int32)).max() == 1
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_append_kv_matches_jax(bits):
+    """Three appends at lengths 0, 4 and S_max: the last row writes clamp to
+    row S_max - 1 as ``dynamic_update_slice`` does; rows past the written
+    length keep their initial zeros and ones."""
+    rng = np.random.default_rng(2)
+    b, hk, s_max, d = 3, 2, 6, 64
+    lengths = np.array([0, 4, s_max], np.int32)
+    jc = jd.init_kv_cache(b, hk, s_max, d, bits=bits)
+    jc["length"] = jnp.asarray(lengths)
+    tc = td.init_kv_cache(b, hk, s_max, d, bits=bits)
+    tc["length"] = torch.from_numpy(lengths.copy())
+    append = jax.jit(jd.append_kv)
+    for _ in range(3):
+        k, _ = _rows_with_ties(rng, (b, hk, d))
+        v = (rng.standard_normal((b, hk, d)) * 2).astype(np.float32)
+        jc = append(jc, jnp.asarray(k), jnp.asarray(v))
+        tc = td.append_kv(tc, torch.from_numpy(k), torch.from_numpy(v))
+    for key in ("k", "v", "k_scale", "v_scale", "length"):
+        _bits_equal(tc[key], jc[key])
+    assert tc["length"].tolist() == [3, 7, 9]
+
+
+def _decode_inputs(b, h, hk, d, s, k_bits, v_bits, seed):
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((b, hk, s, d)).astype(np.float32)
+    v = rng.standard_normal((b, hk, s, d)).astype(np.float32)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    quant = jax.jit(jd.quantize_token, static_argnames="bits")
+    kq, ks = quant(jnp.asarray(k), bits=k_bits)
+    vq, vs = quant(jnp.asarray(v), bits=v_bits)
+    lengths = np.array([s, 0, 1, 137][:b], np.int32)
+    return q, kq, vq, ks, vs, lengths
+
+
+@pytest.mark.parametrize(
+    "k_bits,v_bits,h,hk,d,s,mode,lse",
+    [
+        (8, 8, 8, 2, 32, 300, "auto", True),   # GQA 8q/2kv, S_max not a multiple of the JAX block (384)
+        (8, 8, 4, 4, 64, 300, "auto", False),  # MHA
+        (8, 8, 8, 2, 128, 300, "auto", True),
+        (16, 16, 8, 2, 32, 300, "auto", False),
+        (16, 16, 4, 4, 64, 300, "auto", True),
+        (16, 16, 8, 2, 128, 300, "auto", True),
+        (8, 8, 4, 4, 64, 2500, "auto", True),  # five JAX blocks of 512, the last ragged
+        (8, 16, 8, 2, 64, 300, "auto", True),  # int8 K, bf16 V
+        (8, 8, 8, 2, 64, 300, "f32", True),    # int8 K on the float chain
+    ],
+)
+def test_decode_attention_matches_jax(k_bits, v_bits, h, hk, d, s, mode, lse):
+    q, kq, vq, ks, vs, lengths = _decode_inputs(4, h, hk, d, s, k_bits, v_bits, seed=d + s + k_bits)
+    kw = dict(k_bits=k_bits, v_bits=v_bits, compute_mode=mode, return_lse=lse)
+    jout = jd.decode_attention(jnp.asarray(q), kq, vq, ks, jnp.asarray(lengths), v_scale=vs, **kw)
+    tout = td.decode_attention(torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths),
+                               v_scale=_torch(vs), **kw)
+    jo, to = (jout[0], tout[0]) if lse else (jout, tout)
+    jo = torch.from_numpy(_np(jo))
+    assert to.dtype == torch.float32 and to.shape == (4, h, d) and torch.isfinite(to).all()
+    assert float(cosine_similarity(to, jo)) >= COS_MIN
+    assert float((to - jo).abs().max()) <= MAX_DO
+    assert float(to[1].abs().max()) == 0.0  # length 0: no visible key
+    if lse:
+        jl, tl = torch.from_numpy(_np(jout[1])), tout[1]
+        assert tl.shape == (4, h)
+        assert float((tl - jl).abs().max()) <= MAX_DLSE
+        assert torch.all(tl[1] == torch.tensor(-1e30))
+
+
+def test_decode_attention_bf16_query_matches_jax():
+    q, kq, vq, ks, vs, lengths = _decode_inputs(4, 8, 2, 128, 300, 8, 8, seed=3)
+    jo = jd.decode_attention(jnp.asarray(q, jnp.bfloat16), kq, vq, ks, jnp.asarray(lengths), v_scale=vs)
+    to = td.decode_attention(torch.from_numpy(q).bfloat16(), _torch(kq), _torch(vq), _torch(ks),
+                             torch.from_numpy(lengths), v_scale=_torch(vs))
+    assert to.dtype == torch.bfloat16
+    np.testing.assert_array_equal(to.float().numpy(), _np(jo))
+
+
+def test_decode_attention_ignores_rows_past_length():
+    """Stale rows past the length (as after a rollback) change nothing."""
+    q, kq, vq, ks, vs, lengths = _decode_inputs(4, 8, 2, 64, 200, 16, 16, seed=4)
+    args = [torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths)]
+    clean = td.decode_attention(*args, kv_bits=16)
+    k2, v2 = args[1].clone(), args[2].clone()
+    for i, n in enumerate(lengths):
+        k2[i, :, n:] = float("nan")
+        v2[i, :, n:] = float("inf")
+    stale = td.decode_attention(args[0], k2, v2, *args[3:], kv_bits=16)
+    torch.testing.assert_close(stale, clean, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "kw,item",
+    [
+        (dict(page_table=torch.zeros(4, 2, dtype=torch.int32)), "8"),
+        (dict(window_size=64), "7"),
+        (dict(sink_size=4, window_size=64), "7"),
+        (dict(logit_cap=30.0), "7"),
+        (dict(compute_mode="int"), "7"),
+        (dict(kv_bits=4), "7"),
+        (dict(k_bits=4, v_bits=8), "7"),
+    ],
+)
+def test_unported_decode_options_raise(kw, item):
+    q, kq, vq, ks, vs, lengths = _decode_inputs(4, 4, 4, 32, 64, 8, 8, seed=5)
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        td.decode_attention(torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths),
+                            v_scale=_torch(vs), **kw)
+
+
+def test_unported_cache_ops_raise():
+    with pytest.raises(NotImplementedError, match="item 7"):
+        td.init_kv_cache(1, 2, 8, 64, bits=4)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        td.decode_attention(torch.zeros(1, 2, 4, 64), torch.zeros(1, 2, 8, 64, dtype=torch.int8),
+                            torch.zeros(1, 2, 8, 64, dtype=torch.int8), torch.ones(1, 2, 8),
+                            torch.ones(1, dtype=torch.int32))
+    cache = td.init_kv_cache(1, 2, 8, 64)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        td.append_kv_multi(cache, torch.zeros(1, 2, 3, 64), torch.zeros(1, 2, 3, 64))
+
+
+def test_decode_attention_takes_cpu_or_cuda_only():
+    q = torch.zeros(1, 2, 64, device="meta")
+    k = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        td.decode_attention(q, k, k, torch.ones(1, 2, 8, device="meta"),
+                            torch.ones(1, dtype=torch.int32, device="meta"), kv_bits=16)
+
+
+@pytest.mark.parametrize("s_max,ctas,slots", [(32768, 32, 528), (32768, 32, 264), (300, 8, 528), (64, 1, 528),
+                                              (100000, 4096, 264)])
+def test_split_plan_fills_whole_waves(s_max, ctas, slots):
+    n, chunk = td.num_splits(s_max, ctas, slots)
+    assert chunk % td.KV_TILE == 0 and n >= 1
+    assert (n - 1) * chunk < s_max <= n * chunk
+    assert n == 1 or n * ctas <= td.WAVES * slots
+    if (s_max, ctas, slots) == (32768, 32, 528):
+        assert (n, chunk) == (16, 2048)
+
+
+@pytest.mark.parametrize("group,rows", [(1, 1), (4, 4), (8, 8), (12, 6), (16, 8), (7, 7), (9, 3)])
+def test_rows_per_cta_divides_the_group(group, rows):
+    assert td.rows_per_cta(group) == rows
+
+
+def test_lengths_past_the_cache_count_as_its_size():
+    """An append at ``length == S_max`` overwrites row S_max - 1 and leaves
+    ``length = S_max + 1``. The port reads such a length as S_max. JAX pads
+    the cache to its block (here 300 -> 384) with zero codes and zero
+    scales, and counts the padded row at position 300 as a visible key with
+    logit 0 (ROADMAP Queue 3)."""
+    q, kq, vq, ks, vs, _ = _decode_inputs(2, 4, 4, 64, 300, 8, 8, seed=6)
+    args = [_torch(kq), _torch(vq), _torch(ks)]
+    over, full = (torch.tensor([n, n], dtype=torch.int32) for n in (301, 300))
+    t_over = td.decode_attention(torch.from_numpy(q), *args, over, v_scale=_torch(vs), return_lse=True)
+    t_full = td.decode_attention(torch.from_numpy(q), *args, full, v_scale=_torch(vs), return_lse=True)
+    torch.testing.assert_close(t_over, t_full, rtol=0, atol=0)
+    j_over = jd.decode_attention(jnp.asarray(q), kq, vq, ks, jnp.asarray(over.numpy()), v_scale=vs, return_lse=True)
+    j_full = jd.decode_attention(jnp.asarray(q), kq, vq, ks, jnp.asarray(full.numpy()), v_scale=vs, return_lse=True)
+    assert float((torch.from_numpy(_np(j_full[1])) - t_full[1]).abs().max()) <= MAX_DLSE
+    # JAX: one more key of weight 2^(0 - m) enters l, so its LSE grows.
+    assert float((torch.from_numpy(_np(j_over[1])) - t_over[1]).min()) > 1e-4
+
+
+@pytest.mark.parametrize("buf_dtype,width,bits", [(torch.int8, 64, 8), (torch.int8, 32, 4), (torch.bfloat16, 64, 16)])
+def test_cache_bits_matches_jax(buf_dtype, width, bits):
+    j_buf = jnp.zeros((1, 1, 2, width), jnp.int8 if buf_dtype == torch.int8 else jnp.bfloat16)
+    assert jd.cache_bits(j_buf, jnp.zeros((1, 1, 64))) == bits
+    assert td.cache_bits(torch.zeros(1, 1, 2, width, dtype=buf_dtype), torch.zeros(1, 1, 64)) == bits

@@ -20,6 +20,7 @@ import torch
 
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import decode_attention, decode_attention_plain, quantize_token
 from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int8, quant_int8_plain
 
@@ -31,7 +32,10 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import lowbit_quant_fa2_paddle_tpu_torch as p\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.models.dit\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.models.llm\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.models.train\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.utils.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lowbit_quant_fa2_paddle_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -39,21 +43,25 @@ def test_port_imports_no_jax():
 
 
 def test_cpu_tensors_launch_no_kernel():
-    n_q, n_a = quant_int8.launches, lowbit_attention.launches
+    n_q, n_a, n_d = quant_int8.launches, lowbit_attention.launches, decode_attention.launches
     x = torch.randn(1, 2, 70, 64)
     codes, scale = quant_int8(x, gran="per_token")
     lowbit_attention(x, codes, x, None, scale)
     lowbit_attention(x, x, x)
-    assert (quant_int8.launches, lowbit_attention.launches) == (n_q, n_a)
+    decode_attention(x[:, :, 0], codes, codes, scale, torch.tensor([70], dtype=torch.int32), v_scale=scale)
+    assert (quant_int8.launches, lowbit_attention.launches, decode_attention.launches) == (n_q, n_a, n_d)
 
 
 def test_build_command_targets_sm90a_from_repo_sources():
-    cmd = _build.nvcc_command("out.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert not any("fast_math" in a or "fast-math" in a for a in cmd)
-    srcs = [a for a in cmd if a.endswith(".cu")]
-    assert sorted(os.path.basename(s) for s in srcs) == ["attention_fwd.cu", "quant_int8.cu"]
+    compiles, link = _build.nvcc_commands("out.so")
+    for cmd in compiles + [link]:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+    srcs = [a for cmd in compiles for a in cmd if a.endswith(".cu")]
+    assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
+    assert sorted(os.path.basename(s) for s in srcs) == ["attention_fwd.cu", "decode_attention.cu", "quant_int8.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
+    assert "-shared" in link and link[-3:] == [cmd[-1] for cmd in compiles]
     assert _build.CSRC_DIR.startswith(os.path.join(REPO, "lowbit_quant_fa2_paddle_tpu_torch"))
     assert os.path.dirname(_build.library_path()) == _build.BUILD_DIR
     with open(os.path.join(REPO, ".gitignore")) as f:
@@ -110,3 +118,32 @@ def test_attention_kernel_matches_plain(cuda, mode, causal, h, hk, d, s):
     assert float(cosine_similarity(o, o_ref)) >= 0.9999
     assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
     assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "bits,h,hk,d,s,lengths",
+    [(8, 32, 8, 128, 4500, [4500, 1, 4097, 0]), (16, 32, 8, 128, 4500, [4500, 1, 4097, 0]),
+     (8, 8, 8, 64, 1000, [1000, 77]), (16, 8, 2, 32, 1000, [1000, 0, 513])],
+)
+def test_decode_kernel_matches_plain(cuda, bits, h, hk, d, s, lengths):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b = len(lengths)
+    k = torch.randn(b, hk, s, d, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, hk, s, d, generator=g, device=cuda).bfloat16()
+    q = torch.randn(b, h, d, generator=g, device=cuda).bfloat16()
+    (kq, ks), (vq, vs) = quantize_token(k, bits=bits), quantize_token(v, bits=bits)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n = decode_attention.launches
+    o, lse = decode_attention(q, kq, vq, ks, lens, v_scale=vs, kv_bits=bits, return_lse=True)
+    o_ref, lse_ref = decode_attention_plain(q, kq, vq, ks, vs if bits == 8 else None, lens,
+                                            sm_scale=1.0 / math.sqrt(d), int_qk=bits == 8, out_dtype=q.dtype)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n + 1
+    ulp = 2.0 ** (math.floor(math.log2(float(o_ref.float().abs().max()))) - 7)  # bf16 ulp of max|o|
+    assert float(cosine_similarity(o, o_ref)) >= 0.99999
+    assert float((o.float() - o_ref.float()).abs().max()) <= ulp
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    if 0 in lengths:
+        i = lengths.index(0)
+        assert float(o[i].float().abs().max()) == 0.0 and bool((lse[i] == -1e30).all())
