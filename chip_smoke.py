@@ -8,26 +8,34 @@ Phases, each of which raises on failure (exit code 1, no result line):
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
 2. build: compiles the port's kernels (csrc/*.cu) with nvcc, prints seconds
    and each kernel's registers and spills;
-3. kernel C1 (quant_int8) against its plain PyTorch version on the card at
-   the CogVideoX-2b K shape b1 h30 s17776 d64 with the K mean, per token and
-   per block, at a ragged s1000, and at the LLM prefill's K (b4 h8 s32704
-   d128): codes and scales must be equal;
+3. kernels C1, C2, C3 (quant_int8, quant_int4, quant_int2) against their
+   plain PyTorch versions on the card at the CogVideoX-2b K shape b1 h30
+   s17776 d64 with the K mean, per token and per block, at a ragged s1000,
+   at d128, and (C1) at the LLM prefill's K (b4 h8 s32704 d128): C1 and C2
+   codes and scales must be equal; C3 scales within 2 ulp and codes equal
+   except where |x/scale| lies within 1e-5 of the 0.5 boundary (counted);
 4. kernel A (lowbit_attention) against its plain version: int8 with Q
    quantized in the kernel, int8 with external Q codes, fp, causal, GQA
    8q/2kv, d128, ragged s1000, smooth-V, the LLM prefill (causal GQA
    32q/8kv d128 s32704) and the checkpoint's prefill, with and without the
    LSE, and at b1 h30 s17776 d64 (int8 and fp), timed beside PyTorch's SDPA
-   as a baseline. The plain version rounds P where the
-   kernel does and differs only in summation order, so the bounds are
-   cos >= 0.99999, max|do| <= 2e-2 (a bf16 ulp of outputs up to 4 is 1.6e-2)
-   and max|dlse| <= 1e-3;
+   as a baseline; then its low-bit modes (packed INT4 K, packed INT2 K,
+   INT8 V, INT8 V with INT8 PV) at b1 h30 s17776 d64, causal GQA 8q/2kv
+   d128 and ragged s1000, timed at the first. The plain version rounds P
+   (or p8) where the kernel does and differs only in summation order, so
+   the bounds are cos >= 0.99999, max|do| <= 2e-2 (a bf16 ulp of outputs up
+   to 4 is 1.6e-2) and max|dlse| <= 1e-3. Then the entry points
+   lowbit_fa_attn(bits="int2"), (bits="auto") and (bits="int8_v8",
+   pv_int8=True) at b1 h30 s17776 d64, each with its launch counts;
 5. main path: the full-width, full-depth CogVideoX-2b DiT (dim 1920, 30
    heads x 64, depth 30, random weights from a seeded generator) takes 3
-   denoise steps x <- x - 0.1 * eps on b1 s17776 latents with
-   attn_impl="int8", then 3 with "fp". The frames must be finite and agree
-   (cos >= 0.999), and the launch counters must show every attention call
-   went through kernel A (90 per impl) and every K quantization through C1
-   (90);
+   denoise steps x <- x - 0.1 * eps on b1 s17776 latents with each of
+   attn_impl="int8", "int8_v8", "int4" and "fp". The frames must be finite
+   and agree with fp (cos >= 0.999), the first step's eps must agree with
+   fp (cos >= 0.99 for int8_v8, >= 0.98 for int4, the JAX package's DiT
+   bound), and the launch counters must show every attention call went
+   through kernel A (90 per impl) and every K quantization through C1 (90
+   for int8 and int8_v8) or C2 (90 for int4);
 6. kernel D (decode_attention) against its plain version: int8 and bf16
    caches at b4 h32 hk8 d128 S_max 32768 with lengths [32768, 1, 4097, 0],
    d64 MHA, d32 GQA 8q/2kv, and the checkpoint's b64 S_max 128 with f32
@@ -164,6 +172,45 @@ def quant_phase(gen):
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
+def lowbit_quant_phase(gen):
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as qo
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    records = {}
+    for bits, quant, plain in ((4, qo.quant_int4, qo.quant_int4_plain), (2, qo.quant_int2, qo.quant_int2_plain)):
+        name, worst = f"C{2 if bits == 4 else 3}", 0.0
+        for s, d, gran, block in [(S, D, "per_token", 128), (S, D, "per_block", 64), (1000, D, "per_token", 128),
+                                  (1000, D, "per_block", 64), (1000, 128, "per_token", 128),
+                                  (1000, 128, "per_block", 64)]:
+            k = (torch.randn(B, H, s, d, generator=gen, device="cuda") + 0.5).bfloat16()
+            km = qo.k_mean(k)
+            codes, scale = quant(k, km, gran=gran, block=block)
+            want_c, want_s = plain(k, km, per_token=gran == "per_token", block=block)
+            torch.cuda.synchronize()
+            ulps = int((scale.view(torch.int32).long() - want_s.view(torch.int32).long()).abs().max())
+            worst = max(worst, float((scale - want_s).abs().max()))
+            if bits == 4:
+                ok = torch.equal(codes, want_c) and ulps == 0
+                log(f"[{name}] s{s} d{d} {gran}: codes_equal={torch.equal(codes, want_c)} scale_ulps={ulps}")
+            else:
+                x = k.float() - km
+                near = ((x / scale[..., None]).abs() - 0.5).abs() < 1e-5
+                diff = qo.unpack_int2(codes) != qo.unpack_int2(want_c)
+                bad = int((diff & ~near).sum())
+                ok = ulps <= 2 and bad == 0
+                log(f"[{name}] s{s} d{d} {gran}: scale_ulps={ulps} codes_differ={int(diff.sum())} "
+                    f"near_boundary={int(near.sum())} differ_away_from_boundary={bad}")
+            if not ok:
+                raise AssertionError(f"kernel {name} differs from its plain version at s{s} d{d} {gran}")
+        k = torch.randn(B, H, S, D, generator=gen, device="cuda").bfloat16()
+        km = qo.k_mean(k)
+        ms = cuda_time_ms(lambda: quant(k, km, gran="per_token"), warmup=3, reps=20)
+        plain_ms = cuda_time_ms(lambda: plain(k, km, per_token=True, block=128), warmup=1, reps=5)
+        log(f"[{name}] b{B} h{H} s{S} d{D} per_token bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        records[bits] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return records
+
+
 def attn_inputs(gen, h, hk, s, d, mode, causal=False, smooth_v=False, dtype=torch.bfloat16):
     from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E
     from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import k_mean, quant_int8
@@ -244,11 +291,107 @@ def attention_phase(gen):
     return records
 
 
+LOWBIT_MODES = {"int4-K": (4, "bf16"), "int2-K": (2, "bf16"), "int8-V": (8, "int8"), "int8-PV": (8, "int8_pv")}
+
+
+def lowbit_attn_inputs(gen, mode, h, hk, s, d):
+    """Float Q (quantized in the kernel), K codes with the K mean taken out,
+    and bf16 V or smooth-V per-channel INT8 V codes, for a low-bit mode."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as qo
+
+    k_bits, v_mode = LOWBIT_MODES[mode]
+    q = torch.randn(1, h, s, d, generator=gen, device="cuda").bfloat16()
+    k = (torch.randn(1, hk, s, d, generator=gen, device="cuda") + 0.3).bfloat16()
+    v = torch.randn(1, hk, s, d, generator=gen, device="cuda").bfloat16()
+    quant = {8: qo.quant_int8, 4: qo.quant_int4, 2: qo.quant_int2}[k_bits]
+    kc, ks = quant(k, qo.k_mean(k), gran="per_token")
+    vs = vm = None
+    if v_mode != "bf16":
+        v, vs, vm = qo.quant_v_int8_per_channel(v, smooth_v=True)
+    kw = dict(v_scale=vs, v_mean=vm, pv_int8=v_mode == "int8_pv")
+    return (q, kc, v, None, ks), dict(k_pack_bits=k_bits, **kw), dict(k_bits=k_bits, **kw)
+
+
+def lowbit_attention_phase(gen):
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import attention_flops, cuda_time_ms, tflops
+
+    records = {}
+    for mode in LOWBIT_MODES:
+        for case, (h, hk, s, d, causal) in [("b1 h30 s17776 d64", (H, H, S, D, False)),
+                                            ("causal GQA 8q/2kv d128 s2048", (8, 2, 2048, 128, True)),
+                                            ("ragged s1000", (8, 8, 1000, D, False))]:
+            args, kw, pkw = lowbit_attn_inputs(gen, mode, h, hk, s, d)
+            o, lse = lowbit_attention(*args, **kw, is_causal=causal, return_lse=True)
+            c = 1.0 / math.sqrt(d) * LOG2E
+            pargs = args[:5] + (pkw.pop("v_mean"),)
+
+            def plain():
+                return attention_fwd_plain(*pargs, causal=causal, sm_scale_log2e=c, out_dtype=torch.bfloat16, **pkw)
+
+            o_ref, lse_ref = plain()
+            torch.cuda.synchronize()
+            r = stats(o, o_ref, lse, lse_ref)
+            check_close(f"{mode} {case}", r)
+            if case == "ragged s1000":  # the no-LSE launch writes the same output
+                if not torch.equal(lowbit_attention(*args, **kw, is_causal=causal), o):
+                    raise AssertionError(f"kernel A ({mode}) output differs with return_lse=False")
+                log(f"[A] {mode} return_lse=False: output identical")
+            if case.startswith("b1 h30"):
+                del o_ref, lse_ref
+                ms = cuda_time_ms(lambda: lowbit_attention(*args, **kw), warmup=2, reps=10)
+                plain_ms = cuda_time_ms(plain, warmup=1, reps=3)
+                tf = tflops(attention_flops(B, H, D, S, S, False), ms / 1e3)
+                log(f"[A] {mode} b{B} h{H} s{S} d{D}: kernel {ms:.3f} ms ({tf:.1f} TFLOP/s), plain {plain_ms:.3f} ms")
+                records[mode] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, "tflops": tf}
+            else:
+                records[mode]["max_abs_err"] = max(records[mode]["max_abs_err"], r["max_do"])
+            del args, o, lse
+    return records
+
+
+def entry_point_phase(gen):
+    """The slice's entry points at the flagship shape: lowbit_fa_attn with
+    bits="int2", "auto" (which picks int4 for unit-normal tensors) and
+    "int8_v8" with pv_int8, each run with the counters set to 0 just before
+    it. Each output must be finite and track the fp baseline: INT2 K
+    perturbs each logit with noise of ~0.45 (natural log), which caps the
+    output cosine near exp(-0.45^2 / 2) = 0.90 at any length (bound 0.85);
+    INT4 K (bound 0.98); INT8 PV rounds every P to an integer of [0, 127],
+    an error of ~1/24 of the signal at 17,776 unit-normal keys (bound
+    0.99)."""
+    import lowbit_quant_fa2_paddle_tpu_torch as lq
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+
+    q, k, v = (torch.randn(B, H, S, D, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    o_fp = lq.lowbit_fa_attn(q, k, v, bits="fp")
+    runs = {}
+    for name, kw, want, cos_min in [
+        ("int2", dict(bits="int2"), {"A": 1, "C1": 0, "C2": 0, "C3": 1}, 0.85),
+        ("auto", dict(bits="auto"), {"A": 1, "C1": 0, "C2": 1, "C3": 0}, 0.98),
+        ("int8_v8 pv_int8", dict(bits="int8_v8", pv_int8=True), {"A": 1, "C1": 1, "C2": 0, "C3": 0}, 0.99),
+    ]:
+        count_reset()
+        o = lq.lowbit_fa_attn(q, k, v, **kw)
+        torch.cuda.synchronize()
+        got = counts()
+        got = {key: got[key] for key in want}
+        cos = float(cosine_similarity(o, o_fp))
+        finite = bool(torch.isfinite(o.float()).all())
+        log(f"[api] lowbit_fa_attn({', '.join(f'{a}={b!r}' for a, b in kw.items())}) b{B} h{H} s{S} d{D}: "
+            f"launches {got} (want {want}), cos vs fp {cos:.6f}, finite={finite}")
+        if got != want or not finite or tuple(o.shape) != (B, H, S, D) or cos < cos_min:
+            raise AssertionError(f"entry point {name}: launches {got}, cos {cos}, finite {finite}")
+        runs[name] = got
+    return runs
+
+
+DIT_IMPLS = ("int8", "int8_v8", "int4", "fp")
+
+
 def main_path_phase():
     from lowbit_quant_fa2_paddle_tpu_torch.models import dit
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
     from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity, mse
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int8
 
     cfg = dit.cogvideox_2b_config()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -262,15 +405,15 @@ def main_path_phase():
     ts = [torch.tensor([1000.0 * (1.0 - i / STEPS)], device="cuda") for i in range(STEPS)]
 
     with torch.inference_mode():
-        for impl in ("int8", "fp"):  # warm-up, outside the counted run
+        for impl in DIT_IMPLS:  # warm-up, outside the counted runs
             dit.dit_forward(model, x0, ts[0], attn_impl=impl)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        quant_int8.launches = lowbit_attention.launches = 0
-        frames, step_ms, counts, eps0 = {}, {}, {}, {}
-        for impl in ("int8", "fp"):
+        frames, step_ms, launches, eps0 = {}, {}, {}, {}
+        for impl in DIT_IMPLS:
             x = x0
             times = []
+            count_reset()
             for i, t in enumerate(ts):
                 t1 = time.perf_counter()
                 eps = dit.dit_forward(model, x, t, attn_impl=impl)
@@ -279,31 +422,32 @@ def main_path_phase():
                 times.append((time.perf_counter() - t1) * 1e3)
                 if i == 0:
                     eps0[impl] = eps.float()
+            launches[impl] = counts()
             frames[impl], step_ms[impl] = x.float(), times
-            counts[impl] = (lowbit_attention.launches, quant_int8.launches)
         peak = torch.cuda.max_memory_allocated()
-    launches_a_int8, launches_c1 = counts["int8"]
-    launches_a_fp = counts["fp"][0] - counts["int8"][0]
-    c1_in_fp = counts["fp"][1] - counts["int8"][1]
-    cos = float(cosine_similarity(frames["int8"], frames["fp"]))
-    err = float(mse(frames["int8"], frames["fp"]))
-    eps_cos = float(cosine_similarity(eps0["int8"], eps0["fp"]))
-    for impl in ("int8", "fp"):
+    want_n = cfg.depth * STEPS
+    res = {"launches": launches, "ms_per_step": step_ms, "peak_gib": peak / 2**30, "frame_cos": {}, "eps_cos": {}}
+    for impl in DIT_IMPLS:
         log(f"[dit] {impl}: ms/step " + ", ".join(f"{t:.1f}" for t in step_ms[impl]))
-    log(f"[dit] peak memory {peak / 2**30:.2f} GiB; int8 vs fp frame cos {cos:.6f} mse {err:.3e}; "
-        f"first-step eps cos {eps_cos:.6f}")
-    log(f"[dit] launches: A int8 {launches_a_int8}, A fp {launches_a_fp}, C1 {launches_c1} (+{c1_in_fp} in fp)")
-    want = cfg.depth * STEPS
+    log(f"[dit] peak memory {peak / 2**30:.2f} GiB")
     if not all(bool(torch.isfinite(f).all()) for f in frames.values()):
         raise AssertionError("non-finite DiT frames")
-    if cos < 0.999:
-        raise AssertionError(f"int8 vs fp frame cos {cos} < 0.999")
-    if (launches_a_int8, launches_a_fp, launches_c1, c1_in_fp) != (want, want, want, 0):
-        raise AssertionError(f"launch counts {counts} != {want} per impl")
-    return {
-        "launches": {"quant_int8": launches_c1, "attention_int8": launches_a_int8, "attention_fp": launches_a_fp},
-        "ms_per_step": step_ms, "peak_gib": peak / 2**30, "frame_cos": cos, "frame_mse": err, "eps_cos": eps_cos,
-    }
+    eps_min = {"int8": 0.98, "int8_v8": 0.99, "int4": 0.98}
+    for impl in DIT_IMPLS[:-1]:
+        cos = float(cosine_similarity(frames[impl], frames["fp"]))
+        err = float(mse(frames[impl], frames["fp"]))
+        eps_cos = float(cosine_similarity(eps0[impl], eps0["fp"]))
+        res["frame_cos"][impl], res["eps_cos"][impl] = cos, eps_cos
+        log(f"[dit] {impl} vs fp: frame cos {cos:.6f} mse {err:.3e}; first-step eps cos {eps_cos:.6f}")
+        if cos < 0.999 or eps_cos < eps_min[impl]:
+            raise AssertionError(f"{impl} vs fp: frame cos {cos} (>= 0.999), eps cos {eps_cos} (>= {eps_min[impl]})")
+    for impl in DIT_IMPLS:
+        want = {"A": want_n, "C1": want_n if impl in ("int8", "int8_v8") else 0,
+                "C2": want_n if impl == "int4" else 0, "C3": 0, "D": 0}
+        log(f"[dit] {impl} launches {launches[impl]} (want {want})")
+        if launches[impl] != want:
+            raise AssertionError(f"DiT {impl}: launch counts {launches[impl]} != {want}")
+    return res
 
 
 def decode_inputs(gen, b, h, hk, d, s, bits, lengths, q_dtype=torch.bfloat16):
@@ -367,24 +511,25 @@ def decode_phase(gen):
     return records
 
 
-def count_reset():
+def _wrappers():
     from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
     from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import decode_attention
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int8
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int2, quant_int4, quant_int8
 
-    quant_int8.launches = lowbit_attention.launches = decode_attention.launches = 0
+    return {"A": lowbit_attention, "C1": quant_int8, "C2": quant_int4, "C3": quant_int2, "D": decode_attention}
+
+
+def count_reset():
+    for w in _wrappers().values():
+        w.launches = 0
 
 
 def counts():
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import decode_attention
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int8
-
-    return {"A": lowbit_attention.launches, "C1": quant_int8.launches, "D": decode_attention.launches}
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 def check_counts(where, got, depth, decode_steps):
-    want = {"A": depth, "C1": depth, "D": depth * decode_steps}
+    want = {"A": depth, "C1": depth, "C2": 0, "C3": 0, "D": depth * decode_steps}
     log(f"[{where}] launches {got} (want {want})")
     if got != want:
         raise AssertionError(f"{where}: launch counts {got} != {want}")
@@ -503,7 +648,12 @@ def main():
     build_s = build_phase()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     c1 = quant_phase(gen)
+    lowq = lowbit_quant_phase(gen)
     attn = attention_phase(gen)
+    torch.cuda.empty_cache()
+    lowa = lowbit_attention_phase(gen)
+    torch.cuda.empty_cache()
+    api = entry_point_phase(gen)
     torch.cuda.empty_cache()
     dit_r = main_path_phase()
     torch.cuda.empty_cache()
@@ -513,18 +663,28 @@ def main():
     torch.cuda.empty_cache()
     llm_r = full_width_phase()
     src = f"{PKG}/csrc"
+    dl = dit_r["launches"]
+    attn_src = dict(route="cuda", source=f"{src}/attention_fwd.cu",
+                    replaces="lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502")
+    timing = ("max_abs_err", "ms", "plain_ms")
     kernels = [
-        dict(name="quant_int8", route="cuda", source=f"{src}/quant_int8.cu",
-             replaces="lowbit_quant_fa2_paddle_tpu/ops/quant.py:215",
-             launches=dit_r["launches"]["quant_int8"], **c1),
-        dict(name="attention_fwd (int8, Q quantized in-kernel)", route="cuda", source=f"{src}/attention_fwd.cu",
-             replaces="lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502",
-             launches=dit_r["launches"]["attention_int8"],
-             **{k: attn["fused"][k] for k in ("max_abs_err", "ms", "plain_ms")}),
-        dict(name="attention_fwd (fp)", route="cuda", source=f"{src}/attention_fwd.cu",
-             replaces="lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502",
-             launches=dit_r["launches"]["attention_fp"],
-             **{k: attn["fp"][k] for k in ("max_abs_err", "ms", "plain_ms")}),
+        dict(name="quant_int8", route="cuda", source=f"{src}/quant.cu",
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/quant.py:215", launches=dl["int8"]["C1"], **c1),
+        dict(name="quant_int4", route="cuda", source=f"{src}/quant.cu",
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/quant.py:327", launches=dl["int4"]["C2"], **lowq[4]),
+        dict(name="quant_int2", route="cuda", source=f"{src}/quant.cu",
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/quant.py:406", launches=api["int2"]["C3"], **lowq[2]),
+        dict(name="attention_fwd (int8, Q quantized in-kernel)", launches=dl["int8"]["A"], **attn_src,
+             **{k: attn["fused"][k] for k in timing}),
+        dict(name="attention_fwd (fp)", launches=dl["fp"]["A"], **attn_src, **{k: attn["fp"][k] for k in timing}),
+        dict(name="attention_fwd (int4 K)", launches=dl["int4"]["A"], **attn_src,
+             **{k: lowa["int4-K"][k] for k in timing}),
+        dict(name="attention_fwd (int2 K)", launches=api["int2"]["A"], **attn_src,
+             **{k: lowa["int2-K"][k] for k in timing}),
+        dict(name="attention_fwd (int8 V)", launches=dl["int8_v8"]["A"], **attn_src,
+             **{k: lowa["int8-V"][k] for k in timing}),
+        dict(name="attention_fwd (int8 V, int8 PV)", launches=api["int8_v8 pv_int8"]["A"], **attn_src,
+             **{k: lowa["int8-PV"][k] for k in timing}),
     ] + [
         dict(name=f"decode_attention ({mode} cache)", route="cuda", source=f"{src}/decode_attention.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",

@@ -3,21 +3,33 @@ in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``lowbit_quant_fa2_paddle_tpu`` (JAX/Pallas on TPU), which stays
 beside it as the reference. This package imports ``torch`` and never
-``jax``. Ported so far: the INT8-QK attention forward with its quantizer
-(kernels A and C1), the fp FA-2 baseline on the same kernel, the DiT
-denoiser that runs them, and LLM generation over an int8 or bf16 KV cache
-with single-token decode attention (kernel D). On CPU tensors every kernel
+``jax``. Ported so far: the attention forward (kernel A) with INT8, packed
+INT4 or packed INT2 K and bf16 or INT8 V, its quantizers (kernels C1, C2,
+C3), the fp FA-2 baseline on the same kernel, the dispatching API with
+mixed-bit and multi-precision selection, the DiT denoiser that runs them,
+and LLM generation over an int8 or bf16 KV cache with single-token decode
+attention (kernel D). On CPU tensors every kernel
 runs its plain PyTorch version; on CUDA tensors it launches the kernel,
 built with nvcc at first use.
 """
 
 from lowbit_quant_fa2_paddle_tpu_torch.core import (
     lowbit_fa_attn,
+    lowbit_fa_mixed_bits,
+    lowbit_fa_multi_precision,
+    lowbit_fa_qk_int2_pv_fp16,
+    lowbit_fa_qk_int4_pv_fp16,
+    lowbit_fa_qk_int4_pv_fp16_triton,
+    lowbit_fa_qk_int8_pv_fp8_cuda,
     lowbit_fa_qk_int8_pv_fp16,
     lowbit_fa_qk_int8_pv_fp16_cuda,
     lowbit_fa_qk_int8_pv_fp16_triton,
+    lowbit_fa_qk_int8_pv_int8,
     manual_scaled_dot_product_attention,
     sageattn,
+    sageattn_multi_precision,
+    sageattn_qk_int4_pv_fp16_triton,
+    sageattn_qk_int8_pv_fp8_cuda,
     sageattn_qk_int8_pv_fp16_cuda,
     sageattn_qk_int8_pv_fp16_triton,
 )
@@ -28,11 +40,21 @@ __version__ = "0.1.0"
 __all__ = [
     "lowbit_fa_attn",
     "lowbit_fa_qk_int8_pv_fp16",
+    "lowbit_fa_qk_int8_pv_int8",
+    "lowbit_fa_qk_int4_pv_fp16",
+    "lowbit_fa_qk_int2_pv_fp16",
+    "lowbit_fa_mixed_bits",
+    "lowbit_fa_multi_precision",
     "flash_attention_fp",
     "lowbit_fa_qk_int8_pv_fp16_triton",
     "lowbit_fa_qk_int8_pv_fp16_cuda",
+    "lowbit_fa_qk_int8_pv_fp8_cuda",
+    "lowbit_fa_qk_int4_pv_fp16_triton",
     "sageattn",
     "sageattn_qk_int8_pv_fp16_triton",
     "sageattn_qk_int8_pv_fp16_cuda",
+    "sageattn_qk_int8_pv_fp8_cuda",
+    "sageattn_qk_int4_pv_fp16_triton",
+    "sageattn_multi_precision",
     "manual_scaled_dot_product_attention",
 ]

@@ -12,7 +12,9 @@ GPU notes: ``kernel_space``, ``fuse_quant``, ``quantization_backend``,
 with the TPU package and change nothing here. There is one attention kernel
 with its own tiles; Q is quantized inside it whenever the granularity is
 per-token (bit-identical to external per-token codes), and externally at
-per-block granularity.
+per-block granularity. The TPU package's Q-major INT4 route (kernel B with
+``fused_k_bits=4``) gives the same values as the packed route by its own
+docstring, so INT4 always runs the packed route here.
 """
 
 from __future__ import annotations
@@ -34,11 +36,25 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import _repeat_kv, attentio
 __all__ = [
     "lowbit_fa_attn",
     "lowbit_fa_qk_int8_pv_fp16",
+    "lowbit_fa_qk_int8_pv_int8",
+    "lowbit_fa_qk_int4_pv_fp16",
+    "lowbit_fa_qk_int2_pv_fp16",
+    "lowbit_fa_mixed_bits",
+    "lowbit_fa_multi_precision",
+    "lowbit_fa_multi_precision_jit",
     "lowbit_fa_qk_int8_pv_fp16_triton",
     "lowbit_fa_qk_int8_pv_fp16_cuda",
+    "lowbit_fa_qk_int8_pv_fp8_cuda",
+    "lowbit_fa_qk_int4_pv_fp16_triton",
     "sageattn",
     "sageattn_qk_int8_pv_fp16_triton",
     "sageattn_qk_int8_pv_fp16_cuda",
+    "sageattn_qk_int8_pv_fp8_cuda",
+    "sageattn_qk_int4_pv_fp16_triton",
+    "sageattn_multi_precision",
+    "compute_scale",
+    "select_quantization",
+    "quantize_with_bitmap",
     "manual_scaled_dot_product_attention",
 ]
 
@@ -82,6 +98,24 @@ def _finish_lse(lse2: torch.Tensor, q: torch.Tensor, km: Optional[torch.Tensor],
         km = _repeat_kv(km, q.shape[1])
         lse = lse + torch.einsum("bhqd,bhkd->bhqk", q.float(), km.float())[..., 0] * sm_scale
     return lse
+
+
+def _quant_q(qp: torch.Tensor, qk_quant_gran: str):
+    """Q for the kernel: float Q quantized per token inside it, or external
+    per-block codes from kernel C1."""
+    gq, bq = _gran_block(qk_quant_gran, "q")
+    if gq == "per_token":
+        return qp, None
+    return quant_ops.quant_int8(qp, gran=gq, block=bq)
+
+
+def _finish(out, qp, km, sm_scale: float, d_og: int, tensor_layout: str, return_lse: bool):
+    """Unpad the head dim, restore the layout, and turn the kernel's LSE
+    into the API's natural-log LSE."""
+    if return_lse:
+        o, lse2 = out
+        return _from_hnd(o[..., :d_og], tensor_layout), _finish_lse(lse2, qp, km, sm_scale)
+    return _from_hnd(out[..., :d_og], tensor_layout)
 
 
 def lowbit_fa_qk_int8_pv_fp16(
@@ -129,13 +163,9 @@ def lowbit_fa_qk_int8_pv_fp16(
     qp, kp = _pad_head_dim(q), _pad_head_dim(k)
 
     km = quant_ops.k_mean(kp) if smooth_k else None
-    gq, bq = _gran_block(qk_quant_gran, "q")
     gk, bk = _gran_block(qk_quant_gran, "k")
     k_codes, k_scale = quant_ops.quant_int8(kp, km, gran=gk, block=bk)
-    if gq == "per_token":
-        q_in, q_scale = qp, None  # quantized per token inside the kernel
-    else:
-        q_in, q_scale = quant_ops.quant_int8(qp, gran=gq, block=bq)
+    q_in, q_scale = _quant_q(qp, qk_quant_gran)
     v_in, v_mean = v, None
     if smooth_v:
         v_mean = v.float().mean(dim=2)  # [B, Hk, D]
@@ -146,10 +176,224 @@ def lowbit_fa_qk_int8_pv_fp16(
         v_mean=v_mean, is_causal=is_causal, window_size=window_size, sink_size=sink_size,
         sm_scale=sm_scale, out_dtype=v.dtype, return_lse=return_lse,
     )
-    if return_lse:
-        o, lse2 = out
-        return _from_hnd(o[..., :d_og], tensor_layout), _finish_lse(lse2, qp, km, sm_scale)
-    return _from_hnd(out[..., :d_og], tensor_layout)
+    return _finish(out, qp, km, sm_scale, d_og, tensor_layout, return_lse)
+
+
+def lowbit_fa_qk_int8_pv_int8(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    tensor_layout: str = "HND",
+    is_causal: bool = False,
+    sm_scale: Optional[float] = None,
+    qk_quant_gran: str = "per_token",
+    smooth_k: bool = True,
+    smooth_v: bool = True,
+    return_lse: bool = False,
+    *,
+    window_size: Optional[int] = None,
+    sink_size: int = 0,
+    kernel_space: str = "auto",
+    fuse_quant: Optional[bool] = None,
+    pv_int8: bool = False,
+    block_q: int = 1024,
+    block_kv: int = 1024,
+    interpret: Optional[bool] = None,
+):
+    """INT8-QK attention with per-channel INT8 V (reference
+    ``sageattn_qk_int8_pv_fp8_cuda``; the TPU package's stand-in for FP8 PV):
+    V is quantized per channel over the sequence, optionally after taking out
+    its mean (``smooth_v``, on by default), and the kernel applies
+    ``v_scale`` and adds the mean back in its epilogue. ``pv_int8`` runs PV
+    as an exact INT8 dot against P requantized to [0, 127]; by default the V
+    codes widen to bf16."""
+    q, k, v = (_to_hnd(x, tensor_layout) for x in (q, k, v))
+    d_og = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d_og)
+    qp, kp = _pad_head_dim(q), _pad_head_dim(k)
+    km = quant_ops.k_mean(kp) if smooth_k else None
+    gk, bk = _gran_block(qk_quant_gran, "k")
+    k_codes, k_scale = quant_ops.quant_int8(kp, km, gran=gk, block=bk)
+    q_in, q_scale = _quant_q(qp, qk_quant_gran)
+    v_codes, v_scale, v_mean = quant_ops.quant_v_int8_per_channel(_pad_head_dim(v), smooth_v=smooth_v)
+    out = lowbit_attention(
+        q_in, k_codes, v_codes, q_scale, k_scale,
+        v_scale=v_scale, v_mean=v_mean, pv_int8=pv_int8, is_causal=is_causal, window_size=window_size,
+        sink_size=sink_size, sm_scale=sm_scale, out_dtype=v.dtype, return_lse=return_lse,
+    )
+    return _finish(out, qp, km, sm_scale, d_og, tensor_layout, return_lse)
+
+
+def _packed_k_attention(q, k, v, bits, tensor_layout, is_causal, sm_scale, qk_quant_gran, smooth_k,
+                        return_lse, window_size, sink_size):
+    """INT8 Q × packed INT4/INT2 K (kernel C2 or C3, then A), bf16 PV."""
+    q, k, v = (_to_hnd(x, tensor_layout) for x in (q, k, v))
+    d_og = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d_og)
+    qp, kp = _pad_head_dim(q), _pad_head_dim(k)
+    km = quant_ops.k_mean(kp) if smooth_k else None
+    gk, bk = _gran_block(qk_quant_gran, "k")
+    quant_k = quant_ops.quant_int4 if bits == 4 else quant_ops.quant_int2
+    k_packed, k_scale = quant_k(kp, km, gran=gk, block=bk)
+    q_in, q_scale = _quant_q(qp, qk_quant_gran)
+    out = lowbit_attention(
+        q_in, k_packed, _pad_head_dim(v), q_scale, k_scale,
+        k_pack_bits=bits, is_causal=is_causal, window_size=window_size, sink_size=sink_size,
+        sm_scale=sm_scale, out_dtype=v.dtype, return_lse=return_lse,
+    )
+    return _finish(out, qp, km, sm_scale, d_og, tensor_layout, return_lse)
+
+
+def lowbit_fa_qk_int4_pv_fp16(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    tensor_layout: str = "HND",
+    is_causal: bool = False,
+    sm_scale: Optional[float] = None,
+    qk_quant_gran: str = "per_token",
+    smooth_k: bool = True,
+    return_lse: bool = False,
+    *,
+    smooth_q: bool = False,
+    window_size: Optional[int] = None,
+    sink_size: int = 0,
+    kernel_space: str = "auto",
+    fuse_quant: Optional[bool] = None,
+    block_q: int = 1024,
+    block_kv: int = 1024,
+    interpret: Optional[bool] = None,
+):
+    """INT8-Q × INT4-K attention with bf16 PV (reference
+    ``sageattn_qk_int4_pv_fp16_triton``): smooth-K, then K quantized per
+    token (or per block of 64) to INT4 codes packed two per byte (kernel
+    C2), unpacked inside kernel A. ``smooth_q`` needs the bias path and is
+    not ported yet."""
+    if smooth_q:
+        raise _not_ported("smooth_q (per-key bias)", "3f")
+    return _packed_k_attention(q, k, v, 4, tensor_layout, is_causal, sm_scale, qk_quant_gran, smooth_k,
+                               return_lse, window_size, sink_size)
+
+
+def lowbit_fa_qk_int2_pv_fp16(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    tensor_layout: str = "HND",
+    is_causal: bool = False,
+    sm_scale: Optional[float] = None,
+    qk_quant_gran: str = "per_token",
+    smooth_k: bool = True,
+    return_lse: bool = False,
+    *,
+    window_size: Optional[int] = None,
+    sink_size: int = 0,
+    fuse_quant: Optional[bool] = None,
+    interpret: Optional[bool] = None,
+):
+    """INT8-Q × INT2-K attention with bf16 PV: K codes in {-1, 0, 1} at the
+    Lloyd-Max scale ``1.224·rms``, four per byte (kernel C3), a quarter of
+    INT8 K's bytes. Accuracy is well below INT4."""
+    return _packed_k_attention(q, k, v, 2, tensor_layout, is_causal, sm_scale, qk_quant_gran, smooth_k,
+                               return_lse, window_size, sink_size)
+
+
+def quantize_with_bitmap(k: torch.Tensor, bitmap, *, block: int = 128) -> torch.Tensor:
+    """Mixed-precision error injection per token block (reference
+    ``quantize_with_bitmap``): blocks flagged 1 in ``bitmap`` keep their
+    values, blocks flagged 0 are rounded through INT4 (per-block absmax,
+    round half to even as ``jnp.round``). Returns a float tensor of
+    ``k.dtype`` for the INT8 pipeline. Plain PyTorch ops, as the TPU package
+    computes it in plain XLA; the scale is the fma form its compiled code
+    uses."""
+    b, h, s, d = k.shape
+    nblk = -(-s // block)
+    kb = torch.nn.functional.pad(k.float(), (0, 0, 0, nblk * block - s)).reshape(b, h, nblk, block, d)
+    scale4 = quant_ops.absmax_scale(kb.abs().amax(dim=(3, 4), keepdim=True), bits=4)
+    k4 = torch.round(kb / scale4).clamp(-7.0, 7.0) * scale4
+    keep8 = torch.as_tensor(bitmap, device=k.device).reshape(1, 1, nblk, 1, 1).bool()
+    mixed = torch.where(keep8, kb, k4).reshape(b, h, nblk * block, d)[:, :, :s]
+    return mixed.to(k.dtype)
+
+
+def lowbit_fa_mixed_bits(q, k, v, bitmap, *, tensor_layout: str = "HND", block: int = 128, **kw):
+    """Per-token-block bit allocation: the INT8 path over K whose blocks were
+    mixed INT8/INT4 by importance ``bitmap`` (reference bitmap bench)."""
+    kh = _to_hnd(k, tensor_layout)
+    k_mixed = _from_hnd(quantize_with_bitmap(kh, bitmap, block=block), tensor_layout)
+    return lowbit_fa_qk_int8_pv_fp16(q, k_mixed, v, tensor_layout=tensor_layout, **kw)
+
+
+def compute_scale(x: torch.Tensor) -> torch.Tensor:
+    """Per-tensor absmax scale ``max|x| / 127`` the selector averages
+    (reference ``compute_scale``)."""
+    return x.float().abs().amax() / 127.0
+
+
+def select_quantization(q: torch.Tensor, k: torch.Tensor, *, fp16_threshold=0.2, int8_threshold=0.05) -> str:
+    """Pick a precision from the average scale, with the reference's
+    thresholds: above 0.2 fp16, above 0.05 int8, else int4. Reads the
+    statistic on the host (one device sync)."""
+    avg = float((compute_scale(q) + compute_scale(k)) / 2.0)
+    if avg > fp16_threshold:
+        return "fp16"
+    if avg > int8_threshold:
+        return "int8"
+    return "int4"
+
+
+def lowbit_fa_multi_precision_jit(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    tensor_layout: str = "HND",
+    is_causal: bool = False,
+    sm_scale: Optional[float] = None,
+    window_size: Optional[int] = None,
+    sink_size: int = 0,
+    fp16_threshold: float = 0.2,
+    int8_threshold: float = 0.05,
+    interpret: Optional[bool] = None,
+):
+    """Multi-precision dispatch with settable thresholds. The TPU package
+    compiles all three branches and picks one on the device inside ``jit``;
+    PyTorch runs eagerly, so this is the same host-side dispatch as
+    :func:`lowbit_fa_multi_precision`."""
+    choice = select_quantization(q, k, fp16_threshold=fp16_threshold, int8_threshold=int8_threshold)
+    kw = dict(tensor_layout=tensor_layout, is_causal=is_causal, window_size=window_size, sink_size=sink_size,
+              sm_scale=sm_scale)
+    if choice == "fp16":
+        qh, kh, vh = (_to_hnd(x, tensor_layout) for x in (q, k, v))
+        o = flash_attention_fp(qh, kh, vh, is_causal=is_causal, window_size=window_size, sink_size=sink_size,
+                               sm_scale=sm_scale)
+        return _from_hnd(o.to(v.dtype), tensor_layout)
+    if choice == "int8":
+        return lowbit_fa_qk_int8_pv_fp16(q, k, v, **kw)
+    return lowbit_fa_qk_int4_pv_fp16(q, k, v, **kw)
+
+
+def lowbit_fa_multi_precision(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    tensor_layout: str = "HND",
+    is_causal: bool = False,
+    sm_scale: Optional[float] = None,
+    window_size: Optional[int] = None,
+    sink_size: int = 0,
+    interpret: Optional[bool] = None,
+):
+    """Bit allocation at the call (reference ``sageattn_multi_precision``):
+    from the tensors' scales, fp16 (the bf16 FA-2 baseline), int8 or int4,
+    decided on the host. Every branch honours the layout and the mask."""
+    return lowbit_fa_multi_precision_jit(
+        q, k, v, tensor_layout=tensor_layout, is_causal=is_causal, sm_scale=sm_scale,
+        window_size=window_size, sink_size=sink_size,
+    )
 
 
 def lowbit_fa_attn(
@@ -165,13 +409,25 @@ def lowbit_fa_attn(
     **kwargs,
 ):
     """Dispatching entry point (reference ``sageattn``), by ``bits``:
-    ``"int8"`` (INT8 QK, bf16 PV) or ``"fp"`` (the bf16 FA-2 baseline).
-    With ``return_lse`` both return the natural-log LSE."""
-    if bits == "int8":
-        return lowbit_fa_qk_int8_pv_fp16(
-            q, k, v, tensor_layout=tensor_layout, is_causal=is_causal,
-            sm_scale=sm_scale, return_lse=return_lse, **kwargs
+    ``"int8"`` (INT8 QK, bf16 PV), ``"int8_v8"`` (INT8 QK, INT8 V),
+    ``"int4"`` / ``"int2"`` (INT8 Q × packed INT4 / INT2 K), ``"fp"`` (the
+    bf16 FA-2 baseline) or ``"auto"`` (:func:`lowbit_fa_multi_precision`,
+    which returns no LSE). With ``return_lse`` the others return the
+    natural-log LSE."""
+    if bits == "auto":
+        if return_lse:
+            raise ValueError("bits='auto' does not export the LSE (pick a bits mode)")
+        return lowbit_fa_multi_precision(
+            q, k, v, tensor_layout=tensor_layout, is_causal=is_causal, sm_scale=sm_scale,
+            window_size=kwargs.pop("window_size", None), sink_size=kwargs.pop("sink_size", 0),
         )
+    entry = {
+        "int8": lowbit_fa_qk_int8_pv_fp16, "int8_v8": lowbit_fa_qk_int8_pv_int8,
+        "int4": lowbit_fa_qk_int4_pv_fp16, "int2": lowbit_fa_qk_int2_pv_fp16,
+    }.get(bits)
+    if entry is not None:
+        return entry(q, k, v, tensor_layout=tensor_layout, is_causal=is_causal, sm_scale=sm_scale,
+                     return_lse=return_lse, **kwargs)
     if bits == "fp":
         qh, kh, vh = (_to_hnd(x, tensor_layout) for x in (q, k, v))
         out = flash_attention_fp(qh, kh, vh, is_causal=is_causal, sm_scale=sm_scale, return_lse=return_lse, **kwargs)
@@ -179,9 +435,6 @@ def lowbit_fa_attn(
             o, lse2 = out
             return _from_hnd(o.to(v.dtype), tensor_layout), lse2 / LOG2E
         return _from_hnd(out.to(v.dtype), tensor_layout)
-    if bits in ("auto", "int8_v8", "int4", "int2"):
-        item = {"auto": "4", "int8_v8": "3d", "int4": "3e", "int2": "3e"}[bits]
-        raise _not_ported(f"bits={bits!r}", item)
     raise ValueError(f"unknown bits {bits!r}")
 
 
@@ -207,5 +460,17 @@ def sageattn_qk_int8_pv_fp16_cuda(q, k, v, **kw):
     return lowbit_fa_qk_int8_pv_fp16(q, k, v, **kw)
 
 
+def sageattn_qk_int8_pv_fp8_cuda(q, k, v, **kw):
+    """The reference's FP8-PV kernel maps to INT8 V, as in the TPU package."""
+    return lowbit_fa_qk_int8_pv_int8(q, k, v, **kw)
+
+
+def sageattn_qk_int4_pv_fp16_triton(q, k, v, **kw):
+    return lowbit_fa_qk_int4_pv_fp16(q, k, v, **kw)
+
+
+sageattn_multi_precision = lowbit_fa_multi_precision
 lowbit_fa_qk_int8_pv_fp16_triton = sageattn_qk_int8_pv_fp16_triton
 lowbit_fa_qk_int8_pv_fp16_cuda = sageattn_qk_int8_pv_fp16_cuda
+lowbit_fa_qk_int8_pv_fp8_cuda = sageattn_qk_int8_pv_fp8_cuda
+lowbit_fa_qk_int4_pv_fp16_triton = sageattn_qk_int4_pv_fp16_triton

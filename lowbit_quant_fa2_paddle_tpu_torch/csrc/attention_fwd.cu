@@ -1,20 +1,30 @@
-// Kernel A: FlashAttention-2 forward with INT8 or bf16 QK and bf16 PV.
+// Kernel A: FlashAttention-2 forward with INT8 / packed INT4 / packed INT2 or
+// bf16 QK, and bf16 or INT8 PV.
 //
 // Replaces the TPU kernel lowbit_quant_fa2_paddle_tpu/ops/attention.py:
 // _attn_body_km (launched by lowbit_attention_km, pallas_call at :1491 and
-// :1502) for the features of the DiT path: INT8 Q codes with per-row scales
-// or float Q quantized per row in the prologue, INT8 K codes with per-row
-// scales, or bf16 Q/K (fp mode); bf16 P and V with an fp32 accumulator;
-// optional smooth-V mean epilogue; causal (top-left aligned) or not; GQA;
-// any Sk (ragged last KV tile); base-2 LSE out; head_dim 64 or 128.
+// :1502) for these features: INT8 Q codes with per-row scales or float Q
+// quantized per row in the prologue; INT8 K codes, or K packed two (INT4,
+// halves of D) or four (INT2, quarters of D) codes per byte, with per-row
+// scales; or bf16 Q/K (fp mode); bf16 V, or per-channel INT8 V codes with a
+// v_scale (and optional v_mean) epilogue, PV in bf16 or as an exact INT8 dot
+// (pv_int8); causal (top-left aligned) or not; GQA; any Sk (ragged last KV
+// tile); base-2 LSE out; head_dim 64 or 128.
 //
 // Math per KV tile, as in the TPU kernel:
 //   s  = (i32(Q8 K8^T) * k_scale) * q_scale      q_scale holds sm_scale*log2e
 //   s  = f32(Qbf Kbf^T) * sm_scale*log2e         fp mode
 //   masked s = MASK_VALUE (-0.7 * FLT_MAX)
-//   m' = max(m, rowmax s);  P = bf16(exp2(bf16(s - m')));  l = 2^(m-m') l + sum P
-//   acc = 2^(m-m') acc + P V                     (bf16 x bf16 -> f32)
-//   o = acc / l (+ v_mean where l > 0); lse2 = m + log2 l, or -1e30 where l == 0
+//   m' = max(m, rowmax s)
+//   bf16 PV:  P = bf16(exp2(bf16(s - m')));  l = 2^(m-m') l + sum P
+//             acc = 2^(m-m') acc + P V       (bf16 x bf16 -> f32; INT8 V codes
+//                                             widen to bf16 exactly)
+//   INT8 PV:  P = bf16(exp2(bf16(s - (m' - log2 127))))    in [0, 128]
+//             p8 = min(trunc(bf16(P + 0.5)), 127)          saturates as XLA's
+//                                                          f32->s8 convert does
+//             l = 2^(m-m') l + sum p8;  acc = 2^(m-m') acc + i32(p8 V8)
+//   o = acc / l (* v_scale) (+ v_mean where l > 0)
+//   lse2 = m + log2 l (- log2 127 with INT8 PV), or -1e30 where l == 0
 //
 // Bound on the H100: the tensor cores (4*D FLOPs per (q, k) pair; at
 // b1 h30 s17776 d64 one call is 2.43 TFLOP against ~70 MB of operands), and
@@ -23,11 +33,28 @@
 // rows and keeps m, l and the O accumulator in registers across the KV loop
 // (the loop replaces the TPU's sequential grid axis). QK runs on
 // mma.sync m16n8k32 s8 (or m16n8k16 bf16), and the QK accumulator is reused
-// in registers as the A operand of the PV mma.sync m16n8k16 bf16, so S and P
-// never touch shared memory. K, V (and K scales) stream through a two-stage
-// cp.async ring in padded (bank-conflict-free) shared memory; V's B operand
-// comes from ldmatrix.trans. Causal CTAs stop their KV loop at the diagonal
-// and are launched heaviest first. wgmma/TMA are later work.
+// in registers as the A operand of the PV mma.sync, so S and P never touch
+// shared memory. K, V (and K scales) stream through a two-stage cp.async ring
+// in padded (bank-conflict-free) shared memory; bf16 V's B operand comes from
+// ldmatrix.trans. Causal CTAs stop their KV loop at the diagonal and are
+// launched heaviest first. wgmma/TMA are later work.
+//
+// Packed K and INT8 V arrive as they lie in memory (a quarter, a half or half
+// of the bytes of int8 K / bf16 V) and are staged by cp.async; after the
+// tile's barrier one pass over shared memory widens them to the tiles the
+// existing MMAs read: packed K to the int8 K tile (per-byte sign extension,
+// __vsub4((w & 0x0F0F0F0F) ^ 0x08080808, 0x08080808) for nibbles, the same
+// with 0x03/0x02 for 2-bit codes), INT8 V to the bf16 V tile. For the INT8 PV
+// dot (mma.sync m16n8k32 s8) V is instead TRANSPOSED into a [D][keys] int8
+// tile, because the s8 B fragment wants four consecutive keys per column and
+// ldmatrix.trans moves only b16. The P accumulator gives each thread keys
+// 2t, 2t+1 of every 8-key n-tile, while the s8 A fragment wants slots
+// 4t..4t+3 (and 16+4t..) of a 32-key chunk; the contraction runs over keys,
+// so slot 16h + 4t + i holds key 16h + 8*(i>>1) + 2t + (i&1), and the V^T
+// tile stores its keys in that same permuted order. Unpacking in registers
+// is later speed work. The V mode, packed K and the output type are template
+// parameters, so the int8 and fp modes compile to the loop they had without
+// them; the launch bounds keep d128 at 3 resident CTAs per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,8 +69,24 @@ constexpr int BKV = 64;  // keys per tile
 constexpr int NTHREADS = 128;
 constexpr float MASK_VALUE = (float)(-0.7 * 3.4028234663852886e38);
 constexpr float NEG_INIT = -1e30f;
+constexpr float LOG2_127 = 6.9886846867721655f;
 
 enum QMode { Q_INT8 = 0, Q_FUSED_BF16 = 1, Q_FUSED_F32 = 2, Q_FP = 3 };
+enum VMode { V_BF16 = 0, V_INT8 = 1, V_INT8_PV = 2 };
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* q_scale;
+  const float* k_scale;
+  const float* v_scale;
+  const float* v_mean;
+  void* o;
+  float* lse;
+  int H, Hk, Sq, Sk, causal, k_bits, out_f32;  // out_f32 picks the instantiation
+  float sm_scale_log2e;
+};
 
 // ---------------------------------------------------------------------------
 // PTX helpers
@@ -99,6 +142,15 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Per-byte sign extension of the 4-bit (2-bit) field at the bottom of each
+// byte of w.
+__device__ __forceinline__ uint32_t sext4(uint32_t w) {
+  return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+__device__ __forceinline__ uint32_t sext2(uint32_t w) {
+  return __vsub4((w & 0x03030303u) ^ 0x02020202u, 0x02020202u);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -114,47 +166,94 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float a, float b);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+__device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// One KV tile of BKV rows, CPR 16-byte chunks each, from global rows of
+// src_stride bytes into shared rows of dst_stride bytes, by cp.async. Thread
+// tid copies chunk tid % CPR of rows tid / CPR + i * (NTHREADS / CPR), so its
+// only loop state is one row and one chunk. Rows past Sk are zero-filled.
+template <int CPR>
+__device__ __forceinline__ void load_rows(unsigned char* dst, int dst_stride, const unsigned char* src,
+                                          long long src_stride, int key0, int Sk, int tid) {
+  constexpr int RPP = NTHREADS / CPR;  // rows per pass
+  static_assert(NTHREADS % CPR == 0 && (BKV % RPP == 0 || RPP % BKV == 0), "tile rows must split evenly");
+  const int r0 = tid / CPR, cc = tid % CPR;
+  if (RPP > BKV && r0 >= BKV) return;
+#pragma unroll
+  for (int i = 0; i < (BKV + RPP - 1) / RPP; ++i) {
+    const int r = r0 + i * RPP;
+    const bool ok = key0 + r < Sk;
+    cp_async16(dst + r * dst_stride + cc * 16, src + (ok ? key0 + r : 0) * src_stride + cc * 16, ok);
+  }
+}
+
+// Widen one staged tile of packed K (BITS 4 or 2; WPR 32-bit words per row)
+// into the int8 K tile, rows of STRIDE bytes: code p of each byte of word c
+// of a row goes to column p * (4 * WPR) + 4 * c + (its byte).
+template <int BITS, int WPR, int STRIDE>
+__device__ __forceinline__ void unpack_rows(const uint32_t* src, int8_t* Kd, int tid) {
+  for (int w = tid; w < BKV * WPR; w += NTHREADS) {
+    const int r = w / WPR, c = w % WPR;
+    const uint32_t x = src[w];
+    int8_t* dst = Kd + r * STRIDE + 4 * c;
+#pragma unroll
+    for (int p = 0; p < 8 / BITS; ++p)
+      *reinterpret_cast<uint32_t*>(dst + p * 4 * WPR) = BITS == 4 ? sext4(x >> (4 * p)) : sext2(x >> (2 * p));
+  }
 }
 
 // ---------------------------------------------------------------------------
 // Shared-memory layout. Rows are padded by 16 bytes so that the 8 rows a
-// quad-group of lanes touches fall on distinct banks.
+// quad-group of lanes touches fall on distinct banks. Packed K (KPACK)
+// adds a staging ring for the codes as loaded.
 // ---------------------------------------------------------------------------
 
-template <int D, int QM>
+template <int D, int QM, int VM, bool KPACK>
 struct Smem {
   static constexpr bool kInt8 = QM != Q_FP;
   static constexpr int kQKElem = kInt8 ? 1 : 2;       // bytes per Q/K element
   static constexpr int kQKStride = D + 16 / kQKElem;  // elements per padded row
-  static constexpr int kVStride = D + 8;              // bf16 elements per padded row
+  static constexpr int kVStride = D + 8;              // bf16 elements per padded V row
+  static constexpr int kVTStride = BKV + 16;          // int8 keys per padded V^T row
   static constexpr int kQBytes = BQ * kQKStride * kQKElem;
   static constexpr int kKBytes = BKV * kQKStride * kQKElem;
-  static constexpr int kVBytes = BKV * kVStride * 2;
+  // The MMA-ready V tile: bf16 [keys][D], or int8 V^T [D][keys] for INT8 PV.
+  // bf16 V is a cp.async target (two stages); a widened tile needs one.
+  static constexpr int kVBytes = VM == V_INT8_PV ? D * kVTStride : BKV * kVStride * 2;
+  static constexpr int kVStages = VM == V_BF16 ? 2 : 1;
+  static constexpr int kV8Bytes = VM == V_BF16 ? 0 : BKV * D;  // int8 V as loaded
   static constexpr int kSBytes = kInt8 ? BKV * 4 : 0;
+  static constexpr int kKPBytes = KPACK ? BKV * D / 2 : 0;     // packed K as loaded
   static constexpr int kQOff = 0;
   static constexpr int kKOff = kQOff + kQBytes;
   static constexpr int kVOff = kKOff + 2 * kKBytes;
-  static constexpr int kSOff = kVOff + 2 * kVBytes;
+  static constexpr int kV8Off = kVOff + kVStages * kVBytes;
+  static constexpr int kSOff = kV8Off + 2 * kV8Bytes;
   static constexpr int kQsOff = kSOff + 2 * kSBytes;  // BQ f32 q scales
-  static constexpr int kTotal = kQsOff + BQ * 4;
+  static constexpr int kKPOff = kQsOff + BQ * 4;
+  static constexpr int kTotal = kKPOff + 2 * kKPBytes;
 };
 
-template <int D, int QM, typename QT, typename OutT>
-__global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(
-    const QT* __restrict__ q, const void* __restrict__ k_ptr,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ q_scale,
-    const float* __restrict__ k_scale, const float* __restrict__ v_mean, OutT* __restrict__ o,
-    float* __restrict__ lse, int H, int Hk, int Sq, int Sk, int causal, float sm_scale_log2e) {
-  using L = Smem<D, QM>;
+template <int QM>
+using QType = typename std::conditional<
+    QM == Q_INT8, int8_t,
+    typename std::conditional<QM == Q_FUSED_F32, float, __nv_bfloat16>::type>::type;
+
+// Resident CTAs per SM that the register budget must allow: 4 at d64 (at
+// most 128 registers a thread), 3 at d128 (at most 170); one register past
+// that and the SM holds one CTA fewer.
+template <int D>
+constexpr int kMinCtas = D == 64 ? 4 : 3;
+
+template <int D, int QM, int VM, bool KPACK, typename OutT>
+__global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const Args args) {
+  using L = Smem<D, QM, VM, KPACK>;
+  using QT = QType<QM>;
   constexpr bool kInt8 = L::kInt8;
   using KT = typename std::conditional<kInt8, int8_t, __nv_bfloat16>::type;
   constexpr int KSTEPS = kInt8 ? D / 32 : D / 16;  // QK mma k-steps
@@ -164,6 +263,12 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   KT* Qs = reinterpret_cast<KT*>(smem + L::kQOff);
   float* qs_s = reinterpret_cast<float*>(smem + L::kQsOff);
+
+  const int H = args.H, Hk = args.Hk, Sq = args.Sq, Sk = args.Sk;
+  const bool causal = args.causal != 0;
+  const float sm_scale_log2e = args.sm_scale_log2e;
+  // Packed K: bytes per packed row (D/2 for INT4, D/4 for INT2).
+  const int kpw = KPACK ? D * args.k_bits / 8 : 0;
 
   const int nq = (Sq + BQ - 1) / BQ;
   const int qb = causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
@@ -175,13 +280,15 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(
 
   const long long qh = (long long)b * H + h;
   const long long kh = (long long)b * Hk + hk;
-  const KT* kg = static_cast<const KT*>(k_ptr) + kh * Sk * D;
-  const __nv_bfloat16* vg = v + kh * Sk * D;
-  const float* ksg = kInt8 ? k_scale + kh * Sk : nullptr;
+  const KT* kg = static_cast<const KT*>(args.k) + kh * Sk * D;
+  const unsigned char* kgp = static_cast<const unsigned char*>(args.k) + kh * Sk * kpw;
+  constexpr int kVElem = VM == V_BF16 ? 2 : 1;
+  const unsigned char* vg = static_cast<const unsigned char*>(args.v) + kh * Sk * D * kVElem;
+  const float* ksg = kInt8 ? args.k_scale + kh * Sk : nullptr;
 
   // ---- prologue: the Q tile into shared memory as MMA-ready codes/values ----
   if constexpr (QM == Q_INT8 || QM == Q_FP) {
-    const KT* qg = reinterpret_cast<const KT*>(q) + qh * Sq * D;
+    const KT* qg = static_cast<const KT*>(args.q) + qh * Sq * D;
     constexpr int CPR = D * sizeof(KT) / 16;  // 16-byte chunks per row
     for (int c = tid; c < BQ * CPR; c += NTHREADS) {
       const int r = c / CPR, cc = c % CPR;
@@ -192,14 +299,14 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(
     cp_async_commit();
     if constexpr (QM == Q_INT8) {
       for (int r = tid; r < BQ; r += NTHREADS)
-        qs_s[r] = q0 + r < Sq ? q_scale[qh * Sq + q0 + r] : 0.0f;
+        qs_s[r] = q0 + r < Sq ? args.q_scale[qh * Sq + q0 + r] : 0.0f;
     }
     cp_async_wait<0>();
   } else {
     // In-kernel per-row Q quantization (the TPU kernel's fused_quant_q):
     // scale = fma(amax, 1/127, 1e-7), code = clamp(roundf(q / scale)),
     // and the row scale carries sm_scale * log2(e).
-    const QT* qg = q + qh * Sq * D;
+    const QT* qg = static_cast<const QT*>(args.q) + qh * Sq * D;
     for (int rr = 0; rr < BQ / 4; ++rr) {
       const int r = warp * (BQ / 4) + rr;
       const bool ok = q0 + r < Sq;
@@ -246,29 +353,69 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(
   const int nkv = (Sk + BKV - 1) / BKV;
   const int n_tiles = causal ? min(nkv, (q0 + BQ + BKV - 1) / BKV) : nkv;
 
+  // Start the cp.async copies of tile j into ring stage buf: K rows as they
+  // lie in memory (int8 / bf16 into the MMA tile, packed codes into the
+  // staging ring), V rows (bf16 into the MMA tile, int8 into the staging
+  // ring), and the K scales.
   auto load_tile = [&](int j, int buf) {
     const int key0 = j * BKV;
-    KT* Kd = reinterpret_cast<KT*>(smem + L::kKOff + buf * L::kKBytes);
-    __nv_bfloat16* Vd = reinterpret_cast<__nv_bfloat16*>(smem + L::kVOff + buf * L::kVBytes);
-    constexpr int KCPR = D * sizeof(KT) / 16;
-    for (int c = tid; c < BKV * KCPR; c += NTHREADS) {
-      const int r = c / KCPR, cc = c % KCPR;
-      const bool ok = key0 + r < Sk;
-      const KT* src = kg + (long long)(ok ? key0 + r : 0) * D + cc * (16 / sizeof(KT));
-      cp_async16(Kd + r * L::kQKStride + cc * (16 / sizeof(KT)), src, ok);
+    if constexpr (KPACK) {
+      unsigned char* Kd = smem + L::kKPOff + buf * L::kKPBytes;
+      if (kpw == D / 2)
+        load_rows<D / 32>(Kd, D / 2, kgp, D / 2, key0, Sk, tid);
+      else
+        load_rows<D / 64>(Kd, D / 4, kgp, D / 4, key0, Sk, tid);
+    } else {
+      load_rows<D * sizeof(KT) / 16>(smem + L::kKOff + buf * L::kKBytes, L::kQKStride * sizeof(KT),
+                                     reinterpret_cast<const unsigned char*>(kg), D * sizeof(KT), key0, Sk, tid);
     }
-    constexpr int VCPR = D * 2 / 16;
-    for (int c = tid; c < BKV * VCPR; c += NTHREADS) {
-      const int r = c / VCPR, cc = c % VCPR;
-      const bool ok = key0 + r < Sk;  // V rows past Sk are zero-filled
-      const __nv_bfloat16* src = vg + (long long)(ok ? key0 + r : 0) * D + cc * 8;
-      cp_async16(Vd + r * L::kVStride + cc * 8, src, ok);
-    }
+    if constexpr (VM == V_BF16)
+      load_rows<D * 2 / 16>(smem + L::kVOff + buf * L::kVBytes, L::kVStride * 2, vg, D * 2, key0, Sk, tid);
+    else
+      load_rows<D / 16>(smem + L::kV8Off + buf * L::kV8Bytes, D, vg, D, key0, Sk, tid);
     if constexpr (kInt8) {
       float* Sd = reinterpret_cast<float*>(smem + L::kSOff + buf * L::kSBytes);
       if (tid < BKV) {
         const bool ok = key0 + tid < Sk;
         cp_async4(Sd + tid, ksg + (ok ? key0 + tid : 0), ok);
+      }
+    }
+  };
+
+  // Widen the staged tile of stage buf into the tiles the MMAs read.
+  auto widen_tile = [&](int buf) {
+    if constexpr (KPACK) {
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(smem + L::kKPOff + buf * L::kKPBytes);
+      int8_t* Kd = reinterpret_cast<int8_t*>(smem + L::kKOff + buf * L::kKBytes);
+      if (kpw == D / 2)
+        unpack_rows<4, D / 8, L::kQKStride>(src, Kd, tid);
+      else
+        unpack_rows<2, D / 16, L::kQKStride>(src, Kd, tid);
+    }
+    if constexpr (VM == V_INT8) {
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(smem + L::kV8Off + buf * L::kV8Bytes);
+      __nv_bfloat16* Vd = reinterpret_cast<__nv_bfloat16*>(smem + L::kVOff);
+      for (int w = tid; w < BKV * D / 4; w += NTHREADS) {
+        const int r = w / (D / 4), c = w % (D / 4);
+        const uint32_t x = src[w];
+        uint2 out;
+        out.x = pack_bf16(__int2bfloat16_rn((int)(int8_t)(x & 0xFF)),
+                          __int2bfloat16_rn((int)(int8_t)((x >> 8) & 0xFF)));
+        out.y = pack_bf16(__int2bfloat16_rn((int)(int8_t)((x >> 16) & 0xFF)),
+                          __int2bfloat16_rn((int)(int8_t)(x >> 24)));
+        *reinterpret_cast<uint2*>(Vd + r * L::kVStride + 4 * c) = out;
+      }
+    } else if constexpr (VM == V_INT8_PV) {
+      // V^T with the keys of each 32-key chunk in the A fragment's slot order.
+      const unsigned char* src = smem + L::kV8Off + buf * L::kV8Bytes;
+      unsigned char* VT = smem + L::kVOff;
+      for (int w = tid; w < D * (BKV / 4); w += NTHREADS) {
+        const int d = w % D, wi = w / D;  // wi: word of the V^T row (4 slots)
+        const int key = 32 * (wi >> 3) + 16 * ((wi >> 2) & 1) + 2 * (wi & 3);
+        const uint32_t x = (uint32_t)src[key * D + d] | ((uint32_t)src[(key + 1) * D + d] << 8) |
+                           ((uint32_t)src[(key + 8) * D + d] << 16) |
+                           ((uint32_t)src[(key + 9) * D + d] << 24);
+        *reinterpret_cast<uint32_t*>(VT + d * L::kVTStride + 4 * wi) = x;
       }
     }
   };
@@ -287,10 +434,12 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    if constexpr (KPACK || VM != V_BF16) {
+      widen_tile(buf);
+      __syncthreads();
+    }
 
     const KT* Kt = reinterpret_cast<const KT*>(smem + L::kKOff + buf * L::kKBytes);
-    const __nv_bfloat16* Vt =
-        reinterpret_cast<const __nv_bfloat16*>(smem + L::kVOff + buf * L::kVBytes);
     const int key0 = j * BKV;
 
     // S = Q K^T for 16 rows x 64 keys per warp.
@@ -339,7 +488,7 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(
     }
 
     // Online softmax in base 2; P rounds to bf16 as in the TPU kernel.
-    float m_new[2], alpha[2];
+    float m_new[2], alpha[2], shift[2];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       float mx = s[0][2 * hf];
@@ -350,19 +499,32 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(
       m_new[hf] = fmaxf(m_run[hf], mx);
       alpha[hf] = exp2f(m_run[hf] - m_new[hf]);
       m_run[hf] = m_new[hf];
+      // INT8 PV folds the x127 requantization of P into the shift.
+      shift[hf] = VM == V_INT8_PV ? m_new[hf] - LOG2_127 : m_new[hf];
     }
-    uint32_t pa[NT][2];  // P packed as bf16 pairs: [nt][row half]
+    // P per n-tile and row half: two bf16 (bf16 PV) or two p8 bytes in the
+    // low 16 bits (INT8 PV).
+    uint32_t pa[NT][2];
     float lsum[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        const float d0 = __bfloat162float(__float2bfloat16_rn(s[nt][2 * hf] - m_new[hf]));
-        const float d1 = __bfloat162float(__float2bfloat16_rn(s[nt][2 * hf + 1] - m_new[hf]));
+        const float d0 = __bfloat162float(__float2bfloat16_rn(s[nt][2 * hf] - shift[hf]));
+        const float d1 = __bfloat162float(__float2bfloat16_rn(s[nt][2 * hf + 1] - shift[hf]));
         const __nv_bfloat16 p0 = __float2bfloat16_rn(exp2f(d0));
         const __nv_bfloat16 p1 = __float2bfloat16_rn(exp2f(d1));
-        lsum[hf] += __bfloat162float(p0) + __bfloat162float(p1);
-        pa[nt][hf] = pack_bf16(p0, p1);
+        if constexpr (VM == V_INT8_PV) {
+          const int c0 = min(__float2int_rz(__bfloat162float(
+                                 __float2bfloat16_rn(__bfloat162float(p0) + 0.5f))), 127);
+          const int c1 = min(__float2int_rz(__bfloat162float(
+                                 __float2bfloat16_rn(__bfloat162float(p1) + 0.5f))), 127);
+          lsum[hf] += (float)(c0 + c1);
+          pa[nt][hf] = (uint32_t)c0 | ((uint32_t)c1 << 8);
+        } else {
+          lsum[hf] += __bfloat162float(p0) + __bfloat162float(p1);
+          pa[nt][hf] = pack_bf16(p0, p1);
+        }
       }
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) l_run[hf] = alpha[hf] * l_run[hf] + lsum[hf];
@@ -374,18 +536,45 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(
       acc[dt][3] *= alpha[1];
     }
 
-    // O += P V. The S accumulator layout of n-tiles (2kk, 2kk+1) is the A
-    // fragment of a k16 step; V's B fragments come from ldmatrix.trans.
+    if constexpr (VM == V_INT8_PV) {
+      // O += i32(p8 V8): per 32-key chunk, slots 4t..4t+3 hold n-tiles
+      // (4c, 4c+1) and slots 16+4t.. hold (4c+2, 4c+3) of this thread's row.
+      const unsigned char* VT = smem + L::kVOff;
+      uint32_t a8[BKV / 32][4];
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0], pa[2 * kk + 1][1]};
-      const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      for (int cc = 0; cc < BKV / 32; ++cc) {
+        a8[cc][0] = pa[4 * cc][0] | (pa[4 * cc + 1][0] << 16);
+        a8[cc][1] = pa[4 * cc][1] | (pa[4 * cc + 1][1] << 16);
+        a8[cc][2] = pa[4 * cc + 2][0] | (pa[4 * cc + 3][0] << 16);
+        a8[cc][3] = pa[4 * cc + 2][1] | (pa[4 * cc + 3][1] << 16);
+      }
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, Vt + vrow * L::kVStride + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], a, bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], a, bv[2], bv[3]);
+      for (int dt = 0; dt < DT; ++dt) {
+        int c[4] = {0, 0, 0, 0};
+        const unsigned char* vrow = VT + (dt * 8 + g) * L::kVTStride + 4 * t;
+#pragma unroll
+        for (int cc = 0; cc < BKV / 32; ++cc)
+          mma_s8(c, a8[cc], *reinterpret_cast<const uint32_t*>(vrow + cc * 32),
+                 *reinterpret_cast<const uint32_t*>(vrow + cc * 32 + 16));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dt][e] += (float)c[e];
+      }
+    } else {
+      // O += P V. The S accumulator layout of n-tiles (2kk, 2kk+1) is the A
+      // fragment of a k16 step; V's B fragments come from ldmatrix.trans.
+      const __nv_bfloat16* Vt = reinterpret_cast<const __nv_bfloat16*>(
+          smem + L::kVOff + (VM == V_BF16 ? buf : 0) * L::kVBytes);
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0], pa[2 * kk + 1][1]};
+        const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, Vt + vrow * L::kVStride + dp * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * dp], a, bv[0], bv[1]);
+          mma_bf16(acc[2 * dp + 1], a, bv[2], bv[3]);
+        }
       }
     }
     __syncthreads();
@@ -397,98 +586,103 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(
     l_run[hf] += __shfl_xor_sync(0xffffffffu, l_run[hf], 1);
     l_run[hf] += __shfl_xor_sync(0xffffffffu, l_run[hf], 2);
   }
-  const float* vm = v_mean ? v_mean + kh * D : nullptr;
+  const float* vm = args.v_mean ? args.v_mean + kh * D : nullptr;
+  const float* vs = VM != V_BF16 ? args.v_scale + kh * D : nullptr;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int row = q0 + warp * 16 + g + 8 * hf;
     if (row >= Sq) continue;
     const bool empty = l_run[hf] == 0.0f;
     const float ls = empty ? 1.0f : l_run[hf];
-    OutT* orow = o + (qh * Sq + row) * D;
+    const long long obase = (qh * Sq + row) * D;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
       const int d = dt * 8 + 2 * t;
       float o0 = __fdiv_rn(acc[dt][2 * hf], ls);
       float o1 = __fdiv_rn(acc[dt][2 * hf + 1], ls);
+      if (vs) {
+        o0 = __fmul_rn(o0, vs[d]);
+        o1 = __fmul_rn(o1, vs[d + 1]);
+      }
       if (vm && !empty) {
         o0 += vm[d];
         o1 += vm[d + 1];
       }
-      store2(orow + d, o0, o1);
+      store2(static_cast<OutT*>(args.o) + obase + d, o0, o1);
     }
-    if (lse && t == 0) lse[qh * Sq + row] = empty ? NEG_INIT : m_run[hf] + log2f(ls);
+    if (args.lse && t == 0) {
+      float l2 = m_run[hf] + log2f(ls);
+      if (VM == V_INT8_PV) l2 -= LOG2_127;
+      args.lse[qh * Sq + row] = empty ? NEG_INIT : l2;
+    }
   }
 }
 
-template <int D, int QM, typename QT, typename OutT>
-int launch(const void* q, const void* k, const void* v, const float* q_scale,
-           const float* k_scale, const float* v_mean, void* o, float* lse, int B, int H, int Hk,
-           int Sq, int Sk, int causal, float sm_scale_log2e, cudaStream_t stream) {
-  constexpr int smem = Smem<D, QM>::kTotal;
-  auto kern = attn_fwd_kernel<D, QM, QT, OutT>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int D, int QM, int VM, bool KPACK>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  constexpr int smem = Smem<D, QM, VM, KPACK>::kTotal;
+  auto kern = a.out_f32 ? attn_fwd_kernel<D, QM, VM, KPACK, float>
+                        : attn_fwd_kernel<D, QM, VM, KPACK, __nv_bfloat16>;
+  const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const QT*>(q), k, static_cast<const __nv_bfloat16*>(v), q_scale, k_scale,
-      v_mean, static_cast<OutT*>(o), lse, H, Hk, Sq, Sk, causal, sm_scale_log2e);
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
+  kern<<<grid, NTHREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int D, typename OutT>
-int dispatch_q(int q_mode, const void* q, const void* k, const void* v, const float* q_scale,
-               const float* k_scale, const float* v_mean, void* o, float* lse, int B, int H,
-               int Hk, int Sq, int Sk, int causal, float c, cudaStream_t st) {
-  switch (q_mode) {
-    case Q_INT8:
-      return launch<D, Q_INT8, int8_t, OutT>(q, k, v, q_scale, k_scale, v_mean, o, lse, B, H,
-                                             Hk, Sq, Sk, causal, c, st);
-    case Q_FUSED_BF16:
-      return launch<D, Q_FUSED_BF16, __nv_bfloat16, OutT>(q, k, v, q_scale, k_scale, v_mean, o,
-                                                          lse, B, H, Hk, Sq, Sk, causal, c, st);
-    case Q_FUSED_F32:
-      return launch<D, Q_FUSED_F32, float, OutT>(q, k, v, q_scale, k_scale, v_mean, o, lse, B,
-                                                 H, Hk, Sq, Sk, causal, c, st);
-    case Q_FP:
-      return launch<D, Q_FP, __nv_bfloat16, OutT>(q, k, v, q_scale, k_scale, v_mean, o, lse, B,
-                                                   H, Hk, Sq, Sk, causal, c, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+// Packed K is an INT8-QK mode; the fp mode takes bf16 K only.
+template <int D, int QM, int VM>
+int dispatch_k(const Args& a, int B, cudaStream_t st) {
+  if constexpr (QM != Q_FP) {
+    if (a.k_bits < 8) return launch<D, QM, VM, true>(a, B, st);
+  }
+  return launch<D, QM, VM, false>(a, B, st);
+}
+
+template <int D, int QM>
+int dispatch_v(int v_mode, const Args& a, int B, cudaStream_t st) {
+  switch (v_mode) {
+    case V_BF16: return dispatch_k<D, QM, V_BF16>(a, B, st);
+    case V_INT8: return dispatch_k<D, QM, V_INT8>(a, B, st);
+    case V_INT8_PV: return dispatch_k<D, QM, V_INT8_PV>(a, B, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <int D>
-int dispatch_out(int out_f32, int q_mode, const void* q, const void* k, const void* v,
-                 const float* q_scale, const float* k_scale, const float* v_mean, void* o,
-                 float* lse, int B, int H, int Hk, int Sq, int Sk, int causal, float c,
-                 cudaStream_t st) {
-  if (out_f32)
-    return dispatch_q<D, float>(q_mode, q, k, v, q_scale, k_scale, v_mean, o, lse, B, H, Hk, Sq,
-                                Sk, causal, c, st);
-  return dispatch_q<D, __nv_bfloat16>(q_mode, q, k, v, q_scale, k_scale, v_mean, o, lse, B, H,
-                                      Hk, Sq, Sk, causal, c, st);
+int dispatch_q(int q_mode, int v_mode, const Args& a, int B, cudaStream_t st) {
+  switch (q_mode) {
+    case Q_INT8: return dispatch_v<D, Q_INT8>(v_mode, a, B, st);
+    case Q_FUSED_BF16: return dispatch_v<D, Q_FUSED_BF16>(v_mode, a, B, st);
+    case Q_FUSED_F32: return dispatch_v<D, Q_FUSED_F32>(v_mode, a, B, st);
+    case Q_FP: return dispatch_v<D, Q_FP>(v_mode, a, B, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // All tensors contiguous, natural layout.
 //   q: [B, H, Sq, D] int8 codes (q_mode 0), bf16 (1, 3) or f32 (2).
-//   k: [B, Hk, Sk, D] int8 codes (q_mode 0-2) or bf16 (3).   v: [B, Hk, Sk, D] bf16.
+//   k: q_mode 0-2: [B, Hk, Sk, D*k_bits/8] int8, codes (k_bits 8) or packed
+//      INT4 (4) / INT2 (2) codes; q_mode 3: [B, Hk, Sk, D] bf16 (k_bits 16).
+//   v: [B, Hk, Sk, D] bf16 (v_mode 0) or int8 codes (v_mode 1: bf16 PV,
+//      v_mode 2: INT8 PV), with v_scale [B, Hk, D] f32 for v_mode 1-2.
 //   q_scale: [B, H, Sq] f32, already times sm_scale*log2e (q_mode 0 only).
 //   k_scale: [B, Hk, Sk] f32 (q_mode 0-2).   v_mean: [B, Hk, D] f32 or null.
 //   o: [B, H, Sq, D] bf16 (out_f32 = 0) or f32.   lse: [B, H, Sq] f32 (base 2) or null.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for an unsupported D/mode).
 extern "C" int lowbit_attn_fwd(const void* q, const void* k, const void* v, const float* q_scale,
-                               const float* k_scale, const float* v_mean, void* o, float* lse,
-                               int B, int H, int Hk, int Sq, int Sk, int D, int q_mode,
-                               int out_f32, int causal, float sm_scale_log2e, void* stream) {
+                               const float* k_scale, const float* v_scale, const float* v_mean,
+                               void* o, float* lse, int B, int H, int Hk, int Sq, int Sk, int D,
+                               int q_mode, int k_bits, int v_mode, int out_f32, int causal,
+                               float sm_scale_log2e, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return dispatch_out<64>(out_f32, q_mode, q, k, v, q_scale, k_scale, v_mean, o, lse, B, H, Hk,
-                            Sq, Sk, causal, sm_scale_log2e, st);
-  if (D == 128)
-    return dispatch_out<128>(out_f32, q_mode, q, k, v, q_scale, k_scale, v_mean, o, lse, B, H,
-                             Hk, Sq, Sk, causal, sm_scale_log2e, st);
+  const bool k_ok = q_mode == Q_FP ? k_bits == 16 : (k_bits == 8 || k_bits == 4 || k_bits == 2);
+  if (!k_ok || (v_mode != V_BF16 && v_scale == nullptr)) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, q_scale, k_scale, v_scale, v_mean, o, lse,
+               H, Hk, Sq, Sk, causal, k_bits, out_f32, sm_scale_log2e};
+  if (D == 64) return dispatch_q<64>(q_mode, v_mode, a, B, st);
+  if (D == 128) return dispatch_q<128>(q_mode, v_mode, a, B, st);
   return (int)cudaErrorInvalidValue;
 }

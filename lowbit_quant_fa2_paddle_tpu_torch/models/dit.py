@@ -6,11 +6,13 @@ Counterpart of ``lowbit_quant_fa2_paddle_tpu/models/dit.py`` as an
 * ``attn_impl="exact"`` — fp32 reference attention (``ops/reference.py``);
 * ``attn_impl="fp"``    — kernel A in its bf16 FA-2 mode (the baseline);
 * ``attn_impl="int8"``  — smooth-K INT8 QK through kernels C1 and A (the
-  product).
+  product);
+* ``attn_impl="int8_v8"`` — INT8 QK and smooth-V per-channel INT8 V (C1, A);
+* ``attn_impl="int4"``  — INT8 Q × packed INT4 K (C2, A).
 
-``"int8_t"`` / ``"fp_t"`` (the TPU package's transposed-space dataflow, a
-layout device of the TPU) run the plain ``"int8"`` / ``"fp"`` paths. The
-other TPU impls raise until their kernels are ported.
+``"int8_t"`` / ``"int4_t"`` / ``"fp_t"`` (the TPU package's transposed-space
+dataflow, a layout device of the TPU) run the plain ``"int8"`` / ``"int4"`` /
+``"fp"`` paths. The training impls raise until their kernels are ported.
 
 Flagship config: CogVideoX-2b's geometry, 30 heads × head_dim 64, hidden
 1920, depth 30, ~17.8k tokens for a 49×480×720 video latent.
@@ -27,7 +29,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lowbit_quant_fa2_paddle_tpu_torch.core import lowbit_fa_qk_int8_pv_fp16
+from lowbit_quant_fa2_paddle_tpu_torch.core import (
+    lowbit_fa_qk_int4_pv_fp16,
+    lowbit_fa_qk_int8_pv_fp16,
+    lowbit_fa_qk_int8_pv_int8,
+)
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import _not_ported, flash_attention_fp
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
 
@@ -59,7 +65,7 @@ def cogvideox_2b_config(**kw) -> DiTConfig:
     return DiTConfig(**base)
 
 
-_UNPORTED_IMPLS = {"int8_v8": "3d", "int4": "3e", "int4_t": "3e", "int8_train": "10", "flash_train": "10"}
+_UNPORTED_IMPLS = {"int8_train": "10", "flash_train": "10"}
 
 
 def _attention(q, k, v, impl: str):
@@ -70,6 +76,10 @@ def _attention(q, k, v, impl: str):
         return flash_attention_fp(q, k, v).to(q.dtype)
     if impl in ("int8", "int8_t"):
         return lowbit_fa_qk_int8_pv_fp16(q, k, v)
+    if impl == "int8_v8":
+        return lowbit_fa_qk_int8_pv_int8(q, k, v)
+    if impl in ("int4", "int4_t"):
+        return lowbit_fa_qk_int4_pv_fp16(q, k, v)
     if impl in _UNPORTED_IMPLS:
         raise _not_ported(f"attn_impl={impl!r}", _UNPORTED_IMPLS[impl])
     raise ValueError(f"unknown attn_impl {impl!r}")

@@ -6,7 +6,7 @@ library with a plain C interface, at first use, into ``csrc/build/`` keyed
 by a hash of the sources and flags. Nothing here runs at import: the CPU
 tests import every module on a machine with no nvcc.
 
-No ``--use_fast_math``: the INT8 codes depend on IEEE division and on exact
+No ``--use_fast_math``: the quantized codes depend on IEEE division and on exact
 round-half-away-from-zero.
 """
 
@@ -31,9 +31,8 @@ NVCC_FLAGS = [
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points and their argument types (see the extern "C" blocks in csrc/).
 _SIGNATURES = {
-    "lowbit_quant_int8": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _P],
-    "lowbit_attn_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "lowbit_quant": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "lowbit_attn_fwd": [_P] * 9 + [_I] * 11 + [_F, _P],
     "lowbit_decode_attn": [_P] * 10 + [_I] * 12 + [_F, _P],
     "lowbit_decode_ctas_per_sm": [_I, _I, _I, _I, _P],
 }

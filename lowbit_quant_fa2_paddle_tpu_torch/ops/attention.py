@@ -1,22 +1,29 @@
-"""FlashAttention-2 forward with INT8 or bf16 QK and bf16 PV (kernel A).
+"""FlashAttention-2 forward with low-bit or bf16 QK and bf16 or INT8 PV
+(kernel A).
 
 PyTorch/CUDA counterpart of the forward kernels in
 ``lowbit_quant_fa2_paddle_tpu/ops/attention.py``. On the TPU two schedules
 (K-major ``lowbit_attention_km`` and Q-major ``lowbit_attention``) exist
 because of the matrix unit's lane layout; on the GPU one kernel,
-``csrc/attention_fwd.cu``, carries the features of the DiT path and takes
-natural layouts: ``q [B,H,Sq,D]``, ``k``/``v [B,Hk,Sk,D]``, ``o [B,H,Sq,D]``.
+``csrc/attention_fwd.cu``, carries their features and takes natural layouts:
+``q [B,H,Sq,D]``, ``k [B,Hk,Sk,D]`` (``[B,Hk,Sk,D/2]`` or ``[B,Hk,Sk,D/4]``
+packed), ``v [B,Hk,Sk,D]``, ``o [B,H,Sq,D]``.
 
 The operand types select the mode:
 
 * ``q`` int8 codes + ``q_scale``, ``k`` int8 codes + ``k_scale``: INT8 QK;
 * ``q`` float, ``k`` int8 codes + ``k_scale``: Q is quantized per token
   inside the kernel (the TPU kernel's ``fused_quant_q``), then INT8 QK;
+* ``k_pack_bits`` 4 (``k_packed_int4``) or 2: ``k`` holds packed INT4
+  (halves of D) or INT2 (quarters of D) codes, unpacked to INT8 in the
+  kernel; the logical D comes from ``q`` and ``v``;
 * ``q`` and ``k`` float: the FA-2 baseline, bf16 QK (f32 Q/K are rounded to
   bf16 first).
 
-PV always runs bf16 × bf16 → f32, V rounded to bf16 as the TPU kernel's
-default ``pv_dtype`` does. The LSE comes back in base 2, ``-1e30`` for rows
+PV runs bf16 × bf16 → f32, V rounded to bf16 as the TPU kernel's default
+``pv_dtype`` does; int8 V codes (per-channel ``v_scale`` ``[B,Hk,D]``) widen
+to bf16 exactly, or with ``pv_int8`` multiply as an exact INT8 dot against P
+requantized to [0, 127]. The LSE comes back in base 2, ``-1e30`` for rows
 with no visible key.
 
 ``lowbit_attention`` takes the plain PyTorch version below for tensors on the
@@ -31,10 +38,11 @@ from typing import Optional
 import torch
 
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
-from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import absmax_scale, quant_codes
+from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import absmax_scale, quant_codes, unpack_int2, unpack_int4
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import _repeat_kv
 
 LOG2E = math.log2(math.e)
+LOG2_127 = math.log2(127.0)
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 NEG_INIT = -1e30
 
@@ -43,6 +51,7 @@ NEG_INIT = -1e30
 KV_TILE = 64
 #: Elements of one chunk of f32 logits in the plain version (1 GiB).
 _PLAIN_CHUNK_ELEMS = 1 << 28
+_UNPACK = {4: unpack_int4, 2: unpack_int2}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -60,27 +69,35 @@ def attention_fwd_plain(
     causal: bool,
     sm_scale_log2e: float,
     out_dtype: torch.dtype,
+    k_bits: int = 8,
+    v_scale: Optional[torch.Tensor] = None,
+    pv_int8: bool = False,
 ):
     """Plain PyTorch version of kernel A on the kernel's own inputs.
 
-    ``q_scale`` (int8 ``q`` only) already carries ``sm_scale * log2(e)``.
-    Works through q-row chunks so the f32 logits stay within 1 GiB. The
-    softmax follows the kernel's online recurrence over KV tiles of
+    ``q_scale`` (int8 ``q`` only) already carries ``sm_scale * log2(e)``;
+    ``k_bits`` 4 or 2 says ``k`` holds packed codes; int8 ``v`` comes with
+    ``v_scale``. Works through q-row chunks so the f32 logits stay within
+    1 GiB. The softmax follows the kernel's online recurrence over KV tiles of
     ``KV_TILE`` keys, written in closed form: tile ``j`` rounds its P against
     the running maximum ``m_j`` and is weighted by ``2^(m_j - m_last)``, so P
-    rounds to bf16 exactly where the kernel rounds it and the two differ only
-    in summation order. Returns ``(o, lse2)``.
+    rounds to bf16 (or to ``p8`` with ``pv_int8``) exactly where the kernel
+    rounds it and the two differ only in summation order. Returns
+    ``(o, lse2)``.
     """
     b, h, s_q, _ = q.shape
     s_k = k.shape[2]
     dev = q.device
     c = torch.tensor(sm_scale_log2e, dtype=torch.float32, device=dev)
     quant = k.dtype == torch.int8
+    if k_bits != 8:
+        k = _UNPACK[k_bits](k)
     n_tiles = -(-s_k // KV_TILE)
     kf = _repeat_kv(k if quant else k.to(torch.bfloat16), h).float()
-    vf = _repeat_kv(v.to(torch.bfloat16), h).float()
+    vf = _repeat_kv(v if v.dtype == torch.int8 else v.to(torch.bfloat16), h).float()
     vf = torch.nn.functional.pad(vf, (0, 0, 0, n_tiles * KV_TILE - s_k))
     ks = _repeat_kv(k_scale.float()[:, :, None, :], h) if quant else None
+    vs = _repeat_kv(v_scale.float()[:, :, None, :], h) if v_scale is not None else None
     vm = _repeat_kv(v_mean.float()[:, :, None, :], h) if v_mean is not None else None
     col = torch.arange(s_k, device=dev)
     rows = max(1, _PLAIN_CHUNK_ELEMS // (b * h * n_tiles * KV_TILE))
@@ -104,8 +121,12 @@ def attention_fwd_plain(
         s = torch.nn.functional.pad(s, (0, n_tiles * KV_TILE - s_k), value=MASK_VALUE)
         s = s.view(b, h, n, n_tiles, KV_TILE)
         m_run = torch.cummax(s.amax(dim=-1), dim=-1).values.clamp_min(NEG_INIT)  # [b,h,n,T]
-        p = torch.exp2((s - m_run[..., None]).to(torch.bfloat16).float()).to(torch.bfloat16).float()
+        shift = m_run - LOG2_127 if pv_int8 else m_run
+        p = torch.exp2((s - shift[..., None]).to(torch.bfloat16).float()).to(torch.bfloat16).float()
         del s
+        if pv_int8:
+            # p8 = int8(bf16(P + 0.5)), saturating at 127 as XLA's convert does.
+            p = (p + 0.5).to(torch.bfloat16).float().trunc().clamp_max(127.0)
         m = m_run[..., -1:]
         w = torch.exp2(m_run - m)
         l = (p.sum(dim=-1) * w).sum(dim=-1, keepdim=True)
@@ -114,16 +135,25 @@ def attention_fwd_plain(
         empty = l == 0.0
         ls = torch.where(empty, torch.ones_like(l), l)
         o = o / ls
+        if vs is not None:
+            o = o * vs
         if vm is not None:
             o = o + (~empty).float() * vm
         outs.append(o.to(out_dtype))
-        lses.append(torch.where(empty, torch.full_like(l, NEG_INIT), m + torch.log2(ls))[..., 0])
+        lse = m + torch.log2(ls)
+        if pv_int8:
+            lse = lse - LOG2_127
+        lses.append(torch.where(empty, torch.full_like(l, NEG_INIT), lse)[..., 0])
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
-def _attention_fwd_cuda(q, k, v, q_scale, k_scale, v_mean, *, causal, sm_scale_log2e, out_dtype, need_lse):
+def _attention_fwd_cuda(
+    q, k, v, q_scale, k_scale, v_mean, *, causal, sm_scale_log2e, out_dtype, need_lse, k_bits, v_scale, pv_int8
+):
     """Launch kernel A. Head dims below 64 (or between 64 and 128) are
-    zero-padded: zero Q/K columns leave QK^T and the Q absmax unchanged."""
+    zero-padded: zero Q/K columns leave QK^T and the Q absmax unchanged, and
+    zero V columns are sliced off. Packed K cannot be padded; its D is 64 or
+    128 (the wrapper checks)."""
     b, h, s_q, d = q.shape
     hk, s_k = k.shape[1], k.shape[2]
     if d > 128:
@@ -138,30 +168,31 @@ def _attention_fwd_cuda(q, k, v, q_scale, k_scale, v_mean, *, causal, sm_scale_l
         mode = 1 if q.dtype == torch.bfloat16 else 2
         q = q if mode == 1 else q.float()
     else:
-        mode = 3
+        mode, k_bits = 3, 16
         q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
-    v = v.to(torch.bfloat16)
+    v_mode = 0 if v.dtype != torch.int8 else 2 if pv_int8 else 1
+    if v_mode == 0:
+        v = v.to(torch.bfloat16)
     if dp != d:
-        q, k, v = (torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k, v))
-        v_mean = torch.nn.functional.pad(v_mean, (0, dp - d)) if v_mean is not None else None
-    tensors = [q, k, v] + [x for x in (q_scale, k_scale, v_mean) if x is not None]
+        pad = lambda x: torch.nn.functional.pad(x, (0, dp - d)) if x is not None else None  # noqa: E731
+        q, k, v, v_scale, v_mean = pad(q), pad(k), pad(v), pad(v_scale), pad(v_mean)
+    tensors = [q, k, v] + [x for x in (q_scale, k_scale, v_scale, v_mean) if x is not None]
     if any(x.device != q.device for x in tensors):
         raise ValueError("attention inputs must all be on one device")
     # cp.async moves 16-byte chunks: rows must start on 16-byte boundaries.
     q, k, v = (x if x.is_contiguous() and x.data_ptr() % 16 == 0 else x.clone(memory_format=torch.contiguous_format)
                for x in (q, k, v))
-    q_scale = q_scale.float().contiguous() if q_scale is not None else None
-    k_scale = k_scale.float().contiguous() if k_scale is not None else None
-    v_mean = v_mean.float().contiguous() if v_mean is not None else None
+    q_scale, k_scale, v_scale, v_mean = (
+        x.float().contiguous() if x is not None else None for x in (q_scale, k_scale, v_scale, v_mean))
     out_f32 = out_dtype != torch.bfloat16
     o = torch.empty((b, h, s_q, dp), dtype=torch.float32 if out_f32 else torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device) if need_lse else None
-    ptrs = [x.data_ptr() if x is not None else None for x in (q, k, v, q_scale, k_scale, v_mean, o, lse)]
+    ptrs = [x.data_ptr() if x is not None else None for x in (q, k, v, q_scale, k_scale, v_scale, v_mean, o, lse)]
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.lowbit_attn_fwd(
             *ptrs,
-            b, h, hk, s_q, s_k, dp, mode, int(out_f32), int(causal), sm_scale_log2e,
+            b, h, hk, s_q, s_k, dp, mode, k_bits, v_mode, int(out_f32), int(causal), sm_scale_log2e,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "lowbit_attention")
@@ -198,14 +229,17 @@ def lowbit_attention(
     """Attention forward (kernel A) on natural layouts; see the module note
     for the modes. ``q_scale`` ``[B,H,Sq]`` / ``k_scale`` ``[B,Hk,Sk]`` are
     per-row dequant scales (``sm_scale·log2e`` is folded into ``q_scale``
-    here, as in the TPU launcher); ``v_mean`` ``[B,Hk,D]`` is added back to
-    rows with at least one visible key (smooth-V). ``sm_scale`` defaults to
-    ``1/sqrt(D)``. Causal masking is top-left aligned: key ``c`` is visible
-    to query ``r`` iff ``c <= r``.
+    here, as in the TPU launcher). ``k_packed_int4`` (or ``k_pack_bits=4``)
+    and ``k_pack_bits=2`` take packed K codes, with D 64 or 128. int8 ``v``
+    takes per-channel ``v_scale`` ``[B,Hk,D]``; ``pv_int8`` then runs PV as
+    an INT8 dot. ``v_mean`` ``[B,Hk,D]`` is added back to rows with at least
+    one visible key (smooth-V). ``sm_scale`` defaults to ``1/sqrt(D)``.
+    Causal masking is top-left aligned: key ``c`` is visible to query ``r``
+    iff ``c <= r``.
 
-    Returns ``o`` ``[B,H,Sq,D]`` (bf16 when QK is quantized, else
-    ``v.dtype``, unless ``out_dtype``) and, with ``return_lse``, the base-2
-    LSE ``[B,H,Sq]``.
+    Returns ``o`` ``[B,H,Sq,D]`` (bf16 when QK is quantized or V is int8,
+    else ``v.dtype``, unless ``out_dtype``) and, with ``return_lse``, the
+    base-2 LSE ``[B,H,Sq]``.
     """
     if window_size is not None or sink_size:
         raise _not_ported("window_size/sink_size", "3f")
@@ -217,24 +251,29 @@ def lowbit_attention(
         raise _not_ported("logit_cap", "3f")
     if q_position_offset:
         raise _not_ported("q_position_offset", "3f")
-    if k_packed_int4 or k_pack_bits != 8:
-        raise _not_ported("packed INT4/INT2 K", "3e")
-    if v_scale is not None or pv_int8 or v.dtype == torch.int8:
-        raise _not_ported("INT8 V / pv_int8", "3d")
     if pv_dtype != torch.bfloat16:
         raise _not_ported("fp32 PV operands", "3g")
 
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError("q and k must be [B, H, S, D]")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be [B, H, S, D]")
+    k_bits = 4 if k_packed_int4 else k_pack_bits
+    if k_bits not in (8, 4, 2):
+        raise ValueError(f"k_pack_bits must be 8, 4 or 2, got {k_pack_bits}")
     b, h, s_q, d = q.shape
-    _, hk, s_k, _ = k.shape
-    if tuple(k.shape) != (b, hk, s_k, d) or tuple(v.shape) != (b, hk, s_k, d):
-        raise ValueError(f"k/v must be [B, Hk, Sk, D] with D={d}: {tuple(k.shape)}, {tuple(v.shape)}")
+    _, hk, s_k, d_k = k.shape
+    if tuple(v.shape) != (b, hk, s_k, d):
+        raise ValueError(f"v must be [B, Hk, Sk, D] with D={d}: {tuple(v.shape)}")
+    if tuple(k.shape) != (b, hk, s_k, d * k_bits // 8) or d * k_bits % 8:
+        raise ValueError(f"k must be [B, Hk, Sk, D*{k_bits}/8] with D={d}: {tuple(k.shape)}")
     if hk == 0 or h % hk:
         raise ValueError(f"query heads {h} not a multiple of kv heads {hk}")
     if s_k < 1:
         raise ValueError("need at least one key")
-    q_int8, k_int8 = q.dtype == torch.int8, k.dtype == torch.int8
+    q_int8, k_int8, v_int8 = q.dtype == torch.int8, k.dtype == torch.int8, v.dtype == torch.int8
+    if k_bits != 8 and not k_int8:
+        raise ValueError("packed K is int8 bytes of codes")
+    if k_bits != 8 and d % 64:
+        raise ValueError(f"packed K needs a head_dim that is a multiple of 64 (pad before quantizing), got {d}")
     if q_int8 and (not k_int8 or q_scale is None or k_scale is None):
         raise ValueError("int8 q needs int8 k codes and both q_scale and k_scale")
     if k_int8 and k_scale is None:
@@ -243,12 +282,17 @@ def lowbit_attention(
         raise ValueError("q_scale goes with int8 q codes; float q is quantized in-kernel")
     if not k_int8 and k_scale is not None:
         raise ValueError("k_scale goes with int8 k codes")
+    if v_int8 != (v_scale is not None):
+        raise ValueError("int8 v codes and v_scale go together")
+    if pv_int8 and not v_int8:
+        raise ValueError("pv_int8 needs int8 v codes")
     if q_scale is not None and tuple(q_scale.shape) != (b, h, s_q):
         raise ValueError(f"q_scale must be [B, H, Sq], got {tuple(q_scale.shape)}")
     if k_scale is not None and tuple(k_scale.shape) != (b, hk, s_k):
         raise ValueError(f"k_scale must be [B, Hk, Sk], got {tuple(k_scale.shape)}")
-    if v_mean is not None and tuple(v_mean.shape) != (b, hk, d):
-        raise ValueError(f"v_mean must be [B, Hk, D], got {tuple(v_mean.shape)}")
+    for name, x in (("v_scale", v_scale), ("v_mean", v_mean)):
+        if x is not None and tuple(x.shape) != (b, hk, d):
+            raise ValueError(f"{name} must be [B, Hk, D], got {tuple(x.shape)}")
 
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -256,15 +300,15 @@ def lowbit_attention(
     if q_int8:
         q_scale = q_scale.float() * torch.tensor(sm_scale_log2e, dtype=torch.float32, device=q_scale.device)
     if out_dtype is None:
-        out_dtype = torch.bfloat16 if k_int8 else v.dtype
+        out_dtype = torch.bfloat16 if k_int8 or v_int8 else v.dtype
 
     args = (q, k, v, q_scale, k_scale, v_mean)
+    kw = dict(causal=is_causal, sm_scale_log2e=sm_scale_log2e, out_dtype=out_dtype, k_bits=k_bits,
+              v_scale=v_scale, pv_int8=pv_int8)
     if q.device.type == "cpu":
-        o, lse = attention_fwd_plain(*args, causal=is_causal, sm_scale_log2e=sm_scale_log2e, out_dtype=out_dtype)
+        o, lse = attention_fwd_plain(*args, **kw)
     elif q.device.type == "cuda":
-        o, lse = _attention_fwd_cuda(
-            *args, causal=is_causal, sm_scale_log2e=sm_scale_log2e, out_dtype=out_dtype, need_lse=return_lse
-        )
+        o, lse = _attention_fwd_cuda(*args, **kw, need_lse=return_lse)
     else:
         raise ValueError(f"lowbit_attention runs on cpu or cuda tensors, not {q.device}")
     return (o, lse) if return_lse else o

@@ -14,11 +14,19 @@ a bf16 tile to exp(bf16(ln 2) * x): the TPU kernel's softmax runs in base
 e^0.6914 = 2^0.9975, which biases its LSE by up to ~1e-2
 (test_jax_bf16_exp2_rounds_ln2). The port computes exp2 itself; its fp LSE
 is held to the exact fp32 oracle at 5e-3. Port vs the oracle: cos >= 0.999,
-the bound the JAX tests hold INT8 to.
+the bound the JAX tests hold INT8 to; the low-bit modes take the JAX tests'
+own bounds (int4 > 0.99, int2 > 0.9, int8_v8 > 0.999).
+
+The packed-K and INT8-V modes meet the same port-vs-JAX bounds. ``pv_int8``
+gets its own: its P is requantized to integers in [0, 127], and JAX's
+base-2^0.9975 exponent moves some codes by one against the port's 2^x, so it
+is held to cos >= 0.999 and max|do| <= 5e-2 (measured on a CPU: cos
+0.999994, max|do| 2.7e-2, max|dlse| 1.4e-2).
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,13 +57,13 @@ def _jax(x, dtype=jnp.float32):
     return jnp.asarray(x, dtype)
 
 
-def _close(o_port, o_jax, lse_port=None, lse_jax=None):
+def _close(o_port, o_jax, lse_port=None, lse_jax=None, cos_min=COS_MIN, max_do=MAX_DO):
     o_jax = torch.from_numpy(np.array(jnp.asarray(o_jax, jnp.float32)))
     o_port = o_port.float()
     assert o_port.shape == o_jax.shape
     assert torch.isfinite(o_port).all()
-    assert float(cosine_similarity(o_port, o_jax)) >= COS_MIN
-    assert float((o_port - o_jax).abs().max()) <= MAX_DO
+    assert float(cosine_similarity(o_port, o_jax)) >= cos_min
+    assert float((o_port - o_jax).abs().max()) <= max_do
     if lse_port is not None:
         lse_jax = torch.from_numpy(np.array(lse_jax))
         assert lse_port.shape == lse_jax.shape
@@ -147,8 +155,6 @@ def test_external_int8_q_matches_fused_quant():
         (dict(sink_size=4), NotImplementedError),
         (dict(logit_cap=30.0), NotImplementedError),
         (dict(q_position_offset=4), NotImplementedError),
-        (dict(k_packed_int4=True), NotImplementedError),
-        (dict(pv_int8=True), NotImplementedError),
         (dict(pv_dtype=torch.float32), NotImplementedError),
         (dict(bias=torch.zeros(1, 1, 1, 8)), NotImplementedError),
     ],
@@ -161,11 +167,9 @@ def test_unported_flags_raise(kw, exc):
 
 def test_unported_entry_points_raise():
     q = torch.randn(1, 1, 8, 64)
-    for bits in ("int4", "int8_v8", "auto"):
+    for fn in (tlq.lowbit_fa_qk_int8_pv_fp16, tlq.lowbit_fa_qk_int4_pv_fp16):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlq.lowbit_fa_attn(q, q, q, bits=bits)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlq.lowbit_fa_qk_int8_pv_fp16(q, q, q, smooth_q=True)
+            fn(q, q, q, smooth_q=True)
     with pytest.raises(ValueError):
         lowbit_attention(q.to(torch.int8), q, q)
 
@@ -204,3 +208,206 @@ def test_attention_reference_matches_jax(kw):
         kmq = tr.lse_smooth_k_correction(tl, _torch(q), km[:, [0, 0, 1, 1]], 0.125)
         jkmq = jr.lse_smooth_k_correction(jl, _jax(q), jnp.repeat(jkm, 2, axis=1), 0.125)
         np.testing.assert_allclose(kmq.numpy(), np.asarray(jkmq), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Packed INT4 / INT2 K, INT8 V and INT8 PV (kernels C2, C3 and A's modes)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize(
+    "causal,hk,gran",
+    [(False, 4, "per_token"), (True, 2, "per_token"), (False, 2, "per_block"), (True, 4, "per_block")],
+)
+def test_packed_k_matches_jax(bits, causal, hk, gran):
+    """INT8 Q × packed INT4 / INT2 K, causal or not, GQA, per-token or
+    per-block (Q external through C1 at per-block)."""
+    q, k, v = _qkv(hk=hk, seed=6)
+    name = f"lowbit_fa_qk_int{bits}_pv_fp16"
+    kw = dict(is_causal=causal, qk_quant_gran=gran, return_lse=True)
+    jo, jl = getattr(jlq.core, name)(_jax(q), _jax(k), _jax(v), **kw)
+    to, tl = getattr(tlq, name)(_torch(q), _torch(k), _torch(v), **kw)
+    assert to.dtype == torch.float32
+    _close(to, jo, tl, jl)
+
+
+@pytest.mark.parametrize("smooth_v,d", [(False, 64), (True, 64), (True, 128)])
+def test_int8_v_matches_jax(smooth_v, d):
+    """Per-channel INT8 V widened to bf16 for the PV product (JAX's default
+    ``pv_int8=False``), with and without smooth-V."""
+    q, k, v = _qkv(hk=2, d=d, seed=7)
+    kw = dict(smooth_v=smooth_v, return_lse=True)
+    jo, jl = jlq.lowbit_fa_qk_int8_pv_int8(_jax(q), _jax(k), _jax(v + 0.5), **kw)
+    to, tl = tlq.lowbit_fa_qk_int8_pv_int8(_torch(q), _torch(k), _torch(v + 0.5), **kw)
+    _close(to, jo, tl, jl)
+
+
+@pytest.mark.parametrize("causal,d", [(False, 64), (True, 128)])
+def test_pv_int8_matches_jax(causal, d):
+    """INT8 P × INT8 V (the module note gives the bound and its reason)."""
+    q, k, v = _qkv(hk=2, d=d, seed=8)
+    kw = dict(is_causal=causal, pv_int8=True, return_lse=True)
+    jo, jl = jlq.lowbit_fa_qk_int8_pv_int8(_jax(q), _jax(k), _jax(v + 0.5), **kw)
+    to, tl = tlq.lowbit_fa_qk_int8_pv_int8(_torch(q), _torch(k), _torch(v + 0.5), **kw)
+    _close(to, jo, tl, jl, cos_min=0.999, max_do=5e-2)
+
+
+@pytest.mark.parametrize("bits,bound", [("int4", 0.99), ("int2", 0.9), ("int8_v8", 0.999)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_lowbit_modes_track_oracle(bits, bound, causal):
+    """The JAX tests' bounds against the fp32 oracle (test_api.py,
+    test_lowbit_variants.py), at their shape b1 h4 s256 d64."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 256, 64)).astype(np.float32)) for _ in range(3))
+    if bits == "int8_v8":
+        v = v + 1.0
+    o = tlq.lowbit_fa_attn(q, k, v, is_causal=causal, bits=bits)
+    assert float(cosine_similarity(o, attention_reference(q, k, v, is_causal=causal))) > bound
+
+
+def test_pv_int8_saturates_p8_at_the_row_max():
+    """With ``pv_int8`` the row maximum's logit after the shift is log2(127)
+    = 6.9887, which rounds to 7.0 in bf16: P = 2^7 = 128, and bf16(128 + 0.5)
+    = 128. XLA's f32/bf16 -> s8 convert saturates that to 127, so p8 must be
+    127, never the -128 a wrapping cast gives. Two keys whose logits differ
+    by 1 (base 2): p8 = 127 and bf16(2^5.96875 -> 2^6) = 64."""
+    one = np.asarray(jnp.asarray(128.0, jnp.bfloat16).astype(jnp.int8))
+    jitted = np.asarray(jax.jit(lambda x: x.astype(jnp.int8))(jnp.asarray(128.0, jnp.bfloat16)))
+    assert int(one) == int(jitted) == 127
+    d = 64
+    c = 1.0 / math.sqrt(d) * math.log2(math.e)
+    q = torch.zeros(1, 1, 1, d)
+    q[..., 0] = 1.0
+    k = torch.zeros(1, 1, 2, d, dtype=torch.int8)
+    k[0, 0, 0, 0], k[0, 0, 1, 0] = 127, 0
+    # Logits s = (q_code · k_code) · k_scale · q_scale, with q's code 127 and
+    # q_scale = (1/127 + EPS) · sm_scale · log2(e): key 0 gets ~1, key 1 gets 0.
+    q_scale = (1.0 / 127.0 + 1e-7) * c
+    k_scale = torch.tensor([[[1.0 / (127 * 127 * q_scale), 0.0]]])
+    v = torch.tensor([[[[3] * d, [-5] * d]]], dtype=torch.int8)
+    v_scale = torch.full((1, 1, d), 0.5)
+    o, lse = lowbit_attention(q, k, v, None, k_scale, v_scale=v_scale, pv_int8=True, return_lse=True,
+                              out_dtype=torch.float32)
+    s_max = 1.0  # key 0's logit in base 2; key 1's is 0
+    p8 = torch.tensor([127.0, 64.0])
+    want = (p8[0] * 3 + p8[1] * -5) / p8.sum() * 0.5
+    assert float((o[0, 0, 0] - want).abs().max()) <= 1e-6
+    assert abs(float(lse[0, 0, 0]) - (s_max + math.log2(191.0) - math.log2(127.0))) <= 1e-5
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+def test_packed_k_equals_unpacked_codes(bits):
+    """Packed K gives exactly what its unpacked INT8 codes give: packing only
+    changes storage."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as tqo
+
+    q, k, v = (_torch(x) for x in _qkv(hk=2, s=200, seed=10))
+    packed, ks = (tqo.quant_int4 if bits == 4 else tqo.quant_int2)(k, gran="per_token")
+    codes = (tqo.unpack_int4 if bits == 4 else tqo.unpack_int2)(packed)
+    o_p, l_p = lowbit_attention(q, packed, v, None, ks, k_pack_bits=bits, return_lse=True)
+    o_u, l_u = lowbit_attention(q, codes, v, None, ks, return_lse=True)
+    assert torch.equal(o_p, o_u) and torch.equal(l_p, l_u)
+    if bits == 4:
+        assert torch.equal(lowbit_attention(q, packed, v, None, ks, k_packed_int4=True), o_p)
+
+
+@pytest.mark.parametrize("bits", ["int8_v8", "int4", "int2", "auto"])
+def test_dispatch_by_bits(bits):
+    """``lowbit_fa_attn(bits=...)`` runs the matching entry point; ``auto``
+    picks int4 for unit-normal tensors (average absmax scale ~0.03) and
+    exports no LSE."""
+    q, k, v = (_torch(x) for x in _qkv(s=128, seed=11))
+    direct = {
+        "int8_v8": tlq.lowbit_fa_qk_int8_pv_int8, "int4": tlq.lowbit_fa_qk_int4_pv_fp16,
+        "int2": tlq.lowbit_fa_qk_int2_pv_fp16, "auto": tlq.lowbit_fa_qk_int4_pv_fp16,
+    }[bits]
+    from lowbit_quant_fa2_paddle_tpu_torch.core import select_quantization
+
+    assert select_quantization(q, k) == "int4"
+    assert torch.equal(tlq.lowbit_fa_attn(q, k, v, bits=bits), direct(q, k, v))
+    if bits == "auto":
+        with pytest.raises(ValueError, match="LSE"):
+            tlq.lowbit_fa_attn(q, k, v, bits=bits, return_lse=True)
+    else:
+        o, lse = tlq.lowbit_fa_attn(q, k, v, bits=bits, return_lse=True)
+        assert lse.shape == (1, 4, 128) and torch.equal(o, direct(q, k, v))
+
+
+@pytest.mark.parametrize("scale", [100.0, 10.0, 0.1])
+def test_multi_precision_matches_jax(scale):
+    """The selector at the JAX test's three scales (fp16 / int8 / int4),
+    then the chosen branch against JAX's."""
+    from lowbit_quant_fa2_paddle_tpu.core import select_quantization as jsel
+    from lowbit_quant_fa2_paddle_tpu_torch.core import select_quantization as tsel
+
+    ones = np.ones((1, 1, 8, 8), np.float32) * scale
+    want = {100.0: "fp16", 10.0: "int8", 0.1: "int4"}[scale]
+    assert jsel(_jax(ones), _jax(ones)) == tsel(_torch(ones), _torch(ones)) == want
+    q, k, v = _qkv(s=200, seed=12)
+    q, k = q * scale / 4, k * scale / 4
+    b16 = want == "fp16"
+    jo = jlq.lowbit_fa_multi_precision(*(_jax(x, jnp.bfloat16 if b16 else jnp.float32) for x in (q, k, v)))
+    to = tlq.lowbit_fa_multi_precision(*(_torch(x, torch.bfloat16 if b16 else torch.float32) for x in (q, k, v)))
+    assert tsel(_torch(q), _torch(k)) == want
+    _close(to, jo)
+    from lowbit_quant_fa2_paddle_tpu_torch.core import lowbit_fa_multi_precision_jit
+
+    assert torch.equal(lowbit_fa_multi_precision_jit(*(_torch(x) for x in (q, k, v))),
+                       tlq.lowbit_fa_multi_precision(*(_torch(x) for x in (q, k, v))))
+
+
+def test_quantize_with_bitmap_matches_jitted_jax():
+    """Blocks flagged 0 round through INT4 with ``jnp.round`` (half to even,
+    unlike the kernels' half away from zero); the scale is the fma form that
+    compiled JAX uses. Rows are seeded with exact ties k + 0.5 of the scale."""
+    from lowbit_quant_fa2_paddle_tpu.core import quantize_with_bitmap as jqb
+    from lowbit_quant_fa2_paddle_tpu_torch.core import quantize_with_bitmap as tqb
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import absmax_scale
+
+    rng = np.random.default_rng(13)
+    k = rng.uniform(-2.0, 2.0, (1, 2, 300, 64)).astype(np.float32)
+    k[0, :, 0, 0] = 3.5  # the absmax of every block of head 0, 1 rows 0..127
+    scale = float(absmax_scale(torch.tensor(3.5), bits=4))
+    ties = 0
+    for j, m in enumerate([0.5, 1.5, 2.5, -0.5, -2.5]):
+        val = np.float32(m * scale)
+        if float(val) == m * scale:
+            k[0, :, 1, j] = val
+            ties += 1
+    assert ties >= 3
+    bitmap = np.array([0, 1, 0], np.int32)
+    want = np.asarray(jax.jit(lambda x, b: jqb(x, b))(jnp.asarray(k), jnp.asarray(bitmap)))
+    got = tqb(torch.from_numpy(k), torch.from_numpy(bitmap)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0, 1, 0] == 0.0 and got[0, 0, 1, 1] == np.float32(2 * scale)  # 0.5 -> 0, 1.5 -> 2
+    np.testing.assert_array_equal(got[:, :, 128:256], k[:, :, 128:256])  # the int8 block is untouched
+
+
+def test_mixed_bits_matches_jax():
+    q, k, v = _qkv(hk=2, seed=14)
+    bitmap = np.array([1, 0, 1], np.int32)
+    jo = jlq.lowbit_fa_mixed_bits(_jax(q), _jax(k), _jax(v), jnp.asarray(bitmap), is_causal=True)
+    to = tlq.lowbit_fa_mixed_bits(_torch(q), _torch(k), _torch(v), torch.from_numpy(bitmap), is_causal=True)
+    _close(to, jo)
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["packed_d96", "pv_int8_float_v", "int8_v_no_scale", "pack_bits_3", "packed_shape"],
+)
+def test_bad_low_bit_inputs_raise(case):
+    q = torch.randn(1, 2, 8, 64)
+    k8 = torch.zeros(1, 2, 8, 64, dtype=torch.int8)
+    ks = torch.ones(1, 2, 8)
+    v = torch.randn(1, 2, 8, 64)
+    args = {
+        "packed_d96": ((torch.randn(1, 2, 8, 96), torch.zeros(1, 2, 8, 48, dtype=torch.int8),
+                        torch.randn(1, 2, 8, 96), None, ks), dict(k_pack_bits=4)),
+        "pv_int8_float_v": ((q, k8, v, None, ks), dict(pv_int8=True)),
+        "int8_v_no_scale": ((q, k8, v.to(torch.int8), None, ks), dict()),
+        "pack_bits_3": ((q, k8, v, None, ks), dict(k_pack_bits=3)),
+        "packed_shape": ((q, k8, v, None, ks), dict(k_packed_int4=True)),
+    }[case]
+    with pytest.raises(ValueError):
+        lowbit_attention(*args[0], **args[1])

@@ -7,8 +7,9 @@ tiny_config(dim=256, num_heads=4, depth=2), s256, bf16. Both sides round
 every dense layer to bf16, but in different places (PyTorch's linear adds
 the bias before rounding, XLA after), so the bound is a frame cosine of
 0.9999 and an MSE of 1e-4 for each impl, not bit equality (measured on a
-CPU: cos 0.999999, MSE 2e-6 for all three). The port's int8
-path must also track its own exact path as the JAX e2e regression demands
+CPU: cos 0.999999, MSE 2e-6 for exact, fp and int8; int4 and int8_v8 the
+same bounds). The port's low-bit
+paths must also track its own exact path as the JAX e2e regression demands
 (cos > 0.99, MSE < 0.5).
 """
 
@@ -62,7 +63,7 @@ def test_params_from_jax_layout(models):
     assert model.blocks[0].ada.weight.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("impl", ["exact", "fp", "int8"])
+@pytest.mark.parametrize("impl", ["exact", "fp", "int8", "int4", "int8_v8"])
 def test_denoise_steps_track_jax(models, impl):
     cfg_j, params, model, x0 = models
     want = _jax_generate(cfg_j, params, x0, impl)
@@ -75,7 +76,7 @@ def test_denoise_steps_track_jax(models, impl):
 def test_int8_tracks_exact(models):
     _, _, model, x0 = models
     base = _port_generate(model, x0, "exact")
-    for impl in ("int8", "int8_t", "fp"):
+    for impl in ("int8", "int8_t", "int8_v8", "int4", "fp"):
         out = _port_generate(model, x0, impl)
         assert float(cosine_similarity(out, base)) > 0.99, impl
         assert float(mse(out, base)) < 0.5, impl
@@ -96,9 +97,19 @@ def test_init_dit_params_distributions():
     assert out.shape == x.shape and torch.isfinite(out.float()).all()
 
 
+def test_transposed_impls_run_the_plain_paths(models):
+    """``int4_t`` is the TPU's layout device for ``int4``: the same values."""
+    _, _, model, x0 = models
+    x = torch.from_numpy(x0[:, :96]).bfloat16()
+    t = torch.tensor([500.0])
+    for impl in ("int4", "int8"):
+        want = tdit.dit_forward(model, x, t, attn_impl=impl)
+        assert torch.equal(tdit.dit_forward(model, x, t, attn_impl=impl + "_t"), want), impl
+
+
 def test_unported_impls_raise(models):
     _, _, model, x0 = models
     x = torch.from_numpy(x0[:, :64]).bfloat16()
-    for impl in ("int4", "int8_v8", "int8_train"):
+    for impl in ("int8_train", "flash_train"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdit.dit_forward(model, x, torch.tensor([1.0]), attn_impl=impl)

@@ -22,7 +22,15 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
 from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import decode_attention, decode_attention_plain, quantize_token
 from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
-from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int8, quant_int8_plain
+from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import (
+    quant_int2,
+    quant_int2_plain,
+    quant_int4,
+    quant_int4_plain,
+    quant_int8,
+    quant_int8_plain,
+    quant_v_int8_per_channel,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,13 +51,19 @@ def test_port_imports_no_jax():
 
 
 def test_cpu_tensors_launch_no_kernel():
-    n_q, n_a, n_d = quant_int8.launches, lowbit_attention.launches, decode_attention.launches
+    wrappers = (quant_int8, quant_int4, quant_int2, lowbit_attention, decode_attention)
+    before = [w.launches for w in wrappers]
     x = torch.randn(1, 2, 70, 64)
     codes, scale = quant_int8(x, gran="per_token")
     lowbit_attention(x, codes, x, None, scale)
     lowbit_attention(x, x, x)
+    for quant, bits in ((quant_int4, 4), (quant_int2, 2)):
+        packed, ks = quant(x, gran="per_block", block=64)
+        lowbit_attention(x, packed, x, None, ks, k_pack_bits=bits)
+    vc, vs, _ = quant_v_int8_per_channel(x)
+    lowbit_attention(x, codes, vc, None, scale, v_scale=vs, pv_int8=True)
     decode_attention(x[:, :, 0], codes, codes, scale, torch.tensor([70], dtype=torch.int32), v_scale=scale)
-    assert (quant_int8.launches, lowbit_attention.launches, decode_attention.launches) == (n_q, n_a, n_d)
+    assert [w.launches for w in wrappers] == before
 
 
 def test_build_command_targets_sm90a_from_repo_sources():
@@ -59,7 +73,7 @@ def test_build_command_targets_sm90a_from_repo_sources():
         assert not any("fast_math" in a or "fast-math" in a for a in cmd)
     srcs = [a for cmd in compiles for a in cmd if a.endswith(".cu")]
     assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
-    assert sorted(os.path.basename(s) for s in srcs) == ["attention_fwd.cu", "decode_attention.cu", "quant_int8.cu"]
+    assert sorted(os.path.basename(s) for s in srcs) == ["attention_fwd.cu", "decode_attention.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert "-shared" in link and link[-3:] == [cmd[-1] for cmd in compiles]
     assert _build.CSRC_DIR.startswith(os.path.join(REPO, "lowbit_quant_fa2_paddle_tpu_torch"))
@@ -89,6 +103,22 @@ def test_quant_kernel_equals_plain(cuda, gran, block, s):
     km = torch.randn(2, 3, 1, 64, generator=g, device=cuda)
     codes, scale = quant_int8(x, km, gran=gran, block=block)
     want_c, want_s = quant_int8_plain(x, km, per_token=gran == "per_token", block=block)
+    assert torch.equal(codes, want_c) and torch.equal(scale, want_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,gran,block,d", [(4, "per_token", 128, 64), (4, "per_block", 64, 128),
+                                               (2, "per_token", 128, 128), (2, "per_block", 64, 64)])
+def test_lowbit_quant_kernels_equal_plain(cuda, bits, gran, block, d):
+    """C2 bit for bit; C3 too, since both sides sum the squares in f64."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 3, 1000, d, generator=g, device=cuda).bfloat16()
+    km = torch.randn(2, 3, 1, d, generator=g, device=cuda)
+    quant, plain = (quant_int4, quant_int4_plain) if bits == 4 else (quant_int2, quant_int2_plain)
+    n = quant.launches
+    codes, scale = quant(x, km, gran=gran, block=block)
+    want_c, want_s = plain(x, km, per_token=gran == "per_token", block=block)
+    assert quant.launches == n + 1
     assert torch.equal(codes, want_c) and torch.equal(scale, want_s)
 
 
@@ -147,3 +177,30 @@ def test_decode_kernel_matches_plain(cuda, bits, h, hk, d, s, lengths):
     if 0 in lengths:
         i = lengths.index(0)
         assert float(o[i].float().abs().max()) == 0.0 and bool((lse[i] == -1e30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "k_bits,v_mode,causal,h,hk,d,s",
+    [(4, "bf16", False, 4, 4, 64, 1000), (2, "bf16", True, 8, 2, 128, 777), (8, "int8", False, 4, 2, 64, 1000),
+     (8, "int8_pv", True, 4, 4, 128, 300), (4, "int8_pv", False, 2, 1, 64, 129)],
+)
+def test_attention_low_bit_modes_match_plain(cuda, k_bits, v_mode, causal, h, hk, d, s):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(1, h, s, d, generator=g, device=cuda).bfloat16()
+    k = torch.randn(1, hk, s, d, generator=g, device=cuda).bfloat16()
+    v = torch.randn(1, hk, s, d, generator=g, device=cuda).bfloat16()
+    quant = {8: quant_int8, 4: quant_int4, 2: quant_int2}[k_bits]
+    kc, ks = quant(k, gran="per_token")
+    vs = vm = None
+    if v_mode != "bf16":
+        v, vs, vm = quant_v_int8_per_channel(v, smooth_v=True)
+    kw = dict(v_scale=vs, v_mean=vm, pv_int8=v_mode == "int8_pv")
+    o, lse = lowbit_attention(q, kc, v, None, ks, k_pack_bits=k_bits, is_causal=causal, return_lse=True, **kw)
+    o_ref, lse_ref = attention_fwd_plain(q, kc, v, None, ks, vm, causal=causal, sm_scale_log2e=1.0 / math.sqrt(d) * LOG2E,
+                                         out_dtype=torch.bfloat16, k_bits=k_bits, v_scale=vs,
+                                         pv_int8=v_mode == "int8_pv")
+    torch.cuda.synchronize()
+    assert float(cosine_similarity(o, o_ref)) >= 0.9999
+    assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
+    assert float((lse - lse_ref).abs().max()) <= 1e-3

@@ -1,8 +1,15 @@
-"""Port parity: INT8 quantization (kernel C1) of the PyTorch package against
-the JAX package. Inputs are made with numpy from a seed and handed to both
-sides; the JAX kernel runs in Pallas interpret mode on the CPU, the port runs
-its plain version. Codes AND scales must be equal, bit for bit."""
+"""Port parity: quantization (kernels C1, C2, C3) of the PyTorch package
+against the JAX package. Inputs are made with numpy from a seed and handed to
+both sides; the JAX kernels run in Pallas interpret mode on the CPU, the port
+runs its plain versions. INT8 and INT4 codes AND scales must be equal, bit for
+bit. INT2 scales carry an rms: the port sums the squares in f64 (the
+correctly rounded rms), JAX in f32 in XLA's order, so they are held to a few
+ulp and the codes to equality away from the rounding boundary (see
+``test_quant_int2_matches_jax``)."""
 
+import itertools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,3 +115,102 @@ def test_quant_reference_math_matches_jax(block):
         np.testing.assert_allclose(
             tr.dequant_group_asym_ref(*tg, group=32).numpy(),
             np.asarray(jr.dequant_group_asym_ref(*jg, group=32)), rtol=1e-5, atol=1e-6)
+
+
+def _pair(x, km, dtype):
+    jx = jnp.asarray(x, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    tx = torch.from_numpy(x).to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    jkm = None if km is None else jnp.asarray(km)
+    tkm = None if km is None else torch.from_numpy(km)
+    return jx, jkm, tx, tkm
+
+
+def _lowbit_inputs(gran, with_km, d, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((1, 4, 300, d)) * 2).astype(np.float32)  # ragged S = 300
+    km = (rng.standard_normal((1, 4, 1, d)) * 3).astype(np.float32) if with_km else None
+    return x, km, ("per_token", 128) if gran == "per_token" else ("per_block", 64)
+
+
+@pytest.mark.parametrize("gran,with_km,dtype,d", list(itertools.product(
+    ["per_token", "per_block"], [False, True], ["f32", "bf16"], [64, 128])))
+def test_quant_int4_matches_jax(gran, with_km, dtype, d):
+    """Kernel C2: packed bytes and scales bit-equal to JAX (the scale is the
+    fma form ``fma(amax, f32(1/7), 1e-7)``, as for INT8)."""
+    x, km, (g, block) = _lowbit_inputs(gran, with_km, d, seed=10 + d)
+    jx, jkm, tx, tkm = _pair(x, km, dtype)
+    jc, js = jq.quant_int4(jx, jkm, gran=g, block=block)
+    tc, ts = tq.quant_int4(tx, tkm, gran=g, block=block)
+    assert tc.dtype == torch.int8 and tuple(tc.shape) == (1, 4, 300, d // 2) and tuple(ts.shape) == (1, 4, 300)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy().view(np.uint32), np.asarray(js).view(np.uint32))
+
+
+@pytest.mark.parametrize("gran,with_km,dtype,d", list(itertools.product(
+    ["per_token", "per_block"], [False, True], ["f32", "bf16"], [64, 128])))
+def test_quant_int2_matches_jax(gran, with_km, dtype, d):
+    """Kernel C3. The scale is ``1.224·rms + EPS`` with the rms of a row (D
+    squares) or of a block (64·D). JAX sums the squares in f32 in XLA's
+    order; the port in f64. Measured on a CPU: at most 3 ulp apart per token
+    and 9 per block (the f32 sum's error grows with the count), so the bounds
+    are 4 and 16 ulp. Codes are equal except where ``|x/scale|`` lies within
+    1e-5 of the 0.5 boundary, where an ulp of scale may flip them; such
+    elements are counted and must be rare."""
+    x, km, (g, block) = _lowbit_inputs(gran, with_km, d, seed=20 + d)
+    jx, jkm, tx, tkm = _pair(x, km, dtype)
+    jc, js = jq.quant_int2(jx, jkm, gran=g, block=block)
+    tc, ts = tq.quant_int2(tx, tkm, gran=g, block=block)
+    assert tc.dtype == torch.int8 and tuple(tc.shape) == (1, 4, 300, d // 4)
+    js, ts = np.asarray(js), ts.numpy()
+    ulps = np.abs(js.view(np.int32).astype(np.int64) - ts.view(np.int32).astype(np.int64)).max()
+    assert ulps <= (4 if gran == "per_token" else 16), ulps
+    jcodes, tcodes = np.asarray(jq.unpack_int2(jc)), tq.unpack_int2(tc).numpy()
+    assert set(np.unique(tcodes).tolist()) <= {-1, 0, 1}
+    xs = tx.float().numpy() - (0.0 if km is None else km)
+    near = np.abs(np.abs(xs / ts[..., None]) - 0.5) < 1e-5
+    assert near.mean() < 1e-3
+    np.testing.assert_array_equal(tcodes[~near], jcodes[~near])
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+def test_unpack_matches_jax(bits):
+    packed = np.random.default_rng(5).integers(-128, 128, (2, 3, 17, 16), dtype=np.int8)
+    jf, tf = (jq.unpack_int4, tq.unpack_int4) if bits == 4 else (jq.unpack_int2, tq.unpack_int2)
+    got = tf(torch.from_numpy(packed)).numpy()
+    assert got.shape == (2, 3, 17, 16 * 8 // bits)
+    np.testing.assert_array_equal(got, np.asarray(jf(jnp.asarray(packed))))
+    np.testing.assert_array_equal(tq.pack_codes(torch.from_numpy(got), bits).numpy(), packed)
+
+
+@pytest.mark.parametrize("smooth_v", [False, True])
+def test_quant_v_int8_per_channel_matches_jitted_jax(smooth_v):
+    """Plain ops on both sides; compiled JAX forms the scale as one fma (the
+    DiT runs it under ``jit``), which the port follows: bit-equal without
+    smooth-V. With it, the per-channel mean is an f32 sum of S values taken
+    in another order, so the centred V, and through its absmax the scale,
+    may move (measured: 23% of scales, by at most 2 ulp); codes then move
+    by at most one step, at ties of ``v/scale``."""
+    v = (np.random.default_rng(6).standard_normal((2, 3, 150, 64)) + 0.7).astype(np.float32)
+    jf = jax.jit(lambda x: jq.quant_v_int8_per_channel(x, smooth_v=smooth_v))
+    jc, js, jm = (None if a is None else np.asarray(a) for a in jf(jnp.asarray(v)))
+    tc, ts, tm = tq.quant_v_int8_per_channel(torch.from_numpy(v), smooth_v=smooth_v)
+    assert tc.dtype == torch.int8 and tuple(ts.shape) == (2, 3, 64)
+    tc, ts = tc.numpy(), ts.numpy()
+    if not smooth_v:
+        assert tm is None and jm is None
+        np.testing.assert_array_equal(ts, js)
+        np.testing.assert_array_equal(tc, jc)
+        return
+    np.testing.assert_allclose(tm.numpy(), jm, rtol=1e-6, atol=1e-7)
+    assert np.abs(ts.view(np.int32).astype(np.int64) - js.view(np.int32)).max() <= 2
+    dc = np.abs(tc.astype(np.int32) - jc)
+    assert dc.max() <= 1 and dc.mean() < 1e-3
+
+
+def test_lowbit_quant_rejects_bad_input():
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tq.quant_int2(torch.zeros(1, 1, 4, 66))
+    with pytest.raises(ValueError, match="multiple of 2"):
+        tq.quant_int4(torch.zeros(1, 1, 4, 63))
+    with pytest.raises(ValueError):
+        tq.quant_int4(torch.zeros(1, 1, 4, 64), gran="per_channel")
