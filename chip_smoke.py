@@ -35,32 +35,62 @@ Phases, each of which raises on failure (exit code 1, no result line):
    fp (cos >= 0.99 for int8_v8, >= 0.98 for int4, the JAX package's DiT
    bound), and the launch counters must show every attention call went
    through kernel A (90 per impl) and every K quantization through C1 (90
-   for int8 and int8_v8) or C2 (90 for int4);
+   for int8 and int8_v8) or C2 (90 for int4). Then one step with per-channel
+   w8 weights (quantize_dit_params) and int8 attention: eps cos vs the dense
+   step >= 0.99, and no F launch (17,776 rows take the dense route);
 6. kernel D (decode_attention) against its plain version: int8 and bf16
    caches at b4 h32 hk8 d128 S_max 32768 with lengths [32768, 1, 4097, 0],
    d64 MHA, d32 GQA 8q/2kv, and the checkpoint's b64 S_max 128 with f32
    queries, with and without the LSE. Both sides are f32
    and differ only in summation order: cos >= 0.99999, max|do| <= one bf16
    ulp of max|o|, max|dlse| <= 1e-4. Timed at every length 32768 for both
-   caches, with the GB/s of cache bytes streamed;
-7. the trained checkpoint eval_out/arith_llm.npz: greedy generate of 4
+   caches, with the GB/s of cache bytes streamed (SDPA, one query per head,
+   beside the bf16 cache);
+7. kernels F1/F2 (wq_matmul_per_channel, wq_matmul_fused) against their
+   plain versions: w8, w8a8, w4 per-channel and grouped 2/4/8-bit (group
+   128) at the full-width decode shapes M=4 x (N, K) in {(4096, 4096),
+   (1024, 4096), (16384, 4096), (4096, 16384)} bf16, w8/w4 at the
+   checkpoint's shapes with M=64 f32 x, and M=1000; cos >= 0.99999 and
+   max|dy| <= 2 bf16 ulps (f32: 1e-5) of the larger of max|y| and F2's dot
+   before its zero-point term. Timed at the decode shapes with the weights
+   read from HBM, beside torch.matmul on the dense bf16 W, and summed to a
+   32-layer decode step; then the w8a8 and grouped entry points once each,
+   counted;
+8. kernel E (fused_packed_kv_attention) against its plain version: bits 4
+   and 2, causal or not, at b4 h32 s8192 d64 (the kivi4 sweep shape) and
+   GQA 32q/8kv d128 at a ragged s1000 and at Sq 700 != Sk 1000 (group 64);
+   cos >= 0.99999, max|do| <= 2e-2; timed at b4 h32 s8192 d64 beside SDPA
+   on the dequantized bf16 K/V; its entry point once, counted;
+9. the trained checkpoint eval_out/arith_llm.npz: greedy generate of 4
    tokens on 64 three-shot addition prompts, with the int8 and the bf16
-   cache; task exact-match >= 0.98 in both, launch counts per mode;
-8. LLM main path at full width (dim 4096, 32 query heads x 128, 8 KV heads,
-   vocab 256, bf16, depth 32, random weights from a seeded generator):
-   generate 64 tokens at b4 from a 32,704-token prompt with max_seq 32768,
-   first with the int8 cache, then (freed) with the bf16 cache. Prints
-   prefill seconds, decode ms per token, peak memory; the first decode
-   step's int8-vs-bf16 logits cos must be >= 0.999, and the counters must
-   show depth A and C1 launches per prefill and depth x 63 D launches.
+   cache, then with per-channel w8 and w4 weights on the int8 cache; task
+   exact-match >= 0.98 in every run (printed beside the JAX package's CPU
+   figures 1.0 and 0.984375 for w8 and w4), launch counts per run (6 F per
+   layer and decode step, none in the 2,304-row prefill);
+10. LLM main path at full width (dim 4096, 32 query heads x 128, 8 KV
+   heads, vocab 256, bf16, depth 32, random weights from a seeded
+   generator): generate 64 tokens at b4 from a 32,704-token prompt with
+   max_seq 32768, with the int8 cache, the bf16 cache, and then w8 and w4
+   weights (quantize_llm_params of the same model) on the int8 cache.
+   Prints block-weight bytes, prefill seconds, decode ms per token, peak
+   memory; the first decode step's int8-vs-bf16 logits cos must be >=
+   0.999 and w8-vs-dense >= 0.99 (w4 printed); the counters must show depth
+   A and C1 launches per prefill, depth x 63 D launches, and 192 x 63 F1
+   (w8) or F2 (w4) launches and none at prefill. Then one decode step per
+   weight format under torch.profiler: device ms of F, the dense GEMMs, D
+   and the rest.
 
-Then one JSON line of kernel records, and last
-``{"ok": true, "device": {...}}``.
+Then one JSON line of kernel records (each with its bound: the larger of
+its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
+their type, and a library call's time where one PyTorch call computes the
+same function), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import json
 import math
 import os
@@ -78,10 +108,30 @@ PKG = "lowbit_quant_fa2_paddle_tpu_torch"
 B, H, S, D = 1, 30, 17776, 64
 COS_MIN, MAX_DO, MAX_DLSE = 0.99999, 2e-2, 1e-3
 STEPS = 3
+# H100 SXM datasheet peaks (dense): HBM3 bytes/s and operations/s per type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes, ops=None):
+    """The least time (ms) the card could take and what sets it: the bytes
+    moved over HBM's rate, or the operations over the peak rate of their
+    type (summed over types), whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS[kind] for kind, n in (ops or {}).items())
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bf16_ulp(x):
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
 def device_phase():
@@ -168,8 +218,9 @@ def quant_phase(gen):
     km = k_mean(k)
     ms = cuda_time_ms(lambda: quant_int8(k, km, gran="per_token"), warmup=3, reps=20)
     plain_ms = cuda_time_ms(lambda: quant_int8_plain(k, km, per_token=True, block=128), warmup=1, reps=5)
-    log(f"[C1] b{B} h{H} s{S} d{D} per_token bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    lim = bound(nbytes(k, km) + k.numel() + B * H * S * 4)  # codes and scales written
+    log(f"[C1] b{B} h{H} s{S} d{D} per_token bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
 
 
 def lowbit_quant_phase(gen):
@@ -206,8 +257,10 @@ def lowbit_quant_phase(gen):
         km = qo.k_mean(k)
         ms = cuda_time_ms(lambda: quant(k, km, gran="per_token"), warmup=3, reps=20)
         plain_ms = cuda_time_ms(lambda: plain(k, km, per_token=True, block=128), warmup=1, reps=5)
-        log(f"[{name}] b{B} h{H} s{S} d{D} per_token bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        records[bits] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        lim = bound(nbytes(k, km) + k.numel() * bits // 8 + B * H * S * 4)
+        log(f"[{name}] b{B} h{H} s{S} d{D} per_token bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {lim['bound_ms']:.4f} ms")
+        records[bits] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
     return records
 
 
@@ -279,15 +332,22 @@ def attention_phase(gen):
         del o_ref, lse_ref
         ms = cuda_time_ms(lambda: lowbit_attention(*kargs, **opts), warmup=2, reps=10)
         plain_ms = cuda_time_ms(plain, warmup=1, reps=3)
-        tf = tflops(attention_flops(B, H, D, S, S, False), ms / 1e3)
-        log(f"[A] {mode} b{B} h{H} s{S} d{D}: kernel {ms:.3f} ms ({tf:.1f} TFLOP/s), plain {plain_ms:.3f} ms")
-        records[mode] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, "tflops": tf}
+        flops = attention_flops(B, H, D, S, S, False)
+        tf = tflops(flops, ms / 1e3)
+        q_, k_, v_, _, ks_ = kargs
+        # int8: QK^T on int8 codes, PV in bf16; fp: both products in bf16.
+        ops = {"int8": flops // 2, "bf16": flops // 2} if mode == "fused" else {"bf16": flops}
+        lim = bound(nbytes(q_, k_, v_, ks_) + B * H * S * D * 2, ops)
+        log(f"[A] {mode} b{B} h{H} s{S} d{D}: kernel {ms:.3f} ms ({tf:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+            f"bound {lim['bound_ms']:.3f} ms")
+        records[mode] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, "tflops": tf, **lim,
+                         "library_ms": None}
     # Baseline only (a library kernel, not the port): PyTorch's SDPA in bf16.
     q, k, v = (torch.randn(B, H, S, D, generator=gen, device="cuda").bfloat16() for _ in range(3))
     sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), warmup=2, reps=10)
     tf = tflops(attention_flops(B, H, D, S, S, False), sdpa_ms / 1e3)
     log(f"[A] baseline torch SDPA bf16 b{B} h{H} s{S} d{D}: {sdpa_ms:.3f} ms ({tf:.1f} TFLOP/s)")
-    records["sdpa_baseline_ms"] = sdpa_ms
+    records["fp"]["library_ms"] = sdpa_ms  # the same function as the fp mode
     return records
 
 
@@ -341,9 +401,14 @@ def lowbit_attention_phase(gen):
                 del o_ref, lse_ref
                 ms = cuda_time_ms(lambda: lowbit_attention(*args, **kw), warmup=2, reps=10)
                 plain_ms = cuda_time_ms(plain, warmup=1, reps=3)
-                tf = tflops(attention_flops(B, H, D, S, S, False), ms / 1e3)
-                log(f"[A] {mode} b{B} h{H} s{S} d{D}: kernel {ms:.3f} ms ({tf:.1f} TFLOP/s), plain {plain_ms:.3f} ms")
-                records[mode] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, "tflops": tf}
+                flops = attention_flops(B, H, D, S, S, False)
+                tf = tflops(flops, ms / 1e3)
+                ops = {"int8": flops} if mode == "int8-PV" else {"int8": flops // 2, "bf16": flops // 2}
+                lim = bound(nbytes(*args, kw["v_scale"], kw["v_mean"]) + B * H * S * D * 2, ops)
+                log(f"[A] {mode} b{B} h{H} s{S} d{D}: kernel {ms:.3f} ms ({tf:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+                    f"bound {lim['bound_ms']:.3f} ms")
+                records[mode] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, "tflops": tf, **lim,
+                                 "library_ms": None}
             else:
                 records[mode]["max_abs_err"] = max(records[mode]["max_abs_err"], r["max_do"])
             del args, o, lse
@@ -396,7 +461,7 @@ def main_path_phase():
     cfg = dit.cogvideox_2b_config()
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    model = dit.init_dit_params(cfg, gen, device="cuda")
+    model = dit.init_dit_params(cfg, gen)
     n_params = sum(p.numel() for p in model.parameters())
     x0 = torch.randn(1, S, cfg.dim, generator=gen, device="cuda").to(cfg.dtype)
     torch.cuda.synchronize()
@@ -443,10 +508,30 @@ def main_path_phase():
             raise AssertionError(f"{impl} vs fp: frame cos {cos} (>= 0.999), eps cos {eps_cos} (>= {eps_min[impl]})")
     for impl in DIT_IMPLS:
         want = {"A": want_n, "C1": want_n if impl in ("int8", "int8_v8") else 0,
-                "C2": want_n if impl == "int4" else 0, "C3": 0, "D": 0}
+                "C2": want_n if impl == "int4" else 0, "C3": 0, "D": 0, "E": 0, "F1": 0, "F2": 0}
         log(f"[dit] {impl} launches {launches[impl]} (want {want})")
         if launches[impl] != want:
             raise AssertionError(f"DiT {impl}: launch counts {launches[impl]} != {want}")
+
+    # Per-channel w8 weights with int8 attention, one step: 17,776 rows take
+    # the dequantize-once dense route, so no F kernel runs.
+    qmodel = dit.quantize_dit_params(model, bits=8)
+    with torch.inference_mode():
+        dit.dit_forward(qmodel, x0, ts[0], attn_impl="int8")  # warm-up
+        torch.cuda.synchronize()
+        count_reset()
+        t1 = time.perf_counter()
+        eps = dit.dit_forward(qmodel, x0, ts[0], attn_impl="int8")
+        torch.cuda.synchronize()
+        w8_ms = (time.perf_counter() - t1) * 1e3
+        got = counts()
+    cos = float(cosine_similarity(eps.float(), eps0["int8"]))
+    want = {"A": cfg.depth, "C1": cfg.depth, "C2": 0, "C3": 0, "D": 0, "E": 0, "F1": 0, "F2": 0}
+    log(f"[dit] w8 weights + int8 attention: {w8_ms:.1f} ms/step, eps cos vs dense weights {cos:.6f}, "
+        f"finite={bool(torch.isfinite(eps.float()).all())}, launches {got} (want {want})")
+    if cos < 0.99 or got != want or not bool(torch.isfinite(eps.float()).all()):
+        raise AssertionError(f"DiT w8 step: eps cos {cos} (>= 0.99), launches {got} != {want}")
+    res["w8"] = {"ms_per_step": w8_ms, "eps_cos": cos}
     return res
 
 
@@ -501,12 +586,20 @@ def decode_phase(gen):
         kargs, kkw, pargs, pkw = decode_inputs(gen, b, h, hk, d, s, bits, [s] * b)
         ms = cuda_time_ms(lambda: decode_attention(*kargs, **kkw), warmup=5, reps=50)
         plain_ms = cuda_time_ms(lambda: decode_attention_plain(*pargs, **pkw), warmup=1, reps=5)
-        q, kq, vq, ks, _ = kargs
-        nbytes = sum(x.numel() * x.element_size() for x in (kq, vq, ks)) + (ks.numel() * 4 if bits == 8 else 0)
-        gbps = nbytes / (ms * 1e-3) / 1e9
+        q, kq, vq, ks, lens = kargs
+        cache_bytes = nbytes(kq, vq, ks, pargs[4])
+        gbps = cache_bytes / (ms * 1e-3) / 1e9
+        lim = bound(cache_bytes + nbytes(q, lens) * 2)  # q read, o written
+        library_ms = None
+        if bits == 16:  # one SDPA call, one query per head, over the same bf16 cache
+            q4 = q[:, :, None]
+            library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, kq, vq, enable_gqa=True), warmup=3, reps=20)
         log(f"[D] {mode} b{b} h{h} hk{hk} d{d} s{s} (all lengths {s}): kernel {ms:.4f} ms "
-            f"({gbps:.1f} GB/s of {nbytes / 1e6:.1f} MB cache), plain {plain_ms:.4f} ms")
-        records[mode] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "gbps": gbps}
+            f"({gbps:.1f} GB/s of {cache_bytes / 1e6:.1f} MB cache), plain {plain_ms:.4f} ms, "
+            f"bound {lim['bound_ms']:.4f} ms, SDPA {library_ms}")
+        records[mode] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "gbps": gbps, **lim,
+                         "library_ms": library_ms}
         del kargs, pargs
     return records
 
@@ -514,9 +607,12 @@ def decode_phase(gen):
 def _wrappers():
     from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
     from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import decode_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.fused_kv import fused_packed_kv_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.gemv import wq_matmul_fused, wq_matmul_per_channel
     from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int2, quant_int4, quant_int8
 
-    return {"A": lowbit_attention, "C1": quant_int8, "C2": quant_int4, "C3": quant_int2, "D": decode_attention}
+    return {"A": lowbit_attention, "C1": quant_int8, "C2": quant_int4, "C3": quant_int2, "D": decode_attention,
+            "E": fused_packed_kv_attention, "F1": wq_matmul_per_channel, "F2": wq_matmul_fused}
 
 
 def count_reset():
@@ -528,8 +624,10 @@ def counts():
     return {name: w.launches for name, w in _wrappers().items()}
 
 
-def check_counts(where, got, depth, decode_steps):
-    want = {"A": depth, "C1": depth, "C2": 0, "C3": 0, "D": depth * decode_steps}
+def check_counts(where, got, depth, decode_steps, f1=0, f2=0):
+    """The launches of one generate: A and C1 once per layer at prefill, D
+    once per layer and decode step, and the given F1/F2 counts."""
+    want = {"A": depth, "C1": depth, "C2": 0, "C3": 0, "D": depth * decode_steps, "E": 0, "F1": f1, "F2": f2}
     log(f"[{where}] launches {got} (want {want})")
     if got != want:
         raise AssertionError(f"{where}: launch counts {got} != {want}")
@@ -545,7 +643,7 @@ def checkpoint_phase():
     out = {}
     for mode, bits in (("int8", 8), ("bf16", 16)):
         cfg = train.arith_llm_config(kv_bits=bits)
-        model = llm.params_from_jax(tree, cfg, device="cuda")
+        model = llm.params_from_jax(tree, cfg)
         count_reset()
         toks = llm.generate(model, prompt, train.ANS_LEN, cfg).cpu().numpy()
         check_counts(f"ckpt {mode}", counts(), cfg.depth, train.ANS_LEN - 1)
@@ -558,6 +656,332 @@ def checkpoint_phase():
     agree = float((out["int8"][1] == out["bf16"][1]).mean())
     log(f"[ckpt] int8 vs bf16 cache token agreement {agree:.4f}")
     return {"exact_match": {m: out[m][0] for m in out}, "token_agreement": agree}
+
+# ---------------------------------------------------------------------------
+# Kernels F1/F2 (packed-weight matmul) and E (packed-KV attention)
+# ---------------------------------------------------------------------------
+
+# The full-width LLM's matrices (N, K) at dim 4096 with 8 KV heads x 128
+# (wq/wo, wk/wv, w1, w2) and how many of each a layer holds; the checkpoint's.
+DECODE_NK = {(4096, 4096): 2, (1024, 4096): 2, (16384, 4096): 1, (4096, 16384): 1}
+LLM_DEPTH = 32
+CKPT_NK = [(256, 256), (64, 256), (1024, 256), (256, 1024)]
+# Mode -> kernel: per-channel w8 (bf16 x, or per-token INT8 x), per-channel w4
+# (run as grouped 4-bit), grouped asymmetric 2/4/8-bit with group 128.
+GEMV_MODES = {"w8": "F1", "w8a8": "F1", "w4": "F2", "g2": "F2", "g4": "F2", "g8": "F2"}
+
+
+def gemv_weights(gen, mode, n, k):
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv as G
+
+    w = torch.randn(n, k, generator=gen, device="cuda") / math.sqrt(k)
+    if mode in ("w8", "w8a8", "w4"):
+        packed, scale = G.pack_weights_per_channel(w, bits=4 if mode == "w4" else 8)
+        return {"packed": packed, "scale": scale, "mn": None}, w
+    packed, scale, mn = G.pack_weights(w, group_size=128, bits=int(mode[1]))
+    return {"packed": packed, "scale": scale, "mn": mn}, w
+
+
+def gemv_call(mode, x, wt):
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv as G
+
+    if mode in ("w8", "w8a8", "w4"):
+        return G.wq_matmul_per_channel(x, wt["packed"], wt["scale"], bits=4 if mode == "w4" else 8,
+                                       activation="int8" if mode == "w8a8" else "bf16")
+    return G.wq_matmul_fused(x, wt["packed"], wt["scale"], wt["mn"], bits=int(mode[1]), group_size=128)
+
+
+def gemv_plain(mode, x, wt):
+    """The kernel's plain version on the same 2-D x, routed as the JAX
+    package routes the mode."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv as G
+
+    p, s = wt["packed"], wt["scale"]
+    if mode == "w8":
+        return G.wq_matmul_per_channel_plain(x, p, s, out_dtype=x.dtype)
+    if mode == "w8a8":
+        xq, xs = G.quant_activations(x)
+        return G.wq_matmul_per_channel_plain(xq, p, s, x_scale=xs, out_dtype=x.dtype)
+    if mode == "w4":
+        sc = s[:, None].repeat(1, 2)
+        mn = (-7.0 * s)[:, None].expand(s.shape[0], 2)
+        return G.wq_matmul_fused_plain(x, p, sc, mn, bits=4, group_size=x.shape[1] // 2)
+    return G.wq_matmul_fused_plain(x, p, s, wt["mn"], bits=int(mode[1]), group_size=128)
+
+
+def gemv_dot_max(mode, x, wt):
+    """max|y| of F2's dot before the zero-point term (0 for F1): F2 rounds
+    that dot to x's type and then adds the term, so a summation-order flip
+    there moves y by an ulp of the dot, which can exceed y."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv as G
+
+    if GEMV_MODES[mode] == "F1":
+        return 0.0
+    if mode == "w4":
+        sc = wt["scale"][:, None].repeat(1, 2)
+        dot = G.wq_matmul_fused_plain(x, wt["packed"], sc, None, bits=4, group_size=x.shape[1] // 2)
+    else:
+        dot = G.wq_matmul_fused_plain(x, wt["packed"], wt["scale"], None, bits=int(mode[1]), group_size=128)
+    return float(dot.float().abs().max())
+
+
+def check_gemv(name, y, y_ref, dot_max=0.0):
+    """Kernel vs plain: the same products summed in another order, so
+    max|dy| <= 2 bf16 ulps of the larger of max|y| and F2's max|dot|
+    (f32: 1e-5 of it)."""
+    r = stats(y, y_ref)
+    ymax = max(float(y_ref.float().abs().max()), dot_max)
+    tol = 2 * bf16_ulp(ymax) if y.dtype == torch.bfloat16 else 1e-5 * ymax
+    log(f"[F] {name}: cos={r['cos']:.7f} max_dy={r['max_do']:.4g} (bound {tol:.3g}; max|y| "
+        f"{float(y_ref.float().abs().max()):.4g}, max|dot| {dot_max:.4g}) finite={r['finite']}")
+    if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= tol):
+        raise AssertionError(f"kernel {name} disagrees with its plain version: {r}, bound {tol}")
+    return r["max_do"]
+
+
+def cycle_ms(fns, reps=50):
+    """Median ms of one call, cycling over ``fns`` that read distinct copies
+    of the weights (over 100 MB in all), so each call reads them from HBM
+    and not from the 50 MB L2, as a decode step streaming GBs does."""
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    it = itertools.cycle(fns)
+    return cuda_time_ms(lambda: next(it)(), warmup=len(fns), reps=reps)
+
+
+def gemv_phase(gen):
+    """Kernels F1 and F2 against their plain versions: every mode at the
+    full-width decode shapes (M = 4, bf16); w8 and w4 at the checkpoint's
+    shapes with M = 64 and f32 x; M = 1000, the largest kernel-route M.
+    Timed at the decode shapes (kernel, plain, and torch.matmul on the dense
+    bf16 W), summed to a decode step of the 32-layer model. Then each mode's
+    entry point once with the counters at 0 (w8a8 and the grouped modes run
+    on no model path: this is their path)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.pack import WQLinear
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    worst = {mode: 0.0 for mode in GEMV_MODES}
+    for n, k in DECODE_NK:
+        x = torch.randn(4, k, generator=gen, device="cuda").bfloat16()
+        for mode in GEMV_MODES:
+            wt, _ = gemv_weights(gen, mode, n, k)
+            y, y_ref = gemv_call(mode, x, wt), gemv_plain(mode, x, wt)
+            torch.cuda.synchronize()
+            worst[mode] = max(worst[mode], check_gemv(f"{mode} M4 N{n} K{k} bf16", y, y_ref,
+                                                      gemv_dot_max(mode, x, wt)))
+    for n, k in CKPT_NK:
+        x = torch.randn(64, k, generator=gen, device="cuda")
+        for mode in ("w8", "w4"):
+            wt, _ = gemv_weights(gen, mode, n, k)
+            worst[mode] = max(worst[mode], check_gemv(f"{mode} M64 N{n} K{k} f32", gemv_call(mode, x, wt),
+                                                      gemv_plain(mode, x, wt), gemv_dot_max(mode, x, wt)))
+    x = torch.randn(1000, 4096, generator=gen, device="cuda").bfloat16()
+    for mode in ("w8", "w4", "g4"):
+        wt, _ = gemv_weights(gen, mode, 4096, 4096)
+        worst[mode] = max(worst[mode], check_gemv(f"{mode} M1000 N4096 K4096 bf16", gemv_call(mode, x, wt),
+                                                  gemv_plain(mode, x, wt), gemv_dot_max(mode, x, wt)))
+
+    records = {mode: {"max_abs_err": worst[mode]} for mode in GEMV_MODES}
+    step_ms = dict.fromkeys(list(GEMV_MODES) + ["dense"], 0.0)
+    step_bytes = dict.fromkeys(list(GEMV_MODES) + ["dense"], 0)
+    for (n, k), per_layer in DECODE_NK.items():
+        x = torch.randn(4, k, generator=gen, device="cuda").bfloat16()
+        for mode in GEMV_MODES:
+            wt, w = gemv_weights(gen, mode, n, k)
+            wbytes = nbytes(wt["packed"], wt["scale"], wt["mn"])
+            copies = min(64, max(2, math.ceil(128e6 / wbytes)))
+            wts = [{key: (v.clone() if v is not None else None) for key, v in wt.items()} for _ in range(copies)]
+            ms = cycle_ms([functools.partial(gemv_call, mode, x, c) for c in wts])
+            step_ms[mode] += per_layer * LLM_DEPTH * ms
+            step_bytes[mode] += per_layer * LLM_DEPTH * wbytes
+            line = f"[F] {mode} M4 N{n} K{k}: kernel {ms * 1e3:.2f} us ({wbytes / (ms * 1e-3) / 1e9:.0f} GB/s of " \
+                   f"{wbytes / 1e6:.2f} MB packed)"
+            if (n, k) == (16384, 4096):  # w1: the shape of the kernels line
+                plain_ms = cuda_time_ms(lambda: gemv_plain(mode, x, wt), warmup=1, reps=5)
+                lim = bound(wbytes + nbytes(x) + 4 * n * 2)
+                records[mode].update(ms=ms, plain_ms=plain_ms, **lim)
+                line += f", plain {plain_ms:.4f} ms, bound {lim['bound_ms'] * 1e3:.2f} us"
+            log(line)
+            del wts
+        wd = w.bfloat16()
+        copies = max(2, math.ceil(128e6 / nbytes(wd)))
+        wds = [wd.clone() for _ in range(copies)]
+        dense_ms = cycle_ms([functools.partial(torch.matmul, x, c.T) for c in wds])
+        step_ms["dense"] += per_layer * LLM_DEPTH * dense_ms
+        step_bytes["dense"] += per_layer * LLM_DEPTH * nbytes(wd)
+        log(f"[F] dense bf16 torch.matmul M4 N{n} K{k}: {dense_ms * 1e3:.2f} us "
+            f"({nbytes(wd) / (dense_ms * 1e-3) / 1e9:.0f} GB/s of {nbytes(wd) / 1e6:.1f} MB)")
+        if (n, k) == (16384, 4096):
+            for mode in GEMV_MODES:
+                records[mode]["library_ms"] = dense_ms
+        del wds
+    for mode, ms in step_ms.items():
+        gb = step_bytes[mode] / 1e9
+        log(f"[F] decode step, {LLM_DEPTH} layers, M4: {mode} {ms:.3f} ms ({gb:.2f} GB of weights, "
+            f"{gb / (ms * 1e-3):.0f} GB/s; bound {bound(step_bytes[mode])['bound_ms']:.3f} ms)")
+    records["step_ms"], records["step_gb"] = step_ms, {m: b / 1e9 for m, b in step_bytes.items()}
+
+    x = torch.randn(4, 4096, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(4096, 4096, generator=gen, device="cuda") / 64.0
+    entry = {
+        "w8a8": lambda: gemv_call("w8a8", x, gemv_weights(gen, "w8a8", 4096, 4096)[0]),
+        "g2": functools.partial(WQLinear.from_dense(w, bits=2, backend="fused"), x),
+        "g4": functools.partial(WQLinear.from_dense(w, bits=4, backend="fused"), x),
+        "g8": functools.partial(WQLinear.from_dense(w, bits=8, backend="fused"), x),
+    }
+    for mode, fn in entry.items():
+        count_reset()
+        y = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        want = {key: int(key == GEMV_MODES[mode]) for key in got}
+        log(f"[F] entry point {mode}: launches {got}, finite={bool(torch.isfinite(y.float()).all())}")
+        if got != want or not bool(torch.isfinite(y.float()).all()):
+            raise AssertionError(f"entry point {mode}: launches {got} != {want}")
+        records[mode]["launches"] = got[GEMV_MODES[mode]]
+    return records
+
+
+def fused_kv_inputs(gen, b, h, hk, sq, sk, d, bits, group):
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.fused_kv import quant_kv_grouped
+
+    q = torch.randn(b, h, sq, d, generator=gen, device="cuda").bfloat16()
+    k = (torch.randn(b, hk, sk, d, generator=gen, device="cuda") + 0.5).bfloat16()
+    v = (torch.randn(b, hk, sk, d, generator=gen, device="cuda") - 0.3).bfloat16()
+    kp, ks, km = quant_kv_grouped(k, bits=bits, group=group)
+    vp, vs, vm = quant_kv_grouped(v, bits=bits, group=group)
+    return q, kp, vp, ks, km, vs, vm
+
+
+def fused_kv_phase(gen):
+    """Kernel E against its plain version: bits 4 and 2, causal or not, at
+    the kivi4 sweep shape b4 h32 s8192 d64 (group 256) and GQA 32q/8kv d128
+    at a ragged s1000 and at Sq 700 != Sk 1000 with group 64. The plain
+    version rounds where the kernel does and sums in closed form, so cos >=
+    0.99999, max|do| <= 2e-2. Timed at b4 h32 s8192 d64 beside SDPA on the
+    dequantized bf16 K/V; then its entry point once with the counters at 0
+    (the sweep's kivi4 row is its path)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import fused_kv as FK
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import attention_flops, cuda_time_ms, tflops
+
+    worst = 0.0
+    for bits in (4, 2):
+        for causal in (False, True):
+            for shape, (b, h, hk, sq, sk, d, group) in [("b4 h32 s8192 d64", (4, 32, 32, 8192, 8192, 64, 256)),
+                                                         ("GQA 32q/8kv d128 s1000", (2, 32, 8, 1000, 1000, 128, 256)),
+                                                         ("GQA 32q/8kv d128 sq700 sk1000 group64",
+                                                          (2, 32, 8, 700, 1000, 128, 64))]:
+                name = f"int{bits} {'causal ' if causal else ''}{shape}"
+                args = fused_kv_inputs(gen, b, h, hk, sq, sk, d, bits, group)
+                o = FK.fused_packed_kv_attention(*args, bits=bits, is_causal=causal, group=group)
+                o_ref = FK.fused_kv_attention_plain(*args, bits=bits, group=group, causal=causal,
+                                                    sm_scale_log2e=LOG2E / math.sqrt(d), out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                r = stats(o, o_ref)
+                log(f"[E] {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                               for k, v in r.items()))
+                if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= MAX_DO):
+                    raise AssertionError(f"kernel E disagrees with its plain version in case {name}: {r}")
+                worst = max(worst, r["max_do"])
+                del args, o, o_ref
+    b, h, s, d, bits, group = 4, 32, 8192, 64, 4, 256
+    args = fused_kv_inputs(gen, b, h, h, s, s, d, bits, group)
+    flops = attention_flops(b, h, d, s, s, False)
+    ms = cuda_time_ms(lambda: FK.fused_packed_kv_attention(*args, bits=bits), warmup=2, reps=10)
+    causal_ms = cuda_time_ms(lambda: FK.fused_packed_kv_attention(*args, bits=bits, is_causal=True), warmup=2, reps=10)
+    plain_ms = cuda_time_ms(lambda: FK.fused_kv_attention_plain(*args, bits=bits, group=group, causal=False,
+                                                                 sm_scale_log2e=LOG2E / math.sqrt(d),
+                                                                 out_dtype=torch.bfloat16), warmup=1, reps=2)
+    kd = FK.dequant_kv_grouped(args[1], args[3], args[4], bits=bits, group=group)
+    vd = FK.dequant_kv_grouped(args[2], args[5], args[6], bits=bits, group=group)
+    sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(args[0], kd, vd), warmup=2,
+                           reps=10)
+    lim = bound(nbytes(*args) + nbytes(args[0]), {"bf16": flops})
+    log(f"[E] int4 b{b} h{h} s{s} d{d}: kernel {ms:.3f} ms ({tflops(flops, ms / 1e3):.1f} TFLOP/s), causal "
+        f"{causal_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {lim['bound_ms']:.3f} ms; SDPA on the dequantized "
+        f"bf16 K/V {sdpa_ms:.3f} ms ({tflops(flops, sdpa_ms / 1e3):.1f} TFLOP/s)")
+    count_reset()
+    o = FK.fused_packed_kv_attention(*args, bits=bits)
+    torch.cuda.synchronize()
+    got = counts()
+    want = {key: int(key == "E") for key in got}
+    log(f"[E] entry point fused_packed_kv_attention(bits=4) b{b} h{h} s{s} d{d}: launches {got}")
+    if got != want or not bool(torch.isfinite(o.float()).all()):
+        raise AssertionError(f"kernel E entry point: launches {got} != {want}")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": sdpa_ms,
+            "causal_ms": causal_ms, "launches": got["E"]}
+
+
+# The JAX package's exact-match on the same 64 prompts with the int8 cache,
+# run on a CPU: the figure the port must reproduce, not a card figure.
+JAX_CPU_EXACT_MATCH = {8: 1.0, 4: 0.984375}
+
+
+def checkpoint_wq_phase():
+    """The trained checkpoint with per-channel w8 and w4 weights on the int8
+    cache, 64 three-shot prompts. Prefill has 64 x 36 >= 1024 rows (dense
+    route, no F); each decode step runs 6 F launches per layer."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm, train
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.checkpoint import load_params_npz
+
+    tree = load_params_npz(os.path.join(REPO, "eval_out", "arith_llm.npz"))
+    prompts, answers = train.make_eval_prompts(64, few_shot=3)
+    prompt = torch.from_numpy(prompts).cuda()
+    cfg = train.arith_llm_config(kv_bits=8)
+    model = llm.params_from_jax(tree, cfg)
+    out = {}
+    for bits in (8, 4):
+        qmodel = llm.quantize_llm_params(model, bits=bits)
+        count_reset()
+        toks = llm.generate(qmodel, prompt, train.ANS_LEN, cfg).cpu().numpy()
+        steps = train.ANS_LEN - 1
+        f = 6 * cfg.depth * steps
+        check_counts(f"ckpt w{bits}", counts(), cfg.depth, steps, f1=f if bits == 8 else 0, f2=f if bits == 4 else 0)
+        acc = sum(train.grade_answer(row, a) for row, a in zip(toks, answers)) / len(answers)
+        log(f"[ckpt] w{bits} weights, int8 cache: task exact-match {acc:.6f} on {len(answers)} prompts "
+            f"(the JAX package on a CPU: {JAX_CPU_EXACT_MATCH[bits]})")
+        if acc < 0.98:
+            raise AssertionError(f"checkpoint exact-match {acc} < 0.98 with w{bits} weights")
+        out[bits] = acc
+    return out
+
+
+def decode_step_profile(model, prompt, cfg):
+    """Device ms of one decode step by kernel class, from the kernel events
+    of torch.profiler: F (our gemv kernels), dense GEMMs (cuBLAS), D, and
+    the rest, with the rest's largest kernels by name."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+
+    logits, caches = llm.llm_prefill(model, prompt, cfg)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    del logits
+    for _ in range(2):
+        _, caches = llm.llm_decode_step(model, tok, caches, cfg)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        llm.llm_decode_step(model, tok, caches, cfg)
+        torch.cuda.synchronize()
+    cats = {"F": 0.0, "GEMM": 0.0, "D": 0.0, "other": 0.0}
+    other = []
+    for e in prof.key_averages():
+        # Kernels only: a CPU op's entry repeats its kernels' device time.
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.device_time_total
+        name = e.key.lower()
+        if "::gemv_kernel" in name:
+            cats["F"] += us / 1e3
+        elif any(t in name for t in ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")):
+            cats["GEMM"] += us / 1e3
+        elif "decode" in name:
+            cats["D"] += us / 1e3
+        else:
+            cats["other"] += us / 1e3
+            other.append((us / 1e3, e.count, e.key[:70]))
+    top = ", ".join(f"{name} x{n} {ms:.3f}" for ms, n, name in sorted(other, reverse=True)[:5])
+    return cats, f"{len(other)} other kernel names; top: {top}"
 
 
 class StepClock:
@@ -589,23 +1013,37 @@ def full_width_phase():
                         dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    model = llm.init_llm_params(cfg, gen, device="cuda")
+    model = llm.init_llm_params(cfg, gen)
     n_params = sum(p.numel() for p in model.parameters())
     prompt = torch.randint(0, cfg.vocab, (b, prompt_len), generator=gen, device="cuda")
     torch.cuda.synchronize()
     log(f"[llm] dim {cfg.dim} depth {cfg.depth} heads {cfg.num_heads}x{cfg.head_dim} kv heads {cfg.num_kv_heads} "
         f"vocab {cfg.vocab} bf16: {n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
-    llm.generate(model, prompt[:, :256], 2, dataclasses.replace(cfg, max_seq=512))  # warm-up, not counted
+    small = dataclasses.replace(cfg, max_seq=512)
+    llm.generate(model, prompt[:, :256], 2, small)  # warm-up, not counted
+    packed = {wb: llm.quantize_llm_params(model, bits=wb) for wb in (8, 4)}
+    for wb in (8, 4):
+        llm.generate(packed[wb], prompt[:, :64], 2, small)  # warm-up of the F kernels, not counted
+    dense_gb = sum(nbytes(getattr(blk, key).weight) for blk in model.blocks for key in llm._WQ_KEYS) / 1e9
+    weight_gb = {"int8": dense_gb, "bf16": dense_gb}
+    for wb in (8, 4):
+        weight_gb[f"w{wb}"] = sum(nbytes(getattr(blk, key).packed, getattr(blk, key).scale)
+                                  for blk in packed[wb].blocks for key in llm._WQ_KEYS) / 1e9
     res = {}
-    for mode, bits in (("int8", 8), ("bf16", 16)):
+    # Dense weights with the int8 and the bf16 cache, then packed w8 and w4
+    # weights with the int8 cache; F runs once per matrix and decode step
+    # (prefill's 130,816 rows take the dense route).
+    f_steps = 6 * cfg.depth * (n_new - 1)
+    for mode, bits, m_run, f1, f2 in (("int8", 8, model, 0, 0), ("bf16", 16, model, 0, 0),
+                                      ("w8", 8, packed[8], f_steps, 0), ("w4", 8, packed[4], 0, f_steps)):
         cfg_m = dataclasses.replace(cfg, kv_bits=bits)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        clock = StepClock(model)
+        clock = StepClock(m_run)
         count_reset()
         t0 = time.perf_counter()
-        toks = llm.generate(model, prompt, n_new, cfg_m)
+        toks = llm.generate(m_run, prompt, n_new, cfg_m)
         torch.cuda.synchronize()
         t_end = time.perf_counter()
         got = counts()
@@ -619,24 +1057,40 @@ def full_width_phase():
         med = statistics.median(step_ms)
         row_bytes = cfg.head_dim * (1 if bits == 8 else 2) + 4  # codes or bf16 row, f32 scale
         cache_gb = cfg.depth * 2 * b * cfg.num_kv_heads * cfg.max_seq * row_bytes / 1e9
-        log(f"[llm] {mode} cache ({cache_gb:.2f} GB over {cfg.depth} layers): prefill {prefill_s:.3f} s, "
+        log(f"[llm] {mode}: {weight_gb[mode]:.3f} GB of block weights, {'bf16' if bits == 16 else 'int8'} cache "
+            f"({cache_gb:.2f} GB over {cfg.depth} layers): prefill {prefill_s:.3f} s, "
             f"decode {med:.3f} ms/token (median of {len(step_ms)}; min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
             f"total {t_end - t0:.2f} s, peak {peak / 2**30:.2f} GiB")
-        check_counts(f"llm {mode}", got, cfg.depth, n_new - 1)
+        check_counts(f"llm {mode}", got, cfg.depth, n_new - 1, f1=f1, f2=f2)
         if tuple(toks.shape) != (b, n_new) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
             raise AssertionError(f"bad generated tokens: shape {tuple(toks.shape)}")
         if not bool(torch.isfinite(clock.first_logits).all()):
             raise AssertionError("non-finite first-step logits")
         res[mode] = {"prefill_s": prefill_s, "decode_ms_per_token": med, "step_ms": step_ms, "peak_gib": peak / 2**30,
-                     "launches": got, "tokens": toks.cpu(), "logits": clock.first_logits}
+                     "weight_gb": weight_gb[mode], "launches": got, "tokens": toks.cpu(), "logits": clock.first_logits}
         del toks, clock
     cos = float(cosine_similarity(res["int8"]["logits"], res["bf16"]["logits"]))
     agree = float((res["int8"]["tokens"] == res["bf16"]["tokens"]).float().mean())
     log(f"[llm] first decode step logits cos int8 vs bf16 cache {cos:.6f}; generated-token agreement {agree:.4f}")
     if cos < 0.999:
         raise AssertionError(f"int8 vs bf16 cache first-step logits cos {cos} < 0.999")
+    for mode in ("w8", "w4"):
+        wcos = float(cosine_similarity(res[mode]["logits"], res["int8"]["logits"]))
+        wagree = float((res[mode]["tokens"] == res["int8"]["tokens"]).float().mean())
+        res[mode]["logits_cos_vs_dense"] = wcos
+        log(f"[llm] first decode step logits cos {mode} vs dense weights (int8 cache) {wcos:.6f}; "
+            f"generated-token agreement {wagree:.4f}")
+        if mode == "w8" and wcos < 0.99:
+            raise AssertionError(f"w8 vs dense first-step logits cos {wcos} < 0.99")
     for mode in res:
         del res[mode]["tokens"], res[mode]["logits"]
+    # One decode step under torch.profiler per weight format (a 256-token
+    # context: F and the GEMMs do not depend on it).
+    for mode, m_run in (("dense", model), ("w8", packed[8]), ("w4", packed[4])):
+        cats, top = decode_step_profile(m_run, prompt[:, :256], small)
+        res.setdefault("profile", {})[mode] = cats
+        log(f"[llm] decode step device ms, {mode} weights: " + ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) +
+            f"; total {sum(cats.values()):.3f}; {top}")
     return res
 
 
@@ -659,14 +1113,19 @@ def main():
     torch.cuda.empty_cache()
     dec = decode_phase(gen)
     torch.cuda.empty_cache()
+    gemv = gemv_phase(gen)
+    torch.cuda.empty_cache()
+    fkv = fused_kv_phase(gen)
+    torch.cuda.empty_cache()
     checkpoint_phase()
+    checkpoint_wq_phase()
     torch.cuda.empty_cache()
     llm_r = full_width_phase()
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
     attn_src = dict(route="cuda", source=f"{src}/attention_fwd.cu",
                     replaces="lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502")
-    timing = ("max_abs_err", "ms", "plain_ms")
+    timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name="quant_int8", route="cuda", source=f"{src}/quant.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/quant.py:215", launches=dl["int8"]["C1"], **c1),
@@ -690,6 +1149,22 @@ def main():
              replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
              launches=llm_r[mode]["launches"]["D"], **dec[mode])
         for mode in ("int8", "bf16")
+    ] + [
+        dict(name=name, route="cuda", source=f"{src}/gemv.cu",
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/gemv.py:" + ("255" if GEMV_MODES[mode] == "F1" else "368"),
+             launches=launches, **{k: gemv[mode][k] for k in timing})
+        for name, mode, launches in [
+            ("wq_matmul_per_channel (F1: w8, bf16 x)", "w8", llm_r["w8"]["launches"]["F1"]),
+            ("wq_matmul_per_channel (F1: w8a8, int8 x)", "w8a8", gemv["w8a8"]["launches"]),
+            ("wq_matmul_fused (F2: w4 per-channel)", "w4", llm_r["w4"]["launches"]["F2"]),
+            ("wq_matmul_fused (F2: 2-bit, group 128)", "g2", gemv["g2"]["launches"]),
+            ("wq_matmul_fused (F2: 4-bit, group 128)", "g4", gemv["g4"]["launches"]),
+            ("wq_matmul_fused (F2: 8-bit, group 128)", "g8", gemv["g8"]["launches"]),
+        ]
+    ] + [
+        dict(name="fused_packed_kv_attention (int4 K/V)", route="cuda", source=f"{src}/fused_kv_attention.cu",
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py:377", launches=fkv["launches"],
+             **{k: fkv[k] for k in timing}),
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     log(json.dumps({"kernels": kernels}))

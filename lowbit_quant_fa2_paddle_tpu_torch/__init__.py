@@ -7,8 +7,11 @@ beside it as the reference. This package imports ``torch`` and never
 INT4 or packed INT2 K and bf16 or INT8 V, its quantizers (kernels C1, C2,
 C3), the fp FA-2 baseline on the same kernel, the dispatching API with
 mixed-bit and multi-precision selection, the DiT denoiser that runs them,
-and LLM generation over an int8 or bf16 KV cache with single-token decode
-attention (kernel D). On CPU tensors every kernel
+LLM generation over an int8 or bf16 KV cache with single-token decode
+attention (kernel D), weight-quantized models over packed-weight matmuls
+(kernels F1/F2, ``ops/gemv.py``, ``ops/pack.py``) and attention over
+KIVI-grouped packed K/V (kernel E, ``ops/fused_kv.py``); those live in
+their modules, as in the JAX package. On CPU tensors every kernel
 runs its plain PyTorch version; on CUDA tensors it launches the kernel,
 built with nvcc at first use.
 """

@@ -14,6 +14,11 @@ Counterpart of ``lowbit_quant_fa2_paddle_tpu/models/dit.py`` as an
 dataflow, a layout device of the TPU) run the plain ``"int8"`` / ``"int4"`` /
 ``"fp"`` paths. The training impls raise until their kernels are ported.
 
+:func:`quantize_dit_params` packs the block projections per channel
+(``ops.gemv.WQWeight``); at the CogVideoX shape their rows (17,776 tokens)
+take the dequantize-once dense route, no F kernel. Models are built on the
+CUDA card unless the caller passes another ``device``.
+
 Flagship config: CogVideoX-2b's geometry, 30 heads × head_dim 64, hidden
 1920, depth 30, ~17.8k tokens for a 49×480×720 video latent.
 """
@@ -35,6 +40,7 @@ from lowbit_quant_fa2_paddle_tpu_torch.core import (
     lowbit_fa_qk_int8_pv_int8,
 )
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import _not_ported, flash_attention_fp
+from lowbit_quant_fa2_paddle_tpu_torch.ops.gemv import WQWeight
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
 
 
@@ -157,13 +163,13 @@ def dit_forward(model: DiT, x: torch.Tensor, t: torch.Tensor, *, attn_impl: str 
 
 
 def _empty_model(cfg: DiTConfig, device) -> DiT:
-    """A DiT with uninitialised storage on ``device`` (default CPU), without
-    the default init pass."""
-    return DiT(cfg, device="meta").to_empty(device="cpu" if device is None else device)
+    """A DiT with uninitialised storage on ``device``, without the default
+    init pass."""
+    return DiT(cfg, device="meta").to_empty(device=device)
 
 
 @torch.no_grad()
-def init_dit_params(cfg: DiTConfig, generator: torch.Generator, device=None) -> DiT:
+def init_dit_params(cfg: DiTConfig, generator: torch.Generator, device="cuda") -> DiT:
     """Random DiT drawn from the TPU package's init distributions: each dense
     ``w ~ N(0, 1/d_in)`` (``final``: ``N(0, 0.02²)``), zero biases; adaLN
     ``w ~ N(0, 0.02²)`` with gate biases 1 for the two gates and 0 for
@@ -192,7 +198,7 @@ def init_dit_params(cfg: DiTConfig, generator: torch.Generator, device=None) -> 
 
 
 @torch.no_grad()
-def params_from_jax(tree: Mapping[str, Any], cfg: DiTConfig, device=None) -> DiT:
+def params_from_jax(tree: Mapping[str, Any], cfg: DiTConfig, device="cuda") -> DiT:
     """Load the TPU package's DiT param pytree, given as numpy arrays
     (``{"t_embed": {"in", "out"}, "blocks": [...], "final"}``, each dense a
     ``{"w": [d_in, d_out], "b": [d_out]}``). ``w`` is transposed for
@@ -216,3 +222,26 @@ def params_from_jax(tree: Mapping[str, Any], cfg: DiTConfig, device=None) -> DiT
             load(getattr(blk, name), p[name])
     load(model.final, tree["final"])
     return model
+
+
+_WQ_DIT_KEYS = ("qkv", "proj", "mlp_in", "mlp_out")
+
+
+def quantize_dit_params(params: DiT, *, bits: int = 8) -> DiT:
+    """A DiT whose block projections (qkv, proj, mlp_in, mlp_out, with their
+    biases) are per-channel packed ``WQWeight`` layers; the adaLN
+    modulation, the time embedding and the final head are the input's own
+    modules (small and conditioning-critical, as in JAX)."""
+    out = DiT.__new__(DiT)
+    nn.Module.__init__(out)
+    out.cfg, out.t_in, out.t_out, out.final = params.cfg, params.t_in, params.t_out, params.final
+    out.blocks = nn.ModuleList()
+    for blk in params.blocks:
+        nb = DiTBlock.__new__(DiTBlock)
+        nn.Module.__init__(nb)
+        nb.num_heads, nb.ada = blk.num_heads, blk.ada
+        for key in _WQ_DIT_KEYS:
+            lin = getattr(blk, key)
+            setattr(nb, key, WQWeight.from_dense(lin.weight, bits=bits, bias=lin.bias))
+        out.blocks.append(nb)
+    return out

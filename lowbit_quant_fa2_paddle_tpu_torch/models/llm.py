@@ -1,16 +1,19 @@
 """GQA transformer LM on the low-bit stack: causal INT8 prefill (kernels C1
-and A) -> quantized KV cache -> split-KV decode (kernel D).
+and A) -> quantized KV cache -> split-KV decode (kernel D), with dense or
+packed weights (kernels F1/F2).
 
 Counterpart of ``lowbit_quant_fa2_paddle_tpu/models/llm.py`` as an
 ``nn.Module``. Blocks hold bias-free ``wq``/``wk``/``wv``/``wo``/``w1``/``w2``
+(``nn.Linear``, or ``ops.gemv.WQWeight`` after :func:`quantize_llm_params`)
 and RMS norms ``ln1``/``ln2``; the model holds ``embed`` (tied with the
-output projection) and ``ln_f``. Everything runs without autograd.
+output projection) and ``ln_f``. Everything runs without autograd. Models
+are built on the CUDA card unless the caller passes another ``device``.
 
 Cache precision per side is ``kv_bits``/``k_bits``/``v_bits`` in {16, 8}
-(bf16 rows or int8 codes). Not ported yet, each raising
-``NotImplementedError``: 4-bit caches, ``window_size``/``sink_size``,
-chunked prefill, speculative decoding (ROADMAP item 7), and weight
-quantization ``w_bits`` (item 9).
+(bf16 rows or int8 codes). ``w_bits`` is accepted and, as in JAX, read by
+nothing: :func:`quantize_llm_params` packs the weights. Not ported yet, each
+raising ``NotImplementedError``: 4-bit caches, ``window_size``/``sink_size``,
+chunked prefill and speculative decoding (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch import nn
 
 from lowbit_quant_fa2_paddle_tpu_torch.core import lowbit_fa_qk_int8_pv_fp16
 from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as dec
+from lowbit_quant_fa2_paddle_tpu_torch.ops.gemv import WQWeight
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import _not_ported
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
 
@@ -48,8 +52,6 @@ class LLMConfig:
     sink_size: int = 0
 
     def __post_init__(self):
-        if self.w_bits is not None:
-            raise _not_ported("weight-quantized LLM (w_bits)", "9")
         if self.window_size is not None or self.sink_size:
             raise _not_ported("sliding-window / sink LLM", "7")
         dec._check_bits(self.eff_k_bits, self.eff_v_bits)
@@ -120,12 +122,11 @@ _WQ_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 
 def _empty_model(cfg: LLMConfig, device) -> LLM:
-    model = LLM(cfg, device="meta").to_empty(device="cpu" if device is None else device)
-    return model.requires_grad_(False)
+    return LLM(cfg, device="meta").to_empty(device=device).requires_grad_(False)
 
 
 @torch.no_grad()
-def init_llm_params(cfg: LLMConfig, generator: torch.Generator, device=None) -> LLM:
+def init_llm_params(cfg: LLMConfig, generator: torch.Generator, device="cuda") -> LLM:
     """Random LLM from the JAX package's init distributions: each dense
     ``w ~ N(0, 1/d_in)``, ``embed ~ N(0, 0.02²)``, norms ones. ``generator``
     must live on ``device``."""
@@ -147,11 +148,15 @@ def init_llm_params(cfg: LLMConfig, generator: torch.Generator, device=None) -> 
 
 
 @torch.no_grad()
-def params_from_jax(tree: Mapping[str, Any], cfg: LLMConfig, device=None) -> LLM:
+def params_from_jax(tree: Mapping[str, Any], cfg: LLMConfig, device="cuda") -> LLM:
     """Load the JAX package's LLM param tree, given as numpy arrays
     (``{"embed": [vocab, dim], "blocks": [{"wq": [in, out], ...,
     "ln1", "ln2"}, ...], "ln_f"}``). Dense weights are transposed for
-    ``nn.Linear``; values are cast to ``cfg.dtype``."""
+    ``nn.Linear``; values are cast to ``cfg.dtype``. A tree from JAX's
+    ``quantize_llm_params`` has packed leaves (the JAX package's
+    ``WQWeight`` holding numpy ``packed`` int8 ``[out, in*bits/8]`` and
+    ``scale`` f32 ``[out]``, and ``bits``), which become ``WQWeight``
+    layers as they are."""
     model = _empty_model(cfg, device)
     if len(tree["blocks"]) != cfg.depth:
         raise ValueError(f"tree has {len(tree['blocks'])} blocks, config depth {cfg.depth}")
@@ -170,18 +175,44 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LLMConfig, device=None) -> LLM
     load(model.ln_f.weight, tree["ln_f"])
     for blk, p in zip(model.blocks, tree["blocks"]):
         for key in _WQ_KEYS:
-            load(getattr(blk, key).weight, p[key], transpose=True)
+            leaf, lin = p[key], getattr(blk, key)
+            if not hasattr(leaf, "packed"):
+                load(lin.weight, leaf, transpose=True)
+                continue
+            dev = lin.weight.device
+            w = WQWeight(torch.from_numpy(np.array(leaf.packed, dtype=np.int8)).to(dev),
+                         torch.from_numpy(np.array(leaf.scale, dtype=np.float32)).to(dev), int(leaf.bits))
+            if (w.out_features, w.in_features) != (lin.out_features, lin.in_features):
+                raise ValueError(f"packed {key} {tuple(w.packed.shape)} does not fit {lin}")
+            setattr(blk, key, w)
         load(blk.ln1.weight, p["ln1"])
         load(blk.ln2.weight, p["ln2"])
     return model
 
 
 def quantize_llm_params(params: LLM, *, bits: int = 8) -> LLM:
-    raise _not_ported("quantize_llm_params (packed weights, kernels F1/F2)", "9")
+    """A model whose six block matrices are per-channel packed ``WQWeight``
+    layers (``bits`` 8 or 4, packed on the weights' device) and whose
+    embedding and norms are the input's own modules, so the dense and the
+    packed model live side by side at the cost of the packed bytes."""
+    out = LLM.__new__(LLM)
+    nn.Module.__init__(out)
+    out.cfg, out.embed, out.ln_f = params.cfg, params.embed, params.ln_f
+    out.blocks = nn.ModuleList()
+    for blk in params.blocks:
+        nb = LLMBlock.__new__(LLMBlock)
+        nn.Module.__init__(nb)
+        for key in _WQ_KEYS:
+            setattr(nb, key, WQWeight.from_dense(getattr(blk, key).weight, bits=bits))
+        nb.ln1, nb.ln2 = blk.ln1, blk.ln2
+        out.blocks.append(nb)
+    return out
 
 
-def _mm(x: torch.Tensor, w: nn.Linear) -> torch.Tensor:
-    """Dense matmul ``x @ w`` (PyTorch's, as the JAX package leaves it to XLA)."""
+def _mm(x: torch.Tensor, w: nn.Module) -> torch.Tensor:
+    """``x @ W^T`` by weight type: ``nn.Linear`` runs PyTorch's dense matmul
+    (as the JAX package leaves it to XLA), ``WQWeight`` the packed-weight
+    matmul (kernel F1 or F2 below 1024 rows)."""
     return w(x)
 
 

@@ -35,6 +35,8 @@ _SIGNATURES = {
     "lowbit_attn_fwd": [_P] * 9 + [_I] * 11 + [_F, _P],
     "lowbit_decode_attn": [_P] * 10 + [_I] * 12 + [_F, _P],
     "lowbit_decode_ctas_per_sm": [_I, _I, _I, _I, _P],
+    "lowbit_gemv": [_P] * 6 + [_I] * 11 + [_P],
+    "lowbit_fused_kv_attn": [_P] * 8 + [_I] * 12 + [_F, _P],
 }
 
 _lock = threading.Lock()

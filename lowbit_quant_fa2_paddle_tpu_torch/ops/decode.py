@@ -63,11 +63,11 @@ def _check_bits(k_bits: int, v_bits: int) -> None:
 
 def init_kv_cache(
     b: int, hk: int, s_max: int, d: int, *, bits: int = 8,
-    k_bits: Optional[int] = None, v_bits: Optional[int] = None, device=None,
+    k_bits: Optional[int] = None, v_bits: Optional[int] = None, device="cuda",
 ) -> dict:
     """Contiguous KV cache with per-token scales: int8 codes for 8 bits,
-    bf16 rows for 16 (scales stay ones). ``k_bits``/``v_bits`` override
-    ``bits`` per side."""
+    bf16 rows for 16 (scales stay ones), on the CUDA card unless ``device``
+    says otherwise. ``k_bits``/``v_bits`` override ``bits`` per side."""
     k_bits = bits if k_bits is None else k_bits
     v_bits = bits if v_bits is None else v_bits
     _check_bits(k_bits, v_bits)

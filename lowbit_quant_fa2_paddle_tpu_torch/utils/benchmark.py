@@ -2,8 +2,13 @@
 
 * ``flops = 4*B*H*D*Sq*Sk``, halved when causal;
 * TFLOP/s = flops / seconds;
-* a kernel's time is the median of ``reps`` CUDA-event intervals after
-  ``warmup`` calls. Timing needs a CUDA card and raises without one.
+* a call's time is the median of ``reps`` CUDA-event intervals after
+  ``warmup`` calls. Each interval starts behind a device-side sleep that
+  outlasts the host's enqueue of the call, so it holds the device's work
+  only: without it, a call of a few tens of µs reads as the host's Python
+  and launch cost (on the H100 every packed-weight matmul call read 80-110
+  µs that way, whatever its size). Timing needs a CUDA card and raises
+  without one.
 """
 
 from __future__ import annotations
@@ -12,6 +17,10 @@ import statistics
 from typing import Callable
 
 import torch
+
+#: Clock cycles the device sleeps before each timed call (~10 ms at the
+#: H100's 1.98 GHz): longer than any host enqueue of one call timed here.
+SLEEP_CYCLES = 20_000_000
 
 
 def attention_flops(b: int, h: int, d: int, s_q: int, s_k: int, causal: bool) -> int:
@@ -24,7 +33,8 @@ def tflops(flops: int, seconds: float) -> float:
 
 
 def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3, reps: int = 10) -> float:
-    """Median milliseconds of one ``fn()`` call on the current CUDA stream."""
+    """Median device milliseconds of one ``fn()`` call on the current CUDA
+    stream (``fn`` must not synchronise)."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms measures on a CUDA card; none is available")
     for _ in range(warmup):
@@ -33,6 +43,7 @@ def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3, reps: int = 10) -
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()

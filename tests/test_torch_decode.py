@@ -110,7 +110,7 @@ def test_append_kv_matches_jax(bits):
     lengths = np.array([0, 4, s_max], np.int32)
     jc = jd.init_kv_cache(b, hk, s_max, d, bits=bits)
     jc["length"] = jnp.asarray(lengths)
-    tc = td.init_kv_cache(b, hk, s_max, d, bits=bits)
+    tc = td.init_kv_cache(b, hk, s_max, d, bits=bits, device="cpu")
     tc["length"] = torch.from_numpy(lengths.copy())
     append = jax.jit(jd.append_kv)
     for _ in range(3):
@@ -211,12 +211,12 @@ def test_unported_decode_options_raise(kw, item):
 
 def test_unported_cache_ops_raise():
     with pytest.raises(NotImplementedError, match="item 7"):
-        td.init_kv_cache(1, 2, 8, 64, bits=4)
+        td.init_kv_cache(1, 2, 8, 64, bits=4, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         td.decode_attention(torch.zeros(1, 2, 4, 64), torch.zeros(1, 2, 8, 64, dtype=torch.int8),
                             torch.zeros(1, 2, 8, 64, dtype=torch.int8), torch.ones(1, 2, 8),
                             torch.ones(1, dtype=torch.int32))
-    cache = td.init_kv_cache(1, 2, 8, 64)
+    cache = td.init_kv_cache(1, 2, 8, 64, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         td.append_kv_multi(cache, torch.zeros(1, 2, 3, 64), torch.zeros(1, 2, 3, 64))
 

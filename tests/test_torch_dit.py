@@ -33,7 +33,7 @@ def models():
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a.astype(jnp.float32)), params)
     cfg_t = tdit.tiny_config(num_heads=4, dim=256, depth=2)
     x0 = np.random.default_rng(1).standard_normal((1, SEQ, cfg_t.dim)).astype(np.float32)
-    return cfg_j, params, tdit.params_from_jax(tree, cfg_t), x0
+    return cfg_j, params, tdit.params_from_jax(tree, cfg_t, device="cpu"), x0
 
 
 def _timesteps():
@@ -84,7 +84,7 @@ def test_int8_tracks_exact(models):
 
 def test_init_dit_params_distributions():
     cfg = tdit.tiny_config(dim=256, num_heads=4, depth=1)
-    model = tdit.init_dit_params(cfg, torch.Generator().manual_seed(0))
+    model = tdit.init_dit_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     blk = model.blocks[0]
     assert abs(float(blk.qkv.weight.detach().float().std()) - 1 / 16) < 3e-3
     assert abs(float(blk.ada.weight.detach().float().std()) - 0.02) < 2e-3
@@ -113,3 +113,37 @@ def test_unported_impls_raise(models):
     for impl in ("int8_train", "flash_train"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdit.dit_forward(model, x, torch.tensor([1.0]), attn_impl=impl)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_dit_params_bit_exact_and_shares_the_rest(models, bits):
+    _, params, model, _ = models
+    jq = jdit.quantize_dit_params(params, bits=bits)
+    tq = tdit.quantize_dit_params(model, bits=bits)
+    for i, blk in enumerate(tq.blocks):
+        for key in ("qkv", "proj", "mlp_in", "mlp_out"):
+            w, jw = getattr(blk, key), jq["blocks"][i][key]
+            np.testing.assert_array_equal(w.packed.numpy(), np.asarray(jw["wq"].packed))
+            np.testing.assert_array_equal(w.scale.numpy(), np.asarray(jw["wq"].scale))
+            assert torch.equal(w.bias, getattr(model.blocks[i], key).bias)
+        assert blk.ada is model.blocks[i].ada and blk.num_heads == model.blocks[i].num_heads
+    assert tq.t_in is model.t_in and tq.final is model.final
+
+
+@pytest.mark.parametrize("bits,cos_min", [(8, 0.9999), (4, 0.995)])
+def test_packed_forward_tracks_jax(models, bits, cos_min):
+    """One forward of s256 (256 rows: the packed-matmul route) with int8
+    attention. w4 rounds its dot, which carries 7·scale·sum(x), to bf16
+    before the zero-point term takes that out (as JAX does; 3-6% off the
+    exact product for inputs with a mean), so a summation-order flip moves
+    an output by an ulp of the larger dot: bound 0.995 (measured on a CPU:
+    0.99729; w8 passes 0.9999)."""
+    cfg_j, params, model, x0 = models
+    jq = jdit.quantize_dit_params(params, bits=bits)
+    tq = tdit.quantize_dit_params(model, bits=bits)
+    want = jdit.dit_forward(jq, jnp.asarray(x0, cfg_j.dtype), jnp.array([500.0]), cfg_j, attn_impl="int8")
+    with torch.no_grad():
+        got = tdit.dit_forward(tq, torch.from_numpy(x0).bfloat16(), torch.tensor([500.0]), attn_impl="int8")
+    want = torch.from_numpy(np.asarray(want.astype(jnp.float32)))
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert float(cosine_similarity(got, want)) >= cos_min

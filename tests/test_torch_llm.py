@@ -12,7 +12,11 @@ Two models, both carried across with ``params_from_jax``:
   layer 1's codes, by at most 3), which the test reports;
 * the trained arithmetic checkpoint ``eval_out/arith_llm.npz`` (f32), whose
   logits have real margins: greedy ``generate`` must give the same tokens as
-  JAX, with the int8 and the bf16 cache.
+  JAX, with the int8 and the bf16 cache, and with per-channel w8 and w4
+  weights (``quantize_llm_params``, bit-equal to JAX's packing).
+
+Every model is built on the CPU (``device="cpu"``): the constructors default
+to the CUDA card.
 """
 
 import os
@@ -49,7 +53,7 @@ def _cos(port: torch.Tensor, want) -> float:
 def tiny():
     params = JL.init_llm_params(jax.random.PRNGKey(0), JL.tiny_llm_config(**TINY, dtype=jnp.bfloat16))
     tree = jax.tree_util.tree_map(_f32, params)
-    model = TL.params_from_jax(tree, TL.tiny_llm_config(**TINY, dtype=torch.bfloat16))
+    model = TL.params_from_jax(tree, TL.tiny_llm_config(**TINY, dtype=torch.bfloat16), device="cpu")
     tokens = np.random.default_rng(0).integers(0, 256, (2, 40)).astype(np.int32)
     return params, tree, model, tokens
 
@@ -154,7 +158,7 @@ def checkpoint():
     like = JL.init_llm_params(jax.random.PRNGKey(0), JT.arith_llm_config())
     j_params = load_params(CKPT, like)
     tree = load_params_npz(CKPT)
-    return j_params, tree, TL.params_from_jax(tree, TT.arith_llm_config())
+    return j_params, tree, TL.params_from_jax(tree, TT.arith_llm_config(), device="cpu")
 
 
 def test_load_params_npz_matches_jax_load(checkpoint):
@@ -195,14 +199,12 @@ def test_task_alphabet_matches_jax():
 @pytest.mark.parametrize(
     "make,item",
     [
-        (lambda: TL.LLMConfig(w_bits=8), "9"),
         (lambda: TL.LLMConfig(window_size=16), "7"),
         (lambda: TL.LLMConfig(kv_bits=4), "7"),
         (lambda: TL.LLMConfig(k_bits=4, v_bits=8), "7"),
         (lambda: TL.llm_prefill_chunked(None, None, None), "7"),
         (lambda: TL.llm_verify_step(None, None, None, None), "7"),
         (lambda: TL.speculative_generate(None, None, 4, None), "7"),
-        (lambda: TL.quantize_llm_params(None), "9"),
     ],
 )
 def test_unported_llm_paths_raise(make, item):
@@ -218,7 +220,7 @@ def test_unknown_prefill_impl_raises(tiny):
 
 def test_init_llm_params_shapes_and_scale():
     cfg = TL.tiny_llm_config(dim=128, depth=1, num_heads=4, num_kv_heads=2, vocab=32)
-    model = TL.init_llm_params(cfg, torch.Generator().manual_seed(0))
+    model = TL.init_llm_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     n = sum(p.numel() for p in model.parameters())
     assert n == 32 * 128 + 128 + 128 * 128 * 2 + 2 * 128 * 64 + 2 * 4 * 128 * 128 + 2 * 128
     w1 = model.blocks[0].w1.weight
@@ -244,3 +246,86 @@ def test_merge_lse_of_two_key_halves_equals_one_decode(bits):
 
     (o1, l1), (o2, l2), (o, _) = run(0, 150), run(150, 300), run(0, 300)
     torch.testing.assert_close(TL.merge_lse(o1, l1, o2, l2), o, rtol=0, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# Weight-quantized models (kernels F1/F2)
+# ---------------------------------------------------------------------------
+
+KEYS = ("wq", "wk", "wv", "wo", "w1", "w2")
+
+
+@pytest.fixture(scope="module")
+def tiny_packed(tiny):
+    params, _, model, _ = tiny
+    return {bits: (JL.quantize_llm_params(params, bits=bits), TL.quantize_llm_params(model, bits=bits))
+            for bits in (8, 4)}
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_llm_params_bit_exact_and_shares_the_rest(tiny, tiny_packed, bits):
+    _, _, model, _ = tiny
+    jq, tq = tiny_packed[bits]
+    for i, blk in enumerate(tq.blocks):
+        for key in KEYS:
+            w = getattr(blk, key)
+            assert w.bits == bits and not isinstance(getattr(model.blocks[i], key), type(w))
+            np.testing.assert_array_equal(w.packed.numpy(), np.asarray(jq["blocks"][i][key].packed))
+            np.testing.assert_array_equal(w.scale.numpy(), np.asarray(jq["blocks"][i][key].scale))
+        assert blk.ln1 is model.blocks[i].ln1 and blk.ln2 is model.blocks[i].ln2
+    assert tq.embed is model.embed and tq.ln_f is model.ln_f and tq.cfg is model.cfg
+    assert not any(b.wq.weight.requires_grad for b in model.blocks)  # the dense model is untouched
+
+
+@pytest.mark.parametrize("bits,cos_min", [(8, COS_MIN), (4, 0.995)])
+def test_packed_prefill_and_decode_match_jax(tiny, tiny_packed, bits, cos_min):
+    """Prefill (80 rows) and decode (2 rows) both run the packed matmul.
+    w4's dot carries 7·scale·sum(x) and is rounded to bf16 before the
+    zero-point term takes it out again (JAX's design, kept), so a
+    summation-order flip there moves y by an ulp of the larger dot: the
+    bound is 0.995 (measured on a CPU: 0.99778-0.99849; JAX's own w4 logits
+    against its dense weights 0.952; w8 0.99997)."""
+    _, _, _, tokens = tiny
+    jq, tq = tiny_packed[bits]
+    cfg_j, cfg_t = _cfgs()
+    j_logits, j_caches = JL.llm_prefill(jq, jnp.asarray(tokens), cfg_j, attn_impl="ref")
+    t_logits, t_caches = TL.llm_prefill(tq, torch.from_numpy(tokens), cfg_t, attn_impl="ref")
+    assert _cos(t_logits, j_logits) >= cos_min
+    feed = np.random.default_rng(2).integers(0, 256, (3, 2)).astype(np.int32)
+    step = jax.jit(lambda p, t, c: JL.llm_decode_step(p, t, c, cfg_j))
+    for i in range(3):
+        j_logits, j_caches = step(jq, jnp.asarray(feed[i]), j_caches)
+        t_logits, t_caches = TL.llm_decode_step(tq, torch.from_numpy(feed[i]), t_caches, cfg_t)
+        assert _cos(t_logits, j_logits) >= cos_min, i
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_params_from_jax_loads_a_quantized_tree(tiny, tiny_packed, bits):
+    _, _, _, tokens = tiny
+    jq, tq = tiny_packed[bits]
+    tree = jax.tree_util.tree_map(np.asarray, jq)  # WQWeight nodes holding numpy arrays
+    loaded = TL.params_from_jax(tree, _cfgs()[1], device="cpu")
+    for a, b in zip(loaded.blocks, tq.blocks):
+        for key in KEYS:
+            assert torch.equal(getattr(a, key).packed, getattr(b, key).packed)
+            assert torch.equal(getattr(a, key).scale, getattr(b, key).scale)
+    toks = torch.from_numpy(tokens[:, :9])
+    assert torch.equal(TL.llm_prefill(loaded, toks, _cfgs()[1])[0], TL.llm_prefill(tq, toks, _cfgs()[1])[0])
+
+
+def test_w_bits_is_accepted_and_read_by_nothing():
+    assert TL.LLMConfig(w_bits=8).w_bits == 8
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_checkpoint_packed_generate_is_token_identical_to_jax(checkpoint, bits):
+    """16 prompts x 36 tokens: the prefill (576 rows) and the decode steps
+    both run the packed matmul."""
+    j_params, _, model = checkpoint
+    prompts, answers = TT.make_eval_prompts(16)
+    cfg_j, cfg_t = JT.arith_llm_config(kv_bits=8), TT.arith_llm_config(kv_bits=8)
+    j_out = np.asarray(JL.generate(JL.quantize_llm_params(j_params, bits=bits), jnp.asarray(prompts), TT.ANS_LEN,
+                                   cfg_j))
+    t_out = TL.generate(TL.quantize_llm_params(model, bits=bits), torch.from_numpy(prompts), TT.ANS_LEN, cfg_t)
+    np.testing.assert_array_equal(t_out.numpy(), j_out)
+    assert np.mean([TT.grade_answer(row, a) for row, a in zip(t_out.numpy(), answers)]) >= 0.9375

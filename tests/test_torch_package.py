@@ -2,7 +2,8 @@
 
 The CPU checks: importing the port loads no JAX; CPU tensors never touch a
 kernel (launch counters stay 0); the kernels build for sm_90a from this
-repository's sources only, with exact (not fast) math.
+repository's sources only, with exact (not fast) math; model and cache
+constructors build on the CUDA card unless told otherwise.
 
 The tests marked ``gpu`` compare each CUDA kernel with its plain PyTorch
 version on the card and skip without one. This file imports no JAX, so on a
@@ -10,6 +11,7 @@ machine without it they run with
 ``python -m pytest --noconftest tests/test_torch_package.py -m gpu``.
 """
 
+import inspect
 import math
 import os
 import subprocess
@@ -20,7 +22,19 @@ import torch
 
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
-from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import decode_attention, decode_attention_plain, quantize_token
+from lowbit_quant_fa2_paddle_tpu_torch.models import dit, llm
+from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv
+from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import (
+    decode_attention,
+    decode_attention_plain,
+    init_kv_cache,
+    quantize_token,
+)
+from lowbit_quant_fa2_paddle_tpu_torch.ops.fused_kv import (
+    fused_kv_attention_plain,
+    fused_packed_kv_attention,
+    quant_kv_grouped,
+)
 from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import (
     quant_int2,
@@ -42,6 +56,9 @@ def test_port_imports_no_jax():
         "import lowbit_quant_fa2_paddle_tpu_torch.models.dit\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.models.llm\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.models.train\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.ops.fused_kv\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.ops.gemv\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.ops.pack\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.utils.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lowbit_quant_fa2_paddle_tpu')]\n"
@@ -51,7 +68,8 @@ def test_port_imports_no_jax():
 
 
 def test_cpu_tensors_launch_no_kernel():
-    wrappers = (quant_int8, quant_int4, quant_int2, lowbit_attention, decode_attention)
+    wrappers = (quant_int8, quant_int4, quant_int2, lowbit_attention, decode_attention, gemv.wq_matmul_per_channel,
+                gemv.wq_matmul_fused, fused_packed_kv_attention)
     before = [w.launches for w in wrappers]
     x = torch.randn(1, 2, 70, 64)
     codes, scale = quant_int8(x, gran="per_token")
@@ -63,6 +81,14 @@ def test_cpu_tensors_launch_no_kernel():
     vc, vs, _ = quant_v_int8_per_channel(x)
     lowbit_attention(x, codes, vc, None, scale, v_scale=vs, pv_int8=True)
     decode_attention(x[:, :, 0], codes, codes, scale, torch.tensor([70], dtype=torch.int32), v_scale=scale)
+    w = torch.randn(96, 128)
+    for bits, act in ((8, "bf16"), (8, "int8"), (4, "bf16")):
+        gemv.wq_matmul_per_channel(x[0, 0, :3].repeat(1, 2), *gemv.pack_weights_per_channel(w, bits=bits),
+                                   bits=bits, activation=act)
+    gemv.wq_matmul_fused(x[0, 0, :3].repeat(1, 2), *gemv.pack_weights(w, group_size=32, bits=2), bits=2,
+                         group_size=32)
+    kp, ks, km = quant_kv_grouped(x, bits=4, group=64)
+    fused_packed_kv_attention(x, kp, kp, ks, km, ks, km, bits=4, group=64)
     assert [w.launches for w in wrappers] == before
 
 
@@ -73,13 +99,39 @@ def test_build_command_targets_sm90a_from_repo_sources():
         assert not any("fast_math" in a or "fast-math" in a for a in cmd)
     srcs = [a for cmd in compiles for a in cmd if a.endswith(".cu")]
     assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
-    assert sorted(os.path.basename(s) for s in srcs) == ["attention_fwd.cu", "decode_attention.cu", "quant.cu"]
+    assert sorted(os.path.basename(s) for s in srcs) == [
+        "attention_fwd.cu", "decode_attention.cu", "fused_kv_attention.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
-    assert "-shared" in link and link[-3:] == [cmd[-1] for cmd in compiles]
+    assert "-shared" in link and link[-len(compiles):] == [cmd[-1] for cmd in compiles]
     assert _build.CSRC_DIR.startswith(os.path.join(REPO, "lowbit_quant_fa2_paddle_tpu_torch"))
     assert os.path.dirname(_build.library_path()) == _build.BUILD_DIR
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "lowbit_quant_fa2_paddle_tpu_torch/csrc/build/" in f.read().split()
+
+
+CONSTRUCTORS = {
+    "llm": lambda gen, **kw: llm.init_llm_params(
+        llm.tiny_llm_config(dim=64, depth=1, num_heads=2, num_kv_heads=1, vocab=16), gen, **kw).parameters(),
+    "dit": lambda gen, **kw: dit.init_dit_params(
+        dit.tiny_config(dim=64, depth=1, num_heads=1, time_embed_dim=16), gen, **kw).parameters(),
+    "kv_cache": lambda gen, **kw: init_kv_cache(1, 1, 8, 64, **kw).values(),
+}
+
+
+@pytest.mark.parametrize("name", list(CONSTRUCTORS))
+def test_constructors_default_to_the_card(name):
+    """Left to their defaults, models and caches land on the CUDA card, and
+    without one they raise: nothing falls back to the CPU. Asked for the
+    CPU, they build there."""
+    for fn in (llm.init_llm_params, llm.params_from_jax, dit.init_dit_params, dit.params_from_jax, init_kv_cache):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    make = CONSTRUCTORS[name]
+    assert all(t.device.type == "cpu" for t in make(torch.Generator(), device="cpu"))
+    if torch.cuda.is_available():
+        assert all(t.device.type == "cuda" for t in make(torch.Generator("cuda")))
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            list(make(torch.Generator()))
 
 
 # ---------------------------------------------------------------------------
@@ -204,3 +256,73 @@ def test_attention_low_bit_modes_match_plain(cuda, k_bits, v_mode, causal, h, hk
     assert float(cosine_similarity(o, o_ref)) >= 0.9999
     assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
     assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "mode,m,n,k,dtype",
+    [("w8", 4, 1024, 4096, torch.bfloat16), ("w8a8", 3, 384, 512, torch.bfloat16), ("w4", 4, 4096, 1024, torch.bfloat16),
+     ("g2", 5, 512, 1024, torch.bfloat16), ("g4", 64, 256, 1024, torch.float32), ("g8", 7, 384, 512, torch.float32),
+     ("w8", 64, 1024, 256, torch.float32), ("w4", 900, 256, 512, torch.bfloat16)],
+)
+def test_gemv_kernels_match_plain(cuda, mode, m, n, k, dtype):
+    """F1 (w8, w8a8) and F2 (w4 per-channel, grouped 2/4/8-bit, group 128)
+    against their plain versions: the same products summed in another
+    order (bf16: 2 ulps of the larger of max|y| and F2's dot before its
+    zero-point term; f32: 1e-5 of it)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn(n, k, generator=g, device=cuda) / math.sqrt(k)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    if mode in ("w8", "w8a8", "w4"):
+        bits = 4 if mode == "w4" else 8
+        p, s = gemv.pack_weights_per_channel(w, bits=bits)
+        wrapper = gemv.wq_matmul_fused if bits == 4 else gemv.wq_matmul_per_channel
+        launches = wrapper.launches
+        y = gemv.wq_matmul_per_channel(x, p, s, bits=bits, activation="int8" if mode == "w8a8" else "bf16")
+        if mode == "w8":
+            y_ref, dot = gemv.wq_matmul_per_channel_plain(x, p, s, out_dtype=dtype), None
+        elif mode == "w8a8":
+            xq, xs = gemv.quant_activations(x)
+            y_ref, dot = gemv.wq_matmul_per_channel_plain(xq, p, s, x_scale=xs, out_dtype=dtype), None
+        else:
+            sc = s[:, None].repeat(1, 2)
+            y_ref = gemv.wq_matmul_fused_plain(x, p, sc, (-7.0 * s)[:, None].expand(n, 2), bits=4, group_size=k // 2)
+            dot = gemv.wq_matmul_fused_plain(x, p, sc, None, bits=4, group_size=k // 2)
+    else:
+        bits = int(mode[1])
+        p, s, mn = gemv.pack_weights(w, group_size=128, bits=bits)
+        wrapper = gemv.wq_matmul_fused
+        launches = wrapper.launches
+        y = gemv.wq_matmul_fused(x, p, s, mn, bits=bits, group_size=128)
+        y_ref = gemv.wq_matmul_fused_plain(x, p, s, mn, bits=bits, group_size=128)
+        dot = gemv.wq_matmul_fused_plain(x, p, s, None, bits=bits, group_size=128)
+    torch.cuda.synchronize()
+    assert wrapper.launches == launches + 1 and y.dtype == dtype
+    top = max(float(y_ref.float().abs().max()), float(dot.float().abs().max()) if dot is not None else 0.0)
+    tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7) if dtype == torch.bfloat16 else 1e-5 * top
+    assert float(cosine_similarity(y, y_ref)) >= 0.99999
+    assert float((y.float() - y_ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "bits,causal,b,h,hk,sq,sk,d,group",
+    [(4, False, 2, 4, 4, 1000, 1000, 64, 256), (2, True, 1, 8, 2, 700, 1000, 128, 64),
+     (4, True, 1, 4, 2, 1000, 300, 64, 128), (2, False, 1, 2, 1, 129, 77, 64, 32)],
+)
+def test_fused_kv_kernel_matches_plain(cuda, bits, causal, b, h, hk, sq, sk, d, group):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(b, h, sq, d, generator=g, device=cuda).bfloat16()
+    k = (torch.randn(b, hk, sk, d, generator=g, device=cuda) + 0.5).bfloat16()
+    v = (torch.randn(b, hk, sk, d, generator=g, device=cuda) - 0.3).bfloat16()
+    kp, ks, km = quant_kv_grouped(k, bits=bits, group=group)
+    vp, vs, vm = quant_kv_grouped(v, bits=bits, group=group)
+    n = fused_packed_kv_attention.launches
+    o = fused_packed_kv_attention(q, kp, vp, ks, km, vs, vm, bits=bits, is_causal=causal, group=group,
+                                  out_dtype=torch.float32)
+    o_ref = fused_kv_attention_plain(q, kp, vp, ks, km, vs, vm, bits=bits, group=group, causal=causal,
+                                     sm_scale_log2e=LOG2E / math.sqrt(d), out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fused_packed_kv_attention.launches == n + 1
+    assert float(cosine_similarity(o, o_ref)) >= 0.99999
+    assert float((o - o_ref).abs().max()) <= 2e-2
