@@ -38,7 +38,31 @@ Phases, each of which raises on failure (exit code 1, no result line):
    for int8 and int8_v8) or C2 (90 for int4). Then one step with per-channel
    w8 weights (quantize_dit_params) and int8 attention: eps cos vs the dense
    step >= 0.99, and no F launch (17,776 rows take the dense route);
-6. kernel D (decode_attention) against its plain version: int8 and bf16
+6. kernels G1/G2 (attention_bwd_dq, attention_bwd_dkv) through flash_bwd
+   against attention_bwd_plain: float and quantized (int8 codes) at b1 h30
+   s17776 d64 bf16, causal GQA 8q/2kv d128 at a ragged s1000 (both modes),
+   a causal window of 256 at s2048, and f32 inputs at b1 h4 s512 d64; cos >=
+   0.99999 and max|d| <= 2 bf16 ulps of each gradient's max|.| (the plain
+   version rounds p and ds where the kernels do); one G1 and one G2 per call
+   and four C1 with the quantized mode. Each timed alone at the DiT shape
+   beside the plain version (the pair) and aten's flash-attention backward
+   (dq, dk, dv in one call, given SDPA's forward outputs);
+7. gradients of flash_attention_trainable (cos >= 0.999),
+   lowbit_attention_trainable (>= 0.99) and its bwd_quantized (>= 0.999)
+   against a dense fp32 autograd oracle at b2 h4 s1024 d64 bf16, both
+   causal settings, with their launches (A, G1, G2 once each; C1 once for
+   the int8 forward and four more for the quantized backward);
+8. DiT training: tiny_config, 3 sgd_train_steps at lr 1e-2 must lower the
+   loss; then the full-width CogVideoX-2b DiT (depth 30, random weights) on
+   a b1 s17776 latent with flash_train, then int8_train, each on a fresh
+   model: a warm-up forward and backward (gradients finite), 3
+   sgd_train_steps at lr 1e-4 (ms, loss, peak memory, the share of
+   parameters the first step changed), exactly depth launches of A, G1 and
+   G2 per step (and of C1 for int8_train) and none of C2/C3/D/E/F, one step
+   under torch.profiler (device ms of G1, G2, A, C1, GEMMs, the rest); the
+   two impls' first losses within 1% and block 0's qkv weight gradients at
+   cos >= 0.99;
+9. kernel D (decode_attention) against its plain version: int8 and bf16
    caches at b4 h32 hk8 d128 S_max 32768 with lengths [32768, 1, 4097, 0],
    d64 MHA, d32 GQA 8q/2kv, and the checkpoint's b64 S_max 128 with f32
    queries, with and without the LSE. Both sides are f32
@@ -46,7 +70,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ulp of max|o|, max|dlse| <= 1e-4. Timed at every length 32768 for both
    caches, with the GB/s of cache bytes streamed (SDPA, one query per head,
    beside the bf16 cache);
-7. kernels F1/F2 (wq_matmul_per_channel, wq_matmul_fused) against their
+10. kernels F1/F2 (wq_matmul_per_channel, wq_matmul_fused) against their
    plain versions: w8, w8a8, w4 per-channel and grouped 2/4/8-bit (group
    128) at the full-width decode shapes M=4 x (N, K) in {(4096, 4096),
    (1024, 4096), (16384, 4096), (4096, 16384)} bf16, w8/w4 at the
@@ -56,18 +80,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
    read from HBM, beside torch.matmul on the dense bf16 W, and summed to a
    32-layer decode step; then the w8a8 and grouped entry points once each,
    counted;
-8. kernel E (fused_packed_kv_attention) against its plain version: bits 4
+11. kernel E (fused_packed_kv_attention) against its plain version: bits 4
    and 2, causal or not, at b4 h32 s8192 d64 (the kivi4 sweep shape) and
    GQA 32q/8kv d128 at a ragged s1000 and at Sq 700 != Sk 1000 (group 64);
    cos >= 0.99999, max|do| <= 2e-2; timed at b4 h32 s8192 d64 beside SDPA
    on the dequantized bf16 K/V; its entry point once, counted;
-9. the trained checkpoint eval_out/arith_llm.npz: greedy generate of 4
+12. the trained checkpoint eval_out/arith_llm.npz: greedy generate of 4
    tokens on 64 three-shot addition prompts, with the int8 and the bf16
    cache, then with per-channel w8 and w4 weights on the int8 cache; task
    exact-match >= 0.98 in every run (printed beside the JAX package's CPU
    figures 1.0 and 0.984375 for w8 and w4), launch counts per run (6 F per
    layer and decode step, none in the 2,304-row prefill);
-10. LLM main path at full width (dim 4096, 32 query heads x 128, 8 KV
+13. LLM main path at full width (dim 4096, 32 query heads x 128, 8 KV
    heads, vocab 256, bf16, depth 32, random weights from a seeded
    generator): generate 64 tokens at b4 from a 32,704-token prompt with
    max_seq 32768, with the int8 cache, the bf16 cache, and then w8 and w4
@@ -508,7 +532,7 @@ def main_path_phase():
             raise AssertionError(f"{impl} vs fp: frame cos {cos} (>= 0.999), eps cos {eps_cos} (>= {eps_min[impl]})")
     for impl in DIT_IMPLS:
         want = {"A": want_n, "C1": want_n if impl in ("int8", "int8_v8") else 0,
-                "C2": want_n if impl == "int4" else 0, "C3": 0, "D": 0, "E": 0, "F1": 0, "F2": 0}
+                "C2": want_n if impl == "int4" else 0, "C3": 0, "D": 0, "E": 0, "F1": 0, "F2": 0, "G1": 0, "G2": 0}
         log(f"[dit] {impl} launches {launches[impl]} (want {want})")
         if launches[impl] != want:
             raise AssertionError(f"DiT {impl}: launch counts {launches[impl]} != {want}")
@@ -526,12 +550,291 @@ def main_path_phase():
         w8_ms = (time.perf_counter() - t1) * 1e3
         got = counts()
     cos = float(cosine_similarity(eps.float(), eps0["int8"]))
-    want = {"A": cfg.depth, "C1": cfg.depth, "C2": 0, "C3": 0, "D": 0, "E": 0, "F1": 0, "F2": 0}
+    want = {"A": cfg.depth, "C1": cfg.depth, "C2": 0, "C3": 0, "D": 0, "E": 0, "F1": 0, "F2": 0, "G1": 0, "G2": 0}
     log(f"[dit] w8 weights + int8 attention: {w8_ms:.1f} ms/step, eps cos vs dense weights {cos:.6f}, "
         f"finite={bool(torch.isfinite(eps.float()).all())}, launches {got} (want {want})")
     if cos < 0.99 or got != want or not bool(torch.isfinite(eps.float()).all()):
         raise AssertionError(f"DiT w8 step: eps cos {cos} (>= 0.99), launches {got} != {want}")
     res["w8"] = {"ms_per_step": w8_ms, "eps_cos": cos}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Kernels G1/G2 (FA-2 backward) and DiT training
+# ---------------------------------------------------------------------------
+
+
+def bwd_inputs(gen, h, hk, s, d, causal, window, dtype):
+    """q, k, v, dO and the forward's o and base-2 LSE (kernel A; the dense
+    reference for the window, which A does not take yet)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, flash_attention_fp
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
+
+    q = torch.randn(1, h, s, d, generator=gen, device="cuda").to(dtype)
+    k = (torch.randn(1, hk, s, d, generator=gen, device="cuda") + 0.3).to(dtype)
+    v = torch.randn(1, hk, s, d, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(1, h, s, d, generator=gen, device="cuda").to(dtype)
+    if window:
+        o, lse = attention_reference(q, k, v, is_causal=causal, window_size=window, return_lse=True)
+        lse2 = lse * LOG2E
+    else:
+        o, lse2 = flash_attention_fp(q, k, v, is_causal=causal, return_lse=True)
+    return q, k, v, o.to(dtype), lse2, do
+
+
+def check_bwd(name, got, want):
+    """Kernel vs plain: p and ds round to bf16 in both, so they differ in
+    summation order only (and a bf16 rounding of p or ds that this flips):
+    cos >= 0.99999 per gradient and max|d| <= 2 bf16 ulps of its max|.|."""
+    worst = 0.0
+    for grad, a, b in zip(("dq", "dk", "dv"), got, want):
+        r = stats(a, b)
+        tol = 2 * bf16_ulp(float(b.float().abs().max()))
+        log(f"[G] {name} {grad}: cos={r['cos']:.7f} max_d={r['max_do']:.4g} (bound {tol:.3g}) finite={r['finite']}")
+        if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= tol and a.dtype == b.dtype):
+            raise AssertionError(f"kernels G1/G2 disagree with their plain version ({name}, {grad}): {r}")
+        worst = max(worst, r["max_do"])
+    return worst
+
+
+def bwd_phase(gen):
+    """G1/G2 against attention_bwd_plain on the same operands, through
+    flash_bwd (counted: one G1 and one G2 a call, four C1 with quantized),
+    then timed one by one at the DiT shape beside the plain version (which
+    computes the pair) and aten's flash-attention backward (dq, dk and dv
+    together, given SDPA's own forward outputs: a baseline, never on the
+    path)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd as AB
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import (
+        attention_bwd_flops,
+        attention_product_flops,
+        cuda_time_ms,
+        tflops,
+    )
+
+    cases = [
+        ("float b1 h30 s17776 d64", dict(h=H, hk=H, s=S, d=D, causal=False, window=0, quantized=False)),
+        ("quantized b1 h30 s17776 d64", dict(h=H, hk=H, s=S, d=D, causal=False, window=0, quantized=True)),
+        ("float causal GQA 8q/2kv d128 s1000", dict(h=8, hk=2, s=1000, d=128, causal=True, window=0,
+                                                    quantized=False)),
+        ("quantized causal GQA 8q/2kv d128 s1000", dict(h=8, hk=2, s=1000, d=128, causal=True, window=0,
+                                                        quantized=True)),
+        ("float causal window 256 s2048", dict(h=8, hk=8, s=2048, d=64, causal=True, window=256, quantized=False)),
+        ("float f32 b1 h4 s512 d64", dict(h=4, hk=4, s=512, d=64, causal=False, window=0, quantized=False,
+                                          dtype=torch.float32)),
+    ]
+    worst = {False: 0.0, True: 0.0}
+    for name, kw in cases:
+        quantized, causal, window = kw["quantized"], kw["causal"], kw["window"]
+        q, k, v, o, lse2, do = bwd_inputs(gen, kw["h"], kw["hk"], kw["s"], kw["d"], causal, window,
+                                          kw.get("dtype", torch.bfloat16))
+        count_reset()
+        got = AB.flash_bwd(q, k, v, o, lse2, do, is_causal=causal, sm_scale=1.0 / math.sqrt(kw["d"]),
+                           quantized=quantized, window=window)
+        torch.cuda.synchronize()
+        launches = counts()
+        want_l = {key: 0 for key in launches} | {"G1": 1, "G2": 1, "C1": 4 if quantized else 0}
+        if launches != want_l:
+            raise AssertionError(f"flash_bwd ({name}): launches {launches} != {want_l}")
+        args, kargs = AB.bwd_operands(q, k, v, o, lse2, do, is_causal=causal, sm_scale=1.0 / math.sqrt(kw["d"]),
+                                      quantized=quantized, window=window)
+        want = AB.attention_bwd_plain(*args, **kargs, dq_dtype=q.dtype, dkv_dtype=k.dtype)
+        torch.cuda.synchronize()
+        worst[quantized] = max(worst[quantized], check_bwd(name, got, want))
+        del q, k, v, o, lse2, do, got, want, args
+
+    records = {}
+    flops = attention_product_flops(B, H, D, S, S, False)
+    for quantized in (False, True):
+        mode = "quantized" if quantized else "float"
+        q, k, v, o, lse2, do = bwd_inputs(gen, H, H, S, D, False, 0, torch.bfloat16)
+        args, kargs = AB.bwd_operands(q, k, v, o, lse2, do, is_causal=False, sm_scale=1.0 / math.sqrt(D),
+                                      quantized=quantized)
+        ms1 = cuda_time_ms(lambda: AB.attention_bwd_dq(*args, **kargs, dq_dtype=torch.bfloat16), warmup=2, reps=10)
+        ms2 = cuda_time_ms(lambda: AB.attention_bwd_dkv(*args, **kargs, dkv_dtype=torch.bfloat16), warmup=2, reps=10)
+        plain_ms = cuda_time_ms(lambda: AB.attention_bwd_plain(*args, **kargs, dq_dtype=torch.bfloat16,
+                                                               dkv_dtype=torch.bfloat16), warmup=1, reps=3)
+        # QK^T and dO V^T run on int8 codes in the quantized mode; the rest is bf16.
+        lim1 = bound(nbytes(*args) + nbytes(q), {"int8": 2 * flops, "bf16": flops} if quantized else {"bf16": 3 * flops})
+        lim2 = bound(nbytes(*args) + nbytes(k, v),
+                     {"int8": 2 * flops, "bf16": 2 * flops} if quantized else {"bf16": 4 * flops})
+        library_ms = None
+        if not quantized:  # the same float backward, dq, dk and dv in one call
+            fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, False, False)
+            out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+            library_ms = cuda_time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset), warmup=2, reps=10)
+            del fwd, out, lse
+        pair_tf = tflops(attention_bwd_flops(B, H, D, S, S, False), (ms1 + ms2) / 1e3)
+        log(f"[G] {mode} b{B} h{H} s{S} d{D}: G1 {ms1:.3f} ms (bound {lim1['bound_ms']:.3f}), G2 {ms2:.3f} ms "
+            f"(bound {lim2['bound_ms']:.3f}), G1 + G2 {pair_tf:.1f} TFLOP/s at the 2.5x-forward convention, "
+            f"plain (both) {plain_ms:.3f} ms, aten flash backward (dq, dk, dv) {library_ms}")
+        records[mode] = {
+            "G1": {"max_abs_err": worst[quantized], "ms": ms1, "plain_ms": plain_ms, **lim1, "library_ms": library_ms},
+            "G2": {"max_abs_err": worst[quantized], "ms": ms2, "plain_ms": plain_ms, **lim2, "library_ms": library_ms},
+        }
+        del q, k, v, o, lse2, do, args
+    return records
+
+
+def bwd_accuracy_phase(gen):
+    """Gradients of the trainable functions against a dense fp32 autograd
+    oracle at b2 h4 s1024 d64 bf16, both causal settings (the H100
+    counterpart of the TPU record's accuracy rows): flash >= 0.999, the
+    int8 forward >= 0.99 (its LSE is the quantized softmax's), the quantized
+    backward >= 0.999. Each backward: one G1 and one G2, four more C1 with
+    bwd_quantized."""
+    import lowbit_quant_fa2_paddle_tpu_torch as lq
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
+
+    b, h, s, d = 2, 4, 1024, 64
+    q, k, v, g = (torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16() for _ in range(4))
+    res, quantized_launches = {}, {"G1": 0, "G2": 0}
+    for causal in (False, True):
+        xs = [x.float().requires_grad_() for x in (q, k, v)]
+        oracle = torch.autograd.grad((attention_reference(*xs, is_causal=causal) * g.float()).sum(), xs)
+        for name, fn, extra, cos_min, c1 in (("flash", lq.flash_attention_trainable, (), 0.999, 0),
+                                             ("lowbit", lq.lowbit_attention_trainable, (), 0.99, 1),
+                                             ("lowbit bwd_quantized", lq.lowbit_attention_trainable,
+                                              (None, None, None, True), 0.999, 5)):
+            xs = [x.detach().requires_grad_() for x in (q, k, v)]
+            count_reset()
+            o = fn(*xs, causal, *extra)
+            grads = torch.autograd.grad((o.float() * g.float()).sum(), xs)
+            torch.cuda.synchronize()
+            got = counts()
+            want = {key: 0 for key in got} | {"A": 1, "G1": 1, "G2": 1, "C1": c1}
+            cos = [float(cosine_similarity(a, r)) for a, r in zip(grads, oracle)]
+            res[f"{name} causal={causal}"] = cos
+            log(f"[train] grad cos vs fp32 oracle, {name}, causal={causal}: dq {cos[0]:.6f} dk {cos[1]:.6f} "
+                f"dv {cos[2]:.6f}; launches {got}")
+            if min(cos) < cos_min or got != want:
+                raise AssertionError(f"{name} causal={causal}: grad cos {cos} (>= {cos_min}), launches {got} != {want}")
+            if extra:
+                quantized_launches = {key: quantized_launches[key] + got[key] for key in quantized_launches}
+    return res, quantized_launches
+
+
+TRAIN_IMPLS = ("flash_train", "int8_train")
+TRAIN_LR = 1e-4
+
+
+def train_step_profile(model, x0, tgen, impl):
+    """Device ms of one training step by kernel, from the kernel events of
+    torch.profiler: G1, G2, A, C1, the dense GEMMs (cuBLAS) and the rest."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import dit
+
+    t, noise = dit.draw_t_noise(x0, tgen)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        dit.sgd_train_step(model, x0, t, noise, lr=TRAIN_LR, attn_impl=impl)
+        torch.cuda.synchronize()
+    cats = dict.fromkeys(("G1", "G2", "A", "C1", "GEMM", "other"), 0.0)
+    other = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, name = e.device_time_total / 1e3, e.key.lower()
+        key = ("G1" if "attn_bwd_dq" in name else "G2" if "attn_bwd_dkv" in name else "A" if "attn_fwd" in name
+               else "C1" if "quant_per" in name
+               else "GEMM" if any(w in name for w in ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")) else "other")
+        cats[key] += ms
+        if key == "other":
+            other.append((ms, e.count, e.key[:60]))
+    top = ", ".join(f"{n} x{c} {ms:.1f}" for ms, c, n in sorted(other, reverse=True)[:4])
+    return cats, top
+
+
+def train_phase():
+    """The DiT's training path: at tiny_config on the card, three steps at lr
+    1e-2 must lower the loss; then the full-width CogVideoX-2b DiT (dim 1920,
+    30 heads x 64, depth 30, random weights from a seeded generator) on one
+    17,776-token latent, for each of flash_train and int8_train on a fresh
+    copy of the model: a warm-up forward and backward with no update (its
+    gradients are checked), then 3 sgd_train_steps at lr 1e-4 with t and
+    noise from a seeded generator, counted step by step, then one step under
+    torch.profiler."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import dit
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+
+    tiny = dit.tiny_config()
+    xb = torch.randn(2, 64, tiny.dim, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda").bfloat16()
+    t, noise = dit.draw_t_noise(xb, torch.Generator(device="cuda").manual_seed(4))
+    for impl in TRAIN_IMPLS:
+        m = dit.init_dit_params(tiny, torch.Generator(device="cuda").manual_seed(0))
+        losses = [float(dit.sgd_train_step(m, xb, t, noise, lr=1e-2, attn_impl=impl)) for _ in range(3)]
+        log(f"[train] tiny_config {impl}, lr 1e-2, fixed batch: losses {losses}")
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"tiny_config {impl}: loss did not fall: {losses}")
+
+    cfg = dit.cogvideox_2b_config()
+    x0 = torch.randn(1, S, cfg.dim, generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    x0 = x0.to(cfg.dtype)
+    res, qkv_grad = {}, {}
+    for impl in TRAIN_IMPLS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = dit.init_dit_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        params = list(model.parameters())
+        n_params = sum(p.numel() for p in params)
+        t, noise = dit.draw_t_noise(x0, torch.Generator(device="cuda").manual_seed(6))
+        loss = dit.diffusion_loss(model, x0, t, noise, impl)
+        grads = torch.autograd.grad(loss, params)
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        qkv_grad[impl] = grads[next(i for i, p in enumerate(params) if p is model.blocks[0].qkv.weight)].float()
+        warm_loss = float(loss.detach())
+        del grads, loss
+        torch.cuda.synchronize()
+        log(f"[train] {impl}: {n_params / 1e9:.3f} B params; init and warm-up {time.perf_counter() - t0:.1f} s, "
+            f"warm-up loss {warm_loss:.6f}, gradients finite={finite}")
+        if not finite:
+            raise AssertionError(f"{impl}: non-finite warm-up gradients")
+        before = [p.detach().cpu() for p in params]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tgen = torch.Generator(device="cuda").manual_seed(7)
+        losses, step_ms, launches, changed = [], [], [], None
+        for i in range(STEPS):
+            t, noise = dit.draw_t_noise(x0, tgen)
+            torch.cuda.synchronize()
+            count_reset()
+            t1 = time.perf_counter()
+            loss = dit.sgd_train_step(model, x0, t, noise, lr=TRAIN_LR, attn_impl=impl)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            launches.append(counts())
+            losses.append(float(loss))
+            if i == 0:
+                changed = sum(int((p.detach() != p0.to(p.device)).sum()) for p, p0 in zip(params, before)) / n_params
+                del before
+        peak = torch.cuda.max_memory_allocated()
+        params_finite = all(bool(torch.isfinite(p).all()) for p in params)
+        cats, top = train_step_profile(model, x0, tgen, impl)
+        log(f"[train] {impl} b1 s{S}: ms/step " + ", ".join(f"{x:.1f}" for x in step_ms) + "; losses "
+            + ", ".join(f"{x:.6f}" for x in losses) + f"; peak {peak / 2**30:.2f} GiB; share of parameters the first "
+            f"step changed {changed:.4f}; parameters finite={params_finite}")
+        log(f"[train] {impl} step device ms (profiler): " + ", ".join(f"{k} {v:.1f}" for k, v in cats.items())
+            + f"; total {sum(cats.values()):.1f}; largest other: {top}")
+        want = {"A": cfg.depth, "C1": cfg.depth if impl == "int8_train" else 0, "C2": 0, "C3": 0, "D": 0, "E": 0,
+                "F1": 0, "F2": 0, "G1": cfg.depth, "G2": cfg.depth}
+        log(f"[train] {impl} launches per step {launches} (want {want})")
+        if any(got != want for got in launches):
+            raise AssertionError(f"{impl}: launches per step {launches} != {want}")
+        if not (params_finite and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"{impl}: non-finite loss or parameters: {losses}")
+        res[impl] = {"ms_per_step": step_ms, "losses": losses, "warm_loss": warm_loss, "peak_gib": peak / 2**30,
+                     "changed": changed, "profile": cats, "launches": launches}
+        del model, params
+    rel = abs(res["int8_train"]["warm_loss"] / res["flash_train"]["warm_loss"] - 1.0)
+    rel1 = abs(res["int8_train"]["losses"][0] / res["flash_train"]["losses"][0] - 1.0)
+    cos = float(cosine_similarity(qkv_grad["int8_train"], qkv_grad["flash_train"]))
+    log(f"[train] int8_train vs flash_train: first loss rel diff {rel:.3e} (warm-up), {rel1:.3e} (step 1); "
+        f"block 0 qkv weight gradient cos {cos:.6f}")
+    if rel > 0.01 or rel1 > 0.01 or cos < 0.99:
+        raise AssertionError(f"int8_train vs flash_train: loss rel {rel} / {rel1} (<= 0.01), qkv grad cos {cos} (>= 0.99)")
+    res["qkv_grad_cos"] = cos
     return res
 
 
@@ -606,13 +909,15 @@ def decode_phase(gen):
 
 def _wrappers():
     from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd import attention_bwd_dkv, attention_bwd_dq
     from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import decode_attention
     from lowbit_quant_fa2_paddle_tpu_torch.ops.fused_kv import fused_packed_kv_attention
     from lowbit_quant_fa2_paddle_tpu_torch.ops.gemv import wq_matmul_fused, wq_matmul_per_channel
     from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int2, quant_int4, quant_int8
 
     return {"A": lowbit_attention, "C1": quant_int8, "C2": quant_int4, "C3": quant_int2, "D": decode_attention,
-            "E": fused_packed_kv_attention, "F1": wq_matmul_per_channel, "F2": wq_matmul_fused}
+            "E": fused_packed_kv_attention, "F1": wq_matmul_per_channel, "F2": wq_matmul_fused,
+            "G1": attention_bwd_dq, "G2": attention_bwd_dkv}
 
 
 def count_reset():
@@ -627,7 +932,8 @@ def counts():
 def check_counts(where, got, depth, decode_steps, f1=0, f2=0):
     """The launches of one generate: A and C1 once per layer at prefill, D
     once per layer and decode step, and the given F1/F2 counts."""
-    want = {"A": depth, "C1": depth, "C2": 0, "C3": 0, "D": depth * decode_steps, "E": 0, "F1": f1, "F2": f2}
+    want = {"A": depth, "C1": depth, "C2": 0, "C3": 0, "D": depth * decode_steps, "E": 0, "F1": f1, "F2": f2,
+            "G1": 0, "G2": 0}
     log(f"[{where}] launches {got} (want {want})")
     if got != want:
         raise AssertionError(f"{where}: launch counts {got} != {want}")
@@ -1111,6 +1417,11 @@ def main():
     torch.cuda.empty_cache()
     dit_r = main_path_phase()
     torch.cuda.empty_cache()
+    bwd = bwd_phase(gen)
+    torch.cuda.empty_cache()
+    _, qz_launches = bwd_accuracy_phase(gen)
+    train_r = train_phase()
+    torch.cuda.empty_cache()
     dec = decode_phase(gen)
     torch.cuda.empty_cache()
     gemv = gemv_phase(gen)
@@ -1165,6 +1476,15 @@ def main():
         dict(name="fused_packed_kv_attention (int4 K/V)", route="cuda", source=f"{src}/fused_kv_attention.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py:377", launches=fkv["launches"],
              **{k: fkv[k] for k in timing}),
+    ] + [
+        dict(name=f"{fn} ({kern}, {desc})", route="cuda", source=f"{src}/attention_bwd.cu",
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/attention_bwd.py:" + ("302" if kern == "G1" else "346"),
+             launches=launches, **{k: bwd[mode][kern][k] for k in timing})
+        for fn, kern in (("attention_bwd_dq", "G1"), ("attention_bwd_dkv", "G2"))
+        for mode, desc, launches in (
+            ("float", "bf16 operands", sum(c[kern] for c in train_r["flash_train"]["launches"])),
+            ("quantized", "int8 codes", qz_launches[kern]),
+        )
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     log(json.dumps({"kernels": kernels}))

@@ -9,11 +9,14 @@ C3), the fp FA-2 baseline on the same kernel, the dispatching API with
 mixed-bit and multi-precision selection, the DiT denoiser that runs them,
 LLM generation over an int8 or bf16 KV cache with single-token decode
 attention (kernel D), weight-quantized models over packed-weight matmuls
-(kernels F1/F2, ``ops/gemv.py``, ``ops/pack.py``) and attention over
-KIVI-grouped packed K/V (kernel E, ``ops/fused_kv.py``); those live in
-their modules, as in the JAX package. On CPU tensors every kernel
-runs its plain PyTorch version; on CUDA tensors it launches the kernel,
-built with nvcc at first use.
+(kernels F1/F2, ``ops/gemv.py``, ``ops/pack.py``), attention over
+KIVI-grouped packed K/V (kernel E, ``ops/fused_kv.py``), and the FA-2
+backward (kernels G1/G2, ``ops/attention_bwd.py``) under the trainable
+attention functions exported here, which train the DiT
+(``models/dit.sgd_train_step``); the toy LLM's training is not ported.
+Those modules stand as in the JAX package. On CPU tensors every kernel runs
+its plain PyTorch version; on CUDA tensors it launches the kernel, built
+with nvcc at first use.
 """
 
 from lowbit_quant_fa2_paddle_tpu_torch.core import (
@@ -37,6 +40,7 @@ from lowbit_quant_fa2_paddle_tpu_torch.core import (
     sageattn_qk_int8_pv_fp16_triton,
 )
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import flash_attention_fp
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd import flash_attention_trainable, lowbit_attention_trainable
 
 __version__ = "0.1.0"
 
@@ -49,6 +53,8 @@ __all__ = [
     "lowbit_fa_mixed_bits",
     "lowbit_fa_multi_precision",
     "flash_attention_fp",
+    "flash_attention_trainable",
+    "lowbit_attention_trainable",
     "lowbit_fa_qk_int8_pv_fp16_triton",
     "lowbit_fa_qk_int8_pv_fp16_cuda",
     "lowbit_fa_qk_int8_pv_fp8_cuda",

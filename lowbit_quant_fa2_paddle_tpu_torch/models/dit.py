@@ -8,11 +8,18 @@ Counterpart of ``lowbit_quant_fa2_paddle_tpu/models/dit.py`` as an
 * ``attn_impl="int8"``  — smooth-K INT8 QK through kernels C1 and A (the
   product);
 * ``attn_impl="int8_v8"`` — INT8 QK and smooth-V per-channel INT8 V (C1, A);
-* ``attn_impl="int4"``  — INT8 Q × packed INT4 K (C2, A).
+* ``attn_impl="int4"``  — INT8 Q × packed INT4 K (C2, A);
+* ``attn_impl="flash_train"`` — differentiable FA-2: kernel A forward,
+  kernels G1/G2 backward (``ops/attention_bwd.py``);
+* ``attn_impl="int8_train"`` — quantization-aware training: the int8
+  serving path forward (C1, A), G1/G2 backward straight through.
 
 ``"int8_t"`` / ``"int4_t"`` / ``"fp_t"`` (the TPU package's transposed-space
 dataflow, a layout device of the TPU) run the plain ``"int8"`` / ``"int4"`` /
-``"fp"`` paths. The training impls raise until their kernels are ported.
+``"fp"`` paths.
+
+:func:`diffusion_loss` and :func:`sgd_train_step` train the model through
+any impl (``"exact"`` runs autograd through the fp32 reference attention).
 
 :func:`quantize_dit_params` packs the block projections per channel
 (``ops.gemv.WQWeight``); at the CogVideoX shape their rows (17,776 tokens)
@@ -39,7 +46,8 @@ from lowbit_quant_fa2_paddle_tpu_torch.core import (
     lowbit_fa_qk_int8_pv_fp16,
     lowbit_fa_qk_int8_pv_int8,
 )
-from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import _not_ported, flash_attention_fp
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import flash_attention_fp
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd import flash_attention_trainable, lowbit_attention_trainable
 from lowbit_quant_fa2_paddle_tpu_torch.ops.gemv import WQWeight
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
 
@@ -71,9 +79,6 @@ def cogvideox_2b_config(**kw) -> DiTConfig:
     return DiTConfig(**base)
 
 
-_UNPORTED_IMPLS = {"int8_train": "10", "flash_train": "10"}
-
-
 def _attention(q, k, v, impl: str):
     """q/k/v: [B, H, S, D] (HND)."""
     if impl == "exact":
@@ -86,17 +91,19 @@ def _attention(q, k, v, impl: str):
         return lowbit_fa_qk_int8_pv_int8(q, k, v)
     if impl in ("int4", "int4_t"):
         return lowbit_fa_qk_int4_pv_fp16(q, k, v)
-    if impl in _UNPORTED_IMPLS:
-        raise _not_ported(f"attn_impl={impl!r}", _UNPORTED_IMPLS[impl])
+    if impl == "flash_train":
+        return flash_attention_trainable(q, k, v).to(q.dtype)
+    if impl == "int8_train":
+        return lowbit_attention_trainable(q, k, v).to(q.dtype)
     raise ValueError(f"unknown attn_impl {impl!r}")
 
 
 def _layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm without affine: f32 statistics, population variance."""
     x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
-    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    xc = x32 - x32.mean(dim=-1, keepdim=True)  # one centred copy for autograd to keep
+    var = (xc**2).mean(dim=-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, dtype: torch.dtype) -> torch.Tensor:
@@ -245,3 +252,50 @@ def quantize_dit_params(params: DiT, *, bits: int = 8) -> DiT:
             setattr(nb, key, WQWeight.from_dense(lin.weight, bits=bits, bias=lin.bias))
         out.blocks.append(nb)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training step (diffusion denoising MSE)
+# ---------------------------------------------------------------------------
+
+
+def draw_t_noise(x0: torch.Tensor, generator: torch.Generator):
+    """A timestep ``t ~ U[0, 1)`` per batch row and unit-normal noise of
+    ``x0``'s shape and dtype, from ``generator`` (on ``x0``'s device) — for
+    callers without the TPU package's key, which :func:`diffusion_loss`
+    draws from inside."""
+    t = torch.rand(x0.shape[0], generator=generator, device=x0.device)
+    noise = torch.randn(x0.shape, generator=generator, device=x0.device).to(x0.dtype)
+    return t, noise
+
+
+def diffusion_loss(model: DiT, x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
+                   attn_impl: str = "exact") -> torch.Tensor:
+    """DDPM-style epsilon-prediction MSE: ``xt = cos(πt/2)·x0 + sin(πt/2)·noise``
+    (the two factors cast to x0's dtype first, as JAX does), then the f32
+    mean of ``(model(xt, 1000·t) - noise)²``. ``t`` [B] and ``noise`` are
+    given (JAX draws them from its key; :func:`draw_t_noise` draws them
+    here)."""
+    t = t.float()
+    a = torch.cos(0.5 * math.pi * t)[:, None, None].to(x0.dtype)
+    s = torch.sin(0.5 * math.pi * t)[:, None, None].to(x0.dtype)
+    xt = a * x0 + s * noise
+    pred = model(xt, t * 1000.0, attn_impl=attn_impl)
+    return torch.mean((pred.float() - noise.float()) ** 2)
+
+
+def sgd_train_step(model: DiT, batch: torch.Tensor, t: torch.Tensor, noise: torch.Tensor, lr: float = 1e-4,
+                   attn_impl: str = "exact") -> torch.Tensor:
+    """One SGD step on :func:`diffusion_loss`; updates ``model``'s parameters
+    in place and returns the loss. Rounds as JAX's ``p - lr * g.astype(p.dtype)``:
+    ``lr·g`` rounded to the parameter's dtype, then the subtraction rounded
+    again (``p.add_(g, alpha=-lr)`` would round once and give other bf16
+    values). The gradients are taken with ``torch.autograd.grad``, so none
+    stays on the parameters after the step."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    loss = diffusion_loss(model, batch, t, noise, attn_impl)
+    grads = torch.autograd.grad(loss, params)
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            p.sub_(lr * g.to(p.dtype))
+    return loss.detach()

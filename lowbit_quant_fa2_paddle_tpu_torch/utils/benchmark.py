@@ -1,6 +1,8 @@
 """Benchmark helpers: the reference's FLOP convention and CUDA-event timing.
 
-* ``flops = 4*B*H*D*Sq*Sk``, halved when causal;
+* ``flops = 4*B*H*D*Sq*Sk``, halved when causal; the backward counts 2.5x
+  that (the JAX package's training bench convention), and each of its
+  products (G1 runs three, G2 four) ``2*B*H*D*Sq*Sk``, halved when causal;
 * TFLOP/s = flops / seconds;
 * a call's time is the median of ``reps`` CUDA-event intervals after
   ``warmup`` calls. Each interval starts behind a device-side sleep that
@@ -26,6 +28,16 @@ SLEEP_CYCLES = 20_000_000
 def attention_flops(b: int, h: int, d: int, s_q: int, s_k: int, causal: bool) -> int:
     f = 4 * b * h * d * s_q * s_k
     return f // 2 if causal else f
+
+
+def attention_bwd_flops(b: int, h: int, d: int, s_q: int, s_k: int, causal: bool) -> int:
+    return attention_flops(b, h, d, s_q, s_k, causal) * 5 // 2
+
+
+def attention_product_flops(b: int, h: int, d: int, s_q: int, s_k: int, causal: bool) -> int:
+    """Operations of one ``[Sq, Sk] x D`` product of the backward (QK^T, dO V^T,
+    dS K, P^T dO or dS^T Q)."""
+    return attention_flops(b, h, d, s_q, s_k, causal) // 2
 
 
 def tflops(flops: int, seconds: float) -> float:

@@ -107,12 +107,11 @@ def test_transposed_impls_run_the_plain_paths(models):
         assert torch.equal(tdit.dit_forward(model, x, t, attn_impl=impl + "_t"), want), impl
 
 
-def test_unported_impls_raise(models):
+def test_unknown_impl_raises(models):
     _, _, model, x0 = models
     x = torch.from_numpy(x0[:, :64]).bfloat16()
-    for impl in ("int8_train", "flash_train"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdit.dit_forward(model, x, torch.tensor([1.0]), attn_impl=impl)
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        tdit.dit_forward(model, x, torch.tensor([1.0]), attn_impl="int3")
 
 
 @pytest.mark.parametrize("bits", [8, 4])

@@ -22,6 +22,13 @@ import torch
 
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd import (
+    attention_bwd_dkv,
+    attention_bwd_dq,
+    attention_bwd_plain,
+    bwd_operands,
+    flash_bwd,
+)
 from lowbit_quant_fa2_paddle_tpu_torch.models import dit, llm
 from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv
 from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import (
@@ -56,6 +63,7 @@ def test_port_imports_no_jax():
         "import lowbit_quant_fa2_paddle_tpu_torch.models.dit\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.models.llm\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.models.train\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.ops.fused_kv\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.ops.gemv\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.ops.pack\n"
@@ -69,7 +77,7 @@ def test_port_imports_no_jax():
 
 def test_cpu_tensors_launch_no_kernel():
     wrappers = (quant_int8, quant_int4, quant_int2, lowbit_attention, decode_attention, gemv.wq_matmul_per_channel,
-                gemv.wq_matmul_fused, fused_packed_kv_attention)
+                gemv.wq_matmul_fused, fused_packed_kv_attention, attention_bwd_dq, attention_bwd_dkv)
     before = [w.launches for w in wrappers]
     x = torch.randn(1, 2, 70, 64)
     codes, scale = quant_int8(x, gran="per_token")
@@ -89,6 +97,9 @@ def test_cpu_tensors_launch_no_kernel():
                          group_size=32)
     kp, ks, km = quant_kv_grouped(x, bits=4, group=64)
     fused_packed_kv_attention(x, kp, kp, ks, km, ks, km, bits=4, group=64)
+    lse2 = torch.zeros(1, 2, 70)
+    for quantized in (False, True):
+        flash_bwd(x, x, x, x, lse2, x, is_causal=True, sm_scale=0.125, quantized=quantized)
     assert [w.launches for w in wrappers] == before
 
 
@@ -100,7 +111,7 @@ def test_build_command_targets_sm90a_from_repo_sources():
     srcs = [a for cmd in compiles for a in cmd if a.endswith(".cu")]
     assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "attention_fwd.cu", "decode_attention.cu", "fused_kv_attention.cu", "gemv.cu", "quant.cu"]
+        "attention_bwd.cu", "attention_fwd.cu", "decode_attention.cu", "fused_kv_attention.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert "-shared" in link and link[-len(compiles):] == [cmd[-1] for cmd in compiles]
     assert _build.CSRC_DIR.startswith(os.path.join(REPO, "lowbit_quant_fa2_paddle_tpu_torch"))
@@ -326,3 +337,39 @@ def test_fused_kv_kernel_matches_plain(cuda, bits, causal, b, h, hk, sq, sk, d, 
     assert fused_packed_kv_attention.launches == n + 1
     assert float(cosine_similarity(o, o_ref)) >= 0.99999
     assert float((o - o_ref).abs().max()) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "quantized,causal,window,h,hk,d,s,dtype",
+    [(False, False, 0, 4, 4, 64, 1000, torch.bfloat16), (False, True, 0, 8, 2, 128, 777, torch.bfloat16),
+     (True, False, 0, 4, 2, 64, 300, torch.bfloat16), (True, True, 0, 4, 4, 128, 500, torch.bfloat16),
+     (False, True, 256, 4, 4, 64, 700, torch.bfloat16), (False, False, 0, 2, 1, 64, 129, torch.float32),
+     (True, True, 0, 4, 2, 32, 200, torch.bfloat16)],
+)
+def test_attention_bwd_kernels_match_plain(cuda, quantized, causal, window, h, hk, d, s, dtype):
+    """G1/G2 against attention_bwd_plain on the same operands: p and ds round
+    to bf16 in both, so they differ in summation order only (and a bf16
+    rounding of p or ds that this flips): cos >= 0.99999 and max|d| within 2
+    bf16 ulps of the gradient's max|.|."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(1, h, s, d, generator=g, device=cuda).to(dtype)
+    k = (torch.randn(1, hk, s, d, generator=g, device=cuda) + 0.3).to(dtype)
+    v = torch.randn(1, hk, s, d, generator=g, device=cuda).to(dtype)
+    do = torch.randn(1, h, s, d, generator=g, device=cuda).to(dtype)
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
+
+    o, lse = attention_reference(q, k, v, is_causal=causal, window_size=window or None, return_lse=True)
+    lse2 = lse * LOG2E
+    sm = 1.0 / math.sqrt(d)
+    n1, n2 = attention_bwd_dq.launches, attention_bwd_dkv.launches
+    got = flash_bwd(q, k, v, o, lse2, do, is_causal=causal, sm_scale=sm, quantized=quantized, window=window)
+    assert (attention_bwd_dq.launches, attention_bwd_dkv.launches) == (n1 + 1, n2 + 1)
+    args, kw = bwd_operands(q, k, v, o, lse2, do, is_causal=causal, sm_scale=sm, quantized=quantized, window=window)
+    want = attention_bwd_plain(*args, **kw, dq_dtype=dtype, dkv_dtype=dtype)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype == dtype, name
+        top = float(b.float().abs().max())
+        assert float(cosine_similarity(a, b)) >= 0.99999, name
+        assert float((a.float() - b.float()).abs().max()) <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7), name
