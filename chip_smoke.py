@@ -16,10 +16,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
    except where |x/scale| lies within 1e-5 of the 0.5 boundary (counted);
 4. kernel A (lowbit_attention) against its plain version: int8 with Q
    quantized in the kernel, int8 with external Q codes, fp, causal, GQA
-   8q/2kv, d128, ragged s1000, smooth-V, the LLM prefill (causal GQA
-   32q/8kv d128 s32704) and the checkpoint's prefill, with and without the
-   LSE, and at b1 h30 s17776 d64 (int8 and fp), timed beside PyTorch's SDPA
-   as a baseline; then its low-bit modes (packed INT4 K, packed INT2 K,
+   8q/2kv, d128, ragged s1000, smooth-V and the checkpoint's prefill, with
+   and without the LSE; then int8 (Q quantized in the kernel) and fp at b1
+   h30 s17776 d64 and at the LLM prefill's shape (causal GQA 32q/8kv d128
+   s32704, one batch row), each timed beside PyTorch's SDPA in bf16 (a
+   baseline) with the SM clock sampled after the timing, its TFLOP/s, its
+   tensor-core bound and its exp2 floor (one exp2 per visible (q, k) pair on
+   the 16-per-clock MUFU pipe of 132 SMs at 1.98 GHz). Every mode but
+   INT8 PV runs on the wgmma design (csrc/attention_fwd_wgmma.cu), INT8 PV
+   on mma.sync (csrc/attention_fwd.cu); then its low-bit modes (packed INT4 K, packed INT2 K,
    INT8 V, INT8 V with INT8 PV) at b1 h30 s17776 d64, causal GQA 8q/2kv
    d128 and ragged s1000, timed at the first. The plain version rounds P
    (or p8) where the kernel does and differs only in summation order, so
@@ -34,7 +39,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and agree with fp (cos >= 0.999), the first step's eps must agree with
    fp (cos >= 0.99 for int8_v8, >= 0.98 for int4, the JAX package's DiT
    bound), and the launch counters must show every attention call went
-   through kernel A (90 per impl) and every K quantization through C1 (90
+   through kernel A (90 per impl, all on the wgmma design) and every K
+   quantization through C1 (90
    for int8 and int8_v8) or C2 (90 for int4). Then one step with per-channel
    w8 weights (quantize_dit_params) and int8 attention: eps cos vs the dense
    step >= 0.99, and no F launch (17,776 rows take the dense route);
@@ -99,8 +105,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    Prints block-weight bytes, prefill seconds, decode ms per token, peak
    memory; the first decode step's int8-vs-bf16 logits cos must be >=
    0.999 and w8-vs-dense >= 0.99 (w4 printed); the counters must show depth
-   A and C1 launches per prefill, depth x 63 D launches, and 192 x 63 F1
-   (w8) or F2 (w4) launches and none at prefill. Then one decode step per
+   A (wgmma design) and C1 launches per prefill, depth x 63 D launches, and
+   192 x 63 F1 (w8) or F2 (w4) launches and none at prefill. Then one decode step per
    weight format under torch.profiler: device ms of F, the dense GEMMs, D
    and the rest.
 
@@ -135,6 +141,10 @@ STEPS = 3
 # H100 SXM datasheet peaks (dense): HBM3 bytes/s and operations/s per type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+# exp2 results per clock of one SM (the MUFU pipe; NVIDIA's CUDA C++
+# Programming Guide, compute capability 9.0), the SMs of an H100 SXM, and
+# its maximum SM clock.
+EX2_PER_CLK_PER_SM, N_SMS, MAX_SM_HZ = 16, 132, 1.98e9
 
 
 def log(*a):
@@ -152,6 +162,18 @@ def bound(n_bytes, ops=None):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = sum(n / PEAK_OPS[kind] for kind, n in (ops or {}).items())
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def exp_floor_ms(pairs):
+    """The least time of one exp2 per (q, k) pair on the MUFU pipe at the
+    card's maximum clock."""
+    return pairs / (N_SMS * EX2_PER_CLK_PER_SM * MAX_SM_HZ) * 1e3
+
+
+def sm_clock_mhz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout.split()
+    return float(out[0]) if out else float("nan")
 
 
 def bf16_ulp(x):
@@ -310,7 +332,6 @@ def attn_inputs(gen, h, hk, s, d, mode, causal=False, smooth_v=False, dtype=torc
 
 def attention_phase(gen):
     from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import attention_fwd_plain, lowbit_attention
-    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import attention_flops, cuda_time_ms, tflops
 
     cases = [
         ("int8 fused-Q", dict(h=8, hk=8, s=2048, d=64, mode="fused")),
@@ -323,8 +344,6 @@ def attention_phase(gen):
         ("fp d128 causal", dict(h=8, hk=4, s=1500, d=128, mode="fp", causal=True)),
         ("int8 ragged s1000", dict(h=8, hk=8, s=1000, d=64, mode="int8")),
         ("int8 smooth-V", dict(h=8, hk=8, s=1000, d=64, mode="fused", smooth_v=True)),
-        # The LLM prefill (one batch row of b4): causal GQA 32q/8kv at d128.
-        ("int8 causal GQA 32q/8kv d128 s32704", dict(h=32, hk=8, s=32704, d=128, mode="fused", causal=True)),
         # The checkpoint's prefill: f32, d32 padded to 64 by the API.
         ("int8 causal GQA 8q/2kv d64 s36 f32", dict(h=8, hk=2, s=36, d=64, mode="fused", causal=True,
                                                     dtype=torch.float32)),
@@ -341,38 +360,57 @@ def attention_phase(gen):
             if not torch.equal(o2, o):
                 raise AssertionError("kernel A output differs with return_lse=False")
             log("[A] return_lse=False: output identical")
-    records = {}
-    for mode in ("fused", "fp"):
-        kargs, pargs, opts, c = attn_inputs(gen, H, H, S, D, mode)
-        o, lse = lowbit_attention(*kargs, **opts, return_lse=True)
+    return {f"{mode} {shape}": time_attention(gen, mode, shape) for shape in A_SHAPES for mode in ("fused", "fp")}
 
-        def plain():
-            return attention_fwd_plain(*pargs, causal=False, sm_scale_log2e=c, out_dtype=torch.bfloat16)
 
-        o_ref, lse_ref = plain()
-        torch.cuda.synchronize()
-        r = stats(o, o_ref, lse, lse_ref)
-        check_close(f"{mode} b{B} h{H} s{S} d{D}", r)
-        del o_ref, lse_ref
-        ms = cuda_time_ms(lambda: lowbit_attention(*kargs, **opts), warmup=2, reps=10)
-        plain_ms = cuda_time_ms(plain, warmup=1, reps=3)
-        flops = attention_flops(B, H, D, S, S, False)
-        tf = tflops(flops, ms / 1e3)
-        q_, k_, v_, _, ks_ = kargs
-        # int8: QK^T on int8 codes, PV in bf16; fp: both products in bf16.
-        ops = {"int8": flops // 2, "bf16": flops // 2} if mode == "fused" else {"bf16": flops}
-        lim = bound(nbytes(q_, k_, v_, ks_) + B * H * S * D * 2, ops)
-        log(f"[A] {mode} b{B} h{H} s{S} d{D}: kernel {ms:.3f} ms ({tf:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-            f"bound {lim['bound_ms']:.3f} ms")
-        records[mode] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, "tflops": tf, **lim,
-                         "library_ms": None}
-    # Baseline only (a library kernel, not the port): PyTorch's SDPA in bf16.
-    q, k, v = (torch.randn(B, H, S, D, generator=gen, device="cuda").bfloat16() for _ in range(3))
-    sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), warmup=2, reps=10)
-    tf = tflops(attention_flops(B, H, D, S, S, False), sdpa_ms / 1e3)
-    log(f"[A] baseline torch SDPA bf16 b{B} h{H} s{S} d{D}: {sdpa_ms:.3f} ms ({tf:.1f} TFLOP/s)")
-    records["fp"]["library_ms"] = sdpa_ms  # the same function as the fp mode
-    return records
+# The shapes kernel A is timed at: the DiT's (b1 h30 s17776 d64) and one
+# batch row of the LLM prefill's (causal GQA 32q/8kv d128 s32704).
+A_SHAPES = {"dit": (H, H, S, D, False), "prefill": (32, 8, 32704, 128, True)}
+
+
+def time_attention(gen, mode, shape):
+    """Kernel A (``mode`` "fused": int8 with Q quantized in the kernel, or
+    "fp") at one of A_SHAPES: held to its plain version, then timed beside
+    the plain version and SDPA in bf16."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import attention_fwd_plain, kernel_design, lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import attention_flops, cuda_time_ms, tflops
+
+    h, hk, s, d, causal = A_SHAPES[shape]
+    name = f"{mode} b1 h{h} hk{hk} s{s} d{d}{' causal' if causal else ''}"
+    kargs, pargs, opts, c = attn_inputs(gen, h, hk, s, d, mode, causal=causal)
+    o, lse = lowbit_attention(*kargs, **opts, return_lse=True)
+
+    def plain():
+        return attention_fwd_plain(*pargs, causal=causal, sm_scale_log2e=c, out_dtype=torch.bfloat16)
+
+    o_ref, lse_ref = plain()
+    torch.cuda.synchronize()
+    r = stats(o, o_ref, lse, lse_ref)
+    check_close(name, r)
+    del o, lse, o_ref, lse_ref
+    ms = cuda_time_ms(lambda: lowbit_attention(*kargs, **opts), warmup=2, reps=10)
+    mhz = sm_clock_mhz()
+    plain_ms = cuda_time_ms(plain, warmup=1, reps=3 if shape == "dit" else 1)
+    flops = attention_flops(1, h, d, s, s, causal)
+    pairs = h * (s * (s + 1) // 2 if causal else s * s)
+    q_, k_, v_, _, ks_ = kargs
+    # int8: QK^T on int8 codes, PV in bf16; fp: both products in bf16.
+    ops = {"int8": flops // 2, "bf16": flops // 2} if mode == "fused" else {"bf16": flops}
+    lim = bound(nbytes(q_, k_, v_, ks_) + h * s * d * 2, ops)
+    del kargs, pargs
+    # Baseline only (a library kernel, not the port): SDPA in bf16, GQA as the kernel runs it.
+    q, k, v = (torch.randn(1, n, s, d, generator=gen, device="cuda").bfloat16() for n in (h, hk, hk))
+    sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=hk != h), warmup=2, reps=10)
+    del q, k, v
+    tf, floor = tflops(flops, ms / 1e3), exp_floor_ms(pairs)
+    log(f"[A] {name} ({kernel_design()}): kernel {ms:.3f} ms ({tf:.1f} TFLOP/s) at SM clock {mhz:.0f} MHz, "
+        f"plain {plain_ms:.3f} ms, bound {lim['bound_ms']:.3f} ms ({lim['bound_by']}), exp2 floor {floor:.3f} ms, "
+        f"SDPA bf16 {sdpa_ms:.3f} ms ({tflops(flops, sdpa_ms / 1e3):.1f} TFLOP/s)")
+    return {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, "tflops": tf, **lim,
+            # SDPA computes the fp mode's function; the int8 mode's has no library call.
+            "library_ms": sdpa_ms if mode == "fp" else None, "sdpa_ms": sdpa_ms, "exp_floor_ms": floor,
+            "sm_mhz": mhz, "design": kernel_design()}
 
 
 LOWBIT_MODES = {"int4-K": (4, "bf16"), "int2-K": (2, "bf16"), "int8-V": (8, "int8"), "int8-PV": (8, "int8_pv")}
@@ -397,11 +435,16 @@ def lowbit_attn_inputs(gen, mode, h, hk, s, d):
 
 
 def lowbit_attention_phase(gen):
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import (
+        LOG2E,
+        attention_fwd_plain,
+        kernel_design,
+        lowbit_attention,
+    )
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import attention_flops, cuda_time_ms, tflops
 
     records = {}
-    for mode in LOWBIT_MODES:
+    for mode, (_, v_mode) in LOWBIT_MODES.items():
         for case, (h, hk, s, d, causal) in [("b1 h30 s17776 d64", (H, H, S, D, False)),
                                             ("causal GQA 8q/2kv d128 s2048", (8, 2, 2048, 128, True)),
                                             ("ragged s1000", (8, 8, 1000, D, False))]:
@@ -432,7 +475,8 @@ def lowbit_attention_phase(gen):
                 log(f"[A] {mode} b{B} h{H} s{S} d{D}: kernel {ms:.3f} ms ({tf:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
                     f"bound {lim['bound_ms']:.3f} ms")
                 records[mode] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, "tflops": tf, **lim,
-                                 "library_ms": None}
+                                 "library_ms": None, "exp_floor_ms": exp_floor_ms(H * S * S),
+                                 "design": kernel_design(v_mode == "int8_pv")}
             else:
                 records[mode]["max_abs_err"] = max(records[mode]["max_abs_err"], r["max_do"])
             del args, o, lse
@@ -498,7 +542,7 @@ def main_path_phase():
             dit.dit_forward(model, x0, ts[0], attn_impl=impl)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        frames, step_ms, launches, eps0 = {}, {}, {}, {}
+        frames, step_ms, launches, eps0, designs = {}, {}, {}, {}, {}
         for impl in DIT_IMPLS:
             x = x0
             times = []
@@ -511,7 +555,7 @@ def main_path_phase():
                 times.append((time.perf_counter() - t1) * 1e3)
                 if i == 0:
                     eps0[impl] = eps.float()
-            launches[impl] = counts()
+            launches[impl], designs[impl] = counts(), design_counts()
             frames[impl], step_ms[impl] = x.float(), times
         peak = torch.cuda.max_memory_allocated()
     want_n = cfg.depth * STEPS
@@ -533,9 +577,10 @@ def main_path_phase():
     for impl in DIT_IMPLS:
         want = {"A": want_n, "C1": want_n if impl in ("int8", "int8_v8") else 0,
                 "C2": want_n if impl == "int4" else 0, "C3": 0, "D": 0, "E": 0, "F1": 0, "F2": 0, "G1": 0, "G2": 0}
-        log(f"[dit] {impl} launches {launches[impl]} (want {want})")
-        if launches[impl] != want:
-            raise AssertionError(f"DiT {impl}: launch counts {launches[impl]} != {want}")
+        want_designs = {"wgmma": want_n, "mma.sync": 0}
+        log(f"[dit] {impl} launches {launches[impl]} (want {want}), kernel A by design {designs[impl]}")
+        if launches[impl] != want or designs[impl] != want_designs:
+            raise AssertionError(f"DiT {impl}: launch counts {launches[impl]} != {want} or {designs[impl]}")
 
     # Per-channel w8 weights with int8 attention, one step: 17,776 rows take
     # the dequantize-once dense route, so no F kernel runs.
@@ -923,6 +968,14 @@ def _wrappers():
 def count_reset():
     for w in _wrappers().values():
         w.launches = 0
+    designs = _wrappers()["A"].launches_by_design
+    for key in designs:
+        designs[key] = 0
+
+
+def design_counts():
+    """Kernel A's launches per design since the last count_reset()."""
+    return dict(_wrappers()["A"].launches_by_design)
 
 
 def counts():
@@ -934,9 +987,10 @@ def check_counts(where, got, depth, decode_steps, f1=0, f2=0):
     once per layer and decode step, and the given F1/F2 counts."""
     want = {"A": depth, "C1": depth, "C2": 0, "C3": 0, "D": depth * decode_steps, "E": 0, "F1": f1, "F2": f2,
             "G1": 0, "G2": 0}
-    log(f"[{where}] launches {got} (want {want})")
-    if got != want:
-        raise AssertionError(f"{where}: launch counts {got} != {want}")
+    designs = design_counts()  # the prefill's A on the wgmma design
+    log(f"[{where}] launches {got} (want {want}), kernel A by design {designs}")
+    if got != want or designs != {"wgmma": depth, "mma.sync": 0}:
+        raise AssertionError(f"{where}: launch counts {got} != {want} or {designs}")
 
 
 def checkpoint_phase():
@@ -1434,9 +1488,12 @@ def main():
     llm_r = full_width_phase()
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
-    attn_src = dict(route="cuda", source=f"{src}/attention_fwd.cu",
-                    replaces="lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502")
+    replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
+    wgmma_src = dict(route="cuda", source=f"{src}/attention_fwd_wgmma.cu", replaces=replaces_a)
+    mma_src = dict(route="cuda", source=f"{src}/attention_fwd.cu", replaces=replaces_a)
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    a_keys = timing + ("exp_floor_ms", "design")
+    prefill = "LLM prefill shape b1 h32 hk8 s32704 d128 causal"
     kernels = [
         dict(name="quant_int8", route="cuda", source=f"{src}/quant.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/quant.py:215", launches=dl["int8"]["C1"], **c1),
@@ -1444,17 +1501,22 @@ def main():
              replaces="lowbit_quant_fa2_paddle_tpu/ops/quant.py:327", launches=dl["int4"]["C2"], **lowq[4]),
         dict(name="quant_int2", route="cuda", source=f"{src}/quant.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/quant.py:406", launches=api["int2"]["C3"], **lowq[2]),
-        dict(name="attention_fwd (int8, Q quantized in-kernel)", launches=dl["int8"]["A"], **attn_src,
-             **{k: attn["fused"][k] for k in timing}),
-        dict(name="attention_fwd (fp)", launches=dl["fp"]["A"], **attn_src, **{k: attn["fp"][k] for k in timing}),
-        dict(name="attention_fwd (int4 K)", launches=dl["int4"]["A"], **attn_src,
-             **{k: lowa["int4-K"][k] for k in timing}),
-        dict(name="attention_fwd (int2 K)", launches=api["int2"]["A"], **attn_src,
-             **{k: lowa["int2-K"][k] for k in timing}),
-        dict(name="attention_fwd (int8 V)", launches=dl["int8_v8"]["A"], **attn_src,
-             **{k: lowa["int8-V"][k] for k in timing}),
-        dict(name="attention_fwd (int8 V, int8 PV)", launches=api["int8_v8 pv_int8"]["A"], **attn_src,
-             **{k: lowa["int8-PV"][k] for k in timing}),
+        dict(name="attention_fwd (int8, Q quantized in-kernel)", launches=dl["int8"]["A"], **wgmma_src,
+             **{k: attn["fused dit"][k] for k in a_keys}),
+        dict(name="attention_fwd (fp)", launches=dl["fp"]["A"], **wgmma_src, **{k: attn["fp dit"][k] for k in a_keys}),
+        dict(name=f"attention_fwd (int8, Q quantized in-kernel; {prefill})", launches=llm_r["int8"]["launches"]["A"],
+             **wgmma_src, **{k: attn["fused prefill"][k] for k in a_keys}),
+        # No model path runs fp at this shape: the fp mode's launches on the DiT path.
+        dict(name=f"attention_fwd (fp; {prefill})", launches=dl["fp"]["A"], **wgmma_src,
+             **{k: attn["fp prefill"][k] for k in a_keys}),
+        dict(name="attention_fwd (int4 K)", launches=dl["int4"]["A"], **wgmma_src,
+             **{k: lowa["int4-K"][k] for k in a_keys}),
+        dict(name="attention_fwd (int2 K)", launches=api["int2"]["A"], **wgmma_src,
+             **{k: lowa["int2-K"][k] for k in a_keys}),
+        dict(name="attention_fwd (int8 V)", launches=dl["int8_v8"]["A"], **wgmma_src,
+             **{k: lowa["int8-V"][k] for k in a_keys}),
+        dict(name="attention_fwd (int8 V, int8 PV)", launches=api["int8_v8 pv_int8"]["A"], **mma_src,
+             **{k: lowa["int8-PV"][k] for k in a_keys}),
     ] + [
         dict(name=f"decode_attention ({mode} cache)", route="cuda", source=f"{src}/decode_attention.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",

@@ -1,33 +1,29 @@
-// Kernel A: FlashAttention-2 forward with INT8 / packed INT4 / packed INT2 or
-// bf16 QK, and bf16 or INT8 PV.
+// Kernel A, its INT8 PV mode on mma.sync: FlashAttention-2 forward with
+// INT8, packed INT4/INT2 or bf16 QK and P requantized to INT8 for an exact
+// INT8 PV dot. Every other mode of kernel A runs on the Hopper design of
+// attention_fwd_wgmma.cu; the wrapper picks the kernel by mode.
 //
 // Replaces the TPU kernel lowbit_quant_fa2_paddle_tpu/ops/attention.py:
 // _attn_body_km (launched by lowbit_attention_km, pallas_call at :1491 and
-// :1502) for these features: INT8 Q codes with per-row scales or float Q
-// quantized per row in the prologue; INT8 K codes, or K packed two (INT4,
-// halves of D) or four (INT2, quarters of D) codes per byte, with per-row
-// scales; or bf16 Q/K (fp mode); bf16 V, or per-channel INT8 V codes with a
-// v_scale (and optional v_mean) epilogue, PV in bf16 or as an exact INT8 dot
-// (pv_int8); causal (top-left aligned) or not; GQA; any Sk (ragged last KV
-// tile); base-2 LSE out; head_dim 64 or 128.
+// :1502) with pv_int8: INT8 Q codes with per-row scales or float Q quantized
+// per row in the prologue; INT8 K codes, or K packed two (INT4, halves of D)
+// or four (INT2, quarters of D) codes per byte, with per-row scales; or bf16
+// Q/K (fp mode); per-channel INT8 V codes with a v_scale (and optional
+// v_mean) epilogue; causal (top-left aligned) or not; GQA; any Sk (ragged
+// last KV tile); base-2 LSE out; head_dim 64 or 128.
 //
-// Math per KV tile, as in the TPU kernel:
+// Math per KV tile of 64 keys, as in the TPU kernel:
 //   s  = (i32(Q8 K8^T) * k_scale) * q_scale      q_scale holds sm_scale*log2e
 //   s  = f32(Qbf Kbf^T) * sm_scale*log2e         fp mode
 //   masked s = MASK_VALUE (-0.7 * FLT_MAX)
 //   m' = max(m, rowmax s)
-//   bf16 PV:  P = bf16(exp2(bf16(s - m')));  l = 2^(m-m') l + sum P
-//             acc = 2^(m-m') acc + P V       (bf16 x bf16 -> f32; INT8 V codes
-//                                             widen to bf16 exactly)
-//   INT8 PV:  P = bf16(exp2(bf16(s - (m' - log2 127))))    in [0, 128]
-//             p8 = min(trunc(bf16(P + 0.5)), 127)          saturates as XLA's
-//                                                          f32->s8 convert does
-//             l = 2^(m-m') l + sum p8;  acc = 2^(m-m') acc + i32(p8 V8)
-//   o = acc / l (* v_scale) (+ v_mean where l > 0)
-//   lse2 = m + log2 l (- log2 127 with INT8 PV), or -1e30 where l == 0
+//   P = bf16(exp2(bf16(s - (m' - log2 127))))    in [0, 128]
+//   p8 = min(trunc(bf16(P + 0.5)), 127)          saturates as XLA's f32->s8 convert does
+//   l = 2^(m-m') l + sum p8;  acc = 2^(m-m') acc + i32(p8 V8)
+//   o = acc / l * v_scale (+ v_mean where l > 0)
+//   lse2 = m + log2 l - log2 127, or -1e30 where l == 0
 //
-// Bound on the H100: the tensor cores (4*D FLOPs per (q, k) pair; at
-// b1 h30 s17776 d64 one call is 2.43 TFLOP against ~70 MB of operands), and
+// Bound on the H100: the tensor cores (4*D operations per (q, k) pair), and
 // in this simple form the per-element softmax chain on the CUDA cores.
 // Design: one CTA of 4 warps per (64 q rows, head, batch); each warp owns 16
 // rows and keeps m, l and the O accumulator in registers across the KV loop
@@ -35,26 +31,22 @@
 // mma.sync m16n8k32 s8 (or m16n8k16 bf16), and the QK accumulator is reused
 // in registers as the A operand of the PV mma.sync, so S and P never touch
 // shared memory. K, V (and K scales) stream through a two-stage cp.async ring
-// in padded (bank-conflict-free) shared memory; bf16 V's B operand comes from
-// ldmatrix.trans. Causal CTAs stop their KV loop at the diagonal and are
-// launched heaviest first. wgmma/TMA are later work.
+// in padded (bank-conflict-free) shared memory. Causal CTAs stop their KV
+// loop at the diagonal and are launched heaviest first.
 //
-// Packed K and INT8 V arrive as they lie in memory (a quarter, a half or half
-// of the bytes of int8 K / bf16 V) and are staged by cp.async; after the
-// tile's barrier one pass over shared memory widens them to the tiles the
-// existing MMAs read: packed K to the int8 K tile (per-byte sign extension,
+// Packed K and INT8 V arrive as they lie in memory and are staged by
+// cp.async; after the tile's barrier one pass over shared memory widens
+// packed K to the int8 K tile (per-byte sign extension,
 // __vsub4((w & 0x0F0F0F0F) ^ 0x08080808, 0x08080808) for nibbles, the same
-// with 0x03/0x02 for 2-bit codes), INT8 V to the bf16 V tile. For the INT8 PV
-// dot (mma.sync m16n8k32 s8) V is instead TRANSPOSED into a [D][keys] int8
+// with 0x03/0x02 for 2-bit codes) and TRANSPOSES V into a [D][keys] int8
 // tile, because the s8 B fragment wants four consecutive keys per column and
 // ldmatrix.trans moves only b16. The P accumulator gives each thread keys
 // 2t, 2t+1 of every 8-key n-tile, while the s8 A fragment wants slots
 // 4t..4t+3 (and 16+4t..) of a 32-key chunk; the contraction runs over keys,
 // so slot 16h + 4t + i holds key 16h + 8*(i>>1) + 2t + (i&1), and the V^T
-// tile stores its keys in that same permuted order. Unpacking in registers
-// is later speed work. The V mode, packed K and the output type are template
-// parameters, so the int8 and fp modes compile to the loop they had without
-// them; the launch bounds keep d128 at 3 resident CTAs per SM.
+// tile stores its keys in that same permuted order. Packed K and the output
+// type are template parameters; the launch bounds keep d128 at 3 resident
+// CTAs per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,7 +64,6 @@ constexpr float NEG_INIT = -1e30f;
 constexpr float LOG2_127 = 6.9886846867721655f;
 
 enum QMode { Q_INT8 = 0, Q_FUSED_BF16 = 1, Q_FUSED_F32 = 2, Q_FP = 3 };
-enum VMode { V_BF16 = 0, V_INT8 = 1, V_INT8_PV = 2 };
 
 struct Args {
   const void* q;
@@ -129,17 +120,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Per-byte sign extension of the 4-bit (2-bit) field at the bottom of each
@@ -213,26 +193,22 @@ __device__ __forceinline__ void unpack_rows(const uint32_t* src, int8_t* Kd, int
 // adds a staging ring for the codes as loaded.
 // ---------------------------------------------------------------------------
 
-template <int D, int QM, int VM, bool KPACK>
+template <int D, int QM, bool KPACK>
 struct Smem {
   static constexpr bool kInt8 = QM != Q_FP;
   static constexpr int kQKElem = kInt8 ? 1 : 2;       // bytes per Q/K element
   static constexpr int kQKStride = D + 16 / kQKElem;  // elements per padded row
-  static constexpr int kVStride = D + 8;              // bf16 elements per padded V row
   static constexpr int kVTStride = BKV + 16;          // int8 keys per padded V^T row
   static constexpr int kQBytes = BQ * kQKStride * kQKElem;
   static constexpr int kKBytes = BKV * kQKStride * kQKElem;
-  // The MMA-ready V tile: bf16 [keys][D], or int8 V^T [D][keys] for INT8 PV.
-  // bf16 V is a cp.async target (two stages); a widened tile needs one.
-  static constexpr int kVBytes = VM == V_INT8_PV ? D * kVTStride : BKV * kVStride * 2;
-  static constexpr int kVStages = VM == V_BF16 ? 2 : 1;
-  static constexpr int kV8Bytes = VM == V_BF16 ? 0 : BKV * D;  // int8 V as loaded
+  static constexpr int kVBytes = D * kVTStride;   // the MMA-ready int8 V^T tile [D][keys]
+  static constexpr int kV8Bytes = BKV * D;        // int8 V as loaded
   static constexpr int kSBytes = kInt8 ? BKV * 4 : 0;
   static constexpr int kKPBytes = KPACK ? BKV * D / 2 : 0;     // packed K as loaded
   static constexpr int kQOff = 0;
   static constexpr int kKOff = kQOff + kQBytes;
   static constexpr int kVOff = kKOff + 2 * kKBytes;
-  static constexpr int kV8Off = kVOff + kVStages * kVBytes;
+  static constexpr int kV8Off = kVOff + kVBytes;
   static constexpr int kSOff = kV8Off + 2 * kV8Bytes;
   static constexpr int kQsOff = kSOff + 2 * kSBytes;  // BQ f32 q scales
   static constexpr int kKPOff = kQsOff + BQ * 4;
@@ -250,9 +226,9 @@ using QType = typename std::conditional<
 template <int D>
 constexpr int kMinCtas = D == 64 ? 4 : 3;
 
-template <int D, int QM, int VM, bool KPACK, typename OutT>
+template <int D, int QM, bool KPACK, typename OutT>
 __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const Args args) {
-  using L = Smem<D, QM, VM, KPACK>;
+  using L = Smem<D, QM, KPACK>;
   using QT = QType<QM>;
   constexpr bool kInt8 = L::kInt8;
   using KT = typename std::conditional<kInt8, int8_t, __nv_bfloat16>::type;
@@ -282,8 +258,7 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
   const long long kh = (long long)b * Hk + hk;
   const KT* kg = static_cast<const KT*>(args.k) + kh * Sk * D;
   const unsigned char* kgp = static_cast<const unsigned char*>(args.k) + kh * Sk * kpw;
-  constexpr int kVElem = VM == V_BF16 ? 2 : 1;
-  const unsigned char* vg = static_cast<const unsigned char*>(args.v) + kh * Sk * D * kVElem;
+  const unsigned char* vg = static_cast<const unsigned char*>(args.v) + kh * Sk * D;
   const float* ksg = kInt8 ? args.k_scale + kh * Sk : nullptr;
 
   // ---- prologue: the Q tile into shared memory as MMA-ready codes/values ----
@@ -369,10 +344,7 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
       load_rows<D * sizeof(KT) / 16>(smem + L::kKOff + buf * L::kKBytes, L::kQKStride * sizeof(KT),
                                      reinterpret_cast<const unsigned char*>(kg), D * sizeof(KT), key0, Sk, tid);
     }
-    if constexpr (VM == V_BF16)
-      load_rows<D * 2 / 16>(smem + L::kVOff + buf * L::kVBytes, L::kVStride * 2, vg, D * 2, key0, Sk, tid);
-    else
-      load_rows<D / 16>(smem + L::kV8Off + buf * L::kV8Bytes, D, vg, D, key0, Sk, tid);
+    load_rows<D / 16>(smem + L::kV8Off + buf * L::kV8Bytes, D, vg, D, key0, Sk, tid);
     if constexpr (kInt8) {
       float* Sd = reinterpret_cast<float*>(smem + L::kSOff + buf * L::kSBytes);
       if (tid < BKV) {
@@ -392,21 +364,7 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
       else
         unpack_rows<2, D / 16, L::kQKStride>(src, Kd, tid);
     }
-    if constexpr (VM == V_INT8) {
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(smem + L::kV8Off + buf * L::kV8Bytes);
-      __nv_bfloat16* Vd = reinterpret_cast<__nv_bfloat16*>(smem + L::kVOff);
-      for (int w = tid; w < BKV * D / 4; w += NTHREADS) {
-        const int r = w / (D / 4), c = w % (D / 4);
-        const uint32_t x = src[w];
-        uint2 out;
-        out.x = pack_bf16(__int2bfloat16_rn((int)(int8_t)(x & 0xFF)),
-                          __int2bfloat16_rn((int)(int8_t)((x >> 8) & 0xFF)));
-        out.y = pack_bf16(__int2bfloat16_rn((int)(int8_t)((x >> 16) & 0xFF)),
-                          __int2bfloat16_rn((int)(int8_t)(x >> 24)));
-        *reinterpret_cast<uint2*>(Vd + r * L::kVStride + 4 * c) = out;
-      }
-    } else if constexpr (VM == V_INT8_PV) {
-      // V^T with the keys of each 32-key chunk in the A fragment's slot order.
+    {  // V^T with the keys of each 32-key chunk in the A fragment's slot order.
       const unsigned char* src = smem + L::kV8Off + buf * L::kV8Bytes;
       unsigned char* VT = smem + L::kVOff;
       for (int w = tid; w < D * (BKV / 4); w += NTHREADS) {
@@ -434,10 +392,8 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if constexpr (KPACK || VM != V_BF16) {
-      widen_tile(buf);
-      __syncthreads();
-    }
+    widen_tile(buf);
+    __syncthreads();
 
     const KT* Kt = reinterpret_cast<const KT*>(smem + L::kKOff + buf * L::kKBytes);
     const int key0 = j * BKV;
@@ -487,7 +443,8 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
         }
     }
 
-    // Online softmax in base 2; P rounds to bf16 as in the TPU kernel.
+    // Online softmax in base 2; P rounds to bf16 as in the TPU kernel, then
+    // to p8.
     float m_new[2], alpha[2], shift[2];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
@@ -499,11 +456,10 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
       m_new[hf] = fmaxf(m_run[hf], mx);
       alpha[hf] = exp2f(m_run[hf] - m_new[hf]);
       m_run[hf] = m_new[hf];
-      // INT8 PV folds the x127 requantization of P into the shift.
-      shift[hf] = VM == V_INT8_PV ? m_new[hf] - LOG2_127 : m_new[hf];
+      // The x127 requantization of P is folded into the shift.
+      shift[hf] = m_new[hf] - LOG2_127;
     }
-    // P per n-tile and row half: two bf16 (bf16 PV) or two p8 bytes in the
-    // low 16 bits (INT8 PV).
+    // P per n-tile and row half: two p8 bytes in the low 16 bits.
     uint32_t pa[NT][2];
     float lsum[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -514,17 +470,10 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
         const float d1 = __bfloat162float(__float2bfloat16_rn(s[nt][2 * hf + 1] - shift[hf]));
         const __nv_bfloat16 p0 = __float2bfloat16_rn(exp2f(d0));
         const __nv_bfloat16 p1 = __float2bfloat16_rn(exp2f(d1));
-        if constexpr (VM == V_INT8_PV) {
-          const int c0 = min(__float2int_rz(__bfloat162float(
-                                 __float2bfloat16_rn(__bfloat162float(p0) + 0.5f))), 127);
-          const int c1 = min(__float2int_rz(__bfloat162float(
-                                 __float2bfloat16_rn(__bfloat162float(p1) + 0.5f))), 127);
-          lsum[hf] += (float)(c0 + c1);
-          pa[nt][hf] = (uint32_t)c0 | ((uint32_t)c1 << 8);
-        } else {
-          lsum[hf] += __bfloat162float(p0) + __bfloat162float(p1);
-          pa[nt][hf] = pack_bf16(p0, p1);
-        }
+        const int c0 = min(__float2int_rz(__bfloat162float(__float2bfloat16_rn(__bfloat162float(p0) + 0.5f))), 127);
+        const int c1 = min(__float2int_rz(__bfloat162float(__float2bfloat16_rn(__bfloat162float(p1) + 0.5f))), 127);
+        lsum[hf] += (float)(c0 + c1);
+        pa[nt][hf] = (uint32_t)c0 | ((uint32_t)c1 << 8);
       }
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) l_run[hf] = alpha[hf] * l_run[hf] + lsum[hf];
@@ -536,7 +485,7 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
       acc[dt][3] *= alpha[1];
     }
 
-    if constexpr (VM == V_INT8_PV) {
+    {
       // O += i32(p8 V8): per 32-key chunk, slots 4t..4t+3 hold n-tiles
       // (4c, 4c+1) and slots 16+4t.. hold (4c+2, 4c+3) of this thread's row.
       const unsigned char* VT = smem + L::kVOff;
@@ -559,23 +508,6 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[dt][e] += (float)c[e];
       }
-    } else {
-      // O += P V. The S accumulator layout of n-tiles (2kk, 2kk+1) is the A
-      // fragment of a k16 step; V's B fragments come from ldmatrix.trans.
-      const __nv_bfloat16* Vt = reinterpret_cast<const __nv_bfloat16*>(
-          smem + L::kVOff + (VM == V_BF16 ? buf : 0) * L::kVBytes);
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0], pa[2 * kk + 1][1]};
-        const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, Vt + vrow * L::kVStride + dp * 16 + (lane >> 4) * 8);
-          mma_bf16(acc[2 * dp], a, bv[0], bv[1]);
-          mma_bf16(acc[2 * dp + 1], a, bv[2], bv[3]);
-        }
-      }
     }
     __syncthreads();
   }
@@ -587,7 +519,7 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
     l_run[hf] += __shfl_xor_sync(0xffffffffu, l_run[hf], 2);
   }
   const float* vm = args.v_mean ? args.v_mean + kh * D : nullptr;
-  const float* vs = VM != V_BF16 ? args.v_scale + kh * D : nullptr;
+  const float* vs = args.v_scale + kh * D;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int row = q0 + warp * 16 + g + 8 * hf;
@@ -600,10 +532,8 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
       const int d = dt * 8 + 2 * t;
       float o0 = __fdiv_rn(acc[dt][2 * hf], ls);
       float o1 = __fdiv_rn(acc[dt][2 * hf + 1], ls);
-      if (vs) {
-        o0 = __fmul_rn(o0, vs[d]);
-        o1 = __fmul_rn(o1, vs[d + 1]);
-      }
+      o0 = __fmul_rn(o0, vs[d]);
+      o1 = __fmul_rn(o1, vs[d + 1]);
       if (vm && !empty) {
         o0 += vm[d];
         o1 += vm[d + 1];
@@ -611,18 +541,15 @@ __global__ void __launch_bounds__(NTHREADS, kMinCtas<D>) attn_fwd_kernel(const A
       store2(static_cast<OutT*>(args.o) + obase + d, o0, o1);
     }
     if (args.lse && t == 0) {
-      float l2 = m_run[hf] + log2f(ls);
-      if (VM == V_INT8_PV) l2 -= LOG2_127;
-      args.lse[qh * Sq + row] = empty ? NEG_INIT : l2;
+      args.lse[qh * Sq + row] = empty ? NEG_INIT : m_run[hf] + log2f(ls) - LOG2_127;
     }
   }
 }
 
-template <int D, int QM, int VM, bool KPACK>
+template <int D, int QM, bool KPACK>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr int smem = Smem<D, QM, VM, KPACK>::kTotal;
-  auto kern = a.out_f32 ? attn_fwd_kernel<D, QM, VM, KPACK, float>
-                        : attn_fwd_kernel<D, QM, VM, KPACK, __nv_bfloat16>;
+  constexpr int smem = Smem<D, QM, KPACK>::kTotal;
+  auto kern = a.out_f32 ? attn_fwd_kernel<D, QM, KPACK, float> : attn_fwd_kernel<D, QM, KPACK, __nv_bfloat16>;
   const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
@@ -631,31 +558,21 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 }
 
 // Packed K is an INT8-QK mode; the fp mode takes bf16 K only.
-template <int D, int QM, int VM>
+template <int D, int QM>
 int dispatch_k(const Args& a, int B, cudaStream_t st) {
   if constexpr (QM != Q_FP) {
-    if (a.k_bits < 8) return launch<D, QM, VM, true>(a, B, st);
+    if (a.k_bits < 8) return launch<D, QM, true>(a, B, st);
   }
-  return launch<D, QM, VM, false>(a, B, st);
-}
-
-template <int D, int QM>
-int dispatch_v(int v_mode, const Args& a, int B, cudaStream_t st) {
-  switch (v_mode) {
-    case V_BF16: return dispatch_k<D, QM, V_BF16>(a, B, st);
-    case V_INT8: return dispatch_k<D, QM, V_INT8>(a, B, st);
-    case V_INT8_PV: return dispatch_k<D, QM, V_INT8_PV>(a, B, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch<D, QM, false>(a, B, st);
 }
 
 template <int D>
-int dispatch_q(int q_mode, int v_mode, const Args& a, int B, cudaStream_t st) {
+int dispatch_q(int q_mode, const Args& a, int B, cudaStream_t st) {
   switch (q_mode) {
-    case Q_INT8: return dispatch_v<D, Q_INT8>(v_mode, a, B, st);
-    case Q_FUSED_BF16: return dispatch_v<D, Q_FUSED_BF16>(v_mode, a, B, st);
-    case Q_FUSED_F32: return dispatch_v<D, Q_FUSED_F32>(v_mode, a, B, st);
-    case Q_FP: return dispatch_v<D, Q_FP>(v_mode, a, B, st);
+    case Q_INT8: return dispatch_k<D, Q_INT8>(a, B, st);
+    case Q_FUSED_BF16: return dispatch_k<D, Q_FUSED_BF16>(a, B, st);
+    case Q_FUSED_F32: return dispatch_k<D, Q_FUSED_F32>(a, B, st);
+    case Q_FP: return dispatch_k<D, Q_FP>(a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -666,12 +583,14 @@ int dispatch_q(int q_mode, int v_mode, const Args& a, int B, cudaStream_t st) {
 //   q: [B, H, Sq, D] int8 codes (q_mode 0), bf16 (1, 3) or f32 (2).
 //   k: q_mode 0-2: [B, Hk, Sk, D*k_bits/8] int8, codes (k_bits 8) or packed
 //      INT4 (4) / INT2 (2) codes; q_mode 3: [B, Hk, Sk, D] bf16 (k_bits 16).
-//   v: [B, Hk, Sk, D] bf16 (v_mode 0) or int8 codes (v_mode 1: bf16 PV,
-//      v_mode 2: INT8 PV), with v_scale [B, Hk, D] f32 for v_mode 1-2.
+//   v: [B, Hk, Sk, D] int8 codes with v_scale [B, Hk, D] f32 (v_mode 2,
+//      INT8 PV: the only V mode this kernel runs).
 //   q_scale: [B, H, Sq] f32, already times sm_scale*log2e (q_mode 0 only).
 //   k_scale: [B, Hk, Sk] f32 (q_mode 0-2).   v_mean: [B, Hk, D] f32 or null.
 //   o: [B, H, Sq, D] bf16 (out_f32 = 0) or f32.   lse: [B, H, Sq] f32 (base 2) or null.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for an unsupported D/mode).
+// The same arguments as lowbit_attn_fwd_wgmma, which runs every other mode.
+// Returns cudaGetLastError() (cudaErrorInvalidValue for an unsupported D or
+// mode).
 extern "C" int lowbit_attn_fwd(const void* q, const void* k, const void* v, const float* q_scale,
                                const float* k_scale, const float* v_scale, const float* v_mean,
                                void* o, float* lse, int B, int H, int Hk, int Sq, int Sk, int D,
@@ -679,10 +598,10 @@ extern "C" int lowbit_attn_fwd(const void* q, const void* k, const void* v, cons
                                float sm_scale_log2e, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool k_ok = q_mode == Q_FP ? k_bits == 16 : (k_bits == 8 || k_bits == 4 || k_bits == 2);
-  if (!k_ok || (v_mode != V_BF16 && v_scale == nullptr)) return (int)cudaErrorInvalidValue;
+  if (!k_ok || v_mode != 2 || v_scale == nullptr) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, q_scale, k_scale, v_scale, v_mean, o, lse,
                H, Hk, Sq, Sk, causal, k_bits, out_f32, sm_scale_log2e};
-  if (D == 64) return dispatch_q<64>(q_mode, v_mode, a, B, st);
-  if (D == 128) return dispatch_q<128>(q_mode, v_mode, a, B, st);
+  if (D == 64) return dispatch_q<64>(q_mode, a, B, st);
+  if (D == 128) return dispatch_q<128>(q_mode, a, B, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,652 @@
+// Kernel A on Hopper's own machinery: FlashAttention-2 forward with INT8,
+// packed INT4/INT2 or bf16 QK and bf16 PV, by TMA, wgmma and warp
+// specialisation.
+//
+// Replaces the TPU kernel lowbit_quant_fa2_paddle_tpu/ops/attention.py:
+// _attn_body_km (launched by lowbit_attention_km, pallas_call at :1491 and
+// :1502) for every mode but INT8 PV: INT8 Q codes with per-row scales, or
+// bf16/f32 Q quantized per row in the prologue; INT8 K codes, or K packed two
+// (INT4, halves of D) or four (INT2, quarters of D) codes per byte, with
+// per-row scales; or bf16 Q/K (fp mode); bf16 V, or per-channel INT8 V codes
+// widened to bf16 exactly with a v_scale epilogue; an optional v_mean; bf16
+// or f32 output; causal (top-left aligned) or not; GQA; any Sq, Sk; base-2
+// LSE out; head_dim 64 or 128. These are the DiT's int8, fp, int4 and
+// int8_v8 impls, the LLM prefill and the training forward. INT8 PV stays on
+// the mma.sync kernel of attention_fwd.cu; the wrapper picks by mode.
+//
+// Arithmetic, bit for bit that of attention_fwd.cu over KV tiles of BKV keys:
+//   s  = (f32(i32 Q8 K8^T) * k_scale) * q_scale   q_scale holds sm_scale*log2e
+//   s  = f32(Qbf Kbf^T) * sm_scale*log2e          fp mode
+//   masked s = MASK_VALUE;  m' = max(m, rowmax s)
+//   P = bf16(exp2(bf16(s - m')));  l = 2^(m-m') l + sum P;  acc = 2^(m-m') acc + P V
+//   o = acc / l (* v_scale) (+ v_mean where l > 0);  lse2 = m + log2 l, or -1e30 where l == 0
+//
+// Bound on the H100: the tensor cores (4*D operations per (q, k) pair), and
+// at d64 as much the per-pair softmax chain: 11-14 instructions issued per
+// pair, one exp2 on the 16-per-clock MUFU pipe, and latency between its
+// dependent steps. The chain is cut to what the rounding needs: s - m' and
+// P round two at a time by cvt.rn.bf16x2.f32 (not integer rounding, not
+// F2F one at a time), exp2 is ex2.approx.ftz (see ex2), and the s32 -> f32
+// conversion is I2FP (measured faster here than the exact bit trick
+// i2f_exact, which the widening of INT8 V uses).
+//
+// Design: one CTA per (64 x NWG q rows, head, batch) of NWG consumer
+// warpgroups (3 at d64, 2 at d128) and one producer warpgroup, which gives
+// its registers away (setmaxnreg). Its first thread keeps a ring of STAGES
+// K/V tiles in flight by TMA from 3-D tensor maps [B*Hk, Sk, row] (rows past
+// Sk arrive as zeros, so V's never bring a neighbour's NaN), with full/empty
+// mbarriers, and its threads copy the tile's K scales (a head's row of Sk
+// f32 need not start on the 16 bytes TMA wants). K and V land in swizzled
+// shared memory (128-byte swizzle for rows of 128 bytes, 64-byte for int8
+// d64 rows; bf16 d128 in two 64-column halves). Packed K and INT8 V arrive
+// as they lie in memory in a staging ring, and the producer warpgroup
+// widens them into those tiles (per-byte sign extension of the nibbles or
+// 2-bit fields; int8 to bf16 through the bits of 1.5*2^23 + c), so the
+// consumers run the same loop in every mode. Each consumer warpgroup owns
+// 64 query rows; its Q rows are loaded (or quantized) once into swizzled
+// shared memory. S = Q K^T comes from wgmma with both operands in shared
+// memory (m64n128k32 s8 or m64n128k16 bf16); the softmax runs on the
+// accumulator in registers; P goes to bf16 in registers and is the A operand
+// of O += P V (m64nDk16, V MN-major from shared memory). The warpgroups take
+// turns on named barriers: each issues S of tile j+1 and PV of tile j as two
+// groups, and runs the softmax of tile j+1 as soon as S is in, under its own
+// PV and the others' products. Causal CTAs are launched heaviest first and stop their KV loop at the
+// diagonal; only diagonal and ragged tiles are masked. QK's type and the
+// staging ring are template parameters (4 kernels per head_dim); the Q, K
+// and V formats and the output type are read at run time.
+
+#include <type_traits>
+
+#include "sm90.cuh"
+
+namespace {
+
+using namespace sm90;
+
+constexpr int BKV = 128;  // keys per tile
+// Consumer warpgroups per CTA, each owning 64 query rows: three at d64 (more
+// softmax warps to hide its latency), two at d128 (the registers of a
+// 64 x 128 O accumulator).
+template <int D>
+constexpr int kNWG = D == 64 ? 3 : 2;
+constexpr float MASK_VALUE = (float)(-0.7 * 3.4028234663852886e38);
+constexpr float NEG_INIT = -1e30f;
+// Named barriers: 1 .. NWG order the consumer warpgroups' products, NWG + 1
+// .. 2 NWG close each one's Q prologue (0 is __syncthreads).
+constexpr int kBarTurn = 1;
+
+enum QMode { Q_INT8 = 0, Q_FUSED_BF16 = 1, Q_FUSED_F32 = 2, Q_FP = 3 };
+
+struct Args {
+  const void* q;
+  const float* q_scale;
+  const float* k_scale;
+  const float* v_scale;
+  const float* v_mean;
+  void* o;
+  float* lse;
+  int H, Hk, Sq, Sk, causal, q_mode, k_bits, v_int8, out_f32;
+  float sm_scale_log2e;
+};
+
+// Shared memory: STAGES K tiles, STAGES V tiles, the Q tile (all 1024-byte
+// aligned), with kStaged the STAGES staging tiles of packed K and of INT8 V,
+// then STAGES K-scale tiles, the Q row scales and the mbarriers.
+template <int D, bool kInt8, bool kStaged>
+struct Layout {
+  static constexpr int BQ = 64 * kNWG<D>;  // query rows per CTA
+  static constexpr int kRowBytes = D * (kInt8 ? 1 : 2);  // bytes of a Q/K row
+  static constexpr int kSw = kRowBytes >= 128 ? 128 : 64;  // swizzle width = bytes per row of a column block
+  static constexpr int kQBytes = BQ * kRowBytes;  // Q, NWG x 64 rows
+  static constexpr int kKBytes = BKV * kRowBytes;
+  static constexpr int kVBytes = BKV * D * 2;
+  static constexpr int kPBytes = kStaged && kInt8 ? BKV * D / 2 : 0;  // packed K as loaded (INT4 at most)
+  static constexpr int kV8Bytes = kStaged ? BKV * D : 0;                // INT8 V as loaded
+  static constexpr int kSBytes = kInt8 ? BKV * 4 : 0;
+  static constexpr int kStageBytes = kKBytes + kVBytes + kPBytes + kV8Bytes + kSBytes;
+  static constexpr int kFixed = kQBytes + BQ * 4 + 9 * 8 + 1024;  // + barriers + alignment slack
+  static constexpr int kStages = 3 * kStageBytes + kFixed <= 232448 ? 3 : 2;
+  static constexpr int kKOff = 0;
+  static constexpr int kVOff = kKOff + kStages * kKBytes;
+  static constexpr int kQOff = kVOff + kStages * kVBytes;
+  static constexpr int kPOff = kQOff + kQBytes;
+  static constexpr int kV8Off = kPOff + kStages * kPBytes;
+  static constexpr int kSOff = kV8Off + kStages * kV8Bytes;
+  static constexpr int kQsOff = kSOff + kStages * kSBytes;
+  static constexpr int kBarOff = kQsOff + BQ * 4;
+  static constexpr int kTotal = kBarOff + 3 * kStages * 8;
+};
+
+__device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Per-byte sign extension of the 4-bit (2-bit) field at the bottom of each
+// byte of w.
+__device__ __forceinline__ uint32_t sext4(uint32_t w) { return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u); }
+__device__ __forceinline__ uint32_t sext2(uint32_t w) { return __vsub4((w & 0x03030303u) ^ 0x02020202u, 0x02020202u); }
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// f32(c) for |c| < 2^22 on the integer and FMA pipes: the bits of
+// 1.5*2^23 + c, minus 1.5*2^23 (both steps exact).
+__device__ __forceinline__ float i2f_exact(int c) { return __int_as_float(c + 0x4B400000) - 12582912.0f; }
+
+// bf16x2 of the int8 codes in bytes K and K + 1 of w (exact: |c| <= 128):
+// each code converted through the bits of 1.5*2^23 + c, the two upper
+// halves packed by a byte permute.
+template <int K>
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w) {
+  const float lo = i2f_exact((int)(int8_t)(w >> (8 * K)));
+  const float hi = i2f_exact((int)(int8_t)(w >> (8 * K + 8)));
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Widen one staged tile of packed K (BITS 4 or 2) into the int8 K tile of
+// swizzled rows of SW bytes, one of 128 producer threads: code p of byte i
+// of a packed row goes to column p * (row bytes) + i.
+template <int BITS, int D, int SW>
+__device__ __forceinline__ void widen_k(const uint32_t* src, unsigned char* Kt, int ptid) {
+  constexpr int RB = D * BITS / 8, WPR = RB / 4;
+#pragma unroll
+  for (int i = 0; i < BKV * WPR / 128; ++i) {
+    const int w = ptid + 128 * i;
+    const int r = w / WPR, col = 4 * (w % WPR);
+    const uint32_t x = src[w];
+#pragma unroll
+    for (int p = 0; p < 8 / BITS; ++p)
+      *reinterpret_cast<uint32_t*>(Kt + swizzle_offset<SW>(r * SW + p * RB + col)) =
+          BITS == 4 ? sext4(x >> (4 * p)) : sext2(x >> (2 * p));
+  }
+}
+
+// Widen one staged tile of INT8 V codes into the bf16 V tile (64-column
+// halves of swizzled 128-byte rows), one of 128 producer threads.
+template <int D>
+__device__ __forceinline__ void widen_v(const uint2* src, unsigned char* Vt, int ptid) {
+#pragma unroll
+  for (int i = 0; i < BKV * D / 8 / 128; ++i) {
+    const int w = ptid + 128 * i;
+    const int r = w / (D / 8), col = 8 * (w % (D / 8));
+    const uint2 x = src[w];
+    *reinterpret_cast<uint4*>(Vt + (col / 64) * BKV * 128 + swizzle_offset<128>(r * 128 + (col % 64) * 2)) =
+        make_uint4(i8x2_to_bf16x2<0>(x.x), i8x2_to_bf16x2<2>(x.x), i8x2_to_bf16x2<0>(x.y), i8x2_to_bf16x2<2>(x.y));
+  }
+}
+
+// Two f32 to bf16x2 (lo in the low half), round to nearest even.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ float bf16_lo(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t p) { return __uint_as_float(p & 0xFFFF0000u); }
+
+// 2^x on the MUFU pipe alone. exp2f adds a range fix-up (a compare and two
+// multiplies) for results below 2^-126, which this flushes to 0 instead:
+// a P that small is below half a bf16 ulp of every row sum it joins.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D, bool kInt8, bool kStaged>
+__global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
+    attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
+                          const Args args) {
+  using L = Layout<D, kInt8, kStaged>;
+  constexpr int S = L::kStages;
+  constexpr int kSw = L::kSw;
+  using SAcc = typename std::conditional<kInt8, int, float>::type;
+  constexpr int NWG = kNWG<D>, BQ = L::BQ;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+  uint64_t* empty = full + S;
+  uint64_t* staged = empty + S;  // the staging ring's TMA loads (kStaged)
+
+  const int H = args.H, Hk = args.Hk, Sq = args.Sq, Sk = args.Sk;
+  const bool causal = args.causal != 0;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int qb = causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = b * Hk + h / (H / Hk);
+  const int q0 = qb * BQ;
+  const int nkv = (Sk + BKV - 1) / BKV;
+  const int n_tiles = causal ? min(nkv, (q0 + BQ + BKV - 1) / BKV) : nkv;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      // Arrivals: the TMA thread's, then those of the threads that copy K
+      // scales (the first warp) or widen staged tiles (the warpgroup).
+      mbar_init(&full[s], kStaged ? 1 + 128 : kInt8 ? 1 + 32 : 1);
+      mbar_init(&empty[s], 4 * NWG);  // lane 0 of each consumer warp
+      mbar_init(&staged[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {
+    // ---- producer ----
+    setmaxnreg_dec<NWG == 2 ? 40 : 32>();
+    const int ptid = threadIdx.x - 128 * NWG;
+    const float* ksg = kInt8 ? args.k_scale + (long long)kh * Sk : nullptr;
+    // Packed K (k_bits 4 or 2) and INT8 V come through the staging ring.
+    const int k_bits = args.k_bits;
+    const bool k_packed = kStaged && kInt8 && k_bits < 8, v_int8 = kStaged && args.v_int8 != 0;
+    const int pk_row = D * k_bits / 8;  // bytes of a packed K row
+    if (ptid == 0) {
+      tma_prefetch_desc(&k_map);
+      tma_prefetch_desc(&v_map);
+    }
+    if (kStaged || ptid < 32) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % S;
+        const int key0 = j * BKV;
+        const uint32_t parity = (j / S) & 1;
+        mbar_wait(&empty[st], parity ^ 1);
+        unsigned char* Kt = smem + L::kKOff + st * L::kKBytes;
+        unsigned char* Vt = smem + L::kVOff + st * L::kVBytes;
+        if (ptid == 0) {
+          mbar_arrive_expect_tx(&full[st], (k_packed ? 0 : L::kKBytes) + (v_int8 ? 0 : L::kVBytes));
+          if (kStaged) mbar_arrive_expect_tx(&staged[st], (k_packed ? BKV * pk_row : 0) + (v_int8 ? BKV * D : 0));
+          if (k_packed) {
+            tma_load_3d(smem + L::kPOff + st * L::kPBytes, &k_map, &staged[st], 0, key0, kh);
+          } else {
+#pragma unroll
+            for (int c = 0; c < L::kRowBytes / kSw; ++c)
+              tma_load_3d(Kt + c * BKV * kSw, &k_map, &full[st], c * kSw / (kInt8 ? 1 : 2), key0, kh);
+          }
+          if (v_int8) {
+            tma_load_3d(smem + L::kV8Off + st * L::kV8Bytes, &v_map, &staged[st], 0, key0, kh);
+          } else {
+#pragma unroll
+            for (int c = 0; c < D / 64; ++c) tma_load_3d(Vt + c * BKV * 128, &v_map, &full[st], c * 64, key0, kh);
+          }
+        }
+        if constexpr (kInt8) {
+          float* ks_t = reinterpret_cast<float*>(smem + L::kSOff + st * L::kSBytes);
+          for (int i = ptid; i < BKV; i += kStaged ? 128 : 32) ks_t[i] = key0 + i < Sk ? ksg[key0 + i] : 0.0f;
+        }
+        if constexpr (kStaged) {
+          mbar_wait(&staged[st], parity);
+          if constexpr (kInt8) {
+            const uint32_t* pk_src = reinterpret_cast<const uint32_t*>(smem + L::kPOff + st * L::kPBytes);
+            if (k_packed && k_bits == 4) widen_k<4, D, kSw>(pk_src, Kt, ptid);
+            if (k_packed && k_bits == 2) widen_k<2, D, kSw>(pk_src, Kt, ptid);
+          }
+          if (v_int8) widen_v<D>(reinterpret_cast<const uint2*>(smem + L::kV8Off + st * L::kV8Bytes), Vt, ptid);
+          fence_proxy_async();
+        }
+        if (kStaged || kInt8) mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns CTA rows 64*wg .. 64*wg + 63 ----
+    setmaxnreg_inc<NWG == 2 ? 232 : 160>();
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_base = 64 * wg;
+    unsigned char* Qs = smem + L::kQOff;
+    float* qs_s = reinterpret_cast<float*>(smem + L::kQsOff);
+    const long long qh = (long long)b * H + h;
+    const float sm_scale_log2e = args.sm_scale_log2e;
+
+    // Q tile into swizzled shared memory: codes/values as they lie, or
+    // quantized per row (the TPU kernel's fused_quant_q):
+    // scale = fma(amax, 1/127, 1e-7), code = clamp(roundf(q / scale)), and
+    // the row scale carries sm_scale * log2(e).
+    if (!kInt8 || args.q_mode == Q_INT8) {
+      const unsigned char* qg = static_cast<const unsigned char*>(args.q) + qh * Sq * L::kRowBytes;
+      constexpr int CPR = L::kRowBytes / 16;
+      for (int c = tid; c < 64 * CPR; c += 128) {
+        const int r = r_base + c / CPR, byte = (c % CPR) * 16;
+        int4 val = make_int4(0, 0, 0, 0);
+        if (q0 + r < Sq) val = *reinterpret_cast<const int4*>(qg + (long long)(q0 + r) * L::kRowBytes + byte);
+        *reinterpret_cast<int4*>(Qs + (byte / kSw) * BQ * kSw + swizzle_offset<kSw>(r * kSw + byte % kSw)) = val;
+      }
+      if (kInt8 && tid < 64)
+        qs_s[r_base + tid] = q0 + r_base + tid < Sq ? args.q_scale[qh * Sq + q0 + r_base + tid] : 0.0f;
+    } else {
+      constexpr int E = D / 32;  // contiguous elements per lane
+      const bool q_f32 = args.q_mode == Q_FUSED_F32;
+      for (int rr = 0; rr < 16; ++rr) {
+        const int r = r_base + warp * 16 + rr;
+        const bool ok = q0 + r < Sq;
+        const long long at = (qh * Sq + q0 + r) * D + lane * E;
+        float x[E];
+        float amax = 0.0f;
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          x[i] = !ok    ? 0.0f
+                 : q_f32 ? static_cast<const float*>(args.q)[at + i]
+                         : __bfloat162float(static_cast<const __nv_bfloat16*>(args.q)[at + i]);
+          amax = fmaxf(amax, fabsf(x[i]));
+        }
+        const float sc = __fmaf_rn(warp_max(amax), 1.0f / 127.0f, 1e-7f);
+        uint32_t packed = 0;
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          const float c = fminf(fmaxf(roundf(__fdiv_rn(x[i], sc)), -127.0f), 127.0f);
+          packed |= (uint32_t)(uint8_t)(int8_t)c << (8 * i);
+        }
+        const int byte = lane * E;
+        unsigned char* dst = Qs + (byte / kSw) * BQ * kSw + swizzle_offset<kSw>(r * kSw + byte % kSw);
+        if constexpr (E == 2)
+          *reinterpret_cast<uint16_t*>(dst) = (uint16_t)packed;
+        else
+          *reinterpret_cast<uint32_t*>(dst) = packed;
+        if (lane == 0) qs_s[r] = __fmul_rn(sc, sm_scale_log2e);
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync(kBarTurn + NWG + wg, 128);
+    float qsc[2] = {0.0f, 0.0f};
+    if constexpr (kInt8) {
+      qsc[0] = qs_s[r_base + warp * 16 + g];
+      qsc[1] = qs_s[r_base + warp * 16 + g + 8];
+    }
+
+    const uint32_t q_addr = smem_u32(Qs) + r_base * kSw;
+    const uint32_t k_addr = smem_u32(smem + L::kKOff);
+    const uint32_t v_addr = smem_u32(smem + L::kVOff);
+    constexpr int KSTEPS = L::kRowBytes / 32;  // 32 bytes of K depth per product
+
+    SAcc sacc[BKV / 2];
+    float oacc[D / 2];
+    uint32_t pk[BKV / 8][2];  // P as bf16x2: [8-key column tile][row g, row g + 8]
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < BKV / 8; ++i) pk[i][0] = pk[i][1] = 0u;
+    float m_run[2] = {NEG_INIT, NEG_INIT};
+    float l_run[2] = {0.0f, 0.0f};  // per-thread partial row sums
+
+    auto issue_s = [&](int st) {
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        const int byte = ks * 32, chunk = byte / kSw, in = byte % kSw;
+        const uint64_t da = make_desc(q_addr + chunk * BQ * kSw + in, 16, 8 * kSw, kSw);
+        const uint64_t db = make_desc(k_addr + st * L::kKBytes + chunk * BKV * kSw + in, 16, 8 * kSw, kSw);
+        if constexpr (kInt8) {
+          if (ks == 0)
+            wgmma_m64n128k32_s32_s8_ss_init(sacc, da, db);
+          else
+            wgmma_m64n128k32_s32_s8_ss(sacc, da, db, 1);
+        } else {
+          if (ks == 0)
+            wgmma_m64n128k16_f32_bf16_ss_init(sacc, da, db);
+          else
+            wgmma_m64n128k16_f32_bf16_ss(sacc, da, db, 1);
+        }
+      }
+    };
+    auto issue_pv = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
+        // 16 keys of V: rows of 128 bytes, 8-key groups 1024 bytes apart,
+        // 64-column halves BKV * 128 bytes apart.
+        const uint64_t db = make_desc(v_addr + st * L::kVBytes + kk * 16 * 128, BKV * 128, 1024, 128);
+        if constexpr (D == 64)
+          wgmma_m64n64k16_f32_bf16_rs(oacc, a, db, 1);
+        else
+          wgmma_m64n128k16_f32_bf16_rs(oacc, a, db, 1);
+      }
+    };
+    // After wgmma_wait<1>: S is in; after wgmma_wait<0>: so is O, and P's
+    // registers are free.
+    auto s_ready = [&]() {
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) pin(sacc[i]);
+    };
+    auto o_ready = [&]() {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) pin(oacc[i]);
+#pragma unroll
+      for (int i = 0; i < BKV / 8; ++i) pin(pk[i][0]), pin(pk[i][1]);
+    };
+
+    // The softmax of tile j (in ring stage st) in two halves. The first
+    // needs only the S accumulator: s, m, alpha and P (as f32 of bf16
+    // values, in s) while the previous tile's PV product may still run. The
+    // second packs P into pk and rescales O and l, once that product is done.
+    float s[BKV / 2];
+    float alpha[2];
+    auto softmax_s = [&](int j, int st) {
+      const int key0 = j * BKV;
+      if constexpr (kInt8) {
+        const float* ks_t = reinterpret_cast<const float*>(smem + L::kSOff + st * L::kSBytes);
+#pragma unroll
+        for (int nt = 0; nt < BKV / 8; ++nt) {
+          const float2 k2 = *reinterpret_cast<const float2*>(ks_t + nt * 8 + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * nt + e] = __fmul_rn(__fmul_rn((float)sacc[4 * nt + e], (e & 1) ? k2.y : k2.x), qsc[e >> 1]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) s[i] = __fmul_rn(sacc[i], sm_scale_log2e);
+      }
+      const int row_lo = q0 + r_base + warp * 16;
+      if ((causal && key0 + BKV - 1 > row_lo) || key0 + BKV > Sk) {
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) {
+          const int col = key0 + (i / 4) * 8 + 2 * t + (i & 1);
+          const int row = row_lo + g + 8 * ((i >> 1) & 1);
+          if (col >= Sk || (causal && col > row)) s[i] = MASK_VALUE;
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float m4[4];  // four independent chains, not one of 32
+#pragma unroll
+        for (int c = 0; c < 4; ++c) m4[c] = fmaxf(s[4 * c + 2 * hf], s[4 * c + 2 * hf + 1]);
+#pragma unroll
+        for (int nt = 4; nt < BKV / 8; ++nt)
+          m4[nt & 3] = fmaxf(m4[nt & 3], fmaxf(s[4 * nt + 2 * hf], s[4 * nt + 2 * hf + 1]));
+        float mx = fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[hf], mx);
+        alpha[hf] = ex2(m_run[hf] - m_new);
+        m_run[hf] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < BKV / 8; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float& s0 = s[4 * nt + 2 * hf];
+          float& s1 = s[4 * nt + 2 * hf + 1];
+          const uint32_t dd = pack_bf16x2(s0 - m_run[hf], s1 - m_run[hf]);
+          s0 = ex2(bf16_lo(dd));
+          s1 = ex2(bf16_hi(dd));
+        }
+    };
+    auto softmax_o = [&]() {
+      float lsum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int nt = 0; nt < BKV / 8; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const uint32_t p = pack_bf16x2(s[4 * nt + 2 * hf], s[4 * nt + 2 * hf + 1]);
+          pk[nt][hf] = p;
+          lsum[hf] += bf16_lo(p) + bf16_hi(p);
+        }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) l_run[hf] = alpha[hf] * l_run[hf] + lsum[hf];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    };
+
+    // Turns: warpgroup 0 goes first, then 1, ...; each block of products of
+    // one warpgroup is followed by one of the next. The last warpgroup skips
+    // its last hand-over, so every arrival meets a wait. A block issues S of
+    // the next tile, then PV of this one, as two groups: the next softmax
+    // starts once S is in, under PV.
+    const int bar_mine = kBarTurn + wg, bar_other = kBarTurn + (wg + 1) % NWG;
+    if (wg == NWG - 1) named_bar_arrive(kBarTurn, 256);
+    mbar_wait(&full[0], 0);
+    named_bar_sync(bar_mine, 256);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    named_bar_arrive(bar_other, 256);
+    wgmma_wait<0>();
+    s_ready();
+    softmax_s(0, 0);
+    softmax_o();
+    // The last tile is peeled off so that no product is issued, and no
+    // accumulator written, on a path the compiler cannot prove uniform.
+    for (int j = 0; j + 1 < n_tiles; ++j) {
+      const int st = j % S, st1 = (j + 1) % S;
+      mbar_wait(&full[st1], ((j + 1) / S) & 1);
+      named_bar_sync(bar_mine, 256);
+      wgmma_fence();
+      issue_s(st1);
+      wgmma_commit();
+      issue_pv(st);
+      wgmma_commit();
+      named_bar_arrive(bar_other, 256);
+      wgmma_wait<1>();
+      s_ready();
+      softmax_s(j + 1, st1);
+      wgmma_wait<0>();
+      o_ready();
+      if (lane == 0) mbar_arrive(&empty[st]);
+      softmax_o();
+    }
+    named_bar_sync(bar_mine, 256);
+    wgmma_fence();
+    issue_pv((n_tiles - 1) % S);
+    wgmma_commit();
+    if (wg != NWG - 1) named_bar_arrive(bar_other, 256);
+    wgmma_wait<0>();
+    o_ready();
+
+    // ---- epilogue ----
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      l_run[hf] += __shfl_xor_sync(0xffffffffu, l_run[hf], 1);
+      l_run[hf] += __shfl_xor_sync(0xffffffffu, l_run[hf], 2);
+    }
+    const float* vm = args.v_mean ? args.v_mean + (long long)kh * D : nullptr;
+    const float* vs = args.v_int8 ? args.v_scale + (long long)kh * D : nullptr;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + r_base + warp * 16 + g + 8 * hf;
+      if (row >= Sq) continue;
+      const bool empty_row = l_run[hf] == 0.0f;
+      const float ls = empty_row ? 1.0f : l_run[hf];
+      const long long obase = (qh * Sq + row) * D;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const int d = dt * 8 + 2 * t;
+        float o0 = __fdiv_rn(oacc[4 * dt + 2 * hf], ls);
+        float o1 = __fdiv_rn(oacc[4 * dt + 2 * hf + 1], ls);
+        if (vs) {
+          o0 = __fmul_rn(o0, vs[d]);
+          o1 = __fmul_rn(o1, vs[d + 1]);
+        }
+        if (vm && !empty_row) {
+          o0 += vm[d];
+          o1 += vm[d + 1];
+        }
+        if (args.out_f32)
+          store2(static_cast<float*>(args.o) + obase + d, o0, o1);
+        else
+          store2(static_cast<__nv_bfloat16*>(args.o) + obase + d, o0, o1);
+      }
+      if (args.lse && t == 0) args.lse[qh * Sq + row] = empty_row ? NEG_INIT : m_run[hf] + log2f(ls);
+    }
+  }
+}
+
+// K's and V's tensor maps as the kernel loads them: int8 / bf16 rows into
+// swizzled tiles, packed K and INT8 V rows as they lie into the staging ring.
+template <int D, bool kInt8, bool kStaged>
+int launch(const Args& a, const void* k, const void* v, int B, cudaStream_t stream) {
+  using L = Layout<D, kInt8, kStaged>;
+  const cuuint64_t rows = (cuuint64_t)B * a.Hk, sk = (cuuint64_t)a.Sk;
+  const bool k_packed = kInt8 && a.k_bits < 8;
+  CUtensorMap k_map, v_map;
+  bool ok;
+  if (k_packed) {
+    const cuuint32_t rb = D * a.k_bits / 8;
+    const cuuint64_t dims[3] = {rb, sk, rows}, strides[2] = {rb, sk * rb};
+    const cuuint32_t box[3] = {rb, BKV, 1};
+    ok = make_tensor_map(&k_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, k, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    const cuuint64_t dims[3] = {D, sk, rows}, strides[2] = {L::kRowBytes, sk * L::kRowBytes};
+    const cuuint32_t box[3] = {L::kSw / (kInt8 ? 1 : 2), BKV, 1};
+    ok = make_tensor_map(&k_map, kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, k, dims,
+                         strides, box, L::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+  }
+  if (a.v_int8) {
+    const cuuint64_t dims[3] = {D, sk, rows}, strides[2] = {D, sk * D};
+    const cuuint32_t box[3] = {D, BKV, 1};
+    ok = ok && make_tensor_map(&v_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, v, dims, strides, box,
+                               CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    const cuuint64_t dims[3] = {D, sk, rows}, strides[2] = {D * 2, sk * D * 2};
+    const cuuint32_t box[3] = {64, BKV, 1};
+    ok = ok && make_tensor_map(&v_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, dims, strides, box,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  auto kern = attn_fwd_wgmma_kernel<D, kInt8, kStaged>;
+  constexpr int smem = L::kTotal + 1024;
+  const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.Sq + L::BQ - 1) / L::BQ, a.H, B);
+  kern<<<grid, 128 * (kNWG<D> + 1), smem, stream>>>(k_map, v_map, a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int dispatch(const Args& a, const void* k, const void* v, int B, cudaStream_t st) {
+  const bool staged = a.k_bits < 8 || a.v_int8;
+  if (a.q_mode == Q_FP)
+    return staged ? launch<D, false, true>(a, k, v, B, st) : launch<D, false, false>(a, k, v, B, st);
+  return staged ? launch<D, true, true>(a, k, v, B, st) : launch<D, true, false>(a, k, v, B, st);
+}
+
+}  // namespace
+
+// All tensors contiguous, natural layout, 16-byte aligned.
+//   q: [B, H, Sq, D] int8 codes (q_mode 0), bf16 (1, 3) or f32 (2).
+//   k: q_mode 0-2: [B, Hk, Sk, D*k_bits/8] int8, codes (k_bits 8) or packed
+//      INT4 (4) / INT2 (2) codes; q_mode 3: [B, Hk, Sk, D] bf16 (k_bits 16).
+//   v: [B, Hk, Sk, D] bf16 (v_mode 0) or int8 codes (v_mode 1, bf16 PV) with
+//      v_scale [B, Hk, D] f32.
+//   q_scale: [B, H, Sq] f32, already times sm_scale*log2e (q_mode 0 only).
+//   k_scale: [B, Hk, Sk] f32 (q_mode 0-2).   v_mean: [B, Hk, D] f32 or null.
+//   o: [B, H, Sq, D] bf16 (out_f32 = 0) or f32.   lse: [B, H, Sq] f32 (base 2) or null.
+// The same arguments as lowbit_attn_fwd. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for an unsupported D or mode, INT8 PV included, or
+// a tensor map the driver refuses).
+extern "C" int lowbit_attn_fwd_wgmma(const void* q, const void* k, const void* v, const float* q_scale,
+                                     const float* k_scale, const float* v_scale, const float* v_mean, void* o,
+                                     float* lse, int B, int H, int Hk, int Sq, int Sk, int D, int q_mode, int k_bits,
+                                     int v_mode, int out_f32, int causal, float sm_scale_log2e, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool k_ok = q_mode == Q_FP ? k_bits == 16 : (k_bits == 8 || k_bits == 4 || k_bits == 2);
+  if (!k_ok || q_mode < Q_INT8 || q_mode > Q_FP || v_mode < 0 || v_mode > 1 || (v_mode == 1 && v_scale == nullptr) ||
+      (q_mode != Q_FP && k_scale == nullptr) || (q_mode == Q_INT8 && q_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, q_scale, k_scale, v_scale, v_mean, o, lse, H, Hk, Sq, Sk, causal, q_mode, k_bits, v_mode, out_f32,
+               sm_scale_log2e};
+  if (D == 64) return dispatch<64>(a, k, v, B, st);
+  if (D == 128) return dispatch<128>(a, k, v, B, st);
+  return (int)cudaErrorInvalidValue;
+}

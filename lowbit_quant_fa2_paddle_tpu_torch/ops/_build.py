@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
 Every ``csrc/*.cu`` of this package is compiled for Hopper (``sm_90a``), one
-nvcc process per source, all started together, and linked into one shared
-library with a plain C interface, at first use, into ``csrc/build/`` keyed
-by a hash of the sources and flags. Nothing here runs at import: the CPU
+nvcc process per source, all started together (``-I csrc/`` for the shared
+headers such as ``sm90.cuh``), and linked into one shared library with a
+plain C interface, at first use, into ``csrc/build/`` keyed by a hash of
+every source and header (``*.cu``, ``*.cuh``, ``*.h``) and the flags. Nothing here runs at import: the CPU
 tests import every module on a machine with no nvcc.
 
 No ``--use_fast_math``: the quantized codes depend on IEEE division and on exact
@@ -33,6 +34,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "lowbit_quant": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "lowbit_attn_fwd": [_P] * 9 + [_I] * 11 + [_F, _P],
+    "lowbit_attn_fwd_wgmma": [_P] * 9 + [_I] * 11 + [_F, _P],
     "lowbit_decode_attn": [_P] * 10 + [_I] * 12 + [_F, _P],
     "lowbit_decode_ctas_per_sm": [_I, _I, _I, _I, _P],
     "lowbit_gemv": [_P] * 6 + [_I] * 11 + [_P],
@@ -49,6 +51,11 @@ def sources() -> List[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def hashed_files() -> List[str]:
+    """What the build reads: the sources and every header under ``csrc/``."""
+    return sorted(f for ext in ("*.cu", "*.cuh", "*.h") for f in glob.glob(os.path.join(CSRC_DIR, ext)))
+
+
 def _nvcc() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -62,7 +69,7 @@ def _nvcc() -> str:
 def library_path() -> str:
     """Where the library for the current sources lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in hashed_files():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"liblowbit_kernels_{h.hexdigest()[:16]}.so")
@@ -72,7 +79,7 @@ def nvcc_commands(out_path: str, nvcc: str = "nvcc") -> Tuple[List[List[str]], L
     """One compile command per source (objects beside ``out_path``) and the
     link command that makes the shared library ``out_path``."""
     objs = [f"{out_path}.{os.path.splitext(os.path.basename(src))[0]}.o" for src in sources()]
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj] for src, obj in zip(sources(), objs)]
+    compiles = [[nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", src, "-o", obj] for src, obj in zip(sources(), objs)]
     return compiles, [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", out_path, *objs]
 
 

@@ -4,8 +4,8 @@
 PyTorch/CUDA counterpart of the forward kernels in
 ``lowbit_quant_fa2_paddle_tpu/ops/attention.py``. On the TPU two schedules
 (K-major ``lowbit_attention_km`` and Q-major ``lowbit_attention``) exist
-because of the matrix unit's lane layout; on the GPU one kernel,
-``csrc/attention_fwd.cu``, carries their features and takes natural layouts:
+because of the matrix unit's lane layout; on the GPU kernel A carries their
+features and takes natural layouts:
 ``q [B,H,Sq,D]``, ``k [B,Hk,Sk,D]`` (``[B,Hk,Sk,D/2]`` or ``[B,Hk,Sk,D/4]``
 packed), ``v [B,Hk,Sk,D]``, ``o [B,H,Sq,D]``.
 
@@ -25,6 +25,15 @@ PV runs bf16 × bf16 → f32, V rounded to bf16 as the TPU kernel's default
 to bf16 exactly, or with ``pv_int8`` multiply as an exact INT8 dot against P
 requantized to [0, 127]. The LSE comes back in base 2, ``-1e30`` for rows
 with no visible key.
+
+Kernel A has two designs, chosen by mode (``kernel_design``): every mode
+but INT8 PV (the DiT's int8, fp, int4 and int8_v8 impls, the LLM prefill,
+the training forward) runs on the Hopper design of
+``csrc/attention_fwd_wgmma.cu`` (TMA, ``wgmma``, warp-specialised, KV tiles
+of 128 keys); INT8 PV stays on the ``mma.sync`` kernel of
+``csrc/attention_fwd.cu`` (KV tiles of 64 keys). The tile is part of the
+rounding (P rounds against the running maximum of each tile), so the plain
+version takes the tile of the design that runs the mode (``kv_tile``).
 
 ``lowbit_attention`` takes the plain PyTorch version below for tensors on the
 CPU and launches the kernel for CUDA tensors; nothing falls back.
@@ -46,12 +55,22 @@ LOG2_127 = math.log2(127.0)
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 NEG_INIT = -1e30
 
-#: Keys per KV tile of kernel A (``BKV`` in csrc/attention_fwd.cu); the plain
-#: version follows the same tiles.
-KV_TILE = 64
+#: Keys per KV tile of each design of kernel A (``BKV`` in its source).
+KV_TILE = {"wgmma": 128, "mma.sync": 64}
 #: Elements of one chunk of f32 logits in the plain version (1 GiB).
 _PLAIN_CHUNK_ELEMS = 1 << 28
 _UNPACK = {4: unpack_int4, 2: unpack_int2}
+
+
+def kernel_design(pv_int8: bool = False) -> str:
+    """Which design of kernel A runs a mode: ``"mma.sync"`` for INT8 PV,
+    ``"wgmma"`` for every other. The choice is static, by mode."""
+    return "mma.sync" if pv_int8 else "wgmma"
+
+
+def kv_tile(pv_int8: bool = False) -> int:
+    """Keys per KV tile of the design that runs the mode."""
+    return KV_TILE[kernel_design(pv_int8)]
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -79,28 +98,29 @@ def attention_fwd_plain(
     ``k_bits`` 4 or 2 says ``k`` holds packed codes; int8 ``v`` comes with
     ``v_scale``. Works through q-row chunks so the f32 logits stay within
     1 GiB. The softmax follows the kernel's online recurrence over KV tiles of
-    ``KV_TILE`` keys, written in closed form: tile ``j`` rounds its P against
-    the running maximum ``m_j`` and is weighted by ``2^(m_j - m_last)``, so P
-    rounds to bf16 (or to ``p8`` with ``pv_int8``) exactly where the kernel
-    rounds it and the two differ only in summation order. Returns
-    ``(o, lse2)``.
+    ``kv_tile`` keys (those of the design that runs the mode), in closed
+    form: tile ``j`` rounds its P against the running maximum ``m_j`` and is
+    weighted by ``2^(m_j - m_last)``, so P rounds to bf16 (or to ``p8`` with
+    ``pv_int8``) exactly where the kernel rounds it and the two differ only
+    in summation order. Returns ``(o, lse2)``.
     """
     b, h, s_q, _ = q.shape
     s_k = k.shape[2]
     dev = q.device
     c = torch.tensor(sm_scale_log2e, dtype=torch.float32, device=dev)
     quant = k.dtype == torch.int8
+    tile = kv_tile(pv_int8)
     if k_bits != 8:
         k = _UNPACK[k_bits](k)
-    n_tiles = -(-s_k // KV_TILE)
+    n_tiles = -(-s_k // tile)
     kf = _repeat_kv(k if quant else k.to(torch.bfloat16), h).float()
     vf = _repeat_kv(v if v.dtype == torch.int8 else v.to(torch.bfloat16), h).float()
-    vf = torch.nn.functional.pad(vf, (0, 0, 0, n_tiles * KV_TILE - s_k))
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, n_tiles * tile - s_k))
     ks = _repeat_kv(k_scale.float()[:, :, None, :], h) if quant else None
     vs = _repeat_kv(v_scale.float()[:, :, None, :], h) if v_scale is not None else None
     vm = _repeat_kv(v_mean.float()[:, :, None, :], h) if v_mean is not None else None
     col = torch.arange(s_k, device=dev)
-    rows = max(1, _PLAIN_CHUNK_ELEMS // (b * h * n_tiles * KV_TILE))
+    rows = max(1, _PLAIN_CHUNK_ELEMS // (b * h * n_tiles * tile))
     outs, lses = [], []
     for lo in range(0, s_q, rows):
         qc = q[:, :, lo : lo + rows]
@@ -118,8 +138,8 @@ def attention_fwd_plain(
             row = lo + torch.arange(qc.shape[2], device=dev)
             s = s.masked_fill(col[None, :] > row[:, None], MASK_VALUE)
         n = qc.shape[2]
-        s = torch.nn.functional.pad(s, (0, n_tiles * KV_TILE - s_k), value=MASK_VALUE)
-        s = s.view(b, h, n, n_tiles, KV_TILE)
+        s = torch.nn.functional.pad(s, (0, n_tiles * tile - s_k), value=MASK_VALUE)
+        s = s.view(b, h, n, n_tiles, tile)
         m_run = torch.cummax(s.amax(dim=-1), dim=-1).values.clamp_min(NEG_INIT)  # [b,h,n,T]
         shift = m_run - LOG2_127 if pv_int8 else m_run
         p = torch.exp2((s - shift[..., None]).to(torch.bfloat16).float()).to(torch.bfloat16).float()
@@ -130,7 +150,7 @@ def attention_fwd_plain(
         m = m_run[..., -1:]
         w = torch.exp2(m_run - m)
         l = (p.sum(dim=-1) * w).sum(dim=-1, keepdim=True)
-        o = (p * w[..., None]).view(b, h, n, n_tiles * KV_TILE) @ vf
+        o = (p * w[..., None]).view(b, h, n, n_tiles * tile) @ vf
         del p
         empty = l == 0.0
         ls = torch.where(empty, torch.ones_like(l), l)
@@ -179,24 +199,26 @@ def _attention_fwd_cuda(
     tensors = [q, k, v] + [x for x in (q_scale, k_scale, v_scale, v_mean) if x is not None]
     if any(x.device != q.device for x in tensors):
         raise ValueError("attention inputs must all be on one device")
-    # cp.async moves 16-byte chunks: rows must start on 16-byte boundaries.
-    q, k, v = (x if x.is_contiguous() and x.data_ptr() % 16 == 0 else x.clone(memory_format=torch.contiguous_format)
-               for x in (q, k, v))
+    design = kernel_design(pv_int8)
+    # cp.async and TMA move 16-byte chunks from 16-byte aligned tensors.
+    aligned = lambda x: (  # noqa: E731
+        x if x is None or (x.is_contiguous() and x.data_ptr() % 16 == 0) else x.clone(memory_format=torch.contiguous_format))
+    q, k, v = aligned(q), aligned(k), aligned(v)
     q_scale, k_scale, v_scale, v_mean = (
-        x.float().contiguous() if x is not None else None for x in (q_scale, k_scale, v_scale, v_mean))
+        aligned(x.float()) if x is not None else None for x in (q_scale, k_scale, v_scale, v_mean))
     out_f32 = out_dtype != torch.bfloat16
     o = torch.empty((b, h, s_q, dp), dtype=torch.float32 if out_f32 else torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device) if need_lse else None
-    ptrs = [x.data_ptr() if x is not None else None for x in (q, k, v, q_scale, k_scale, v_scale, v_mean, o, lse)]
     lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [x.data_ptr() if x is not None else None for x in (q, k, v, q_scale, k_scale, v_scale, v_mean, o, lse)]
+    entry = lib.lowbit_attn_fwd_wgmma if design == "wgmma" else lib.lowbit_attn_fwd
     with torch.cuda.device(q.device):
-        err = lib.lowbit_attn_fwd(
-            *ptrs,
-            b, h, hk, s_q, s_k, dp, mode, k_bits, v_mode, int(out_f32), int(causal), sm_scale_log2e,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        err = entry(*ptrs, b, h, hk, s_q, s_k, dp, mode, k_bits, v_mode, int(out_f32), int(causal), sm_scale_log2e,
+                    stream)
     _build.check(err, "lowbit_attention")
     lowbit_attention.launches += 1
+    lowbit_attention.launches_by_design[design] += 1
     o = o[..., :d]
     return (o if o.dtype == out_dtype else o.to(out_dtype)), lse
 
@@ -314,8 +336,10 @@ def lowbit_attention(
     return (o, lse) if return_lse else o
 
 
-#: Launches of kernel A in this process (CPU calls do not count).
+#: Launches of kernel A in this process (CPU calls do not count), in all and
+#: per design.
 lowbit_attention.launches = 0
+lowbit_attention.launches_by_design = {design: 0 for design in KV_TILE}
 
 
 def flash_attention_fp(

@@ -1,0 +1,137 @@
+"""Kernel A's wgmma design against variants of its own source, on one CUDA card.
+
+    python3 script/torch_attention_ab.py [VARIANT ...]
+
+Each variant is a patch of ``csrc/attention_fwd_wgmma.cu`` (see VARIANTS),
+built in its own copy of the package under ``build/attention_ab/<name>/``.
+Every build (the checkout's as "main", then each variant's) times kernel A
+in its own process: int8 with Q quantized in the kernel and fp at b1 h30
+s17776 d64 (the DiT's shape) and at b1 h32 hk8 s32704 d128 causal (one
+batch row of the LLM prefill), with ``utils.benchmark.cuda_time_ms``; main
+also times packed INT4/INT2 K and INT8 V at the DiT shape. The processes run
+in turns main, v1, v2, ..., then the same in reverse, so each variant is
+compared with main within one call. Prints the card's name and power limit
+first. With no argument, every variant runs.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "lowbit_quant_fa2_paddle_tpu_torch"
+SRC = os.path.join("csrc", "attention_fwd_wgmma.cu")
+
+# name: (what it changes, [(old, new), ...] on csrc/attention_fwd_wgmma.cu)
+VARIANTS = {
+    "nwg2": ("two consumer warpgroups at d64 instead of three",
+             [("constexpr int kNWG = D == 64 ? 3 : 2;", "constexpr int kNWG = 2;")]),
+    "noturns": ("no named-barrier turns between the consumer warpgroups",
+                [("    if (wg == NWG - 1) named_bar_arrive(kBarTurn, 256);\n", ""),
+                 ("      named_bar_sync(bar_mine, 256);\n", ""), ("    named_bar_sync(bar_mine, 256);\n", ""),
+                 ("      named_bar_arrive(bar_other, 256);\n", ""), ("    named_bar_arrive(bar_other, 256);\n", ""),
+                 ("    if (wg != NWG - 1) named_bar_arrive(bar_other, 256);\n", "")]),
+    "exp2f": ("exp2f (with its range fix-up) instead of ex2.approx.ftz",
+              [("  asm(\"ex2.approx.ftz.f32 %0, %1;\\n\" : \"=f\"(y) : \"f\"(x));", "  y = exp2f(x);")]),
+    "int-round": ("bf16 rounding of s - m by integer round-to-nearest-even, not cvt.rn.bf16x2",
+                  [("          const uint32_t dd = pack_bf16x2(s0 - m_run[hf], s1 - m_run[hf]);\n"
+                    "          s0 = ex2(bf16_lo(dd));\n          s1 = ex2(bf16_hi(dd));",
+                    "          const uint32_t u0 = __float_as_uint(s0 - m_run[hf]), u1 = __float_as_uint(s1 - m_run[hf]);\n"
+                    "          s0 = ex2(__uint_as_float((u0 + 0x7FFFu + ((u0 >> 16) & 1u)) & 0xFFFF0000u));\n"
+                    "          s1 = ex2(__uint_as_float((u1 + 0x7FFFu + ((u1 >> 16) & 1u)) & 0xFFFF0000u));")]),
+    "i2f-trick": ("the s32 dot to f32 through the bits of 1.5*2^23 + c instead of I2FP",
+                  [("(float)sacc[4 * nt + e]", "i2f_exact(sacc[4 * nt + e])")]),
+    "nosoftmax": ("probe, wrong results: no row maximum and no exp2 (P = bf16 of s, alpha = 1)",
+                  [("#pragma unroll\n      for (int hf = 0; hf < 2; ++hf) {\n        float m4[4];",
+                    "      alpha[0] = alpha[1] = 1.0f;\n      if (false)\n      for (int hf = 0; hf < 2; ++hf) {\n"
+                    "        float m4[4];"),
+                   ("          s0 = ex2(bf16_lo(dd));\n          s1 = ex2(bf16_hi(dd));",
+                    "          s0 = bf16_lo(dd);\n          s1 = bf16_hi(dd);")]),
+}
+
+
+def worker(tag: str, lowbit: bool) -> None:
+    """Time kernel A from the package in the current directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as qo
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    out = []
+    for shape, (h, hk, s, d, causal) in (("dit", (30, 30, 17776, 64, False)),
+                                         ("prefill", (32, 8, 32704, 128, True))):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q = torch.randn(1, h, s, d, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(1, hk, s, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+        km = qo.k_mean(k)
+        runs = {"int8": ((q, *qo.quant_int8(k, km, gran="per_token")), {}), "fp": ((q, k), {})}
+        if lowbit and shape == "dit":
+            runs["int4-K"] = ((q, *qo.quant_int4(k, km, gran="per_token")), {"k_pack_bits": 4})
+            runs["int2-K"] = ((q, *qo.quant_int2(k, km, gran="per_token")), {"k_pack_bits": 2})
+            v8, vs, vm = qo.quant_v_int8_per_channel(v, smooth_v=True)
+            runs["int8-V"] = ((q, runs["int8"][0][1], runs["int8"][0][2]), {"v8": (v8, vs, vm)})
+        for name, (args, kw) in runs.items():
+            if "v8" in kw:
+                v8, vs, vm = kw.pop("v8")
+                call = (lambda a=args, v8=v8, vs=vs, vm=vm: lowbit_attention(a[0], a[1], v8, None, a[2], v_scale=vs,
+                                                                           v_mean=vm, is_causal=causal))
+            elif len(args) == 3:
+                call = lambda a=args, kw=kw: lowbit_attention(a[0], a[1], v, None, a[2], is_causal=causal, **kw)  # noqa: E731
+            else:
+                call = lambda a=args: lowbit_attention(a[0], a[1], v, is_causal=causal)  # noqa: E731
+            out.append(f"{shape} {name} {cuda_time_ms(call, warmup=2, reps=10):.3f}")
+        if shape == "prefill" or lowbit:
+            sdpa = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=hk != h), warmup=2, reps=10)
+            out.append(f"{shape} sdpa {sdpa:.3f}")
+        del q, k, v
+    print(f"[{tag}] " + " | ".join(out) + " (ms)", flush=True)
+
+
+def prepare(name: str) -> str:
+    """A copy of the package with the variant's patch; its directory."""
+    root = os.path.join(REPO, "build", "attention_ab", name)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(REPO, PKG), os.path.join(root, PKG), ignore=shutil.ignore_patterns("build"))
+    path = os.path.join(root, PKG, SRC)
+    with open(path) as f:
+        text = f.read()
+    for old, new in VARIANTS[name][1]:
+        if old not in text:
+            raise RuntimeError(f"variant {name}: patch does not apply: {old[:60]!r}")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    return root
+
+
+def main(names) -> None:
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    dirs = {"main": REPO}
+    dirs.update({name: prepare(name) for name in names})
+    build = "from lowbit_quant_fa2_paddle_tpu_torch.ops import _build; _build.library()"
+    for i in range(0, len(dirs), 3):  # three builds at a time on the machine's cores
+        procs = [subprocess.Popen([sys.executable, "-c", build], cwd=d) for d in list(dirs.values())[i:i + 3]]
+        if any(p.wait() != 0 for p in procs):
+            raise RuntimeError("a build failed")
+    for name in names:
+        print(f"{name}: {VARIANTS[name][0]}", flush=True)
+    order = ["main"] + list(names)
+    for tag in order + order[::-1]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tag], cwd=dirs[tag], check=True)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2], lowbit=sys.argv[2] == "main")
+    else:
+        names = sys.argv[1:] or list(VARIANTS)
+        unknown = [n for n in names if n not in VARIANTS]
+        if unknown:
+            sys.exit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
+        main(names)

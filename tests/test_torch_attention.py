@@ -112,6 +112,29 @@ def test_fp_matches_jax(causal, hk):
     assert float((tl - ref_lse / math.log(2)).abs().max()) <= 5e-3
 
 
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mode", ["int8", "fp"])
+def test_plain_version_at_each_kv_tile_matches_jax(mode, causal, tile, monkeypatch):
+    """The int8 and fp modes' plain version at either design's KV tile (the
+    wgmma design's 128 keys, which these modes run on, and mma.sync's 64)
+    against the JAX package: the tile moves only where P rounds, within the
+    port-vs-JAX bounds. s 400 is three whole 128-key tiles and a ragged one."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import attention as tattn
+
+    monkeypatch.setitem(tattn.KV_TILE, "wgmma", tile)
+    assert tattn.kv_tile() == tile and tattn.kv_tile(pv_int8=True) == 64
+    q, k, v = _qkv(h=4, hk=2, s=400, seed=11)
+    if mode == "int8":
+        jo, jl = jlq.lowbit_fa_qk_int8_pv_fp16(_jax(q), _jax(k), _jax(v), is_causal=causal, return_lse=True)
+        to, tl = tlq.lowbit_fa_qk_int8_pv_fp16(_torch(q), _torch(k), _torch(v), is_causal=causal, return_lse=True)
+    else:
+        b16, t16 = (lambda x: _jax(x, jnp.bfloat16)), (lambda x: _torch(x, torch.bfloat16))
+        jo, jl = jlq.flash_attention_fp(b16(q), b16(k), b16(v), is_causal=causal, return_lse=True)
+        to, tl = tlq.flash_attention_fp(t16(q), t16(k), t16(v), is_causal=causal, return_lse=True)
+    _close(to, jo, tl, jl)
+
+
 def test_jax_bf16_exp2_rounds_ln2():
     """The JAX package's exp2 on bf16 is exp(bf16(ln 2) * x), not 2^x; the
     port's plain version and kernel compute 2^x (recorded in ROADMAP.md)."""

@@ -111,13 +111,36 @@ def test_build_command_targets_sm90a_from_repo_sources():
     srcs = [a for cmd in compiles for a in cmd if a.endswith(".cu")]
     assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "attention_bwd.cu", "attention_fwd.cu", "decode_attention.cu", "fused_kv_attention.cu", "gemv.cu", "quant.cu"]
+        "attention_bwd.cu", "attention_fwd.cu", "attention_fwd_wgmma.cu", "decode_attention.cu",
+        "fused_kv_attention.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
+    assert all(f"-I{_build.CSRC_DIR}" in cmd for cmd in compiles)  # the shared headers, e.g. sm90.cuh
+    assert os.path.join(_build.CSRC_DIR, "sm90.cuh") in _build.hashed_files()
     assert "-shared" in link and link[-len(compiles):] == [cmd[-1] for cmd in compiles]
     assert _build.CSRC_DIR.startswith(os.path.join(REPO, "lowbit_quant_fa2_paddle_tpu_torch"))
     assert os.path.dirname(_build.library_path()) == _build.BUILD_DIR
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "lowbit_quant_fa2_paddle_tpu_torch/csrc/build/" in f.read().split()
+
+
+@pytest.mark.parametrize("edited,rebuilds", [("sm90.cuh", True), ("attention_fwd.cu", True), ("new.h", True),
+                                             ("notes.txt", False), ("build/stale.so.log", False)])
+def test_library_path_follows_sources_and_headers(tmp_path, monkeypatch, edited, rebuilds):
+    """The build cache key covers every source and header under csrc/: an
+    edited header gives a new library path (so no stale build is loaded), a
+    file the build does not read does not."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc, ignore=shutil.ignore_patterns("build"))
+    (csrc / "build").mkdir()
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(csrc / "build"))
+    before = _build.library_path()
+    assert os.path.dirname(before) == str(csrc / "build")
+    with open(csrc / edited, "a") as f:
+        f.write("\n// edited\n")
+    assert (_build.library_path() != before) == rebuilds
 
 
 CONSTRUCTORS = {
@@ -373,3 +396,55 @@ def test_attention_bwd_kernels_match_plain(cuda, quantized, causal, window, h, h
         top = float(b.float().abs().max())
         assert float(cosine_similarity(a, b)) >= 0.99999, name
         assert float((a.float() - b.float()).abs().max()) <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7), name
+
+
+WGMMA_EDGES = {
+    # name: (mode, causal, h, hk, d, sq, sk, q dtype, out dtype, v_mean)
+    "sk1": ("fused", False, 4, 4, 64, 200, 1, torch.bfloat16, None, False),
+    "sk127": ("fused", False, 4, 2, 64, 200, 127, torch.bfloat16, None, False),
+    "sk128-fp": ("fp", False, 4, 4, 64, 200, 128, torch.bfloat16, None, False),
+    "sk129-d128": ("int8", False, 4, 4, 128, 200, 129, torch.bfloat16, None, False),
+    "sk300-fp-d128": ("fp", False, 4, 2, 128, 200, 300, torch.bfloat16, None, False),
+    "causal-sq300-sk500": ("fused", True, 4, 4, 64, 300, 500, torch.bfloat16, None, False),
+    "causal-sq700-sk260-fp": ("fp", True, 4, 2, 64, 700, 260, torch.bfloat16, None, False),
+    "causal-gqa-32q8kv-d128": ("fused", True, 32, 8, 128, 777, 777, torch.bfloat16, None, False),
+    "f32-q-f32-out": ("fused", False, 4, 4, 64, 300, 300, torch.float32, torch.float32, False),
+    "fp-d128-f32-out": ("fp", True, 4, 4, 128, 300, 300, torch.bfloat16, torch.float32, False),
+    "v-mean": ("fused", False, 4, 2, 128, 300, 400, torch.bfloat16, None, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(WGMMA_EDGES))
+def test_wgmma_attention_edges_match_plain(cuda, case):
+    """Kernel A's wgmma design at its edges: key counts around the 128-key
+    tile, causal with Sq != Sk and Sq not a multiple of the 128-row CTA, GQA
+    32q/8kv d128, f32 q quantized in the kernel, f32 output and v_mean,
+    against the plain version at the design's tile (the same roundings, other
+    summation order); with and without the LSE, the same output."""
+    mode, causal, h, hk, d, sq, sk, q_dtype, out_dtype, with_vm = WGMMA_EDGES[case]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(1, h, sq, d, generator=g, device=cuda).to(q_dtype)
+    k = (torch.randn(1, hk, sk, d, generator=g, device=cuda) + 0.3).bfloat16()
+    v = torch.randn(1, hk, sk, d, generator=g, device=cuda).bfloat16()
+    vm = torch.randn(1, hk, d, generator=g, device=cuda) if with_vm else None
+    q_scale = k_scale = qs = None
+    c = torch.tensor(1.0 / math.sqrt(d) * LOG2E, dtype=torch.float32, device=cuda)
+    if mode != "fp":
+        k, k_scale = quant_int8(k, gran="per_token")
+    if mode == "int8":
+        q, q_scale = quant_int8(q, gran="per_token")
+        qs = q_scale * c
+    n, n_wgmma = lowbit_attention.launches, lowbit_attention.launches_by_design["wgmma"]
+    kw = dict(v_mean=vm, is_causal=causal, out_dtype=out_dtype)
+    o, lse = lowbit_attention(q, k, v, q_scale, k_scale, **kw, return_lse=True)
+    o2 = lowbit_attention(q, k, v, q_scale, k_scale, **kw)
+    assert lowbit_attention.launches == n + 2 and lowbit_attention.launches_by_design["wgmma"] == n_wgmma + 2
+    o_ref, lse_ref = attention_fwd_plain(q, k, v, qs, k_scale, vm, causal=causal, sm_scale_log2e=float(c),
+                                         out_dtype=o.dtype)
+    torch.cuda.synchronize()
+    assert o.shape == (1, h, sq, d) and torch.equal(o, o2)
+    assert bool(torch.isfinite(o.float()).all())
+    assert float(cosine_similarity(o, o_ref)) >= 0.99999
+    assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
