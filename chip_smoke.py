@@ -47,24 +47,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
 6. kernels G1/G2 (attention_bwd_dq, attention_bwd_dkv) through flash_bwd
    against attention_bwd_plain: float and quantized (int8 codes) at b1 h30
    s17776 d64 bf16, causal GQA 8q/2kv d128 at a ragged s1000 (both modes),
-   a causal window of 256 at s2048, and f32 inputs at b1 h4 s512 d64; cos >=
-   0.99999 and max|d| <= 2 bf16 ulps of each gradient's max|.| (the plain
-   version rounds p and ds where the kernels do); one G1 and one G2 per call
-   and four C1 with the quantized mode. Each timed alone at the DiT shape
-   beside the plain version (the pair) and aten's flash-attention backward
-   (dq, dk, dv in one call, given SDPA's forward outputs);
+   a causal window of 256 at s2048, f32 inputs at b1 h4 s512 d64, and the
+   wgmma design's edges (Sq/Sk 127/129, causal 129/127, Sq 1 Sk 777 d128,
+   causal GQA 32q/8kv d128 s777, window 256 GQA d128 s777, d32 padded);
+   cos >= 0.99999 and max|d| <= 2 bf16 ulps of each gradient's max|.| (the
+   plain version rounds p and ds where the kernels do); one G1 and one G2
+   per call, both on the wgmma design (csrc/attention_bwd_wgmma.cu), and
+   four C1 with the quantized mode; the float DiT-shape gradients the same
+   bits on a second run. Each timed alone at the DiT shape beside the plain
+   version (the pair) and aten's flash-attention backward (dq, dk, dv in one
+   call, given SDPA's forward outputs);
 7. gradients of flash_attention_trainable (cos >= 0.999),
    lowbit_attention_trainable (>= 0.99) and its bwd_quantized (>= 0.999)
    against a dense fp32 autograd oracle at b2 h4 s1024 d64 bf16, both
-   causal settings, with their launches (A, G1, G2 once each; C1 once for
-   the int8 forward and four more for the quantized backward);
+   causal settings, with their launches (A, G1, G2 once each, G1/G2 on the
+   wgmma design; C1 once for the int8 forward and four more for the
+   quantized backward);
 8. DiT training: tiny_config, 3 sgd_train_steps at lr 1e-2 must lower the
    loss; then the full-width CogVideoX-2b DiT (depth 30, random weights) on
    a b1 s17776 latent with flash_train, then int8_train, each on a fresh
    model: a warm-up forward and backward (gradients finite), 3
    sgd_train_steps at lr 1e-4 (ms, loss, peak memory, the share of
    parameters the first step changed), exactly depth launches of A, G1 and
-   G2 per step (and of C1 for int8_train) and none of C2/C3/D/E/F, one step
+   G2 per step (and of C1 for int8_train), every G1 and G2 on the wgmma
+   design, and none of C2/C3/D/E/F, one step
    under torch.profiler (device ms of G1, G2, A, C1, GEMMs, the rest); the
    two impls' first losses within 1% and block 0's qkv weight gradients at
    cos >= 0.99;
@@ -609,15 +615,17 @@ def main_path_phase():
 # ---------------------------------------------------------------------------
 
 
-def bwd_inputs(gen, h, hk, s, d, causal, window, dtype):
-    """q, k, v, dO and the forward's o and base-2 LSE (kernel A; the dense
-    reference for the window, which A does not take yet)."""
+def bwd_inputs(gen, h, hk, s, d, causal, window, dtype, sk=None):
+    """q, k, v, dO (Sq = s, Sk = sk or s) and the forward's o and base-2 LSE
+    (kernel A; the dense reference for the window, which A does not take
+    yet)."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, flash_attention_fp
     from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
 
+    sk = sk or s
     q = torch.randn(1, h, s, d, generator=gen, device="cuda").to(dtype)
-    k = (torch.randn(1, hk, s, d, generator=gen, device="cuda") + 0.3).to(dtype)
-    v = torch.randn(1, hk, s, d, generator=gen, device="cuda").to(dtype)
+    k = (torch.randn(1, hk, sk, d, generator=gen, device="cuda") + 0.3).to(dtype)
+    v = torch.randn(1, hk, sk, d, generator=gen, device="cuda").to(dtype)
     do = torch.randn(1, h, s, d, generator=gen, device="cuda").to(dtype)
     if window:
         o, lse = attention_reference(q, k, v, is_causal=causal, window_size=window, return_lse=True)
@@ -642,13 +650,19 @@ def check_bwd(name, got, want):
     return worst
 
 
+def g_design_counts():
+    """G1's and G2's launches per design since the last count_reset()."""
+    return {name: dict(_wrappers()[name].launches_by_design) for name in ("G1", "G2")}
+
+
 def bwd_phase(gen):
     """G1/G2 against attention_bwd_plain on the same operands, through
-    flash_bwd (counted: one G1 and one G2 a call, four C1 with quantized),
-    then timed one by one at the DiT shape beside the plain version (which
-    computes the pair) and aten's flash-attention backward (dq, dk and dv
-    together, given SDPA's own forward outputs: a baseline, never on the
-    path)."""
+    flash_bwd (counted: one G1 and one G2 a call, both on the wgmma design,
+    and four C1 with quantized); the float DiT-shape gradients the same bits
+    on a second run. Then timed one by one at the DiT shape beside the plain
+    version (which computes the pair) and aten's flash-attention backward
+    (dq, dk and dv together, given SDPA's own forward outputs: a baseline,
+    never on the path)."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd as AB
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import (
         attention_bwd_flops,
@@ -667,20 +681,39 @@ def bwd_phase(gen):
         ("float causal window 256 s2048", dict(h=8, hk=8, s=2048, d=64, causal=True, window=256, quantized=False)),
         ("float f32 b1 h4 s512 d64", dict(h=4, hk=4, s=512, d=64, causal=False, window=0, quantized=False,
                                           dtype=torch.float32)),
+        # The wgmma design's edges: Sq, Sk around its 64-row tiles and not a
+        # multiple of 4 (lse and di rows that do not start on 16 bytes).
+        ("float GQA 4q/2kv Sq 127 Sk 129", dict(h=4, hk=2, s=127, sk=129, d=64, causal=False, window=0,
+                                                quantized=False)),
+        ("float causal Sq 129 Sk 127", dict(h=4, hk=4, s=129, sk=127, d=64, causal=True, window=0, quantized=False)),
+        ("float d128 Sq 1 Sk 777", dict(h=4, hk=4, s=1, sk=777, d=128, causal=False, window=0, quantized=False)),
+        ("float causal GQA 32q/8kv d128 s777", dict(h=32, hk=8, s=777, d=128, causal=True, window=0,
+                                                    quantized=False)),
+        ("float causal window 256 GQA 4q/2kv d128 s777", dict(h=4, hk=2, s=777, d=128, causal=True, window=256,
+                                                              quantized=False)),
+        ("float d32 causal GQA 8q/2kv s300", dict(h=8, hk=2, s=300, d=32, causal=True, window=0, quantized=False)),
     ]
     worst = {False: 0.0, True: 0.0}
     for name, kw in cases:
         quantized, causal, window = kw["quantized"], kw["causal"], kw["window"]
         q, k, v, o, lse2, do = bwd_inputs(gen, kw["h"], kw["hk"], kw["s"], kw["d"], causal, window,
-                                          kw.get("dtype", torch.bfloat16))
+                                          kw.get("dtype", torch.bfloat16), kw.get("sk"))
         count_reset()
         got = AB.flash_bwd(q, k, v, o, lse2, do, is_causal=causal, sm_scale=1.0 / math.sqrt(kw["d"]),
                            quantized=quantized, window=window)
         torch.cuda.synchronize()
-        launches = counts()
+        launches, designs = counts(), g_design_counts()
         want_l = {key: 0 for key in launches} | {"G1": 1, "G2": 1, "C1": 4 if quantized else 0}
-        if launches != want_l:
-            raise AssertionError(f"flash_bwd ({name}): launches {launches} != {want_l}")
+        want_d = {AB.kernel_design(quantized): 1}
+        if launches != want_l or designs != {"G1": want_d, "G2": want_d}:
+            raise AssertionError(f"flash_bwd ({name}): launches {launches} != {want_l} or designs {designs}")
+        if name == cases[0][0]:  # no atomics: the same bits on every run
+            again = AB.flash_bwd(q, k, v, o, lse2, do, is_causal=causal, sm_scale=1.0 / math.sqrt(kw["d"]))
+            same = [bool(torch.equal(a, b)) for a, b in zip(got, again)]
+            log(f"[G] {name}: dq, dk, dv the same bits on a second run: {same}")
+            if not all(same):
+                raise AssertionError(f"flash_bwd ({name}) differs between two runs: {same}")
+            del again
         args, kargs = AB.bwd_operands(q, k, v, o, lse2, do, is_causal=causal, sm_scale=1.0 / math.sqrt(kw["d"]),
                                       quantized=quantized, window=window)
         want = AB.attention_bwd_plain(*args, **kargs, dq_dtype=q.dtype, dkv_dtype=k.dtype)
@@ -695,6 +728,7 @@ def bwd_phase(gen):
         q, k, v, o, lse2, do = bwd_inputs(gen, H, H, S, D, False, 0, torch.bfloat16)
         args, kargs = AB.bwd_operands(q, k, v, o, lse2, do, is_causal=False, sm_scale=1.0 / math.sqrt(D),
                                       quantized=quantized)
+        design = AB.kernel_design(quantized)
         ms1 = cuda_time_ms(lambda: AB.attention_bwd_dq(*args, **kargs, dq_dtype=torch.bfloat16), warmup=2, reps=10)
         ms2 = cuda_time_ms(lambda: AB.attention_bwd_dkv(*args, **kargs, dkv_dtype=torch.bfloat16), warmup=2, reps=10)
         plain_ms = cuda_time_ms(lambda: AB.attention_bwd_plain(*args, **kargs, dq_dtype=torch.bfloat16,
@@ -711,12 +745,13 @@ def bwd_phase(gen):
                 do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset), warmup=2, reps=10)
             del fwd, out, lse
         pair_tf = tflops(attention_bwd_flops(B, H, D, S, S, False), (ms1 + ms2) / 1e3)
-        log(f"[G] {mode} b{B} h{H} s{S} d{D}: G1 {ms1:.3f} ms (bound {lim1['bound_ms']:.3f}), G2 {ms2:.3f} ms "
-            f"(bound {lim2['bound_ms']:.3f}), G1 + G2 {pair_tf:.1f} TFLOP/s at the 2.5x-forward convention, "
-            f"plain (both) {plain_ms:.3f} ms, aten flash backward (dq, dk, dv) {library_ms}")
+        log(f"[G] {mode} b{B} h{H} s{S} d{D} ({design}): G1 {ms1:.3f} ms (bound {lim1['bound_ms']:.3f}), G2 "
+            f"{ms2:.3f} ms (bound {lim2['bound_ms']:.3f}), G1 + G2 {pair_tf:.1f} TFLOP/s at the 2.5x-forward "
+            f"convention, plain (both) {plain_ms:.3f} ms, aten flash backward (dq, dk, dv) {library_ms}")
+        common = {"max_abs_err": worst[quantized], "plain_ms": plain_ms, "library_ms": library_ms, "design": design}
         records[mode] = {
-            "G1": {"max_abs_err": worst[quantized], "ms": ms1, "plain_ms": plain_ms, **lim1, "library_ms": library_ms},
-            "G2": {"max_abs_err": worst[quantized], "ms": ms2, "plain_ms": plain_ms, **lim2, "library_ms": library_ms},
+            "G1": {**common, "ms": ms1, **lim1},
+            "G2": {**common, "ms": ms2, **lim2},
         }
         del q, k, v, o, lse2, do, args
     return records
@@ -730,6 +765,7 @@ def bwd_accuracy_phase(gen):
     backward >= 0.999. Each backward: one G1 and one G2, four more C1 with
     bwd_quantized."""
     import lowbit_quant_fa2_paddle_tpu_torch as lq
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd as AB
     from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
     from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
 
@@ -749,6 +785,9 @@ def bwd_accuracy_phase(gen):
             grads = torch.autograd.grad((o.float() * g.float()).sum(), xs)
             torch.cuda.synchronize()
             got = counts()
+            design = AB.kernel_design(bool(extra))
+            if g_design_counts() != {kern: {design: 1} for kern in ("G1", "G2")}:
+                raise AssertionError(f"{name} causal={causal}: G1/G2 designs {g_design_counts()} (want {design})")
             want = {key: 0 for key in got} | {"A": 1, "G1": 1, "G2": 1, "C1": c1}
             cos = [float(cosine_similarity(a, r)) for a, r in zip(grads, oracle)]
             res[f"{name} causal={causal}"] = cos
@@ -840,7 +879,7 @@ def train_phase():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         tgen = torch.Generator(device="cuda").manual_seed(7)
-        losses, step_ms, launches, changed = [], [], [], None
+        losses, step_ms, launches, designs, changed = [], [], [], [], None
         for i in range(STEPS):
             t, noise = dit.draw_t_noise(x0, tgen)
             torch.cuda.synchronize()
@@ -850,6 +889,7 @@ def train_phase():
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t1) * 1e3)
             launches.append(counts())
+            designs.append(g_design_counts())
             losses.append(float(loss))
             if i == 0:
                 changed = sum(int((p.detach() != p0.to(p.device)).sum()) for p, p0 in zip(params, before)) / n_params
@@ -864,13 +904,14 @@ def train_phase():
             + f"; total {sum(cats.values()):.1f}; largest other: {top}")
         want = {"A": cfg.depth, "C1": cfg.depth if impl == "int8_train" else 0, "C2": 0, "C3": 0, "D": 0, "E": 0,
                 "F1": 0, "F2": 0, "G1": cfg.depth, "G2": cfg.depth}
-        log(f"[train] {impl} launches per step {launches} (want {want})")
-        if any(got != want for got in launches):
-            raise AssertionError(f"{impl}: launches per step {launches} != {want}")
+        want_d = {"wgmma": cfg.depth}
+        log(f"[train] {impl} launches per step {launches} (want {want}); G1/G2 by design {designs}")
+        if any(got != want for got in launches) or any(d != {"G1": want_d, "G2": want_d} for d in designs):
+            raise AssertionError(f"{impl}: launches per step {launches} != {want} or G1/G2 designs {designs}")
         if not (params_finite and all(math.isfinite(x) for x in losses)):
             raise AssertionError(f"{impl}: non-finite loss or parameters: {losses}")
         res[impl] = {"ms_per_step": step_ms, "losses": losses, "warm_loss": warm_loss, "peak_gib": peak / 2**30,
-                     "changed": changed, "profile": cats, "launches": launches}
+                     "changed": changed, "profile": cats, "launches": launches, "designs": designs}
         del model, params
     rel = abs(res["int8_train"]["warm_loss"] / res["flash_train"]["warm_loss"] - 1.0)
     rel1 = abs(res["int8_train"]["losses"][0] / res["flash_train"]["losses"][0] - 1.0)
@@ -966,11 +1007,10 @@ def _wrappers():
 
 
 def count_reset():
-    for w in _wrappers().values():
+    for name, w in _wrappers().items():
         w.launches = 0
-    designs = _wrappers()["A"].launches_by_design
-    for key in designs:
-        designs[key] = 0
+        for key in getattr(w, "launches_by_design", {}):
+            w.launches_by_design[key] = 0
 
 
 def design_counts():
@@ -1454,6 +1494,16 @@ def full_width_phase():
     return res
 
 
+def timed(phase, *args):
+    """Run one phase and log its seconds (the card's memory cache emptied
+    after it)."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    torch.cuda.empty_cache()
+    log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     smi = device_phase()
     sys.path.insert(0, REPO)
@@ -1461,31 +1511,21 @@ def main():
         raise RuntimeError(f"the port package {PKG}/ is not next to chip_smoke.py")
     build_s = build_phase()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    c1 = quant_phase(gen)
-    lowq = lowbit_quant_phase(gen)
-    attn = attention_phase(gen)
-    torch.cuda.empty_cache()
-    lowa = lowbit_attention_phase(gen)
-    torch.cuda.empty_cache()
-    api = entry_point_phase(gen)
-    torch.cuda.empty_cache()
-    dit_r = main_path_phase()
-    torch.cuda.empty_cache()
-    bwd = bwd_phase(gen)
-    torch.cuda.empty_cache()
-    _, qz_launches = bwd_accuracy_phase(gen)
-    train_r = train_phase()
-    torch.cuda.empty_cache()
-    dec = decode_phase(gen)
-    torch.cuda.empty_cache()
-    gemv = gemv_phase(gen)
-    torch.cuda.empty_cache()
-    fkv = fused_kv_phase(gen)
-    torch.cuda.empty_cache()
-    checkpoint_phase()
-    checkpoint_wq_phase()
-    torch.cuda.empty_cache()
-    llm_r = full_width_phase()
+    c1 = timed(quant_phase, gen)
+    lowq = timed(lowbit_quant_phase, gen)
+    attn = timed(attention_phase, gen)
+    lowa = timed(lowbit_attention_phase, gen)
+    api = timed(entry_point_phase, gen)
+    dit_r = timed(main_path_phase)
+    bwd = timed(bwd_phase, gen)
+    _, qz_launches = timed(bwd_accuracy_phase, gen)
+    train_r = timed(train_phase)
+    dec = timed(decode_phase, gen)
+    gemv = timed(gemv_phase, gen)
+    fkv = timed(fused_kv_phase, gen)
+    timed(checkpoint_phase)
+    timed(checkpoint_wq_phase)
+    llm_r = timed(full_width_phase)
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
     replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
@@ -1506,8 +1546,8 @@ def main():
         dict(name="attention_fwd (fp)", launches=dl["fp"]["A"], **wgmma_src, **{k: attn["fp dit"][k] for k in a_keys}),
         dict(name=f"attention_fwd (int8, Q quantized in-kernel; {prefill})", launches=llm_r["int8"]["launches"]["A"],
              **wgmma_src, **{k: attn["fused prefill"][k] for k in a_keys}),
-        # No model path runs fp at this shape: the fp mode's launches on the DiT path.
-        dict(name=f"attention_fwd (fp; {prefill})", launches=dl["fp"]["A"], **wgmma_src,
+        # No model path runs fp at this shape (the LLM prefill runs int8): 0.
+        dict(name=f"attention_fwd (fp; {prefill})", launches=0, **wgmma_src,
              **{k: attn["fp prefill"][k] for k in a_keys}),
         dict(name="attention_fwd (int4 K)", launches=dl["int4"]["A"], **wgmma_src,
              **{k: lowa["int4-K"][k] for k in a_keys}),
@@ -1539,9 +1579,9 @@ def main():
              replaces="lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py:377", launches=fkv["launches"],
              **{k: fkv[k] for k in timing}),
     ] + [
-        dict(name=f"{fn} ({kern}, {desc})", route="cuda", source=f"{src}/attention_bwd.cu",
+        dict(name=f"{fn} ({kern}, {desc})", route="cuda", source=f"{src}/attention_bwd_wgmma.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/attention_bwd.py:" + ("302" if kern == "G1" else "346"),
-             launches=launches, **{k: bwd[mode][kern][k] for k in timing})
+             launches=launches, **{k: bwd[mode][kern][k] for k in timing + ("design",)})
         for fn, kern in (("attention_bwd_dq", "G1"), ("attention_bwd_dkv", "G2"))
         for mode, desc, launches in (
             ("float", "bf16 operands", sum(c[kern] for c in train_r["flash_train"]["launches"])),

@@ -117,11 +117,6 @@ struct Layout {
   static constexpr int kTotal = kBarOff + 3 * kStages * 8;
 };
 
-__device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // Per-byte sign extension of the 4-bit (2-bit) field at the bottom of each
 // byte of w.
 __device__ __forceinline__ uint32_t sext4(uint32_t w) { return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u); }
@@ -131,20 +126,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// f32(c) for |c| < 2^22 on the integer and FMA pipes: the bits of
-// 1.5*2^23 + c, minus 1.5*2^23 (both steps exact).
-__device__ __forceinline__ float i2f_exact(int c) { return __int_as_float(c + 0x4B400000) - 12582912.0f; }
-
-// bf16x2 of the int8 codes in bytes K and K + 1 of w (exact: |c| <= 128):
-// each code converted through the bits of 1.5*2^23 + c, the two upper
-// halves packed by a byte permute.
-template <int K>
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w) {
-  const float lo = i2f_exact((int)(int8_t)(w >> (8 * K)));
-  const float hi = i2f_exact((int)(int8_t)(w >> (8 * K + 8)));
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
 // Widen one staged tile of packed K (BITS 4 or 2) into the int8 K tile of
@@ -177,24 +158,6 @@ __device__ __forceinline__ void widen_v(const uint2* src, unsigned char* Vt, int
     *reinterpret_cast<uint4*>(Vt + (col / 64) * BKV * 128 + swizzle_offset<128>(r * 128 + (col % 64) * 2)) =
         make_uint4(i8x2_to_bf16x2<0>(x.x), i8x2_to_bf16x2<2>(x.x), i8x2_to_bf16x2<0>(x.y), i8x2_to_bf16x2<2>(x.y));
   }
-}
-
-// Two f32 to bf16x2 (lo in the low half), round to nearest even.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-__device__ __forceinline__ float bf16_lo(uint32_t p) { return __uint_as_float(p << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t p) { return __uint_as_float(p & 0xFFFF0000u); }
-
-// 2^x on the MUFU pipe alone. exp2f adds a range fix-up (a compare and two
-// multiplies) for results below 2^-126, which this flushes to 0 instead:
-// a P that small is below half a bf16 ulp of every row sum it joins.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 template <int D, bool kInt8, bool kStaged>

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "lowbit_decode_ctas_per_sm": [_I, _I, _I, _I, _P],
     "lowbit_gemv": [_P] * 6 + [_I] * 11 + [_P],
     "lowbit_fused_kv_attn": [_P] * 8 + [_I] * 12 + [_F, _P],
-    "lowbit_attn_bwd": [_P] * 13 + [_I] * 12 + [_F, _F, _P],
+    "lowbit_attn_bwd_wgmma": [_P] * 13 + [_I] * 12 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -9,13 +9,16 @@ and ``di = rowsum(dO·O)``:
   dv = p^T dO,  dp = dO V^T,  ds = p · (dp - di) · sm_scale
   dq = ds K    (G1),   dk = ds^T Q   (G2, summed over each KV head's group)
 
-G1 and G2 are one CUDA source, ``csrc/attention_bwd.cu``; its note says what
-bounds them on the H100. Their operands are bf16 (f32 inputs are rounded to
-bf16 for the tensor cores, as kernel A does) or, with ``quantized``, int8
-per-token codes from kernel C1 with the dequant scales folded into the
-per-pair chain, as in the TPU kernels. ``p`` and ``ds`` are f32 and round to
-bf16 only as operands of the products. Causal masking is top-left aligned; a
-causal ``window`` keeps keys ``c`` with ``c + window > r``.
+G1 and G2 run on the Hopper design of ``csrc/attention_bwd_wgmma.cu`` (TMA,
+``wgmma``, warp-specialised; ``kernel_design``), whose note says what bounds
+them on the H100. Their operands are bf16 (f32 inputs are rounded to bf16 for
+the tensor cores, as kernel A does) or, with ``quantized``, int8 per-token
+codes from kernel C1 with the dequant scales folded into the per-pair chain,
+as in the TPU kernels. ``p`` and ``ds`` are f32 and round to bf16 only as
+operands of the products, and come from the final LSE, so no tile enters the
+rounding: the kernels differ from the plain version in summation order alone.
+Causal masking is top-left aligned; a causal ``window`` keeps keys ``c`` with
+``c + window > r``.
 
 :func:`flash_bwd` takes the plain PyTorch version below for tensors on the
 CPU and launches G1 then G2 (``attention_bwd_dq``, ``attention_bwd_dkv``,
@@ -39,6 +42,14 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import _repeat_kv
 
 #: Elements of one chunk of f32 logits in the plain version (1 GiB).
 _PLAIN_CHUNK_ELEMS = 1 << 28
+#: The designs of G1/G2: one, on Hopper's TMA and ``wgmma``.
+DESIGNS = ("wgmma",)
+
+
+def kernel_design(quantized: bool = False) -> str:
+    """Which design of G1/G2 runs a mode: ``"wgmma"`` for bf16 operands and
+    for int8 codes alike."""
+    return "wgmma"
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -144,6 +155,7 @@ def _check_kernel_inputs(q, k, v, do, lse2, di, scales):
 
 def _launch(parts, q, k, v, do, lse2, di, scales, *, causal, window, scale2, ds_scale, dq_dtype, dkv_dtype):
     _check_kernel_inputs(q, k, v, do, lse2, di, scales)
+    quant = q.dtype == torch.int8
     b, h, s_q, d = q.shape
     hk, s_k = k.shape[1], k.shape[2]
     out = lambda dt: torch.float32 if dt == torch.float32 else torch.bfloat16  # noqa: E731
@@ -153,14 +165,14 @@ def _launch(parts, q, k, v, do, lse2, di, scales, *, causal, window, scale2, ds_
     ptrs = [x.data_ptr() if x is not None else None for x in (q, k, v, do, lse2, di, *scales, dq, dk, dv)]
     lib = _build.library()
     with torch.cuda.device(q.device):
-        err = lib.lowbit_attn_bwd(
+        err = lib.lowbit_attn_bwd_wgmma(
             *ptrs,
-            b, h, hk, s_q, s_k, d, int(q.dtype == torch.int8), int(causal), int(window),
+            b, h, hk, s_q, s_k, d, int(quant), int(causal), int(window),
             int(dq_dtype == torch.float32), int(dkv_dtype == torch.float32), parts, scale2, ds_scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "attention_bwd")
-    return dq, dk, dv
+    return dq, dk, dv, kernel_design(quant)
 
 
 def attention_bwd_dq(q, k, v, do, lse2, di, q_scale=None, k_scale=None, v_scale=None, do_scale=None, *, causal,
@@ -169,9 +181,10 @@ def attention_bwd_dq(q, k, v, do, lse2, di, q_scale=None, k_scale=None, v_scale=
     :func:`bwd_operands` forms (contiguous, head_dim 64 or 128). Returns
     ``dq`` in ``dq_dtype`` (the kernel writes bf16 or f32; other types are
     cast)."""
-    dq, _, _ = _launch(1, q, k, v, do, lse2, di, (q_scale, k_scale, v_scale, do_scale), causal=causal, window=window,
-                       scale2=scale2, ds_scale=ds_scale, dq_dtype=dq_dtype, dkv_dtype=dq_dtype)
+    dq, _, _, design = _launch(1, q, k, v, do, lse2, di, (q_scale, k_scale, v_scale, do_scale), causal=causal,
+                               window=window, scale2=scale2, ds_scale=ds_scale, dq_dtype=dq_dtype, dkv_dtype=dq_dtype)
     attention_bwd_dq.launches += 1
+    attention_bwd_dq.launches_by_design[design] += 1
     return dq.to(dq_dtype)
 
 
@@ -179,15 +192,20 @@ def attention_bwd_dkv(q, k, v, do, lse2, di, q_scale=None, k_scale=None, v_scale
                       window=0, scale2, ds_scale, dkv_dtype):
     """Kernel G2 on CUDA tensors: ``(dk, dv)``, summed over each KV head's
     group, from the operands :func:`attention_bwd_dq` takes."""
-    _, dk, dv = _launch(2, q, k, v, do, lse2, di, (q_scale, k_scale, v_scale, do_scale), causal=causal,
-                        window=window, scale2=scale2, ds_scale=ds_scale, dq_dtype=dkv_dtype, dkv_dtype=dkv_dtype)
+    _, dk, dv, design = _launch(2, q, k, v, do, lse2, di, (q_scale, k_scale, v_scale, do_scale), causal=causal,
+                                window=window, scale2=scale2, ds_scale=ds_scale, dq_dtype=dkv_dtype,
+                                dkv_dtype=dkv_dtype)
     attention_bwd_dkv.launches += 1
+    attention_bwd_dkv.launches_by_design[design] += 1
     return dk.to(dkv_dtype), dv.to(dkv_dtype)
 
 
-#: Launches of kernels G1 and G2 in this process.
+#: Launches of kernels G1 and G2 in this process (CPU calls do not count), in
+#: all and per design.
 attention_bwd_dq.launches = 0
 attention_bwd_dkv.launches = 0
+attention_bwd_dq.launches_by_design = {design: 0 for design in DESIGNS}
+attention_bwd_dkv.launches_by_design = {design: 0 for design in DESIGNS}
 
 
 def bwd_operands(q, k, v, o, lse2, do, *, is_causal: bool, sm_scale: float, quantized: bool = False, window: int = 0):
@@ -221,7 +239,7 @@ def _attention_bwd_cuda(q, k, v, do, lse2, di, *scales, causal, window, scale2, 
     dp = 64 if d <= 64 else 128
     if dp != d:
         q, k, v, do = (torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k, v, do))
-    # cp.async moves 16-byte chunks: rows must start on 16-byte boundaries.
+    # TMA and the kernels' row loads move 16-byte chunks: rows must start on 16-byte boundaries.
     q, k, v, do = (x if x.is_contiguous() and x.data_ptr() % 16 == 0 else x.clone(memory_format=torch.contiguous_format)
                    for x in (q, k, v, do))
     lse2, di = lse2.contiguous(), di.contiguous()

@@ -2,7 +2,8 @@
 
     python3 script/torch_attention_ab.py [VARIANT ...]
 
-Each variant is a patch of ``csrc/attention_fwd_wgmma.cu`` (see VARIANTS),
+Each variant is a patch of ``csrc/attention_fwd_wgmma.cu`` or of the shared
+header ``csrc/sm90.cuh`` (see VARIANTS),
 built in its own copy of the package under ``build/attention_ab/<name>/``.
 Every build (the checkout's as "main", then each variant's) times kernel A
 in its own process: int8 with Q quantized in the kernel and fp at b1 h30
@@ -25,7 +26,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "lowbit_quant_fa2_paddle_tpu_torch"
 SRC = os.path.join("csrc", "attention_fwd_wgmma.cu")
 
-# name: (what it changes, [(old, new), ...] on csrc/attention_fwd_wgmma.cu)
+# name: (what it changes, [(old, new), ...] on csrc/attention_fwd_wgmma.cu, or
+# (file under csrc/, old, new))
 VARIANTS = {
     "nwg2": ("two consumer warpgroups at d64 instead of three",
              [("constexpr int kNWG = D == 64 ? 3 : 2;", "constexpr int kNWG = 2;")]),
@@ -35,7 +37,7 @@ VARIANTS = {
                  ("      named_bar_arrive(bar_other, 256);\n", ""), ("    named_bar_arrive(bar_other, 256);\n", ""),
                  ("    if (wg != NWG - 1) named_bar_arrive(bar_other, 256);\n", "")]),
     "exp2f": ("exp2f (with its range fix-up) instead of ex2.approx.ftz",
-              [("  asm(\"ex2.approx.ftz.f32 %0, %1;\\n\" : \"=f\"(y) : \"f\"(x));", "  y = exp2f(x);")]),
+              [("sm90.cuh", "  asm(\"ex2.approx.ftz.f32 %0, %1;\\n\" : \"=f\"(y) : \"f\"(x));", "  y = exp2f(x);")]),
     "int-round": ("bf16 rounding of s - m by integer round-to-nearest-even, not cvt.rn.bf16x2",
                   [("          const uint32_t dd = pack_bf16x2(s0 - m_run[hf], s1 - m_run[hf]);\n"
                     "          s0 = ex2(bf16_lo(dd));\n          s1 = ex2(bf16_hi(dd));",
@@ -97,15 +99,15 @@ def prepare(name: str) -> str:
     root = os.path.join(REPO, "build", "attention_ab", name)
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(REPO, PKG), os.path.join(root, PKG), ignore=shutil.ignore_patterns("build"))
-    path = os.path.join(root, PKG, SRC)
-    with open(path) as f:
-        text = f.read()
-    for old, new in VARIANTS[name][1]:
+    for patch in VARIANTS[name][1]:
+        src, old, new = patch if len(patch) == 3 else (os.path.basename(SRC), *patch)
+        path = os.path.join(root, PKG, "csrc", src)
+        with open(path) as f:
+            text = f.read()
         if old not in text:
-            raise RuntimeError(f"variant {name}: patch does not apply: {old[:60]!r}")
-        text = text.replace(old, new)
-    with open(path, "w") as f:
-        f.write(text)
+            raise RuntimeError(f"variant {name}: patch does not apply to {src}: {old[:60]!r}")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
     return root
 
 

@@ -1,17 +1,20 @@
-"""Instructions per (q, k) pair in kernel A's main loop, from the SASS of a built library.
+"""Instructions per (q, k) pair in the attention kernels' main loops, from the SASS of a built library.
 
     python3 script/torch_attention_sass.py [LIBRARY.so ...]
 
 With no argument it builds the port's kernels (``ops/_build.py``) and reads
-that library. For every instance of kernel A in each library (the wgmma
-design's ``attn_fwd_wgmma_kernel``, the ``mma.sync`` design's
-``attn_fwd_kernel``) it finds the innermost loop that holds the exp2s,
-drops the masked block (the branch over the FSELs to MASK_VALUE), divides
-what is left by the (q, k) pairs a thread takes per iteration (64 on the
-wgmma design, 32 on mma.sync) and prints the total and the instructions of
-the conversion and MUFU pipes (F2F, F2FP, I2F, I2FP, MUFU), each per pair.
-Needs ``cuobjdump`` from the CUDA toolkit, so it runs on the machine with
-the card.
+that library. For every instance of kernel A (the wgmma design's
+``attn_fwd_wgmma_kernel``, the ``mma.sync`` design's ``attn_fwd_kernel``) and
+of kernels G1/G2 (``attn_bwd_dq_wgmma_kernel`` / ``attn_bwd_dkv_wgmma_kernel``)
+in each library it finds the innermost loop that holds the exp2s (one per
+pair), drops the masked code (G's masked copy of the per-pair chain, the
+branch of two that each hold a tile's exp2s with the more integer compares;
+else A's branch over at least one FSEL to MASK_VALUE per pair and no exp2),
+divides what is left by
+the (q, k) pairs a thread takes per iteration and prints the total, the
+tensor-core instructions (HGMMA, HMMA, IMMA) and the instructions of the
+conversion and MUFU pipes (F2F, F2FP, I2F, I2FP, MUFU), each per pair. Needs
+``cuobjdump`` from the CUDA toolkit, so it runs on the machine with the card.
 """
 
 from __future__ import annotations
@@ -35,6 +38,18 @@ def cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found: set CUDA_HOME or put it on PATH")
 
 
+def pairs_per_iteration(head: str):
+    """(q, k) pairs one thread takes per main-loop iteration, or None for a
+    kernel this script does not read."""
+    if "attn_fwd_wgmma_kernel" in head:
+        return 64  # 64 rows x 128 keys per warpgroup
+    if "attn_fwd_kernel" in head:
+        return 32
+    if "attn_bwd_dq_wgmma_kernel" in head or "attn_bwd_dkv_wgmma_kernel" in head:
+        return 32  # 64 x 64 per warpgroup
+    return None
+
+
 def branch_target(rest: str):
     t = re.search(r"0x([0-9a-f]+)", rest)
     return int(t.group(1), 16) if t else None
@@ -52,14 +67,21 @@ def main_loop_counts(body_text: str, pairs: int):
                 loop = body
     if loop is None:
         return None
-    masked = []
+    ex2 = lambda blk: sum(x[2] == "MUFU.EX2" for x in blk)  # noqa: E731
+    copies, masked = [], []
     for a, pred, op, rest in loop:
-        t = branch_target(rest) if op.startswith("BRA") and pred else None
+        t = branch_target(rest) if op.startswith("BRA") else None
         if t is not None and t > a:
             blk = [x for x in loop if a < x[0] < t]
-            if any("-2.38197" in x[3] for x in blk) and not any(x[2] == "MUFU.EX2" for x in blk):
+            if pairs <= ex2(blk) < ex2(loop):
+                copies.append(blk)
+            elif pred and sum(x[2].startswith(("FSEL", "SEL")) for x in blk) >= pairs and not ex2(blk):
                 masked.append(blk)
-    drop = {x[0] for x in min(masked, key=len)} if masked else set()
+    if copies:
+        drop = max(copies, key=lambda blk: sum(x[2].startswith("ISETP") for x in blk))
+    else:
+        drop = min(masked, key=len) if masked else []
+    drop = {x[0] for x in drop}
     return collections.Counter(x[2] for x in loop if x[0] not in drop)
 
 
@@ -68,16 +90,18 @@ def report(lib: str) -> None:
     print(lib)
     for part in re.split(r"(?=\n\s+Function : )", sass):
         head = part.split("\n", 2)[1].strip() if part.count("\n") > 1 else ""
-        if "attn_fwd_wgmma_kernel" not in head and "attn_fwd_kernel" not in head:
+        pairs = pairs_per_iteration(head)
+        if pairs is None:
             continue
-        pairs = 64 if "wgmma" in head else 32
         c = main_loop_counts(part, pairs)
         if c is None:
             continue
         slow = {k: v for k, v in c.items() if k.startswith(("MUFU", "F2F", "I2F"))}
+        tensor = sum(v for k, v in c.items() if k.startswith(("HGMMA", "HMMA", "IMMA")))
         print(f"  {head.split(':', 1)[1].strip()[-72:]}")
-        print(f"    {sum(c.values()) / pairs:.2f} instructions per pair; conversion/MUFU "
-              f"{sum(slow.values()) / pairs:.2f}: " + ", ".join(f"{k} {v / pairs:.2f}" for k, v in sorted(slow.items())))
+        print(f"    {sum(c.values()) / pairs:.2f} instructions per pair; tensor cores {tensor / pairs:.3f}; "
+              f"conversion/MUFU {sum(slow.values()) / pairs:.2f}: "
+              + ", ".join(f"{k} {v / pairs:.2f}" for k, v in sorted(slow.items())))
 
 
 if __name__ == "__main__":

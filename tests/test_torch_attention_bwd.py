@@ -69,6 +69,8 @@ BWD_CASES = {
     "quantized": (jnp.bfloat16, False, 4, 4, 256, 64, True, 0),
     "quantized-causal-gqa-s300": (jnp.bfloat16, True, 4, 2, 300, 64, True, 0),
     "window64-s384": (jnp.bfloat16, True, 4, 4, 384, 64, False, 64),
+    "d128-causal-gqa-s301": (jnp.bfloat16, True, 4, 2, 301, 128, False, 0),
+    "window128-gqa-hk2-s384": (jnp.bfloat16, True, 4, 2, 384, 64, False, 128),
 }
 
 
@@ -153,3 +155,35 @@ def test_window_size_raises_and_blocks_change_nothing():
         base = _port_grads(fn, q, k, v, tgt, torch.bfloat16, True)
         tiled = _port_grads(fn, q, k, v, tgt, torch.bfloat16, True, None, 64, 128)
         assert all(torch.equal(a, b) for a, b in zip(base, tiled))
+
+
+def test_kernel_design_by_mode():
+    """bf16 operands (the training path) and int8 codes both run on the wgmma
+    design, whose launches each wrapper counts apart."""
+    assert tbwd.kernel_design() == tbwd.kernel_design(False) == tbwd.kernel_design(True) == "wgmma"
+    assert tbwd.DESIGNS == ("wgmma",)
+    for fn in (tbwd.attention_bwd_dq, tbwd.attention_bwd_dkv):
+        assert set(fn.launches_by_design) == set(tbwd.DESIGNS)
+
+
+@pytest.mark.parametrize("quantized,causal,window", [(False, False, 0), (False, True, 48), (True, True, 0)],
+                         ids=["float", "float-window48", "quantized-causal"])
+def test_plain_version_is_independent_of_its_chunks(monkeypatch, quantized, causal, window):
+    """p comes from the final LSE, so the backward's rounding depends on no
+    tile: attention_bwd_plain gives the same gradients whatever its q-row
+    chunks (1 row, 7 rows, all rows), up to the order of its f32 sums (dk and
+    dv add the chunks; a one-row QK^T takes another BLAS path), within a
+    sixteenth of a bf16 ulp of max|grad| (measured 1/256). So the kernels of
+    either design, whatever their tiles, differ from it only in summation
+    order, unlike kernel A's plain version, which follows A's KV tile."""
+    q, k, v, do = _inputs(4, 4, 2, 150, 64, jnp.bfloat16)
+    o, lse2 = jax_flash_fp(q, k, v, is_causal=causal, window_size=window or None, return_lse=True)
+    args, kw = tbwd.bwd_operands(*(_t(x, torch.bfloat16) for x in (q, k, v, o)), _t(lse2), _t(do, torch.bfloat16),
+                                 is_causal=causal, sm_scale=0.125, quantized=quantized, window=window)
+    outs = []
+    for rows in (1, 7, 150):
+        monkeypatch.setattr(tbwd, "_PLAIN_CHUNK_ELEMS", rows * 4 * 150)
+        outs.append(tbwd.attention_bwd_plain(*args, **kw, dq_dtype=torch.float32, dkv_dtype=torch.float32))
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert float((a - b).abs().max()) <= float(a.abs().max()) * 2.0**-12

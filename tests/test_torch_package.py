@@ -111,8 +111,8 @@ def test_build_command_targets_sm90a_from_repo_sources():
     srcs = [a for cmd in compiles for a in cmd if a.endswith(".cu")]
     assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "attention_bwd.cu", "attention_fwd.cu", "attention_fwd_wgmma.cu", "decode_attention.cu",
-        "fused_kv_attention.cu", "gemv.cu", "quant.cu"]
+        "attention_bwd_wgmma.cu", "attention_fwd.cu", "attention_fwd_wgmma.cu",
+        "decode_attention.cu", "fused_kv_attention.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert all(f"-I{_build.CSRC_DIR}" in cmd for cmd in compiles)  # the shared headers, e.g. sm90.cuh
     assert os.path.join(_build.CSRC_DIR, "sm90.cuh") in _build.hashed_files()
@@ -393,6 +393,62 @@ def test_attention_bwd_kernels_match_plain(cuda, quantized, causal, window, h, h
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype == dtype, name
+        top = float(b.float().abs().max())
+        assert float(cosine_similarity(a, b)) >= 0.99999, name
+        assert float((a.float() - b.float()).abs().max()) <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7), name
+
+
+WGMMA_BWD_EDGES = {
+    # name: (causal, window, h, hk, d, sq, sk, dtype)
+    "sq1-sk1": (False, 0, 4, 4, 64, 1, 1, torch.bfloat16),
+    "sq127-sk129-gqa": (False, 0, 4, 2, 64, 127, 129, torch.bfloat16),
+    "sq129-sk127-causal": (True, 0, 4, 4, 64, 129, 127, torch.bfloat16),
+    "sq1-sk777": (False, 0, 4, 4, 64, 1, 777, torch.bfloat16),
+    "sq777-sk1-causal": (True, 0, 4, 4, 64, 777, 1, torch.bfloat16),
+    "sq129-sk777-d128": (False, 0, 4, 4, 128, 129, 777, torch.bfloat16),
+    "causal-gqa-32q8kv-d128-s777": (True, 0, 32, 8, 128, 777, 777, torch.bfloat16),
+    "window256-s1000": (True, 256, 4, 4, 64, 1000, 1000, torch.bfloat16),
+    "window256-gqa-d128-s777": (True, 256, 4, 2, 128, 777, 777, torch.bfloat16),
+    "d32-padded-causal-gqa": (True, 0, 4, 2, 32, 300, 300, torch.bfloat16),
+    "f32-in-f32-out": (False, 0, 2, 1, 64, 300, 300, torch.float32),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(WGMMA_BWD_EDGES))
+def test_wgmma_attention_bwd_edges_match_plain(cuda, case):
+    """G1/G2's wgmma design at its edges: Sq and Sk of 1, 127, 129 and 777
+    (lse and di rows that do not start on 16 bytes), Sq != Sk, causal GQA
+    32q/8kv d128, a window of 256, d32 padded to 64, f32 inputs and outputs.
+    Every launch on the wgmma design; the plain version's bounds (cos >=
+    0.99999, max|d| <= 2 bf16 ulps of max|grad|); dq, dk and dv the same
+    bits on a second run (no atomics). o is the forward's plus noise, so that
+    ds does not vanish where a row sees a single key (the formulas hold for
+    any o)."""
+    causal, window, h, hk, d, sq, sk, dtype = WGMMA_BWD_EDGES[case]
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(1, h, sq, d, generator=g, device=cuda).to(dtype)
+    k = (torch.randn(1, hk, sk, d, generator=g, device=cuda) + 0.3).to(dtype)
+    v = torch.randn(1, hk, sk, d, generator=g, device=cuda).to(dtype)
+    do = torch.randn(1, h, sq, d, generator=g, device=cuda).to(dtype)
+    o, lse = attention_reference(q, k, v, is_causal=causal, window_size=window or None, return_lse=True)
+    o = (o.float() + 0.5 * torch.randn(o.shape, generator=g, device=cuda)).to(dtype)
+    lse2 = lse * LOG2E
+    kw = dict(is_causal=causal, sm_scale=1.0 / math.sqrt(d), window=window)
+    n1, n2 = attention_bwd_dq.launches_by_design["wgmma"], attention_bwd_dkv.launches_by_design["wgmma"]
+    got = flash_bwd(q, k, v, o, lse2, do, **kw)
+    again = flash_bwd(q, k, v, o, lse2, do, **kw)
+    assert attention_bwd_dq.launches_by_design["wgmma"] == n1 + 2
+    assert attention_bwd_dkv.launches_by_design["wgmma"] == n2 + 2
+    args, kargs = bwd_operands(q, k, v, o, lse2, do, **kw)
+    want = attention_bwd_plain(*args, **kargs, dq_dtype=dtype, dkv_dtype=dtype)
+    torch.cuda.synchronize()
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.shape == b.shape and a.dtype == b.dtype == dtype, name
+        assert torch.equal(a, a2), name
+        assert bool(torch.isfinite(a.float()).all()), name
         top = float(b.float().abs().max())
         assert float(cosine_similarity(a, b)) >= 0.99999, name
         assert float((a.float() - b.float()).abs().max()) <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7), name
