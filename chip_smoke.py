@@ -77,11 +77,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
 9. kernel D (decode_attention) against its plain version: int8 and bf16
    caches at b4 h32 hk8 d128 S_max 32768 with lengths [32768, 1, 4097, 0],
    d64 MHA, d32 GQA 8q/2kv, and the checkpoint's b64 S_max 128 with f32
-   queries, with and without the LSE. Both sides are f32
+   queries, with and without the LSE; and the design's edges: lengths
+   127/128/129, lengths at a split boundary +- 1 (from the split plan), a
+   GQA group of 8 (64q/8kv d128) and f32 queries at d32. Both sides are f32
    and differ only in summation order: cos >= 0.99999, max|do| <= one bf16
-   ulp of max|o|, max|dlse| <= 1e-4. Timed at every length 32768 for both
-   caches, with the GB/s of cache bytes streamed (SDPA, one query per head,
-   beside the bf16 cache);
+   ulp of max|o|, max|dlse| <= 1e-4; the same bits on a second run, every
+   launch on D's design (csrc/decode_attention.cu). Timed at every length
+   32768 for both caches, with the GB/s of cache bytes streamed (SDPA, one
+   query per head, beside the bf16 cache);
 10. kernels F1/F2 (wq_matmul_per_channel, wq_matmul_fused) against their
    plain versions: w8, w8a8, w4 per-channel and grouped 2/4/8-bit (group
    128) at the full-width decode shapes M=4 x (N, K) in {(4096, 4096),
@@ -94,9 +97,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    counted;
 11. kernel E (fused_packed_kv_attention) against its plain version: bits 4
    and 2, causal or not, at b4 h32 s8192 d64 (the kivi4 sweep shape) and
-   GQA 32q/8kv d128 at a ragged s1000 and at Sq 700 != Sk 1000 (group 64);
-   cos >= 0.99999, max|do| <= 2e-2; timed at b4 h32 s8192 d64 beside SDPA
-   on the dequantized bf16 K/V; its entry point once, counted;
+   GQA 32q/8kv d128 at a ragged s1000 and at Sq 700 != Sk 1000 (group 64),
+   and the wgmma design's edges (groups 32 and 512 against its 128-key
+   tiles, Sk 129, Sk 777 with group 100, causal Sq 700 / Sk 1000 at d128);
+   cos >= 0.99999, max|do| <= 2e-2, the same bits on a second run, every
+   launch on the wgmma design (csrc/fused_kv_attention_wgmma.cu); timed at
+   b4 h32 s8192 d64 beside SDPA on the dequantized bf16 K/V; its entry
+   point once, counted;
 12. the trained checkpoint eval_out/arith_llm.npz: greedy generate of 4
    tokens on 64 three-shot addition prompts, with the int8 and the bf16
    cache, then with per-channel w8 and w4 weights on the int8 cache; task
@@ -111,10 +118,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    Prints block-weight bytes, prefill seconds, decode ms per token, peak
    memory; the first decode step's int8-vs-bf16 logits cos must be >=
    0.999 and w8-vs-dense >= 0.99 (w4 printed); the counters must show depth
-   A (wgmma design) and C1 launches per prefill, depth x 63 D launches, and
-   192 x 63 F1 (w8) or F2 (w4) launches and none at prefill. Then one decode step per
-   weight format under torch.profiler: device ms of F, the dense GEMMs, D
-   and the rest.
+   A (wgmma design) and C1 launches per prefill, depth x 63 D launches (all
+   on D's design), and 192 x 63 F1 (w8) or F2 (w4) launches and none at
+   prefill. Then one decode step per weight format under torch.profiler at
+   a 256-token context, and one per cache mode at the full 32K context with
+   dense weights: device ms of F, the dense GEMMs, D and the rest.
 
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
@@ -939,10 +947,17 @@ def decode_inputs(gen, b, h, hk, d, s, bits, lengths, q_dtype=torch.bfloat16):
 
 
 def decode_phase(gen):
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+    """Kernel D against its plain version (see the module note, phase 9),
+    its edges (lengths at 127/128/129 and at a split boundary +- 1, a GQA
+    group of 8, f32 queries at d32), the same bits on a second run, every
+    launch on its one design; then timed."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
 
     b, h, hk, d, s = 4, 32, 8, 128, 32768
+    # The split plan of the b4 h32 hk8 d128 edge case (S_max 4096), for the
+    # lengths around its first split boundary.
+    slots = {bits: DD._resident_ctas(0, d, bits == 8, bits == 8, bits == 8) for bits in (8, 16)}
     cases = [
         ("d128 GQA 32q/8kv s32768", dict(b=b, h=h, hk=hk, d=d, s=s, lengths=[s, 1, 4097, 0])),
         ("d64 MHA s5000", dict(b=2, h=8, hk=8, d=64, s=5000, lengths=[5000, 77])),
@@ -950,31 +965,43 @@ def decode_phase(gen):
         # The checkpoint's decode: b64, S_max 128, lengths 36-38, f32 queries.
         ("d32 GQA 8q/2kv b64 s128 f32", dict(b=64, h=8, hk=2, d=32, s=128, lengths=[36 + i % 3 for i in range(64)],
                                              q_dtype=torch.float32)),
+        ("edge d128 lengths 127/128/129", dict(b=4, h=h, hk=hk, d=d, s=4096, lengths=[127, 128, 129, 4096])),
+        ("edge d128 GQA group 8 (64q/8kv)", dict(b=2, h=64, hk=8, d=d, s=3000, lengths=[3000, 1999])),
+        ("edge d32 f32 queries s777", dict(b=3, h=8, hk=2, d=32, s=777, lengths=[777, 1, 500], q_dtype=torch.float32)),
     ]
     records = {}
     for bits, mode in ((8, "int8"), (16, "bf16")):
+        chunk = DD.num_splits(4096, 4 * hk, slots[bits])[1]
+        edge = ("edge d128 split boundary +-1", dict(b=4, h=h, hk=hk, d=d, s=4096,
+                                                     lengths=[chunk - 1, chunk, chunk + 1, 2 * chunk + 1]))
         worst = 0.0
-        for name, kw in cases:
+        for name, kw in cases + [edge]:
             kargs, kkw, pargs, pkw = decode_inputs(gen, bits=bits, **kw)
-            o, lse = decode_attention(*kargs, **kkw, return_lse=True)
-            o_ref, lse_ref = decode_attention_plain(*pargs, **pkw)
+            n = DD.decode_attention.launches_by_design[DD.kernel_design()]
+            o, lse = DD.decode_attention(*kargs, **kkw, return_lse=True)
+            o2, lse2 = DD.decode_attention(*kargs, **kkw, return_lse=True)
+            o_ref, lse_ref = DD.decode_attention_plain(*pargs, **pkw)
             torch.cuda.synchronize()
             r = stats(o, o_ref, lse, lse_ref)
-            ulp = 2.0 ** (math.floor(math.log2(float(o_ref.float().abs().max()))) - 7)
-            empty = [i for i, n in enumerate(kw["lengths"]) if n == 0]
+            ulp = bf16_ulp(float(o_ref.float().abs().max()))
+            empty = [i for i, n_ in enumerate(kw["lengths"]) if n_ == 0]
             empty_ok = all(float(o[i].float().abs().max()) == 0.0 and bool((lse[i] == -1e30).all()) for i in empty)
+            same = torch.equal(o, o2) and torch.equal(lse, lse2)
+            on_design = DD.decode_attention.launches_by_design[DD.kernel_design()] == n + 2
             fields = " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items())
-            log(f"[D] {mode} {name}: {fields} bf16_ulp={ulp:.3g} empty_rows_ok={empty_ok}")
-            if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= ulp and r["max_dlse"] <= 1e-4 and empty_ok):
+            log(f"[D] {mode} {name} (lengths {kw['lengths'][:5]}): {fields} bf16_ulp={ulp:.3g} "
+                f"empty_rows_ok={empty_ok} same_bits_twice={same} design={DD.kernel_design()}:{on_design}")
+            if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= ulp and r["max_dlse"] <= 1e-4 and empty_ok
+                    and same and on_design):
                 raise AssertionError(f"kernel D disagrees with its plain version ({mode}, {name}): {r}")
             worst = max(worst, r["max_do"])
             if name.startswith("d128"):  # the no-LSE launch writes the same output
-                if not torch.equal(decode_attention(*kargs, **kkw), o):
+                if not torch.equal(DD.decode_attention(*kargs, **kkw), o):
                     raise AssertionError("kernel D output differs with return_lse=False")
-            del kargs, pargs, o, o_ref
+            del kargs, pargs, o, o_ref, o2
         kargs, kkw, pargs, pkw = decode_inputs(gen, b, h, hk, d, s, bits, [s] * b)
-        ms = cuda_time_ms(lambda: decode_attention(*kargs, **kkw), warmup=5, reps=50)
-        plain_ms = cuda_time_ms(lambda: decode_attention_plain(*pargs, **pkw), warmup=1, reps=5)
+        ms = cuda_time_ms(lambda: DD.decode_attention(*kargs, **kkw), warmup=5, reps=50)
+        plain_ms = cuda_time_ms(lambda: DD.decode_attention_plain(*pargs, **pkw), warmup=1, reps=5)
         q, kq, vq, ks, lens = kargs
         cache_bytes = nbytes(kq, vq, ks, pargs[4])
         gbps = cache_bytes / (ms * 1e-3) / 1e9
@@ -988,7 +1015,7 @@ def decode_phase(gen):
             f"({gbps:.1f} GB/s of {cache_bytes / 1e6:.1f} MB cache), plain {plain_ms:.4f} ms, "
             f"bound {lim['bound_ms']:.4f} ms, SDPA {library_ms}")
         records[mode] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "gbps": gbps, **lim,
-                         "library_ms": library_ms}
+                         "library_ms": library_ms, "design": DD.kernel_design()}
         del kargs, pargs
     return records
 
@@ -1013,9 +1040,9 @@ def count_reset():
             w.launches_by_design[key] = 0
 
 
-def design_counts():
-    """Kernel A's launches per design since the last count_reset()."""
-    return dict(_wrappers()["A"].launches_by_design)
+def design_counts(name="A"):
+    """A kernel's launches per design since the last count_reset()."""
+    return dict(_wrappers()[name].launches_by_design)
 
 
 def counts():
@@ -1027,10 +1054,13 @@ def check_counts(where, got, depth, decode_steps, f1=0, f2=0):
     once per layer and decode step, and the given F1/F2 counts."""
     want = {"A": depth, "C1": depth, "C2": 0, "C3": 0, "D": depth * decode_steps, "E": 0, "F1": f1, "F2": f2,
             "G1": 0, "G2": 0}
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import kernel_design as d_design
+
     designs = design_counts()  # the prefill's A on the wgmma design
-    log(f"[{where}] launches {got} (want {want}), kernel A by design {designs}")
-    if got != want or designs != {"wgmma": depth, "mma.sync": 0}:
-        raise AssertionError(f"{where}: launch counts {got} != {want} or {designs}")
+    d_designs = design_counts("D")  # every decode launch on D's one design
+    log(f"[{where}] launches {got} (want {want}), kernel A by design {designs}, kernel D by design {d_designs}")
+    if got != want or designs != {"wgmma": depth, "mma.sync": 0} or d_designs != {d_design(): want["D"]}:
+        raise AssertionError(f"{where}: launch counts {got} != {want} or {designs} or {d_designs}")
 
 
 def checkpoint_phase():
@@ -1266,25 +1296,37 @@ def fused_kv_phase(gen):
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import attention_flops, cuda_time_ms, tflops
 
     worst = 0.0
+    design = FK.kernel_design()
+    shapes = [("b4 h32 s8192 d64", (4, 32, 32, 8192, 8192, 64, 256)),
+              ("GQA 32q/8kv d128 s1000", (2, 32, 8, 1000, 1000, 128, 256)),
+              ("GQA 32q/8kv d128 sq700 sk1000 group64", (2, 32, 8, 700, 1000, 128, 64))]
+    # The design's edges: groups smaller and larger than its 128-key tile,
+    # key counts just past one tile and ragged, causal Sq != Sk at d128.
+    edges = [("edge group32 s1000", (1, 8, 8, 1000, 1000, 64, 32)),
+             ("edge group512 GQA 8q/2kv s1000", (1, 8, 2, 1000, 1000, 64, 512)),
+             ("edge sk129", (1, 8, 8, 300, 129, 64, 64)),
+             ("edge sk777 group100", (1, 8, 4, 300, 777, 64, 100)),
+             ("edge d128 sq700 sk1000", (1, 16, 4, 700, 1000, 128, 128))]
     for bits in (4, 2):
         for causal in (False, True):
-            for shape, (b, h, hk, sq, sk, d, group) in [("b4 h32 s8192 d64", (4, 32, 32, 8192, 8192, 64, 256)),
-                                                         ("GQA 32q/8kv d128 s1000", (2, 32, 8, 1000, 1000, 128, 256)),
-                                                         ("GQA 32q/8kv d128 sq700 sk1000 group64",
-                                                          (2, 32, 8, 700, 1000, 128, 64))]:
+            for shape, (b, h, hk, sq, sk, d, group) in shapes + edges:
                 name = f"int{bits} {'causal ' if causal else ''}{shape}"
                 args = fused_kv_inputs(gen, b, h, hk, sq, sk, d, bits, group)
+                n = FK.fused_packed_kv_attention.launches_by_design[design]
                 o = FK.fused_packed_kv_attention(*args, bits=bits, is_causal=causal, group=group)
+                o2 = FK.fused_packed_kv_attention(*args, bits=bits, is_causal=causal, group=group)
                 o_ref = FK.fused_kv_attention_plain(*args, bits=bits, group=group, causal=causal,
                                                     sm_scale_log2e=LOG2E / math.sqrt(d), out_dtype=torch.bfloat16)
                 torch.cuda.synchronize()
                 r = stats(o, o_ref)
+                same = torch.equal(o, o2)
+                on_design = FK.fused_packed_kv_attention.launches_by_design[design] == n + 2
                 log(f"[E] {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-                                               for k, v in r.items()))
-                if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= MAX_DO):
+                                               for k, v in r.items()) + f" same_bits_twice={same} {design}:{on_design}")
+                if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= MAX_DO and same and on_design):
                     raise AssertionError(f"kernel E disagrees with its plain version in case {name}: {r}")
                 worst = max(worst, r["max_do"])
-                del args, o, o_ref
+                del args, o, o2, o_ref
     b, h, s, d, bits, group = 4, 32, 8192, 64, 4, 256
     args = fused_kv_inputs(gen, b, h, h, s, s, d, bits, group)
     flops = attention_flops(b, h, d, s, s, False)
@@ -1306,11 +1348,13 @@ def fused_kv_phase(gen):
     torch.cuda.synchronize()
     got = counts()
     want = {key: int(key == "E") for key in got}
-    log(f"[E] entry point fused_packed_kv_attention(bits=4) b{b} h{h} s{s} d{d}: launches {got}")
-    if got != want or not bool(torch.isfinite(o.float()).all()):
-        raise AssertionError(f"kernel E entry point: launches {got} != {want}")
+    by_design = dict(FK.fused_packed_kv_attention.launches_by_design)
+    log(f"[E] entry point fused_packed_kv_attention(bits=4) b{b} h{h} s{s} d{d}: launches {got}, E by design "
+        f"{by_design}")
+    if got != want or by_design != {design: 1} or not bool(torch.isfinite(o.float()).all()):
+        raise AssertionError(f"kernel E entry point: launches {got} != {want} or {by_design}")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": sdpa_ms,
-            "causal_ms": causal_ms, "launches": got["E"]}
+            "causal_ms": causal_ms, "launches": got["E"], "design": design}
 
 
 # The JAX package's exact-match on the same 64 prompts with the int8 cache,
@@ -1489,8 +1533,18 @@ def full_width_phase():
     for mode, m_run in (("dense", model), ("w8", packed[8]), ("w4", packed[4])):
         cats, top = decode_step_profile(m_run, prompt[:, :256], small)
         res.setdefault("profile", {})[mode] = cats
-        log(f"[llm] decode step device ms, {mode} weights: " + ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) +
-            f"; total {sum(cats.values()):.3f}; {top}")
+        log(f"[llm] decode step device ms at a 256-token context, {mode} weights: " +
+            ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) + f"; total {sum(cats.values()):.3f}; {top}")
+    # The same at the full context (a 32,704-token prompt, S_max 32768), dense
+    # weights, per cache mode: D streams the whole cache there.
+    for mode, bits in (("int8", 8), ("bf16", 16)):
+        t0 = time.perf_counter()
+        cats, top = decode_step_profile(model, prompt, dataclasses.replace(cfg, kv_bits=bits))
+        torch.cuda.empty_cache()
+        res.setdefault("profile_32k", {})[mode] = cats
+        log(f"[llm] decode step device ms at a {prompt_len + 2}-token context, {mode} cache, dense weights: " +
+            ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) + f"; total {sum(cats.values()):.3f}; {top} "
+            f"({time.perf_counter() - t0:.1f} s with its prefill)")
     return res
 
 
@@ -1575,9 +1629,9 @@ def main():
             ("wq_matmul_fused (F2: 8-bit, group 128)", "g8", gemv["g8"]["launches"]),
         ]
     ] + [
-        dict(name="fused_packed_kv_attention (int4 K/V)", route="cuda", source=f"{src}/fused_kv_attention.cu",
+        dict(name="fused_packed_kv_attention (int4 K/V)", route="cuda", source=f"{src}/fused_kv_attention_wgmma.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py:377", launches=fkv["launches"],
-             **{k: fkv[k] for k in timing}),
+             **{k: fkv[k] for k in timing + ("design",)}),
     ] + [
         dict(name=f"{fn} ({kern}, {desc})", route="cuda", source=f"{src}/attention_bwd_wgmma.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/attention_bwd.py:" + ("302" if kern == "G1" else "346"),

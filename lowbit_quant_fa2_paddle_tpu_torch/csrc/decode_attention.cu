@@ -9,43 +9,64 @@
 // Math per key, as in the TPU kernel:
 //   int8 K:  qa = fma(max|q|, 1/127, 1e-7), q8 = round_away(q / qa)
 //            s  = ((f32(q8 . k8) * (qa * sm_scale)) * ks) * log2e
-//   float:   s  = (((q . k) * sm_scale) * ks) * log2e          (f32 dot)
+//   float:   s  = (((q . k) * sm_scale) * ks) * log2e          (f32 sums)
 //   s = -0.7 * FLT_MAX where pos >= length;  online softmax in base 2 with
 //   f32 P (P is NOT rounded to bf16); l sums P; an int8 V's scale is folded
 //   into P after that; acc += P V in f32; o = acc / l, lse = m + log2 l.
 //
 // Bound on the H100: memory. Decode streams the whole cache once per token
-// (at b4 hk8 s32768 d128: 268 MB of int8 K/V, 537 MB of bf16) for ~2 FLOPs
-// per byte. The TPU kernel walks the cache with one grid row per (batch, KV
-// head); that would fill 32 of 132 SMs here. So the KV axis is split: the
-// first kernel gives each CTA one (batch, KV head, query rows, split) and
-// writes the split's unnormalised (acc, m, l); the second merges the splits.
-// The split count comes from the cache size and the SM count on the host,
-// never from the lengths (reading them there would sync the decode loop).
-// Rows at or past a sequence's length are never loaded: after a rollback
-// they may hold stale data. A split wholly past the length writes
-// m = -1e30, l = 0 and the merge gives it no weight.
+// (at b4 hk8 s32768 d128: 268 MB of int8 K/V, 537 MB of bf16) for ~2
+// operations per byte. The KV axis is split so that every SM gets work: one
+// CTA per (batch, KV head, query rows, split), and the last CTA of a (batch,
+// KV head, rows) to finish, found by an atomic ticket, merges the splits in
+// a fixed order (the same bits whichever CTA finished last) and writes o and
+// the LSE. One launch per call. The split count comes from the cache size
+// and the kernel's occupancy on the host, never from the lengths (reading
+// them there would sync the decode loop). Rows at or past a sequence's
+// length are never loaded: after a rollback they may hold stale data. A
+// split wholly past the length gives m = -1e30, l = 0 and no weight.
 //
-// Design of the split pass (4 warps): K/V tiles of 64 keys stream through a
-// two-stage cp.async ring in padded shared memory. QK: each thread dots one
-// key with the CTA's query rows over half of D (__dp4a on int8 codes, fma on
-// floats); the softmax runs one warp per query row; PV: each thread owns 4
-// output columns of every row for a quarter (d128) of the keys, so a V word
-// is loaded and widened once for all rows. int8 codes widen by a byte
-// permute and one subtraction, off the conversion pipe. mma/wgmma and TMA
-// are later work.
+// Design (160 threads): one producer warp keeps NST stages of BK keys in
+// flight: lane 0 copies the tile's K and V rows (contiguous in the cache) with
+// one cp.async.bulk each, completion counted in bytes on the stage's
+// mbarrier; the per-token f32 scales, whose rows need not start on 16 bytes,
+// come by 4-byte cp.async from every lane, which arrive on the same barrier
+// when they land. Four consumer warps each own whole tiles (tile j goes to
+// warp j % 4) and keep their own online-softmax state for the CTA's R <= 8
+// query rows, so nothing in the loop waits on the other warps. QK runs on the
+// tensor cores with the K tile as the A operand (16 keys) and the query rows
+// as B (n = 8): mma.sync m16n8k32 s8 for int8 K (exact integer dots, as
+// __dp4a), m16n8k16 bf16 otherwise (bf16 queries: exact products, f32 sums
+// in another order; f32 queries are split into three bf16 terms hi + mid +
+// lo, which carry all 24 bits, so nothing is rounded to bf16). Each thread
+// reads 8 or 16 contiguous bytes of a K row, so the dimension order inside
+// an mma is permuted, the same for K and the queries. P stays f32: the warp
+// writes P (times the V scale) to its own shared scratch and runs PV on the
+// CUDA cores in f32, each lane 4 (d128) output columns of every row, a V row
+// read once per warp. The per-warp states merge through the split partials.
+//
+// Measured on an H100 80GB HBM3 at 700 W (script/torch_decode_ab.py) at b4
+// h32 hk8 s32768 d128: int8 cache 0.107 ms, bf16 0.185 (SDPA with one query
+// a head: 0.185); with the loads alone (its copy-only probe) 0.095 / 0.183,
+// about 2.9 TB/s of cache bytes: the load structure, not the math, bounds it.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int BK = 64;    // keys per tile
-constexpr int NT = 128;   // threads per CTA of the split pass
-constexpr int RMAX = 8;   // query rows per CTA, at most
-constexpr int SROW = BK + 1;  // padded row of the score buffers (floats)
+using namespace sm90;
+
+constexpr int NW = 4;          // consumer warps
+constexpr int NT = 32 * (NW + 1);
+constexpr int RMAX = 8;        // query rows per CTA, at most (the mma's n)
+// Ring stages, a multiple of NW: the tiles of a stage all go to one warp, so
+// a warp never waits on a phase that another warp's tile still holds.
+constexpr int NST = 2 * NW;
 constexpr float MASK_VALUE = (float)(-0.7 * 3.4028234663852886e38);
 constexpr float NEG_INIT = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -54,25 +75,41 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Helpers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+// A bulk copy global -> shared, completion in bytes on bar, with an L2
+// evict-first policy: the cache is read once a call (measured 1.5% faster
+// on the bf16 cache than the default policy).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 pol;\ncreatepolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], pol;\n}\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
+// Arrives on bar once this thread's earlier cp.async copies have landed
+// (the barrier's expected count includes this arrival).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -81,123 +118,109 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Four int8 codes of a word to exact floats: each byte, biased by 128, is
 // placed in the mantissa of 2^23 and the bias subtracted.
-__device__ __forceinline__ void widen(uint32_t w, float* f) {
+__device__ __forceinline__ void widen_i8(uint32_t w, float* f) {
   const uint32_t u = w ^ 0x80808080u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388736.0f;
+  for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388736.0f;
 }
 
-// Two bf16 of a word to floats.
-__device__ __forceinline__ void widen_bf16(uint32_t w, float* f) {
-  f[0] = __uint_as_float(w << 16);
-  f[1] = __uint_as_float(w & 0xffff0000u);
-}
-
-// The elements of one 16-byte chunk of a cache row, as floats.
-template <typename T>
-__device__ __forceinline__ void widen16(const uint4& c, float* f) {
-  if constexpr (sizeof(T) == 1) {
-    widen(c.x, f);
-    widen(c.y, f + 4);
-    widen(c.z, f + 8);
-    widen(c.w, f + 12);
+// N contiguous bytes of shared memory (N = 1, 2, 4, 8, 16) as words.
+template <int N>
+__device__ __forceinline__ void lds(const unsigned char* p, uint32_t* w) {
+  if constexpr (N == 16) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+  } else if constexpr (N == 8) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x, w[1] = x.y;
+  } else if constexpr (N == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (N == 2) {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
   } else {
-    widen_bf16(c.x, f);
-    widen_bf16(c.y, f + 2);
-    widen_bf16(c.z, f + 4);
-    widen_bf16(c.w, f + 6);
+    w[0] = *p;
   }
 }
 
-// The four elements [4c, 4c+4) of a cache row, as floats.
-template <typename T>
-__device__ __forceinline__ void widen4(const unsigned char* row, int c, float* f) {
-  if constexpr (sizeof(T) == 1) {
-    widen(*reinterpret_cast<const uint32_t*>(row + 4 * c), f);
+// The CPL elements of a V row a lane owns, as floats.
+template <typename VT, int CPL>
+__device__ __forceinline__ void v_cols(const unsigned char* p, float* f) {
+  if constexpr (sizeof(VT) == 1) {
+    uint32_t w[1];
+    lds<CPL>(p, w);
+    if constexpr (CPL == 4) {
+      widen_i8(w[0], f);
+    } else {
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) f[i] = (float)(int8_t)(w[0] >> (8 * i));
+    }
   } else {
-    const uint2 w = *reinterpret_cast<const uint2*>(row + 8 * c);
-    widen_bf16(w.x, f);
-    widen_bf16(w.y, f + 2);
+    uint32_t w[CPL >= 2 ? CPL / 2 : 1];
+    lds<2 * CPL>(p, w);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) f[i] = i & 1 ? bf16_hi(w[i / 2]) : bf16_lo(w[i / 2]);
   }
 }
 
-// Address of cache row `key` of the (batch, KV head) row `bh`. This is the
-// one place a paged cache would look the row up in its page table.
-template <typename T>
-__device__ __forceinline__ const T* cache_row(const T* base, long long bh, int key, int S, int width) {
-  return base + (bh * S + key) * (long long)width;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
-
 // ---------------------------------------------------------------------------
-// Shared memory of the split pass. Cache rows are padded by 16 bytes, so the
-// 8 rows a quarter-warp reads with 16-byte loads fall on distinct banks.
-// ---------------------------------------------------------------------------
-
-template <int D, typename KT, typename VT>
-struct Smem {
-  static constexpr int kKRow = D * (int)sizeof(KT) + 16;  // bytes
-  static constexpr int kVRow = D * (int)sizeof(VT) + 16;
-  static constexpr int kKOff = 0;
-  static constexpr int kVOff = kKOff + 2 * BK * kKRow;
-  static constexpr int kKsOff = kVOff + 2 * BK * kVRow;      // 2 x BK f32 K scales
-  static constexpr int kVsOff = kKsOff + 2 * BK * 4;         // 2 x BK f32 V scales
-  static constexpr int kSOff = kVsOff + 2 * BK * 4;          // 2 halves x RMAX x SROW f32
-  static constexpr int kQOff = kSOff + 2 * RMAX * SROW * 4;  // RMAX x D f32 queries
-  static constexpr int kQ8Off = kQOff + RMAX * D * 4;        // RMAX x D int8 query codes
-  static constexpr int kMiscOff = kQ8Off + RMAX * D;         // alpha[RMAX], q scale[RMAX]
-  static constexpr int kLoop = kMiscOff + 2 * RMAX * 4;
-  static constexpr int kKG = NT / (D / 4);                   // key groups of the PV pass
-  static constexpr int kRed = kKG * RMAX * D * 4;            // PV partials, after the loop
-  static constexpr int kTotal = kLoop > kRed ? kLoop : kRed;
-  static_assert(kQOff % 16 == 0 && kQ8Off % 16 == 0, "16-byte aligned query buffers");
-};
-
-// ---------------------------------------------------------------------------
-// Split pass. Grid: (n_splits, Hk * groups, B), groups = (H / Hk) / R.
+// Shapes and shared memory of one variant
 // ---------------------------------------------------------------------------
 
 template <int D, typename KT, typename VT, bool kIntQK>
-__global__ void __launch_bounds__(NT) decode_split_kernel(
-    const float* __restrict__ q, const KT* __restrict__ k, const VT* __restrict__ v,
-    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-    const int* __restrict__ lengths, float* __restrict__ part_acc, float* __restrict__ part_ml,
-    int H, int Hk, int S, int R, int n_splits, int chunk, float sm_scale) {
-  using L = Smem<D, KT, VT>;
+struct Cfg {
+  static constexpr int kKRow = D * (int)sizeof(KT);  // bytes of a cache row
+  static constexpr int kVRow = D * (int)sizeof(VT);
+  // Keys per tile: 16 KB of K/V at most (measured faster than 8 KB for the
+  // bf16 cache), 16 at least.
+  static constexpr int BK = 64 * (kKRow + kVRow) <= 16384 ? 64 : 32 * (kKRow + kVRow) <= 16384 ? 32 : 16;
+  // QK operands: each thread reads E contiguous elements of a K row per
+  // window of 4 E dimensions; MMA products (of 8 operand bytes a row) per window.
+  static constexpr int E = kIntQK && D >= 64 ? 16 : 8;
+  static constexpr int WD = 4 * E;
+  static constexpr int NWIN = D / WD;
+  static constexpr int MMA = kIntQK ? E / 8 : 2;
+  static constexpr int CPL = D / 32;  // output columns a lane owns in PV
+  static constexpr int kKOff = 0;
+  static constexpr int kVOff = kKOff + NST * BK * kKRow;
+  static constexpr int kKsOff = kVOff + NST * BK * kVRow;  // NST x BK f32 K scales
+  static constexpr int kVsOff = kKsOff + NST * BK * 4;     // NST x BK f32 V scales
+  // Per consumer warp: BK x 8 f32 P and 8 alphas. The prologue's query
+  // buffers (RMAX x D f32, RMAX x D int8 codes, RMAX scales) live here first.
+  static constexpr int kPWarp = BK * RMAX * 4 + RMAX * 4;
+  static constexpr int kPOff = kVsOff + NST * BK * 4;
+  static constexpr int kQf = kPOff, kQ8 = kQf + RMAX * D * 4, kQs = kQ8 + RMAX * D;
+  static constexpr int kQBytes = RMAX * D * 5 + RMAX * 4;
+  static constexpr int kBarOff = kPOff + (NW * kPWarp > kQBytes ? NW * kPWarp : (kQBytes + 15) / 16 * 16);
+  static constexpr int kTotal = kBarOff + 2 * NST * 8 + 16;  // + the ticket
+  // The merge's part weights, (NW + 1) x n_parts f32, reuse the ring.
+  static constexpr int kMaxParts = kVOff / ((NW + 1) * 4);
+  static_assert(kKRow % 16 == 0 && kVRow % 16 == 0, "bulk copies move 16-byte multiples");
+};
+
+// ---------------------------------------------------------------------------
+// The kernel. Grid: (n_splits, Hk * groups, B), groups = (H / Hk) / R.
+// ---------------------------------------------------------------------------
+
+template <int D, typename KT, typename VT, bool kIntQK>
+__global__ void __launch_bounds__(NT) decode_kernel(
+    const void* __restrict__ q, const KT* __restrict__ k, const VT* __restrict__ v,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, const int* __restrict__ lengths,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int* __restrict__ tickets, void* __restrict__ o,
+    float* __restrict__ lse, int H, int Hk, int S, int R, int n_splits, int chunk, int q_bf16, int out_code,
+    float sm_scale) {
+  using C = Cfg<D, KT, VT, kIntQK>;
+  constexpr int BK = C::BK, E = C::E, WD = C::WD, CPL = C::CPL;
   constexpr bool kVInt8 = sizeof(VT) == 1;
-  constexpr int KCPR = D * (int)sizeof(KT) / 16;  // 16-byte chunks per K row
-  constexpr int VCPR = D * (int)sizeof(VT) / 16;
-  constexpr int EPC = 16 / (int)sizeof(KT);       // K elements per chunk
-  constexpr int KG = L::kKG;
-  constexpr int CW = D / 4;                       // 4-column groups per row
+  constexpr bool kKInt8 = sizeof(KT) == 1;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* ks_s = reinterpret_cast<float*>(smem + L::kKsOff);
-  float* vs_s = reinterpret_cast<float*>(smem + L::kVsOff);
-  float* S0 = reinterpret_cast<float*>(smem + L::kSOff);  // [2][RMAX][SROW]
-  float* q_s = reinterpret_cast<float*>(smem + L::kQOff);
-  int8_t* q8_s = reinterpret_cast<int8_t*>(smem + L::kQ8Off);
-  float* alpha_s = reinterpret_cast<float*>(smem + L::kMiscOff);
-  float* qsc_s = alpha_s + RMAX;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* empty = full + NST;
+  int* ticket_s = reinterpret_cast<int*>(empty + NST);
+  float* ks_s = reinterpret_cast<float*>(smem + C::kKsOff);
+  float* vs_s = reinterpret_cast<float*>(smem + C::kVsOff);
 
   const int split = blockIdx.x, b = blockIdx.z;
   const int groups = (H / Hk) / R;
@@ -205,307 +228,378 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
   const int h0 = hk * (H / Hk) + (blockIdx.y % groups) * R;  // first query head of this CTA
   const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
   const long long kh = (long long)b * Hk + hk;
-
   const int len = min(max(lengths[b], 0), S);
   const int start = split * chunk;
   const int end = min(start + chunk, len);
-  float* pacc = part_acc + ((long long)b * H + h0) * n_splits * D;
-  float* pml = part_ml + ((long long)b * H + h0) * n_splits * 2;
+  const int n_tiles = end > start ? (end - start + BK - 1) / BK : 0;
+  const int n_parts = n_splits * NW;
 
-  if (start >= end) {  // nothing visible in this split
-    for (int i = tid; i < R * D; i += NT) pacc[((long long)(i / D) * n_splits + split) * D + i % D] = 0.0f;
-    if (tid < R) {
-      pml[((long long)tid * n_splits + split) * 2] = NEG_INIT;
-      pml[((long long)tid * n_splits + split) * 2 + 1] = 0.0f;
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the bulk copies' thread, then every lane's scale copies
+      mbar_init(&empty[s], 1);      // lane 0 of the warp that owns the tile
     }
-    return;
+    mbar_fence_init();
   }
-
-  // ---- K/V tile loads; nothing at or past `end` is read ----
-  auto load_tile = [&](int key0, int buf) {
-    unsigned char* Kd = smem + L::kKOff + buf * BK * L::kKRow;
-    unsigned char* Vd = smem + L::kVOff + buf * BK * L::kVRow;
-    for (int c = tid; c < BK * KCPR; c += NT) {
-      const int r = c / KCPR, cc = c % KCPR;
-      const bool ok = key0 + r < end;
-      const KT* src = cache_row(k, kh, ok ? key0 + r : start, S, D) + cc * EPC;
-      cp_async16(Kd + r * L::kKRow + cc * 16, src, ok);
-    }
-    for (int c = tid; c < BK * VCPR; c += NT) {
-      const int r = c / VCPR, cc = c % VCPR;
-      const bool ok = key0 + r < end;
-      const VT* src = cache_row(v, kh, ok ? key0 + r : start, S, D) + cc * (16 / (int)sizeof(VT));
-      cp_async16(Vd + r * L::kVRow + cc * 16, src, ok);
-    }
-    if (tid < BK) {
-      const bool ok = key0 + tid < end;
-      cp_async4(ks_s + buf * BK + tid, cache_row(k_scale, kh, ok ? key0 + tid : start, S, 1), ok);
-      if constexpr (kVInt8)
-        cp_async4(vs_s + buf * BK + tid, cache_row(v_scale, kh, ok ? key0 + tid : start, S, 1), ok);
-    }
-  };
-
-  const int n_tiles = (end - start + BK - 1) / BK;
-  load_tile(start, 0);
-  cp_async_commit();
-
-  // ---- the CTA's query rows; int8 K quantizes them per row here ----
-  const float* qg = q + ((long long)b * H + h0) * D;
-  for (int i = tid; i < R * D; i += NT) q_s[i] = qg[i];
   __syncthreads();
-  if constexpr (kIntQK) {
-    for (int r = warp; r < R; r += NT / 32) {
-      float amax = 0.0f;
-      for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(q_s[r * D + d]));
-      const float sc = __fmaf_rn(warp_max(amax), 1.0f / 127.0f, 1e-7f);
-      for (int d = lane; d < D; d += 32) {
-        const float c = fminf(fmaxf(roundf(__fdiv_rn(q_s[r * D + d], sc)), -127.0f), 127.0f);
-        q8_s[r * D + d] = static_cast<int8_t>(c);
+
+  if (warp == NW) {
+    // ---- producer warp: stage j % NST takes tile j; nothing at or past `end` is read ----
+    const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + kh * S * C::kKRow;
+    const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + kh * S * C::kVRow;
+    const float* ksg = k_scale + kh * S;
+    const float* vsg = kVInt8 ? v_scale + kh * S : nullptr;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % NST, key0 = start + j * BK, n = min(BK, end - key0);
+      mbar_wait(&empty[st], ((j / NST) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[st], n * (C::kKRow + C::kVRow));
+        bulk_copy(smem + C::kKOff + st * BK * C::kKRow, kg + (long long)key0 * C::kKRow, n * C::kKRow, &full[st]);
+        bulk_copy(smem + C::kVOff + st * BK * C::kVRow, vg + (long long)key0 * C::kVRow, n * C::kVRow, &full[st]);
       }
-      if (lane == 0) qsc_s[r] = __fmul_rn(sc, sm_scale);
+      for (int i = lane; i < n; i += 32) {
+        cp_async4(ks_s + st * BK + i, ksg + key0 + i);
+        if constexpr (kVInt8) cp_async4(vs_s + st * BK + i, vsg + key0 + i);
+      }
+      cp_async_mbar_arrive(&full[st]);
     }
-  }
-
-  // Softmax state of the rows this warp owns (rows warp, warp + 4).
-  float m_run[RMAX / 4], l_run[RMAX / 4];
+  } else {
+    // ---- consumer warps ----
+    const int g = lane >> 2, t = lane & 3;
+    // The CTA's query rows (zeros past R), then per row the int8 codes:
+    // qa = fma(max|q|, 1/127, 1e-7), code = clamp(round_away(q / qa)).
+    float* q_f = reinterpret_cast<float*>(smem + C::kQf);
+    int8_t* q8 = reinterpret_cast<int8_t*>(smem + C::kQ8);
+    float* qsc_s = reinterpret_cast<float*>(smem + C::kQs);
+    for (int i = tid; i < RMAX * D; i += 32 * NW) {
+      const int r = i / D;
+      float x = 0.0f;
+      if (r < R) {
+        const long long at = ((long long)b * H + h0 + r) * D + i % D;
+        x = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at]) : static_cast<const float*>(q)[at];
+      }
+      q_f[i] = x;
+    }
+    named_bar_sync(1, 32 * NW);
+    if constexpr (kIntQK) {
+      for (int r = warp; r < RMAX; r += NW) {
+        float amax = 0.0f;
+        for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(q_f[r * D + d]));
+        const float sc = __fmaf_rn(warp_max(amax), 1.0f / 127.0f, 1e-7f);
+        for (int d = lane; d < D; d += 32) {
+          const float c = fminf(fmaxf(roundf(__fdiv_rn(q_f[r * D + d], sc)), -127.0f), 127.0f);
+          q8[r * D + d] = static_cast<int8_t>(c);
+        }
+        if (lane == 0) qsc_s[r] = __fmul_rn(sc, sm_scale);
+      }
+      named_bar_sync(1, 32 * NW);
+    }
+    // B fragments of the query rows (n = g), in the dimension order the K
+    // loads below use: window w, product c covers dims w*WD + t*E + 8c .. + 7
+    // (int8) or + 4c .. + 3 (bf16). f32 queries: three bf16 terms.
+    const int nqs = kIntQK || q_bf16 ? 1 : 3;
+    uint32_t bq[C::NWIN][C::MMA][kIntQK ? 1 : 3][2];
 #pragma unroll
-  for (int i = 0; i < RMAX / 4; ++i) {
-    m_run[i] = NEG_INIT;
-    l_run[i] = 0.0f;
-  }
-  // PV accumulator: rows x columns [4 cg, 4 cg + 4) over keys kg, kg + KG, ...
-  const int cg = tid % CW, kg = tid / CW;
-  float acc[RMAX][4];
+    for (int w = 0; w < C::NWIN; ++w)
 #pragma unroll
-  for (int r = 0; r < RMAX; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
-
-  // QK: thread (half, key) dots one key over half of the row's chunks.
-  const int qk_key = tid % BK, half = tid / BK;
-  constexpr int HC = KCPR / 2;  // chunks per half
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    const int key0 = start + j * BK;
-    if (j + 1 < n_tiles) load_tile(key0 + BK, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const unsigned char* Kt = smem + L::kKOff + buf * BK * L::kKRow;
-    const unsigned char* Vt = smem + L::kVOff + buf * BK * L::kVRow;
-    const int n_valid = min(BK, end - key0);
-
-    // ---- QK partial dots -> S0[half][r][key] ----
-    {
-      float dot[RMAX];
-#pragma unroll
-      for (int r = 0; r < RMAX; ++r) dot[r] = 0.0f;
-      if (qk_key < n_valid) {
-        const unsigned char* krow = Kt + qk_key * L::kKRow;
+      for (int c = 0; c < C::MMA; ++c) {
         if constexpr (kIntQK) {
-          int idot[RMAX];
-#pragma unroll
-          for (int r = 0; r < RMAX; ++r) idot[r] = 0;
-#pragma unroll
-          for (int c = half * HC; c < (half + 1) * HC; ++c) {
-            const uint4 kw = *reinterpret_cast<const uint4*>(krow + 16 * c);
-#pragma unroll
-            for (int r = 0; r < RMAX; ++r) {
-              if (r < R) {
-                const uint4 qw = *reinterpret_cast<const uint4*>(q8_s + r * D + 16 * c);
-                idot[r] = __dp4a((int)kw.x, (int)qw.x, idot[r]);
-                idot[r] = __dp4a((int)kw.y, (int)qw.y, idot[r]);
-                idot[r] = __dp4a((int)kw.z, (int)qw.z, idot[r]);
-                idot[r] = __dp4a((int)kw.w, (int)qw.w, idot[r]);
-              }
-            }
-          }
-#pragma unroll
-          for (int r = 0; r < RMAX; ++r) dot[r] = (float)idot[r];  // |half dot| < 2^24: exact
+          const int d0 = w * WD + t * E + 8 * c;
+          bq[w][c][0][0] = *reinterpret_cast<const uint32_t*>(q8 + g * D + d0);
+          bq[w][c][0][1] = *reinterpret_cast<const uint32_t*>(q8 + g * D + d0 + 4);
         } else {
+          const int d0 = w * WD + t * E + 4 * c;
+          float rem[4];
 #pragma unroll
-          for (int c = half * HC; c < (half + 1) * HC; ++c) {
-            float kf[EPC];
-            widen16<KT>(*reinterpret_cast<const uint4*>(krow + 16 * c), kf);
+          for (int i = 0; i < 4; ++i) rem[i] = q_f[g * D + d0 + i];
 #pragma unroll
-            for (int r = 0; r < RMAX; ++r) {
-              if (r < R) {
-                const float* qr = q_s + r * D + c * EPC;
+          for (int qs = 0; qs < 3; ++qs) {
+            float tr[4];
 #pragma unroll
-                for (int e = 0; e < EPC; e += 4) {
-                  const float4 q4 = *reinterpret_cast<const float4*>(qr + e);
-                  dot[r] = fmaf(q4.x, kf[e], dot[r]);
-                  dot[r] = fmaf(q4.y, kf[e + 1], dot[r]);
-                  dot[r] = fmaf(q4.z, kf[e + 2], dot[r]);
-                  dot[r] = fmaf(q4.w, kf[e + 3], dot[r]);
-                }
-              }
+            for (int i = 0; i < 4; ++i) {
+              tr[i] = __bfloat162float(__float2bfloat16_rn(rem[i]));
+              rem[i] -= tr[i];  // exact
             }
+            bq[w][c][qs][0] = pack_bf16x2(tr[0], tr[1]);
+            bq[w][c][qs][1] = pack_bf16x2(tr[2], tr[3]);
           }
         }
       }
-#pragma unroll
-      for (int r = 0; r < RMAX; ++r)
-        if (r < R) S0[(half * RMAX + r) * SROW + qk_key] = dot[r];
-    }
-    __syncthreads();
+    float qsc_r[2] = {sm_scale, sm_scale};
+    if constexpr (kIntQK) qsc_r[0] = qsc_s[2 * t], qsc_r[1] = qsc_s[2 * t + 1];
+    named_bar_sync(1, 32 * NW);  // the query buffers become P scratch
 
-    // ---- online softmax, one warp per row: S0[0] <- P (x V scale) ----
+    float* p_s = reinterpret_cast<float*>(smem + C::kPOff + warp * C::kPWarp);  // [BK][RMAX]
+    float* alpha_s = p_s + BK * RMAX;
+    float m_run[2] = {NEG_INIT, NEG_INIT}, l_run[2] = {0.0f, 0.0f};  // queries 2t, 2t + 1
+    float acc[RMAX][CPL];  // rows x columns [CPL lane, CPL lane + CPL)
 #pragma unroll
-    for (int i = 0; i < RMAX / 4; ++i) {
-      const int r = warp + 4 * i;
-      if (r < R) {
-        float s[BK / 32];
+    for (int r = 0; r < RMAX; ++r)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[r][c] = 0.0f;
+
+    for (int j = warp; j < n_tiles; j += NW) {
+      const int st = j % NST, key0 = start + j * BK, nv = min(BK, end - key0);
+      mbar_wait(&full[st], (j / NST) & 1);
+      const unsigned char* Kt = smem + C::kKOff + st * BK * C::kKRow;
+      const unsigned char* Vt = smem + C::kVOff + st * BK * C::kVRow;
+      const float* ks_t = ks_s + st * BK;
+      const float* vs_t = vs_s + st * BK;
+
+      // ---- S = K Q^T: keys 16 mt + g (+ 8) x queries 2t, 2t + 1 ----
+      float s[BK / 16][4];
+#pragma unroll
+      for (int mt = 0; mt < BK / 16; ++mt) {
+        const unsigned char* r0 = Kt + (mt * 16 + g) * C::kKRow;
+        const unsigned char* r1 = r0 + 8 * C::kKRow;
+        if constexpr (kIntQK) {
+          int c4[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int w = 0; w < C::NWIN; ++w) {
+            uint32_t w0[E / 4], w1[E / 4];
+            lds<E>(r0 + w * WD + t * E, w0);
+            lds<E>(r1 + w * WD + t * E, w1);
+#pragma unroll
+            for (int c = 0; c < C::MMA; ++c)
+              mma_s8(c4, w0[2 * c], w1[2 * c], w0[2 * c + 1], w1[2 * c + 1], bq[w][c][0][0], bq[w][c][0][1]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][e] = (float)c4[e];  // |dot| < 2^24: exact
+        } else {
+          float c4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int w = 0; w < C::NWIN; ++w) {
+            uint32_t w0[4], w1[4];  // 8 elements of each row as bf16x2
+            const int off = (w * WD + t * E) * (int)sizeof(KT);
+            if constexpr (kKInt8) {
+              uint32_t x0[2], x1[2];
+              lds<8>(r0 + off, x0);
+              lds<8>(r1 + off, x1);
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                w0[2 * i] = i8x2_to_bf16x2<0>(x0[i]), w0[2 * i + 1] = i8x2_to_bf16x2<2>(x0[i]);
+                w1[2 * i] = i8x2_to_bf16x2<0>(x1[i]), w1[2 * i + 1] = i8x2_to_bf16x2<2>(x1[i]);
+              }
+            } else {
+              lds<16>(r0 + off, w0);
+              lds<16>(r1 + off, w1);
+            }
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+#pragma unroll
+              for (int qs = 0; qs < 3; ++qs)
+                if (qs < nqs)
+                  mma_bf16(c4, w0[2 * c], w1[2 * c], w0[2 * c + 1], w1[2 * c + 1], bq[w][c][qs][0], bq[w][c][qs][1]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][e] = c4[e];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = mt * 16 + g + 8 * (e >> 1);
+          float x = __fmul_rn(s[mt][e], qsc_r[e & 1]);
+          x = __fmul_rn(__fmul_rn(x, ks_t[kl]), LOG2E);
+          s[mt][e] = kl < nv ? x : MASK_VALUE;
+        }
+      }
+
+      // ---- online softmax of queries 2t, 2t + 1 (a column's keys lie on the 8 lanes of one t) ----
+      float alpha[2];
+#pragma unroll
+      for (int qi = 0; qi < 2; ++qi) {
         float mx = MASK_VALUE;
 #pragma unroll
-        for (int e = 0; e < BK / 32; ++e) {
-          const int key = lane + 32 * e;
-          float x = S0[r * SROW + key] + S0[(RMAX + r) * SROW + key];
-          if constexpr (kIntQK) x = __fmul_rn(x, qsc_s[r]);
-          else x = __fmul_rn(x, sm_scale);
-          x = __fmul_rn(__fmul_rn(x, ks_s[buf * BK + key]), LOG2E);
-          s[e] = key < n_valid ? x : MASK_VALUE;
-          mx = fmaxf(mx, s[e]);
-        }
-        const float m_new = fmaxf(m_run[i], warp_max(mx));
-        const float alpha = exp2f(m_run[i] - m_new);
+        for (int mt = 0; mt < BK / 16; ++mt) mx = fmaxf(mx, fmaxf(s[mt][qi], s[mt][qi + 2]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m_run[qi], mx);
+        alpha[qi] = exp2f(m_run[qi] - m_new);
         float sum = 0.0f;
 #pragma unroll
-        for (int e = 0; e < BK / 32; ++e) {
-          const int key = lane + 32 * e;
-          const float p = exp2f(s[e] - m_new);
-          sum += p;
-          S0[r * SROW + key] = kVInt8 ? __fmul_rn(p, vs_s[buf * BK + key]) : p;
-        }
-        l_run[i] = alpha * l_run[i] + warp_sum(sum);
-        m_run[i] = m_new;
-        if (lane == 0) alpha_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // ---- acc = alpha acc + P V ----
+        for (int mt = 0; mt < BK / 16; ++mt)
 #pragma unroll
-    for (int r = 0; r < RMAX; ++r) {
-      if (r < R) {
-        const float a = alpha_s[r];
-        acc[r][0] *= a;
-        acc[r][1] *= a;
-        acc[r][2] *= a;
-        acc[r][3] *= a;
+          for (int hf = 0; hf < 2; ++hf) {
+            const float p = exp2f(s[mt][qi + 2 * hf] - m_new);
+            s[mt][qi + 2 * hf] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+        l_run[qi] = alpha[qi] * l_run[qi] + sum;
+        m_run[qi] = m_new;
       }
-    }
-    for (int key = kg; key < n_valid; key += KG) {
-      float vf[4];
-      widen4<VT>(Vt + key * L::kVRow, cg, vf);
+      // P (times an int8 V's scale) and alpha into the warp's scratch.
+#pragma unroll
+      for (int mt = 0; mt < BK / 16; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int kl = mt * 16 + g + 8 * hf;
+          float p0 = s[mt][2 * hf], p1 = s[mt][2 * hf + 1];
+          if constexpr (kVInt8) {
+            const float vsc = vs_t[kl];
+            p0 = __fmul_rn(p0, vsc);
+            p1 = __fmul_rn(p1, vsc);
+          }
+          store2(p_s + kl * RMAX + 2 * t, p0, p1);
+        }
+      if (g == 0) store2(alpha_s + 2 * t, alpha[0], alpha[1]);
+      __syncwarp();
+
+      // ---- acc = alpha acc + P V on the CUDA cores, in f32 ----
 #pragma unroll
       for (int r = 0; r < RMAX; ++r) {
         if (r < R) {
-          const float p = S0[r * SROW + key];
-          acc[r][0] = fmaf(p, vf[0], acc[r][0]);
-          acc[r][1] = fmaf(p, vf[1], acc[r][1]);
-          acc[r][2] = fmaf(p, vf[2], acc[r][2]);
-          acc[r][3] = fmaf(p, vf[3], acc[r][3]);
+          const float a = alpha_s[r];
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) acc[r][c] *= a;
+        }
+      }
+      const unsigned char* vcol = Vt + lane * CPL * (int)sizeof(VT);
+      auto pv_key = [&](int kl) {
+        float vf[CPL];
+        v_cols<VT, CPL>(vcol + kl * C::kVRow, vf);
+        const float4 pa = *reinterpret_cast<const float4*>(p_s + kl * RMAX);
+        const float4 pb = R > 4 ? *reinterpret_cast<const float4*>(p_s + kl * RMAX + 4) : make_float4(0, 0, 0, 0);
+        const float p[RMAX] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) {
+          if (r < R) {
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) acc[r][c] = fmaf(p[r], vf[c], acc[r][c]);
+          }
+        }
+      };
+      if (nv == BK) {
+#pragma unroll 8  // measured 6% faster than 4 on the int8 cache
+        for (int kl = 0; kl < BK; ++kl) pv_key(kl);
+      } else {
+        for (int kl = 0; kl < nv; ++kl) pv_key(kl);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    // ---- this warp's unnormalised (acc, m, l): part split * NW + warp ----
+    const int part = split * NW + warp;
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      if (r < R) {
+        float* dst = part_acc + (((long long)b * H + h0 + r) * n_parts + part) * D + lane * CPL;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) dst[c] = acc[r][c];
+      }
+    }
+    if (g == 0) {
+#pragma unroll
+      for (int qi = 0; qi < 2; ++qi) {
+        const int r = 2 * t + qi;
+        if (r < R) {
+          float* ml = part_ml + (((long long)b * H + h0 + r) * n_parts + part) * 2;
+          ml[0] = m_run[qi];
+          ml[1] = l_run[qi];
         }
       }
     }
-    __syncthreads();
   }
 
-  // ---- the split's unnormalised (acc, m, l) ----
-  float* red = reinterpret_cast<float*>(smem);  // [KG][RMAX][D]
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r) {
-    if (r < R) {
-      float* dst = red + (kg * RMAX + r) * D + 4 * cg;
-      *reinterpret_cast<float4*>(dst) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    }
-  }
+  // ---- the last CTA of this (batch, KV head, rows) merges every part ----
+  // One warp per row: its lanes take parts lane, lane + 32, ... for m and l
+  // (warp reductions in a fixed order), leave each part's weight in shared
+  // memory (the ring, idle now), then sum the weighted parts column by
+  // column with the loads of all parts in flight.
+  const int idx = blockIdx.z * gridDim.y + blockIdx.y;
+  __threadfence();
   __syncthreads();
-  for (int i = tid; i < R * D; i += NT) {
-    const int r = i / D, d = i % D;
-    float sum = 0.0f;
-    for (int g = 0; g < KG; ++g) sum += red[(g * RMAX + r) * D + d];
-    pacc[((long long)r * n_splits + split) * D + d] = sum;
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < RMAX / 4; ++i) {
-      const int r = warp + 4 * i;
-      if (r < R) {
-        pml[((long long)r * n_splits + split) * 2] = m_run[i];
-        pml[((long long)r * n_splits + split) * 2 + 1] = l_run[i];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Merge pass: one CTA per (batch, query head); thread d owns column d.
-// ---------------------------------------------------------------------------
-
-template <typename OutT>
-__global__ void __launch_bounds__(128) decode_merge_kernel(const float* __restrict__ part_acc,
-                                                           const float* __restrict__ part_ml,
-                                                           OutT* __restrict__ o,
-                                                           float* __restrict__ lse, int n_splits,
-                                                           int D) {
-  const long long bh = blockIdx.x;
-  const float* ml = part_ml + bh * n_splits * 2;
-  float m = NEG_INIT;
-  for (int s = 0; s < n_splits; ++s)
-    if (ml[2 * s + 1] > 0.0f) m = fmaxf(m, ml[2 * s]);
-  const int d = threadIdx.x;
-  float l = 0.0f, acc = 0.0f;
-  for (int s = 0; s < n_splits; ++s) {
-    const float ls = ml[2 * s + 1];
-    if (ls > 0.0f) {  // an empty split has no weight
-      const float w = exp2f(ml[2 * s] - m);
+  if (tid == 0) *ticket_s = atomicAdd(&tickets[idx], 1);
+  __syncthreads();
+  if (*ticket_s != n_splits - 1) return;
+  __threadfence();
+  float* w_s = reinterpret_cast<float*>(smem) + warp * n_parts;
+  for (int r = warp; r < R; r += NW + 1) {
+    const long long row = (long long)b * H + h0 + r;
+    const float* ml = part_ml + row * n_parts * 2;
+    float m = NEG_INIT;
+    for (int p = lane; p < n_parts; p += 32)
+      if (__ldcg(ml + 2 * p + 1) > 0.0f) m = fmaxf(m, __ldcg(ml + 2 * p));
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int p = lane; p < n_parts; p += 32) {
+      const float ls = __ldcg(ml + 2 * p + 1);
+      const float w = ls > 0.0f ? exp2f(__ldcg(ml + 2 * p) - m) : 0.0f;  // an empty part has no weight
       l = fmaf(w, ls, l);
-      if (d < D) acc = fmaf(w, part_acc[(bh * n_splits + s) * D + d], acc);
+      w_s[p] = w;
     }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    __syncwarp();
+    const float ls = l == 0.0f ? 1.0f : l;
+    const float* pa = part_acc + row * n_parts * D + lane * CPL;
+    float a[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) a[c] = 0.0f;
+#pragma unroll 4
+    for (int p = 0; p < n_parts; ++p) {
+      const float w = w_s[p];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) a[c] = fmaf(w, __ldcg(pa + (long long)p * D + c), a[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const long long at = row * D + lane * CPL + c;
+      const float out = __fdiv_rn(a[c], ls);
+      if (out_code == 0)
+        static_cast<float*>(o)[at] = out;
+      else if (out_code == 1)
+        static_cast<__nv_bfloat16*>(o)[at] = __float2bfloat16_rn(out);
+      else
+        static_cast<__half*>(o)[at] = __float2half_rn(out);
+    }
+    if (lse && lane == 0) lse[row] = m + log2f(ls);
+    __syncwarp();
   }
-  const float ls = l == 0.0f ? 1.0f : l;
-  if (d < D) o[bh * D + d] = from_f32<OutT>(__fdiv_rn(acc, ls));
-  if (lse && d == 0) lse[bh] = m + log2f(ls);
+  if (tid == 0) tickets[idx] = 0;  // ready for the next call on the stream
 }
 
-// The launch of one split-pass variant.
-struct SplitLaunch {
-  const float *q, *ks, *vs;
+// The launch of one variant.
+struct Launch {
+  const void* q;
+  const float *ks, *vs;
   const void *k, *v;
   const int* lengths;
   float *part_acc, *part_ml;
-  int B, H, Hk, S, R, n_splits, chunk;
+  int* tickets;
+  void* o;
+  float* lse;
+  int B, H, Hk, S, R, n_splits, chunk, q_bf16, out_code;
   float sm_scale;
   cudaStream_t st;
 
   template <int D, typename KT, typename VT, bool kIntQK>
   int run() const {
-    constexpr int smem = Smem<D, KT, VT>::kTotal;
-    auto kern = decode_split_kernel<D, KT, VT, kIntQK>;
-    const cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    constexpr int smem = Cfg<D, KT, VT, kIntQK>::kTotal;
+    if (n_splits * NW > Cfg<D, KT, VT, kIntQK>::kMaxParts) return (int)cudaErrorInvalidValue;
+    auto kern = decode_kernel<D, KT, VT, kIntQK>;
+    const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(n_splits, Hk * ((H / Hk) / R), B);
-    kern<<<grid, NT, smem, st>>>(q, static_cast<const KT*>(k), static_cast<const VT*>(v), ks, vs,
-                                 lengths, part_acc, part_ml, H, Hk, S, R, n_splits, chunk,
-                                 sm_scale);
+    kern<<<grid, NT, smem, st>>>(q, static_cast<const KT*>(k), static_cast<const VT*>(v), ks, vs, lengths, part_acc,
+                                 part_ml, tickets, o, lse, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, sm_scale);
     return (int)cudaGetLastError();
   }
 };
 
-// How many CTAs of one split-pass variant an SM holds at once.
-struct SplitOccupancy {
+// How many CTAs of one variant an SM holds at once.
+struct Occupancy {
   int* ctas_per_sm;
 
   template <int D, typename KT, typename VT, bool kIntQK>
   int run() const {
-    constexpr int smem = Smem<D, KT, VT>::kTotal;
-    auto kern = decode_split_kernel<D, KT, VT, kIntQK>;
+    constexpr int smem = Cfg<D, KT, VT, kIntQK>::kTotal;
+    auto kern = decode_kernel<D, KT, VT, kIntQK>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kern, NT, smem);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kern, NT, smem);
     return (int)err;
   }
 };
@@ -538,50 +632,34 @@ int with_variant(const Op& op, int D, int k_int8, int v_int8, int int_qk) {
 }  // namespace
 
 // All tensors contiguous, natural layout.
-//   q: [B, H, D] f32.   k, v: [B, Hk, S, D] int8 codes (k_int8 / v_int8) or bf16.
-//   k_scale: [B, Hk, S] f32.   v_scale: [B, Hk, S] f32 (int8 V only, else null).
-//   lengths: [B] int32 on the device.   part_acc: [B, H, n_splits, D] f32 and
-//   part_ml: [B, H, n_splits, 2] f32 scratch.   o: [B, H, D] f32 (out_code 0),
-//   bf16 (1) or f16 (2).   lse: [B, H] f32 (base 2) or null.
+//   q: [B, H, D] f32 (q_bf16 0) or bf16 (1).   k, v: [B, Hk, S, D] int8
+//   codes (k_int8 / v_int8) or bf16, 16-byte aligned.   k_scale: [B, Hk, S]
+//   f32.   v_scale: [B, Hk, S] f32 (int8 V only, else null).   lengths: [B]
+//   int32 on the device.   part_acc: [B, H, 4 n_splits, D] f32 and part_ml:
+//   [B, H, 4 n_splits, 2] f32 scratch.   tickets: [B, Hk * (H / Hk) / R]
+//   int32, zero before the launch and left zero after it (calls that share
+//   them run one after another).   o: [B, H, D] f32 (out_code 0), bf16 (1)
+//   or f16 (2).   lse: [B, H] f32 (base 2) or null.
 // R query rows (a divisor of H / Hk, at most 8) per CTA; splits of `chunk`
-// keys (a multiple of 64). Returns cudaGetLastError() (cudaErrorInvalidValue
-// for an unsupported D, mode or output type).
-extern "C" int lowbit_decode_attn(const float* q, const void* k, const void* v,
-                                  const float* k_scale, const float* v_scale, const int* lengths,
-                                  float* part_acc, float* part_ml, void* o, float* lse, int B,
-                                  int H, int Hk, int S, int D, int R, int k_int8, int v_int8,
-                                  int int_qk, int out_code, int n_splits, int chunk,
-                                  float sm_scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R < 1 || R > RMAX || (H / Hk) % R || chunk % BK || out_code < 0 || out_code > 2)
+// keys (a multiple of 64), at most 64 splits. One launch. Returns
+// cudaGetLastError() (cudaErrorInvalidValue for an unsupported D, mode or
+// output type, or too many splits).
+extern "C" int lowbit_decode_attn(const void* q, const void* k, const void* v, const float* k_scale,
+                                  const float* v_scale, const int* lengths, float* part_acc, float* part_ml,
+                                  int* tickets, void* o, float* lse, int B, int H, int Hk, int S, int D, int R,
+                                  int k_int8, int v_int8, int int_qk, int q_bf16, int out_code, int n_splits,
+                                  int chunk, float sm_scale, void* stream) {
+  if (R < 1 || R > RMAX || (H / Hk) % R || chunk % 64 || out_code < 0 || out_code > 2 || n_splits < 1)
     return (int)cudaErrorInvalidValue;
-  const SplitLaunch launch{q,        k_scale, v_scale, k,        v,     lengths,
-                           part_acc, part_ml, B,       H,        Hk,    S,
-                           R,        n_splits, chunk,  sm_scale, st};
-  const int err = with_variant(launch, D, k_int8, v_int8, int_qk);
-  if (err) return err;
-  const unsigned grid = (unsigned)((long long)B * H);
-  switch (out_code) {
-    case 0:
-      decode_merge_kernel<float><<<grid, 128, 0, st>>>(part_acc, part_ml, static_cast<float*>(o),
-                                                       lse, n_splits, D);
-      break;
-    case 1:
-      decode_merge_kernel<__nv_bfloat16><<<grid, 128, 0, st>>>(
-          part_acc, part_ml, static_cast<__nv_bfloat16*>(o), lse, n_splits, D);
-      break;
-    default:
-      decode_merge_kernel<__half><<<grid, 128, 0, st>>>(part_acc, part_ml, static_cast<__half*>(o),
-                                                        lse, n_splits, D);
-      break;
-  }
-  return (int)cudaGetLastError();
+  const Launch launch{q,    k_scale, v_scale, k,        v,     lengths, part_acc,  part_ml,
+                      tickets, o,    lse,     B,        H,     Hk,      S,         R,
+                      n_splits, chunk, q_bf16, out_code, sm_scale, static_cast<cudaStream_t>(stream)};
+  return with_variant(launch, D, k_int8, v_int8, int_qk);
 }
 
-// How many CTAs of the split-pass variant (D, k_int8, v_int8, int_qk) one SM
-// of the current device holds at once, into *ctas_per_sm. Returns a
-// cudaError_t. Host-side only: it does not touch the stream.
-extern "C" int lowbit_decode_ctas_per_sm(int D, int k_int8, int v_int8, int int_qk,
-                                         int* ctas_per_sm) {
-  return with_variant(SplitOccupancy{ctas_per_sm}, D, k_int8, v_int8, int_qk);
+// How many CTAs of the variant (D, k_int8, v_int8, int_qk) one SM of the
+// current device holds at once, into *ctas_per_sm. Returns a cudaError_t.
+// Host-side only: it does not touch the stream.
+extern "C" int lowbit_decode_ctas_per_sm(int D, int k_int8, int v_int8, int int_qk, int* ctas_per_sm) {
+  return with_variant(Occupancy{ctas_per_sm}, D, k_int8, v_int8, int_qk);
 }

@@ -8,8 +8,11 @@ The cache is a dict of tensors with the JAX package's keys: ``k``/``v``
 ``length`` int32 ``[B]``, which stays on the device.
 
 ``decode_attention`` takes the plain PyTorch version below for tensors on
-the CPU and launches ``csrc/decode_attention.cu`` for CUDA tensors (two
-CUDA kernels: a split-KV pass and a merge); nothing falls back.
+the CPU and launches ``csrc/decode_attention.cu`` for CUDA tensors (one
+launch: a split-KV pass whose last CTA per row group merges the splits; one
+design, ``kernel_design``: a producer warp's ring of bulk copies on
+mbarriers, consumer warps that each own whole tiles, QK on ``mma.sync``, PV
+in f32); nothing falls back.
 
 Semantics of one query token per sequence, as the TPU kernel computes them:
 
@@ -38,13 +41,20 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, MASK_VALUE, NEG_INIT, _not_ported
 from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import absmax_scale, cdiv, quant_codes
 
-#: Keys per shared-memory tile of kernel D (``BK`` in csrc/decode_attention.cu).
+#: Keys a split of kernel D is a whole multiple of (its tiles hold 64, 32
+#: or 16 keys: ``BK`` in csrc/decode_attention.cu).
 KV_TILE = 64
 #: Query rows (heads of one KV group) per CTA of kernel D, at most.
 MAX_ROWS = 8
-#: Waves of resident CTAs the split-KV pass aims for (one measured fastest
-#: on the H100 for both caches; PERF.md).
+#: Waves of resident CTAs the split-KV pass aims for.
 WAVES = 1
+#: Splits of one row group, at most (the merging CTA keeps a weight per
+#: split and warp in shared memory).
+MAX_SPLITS = 64
+#: Consumer warps per CTA of kernel D; each leaves one partial state per split.
+WARPS = 4
+#: Designs of kernel D: one, for every mode (int8/bf16 K and V, d32/64/128).
+DESIGNS = ("bulk_ring",)
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -203,10 +213,11 @@ def num_splits(s_max: int, ctas: int, slots: int) -> Tuple[int, int]:
     head, row group) rows on a card that holds ``slots`` CTAs at once: as
     many splits as fill ``WAVES`` whole waves (every CTA does the same work,
     so a partial last wave costs a whole CTA time), each split a whole
-    number of ``KV_TILE`` tiles. It depends on the cache size, never on the
-    lengths: reading them would sync the decode loop."""
+    number of ``KV_TILE`` tiles, at most ``MAX_SPLITS`` splits. It depends
+    on the cache size, never on the lengths: reading them would sync the
+    decode loop."""
     tiles = cdiv(s_max, KV_TILE)
-    want = max(1, min(WAVES * slots // ctas, tiles))
+    want = max(1, min(WAVES * slots // ctas, tiles, MAX_SPLITS))
     per = cdiv(tiles, want)
     return cdiv(tiles, per), per * KV_TILE
 
@@ -215,6 +226,28 @@ def rows_per_cta(group: int) -> int:
     """Query rows a CTA takes: the largest divisor of the GQA group up to
     ``MAX_ROWS`` (a larger group re-reads its KV head once per CTA)."""
     return max(r for r in range(1, min(group, MAX_ROWS) + 1) if group % r == 0)
+
+
+def kernel_design(k_int8: bool = True, v_int8: bool = True, int_qk: bool = True) -> str:
+    """Which design of kernel D runs a mode: ``"bulk_ring"`` for every
+    cache type and QK chain. The choice is static, by mode."""
+    if int_qk and not k_int8:
+        raise ValueError("the integer QK chain needs an int8 K cache")
+    return "bulk_ring"
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """Zeroed int32 counters of the splits' merge, one per (batch, KV head,
+    row group), kept per device. The kernel leaves them zero, so calls on
+    one stream reuse them without a clearing launch."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_qk, out_dtype, need_lse):
@@ -240,28 +273,33 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
     if lengths.dtype != torch.int32 or not lengths.is_contiguous():
         raise TypeError("lengths must be a contiguous int32 tensor")
     rows = rows_per_cta(h // hk)
-    if b > 65535 or hk * (h // hk // rows) > 65535:
+    row_groups = hk * (h // hk // rows)
+    if b > 65535 or row_groups > 65535:
         raise ValueError(f"batch and KV heads x row groups are CUDA grid dims (at most 65535): {b}, {h}")
     k_int8, v_int8 = k.dtype == torch.int8, v.dtype == torch.int8
+    design = kernel_design(k_int8, v_int8, int_qk)
     slots = _resident_ctas(q.device.index or 0, d, k_int8, v_int8, int_qk)
-    n_splits, chunk = num_splits(s_max, b * hk * (h // hk // rows), slots)
-    qf = q.float().contiguous()
-    part_acc = torch.empty((b, h, n_splits, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, h, n_splits, 2), dtype=torch.float32, device=q.device)
+    n_splits, chunk = num_splits(s_max, b * row_groups, slots)
+    # bf16 queries go in as they are; others as f32.
+    qk = q.contiguous() if q.dtype in (torch.float32, torch.bfloat16) else q.float().contiguous()
+    part_acc = torch.empty((b, h, n_splits * WARPS, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, h, n_splits * WARPS, 2), dtype=torch.float32, device=q.device)
     o = torch.empty((b, h, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if need_lse else None
+    tickets = _tickets(q.device, b * row_groups)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.lowbit_decode_attn(
-            qf.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            qk.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr() if v_scale is not None else None, lengths.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), o.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            b, h, hk, s_max, d, rows, int(k_int8), int(v_int8), int(int_qk), _OUT_CODES[out_dtype],
-            n_splits, chunk, float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+            b, h, hk, s_max, d, rows, int(k_int8), int(v_int8), int(int_qk), int(qk.dtype == torch.bfloat16),
+            _OUT_CODES[out_dtype], n_splits, chunk, float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.launches_by_design[design] += 1
     return o, lse
 
 
@@ -342,6 +380,7 @@ def decode_attention(
     return (o, lse) if return_lse else o
 
 
-#: Launches of kernel D in this process (one per call: the split pass and
-#: its merge). CPU calls do not count.
+#: Launches of kernel D in this process (one per call), in all and per
+#: design. CPU calls do not count.
 decode_attention.launches = 0
+decode_attention.launches_by_design = {design: 0 for design in DESIGNS}

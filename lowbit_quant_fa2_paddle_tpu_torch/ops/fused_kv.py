@@ -9,9 +9,11 @@ PyTorch/CUDA counterpart of ``lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py``:
   last group's scale and mn see those zeros), unsigned codes packed along D
   (halves of D for 4 bits, quarters for 2); plain PyTorch ops, bit-equal to
   the JAX function run op by op;
-* ``fused_packed_kv_attention`` (kernel E, ``csrc/fused_kv_attention.cu``):
+* ``fused_packed_kv_attention`` (kernel E, ``csrc/fused_kv_attention_wgmma.cu``):
   attention with K and V resident as those codes, dequantized inside the
-  kernel. GQA, causal (top-left aligned: query row ``r`` sees keys
+  kernel (one Hopper design, ``kernel_design``: TMA of the packed tiles, a
+  producer warpgroup that widens them to bf16 in shared memory, ``wgmma``
+  products on 128-key tiles). GQA, causal (top-left aligned: query row ``r`` sees keys
   ``0..r``, also when Sq != Sk), any Sk. Q, K and V enter the two products
   as bf16 (the TPU kernel dots f32 Q and K); P is f32 for the softmax and
   bf16 in PV; a row with no visible weight gives 0.
@@ -34,6 +36,16 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import round_away
 
 #: Elements of one chunk of f32 logits in the plain version (1 GiB).
 _PLAIN_CHUNK_ELEMS = 1 << 28
+#: Designs of kernel E: one, for every mode (bits 4 and 2, d64 and d128).
+DESIGNS = ("wgmma",)
+
+
+def kernel_design(bits: int = 4) -> str:
+    """Which design of kernel E runs a mode: ``"wgmma"`` for both bit
+    widths. The choice is static, by mode."""
+    if bits not in (4, 2):
+        raise ValueError(f"bits must be 4 or 2, got {bits}")
+    return "wgmma"
 
 
 def quant_kv_grouped(x: torch.Tensor, *, bits: int = 4, group: int = 256
@@ -146,12 +158,13 @@ def _fused_kv_cuda(q, kp, vp, ks, km, vs, vm, *, bits, group, causal, sm_scale_l
     q = q.contiguous()
     kp, vp = kp.contiguous(), vp.contiguous()
     ks, km, vs, vm = (t.float().contiguous() for t in (ks, km, vs, vm))
-    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
-        raise ValueError("kernel E needs 16-byte aligned packed K and V")
+    # TMA and 16-byte loads want 16-byte aligned starts.
+    q, kp, vp, ks, km, vs, vm = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, kp, vp, ks, km, vs, vm))
     o = torch.empty((b, h, sq, d), dtype=out_dtype, device=q.device)
+    design = kernel_design(bits)
     lib = _build.library()
     with torch.cuda.device(q.device):
-        err = lib.lowbit_fused_kv_attn(
+        err = lib.lowbit_fused_kv_attn_wgmma(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), km.data_ptr(), vs.data_ptr(),
             vm.data_ptr(), o.data_ptr(), b, h, hk, sq, sk, d, bits, group, ks.shape[2], int(causal),
             int(q.dtype == torch.float32), int(out_dtype == torch.float32), float(sm_scale_log2e),
@@ -159,6 +172,7 @@ def _fused_kv_cuda(q, kp, vp, ks, km, vs, vm, *, bits, group, causal, sm_scale_l
         )
     _build.check(err, "fused_packed_kv_attention")
     fused_packed_kv_attention.launches += 1
+    fused_packed_kv_attention.launches_by_design[design] += 1
     return o
 
 
@@ -220,5 +234,7 @@ def fused_packed_kv_attention(
     raise ValueError(f"fused_packed_kv_attention runs on cpu or cuda tensors, not {q.device}")
 
 
-#: Launches of kernel E in this process (CPU calls do not count).
+#: Launches of kernel E in this process (CPU calls do not count), in all
+#: and per design.
 fused_packed_kv_attention.launches = 0
+fused_packed_kv_attention.launches_by_design = {design: 0 for design in DESIGNS}

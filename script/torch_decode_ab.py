@@ -1,0 +1,171 @@
+"""Kernels D (decode attention) and E (attention over packed KIVI K/V) against
+variants of their own sources, and against another tree's build, on one CUDA
+card.
+
+    python3 script/torch_decode_ab.py [--base DIR] [VARIANT ...]
+
+Each variant is a patch of ``csrc/decode_attention.cu`` or
+``csrc/fused_kv_attention_wgmma.cu`` (see VARIANTS), built in its own copy of
+the package under ``build/decode_ab/<name>/``; ``--base DIR`` adds the package
+of another tree as "base" (for example the parent commit unpacked by ``git
+archive`` into a directory that ``.gitignore`` lists). Every build (the
+checkout's as "main", then base and each variant) times, in its own process
+with ``utils.benchmark.cuda_time_ms``: D at b4 h32 hk8 s32768 d128 (every
+length 32768) with the int8 and the bf16 cache, with the GB/s of cache bytes
+streamed, and E with 4-bit K/V at b4 h32 s8192 d64 (group 256), with its
+TFLOP/s; main also times SDPA (one query per head over the bf16 cache, and on
+E's K/V dequantized to bf16). The processes run in turns main, base, v1, v2,
+..., then the same in reverse, so each build is compared with main within one
+call. Prints the card's name and power limit first. With no variant, every
+variant runs. The probes give wrong results on purpose: they time a part of
+the kernel.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "lowbit_quant_fa2_paddle_tpu_torch"
+D_SRC = "decode_attention.cu"
+E_SRC = "fused_kv_attention_wgmma.cu"
+
+# name: (what it changes, [(file under csrc/, old, new), ...])
+VARIANTS = {
+    "d-copy-only": ("probe, wrong results: D's consumers release each tile as it lands (the loads alone)",
+                    [(D_SRC, "      const float* vs_t = vs_s + st * BK;\n",
+                      "      const float* vs_t = vs_s + st * BK;\n"
+                      "      if (nv > 0) {\n        __syncwarp();\n        if (lane == 0) mbar_arrive(&empty[st]);\n"
+                      "        continue;\n      }\n")]),
+    "d-no-pv": ("probe, wrong results: D without its PV loop (loads, QK, softmax, P stores)",
+                [(D_SRC, "      if (nv == BK) {\n#pragma unroll 8  // measured 6% faster than 4 on the int8 cache\n"
+                         "        for (int kl = 0; kl < BK; ++kl) pv_key(kl);\n"
+                         "      } else {\n        for (int kl = 0; kl < nv; ++kl) pv_key(kl);\n      }\n", "")]),
+    "d-8k-tiles": ("D with tiles of up to 8 KB of K/V (half the keys a tile, two or three CTAs an SM)",
+                   [(D_SRC, "<= 16384 ? 64 : 32 * (kKRow + kVRow) <= 16384 ? 32 : 16;",
+                     "<= 8192 ? 64 : 32 * (kKRow + kVRow) <= 8192 ? 32 : 16;")]),
+    "d-no-scales": ("probe, wrong results: D without the per-token scale copies",
+                    [(D_SRC, "        cp_async4(ks_s + st * BK + i, ksg + key0 + i);\n", ""),
+                     (D_SRC, "        if constexpr (kVInt8) cp_async4(vs_s + st * BK + i, vsg + key0 + i);\n", "")]),
+    "e-nowiden": ("probe, wrong results: E's producer lands the packed tiles but widens nothing",
+                  [(E_SRC, "      widen<D, BITS>(pk, smem", "      if (false) widen<D, BITS>(pk, smem"),
+                   (E_SRC, "      widen<D, BITS>(pk + L::kPackBytes", "      if (false) widen<D, BITS>(pk + L::kPackBytes")]),
+    "e-regs160": ("E at d64 with 160 registers a consumer thread and 32 a producer thread (not 152 / 56)",
+                  [(E_SRC, "constexpr int kRegC = D == 64 ? 152 : 232;", "constexpr int kRegC = D == 64 ? 160 : 232;"),
+                   (E_SRC, "constexpr int kRegP = D == 64 ? 56 : 40;", "constexpr int kRegP = D == 64 ? 32 : 40;")]),
+    "e-unroll2": ("E's producer with its one-group row loop unrolled by 2, not 1",
+                  [(E_SRC, "#pragma unroll 1\n      for (int r = r0; r < BKV; r += RPP) {\n        const uint2 x",
+                    "#pragma unroll 2\n      for (int r = r0; r < BKV; r += RPP) {\n        const uint2 x")]),
+}
+
+
+def worker(tag: str, main: bool) -> None:
+    """Time D and E from the package in the current directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import fused_kv as FK
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, h, hk, d, s = 4, 32, 8, 128, 32768
+    for bits in (8, 16):
+        kq, ks = DD.quantize_token(torch.randn(b, hk, s, d, generator=g, device="cuda").bfloat16(), bits=bits)
+        vq, vs = DD.quantize_token(torch.randn(b, hk, s, d, generator=g, device="cuda").bfloat16(), bits=bits)
+        q = torch.randn(b, h, d, generator=g, device="cuda").bfloat16()
+        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        ms = cuda_time_ms(lambda: DD.decode_attention(q, kq, vq, ks, lens, v_scale=vs, kv_bits=bits), warmup=5,
+                          reps=50)
+        cache = sum(t.numel() * t.element_size() for t in (kq, vq, ks)) + (vs.numel() * 4 if bits == 8 else 0)
+        out.append(f"D {'int8' if bits == 8 else 'bf16'} {ms:.4f} ({cache / ms / 1e6:.0f} GB/s)")
+        if main and bits == 8:  # a yardstick of the card's streaming rate: one device copy (read + write)
+            dst = torch.empty_like(kq)
+            cp = cuda_time_ms(lambda: dst.copy_(kq), warmup=3, reps=20)
+            out.append(f"copy of K {cp:.4f} ({2 * kq.numel() / cp / 1e6:.0f} GB/s read + write)")
+            del dst
+        if main and bits == 16:
+            sdpa = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kq, vq, enable_gqa=True), warmup=3, reps=20)
+            out.append(f"SDPA bf16 cache {sdpa:.4f}")
+        del kq, vq, ks, vs
+    b, h, s, d = 4, 32, 8192, 64
+    q = torch.randn(b, h, s, d, generator=g, device="cuda").bfloat16()
+    kp, ks, km = FK.quant_kv_grouped((torch.randn(b, h, s, d, generator=g, device="cuda") + 0.5).bfloat16(), bits=4,
+                                     group=256)
+    vp, vs, vm = FK.quant_kv_grouped(torch.randn(b, h, s, d, generator=g, device="cuda").bfloat16(), bits=4,
+                                     group=256)
+    ms = cuda_time_ms(lambda: FK.fused_packed_kv_attention(q, kp, vp, ks, km, vs, vm, bits=4), warmup=2, reps=10)
+    flops = 4.0 * b * h * s * s * d
+    out.append(f"E int4 {ms:.3f} ({flops / ms / 1e9:.0f} TFLOP/s)")
+    if main:
+        kd = FK.dequant_kv_grouped(kp, ks, km, bits=4, group=256)
+        vd = FK.dequant_kv_grouped(vp, vs, vm, bits=4, group=256)
+        sdpa = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, kd, vd), warmup=2, reps=10)
+        out.append(f"SDPA dequantized {sdpa:.3f} ({flops / sdpa / 1e9:.0f} TFLOP/s)")
+    print(f"[{tag}] " + " | ".join(out) + " (ms)", flush=True)
+
+
+def prepare(name: str) -> str:
+    """A copy of the package with the variant's patches; its directory."""
+    root = os.path.join(REPO, "build", "decode_ab", name)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(REPO, PKG), os.path.join(root, PKG), ignore=shutil.ignore_patterns("build"))
+    for src, old, new in VARIANTS[name][1]:
+        path = os.path.join(root, PKG, "csrc", src)
+        with open(path) as f:
+            text = f.read()
+        if old not in text:
+            raise RuntimeError(f"variant {name}: patch does not apply to {src}: {old[:60]!r}")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    return root
+
+
+def main(names, base=None) -> None:
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    dirs = {"main": REPO}
+    if base:
+        dirs["base"] = os.path.abspath(base)
+    dirs.update({name: prepare(name) for name in names})
+    build = "from lowbit_quant_fa2_paddle_tpu_torch.ops import _build; _build.library()"
+    for i in range(0, len(dirs), 3):  # three builds at a time on the machine's cores
+        procs = [subprocess.Popen([sys.executable, "-c", build], cwd=d) for d in list(dirs.values())[i:i + 3]]
+        if any(p.wait() != 0 for p in procs):
+            raise RuntimeError("a build failed")
+    for tag, d in dirs.items():  # each build's registers and spills of D and E (ptxas)
+        logs = [os.path.join(r, f) for r, _, fs in os.walk(os.path.join(d, PKG, "csrc", "build")) for f in fs
+                if f.endswith(".so.log")]
+        text = open(max(logs, key=os.path.getmtime)).read() if logs else ""
+        for name, spill, regs in re.findall(
+                r"Function properties for (\S+)\n\s+(.*spill loads)\n.*?Used (\d+) registers", text):
+            if "decode_kernel" in name or "fused_kv" in name:
+                kind = re.search(r"(decode_kernelILi\d+E\w{1,40}?Lb[01]E|fused_kv_wgmma_kernelILi\d+ELi\d)", name)
+                print(f"[{tag}] regs={regs} {spill.strip()} {kind.group(1) if kind else name[:60]}", flush=True)
+    if base:
+        print(f"base: the package of {base}", flush=True)
+    for name in names:
+        print(f"{name}: {VARIANTS[name][0]}", flush=True)
+    order = list(dirs)
+    for tag in order + order[::-1]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tag], cwd=dirs[tag], check=True)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2], main=sys.argv[2] == "main")
+    else:
+        args = sys.argv[1:]
+        base = None
+        if args[:1] == ["--base"]:
+            base, args = args[1], args[2:]
+        names = args or list(VARIANTS)
+        unknown = [n for n in names if n not in VARIANTS]
+        if unknown:
+            sys.exit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
+        main(names, base)

@@ -229,15 +229,63 @@ def test_decode_attention_takes_cpu_or_cuda_only():
                             torch.ones(1, dtype=torch.int32, device="meta"), kv_bits=16)
 
 
-@pytest.mark.parametrize("s_max,ctas,slots", [(32768, 32, 528), (32768, 32, 264), (300, 8, 528), (64, 1, 528),
-                                              (100000, 4096, 264)])
-def test_split_plan_fills_whole_waves(s_max, ctas, slots):
+@pytest.mark.parametrize(
+    "s_max,ctas,slots,want",
+    [(32768, 32, 528, (16, 2048)), (32768, 32, 264, (8, 4096)), (300, 8, 528, None), (64, 1, 528, None),
+     (100000, 4096, 264, None),
+     # kernel D's occupancies on the H100 (1 to 3 CTAs an SM of 132)
+     (32768, 1, 396, (64, 512)), (32768, 32, 132, (4, 8192)), (32768, 32, 396, (12, 2752)),
+     (4096, 32, 264, (8, 512)), (128, 128, 396, (2, 64))],
+)
+def test_split_plan_fills_whole_waves(s_max, ctas, slots, want):
+    """Whole 64-key multiples covering S_max, at most WAVES whole waves of
+    resident CTAs, at most MAX_SPLITS splits (the merging CTA keeps a
+    weight per split and warp)."""
     n, chunk = td.num_splits(s_max, ctas, slots)
     assert chunk % td.KV_TILE == 0 and n >= 1
     assert (n - 1) * chunk < s_max <= n * chunk
     assert n == 1 or n * ctas <= td.WAVES * slots
-    if (s_max, ctas, slots) == (32768, 32, 528):
-        assert (n, chunk) == (16, 2048)
+    assert n <= td.MAX_SPLITS
+    if want is not None:
+        assert (n, chunk) == want
+
+
+@pytest.mark.parametrize("k_int8,v_int8,int_qk", [(True, True, True), (True, True, False), (True, False, True),
+                                                  (False, False, False), (False, True, False)])
+def test_kernel_design_by_mode(k_int8, v_int8, int_qk):
+    """Kernel D has one design for every cache type and QK chain, and
+    counts its launches by it."""
+    assert td.kernel_design(k_int8, v_int8, int_qk) == "bulk_ring"
+    assert td.DESIGNS == ("bulk_ring",)
+    assert set(td.decode_attention.launches_by_design) == set(td.DESIGNS)
+
+
+def test_kernel_design_needs_int8_k_for_the_integer_chain():
+    with pytest.raises(ValueError, match="int8 K"):
+        td.kernel_design(False, True, True)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("where", ["tile-127-128-129", "split-boundary"])
+def test_decode_lengths_at_tile_and_split_edges_match_jax(bits, where):
+    """Lengths around a 128-key boundary and around a split boundary of the
+    plan (S_max 600 over 8 (batch, KV head) rows on 264 resident CTAs: 64-key
+    splits), against the JAX function jitted."""
+    b, h, hk, d, s = 4, 8, 2, 64, 600
+    if where == "split-boundary":
+        chunk = td.num_splits(s, b * hk, 264)[1]
+        lengths = np.array([chunk - 1, chunk, chunk + 1, 2 * chunk + 1], np.int32)
+    else:
+        lengths = np.array([127, 128, 129, s], np.int32)
+    q, kq, vq, ks, vs, _ = _decode_inputs(b, h, hk, d, s, bits, bits, seed=7 + bits)
+    jfn = jax.jit(lambda *a: jd.decode_attention(*a[:5], v_scale=a[5], k_bits=bits, v_bits=bits, return_lse=True))
+    jo, jl = jfn(jnp.asarray(q), kq, vq, ks, jnp.asarray(lengths), vs)
+    to, tl = td.decode_attention(torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths),
+                                 v_scale=_torch(vs), kv_bits=bits, return_lse=True)
+    jo = torch.from_numpy(_np(jo))
+    assert float(cosine_similarity(to, jo)) >= COS_MIN
+    assert float((to - jo).abs().max()) <= MAX_DO
+    assert float((tl - torch.from_numpy(_np(jl))).abs().max()) <= MAX_DLSE
 
 
 @pytest.mark.parametrize("group,rows", [(1, 1), (4, 4), (8, 8), (12, 6), (16, 8), (7, 7), (9, 3)])

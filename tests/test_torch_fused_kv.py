@@ -79,6 +79,32 @@ def test_fused_kv_attention_matches_jax(bits, causal, b, h, hk, sq, sk):
     assert float((o - want).abs().max()) <= 3e-2
 
 
+@pytest.mark.parametrize(
+    "bits,causal,b,h,hk,sq,sk,d,group",
+    [(4, False, 1, 4, 4, 200, 300, 64, 32), (2, True, 1, 4, 2, 300, 300, 64, 128),
+     (4, True, 1, 8, 2, 700, 1000, 128, 256)],
+)
+def test_plain_version_at_the_wgmma_tile_edges_matches_jax(bits, causal, b, h, hk, sq, sk, d, group):
+    """Groups smaller than kernel E's 128-key tile (32) and equal to it (128)
+    with a ragged Sk 300, and causal GQA 8q/2kv d128 at Sq 700 / Sk 1000
+    (JAX in interpret mode)."""
+    o, want = _both(*_qkv(8, b, h, hk, sq, sk, d), bits, group, is_causal=causal)
+    assert o.shape == (b, h, sq, d) and o.dtype == torch.float32
+    assert float(cosine_similarity(o, want)) >= 0.999
+    assert float((o - want).abs().max()) <= 3e-2
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+def test_kernel_design_by_bits(bits):
+    """Kernel E has one design, the same for both bit widths, and counts
+    its launches by it."""
+    assert TF.kernel_design(bits) == TF.kernel_design() == "wgmma"
+    assert TF.DESIGNS == ("wgmma",)
+    assert set(TF.fused_packed_kv_attention.launches_by_design) == set(TF.DESIGNS)
+    with pytest.raises(ValueError, match="bits"):
+        TF.kernel_design(8)
+
+
 def test_group_64_and_kernel_space_is_a_no_op():
     q, k, v = _qkv(2, 2, 4, 2, 300, 520)
     o, want = _both(q, k, v, 4, 64, is_causal=True)

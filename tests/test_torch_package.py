@@ -31,6 +31,8 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd import (
 )
 from lowbit_quant_fa2_paddle_tpu_torch.models import dit, llm
 from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv
+from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as decode_ops
+from lowbit_quant_fa2_paddle_tpu_torch.ops import fused_kv as fused_kv_ops
 from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import (
     decode_attention,
     decode_attention_plain,
@@ -112,7 +114,7 @@ def test_build_command_targets_sm90a_from_repo_sources():
     assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
     assert sorted(os.path.basename(s) for s in srcs) == [
         "attention_bwd_wgmma.cu", "attention_fwd.cu", "attention_fwd_wgmma.cu",
-        "decode_attention.cu", "fused_kv_attention.cu", "gemv.cu", "quant.cu"]
+        "decode_attention.cu", "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert all(f"-I{_build.CSRC_DIR}" in cmd for cmd in compiles)  # the shared headers, e.g. sm90.cuh
     assert os.path.join(_build.CSRC_DIR, "sm90.cuh") in _build.hashed_files()
@@ -504,3 +506,96 @@ def test_wgmma_attention_edges_match_plain(cuda, case):
     assert float(cosine_similarity(o, o_ref)) >= 0.99999
     assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
     assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+DECODE_EDGES = {
+    # name: (bits, b, h, hk, d, s, lengths (None: around a split boundary), q dtype)
+    "lengths-127-128-129-int8": (8, 4, 32, 8, 128, 2048, [127, 128, 129, 2048], torch.bfloat16),
+    "lengths-127-128-129-bf16": (16, 4, 32, 8, 128, 2048, [127, 128, 129, 2048], torch.bfloat16),
+    "split-boundary-int8": (8, 4, 32, 8, 128, 4096, None, torch.bfloat16),
+    "split-boundary-bf16": (16, 4, 32, 8, 128, 4096, None, torch.bfloat16),
+    "gqa-group8-int8": (8, 2, 64, 8, 128, 3000, [3000, 1999], torch.bfloat16),
+    "gqa-group8-bf16": (16, 2, 64, 8, 128, 3000, [3000, 1999], torch.bfloat16),
+    "f32-q-d32-int8": (8, 3, 8, 2, 32, 777, [777, 1, 500], torch.float32),
+    "f32-q-d32-bf16": (16, 3, 8, 2, 32, 777, [777, 1, 0], torch.float32),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(DECODE_EDGES))
+def test_decode_edges_match_plain(cuda, case):
+    """Kernel D's design at its edges: lengths around a 128-key boundary and
+    around a split boundary of its plan (lengths chunk - 1, chunk, chunk + 1),
+    a GQA group of 8, f32 queries at d32 (split into three bf16 terms, not
+    rounded). Every launch on the design; the plain version's bounds (cos
+    >= 0.99999, max|do| <= one bf16 ulp of max|o|, max|dlse| <= 1e-4, empty
+    rows 0 / -1e30); o and the LSE the same bits on a second run."""
+    bits, b, h, hk, d, s, lengths, q_dtype = DECODE_EDGES[case]
+    if lengths is None:
+        slots = decode_ops._resident_ctas(0, d, bits == 8, bits == 8, bits == 8)
+        chunk = decode_ops.num_splits(s, b * hk, slots)[1]
+        lengths = [chunk - 1, chunk, chunk + 1, 2 * chunk + 1]
+    g = torch.Generator(device=cuda).manual_seed(10)
+    k = torch.randn(b, hk, s, d, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, hk, s, d, generator=g, device=cuda).bfloat16()
+    q = torch.randn(b, h, d, generator=g, device=cuda).to(q_dtype)
+    (kq, ks), (vq, vs) = quantize_token(k, bits=bits), quantize_token(v, bits=bits)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    design = decode_ops.kernel_design(bits == 8, bits == 8, bits == 8)
+    n = decode_attention.launches_by_design[design]
+    o, lse = decode_attention(q, kq, vq, ks, lens, v_scale=vs, kv_bits=bits, return_lse=True)
+    o2, lse2 = decode_attention(q, kq, vq, ks, lens, v_scale=vs, kv_bits=bits, return_lse=True)
+    o_ref, lse_ref = decode_attention_plain(q, kq, vq, ks, vs if bits == 8 else None, lens,
+                                            sm_scale=1.0 / math.sqrt(d), int_qk=bits == 8, out_dtype=q.dtype)
+    torch.cuda.synchronize()
+    assert decode_attention.launches_by_design[design] == n + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ulp = 2.0 ** (math.floor(math.log2(float(o_ref.float().abs().max()))) - 7)
+    assert float(cosine_similarity(o, o_ref)) >= 0.99999
+    assert float((o.float() - o_ref.float()).abs().max()) <= ulp
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    for i, n_keys in enumerate(lengths):
+        if n_keys == 0:
+            assert float(o[i].float().abs().max()) == 0.0 and bool((lse[i] == -1e30).all())
+
+
+FUSED_KV_EDGES = {
+    # name: (bits, causal, b, h, hk, sq, sk, d, group, q dtype, out dtype)
+    "group32": (4, False, 1, 8, 8, 1000, 1000, 64, 32, torch.bfloat16, torch.bfloat16),
+    "group512-gqa": (4, True, 1, 8, 2, 1000, 1000, 64, 512, torch.bfloat16, torch.bfloat16),
+    "sk129": (2, False, 1, 8, 8, 300, 129, 64, 64, torch.bfloat16, torch.bfloat16),
+    "sk777-group100": (4, False, 1, 8, 4, 300, 777, 64, 100, torch.bfloat16, torch.bfloat16),
+    "causal-sq700-sk1000-d128": (2, True, 1, 16, 4, 700, 1000, 128, 128, torch.bfloat16, torch.bfloat16),
+    "causal-sq1000-sk300-d128-group32": (4, True, 1, 8, 8, 1000, 300, 128, 32, torch.bfloat16, torch.bfloat16),
+    "f32-q-f32-out": (4, False, 1, 4, 4, 300, 300, 64, 256, torch.float32, torch.float32),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FUSED_KV_EDGES))
+def test_wgmma_fused_kv_edges_match_plain(cuda, case):
+    """Kernel E's wgmma design at its edges: groups smaller and larger than
+    its 128-key tile (and 100, which crosses tiles), Sk just past a tile and
+    ragged, causal Sq != Sk at d128, f32 q and output. Every launch on the
+    design; the plain version's bounds (cos >= 0.99999, max|do| <= 2e-2); the
+    same bits on a second run."""
+    bits, causal, b, h, hk, sq, sk, d, group, q_dtype, out_dtype = FUSED_KV_EDGES[case]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(b, h, sq, d, generator=g, device=cuda).to(q_dtype)
+    k = (torch.randn(b, hk, sk, d, generator=g, device=cuda) + 0.5).bfloat16()
+    v = (torch.randn(b, hk, sk, d, generator=g, device=cuda) - 0.3).bfloat16()
+    args = (q, *quant_kv_grouped(k, bits=bits, group=group), *quant_kv_grouped(v, bits=bits, group=group))
+    args = (args[0], args[1], args[4], args[2], args[3], args[5], args[6])  # q, kp, vp, ks, km, vs, vm
+    design = fused_kv_ops.kernel_design(bits)
+    n = fused_packed_kv_attention.launches_by_design[design]
+    kw = dict(bits=bits, is_causal=causal, group=group, out_dtype=out_dtype)
+    o = fused_packed_kv_attention(*args, **kw)
+    o2 = fused_packed_kv_attention(*args, **kw)
+    o_ref = fused_kv_attention_plain(*args, bits=bits, group=group, causal=causal,
+                                     sm_scale_log2e=LOG2E / math.sqrt(d), out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert fused_packed_kv_attention.launches_by_design[design] == n + 2
+    assert o.shape == (b, h, sq, d) and o.dtype == out_dtype and torch.equal(o, o2)
+    assert bool(torch.isfinite(o.float()).all())
+    assert float(cosine_similarity(o, o_ref)) >= 0.99999
+    assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
