@@ -22,16 +22,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
    s32704, one batch row), each timed beside PyTorch's SDPA in bf16 (a
    baseline) with the SM clock sampled after the timing, its TFLOP/s, its
    tensor-core bound and its exp2 floor (one exp2 per visible (q, k) pair on
-   the 16-per-clock MUFU pipe of 132 SMs at 1.98 GHz). Every mode but
-   INT8 PV runs on the wgmma design (csrc/attention_fwd_wgmma.cu), INT8 PV
-   on mma.sync (csrc/attention_fwd.cu); then its low-bit modes (packed INT4 K, packed INT2 K,
-   INT8 V, INT8 V with INT8 PV) at b1 h30 s17776 d64, causal GQA 8q/2kv
-   d128 and ragged s1000, timed at the first. The plain version rounds P
+   the 16-per-clock MUFU pipe of 132 SMs at 1.98 GHz). Every mode runs on
+   the wgmma design (csrc/attention_fwd_wgmma.cu); then its low-bit modes
+   (packed INT4 K, packed INT2 K, INT8 V, INT8 V with INT8 PV) at b1 h30
+   s17776 d64, causal GQA 8q/2kv d128 and ragged s1000, timed at the first,
+   INT8 PV also at its edges (Sk 777, causal Sq 700 / Sk 1000 d128, GQA
+   32q/8kv d128, packed INT4 K, bf16 QK), the same bits twice. The plain version rounds P
    (or p8) where the kernel does and differs only in summation order, so
    the bounds are cos >= 0.99999, max|do| <= 2e-2 (a bf16 ulp of outputs up
    to 4 is 1.6e-2) and max|dlse| <= 1e-3. Then the entry points
    lowbit_fa_attn(bits="int2"), (bits="auto") and (bits="int8_v8",
-   pv_int8=True) at b1 h30 s17776 d64, each with its launch counts;
+   pv_int8=True) at b1 h30 s17776 d64, each with its launch counts, kernel
+   A's by design;
 5. main path: the full-width, full-depth CogVideoX-2b DiT (dim 1920, 30
    heads x 64, depth 30, random weights from a seeded generator) takes 3
    denoise steps x <- x - 0.1 * eps on b1 s17776 latents with each of
@@ -91,10 +93,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (1024, 4096), (16384, 4096), (4096, 16384)} bf16, w8/w4 at the
    checkpoint's shapes with M=64 f32 x, and M=1000; cos >= 0.99999 and
    max|dy| <= 2 bf16 ulps (f32: 1e-5) of the larger of max|y| and F2's dot
-   before its zero-point term. Timed at the decode shapes with the weights
+   before its zero-point term, the decode shapes the same bits twice, every
+   F2 launch on its design (bf16 x on the tensor cores, f32 x on the CUDA
+   cores). Timed at the decode shapes (N 1024 included) with the weights
    read from HBM, beside torch.matmul on the dense bf16 W, and summed to a
-   32-layer decode step; then the w8a8 and grouped entry points once each,
-   counted;
+   32-layer decode step; the copy-only probe of F2's tensor-core design
+   (script/torch_gemv_ab.py, built while the first phases run) gives the
+   TB/s its loads alone reach; then the w8a8 and grouped entry points once
+   each, counted;
 11. kernel E (fused_packed_kv_attention) against its plain version: bits 4
    and 2, causal or not, at b4 h32 s8192 d64 (the kivi4 sweep shape) and
    GQA 32q/8kv d128 at a ragged s1000 and at Sq 700 != Sk 1000 (group 64),
@@ -494,7 +500,49 @@ def lowbit_attention_phase(gen):
             else:
                 records[mode]["max_abs_err"] = max(records[mode]["max_abs_err"], r["max_do"])
             del args, o, lse
+    records["int8-PV"]["max_abs_err"] = max(records["int8-PV"]["max_abs_err"], pv_int8_edges(gen))
     return records
+
+
+# INT8 PV's edges on the wgmma design: (k bits, q mode, causal, h, hk, d, sq, sk).
+PV8_EDGES = {"sk777": (8, "fused", False, 8, 8, 64, 300, 777),
+             "causal sq700 sk1000 d128": (8, "fused", True, 8, 2, 128, 700, 1000),
+             "causal GQA 32q/8kv d128 s777": (8, "fused", True, 32, 8, 128, 777, 777),
+             "int4-K d64 sk777": (4, "fused", False, 8, 2, 64, 500, 777),
+             "bf16 QK d64 s1000": (16, "fp", True, 8, 8, 64, 1000, 1000)}
+
+
+def pv_int8_edges(gen):
+    """Kernel A's INT8 PV at the edges of its design against the plain
+    version (phase 4's bounds), the same bits twice, every launch on the
+    wgmma design. Returns the largest max|do|."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as qo
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+
+    worst = 0.0
+    for name, (k_bits, q_mode, causal, h, hk, d, sq, sk) in PV8_EDGES.items():
+        q = torch.randn(1, h, sq, d, generator=gen, device="cuda").bfloat16()
+        k = (torch.randn(1, hk, sk, d, generator=gen, device="cuda") + 0.3).bfloat16()
+        v8, vs, vm = qo.quant_v_int8_per_channel(torch.randn(1, hk, sk, d, generator=gen, device="cuda").bfloat16(),
+                                                 smooth_v=True)
+        ks = None
+        if q_mode != "fp":
+            k, ks = {8: qo.quant_int8, 4: qo.quant_int4}[k_bits](k, qo.k_mean(k), gran="per_token")
+        kb = 8 if k_bits == 16 else k_bits
+        kw = dict(v_scale=vs, v_mean=vm, pv_int8=True, is_causal=causal, k_pack_bits=kb, return_lse=True)
+        n = lowbit_attention.launches_by_design["wgmma"]
+        (o, lse), (o2, lse2) = (lowbit_attention(q, k, v8, None, ks, **kw) for _ in range(2))
+        o_ref, lse_ref = attention_fwd_plain(q, k, v8, None, ks, vm, causal=causal, sm_scale_log2e=LOG2E / math.sqrt(d),
+                                             out_dtype=torch.bfloat16, k_bits=kb, v_scale=vs, pv_int8=True)
+        torch.cuda.synchronize()
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        on_design = lowbit_attention.launches_by_design["wgmma"] == n + 2
+        r = stats(o, o_ref, lse, lse_ref)
+        check_close(f"int8-PV edge {name} same_bits_twice={same} wgmma:{on_design}", r)
+        if not (same and on_design):
+            raise AssertionError(f"kernel A INT8 PV edge {name}: same bits {same}, on the wgmma design {on_design}")
+        worst = max(worst, r["max_do"])
+    return worst
 
 
 def entry_point_phase(gen):
@@ -521,14 +569,15 @@ def entry_point_phase(gen):
         count_reset()
         o = lq.lowbit_fa_attn(q, k, v, **kw)
         torch.cuda.synchronize()
-        got = counts()
+        got, designs = counts(), design_counts()
         got = {key: got[key] for key in want}
         cos = float(cosine_similarity(o, o_fp))
         finite = bool(torch.isfinite(o.float()).all())
         log(f"[api] lowbit_fa_attn({', '.join(f'{a}={b!r}' for a, b in kw.items())}) b{B} h{H} s{S} d{D}: "
-            f"launches {got} (want {want}), cos vs fp {cos:.6f}, finite={finite}")
-        if got != want or not finite or tuple(o.shape) != (B, H, S, D) or cos < cos_min:
-            raise AssertionError(f"entry point {name}: launches {got}, cos {cos}, finite {finite}")
+            f"launches {got} (want {want}), kernel A by design {designs}, cos vs fp {cos:.6f}, finite={finite}")
+        if (got != want or designs != {"wgmma": want["A"]} or not finite or tuple(o.shape) != (B, H, S, D)
+                or cos < cos_min):
+            raise AssertionError(f"entry point {name}: launches {got}, {designs}, cos {cos}, finite {finite}")
         runs[name] = got
     return runs
 
@@ -591,7 +640,7 @@ def main_path_phase():
     for impl in DIT_IMPLS:
         want = {"A": want_n, "C1": want_n if impl in ("int8", "int8_v8") else 0,
                 "C2": want_n if impl == "int4" else 0, "C3": 0, "D": 0, "E": 0, "F1": 0, "F2": 0, "G1": 0, "G2": 0}
-        want_designs = {"wgmma": want_n, "mma.sync": 0}
+        want_designs = {"wgmma": want_n}
         log(f"[dit] {impl} launches {launches[impl]} (want {want}), kernel A by design {designs[impl]}")
         if launches[impl] != want or designs[impl] != want_designs:
             raise AssertionError(f"DiT {impl}: launch counts {launches[impl]} != {want} or {designs[impl]}")
@@ -1049,7 +1098,7 @@ def counts():
     return {name: w.launches for name, w in _wrappers().items()}
 
 
-def check_counts(where, got, depth, decode_steps, f1=0, f2=0):
+def check_counts(where, got, depth, decode_steps, f1=0, f2=0, f2_design="tensor_core"):
     """The launches of one generate: A and C1 once per layer at prefill, D
     once per layer and decode step, and the given F1/F2 counts."""
     want = {"A": depth, "C1": depth, "C2": 0, "C3": 0, "D": depth * decode_steps, "E": 0, "F1": f1, "F2": f2,
@@ -1059,8 +1108,14 @@ def check_counts(where, got, depth, decode_steps, f1=0, f2=0):
     designs = design_counts()  # the prefill's A on the wgmma design
     d_designs = design_counts("D")  # every decode launch on D's one design
     log(f"[{where}] launches {got} (want {want}), kernel A by design {designs}, kernel D by design {d_designs}")
-    if got != want or designs != {"wgmma": depth, "mma.sync": 0} or d_designs != {d_design(): want["D"]}:
-        raise AssertionError(f"{where}: launch counts {got} != {want} or {designs} or {d_designs}")
+    # F2 runs bf16 activations on the tensor cores, f32 ones (the checkpoint) on the CUDA cores.
+    f2_want = {design: f2 if design == f2_design else 0 for design in ("tensor_core", "cuda_core")}
+    f2_designs = design_counts("F2")
+    if f2:
+        log(f"[{where}] kernel F2 by design {f2_designs}")
+    if (got != want or designs != {"wgmma": depth} or d_designs != {d_design(): want["D"]}
+            or f2_designs != f2_want):
+        raise AssertionError(f"{where}: launch counts {got} != {want} or {designs} or {d_designs} or {f2_designs}")
 
 
 def checkpoint_phase():
@@ -1179,6 +1234,35 @@ def cycle_ms(fns, reps=50):
     return cuda_time_ms(lambda: next(it)(), warmup=len(fns), reps=reps)
 
 
+# The copy-only probe of F2's tensor-core design (script/torch_gemv_ab.py):
+# its package copy is built while the first phases run.
+GEMV_AB = os.path.join(REPO, "script", "torch_gemv_ab.py")
+_probe_build = {}
+
+
+def start_gemv_probe_build():
+    _probe_build["proc"] = subprocess.Popen([sys.executable, GEMV_AB, "--build", "copy-only"], cwd=REPO,
+                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def gemv_copy_only_probe():
+    """TB/s of packed bytes that F2's load structure alone reaches (the
+    copy-only variant: the same loads of W and x, no math, wrong results) at
+    the decode shapes, timed in its own process on this card."""
+    proc = _probe_build.pop("proc")
+    out = proc.communicate(timeout=600)[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"building the copy-only probe failed:\n{out[-4000:]}")
+    run = subprocess.run([sys.executable, GEMV_AB, "--worker", "copy-only"], cwd=out.strip().splitlines()[-1],
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise RuntimeError(f"the copy-only probe failed:\n{run.stdout[-2000:]}{run.stderr[-4000:]}")
+    times = json.loads(run.stdout.strip().splitlines()[-1])["times"]
+    log("[F] copy-only probe (loads of W and x alone, script/torch_gemv_ab.py): " +
+        ", ".join(f"{key} {t['ms'] * 1e3:.2f} us {t['tb_per_s']:.3f} TB/s" for key, t in times.items()))
+    return times
+
+
 def gemv_phase(gen):
     """Kernels F1 and F2 against their plain versions: every mode at the
     full-width decode shapes (M = 4, bf16); w8 and w4 at the checkpoint's
@@ -1190,26 +1274,40 @@ def gemv_phase(gen):
     from lowbit_quant_fa2_paddle_tpu_torch.ops.pack import WQLinear
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
 
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv as G
+
     worst = {mode: 0.0 for mode in GEMV_MODES}
+    count_reset()
+    want_f2 = {design: 0 for design in G.DESIGNS}
     for n, k in DECODE_NK:
         x = torch.randn(4, k, generator=gen, device="cuda").bfloat16()
         for mode in GEMV_MODES:
             wt, _ = gemv_weights(gen, mode, n, k)
-            y, y_ref = gemv_call(mode, x, wt), gemv_plain(mode, x, wt)
+            y, y2, y_ref = gemv_call(mode, x, wt), gemv_call(mode, x, wt), gemv_plain(mode, x, wt)
             torch.cuda.synchronize()
-            worst[mode] = max(worst[mode], check_gemv(f"{mode} M4 N{n} K{k} bf16", y, y_ref,
+            if GEMV_MODES[mode] == "F2":
+                want_f2[G.kernel_design(x.dtype)] += 2
+            if not torch.equal(y, y2):
+                raise AssertionError(f"kernel {GEMV_MODES[mode]} ({mode}) M4 N{n} K{k}: not the same bits twice")
+            worst[mode] = max(worst[mode], check_gemv(f"{mode} M4 N{n} K{k} bf16 (same bits twice)", y, y_ref,
                                                       gemv_dot_max(mode, x, wt)))
     for n, k in CKPT_NK:
         x = torch.randn(64, k, generator=gen, device="cuda")
         for mode in ("w8", "w4"):
             wt, _ = gemv_weights(gen, mode, n, k)
+            want_f2[G.kernel_design(x.dtype)] += mode == "w4"
             worst[mode] = max(worst[mode], check_gemv(f"{mode} M64 N{n} K{k} f32", gemv_call(mode, x, wt),
                                                       gemv_plain(mode, x, wt), gemv_dot_max(mode, x, wt)))
     x = torch.randn(1000, 4096, generator=gen, device="cuda").bfloat16()
     for mode in ("w8", "w4", "g4"):
         wt, _ = gemv_weights(gen, mode, 4096, 4096)
+        want_f2[G.kernel_design(x.dtype)] += mode != "w8"
         worst[mode] = max(worst[mode], check_gemv(f"{mode} M1000 N4096 K4096 bf16", gemv_call(mode, x, wt),
                                                   gemv_plain(mode, x, wt), gemv_dot_max(mode, x, wt)))
+    got_f2 = design_counts("F2")
+    log(f"[F] F2 launches by design {got_f2} (want {want_f2}: bf16 x on the tensor cores, f32 x on the CUDA cores)")
+    if got_f2 != want_f2:
+        raise AssertionError(f"kernel F2 launches by design {got_f2} != {want_f2}")
 
     records = {mode: {"max_abs_err": worst[mode]} for mode in GEMV_MODES}
     step_ms = dict.fromkeys(list(GEMV_MODES) + ["dense"], 0.0)
@@ -1226,11 +1324,13 @@ def gemv_phase(gen):
             step_bytes[mode] += per_layer * LLM_DEPTH * wbytes
             line = f"[F] {mode} M4 N{n} K{k}: kernel {ms * 1e3:.2f} us ({wbytes / (ms * 1e-3) / 1e9:.0f} GB/s of " \
                    f"{wbytes / 1e6:.2f} MB packed)"
+            records[mode].setdefault("shape_ms", {})[f"N{n} K{k}"] = ms
             if (n, k) == (16384, 4096):  # w1: the shape of the kernels line
                 plain_ms = cuda_time_ms(lambda: gemv_plain(mode, x, wt), warmup=1, reps=5)
                 lim = bound(wbytes + nbytes(x) + 4 * n * 2)
                 records[mode].update(ms=ms, plain_ms=plain_ms, **lim)
                 line += f", plain {plain_ms:.4f} ms, bound {lim['bound_ms'] * 1e3:.2f} us"
+            line += f" [{G.kernel_design(x.dtype) if GEMV_MODES[mode] == 'F2' else 'cuda_core'}]"
             log(line)
             del wts
         wd = w.bfloat16()
@@ -1250,6 +1350,7 @@ def gemv_phase(gen):
         log(f"[F] decode step, {LLM_DEPTH} layers, M4: {mode} {ms:.3f} ms ({gb:.2f} GB of weights, "
             f"{gb / (ms * 1e-3):.0f} GB/s; bound {bound(step_bytes[mode])['bound_ms']:.3f} ms)")
     records["step_ms"], records["step_gb"] = step_ms, {m: b / 1e9 for m, b in step_bytes.items()}
+    records["copy_only"] = gemv_copy_only_probe()
 
     x = torch.randn(4, 4096, generator=gen, device="cuda").bfloat16()
     w = torch.randn(4096, 4096, generator=gen, device="cuda") / 64.0
@@ -1381,7 +1482,8 @@ def checkpoint_wq_phase():
         toks = llm.generate(qmodel, prompt, train.ANS_LEN, cfg).cpu().numpy()
         steps = train.ANS_LEN - 1
         f = 6 * cfg.depth * steps
-        check_counts(f"ckpt w{bits}", counts(), cfg.depth, steps, f1=f if bits == 8 else 0, f2=f if bits == 4 else 0)
+        check_counts(f"ckpt w{bits}", counts(), cfg.depth, steps, f1=f if bits == 8 else 0, f2=f if bits == 4 else 0,
+                     f2_design="cuda_core")
         acc = sum(train.grade_answer(row, a) for row, a in zip(toks, answers)) / len(answers)
         log(f"[ckpt] w{bits} weights, int8 cache: task exact-match {acc:.6f} on {len(answers)} prompts "
             f"(the JAX package on a CPU: {JAX_CPU_EXACT_MATCH[bits]})")
@@ -1415,7 +1517,7 @@ def decode_step_profile(model, prompt, cfg):
             continue
         us = e.device_time_total
         name = e.key.lower()
-        if "::gemv_kernel" in name:
+        if re.search(r"::gemv_(tc_)?kernel", name):
             cats["F"] += us / 1e3
         elif any(t in name for t in ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")):
             cats["GEMM"] += us / 1e3
@@ -1564,6 +1666,7 @@ def main():
     if not os.path.isdir(os.path.join(REPO, PKG)):
         raise RuntimeError(f"the port package {PKG}/ is not next to chip_smoke.py")
     build_s = build_phase()
+    start_gemv_probe_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     c1 = timed(quant_phase, gen)
     lowq = timed(lowbit_quant_phase, gen)
@@ -1584,7 +1687,6 @@ def main():
     dl = dit_r["launches"]
     replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
     wgmma_src = dict(route="cuda", source=f"{src}/attention_fwd_wgmma.cu", replaces=replaces_a)
-    mma_src = dict(route="cuda", source=f"{src}/attention_fwd.cu", replaces=replaces_a)
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     a_keys = timing + ("exp_floor_ms", "design")
     prefill = "LLM prefill shape b1 h32 hk8 s32704 d128 causal"
@@ -1609,7 +1711,7 @@ def main():
              **{k: lowa["int2-K"][k] for k in a_keys}),
         dict(name="attention_fwd (int8 V)", launches=dl["int8_v8"]["A"], **wgmma_src,
              **{k: lowa["int8-V"][k] for k in a_keys}),
-        dict(name="attention_fwd (int8 V, int8 PV)", launches=api["int8_v8 pv_int8"]["A"], **mma_src,
+        dict(name="attention_fwd (int8 V, int8 PV)", launches=api["int8_v8 pv_int8"]["A"], **wgmma_src,
              **{k: lowa["int8-PV"][k] for k in a_keys}),
     ] + [
         dict(name=f"decode_attention ({mode} cache)", route="cuda", source=f"{src}/decode_attention.cu",
@@ -1619,7 +1721,8 @@ def main():
     ] + [
         dict(name=name, route="cuda", source=f"{src}/gemv.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/gemv.py:" + ("255" if GEMV_MODES[mode] == "F1" else "368"),
-             launches=launches, **{k: gemv[mode][k] for k in timing})
+             launches=launches, design="tensor_core" if GEMV_MODES[mode] == "F2" else "cuda_core",
+             **{k: gemv[mode][k] for k in timing})
         for name, mode, launches in [
             ("wq_matmul_per_channel (F1: w8, bf16 x)", "w8", llm_r["w8"]["launches"]["F1"]),
             ("wq_matmul_per_channel (F1: w8a8, int8 x)", "w8a8", gemv["w8a8"]["launches"]),

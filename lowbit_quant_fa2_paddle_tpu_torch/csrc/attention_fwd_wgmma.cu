@@ -1,25 +1,28 @@
 // Kernel A on Hopper's own machinery: FlashAttention-2 forward with INT8,
-// packed INT4/INT2 or bf16 QK and bf16 PV, by TMA, wgmma and warp
+// packed INT4/INT2 or bf16 QK and bf16 or INT8 PV, by TMA, wgmma and warp
 // specialisation.
 //
 // Replaces the TPU kernel lowbit_quant_fa2_paddle_tpu/ops/attention.py:
 // _attn_body_km (launched by lowbit_attention_km, pallas_call at :1491 and
-// :1502) for every mode but INT8 PV: INT8 Q codes with per-row scales, or
-// bf16/f32 Q quantized per row in the prologue; INT8 K codes, or K packed two
-// (INT4, halves of D) or four (INT2, quarters of D) codes per byte, with
-// per-row scales; or bf16 Q/K (fp mode); bf16 V, or per-channel INT8 V codes
-// widened to bf16 exactly with a v_scale epilogue; an optional v_mean; bf16
+// :1502) in every mode: INT8 Q codes with per-row scales, or bf16/f32 Q
+// quantized per row in the prologue; INT8 K codes, or K packed two (INT4,
+// halves of D) or four (INT2, quarters of D) codes per byte, with per-row
+// scales; or bf16 Q/K (fp mode); bf16 V, or per-channel INT8 V codes widened
+// to bf16 exactly, or multiplied as an exact INT8 dot against P requantized
+// to [0, 127] (INT8 PV), with a v_scale epilogue; an optional v_mean; bf16
 // or f32 output; causal (top-left aligned) or not; GQA; any Sq, Sk; base-2
 // LSE out; head_dim 64 or 128. These are the DiT's int8, fp, int4 and
-// int8_v8 impls, the LLM prefill and the training forward. INT8 PV stays on
-// the mma.sync kernel of attention_fwd.cu; the wrapper picks by mode.
+// int8_v8 impls, the LLM prefill, the training forward and pv_int8.
 //
-// Arithmetic, bit for bit that of attention_fwd.cu over KV tiles of BKV keys:
+// Arithmetic over KV tiles of BKV keys, as in the TPU kernel:
 //   s  = (f32(i32 Q8 K8^T) * k_scale) * q_scale   q_scale holds sm_scale*log2e
 //   s  = f32(Qbf Kbf^T) * sm_scale*log2e          fp mode
 //   masked s = MASK_VALUE;  m' = max(m, rowmax s)
 //   P = bf16(exp2(bf16(s - m')));  l = 2^(m-m') l + sum P;  acc = 2^(m-m') acc + P V
 //   o = acc / l (* v_scale) (+ v_mean where l > 0);  lse2 = m + log2 l, or -1e30 where l == 0
+// INT8 PV: the x127 requantization is folded into the shift,
+//   P = bf16(exp2(bf16(s - (m' - log2 127))));  p8 = min(trunc(bf16(P + 0.5)), 127)
+//   l = 2^(m-m') l + sum p8;  acc = 2^(m-m') acc + f32(i32 p8 V8);  lse2 -= log2 127
 //
 // Bound on the H100: the tensor cores (4*D operations per (q, k) pair), and
 // at d64 as much the per-pair softmax chain: 11-14 instructions issued per
@@ -54,6 +57,19 @@
 // diagonal; only diagonal and ragged tiles are masked. QK's type and the
 // staging ring are template parameters (4 kernels per head_dim); the Q, K
 // and V formats and the output type are read at run time.
+//
+// INT8 PV is a fifth and sixth kernel per head_dim (INT8 or bf16 QK). 8-bit
+// wgmma takes B K-major, so the producer rewrites each staged INT8 V tile as
+// V^T, [D][128 keys] in 128-byte swizzled rows, with the keys of each 32-key
+// chunk in the order of the s8 A fragment: the S accumulator gives a thread
+// keys 2t, 2t+1 of each 8-key block, the fragment wants slots 4t .. 4t+3 and
+// 16+4t .. of a chunk, so slot 16h + 4t + i holds key 16h + 8(i>>1) + 2t +
+// (i&1) and p8 packs into A with byte permutes. p8 = min(floor(P +
+// 0.501953125), 127): for bf16 P that is trunc(bf16(P + 0.5)) (the bf16
+// rounding of P + 0.5 moves floor only for P in [0.498046875, 0.5), which
+// the extra 2^-9 covers); floor is an fadd.rm with 2^23, the saturation a
+// byte subtract, l a dp4a of the packed bytes. O += P V runs as m64nDk32 s8
+// into an s32 tile that is folded into the f32 O after each product.
 
 #include <type_traits>
 
@@ -71,6 +87,9 @@ template <int D>
 constexpr int kNWG = D == 64 ? 3 : 2;
 constexpr float MASK_VALUE = (float)(-0.7 * 3.4028234663852886e38);
 constexpr float NEG_INIT = -1e30f;
+constexpr float LOG2_127 = 6.9886846867721655f;
+// floor(P + P8_BIAS) = trunc(bf16(P + 0.5)) for bf16 P in [0, 128].
+constexpr float P8_BIAS = 0.501953125f;
 // Named barriers: 1 .. NWG order the consumer warpgroups' products, NWG + 1
 // .. 2 NWG close each one's Q prologue (0 is __syncthreads).
 constexpr int kBarTurn = 1;
@@ -85,7 +104,7 @@ struct Args {
   const float* v_mean;
   void* o;
   float* lse;
-  int H, Hk, Sq, Sk, causal, q_mode, k_bits, v_int8, out_f32;
+  int H, Hk, Sq, Sk, causal, q_mode, k_bits, v_int8, out_f32;  // v_int8: INT8 V codes (bf16 or INT8 PV)
   float sm_scale_log2e;
 };
 
@@ -160,7 +179,38 @@ __device__ __forceinline__ void widen_v(const uint2* src, unsigned char* Vt, int
   }
 }
 
-template <int D, bool kInt8, bool kStaged>
+// Rewrite one staged tile of INT8 V codes ([BKV keys][D] bytes) as V^T in
+// the V tile's place: row d of 128 bytes (128-byte swizzle), byte 16 hc + 4 t
+// + i holding key 16 hc + 8 (i >> 1) + 2 t + (i & 1), one of 128 producer
+// threads. A unit is 4 columns x 16 keys: four 4-byte loads per slot group
+// t, byte permutes, and four 4-byte stores; the order of the rows and slot
+// groups rotates with the thread, so the stores of a warp fall on 32 banks.
+template <int D>
+__device__ __forceinline__ void transpose_v(const unsigned char* src, unsigned char* Vt, int ptid) {
+  constexpr int NDQ = D / 4;
+  const int tr = (ptid >> 3) & 3;
+#pragma unroll 1
+  for (int u = ptid; u < NDQ * (BKV / 16); u += 128) {
+    const int dq = u % NDQ, hc = u / NDQ, rot = (dq >> 1) & 3;
+#pragma unroll
+    for (int tt = 0; tt < 4; ++tt) {
+      const int t = (tt + tr) & 3;
+      const unsigned char* s0 = src + (16 * hc + 2 * t) * D + 4 * dq;
+      const uint32_t i0 = *reinterpret_cast<const uint32_t*>(s0), i1 = *reinterpret_cast<const uint32_t*>(s0 + D);
+      const uint32_t i2 = *reinterpret_cast<const uint32_t*>(s0 + 8 * D);
+      const uint32_t i3 = *reinterpret_cast<const uint32_t*>(s0 + 9 * D);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int r = (k + rot) & 3;
+        const uint32_t sel = (uint32_t)(r | ((r + 4) << 4));
+        *reinterpret_cast<uint32_t*>(Vt + swizzle_offset<128>((4 * dq + r) * 128 + 16 * hc + 4 * t)) =
+            __byte_perm(__byte_perm(i0, i1, sel), __byte_perm(i2, i3, sel), 0x5410);
+      }
+    }
+  }
+}
+
+template <int D, bool kInt8, bool kStaged, bool kPV8>
 __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
     attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
                           const Args args) {
@@ -248,7 +298,10 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
             if (k_packed && k_bits == 4) widen_k<4, D, kSw>(pk_src, Kt, ptid);
             if (k_packed && k_bits == 2) widen_k<2, D, kSw>(pk_src, Kt, ptid);
           }
-          if (v_int8) widen_v<D>(reinterpret_cast<const uint2*>(smem + L::kV8Off + st * L::kV8Bytes), Vt, ptid);
+          if constexpr (kPV8)
+            transpose_v<D>(smem + L::kV8Off + st * L::kV8Bytes, Vt, ptid);
+          else if (v_int8)
+            widen_v<D>(reinterpret_cast<const uint2*>(smem + L::kV8Off + st * L::kV8Bytes), Vt, ptid);
           fence_proxy_async();
         }
         if (kStaged || kInt8) mbar_arrive(&full[st]);
@@ -327,11 +380,18 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
 
     SAcc sacc[BKV / 2];
     float oacc[D / 2];
-    uint32_t pk[BKV / 8][2];  // P as bf16x2: [8-key column tile][row g, row g + 8]
+    uint32_t pk[kPV8 ? 1 : BKV / 8][2];  // P as bf16x2: [8-key column tile][row g, row g + 8]
+    uint32_t a8[kPV8 ? BKV / 32 : 1][4];  // INT8 PV: p8 as s8 A fragments of each 32-key chunk
+    int pv[kPV8 ? D / 2 : 1];             // INT8 PV: one tile's i32 p8 V8
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] = 0.0f;
+    if constexpr (kPV8) {
 #pragma unroll
-    for (int i = 0; i < BKV / 8; ++i) pk[i][0] = pk[i][1] = 0u;
+      for (int i = 0; i < BKV / 32; ++i) a8[i][0] = a8[i][1] = a8[i][2] = a8[i][3] = 0u;
+    } else {
+#pragma unroll
+      for (int i = 0; i < BKV / 8; ++i) pk[i][0] = pk[i][1] = 0u;
+    }
     float m_run[2] = {NEG_INIT, NEG_INIT};
     float l_run[2] = {0.0f, 0.0f};  // per-thread partial row sums
 
@@ -355,16 +415,35 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
       }
     };
     auto issue_pv = [&](int st) {
+      if constexpr (kPV8) {
+        // p8 (registers) times V^T (K-major, 128-byte rows), 32 keys a product.
 #pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
-        // 16 keys of V: rows of 128 bytes, 8-key groups 1024 bytes apart,
-        // 64-column halves BKV * 128 bytes apart.
-        const uint64_t db = make_desc(v_addr + st * L::kVBytes + kk * 16 * 128, BKV * 128, 1024, 128);
-        if constexpr (D == 64)
-          wgmma_m64n64k16_f32_bf16_rs(oacc, a, db, 1);
-        else
-          wgmma_m64n128k16_f32_bf16_rs(oacc, a, db, 1);
+        for (int kk = 0; kk < BKV / 32; ++kk) {
+          const uint64_t db = make_desc(v_addr + st * L::kVBytes + kk * 32, 16, 1024, 128);
+          if constexpr (D == 64) {
+            if (kk == 0)
+              wgmma_m64n64k32_s32_s8_rs_init(pv, a8[kk], db);
+            else
+              wgmma_m64n64k32_s32_s8_rs(pv, a8[kk], db, 1);
+          } else {
+            if (kk == 0)
+              wgmma_m64n128k32_s32_s8_rs_init(pv, a8[kk], db);
+            else
+              wgmma_m64n128k32_s32_s8_rs(pv, a8[kk], db, 1);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk) {
+          const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
+          // 16 keys of V: rows of 128 bytes, 8-key groups 1024 bytes apart,
+          // 64-column halves BKV * 128 bytes apart.
+          const uint64_t db = make_desc(v_addr + st * L::kVBytes + kk * 16 * 128, BKV * 128, 1024, 128);
+          if constexpr (D == 64)
+            wgmma_m64n64k16_f32_bf16_rs(oacc, a, db, 1);
+          else
+            wgmma_m64n128k16_f32_bf16_rs(oacc, a, db, 1);
+        }
       }
     };
     // After wgmma_wait<1>: S is in; after wgmma_wait<0>: so is O, and P's
@@ -374,10 +453,20 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
       for (int i = 0; i < BKV / 2; ++i) pin(sacc[i]);
     };
     auto o_ready = [&]() {
+      if constexpr (kPV8) {
+        // Fold the tile's i32 product into O (|p8 V8| sums < 2^24: exact).
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) pin(oacc[i]);
+        for (int i = 0; i < D / 2; ++i) pin(pv[i]);
 #pragma unroll
-      for (int i = 0; i < BKV / 8; ++i) pin(pk[i][0]), pin(pk[i][1]);
+        for (int i = 0; i < BKV / 32; ++i) pin(a8[i][0]), pin(a8[i][1]), pin(a8[i][2]), pin(a8[i][3]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) oacc[i] += (float)pv[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) pin(oacc[i]);
+#pragma unroll
+        for (int i = 0; i < BKV / 8; ++i) pin(pk[i][0]), pin(pk[i][1]);
+      }
     };
 
     // The softmax of tile j (in ring stage st) in two halves. The first
@@ -425,31 +514,65 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
         alpha[hf] = ex2(m_run[hf] - m_new);
         m_run[hf] = m_new;
       }
+      // INT8 PV folds the x127 requantization into the shift.
+      const float shift[2] = {kPV8 ? m_run[0] - LOG2_127 : m_run[0], kPV8 ? m_run[1] - LOG2_127 : m_run[1]};
 #pragma unroll
       for (int nt = 0; nt < BKV / 8; ++nt)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           float& s0 = s[4 * nt + 2 * hf];
           float& s1 = s[4 * nt + 2 * hf + 1];
-          const uint32_t dd = pack_bf16x2(s0 - m_run[hf], s1 - m_run[hf]);
+          const uint32_t dd = pack_bf16x2(s0 - shift[hf], s1 - shift[hf]);
           s0 = ex2(bf16_lo(dd));
           s1 = ex2(bf16_hi(dd));
         }
     };
     auto softmax_o = [&]() {
-      float lsum[2] = {0.0f, 0.0f};
+      if constexpr (kPV8) {
+        // p8 of each 8-key block (keys 2t, 2t+1): floor(bf16 P + P8_BIAS) as
+        // the low byte of an fadd.rm with 2^23; four blocks make one chunk's
+        // A words, saturated at 127; l sums the bytes.
+        unsigned lsum[2] = {0u, 0u};
 #pragma unroll
-      for (int nt = 0; nt < BKV / 8; ++nt)
+        for (int c = 0; c < BKV / 32; ++c)
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const uint32_t p = pack_bf16x2(s[4 * nt + 2 * hf], s[4 * nt + 2 * hf + 1]);
-          pk[nt][hf] = p;
-          lsum[hf] += bf16_lo(p) + bf16_hi(p);
-        }
+          for (int hf = 0; hf < 2; ++hf) {
+            uint32_t q[4];
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) l_run[hf] = alpha[hf] * l_run[hf] + lsum[hf];
+            for (int b = 0; b < 4; ++b) {
+              const int nt = 4 * c + b;
+              const uint32_t p = pack_bf16x2(s[4 * nt + 2 * hf], s[4 * nt + 2 * hf + 1]);
+              const float y0 = __fadd_rd(bf16_lo(p) + P8_BIAS, 8388608.0f);
+              const float y1 = __fadd_rd(bf16_hi(p) + P8_BIAS, 8388608.0f);
+              q[b] = __byte_perm(__float_as_uint(y0), __float_as_uint(y1), 0x0040);
+            }
+            uint32_t w0 = __byte_perm(q[0], q[1], 0x5410), w1 = __byte_perm(q[2], q[3], 0x5410);
+            w0 -= (w0 >> 7) & 0x01010101u;  // 128 -> 127 (the only byte with bit 7)
+            w1 -= (w1 >> 7) & 0x01010101u;
+            a8[c][hf] = w0;
+            a8[c][2 + hf] = w1;
+            lsum[hf] = __dp4a(w0, 0x01010101u, lsum[hf]);
+            lsum[hf] = __dp4a(w1, 0x01010101u, lsum[hf]);
+          }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+        for (int hf = 0; hf < 2; ++hf) l_run[hf] = alpha[hf] * l_run[hf] + (float)lsum[hf];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+      } else {
+        float lsum[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int nt = 0; nt < BKV / 8; ++nt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const uint32_t p = pack_bf16x2(s[4 * nt + 2 * hf], s[4 * nt + 2 * hf + 1]);
+            pk[nt][hf] = p;
+            lsum[hf] += bf16_lo(p) + bf16_hi(p);
+          }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) l_run[hf] = alpha[hf] * l_run[hf] + lsum[hf];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+      }
     };
 
     // Turns: warpgroup 0 goes first, then 1, ...; each block of products of
@@ -530,14 +653,15 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
         else
           store2(static_cast<__nv_bfloat16*>(args.o) + obase + d, o0, o1);
       }
-      if (args.lse && t == 0) args.lse[qh * Sq + row] = empty_row ? NEG_INIT : m_run[hf] + log2f(ls);
+      if (args.lse && t == 0)
+        args.lse[qh * Sq + row] = empty_row ? NEG_INIT : m_run[hf] + log2f(ls) - (kPV8 ? LOG2_127 : 0.0f);
     }
   }
 }
 
 // K's and V's tensor maps as the kernel loads them: int8 / bf16 rows into
 // swizzled tiles, packed K and INT8 V rows as they lie into the staging ring.
-template <int D, bool kInt8, bool kStaged>
+template <int D, bool kInt8, bool kStaged, bool kPV8>
 int launch(const Args& a, const void* k, const void* v, int B, cudaStream_t stream) {
   using L = Layout<D, kInt8, kStaged>;
   const cuuint64_t rows = (cuuint64_t)B * a.Hk, sk = (cuuint64_t)a.Sk;
@@ -567,7 +691,7 @@ int launch(const Args& a, const void* k, const void* v, int B, cudaStream_t stre
                                CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (!ok) return (int)cudaErrorInvalidValue;
-  auto kern = attn_fwd_wgmma_kernel<D, kInt8, kStaged>;
+  auto kern = attn_fwd_wgmma_kernel<D, kInt8, kStaged, kPV8>;
   constexpr int smem = L::kTotal + 1024;
   const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -577,11 +701,14 @@ int launch(const Args& a, const void* k, const void* v, int B, cudaStream_t stre
 }
 
 template <int D>
-int dispatch(const Args& a, const void* k, const void* v, int B, cudaStream_t st) {
+int dispatch(const Args& a, bool pv8, const void* k, const void* v, int B, cudaStream_t st) {
   const bool staged = a.k_bits < 8 || a.v_int8;
+  if (pv8)
+    return a.q_mode == Q_FP ? launch<D, false, true, true>(a, k, v, B, st)
+                            : launch<D, true, true, true>(a, k, v, B, st);
   if (a.q_mode == Q_FP)
-    return staged ? launch<D, false, true>(a, k, v, B, st) : launch<D, false, false>(a, k, v, B, st);
-  return staged ? launch<D, true, true>(a, k, v, B, st) : launch<D, true, false>(a, k, v, B, st);
+    return staged ? launch<D, false, true, false>(a, k, v, B, st) : launch<D, false, false, false>(a, k, v, B, st);
+  return staged ? launch<D, true, true, false>(a, k, v, B, st) : launch<D, true, false, false>(a, k, v, B, st);
 }
 
 }  // namespace
@@ -590,26 +717,25 @@ int dispatch(const Args& a, const void* k, const void* v, int B, cudaStream_t st
 //   q: [B, H, Sq, D] int8 codes (q_mode 0), bf16 (1, 3) or f32 (2).
 //   k: q_mode 0-2: [B, Hk, Sk, D*k_bits/8] int8, codes (k_bits 8) or packed
 //      INT4 (4) / INT2 (2) codes; q_mode 3: [B, Hk, Sk, D] bf16 (k_bits 16).
-//   v: [B, Hk, Sk, D] bf16 (v_mode 0) or int8 codes (v_mode 1, bf16 PV) with
-//      v_scale [B, Hk, D] f32.
+//   v: [B, Hk, Sk, D] bf16 (v_mode 0) or int8 codes (v_mode 1, bf16 PV; v_mode
+//      2, INT8 PV) with v_scale [B, Hk, D] f32.
 //   q_scale: [B, H, Sq] f32, already times sm_scale*log2e (q_mode 0 only).
 //   k_scale: [B, Hk, Sk] f32 (q_mode 0-2).   v_mean: [B, Hk, D] f32 or null.
 //   o: [B, H, Sq, D] bf16 (out_f32 = 0) or f32.   lse: [B, H, Sq] f32 (base 2) or null.
-// The same arguments as lowbit_attn_fwd. Returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unsupported D or mode, INT8 PV included, or
-// a tensor map the driver refuses).
+// Returns cudaGetLastError() (cudaErrorInvalidValue for an unsupported D or
+// mode, or a tensor map the driver refuses).
 extern "C" int lowbit_attn_fwd_wgmma(const void* q, const void* k, const void* v, const float* q_scale,
                                      const float* k_scale, const float* v_scale, const float* v_mean, void* o,
                                      float* lse, int B, int H, int Hk, int Sq, int Sk, int D, int q_mode, int k_bits,
                                      int v_mode, int out_f32, int causal, float sm_scale_log2e, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool k_ok = q_mode == Q_FP ? k_bits == 16 : (k_bits == 8 || k_bits == 4 || k_bits == 2);
-  if (!k_ok || q_mode < Q_INT8 || q_mode > Q_FP || v_mode < 0 || v_mode > 1 || (v_mode == 1 && v_scale == nullptr) ||
+  if (!k_ok || q_mode < Q_INT8 || q_mode > Q_FP || v_mode < 0 || v_mode > 2 || (v_mode != 0 && v_scale == nullptr) ||
       (q_mode != Q_FP && k_scale == nullptr) || (q_mode == Q_INT8 && q_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, q_scale, k_scale, v_scale, v_mean, o, lse, H, Hk, Sq, Sk, causal, q_mode, k_bits, v_mode, out_f32,
-               sm_scale_log2e};
-  if (D == 64) return dispatch<64>(a, k, v, B, st);
-  if (D == 128) return dispatch<128>(a, k, v, B, st);
+  const Args a{q, q_scale, k_scale, v_scale, v_mean, o, lse, H, Hk, Sq, Sk, causal, q_mode, k_bits, v_mode != 0,
+               out_f32, sm_scale_log2e};
+  if (D == 64) return dispatch<64>(a, v_mode == 2, k, v, B, st);
+  if (D == 128) return dispatch<128>(a, v_mode == 2, k, v, B, st);
   return (int)cudaErrorInvalidValue;
 }

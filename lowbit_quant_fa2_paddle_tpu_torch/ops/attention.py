@@ -26,14 +26,12 @@ to bf16 exactly, or with ``pv_int8`` multiply as an exact INT8 dot against P
 requantized to [0, 127]. The LSE comes back in base 2, ``-1e30`` for rows
 with no visible key.
 
-Kernel A has two designs, chosen by mode (``kernel_design``): every mode
-but INT8 PV (the DiT's int8, fp, int4 and int8_v8 impls, the LLM prefill,
-the training forward) runs on the Hopper design of
-``csrc/attention_fwd_wgmma.cu`` (TMA, ``wgmma``, warp-specialised, KV tiles
-of 128 keys); INT8 PV stays on the ``mma.sync`` kernel of
-``csrc/attention_fwd.cu`` (KV tiles of 64 keys). The tile is part of the
-rounding (P rounds against the running maximum of each tile), so the plain
-version takes the tile of the design that runs the mode (``kv_tile``).
+Every mode of kernel A (the DiT's int8, fp, int4 and int8_v8 impls, the LLM
+prefill, the training forward, INT8 PV) runs on one Hopper design
+(``kernel_design``): ``csrc/attention_fwd_wgmma.cu`` (TMA, ``wgmma``,
+warp-specialised, KV tiles of 128 keys). The tile is part of the rounding (P
+rounds against the running maximum of each tile), so the plain version takes
+the design's tile (``kv_tile``).
 
 ``lowbit_attention`` takes the plain PyTorch version below for tensors on the
 CPU and launches the kernel for CUDA tensors; nothing falls back.
@@ -55,17 +53,17 @@ LOG2_127 = math.log2(127.0)
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 NEG_INIT = -1e30
 
-#: Keys per KV tile of each design of kernel A (``BKV`` in its source).
-KV_TILE = {"wgmma": 128, "mma.sync": 64}
+#: Keys per KV tile of kernel A's design (``BKV`` in its source).
+KV_TILE = {"wgmma": 128}
 #: Elements of one chunk of f32 logits in the plain version (1 GiB).
 _PLAIN_CHUNK_ELEMS = 1 << 28
 _UNPACK = {4: unpack_int4, 2: unpack_int2}
 
 
 def kernel_design(pv_int8: bool = False) -> str:
-    """Which design of kernel A runs a mode: ``"mma.sync"`` for INT8 PV,
-    ``"wgmma"`` for every other. The choice is static, by mode."""
-    return "mma.sync" if pv_int8 else "wgmma"
+    """Which design of kernel A runs a mode: ``"wgmma"`` for every mode,
+    INT8 PV included."""
+    return "wgmma"
 
 
 def kv_tile(pv_int8: bool = False) -> int:
@@ -170,10 +168,10 @@ def attention_fwd_plain(
 def _attention_fwd_cuda(
     q, k, v, q_scale, k_scale, v_mean, *, causal, sm_scale_log2e, out_dtype, need_lse, k_bits, v_scale, pv_int8
 ):
-    """Launch kernel A. Head dims below 64 (or between 64 and 128) are
-    zero-padded: zero Q/K columns leave QK^T and the Q absmax unchanged, and
-    zero V columns are sliced off. Packed K cannot be padded; its D is 64 or
-    128 (the wrapper checks)."""
+    """Launch kernel A (``csrc/attention_fwd_wgmma.cu``). Head dims below 64
+    (or between 64 and 128) are zero-padded: zero Q/K columns leave QK^T and
+    the Q absmax unchanged, and zero V columns are sliced off. Packed K
+    cannot be padded; its D is 64 or 128 (the wrapper checks)."""
     b, h, s_q, d = q.shape
     hk, s_k = k.shape[1], k.shape[2]
     if d > 128:
@@ -200,7 +198,7 @@ def _attention_fwd_cuda(
     if any(x.device != q.device for x in tensors):
         raise ValueError("attention inputs must all be on one device")
     design = kernel_design(pv_int8)
-    # cp.async and TMA move 16-byte chunks from 16-byte aligned tensors.
+    # TMA moves 16-byte chunks from 16-byte aligned tensors.
     aligned = lambda x: (  # noqa: E731
         x if x is None or (x.is_contiguous() and x.data_ptr() % 16 == 0) else x.clone(memory_format=torch.contiguous_format))
     q, k, v = aligned(q), aligned(k), aligned(v)
@@ -212,9 +210,8 @@ def _attention_fwd_cuda(
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [x.data_ptr() if x is not None else None for x in (q, k, v, q_scale, k_scale, v_scale, v_mean, o, lse)]
-    entry = lib.lowbit_attn_fwd_wgmma if design == "wgmma" else lib.lowbit_attn_fwd
     with torch.cuda.device(q.device):
-        err = entry(*ptrs, b, h, hk, s_q, s_k, dp, mode, k_bits, v_mode, int(out_f32), int(causal), sm_scale_log2e,
+        err = lib.lowbit_attn_fwd_wgmma(*ptrs, b, h, hk, s_q, s_k, dp, mode, k_bits, v_mode, int(out_f32), int(causal), sm_scale_log2e,
                     stream)
     _build.check(err, "lowbit_attention")
     lowbit_attention.launches += 1

@@ -26,12 +26,18 @@ Route: ``M >= 1024`` rows (prefill, the DiT's 17,776 tokens) dequantize W
 once and take ``torch.matmul``, as the JAX package leaves that to XLA;
 smaller M runs the kernel. On CPU tensors the kernels' plain PyTorch
 versions below run instead; a CUDA tensor launches ``csrc/gemv.cu`` or
-raises. The scales are formed as JAX computes them op by op (division, then
+raises. F2 has two designs (``kernel_design``): bf16 activations run the
+dot on the tensor cores (``"tensor_core"``, ``mma.sync`` with each code
+dequantized exactly to ``bf16(f32(code * scale))``, K split over CTAs by
+``tc_plan``, the splits merged in a fixed order); f32 activations
+keep their f32 products on the CUDA cores
+(``"cuda_core"``, F1's design). The scales are formed as JAX computes them op by op (division, then
 the ``+ 1e-8``), so packed weights equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -44,6 +50,16 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import round_away
 #: Rows of x from which the matmul dequantizes W once and runs a dense
 #: matmul (the JAX package's threshold).
 DENSE_ROUTE_M = 1024
+#: F2's designs (see ``kernel_design``).
+DESIGNS = ("tensor_core", "cuda_core")
+#: The tensor-core design's plan: warps a CTA, rows of W a warp item, fewest
+#: 64-byte chunks a split; by m-tiles a CTA, the x values of a staged row
+#: (``tc_x_values`` in the source) and the CTAs an SM holds.
+TC_WARPS, TC_ROWS, TC_MIN_CHUNKS = 4, 32, 2
+#: Most K splits (the merge loads every split's partial at once).
+TC_MAX_SPLITS = 8
+TC_X_VALUES = {1: 1024, 4: 512}
+TC_CTAS_PER_SM = {1: 3, 4: 2}
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -200,7 +216,93 @@ def wq_matmul_fused_plain(x2: torch.Tensor, packed: torch.Tensor, scale: torch.T
 # ---------------------------------------------------------------------------
 
 
+def kernel_design(x_dtype: torch.dtype = torch.bfloat16) -> str:
+    """Which design of kernel F2 runs activations of ``x_dtype`` (as they
+    reach the kernel): ``"tensor_core"`` for bf16 (``mma.sync``; the exact
+    bf16 weights times bf16 x are exact in f32), ``"cuda_core"`` for f32
+    (f32 products, which the tensor cores cannot form exactly)."""
+    if x_dtype == torch.bfloat16:
+        return "tensor_core"
+    if x_dtype == torch.float32:
+        return "cuda_core"
+    raise TypeError(f"kernel F2 takes bf16 or f32 activations, not {x_dtype}")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tc_plan(m: int, n: int, k: int, bits: int, n_sms: int) -> Tuple[int, int, int, int, int]:
+    """The tensor-core design's launch plan ``(mt, ksplit, cps, spc, gx)``
+    for ``x [m, k] @ W^T [k, n]`` on ``n_sms`` SMs: ``mt`` m-tiles of 8 x
+    rows a CTA (1 up to 8 rows, else 4); with one m-tile the packed row is
+    split over CTAs into ``ksplit`` ranges of ``cps`` 64-byte chunks, as
+    many as fill the card's warp slots once with items of 32 rows (at least
+    ``TC_MIN_CHUNKS`` chunks a range, at most ``TC_MAX_SPLITS`` ranges),
+    with four (M > 8) it is not split, since each split's partial sums would
+    be M x N floats; a CTA stages x
+    for slices of ``spc`` chunks of its range (``TC_X_VALUES[mt]`` values a
+    row at most); ``gx`` CTAs along N, every warp walking the same number of
+    items. It depends on shapes only."""
+    fpb = 8 // bits
+    kb = k // fpb
+    mt = 1 if m <= 8 else 4
+    mblocks = _cdiv(m, 8 * mt)
+    chunks = _cdiv(kb, 64)
+    items = _cdiv(n, TC_ROWS)
+    slots = n_sms * TC_CTAS_PER_SM[mt] * TC_WARPS
+    ksplit = min(max(1, slots // (items * mblocks)), _cdiv(chunks, TC_MIN_CHUNKS), TC_MAX_SPLITS) if mt == 1 else 1
+    cps = _cdiv(chunks, ksplit)
+    ksplit = _cdiv(chunks, cps)
+    spc = min(cps, max(1, TC_X_VALUES[mt] // fpb // 64))
+    per_warp = _cdiv(items * ksplit * mblocks, slots)  # the same number of items for every warp
+    return mt, ksplit, cps, spc, _cdiv(items, TC_WARPS * per_warp)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """Zeroed int32 counters of the split merge, one per (m-block, 32-row
+    item), kept per device; the kernel leaves them zero."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _gemv_tc_cuda(x2, packed, scale, mn, *, bits, group_size, neg7, s_row, s_group):
+    """Launch F2's tensor-core design on bf16 ``x2 [M, K]`` (checked by
+    ``_gemv_cuda``); returns bf16 ``y [M, N]``."""
+    m, k = x2.shape
+    n = packed.shape[0]
+    dev = x2.device
+    mt, ksplit, cps, spc, gx = tc_plan(m, n, k, bits, _sm_count(dev.index if dev.index is not None else
+                                                                torch.cuda.current_device()))
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    part = tickets = None
+    if ksplit > 1:  # the splits' partial sums and their merge tickets
+        part = torch.empty(2 * ksplit * m * n, dtype=torch.float32, device=dev)
+        tickets = _tickets(dev, _cdiv(m, 8 * mt) * _cdiv(n, TC_ROWS))
+    with torch.cuda.device(dev):
+        err = _build.library().lowbit_gemv_tc(
+            x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), mn.data_ptr() if mn is not None else None,
+            y.data_ptr(), part.data_ptr() if part is not None else None,
+            tickets.data_ptr() if tickets is not None else None, m, n, k, bits, group_size, s_row, s_group,
+            int(neg7), mt, ksplit, cps, spc, gx, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "wq_matmul_fused")
+    return y
+
+
 def _gemv_cuda(x2, x_scale, packed, scale, mn, *, bits, grouped, group_size, neg7, out_dtype, wrapper):
+    """Launch F1, or F2 on its design for ``x2``'s type."""
     name = wrapper.__name__
     m, k = x2.shape
     n, kb = packed.shape
@@ -217,18 +319,23 @@ def _gemv_cuda(x2, x_scale, packed, scale, mn, *, bits, grouped, group_size, neg
         raise ValueError(f"{name} kernel needs a group size that is a multiple of 16, got {group_size}")
     if packed.data_ptr() % 16 or x2.data_ptr() % 16:
         raise ValueError(f"{name} kernel needs 16-byte aligned x and weights")
-    y = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     s_row, s_group = (1, 0) if scale.dim() == 1 else (scale.shape[1], 1)
-    lib = _build.library()
-    with torch.cuda.device(x2.device):
-        err = lib.lowbit_gemv(
-            x2.data_ptr(), x_scale.data_ptr() if x_scale is not None else None, packed.data_ptr(),
-            scale.data_ptr(), mn.data_ptr() if mn is not None else None, y.data_ptr(),
-            m, n, k, _X_CODES[x2.dtype], _OUT_CODES[out_dtype], bits, int(grouped), group_size, s_row, s_group,
-            int(neg7), torch.cuda.current_stream(x2.device).cuda_stream,
-        )
-    _build.check(err, name)
+    if grouped and x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16:
+        y = _gemv_tc_cuda(x2, packed, scale, mn, bits=bits, group_size=group_size, neg7=neg7, s_row=s_row,
+                          s_group=s_group)
+    else:
+        y = torch.empty((m, n), dtype=out_dtype, device=x2.device)
+        with torch.cuda.device(x2.device):
+            err = _build.library().lowbit_gemv(
+                x2.data_ptr(), x_scale.data_ptr() if x_scale is not None else None, packed.data_ptr(),
+                scale.data_ptr(), mn.data_ptr() if mn is not None else None, y.data_ptr(),
+                m, n, k, _X_CODES[x2.dtype], _OUT_CODES[out_dtype], bits, int(grouped), group_size, s_row,
+                s_group, int(neg7), torch.cuda.current_stream(x2.device).cuda_stream,
+            )
+        _build.check(err, name)
     wrapper.launches += 1
+    if grouped:
+        wrapper.launches_by_design[kernel_design(x2.dtype)] += 1
     return y
 
 
@@ -344,9 +451,11 @@ def wq_matmul_fused(
 
 
 #: Launches of kernels F1 and F2 in this process (CPU calls and the dense
-#: route do not count; 4-bit per-channel weights count as F2).
+#: route do not count; 4-bit per-channel weights count as F2), and F2's per
+#: design.
 wq_matmul_per_channel.launches = 0
 wq_matmul_fused.launches = 0
+wq_matmul_fused.launches_by_design = {design: 0 for design in DESIGNS}
 
 
 # ---------------------------------------------------------------------------

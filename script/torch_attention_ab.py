@@ -1,18 +1,22 @@
-"""Kernel A's wgmma design against variants of its own source, on one CUDA card.
+"""Kernel A's wgmma design against variants of its own source and against
+another tree's build, on one CUDA card.
 
-    python3 script/torch_attention_ab.py [VARIANT ...]
+    python3 script/torch_attention_ab.py [--base DIR] [VARIANT ...]
 
 Each variant is a patch of ``csrc/attention_fwd_wgmma.cu`` or of the shared
 header ``csrc/sm90.cuh`` (see VARIANTS),
-built in its own copy of the package under ``build/attention_ab/<name>/``.
-Every build (the checkout's as "main", then each variant's) times kernel A
-in its own process: int8 with Q quantized in the kernel and fp at b1 h30
-s17776 d64 (the DiT's shape) and at b1 h32 hk8 s32704 d128 causal (one
-batch row of the LLM prefill), with ``utils.benchmark.cuda_time_ms``; main
-also times packed INT4/INT2 K and INT8 V at the DiT shape. The processes run
-in turns main, v1, v2, ..., then the same in reverse, so each variant is
+built in its own copy of the package under ``build/attention_ab/<name>/``;
+``--base DIR`` adds the package of another tree as "base" (for example the
+parent commit unpacked by ``git archive`` into a directory that
+``.gitignore`` lists). Every build (the checkout's as "main", then base and
+each variant's) times kernel A in its own process: int8 with Q quantized in
+the kernel and fp at b1 h30 s17776 d64 (the DiT's shape) and at b1 h32 hk8
+s32704 d128 causal (one batch row of the LLM prefill), with
+``utils.benchmark.cuda_time_ms``; main and base also time packed INT4/INT2
+K, INT8 V and INT8 V with INT8 PV at the DiT shape. The processes run in
+turns main, base, v1, v2, ..., then the same in reverse, so each build is
 compared with main within one call. Prints the card's name and power limit
-first. With no argument, every variant runs.
+first. With no variant, every variant runs.
 """
 
 from __future__ import annotations
@@ -39,9 +43,9 @@ VARIANTS = {
     "exp2f": ("exp2f (with its range fix-up) instead of ex2.approx.ftz",
               [("sm90.cuh", "  asm(\"ex2.approx.ftz.f32 %0, %1;\\n\" : \"=f\"(y) : \"f\"(x));", "  y = exp2f(x);")]),
     "int-round": ("bf16 rounding of s - m by integer round-to-nearest-even, not cvt.rn.bf16x2",
-                  [("          const uint32_t dd = pack_bf16x2(s0 - m_run[hf], s1 - m_run[hf]);\n"
+                  [("          const uint32_t dd = pack_bf16x2(s0 - shift[hf], s1 - shift[hf]);\n"
                     "          s0 = ex2(bf16_lo(dd));\n          s1 = ex2(bf16_hi(dd));",
-                    "          const uint32_t u0 = __float_as_uint(s0 - m_run[hf]), u1 = __float_as_uint(s1 - m_run[hf]);\n"
+                    "          const uint32_t u0 = __float_as_uint(s0 - shift[hf]), u1 = __float_as_uint(s1 - shift[hf]);\n"
                     "          s0 = ex2(__uint_as_float((u0 + 0x7FFFu + ((u0 >> 16) & 1u)) & 0xFFFF0000u));\n"
                     "          s1 = ex2(__uint_as_float((u1 + 0x7FFFu + ((u1 >> 16) & 1u)) & 0xFFFF0000u));")]),
     "i2f-trick": ("the s32 dot to f32 through the bits of 1.5*2^23 + c instead of I2FP",
@@ -76,11 +80,12 @@ def worker(tag: str, lowbit: bool) -> None:
             runs["int2-K"] = ((q, *qo.quant_int2(k, km, gran="per_token")), {"k_pack_bits": 2})
             v8, vs, vm = qo.quant_v_int8_per_channel(v, smooth_v=True)
             runs["int8-V"] = ((q, runs["int8"][0][1], runs["int8"][0][2]), {"v8": (v8, vs, vm)})
+            runs["int8-PV"] = ((q, runs["int8"][0][1], runs["int8"][0][2]), {"v8": (v8, vs, vm), "pv_int8": True})
         for name, (args, kw) in runs.items():
             if "v8" in kw:
                 v8, vs, vm = kw.pop("v8")
-                call = (lambda a=args, v8=v8, vs=vs, vm=vm: lowbit_attention(a[0], a[1], v8, None, a[2], v_scale=vs,
-                                                                           v_mean=vm, is_causal=causal))
+                call = (lambda a=args, v8=v8, vs=vs, vm=vm, kw=kw: lowbit_attention(
+                    a[0], a[1], v8, None, a[2], v_scale=vs, v_mean=vm, is_causal=causal, **kw))
             elif len(args) == 3:
                 call = lambda a=args, kw=kw: lowbit_attention(a[0], a[1], v, None, a[2], is_causal=causal, **kw)  # noqa: E731
             else:
@@ -111,29 +116,37 @@ def prepare(name: str) -> str:
     return root
 
 
-def main(names) -> None:
+def main(names, base=None) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dirs = {"main": REPO}
+    if base:
+        dirs["base"] = os.path.abspath(base)
     dirs.update({name: prepare(name) for name in names})
     build = "from lowbit_quant_fa2_paddle_tpu_torch.ops import _build; _build.library()"
     for i in range(0, len(dirs), 3):  # three builds at a time on the machine's cores
         procs = [subprocess.Popen([sys.executable, "-c", build], cwd=d) for d in list(dirs.values())[i:i + 3]]
         if any(p.wait() != 0 for p in procs):
             raise RuntimeError("a build failed")
+    if base:
+        print(f"base: the package of {base}", flush=True)
     for name in names:
         print(f"{name}: {VARIANTS[name][0]}", flush=True)
-    order = ["main"] + list(names)
+    order = list(dirs)
     for tag in order + order[::-1]:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tag], cwd=dirs[tag], check=True)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
-        worker(sys.argv[2], lowbit=sys.argv[2] == "main")
+        worker(sys.argv[2], lowbit=sys.argv[2] in ("main", "base"))
     else:
-        names = sys.argv[1:] or list(VARIANTS)
+        args = sys.argv[1:]
+        base = None
+        if args[:1] == ["--base"]:
+            base, args = args[1], args[2:]
+        names = args or list(VARIANTS)
         unknown = [n for n in names if n not in VARIANTS]
         if unknown:
             sys.exit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
-        main(names)
+        main(names, base)

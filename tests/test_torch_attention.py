@@ -57,7 +57,7 @@ def _jax(x, dtype=jnp.float32):
     return jnp.asarray(x, dtype)
 
 
-def _close(o_port, o_jax, lse_port=None, lse_jax=None, cos_min=COS_MIN, max_do=MAX_DO):
+def _close(o_port, o_jax, lse_port=None, lse_jax=None, cos_min=COS_MIN, max_do=MAX_DO, max_dlse=MAX_DLSE):
     o_jax = torch.from_numpy(np.array(jnp.asarray(o_jax, jnp.float32)))
     o_port = o_port.float()
     assert o_port.shape == o_jax.shape
@@ -67,7 +67,7 @@ def _close(o_port, o_jax, lse_port=None, lse_jax=None, cos_min=COS_MIN, max_do=M
     if lse_port is not None:
         lse_jax = torch.from_numpy(np.array(lse_jax))
         assert lse_port.shape == lse_jax.shape
-        assert float((lse_port - lse_jax).abs().max()) <= MAX_DLSE
+        assert float((lse_port - lse_jax).abs().max()) <= max_dlse
 
 
 @pytest.mark.parametrize(
@@ -114,17 +114,29 @@ def test_fp_matches_jax(causal, hk):
 
 @pytest.mark.parametrize("tile", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("mode", ["int8", "fp"])
+@pytest.mark.parametrize("mode", ["int8", "fp", "int8_pv"])
 def test_plain_version_at_each_kv_tile_matches_jax(mode, causal, tile, monkeypatch):
-    """The int8 and fp modes' plain version at either design's KV tile (the
-    wgmma design's 128 keys, which these modes run on, and mma.sync's 64)
-    against the JAX package: the tile moves only where P rounds, within the
-    port-vs-JAX bounds. s 400 is three whole 128-key tiles and a ragged one."""
+    """The int8, fp and INT8-PV modes' plain version at the design's KV tile
+    (the wgmma design's 128 keys, which every mode runs on) and at 64
+    against the JAX package: the tile moves only where P (or p8) rounds,
+    within the port-vs-JAX bounds (INT8 PV's own, as in
+    ``test_pv_int8_matches_jax``). s 400 is three whole 128-key tiles and a
+    ragged one. INT8 PV's LSE sums p8 codes that JAX forms with the base
+    2^(1 - 0.0025) (bf16 ln 2): the gap is about 0.0025 times the spread of
+    the shifted logits, which reaches ~17 here (0.040 at either tile on a
+    CPU, 0.014 on ``test_pv_int8_matches_jax``'s inputs), so its LSE is held
+    to 5e-2."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops import attention as tattn
 
     monkeypatch.setitem(tattn.KV_TILE, "wgmma", tile)
-    assert tattn.kv_tile() == tile and tattn.kv_tile(pv_int8=True) == 64
+    assert tattn.kv_tile() == tile and tattn.kv_tile(pv_int8=True) == tile
     q, k, v = _qkv(h=4, hk=2, s=400, seed=11)
+    if mode == "int8_pv":
+        kw = dict(is_causal=causal, pv_int8=True, return_lse=True)
+        jo, jl = jlq.lowbit_fa_qk_int8_pv_int8(_jax(q), _jax(k), _jax(v + 0.5), **kw)
+        to, tl = tlq.lowbit_fa_qk_int8_pv_int8(_torch(q), _torch(k), _torch(v + 0.5), **kw)
+        _close(to, jo, tl, jl, cos_min=0.999, max_do=5e-2, max_dlse=5e-2)
+        return
     if mode == "int8":
         jo, jl = jlq.lowbit_fa_qk_int8_pv_fp16(_jax(q), _jax(k), _jax(v), is_causal=causal, return_lse=True)
         to, tl = tlq.lowbit_fa_qk_int8_pv_fp16(_torch(q), _torch(k), _torch(v), is_causal=causal, return_lse=True)
@@ -133,6 +145,16 @@ def test_plain_version_at_each_kv_tile_matches_jax(mode, causal, tile, monkeypat
         jo, jl = jlq.flash_attention_fp(b16(q), b16(k), b16(v), is_causal=causal, return_lse=True)
         to, tl = tlq.flash_attention_fp(t16(q), t16(k), t16(v), is_causal=causal, return_lse=True)
     _close(to, jo, tl, jl)
+
+
+@pytest.mark.parametrize("pv_int8", [False, True])
+def test_kernel_design_by_mode(pv_int8):
+    """Every mode of kernel A, INT8 PV included, runs on the wgmma design,
+    whose 128-key tile the plain version follows."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import attention as tattn
+
+    assert tattn.kernel_design(pv_int8) == "wgmma" and tattn.kv_tile(pv_int8) == 128
+    assert set(tattn.KV_TILE) == set(lowbit_attention.launches_by_design) == {"wgmma"}
 
 
 def test_jax_bf16_exp2_rounds_ln2():

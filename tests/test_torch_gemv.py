@@ -251,3 +251,69 @@ def test_bad_arguments_raise():
         TG.wq_matmul_per_channel(torch.zeros(3, K), *TG.pack_weights_per_channel(w), activation="fp8")
     with pytest.raises(ValueError):
         TP.WQLinear.from_dense(w, backend="gpu")
+
+
+def test_kernel_design_by_dtype():
+    """F2 runs bf16 activations on the tensor cores and f32 ones, whose f32
+    products the tensor cores cannot form exactly, on the CUDA cores."""
+    assert TG.kernel_design(torch.bfloat16) == TG.kernel_design() == "tensor_core"
+    assert TG.kernel_design(torch.float32) == "cuda_core"
+    assert set(TG.DESIGNS) == {"tensor_core", "cuda_core"}
+    assert TG.wq_matmul_fused.launches_by_design.keys() == set(TG.DESIGNS)
+    with pytest.raises(TypeError):
+        TG.kernel_design(torch.float16)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_tensor_core_dequant_is_exact(bits):
+    """The tensor-core design's dequantization, emulated bit for bit: the
+    code of part i, byte b of a half-word, masked in place into the bits of
+    2^23 (2^23 + 2^sh code, sh = 8b + bits*i), then one fma with scale 2^-sh
+    and -2^23 scale 2^-sh (exact in f64, rounded once to f32), equals JAX's
+    f32(code * scale) for every code, part and byte at random and extreme
+    scales; both then round to bf16 the same way."""
+    rng = np.random.default_rng(bits)
+    fpb = 8 // bits
+    scales = np.concatenate([rng.uniform(1e-6, 1.0, 64), [1e-30, 3.0e-5, 0.1234567, 7.5, 1e20]]).astype(np.float32)
+    codes = np.arange(1 << bits, dtype=np.uint32)
+    for i in range(fpb):
+        for b in range(2):
+            sh = 8 * b + bits * i
+            word = (codes << sh) | (np.uint32(0xA5A5A5A5) & ~np.uint32(((1 << bits) - 1) << sh))
+            masked = (word & np.uint32(((1 << bits) - 1) << sh)) | np.uint32(0x4B000000)
+            v = masked.view(np.float32).astype(np.float64)
+            for s in scales:
+                s_sh = np.float32(s) * np.float32(2.0 ** -sh)
+                o_sh = s_sh * np.float32(-8388608.0)
+                got = (v * np.float64(s_sh) + np.float64(o_sh)).astype(np.float32)
+                want = codes.astype(np.float32) * np.float32(s)
+                np.testing.assert_array_equal(got, want)  # so the packed bf16 rounding sees JAX's f32
+
+
+PLAN_SHAPES = [(4, 16384, 4096, 4), (4, 1024, 4096, 4), (4, 4096, 16384, 4), (4, 16384, 4096, 2),
+               (1, 16384, 4096, 8), (9, 1000, 1024, 2), (1000, 4096, 4096, 4), (8, 300, 1056, 4), (4, 64, 448, 2)]
+
+
+@pytest.mark.parametrize("m,n,k,bits", PLAN_SHAPES)
+def test_tensor_core_plan(m, n, k, bits):
+    """The tensor-core design's plan on an H100's 132 SMs: its split ranges
+    cover the packed row once (no empty range), K is split only with one
+    m-tile (M <= 8) and then into at most TC_MAX_SPLITS ranges (one
+    cluster) of at least TC_MIN_CHUNKS chunks unless the row has fewer, a
+    staged slice holds at most TC_X_VALUES[mt]
+    x values a row, and the grid gives every warp the same number of 32-row
+    items: one while they fit the card's warp slots."""
+    mt, ksplit, cps, spc, gx = TG.tc_plan(m, n, k, bits, 132)
+    fpb = 8 // bits
+    chunks = -(-(k // fpb) // 64)
+    mblocks = -(-m // (8 * mt))
+    items = -(-n // TG.TC_ROWS)
+    assert mt == (1 if m <= 8 else 4)
+    assert (ksplit - 1) * cps < chunks <= ksplit * cps
+    assert ksplit == 1 or (mt == 1 and cps >= min(TG.TC_MIN_CHUNKS, chunks) and ksplit <= TG.TC_MAX_SPLITS)
+    assert 1 <= spc <= cps and spc * 64 * fpb <= TG.TC_X_VALUES[mt]
+    slots = 132 * TG.TC_CTAS_PER_SM[mt] * TG.TC_WARPS
+    per_warp = -(-items * ksplit * mblocks // slots)
+    assert gx == -(-items // (TG.TC_WARPS * per_warp))
+    if items * mblocks * ksplit <= slots:
+        assert gx == -(-items // TG.TC_WARPS)  # one item per warp

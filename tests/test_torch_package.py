@@ -113,7 +113,7 @@ def test_build_command_targets_sm90a_from_repo_sources():
     srcs = [a for cmd in compiles for a in cmd if a.endswith(".cu")]
     assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "attention_bwd_wgmma.cu", "attention_fwd.cu", "attention_fwd_wgmma.cu",
+        "attention_bwd_wgmma.cu", "attention_fwd_wgmma.cu",
         "decode_attention.cu", "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert all(f"-I{_build.CSRC_DIR}" in cmd for cmd in compiles)  # the shared headers, e.g. sm90.cuh
@@ -599,3 +599,112 @@ def test_wgmma_fused_kv_edges_match_plain(cuda, case):
     assert bool(torch.isfinite(o.float()).all())
     assert float(cosine_similarity(o, o_ref)) >= 0.99999
     assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
+
+
+GEMV_TC_CASES = {
+    # name: (mode, bits, group, m, n, k); mode "w4" is the 4-bit per-channel format
+    "w4-m4-n1024-k4096-split": ("w4", 4, None, 4, 1024, 4096),
+    "g4-group128-m4-n1024-k4096-split": ("g", 4, 128, 4, 1024, 4096),
+    "g2-group32-m1-n1000-k4096": ("g", 2, 32, 1, 1000, 4096),
+    "g8-group512-m8-n4096-k4096": ("g", 8, 512, 8, 4096, 4096),
+    "g4-group32-m9-n1000-k1024": ("g", 4, 32, 9, 1000, 1024),
+    "g2-group512-m1000-n520-k2048": ("g", 2, 512, 1000, 520, 2048),
+    "g8-group32-m4-n256-k16384": ("g", 8, 32, 4, 256, 16384),
+    "g4-group512-m4-n1024-k16384": ("g", 4, 512, 4, 1024, 16384),
+    "g2-group128-m4-n16384-k4096": ("g", 2, 128, 4, 16384, 4096),
+    "w4-m1-n4096-k16384": ("w4", 4, None, 1, 4096, 16384),
+    "w4-m1000-n1000-k1024": ("w4", 4, None, 1000, 1000, 1024),
+    "g4-group48-m4-n300-k1056-partial-chunk": ("g", 4, 48, 4, 300, 1056),
+    "g2-group16-m9-n64-k448-partial-chunk": ("g", 2, 16, 9, 64, 448),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GEMV_TC_CASES))
+def test_gemv_tensor_core_design_matches_plain(cuda, case):
+    """F2's tensor-core design (bf16 x) against its plain version: N 1024
+    (K split over CTAs, merged by the last warp) and N not a multiple of 16
+    or 32, M 1, 4, 8, 9 and 1000, K 16384, groups 16 to 512 at 2, 4 and 8
+    bits, packed rows that end inside a 64-byte chunk, and the 4-bit
+    per-channel format. The same products summed in another order: max|dy|
+    <= 2 bf16 ulps of the larger of max|y| and the dot before the
+    zero-point term; the same bits on a second run; every launch on the
+    design."""
+    mode, bits, group, m, n, k = GEMV_TC_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(12)
+    w = torch.randn(n, k, generator=g, device=cuda) / math.sqrt(k)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    if mode == "w4":
+        p, s = gemv.pack_weights_per_channel(w, bits=4)
+        sc, mn, gs = s[:, None].repeat(1, 2), (-7.0 * s)[:, None].expand(n, 2), k // 2
+        call = lambda: gemv.wq_matmul_per_channel(x, p, s, bits=4)  # noqa: E731
+    else:
+        p, sc, mn = gemv.pack_weights(w, group_size=group, bits=bits)
+        gs = group
+        call = lambda: gemv.wq_matmul_fused(x, p, sc, mn, bits=bits, group_size=group)  # noqa: E731
+    before = gemv.wq_matmul_fused.launches_by_design["tensor_core"]
+    y, y2 = call(), call()
+    y_ref = gemv.wq_matmul_fused_plain(x, p, sc, mn, bits=bits, group_size=gs)
+    dot = gemv.wq_matmul_fused_plain(x, p, sc, None, bits=bits, group_size=gs)
+    torch.cuda.synchronize()
+    assert gemv.wq_matmul_fused.launches_by_design["tensor_core"] == before + 2
+    assert y.shape == (m, n) and y.dtype == torch.bfloat16 and torch.equal(y, y2)
+    top = max(float(y_ref.float().abs().max()), float(dot.float().abs().max()))
+    assert bool(torch.isfinite(y.float()).all())
+    assert float(cosine_similarity(y, y_ref)) >= 0.99999
+    assert float((y.float() - y_ref.float()).abs().max()) <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+PV8_CASES = {
+    # name: (q mode, k bits, causal, h, hk, d, sq, sk, smooth-V, out dtype)
+    "sk777-ragged-scales": ("fused", 8, False, 4, 4, 64, 300, 777, False, None),
+    "causal-sq700-sk1000": ("fused", 8, True, 4, 2, 64, 700, 1000, False, None),
+    "causal-sq1000-sk300-d128": ("fused", 8, True, 4, 4, 128, 1000, 300, False, None),
+    "causal-gqa-32q8kv-d128-s777": ("fused", 8, True, 32, 8, 128, 777, 777, False, None),
+    "gqa-8q2kv-d64-s1000": ("int8", 8, False, 8, 2, 64, 1000, 1000, False, None),
+    "v-mean-d64": ("fused", 8, False, 4, 4, 64, 500, 500, True, None),
+    "v-mean-d128-f32-out": ("fused", 8, True, 4, 2, 128, 400, 400, True, torch.float32),
+    "int4-k-d64": ("fused", 4, False, 4, 2, 64, 300, 777, True, None),
+    "int2-k-d128": ("fused", 2, True, 4, 4, 128, 500, 500, False, None),
+    "bf16-qk-d64": ("fp", 16, False, 4, 2, 64, 300, 777, True, None),
+    "bf16-qk-causal-d128": ("fp", 16, True, 4, 4, 128, 777, 777, False, None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(PV8_CASES))
+def test_wgmma_pv_int8_matches_plain(cuda, case):
+    """Kernel A's INT8-PV mode on the wgmma design: Sk 777 (ragged, and K
+    scale rows that do not start on 16 bytes), causal with Sq != Sk, GQA,
+    d64 and d128, v_mean, packed INT4/INT2 K, bf16 QK, f32 output, against
+    the plain version at the design's tile (the same roundings of P and p8,
+    another summation order): cos >= 0.99999, max|do| <= 2e-2, max|dlse| <=
+    1e-3; the same bits on a second run; every launch on the design."""
+    q_mode, k_bits, causal, h, hk, d, sq, sk, smooth_v, out_dtype = PV8_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn(1, h, sq, d, generator=g, device=cuda).bfloat16()
+    k = (torch.randn(1, hk, sk, d, generator=g, device=cuda) + 0.3).bfloat16()
+    v = torch.randn(1, hk, sk, d, generator=g, device=cuda).bfloat16()
+    v8, vs, vm = quant_v_int8_per_channel(v, smooth_v=smooth_v)
+    c = 1.0 / math.sqrt(d) * LOG2E
+    q_scale = k_scale = qs = None
+    if q_mode != "fp":
+        k, k_scale = {8: quant_int8, 4: quant_int4, 2: quant_int2}[k_bits](k, gran="per_token")
+    if q_mode == "int8":
+        q, q_scale = quant_int8(q, gran="per_token")
+        qs = q_scale * torch.tensor(c, dtype=torch.float32, device=cuda)
+    kw = dict(v_scale=vs, v_mean=vm, pv_int8=True, is_causal=causal, out_dtype=out_dtype,
+              k_pack_bits=8 if k_bits == 16 else k_bits)
+    n = lowbit_attention.launches_by_design["wgmma"]
+    o, lse = lowbit_attention(q, k, v8, q_scale, k_scale, **kw, return_lse=True)
+    o2, lse2 = lowbit_attention(q, k, v8, q_scale, k_scale, **kw, return_lse=True)
+    o_ref, lse_ref = attention_fwd_plain(q, k, v8, qs, k_scale, vm, causal=causal, sm_scale_log2e=c,
+                                         out_dtype=o.dtype, k_bits=8 if k_bits == 16 else k_bits, v_scale=vs,
+                                         pv_int8=True)
+    torch.cuda.synchronize()
+    assert lowbit_attention.launches_by_design["wgmma"] == n + 2
+    assert o.shape == (1, h, sq, d) and torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert bool(torch.isfinite(o.float()).all())
+    assert float(cosine_similarity(o, o_ref)) >= 0.99999
+    assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
