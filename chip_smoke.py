@@ -11,9 +11,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
 3. kernels C1, C2, C3 (quant_int8, quant_int4, quant_int2) against their
    plain PyTorch versions on the card at the CogVideoX-2b K shape b1 h30
    s17776 d64 with the K mean, per token and per block, at a ragged s1000,
-   at d128, and (C1) at the LLM prefill's K (b4 h8 s32704 d128): C1 and C2
-   codes and scales must be equal; C3 scales within 2 ulp and codes equal
-   except where |x/scale| lies within 1e-5 of the 0.5 boundary (counted);
+   at d128, on the DiT's K as it hands it over (a strided view of its qkv
+   projection; per block 64 with the edge blocks of s17776 and s1000), and
+   (C1) at the LLM prefill's K (b4 h8 s32704 d128): C1 and C2 codes and
+   scales must be equal, every launch on the vector design; C3 scales within
+   2 ulp and codes equal except where |x/scale| lies within 1e-5 of the 0.5
+   boundary (counted). C1 timed per token on the DiT K view and on a
+   contiguous K of its shape, at the LLM prefill K and per block 64; C2 per
+   token on the view and contiguous; C3 per token; each with GB/s, its share
+   of the bound, the plain version's ms and its design; and k_mean on the
+   DiT K view;
 4. kernel A (lowbit_attention) against its plain version: int8 with Q
    quantized in the kernel, int8 with external Q codes, fp, causal, GQA
    8q/2kv, d128, ragged s1000, smooth-V and the checkpoint's prefill, with
@@ -43,7 +50,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    bound), and the launch counters must show every attention call went
    through kernel A (90 per impl, all on the wgmma design) and every K
    quantization through C1 (90
-   for int8 and int8_v8) or C2 (90 for int4). Then one step with per-channel
+   for int8 and int8_v8) or C2 (90 for int4), all on the vector design (K
+   read where it lies in the qkv projection). One int8 step under
+   torch.profiler: device ms and kernel counts of A, C1/C2, PyTorch's copy
+   and mean kernels, the GEMMs and the rest. Then one step with per-channel
    w8 weights (quantize_dit_params) and int8 attention: eps cos vs the dense
    step >= 0.99, and no F launch (17,776 rows take the dense route);
 6. kernels G1/G2 (attention_bwd_dq, attention_bwd_dkv) through flash_bwd
@@ -71,8 +81,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    model: a warm-up forward and backward (gradients finite), 3
    sgd_train_steps at lr 1e-4 (ms, loss, peak memory, the share of
    parameters the first step changed), exactly depth launches of A, G1 and
-   G2 per step (and of C1 for int8_train), every G1 and G2 on the wgmma
-   design, and none of C2/C3/D/E/F, one step
+   G2 per step (and of C1 for int8_train, on the vector design), every G1
+   and G2 on the wgmma design, and none of C2/C3/D/E/F, one step
    under torch.profiler (device ms of G1, G2, A, C1, GEMMs, the rest); the
    two impls' first losses within 1% and block 0's qkv weight gradients at
    cos >= 0.99;
@@ -124,7 +134,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    Prints block-weight bytes, prefill seconds, decode ms per token, peak
    memory; the first decode step's int8-vs-bf16 logits cos must be >=
    0.999 and w8-vs-dense >= 0.99 (w4 printed); the counters must show depth
-   A (wgmma design) and C1 launches per prefill, depth x 63 D launches (all
+   A (wgmma design) and C1 (vector design) launches per prefill, depth x 63 D launches (all
    on D's design), and 192 x 63 F1 (w8) or F2 (w4) launches and none at
    prefill. Then one decode step per weight format under torch.profiler at
    a 256-token context, and one per cache mode at the full 32K context with
@@ -251,64 +261,137 @@ def check_close(name, r):
         raise AssertionError(f"kernel A disagrees with its plain version in case {name}: {r}")
 
 
-def quant_phase(gen):
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import k_mean, quant_int8, quant_int8_plain
+def dit_k_view(gen, s=S, h=H, d=D):
+    """K as the DiT hands it to the attention entry points: [B, H, S, hd], a
+    strided view of the qkv projection [B, S, 3, H, hd] (row stride 3·H·hd)."""
+    qkv = torch.randn(B, s, 3 * h * d, generator=gen, device="cuda").bfloat16().reshape(B, s, 3, h, d)
+    return qkv[:, :, 1].transpose(1, 2)
+
+
+def time_quant(name, tag, quant, plain, ks, gran, block, bits):
+    """Kernel and plain ms of one quantizer case, alternating between two
+    inputs (each larger than the L2), with GB/s and the share of the bound
+    of the bytes it must move (x read once, codes and scales written once),
+    and the design that ran."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as qo
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
 
+    kms = [qo.k_mean(k) for k in ks]
+    turn = [0]
+
+    def call(fn, **kw):
+        turn[0] ^= 1
+        return fn(ks[turn[0]], kms[turn[0]], **kw)
+
+    pt = gran == "per_token"
+    ms = cuda_time_ms(lambda: call(quant, gran=gran, block=block), warmup=4, reps=30)
+    plain_ms = cuda_time_ms(lambda: call(plain, per_token=pt, block=block), warmup=1, reps=5)
+    k = ks[0]
+    moved = nbytes(k, kms[0]) + k.numel() * bits // 8 + k[..., 0].numel() * 4
+    lim = bound(moved)
+    design = qo.kernel_design(k, bits, pt, block)
+    log(f"[{name}] {tag} {gran}{'' if pt else f' {block}'} ({design}): kernel {ms:.4f} ms "
+        f"({moved / ms / 1e6:.0f} GB/s, {lim['bound_ms'] / ms:.0%} of bound {lim['bound_ms']:.4f} ms), "
+        f"plain {plain_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None, "design": design}
+
+
+def quant_phase(gen):
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import k_mean, kernel_design, quant_int8, quant_int8_plain
+
     worst = 0.0
-    for s, gran, block in [(S, "per_token", 128), (S, "per_block", 64), (1000, "per_token", 128),
-                           (1000, "per_block", 64)]:
-        k = (torch.randn(B, H, s, D, generator=gen, device="cuda") + 0.5).bfloat16()
+    for s, gran, block, layout in [(S, "per_token", 128, "contiguous"), (S, "per_block", 64, "contiguous"),
+                                   (1000, "per_token", 128, "contiguous"), (1000, "per_block", 64, "contiguous"),
+                                   (S, "per_token", 128, "view"), (S, "per_block", 64, "view"),
+                                   (1000, "per_block", 64, "view")]:
+        if layout == "view":
+            k = dit_k_view(gen, s)
+        else:
+            k = (torch.randn(B, H, s, D, generator=gen, device="cuda") + 0.5).bfloat16()
         km = k_mean(k)
+        n = quant_int8.launches_by_design["vector"]
         codes, scale = quant_int8(k, km, gran=gran, block=block)
         want_c, want_s = quant_int8_plain(k, km, per_token=gran == "per_token", block=block)
         torch.cuda.synchronize()
         dc = int((codes.int() - want_c.int()).abs().max())
         ds = float((scale - want_s).abs().max())
         worst = max(worst, dc, ds)
-        log(f"[C1] s{s} {gran}: codes_equal={torch.equal(codes, want_c)} scales_equal={torch.equal(scale, want_s)}")
-        if not (torch.equal(codes, want_c) and torch.equal(scale, want_s)):
-            raise AssertionError(f"kernel C1 differs from its plain version at s{s} {gran}: {dc} {ds}")
+        on_vector = quant_int8.launches_by_design["vector"] == n + 1
+        log(f"[C1] s{s} {gran} {layout} K: codes_equal={torch.equal(codes, want_c)} "
+            f"scales_equal={torch.equal(scale, want_s)} vector={on_vector}")
+        if not (torch.equal(codes, want_c) and torch.equal(scale, want_s) and on_vector):
+            raise AssertionError(f"kernel C1 differs from its plain version (or left the vector design) at s{s} "
+                                 f"{gran} {layout}: {dc} {ds}")
     # The LLM prefill's K: b4, 8 KV heads, 32,704 tokens, d128, per token.
     k = (torch.randn(4, 8, 32704, 128, generator=gen, device="cuda") + 0.5).bfloat16()
     km = k_mean(k)
     codes, scale = quant_int8(k, km, gran="per_token")
     want_c, want_s = quant_int8_plain(k, km, per_token=True, block=128)
     torch.cuda.synchronize()
-    log(f"[C1] LLM prefill K b4 h8 s32704 d128 per_token: codes_equal={torch.equal(codes, want_c)} "
-        f"scales_equal={torch.equal(scale, want_s)}")
+    log(f"[C1] LLM prefill K b4 h8 s32704 d128 per_token ({kernel_design(k, 8, True, 128)}): "
+        f"codes_equal={torch.equal(codes, want_c)} scales_equal={torch.equal(scale, want_s)}")
     if not (torch.equal(codes, want_c) and torch.equal(scale, want_s)):
         raise AssertionError("kernel C1 differs from its plain version at the LLM prefill K shape")
     del k, km, codes, scale, want_c, want_s
-    k = torch.randn(B, H, S, D, generator=gen, device="cuda").bfloat16()
-    km = k_mean(k)
-    ms = cuda_time_ms(lambda: quant_int8(k, km, gran="per_token"), warmup=3, reps=20)
-    plain_ms = cuda_time_ms(lambda: quant_int8_plain(k, km, per_token=True, block=128), warmup=1, reps=5)
-    lim = bound(nbytes(k, km) + k.numel() + B * H * S * 4)  # codes and scales written
-    log(f"[C1] b{B} h{H} s{S} d{D} per_token bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
+    recs = {}
+    for tag, shape, layout, gran, block in [
+            ("view", (B, H, S, D), "view", "per_token", 128),
+            ("contiguous", (B, H, S, D), "contiguous", "per_token", 128),
+            ("prefill", (4, 8, 32704, 128), "contiguous", "per_token", 128),
+            ("block64", (B, H, S, D), "contiguous", "per_block", 64)]:
+        ks = [dit_k_view(gen) if layout == "view" else torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+              for _ in range(2)]
+        recs[tag] = {"max_abs_err": worst, **time_quant(
+            "C1", f"b{shape[0]} h{shape[1]} s{shape[2]} d{shape[3]} {layout} K", quant_int8, quant_int8_plain, ks,
+            gran, block, 8)}
+        del ks
+        torch.cuda.empty_cache()
+    # k_mean on the DiT's K view: one read of K, no f32 copy.
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    ks = [dit_k_view(gen) for _ in range(2)]
+    turn = [0]
+
+    def km_call():
+        turn[0] ^= 1
+        return k_mean(ks[turn[0]])
+
+    ms = cuda_time_ms(km_call, warmup=4, reps=30)
+    lim = bound(ks[0].numel() * 2 + B * H * D * 4)
+    log(f"[k_mean] DiT K view b{B} h{H} s{S} d{D}: {ms:.4f} ms ({lim['bound_ms'] / ms:.0%} of bound "
+        f"{lim['bound_ms']:.4f} ms)")
+    recs["k_mean_ms"] = ms
+    return recs
 
 
 def lowbit_quant_phase(gen):
     from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as qo
-    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
 
     records = {}
     for bits, quant, plain in ((4, qo.quant_int4, qo.quant_int4_plain), (2, qo.quant_int2, qo.quant_int2_plain)):
         name, worst = f"C{2 if bits == 4 else 3}", 0.0
-        for s, d, gran, block in [(S, D, "per_token", 128), (S, D, "per_block", 64), (1000, D, "per_token", 128),
-                                  (1000, D, "per_block", 64), (1000, 128, "per_token", 128),
-                                  (1000, 128, "per_block", 64)]:
-            k = (torch.randn(B, H, s, d, generator=gen, device="cuda") + 0.5).bfloat16()
+        cases = [(S, D, "per_token", 128, "contiguous"), (S, D, "per_block", 64, "contiguous"),
+                 (1000, D, "per_token", 128, "contiguous"), (1000, D, "per_block", 64, "contiguous"),
+                 (1000, 128, "per_token", 128, "contiguous"), (1000, 128, "per_block", 64, "contiguous")]
+        if bits == 4:
+            cases += [(S, D, "per_token", 128, "view"), (1000, D, "per_block", 64, "view")]
+        for s, d, gran, block, layout in cases:
+            if layout == "view":
+                k = dit_k_view(gen, s, d=d)
+            else:
+                k = (torch.randn(B, H, s, d, generator=gen, device="cuda") + 0.5).bfloat16()
             km = qo.k_mean(k)
+            n = dict(quant.launches_by_design)
             codes, scale = quant(k, km, gran=gran, block=block)
             want_c, want_s = plain(k, km, per_token=gran == "per_token", block=block)
             torch.cuda.synchronize()
             ulps = int((scale.view(torch.int32).long() - want_s.view(torch.int32).long()).abs().max())
             worst = max(worst, float((scale - want_s).abs().max()))
             if bits == 4:
-                ok = torch.equal(codes, want_c) and ulps == 0
-                log(f"[{name}] s{s} d{d} {gran}: codes_equal={torch.equal(codes, want_c)} scale_ulps={ulps}")
+                on_vector = quant.launches_by_design["vector"] == n["vector"] + 1
+                ok = torch.equal(codes, want_c) and ulps == 0 and on_vector
+                log(f"[{name}] s{s} d{d} {gran} {layout} K: codes_equal={torch.equal(codes, want_c)} "
+                    f"scale_ulps={ulps} vector={on_vector}")
             else:
                 x = k.float() - km
                 near = ((x / scale[..., None]).abs() - 0.5).abs() < 1e-5
@@ -318,15 +401,13 @@ def lowbit_quant_phase(gen):
                 log(f"[{name}] s{s} d{d} {gran}: scale_ulps={ulps} codes_differ={int(diff.sum())} "
                     f"near_boundary={int(near.sum())} differ_away_from_boundary={bad}")
             if not ok:
-                raise AssertionError(f"kernel {name} differs from its plain version at s{s} d{d} {gran}")
-        k = torch.randn(B, H, S, D, generator=gen, device="cuda").bfloat16()
-        km = qo.k_mean(k)
-        ms = cuda_time_ms(lambda: quant(k, km, gran="per_token"), warmup=3, reps=20)
-        plain_ms = cuda_time_ms(lambda: plain(k, km, per_token=True, block=128), warmup=1, reps=5)
-        lim = bound(nbytes(k, km) + k.numel() * bits // 8 + B * H * S * 4)
-        log(f"[{name}] b{B} h{H} s{S} d{D} per_token bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {lim['bound_ms']:.4f} ms")
-        records[bits] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None}
+                raise AssertionError(f"kernel {name} differs from its plain version at s{s} d{d} {gran} {layout}")
+        for layout in ("view", "contiguous") if bits == 4 else ("contiguous",):
+            ks = [dit_k_view(gen) if layout == "view" else torch.randn(B, H, S, D, generator=gen, device="cuda")
+                  .bfloat16() for _ in range(2)]
+            rec = time_quant(name, f"b{B} h{H} s{S} d{D} {layout} K", quant, plain, ks, "per_token", 128, bits)
+            records[(bits, layout)] = {"max_abs_err": worst, **rec}
+            del ks
     return records
 
 
@@ -583,6 +664,37 @@ def entry_point_phase(gen):
 
 
 DIT_IMPLS = ("int8", "int8_v8", "int4", "fp")
+GEMM_NAMES = ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")
+
+
+def dit_step_profile(model, x, t, impl):
+    """Device ms and kernel counts of one denoise step by class, from the
+    kernel events of torch.profiler: A, C1/C2, PyTorch's copy kernels (casts,
+    ``.contiguous()``, the output transpose), its mean kernels (``k_mean``,
+    LayerNorm's statistics), the dense GEMMs (cuBLAS) and the rest; with the
+    rest's largest kernels. Runs under the caller's inference mode."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import dit
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        dit.dit_forward(model, x, t, attn_impl=impl)
+        torch.cuda.synchronize()
+    keys = ("A", "C1/C2", "copy", "mean", "GEMM", "other")
+    cats, n = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0)
+    other = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, name = e.device_time_total / 1e3, e.key.lower()
+        key = ("A" if "attn_fwd" in name else "C1/C2" if "quant_per" in name else "copy" if "copy" in name
+               else "mean" if "meanops" in name else "GEMM" if any(w in name for w in GEMM_NAMES) else "other")
+        cats[key] += ms
+        n[key] += e.count
+        if key == "other":
+            other.append((ms, e.count, e.key[:60]))
+    top = ", ".join(f"{name} x{c} {ms:.2f}" for ms, c, name in sorted(other, reverse=True)[:4])
+    return cats, n, top
 
 
 def main_path_phase():
@@ -618,14 +730,20 @@ def main_path_phase():
                 times.append((time.perf_counter() - t1) * 1e3)
                 if i == 0:
                     eps0[impl] = eps.float()
-            launches[impl], designs[impl] = counts(), design_counts()
+            launches[impl] = counts()
+            designs[impl] = {name: design_counts(name) for name in ("A", "C1", "C2")}
             frames[impl], step_ms[impl] = x.float(), times
         peak = torch.cuda.max_memory_allocated()
+        # One int8 step under torch.profiler: where the device time goes.
+        prof_ms, prof_n, prof_top = dit_step_profile(model, x0, ts[0], "int8")
     want_n = cfg.depth * STEPS
-    res = {"launches": launches, "ms_per_step": step_ms, "peak_gib": peak / 2**30, "frame_cos": {}, "eps_cos": {}}
+    res = {"launches": launches, "ms_per_step": step_ms, "peak_gib": peak / 2**30, "frame_cos": {}, "eps_cos": {},
+           "profile": {"ms": prof_ms, "kernels": prof_n}}
     for impl in DIT_IMPLS:
         log(f"[dit] {impl}: ms/step " + ", ".join(f"{t:.1f}" for t in step_ms[impl]))
     log(f"[dit] peak memory {peak / 2**30:.2f} GiB")
+    log("[dit] int8 step device ms (profiler): " + ", ".join(f"{k} {v:.3f}" for k, v in prof_ms.items())
+        + f"; total {sum(prof_ms.values()):.3f}; kernels {prof_n}; largest other: {prof_top}")
     if not all(bool(torch.isfinite(f).all()) for f in frames.values()):
         raise AssertionError("non-finite DiT frames")
     eps_min = {"int8": 0.98, "int8_v8": 0.99, "int4": 0.98}
@@ -640,8 +758,10 @@ def main_path_phase():
     for impl in DIT_IMPLS:
         want = {"A": want_n, "C1": want_n if impl in ("int8", "int8_v8") else 0,
                 "C2": want_n if impl == "int4" else 0, "C3": 0, "D": 0, "E": 0, "F1": 0, "F2": 0, "G1": 0, "G2": 0}
-        want_designs = {"wgmma": want_n}
-        log(f"[dit] {impl} launches {launches[impl]} (want {want}), kernel A by design {designs[impl]}")
+        # Every A launch on the wgmma design, every C1/C2 launch on the vector design.
+        want_designs = {"A": {"wgmma": want_n}, "C1": {"vector": want["C1"], "scalar": 0},
+                        "C2": {"vector": want["C2"], "scalar": 0}}
+        log(f"[dit] {impl} launches {launches[impl]} (want {want}), by design {designs[impl]}")
         if launches[impl] != want or designs[impl] != want_designs:
             raise AssertionError(f"DiT {impl}: launch counts {launches[impl]} != {want} or {designs[impl]}")
 
@@ -656,13 +776,14 @@ def main_path_phase():
         eps = dit.dit_forward(qmodel, x0, ts[0], attn_impl="int8")
         torch.cuda.synchronize()
         w8_ms = (time.perf_counter() - t1) * 1e3
-        got = counts()
+        got, got_c1 = counts(), design_counts("C1")
     cos = float(cosine_similarity(eps.float(), eps0["int8"]))
     want = {"A": cfg.depth, "C1": cfg.depth, "C2": 0, "C3": 0, "D": 0, "E": 0, "F1": 0, "F2": 0, "G1": 0, "G2": 0}
     log(f"[dit] w8 weights + int8 attention: {w8_ms:.1f} ms/step, eps cos vs dense weights {cos:.6f}, "
-        f"finite={bool(torch.isfinite(eps.float()).all())}, launches {got} (want {want})")
-    if cos < 0.99 or got != want or not bool(torch.isfinite(eps.float()).all()):
-        raise AssertionError(f"DiT w8 step: eps cos {cos} (>= 0.99), launches {got} != {want}")
+        f"finite={bool(torch.isfinite(eps.float()).all())}, launches {got} (want {want}), C1 by design {got_c1}")
+    if (cos < 0.99 or got != want or got_c1 != {"vector": cfg.depth, "scalar": 0}
+            or not bool(torch.isfinite(eps.float()).all())):
+        raise AssertionError(f"DiT w8 step: eps cos {cos} (>= 0.99), launches {got} != {want} or {got_c1}")
     res["w8"] = {"ms_per_step": w8_ms, "eps_cos": cos}
     return res
 
@@ -946,7 +1067,7 @@ def train_phase():
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t1) * 1e3)
             launches.append(counts())
-            designs.append(g_design_counts())
+            designs.append({**g_design_counts(), "C1": design_counts("C1")})
             losses.append(float(loss))
             if i == 0:
                 changed = sum(int((p.detach() != p0.to(p.device)).sum()) for p, p0 in zip(params, before)) / n_params
@@ -962,9 +1083,11 @@ def train_phase():
         want = {"A": cfg.depth, "C1": cfg.depth if impl == "int8_train" else 0, "C2": 0, "C3": 0, "D": 0, "E": 0,
                 "F1": 0, "F2": 0, "G1": cfg.depth, "G2": cfg.depth}
         want_d = {"wgmma": cfg.depth}
-        log(f"[train] {impl} launches per step {launches} (want {want}); G1/G2 by design {designs}")
-        if any(got != want for got in launches) or any(d != {"G1": want_d, "G2": want_d} for d in designs):
-            raise AssertionError(f"{impl}: launches per step {launches} != {want} or G1/G2 designs {designs}")
+        want_c1 = {"vector": want["C1"], "scalar": 0}  # the DiT's K view on the vector design
+        log(f"[train] {impl} launches per step {launches} (want {want}); G1/G2/C1 by design {designs}")
+        if any(got != want for got in launches) or any(d != {"G1": want_d, "G2": want_d, "C1": want_c1}
+                                                        for d in designs):
+            raise AssertionError(f"{impl}: launches per step {launches} != {want} or G1/G2/C1 designs {designs}")
         if not (params_finite and all(math.isfinite(x) for x in losses)):
             raise AssertionError(f"{impl}: non-finite loss or parameters: {losses}")
         res[impl] = {"ms_per_step": step_ms, "losses": losses, "warm_loss": warm_loss, "peak_gib": peak / 2**30,
@@ -1107,15 +1230,18 @@ def check_counts(where, got, depth, decode_steps, f1=0, f2=0, f2_design="tensor_
 
     designs = design_counts()  # the prefill's A on the wgmma design
     d_designs = design_counts("D")  # every decode launch on D's one design
-    log(f"[{where}] launches {got} (want {want}), kernel A by design {designs}, kernel D by design {d_designs}")
+    c1_designs = design_counts("C1")  # the prefill's K quantization on the vector design
+    log(f"[{where}] launches {got} (want {want}), kernel A by design {designs}, kernel D by design {d_designs}, "
+        f"kernel C1 by design {c1_designs}")
     # F2 runs bf16 activations on the tensor cores, f32 ones (the checkpoint) on the CUDA cores.
     f2_want = {design: f2 if design == f2_design else 0 for design in ("tensor_core", "cuda_core")}
     f2_designs = design_counts("F2")
     if f2:
         log(f"[{where}] kernel F2 by design {f2_designs}")
     if (got != want or designs != {"wgmma": depth} or d_designs != {d_design(): want["D"]}
-            or f2_designs != f2_want):
-        raise AssertionError(f"{where}: launch counts {got} != {want} or {designs} or {d_designs} or {f2_designs}")
+            or f2_designs != f2_want or c1_designs != {"vector": depth, "scalar": 0}):
+        raise AssertionError(f"{where}: launch counts {got} != {want} or {designs} or {d_designs} or {f2_designs} "
+                             f"or {c1_designs}")
 
 
 def checkpoint_phase():
@@ -1690,13 +1816,25 @@ def main():
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     a_keys = timing + ("exp_floor_ms", "design")
     prefill = "LLM prefill shape b1 h32 hk8 s32704 d128 causal"
+    quant_src = dict(route="cuda", source=f"{src}/quant.cu")
+    replaces_c = "lowbit_quant_fa2_paddle_tpu/ops/quant.py:"
     kernels = [
-        dict(name="quant_int8", route="cuda", source=f"{src}/quant.cu",
-             replaces="lowbit_quant_fa2_paddle_tpu/ops/quant.py:215", launches=dl["int8"]["C1"], **c1),
-        dict(name="quant_int4", route="cuda", source=f"{src}/quant.cu",
-             replaces="lowbit_quant_fa2_paddle_tpu/ops/quant.py:327", launches=dl["int4"]["C2"], **lowq[4]),
-        dict(name="quant_int2", route="cuda", source=f"{src}/quant.cu",
-             replaces="lowbit_quant_fa2_paddle_tpu/ops/quant.py:406", launches=api["int2"]["C3"], **lowq[2]),
+        # C1/C2 on the DiT's K as it hands it over (a strided view of qkv), then
+        # on a contiguous K of the same shape (no model path), the LLM
+        # prefill's K and per block 64 (no model path).
+        dict(name="quant_int8", **quant_src, replaces=replaces_c + "215", launches=dl["int8"]["C1"], **c1["view"]),
+        dict(name="quant_int8 (contiguous DiT-shape K)", **quant_src, replaces=replaces_c + "215", launches=0,
+             **c1["contiguous"]),
+        dict(name="quant_int8 (LLM prefill K b4 h8 s32704 d128)", **quant_src, replaces=replaces_c + "215",
+             launches=llm_r["int8"]["launches"]["C1"], **c1["prefill"]),
+        dict(name="quant_int8 (per block 64, DiT-shape K)", **quant_src, replaces=replaces_c + "215", launches=0,
+             **c1["block64"]),
+        dict(name="quant_int4", **quant_src, replaces=replaces_c + "327", launches=dl["int4"]["C2"],
+             **lowq[(4, "view")]),
+        dict(name="quant_int4 (contiguous DiT-shape K)", **quant_src, replaces=replaces_c + "327", launches=0,
+             **lowq[(4, "contiguous")]),
+        dict(name="quant_int2", **quant_src, replaces=replaces_c + "406", launches=api["int2"]["C3"],
+             **lowq[(2, "contiguous")]),
         dict(name="attention_fwd (int8, Q quantized in-kernel)", launches=dl["int8"]["A"], **wgmma_src,
              **{k: attn["fused dit"][k] for k in a_keys}),
         dict(name="attention_fwd (fp)", launches=dl["fp"]["A"], **wgmma_src, **{k: attn["fp dit"][k] for k in a_keys}),

@@ -33,6 +33,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # C entry points and their argument types (see the extern "C" blocks in csrc/).
 _SIGNATURES = {
     "lowbit_quant": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "lowbit_quant_vec": [_P, _I, _LL, _LL, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lowbit_attn_fwd_wgmma": [_P] * 9 + [_I] * 11 + [_F, _P],
     "lowbit_decode_attn": [_P] * 11 + [_I] * 13 + [_F, _P],
     "lowbit_decode_ctas_per_sm": [_I, _I, _I, _I, _P],

@@ -14,7 +14,11 @@ PyTorch/CUDA counterpart of ``lowbit_quant_fa2_paddle_tpu/ops/quant.py``:
   PyTorch, as the JAX package computes it outside any kernel) and ``k_mean``.
 
 The three kernels are one CUDA source, ``csrc/quant.cu``, templated on the
-bit width; its source note says what bounds it on the H100.
+bit width; its source note says what bounds it on the H100. C1 and C2 have
+two designs (``kernel_design``): ``"vector"`` reads x where it lies (any
+batch, head and row strides, e.g. the DiT's K as a view of its qkv
+projection), 16 bytes a lane, one pass over HBM; ``"scalar"`` takes the
+rest, and C3, on a contiguous copy.
 
 Scale convention: scales come back as per-token rows ``[B, H, S]`` (per-block
 granularity repeats the block scalar across its rows), so the attention
@@ -56,6 +60,13 @@ _LLOYD_MAX_F32 = _f32(1.224)
 _EPS_F32 = _f32(EPS)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: The designs of kernels C1 and C2 (see ``kernel_design``); C3 always runs "scalar".
+DESIGNS = ("vector", "scalar")
+#: The vector design: lanes of 16 bytes a row, threads a CTA, and the most
+#: 16-byte loads a thread holds for one block (``csrc/quant.cu``).
+VECTOR_LANES = (4, 8, 16, 32)
+VECTOR_THREADS, VECTOR_MAX_LOADS = 256, 8
 
 
 def cdiv(a: int, b: int) -> int:
@@ -113,8 +124,9 @@ def unpack_int2(packed: torch.Tensor) -> torch.Tensor:
 
 
 def k_mean(k: torch.Tensor) -> torch.Tensor:
-    """Per-(B,H,D) mean of K over the sequence axis, ``[B,H,1,D]`` f32."""
-    return k.float().mean(dim=2, keepdim=True)
+    """Per-(B,H,D) mean of K over the sequence axis, ``[B,H,1,D]`` f32,
+    summed in f32 as K is read (no f32 copy of K; any strides)."""
+    return torch.mean(k, dim=2, keepdim=True, dtype=torch.float32)
 
 
 def _scale(x: torch.Tensor, bits: int, dims) -> torch.Tensor:
@@ -166,6 +178,29 @@ def quant_int2_plain(
     return _quant_plain(x, km, bits=2, per_token=per_token, block=block)
 
 
+def kernel_design(x: torch.Tensor, bits: int, per_token: bool, block: int) -> str:
+    """Which design of ``csrc/quant.cu`` quantizes ``x`` ``[B, H, S, D]``,
+    by shape, dtype, strides and alignment alone: ``"vector"`` for 8 or 4
+    bits when a row is 4, 8, 16 or 32 lanes of 16 bytes (bf16/f16 D 32, 64,
+    128 or 256; f32 D 16 to 128), the last dim is contiguous and every row
+    starts on 16 bytes, and, per block, ``block`` rows are a whole number of
+    the CTA's loads, at most ``VECTOR_MAX_LOADS`` a thread (bf16 block 128 at
+    d128, 64 at d256). ``"scalar"`` otherwise, C3 included."""
+    if bits not in (8, 4) or x.dtype not in _DTYPE_CODES or x.dim() != 4:
+        return "scalar"
+    esize = x.element_size()
+    lanes, rest = divmod(x.shape[-1] * esize, 16)
+    if rest or lanes not in VECTOR_LANES or x.stride(-1) != 1:
+        return "scalar"
+    if x.data_ptr() % 16 or any(x.stride(i) * esize % 16 for i in range(3) if x.shape[i] > 1):
+        return "scalar"
+    if not per_token:
+        loads, rest = divmod(block * lanes, VECTOR_THREADS)
+        if rest or not 1 <= loads <= VECTOR_MAX_LOADS:
+            return "scalar"
+    return "vector"
+
+
 def _quantize(x, km, *, gran: str, block: int, bits: int, wrapper) -> Tuple[torch.Tensor, torch.Tensor]:
     name = wrapper.__name__
     if gran not in ("per_block", "per_token"):
@@ -188,18 +223,26 @@ def _quantize(x, km, *, gran: str, block: int, bits: int, wrapper) -> Tuple[torc
         raise TypeError(f"{name} kernel takes f32/bf16/f16, not {x.dtype}")
     if not per_token and cdiv(s, block) > 65535:
         raise ValueError(f"per-block {name} takes at most 65535 blocks per head, got {cdiv(s, block)}")
-    x = x.contiguous()
+    design = kernel_design(x, bits, per_token, block)
     kmc = km.float().contiguous() if km is not None else None
+    if kmc is not None and kmc.data_ptr() % 16:
+        kmc = kmc.clone()
+    kmp = kmc.data_ptr() if kmc is not None else None
     codes = torch.empty((b, h, s, d * bits // 8), dtype=torch.int8, device=x.device)
     scale = torch.empty((b, h, s), dtype=torch.float32, device=x.device)
     lib = _build.library()
-    err = lib.lowbit_quant(
-        x.data_ptr(), _DTYPE_CODES[x.dtype], kmc.data_ptr() if kmc is not None else None,
-        codes.data_ptr(), scale.data_ptr(), b * h, s, d, 0 if per_token else block, bits,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    blk = 0 if per_token else block
+    if design == "vector":
+        err = lib.lowbit_quant_vec(x.data_ptr(), _DTYPE_CODES[x.dtype], x.stride(0), x.stride(1), x.stride(2), h,
+                                   kmp, codes.data_ptr(), scale.data_ptr(), b * h, s, d, blk, bits, stream)
+    else:
+        x = x.contiguous()
+        err = lib.lowbit_quant(x.data_ptr(), _DTYPE_CODES[x.dtype], kmp, codes.data_ptr(), scale.data_ptr(),
+                               b * h, s, d, blk, bits, stream)
     _build.check(err, name)
     wrapper.launches += 1
+    wrapper.launches_by_design[design] += 1
     return codes, scale
 
 
@@ -256,10 +299,14 @@ def quant_int2(
     return _quantize(x, km, gran=gran, block=block, bits=2, wrapper=quant_int2)
 
 
-#: Launches of the C1, C2 and C3 kernels in this process (CPU calls do not count).
+#: Launches of the C1, C2 and C3 kernels in this process (CPU calls do not
+#: count), in all and per design.
 quant_int8.launches = 0
 quant_int4.launches = 0
 quant_int2.launches = 0
+quant_int8.launches_by_design = {design: 0 for design in DESIGNS}
+quant_int4.launches_by_design = {design: 0 for design in DESIGNS}
+quant_int2.launches_by_design = {design: 0 for design in DESIGNS}
 
 
 def quant_v_int8_per_channel(

@@ -12,6 +12,7 @@ machine without it they run with
 """
 
 import inspect
+import itertools
 import math
 import os
 import subprocess
@@ -46,6 +47,8 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops.fused_kv import (
 )
 from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import (
+    k_mean,
+    kernel_design,
     quant_int2,
     quant_int2_plain,
     quant_int4,
@@ -207,6 +210,78 @@ def test_lowbit_quant_kernels_equal_plain(cuda, bits, gran, block, d):
     codes, scale = quant(x, km, gran=gran, block=block)
     want_c, want_s = plain(x, km, per_token=gran == "per_token", block=block)
     assert quant.launches == n + 1
+    assert torch.equal(codes, want_c) and torch.equal(scale, want_s)
+
+
+QUANT_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,dtype,d", list(itertools.product([8, 4], list(QUANT_DTYPES), [64, 128, 256])))
+def test_quant_vector_design_equals_plain(cuda, bits, dtype, d):
+    """C1/C2 against their plain versions, codes and scales bit for bit, at
+    S 1, 3, 7, 777 and 1000 (ragged against the vector design's 32-256-row
+    CTAs and 64/128-row blocks; the edge block's missing rows enter as
+    -km), per token and per block 64/128, with and without km. Each call
+    counts one launch on the design ``kernel_design`` names: vector for
+    every bf16/f16 row and f32 up to d128, except blocks past its registers
+    (block 128 at d256), which run scalar."""
+    quant, plain = (quant_int8, quant_int8_plain) if bits == 8 else (quant_int4, quant_int4_plain)
+    g = torch.Generator(device=cuda).manual_seed(100 * bits + d)
+    for s in (1, 3, 7, 777, 1000):
+        x = (torch.randn(2, 3, s, d, generator=g, device=cuda) * 2 + 0.5).to(QUANT_DTYPES[dtype])
+        km = torch.randn(2, 3, 1, d, generator=g, device=cuda)
+        if dtype != "f32" or d <= 128:
+            assert kernel_design(x, bits, True, 128) == "vector"
+        for (gran, block), k in itertools.product([("per_token", 128), ("per_block", 64), ("per_block", 128)],
+                                                  (None, km)):
+            design = kernel_design(x, bits, gran == "per_token", block)
+            before = dict(quant.launches_by_design)
+            codes, scale = quant(x, k, gran=gran, block=block)
+            want_c, want_s = plain(x, k, per_token=gran == "per_token", block=block)
+            torch.cuda.synchronize()
+            assert quant.launches_by_design == {**before, design: before[design] + 1}
+            case = (s, gran, block, k is not None, design)
+            assert torch.equal(codes, want_c), case
+            assert torch.equal(scale, want_s), case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_reads_dit_k_view_where_it_lies(cuda, bits):
+    """The DiT's K, a strided view of its qkv projection (30 heads x 64,
+    S 4000), goes to the vector design with no copy: bit-equal to the plain
+    version per token and per block 64, and the call raises the peak of
+    allocated memory by no more than the codes and scales it returns. A
+    view whose rows do not start on 16 bytes runs the scalar design (on a
+    contiguous copy), bit-equal too."""
+    quant, plain = (quant_int8, quant_int8_plain) if bits == 8 else (quant_int4, quant_int4_plain)
+    g = torch.Generator(device=cuda).manual_seed(20 + bits)
+    s, h, d = 4000, 30, 64
+    qkv = torch.randn(1, s, 3 * h * d, generator=g, device=cuda).bfloat16().reshape(1, s, 3, h, d)
+    k = qkv[:, :, 1].transpose(1, 2)
+    km = k_mean(k)
+    assert not k.is_contiguous() and kernel_design(k, bits, True, 128) == "vector"
+    for gran, block in (("per_token", 128), ("per_block", 64)):
+        before = dict(quant.launches_by_design)
+        codes, scale = quant(k, km, gran=gran, block=block)
+        want_c, want_s = plain(k, km, per_token=gran == "per_token", block=block)
+        assert quant.launches_by_design == {**before, "vector": before["vector"] + 1}
+        assert torch.equal(codes, want_c) and torch.equal(scale, want_s), gran
+    del codes, scale, want_c, want_s
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    codes, scale = quant(k, km, gran="per_token")
+    torch.cuda.synchronize()
+    rounded = sum(-(-t.numel() * t.element_size() // 512) * 512 for t in (codes, scale))
+    assert torch.cuda.max_memory_allocated() - base <= rounded
+    x = torch.randn(1, 4, 777, 65, generator=g, device=cuda).bfloat16()[..., 1:]
+    assert kernel_design(x, bits, True, 128) == "scalar"
+    before = dict(quant.launches_by_design)
+    codes, scale = quant(x, x.float().mean(dim=2, keepdim=True), gran="per_token")
+    want_c, want_s = plain(x, x.float().mean(dim=2, keepdim=True), per_token=True, block=128)
+    assert quant.launches_by_design == {**before, "scalar": before["scalar"] + 1}
     assert torch.equal(codes, want_c) and torch.equal(scale, want_s)
 
 

@@ -214,3 +214,180 @@ def test_lowbit_quant_rejects_bad_input():
         tq.quant_int4(torch.zeros(1, 1, 4, 63))
     with pytest.raises(ValueError):
         tq.quant_int4(torch.zeros(1, 1, 4, 64), gran="per_channel")
+
+
+@pytest.mark.parametrize("case", ["bf16", "strided"])
+def test_k_mean_bf16_and_strided_match_jax(case):
+    """``k_mean`` reads K as it is, with no f32 copy: a bf16 K, and the DiT's
+    K as a strided view of its qkv projection, against JAX's ``k_mean`` on
+    the same values, at ``test_k_mean_matches_jax``'s tolerance."""
+    rng = np.random.default_rng(7)
+    b, s, h, d = 2, 333, 3, 64
+    qkv = (rng.standard_normal((b, s, 3, h, d)) + 0.5).astype(np.float32)
+    if case == "bf16":
+        k = np.ascontiguousarray(qkv[:, :, 1].transpose(0, 2, 1, 3))
+        jk, tk = jnp.asarray(k, jnp.bfloat16), torch.from_numpy(k).bfloat16()
+    else:
+        tk = torch.from_numpy(qkv)[:, :, 1].transpose(1, 2)
+        assert not tk.is_contiguous()
+        jk = jnp.asarray(np.ascontiguousarray(tk.numpy()))
+    want = np.asarray(jq.k_mean(jk))
+    got = tq.k_mean(tk).numpy()
+    assert got.shape == (b, h, 1, d) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def _dit_k_view(b, s, h, d, dtype=torch.bfloat16, seed=0):
+    """K as the DiT hands it over: ``[B, H, S, hd]``, a view of the qkv
+    projection ``[B, S, 3, H, hd]`` (row stride 3·H·hd)."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * h * d, generator=g).to(dtype).reshape(b, s, 3, h, d)
+    return qkv[:, :, 1].transpose(1, 2)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("dit-k-view", "vector"),
+    ("llm-prefill-k", "vector"),
+    ("per-block-64-d64", "vector"),
+    ("per-block-128-d128", "vector"),
+    ("per-block-64-dit-k-view", "vector"),
+    ("f16-d256", "vector"),
+    ("f32-d128", "vector"),
+    ("int2", "scalar"),
+    ("bf16-d40", "scalar"),
+    ("misaligned-view", "scalar"),
+    ("f32-d6", "scalar"),
+    ("f32-d256", "scalar"),
+    ("per-block-128-d256", "scalar"),
+    ("per-block-16-d64", "scalar"),
+])
+def test_kernel_design_rule(case, want):
+    """C1/C2's design is chosen by shape, dtype, strides and alignment: the
+    vector design reads every model path's K where it lies; what it cannot
+    read (C3, a row that is not 4-32 lanes of 16 bytes, rows off 16 bytes, a
+    block past its registers) goes to the scalar design."""
+    bits, per_token, block = 8, True, 128
+    if case == "dit-k-view":
+        x = _dit_k_view(1, 50, 2, 64)
+        assert not x.is_contiguous() and x.stride(2) == 3 * 2 * 64
+    elif case == "llm-prefill-k":
+        x = torch.zeros(4, 8, 40, 128, dtype=torch.bfloat16)
+    elif case == "per-block-64-d64":
+        x, per_token, block = torch.zeros(1, 2, 100, 64, dtype=torch.bfloat16), False, 64
+    elif case == "per-block-128-d128":
+        x, per_token, block = torch.zeros(1, 2, 100, 128, dtype=torch.bfloat16), False, 128
+    elif case == "per-block-64-dit-k-view":
+        x, per_token, block, bits = _dit_k_view(1, 50, 2, 64), False, 64, 4
+    elif case == "f16-d256":
+        x, bits = torch.zeros(1, 2, 10, 256, dtype=torch.float16), 4
+    elif case == "f32-d128":
+        x = torch.zeros(1, 2, 10, 128)
+    elif case == "int2":
+        x, bits = torch.zeros(1, 2, 10, 64, dtype=torch.bfloat16), 2
+    elif case == "bf16-d40":
+        x = torch.zeros(1, 2, 10, 40, dtype=torch.bfloat16)
+    elif case == "misaligned-view":
+        x = torch.zeros(1, 2, 10, 65, dtype=torch.bfloat16)[..., 1:]
+        assert x.shape[-1] == 64 and x.data_ptr() % 16
+    elif case == "f32-d6":
+        x = torch.zeros(1, 2, 10, 6)
+    elif case == "f32-d256":
+        x = torch.zeros(1, 2, 10, 256)
+    elif case == "per-block-128-d256":
+        x, per_token = torch.zeros(1, 2, 10, 256, dtype=torch.bfloat16), False
+    else:
+        x, per_token, block = torch.zeros(1, 2, 100, 64, dtype=torch.bfloat16), False, 16
+    assert tq.kernel_design(x, bits, per_token, block) == want
+
+
+@pytest.mark.parametrize("bits,gran,block", [(8, "per_token", 128), (8, "per_block", 64), (4, "per_token", 128),
+                                             (4, "per_block", 64), (8, "per_block", 128)])
+def test_plain_versions_read_strided_views(bits, gran, block):
+    """The plain versions of C1 and C2 give the same codes and scales on the
+    DiT's strided K view as on its contiguous copy, per token and per block
+    (ragged S = 50 against block 64/128), with the K mean."""
+    x = _dit_k_view(1, 50, 2, 64, seed=bits)
+    km = tq.k_mean(x)
+    plain = tq.quant_int8_plain if bits == 8 else tq.quant_int4_plain
+    got = plain(x, km, per_token=gran == "per_token", block=block)
+    want = plain(x.contiguous(), km, per_token=gran == "per_token", block=block)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    via = (tq.quant_int8 if bits == 8 else tq.quant_int4)(x, km, gran=gran, block=block)
+    assert torch.equal(via[0], want[0]) and torch.equal(via[1], want[1])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_int4_lane_packing_matches_pack_codes(d):
+    """The vector design's INT4 packing, emulated lane by lane: lane t of a
+    row's d/8 lanes holds the codes of columns 8t..8t+7 as bytes in two
+    little-endian words (low nibbles); the words of lane t + lanes/2 (columns
+    + d/2) arrive by one shuffle down and are or-ed in four bits up; the low
+    half of the lanes store 8 bytes each at byte 8t. That equals
+    ``pack_codes`` (byte i = column i | column i + d/2 << 4)."""
+    lanes, e = d // 8, 8
+    codes = np.random.default_rng(d).integers(-7, 8, (37, d)).astype(np.int8)
+    words = (codes.astype(np.int64) & 0xF).astype(np.uint8).view(np.uint32).reshape(37, lanes, e // 4)
+    got = np.zeros((37, d // 2), np.uint8)
+    for t in range(lanes // 2):
+        w = words[:, t] | (words[:, t + lanes // 2] << np.uint32(4))
+        got[:, t * e:(t + 1) * e] = w.view(np.uint8).reshape(37, e)
+    want = tq.pack_codes(torch.from_numpy(codes), 4).numpy().view(np.uint8)
+    np.testing.assert_array_equal(got, want)
+
+
+_MAGIC = np.float32(1.5 * 2**23)
+
+
+def _round_away_np(x):
+    t = np.trunc(x)
+    return np.where(np.abs(x - t) >= np.float32(0.5), t + np.sign(x), t).astype(np.float32)
+
+
+def _codes_by_reciprocal(v, s, qmax, bits):
+    """``code_of`` of ``csrc/quant.cu``'s vector design in f32 numpy (every
+    operation rounds once to nearest, as the intrinsics do): q0 = RN(v ·
+    RN(1/s)); its nearest integer through 1.5·2^23; the IEEE division where
+    q0 lies within 2^-15 of a half-integer; the clamped code out of the bits
+    of c + 1.5·2^23. Returns the codes and the share that took the division."""
+    q0 = v * (np.float32(1) / s)
+    n = (q0 + _MAGIC) - _MAGIC
+    exact = np.abs(q0 - n) > np.float32(0.5 - 2**-15)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        n = np.where(exact, _round_away_np(v / s), n)
+    c = np.clip(n, -qmax, qmax).astype(np.float32)
+    return (c + _MAGIC).view(np.uint32) & np.uint32((1 << bits) - 1), float(exact.mean())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_reciprocal_codes_equal_division(bits):
+    """The vector design's codes equal ``clamp(round_away(v / s))`` with the
+    IEEE division for every v around each rounding boundary ±(k + 1/2)·s
+    (k = 0 .. qmax + 1, 64 f32 ulps each side) and for uniform v in [-amax,
+    amax], at scales of mantissa 1, 1 + ulp, 2 - ulp and random mantissas
+    from 1e-7 (EPS alone) to 1e36 (the largest absmax / 127), and the scales
+    fma(amax, 1/qmax, 1e-7) of random absmax values."""
+    qmax = {8: 127, 4: 7}[bits]
+    rng = np.random.default_rng(bits)
+    mant = np.concatenate([[1.0, np.nextafter(np.float32(1), np.float32(2)), np.nextafter(np.float32(2), 1)],
+                           1 + rng.random(29)]).astype(np.float32)
+    exps = np.array([-23, -20, -9, -1, 0, 1, 7, 30, 119], np.float32)
+    scales = np.concatenate([(mant[:, None] * np.exp2(exps)[None]).ravel(),
+                             tq.absmax_scale(torch.from_numpy(rng.random(64).astype(np.float32) * 50), bits).numpy(),
+                             np.float32([1e-7])]).astype(np.float32)
+    k = np.arange(qmax + 2, dtype=np.float64) + 0.5
+    ulps = np.arange(-64, 65, dtype=np.int32)
+    share = []
+    for s in scales:
+        mid = (k * np.float64(s)).astype(np.float32)
+        near = (mid.view(np.int32)[:, None] + ulps[None]).view(np.float32).ravel()
+        amax = np.float32(qmax * s)
+        v = np.concatenate([near, -near, (rng.random(4096) * 2 - 1).astype(np.float32) * amax])
+        got, _ = _codes_by_reciprocal(v, np.float32(s), np.float32(qmax), bits)
+        want_c = np.clip(_round_away_np(v / np.float32(s)), -qmax, qmax).astype(np.int64) & ((1 << bits) - 1)
+        np.testing.assert_array_equal(got.astype(np.int64), want_c, err_msg=f"scale {s!r}")
+        share.append(_codes_by_reciprocal(v[2 * near.size:], np.float32(s), np.float32(qmax), bits)[1])
+    # On uniform v the division is the rare path: ~2^-14 of the elements.
+    assert float(np.mean(share)) < 1e-3
+    # The code bits out of c + 1.5 * 2^23: the low byte is c's two's complement.
+    c = np.arange(-qmax, qmax + 1, dtype=np.float32)
+    np.testing.assert_array_equal((c + _MAGIC).view(np.uint32) & 0xFF, c.astype(np.int64) & 0xFF)
