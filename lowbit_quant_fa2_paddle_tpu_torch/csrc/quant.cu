@@ -29,20 +29,24 @@
 // FLOP/byte ridge. Two designs (ops/quant.py kernel_design picks one by
 // shape):
 //
-// "vector" (C1 and C2; every model path): a row is LANES lanes of 16 bytes
+// "vector" (C1, C2, C3; every model path): a row is LANES lanes of 16 bytes
 // (8 bf16/f16 or 4 f32 values a lane; LANES 4, 8, 16 or 32), so a warp holds
 // 32/LANES rows a load. x is read where it lies, through its batch, head and
 // row strides (the last dim contiguous, rows on 16 bytes), e.g. the DiT's K
 // as a view of its qkv projection. A CTA's rows lie in one (b, h), so each
 // lane keeps its columns of km in registers. Per token, a warp issues the
 // loads of kGroups row groups before any math and keeps them in registers;
-// the row's absmax is a shuffle over its lanes, and the codes come from the
-// same registers: one pass over HBM. Per block, a CTA owns one block (at
-// most 8 loads a thread) and reduces it through shared memory. INT8 lanes
-// store their 8 (f32: 4) codes in one store; for INT4 the high nibbles
-// (columns + D/2) sit LANES/2 lanes up and arrive by one shuffle, and the
-// low half of the row's lanes store the packed bytes. A warp's scales are
-// gathered into lanes and stored together.
+// the row's statistic is a shuffle over its lanes (the absmax, or for INT2
+// each lane's f64 sum of its squares merged by f64 xor-shuffles), and the
+// codes come from the same registers: one pass over HBM. Per block, a CTA
+// owns one block (at most 8 loads a thread) and reduces it through shared
+// memory in a fixed order. INT8 lanes store their 8 (f32: 4) codes in one
+// store; for INT4 the high nibbles (columns + D/2) sit LANES/2 lanes up and
+// arrive by one shuffle, and the low half of the row's lanes store the
+// packed bytes; for INT2 the codes of columns + D/2 arrive by one shuffle
+// down by LANES/2, then those of columns + D/4 (with theirs) by one down by
+// LANES/4, and the lowest quarter of the row's lanes store. A warp's scales
+// are gathered into lanes and stored together.
 //   The code needs round(RN(v / scale)). The vector design multiplies by
 // r = RN(1/scale) (one correctly rounded reciprocal a row) instead: q0 =
 // RN(v*r) lies within |v/scale| * 3 * 2^-24 of the exact quotient, which is
@@ -54,7 +58,7 @@
 // The integer code leaves through the bits of c + 1.5*2^23 (exact for |c| <=
 // 2^22), not a float-to-int conversion.
 //
-// "scalar" (C3, and C1/C2 inputs the vector design cannot read): x
+// "scalar" (inputs the vector design cannot read): x
 // contiguous; a warp owns a row (per token) or a CTA owns a row block (per
 // block); scalar loads, the second read of the row for the codes hits L1/L2,
 // and each thread gathers the 8/BITS columns of one output byte so every byte
@@ -107,7 +111,11 @@ struct Stat {
   // n: elements the statistic covers (the rms divides by it).
   static __device__ __forceinline__ float scale(T r, int n) {
     if constexpr (BITS == 2) {
-      const float sig = __double2float_rn(__dsqrt_rn(__ddiv_rn(r, (double)n)));
+      // r / n as a multiply by 2^-p where n = 2^p (every per-token row and
+      // every power-of-two block), exact as the division is.
+      const double q = (n & (n - 1)) ? __ddiv_rn(r, (double)n)
+                                     : __dmul_rn(r, __hiloint2double((1024 - __ffs(n)) << 20, 0));
+      const float sig = __double2float_rn(__dsqrt_rn(q));
       return __fmaf_rn(sig, 1.224f, 1e-7f);
     } else {
       return __fmaf_rn(r, 1.0f / kQmax, 1e-7f);
@@ -270,15 +278,16 @@ struct Lane {
   }
 };
 
-// v = x - km for a lane's values, and their absmax folded into m.
-template <typename T>
+// v = x - km for a lane's values, and their statistic folded into r (in
+// order: the f64 sum of squares depends on it).
+template <int BITS, typename T>
 __device__ __forceinline__ void centre(const uint4& raw, const float (&kmv)[Lane<T>::E],
-                                       float (&v)[Lane<T>::E], float& m) {
+                                       float (&v)[Lane<T>::E], typename Stat<BITS>::T& r) {
   Lane<T>::unpack(raw, v);
 #pragma unroll
   for (int j = 0; j < Lane<T>::E; ++j) {
     v[j] = __fsub_rn(v[j], kmv[j]);
-    m = fmaxf(m, fabsf(v[j]));
+    r = Stat<BITS>::add(r, v[j]);
   }
 }
 
@@ -295,7 +304,7 @@ __device__ __forceinline__ uint32_t code_of(float v, float s, float rs) {
   return __float_as_uint(__fadd_rn(c, kMagic)) & ((1u << BITS) - 1u);
 }
 
-// A lane's E codes, one a byte (INT8 codes, or INT4 codes in the low nibble).
+// A lane's E codes, one a byte (INT8 codes, or INT4 / INT2 codes in the low bits).
 template <int BITS, int E>
 __device__ __forceinline__ void lane_codes(const float (&v)[E], float s, float rs, uint32_t (&w)[E / 4]) {
 #pragma unroll
@@ -308,14 +317,22 @@ __device__ __forceinline__ void lane_codes(const float (&v)[E], float s, float r
 
 // Store a lane's bytes of one row. INT4: byte i holds columns i and i + D/2,
 // which lie in lanes t and t + LANES/2 of the row; one shuffle brings the
-// high nibbles down and the low half of the row's lanes store. Every lane of
-// the warp runs the shuffle.
+// high nibbles down and the low half of the row's lanes store. INT2: byte i
+// holds columns i + p*D/4 (bits 2p), which lie in lanes t + p*LANES/4; the
+// shuffle by LANES/2 brings columns + D/2 to bits 4, the one by LANES/4 then
+// brings columns + D/4 and + 3D/4 to bits 2 and 6, and the lowest quarter of
+// the row's lanes store. Every lane of the warp runs the shuffles.
 template <int BITS, int LANES, int E>
 __device__ __forceinline__ void store_codes(uint32_t (&w)[E / 4], uint8_t* orow, int t, bool valid) {
-  if constexpr (BITS == 4) {
+  if constexpr (BITS == 4 || BITS == 2) {
 #pragma unroll
     for (int k = 0; k < E / 4; ++k) w[k] |= __shfl_down_sync(kFull, w[k], LANES / 2) << 4;
     valid = valid && t < LANES / 2;
+  }
+  if constexpr (BITS == 2) {
+#pragma unroll
+    for (int k = 0; k < E / 4; ++k) w[k] |= __shfl_down_sync(kFull, w[k], LANES / 4) << 2;
+    valid = valid && t < LANES / 4;
   }
   if (!valid) return;
   if constexpr (E == 8) {
@@ -360,14 +377,46 @@ __global__ void __launch_bounds__(kThreads) quant_per_token_vec(
   }
   float kmv[E];
   load_km(km, bh, D, t * E, kmv);
+  if constexpr (BITS == 2) {
+    // The rows' sums of squares first, each merged over its lanes; then the
+    // scale and its reciprocal once a row, in lane j for row j = g * RPW + sub
+    // of the warp's ROWS_WARP, so the f64 square root runs once for all of
+    // them; the lanes of each row read theirs back.
+    float v[kGroups][E];
+    double sum[kGroups];
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      sum[g] = 0.0;
+      centre<BITS, T>(raw[g], kmv, v[g], sum[g]);
+#pragma unroll
+      for (int o = LANES / 2; o > 0; o >>= 1) sum[g] = Stat<BITS>::merge(sum[g], __shfl_xor_sync(kFull, sum[g], o));
+    }
+    double mine = 0.0;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const double r = __shfl_sync(kFull, sum[g], (lane % RPW) * LANES);
+      if (lane / RPW == g) mine = r;
+    }
+    const float sj = Stat<BITS>::scale(mine, D), rj = __frcp_rn(sj);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int r = row0 + g * RPW + sub;
+      uint32_t w[E / 4];
+      lane_codes<BITS>(v[g], __shfl_sync(kFull, sj, g * RPW + sub), __shfl_sync(kFull, rj, g * RPW + sub), w);
+      store_codes<BITS, LANES, E>(w, out + ((long long)bh * S + r) * W, t, r < S);
+    }
+    if (lane < ROWS_WARP && row0 + lane < S) scale[(long long)bh * S + row0 + lane] = sj;
+    return;
+  }
   float sc[kGroups];
 #pragma unroll
   for (int g = 0; g < kGroups; ++g) {
     const int r = row0 + g * RPW + sub;
-    float v[E], m = 0.0f;
-    centre<T>(raw[g], kmv, v, m);
+    float v[E];
+    typename Stat<BITS>::T m = 0;
+    centre<BITS, T>(raw[g], kmv, v, m);
 #pragma unroll
-    for (int o = LANES / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+    for (int o = LANES / 2; o > 0; o >>= 1) m = Stat<BITS>::merge(m, __shfl_xor_sync(kFull, m, o));
     const float s = Stat<BITS>::scale(m, D);
     sc[g] = s;
     uint32_t w[E / 4];
@@ -396,7 +445,8 @@ __global__ void __launch_bounds__(kThreads, MAXL <= kFewLoads ? 8 : 1) quant_per
     const T* __restrict__ x, long long sb, long long sh, long long ss, int H, const float* __restrict__ km,
     uint8_t* __restrict__ out, float* __restrict__ scale, int BH, int S, int block) {
   constexpr int E = Lane<T>::E, D = LANES * E, W = D * BITS / 8, RPL = kThreads / LANES;
-  __shared__ float red[kThreads / 32];
+  using St = Stat<BITS>;
+  __shared__ typename St::T red[kThreads / 32];
   const int bh = blockIdx.x % BH;
   const int row0 = (blockIdx.x / BH) * block, loads = block / RPL;
   const int sub = threadIdx.x / LANES, t = threadIdx.x % LANES;
@@ -409,26 +459,39 @@ __global__ void __launch_bounds__(kThreads, MAXL <= kFewLoads ? 8 : 1) quant_per
   }
   float kmv[E];
   load_km(km, bh, D, t * E, kmv);
-  float m = 0.0f;
+  typename St::T m = 0;
 #pragma unroll
   for (int c = 0; c < MAXL; ++c) {
     if (c < loads) {
       float v[E];
-      centre<T>(raw[c], kmv, v, m);
+      centre<BITS, T>(raw[c], kmv, v, m);
     }
   }
   m = warp_merge<BITS>(m);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = m;
   __syncthreads();
+  m = red[0];  // the warps' statistics merged in a fixed order
 #pragma unroll
-  for (int i = 0; i < kThreads / 32; ++i) m = fmaxf(m, red[i]);
-  const float s = Stat<BITS>::scale(m, block * D), rs = __frcp_rn(s);
+  for (int i = 1; i < kThreads / 32; ++i) m = St::merge(m, red[i]);
+  float s, rs;
+  if constexpr (BITS == 2) {  // the f64 square root once, in thread 0
+    __shared__ float sr[2];
+    if (threadIdx.x == 0) {
+      sr[0] = St::scale(m, block * D);
+      sr[1] = __frcp_rn(sr[0]);
+    }
+    __syncthreads();
+    s = sr[0], rs = sr[1];
+  } else {
+    s = St::scale(m, block * D), rs = __frcp_rn(s);
+  }
 #pragma unroll
   for (int c = 0; c < MAXL; ++c) {
     if (c < loads) {
       const int r = row0 + c * RPL + sub;
-      float v[E], unused = 0.0f;
-      centre<T>(raw[c], kmv, v, unused);
+      float v[E];
+      typename St::T unused = 0;
+      centre<BITS, T>(raw[c], kmv, v, unused);
       uint32_t w[E / 4];
       lane_codes<BITS>(v, s, rs, w);
       store_codes<BITS, LANES, E>(w, out + ((long long)bh * S + r) * W, t, r < S);
@@ -504,7 +567,7 @@ extern "C" int lowbit_quant(const void* x, int x_dtype, const float* km, int8_t*
   }
 }
 
-// Design "vector" (bits 8 or 4). x: [B, H, S, D] with element strides sb, sh,
+// Design "vector" (bits 8, 4 or 2). x: [B, H, S, D] with element strides sb, sh,
 // ss and a contiguous last dim, every row on 16 bytes; D * sizeof(dtype) =
 // 16 * LANES, LANES 4, 8, 16 or 32; per block (block > 0), block * LANES a
 // multiple of 256 and at most 8 * 256. km, codes and scale as for
@@ -518,6 +581,7 @@ extern "C" int lowbit_quant_vec(const void* x, int x_dtype, long long sb, long l
   switch (bits) {
     case 8: return dispatch_vec<8>(x, x_dtype, sb, sh, ss, H, km, out, scale, bh, S, D, block, st);
     case 4: return dispatch_vec<4>(x, x_dtype, sb, sh, ss, H, km, out, scale, bh, S, D, block, st);
+    case 2: return dispatch_vec<2>(x, x_dtype, sb, sh, ss, H, km, out, scale, bh, S, D, block, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -37,7 +37,8 @@ _SIGNATURES = {
     "lowbit_attn_fwd_wgmma": [_P] * 9 + [_I] * 11 + [_F, _P],
     "lowbit_decode_attn": [_P] * 11 + [_I] * 13 + [_F, _P],
     "lowbit_decode_ctas_per_sm": [_I, _I, _I, _I, _P],
-    "lowbit_gemv": [_P] * 6 + [_I] * 11 + [_P],
+    "lowbit_gemv": [_P] * 5 + [_I] * 9 + [_P],
+    "lowbit_gemv_w8": [_P] * 7 + [_I] * 10 + [_P],
     "lowbit_gemv_tc": [_P] * 7 + [_I] * 13 + [_P],
     "lowbit_fused_kv_attn_wgmma": [_P] * 8 + [_I] * 12 + [_F, _P],
     "lowbit_attn_bwd_wgmma": [_P] * 13 + [_I] * 12 + [_F, _F, _P],

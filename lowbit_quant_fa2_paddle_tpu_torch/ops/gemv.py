@@ -26,12 +26,19 @@ Route: ``M >= 1024`` rows (prefill, the DiT's 17,776 tokens) dequantize W
 once and take ``torch.matmul``, as the JAX package leaves that to XLA;
 smaller M runs the kernel. On CPU tensors the kernels' plain PyTorch
 versions below run instead; a CUDA tensor launches ``csrc/gemv.cu`` or
-raises. F2 has two designs (``kernel_design``): bf16 activations run the
-dot on the tensor cores (``"tensor_core"``, ``mma.sync`` with each code
-dequantized exactly to ``bf16(f32(code * scale))``, K split over CTAs by
-``tc_plan``, the splits merged in a fixed order); f32 activations
-keep their f32 products on the CUDA cores
-(``"cuda_core"``, F1's design). The scales are formed as JAX computes them op by op (division, then
+raises. F1 and F2 each have two designs (``kernel_design``, by the type x
+reaches the kernel in): bf16 x, and F1's int8 x, run the dot on the tensor
+cores (``"tensor_core"``, ``mma.sync``: F1 takes the int8 codes as they lie,
+as exact bf16 for bf16 x and as s8 for int8 x, from a producer warp's ring
+of bulk-copied tiles (for int8 x, where the row blocks alone about fill
+the card, a deep ring of TMA boxes, a CTA an SM over all of K with x
+staged beside W),
+or, for up to 8 x rows and at most 16 MiB of W, by direct loads with no
+split of K across CTAs, planned by ``w8_plan``; F2
+dequantizes each code exactly to
+``bf16(f32(code * scale))``, planned by ``tc_plan``; both split K over CTAs
+and merge the splits in a fixed order); f32 x keeps its f32 products on the
+CUDA cores (``"cuda_core"``). The scales are formed as JAX computes them op by op (division, then
 the ``+ 1e-8``), so packed weights equal the JAX package's bit for bit.
 """
 
@@ -50,7 +57,7 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import round_away
 #: Rows of x from which the matmul dequantizes W once and runs a dense
 #: matmul (the JAX package's threshold).
 DENSE_ROUTE_M = 1024
-#: F2's designs (see ``kernel_design``).
+#: The designs of F1 and F2 (see ``kernel_design``).
 DESIGNS = ("tensor_core", "cuda_core")
 #: The tensor-core design's plan: warps a CTA, rows of W a warp item, fewest
 #: 64-byte chunks a split; by m-tiles a CTA, the x values of a staged row
@@ -60,8 +67,18 @@ TC_WARPS, TC_ROWS, TC_MIN_CHUNKS = 4, 32, 2
 TC_MAX_SPLITS = 8
 TC_X_VALUES = {1: 1024, 4: 512}
 TC_CTAS_PER_SM = {1: 3, 4: 2}
-_X_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: F1's tensor-core plan: rows of W and k values a tile (a CTA's unit is a
+#: tile row block over a range of K), fewest tiles a split, most splits of K,
+#: and by m-tiles a unit the CTAs an SM holds (``csrc/gemv.cu`` W8_*, w8_ctas).
+W8_ROWS, W8_KT, W8_MIN_TILES, W8_MAX_SPLITS = 32, 512, 2, 16
+W8_CTAS_PER_SM = {1: 4, 4: 2}
+#: F1's direct-load structure (``csrc/gemv.cu`` W8D_*): rows of W a CTA, the
+#: largest K, and the largest W it takes (bytes).
+W8D_ROWS, W8D_MAX_K, W8D_MAX_BYTES = 16, 4096, 16 << 20
+#: F1's load structures, in the order the C entry numbers them: the ring of
+#: bulk-copied tiles, the direct loads, and the deep ring (one CTA an SM).
+W8_STRUCTURES = ("ring", "direct", "deep")
+_X_CODES = {torch.bfloat16: 1, torch.int8: 2}
 
 
 # ---------------------------------------------------------------------------
@@ -217,15 +234,16 @@ def wq_matmul_fused_plain(x2: torch.Tensor, packed: torch.Tensor, scale: torch.T
 
 
 def kernel_design(x_dtype: torch.dtype = torch.bfloat16) -> str:
-    """Which design of kernel F2 runs activations of ``x_dtype`` (as they
-    reach the kernel): ``"tensor_core"`` for bf16 (``mma.sync``; the exact
-    bf16 weights times bf16 x are exact in f32), ``"cuda_core"`` for f32
+    """Which design of kernels F1 and F2 runs activations of ``x_dtype`` (as
+    they reach the kernel): ``"tensor_core"`` for bf16 (``mma.sync``; the
+    exact bf16 weights times bf16 x are exact in f32) and for F1's int8
+    activation codes (an s8 product, exact in s32), ``"cuda_core"`` for f32
     (f32 products, which the tensor cores cannot form exactly)."""
-    if x_dtype == torch.bfloat16:
+    if x_dtype in (torch.bfloat16, torch.int8):
         return "tensor_core"
     if x_dtype == torch.float32:
         return "cuda_core"
-    raise TypeError(f"kernel F2 takes bf16 or f32 activations, not {x_dtype}")
+    raise TypeError(f"kernels F1/F2 take bf16, f32 or (F1) int8 activations, not {x_dtype}")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -257,6 +275,37 @@ def tc_plan(m: int, n: int, k: int, bits: int, n_sms: int) -> Tuple[int, int, in
     spc = min(cps, max(1, TC_X_VALUES[mt] // fpb // 64))
     per_warp = _cdiv(items * ksplit * mblocks, slots)  # the same number of items for every warp
     return mt, ksplit, cps, spc, _cdiv(items, TC_WARPS * per_warp)
+
+
+def w8_plan(m: int, n: int, k: int, n_sms: int, x_int8: bool = False) -> Tuple[str, int, int, int, int]:
+    """F1's tensor-core plan ``(structure, mt, ksplit, tps, grid)`` for ``x
+    [m, k] @ W^T [k, n]`` on ``n_sms`` SMs (``structure`` one of
+    ``W8_STRUCTURES``). ``"direct"``: up to 8 x rows, K up to ``W8D_MAX_K``
+    and W up to ``W8D_MAX_BYTES`` run the direct-load kernel, ``ceil(n /
+    W8D_ROWS)`` CTAs, no split (there the ring's split merge costs more than
+    the loads). ``"deep"``: up to 8 rows of int8 x (``x_int8``) whose units
+    of ``W8_ROWS`` rows fill between 3/4 of the SMs and all of them once (N
+    4096 at K 16384 on an H100) take the deep ring, a CTA an SM over all of
+    K, no split and so no merge (bf16 x is faster split: one SM's four warps
+    do not keep up with its dequantization). Else ``"ring"``: ``mt`` m-tiles of 8 x rows a unit (1 up to 8
+    rows, else 4); with one m-tile K is split into ``ksplit`` ranges of
+    ``tps`` tiles of ``W8_KT`` values, as many as fill the card's CTA slots
+    once with units of ``W8_ROWS`` rows (at least ``W8_MIN_TILES`` tiles a
+    range unless K has fewer, at most ``W8_MAX_SPLITS``); with four it is not
+    split, since each split's partial dots would be M x N; ``grid`` CTAs, at
+    most one a slot, each walking its units. It depends on shapes only."""
+    ktiles = _cdiv(k, W8_KT)
+    if m <= 8 and k <= W8D_MAX_K and n * k <= W8D_MAX_BYTES:
+        return "direct", 1, 1, ktiles, _cdiv(n, W8D_ROWS)
+    mt = 1 if m <= 8 else 4
+    units = _cdiv(n, W8_ROWS) * _cdiv(m, 8 * mt)
+    if x_int8 and mt == 1 and 3 * n_sms <= 4 * units <= 4 * n_sms:
+        return "deep", 1, 1, ktiles, units
+    slots = n_sms * W8_CTAS_PER_SM[mt]
+    ksplit = min(max(1, slots // units), _cdiv(ktiles, W8_MIN_TILES), W8_MAX_SPLITS) if mt == 1 else 1
+    tps = _cdiv(ktiles, ksplit)
+    ksplit = _cdiv(ktiles, tps)
+    return "ring", mt, ksplit, tps, min(units * ksplit, slots)
 
 
 _TICKETS: dict = {}
@@ -301,15 +350,40 @@ def _gemv_tc_cuda(x2, packed, scale, mn, *, bits, group_size, neg7, s_row, s_gro
     return y
 
 
+def _gemv_w8_cuda(x2, x_scale, packed, scale, *, out_dtype):
+    """Launch F1's tensor-core design on bf16 x or int8 codes ``x2 [M, K]``
+    (with ``x_scale [M]``; checked by ``_gemv_cuda``); returns ``y [M, N]``."""
+    m, k = x2.shape
+    n = packed.shape[0]
+    dev = x2.device
+    n_sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    structure, mt, ksplit, tps, grid = w8_plan(m, n, k, n_sms, x_int8=x2.dtype == torch.int8)
+    y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    part = tickets = None
+    if ksplit > 1:  # the splits' partial dots and their merge tickets
+        part = torch.empty(ksplit * m * n, dtype=torch.int32 if x2.dtype == torch.int8 else torch.float32, device=dev)
+        tickets = _tickets(dev, _cdiv(m, 8 * mt) * _cdiv(n, W8_ROWS))
+    with torch.cuda.device(dev):
+        err = _build.library().lowbit_gemv_w8(
+            x2.data_ptr(), x_scale.data_ptr() if x_scale is not None else None, packed.data_ptr(), scale.data_ptr(),
+            y.data_ptr(), part.data_ptr() if part is not None else None,
+            tickets.data_ptr() if tickets is not None else None, m, n, k, _X_CODES[x2.dtype],
+            int(out_dtype == torch.float32), W8_STRUCTURES.index(structure), mt, ksplit, tps, grid,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "wq_matmul_per_channel")
+    return y
+
+
 def _gemv_cuda(x2, x_scale, packed, scale, mn, *, bits, grouped, group_size, neg7, out_dtype, wrapper):
-    """Launch F1, or F2 on its design for ``x2``'s type."""
+    """Launch F1, or F2, on its design for ``x2``'s type."""
     name = wrapper.__name__
     m, k = x2.shape
     n, kb = packed.shape
-    if x2.dtype not in _X_CODES:
-        raise TypeError(f"{name} kernel takes f32, bf16 or int8 activations, not {x2.dtype}")
-    if out_dtype not in _OUT_CODES:
-        raise TypeError(f"{name} kernel writes f32 or bf16, not {out_dtype}")
+    if x2.dtype not in (torch.float32, torch.bfloat16, torch.int8) or (grouped and x2.dtype == torch.int8):
+        raise TypeError(f"{name} kernel takes f32, bf16 or (F1) int8 activations, not {x2.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16) or (x2.dtype != torch.int8 and out_dtype != x2.dtype):
+        raise TypeError(f"{name} kernel writes f32 or bf16 (x's type), not {out_dtype}")
     tensors = [x2, packed, scale] + [t for t in (x_scale, mn) if t is not None]
     if any(t.device != x2.device for t in tensors):
         raise ValueError(f"{name} inputs must all be on one device")
@@ -320,22 +394,23 @@ def _gemv_cuda(x2, x_scale, packed, scale, mn, *, bits, grouped, group_size, neg
     if packed.data_ptr() % 16 or x2.data_ptr() % 16:
         raise ValueError(f"{name} kernel needs 16-byte aligned x and weights")
     s_row, s_group = (1, 0) if scale.dim() == 1 else (scale.shape[1], 1)
-    if grouped and x2.dtype == torch.bfloat16 and out_dtype == torch.bfloat16:
+    design = kernel_design(x2.dtype)
+    if design == "tensor_core" and not grouped:
+        y = _gemv_w8_cuda(x2, x_scale, packed, scale, out_dtype=out_dtype)
+    elif design == "tensor_core":
         y = _gemv_tc_cuda(x2, packed, scale, mn, bits=bits, group_size=group_size, neg7=neg7, s_row=s_row,
                           s_group=s_group)
     else:
-        y = torch.empty((m, n), dtype=out_dtype, device=x2.device)
+        y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
         with torch.cuda.device(x2.device):
             err = _build.library().lowbit_gemv(
-                x2.data_ptr(), x_scale.data_ptr() if x_scale is not None else None, packed.data_ptr(),
-                scale.data_ptr(), mn.data_ptr() if mn is not None else None, y.data_ptr(),
-                m, n, k, _X_CODES[x2.dtype], _OUT_CODES[out_dtype], bits, int(grouped), group_size, s_row,
-                s_group, int(neg7), torch.cuda.current_stream(x2.device).cuda_stream,
+                x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), mn.data_ptr() if mn is not None else None,
+                y.data_ptr(), m, n, k, bits, int(grouped), group_size, s_row, s_group, int(neg7),
+                torch.cuda.current_stream(x2.device).cuda_stream,
             )
         _build.check(err, name)
     wrapper.launches += 1
-    if grouped:
-        wrapper.launches_by_design[kernel_design(x2.dtype)] += 1
+    wrapper.launches_by_design[design] += 1
     return y
 
 
@@ -451,10 +526,11 @@ def wq_matmul_fused(
 
 
 #: Launches of kernels F1 and F2 in this process (CPU calls and the dense
-#: route do not count; 4-bit per-channel weights count as F2), and F2's per
+#: route do not count; 4-bit per-channel weights count as F2), in all and per
 #: design.
 wq_matmul_per_channel.launches = 0
 wq_matmul_fused.launches = 0
+wq_matmul_per_channel.launches_by_design = {design: 0 for design in DESIGNS}
 wq_matmul_fused.launches_by_design = {design: 0 for design in DESIGNS}
 
 

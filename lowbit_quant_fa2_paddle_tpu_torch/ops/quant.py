@@ -14,11 +14,11 @@ PyTorch/CUDA counterpart of ``lowbit_quant_fa2_paddle_tpu/ops/quant.py``:
   PyTorch, as the JAX package computes it outside any kernel) and ``k_mean``.
 
 The three kernels are one CUDA source, ``csrc/quant.cu``, templated on the
-bit width; its source note says what bounds it on the H100. C1 and C2 have
-two designs (``kernel_design``): ``"vector"`` reads x where it lies (any
-batch, head and row strides, e.g. the DiT's K as a view of its qkv
-projection), 16 bytes a lane, one pass over HBM; ``"scalar"`` takes the
-rest, and C3, on a contiguous copy.
+bit width; its source note says what bounds it on the H100. Each has two
+designs (``kernel_design``): ``"vector"`` reads x where it lies (any batch,
+head and row strides, e.g. the DiT's K as a view of its qkv projection), 16
+bytes a lane, one pass over HBM; ``"scalar"`` takes the rest, on a
+contiguous copy.
 
 Scale convention: scales come back as per-token rows ``[B, H, S]`` (per-block
 granularity repeats the block scalar across its rows), so the attention
@@ -61,7 +61,7 @@ _EPS_F32 = _f32(EPS)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: The designs of kernels C1 and C2 (see ``kernel_design``); C3 always runs "scalar".
+#: The designs of kernels C1, C2 and C3 (see ``kernel_design``).
 DESIGNS = ("vector", "scalar")
 #: The vector design: lanes of 16 bytes a row, threads a CTA, and the most
 #: 16-byte loads a thread holds for one block (``csrc/quant.cu``).
@@ -180,13 +180,13 @@ def quant_int2_plain(
 
 def kernel_design(x: torch.Tensor, bits: int, per_token: bool, block: int) -> str:
     """Which design of ``csrc/quant.cu`` quantizes ``x`` ``[B, H, S, D]``,
-    by shape, dtype, strides and alignment alone: ``"vector"`` for 8 or 4
-    bits when a row is 4, 8, 16 or 32 lanes of 16 bytes (bf16/f16 D 32, 64,
+    by shape, dtype, strides and alignment alone: ``"vector"`` for 8, 4 or
+    2 bits when a row is 4, 8, 16 or 32 lanes of 16 bytes (bf16/f16 D 32, 64,
     128 or 256; f32 D 16 to 128), the last dim is contiguous and every row
     starts on 16 bytes, and, per block, ``block`` rows are a whole number of
     the CTA's loads, at most ``VECTOR_MAX_LOADS`` a thread (bf16 block 128 at
-    d128, 64 at d256). ``"scalar"`` otherwise, C3 included."""
-    if bits not in (8, 4) or x.dtype not in _DTYPE_CODES or x.dim() != 4:
+    d128, 64 at d256). ``"scalar"`` otherwise."""
+    if bits not in (8, 4, 2) or x.dtype not in _DTYPE_CODES or x.dim() != 4:
         return "scalar"
     esize = x.element_size()
     lanes, rest = divmod(x.shape[-1] * esize, 16)

@@ -1,5 +1,5 @@
-"""Kernels C1/C2 (quant_int8, quant_int4) against variants of their own source
-and against another tree's build, on one CUDA card.
+"""Kernels C1/C2/C3 (quant_int8, quant_int4, quant_int2) against variants of
+their own source and against another tree's build, on one CUDA card.
 
     python3 script/torch_quant_ab.py [--base DIR] [--profile] [VARIANT ...]
 
@@ -9,11 +9,11 @@ package of another tree as "base" (for example the parent commit unpacked by
 ``git archive`` into a directory that ``.gitignore`` lists). Every build (the
 checkout's as "main", then base and each variant) times, in its own process
 with ``utils.benchmark.cuda_time_ms``, the cases of CASES with the K mean
-(as the attention entry points call them): C1 and C2 per token at the DiT's K
-(b1 h30 s17776 d64 bf16), contiguous and as the strided view of the qkv
-projection that the DiT hands over; C1 per token at the LLM prefill's K (b4
-h8 s32704 d128); C1 per block 64 at the DiT shape; and ``k_mean`` on the
-strided DiT K. Calls alternate between two copies of the input, so every call
+(as the attention entry points call them): C1, C2 and C3 per token at the
+DiT's K (b1 h30 s17776 d64 bf16), contiguous and as the strided view of the
+qkv projection that the DiT hands over; C1 per token at the LLM prefill's K
+(b4 h8 s32704 d128); C1 and C3 per block 64 at the DiT shape; and
+``k_mean`` on the strided DiT K. Calls alternate between two copies of the input, so every call
 reads it from HBM (each is larger than the 50 MB L2). It prints ms, GB/s of
 the bytes the function must move (x read once, codes and scales written once)
 and the share of the bound at 3.35 TB/s. The processes run in turns main,
@@ -38,14 +38,37 @@ PKG = "lowbit_quant_fa2_paddle_tpu_torch"
 SRC = "csrc/quant.cu"
 HBM_BYTES_PER_S = 3.35e12
 
-_GROUP_MATH = '''    float v[E], m = 0.0f;
-    centre<T>(raw[g], kmv, v, m);
+_GROUP_MATH = '''    float v[E];
+    typename Stat<BITS>::T m = 0;
+    centre<BITS, T>(raw[g], kmv, v, m);
 #pragma unroll
-    for (int o = LANES / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+    for (int o = LANES / 2; o > 0; o >>= 1) m = Stat<BITS>::merge(m, __shfl_xor_sync(kFull, m, o));
     const float s = Stat<BITS>::scale(m, D);
     sc[g] = s;
     uint32_t w[E / 4];
     lane_codes<BITS>(v, s, __frcp_rn(s), w);
+'''
+_INT2_MATH = '''    float v[kGroups][E];
+    double sum[kGroups];
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      sum[g] = 0.0;
+      centre<BITS, T>(raw[g], kmv, v[g], sum[g]);
+#pragma unroll
+      for (int o = LANES / 2; o > 0; o >>= 1) sum[g] = Stat<BITS>::merge(sum[g], __shfl_xor_sync(kFull, sum[g], o));
+    }
+    double mine = 0.0;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const double r = __shfl_sync(kFull, sum[g], (lane % RPW) * LANES);
+      if (lane / RPW == g) mine = r;
+    }
+    const float sj = Stat<BITS>::scale(mine, D), rj = __frcp_rn(sj);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int r = row0 + g * RPW + sub;
+      uint32_t w[E / 4];
+      lane_codes<BITS>(v[g], __shfl_sync(kFull, sj, g * RPW + sub), __shfl_sync(kFull, rj, g * RPW + sub), w);
 '''
 _TOKEN_BOUNDS = "__global__ void __launch_bounds__(kThreads) quant_per_token_vec("
 _ROUND = '''  float n = __fsub_rn(__fadd_rn(q0, kMagic), kMagic);
@@ -59,13 +82,20 @@ _TOKEN_ROWS = '''  const int bh = blockIdx.x % BH;
 
 # name: (what it changes, [(old, new), ...] on csrc/quant.cu)
 VARIANTS = {
-    "copy-only": ("probe, wrong results: per token, the vector design's loads and stores (codes, the INT4 "
-                  "shuffle, the gathered scales) with no statistic, no reduction and no division",
+    "copy-only": ("probe, wrong results: per token, the vector design's loads and stores (codes, the INT4 and "
+                  "INT2 shuffles, the gathered scales) with no statistic, no reduction and no division",
                   [(_GROUP_MATH, '''    const float s = __uint_as_float(raw[g].x);
     sc[g] = s;
     uint32_t w[E / 4];
 #pragma unroll
     for (int k = 0; k < E / 4; ++k) w[k] = (k ? raw[g].z : raw[g].x) ^ raw[g].y ^ raw[g].w;
+'''), (_INT2_MATH, '''    const float sj = __uint_as_float(raw[0].x ^ raw[kGroups - 1].y);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int r = row0 + g * RPW + sub;
+      uint32_t w[E / 4];
+#pragma unroll
+      for (int k = 0; k < E / 4; ++k) w[k] = ((k ? raw[g].z : raw[g].x) ^ raw[g].y ^ raw[g].w) & 0x03030303u;
 ''')]),
     "exact-div": ("every code by the IEEE division (no reciprocal fast path); same results",
                   [(_ROUND, "  float n = roundf(__fdiv_rn(v, s));\n  (void)q0;\n")]),
@@ -92,6 +122,9 @@ CASES = {
     "C1 per block 64 DiT K contiguous": ("quant", 8, "per_block", 64, DIT, "contiguous"),
     "C2 per token DiT K contiguous": ("quant", 4, "per_token", 128, DIT, "contiguous"),
     "C2 per token DiT K view": ("quant", 4, "per_token", 128, DIT, "view"),
+    "C3 per token DiT K contiguous": ("quant", 2, "per_token", 128, DIT, "contiguous"),
+    "C3 per token DiT K view": ("quant", 2, "per_token", 128, DIT, "view"),
+    "C3 per block 64 DiT K contiguous": ("quant", 2, "per_block", 64, DIT, "contiguous"),
     "k_mean DiT K view": ("k_mean", 16, None, None, DIT, "view"),
 }
 
@@ -123,7 +156,7 @@ def worker(tag: str, profile: bool) -> None:
             calls = [lambda k=k: Q.k_mean(k) for k in ks]
             moved = b * h * s * d * 2 + b * h * d * 4
         else:
-            quant = Q.quant_int8 if bits == 8 else Q.quant_int4
+            quant = {8: Q.quant_int8, 4: Q.quant_int4, 2: Q.quant_int2}[bits]
             calls = [lambda k=k, km=km: quant(k, km, gran=gran, block=block) for k, km in zip(ks, kms)]
             moved = b * h * s * d * 2 + b * h * d * 4 + b * h * s * d * bits // 8 + b * h * s * 4
         turn = [0]

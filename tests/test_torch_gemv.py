@@ -254,12 +254,15 @@ def test_bad_arguments_raise():
 
 
 def test_kernel_design_by_dtype():
-    """F2 runs bf16 activations on the tensor cores and f32 ones, whose f32
-    products the tensor cores cannot form exactly, on the CUDA cores."""
+    """F1 and F2 run bf16 activations on the tensor cores, and so does F1
+    its int8 activation codes (w8a8); f32 ones, whose f32 products the
+    tensor cores cannot form exactly, run on the CUDA cores."""
     assert TG.kernel_design(torch.bfloat16) == TG.kernel_design() == "tensor_core"
+    assert TG.kernel_design(torch.int8) == "tensor_core"
     assert TG.kernel_design(torch.float32) == "cuda_core"
     assert set(TG.DESIGNS) == {"tensor_core", "cuda_core"}
     assert TG.wq_matmul_fused.launches_by_design.keys() == set(TG.DESIGNS)
+    assert TG.wq_matmul_per_channel.launches_by_design.keys() == set(TG.DESIGNS)
     with pytest.raises(TypeError):
         TG.kernel_design(torch.float16)
 
@@ -317,3 +320,69 @@ def test_tensor_core_plan(m, n, k, bits):
     assert gx == -(-items // (TG.TC_WARPS * per_warp))
     if items * mblocks * ksplit <= slots:
         assert gx == -(-items // TG.TC_WARPS)  # one item per warp
+
+
+def test_w8_int8_to_bf16_is_exact():
+    """F1's tensor-core design turns each int8 code into a bf16 for the bf16
+    product, two codes a 32-bit word, emulated bit for bit: with byte b in
+    the low byte of a half, (b & 0x7F) | 0x4300 is the bf16 128 + (b & 127)
+    and (b & 0x80) | 0x4300 the bf16 128 (b < 128) or 256; one fma in bf16,
+    t * -1 + a, gives their difference exactly. That is the signed code for
+    all 256 bytes (the 255 codes of ``pack_weights_per_channel`` and -128),
+    as the bf16 that the plain version's f32 code rounds to."""
+    b = np.arange(256, dtype=np.uint32)  # byte values as stored
+    c = b.astype(np.uint8).view(np.int8).astype(np.float32)
+    a_bits = ((b & np.uint32(0x7F)) | np.uint32(0x4300)).astype(np.uint16)
+    t_bits = ((b & np.uint32(0x80)) | np.uint32(0x4300)).astype(np.uint16)
+    a = torch.from_numpy(a_bits.view(np.int16)).view(torch.bfloat16)
+    t = torch.from_numpy(t_bits.view(np.int16)).view(torch.bfloat16)
+    np.testing.assert_array_equal(a.float().numpy(), 128 + (b & 0x7F).astype(np.float32))
+    np.testing.assert_array_equal(t.float().numpy(), np.where(b >= 128, 256.0, 128.0).astype(np.float32))
+    # The fma's exact result is an integer of at most 8 significant bits: bf16 holds it, no rounding.
+    exact = t.double() * -1.0 + a.double()
+    got = exact.to(torch.bfloat16)
+    assert torch.equal(got.double(), exact)
+    np.testing.assert_array_equal(got.float().numpy(), c)
+    assert torch.equal(got, torch.from_numpy(c).bfloat16())
+
+
+W8_PLAN_SHAPES = [(4, 16384, 4096), (4, 4096, 4096), (4, 1024, 4096), (4, 4096, 16384), (1, 16384, 4096),
+                  (1, 1024, 4096), (1, 4096, 16384), (1000, 4096, 4096), (1000, 1024, 4096), (1000, 16384, 4096),
+                  (64, 1024, 256), (9, 300, 528), (8, 64, 16)]
+
+
+@pytest.mark.parametrize("x_int8", [False, True], ids=["bf16-x", "int8-x"])
+@pytest.mark.parametrize("m,n,k", W8_PLAN_SHAPES)
+def test_w8_plan(m, n, k, x_int8):
+    """F1's tensor-core plan on an H100's 132 SMs: its split ranges cover K
+    once (no empty range), K is split only with one m-tile (M <= 8) and then
+    into at most W8_MAX_SPLITS ranges of at least W8_MIN_TILES tiles unless K
+    has fewer, and the grid is every unit while they fit the card's CTA
+    slots, else the slots (each CTA walks its units). On the ring at M <= 8
+    there are at least 128 units, about one an SM. The small matrices (N 1024
+    and 4096 at K 4096) take the direct loads instead, whose 16-row CTAs need
+    no split, and, with int8 x, N 4096 at K 16384 (128 units of 32 rows,
+    between 3/4 of the SMs and all of them) the deep ring, a CTA an SM over
+    all of K."""
+    structure, mt, ksplit, tps, grid = TG.w8_plan(m, n, k, 132, x_int8=x_int8)
+    ktiles = -(-k // TG.W8_KT)
+    units = -(-n // TG.W8_ROWS) * -(-m // (8 * mt))
+    assert structure in TG.W8_STRUCTURES
+    # Up to 8 x rows, K <= 4096 and W <= 16 MiB: the direct loads, 16 rows a CTA, K not split.
+    assert (structure == "direct") == (m <= 8 and k <= TG.W8D_MAX_K and n * k <= TG.W8D_MAX_BYTES)
+    if structure == "direct":
+        assert (mt, ksplit, grid) == (1, 1, -(-n // TG.W8D_ROWS)) and tps * TG.W8_KT >= k
+        return
+    # Up to 8 rows of int8 x whose 32-row units fill 99 to 132 SMs once: the deep ring, one unit a CTA, all of K.
+    assert (structure == "deep") == (x_int8 and m <= 8 and 99 <= units <= 132)
+    assert (structure == "deep") == (x_int8 and (m, n, k) in ((4, 4096, 16384), (1, 4096, 16384)))
+    if structure == "deep":
+        assert (mt, ksplit, tps, grid) == (1, 1, ktiles, units)
+        return
+    slots = 132 * TG.W8_CTAS_PER_SM[mt]
+    assert mt == (1 if m <= 8 else 4)
+    assert (ksplit - 1) * tps < ktiles <= ksplit * tps
+    assert ksplit == 1 or (mt == 1 and tps >= min(TG.W8_MIN_TILES, ktiles) and ksplit <= TG.W8_MAX_SPLITS)
+    assert grid == min(units * ksplit, slots)
+    if m <= 8 and k >= 4096:
+        assert units * ksplit >= 128

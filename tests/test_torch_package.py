@@ -216,17 +216,22 @@ def test_lowbit_quant_kernels_equal_plain(cuda, bits, gran, block, d):
 QUANT_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 
 
+QUANT_FNS = {8: (quant_int8, quant_int8_plain), 4: (quant_int4, quant_int4_plain), 2: (quant_int2, quant_int2_plain)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("bits,dtype,d", list(itertools.product([8, 4], list(QUANT_DTYPES), [64, 128, 256])))
+@pytest.mark.parametrize("bits,dtype,d", list(itertools.product([8, 4, 2], list(QUANT_DTYPES), [64, 128, 256])))
 def test_quant_vector_design_equals_plain(cuda, bits, dtype, d):
-    """C1/C2 against their plain versions, codes and scales bit for bit, at
+    """C1/C2/C3 against their plain versions, codes and scales bit for bit
+    (C3's f64 sums of squares, merged in another order, still give the plain
+    version's f32 scales), at
     S 1, 3, 7, 777 and 1000 (ragged against the vector design's 32-256-row
     CTAs and 64/128-row blocks; the edge block's missing rows enter as
     -km), per token and per block 64/128, with and without km. Each call
     counts one launch on the design ``kernel_design`` names: vector for
     every bf16/f16 row and f32 up to d128, except blocks past its registers
     (block 128 at d256), which run scalar."""
-    quant, plain = (quant_int8, quant_int8_plain) if bits == 8 else (quant_int4, quant_int4_plain)
+    quant, plain = QUANT_FNS[bits]
     g = torch.Generator(device=cuda).manual_seed(100 * bits + d)
     for s in (1, 3, 7, 777, 1000):
         x = (torch.randn(2, 3, s, d, generator=g, device=cuda) * 2 + 0.5).to(QUANT_DTYPES[dtype])
@@ -247,7 +252,7 @@ def test_quant_vector_design_equals_plain(cuda, bits, dtype, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("bits", [8, 4, 2])
 def test_quant_reads_dit_k_view_where_it_lies(cuda, bits):
     """The DiT's K, a strided view of its qkv projection (30 heads x 64,
     S 4000), goes to the vector design with no copy: bit-equal to the plain
@@ -255,7 +260,7 @@ def test_quant_reads_dit_k_view_where_it_lies(cuda, bits):
     allocated memory by no more than the codes and scales it returns. A
     view whose rows do not start on 16 bytes runs the scalar design (on a
     contiguous copy), bit-equal too."""
-    quant, plain = (quant_int8, quant_int8_plain) if bits == 8 else (quant_int4, quant_int4_plain)
+    quant, plain = QUANT_FNS[bits]
     g = torch.Generator(device=cuda).manual_seed(20 + bits)
     s, h, d = 4000, 30, 64
     qkv = torch.randn(1, s, 3 * h * d, generator=g, device=cuda).bfloat16().reshape(1, s, 3, h, d)
@@ -728,6 +733,68 @@ def test_gemv_tensor_core_design_matches_plain(cuda, case):
     assert bool(torch.isfinite(y.float()).all())
     assert float(cosine_similarity(y, y_ref)) >= 0.99999
     assert float((y.float() - y_ref.float()).abs().max()) <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+W8_TC_CASES = {
+    # name: (m, n, k)
+    "m4-n16384-k4096": (4, 16384, 4096),
+    "m4-n4096-k4096": (4, 4096, 4096),
+    "m4-n1024-k4096": (4, 1024, 4096),
+    "m5-n1000-k1040-direct-ragged": (5, 1000, 1040),
+    "m2-n2000-k8208-split-ragged": (2, 2000, 8208),
+    "m4-n4096-k16384": (4, 4096, 16384),
+    "m3-n3900-k16400-deep-ragged": (3, 3900, 16400),
+    "m8-n4000-k16384-deep": (8, 4000, 16384),
+    "m8-n2000-k8208-split-ragged": (8, 2000, 8208),
+    "m1-n1000-k4160-ragged-tile": (1, 1000, 4160),
+    "m7-n300-k528": (7, 300, 528),
+    "m8-n64-k16": (8, 64, 16),
+    "m9-n130-k512": (9, 130, 512),
+    "m64-n1024-k256": (64, 1024, 256),
+    "m33-n200-k4176": (33, 200, 4176),
+    "m1000-n4096-k4096": (1000, 4096, 4096),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(W8_TC_CASES))
+@pytest.mark.parametrize("mode", ["w8", "w8a8", "w8a8-f32-x"])
+def test_gemv_w8_tensor_core_design_matches_plain(cuda, mode, case):
+    """F1's tensor-core design against its plain version: w8 (bf16 x, exact
+    bf16 codes on mma.sync, f32 sums in another order) within 2 bf16 ulps of
+    max|y|; w8a8 (INT8 codes of bf16 or f32 x on the s8 mma, an exact s32
+    dot and the plain version's epilogue; f32 x gives f32 y) bit for bit.
+    The decode shapes (N 1024 and 4096 at K 4096 on the direct loads, N
+    16384 on the ring, N 4096 at K 16384 on the deep ring with int8 x (TMA
+    boxes, x staged beside W, a CTA an SM over all of K; N 3900 there, K
+    ending 16 bytes into a tile; M 8) and with K split over CTAs and merged
+    by the last CTA with bf16 x (also N 2000 at K 8208, M 2 and 8), M 1 to 1000 (four m-tiles a unit past 8), N
+    not a multiple of the 16- or 32-row tile, K ending inside a tile's first
+    segment and inside a later one. The same bits on a second run; every
+    launch on the design."""
+    m, n, k = W8_TC_CASES[case]
+    dtype = torch.float32 if mode == "w8a8-f32-x" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(13)
+    w = torch.randn(n, k, generator=g, device=cuda) / math.sqrt(k)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    p, s = gemv.pack_weights_per_channel(w, bits=8)
+    act = "bf16" if mode == "w8" else "int8"
+    before = dict(gemv.wq_matmul_per_channel.launches_by_design)
+    y = gemv.wq_matmul_per_channel(x, p, s, bits=8, activation=act)
+    y2 = gemv.wq_matmul_per_channel(x, p, s, bits=8, activation=act)
+    if mode == "w8":
+        y_ref = gemv.wq_matmul_per_channel_plain(x, p, s, out_dtype=dtype)
+    else:
+        xq, xs = gemv.quant_activations(x)
+        y_ref = gemv.wq_matmul_per_channel_plain(xq, p, s, x_scale=xs, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert gemv.wq_matmul_per_channel.launches_by_design == {**before, "tensor_core": before["tensor_core"] + 2}
+    assert y.shape == (m, n) and y.dtype == dtype and torch.equal(y, y2)
+    if mode == "w8":
+        top = float(y_ref.float().abs().max())
+        assert float((y.float() - y_ref.float()).abs().max()) <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    else:
+        assert torch.equal(y, y_ref)
 
 
 PV8_CASES = {

@@ -237,6 +237,34 @@ def test_k_mean_bf16_and_strided_match_jax(case):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
 
 
+def test_k_mean_then_quant_int8_codes_against_jax():
+    """The main path's steps 1-2 through each package's own code: ``k_mean``
+    of the DiT's bf16 K (a strided view of qkv on the port's side, with a
+    per-channel mean; b1 h6 s2048 d64, cut from h30 s17776), then per-token
+    ``quant_int8`` with that mean. The two means sum in other orders, so they
+    differ in some channels (measured on a CPU: 116 of 384, by at most 2
+    ulp), and with them a row's scale where its absmax channel differs (1537
+    of 12,288 rows). Measured: 1 of 786,432 codes differs, by one step. Held
+    to that share; every code is equal where the channel's two means agree
+    bit for bit."""
+    rng = np.random.default_rng(11)
+    b, s, h, d = 1, 2048, 6, 64
+    qkv = rng.standard_normal((b, s, 3, h, d)).astype(np.float32)
+    qkv[:, :, 1] += rng.standard_normal((1, 1, h, d)).astype(np.float32) * 2  # K's per-channel mean
+    tk = torch.from_numpy(qkv).bfloat16()[:, :, 1].transpose(1, 2)
+    jk = jnp.asarray(np.ascontiguousarray(tk.float().numpy()), jnp.bfloat16)
+    tkm, jkm = tq.k_mean(tk), jq.k_mean(jk)
+    tc, _ = tq.quant_int8(tk, tkm, gran="per_token")
+    jc, _ = jq.quant_int8(jk, jkm, gran="per_token")
+    tkm, jkm = tkm.numpy(), np.asarray(jkm)
+    np.testing.assert_allclose(tkm, jkm, rtol=1e-6, atol=1e-7)
+    dc = np.abs(tc.numpy().astype(np.int32) - np.asarray(jc))
+    assert dc.max() <= 1
+    assert (dc > 0).mean() <= 1 / 786432
+    same_km = np.broadcast_to(tkm.view(np.int32) == jkm.view(np.int32), dc.shape)
+    assert not (dc[same_km] > 0).any()
+
+
 def _dit_k_view(b, s, h, d, dtype=torch.bfloat16, seed=0):
     """K as the DiT hands it over: ``[B, H, S, hd]``, a view of the qkv
     projection ``[B, S, 3, H, hd]`` (row stride 3·H·hd)."""
@@ -253,7 +281,7 @@ def _dit_k_view(b, s, h, d, dtype=torch.bfloat16, seed=0):
     ("per-block-64-dit-k-view", "vector"),
     ("f16-d256", "vector"),
     ("f32-d128", "vector"),
-    ("int2", "scalar"),
+    ("int2", "vector"),
     ("bf16-d40", "scalar"),
     ("misaligned-view", "scalar"),
     ("f32-d6", "scalar"),
@@ -262,10 +290,11 @@ def _dit_k_view(b, s, h, d, dtype=torch.bfloat16, seed=0):
     ("per-block-16-d64", "scalar"),
 ])
 def test_kernel_design_rule(case, want):
-    """C1/C2's design is chosen by shape, dtype, strides and alignment: the
-    vector design reads every model path's K where it lies; what it cannot
-    read (C3, a row that is not 4-32 lanes of 16 bytes, rows off 16 bytes, a
-    block past its registers) goes to the scalar design."""
+    """C1/C2/C3's design is chosen by shape, dtype, strides and alignment:
+    the vector design reads every model path's K where it lies, at 8, 4 and
+    2 bits; what it cannot read (a row that is not 4-32 lanes of 16 bytes,
+    rows off 16 bytes, a block past its registers) goes to the scalar
+    design."""
     bits, per_token, block = 8, True, 128
     if case == "dit-k-view":
         x = _dit_k_view(1, 50, 2, 64)
@@ -335,6 +364,36 @@ def test_int4_lane_packing_matches_pack_codes(d):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_int2_lane_packing_matches_pack_codes(d):
+    """The vector design's INT2 packing, emulated lane by lane for bf16 rows
+    (lanes = d/8 of 8 columns): lane t holds the codes of columns 8t..8t+7 as
+    bytes in two little-endian words (2 low bits each); one shuffle down by
+    lanes/2 brings the words of lane t + lanes/2 (columns + d/2), or-ed in 4
+    bits up; one down by lanes/4 then brings those of lane t + lanes/4
+    (columns + d/4, with + 3d/4 from its first step), or-ed in 2 bits up;
+    the lowest quarter of the lanes store 8 bytes each at byte 8t. A shuffle
+    past the warp's last lane returns the lane's own word, unused. That
+    equals ``pack_codes`` (bits 2p of byte i = column i + p*d/4)."""
+    lanes, e, rows = d // 8, 8, 64
+    codes = np.random.default_rng(d).integers(-1, 2, (rows, d)).astype(np.int8)
+    words = (codes.astype(np.int64) & 0x3).astype(np.uint8).view(np.uint32).reshape(rows, lanes, e // 4)
+    warp = words.reshape(-1, 32, e // 4)  # a warp holds 32 / lanes consecutive rows
+    lane = np.arange(32)
+
+    def shfl_down(w, delta):
+        return w[:, np.where(lane + delta < 32, lane + delta, lane)]
+
+    warp = warp | (shfl_down(warp, lanes // 2) << np.uint32(4))
+    warp = warp | (shfl_down(warp, lanes // 4) << np.uint32(2))
+    words = warp.reshape(rows, lanes, e // 4)
+    got = np.zeros((rows, d // 4), np.uint8)
+    for t in range(lanes // 4):
+        got[:, t * e:(t + 1) * e] = words[:, t].view(np.uint8).reshape(rows, e)
+    want = tq.pack_codes(torch.from_numpy(codes), 2).numpy().view(np.uint8)
+    np.testing.assert_array_equal(got, want)
+
+
 _MAGIC = np.float32(1.5 * 2**23)
 
 
@@ -358,21 +417,24 @@ def _codes_by_reciprocal(v, s, qmax, bits):
     return (c + _MAGIC).view(np.uint32) & np.uint32((1 << bits) - 1), float(exact.mean())
 
 
-@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("bits", [8, 4, 2])
 def test_reciprocal_codes_equal_division(bits):
     """The vector design's codes equal ``clamp(round_away(v / s))`` with the
     IEEE division for every v around each rounding boundary ±(k + 1/2)·s
-    (k = 0 .. qmax + 1, 64 f32 ulps each side) and for uniform v in [-amax,
-    amax], at scales of mantissa 1, 1 + ulp, 2 - ulp and random mantissas
-    from 1e-7 (EPS alone) to 1e36 (the largest absmax / 127), and the scales
-    fma(amax, 1/qmax, 1e-7) of random absmax values."""
-    qmax = {8: 127, 4: 7}[bits]
+    (k = 0 .. qmax + 1, 64 f32 ulps each side: for INT2 the 0.5 boundary is
+    the only one below the clamp) and for uniform v in [-amax, amax], at
+    scales of mantissa 1, 1 + ulp, 2 - ulp and random mantissas from 1e-7
+    (EPS alone) to 1e36 (the largest absmax / 127), and the scales
+    fma(amax, 1/qmax, 1e-7) of random absmax values (INT2: 1.224·rms + EPS
+    of random rms)."""
+    qmax = {8: 127, 4: 7, 2: 1}[bits]
     rng = np.random.default_rng(bits)
     mant = np.concatenate([[1.0, np.nextafter(np.float32(1), np.float32(2)), np.nextafter(np.float32(2), 1)],
                            1 + rng.random(29)]).astype(np.float32)
     exps = np.array([-23, -20, -9, -1, 0, 1, 7, 30, 119], np.float32)
-    scales = np.concatenate([(mant[:, None] * np.exp2(exps)[None]).ravel(),
-                             tq.absmax_scale(torch.from_numpy(rng.random(64).astype(np.float32) * 50), bits).numpy(),
+    stat = torch.from_numpy(rng.random(64).astype(np.float32) * 50)
+    formed = tq.rms_scale(stat.double() ** 2 * 64, 64) if bits == 2 else tq.absmax_scale(stat, bits)
+    scales = np.concatenate([(mant[:, None] * np.exp2(exps)[None]).ravel(), formed.numpy(),
                              np.float32([1e-7])]).astype(np.float32)
     k = np.arange(qmax + 2, dtype=np.float64) + 0.5
     ulps = np.arange(-64, 65, dtype=np.int32)
