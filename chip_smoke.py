@@ -88,8 +88,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    under torch.profiler (device ms of G1, G2, A, C1, GEMMs, the rest); the
    two impls' first losses within 1% and block 0's qkv weight gradients at
    cos >= 0.99;
-9. kernel D (decode_attention) against its plain version: int8 and bf16
-   caches at b4 h32 hk8 d128 S_max 32768 with lengths [32768, 1, 4097, 0],
+9. kernel D (decode_attention) against its plain version: int8, bf16, int4
+   and k4v8 caches (4-bit K on the float chain that "auto" takes and on the
+   integer chain, "int_qk") at b4 h32 hk8 d128 S_max 32768 with lengths [32768, 1, 4097, 0],
    d64 MHA, d32 GQA 8q/2kv, and the checkpoint's b64 S_max 128 with f32
    queries, with and without the LSE; and the design's edges: lengths
    127/128/129, lengths at a split boundary +- 1 (from the split plan), a
@@ -97,7 +98,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and differ only in summation order: cos >= 0.99999, max|do| <= one bf16
    ulp of max|o|, max|dlse| <= 1e-4; the same bits on a second run, every
    launch on D's design (csrc/decode_attention.cu). Timed at every length
-   32768 for both caches, with the GB/s of cache bytes streamed (SDPA, one
+   32768 in every mode, with the GB/s of cache bytes streamed (SDPA, one
    query per head, beside the bf16 cache);
 10. kernels F1/F2 (wq_matmul_per_channel, wq_matmul_fused) against their
    plain versions: w8, w8a8, w4 per-channel and grouped 2/4/8-bit (group
@@ -125,8 +126,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    b4 h32 s8192 d64 beside SDPA on the dequantized bf16 K/V; its entry
    point once, counted;
 12. the trained checkpoint eval_out/arith_llm.npz: greedy generate of 4
-   tokens on 64 three-shot addition prompts, with the int8 and the bf16
-   cache, then with per-channel w8 and w4 weights on the int8 cache; task
+   tokens on 64 three-shot addition prompts, with the int8, bf16, int4 and
+   k4v8 caches, then with per-channel w8 and w4 weights on the int8 cache; task
    exact-match >= 0.98 in every run (printed beside the JAX package's CPU
    figures 1.0 and 0.984375 for w8 and w4), launch counts per run (6 F per
    layer and decode step, none in the 2,304-row prefill; f32 x, so all on
@@ -135,15 +136,36 @@ Phases, each of which raises on failure (exit code 1, no result line):
    heads, vocab 256, bf16, depth 32, random weights from a seeded
    generator): generate 64 tokens at b4 from a 32,704-token prompt with
    max_seq 32768, with the int8 cache, the bf16 cache, and then w8 and w4
-   weights (quantize_llm_params of the same model) on the int8 cache.
-   Prints block-weight bytes, prefill seconds, decode ms per token, peak
-   memory; the first decode step's int8-vs-bf16 logits cos must be >=
+   weights (quantize_llm_params of the same model) on the int8 cache, each
+   as llm_prefill then decode_tokens, whose steps run as one captured CUDA
+   graph (an eager first step, the capture, 62 replays, over three calls).
+   Prints block-weight bytes, prefill seconds, decode ms per token (host
+   clock over one call of 53 replays, and the device time of 8 single-replay
+   calls from CUDA events), peak memory; the first
+   decode step's int8-vs-bf16 logits cos must be >=
    0.999 and w8-vs-dense >= 0.99 (w4 printed); the counters must show depth
    A (wgmma design) and C1 (vector design) launches per prefill, depth x 63 D launches (all
    on D's design), and 192 x 63 F1 (w8) or F2 (w4) launches, all on the
    tensor-core design, and none at prefill. Then one decode step per weight format under torch.profiler at
    a 256-token context, and one per cache mode at the full 32K context with
-   dense weights: device ms of F, the dense GEMMs, D and the rest.
+   dense weights: device ms of F, the dense GEMMs, D and the rest;
+14. long context at the same full width (bench/llm_e2e_bench.py at its
+   --ctx 131072): first, at phase 13's 32K b4 prompt, llm_prefill_chunked
+   (chunks of 4096) against the one-shot llm_prefill with the int8 and the
+   k4v8 cache (last-token logits cos >= 0.999 / 0.995, the JAX package's
+   test bounds), and 16 graph-decoded tokens against a loop of
+   llm_decode_step from cloned k4v8 caches (identical tokens, bit-equal
+   caches), both timed; then b4, a 131,072-token prompt, max_seq 133,120,
+   the k4v8 cache (~27 GB): the chunked prefill (per layer one C1 and one A
+   a chunk, one more A for every chunk after the first) and 32 graph-decoded
+   tokens (depth x 32 D launches, all on bulk_ring), with prefill seconds,
+   decode ms per token, cache GB and peak memory; the strided cache-slice
+   copies' and the V dequantization's share of the prefill; the last
+   prefill chunk and one decode step under torch.profiler; then kernel A at
+   that chunk's shapes (in-chunk causal int8 K; packed int4 K over the
+   cache's 126,976 rows, non-causal) and kernel D on layer 0's 128K k4v8
+   cache (both QK chains) against their plain versions, at phase 4's and
+   phase 9's bounds, the packed-K A and the float-chain D timed.
 
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
@@ -1136,32 +1158,42 @@ def train_phase():
     return res
 
 
-def decode_inputs(gen, b, h, hk, d, s, bits, lengths, q_dtype=torch.bfloat16):
+#: Kernel D's cache modes in phase 9: (k_bits, v_bits, compute_mode). "auto"
+#: takes the integer QK chain at 8-bit K and the float chain at 4-bit K.
+DECODE_MODES = {"int8": (8, 8, "auto"), "bf16": (16, 16, "auto"), "int4": (4, 4, "auto"),
+                "int4 int_qk": (4, 4, "int_qk"), "k4v8": (4, 8, "auto"), "k4v8 int_qk": (4, 8, "int_qk")}
+
+
+def decode_inputs(gen, b, h, hk, d, s, mode, lengths, q_dtype=torch.bfloat16):
     from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import quantize_token
 
+    k_bits, v_bits, compute_mode = DECODE_MODES[mode]
     k = torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
     v = torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
-    (kq, ks), (vq, vs) = quantize_token(k, bits=bits), quantize_token(v, bits=bits)
+    (kq, ks), (vq, vs) = quantize_token(k, bits=k_bits), quantize_token(v, bits=v_bits)
     q = torch.randn(b, h, d, generator=gen, device="cuda").to(q_dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     kernel_args = (q, kq, vq, ks, lens)
-    plain_args = (q, kq, vq, ks, vs if bits == 8 else None, lens)
-    plain_kw = dict(sm_scale=1.0 / math.sqrt(d), int_qk=bits == 8, out_dtype=q.dtype)
-    return kernel_args, dict(v_scale=vs, kv_bits=bits), plain_args, plain_kw
+    plain_args = (q, kq, vq, ks, vs if v_bits != 16 else None, lens)
+    int_qk = k_bits == 8 or compute_mode == "int_qk"
+    plain_kw = dict(sm_scale=1.0 / math.sqrt(d), int_qk=int_qk, out_dtype=q.dtype)
+    kernel_kw = dict(v_scale=vs, k_bits=k_bits, v_bits=v_bits, compute_mode=compute_mode)
+    return kernel_args, kernel_kw, plain_args, plain_kw
 
 
 def decode_phase(gen):
-    """Kernel D against its plain version (see the module note, phase 9),
-    its edges (lengths at 127/128/129 and at a split boundary +- 1, a GQA
-    group of 8, f32 queries at d32), the same bits on a second run, every
-    launch on its one design; then timed."""
+    """Kernel D against its plain version (see the module note, phase 9) in
+    every cache mode of DECODE_MODES, its edges (lengths at 127/128/129 and
+    at a split boundary +- 1, a GQA group of 8, f32 queries at d32), the
+    same bits on a second run, every launch on its one design; then timed."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
 
     b, h, hk, d, s = 4, 32, 8, 128, 32768
     # The split plan of the b4 h32 hk8 d128 edge case (S_max 4096), for the
-    # lengths around its first split boundary.
-    slots = {bits: DD._resident_ctas(0, d, bits == 8, bits == 8, bits == 8) for bits in (8, 16)}
+    # lengths around its first split boundary (the plan follows the mode's occupancy).
+    slots = {mode: DD._resident_ctas(0, d, kb, vb, kb == 8 or cm == "int_qk")
+             for mode, (kb, vb, cm) in DECODE_MODES.items()}
     cases = [
         ("d128 GQA 32q/8kv s32768", dict(b=b, h=h, hk=hk, d=d, s=s, lengths=[s, 1, 4097, 0])),
         ("d64 MHA s5000", dict(b=2, h=8, hk=8, d=64, s=5000, lengths=[5000, 77])),
@@ -1174,13 +1206,13 @@ def decode_phase(gen):
         ("edge d32 f32 queries s777", dict(b=3, h=8, hk=2, d=32, s=777, lengths=[777, 1, 500], q_dtype=torch.float32)),
     ]
     records = {}
-    for bits, mode in ((8, "int8"), (16, "bf16")):
-        chunk = DD.num_splits(4096, 4 * hk, slots[bits])[1]
+    for mode in DECODE_MODES:
+        chunk = DD.num_splits(4096, 4 * hk, slots[mode])[1]
         edge = ("edge d128 split boundary +-1", dict(b=4, h=h, hk=hk, d=d, s=4096,
                                                      lengths=[chunk - 1, chunk, chunk + 1, 2 * chunk + 1]))
         worst = 0.0
         for name, kw in cases + [edge]:
-            kargs, kkw, pargs, pkw = decode_inputs(gen, bits=bits, **kw)
+            kargs, kkw, pargs, pkw = decode_inputs(gen, mode=mode, **kw)
             n = DD.decode_attention.launches_by_design[DD.kernel_design()]
             o, lse = DD.decode_attention(*kargs, **kkw, return_lse=True)
             o2, lse2 = DD.decode_attention(*kargs, **kkw, return_lse=True)
@@ -1203,15 +1235,16 @@ def decode_phase(gen):
                 if not torch.equal(DD.decode_attention(*kargs, **kkw), o):
                     raise AssertionError("kernel D output differs with return_lse=False")
             del kargs, pargs, o, o_ref, o2
-        kargs, kkw, pargs, pkw = decode_inputs(gen, b, h, hk, d, s, bits, [s] * b)
+        kargs, kkw, pargs, pkw = decode_inputs(gen, b, h, hk, d, s, mode, [s] * b)
         ms = cuda_time_ms(lambda: DD.decode_attention(*kargs, **kkw), warmup=5, reps=50)
         plain_ms = cuda_time_ms(lambda: DD.decode_attention_plain(*pargs, **pkw), warmup=1, reps=5)
         q, kq, vq, ks, lens = kargs
         cache_bytes = nbytes(kq, vq, ks, pargs[4])
         gbps = cache_bytes / (ms * 1e-3) / 1e9
         lim = bound(cache_bytes + nbytes(q, lens) * 2)  # q read, o written
+        # No single PyTorch call decodes packed nibbles or int8 codes.
         library_ms = None
-        if bits == 16:  # one SDPA call, one query per head, over the same bf16 cache
+        if mode == "bf16":  # one SDPA call, one query per head, over the same bf16 cache
             q4 = q[:, :, None]
             library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q4, kq, vq, enable_gqa=True), warmup=3, reps=20)
@@ -1285,22 +1318,24 @@ def checkpoint_phase():
     tree = load_params_npz(os.path.join(REPO, "eval_out", "arith_llm.npz"))
     prompts, answers = train.make_eval_prompts(64, few_shot=3)
     prompt = torch.from_numpy(prompts).cuda()
-    out = {}
-    for mode, bits in (("int8", 8), ("bf16", 16)):
-        cfg = train.arith_llm_config(kv_bits=bits)
+    out, launches = {}, {}
+    for mode, sides in (("int8", dict(kv_bits=8)), ("bf16", dict(kv_bits=16)), ("int4", dict(kv_bits=4)),
+                        ("k4v8", dict(kv_bits=8, k_bits=4))):
+        cfg = train.arith_llm_config(**sides)
         model = llm.params_from_jax(tree, cfg)
         count_reset()
         toks = llm.generate(model, prompt, train.ANS_LEN, cfg).cpu().numpy()
-        check_counts(f"ckpt {mode}", counts(), cfg.depth, train.ANS_LEN - 1)
+        launches[mode] = counts()
+        check_counts(f"ckpt {mode}", launches[mode], cfg.depth, train.ANS_LEN - 1)
         acc = sum(train.grade_answer(row, a) for row, a in zip(toks, answers)) / len(answers)
         log(f"[ckpt] {mode} cache: task exact-match {acc:.4f} on {len(answers)} prompts; "
             f"first answers {[train.decode_ids(r) for r in toks[:4]]}")
         if acc < 0.98:
             raise AssertionError(f"checkpoint exact-match {acc} < 0.98 with the {mode} cache")
         out[mode] = (acc, toks)
-    agree = float((out["int8"][1] == out["bf16"][1]).mean())
-    log(f"[ckpt] int8 vs bf16 cache token agreement {agree:.4f}")
-    return {"exact_match": {m: out[m][0] for m in out}, "token_agreement": agree}
+    agree = {m: float((out[m][1] == out["bf16"][1]).mean()) for m in ("int8", "int4", "k4v8")}
+    log(f"[ckpt] token agreement with the bf16 cache: {agree}")
+    return {"exact_match": {m: out[m][0] for m in out}, "token_agreement": agree, "launches": launches}
 
 # ---------------------------------------------------------------------------
 # Kernels F1/F2 (packed-weight matmul) and E (packed-KV attention)
@@ -1708,24 +1743,65 @@ def decode_step_profile(model, prompt, cfg):
     return cats, f"{len(other)} other kernel names; top: {top}"
 
 
-class StepClock:
-    """Host clock around each synchronised step of ``generate``: the final
-    norm runs once at the end of the prefill and once per decode step, so a
-    hook on it synchronises the card and stamps the time; it also keeps the
-    first decode step's logits."""
+class FirstLogits:
+    """Keeps the first decode step's logits: a hook on the final norm, which
+    ``decode_tokens`` runs eagerly for its first step (then under capture,
+    where the hook records nothing, and never again: replays run no
+    Python)."""
 
     def __init__(self, model):
-        self.model, self.stamps, self.first_logits = model, [], None
+        self.model, self.logits = model, None
         self.handle = model.ln_f.register_forward_hook(self._hook)
 
     def _hook(self, module, inputs, out):
-        if out.dim() == 2 and self.first_logits is None:
-            self.first_logits = torch.nn.functional.linear(out, self.model.embed.weight).float()
-        torch.cuda.synchronize()
-        self.stamps.append(time.perf_counter())
+        if out.dim() == 2 and self.logits is None and not torch.cuda.is_current_stream_capturing():
+            self.logits = torch.nn.functional.linear(out, self.model.embed.weight).float()
 
     def remove(self):
         self.handle.remove()
+
+
+def graph_decode(model, token, caches, n, cfg, spread=8):
+    """``n`` tokens of ``decode_tokens`` in three parts: one call of 2
+    tokens (its eager first step, the capture, one replay), then one call
+    of n - 2 - spread tokens, which replays the captured step, on the host
+    clock from enqueue to the last token on the card (wall ms/token), then
+    ``spread`` calls of one token between two CUDA events each (each
+    replay's device time, with the call's two token copies; the stream
+    sleeps before each, so the host's work for the call lies outside the
+    events, as in ``cuda_time_ms``). The calls go
+    on from each other's last token, as one call of n tokens does. Then D's
+    and F1/F2's merge tickets must be zero. Returns (tokens, caches, wall
+    ms/token, replay ms list, seconds of the first call)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv as G
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import SLEEP_CYCLES
+
+    if n < spread + 3:
+        raise ValueError(f"{n} tokens do not cover the capture, a timed call and {spread} single replays")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts = [llm.decode_tokens(model, token, caches, 2, cfg)[0]]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    parts.append(llm.decode_tokens(model, parts[-1][:, -1], caches, n - 2 - spread, cfg)[0])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    replay_ms = []
+    for _ in range(spread):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        parts.append(llm.decode_tokens(model, parts[-1][:, -1], caches, 1, cfg)[0])
+        b.record()
+        b.synchronize()
+        replay_ms.append(a.elapsed_time(b))
+    # D's and F1/F2's merge tickets: each last CTA resets its own, replay after replay.
+    if any(bool(t.any()) for t in (*DD._TICKETS.values(), *G._TICKETS.values())):
+        raise AssertionError("a merge ticket is not zero after the graph's replays")
+    wall_ms = (t2 - t1) / (n - 2 - spread) * 1e3
+    return torch.cat(parts, dim=1), caches, wall_ms, replay_ms, t1 - t0
 
 
 def full_width_phase():
@@ -1756,7 +1832,9 @@ def full_width_phase():
     res = {}
     # Dense weights with the int8 and the bf16 cache, then packed w8 and w4
     # weights with the int8 cache; F runs once per matrix and decode step
-    # (prefill's 130,816 rows take the dense route).
+    # (prefill's 130,816 rows take the dense route). generate's two stages
+    # run here one by one, so each has its own clock: llm_prefill, the
+    # argmax, decode_tokens (one eager step, the capture, n_new - 2 replays).
     f_steps = 6 * cfg.depth * (n_new - 1)
     for mode, bits, m_run, f1, f2 in (("int8", 8, model, 0, 0), ("bf16", 16, model, 0, 0),
                                       ("w8", 8, packed[8], f_steps, 0), ("w4", 8, packed[4], 0, f_steps)):
@@ -1764,35 +1842,36 @@ def full_width_phase():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        clock = StepClock(m_run)
+        first = FirstLogits(m_run)
         count_reset()
         t0 = time.perf_counter()
-        toks = llm.generate(m_run, prompt, n_new, cfg_m)
+        logits, caches = llm.llm_prefill(m_run, prompt, cfg_m)
+        token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        del logits
         torch.cuda.synchronize()
-        t_end = time.perf_counter()
+        prefill_s = time.perf_counter() - t0
+        steps, caches, wall_ms, replay_ms, call_s = graph_decode(m_run, token, caches, n_new - 1, cfg_m)
+        toks = torch.cat([token[:, None], steps], dim=1)
         got = counts()
-        clock.remove()
+        first.remove()
         peak = torch.cuda.max_memory_allocated()
-        stamps = clock.stamps
-        if len(stamps) != n_new:
-            raise AssertionError(f"{len(stamps)} final-norm calls, want {n_new}")
-        prefill_s = stamps[0] - t0
-        step_ms = [(b_ - a_) * 1e3 for a_, b_ in zip(stamps, stamps[1:])]
-        med = statistics.median(step_ms)
         row_bytes = cfg.head_dim * (1 if bits == 8 else 2) + 4  # codes or bf16 row, f32 scale
         cache_gb = cfg.depth * 2 * b * cfg.num_kv_heads * cfg.max_seq * row_bytes / 1e9
         log(f"[llm] {mode}: {weight_gb[mode]:.3f} GB of block weights, {'bf16' if bits == 16 else 'int8'} cache "
             f"({cache_gb:.2f} GB over {cfg.depth} layers): prefill {prefill_s:.3f} s, "
-            f"decode {med:.3f} ms/token (median of {len(step_ms)}; min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
-            f"total {t_end - t0:.2f} s, peak {peak / 2**30:.2f} GiB")
+            f"graph decode {wall_ms:.3f} ms/token wall over {n_new - 11} replays in one call (single-replay "
+            f"device ms median {statistics.median(replay_ms):.3f}, min {min(replay_ms):.3f}, max "
+            f"{max(replay_ms):.3f} over {len(replay_ms)}; the first call, with its eager first step and capture, "
+            f"{call_s:.2f} s), peak {peak / 2**30:.2f} GiB")
         check_counts(f"llm {mode}", got, cfg.depth, n_new - 1, f1=f1, f2=f2)
         if tuple(toks.shape) != (b, n_new) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
             raise AssertionError(f"bad generated tokens: shape {tuple(toks.shape)}")
-        if not bool(torch.isfinite(clock.first_logits).all()):
-            raise AssertionError("non-finite first-step logits")
-        res[mode] = {"prefill_s": prefill_s, "decode_ms_per_token": med, "step_ms": step_ms, "peak_gib": peak / 2**30,
-                     "weight_gb": weight_gb[mode], "launches": got, "tokens": toks.cpu(), "logits": clock.first_logits}
-        del toks, clock
+        if first.logits is None or not bool(torch.isfinite(first.logits).all()):
+            raise AssertionError("no or non-finite first-step logits")
+        res[mode] = {"prefill_s": prefill_s, "decode_ms_per_token": wall_ms, "replay_ms": replay_ms,
+                     "decode_call_s": call_s, "peak_gib": peak / 2**30, "weight_gb": weight_gb[mode],
+                     "launches": got, "tokens": toks.cpu(), "logits": first.logits}
+        del toks, first, caches, steps
     cos = float(cosine_similarity(res["int8"]["logits"], res["bf16"]["logits"]))
     agree = float((res["int8"]["tokens"] == res["bf16"]["tokens"]).float().mean())
     log(f"[llm] first decode step logits cos int8 vs bf16 cache {cos:.6f}; generated-token agreement {agree:.4f}")
@@ -1825,7 +1904,296 @@ def full_width_phase():
         log(f"[llm] decode step device ms at a {prompt_len + 2}-token context, {mode} cache, dense weights: " +
             ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) + f"; total {sum(cats.values()):.3f}; {top} "
             f"({time.perf_counter() - t0:.1f} s with its prefill)")
+    del packed
     return res
+
+
+def cache_step_profile(model, token, caches, cfg):
+    """Device ms of one eager decode step over the given caches by kernel
+    class (as decode_step_profile), after one unprofiled step."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+
+    _, caches = llm.llm_decode_step(model, token, caches, cfg)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        llm.llm_decode_step(model, token, caches, cfg)
+        torch.cuda.synchronize()
+    cats = {"F": 0.0, "GEMM": 0.0, "D": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        key = ("D" if "decode" in name else "GEMM" if any(t in name for t in GEMM_NAMES) else "other")
+        cats[key] += e.device_time_total / 1e3
+    return cats
+
+
+def long_prefill_attention_check(model, toks, cache, c0, cfg):
+    """Kernel A as the chunked prefill runs it on its chunk at ``c0``, on
+    layer 0's queries (GQA, d128): the in-chunk causal attention (K codes
+    per token from C1, Sq = Sk = chunk) and, in the packed-INT4 mode, the
+    non-causal attention over the cache's first c0 rows
+    (``llm._attend_cache``: 4-bit K codes with their per-token scales, V
+    dequantized to bf16), each against attention_fwd_plain on the same
+    inputs, one batch row at a time, at phase 4's bounds; the second timed,
+    with its bound. Returns the second's record."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as qo
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import (
+        LOG2E,
+        attention_fwd_plain,
+        kernel_design,
+        lowbit_attention,
+    )
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import attention_flops, cuda_time_ms
+
+    b, sc = toks.shape
+    h, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pos = (c0 + torch.arange(sc, device="cuda")).expand(b, sc)
+    q, k, v = llm._qkv(model.blocks[0], model.embed(toks), cfg)
+    q, k = llm._rope(q, pos, cfg.rope_theta), llm._rope(k, pos, cfg.rope_theta)
+    c = 1.0 / math.sqrt(d) * LOG2E
+
+    def check(name, o, lse, k, v, ks, causal, k_bits):
+        r = {"cos": 1.0, "max_do": 0.0, "finite": True, "max_dlse": 0.0}
+        plain_ms = 0.0
+        for i in range(b):
+            a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            o_ref, lse_ref = attention_fwd_plain(q[i : i + 1], k[i : i + 1], v[i : i + 1], None, ks[i : i + 1], None,
+                                                 causal=causal, sm_scale_log2e=c, out_dtype=torch.bfloat16,
+                                                 k_bits=k_bits)
+            e.record()
+            e.synchronize()
+            plain_ms += a.elapsed_time(e)
+            ri = stats(o[i : i + 1], o_ref, lse[i : i + 1], lse_ref)
+            r = {"cos": min(r["cos"], ri["cos"]), "max_do": max(r["max_do"], ri["max_do"]),
+                 "finite": r["finite"] and ri["finite"], "max_dlse": max(r["max_dlse"], ri["max_dlse"])}
+            del o_ref, lse_ref
+        check_close(f"{name}, 128K chunked prefill's chunk at c0 {c0} (b{b} h{h} hk{hk} sq{sc} sk{k.shape[2]} d{d})",
+                    r)
+        return r, plain_ms
+
+    kc, kcs = qo.quant_int8(k, gran="per_token")
+    vb = v.to(torch.bfloat16)
+    o, lse = lowbit_attention(q, kc, vb, k_scale=kcs, is_causal=True, return_lse=True)
+    check("in-chunk int8 K, causal", o, lse, kc, vb, kcs, True, 8)
+    del k, v, kc, kcs, vb, o, lse
+    o, lse = llm._attend_cache(q, cache, c0, cfg)
+    k, ks = cache["k"][:, :, :c0].contiguous(), cache["k_scale"][:, :, :c0].contiguous()
+    v = llm._dequant_cache_rows(cache["v"][:, :, :c0], cache["v_scale"][:, :, :c0], cfg.eff_v_bits, torch.bfloat16)
+    r, plain_ms = check("packed int4 K over the cache, non-causal", o, lse, k, v, ks, False, 4)
+    ms = cuda_time_ms(lambda: lowbit_attention(q, k, v, k_scale=ks, k_pack_bits=4, return_lse=True), warmup=1, reps=3)
+    flops = attention_flops(b, h, d, sc, c0, False)
+    lim = bound(nbytes(q, k, ks, v) + nbytes(q) + b * h * sc * 4, {"int8": flops // 2, "bf16": flops // 2})
+    log(f"[long] kernel A packed int4 K at c0 {c0}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (its {b} batch "
+        f"rows), bound {lim['bound_ms']:.3f} ms ({lim['bound_by']})")
+    return {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None,
+            "exp_floor_ms": exp_floor_ms(b * h * sc * c0), "design": kernel_design(False)}
+
+
+def long_decode_check(gen, cache, cfg):
+    """Kernel D as the 128K decode runs it: layer 0's k4v8 cache (S_max
+    133,120, its own lengths) and a random query of the step's shape,
+    against decode_attention_plain at phase 9's bounds on both QK chains,
+    the same bits twice, every launch on its design; the float chain (the
+    one "auto" takes, the path's) timed, with the bound of the rows it
+    reads. Returns its record."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    b, d = cache["k"].shape[0], cfg.head_dim
+    q = torch.randn(b, cfg.num_heads, d, generator=gen, device="cuda").bfloat16()
+    args = (q, cache["k"], cache["v"], cache["k_scale"], cache["length"])
+    kw = dict(v_scale=cache["v_scale"], k_bits=4, v_bits=8)
+    worst = 0.0
+    for chain in ("auto", "int_qk"):
+        n = DD.decode_attention.launches_by_design[DD.kernel_design()]
+        o, lse = DD.decode_attention(*args, **kw, compute_mode=chain, return_lse=True)
+        o2, lse2 = DD.decode_attention(*args, **kw, compute_mode=chain, return_lse=True)
+        o_ref, lse_ref = DD.decode_attention_plain(q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+                                                   cache["length"], sm_scale=1.0 / math.sqrt(d),
+                                                   int_qk=chain == "int_qk", out_dtype=q.dtype)
+        torch.cuda.synchronize()
+        r = stats(o, o_ref, lse, lse_ref)
+        ulp = bf16_ulp(float(o_ref.float().abs().max()))
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        on_design = DD.decode_attention.launches_by_design[DD.kernel_design()] == n + 2
+        log(f"[long] kernel D k4v8 {chain} on layer 0's 128K cache (lengths {cache['length'].tolist()}): " +
+            " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items()) +
+            f" bf16_ulp={ulp:.3g} same_bits_twice={same} design={DD.kernel_design()}:{on_design}")
+        if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= ulp and r["max_dlse"] <= 1e-4 and same
+                and on_design):
+            raise AssertionError(f"kernel D disagrees with its plain version on the 128K k4v8 cache ({chain}): {r}")
+        worst = max(worst, r["max_do"])
+        del o, o2, o_ref
+    ms = cuda_time_ms(lambda: DD.decode_attention(*args, **kw), warmup=5, reps=50)
+    plain_ms = cuda_time_ms(lambda: DD.decode_attention_plain(q, cache["k"], cache["v"], cache["k_scale"],
+                                                              cache["v_scale"], cache["length"],
+                                                              sm_scale=1.0 / math.sqrt(d), int_qk=False,
+                                                              out_dtype=q.dtype), warmup=1, reps=3)
+    rows = int(cache["length"].clamp(max=cache["k"].shape[2]).sum())
+    row_bytes = d // 2 + d + 4 + 4  # packed K, int8 V, their scales
+    lim = bound(cfg.num_kv_heads * rows * row_bytes + nbytes(q, cache["length"]) * 2)
+    log(f"[long] kernel D k4v8 at the 128K decode's shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {lim['bound_ms']:.4f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None,
+            "design": DD.kernel_design()}
+
+
+def long_context_phase():
+    """Phase 14: the full-width LLM (phase 13's shapes) prefills a b4
+    131,072-token prompt in chunks of 4096 into a k4v8 cache (max_seq
+    133,120: the prompt and llm_e2e_bench's gen-block of 2048) and decodes
+    32 tokens through the CUDA graph; launch counts, peak memory, the
+    strided cache-slice copies' share of the prefill, one profiled decode
+    step, then kernels A and D at this run's shapes against their plain
+    versions. Before it, at phase 13's b4 32,704-token prompt: chunked against
+    one-shot prefill (int8, k4v8; last-token logits cos >= 0.999 / 0.995,
+    tests/test_llm.py's bounds), and the graph decode against the eager loop
+    of llm_decode_step from cloned k4v8 caches (the same tokens, bit-equal
+    caches), each timed."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+
+    b, ctx, chunk, n_new = 4, 131072, 4096, 32
+    cfg = llm.LLMConfig(vocab=256, dim=4096, depth=32, num_heads=32, num_kv_heads=8, max_seq=ctx + 2048,
+                        dtype=torch.bfloat16, kv_bits=8, k_bits=4)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = llm.init_llm_params(cfg, gen)
+    res = {}
+
+    # Chunked against one-shot at 32K, then graph against loop on the k4v8 caches.
+    prompt = torch.randint(0, cfg.vocab, (b, 32704), generator=gen, device="cuda")
+    for mode, sides in (("int8", dict(kv_bits=8, k_bits=None)), ("k4v8", dict(kv_bits=8, k_bits=4))):
+        cfg_m = dataclasses.replace(cfg, max_seq=32768, **sides)
+        t0 = time.perf_counter()
+        full, caches = llm.llm_prefill(model, prompt, cfg_m)
+        full = full[:, -1].float()
+        del caches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        last, caches = llm.llm_prefill_chunked(model, prompt, cfg_m, chunk=chunk)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        cos = float(cosine_similarity(last.float(), full))
+        want = 0.995 if cfg_m.eff_k_bits == 4 else 0.999
+        log(f"[long] 32K {mode}: chunked (chunk {chunk}) vs one-shot prefill last-token logits cos {cos:.6f} "
+            f"(>= {want}); one-shot {t1 - t0:.3f} s, chunked {t2 - t1:.3f} s")
+        if not (cos >= want and bool(torch.isfinite(last).all())):
+            raise AssertionError(f"chunked vs one-shot prefill cos {cos} < {want} ({mode})")
+        res[f"chunked_vs_one_shot_{mode}"] = {"cos": cos, "one_shot_s": t1 - t0, "chunked_s": t2 - t1}
+        del full
+        if mode == "k4v8":
+            token = torch.argmax(last, dim=-1).to(torch.int32)
+            copy = [{k: v.clone() for k, v in c.items()} for c in caches]
+            n_cmp = 16
+            graph_toks, caches, wall_ms, replay_ms, _ = graph_decode(model, token, caches, n_cmp, cfg_m)
+            t, loop_toks = token, []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_cmp):
+                logits, copy = llm.llm_decode_step(model, t, copy, cfg_m)
+                t = torch.argmax(logits, dim=-1).to(torch.int32)
+                loop_toks.append(t)
+            torch.cuda.synchronize()
+            loop_ms = (time.perf_counter() - t0) / n_cmp * 1e3
+            same_toks = torch.equal(graph_toks, torch.stack(loop_toks, dim=1))
+            same_caches = all(torch.equal(c[k], w[k]) for c, w in zip(caches, copy) for k in c)
+            log(f"[long] 32K k4v8 graph vs eager loop, {n_cmp} tokens: tokens identical {same_toks}, caches bit-equal "
+                f"{same_caches}; graph {wall_ms:.3f} ms/token wall (replay median {statistics.median(replay_ms):.3f}), "
+                f"eager loop {loop_ms:.3f} ms/token wall")
+            if not (same_toks and same_caches):
+                raise AssertionError("the graph decode differs from the eager loop of llm_decode_step")
+            res["graph_vs_loop_32k_k4v8"] = {"graph_ms": wall_ms, "replay_ms_median": statistics.median(replay_ms),
+                                             "loop_ms": loop_ms}
+            del copy
+        del caches, last
+    del prompt
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # The 128K run.
+    prompt = torch.randint(0, cfg.vocab, (b, ctx), generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    count_reset()
+    t0 = time.perf_counter()
+    last, caches = llm.llm_prefill_chunked(model, prompt, cfg, chunk=chunk)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = counts()
+    token = torch.argmax(last, dim=-1).to(torch.int32)
+    count_reset()
+    toks, caches, wall_ms, replay_ms, call_s = graph_decode(model, token, caches, n_new, cfg)
+    dec = counts()
+    d_designs = design_counts("D")
+    peak = torch.cuda.max_memory_allocated()
+    cache_gb = sum(nbytes(*(c[k] for k in ("k", "v", "k_scale", "v_scale"))) for c in caches) / 1e9
+    n_chunks = ctx // chunk
+    want_pre = {"A": cfg.depth * (2 * n_chunks - 1), "C1": cfg.depth * n_chunks, "C2": 0, "C3": 0, "D": 0, "E": 0,
+                "F1": 0, "F2": 0, "G1": 0, "G2": 0}
+    want_dec = {**{k: 0 for k in want_pre}, "D": cfg.depth * n_new}
+    log(f"[long] 128K b{b} k4v8: prefill {prefill_s:.3f} s ({n_chunks} chunks of {chunk}), graph decode "
+        f"{wall_ms:.3f} ms/token wall over {n_new - 10} replays in one call (single-replay device ms median "
+        f"{statistics.median(replay_ms):.3f}, min {min(replay_ms):.3f}, max {max(replay_ms):.3f}; the first call "
+        f"{call_s:.2f} s), cache {cache_gb:.2f} GB over {cfg.depth} layers, peak {peak / 2**30:.2f} GiB")
+    log(f"[long] launches: prefill {pre} (want {want_pre}), decode {dec} (want {want_dec}), D by design {d_designs}")
+    if pre != want_pre or dec != want_dec or d_designs != {"bulk_ring": cfg.depth * n_new}:
+        raise AssertionError(f"128K launch counts: {pre} / {dec} / {d_designs}")
+    if not (bool(torch.isfinite(last).all()) and bool(((toks >= 0) & (toks < cfg.vocab)).all())
+            and int(caches[-1]["length"][0]) == ctx + n_new):
+        raise AssertionError("128K: non-finite logits, bad tokens or a wrong cache length")
+    # The cache-row slices that each chunk's cross-attention copies (a strided
+    # K slice and its scales, which kernel A takes contiguous) and the V rows
+    # it dequantizes to bf16, timed once for one layer at every chunk start
+    # and counted for every layer.
+    c = caches[0]
+    copy_ms = dequant_ms = 0.0
+    for c0 in range(chunk, ctx, chunk):
+        copy_ms += cuda_event_ms(lambda: (c["k"][:, :, :c0].contiguous(), c["k_scale"][:, :, :c0].contiguous()))
+        dequant_ms += cuda_event_ms(lambda: llm._dequant_cache_rows(c["v"][:, :, :c0], c["v_scale"][:, :, :c0],
+                                                                    cfg.eff_v_bits, torch.bfloat16))
+    copy_s, dequant_s = copy_ms * cfg.depth / 1e3, dequant_ms * cfg.depth / 1e3
+    log(f"[long] strided K-slice copies {copy_s:.3f} s ({100 * copy_s / prefill_s:.2f}% of the prefill), "
+        f"V dequantization {dequant_s:.3f} s ({100 * dequant_s / prefill_s:.2f}%)")
+    # One chunk of the prefill under torch.profiler: the last one again (c0
+    # = ctx - chunk: the largest cache slice; it rewrites the same rows).
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        llm._prefill_chunk(model, prompt[:, ctx - chunk:], caches, ctx - chunk, cfg)
+        torch.cuda.synchronize()
+    chunk_ms = dict.fromkeys(("A", "C1", "GEMM", "copy", "other"), 0.0)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.lower()
+            key = ("A" if "attn_fwd" in name else "C1" if "quant_per" in name else "copy" if "copy" in name
+                   else "GEMM" if any(w in name for w in GEMM_NAMES) else "other")
+            chunk_ms[key] += e.device_time_total / 1e3
+    log(f"[long] the last prefill chunk (c0 {ctx - chunk}) device ms: " +
+        ", ".join(f"{k} {v:.2f}" for k, v in chunk_ms.items()) + f"; total {sum(chunk_ms.values()):.2f}")
+    cats = cache_step_profile(model, toks[:, -1], caches, cfg)
+    log(f"[long] decode step device ms at a {ctx + n_new + 1}-token context, k4v8 cache, dense weights: " +
+        ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) + f"; total {sum(cats.values()):.3f}")
+    # The two kernels' new shapes on this path, against their plain versions.
+    res["A_cross"] = long_prefill_attention_check(model, prompt[:, ctx - chunk:], caches[0], ctx - chunk, cfg)
+    res["D"] = long_decode_check(gen, caches[0], cfg)
+    res.update({"prefill_s": prefill_s, "decode_ms_per_token": wall_ms, "replay_ms": replay_ms, "peak_gib": peak / 2**30,
+                "cache_gb": cache_gb, "launches_prefill": pre, "launches": dec, "copy_share": copy_s / prefill_s,
+                "dequant_share": dequant_s / prefill_s, "profile": cats, "last_chunk_ms": chunk_ms})
+    del caches, last, toks, prompt, model
+    return res
+
+
+def cuda_event_ms(fn):
+    """Device ms of one call between two CUDA events."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
 
 
 def timed(phase, *args):
@@ -1858,9 +2226,10 @@ def main():
     dec = timed(decode_phase, gen)
     gemv = timed(gemv_phase, gen)
     fkv = timed(fused_kv_phase, gen)
-    timed(checkpoint_phase)
+    ckpt = timed(checkpoint_phase)
     timed(checkpoint_wq_phase)
     llm_r = timed(full_width_phase)
+    long_r = timed(long_context_phase)
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
     replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
@@ -1910,9 +2279,22 @@ def main():
              **{k: lowa["int8-PV"][k] for k in a_keys}),
     ] + [
         dict(name=f"decode_attention ({mode} cache)", route="cuda", source=f"{src}/decode_attention.cu",
-             replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
-             launches=llm_r[mode]["launches"]["D"], **dec[mode])
-        for mode in ("int8", "bf16")
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727", launches=launches, **dec[mode])
+        for mode, launches in (
+            ("int8", llm_r["int8"]["launches"]["D"]), ("bf16", llm_r["bf16"]["launches"]["D"]),
+            ("int4", ckpt["launches"]["int4"]["D"]),
+            # k4v8 at this shape is on no model path (the 128K decode's row follows); the
+            # integer QK chain at 4-bit K on none ("auto" takes the float chain).
+            ("k4v8", 0), ("int4 int_qk", 0), ("k4v8 int_qk", 0))
+    ] + [
+        dict(name="decode_attention (k4v8 cache; 128K decode b4 h32 hk8 S_max 133120 d128)", route="cuda",
+             source=f"{src}/decode_attention.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
+             launches=long_r["launches"]["D"], **long_r["D"]),
+        # The cross-attention launches of the 128K prefill: all of A's but the
+        # in-chunk one that follows each C1.
+        dict(name="attention_fwd (packed int4 K; 128K chunked prefill over the cache, b4 h32 hk8 sq4096 "
+             "sk126976 d128)", launches=long_r["launches_prefill"]["A"] - long_r["launches_prefill"]["C1"],
+             **wgmma_src, **long_r["A_cross"]),
     ] + [
         dict(name=name, route="cuda", source=f"{src}/gemv.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/gemv.py:" + ("255" if GEMV_MODES[mode] == "F1" else "368"),

@@ -1,13 +1,17 @@
-// Kernel D: single-token decode attention over a contiguous int8 or bf16 KV cache.
+// Kernel D: single-token decode attention over a contiguous quantized or bf16 KV cache.
 //
 // Replaces the TPU kernel lowbit_quant_fa2_paddle_tpu/ops/decode.py:
 // _decode_kernel (launched by decode_attention, pallas_call at :727) for one
-// query token per sequence over a contiguous cache: int8 codes with per-token
-// f32 scales or bf16 rows, chosen per side; GQA; lengths read on the device;
-// base-2 LSE out.
+// query token per sequence over a contiguous cache: int8 codes or packed
+// 4-bit codes with per-token f32 scales, or bf16 rows, chosen per side (the
+// TPU kernel's kv_bits 8 / 4 / 16 and k4v8); GQA; lengths read on the
+// device; base-2 LSE out. A 4-bit row holds two codes a byte in halves of D:
+// byte i carries column i in its low nibble and column i + D/2 in its high
+// one (ops/decode.py quantize_token, JAX's _unpack4_cols).
 //
 // Math per key, as in the TPU kernel:
-//   int8 K:  qa = fma(max|q|, 1/127, 1e-7), q8 = round_away(q / qa)
+//   integer chain (int8 K by default, 4-bit K with compute_mode "int_qk"):
+//            qa = fma(max|q|, 1/127, 1e-7), q8 = round_away(q / qa)
 //            s  = ((f32(q8 . k8) * (qa * sm_scale)) * ks) * log2e
 //   float:   s  = (((q . k) * sm_scale) * ks) * log2e          (f32 sums)
 //   s = -0.7 * FLT_MAX where pos >= length;  online softmax in base 2 with
@@ -35,15 +39,27 @@
 // warp j % 4) and keep their own online-softmax state for the CTA's R <= 8
 // query rows, so nothing in the loop waits on the other warps. QK runs on the
 // tensor cores with the K tile as the A operand (16 keys) and the query rows
-// as B (n = 8): mma.sync m16n8k32 s8 for int8 K (exact integer dots, as
-// __dp4a), m16n8k16 bf16 otherwise (bf16 queries: exact products, f32 sums
-// in another order; f32 queries are split into three bf16 terms hi + mid +
-// lo, which carry all 24 bits, so nothing is rounded to bf16). Each thread
-// reads 8 or 16 contiguous bytes of a K row, so the dimension order inside
+// as B (n = 8): mma.sync m16n8k32 s8 on the integer chain (exact integer
+// dots, as __dp4a), m16n8k16 bf16 otherwise (bf16 queries: exact products,
+// f32 sums in another order; f32 queries are split into three bf16 terms hi
+// + mid + lo, which carry all 24 bits, so nothing is rounded to bf16). Each
+// thread reads 4 to 16 contiguous bytes of a K row, so the dimension order inside
 // an mma is permuted, the same for K and the queries. P stays f32: the warp
 // writes P (times the V scale) to its own shared scratch and runs PV on the
 // CUDA cores in f32, each lane 4 (d128) output columns of every row, a V row
 // read once per warp. The per-warp states merge through the split partials.
+//
+// A 4-bit side is read as it lies: the bulk copies move its packed rows (D/2
+// bytes), each consumer widens the nibbles in registers, exactly and with no
+// conversion instruction. Integer chain: a nibble n shifted to the top of its
+// byte is the s8 value 16 n, so the operands are the bytes (w << 4) &
+// 0xF0F0F0F0 (low nibbles) and w & 0xF0F0F0F0 (high nibbles); the dot comes
+// out 16 times too large, exactly (|sum| < 2^24), and is scaled by 1/16.
+// Float chain: the biased nibble u = n + 8 (w ^ 0x88888888) in the low
+// mantissa bits of bf16 128 is 128 + u, and one bf16x2 fma takes 136 off.
+// PV: each lane's columns lie in one half of D, so it reads the low or the
+// high nibbles of its bytes, each u placed in the mantissa of 2^23 and 2^23
+// + 8 subtracted.
 //
 // Measured on an H100 80GB HBM3 at 700 W (script/torch_decode_ab.py) at b4
 // h32 hk8 s32768 d128: int8 cache 0.107 ms, bf16 0.185 (SDPA with one query
@@ -144,10 +160,36 @@ __device__ __forceinline__ void lds(const unsigned char* p, uint32_t* w) {
   }
 }
 
-// The CPL elements of a V row a lane owns, as floats.
+// The element type of a 4-bit cache side: two codes a byte, halves of D.
+struct Nib4 {};
+
+template <typename T>
+struct IsNib4 {
+  static constexpr bool value = false;
+};
+template <>
+struct IsNib4<Nib4> {
+  static constexpr bool value = true;
+};
+
+// Bytes of a cache row of D elements.
+template <typename T, int D>
+constexpr int row_bytes() {
+  return IsNib4<T>::value ? D / 2 : D * (int)sizeof(T);
+}
+
+// The CPL elements of a V row a lane owns, as floats. For a 4-bit V, p
+// points at the CPL bytes that hold them and `nib_shift` is 0 for the low
+// nibbles (the first half of D) or 4 for the high ones.
 template <typename VT, int CPL>
-__device__ __forceinline__ void v_cols(const unsigned char* p, float* f) {
-  if constexpr (sizeof(VT) == 1) {
+__device__ __forceinline__ void v_cols(const unsigned char* p, float* f, int nib_shift) {
+  if constexpr (IsNib4<VT>::value) {
+    uint32_t w[1];
+    lds<CPL>(p, w);
+    const uint32_t u = ((w[0] >> nib_shift) & 0x0F0F0F0Fu) ^ 0x08080808u;  // n + 8 a byte
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388616.0f;
+  } else if constexpr (sizeof(VT) == 1) {
     uint32_t w[1];
     lds<CPL>(p, w);
     if constexpr (CPL == 4) {
@@ -170,18 +212,34 @@ __device__ __forceinline__ void v_cols(const unsigned char* p, float* f) {
 
 template <int D, typename KT, typename VT, bool kIntQK>
 struct Cfg {
-  static constexpr int kKRow = D * (int)sizeof(KT);  // bytes of a cache row
-  static constexpr int kVRow = D * (int)sizeof(VT);
+  static constexpr bool kKNib = IsNib4<KT>::value, kVNib = IsNib4<VT>::value;
+  static constexpr int kKRow = row_bytes<KT, D>();  // bytes of a cache row
+  static constexpr int kVRow = row_bytes<VT, D>();
   // Keys per tile: 16 KB of K/V at most (measured faster than 8 KB for the
   // bf16 cache), 16 at least.
   static constexpr int BK = 64 * (kKRow + kVRow) <= 16384 ? 64 : 32 * (kKRow + kVRow) <= 16384 ? 32 : 16;
-  // QK operands: each thread reads E contiguous elements of a K row per
-  // window of 4 E dimensions; MMA products (of 8 operand bytes a row) per window.
-  static constexpr int E = kIntQK && D >= 64 ? 16 : 8;
-  static constexpr int WD = 4 * E;
-  static constexpr int NWIN = D / WD;
-  static constexpr int MMA = kIntQK ? E / 8 : 2;
+  // QK operands: per window of WB bytes of a K row each thread (t = lane &
+  // 3) reads LB contiguous bytes, which give 2 MMA operand words a row: MMA
+  // products per window. An integer-chain word carries 4 dimensions (s8),
+  // a float-chain word 2 (bf16x2); a 4-bit row's LB bytes carry LB low and
+  // LB high nibbles.
+  static constexpr int LB = kIntQK ? (D >= 64 ? (kKNib ? 8 : 16) : (kKNib ? 4 : 8)) : (kKNib ? 4 : 8 * (int)sizeof(KT));
+  static constexpr int WB = 4 * LB;
+  static constexpr int NWIN = kKRow / WB;
+  static constexpr int MMA = kIntQK ? (kKNib ? LB / 4 : LB / 8) : 2;
   static constexpr int CPL = D / 32;  // output columns a lane owns in PV
+  // The first dimension of operand word u of thread t in window w. A 4-bit
+  // row's words hold the low nibbles (dimensions b0 ..) first, then the high
+  // ones (D/2 + b0 ..), b0 the thread's first byte.
+  __device__ static constexpr int qdim(int w, int t, int u) {
+    constexpr int per = kIntQK ? 4 : 2;
+    if constexpr (kKNib) {
+      const int b0 = w * WB + t * LB;
+      return u < MMA ? b0 + per * u : D / 2 + b0 + per * (u - MMA);
+    } else {
+      return (w * WB + t * LB) / (int)sizeof(KT) + per * u;
+    }
+  }
   static constexpr int kKOff = 0;
   static constexpr int kVOff = kKOff + NST * BK * kKRow;
   static constexpr int kKsOff = kVOff + NST * BK * kVRow;  // NST x BK f32 K scales
@@ -197,7 +255,46 @@ struct Cfg {
   // The merge's part weights, (NW + 1) x n_parts f32, reuse the ring.
   static constexpr int kMaxParts = kVOff / ((NW + 1) * 4);
   static_assert(kKRow % 16 == 0 && kVRow % 16 == 0, "bulk copies move 16-byte multiples");
+  static_assert(NWIN * WB == kKRow, "the QK windows cover a K row");
 };
+
+// bf16x2 of the biased nibbles (u = n + 8) in bits 0-3 and 16-19 of t: the
+// pair (128 + u) - 136 = n, exact.
+__device__ __forceinline__ uint32_t nib_pair_to_bf16x2(uint32_t t) {
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"((t & 0x000F000Fu) | 0x43004300u), "r"(0x3F803F80u),
+      "r"(0xC308C308u));  // x * 1.0 - 136.0
+  return r;
+}
+
+// The 2 MMA operand words of one K row that a thread takes for a window, from
+// its LB bytes at p: s8 codes for the integer chain (a 4-bit row's 16 times
+// too large, see the note), exact bf16 pairs for the float chain.
+template <typename KT, bool kIntQK, int LB>
+__device__ __forceinline__ void k_words(const unsigned char* p, uint32_t* w) {
+  if constexpr (IsNib4<KT>::value && kIntQK) {
+    uint32_t x[LB / 4];
+    lds<LB>(p, x);
+#pragma unroll
+    for (int i = 0; i < LB / 4; ++i) w[i] = (x[i] << 4) & 0xF0F0F0F0u, w[LB / 4 + i] = x[i] & 0xF0F0F0F0u;
+  } else if constexpr (IsNib4<KT>::value) {  // LB == 4: one packed word, 4 bf16 pairs
+    uint32_t x[1];
+    lds<4>(p, x);
+    const uint32_t u = x[0] ^ 0x88888888u;
+    const uint32_t t01 = __byte_perm(u, 0, 0x4140), t23 = __byte_perm(u, 0, 0x4342);  // bytes 0, 1 / 2, 3 at bits 0, 16
+    w[0] = nib_pair_to_bf16x2(t01), w[1] = nib_pair_to_bf16x2(t23);
+    w[2] = nib_pair_to_bf16x2(t01 >> 4), w[3] = nib_pair_to_bf16x2(t23 >> 4);
+  } else if constexpr (kIntQK) {
+    lds<LB>(p, w);
+  } else if constexpr (sizeof(KT) == 1) {
+    uint32_t x[2];
+    lds<8>(p, x);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) w[2 * i] = i8x2_to_bf16x2<0>(x[i]), w[2 * i + 1] = i8x2_to_bf16x2<2>(x[i]);
+  } else {
+    lds<16>(p, w);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // The kernel. Grid: (n_splits, Hk * groups, B), groups = (H / Hk) / R.
@@ -211,9 +308,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     float* __restrict__ lse, int H, int Hk, int S, int R, int n_splits, int chunk, int q_bf16, int out_code,
     float sm_scale) {
   using C = Cfg<D, KT, VT, kIntQK>;
-  constexpr int BK = C::BK, E = C::E, WD = C::WD, CPL = C::CPL;
-  constexpr bool kVInt8 = sizeof(VT) == 1;
-  constexpr bool kKInt8 = sizeof(KT) == 1;
+  constexpr int BK = C::BK, CPL = C::CPL;
+  constexpr bool kVQuant = C::kVNib || sizeof(VT) == 1;  // per-token V scales
 
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
@@ -248,7 +344,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + kh * S * C::kKRow;
     const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + kh * S * C::kVRow;
     const float* ksg = k_scale + kh * S;
-    const float* vsg = kVInt8 ? v_scale + kh * S : nullptr;
+    const float* vsg = kVQuant ? v_scale + kh * S : nullptr;
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % NST, key0 = start + j * BK, n = min(BK, end - key0);
       mbar_wait(&empty[st], ((j / NST) & 1) ^ 1);
@@ -259,7 +355,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       }
       for (int i = lane; i < n; i += 32) {
         cp_async4(ks_s + st * BK + i, ksg + key0 + i);
-        if constexpr (kVInt8) cp_async4(vs_s + st * BK + i, vsg + key0 + i);
+        if constexpr (kVQuant) cp_async4(vs_s + st * BK + i, vsg + key0 + i);
       }
       cp_async_mbar_arrive(&full[st]);
     }
@@ -294,34 +390,29 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       }
       named_bar_sync(1, 32 * NW);
     }
-    // B fragments of the query rows (n = g), in the dimension order the K
-    // loads below use: window w, product c covers dims w*WD + t*E + 8c .. + 7
-    // (int8) or + 4c .. + 3 (bf16). f32 queries: three bf16 terms.
+    // B fragments of the query rows (n = g), in the dimension order of the
+    // K operand words (Cfg::qdim): product c of window w takes words 2c and
+    // 2c + 1. f32 queries: three bf16 terms.
     const int nqs = kIntQK || q_bf16 ? 1 : 3;
     uint32_t bq[C::NWIN][C::MMA][kIntQK ? 1 : 3][2];
 #pragma unroll
     for (int w = 0; w < C::NWIN; ++w)
 #pragma unroll
-      for (int c = 0; c < C::MMA; ++c) {
+      for (int u = 0; u < 2 * C::MMA; ++u) {
+        const int d0 = C::qdim(w, t, u);
         if constexpr (kIntQK) {
-          const int d0 = w * WD + t * E + 8 * c;
-          bq[w][c][0][0] = *reinterpret_cast<const uint32_t*>(q8 + g * D + d0);
-          bq[w][c][0][1] = *reinterpret_cast<const uint32_t*>(q8 + g * D + d0 + 4);
+          bq[w][u / 2][0][u % 2] = *reinterpret_cast<const uint32_t*>(q8 + g * D + d0);
         } else {
-          const int d0 = w * WD + t * E + 4 * c;
-          float rem[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) rem[i] = q_f[g * D + d0 + i];
+          float rem[2] = {q_f[g * D + d0], q_f[g * D + d0 + 1]};
 #pragma unroll
           for (int qs = 0; qs < 3; ++qs) {
-            float tr[4];
+            float tr[2];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
+            for (int i = 0; i < 2; ++i) {
               tr[i] = __bfloat162float(__float2bfloat16_rn(rem[i]));
               rem[i] -= tr[i];  // exact
             }
-            bq[w][c][qs][0] = pack_bf16x2(tr[0], tr[1]);
-            bq[w][c][qs][1] = pack_bf16x2(tr[2], tr[3]);
+            bq[w][u / 2][qs][u % 2] = pack_bf16x2(tr[0], tr[1]);
           }
         }
       }
@@ -356,9 +447,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           int c4[4] = {0, 0, 0, 0};
 #pragma unroll
           for (int w = 0; w < C::NWIN; ++w) {
-            uint32_t w0[E / 4], w1[E / 4];
-            lds<E>(r0 + w * WD + t * E, w0);
-            lds<E>(r1 + w * WD + t * E, w1);
+            uint32_t w0[2 * C::MMA], w1[2 * C::MMA];
+            k_words<KT, true, C::LB>(r0 + w * C::WB + t * C::LB, w0);
+            k_words<KT, true, C::LB>(r1 + w * C::WB + t * C::LB, w1);
 #pragma unroll
             for (int c = 0; c < C::MMA; ++c)
               mma_s8(c4, w0[2 * c], w1[2 * c], w0[2 * c + 1], w1[2 * c + 1], bq[w][c][0][0], bq[w][c][0][1]);
@@ -370,20 +461,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 #pragma unroll
           for (int w = 0; w < C::NWIN; ++w) {
             uint32_t w0[4], w1[4];  // 8 elements of each row as bf16x2
-            const int off = (w * WD + t * E) * (int)sizeof(KT);
-            if constexpr (kKInt8) {
-              uint32_t x0[2], x1[2];
-              lds<8>(r0 + off, x0);
-              lds<8>(r1 + off, x1);
-#pragma unroll
-              for (int i = 0; i < 2; ++i) {
-                w0[2 * i] = i8x2_to_bf16x2<0>(x0[i]), w0[2 * i + 1] = i8x2_to_bf16x2<2>(x0[i]);
-                w1[2 * i] = i8x2_to_bf16x2<0>(x1[i]), w1[2 * i + 1] = i8x2_to_bf16x2<2>(x1[i]);
-              }
-            } else {
-              lds<16>(r0 + off, w0);
-              lds<16>(r1 + off, w1);
-            }
+            k_words<KT, false, C::LB>(r0 + w * C::WB + t * C::LB, w0);
+            k_words<KT, false, C::LB>(r1 + w * C::WB + t * C::LB, w1);
 #pragma unroll
             for (int c = 0; c < 2; ++c)
 #pragma unroll
@@ -393,6 +472,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           }
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[mt][e] = c4[e];
+        }
+        if constexpr (C::kKNib && kIntQK) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][e] *= 0.0625f;  // the codes came as 16 n: exact
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -437,7 +520,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
         for (int hf = 0; hf < 2; ++hf) {
           const int kl = mt * 16 + g + 8 * hf;
           float p0 = s[mt][2 * hf], p1 = s[mt][2 * hf + 1];
-          if constexpr (kVInt8) {
+          if constexpr (kVQuant) {
             const float vsc = vs_t[kl];
             p0 = __fmul_rn(p0, vsc);
             p1 = __fmul_rn(p1, vsc);
@@ -456,10 +539,13 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           for (int c = 0; c < CPL; ++c) acc[r][c] *= a;
         }
       }
-      const unsigned char* vcol = Vt + lane * CPL * (int)sizeof(VT);
+      // A 4-bit V: lanes 0-15 take the low nibbles (columns lane * CPL ..),
+      // lanes 16-31 the high ones of the same bytes.
+      const unsigned char* vcol = Vt + (C::kVNib ? (lane & 15) * CPL : lane * CPL * (int)sizeof(VT));
+      const int nib_shift = lane >= 16 ? 4 : 0;
       auto pv_key = [&](int kl) {
         float vf[CPL];
-        v_cols<VT, CPL>(vcol + kl * C::kVRow, vf);
+        v_cols<VT, CPL>(vcol + kl * C::kVRow, vf, nib_shift);
         const float4 pa = *reinterpret_cast<const float4*>(p_s + kl * RMAX);
         const float4 pb = R > 4 ? *reinterpret_cast<const float4*>(p_s + kl * RMAX + 4) : make_float4(0, 0, 0, 0);
         const float p[RMAX] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
@@ -604,27 +690,34 @@ struct Occupancy {
   }
 };
 
-// Runs op.run<D, KT, VT, kIntQK>() for the variant the flags name.
+// Runs op.run<D, KT, VT, kIntQK>() for the variant the bit widths name
+// (16: bf16 rows, 8: int8 codes, 4: packed 4-bit codes).
 template <int D, typename KT, bool kIntQK, typename Op>
-int with_v(const Op& op, int v_int8) {
-  if (v_int8) return op.template run<D, KT, int8_t, kIntQK>();
-  return op.template run<D, KT, __nv_bfloat16, kIntQK>();
+int with_v(const Op& op, int v_bits) {
+  switch (v_bits) {
+    case 8: return op.template run<D, KT, int8_t, kIntQK>();
+    case 4: return op.template run<D, KT, Nib4, kIntQK>();
+    case 16: return op.template run<D, KT, __nv_bfloat16, kIntQK>();
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int D, typename Op>
-int with_k(const Op& op, int k_int8, int v_int8, int int_qk) {
-  if (k_int8 && int_qk) return with_v<D, int8_t, true>(op, v_int8);
-  if (k_int8) return with_v<D, int8_t, false>(op, v_int8);
-  if (int_qk) return (int)cudaErrorInvalidValue;
-  return with_v<D, __nv_bfloat16, false>(op, v_int8);
+int with_k(const Op& op, int k_bits, int v_bits, int int_qk) {
+  switch (k_bits) {
+    case 8: return int_qk ? with_v<D, int8_t, true>(op, v_bits) : with_v<D, int8_t, false>(op, v_bits);
+    case 4: return int_qk ? with_v<D, Nib4, true>(op, v_bits) : with_v<D, Nib4, false>(op, v_bits);
+    case 16: return int_qk ? (int)cudaErrorInvalidValue : with_v<D, __nv_bfloat16, false>(op, v_bits);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename Op>
-int with_variant(const Op& op, int D, int k_int8, int v_int8, int int_qk) {
+int with_variant(const Op& op, int D, int k_bits, int v_bits, int int_qk) {
   switch (D) {
-    case 32: return with_k<32>(op, k_int8, v_int8, int_qk);
-    case 64: return with_k<64>(op, k_int8, v_int8, int_qk);
-    case 128: return with_k<128>(op, k_int8, v_int8, int_qk);
+    case 32: return with_k<32>(op, k_bits, v_bits, int_qk);
+    case 64: return with_k<64>(op, k_bits, v_bits, int_qk);
+    case 128: return with_k<128>(op, k_bits, v_bits, int_qk);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -633,8 +726,9 @@ int with_variant(const Op& op, int D, int k_int8, int v_int8, int int_qk) {
 
 // All tensors contiguous, natural layout.
 //   q: [B, H, D] f32 (q_bf16 0) or bf16 (1).   k, v: [B, Hk, S, D] int8
-//   codes (k_int8 / v_int8) or bf16, 16-byte aligned.   k_scale: [B, Hk, S]
-//   f32.   v_scale: [B, Hk, S] f32 (int8 V only, else null).   lengths: [B]
+//   codes (k_bits / v_bits 8), [B, Hk, S, D/2] packed 4-bit codes (4) or
+//   bf16 (16), 16-byte aligned.   k_scale: [B, Hk, S] f32.   v_scale:
+//   [B, Hk, S] f32 (quantized V only, else null).   lengths: [B]
 //   int32 on the device.   part_acc: [B, H, 4 n_splits, D] f32 and part_ml:
 //   [B, H, 4 n_splits, 2] f32 scratch.   tickets: [B, Hk * (H / Hk) / R]
 //   int32, zero before the launch and left zero after it (calls that share
@@ -647,19 +741,19 @@ int with_variant(const Op& op, int D, int k_int8, int v_int8, int int_qk) {
 extern "C" int lowbit_decode_attn(const void* q, const void* k, const void* v, const float* k_scale,
                                   const float* v_scale, const int* lengths, float* part_acc, float* part_ml,
                                   int* tickets, void* o, float* lse, int B, int H, int Hk, int S, int D, int R,
-                                  int k_int8, int v_int8, int int_qk, int q_bf16, int out_code, int n_splits,
+                                  int k_bits, int v_bits, int int_qk, int q_bf16, int out_code, int n_splits,
                                   int chunk, float sm_scale, void* stream) {
   if (R < 1 || R > RMAX || (H / Hk) % R || chunk % 64 || out_code < 0 || out_code > 2 || n_splits < 1)
     return (int)cudaErrorInvalidValue;
   const Launch launch{q,    k_scale, v_scale, k,        v,     lengths, part_acc,  part_ml,
                       tickets, o,    lse,     B,        H,     Hk,      S,         R,
                       n_splits, chunk, q_bf16, out_code, sm_scale, static_cast<cudaStream_t>(stream)};
-  return with_variant(launch, D, k_int8, v_int8, int_qk);
+  return with_variant(launch, D, k_bits, v_bits, int_qk);
 }
 
-// How many CTAs of the variant (D, k_int8, v_int8, int_qk) one SM of the
+// How many CTAs of the variant (D, k_bits, v_bits, int_qk) one SM of the
 // current device holds at once, into *ctas_per_sm. Returns a cudaError_t.
 // Host-side only: it does not touch the stream.
-extern "C" int lowbit_decode_ctas_per_sm(int D, int k_int8, int v_int8, int int_qk, int* ctas_per_sm) {
-  return with_variant(Occupancy{ctas_per_sm}, D, k_int8, v_int8, int_qk);
+extern "C" int lowbit_decode_ctas_per_sm(int D, int k_bits, int v_bits, int int_qk, int* ctas_per_sm) {
+  return with_variant(Occupancy{ctas_per_sm}, D, k_bits, v_bits, int_qk);
 }

@@ -1,6 +1,6 @@
 """GQA transformer LM on the low-bit stack: causal INT8 prefill (kernels C1
-and A) -> quantized KV cache -> split-KV decode (kernel D), with dense or
-packed weights (kernels F1/F2).
+and A), one-shot or in chunks -> quantized KV cache -> split-KV decode
+(kernel D), with dense or packed weights (kernels F1/F2).
 
 Counterpart of ``lowbit_quant_fa2_paddle_tpu/models/llm.py`` as an
 ``nn.Module``. Blocks hold bias-free ``wq``/``wk``/``wv``/``wo``/``w1``/``w2``
@@ -9,17 +9,26 @@ and RMS norms ``ln1``/``ln2``; the model holds ``embed`` (tied with the
 output projection) and ``ln_f``. Everything runs without autograd. Models
 are built on the CUDA card unless the caller passes another ``device``.
 
-Cache precision per side is ``kv_bits``/``k_bits``/``v_bits`` in {16, 8}
-(bf16 rows or int8 codes). ``w_bits`` is accepted and, as in JAX, read by
-nothing: :func:`quantize_llm_params` packs the weights. Not ported yet, each
-raising ``NotImplementedError``: 4-bit caches, ``window_size``/``sink_size``,
-chunked prefill and speculative decoding (ROADMAP item 7).
+Cache precision per side is ``kv_bits``/``k_bits``/``v_bits`` in {16, 8, 4}
+(bf16 rows, int8 codes or nibble-packed 4-bit codes; ``k_bits=4, v_bits=8``
+is the KIVI-style k4v8 cache of the JAX package's 128K point). ``w_bits`` is
+accepted and, as in JAX, read by nothing: :func:`quantize_llm_params` packs
+the weights.
+
+Long prompts prefill in chunks (:func:`llm_prefill_chunked`) at bounded
+activation memory. On the card :func:`decode_tokens` runs its steps as one
+captured CUDA graph, replayed once a token (the JAX package's jitted
+``lax.scan``); CPU tensors take a Python loop over the plain versions.
+
+Not ported yet, each raising ``NotImplementedError``: ``window_size``/
+``sink_size`` (ROADMAP Queue 1, item 2e) and speculative decoding (item 2d).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Any, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -28,9 +37,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from lowbit_quant_fa2_paddle_tpu_torch.core import lowbit_fa_qk_int8_pv_fp16
+from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd, fused_kv, gemv
 from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as dec
+from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as quant_ops
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import _not_ported, flash_attention_fp, lowbit_attention
 from lowbit_quant_fa2_paddle_tpu_torch.ops.gemv import WQWeight
-from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import _not_ported
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
 
 
@@ -53,7 +64,7 @@ class LLMConfig:
 
     def __post_init__(self):
         if self.window_size is not None or self.sink_size:
-            raise _not_ported("sliding-window / sink LLM", "7")
+            raise _not_ported("sliding-window / sink LLM", "2e")
         dec._check_bits(self.eff_k_bits, self.eff_v_bits)
 
     @property
@@ -220,7 +231,9 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     """x: [B, H, S, D]; positions: [B, S] (may live on the device)."""
     d = x.shape[-1]
     exponent = -torch.arange(0, d // 2, dtype=torch.float32, device=x.device) / (d // 2)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    # theta as a scalar base (f32 pow, as a 0-d f32 tensor gives): no host
+    # tensor is copied to the card, so a CUDA graph can capture this.
+    freqs = torch.pow(float(theta), exponent)
     ang = positions.float()[:, None, :, None] * freqs  # [B, 1, S, D/2]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., : d // 2], x[..., d // 2 :]
@@ -300,6 +313,105 @@ def merge_lse(o1: torch.Tensor, l1: torch.Tensor, o2: torch.Tensor, l2: torch.Te
     return o.to(o1.dtype)
 
 
+def _dequant_cache_rows(codes: torch.Tensor, scale: torch.Tensor, bits: int, dtype: torch.dtype) -> torch.Tensor:
+    """Per-token cache codes ``[.., S, Dc]`` -> values ``[.., S, D]`` in
+    ``dtype`` (``Dc = D/2`` at 4 bits, halves of D)."""
+    if bits == 16:
+        return codes.to(dtype)
+    vals = dec._unpack4_cols(codes) if bits == 4 else codes
+    # One pass over the (strided) rows: the f32 product rounded once to
+    # ``dtype``, the same bits as ``(vals.float() * scale).to(dtype)``.
+    return torch.mul(vals, scale[..., None], out=torch.empty(vals.shape, dtype=dtype, device=vals.device))
+
+
+@torch.no_grad()
+def llm_prefill_chunked(
+    params: LLM,
+    tokens: torch.Tensor,  # [B, S]
+    cfg: LLMConfig,
+    *,
+    chunk: int = 4096,
+) -> Tuple[torch.Tensor, List[dict]]:
+    """Prompt prefill in chunks of ``chunk`` tokens at bounded activation
+    memory (a b4 128K prompt at dim 4096 prefills on one card; the one-shot
+    prefill's activations would not fit). Per chunk and layer: causal
+    attention within the chunk (K quantized per token by kernel C1, then
+    kernel A with Q quantized in the kernel), and, past the first chunk,
+    attention over the cache's first ``c0`` rows as they are stored (int8 K
+    codes, packed 4-bit K codes or bf16 K into kernel A; V dequantized to
+    bf16), the two merged through their base-2 LSEs (:func:`merge_lse`);
+    then the chunk's K/V rows are quantized into the cache.
+
+    The attention path quantizes K per chunk, not over the whole sequence
+    as the one-shot prefill does, so the cache values follow
+    :func:`llm_prefill`'s to cos > 0.999 (0.99 with 4-bit K) and the
+    last-token logits to cos > 0.999 (0.995), as in JAX. Returns
+    ``(last-token logits [B, vocab], caches)``."""
+    b, s = tokens.shape
+    if s > cfg.max_seq:
+        raise ValueError(f"a {s}-token prompt does not fit max_seq {cfg.max_seq}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    caches = [dec.init_kv_cache(b, cfg.num_kv_heads, cfg.max_seq, cfg.head_dim, k_bits=cfg.eff_k_bits,
+                                v_bits=cfg.eff_v_bits, device=tokens.device) for _ in params.blocks]
+    x = None
+    for c0 in range(0, s, chunk):
+        x = _prefill_chunk(params, tokens[:, c0 : c0 + chunk], caches, c0, cfg)
+    return params.logits(x[:, -1]), caches
+
+
+def _attend_cache(q: torch.Tensor, cache: dict, c0: int, cfg: LLMConfig):
+    """Non-causal attention of a chunk's queries over the cache's first
+    ``c0`` rows, with its base-2 LSE: kernel A on the int8 or packed 4-bit K
+    codes with their scales (Q quantized in the kernel), or in bf16 for a
+    bf16 K; V dequantized to bf16. The row slices are strided views of the
+    ``S_max``-row cache, which kernel A copies contiguous."""
+    kb, vb = cfg.eff_k_bits, cfg.eff_v_bits
+    v_pre = _dequant_cache_rows(cache["v"][:, :, :c0], cache["v_scale"][:, :, :c0], vb, torch.bfloat16)
+    k_pre = cache["k"][:, :, :c0]
+    if kb == 16:
+        return flash_attention_fp(q, k_pre, v_pre, return_lse=True)
+    pack = kb
+    if kb == 4 and cfg.head_dim % 64:
+        # Kernel A takes packed K at head_dim 64 or 128 only; the unpacked
+        # codes are the same values in its int8 mode.
+        k_pre, pack = quant_ops.unpack_int4(k_pre), 8
+    return lowbit_attention(q, k_pre, v_pre, k_scale=cache["k_scale"][:, :, :c0], k_pack_bits=pack,
+                            return_lse=True)
+
+
+def _prefill_chunk(params: LLM, toks: torch.Tensor, caches: List[dict], c0: int, cfg: LLMConfig) -> torch.Tensor:
+    """One chunk of :func:`llm_prefill_chunked` at positions ``c0 ..``:
+    writes its rows into every layer's cache (in place) and returns the
+    last layer's activations ``[B, sc, dim]``."""
+    b, sc = toks.shape
+    x = params.embed(toks)
+    pos = (c0 + torch.arange(sc, device=toks.device)).expand(b, sc)
+    for blk, cache in zip(params.blocks, caches):
+        q, k, v = _qkv(blk, x, cfg)
+        q = _rope(q, pos, cfg.rope_theta)
+        k = _rope(k, pos, cfg.rope_theta)
+        kc, ksc = quant_ops.quant_int8(k, gran="per_token")
+        o, lse = lowbit_attention(q, kc, v.to(torch.bfloat16), k_scale=ksc, is_causal=True, return_lse=True)
+        del kc, ksc
+        if c0 > 0:
+            o_pre, lse_pre = _attend_cache(q, cache, c0, cfg)
+            o = merge_lse(o_pre, lse_pre, o, lse)
+            del o_pre, lse_pre
+        x = x + _mm(o.transpose(1, 2).reshape(b, sc, -1).to(x.dtype), blk.wo)
+        del q, o, lse
+        x = _mlp(blk, x)
+        kq, ks = dec.quantize_token(k, bits=cfg.eff_k_bits)
+        vq, vs = dec.quantize_token(v, bits=cfg.eff_v_bits)
+        cache["k"][:, :, c0 : c0 + sc] = kq
+        cache["v"][:, :, c0 : c0 + sc] = vq
+        cache["k_scale"][:, :, c0 : c0 + sc] = ks
+        cache["v_scale"][:, :, c0 : c0 + sc] = vs
+        cache["length"].fill_(c0 + sc)
+        del k, v, kq, vq
+    return x
+
+
 @torch.no_grad()
 def llm_decode_step(
     params: LLM,
@@ -330,6 +442,105 @@ def llm_decode_step(
     return params.logits(x[:, 0]), new_caches
 
 
+def _counted_wrappers() -> tuple:
+    """Every kernel wrapper that counts its launches."""
+    return (quant_ops.quant_int8, quant_ops.quant_int4, quant_ops.quant_int2, lowbit_attention,
+            dec.decode_attention, gemv.wq_matmul_per_channel, gemv.wq_matmul_fused,
+            fused_kv.fused_packed_kv_attention, attention_bwd.attention_bwd_dq, attention_bwd.attention_bwd_dkv)
+
+
+def _launch_counts() -> dict:
+    """The launch counters, in all (key None) and per design."""
+    out = {}
+    for w in _counted_wrappers():
+        out[(w, None)] = w.launches
+        for design, n in getattr(w, "launches_by_design", {}).items():
+            out[(w, design)] = n
+    return out
+
+
+def _add_launch_counts(counts: dict, times: int = 1) -> None:
+    for (w, design), n in counts.items():
+        if design is None:
+            w.launches += n * times
+        else:
+            w.launches_by_design[design] += n * times
+
+
+def _graph_step(params: LLM, tok: torch.Tensor, caches: List[dict], cfg: LLMConfig) -> None:
+    """One greedy step in place: ``tok`` becomes the argmax successor and
+    every cache's ``length`` buffer advances by one (as its rows do)."""
+    logits, new = llm_decode_step(params, tok, caches, cfg)
+    tok.copy_(torch.argmax(logits, dim=-1))
+    for cache, nc in zip(caches, new):
+        cache["length"].copy_(nc["length"])
+
+
+class _DecodeGraph:
+    """A captured decode step: what it was captured for (``key``; the model
+    by weak reference), its token buffer and the launches one replay makes,
+    per counter."""
+
+    def __init__(self, key: tuple, params: LLM, graph: "torch.cuda.CUDAGraph", tok: torch.Tensor, launches: dict):
+        self.key, self.params, self.graph, self.tok, self.launches = key, weakref.ref(params), graph, tok, launches
+
+
+#: The most recently captured decode step (its pool holds the step's
+#: intermediate buffers, not the model or the caches). A further
+#: :func:`decode_tokens` call on the same model, config and cache tensors
+#: replays it; any other call releases it before capturing its own.
+_last_graph: Optional[_DecodeGraph] = None
+_CACHE_KEYS = ("k", "v", "k_scale", "v_scale", "length")
+
+
+def _graph_key(params: LLM, caches: List[dict], cfg: LLMConfig, token: torch.Tensor) -> tuple:
+    tensors = tuple((t.data_ptr(), tuple(t.shape), t.dtype) for c in caches for t in (c[k] for k in _CACHE_KEYS))
+    return (id(params), cfg, tuple(token.shape), token.device, tensors)
+
+
+def _decode_tokens_graph(params, token, caches, n, cfg):
+    """:func:`decode_tokens` on the card: the step (``_graph_step``) is
+    captured once per (model, config, cache tensors) and replayed once a
+    token. A new capture runs the first step eagerly on a side stream
+    before capturing, so the kernels are built and every lazily made buffer
+    (kernel D's tickets, F1/F2's merge tickets, the occupancy query, cuBLAS'
+    workspace) exists before the capture. A failed capture raises."""
+    global _last_graph
+    dev = token.device
+    out = torch.empty((token.shape[0], n), dtype=torch.int32, device=dev)
+    key = _graph_key(params, caches, cfg, token)
+    entry = _last_graph
+    first = 0
+    if entry is None or entry.key != key or entry.params() is not params:
+        _last_graph = entry = None
+        tok = token.to(torch.int32).clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _graph_step(params, tok, caches, cfg)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        out[:, 0].copy_(tok)
+        first = 1
+        if n == 1:
+            return out, caches
+        graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        with torch.cuda.graph(graph):
+            _graph_step(params, tok, caches, cfg)
+        after = _launch_counts()
+        # The capture recorded the launches; none ran. Each replay runs them.
+        launches = {k: after[k] - before[k] for k in after}
+        _add_launch_counts(launches, -1)
+        _last_graph = entry = _DecodeGraph(key, params, graph, tok, launches)
+    else:
+        entry.tok.copy_(token)
+    for i in range(first, n):
+        entry.graph.replay()
+        _add_launch_counts(entry.launches)
+        out[:, i].copy_(entry.tok)
+    return out, caches
+
+
 @torch.no_grad()
 def decode_tokens(
     params: LLM,
@@ -338,18 +549,27 @@ def decode_tokens(
     n: int,
     cfg: LLMConfig,
 ) -> Tuple[torch.Tensor, List[dict]]:
-    """Greedy-decode ``n`` tokens: a Python loop of :func:`llm_decode_step`
-    with the argmax kept on the device, so no step waits for the host (the
-    JAX package's ``lax.scan``; a CUDA graph of the loop is later work).
-    Returns ``(tokens [B, n] int32, caches)``; the same as looping
-    :func:`llm_decode_step` by hand."""
-    tok = token.to(torch.int32)
-    out = []
-    for _ in range(n):
-        logits, caches = llm_decode_step(params, tok, caches, cfg)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        out.append(tok)
-    return torch.stack(out, dim=1), caches
+    """Greedy-decode ``n`` tokens with the argmax kept on the device, so no
+    step waits for the host. Returns ``(tokens [B, n] int32, caches)``; the
+    same tokens and cache contents as looping :func:`llm_decode_step` by
+    hand. The given caches advance in place, their ``length`` buffers
+    included, and come back as they are.
+
+    On the card the steps run as one captured CUDA graph of
+    :func:`llm_decode_step` and the argmax, replayed once a token (the JAX
+    package's jitted ``lax.scan``); a second call on the same caches
+    replays the same graph. CPU tensors run the same step in a Python loop
+    over the plain versions."""
+    if n < 1:
+        return torch.empty((token.shape[0], 0), dtype=torch.int32, device=token.device), caches
+    if token.device.type == "cuda":
+        return _decode_tokens_graph(params, token, caches, n, cfg)
+    tok = token.to(torch.int32).clone()
+    out = torch.empty((token.shape[0], n), dtype=torch.int32)
+    for i in range(n):
+        _graph_step(params, tok, caches, cfg)
+        out[:, i] = tok
+    return out, caches
 
 
 @torch.no_grad()
@@ -361,8 +581,8 @@ def generate(
     *,
     attn_impl: str = "int8",
 ) -> torch.Tensor:
-    """Greedy generation: prefill, then :func:`decode_tokens`. Returns
-    ``[B, n_new]`` int32 tokens."""
+    """Greedy generation: prefill, then :func:`decode_tokens` (one CUDA graph
+    of the step on the card). Returns ``[B, n_new]`` int32 tokens."""
     logits, caches = llm_prefill(params, prompt, cfg, attn_impl=attn_impl)
     token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     del logits
@@ -378,13 +598,9 @@ def rollback_caches(caches: List[dict], lengths: torch.Tensor) -> List[dict]:
     return [{**c, "length": lengths} for c in caches]
 
 
-def llm_prefill_chunked(*args, **kwargs):
-    raise _not_ported("llm_prefill_chunked (chunked prefill with LSE merge)", "7")
-
-
 def llm_verify_step(*args, **kwargs):
-    raise _not_ported("llm_verify_step (multi-token verify)", "7")
+    raise _not_ported("llm_verify_step (multi-token verify)", "2d")
 
 
 def speculative_generate(*args, **kwargs):
-    raise _not_ported("speculative_generate", "7")
+    raise _not_ported("speculative_generate", "2d")

@@ -3,9 +3,11 @@ the cache ops.
 
 PyTorch/CUDA counterpart of ``lowbit_quant_fa2_paddle_tpu/ops/decode.py``.
 The cache is a dict of tensors with the JAX package's keys: ``k``/``v``
-``[B, Hk, S_max, D]`` (int8 codes, or bf16 rows for 16 bits), ``k_scale``/
+``[B, Hk, S_max, D]`` (int8 codes for 8 bits, bf16 rows for 16) or
+``[B, Hk, S_max, D/2]`` (4 bits: two codes a byte, halves of D), ``k_scale``/
 ``v_scale`` ``[B, Hk, S_max]`` f32 per-token scales (ones for 16 bits) and
-``length`` int32 ``[B]``, which stays on the device.
+``length`` int32 ``[B]``, which stays on the device. Each side has its own
+width, so the KIVI-style k4v8 mix (4-bit K, int8 V) is one cache.
 
 ``decode_attention`` takes the plain PyTorch version below for tensors on
 the CPU and launches ``csrc/decode_attention.cu`` for CUDA tensors (one
@@ -16,14 +18,15 @@ in f32); nothing falls back.
 
 Semantics of one query token per sequence, as the TPU kernel computes them:
 
-* int8 K (``compute_mode`` "auto"/"int_qk"): each query row is quantized,
-  ``qa = fma(max|q|, 1/127, 1e-7)``, ``q8 = round_away(q / qa)``; the
-  integer dot with the K codes is exact; ``s = sI·(qa·sm_scale)·ks·log2e``;
-* float chain (bf16 K, or ``compute_mode="f32"``): ``s = (q·k)·sm_scale·ks
-  ·log2e`` in f32;
+* integer chain (int8 K with ``compute_mode`` "auto" or "int_qk", 4-bit K
+  with "int_qk"): each query row is quantized, ``qa = fma(max|q|, 1/127,
+  1e-7)``, ``q8 = round_away(q / qa)``; the integer dot with the K codes is
+  exact; ``s = sI·(qa·sm_scale)·ks·log2e``;
+* float chain (bf16 K, 4-bit K by default, or ``compute_mode="f32"``):
+  ``s = (q·k)·sm_scale·ks·log2e`` in f32;
 * keys at ``pos >= length`` get ``-0.7·FLT_MAX``; softmax in base 2 with f32
-  P (not rounded to bf16, unlike kernel A); an int8 V scale is folded into
-  P after ``l`` is summed; PV in f32;
+  P (not rounded to bf16, unlike kernel A); a quantized V's scale is folded
+  into P after ``l`` is summed; PV in f32;
 * ``o = acc / l`` in ``q.dtype``, base-2 LSE ``m + log2 l``; a row with no
   visible key gives ``o = 0`` and ``lse = -1e30``.
 """
@@ -39,7 +42,15 @@ import torch
 
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, MASK_VALUE, NEG_INIT, _not_ported
-from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import absmax_scale, cdiv, quant_codes
+from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import (
+    INT4_QMAX,
+    INT8_QMAX,
+    absmax_scale,
+    cdiv,
+    pack_codes,
+    quant_codes,
+    unpack_int4,
+)
 
 #: Keys a split of kernel D is a whole multiple of (its tiles hold 64, 32
 #: or 16 keys: ``BK`` in csrc/decode_attention.cu).
@@ -53,7 +64,8 @@ WAVES = 1
 MAX_SPLITS = 64
 #: Consumer warps per CTA of kernel D; each leaves one partial state per split.
 WARPS = 4
-#: Designs of kernel D: one, for every mode (int8/bf16 K and V, d32/64/128).
+#: Designs of kernel D: one, for every mode (int8/4-bit/bf16 K and V, both
+#: QK chains, d32/64/128).
 DESIGNS = ("bulk_ring",)
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -65,10 +77,14 @@ _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check_bits(k_bits: int, v_bits: int) -> None:
-    if 4 in (k_bits, v_bits):
-        raise _not_ported("4-bit KV caches (kv_bits=4, k4v8)", "7")
-    if k_bits not in (16, 8) or v_bits not in (16, 8):
-        raise ValueError(f"cache bits must be 16 or 8, got k_bits={k_bits} v_bits={v_bits}")
+    if k_bits not in (16, 8, 4) or v_bits not in (16, 8, 4):
+        raise ValueError(f"cache bits must be 16, 8 or 4, got k_bits={k_bits} v_bits={v_bits}")
+
+
+def _unpack4_cols(packed: torch.Tensor) -> torch.Tensor:
+    """Nibble-packed ``[..., D/2]`` int8 -> ``[..., D]`` f32 codes (halves of
+    D: byte i holds column i low and column i + D/2 high)."""
+    return unpack_int4(packed).float()
 
 
 def init_kv_cache(
@@ -76,15 +92,17 @@ def init_kv_cache(
     k_bits: Optional[int] = None, v_bits: Optional[int] = None, device="cuda",
 ) -> dict:
     """Contiguous KV cache with per-token scales: int8 codes for 8 bits,
-    bf16 rows for 16 (scales stay ones), on the CUDA card unless ``device``
-    says otherwise. ``k_bits``/``v_bits`` override ``bits`` per side."""
+    nibble-packed ``[.., D/2]`` int8 for 4, bf16 rows for 16 (scales stay
+    ones), on the CUDA card unless ``device`` says otherwise.
+    ``k_bits``/``v_bits`` override ``bits`` per side (k4v8: ``k_bits=4``,
+    ``v_bits=8``)."""
     k_bits = bits if k_bits is None else k_bits
     v_bits = bits if v_bits is None else v_bits
     _check_bits(k_bits, v_bits)
 
     def buf(nbits):
         dtype = torch.bfloat16 if nbits == 16 else torch.int8
-        return torch.zeros((b, hk, s_max, d), dtype=dtype, device=device)
+        return torch.zeros((b, hk, s_max, d // 2 if nbits == 4 else d), dtype=dtype, device=device)
 
     return {
         "k": buf(k_bits),
@@ -98,14 +116,18 @@ def init_kv_cache(
 def quantize_token(x: torch.Tensor, *, bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric quantization over the last dim (new-token K/V rows
     ``[B, Hk, D]``, or whole prefill K/V ``[B, Hk, S, D]``): int8 codes and
-    f32 scales ``amax/127 + 1e-7`` (the fma form XLA compiles). ``bits=16``
-    keeps bf16 rows with unit scales."""
+    f32 scales ``amax/qmax + 1e-7`` (the fma form XLA compiles; qmax 127, or
+    7 for ``bits=4``), codes rounded half away from zero and clipped to
+    ±qmax. ``bits=4`` packs the codes two a byte in halves of D (``[.., D/2]``:
+    ``codes[:D/2] & 0xF | codes[D/2:] << 4``). ``bits=16`` keeps bf16 rows
+    with unit scales."""
     if bits == 16:
         return x.to(torch.bfloat16), torch.ones(x.shape[:-1], dtype=torch.float32, device=x.device)
     _check_bits(bits, bits)
     xf = x.float()
-    scale = absmax_scale(xf.abs().amax(dim=-1, keepdim=True))
-    return quant_codes(xf, scale), scale[..., 0]
+    scale = absmax_scale(xf.abs().amax(dim=-1, keepdim=True), bits)
+    codes = quant_codes(xf, scale, INT4_QMAX if bits == 4 else INT8_QMAX)
+    return pack_codes(codes, bits), scale[..., 0]
 
 
 def cache_bits(buf: torch.Tensor, new_row: torch.Tensor) -> int:
@@ -139,7 +161,7 @@ def append_kv(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
 
 
 def append_kv_multi(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
-    raise _not_ported("append_kv_multi (speculative verify)", "7")
+    raise _not_ported("append_kv_multi (speculative verify)", "2d")
 
 
 # ---------------------------------------------------------------------------
@@ -160,17 +182,20 @@ def decode_attention_plain(
     out_dtype: torch.dtype,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel D on its own inputs: ``q [B,H,D]``,
-    contiguous ``k``/``v [B,Hk,S,D]``, ``k_scale [B,Hk,S]``, ``v_scale``
-    (int8 V only), ``lengths [B]``. One softmax over the whole cache in
-    closed form; the kernel and the TPU kernel run it online over tiles, so
-    they differ only in summation order. Returns ``(o [B,H,D], lse2 [B,H])``.
+    contiguous ``k``/``v [B,Hk,S,D]`` (``[B,Hk,S,D/2]`` for a 4-bit side,
+    read from its width as ``cache_bits`` does), ``k_scale [B,Hk,S]``,
+    ``v_scale`` (quantized V only), ``lengths [B]``. One softmax over the
+    whole cache in closed form; the kernel and the TPU kernel run it online
+    over tiles, so they differ only in summation order. Returns
+    ``(o [B,H,D], lse2 [B,H])``.
     """
     b, h, d = q.shape
     hk, s_max = k.shape[1], k.shape[2]
     dev = q.device
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    values = lambda x: _unpack4_cols(x) if cache_bits(x, q) == 4 else x.float()  # noqa: E731
     qg = q.float().reshape(b, hk, h // hk, d)
-    kt = k.float().transpose(-1, -2)
+    kt = values(k).transpose(-1, -2)
     if int_qk:
         qa = absmax_scale(qg.abs().amax(dim=-1, keepdim=True))
         # Integer-valued f32 products: exact while |sum| < 2^24 (127·127·D).
@@ -187,7 +212,7 @@ def decode_attention_plain(
     if v.dtype == torch.int8:
         p = p * v_scale.float()[:, :, None, :]
     # Rows past the length are zeros here, as the kernel never loads them.
-    vf = v.float().masked_fill(~valid[:, None, :, None], 0.0)
+    vf = values(v).masked_fill(~valid[:, None, :, None], 0.0)
     empty = l == 0.0
     ls = torch.where(empty, torch.ones_like(l), l)
     o = (p @ vf) / ls
@@ -196,13 +221,14 @@ def decode_attention_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_ctas(device_index: int, d: int, k_int8: bool, v_int8: bool, int_qk: bool) -> int:
-    """CTAs of this split-pass variant the whole card holds at once: the
-    kernel's occupancy per SM (a host-side query) times the SM count."""
+def _resident_ctas(device_index: int, d: int, k_bits: int, v_bits: int, int_qk: bool) -> int:
+    """CTAs of this split-pass variant (cache bits 16, 8 or 4 a side) the
+    whole card holds at once: the kernel's occupancy per SM (a host-side
+    query) times the SM count."""
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = _build.library().lowbit_decode_ctas_per_sm(
-            d, int(k_int8), int(v_int8), int(int_qk), ctypes.byref(per_sm)
+            d, int(k_bits), int(v_bits), int(int_qk), ctypes.byref(per_sm)
         )
     _build.check(err, "decode_attention occupancy")
     return max(1, per_sm.value) * torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -229,10 +255,11 @@ def rows_per_cta(group: int) -> int:
 
 
 def kernel_design(k_int8: bool = True, v_int8: bool = True, int_qk: bool = True) -> str:
-    """Which design of kernel D runs a mode: ``"bulk_ring"`` for every
-    cache type and QK chain. The choice is static, by mode."""
+    """Which design of kernel D runs a mode (``k_int8``/``v_int8``: the side
+    holds int8 or packed 4-bit codes): ``"bulk_ring"`` for every cache type
+    and QK chain. The choice is static, by mode."""
     if int_qk and not k_int8:
-        raise ValueError("the integer QK chain needs an int8 K cache")
+        raise ValueError("the integer QK chain needs an int8 K cache (int8 or packed 4-bit codes)")
     return "bulk_ring"
 
 
@@ -254,11 +281,11 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
     b, h, d = q.shape
     hk, s_max = k.shape[1], k.shape[2]
     if d not in (32, 64, 128):
-        raise _not_ported(f"decode head_dim {d} (kernel D takes 32, 64, 128)", "7")
+        raise _not_ported(f"decode head_dim {d} (kernel D takes 32, 64, 128)", "2d")
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"decode output dtype must be f32/bf16/f16, not {out_dtype}")
     if k.dtype not in (torch.int8, torch.bfloat16) or v.dtype not in (torch.int8, torch.bfloat16):
-        raise TypeError(f"kernel D takes int8 or bf16 caches, not {k.dtype}/{v.dtype}")
+        raise TypeError(f"kernel D takes int8 (codes or packed 4-bit) or bf16 caches, not {k.dtype}/{v.dtype}")
     tensors = [q, k, v, k_scale, lengths] + ([v_scale] if v_scale is not None else [])
     if any(x.device != q.device for x in tensors):
         raise ValueError("decode inputs must all be on one device")
@@ -276,9 +303,10 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
     row_groups = hk * (h // hk // rows)
     if b > 65535 or row_groups > 65535:
         raise ValueError(f"batch and KV heads x row groups are CUDA grid dims (at most 65535): {b}, {h}")
-    k_int8, v_int8 = k.dtype == torch.int8, v.dtype == torch.int8
-    design = kernel_design(k_int8, v_int8, int_qk)
-    slots = _resident_ctas(q.device.index or 0, d, k_int8, v_int8, int_qk)
+    # A side's bits from its dtype and width: a 4-bit row is D/2 bytes.
+    k_bits, v_bits = cache_bits(k, q), cache_bits(v, q)
+    design = kernel_design(k_bits != 16, v_bits != 16, int_qk)
+    slots = _resident_ctas(q.device.index or 0, d, k_bits, v_bits, int_qk)
     n_splits, chunk = num_splits(s_max, b * row_groups, slots)
     # bf16 queries go in as they are; others as f32.
     qk = q.contiguous() if q.dtype in (torch.float32, torch.bfloat16) else q.float().contiguous()
@@ -294,7 +322,7 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
             v_scale.data_ptr() if v_scale is not None else None, lengths.data_ptr(),
             part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            b, h, hk, s_max, d, rows, int(k_int8), int(v_int8), int(int_qk), int(qk.dtype == torch.bfloat16),
+            b, h, hk, s_max, d, rows, k_bits, v_bits, int(int_qk), int(qk.dtype == torch.bfloat16),
             _OUT_CODES[out_dtype], n_splits, chunk, float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "decode_attention")
@@ -322,11 +350,14 @@ def decode_attention(
     return_lse: bool = False,
     compute_mode: str = "auto",
 ):
-    """Single-token decode attention over a contiguous int8 or bf16 KV cache
-    (GQA/MQA): ``q [B, H, D]`` float, ``k_cache``/``v_cache [B, Hk, S, D]``,
-    ``k_scale``/``v_scale [B, Hk, S]``, ``lengths [B]`` int32 on q's device.
-    Query head ``h`` reads KV head ``h // (H / Hk)``. ``sm_scale`` defaults
-    to ``1/sqrt(D)``.
+    """Single-token decode attention over a contiguous int8, 4-bit or bf16
+    KV cache (GQA/MQA): ``q [B, H, D]`` float, ``k_cache``/``v_cache
+    [B, Hk, S, D]`` (``[B, Hk, S, D/2]`` for a side of 4 bits: ``kv_bits=4``,
+    or ``k_bits=4, v_bits=8`` for k4v8), ``k_scale``/``v_scale [B, Hk, S]``,
+    ``lengths [B]`` int32 on q's device. Query head ``h`` reads KV head
+    ``h // (H / Hk)``. ``sm_scale`` defaults to ``1/sqrt(D)``.
+    ``compute_mode`` "auto" takes the integer QK chain for 8-bit K and the
+    float chain otherwise; "int_qk" takes the integer chain for 4-bit K too.
 
     Returns ``o [B, H, D]`` in ``q.dtype`` and, with ``return_lse``, the
     base-2 LSE ``[B, H]``. Lengths past ``S`` count as ``S``. The TPU
@@ -335,15 +366,15 @@ def decode_attention(
     not ported.
     """
     if page_table is not None:
-        raise _not_ported("the paged KV cache (page_table)", "8")
+        raise _not_ported("the paged KV cache (page_table)", "5")
     if q.dim() == 4:
-        raise _not_ported("multi-token decode q [B, T, H, D] (speculative verify)", "7")
+        raise _not_ported("multi-token decode q [B, T, H, D] (speculative verify)", "2d")
     if window_size or sink_size:
-        raise _not_ported("decode window_size/sink_size", "7")
+        raise _not_ported("decode window_size/sink_size", "2e")
     if logit_cap:
-        raise _not_ported("decode logit_cap", "7")
+        raise _not_ported("decode logit_cap", "2e")
     if compute_mode == "int":
-        raise _not_ported("compute_mode='int' (INT8 PV)", "7")
+        raise _not_ported("compute_mode='int' (INT8 PV)", "2e")
     if compute_mode not in ("auto", "int_qk", "f32"):
         raise ValueError(f"unknown compute_mode {compute_mode!r}")
     k_bits = kv_bits if k_bits is None else k_bits
@@ -353,15 +384,21 @@ def decode_attention(
         raise ValueError(f"q must be [B, H, D] and the caches [B, Hk, S, D]: {tuple(q.shape)}, {tuple(k_cache.shape)}")
     b, h, d = q.shape
     _, hk, s_max, _ = k_cache.shape
-    if tuple(k_cache.shape) != (b, hk, s_max, d) or tuple(v_cache.shape) != (b, hk, s_max, d):
-        raise ValueError(f"caches must be [B, Hk, S, D] with D={d}: {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    width = lambda bits: d // 2 if bits == 4 else d  # noqa: E731
+    if tuple(k_cache.shape) != (b, hk, s_max, width(k_bits)) or tuple(v_cache.shape) != (b, hk, s_max, width(v_bits)):
+        raise ValueError(f"caches must be [B, Hk, S, D] (D/2 at 4 bits) with D={d}, k_bits={k_bits}, "
+                         f"v_bits={v_bits}: {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    for side, cache, bits in (("k", k_cache, k_bits), ("v", v_cache, v_bits)):
+        if (cache.dtype == torch.int8) != (bits != 16):
+            raise TypeError(f"a {bits}-bit {side} cache holds {'bf16 rows' if bits == 16 else 'int8 bytes'}, "
+                            f"not {cache.dtype}")
     if hk == 0 or h % hk:
         raise ValueError(f"query heads {h} not a multiple of kv heads {hk}")
     if tuple(k_scale.shape) != (b, hk, s_max):
         raise ValueError(f"k_scale must be [B, Hk, S], got {tuple(k_scale.shape)}")
     v_quantized = v_cache.dtype == torch.int8
     if v_quantized and (v_scale is None or tuple(v_scale.shape) != (b, hk, s_max)):
-        raise ValueError("an int8 V cache needs v_scale [B, Hk, S]")
+        raise ValueError("a quantized V cache needs v_scale [B, Hk, S]")
     if tuple(lengths.shape) != (b,):
         raise ValueError(f"lengths must be [B], got {tuple(lengths.shape)}")
     int_qk = k_cache.dtype == torch.int8 and (compute_mode == "int_qk" or (compute_mode == "auto" and k_bits == 8))

@@ -2,7 +2,7 @@
 variants of their own sources, and against another tree's build, on one CUDA
 card.
 
-    python3 script/torch_decode_ab.py [--base DIR] [VARIANT ...]
+    python3 script/torch_decode_ab.py [--base DIR] [--step] [VARIANT ...]
 
 Each variant is a patch of ``csrc/decode_attention.cu`` or
 ``csrc/fused_kv_attention_wgmma.cu`` (see VARIANTS), built in its own copy of
@@ -11,14 +11,22 @@ of another tree as "base" (for example the parent commit unpacked by ``git
 archive`` into a directory that ``.gitignore`` lists). Every build (the
 checkout's as "main", then base and each variant) times, in its own process
 with ``utils.benchmark.cuda_time_ms``: D at b4 h32 hk8 s32768 d128 (every
-length 32768) with the int8 and the bf16 cache, with the GB/s of cache bytes
-streamed, and E with 4-bit K/V at b4 h32 s8192 d64 (group 256), with its
-TFLOP/s; main also times SDPA (one query per head over the bf16 cache, and on
-E's K/V dequantized to bf16). The processes run in turns main, base, v1, v2,
-..., then the same in reverse, so each build is compared with main within one
-call. Prints the card's name and power limit first. With no variant, every
-variant runs. The probes give wrong results on purpose: they time a part of
-the kernel.
+length 32768) with the int8 and the bf16 cache, and the int4 and k4v8 caches
+where the build has them, with the GB/s of cache bytes streamed, and E with
+4-bit K/V at b4 h32 s8192 d64 (group 256), with its TFLOP/s; main also times
+SDPA (one query per head over the bf16 cache, and on E's K/V dequantized to
+bf16). ``--step`` adds the whole decode step: the full-width LLM (dim 4096,
+32 query heads x 128, 8 KV heads, depth 32, vocab 256, bf16, random seeded
+weights) prefills a b4 32,704-token prompt into the int8 cache, then
+``decode_tokens`` generates 16 tokens and, in a second call timed by the
+host clock, 32 more (a build whose ``decode_tokens`` is a loop of
+``llm_decode_step`` times that loop; one that captures a CUDA graph times
+the replays of the graph its first call captured); main
+also times the eager loop of ``llm_decode_step`` itself from the same
+caches. The processes run in turns main, base, v1, v2, ..., then the same in
+reverse, so each build is compared with main within one call. Prints the
+card's name and power limit first. With no variant, every variant runs. The
+probes give wrong results on purpose: they time a part of the kernel.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ VARIANTS = {
                      "<= 8192 ? 64 : 32 * (kKRow + kVRow) <= 8192 ? 32 : 16;")]),
     "d-no-scales": ("probe, wrong results: D without the per-token scale copies",
                     [(D_SRC, "        cp_async4(ks_s + st * BK + i, ksg + key0 + i);\n", ""),
-                     (D_SRC, "        if constexpr (kVInt8) cp_async4(vs_s + st * BK + i, vsg + key0 + i);\n", "")]),
+                     (D_SRC, "        if constexpr (kVQuant) cp_async4(vs_s + st * BK + i, vsg + key0 + i);\n", "")]),
     "e-nowiden": ("probe, wrong results: E's producer lands the packed tiles but widens nothing",
                   [(E_SRC, "      widen<D, BITS>(pk, smem", "      if (false) widen<D, BITS>(pk, smem"),
                    (E_SRC, "      widen<D, BITS>(pk + L::kPackBytes", "      if (false) widen<D, BITS>(pk + L::kPackBytes")]),
@@ -63,8 +71,53 @@ VARIANTS = {
 }
 
 
-def worker(tag: str, main: bool) -> None:
-    """Time D and E from the package in the current directory."""
+def step_worker(main: bool) -> str:
+    """Decode ms/token of the full-width LLM at a 32K context, int8 cache,
+    dense weights, from the package in the current directory."""
+    import time
+
+    import torch
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+
+    b, prompt_len, warm, n = 4, 32704, 16, 48
+    cfg = llm.LLMConfig(vocab=256, dim=4096, depth=32, num_heads=32, num_kv_heads=8, max_seq=32768,
+                        dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = llm.init_llm_params(cfg, gen)
+    prompt = torch.randint(0, cfg.vocab, (b, prompt_len), generator=gen, device="cuda")
+    logits, caches = llm.llm_prefill(model, prompt, cfg)
+    token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    del logits
+    copy = [{k: v.clone() for k, v in c.items()} for c in caches] if main else None
+    # The first call decodes the warm-up tokens (with the graph decode: its
+    # eager first step and the capture); the second, timed, goes on from them
+    # (replays of the same graph, or eager steps).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, caches = llm.decode_tokens(model, token, caches, warm, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    llm.decode_tokens(model, toks[:, -1], caches, n - warm, cfg)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    ms = (t_end - t1) / (n - warm) * 1e3
+    out = f"decode_tokens {ms:.3f} ms/token over tokens {warm + 1}-{n} ({t1 - t0:.2f} s the first {warm})"
+    if main:
+        t = token
+        for i in range(n):
+            if i == warm:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            step_logits, copy = llm.llm_decode_step(model, t, copy, cfg)
+            t = torch.argmax(step_logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        out += f" | eager llm_decode_step loop {(time.perf_counter() - t1) / (n - warm) * 1e3:.3f} ms/token"
+    return out
+
+
+def worker(tag: str, main: bool, step: bool) -> None:
+    """Time D and E (and with ``step`` the whole decode step) from the
+    package in the current directory."""
     sys.path.insert(0, os.getcwd())
     import torch
     from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
@@ -72,23 +125,30 @@ def worker(tag: str, main: bool) -> None:
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
 
     out = []
+    if step:
+        out.append(step_worker(main))
+        torch.cuda.empty_cache()
     g = torch.Generator(device="cuda").manual_seed(0)
     b, h, hk, d, s = 4, 32, 8, 128, 32768
-    for bits in (8, 16):
-        kq, ks = DD.quantize_token(torch.randn(b, hk, s, d, generator=g, device="cuda").bfloat16(), bits=bits)
-        vq, vs = DD.quantize_token(torch.randn(b, hk, s, d, generator=g, device="cuda").bfloat16(), bits=bits)
+    # (name, k_bits, v_bits); a build without _unpack4_cols has no 4-bit caches.
+    modes = [("int8", 8, 8), ("bf16", 16, 16)] + ([("int4", 4, 4), ("k4v8", 4, 8)] if hasattr(DD, "_unpack4_cols")
+                                                 else [])
+    for name, k_bits, v_bits in modes:
+        kq, ks = DD.quantize_token(torch.randn(b, hk, s, d, generator=g, device="cuda").bfloat16(), bits=k_bits)
+        vq, vs = DD.quantize_token(torch.randn(b, hk, s, d, generator=g, device="cuda").bfloat16(), bits=v_bits)
         q = torch.randn(b, h, d, generator=g, device="cuda").bfloat16()
         lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
-        ms = cuda_time_ms(lambda: DD.decode_attention(q, kq, vq, ks, lens, v_scale=vs, kv_bits=bits), warmup=5,
+        sides = dict(kv_bits=k_bits) if k_bits == v_bits else dict(k_bits=k_bits, v_bits=v_bits)
+        ms = cuda_time_ms(lambda: DD.decode_attention(q, kq, vq, ks, lens, v_scale=vs, **sides), warmup=5,
                           reps=50)
-        cache = sum(t.numel() * t.element_size() for t in (kq, vq, ks)) + (vs.numel() * 4 if bits == 8 else 0)
-        out.append(f"D {'int8' if bits == 8 else 'bf16'} {ms:.4f} ({cache / ms / 1e6:.0f} GB/s)")
-        if main and bits == 8:  # a yardstick of the card's streaming rate: one device copy (read + write)
+        cache = sum(t.numel() * t.element_size() for t in (kq, vq, ks)) + (vs.numel() * 4 if v_bits != 16 else 0)
+        out.append(f"D {name} {ms:.4f} ({cache / ms / 1e6:.0f} GB/s)")
+        if main and name == "int8":  # a yardstick of the card's streaming rate: one device copy (read + write)
             dst = torch.empty_like(kq)
             cp = cuda_time_ms(lambda: dst.copy_(kq), warmup=3, reps=20)
             out.append(f"copy of K {cp:.4f} ({2 * kq.numel() / cp / 1e6:.0f} GB/s read + write)")
             del dst
-        if main and bits == 16:
+        if main and name == "bf16":
             sdpa = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q[:, :, None], kq, vq, enable_gqa=True), warmup=3, reps=20)
             out.append(f"SDPA bf16 cache {sdpa:.4f}")
@@ -126,7 +186,7 @@ def prepare(name: str) -> str:
     return root
 
 
-def main(names, base=None) -> None:
+def main(names, base=None, step=False) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dirs = {"main": REPO}
@@ -153,19 +213,22 @@ def main(names, base=None) -> None:
         print(f"{name}: {VARIANTS[name][0]}", flush=True)
     order = list(dirs)
     for tag in order + order[::-1]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tag], cwd=dirs[tag], check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tag] + (["--step"] if step else []),
+                       cwd=dirs[tag], check=True)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
-        worker(sys.argv[2], main=sys.argv[2] == "main")
+        worker(sys.argv[2], main=sys.argv[2] == "main", step="--step" in sys.argv[3:])
     else:
         args = sys.argv[1:]
         base = None
         if args[:1] == ["--base"]:
             base, args = args[1], args[2:]
+        step = "--step" in args
+        args = [a for a in args if a != "--step"]
         names = args or list(VARIANTS)
         unknown = [n for n in names if n not in VARIANTS]
         if unknown:
             sys.exit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
-        main(names, base)
+        main(names, base, step)

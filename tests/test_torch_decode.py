@@ -4,16 +4,19 @@ the PyTorch package against the JAX package.
 Inputs come from numpy with a seed and go to both sides. JAX runs its Pallas
 decode kernel in interpret mode on the CPU; the port runs its plain version.
 
-* ``quantize_token``/``append_kv``: codes and scales bit for bit, against the
-  JAX functions as they run compiled (``jax.jit``), including exact .5 ties
-  and the rows past the written length. Compiled XLA forms the scale
-  ``amax/127 + 1e-7`` as one fma; JAX run op by op divides and then adds,
-  which moves ~28% of scales by one ulp (test_jax_eager_scale_is_not_the_fma).
+* ``quantize_token``/``append_kv``/``init_kv_cache`` at 16, 8 and 4 bits
+  (4: nibbles in halves of D) and ``_unpack4_cols``: codes and scales bit
+  for bit, against the JAX functions as they run compiled (``jax.jit``),
+  including exact .5 ties and the rows past the written length. Compiled
+  XLA forms the scale ``amax/qmax + 1e-7`` as one fma; JAX run op by op
+  divides and then adds, which moves ~28% of scales by one ulp
+  (test_jax_eager_scale_is_not_the_fma).
 * ``decode_attention``: both sides compute in f32 and differ only in
-  summation order (JAX online over blocks of up to 2048 keys, the port in
-  closed form): cos >= 0.999999, max|do| <= 2e-6 and max|dlse| <= 1e-5 on
-  outputs of magnitude ~1 (measured on a CPU: max|do| <= 3.6e-7, max|dlse|
-  <= 9.6e-7). bf16 queries give bf16 outputs, equal here.
+  summation order (JAX online over blocks of up to 2048 keys, and at 4-bit K
+  two half-width dots, the port in closed form): cos >= 0.999999, max|do|
+  <= 2e-6 and max|dlse| <= 1e-5 on outputs of magnitude ~1 (measured on a
+  CPU: max|do| <= 3.9e-7, max|dlse| <= 9.6e-7, the int4 and k4v8 caches on
+  both QK chains included). bf16 queries give bf16 outputs, equal here.
 """
 
 import jax
@@ -48,18 +51,19 @@ def _bits_equal(port: torch.Tensor, want) -> None:
     np.testing.assert_array_equal(got.view(np.uint8), exp.view(np.uint8))
 
 
-def _rows_with_ties(rng, shape):
-    """f32 rows whose quantization hits exact .5 ties: after the row maximum
-    fixes the scale, some entries are set to (n + 0.5) * scale wherever the
-    f32 division gives n + 0.5 back exactly."""
+def _rows_with_ties(rng, shape, bits=8):
+    """f32 rows whose ``bits``-bit quantization hits exact .5 ties: after the
+    row maximum fixes the scale, some entries are set to (n + 0.5) * scale
+    wherever the f32 division gives n + 0.5 back exactly."""
     x = (rng.standard_normal(shape) * 3).astype(np.float32)
     flat = x.reshape(-1, shape[-1])
     amax = np.abs(flat).max(axis=1)
-    scale = absmax_scale(torch.from_numpy(amax)[:, None])[:, 0].numpy()
+    scale = absmax_scale(torch.from_numpy(amax)[:, None], bits)[:, 0].numpy()
+    top = 120 if bits == 8 else 6
     ties = 0
     for i in range(flat.shape[0]):
         for j in rng.choice(np.arange(1, shape[-1]), size=8, replace=False):
-            n = int(rng.integers(-120, 120))
+            n = int(rng.integers(-top, top))
             y = np.float32(n + 0.5) * scale[i]
             if abs(y) < amax[i] and y / scale[i] == np.float32(n + 0.5) and np.abs(flat[i]).argmax() != j:
                 flat[i, j] = y
@@ -67,9 +71,9 @@ def _rows_with_ties(rng, shape):
     return x, ties
 
 
-@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("bits", [8, 16, 4])
 def test_quantize_token_matches_jax(bits):
-    x, ties = _rows_with_ties(np.random.default_rng(0), (3, 2, 40, 64))
+    x, ties = _rows_with_ties(np.random.default_rng(0), (3, 2, 40, 64), 4 if bits == 4 else 8)
     assert ties > 100
     jc, js = jax.jit(lambda a: jd.quantize_token(a, bits=bits))(jnp.asarray(x))
     tc, ts = td.quantize_token(torch.from_numpy(x), bits=bits)
@@ -83,6 +87,17 @@ def test_quantize_token_rounds_ties_away_from_zero():
     codes, got = td.quantize_token(x)
     assert float(got[0]) == float(scale)
     assert codes.tolist() == [[127, 1, -1, 0]]  # torch.round gives 0 and -0
+
+
+def test_quantize_token_4bit_packs_halves_of_d():
+    """qmax 7, codes clipped to ±7 and rounded half away from zero, byte i
+    holding column i in its low nibble and column i + D/2 in its high one."""
+    scale = absmax_scale(torch.tensor([[7.0]]), 4)[0, 0]
+    row = torch.tensor([7.0, -2.5 * float(scale), 0.5 * float(scale), 0.0, 3.0, -7.0, 1.5 * float(scale), -0.5 * float(scale)])
+    packed, got = td.quantize_token(row[None], bits=4)
+    assert float(got[0]) == float(scale) and packed.dtype == torch.int8 and packed.shape == (1, 4)
+    assert td._unpack4_cols(packed).tolist() == [[7.0, -3.0, 1.0, 0.0, 3.0, -7.0, 2.0, -1.0]]
+    assert (packed.view(torch.uint8)[0] & 0xF).tolist() == [7, 13, 1, 0]  # -3 as a nibble is 13
 
 
 def test_jax_eager_scale_is_not_the_fma():
@@ -100,7 +115,7 @@ def test_jax_eager_scale_is_not_the_fma():
     assert np.abs(eager.view(np.int32) - jitted.view(np.int32)).max() == 1
 
 
-@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("bits", [8, 16, 4, "k4v8"])
 def test_append_kv_matches_jax(bits):
     """Three appends at lengths 0, 4 and S_max: the last row writes clamp to
     row S_max - 1 as ``dynamic_update_slice`` does; rows past the written
@@ -108,19 +123,40 @@ def test_append_kv_matches_jax(bits):
     rng = np.random.default_rng(2)
     b, hk, s_max, d = 3, 2, 6, 64
     lengths = np.array([0, 4, s_max], np.int32)
-    jc = jd.init_kv_cache(b, hk, s_max, d, bits=bits)
+    sides = dict(k_bits=4, v_bits=8) if bits == "k4v8" else dict(bits=bits)
+    jc = jd.init_kv_cache(b, hk, s_max, d, **sides)
     jc["length"] = jnp.asarray(lengths)
-    tc = td.init_kv_cache(b, hk, s_max, d, bits=bits, device="cpu")
+    tc = td.init_kv_cache(b, hk, s_max, d, **sides, device="cpu")
     tc["length"] = torch.from_numpy(lengths.copy())
     append = jax.jit(jd.append_kv)
     for _ in range(3):
-        k, _ = _rows_with_ties(rng, (b, hk, d))
+        k, _ = _rows_with_ties(rng, (b, hk, d), 4 if bits in (4, "k4v8") else 8)
         v = (rng.standard_normal((b, hk, d)) * 2).astype(np.float32)
         jc = append(jc, jnp.asarray(k), jnp.asarray(v))
         tc = td.append_kv(tc, torch.from_numpy(k), torch.from_numpy(v))
     for key in ("k", "v", "k_scale", "v_scale", "length"):
         _bits_equal(tc[key], jc[key])
     assert tc["length"].tolist() == [3, 7, 9]
+
+
+@pytest.mark.parametrize("sides", [dict(bits=4), dict(k_bits=4, v_bits=8), dict(k_bits=8, v_bits=4),
+                                   dict(k_bits=4, v_bits=16), dict(bits=8)])
+def test_init_kv_cache_matches_jax(sides):
+    """Packed ``[B, Hk, S, D/2]`` int8 zeros for a 4-bit side, ``D`` wide for
+    8 bits, bf16 for 16; f32 unit scales and int32 zero lengths."""
+    jc = jd.init_kv_cache(2, 3, 5, 64, **sides)
+    tc = td.init_kv_cache(2, 3, 5, 64, **sides, device="cpu")
+    assert set(tc) == set(jc)
+    for key in jc:
+        _bits_equal(tc[key], jc[key])
+
+
+def test_unpack4_cols_matches_jax():
+    """Every byte value, sign-extended low and high nibbles in halves of D."""
+    packed = np.random.default_rng(3).permutation(np.arange(-128, 128, dtype=np.int8)).reshape(4, 2, 32)
+    got = td._unpack4_cols(torch.from_numpy(packed))
+    assert got.dtype == torch.float32
+    _bits_equal(got, jax.jit(jd._unpack4_cols)(jnp.asarray(packed)))
 
 
 def _decode_inputs(b, h, hk, d, s, k_bits, v_bits, seed):
@@ -168,6 +204,58 @@ def test_decode_attention_matches_jax(k_bits, v_bits, h, hk, d, s, mode, lse):
         assert torch.all(tl[1] == torch.tensor(-1e30))
 
 
+@pytest.mark.parametrize(
+    "k_bits,v_bits,h,hk,d,s,mode",
+    [
+        (4, 4, 8, 2, 32, 300, "auto"),      # int4, GQA 8q/2kv; "auto" is the float chain at 4-bit K
+        (4, 4, 4, 4, 64, 300, "auto"),      # MHA
+        (4, 4, 8, 2, 128, 300, "auto"),
+        (4, 4, 8, 2, 64, 300, "int_qk"),    # the integer chain: q quantized, nibble dots exact
+        (4, 4, 4, 4, 128, 300, "int_qk"),
+        (4, 4, 4, 4, 64, 2500, "auto"),     # five JAX blocks of 512, the last ragged
+        (4, 8, 8, 2, 32, 300, "auto"),      # k4v8
+        (4, 8, 4, 4, 64, 300, "auto"),
+        (4, 8, 8, 2, 128, 300, "auto"),
+        (4, 8, 8, 2, 128, 300, "int_qk"),
+        (4, 8, 8, 2, 32, 300, "int_qk"),
+        (4, 8, 4, 4, 64, 2500, "int_qk"),
+        (8, 4, 8, 2, 64, 300, "auto"),      # int8 K, 4-bit V
+        (4, 16, 8, 2, 64, 300, "auto"),     # 4-bit K, bf16 V
+    ],
+)
+def test_decode_attention_4bit_matches_jax(k_bits, v_bits, h, hk, d, s, mode):
+    """The int4 and k4v8 caches (and the other mixes) on both QK chains,
+    against JAX's Pallas kernel in interpret mode, with the bounds of
+    test_decode_attention_matches_jax."""
+    q, kq, vq, ks, vs, lengths = _decode_inputs(4, h, hk, d, s, k_bits, v_bits, seed=d + s + 3 * k_bits + v_bits)
+    kw = dict(k_bits=k_bits, v_bits=v_bits, compute_mode=mode, return_lse=True)
+    jo, jl = jd.decode_attention(jnp.asarray(q), kq, vq, ks, jnp.asarray(lengths), v_scale=vs, **kw)
+    to, tl = td.decode_attention(torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths),
+                                 v_scale=_torch(vs), **kw)
+    jo, jl = torch.from_numpy(_np(jo)), torch.from_numpy(_np(jl))
+    assert to.dtype == torch.float32 and to.shape == (4, h, d) and torch.isfinite(to).all()
+    assert float(cosine_similarity(to, jo)) >= COS_MIN
+    assert float((to - jo).abs().max()) <= MAX_DO
+    assert float((tl - jl).abs().max()) <= MAX_DLSE
+    assert float(to[1].abs().max()) == 0.0 and torch.all(tl[1] == torch.tensor(-1e30))
+
+
+def test_decode_attention_4bit_chains_agree_where_exact():
+    """At 4-bit K the integer chain quantizes q and the float chain does not:
+    the two differ by q's rounding only (cos >= 0.999), and each equals the
+    plain version on the unpacked codes as an int8 cache."""
+    q, kq, vq, ks, vs, lengths = _decode_inputs(4, 8, 2, 64, 300, 4, 8, seed=11)
+    args = [torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths)]
+    f_chain = td.decode_attention(*args, v_scale=_torch(vs), k_bits=4, v_bits=8)
+    i_chain = td.decode_attention(*args, v_scale=_torch(vs), k_bits=4, v_bits=8, compute_mode="int_qk")
+    assert float(cosine_similarity(f_chain, i_chain)) >= 0.999 and not torch.equal(f_chain, i_chain)
+    k8 = td._unpack4_cols(args[1]).to(torch.int8)
+    i8 = td.decode_attention(args[0], k8, *args[2:], v_scale=_torch(vs), kv_bits=8)
+    torch.testing.assert_close(i_chain, i8, rtol=0, atol=0)
+    f8 = td.decode_attention(args[0], k8, *args[2:], v_scale=_torch(vs), kv_bits=8, compute_mode="f32")
+    torch.testing.assert_close(f_chain, f8, rtol=0, atol=0)
+
+
 def test_decode_attention_bf16_query_matches_jax():
     q, kq, vq, ks, vs, lengths = _decode_inputs(4, 8, 2, 128, 300, 8, 8, seed=3)
     jo = jd.decode_attention(jnp.asarray(q, jnp.bfloat16), kq, vq, ks, jnp.asarray(lengths), v_scale=vs)
@@ -193,13 +281,11 @@ def test_decode_attention_ignores_rows_past_length():
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(page_table=torch.zeros(4, 2, dtype=torch.int32)), "8"),
-        (dict(window_size=64), "7"),
-        (dict(sink_size=4, window_size=64), "7"),
-        (dict(logit_cap=30.0), "7"),
-        (dict(compute_mode="int"), "7"),
-        (dict(kv_bits=4), "7"),
-        (dict(k_bits=4, v_bits=8), "7"),
+        (dict(page_table=torch.zeros(4, 2, dtype=torch.int32)), "5"),
+        (dict(window_size=64), "2e"),
+        (dict(sink_size=4, window_size=64), "2e"),
+        (dict(logit_cap=30.0), "2e"),
+        (dict(compute_mode="int"), "2e"),
     ],
 )
 def test_unported_decode_options_raise(kw, item):
@@ -210,15 +296,33 @@ def test_unported_decode_options_raise(kw, item):
 
 
 def test_unported_cache_ops_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        td.init_kv_cache(1, 2, 8, 64, bits=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 2d"):
         td.decode_attention(torch.zeros(1, 2, 4, 64), torch.zeros(1, 2, 8, 64, dtype=torch.int8),
                             torch.zeros(1, 2, 8, 64, dtype=torch.int8), torch.ones(1, 2, 8),
                             torch.ones(1, dtype=torch.int32))
     cache = td.init_kv_cache(1, 2, 8, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 2d"):
         td.append_kv_multi(cache, torch.zeros(1, 2, 3, 64), torch.zeros(1, 2, 3, 64))
+
+
+@pytest.mark.parametrize("bad", [dict(kv_bits=2), dict(k_bits=4, v_bits=6)])
+def test_unknown_cache_bits_raise(bad):
+    with pytest.raises(ValueError, match="16, 8 or 4"):
+        td.init_kv_cache(1, 2, 8, 64, device="cpu", **{("bits" if k == "kv_bits" else k): v for k, v in bad.items()})
+    q, kq, vq, ks, vs, lengths = _decode_inputs(4, 4, 4, 32, 64, 8, 8, seed=5)
+    with pytest.raises(ValueError, match="16, 8 or 4"):
+        td.decode_attention(torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths),
+                            v_scale=_torch(vs), **bad)
+
+
+@pytest.mark.parametrize("cache_bits,said", [(8, dict(kv_bits=4)), (4, dict(kv_bits=8)), (16, dict(k_bits=4))])
+def test_cache_width_must_match_the_bits(cache_bits, said):
+    """A 4-bit side is D/2 bytes wide: a cache whose width or dtype does not
+    match the bits the caller names raises instead of reading garbage."""
+    q, kq, vq, ks, vs, lengths = _decode_inputs(4, 4, 4, 32, 64, cache_bits, cache_bits, seed=5)
+    with pytest.raises((ValueError, TypeError)):
+        td.decode_attention(torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths),
+                            v_scale=_torch(vs), **said)
 
 
 def test_decode_attention_takes_cpu_or_cuda_only():
@@ -265,7 +369,7 @@ def test_kernel_design_needs_int8_k_for_the_integer_chain():
         td.kernel_design(False, True, True)
 
 
-@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("bits", [8, 16, 4])
 @pytest.mark.parametrize("where", ["tile-127-128-129", "split-boundary"])
 def test_decode_lengths_at_tile_and_split_edges_match_jax(bits, where):
     """Lengths around a 128-key boundary and around a split boundary of the

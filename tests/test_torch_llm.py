@@ -12,8 +12,18 @@ Two models, both carried across with ``params_from_jax``:
   layer 1's codes, by at most 3), which the test reports;
 * the trained arithmetic checkpoint ``eval_out/arith_llm.npz`` (f32), whose
   logits have real margins: greedy ``generate`` must give the same tokens as
-  JAX, with the int8 and the bf16 cache, and with per-channel w8 and w4
-  weights (``quantize_llm_params``, bit-equal to JAX's packing).
+  JAX, with the int8, bf16, int4 and k4v8 caches, and with per-channel w8
+  and w4 weights (``quantize_llm_params``, bit-equal to JAX's packing).
+
+4-bit caches step their codes by a seventh of the row maximum, so where the
+two sides' bf16 activations differ a flipped code moves a value by far more
+than at 8 bits: their decode-step logits are held at cos >= 0.999 (measured
+on a CPU: int4 0.99982, k4v8 0.99991). ``llm_prefill_chunked`` is held to
+JAX's own bounds against the one-shot prefill (tests/test_llm.py): cache K
+rows cos >= 0.999 (0.99 for 4-bit K), last-token logits >= 0.999 (0.995),
+both against JAX's chunked prefill and against the port's one-shot one
+(measured: k4v8 K rows 0.99320 and logits 0.99736 against the one-shot;
+>= 0.99906 against JAX's).
 
 Every model is built on the CPU (``device="cpu"``): the constructors default
 to the CUDA card.
@@ -29,6 +39,7 @@ import torch
 
 from lowbit_quant_fa2_paddle_tpu.models import llm as JL
 from lowbit_quant_fa2_paddle_tpu.models import train as JT
+from lowbit_quant_fa2_paddle_tpu.ops import decode as jd
 from lowbit_quant_fa2_paddle_tpu.utils.checkpoint import load_params
 from lowbit_quant_fa2_paddle_tpu_torch.models import llm as TL
 from lowbit_quant_fa2_paddle_tpu_torch.models import train as TT
@@ -39,6 +50,9 @@ from lowbit_quant_fa2_paddle_tpu_torch.utils.checkpoint import load_params_npz
 CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "eval_out", "arith_llm.npz")
 COS_MIN = 0.9999
 TINY = dict(dim=256, depth=2, num_heads=8, num_kv_heads=2, max_seq=64)
+#: Cache modes by their LLMConfig fields.
+CACHES = {"int8": dict(kv_bits=8), "bf16": dict(kv_bits=16), "int4": dict(kv_bits=4), "k4v8": dict(kv_bits=8, k_bits=4)}
+COS_4BIT = 0.999
 
 
 def _f32(x) -> np.ndarray:
@@ -199,12 +213,9 @@ def test_task_alphabet_matches_jax():
 @pytest.mark.parametrize(
     "make,item",
     [
-        (lambda: TL.LLMConfig(window_size=16), "7"),
-        (lambda: TL.LLMConfig(kv_bits=4), "7"),
-        (lambda: TL.LLMConfig(k_bits=4, v_bits=8), "7"),
-        (lambda: TL.llm_prefill_chunked(None, None, None), "7"),
-        (lambda: TL.llm_verify_step(None, None, None, None), "7"),
-        (lambda: TL.speculative_generate(None, None, 4, None), "7"),
+        (lambda: TL.LLMConfig(window_size=16), "2e"),
+        (lambda: TL.llm_verify_step(None, None, None, None), "2d"),
+        (lambda: TL.speculative_generate(None, None, 4, None), "2d"),
     ],
 )
 def test_unported_llm_paths_raise(make, item):
@@ -329,3 +340,298 @@ def test_checkpoint_packed_generate_is_token_identical_to_jax(checkpoint, bits):
     t_out = TL.generate(TL.quantize_llm_params(model, bits=bits), torch.from_numpy(prompts), TT.ANS_LEN, cfg_t)
     np.testing.assert_array_equal(t_out.numpy(), j_out)
     assert np.mean([TT.grade_answer(row, a) for row, a in zip(t_out.numpy(), answers)]) >= 0.9375
+
+
+# ---------------------------------------------------------------------------
+# 4-bit caches, chunked prefill, the decode loop
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["int4", "k4v8"])
+def test_config_takes_4bit_caches(mode):
+    cfg = TL.tiny_llm_config(**CACHES[mode])
+    assert (cfg.eff_k_bits, cfg.eff_v_bits) == ((4, 4) if mode == "int4" else (4, 8))
+    with pytest.raises(ValueError, match="16, 8 or 4"):
+        TL.LLMConfig(kv_bits=2)
+
+
+def _values(cache, side, bits, n=None):
+    codes, scale = cache[side][:, :, :n], cache[f"{side}_scale"][:, :, :n]
+    return TL._dequant_cache_rows(codes, scale, bits, torch.float32)
+
+
+def _jax_values(cache, side, bits, n=None):
+    return np.asarray(JL._dequant_cache_rows(cache[side][:, :, :n], cache[f"{side}_scale"][:, :, :n], bits,
+                                             jnp.float32))
+
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_dequant_cache_rows_matches_jax(bits):
+    rng = np.random.default_rng(bits)
+    x = (rng.standard_normal((2, 2, 9, 64)) * 2).astype(np.float32)
+    jq, js = jax.jit(lambda a: jd.quantize_token(a, bits=bits))(jnp.asarray(x))
+    got = TL._dequant_cache_rows(torch.from_numpy(_f32(jq)).to(torch.bfloat16 if bits == 16 else torch.int8),
+                                 torch.from_numpy(np.array(js)), bits, torch.float32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(JL._dequant_cache_rows(jq, js, bits, jnp.float32)))
+
+
+@pytest.mark.parametrize("mode", ["int4", "k4v8"])
+def test_prefill_4bit_caches_match_jax(tiny, mode):
+    """The one-shot prefill builds packed ``[B, Hk, S_max, D/2]`` 4-bit
+    sides: layer 0's codes equal JAX's, deeper layers' values by cosine."""
+    params, _, model, tokens = tiny
+    cfg_j, cfg_t = _cfgs(**CACHES[mode])
+    j_logits, j_caches = JL.llm_prefill(params, jnp.asarray(tokens), cfg_j)
+    t_logits, t_caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg_t)
+    assert _cos(t_logits, j_logits) >= COS_MIN
+    for li, (jc, tc) in enumerate(zip(j_caches, t_caches)):
+        for side, bits in (("k", cfg_t.eff_k_bits), ("v", cfg_t.eff_v_bits)):
+            width = 16 if bits == 4 else 32
+            assert tc[side].dtype == torch.int8 and tc[side].shape == (2, 2, 64, width)
+            assert _cos(_values(tc, side, bits), _jax_values(jc, side, bits)) >= COS_4BIT
+            if li == 0:
+                np.testing.assert_array_equal(tc[side].numpy(), np.asarray(jc[side]))
+
+
+@pytest.mark.parametrize("mode", ["int4", "k4v8"])
+def test_decode_steps_4bit_match_jax(tiny, mode):
+    """Eight steps through kernel D's 4-bit modes (the float QK chain that
+    "auto" takes at 4-bit K) from the exact prefill's caches."""
+    params, _, model, tokens = tiny
+    cfg_j, cfg_t = _cfgs(**CACHES[mode])
+    _, j_caches = JL.llm_prefill(params, jnp.asarray(tokens), cfg_j, attn_impl="ref")
+    _, t_caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg_t, attn_impl="ref")
+    feed = np.random.default_rng(1).integers(0, 256, (8, 2)).astype(np.int32)
+    step = jax.jit(lambda p, t, c: JL.llm_decode_step(p, t, c, cfg_j))
+    worst = 1.0
+    for i in range(8):
+        j_logits, j_caches = step(params, jnp.asarray(feed[i]), j_caches)
+        t_logits, t_caches = TL.llm_decode_step(model, torch.from_numpy(feed[i]), t_caches, cfg_t)
+        worst = min(worst, _cos(t_logits, j_logits))
+    print(f"{mode}: worst decode-step logits cos {worst:.6f}")
+    assert worst >= COS_4BIT
+    assert t_caches[0]["length"].tolist() == [48, 48]
+
+
+CHUNKED = dict(dim=256, depth=2, num_heads=8, num_kv_heads=2, max_seq=96)
+
+
+def _chunked_cfgs(mode):
+    return (JL.tiny_llm_config(**CHUNKED, dtype=jnp.bfloat16, **CACHES[mode]),
+            TL.tiny_llm_config(**CHUNKED, dtype=torch.bfloat16, **CACHES[mode]))
+
+
+def _bounds(cfg):
+    """JAX's own bounds (tests/test_llm.py): K rows, last-token logits."""
+    return (0.99, 0.995) if cfg.eff_k_bits == 4 else (0.999, 0.999)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16", "k4v8"])
+def test_chunked_prefill_matches_jax(tiny, mode):
+    """Chunks of 16 over a 40-token prompt (three chunks, the last short),
+    as JAX's test runs it: the same lengths, dequantized K rows and the
+    last-token logits against JAX's chunked prefill."""
+    params, _, model, tokens = tiny
+    cfg_j, cfg_t = _chunked_cfgs(mode)
+    j_logits, j_caches = JL.llm_prefill_chunked(params, jnp.asarray(tokens), cfg_j, chunk=16)
+    t_logits, t_caches = TL.llm_prefill_chunked(model, torch.from_numpy(tokens), cfg_t, chunk=16)
+    k_min, logits_min = _bounds(cfg_t)
+    assert t_logits.shape == (2, 256) and torch.isfinite(t_logits.float()).all()
+    assert _cos(t_logits, j_logits) >= logits_min
+    for jc, tc in zip(j_caches, t_caches):
+        assert tc["length"].tolist() == np.asarray(jc["length"]).tolist() == [40, 40]
+        assert _cos(_values(tc, "k", cfg_t.eff_k_bits, 40), _jax_values(jc, "k", cfg_j.eff_k_bits, 40)) >= k_min
+        assert _cos(_values(tc, "v", cfg_t.eff_v_bits, 40), _jax_values(jc, "v", cfg_j.eff_v_bits, 40)) >= k_min
+        assert not tc["k"][:, :, 40:].any() and bool((tc["k_scale"][:, :, 40:] == 1).all())
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16", "k4v8"])
+def test_chunked_prefill_matches_one_shot(tiny, mode):
+    """The port's chunked prefill against its own one-shot prefill, at JAX's
+    bounds; greedy decoding goes on alike from either cache."""
+    _, _, model, tokens = tiny
+    _, cfg = _chunked_cfgs(mode)
+    full_logits, full_caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg)
+    logits, caches = TL.llm_prefill_chunked(model, torch.from_numpy(tokens), cfg, chunk=16)
+    k_min, logits_min = _bounds(cfg)
+    for cf, cc in zip(full_caches, caches):
+        assert cc["length"].tolist() == [40, 40]
+        assert float(cosine_similarity(_values(cc, "k", cfg.eff_k_bits, 40), _values(cf, "k", cfg.eff_k_bits, 40))) >= k_min
+    assert float(cosine_similarity(logits.float(), full_logits[:, -1].float())) >= logits_min
+    toks_full, _ = TL.decode_tokens(model, torch.argmax(full_logits[:, -1], -1), full_caches, 4, cfg)
+    toks, _ = TL.decode_tokens(model, torch.argmax(logits, -1), caches, 4, cfg)
+    assert float((toks_full == toks).float().mean()) >= 0.75
+
+
+#: Head dim 64: the cross-attention over a 4-bit K cache takes kernel A's
+#: packed-INT4 mode (at head dim 32 it unpacks the codes to int8).
+CHUNKED_D64 = dict(dim=256, depth=2, num_heads=4, num_kv_heads=2, max_seq=96)
+
+
+@pytest.fixture(scope="module")
+def tiny_d64():
+    params = JL.init_llm_params(jax.random.PRNGKey(0), JL.tiny_llm_config(**CHUNKED_D64, dtype=jnp.bfloat16))
+    model = TL.params_from_jax(jax.tree_util.tree_map(_f32, params),
+                               TL.tiny_llm_config(**CHUNKED_D64, dtype=torch.bfloat16), device="cpu")
+    return params, model
+
+
+def _packed_k_chunked(model, tokens, cfg, monkeypatch):
+    """The port's chunked prefill (chunks of 16), with the K packing of
+    every kernel A call it makes."""
+    packs = []
+
+    def spy(*args, **kw):
+        packs.append(kw.get("k_pack_bits", 8))
+        return real(*args, **kw)
+
+    real = TL.lowbit_attention
+    monkeypatch.setattr(TL, "lowbit_attention", spy)
+    out = TL.llm_prefill_chunked(model, torch.from_numpy(tokens), cfg, chunk=16)
+    monkeypatch.setattr(TL, "lowbit_attention", real)
+    # Per layer: one causal call a chunk (int8 K) and one over the packed cache for chunks 2 and 3.
+    assert sorted(packs) == [4] * 4 + [8] * 6
+    return out
+
+
+@pytest.mark.parametrize("mode", ["int4", "k4v8"])
+def test_chunked_prefill_packed_k_matches_jax(tiny, tiny_d64, mode, monkeypatch):
+    """Head dim 64, 4-bit K: the cross-attention runs kernel A's packed-INT4
+    mode on the cache's own nibbles; against JAX's chunked prefill at its
+    bounds (the same lengths, K and V rows, last-token logits)."""
+    params, model = tiny_d64
+    tokens = tiny[3]
+    cfg_j = JL.tiny_llm_config(**CHUNKED_D64, dtype=jnp.bfloat16, **CACHES[mode])
+    cfg_t = TL.tiny_llm_config(**CHUNKED_D64, dtype=torch.bfloat16, **CACHES[mode])
+    assert cfg_t.head_dim == 64
+    j_logits, j_caches = JL.llm_prefill_chunked(params, jnp.asarray(tokens), cfg_j, chunk=16)
+    t_logits, t_caches = _packed_k_chunked(model, tokens, cfg_t, monkeypatch)
+    k_min, logits_min = _bounds(cfg_t)
+    assert t_logits.shape == (2, 256) and torch.isfinite(t_logits.float()).all()
+    assert _cos(t_logits, j_logits) >= logits_min
+    for jc, tc in zip(j_caches, t_caches):
+        assert tc["length"].tolist() == np.asarray(jc["length"]).tolist() == [40, 40]
+        assert tc["k"].shape == (2, 2, 96, 32)
+        assert _cos(_values(tc, "k", 4, 40), _jax_values(jc, "k", 4, 40)) >= k_min
+        assert _cos(_values(tc, "v", cfg_t.eff_v_bits, 40), _jax_values(jc, "v", cfg_j.eff_v_bits, 40)) >= k_min
+    # Reported, not bounded: each package's chunked prefill against its own
+    # one-shot one (the worst layer's K rows, the last-token logits).
+    jf_logits, jf_caches = JL.llm_prefill(params, jnp.asarray(tokens), cfg_j)
+    tf_logits, tf_caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg_t)
+    j_k = min(_cos(torch.tensor(_jax_values(a, "k", 4, 40)), _jax_values(f, "k", 4, 40))
+              for a, f in zip(j_caches, jf_caches))
+    t_k = min(float(cosine_similarity(_values(a, "k", 4, 40), _values(f, "k", 4, 40)))
+              for a, f in zip(t_caches, tf_caches))
+    j_l = _cos(torch.tensor(_f32(j_logits)), jf_logits[:, -1])
+    t_l = float(cosine_similarity(t_logits.float(), tf_logits[:, -1].float()))
+    print(f"{mode} chunked vs one-shot: K rows JAX {j_k:.5f} port {t_k:.5f}; logits JAX {j_l:.5f} port {t_l:.5f}")
+
+
+@pytest.mark.parametrize("mode", ["k4v8"])
+def test_chunked_prefill_packed_k_matches_one_shot(tiny, tiny_d64, mode, monkeypatch):
+    """The same against the port's own one-shot prefill, at JAX's bounds,
+    which JAX's test sets for k4v8. The int4 cache is held to JAX's chunked
+    prefill only: its cross-attention reads 4-bit V, and JAX's own chunked
+    prefill stays below these bounds there (printed by
+    ``test_chunked_prefill_packed_k_matches_jax[int4]``)."""
+    _, model = tiny_d64
+    tokens = tiny[3]
+    cfg = TL.tiny_llm_config(**CHUNKED_D64, dtype=torch.bfloat16, **CACHES[mode])
+    full_logits, full_caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg)
+    logits, caches = _packed_k_chunked(model, tokens, cfg, monkeypatch)
+    k_min, logits_min = _bounds(cfg)
+    for cf, cc in zip(full_caches, caches):
+        assert cc["length"].tolist() == [40, 40]
+        assert float(cosine_similarity(_values(cc, "k", 4, 40), _values(cf, "k", 4, 40))) >= k_min
+    assert float(cosine_similarity(logits.float(), full_logits[:, -1].float())) >= logits_min
+
+
+def test_chunked_prefill_in_one_chunk_is_the_in_chunk_attention(tiny):
+    """A chunk as long as the prompt has no cache to attend: the result does
+    not depend on the chunk size past the prompt length."""
+    _, _, model, tokens = tiny
+    _, cfg = _chunked_cfgs("int8")
+    a = TL.llm_prefill_chunked(model, torch.from_numpy(tokens), cfg, chunk=40)
+    b = TL.llm_prefill_chunked(model, torch.from_numpy(tokens), cfg, chunk=4096)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(x[k], y[k]) for x, y in zip(a[1], b[1]) for k in x)
+
+
+def test_chunked_prefill_checks_its_arguments(tiny):
+    _, _, model, tokens = tiny
+    with pytest.raises(ValueError, match="max_seq"):
+        TL.llm_prefill_chunked(model, torch.from_numpy(tokens),
+                               TL.tiny_llm_config(**dict(TINY, max_seq=32), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="chunk"):
+        TL.llm_prefill_chunked(model, torch.from_numpy(tokens), _chunked_cfgs("int8")[1], chunk=0)
+
+
+@pytest.mark.parametrize("mode", ["int4", "k4v8"])
+def test_generate_4bit_caches_match_jax(tiny, mode):
+    """Greedy generation on the random tiny model, whose logits have small
+    margins: the share of tokens equal to JAX's is printed and held to
+    0.75, the agreement JAX's own test asks of k4v8 against int8 (measured
+    on a CPU: int4 0.8125, k4v8 1.0)."""
+    params, _, model, tokens = tiny
+    cfg_j, cfg_t = _cfgs(**CACHES[mode])
+    j_out = np.asarray(JL.generate(params, jnp.asarray(tokens), 8, cfg_j))
+    t_out = TL.generate(model, torch.from_numpy(tokens), 8, cfg_t).numpy()
+    agree = float((j_out == t_out).mean())
+    print(f"{mode}: token agreement with JAX {agree:.4f}")
+    assert t_out.shape == (2, 8) and agree >= 0.75
+
+
+@pytest.mark.parametrize("mode", ["int4", "k4v8"])
+def test_checkpoint_generate_4bit_caches_token_identical_to_jax(checkpoint, mode):
+    j_params, _, model = checkpoint
+    prompts, answers = TT.make_eval_prompts(16)
+    j_out = np.asarray(JL.generate(j_params, jnp.asarray(prompts), TT.ANS_LEN, JT.arith_llm_config(**CACHES[mode])))
+    t_out = TL.generate(model, torch.from_numpy(prompts), TT.ANS_LEN, TT.arith_llm_config(**CACHES[mode]))
+    np.testing.assert_array_equal(t_out.numpy(), j_out)
+    assert np.mean([TT.grade_answer(row, a) for row, a in zip(t_out.numpy(), answers)]) == 1.0
+
+
+def test_decode_tokens_takes_zero_steps(tiny):
+    _, _, model, tokens = tiny
+    _, cfg = _cfgs()
+    logits, caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    none, same = TL.decode_tokens(model, tok, caches, 0, cfg)
+    assert none.shape == (2, 0) and none.dtype == torch.int32 and same is caches
+    assert all(c["length"].tolist() == [40, 40] for c in caches)
+
+
+@pytest.mark.parametrize("mode", ["int8", "k4v8"])
+def test_decode_tokens_advances_the_callers_caches_in_place(tiny, mode):
+    """The caller's caches come back as they went in, every layer's
+    ``length`` buffer advanced by the tokens decoded (the graph on the card
+    replays these same buffers), and a second call goes on from them as one
+    longer call does."""
+    _, _, model, tokens = tiny
+    _, cfg = _cfgs(**CACHES[mode])
+    logits, caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg)
+    _, again = TL.llm_prefill(model, torch.from_numpy(tokens), cfg)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    buffers = [c["length"] for c in caches]
+    got, out = TL.decode_tokens(model, tok, caches, 3, cfg)
+    assert out is caches and all(c["length"] is buf for c, buf in zip(caches, buffers))
+    assert all(c["length"].tolist() == [43, 43] for c in caches)
+    assert tok.tolist() == torch.argmax(logits[:, -1], dim=-1).tolist()  # the caller's token is not written
+    more, _ = TL.decode_tokens(model, got[:, -1], caches, 2, cfg)
+    whole, _ = TL.decode_tokens(model, tok, again, 5, cfg)
+    assert torch.equal(torch.cat([got, more], dim=1), whole)
+    assert all(torch.equal(c[k], w[k]) for c, w in zip(caches, again) for k in c)
+    assert all(c["length"].tolist() == [45, 45] for c in caches)
+
+
+def test_launch_counts_add_and_restore():
+    """The graph decode adds a captured step's launches once a replay."""
+    before = TL._launch_counts()
+    delta = {key: 0 for key in before}
+    d_key = (td.decode_attention, None)
+    delta[d_key], delta[(td.decode_attention, "bulk_ring")] = 3, 3
+    TL._add_launch_counts(delta, 5)
+    assert td.decode_attention.launches == before[d_key] + 15
+    assert td.decode_attention.launches_by_design["bulk_ring"] == before[(td.decode_attention, "bulk_ring")] + 15
+    TL._add_launch_counts(delta, -5)
+    assert TL._launch_counts() == before

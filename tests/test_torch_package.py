@@ -612,7 +612,7 @@ def test_decode_edges_match_plain(cuda, case):
     rows 0 / -1e30); o and the LSE the same bits on a second run."""
     bits, b, h, hk, d, s, lengths, q_dtype = DECODE_EDGES[case]
     if lengths is None:
-        slots = decode_ops._resident_ctas(0, d, bits == 8, bits == 8, bits == 8)
+        slots = decode_ops._resident_ctas(0, d, bits, bits, bits == 8)
         chunk = decode_ops.num_splits(s, b * hk, slots)[1]
         lengths = [chunk - 1, chunk, chunk + 1, 2 * chunk + 1]
     g = torch.Generator(device=cuda).manual_seed(10)
@@ -637,6 +637,140 @@ def test_decode_edges_match_plain(cuda, case):
     for i, n_keys in enumerate(lengths):
         if n_keys == 0:
             assert float(o[i].float().abs().max()) == 0.0 and bool((lse[i] == -1e30).all())
+
+
+# Kernel D's 4-bit modes: (k_bits, v_bits, compute_mode) by name.
+DECODE_4BIT_MODES = {"int4": (4, 4, "auto"), "int4-int-qk": (4, 4, "int_qk"), "k4v8": (4, 8, "auto"),
+                     "k4v8-int-qk": (4, 8, "int_qk"), "k8v4": (8, 4, "auto"), "k4v16": (4, 16, "auto")}
+DECODE_4BIT_SHAPES = {
+    # name: (b, h, hk, d, s, lengths (None: around a split boundary), q dtype)
+    "d128-gqa-s4500": (4, 32, 8, 128, 4500, [4500, 1, 4097, 0], torch.bfloat16),
+    "lengths-127-128-129": (4, 32, 8, 128, 2048, [127, 128, 129, 2048], torch.bfloat16),
+    "split-boundary": (4, 32, 8, 128, 4096, None, torch.bfloat16),
+    "gqa-group8": (2, 64, 8, 128, 3000, [3000, 1999], torch.bfloat16),
+    "d64-mha": (2, 8, 8, 64, 1000, [1000, 77], torch.bfloat16),
+    "f32-q-d32": (3, 8, 2, 32, 777, [777, 1, 0], torch.float32),
+}
+
+
+def _decode_4bit_case(cuda, mode, shape):
+    k_bits, v_bits, compute_mode = DECODE_4BIT_MODES[mode]
+    b, h, hk, d, s, lengths, q_dtype = DECODE_4BIT_SHAPES[shape]
+    int_qk = compute_mode == "int_qk" or k_bits == 8
+    if lengths is None:
+        chunk = decode_ops.num_splits(s, b * hk, decode_ops._resident_ctas(0, d, k_bits, v_bits, int_qk))[1]
+        lengths = [chunk - 1, chunk, chunk + 1, 2 * chunk + 1]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    k = torch.randn(b, hk, s, d, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, hk, s, d, generator=g, device=cuda).bfloat16()
+    q = torch.randn(b, h, d, generator=g, device=cuda).to(q_dtype)
+    (kq, ks), (vq, vs) = quantize_token(k, bits=k_bits), quantize_token(v, bits=v_bits)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = dict(v_scale=vs, k_bits=k_bits, v_bits=v_bits, compute_mode=compute_mode, return_lse=True)
+    plain = (q, kq, vq, ks, vs if v_bits != 16 else None, lens)
+    return kw, (q, kq, vq, ks, lens), plain, dict(sm_scale=1.0 / math.sqrt(d), int_qk=int_qk, out_dtype=q.dtype), lengths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(DECODE_4BIT_SHAPES))
+@pytest.mark.parametrize("mode", list(DECODE_4BIT_MODES))
+def test_decode_4bit_kernels_match_plain(cuda, mode, shape):
+    """Kernel D's packed 4-bit sides (int4, k4v8 and the other mixes; the
+    float and the integer QK chain) against the plain version at phase 9's
+    edges: cos >= 0.99999, max|do| <= one bf16 ulp of max|o|, max|dlse| <=
+    1e-4, empty rows 0 / -1e30, the same bits on a second run, every launch
+    on the design."""
+    kw, args, plain, plain_kw, lengths = _decode_4bit_case(cuda, mode, shape)
+    n = decode_attention.launches_by_design["bulk_ring"]
+    o, lse = decode_attention(*args, **kw)
+    o2, lse2 = decode_attention(*args, **kw)
+    o_ref, lse_ref = decode_attention_plain(*plain, **plain_kw)
+    torch.cuda.synchronize()
+    assert decode_attention.launches_by_design["bulk_ring"] == n + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ulp = 2.0 ** (math.floor(math.log2(float(o_ref.float().abs().max()))) - 7)
+    assert float(cosine_similarity(o, o_ref)) >= 0.99999
+    assert float((o.float() - o_ref.float()).abs().max()) <= ulp
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    for i, n_keys in enumerate(lengths):
+        if n_keys == 0:
+            assert float(o[i].float().abs().max()) == 0.0 and bool((lse[i] == -1e30).all())
+
+
+GRAPH_CACHES = {"int8": dict(kv_bits=8), "bf16": dict(kv_bits=16), "int4": dict(kv_bits=4),
+                "k4v8": dict(kv_bits=8, k_bits=4)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weights", ["dense", "w4"])
+@pytest.mark.parametrize("mode", list(GRAPH_CACHES))
+def test_decode_tokens_graph_equals_eager_stepping(cuda, mode, weights):
+    """``decode_tokens`` on the card (one captured step, replayed) against a
+    loop of ``llm_decode_step`` from cloned caches: the same tokens and
+    bit-equal caches; the launch counters count each replay (depth D
+    launches a step, 6 F2 launches a layer and step with w4 weights); D's
+    and F2's merge tickets are zero after the replays; a second call
+    replays the cached graph."""
+    cfg = llm.tiny_llm_config(dim=256, depth=2, num_heads=4, num_kv_heads=2, max_seq=128, dtype=torch.bfloat16,
+                              **GRAPH_CACHES[mode])
+    model = llm.init_llm_params(cfg, torch.Generator(device=cuda).manual_seed(3))
+    if weights == "w4":
+        model = llm.quantize_llm_params(model, bits=4)
+    prompt = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    logits, caches = llm.llm_prefill(model, prompt, cfg)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    copy = [{k: v.clone() for k, v in c.items()} for c in caches]
+    n_d, n_f2 = decode_attention.launches, gemv.wq_matmul_fused.launches
+    got, out_caches = llm.decode_tokens(model, tok, caches, 6, cfg)
+    torch.cuda.synchronize()
+    f2_per_step = 6 * cfg.depth if weights == "w4" else 0
+    assert decode_attention.launches - n_d == 6 * cfg.depth
+    assert gemv.wq_matmul_fused.launches - n_f2 == 6 * f2_per_step
+    want, t = [], tok
+    for _ in range(6):
+        step_logits, copy = llm.llm_decode_step(model, t, copy, cfg)
+        t = torch.argmax(step_logits, dim=-1).to(torch.int32)
+        want.append(t)
+    assert torch.equal(got, torch.stack(want, dim=1))
+    for c, w in zip(out_caches, copy):
+        assert all(torch.equal(c[k], w[k]) for k in c), mode
+    assert int(out_caches[0]["length"][0]) == 46
+    assert not decode_ops._TICKETS[got.device].any()
+    if weights == "w4":
+        assert not gemv._TICKETS[got.device].any()
+    graph = llm._last_graph
+    n_d = decode_attention.launches
+    more, _ = llm.decode_tokens(model, got[:, -1], out_caches, 3, cfg)  # replays the graph captured above
+    torch.cuda.synchronize()
+    assert llm._last_graph is graph and decode_attention.launches - n_d == 3 * cfg.depth
+    assert int(out_caches[1]["length"][1]) == 49 and more.shape == (2, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "k4v8", "bf16"])
+def test_chunked_prefill_on_the_card(cuda, mode):
+    """``llm_prefill_chunked`` at head_dim 64 (4-bit K into kernel A's
+    packed mode): per layer one C1 and one A a chunk and one more A for
+    every chunk after the first; the same caches as the CPU run of the plain
+    versions up to the kernels' rounding (K rows cos >= 0.999, 0.99 at 4
+    bits; last-token logits >= 0.999, 0.995)."""
+    cfg = llm.tiny_llm_config(dim=256, depth=2, num_heads=4, num_kv_heads=2, max_seq=300, dtype=torch.bfloat16,
+                              **GRAPH_CACHES[mode])
+    model = llm.init_llm_params(cfg, torch.Generator(device="cpu").manual_seed(3), device="cpu")
+    prompt = torch.randint(0, cfg.vocab, (2, 280), generator=torch.Generator().manual_seed(4))
+    want_logits, want = llm.llm_prefill_chunked(model, prompt, cfg, chunk=128)
+    n_a, n_c1 = lowbit_attention.launches, quant_int8.launches
+    logits, caches = llm.llm_prefill_chunked(model.to(cuda), prompt.to(cuda), cfg, chunk=128)
+    torch.cuda.synchronize()
+    assert quant_int8.launches - n_c1 == 3 * cfg.depth and lowbit_attention.launches - n_a == 5 * cfg.depth
+    k_min, logits_min = (0.99, 0.995) if cfg.eff_k_bits == 4 else (0.999, 0.999)
+    assert float(cosine_similarity(logits.float().cpu(), want_logits.float())) >= logits_min
+    for c, w in zip(caches, want):
+        assert c["length"].tolist() == [280, 280]
+        got_k = llm._dequant_cache_rows(c["k"][:, :, :280].cpu(), c["k_scale"][:, :, :280].cpu(), cfg.eff_k_bits,
+                                        torch.float32)
+        want_k = llm._dequant_cache_rows(w["k"][:, :, :280], w["k_scale"][:, :, :280], cfg.eff_k_bits, torch.float32)
+        assert float(cosine_similarity(got_k, want_k)) >= k_min
 
 
 FUSED_KV_EDGES = {
