@@ -165,7 +165,38 @@ Phases, each of which raises on failure (exit code 1, no result line):
    that chunk's shapes (in-chunk causal int8 K; packed int4 K over the
    cache's 126,976 rows, non-causal) and kernel D on layer 0's 128K k4v8
    cache (both QK chains) against their plain versions, at phase 4's and
-   phase 9's bounds, the packed-K A and the float-chain D timed.
+   phase 9's bounds, the packed-K A and the float-chain D timed; and
+   phase 15's 128K rows (below);
+15. kernel A's masks and kernel D's window walk (run after phase 13, on its
+   model, before phase 14): A in every mode (int8, Q quantized in the
+   kernel, fp, packed INT4/INT2 K, INT8 V, INT8 PV; d64 and d128) at the
+   masks' edges (a window below and not a multiple of the 128-key tile,
+   sinks not a tile multiple and past the window's start, a q offset that
+   empties every band, Sq != Sk, segment ids cut inside tiles with a q
+   segment no key has, the logit cap with and without a window) against
+   the plain version at phase 4's bounds, empty rows o = 0 / lse -1e30, the
+   same bits twice, every launch on wgmma; then A timed at
+   bench/window_bench.py's prefill shape (b4 h32 s32768 d64 causal, int8):
+   full, window 4096, window 1024, window 1024 + sink 128, fp window 4096
+   beside SDPA with the boolean band mask; at the window LLM's prefill
+   shape (b4 h32 hk8 s32704 d128, window 4096, with and without 4 sinks;
+   these two rows carry the window LLM's prefill launches); lowbit_fa_varlen at b1
+   h32 d128 over 32,768 ragged causal tokens (one C1 and one A; SDPA with
+   the block-diagonal mask beside it); the logit cap 50 at the DiT shape;
+   each against the plain version on all its inputs (the int8 rows one
+   batch row at a time). D's window walk at b4
+   h32 hk8 S_max 32768 d128 (window 4096, + 4 and + 128 sinks; int8 on both
+   chains, bf16 beside SDPA with a window mask, k4v8 on both chains) at
+   lengths below the window, at and inside tile edges and full, against the
+   plain version at phase 9's bounds, the same bits twice, timed at full
+   length; window 8192 (+ 128 sinks) on phase 14's 128K k4v8 layer-0 cache,
+   both chains. Then phase 13's model with window_size 4096 (Mistral-7B's
+   sliding_window), b4, the 32,704-token prompt: llm_prefill and 32 graph
+   tokens with the int8 and the bf16 cache, then int8 with 4 sinks
+   (StreamingLLM); depth A / C1 launches a prefill and depth x 32 D a
+   decode, first-step logits int8 vs bf16 cache cos >= 0.999, 16 graph
+   tokens equal to the eager loop's with bit-equal caches, one profiled
+   decode step (D's share), window vs full-causal logits printed.
 
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
@@ -1885,6 +1916,7 @@ def full_width_phase():
             f"generated-token agreement {wagree:.4f}")
         if mode == "w8" and wcos < 0.99:
             raise AssertionError(f"w8 vs dense first-step logits cos {wcos} < 0.99")
+    first_int8 = res["int8"]["logits"]
     for mode in res:
         del res[mode]["tokens"], res[mode]["logits"]
     # One decode step under torch.profiler per weight format (a 256-token
@@ -1905,6 +1937,8 @@ def full_width_phase():
             ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) + f"; total {sum(cats.values()):.3f}; {top} "
             f"({time.perf_counter() - t0:.1f} s with its prefill)")
     del packed
+    # Phase 15's windowed LLM runs on this model (no second init).
+    res["_model"], res["_first_logits_int8"] = model, first_int8
     return res
 
 
@@ -2179,10 +2213,433 @@ def long_context_phase():
     # The two kernels' new shapes on this path, against their plain versions.
     res["A_cross"] = long_prefill_attention_check(model, prompt[:, ctx - chunk:], caches[0], ctx - chunk, cfg)
     res["D"] = long_decode_check(gen, caches[0], cfg)
+    # Phase 15's window walk on the same cache.
+    res["D_window"] = long_window_decode_check(gen, caches[0], cfg)
     res.update({"prefill_s": prefill_s, "decode_ms_per_token": wall_ms, "replay_ms": replay_ms, "peak_gib": peak / 2**30,
                 "cache_gb": cache_gb, "launches_prefill": pre, "launches": dec, "copy_share": copy_s / prefill_s,
                 "dequant_share": dequant_s / prefill_s, "profile": cats, "last_chunk_ms": chunk_ms})
     del caches, last, toks, prompt, model
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: kernel A's masks and kernel D's window walk
+# ---------------------------------------------------------------------------
+
+def check_masked(tag, r):
+    log(f"[A15] {tag}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items()))
+    if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= MAX_DO and r["max_dlse"] <= MAX_DLSE
+            and r["empty_ok"] and r.get("same_bits_twice", True) and r.get("on_design", True)):
+        raise AssertionError(f"kernel A's masks disagree with the plain version ({tag}): {r}")
+
+
+def mask_edge_phase(gen):
+    """Kernel A's masks in every mode at its edges (the grid of
+    utils/mask_cases.py, which the card tests run too), GQA 4q/2kv, against
+    attention_fwd_plain (which walks the same KV tiles) at phase 4's bounds;
+    rows that see no key o = 0 and lse -1e30; the same bits twice; every
+    launch on the wgmma design."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import attention_fwd_plain, lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import mask_cases
+
+    n_cases = 0
+    for mode in mask_cases.MODES:
+        worst = {"cos": 1.0, "max_do": 0.0, "max_dlse": 0.0}
+        for edge in mask_cases.EDGES:
+            case = mask_cases.make_case(mode, edge, gen, "cuda")
+            n = lowbit_attention.launches_by_design["wgmma"]
+            o, lse = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+            o2, lse2 = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+            o_ref, lse_ref = attention_fwd_plain(*case["plain_args"], **case["plain_kw"])
+            torch.cuda.synchronize()
+            r = mask_cases.masked_stats(o, lse, o_ref, lse_ref)
+            r["same_bits_twice"] = torch.equal(o, o2) and torch.equal(lse, lse2)
+            r["on_design"] = lowbit_attention.launches_by_design["wgmma"] == n + 2
+            r["empty_ok"] = r["empty_ok"] and r["empty_rows"] == case["empty_rows"]
+            check_masked(f"{mode}, {edge}", r)
+            worst = {"cos": min(worst["cos"], r["cos"]), "max_do": max(worst["max_do"], r["max_do"]),
+                     "max_dlse": max(worst["max_dlse"], r["max_dlse"])}
+            n_cases += 1
+        log(f"[A15] masks, {mode}: {len(mask_cases.EDGES)} edges, worst cos={worst['cos']:.6g} "
+            f"max_do={worst['max_do']:.4g} max_dlse={worst['max_dlse']:.4g}, empty rows 0 / -1e30, same bits twice, "
+            f"every launch on wgmma")
+    return n_cases
+
+
+def visible_pairs(s_q, s_k, causal=True, window=0, sink=0, q_offset=0, cu=None):
+    """(q, k) pairs kernel A's masks leave visible, per head: causal within
+    the window (r - window, r] and the sinks [0, sink); with ``cu``, causal
+    within each segment."""
+    if cu is not None:
+        return sum((b - a) * (b - a + 1) // 2 if causal else (b - a) ** 2 for a, b in zip(cu[:-1], cu[1:]))
+    if not causal:
+        return s_q * s_k
+    p = torch.arange(s_q, dtype=torch.int64) + q_offset
+    hi = p.clamp(max=s_k - 1)
+    lo = (p - window + 1).clamp(min=0) if window else torch.zeros_like(p)
+    n = (hi - lo + 1).clamp(min=0)
+    if window and sink:
+        n = n + torch.minimum(torch.full_like(p, sink), lo).clamp(min=0).minimum(hi + 1)
+    return int(n.sum())
+
+
+def a_record(name, call, plain, pairs, h, d, mode, byte_tensors, out_bytes, library=None):
+    """Kernel A on one windowed/segmented/capped call: the same bits twice,
+    against the plain version at phase 4's bounds, timed beside the plain
+    version (one call between CUDA events) and a library call where one
+    computes the same function; bound: 4·D operations per visible pair (QK
+    in int8 for the int8 mode, PV in bf16) and the bytes of its inputs and
+    output."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import mask_cases
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms, tflops
+
+    n = lowbit_attention.launches_by_design["wgmma"]
+    o, lse = call(True)
+    o2, lse2 = call(True)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    o_ref, lse_ref = plain()
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)
+    r = mask_cases.masked_stats(o, lse, o_ref, lse_ref)
+    r["same_bits_twice"] = torch.equal(o, o2) and torch.equal(lse, lse2)
+    r["on_design"] = lowbit_attention.launches_by_design["wgmma"] == n + 2
+    check_masked(name, r)
+    del o, o2, lse, lse2, o_ref, lse_ref
+    ms = cuda_time_ms(lambda: call(False), warmup=2, reps=10)
+    flops = 4 * d * pairs * h
+    ops = {"int8": flops // 2, "bf16": flops // 2} if mode != "fp" else {"bf16": flops}
+    lim = bound(nbytes(*byte_tensors) + out_bytes, ops)
+    library_ms = None
+    if library is not None:  # the memory-efficient backend: SDPA's math one would materialise [B, H, S, S]
+        with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION):
+            library_ms = cuda_time_ms(library, warmup=1, reps=3)
+    log(f"[A15] {name}: kernel {ms:.3f} ms ({tflops(flops, ms / 1e3):.1f} TFLOP/s over {pairs * h:.4g} visible "
+        f"pairs), plain {plain_ms:.3f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}, "
+        f"{lim['bound_ms'] / ms:.1%} of it), exp2 floor {exp_floor_ms(pairs * h):.4f} ms, library {library_ms}")
+    return {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": library_ms,
+            "exp_floor_ms": exp_floor_ms(pairs * h), "design": "wgmma"}
+
+
+def band_mask(s, window=0, sink=0, cu=None):
+    """The boolean [S, S] mask of a causal window with sinks (or of causal
+    segments), for SDPA's attn_mask (True: visible)."""
+    r = torch.arange(s, device="cuda")[:, None]
+    c = torch.arange(s, device="cuda")[None, :]
+    m = c <= r
+    if window:
+        m &= (c + window > r) | (c < sink)
+    if cu is not None:
+        seg = torch.searchsorted(torch.tensor(cu[1:], device="cuda"), torch.arange(s, device="cuda"), right=True)
+        m &= seg[:, None] == seg[None, :]
+    return m
+
+
+def window_attention_phase(gen):
+    """Kernel A with the band at bench/window_bench.py's prefill shape, b4
+    h32 s32768 d64 causal, int8 (K codes from C1 with its mean, Q quantized
+    in the kernel): full, window 4096, window 1024, window 1024 + sink 128,
+    and fp at window 4096 beside SDPA with the boolean band mask; the window
+    LLM's prefill shape (b4 h32 hk8 s32704 d128, window 4096, with and
+    without 4 sinks); the varlen entry at b1 h32 d128 over 32,768 ragged
+    tokens; the logit cap at the DiT shape. Each against the plain version
+    on all of its inputs (the int8 rows one batch row at a time, as phase
+    14 does) and timed."""
+    from lowbit_quant_fa2_paddle_tpu_torch import core
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import k_mean, quant_int8
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import mask_cases
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    rec = {}
+
+    def int8_rows(b, h, hk, s, d, cases, tag):
+        q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+        k = (torch.randn(b, hk, s, d, generator=gen, device="cuda") + 0.3).bfloat16()
+        v = torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
+        kc, ks = quant_int8(k, k_mean(k), gran="per_token")
+        c = 1.0 / math.sqrt(d) * LOG2E
+        for key, (window, sink) in cases.items():
+            kw = dict(is_causal=True, window_size=window, sink_size=sink)
+            masks = mask_cases.plain_masks(True, s, kw)
+            name = f"int8 {key}; {tag}"
+            rows = lambda masks=masks: (  # noqa: E731
+                attention_fwd_plain(q[i : i + 1], kc[i : i + 1], v[i : i + 1], None, ks[i : i + 1], None, causal=True,
+                                    sm_scale_log2e=c, out_dtype=torch.bfloat16, **masks) for i in range(b))
+            rec[name] = a_record(
+                name, lambda lse, kw=kw: lowbit_attention(q, kc, v, None, ks, **kw, return_lse=lse),
+                lambda rows=rows: tuple(torch.cat(x) for x in zip(*rows())),
+                visible_pairs(s, s, True, masks["window"], masks["sink"]), b * h, d, "int8", (q, kc, ks, v),
+                b * h * s * d * 2)
+        del q, k, v, kc, ks
+
+    bench = "b4 h32 s32768 d64 causal"
+    int8_rows(4, 32, 32, 32768, 64, {"full causal": (None, 0), "window 4096": (4096, 0), "window 1024": (1024, 0),
+                                      "window 1024 + sink 128": (1024, 128)}, bench)
+    int8_rows(4, 32, 8, 32704, 128, {"window 4096": (4096, 0), "window 4096 + sink 4": (4096, 4)},
+              "window LLM prefill b4 h32 hk8 s32704 d128 causal")
+    # fp at window 4096 beside SDPA with the boolean band mask (one call fits in memory).
+    b, h, s, d = 4, 32, 32768, 64
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    kw = dict(is_causal=True, window_size=4096)
+    masks = mask_cases.plain_masks(True, s, kw)
+    c = 1.0 / math.sqrt(d) * LOG2E
+    band = band_mask(s, 4096)
+    plain = lambda: attention_fwd_plain(q, k, v, None, None, None, causal=True, sm_scale_log2e=c,  # noqa: E731
+                                        out_dtype=torch.bfloat16, **masks)
+    name = f"fp window 4096; {bench}"
+    rec[name] = a_record(name, lambda lse: lowbit_attention(q, k, v, **kw, return_lse=lse), plain,
+                         visible_pairs(s, s, True, 4096), b * h, d, "fp", (q, k, v), b * h * s * d * 2,
+                         library=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=band))
+    del q, k, v, band
+    torch.cuda.empty_cache()
+    # The varlen entry: b1 h32 d128, 32,768 tokens in ragged causal sequences.
+    cu = [0, 1000, 9000, 9001, 20000, 32768]
+    h, t, d = 32, 32768, 128
+    q, k, v = (torch.randn(t, h, d, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    cu_t = torch.tensor(cu, dtype=torch.int32, device="cuda")
+    count_reset()
+    o_entry = core.lowbit_fa_varlen(q, k, v, cu_t, cu_t, is_causal=True)
+    varlen_launches = counts()
+    if varlen_launches["A"] != 1 or varlen_launches["C1"] != 1 or design_counts() != {"wgmma": 1}:
+        raise AssertionError(f"lowbit_fa_varlen launches {varlen_launches} (want one C1 and one A on wgmma)")
+    entry_ms = cuda_time_ms(lambda: core.lowbit_fa_varlen(q, k, v, cu_t, cu_t, is_causal=True), warmup=2, reps=10)
+    qh, kh, vh = (x.transpose(0, 1)[None] for x in (q, k, v))
+    kc, ks = quant_int8(kh, k_mean(kh), gran="per_token")
+    seg = torch.searchsorted(cu_t[1:].contiguous(), torch.arange(t, device="cuda", dtype=torch.int32),
+                             right=True).to(torch.int32)[None]
+    kw = dict(is_causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    masks = mask_cases.plain_masks(True, t, kw)
+    c = 1.0 / math.sqrt(d) * LOG2E
+    plain = lambda: attention_fwd_plain(qh, kc, vh, None, ks, None, causal=True, sm_scale_log2e=c,  # noqa: E731
+                                        out_dtype=torch.bfloat16, **masks)
+    seg_mask = band_mask(t, cu=cu)
+    name = "int8 segment ids (varlen, 5 sequences of 1-11,000 tokens); b1 h32 s32768 d128 causal"
+    rec[name] = a_record(name, lambda lse: lowbit_attention(qh, kc, vh, None, ks, **kw, return_lse=lse), plain,
+                         visible_pairs(t, t, True, cu=cu), h, d, "int8", (q, kc, ks, v, seg), t * h * d * 2,
+                         library=lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
+                                                                                           attn_mask=seg_mask))
+    rec[name]["launches"] = varlen_launches["A"]
+    rec[name]["entry_ms"] = entry_ms
+    # The entry quantizes K as above and hands kernel A the same call: the same bits.
+    same = torch.equal(o_entry, lowbit_attention(qh, kc, vh, None, ks, **kw)[0].transpose(0, 1))
+    log(f"[A15] lowbit_fa_varlen entry (C1 + A): {entry_ms:.3f} ms; its output the same bits as the kernel call "
+        f"checked above: {same}")
+    if not same:
+        raise AssertionError("lowbit_fa_varlen's output differs from kernel A's on the same codes")
+    del q, k, v, qh, kh, vh, kc, ks, seg_mask, o_entry
+    torch.cuda.empty_cache()
+    # The logit cap at the DiT shape (Gemma 2's attention cap, 50).
+    h, s, d = H, S, D
+    q = torch.randn(1, h, s, d, generator=gen, device="cuda").bfloat16()
+    k = (torch.randn(1, h, s, d, generator=gen, device="cuda") + 0.3).bfloat16()
+    v = torch.randn(1, h, s, d, generator=gen, device="cuda").bfloat16()
+    kc, ks = quant_int8(k, k_mean(k), gran="per_token")
+    c = 1.0 / math.sqrt(d) * LOG2E
+    plain = lambda: attention_fwd_plain(q, kc, v, None, ks, None, causal=False, sm_scale_log2e=c,  # noqa: E731
+                                        out_dtype=torch.bfloat16, logit_cap=50.0)
+    name = f"int8 logit cap 50; DiT shape b1 h{h} s{s} d{d}"
+    rec[name] = a_record(name, lambda lse: lowbit_attention(q, kc, v, None, ks, logit_cap=50.0, return_lse=lse),
+                         plain, s * s, h, d, "int8", (q, kc, ks, v), h * s * d * 2)
+    del q, k, v, kc, ks
+    return rec
+
+
+#: Kernel D's windowed modes in phase 15: (k_bits, v_bits, compute_mode).
+WINDOW_DECODE_MODES = {"int8 cache": (8, 8, "auto"), "int8 cache, float chain": (8, 8, "f32"),
+                       "bf16 cache": (16, 16, "auto"), "k4v8 cache": (4, 8, "auto"),
+                       "k4v8 cache, integer chain": (4, 8, "int_qk")}
+
+
+def window_decode_record(tag, q, kq, vq, ks, vs, lens, k_bits, v_bits, chain, window, sink):
+    """Kernel D with a window (and sinks) against its plain version at phase
+    9's bounds, the same bits twice, every launch on its design; timed beside
+    the plain version; bound: the bytes of the rows it reads. For a bf16
+    cache, SDPA with one query a head and a boolean window mask is the
+    library call."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    b, h, d = q.shape
+    hk, s_max = kq.shape[1], kq.shape[2]
+    kw = dict(v_scale=vs, k_bits=k_bits, v_bits=v_bits, compute_mode=chain, window_size=window, sink_size=sink)
+    pkw = dict(sm_scale=1.0 / math.sqrt(d), int_qk=k_bits == 8 and chain != "f32" or chain == "int_qk",
+               out_dtype=q.dtype, window=window, sink=sink)
+    vs_p = vs if v_bits != 16 else None
+    n = DD.decode_attention.launches_by_design[DD.kernel_design()]
+    o, lse = DD.decode_attention(q, kq, vq, ks, lens, **kw, return_lse=True)
+    o2, lse2 = DD.decode_attention(q, kq, vq, ks, lens, **kw, return_lse=True)
+    o_ref, lse_ref = DD.decode_attention_plain(q, kq, vq, ks, vs_p, lens, **pkw)
+    torch.cuda.synchronize()
+    r = stats(o, o_ref, lse, lse_ref)
+    ulp = bf16_ulp(float(o_ref.float().abs().max()))
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    on_design = DD.decode_attention.launches_by_design[DD.kernel_design()] == n + 2
+    log(f"[D15] {tag} (lengths {lens.tolist()}): " +
+        " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items()) +
+        f" bf16_ulp={ulp:.3g} same_bits_twice={same} design={DD.kernel_design()}:{on_design}")
+    if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= ulp and r["max_dlse"] <= 1e-4 and same
+            and on_design):
+        raise AssertionError(f"kernel D's window walk disagrees with its plain version ({tag}): {r}")
+    del o, o2, o_ref
+    ms = cuda_time_ms(lambda: DD.decode_attention(q, kq, vq, ks, lens, **kw), warmup=5, reps=50)
+    plain_ms = cuda_time_ms(lambda: DD.decode_attention_plain(q, kq, vq, ks, vs_p, lens, **pkw), warmup=1, reps=3)
+    length = lens.long().clamp(max=s_max)
+    rows = int((length.clamp(max=window) + (length - window).clamp(min=0).clamp(max=sink)).sum())
+    # K and V rows (packed, int8 or bf16), K's scale (read for every cache) and a quantized V's.
+    row_bytes = (d // 2 if k_bits == 4 else d * (2 if k_bits == 16 else 1)) + d * (2 if v_bits == 16 else 1) + 4
+    row_bytes += 4 if v_bits != 16 else 0
+    lim = bound(hk * rows * row_bytes + nbytes(q, lens) * 2)
+    library_ms = None
+    if k_bits == 16:
+        pos = torch.arange(s_max, device="cuda")[None, :]
+        vis = (pos < length.cuda()[:, None]) & ((pos >= length.cuda()[:, None] - window) | (pos < sink))
+        vis = vis[:, None, None, :]
+        q4 = q[:, :, None]
+        library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kq, vq, attn_mask=vis, enable_gqa=True), warmup=3, reps=20)
+    log(f"[D15] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
+        f"({rows} rows a KV head; {lim['bound_ms'] / ms:.1%} of it), library {library_ms}")
+    return {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": library_ms,
+            "design": DD.kernel_design()}
+
+
+def window_decode_phase(gen):
+    """Kernel D's window walk at b4 h32 hk8 S_max 32768 d128 (window 4096;
+    + 4 and + 128 sinks), int8 (both chains), bf16 and k4v8 (both chains):
+    checked at lengths below the window, at and inside a tile edge and
+    full, then timed at full length."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import quantize_token
+
+    b, h, hk, d, s = 4, 32, 8, 128, 32768
+    k = torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
+    q = torch.randn(b, h, d, generator=gen, device="cuda").bfloat16()
+    check = torch.tensor([32768, 30001, 4160, 100], dtype=torch.int32, device="cuda")
+    full = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    rec = {}
+    for mode, (k_bits, v_bits, chain) in WINDOW_DECODE_MODES.items():
+        (kq, ks), (vq, vs) = quantize_token(k, bits=k_bits), quantize_token(v, bits=v_bits)
+        sinks = (0, 4, 128) if mode == "int8 cache" else (0, 128)
+        for sink in sinks:
+            tag = f"{mode}, window 4096{f' + sink {sink}' if sink else ''}"
+            window_decode_record(f"{tag}, check", q, kq, vq, ks, vs, check, k_bits, v_bits, chain, 4096, sink)
+            rec[tag] = window_decode_record(f"{tag}, b{b} h{h} hk{hk} d{d} S_max {s}", q, kq, vq, ks, vs, full,
+                                            k_bits, v_bits, chain, 4096, sink)
+        del kq, vq, ks, vs
+    return rec
+
+
+def long_window_decode_check(gen, cache, cfg):
+    """Kernel D's window walk on layer 0's 128K k4v8 cache (window 8192,
+    with and without 128 sinks, both QK chains), against the plain version
+    and timed beside the full walk (long_decode_check's)."""
+    q = torch.randn(cache["k"].shape[0], cfg.num_heads, cfg.head_dim, generator=gen, device="cuda").bfloat16()
+    rec = {}
+    for sink in (0, 128):
+        for chain in ("auto", "int_qk"):
+            chain_tag = ", integer chain" if chain == "int_qk" else ""
+            tag = f"k4v8 cache{chain_tag}, window 8192{f' + sink {sink}' if sink else ''}"
+            rec[tag] = window_decode_record(f"{tag} on layer 0's 128K cache", q, cache["k"], cache["v"],
+                                            cache["k_scale"], cache["v_scale"], cache["length"], 4, 8, chain, 8192,
+                                            sink)
+    return rec
+
+
+def window_llm_phase(model, full_logits):
+    """The sliding-window LLM at full width: phase 13's model with
+    window_size 4096 (Mistral-7B-v0.1's sliding_window), b4, its
+    32,704-token prompt, llm_prefill then 32 tokens through decode_tokens,
+    with the int8 and the bf16 cache, then int8 with StreamingLLM's 4 sinks.
+    Checks: depth A (wgmma) and C1 (vector) per prefill and depth x tokens D
+    launches (bulk_ring); the first decode step's logits int8 vs bf16 cache
+    cos >= 0.999; on the int8 run 16 graph tokens against the eager loop
+    from cloned caches (the same tokens, bit-equal caches). Records prefill
+    seconds, ms per token, peak memory, one profiled decode step, and the
+    windowed vs full-causal first-step logits cos (no bound)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+
+    b, prompt_len, n_new = 4, 32704, 32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    base = model.cfg
+    prompt = torch.randint(0, base.vocab, (b, prompt_len), generator=gen, device="cuda")
+    res = {}
+    for mode, bits, sink in (("int8", 8, 0), ("bf16", 16, 0), ("int8 sink 4", 8, 4)):
+        cfg = dataclasses.replace(base, max_seq=32768, kv_bits=bits, window_size=4096, sink_size=sink)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        first = FirstLogits(model)
+        count_reset()
+        t0 = time.perf_counter()
+        logits, caches = llm.llm_prefill(model, prompt, cfg)
+        token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        del logits
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre, pre_designs = counts(), (design_counts("A"), design_counts("C1"))
+        cmp = None
+        if mode == "int8":
+            copy = [{k: v.clone() for k, v in c.items()} for c in caches]
+            graph_toks, caches, _, _, _ = graph_decode(model, token, caches, 16, cfg)
+            t, loop_toks = token, []
+            for _ in range(16):
+                step_logits, copy = llm.llm_decode_step(model, t, copy, cfg)
+                t = torch.argmax(step_logits, dim=-1).to(torch.int32)
+                loop_toks.append(t)
+            same_toks = torch.equal(graph_toks, torch.stack(loop_toks, dim=1))
+            same_caches = all(torch.equal(c[k], w[k]) for c, w in zip(caches, copy) for k in c)
+            log(f"[llm15] window 4096 int8: 16 graph tokens vs the eager loop: tokens identical {same_toks}, caches "
+                f"bit-equal {same_caches}")
+            if not (same_toks and same_caches):
+                raise AssertionError("the windowed graph decode differs from the eager loop of llm_decode_step")
+            cmp = {"tokens_identical": same_toks, "caches_bit_equal": same_caches}
+            del copy, graph_toks
+            token = t
+        count_reset()
+        steps, caches, wall_ms, replay_ms, call_s = graph_decode(model, token, caches, n_new, cfg)
+        dec = counts()
+        peak = torch.cuda.max_memory_allocated()
+        first.remove()
+        d_designs = design_counts("D")
+        want_pre = {**{k: 0 for k in pre}, "A": cfg.depth, "C1": cfg.depth}
+        want_dec = {**{k: 0 for k in pre}, "D": cfg.depth * n_new}
+        log(f"[llm15] window 4096{f' + sink {sink}' if sink else ''}, {'bf16' if bits == 16 else 'int8'} cache: "
+            f"prefill {prefill_s:.3f} s, graph decode {wall_ms:.3f} ms/token wall over {n_new - 10} replays "
+            f"(single-replay device ms median {statistics.median(replay_ms):.3f}, min {min(replay_ms):.3f}, max "
+            f"{max(replay_ms):.3f}; the first call {call_s:.2f} s), peak {peak / 2**30:.2f} GiB; launches prefill "
+            f"{pre} "
+            f"(want {want_pre}), decode {dec} (want {want_dec}), D by design {d_designs}")
+        if (pre != want_pre or dec != want_dec or d_designs != {"bulk_ring": cfg.depth * n_new}
+                or pre_designs != ({"wgmma": cfg.depth}, {"vector": cfg.depth, "scalar": 0})):
+            raise AssertionError(f"window LLM launch counts: {pre} / {dec} / {d_designs} / {pre_designs}")
+        if not (bool(((steps >= 0) & (steps < cfg.vocab)).all()) and first.logits is not None
+                and bool(torch.isfinite(first.logits).all())):
+            raise AssertionError("window LLM: bad tokens or non-finite first-step logits")
+        res[mode] = {"prefill_s": prefill_s, "decode_ms_per_token": wall_ms, "replay_ms": replay_ms,
+                     "peak_gib": peak / 2**30, "launches_prefill": pre, "launches": dec, "graph_vs_loop": cmp,
+                     "logits": first.logits}
+        if mode == "int8":
+            cats = cache_step_profile(model, steps[:, -1], caches, cfg)
+            res[mode]["profile"] = cats
+            log(f"[llm15] window 4096 int8 decode step device ms at a {prompt_len + 16 + n_new + 1}-token context: " +
+                ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) + f"; total {sum(cats.values()):.3f} "
+                f"(D {cats['D'] / sum(cats.values()):.1%})")
+        del caches, steps, first
+    cos = float(cosine_similarity(res["int8"]["logits"], res["bf16"]["logits"]))
+    vs_full = float(cosine_similarity(res["int8"]["logits"], full_logits))
+    sink_vs = float(cosine_similarity(res["int8 sink 4"]["logits"], res["int8"]["logits"]))
+    log(f"[llm15] first decode step logits: window int8 vs bf16 cache cos {cos:.6f} (>= 0.999); window vs full "
+        f"causal (phase 13, int8) cos {vs_full:.6f}; sink 4 vs none cos {sink_vs:.6f} (no bound)")
+    if cos < 0.999:
+        raise AssertionError(f"window LLM int8 vs bf16 cache first-step logits cos {cos} < 0.999")
+    for mode in res:
+        del res[mode]["logits"]
+    res.update({"cos_int8_bf16": cos, "cos_window_vs_full": vs_full, "cos_sink_vs_none": sink_vs})
     return res
 
 
@@ -2229,6 +2686,11 @@ def main():
     ckpt = timed(checkpoint_phase)
     timed(checkpoint_wq_phase)
     llm_r = timed(full_width_phase)
+    # Phase 15 (its 128K decode rows run in phase 14, on that phase's cache).
+    timed(mask_edge_phase, gen)
+    win_a = timed(window_attention_phase, gen)
+    win_d = timed(window_decode_phase, gen)
+    win_llm = timed(window_llm_phase, llm_r.pop("_model"), llm_r.pop("_first_logits_int8"))
     long_r = timed(long_context_phase)
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
@@ -2308,6 +2770,37 @@ def main():
             ("wq_matmul_fused (F2: 4-bit, group 128)", "g4", gemv["g4"]["launches"]),
             ("wq_matmul_fused (F2: 8-bit, group 128)", "g8", gemv["g8"]["launches"]),
         ]
+    ] + [
+        # Phase 15: A's masks. The window LLM's prefills run the two rows at its
+        # shape (int8 and bf16 cache: window 4096; the sink run: + 4 sinks).
+        dict(name=f"attention_fwd ({key})", launches=launches, **wgmma_src, **{k: win_a[key][k] for k in a_keys})
+        for key, launches in [
+            (f"int8 {w}; b4 h32 s32768 d64 causal", 0)
+            for w in ("full causal", "window 4096", "window 1024", "window 1024 + sink 128")] + [
+            ("fp window 4096; b4 h32 s32768 d64 causal", 0),
+            ("int8 window 4096; window LLM prefill b4 h32 hk8 s32704 d128 causal",
+             win_llm["int8"]["launches_prefill"]["A"] + win_llm["bf16"]["launches_prefill"]["A"]),
+            ("int8 window 4096 + sink 4; window LLM prefill b4 h32 hk8 s32704 d128 causal",
+             win_llm["int8 sink 4"]["launches_prefill"]["A"]),
+            ("int8 segment ids (varlen, 5 sequences of 1-11,000 tokens); b1 h32 s32768 d128 causal",
+             win_a["int8 segment ids (varlen, 5 sequences of 1-11,000 tokens); b1 h32 s32768 d128 causal"]["launches"]),
+            (f"int8 logit cap 50; DiT shape b1 h{H} s{S} d{D}", 0),
+        ]
+    ] + [
+        # Phase 15: D's window walk; the window LLM's decode runs the int8, bf16
+        # and int8 + 4 sinks rows at this shape.
+        dict(name=f"decode_attention ({key}; b4 h32 hk8 S_max 32768 d128)", route="cuda",
+             source=f"{src}/decode_attention.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
+             launches=launches, **{k: win_d[key][k] for k in timing + ("design",)})
+        for key, launches in [(key, {"int8 cache, window 4096": win_llm["int8"]["launches"]["D"],
+                                     "int8 cache, window 4096 + sink 4": win_llm["int8 sink 4"]["launches"]["D"],
+                                     "bf16 cache, window 4096": win_llm["bf16"]["launches"]["D"]}.get(key, 0))
+                              for key in win_d]
+    ] + [
+        dict(name=f"decode_attention ({key}; layer 0's 128K cache, b4 h32 hk8 S_max 133120 d128)", route="cuda",
+             source=f"{src}/decode_attention.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
+             launches=0, **{k: long_r["D_window"][key][k] for k in timing + ("design",)})
+        for key in long_r["D_window"]
     ] + [
         dict(name="fused_packed_kv_attention (int4 K/V)", route="cuda", source=f"{src}/fused_kv_attention_wgmma.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py:377", launches=fkv["launches"],

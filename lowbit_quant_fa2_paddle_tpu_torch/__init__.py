@@ -4,11 +4,13 @@ in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of ``lowbit_quant_fa2_paddle_tpu`` (JAX/Pallas on TPU), which stays
 beside it as the reference. This package imports ``torch`` and never
 ``jax``. Ported so far: the attention forward (kernel A) with INT8, packed
-INT4 or packed INT2 K and bf16 or INT8 V, its quantizers (kernels C1, C2,
-C3), the fp FA-2 baseline on the same kernel, the dispatching API with
-mixed-bit and multi-precision selection, the DiT denoiser that runs them,
-LLM generation over an int8 or bf16 KV cache with single-token decode
-attention (kernel D), weight-quantized models over packed-weight matmuls
+INT4 or packed INT2 K and bf16 or INT8 V and its masks (causal sliding
+window with sinks, segment ids, query offset, logit cap), its quantizers
+(kernels C1, C2, C3), the fp FA-2 baseline on the same kernel, the
+dispatching API with mixed-bit and multi-precision selection and the
+ragged-batch ``lowbit_fa_varlen``, the DiT denoiser that runs them, LLM
+generation (full causal or sliding-window with sinks) over an int8, 4-bit or
+bf16 KV cache with single-token decode attention (kernel D), weight-quantized models over packed-weight matmuls
 (kernels F1/F2, ``ops/gemv.py``, ``ops/pack.py``), attention over
 KIVI-grouped packed K/V (kernel E, ``ops/fused_kv.py``), and the FA-2
 backward (kernels G1/G2, ``ops/attention_bwd.py``) under the trainable
@@ -31,6 +33,7 @@ from lowbit_quant_fa2_paddle_tpu_torch.core import (
     lowbit_fa_qk_int8_pv_fp16_cuda,
     lowbit_fa_qk_int8_pv_fp16_triton,
     lowbit_fa_qk_int8_pv_int8,
+    lowbit_fa_varlen,
     manual_scaled_dot_product_attention,
     sageattn,
     sageattn_multi_precision,
@@ -38,6 +41,7 @@ from lowbit_quant_fa2_paddle_tpu_torch.core import (
     sageattn_qk_int8_pv_fp8_cuda,
     sageattn_qk_int8_pv_fp16_cuda,
     sageattn_qk_int8_pv_fp16_triton,
+    sageattn_varlen,
 )
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import flash_attention_fp
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd import flash_attention_trainable, lowbit_attention_trainable
@@ -51,6 +55,7 @@ __all__ = [
     "lowbit_fa_qk_int4_pv_fp16",
     "lowbit_fa_qk_int2_pv_fp16",
     "lowbit_fa_mixed_bits",
+    "lowbit_fa_varlen",
     "lowbit_fa_multi_precision",
     "flash_attention_fp",
     "flash_attention_trainable",
@@ -64,6 +69,7 @@ __all__ = [
     "sageattn_qk_int8_pv_fp16_cuda",
     "sageattn_qk_int8_pv_fp8_cuda",
     "sageattn_qk_int4_pv_fp16_triton",
+    "sageattn_varlen",
     "sageattn_multi_precision",
     "manual_scaled_dot_product_attention",
 ]

@@ -40,6 +40,7 @@ __all__ = [
     "lowbit_fa_qk_int4_pv_fp16",
     "lowbit_fa_qk_int2_pv_fp16",
     "lowbit_fa_mixed_bits",
+    "lowbit_fa_varlen",
     "lowbit_fa_multi_precision",
     "lowbit_fa_multi_precision_jit",
     "lowbit_fa_qk_int8_pv_fp16_triton",
@@ -51,6 +52,7 @@ __all__ = [
     "sageattn_qk_int8_pv_fp16_cuda",
     "sageattn_qk_int8_pv_fp8_cuda",
     "sageattn_qk_int4_pv_fp16_triton",
+    "sageattn_varlen",
     "sageattn_multi_precision",
     "compute_scale",
     "select_quantization",
@@ -326,6 +328,72 @@ def lowbit_fa_mixed_bits(q, k, v, bitmap, *, tensor_layout: str = "HND", block: 
     return lowbit_fa_qk_int8_pv_fp16(q, k_mixed, v, tensor_layout=tensor_layout, **kw)
 
 
+def lowbit_fa_varlen(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cu_seqlens_q: torch.Tensor,
+    cu_seqlens_k: torch.Tensor,
+    max_seqlen_q: Optional[int] = None,
+    max_seqlen_k: Optional[int] = None,
+    is_causal: bool = False,
+    sm_scale: Optional[float] = None,
+    qk_quant_gran: str = "per_token",
+    smooth_k: bool = True,
+    *,
+    window_size: Optional[int] = None,
+    sink_size: int = 0,
+    return_lse: bool = False,
+    kernel_space: str = "auto",
+    fuse_quant: Optional[bool] = None,
+    interpret: Optional[bool] = None,
+):
+    """Ragged-batch INT8 attention (reference ``sageattn_varlen``): packed
+    ``[total_tokens, H, D]`` inputs with ``cu_seqlens_*`` prefix sums, run as
+    one batch of segment ids in kernel A (tokens of different sequences never
+    see each other; causal masking within a segment is per-sequence causal
+    masking, the sequences being contiguous). Segment ids come from
+    ``torch.searchsorted`` on the inputs' device, with no host sync.
+    ``window_size``/``sink_size`` count in packed positions (within-sequence
+    distances; the sinks are the first packed keys, so only the first
+    sequence has them). Smooth-K takes the mean over the whole packed batch,
+    as the reference and the JAX package do. ``return_lse`` also returns the
+    natural-log LSE ``[H, total_q]``, corrected for smooth-K.
+
+    ``max_seqlen_*``, ``kernel_space``, ``fuse_quant`` and ``interpret`` are
+    accepted for parity and change nothing here: kernel A takes the packed
+    batch whole, and quantizes Q inside it at per-token granularity
+    (externally at per-block). Returns ``o [total_q, H, D]`` in ``v.dtype``.
+    """
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("varlen q, k and v are packed [total_tokens, H, D]")
+    d_og = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d_og)
+    qh, kh, vh = (x.transpose(0, 1)[None] for x in (q, k, v))  # [1, H, T, D]
+
+    def segments(cu, n):
+        cu = torch.as_tensor(cu, device=q.device)
+        return torch.searchsorted(cu[1:].contiguous(), torch.arange(n, device=q.device, dtype=cu.dtype),
+                                  right=True).to(torch.int32)[None]
+
+    q_seg, kv_seg = segments(cu_seqlens_q, q.shape[0]), segments(cu_seqlens_k, k.shape[0])
+    qp, kp = _pad_head_dim(qh), _pad_head_dim(kh)
+    km = quant_ops.k_mean(kp) if smooth_k else None
+    gk, bk = _gran_block(qk_quant_gran, "k")
+    k_codes, k_scale = quant_ops.quant_int8(kp, km, gran=gk, block=bk)
+    q_in, q_scale = _quant_q(qp, qk_quant_gran)
+    out = lowbit_attention(
+        q_in, k_codes, _pad_head_dim(vh), q_scale, k_scale, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+        is_causal=is_causal, window_size=window_size, sink_size=sink_size, sm_scale=sm_scale, out_dtype=v.dtype,
+        return_lse=return_lse,
+    )
+    o = (out[0] if return_lse else out)[0, :, :, :d_og].transpose(0, 1)
+    if return_lse:
+        return o, _finish_lse(out[1], qp, km, sm_scale)[0]
+    return o
+
+
 def compute_scale(x: torch.Tensor) -> torch.Tensor:
     """Per-tensor absmax scale ``max|x| / 127`` the selector averages
     (reference ``compute_scale``)."""
@@ -469,6 +537,7 @@ def sageattn_qk_int4_pv_fp16_triton(q, k, v, **kw):
     return lowbit_fa_qk_int4_pv_fp16(q, k, v, **kw)
 
 
+sageattn_varlen = lowbit_fa_varlen
 sageattn_multi_precision = lowbit_fa_multi_precision
 lowbit_fa_qk_int8_pv_fp16_triton = sageattn_qk_int8_pv_fp16_triton
 lowbit_fa_qk_int8_pv_fp16_cuda = sageattn_qk_int8_pv_fp16_cuda

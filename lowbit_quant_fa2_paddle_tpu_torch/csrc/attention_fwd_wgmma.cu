@@ -12,7 +12,13 @@
 // to [0, 127] (INT8 PV), with a v_scale epilogue; an optional v_mean; bf16
 // or f32 output; causal (top-left aligned) or not; GQA; any Sq, Sk; base-2
 // LSE out; head_dim 64 or 128. These are the DiT's int8, fp, int4 and
-// int8_v8 impls, the LLM prefill, the training forward and pv_int8.
+// int8_v8 impls, the LLM prefill, the training forward and pv_int8. The
+// masks of every mode, as the TPU kernel's _attn_body_km computes them
+// (:382-413): a causal sliding window (keys c + window > r + q_offset) with
+// attention sinks (keys c < sink), q_offset (query positions shifted, for
+// ring hops and windowed prefix prefill), segment ids (varlen), the KV
+// edge, and a logit cap s = c2 tanh(s / c2) in base 2 before the mask. A row
+// that sees no key gives o = 0 and lse = -1e30.
 //
 // Arithmetic over KV tiles of BKV keys, as in the TPU kernel:
 //   s  = (f32(i32 Q8 K8^T) * k_scale) * q_scale   q_scale holds sm_scale*log2e
@@ -53,12 +59,22 @@
 // of O += P V (m64nDk16, V MN-major from shared memory). The warpgroups take
 // turns on named barriers: each issues S of tile j+1 and PV of tile j as two
 // groups, and runs the softmax of tile j+1 as soon as S is in, under its own
-// PV and the others' products. Causal CTAs are launched heaviest first and stop their KV loop at the
-// diagonal; only diagonal and ragged tiles are masked. QK's type and the
-// staging ring are template parameters (4 kernels per head_dim); the Q, K
-// and V formats and the output type are read at run time.
+// PV and the others' products. Causal CTAs are launched heaviest first and
+// stop their KV loop at the diagonal; with a window they start it at the
+// band's first tile, after the tiles that hold sink keys (the TPU kernel's
+// _tri_schedule): the producer and the consumers walk that visit list
+// alike, and the ring's stage and phase follow the visit, not the tile.
+// Only tiles at the diagonal, the band's lower edge, the sinks or the KV
+// edge, and every tile of a call with segment ids, are masked; the
+// producer's first warp copies a tile's segment ids into shared memory
+// beside its K scales. QK's type, the staging ring and the masks (kMasks:
+// a window, a q offset, segment ids or a cap) are template parameters (8
+// kernels per head_dim); the Q, K and V formats and the output type are
+// read at run time. Calls without masks run kernels that carry none of the
+// masks' state: they take Args alone and compile to the same SASS as before
+// masks (script/torch_attention_ab.py --sass compares them).
 //
-// INT8 PV is a fifth and sixth kernel per head_dim (INT8 or bf16 QK). 8-bit
+// INT8 PV is two more kernels per head_dim and mask setting (INT8 or bf16 QK). 8-bit
 // wgmma takes B K-major, so the producer rewrites each staged INT8 V tile as
 // V^T, [D][128 keys] in 128-byte swizzled rows, with the keys of each 32-key
 // chunk in the order of the s8 A fragment: the S accumulator gives a thread
@@ -71,6 +87,7 @@
 // byte subtract, l a dp4a of the packed bytes. O += P V runs as m64nDk32 s8
 // into an s32 tile that is folded into the f32 O after each product.
 
+#include <climits>
 #include <type_traits>
 
 #include "sm90.cuh"
@@ -108,10 +125,24 @@ struct Args {
   float sm_scale_log2e;
 };
 
+// Args with the masks: the kMasks kernels take these, the others Args alone,
+// so that their parameters, and with them their code, are those they had
+// before masks.
+struct MaskedArgs : Args {
+  const int* q_seg;   // [B, Sq] segment ids, or null
+  const int* kv_seg;  // [B, Sk], with q_seg
+  int window, sink, q_offset;  // window 0: none; sink only under a window; q_offset shifts q positions
+  float logit_cap2;  // cap * log2(e), 0: none
+};
+template <bool kMasks>
+using ArgsOf = typename std::conditional<kMasks, MaskedArgs, Args>::type;
+
 // Shared memory: STAGES K tiles, STAGES V tiles, the Q tile (all 1024-byte
 // aligned), with kStaged the STAGES staging tiles of packed K and of INT8 V,
-// then STAGES K-scale tiles, the Q row scales and the mbarriers.
-template <int D, bool kInt8, bool kStaged>
+// then STAGES K-scale tiles (INT8 QK) and STAGES tiles of the keys' segment
+// ids (kMasks), the Q row scales and the mbarriers. The fp kernels with
+// masks drop the Q row scales they never read, so their stage counts stay.
+template <int D, bool kInt8, bool kStaged, bool kMasks>
 struct Layout {
   static constexpr int BQ = 64 * kNWG<D>;  // query rows per CTA
   static constexpr int kRowBytes = D * (kInt8 ? 1 : 2);  // bytes of a Q/K row
@@ -122,8 +153,10 @@ struct Layout {
   static constexpr int kPBytes = kStaged && kInt8 ? BKV * D / 2 : 0;  // packed K as loaded (INT4 at most)
   static constexpr int kV8Bytes = kStaged ? BKV * D : 0;                // INT8 V as loaded
   static constexpr int kSBytes = kInt8 ? BKV * 4 : 0;
-  static constexpr int kStageBytes = kKBytes + kVBytes + kPBytes + kV8Bytes + kSBytes;
-  static constexpr int kFixed = kQBytes + BQ * 4 + 9 * 8 + 1024;  // + barriers + alignment slack
+  static constexpr int kGBytes = kMasks ? BKV * 4 : 0;  // segment ids of the tile's keys
+  static constexpr int kQsBytes = kInt8 || !kMasks ? BQ * 4 : 0;
+  static constexpr int kStageBytes = kKBytes + kVBytes + kPBytes + kV8Bytes + kSBytes + kGBytes;
+  static constexpr int kFixed = kQBytes + kQsBytes + 9 * 8 + 1024;  // + barriers + alignment slack
   static constexpr int kStages = 3 * kStageBytes + kFixed <= 232448 ? 3 : 2;
   static constexpr int kKOff = 0;
   static constexpr int kVOff = kKOff + kStages * kKBytes;
@@ -131,10 +164,43 @@ struct Layout {
   static constexpr int kPOff = kQOff + kQBytes;
   static constexpr int kV8Off = kPOff + kStages * kPBytes;
   static constexpr int kSOff = kV8Off + kStages * kV8Bytes;
-  static constexpr int kQsOff = kSOff + kStages * kSBytes;
-  static constexpr int kBarOff = kQsOff + BQ * 4;
+  static constexpr int kGOff = kSOff + kStages * kSBytes;
+  static constexpr int kQsOff = kGOff + kStages * kGBytes;
+  static constexpr int kBarOff = kQsOff + kQsBytes;
   static constexpr int kTotal = kBarOff + 3 * kStages * 8;
 };
+
+// floor(a / b) for b > 0 (q_offset may be negative).
+__device__ __forceinline__ int floor_div(int a, int b) { return a >= 0 ? a / b : -((-a + b - 1) / b); }
+
+// A kMasks kernel's q block: its masks and its visit list (the TPU kernel's
+// _tri_schedule). Causal, the tiles from j_lo up to the block's diagonal,
+// after the n_sink tiles below j_lo that hold sink keys; an empty band keeps
+// one (fully masked) visit.
+struct Visits {
+  bool segs;
+  int window, sink, q_off;
+  int j_lo, n_sink, n;  // the band's first tile, the sink tiles before it, the visits
+  // The KV tile of visit i.
+  __device__ __forceinline__ int tile(int i) const { return i < n_sink ? i : j_lo + i - n_sink; }
+};
+struct NoMasks {};
+
+template <int BQ>
+__device__ __forceinline__ Visits visits_of(const MaskedArgs& a, bool causal, int q0, int nkv, int n_tiles) {
+  Visits v{a.kv_seg != nullptr, a.window, a.sink, a.q_offset, 0, 0, n_tiles};
+  if (causal) {
+    int j_hi = min(nkv, floor_div(q0 + BQ + v.q_off + BKV - 1, BKV));
+    if (v.window > 0) v.j_lo = max(0, floor_div(q0 + v.q_off - v.window + 1, BKV));
+    if (v.j_lo >= j_hi) {
+      j_hi = max(j_hi, 1);
+      v.j_lo = j_hi - 1;
+    }
+    if (v.window > 0 && v.sink > 0) v.n_sink = min((v.sink + BKV - 1) / BKV, v.j_lo);
+    v.n = v.n_sink + j_hi - v.j_lo;
+  }
+  return v;
+}
 
 // Per-byte sign extension of the 4-bit (2-bit) field at the bottom of each
 // byte of w.
@@ -210,11 +276,11 @@ __device__ __forceinline__ void transpose_v(const unsigned char* src, unsigned c
   }
 }
 
-template <int D, bool kInt8, bool kStaged, bool kPV8>
+template <int D, bool kInt8, bool kStaged, bool kPV8, bool kMasks>
 __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
     attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
-                          const Args args) {
-  using L = Layout<D, kInt8, kStaged>;
+                          const ArgsOf<kMasks> args) {
+  using L = Layout<D, kInt8, kStaged, kMasks>;
   constexpr int S = L::kStages;
   constexpr int kSw = L::kSw;
   using SAcc = typename std::conditional<kInt8, int, float>::type;
@@ -234,13 +300,28 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
   const int kh = b * Hk + h / (H / Hk);
   const int q0 = qb * BQ;
   const int nkv = (Sk + BKV - 1) / BKV;
-  const int n_tiles = causal ? min(nkv, (q0 + BQ + BKV - 1) / BKV) : nkv;
+  // The KV tiles this block visits, in order: tiles 0 .. n_tiles - 1, or
+  // with kMasks n_tiles visits of its Visits list, which the producer and
+  // the consumers walk alike, the ring's stage and phase by the visit. The
+  // masks' state lives only in the kMasks kernels (if constexpr), so the
+  // others compile to the code they had before masks.
+  typename std::conditional<kMasks, int, const int>::type n_tiles =
+      causal ? min(nkv, (q0 + BQ + BKV - 1) / BKV) : nkv;
+  typename std::conditional<kMasks, Visits, NoMasks>::type vis;
+  if constexpr (kMasks) {
+    vis = visits_of<BQ>(args, causal, q0, nkv, n_tiles);
+    n_tiles = vis.n;
+  }
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       // Arrivals: the TMA thread's, then those of the threads that copy K
-      // scales (the first warp) or widen staged tiles (the warpgroup).
-      mbar_init(&full[s], kStaged ? 1 + 128 : kInt8 ? 1 + 32 : 1);
+      // scales and segment ids (the first warp) or widen staged tiles (the
+      // warpgroup).
+      if constexpr (kMasks)
+        mbar_init(&full[s], kStaged ? 1 + 128 : kInt8 || vis.segs ? 1 + 32 : 1);
+      else
+        mbar_init(&full[s], kStaged ? 1 + 128 : kInt8 ? 1 + 32 : 1);
       mbar_init(&empty[s], 4 * NWG);  // lane 0 of each consumer warp
       mbar_init(&staged[s], 1);
     }
@@ -265,7 +346,8 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
     if (kStaged || ptid < 32) {
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % S;
-        const int key0 = j * BKV;
+        typename std::conditional<kMasks, int, const int>::type key0 = j * BKV;
+        if constexpr (kMasks) key0 = vis.tile(j) * BKV;
         const uint32_t parity = (j / S) & 1;
         mbar_wait(&empty[st], parity ^ 1);
         unsigned char* Kt = smem + L::kKOff + st * L::kKBytes;
@@ -291,6 +373,13 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
           float* ks_t = reinterpret_cast<float*>(smem + L::kSOff + st * L::kSBytes);
           for (int i = ptid; i < BKV; i += kStaged ? 128 : 32) ks_t[i] = key0 + i < Sk ? ksg[key0 + i] : 0.0f;
         }
+        if constexpr (kMasks) {
+          if (vis.segs) {
+            int* kg_t = reinterpret_cast<int*>(smem + L::kGOff + st * L::kGBytes);
+            const int* kvs = args.kv_seg + (long long)b * Sk;
+            for (int i = ptid; i < BKV; i += kStaged ? 128 : 32) kg_t[i] = key0 + i < Sk ? kvs[key0 + i] : 0;
+          }
+        }
         if constexpr (kStaged) {
           mbar_wait(&staged[st], parity);
           if constexpr (kInt8) {
@@ -304,7 +393,11 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
             widen_v<D>(reinterpret_cast<const uint2*>(smem + L::kV8Off + st * L::kV8Bytes), Vt, ptid);
           fence_proxy_async();
         }
-        if (kStaged || kInt8) mbar_arrive(&full[st]);
+        if constexpr (kMasks) {
+          if (kStaged || kInt8 || vis.segs) mbar_arrive(&full[st]);
+        } else {
+          if (kStaged || kInt8) mbar_arrive(&full[st]);
+        }
       }
     }
   } else {
@@ -490,13 +583,57 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
 #pragma unroll
         for (int i = 0; i < BKV / 2; ++i) s[i] = __fmul_rn(sacc[i], sm_scale_log2e);
       }
-      const int row_lo = q0 + r_base + warp * 16;
-      if ((causal && key0 + BKV - 1 > row_lo) || key0 + BKV > Sk) {
+      // The logit cap, in base 2 after the scale and before the mask, with
+      // the accurate tanhf (tanh.approx's 2^-11 moves P too far).
+      if constexpr (kMasks) {
+        const float cap2 = args.logit_cap2;
+        if (cap2 > 0.0f) {
 #pragma unroll
-        for (int i = 0; i < BKV / 2; ++i) {
-          const int col = key0 + (i / 4) * 8 + 2 * t + (i & 1);
-          const int row = row_lo + g + 8 * ((i >> 1) & 1);
-          if (col >= Sk || (causal && col > row)) s[i] = MASK_VALUE;
+          for (int i = 0; i < BKV / 2; ++i) s[i] = __fmul_rn(cap2, tanhf(__fdiv_rn(s[i], cap2)));
+        }
+      }
+      if constexpr (kMasks) {
+        // A tile wholly inside every row's band and the KV edge, with no
+        // segments, takes no mask. The masks' state is formed here, in the
+        // masked branch only.
+        const bool segs = vis.segs;
+        const int window = vis.window, sink = vis.sink;
+        const int row_lo = q0 + r_base + warp * 16 + vis.q_off;  // the warp's first row's position
+        if ((causal && key0 + BKV - 1 > row_lo) || key0 + BKV > Sk || segs ||
+            (window > 0 && row_lo + 15 - key0 >= window)) {
+          // Rows g, g + 8 see a key at c iff c <= hi (the KV edge and the
+          // causal diagonal), c >= lo or c < sink (the window and its
+          // sinks), and, with segments, c holds the row's segment.
+          int hi[2], lo[2], qseg[2] = {0, 0};
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int pos = row_lo + g + 8 * hf, r = q0 + r_base + warp * 16 + g + 8 * hf;
+            hi[hf] = causal ? min(Sk - 1, pos) : Sk - 1;
+            lo[hf] = window > 0 ? pos - window + 1 : INT_MIN;
+            if (segs && r < Sq) qseg[hf] = args.q_seg[(long long)b * Sq + r];
+          }
+          const int* kg_t = reinterpret_cast<const int*>(smem + L::kGOff + st * L::kGBytes);
+#pragma unroll
+          for (int nt = 0; nt < BKV / 8; ++nt) {
+            const int2 kseg = segs ? *reinterpret_cast<const int2*>(kg_t + nt * 8 + 2 * t) : make_int2(0, 0);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = key0 + nt * 8 + 2 * t + (e & 1), hf = e >> 1;
+              const bool seen =
+                  col <= hi[hf] && (col >= lo[hf] || col < sink) && ((e & 1) ? kseg.y : kseg.x) == qseg[hf];
+              if (!seen) s[4 * nt + e] = MASK_VALUE;
+            }
+          }
+        }
+      } else {
+        const int row_lo = q0 + r_base + warp * 16;
+        if ((causal && key0 + BKV - 1 > row_lo) || key0 + BKV > Sk) {
+#pragma unroll
+          for (int i = 0; i < BKV / 2; ++i) {
+            const int col = key0 + (i / 4) * 8 + 2 * t + (i & 1);
+            const int row = row_lo + g + 8 * ((i >> 1) & 1);
+            if (col >= Sk || (causal && col > row)) s[i] = MASK_VALUE;
+          }
         }
       }
 #pragma unroll
@@ -590,7 +727,10 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
     named_bar_arrive(bar_other, 256);
     wgmma_wait<0>();
     s_ready();
-    softmax_s(0, 0);
+    if constexpr (kMasks)
+      softmax_s(vis.tile(0), 0);
+    else
+      softmax_s(0, 0);
     softmax_o();
     // The last tile is peeled off so that no product is issued, and no
     // accumulator written, on a path the compiler cannot prove uniform.
@@ -606,7 +746,10 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
       named_bar_arrive(bar_other, 256);
       wgmma_wait<1>();
       s_ready();
-      softmax_s(j + 1, st1);
+      if constexpr (kMasks)
+        softmax_s(vis.tile(j + 1), st1);
+      else
+        softmax_s(j + 1, st1);
       wgmma_wait<0>();
       o_ready();
       if (lane == 0) mbar_arrive(&empty[st]);
@@ -661,9 +804,9 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
 
 // K's and V's tensor maps as the kernel loads them: int8 / bf16 rows into
 // swizzled tiles, packed K and INT8 V rows as they lie into the staging ring.
-template <int D, bool kInt8, bool kStaged, bool kPV8>
-int launch(const Args& a, const void* k, const void* v, int B, cudaStream_t stream) {
-  using L = Layout<D, kInt8, kStaged>;
+template <int D, bool kInt8, bool kStaged, bool kPV8, bool kMasks>
+int launch(const MaskedArgs& a, const void* k, const void* v, int B, cudaStream_t stream) {
+  using L = Layout<D, kInt8, kStaged, kMasks>;
   const cuuint64_t rows = (cuuint64_t)B * a.Hk, sk = (cuuint64_t)a.Sk;
   const bool k_packed = kInt8 && a.k_bits < 8;
   CUtensorMap k_map, v_map;
@@ -691,24 +834,35 @@ int launch(const Args& a, const void* k, const void* v, int B, cudaStream_t stre
                                CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (!ok) return (int)cudaErrorInvalidValue;
-  auto kern = attn_fwd_wgmma_kernel<D, kInt8, kStaged, kPV8>;
+  auto kern = attn_fwd_wgmma_kernel<D, kInt8, kStaged, kPV8, kMasks>;
   constexpr int smem = L::kTotal + 1024;
   const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Sq + L::BQ - 1) / L::BQ, a.H, B);
-  kern<<<grid, 128 * (kNWG<D> + 1), smem, stream>>>(k_map, v_map, a);
+  kern<<<grid, 128 * (kNWG<D> + 1), smem, stream>>>(k_map, v_map, static_cast<const ArgsOf<kMasks>&>(a));
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int dispatch(const Args& a, bool pv8, const void* k, const void* v, int B, cudaStream_t st) {
+template <int D, bool kMasks>
+int dispatch_modes(const MaskedArgs& a, bool pv8, const void* k, const void* v, int B, cudaStream_t st) {
   const bool staged = a.k_bits < 8 || a.v_int8;
   if (pv8)
-    return a.q_mode == Q_FP ? launch<D, false, true, true>(a, k, v, B, st)
-                            : launch<D, true, true, true>(a, k, v, B, st);
+    return a.q_mode == Q_FP ? launch<D, false, true, true, kMasks>(a, k, v, B, st)
+                            : launch<D, true, true, true, kMasks>(a, k, v, B, st);
   if (a.q_mode == Q_FP)
-    return staged ? launch<D, false, true, false>(a, k, v, B, st) : launch<D, false, false, false>(a, k, v, B, st);
-  return staged ? launch<D, true, true, false>(a, k, v, B, st) : launch<D, true, false, false>(a, k, v, B, st);
+    return staged ? launch<D, false, true, false, kMasks>(a, k, v, B, st)
+                  : launch<D, false, false, false, kMasks>(a, k, v, B, st);
+  return staged ? launch<D, true, true, false, kMasks>(a, k, v, B, st)
+                : launch<D, true, false, false, kMasks>(a, k, v, B, st);
+}
+
+// The masked kernels (kMasks) take a window, a q offset, segment ids or a
+// logit cap; every other call runs the kernels without them (with the
+// masks' state in every kernel, the d64 kernels spilled).
+template <int D>
+int dispatch(const MaskedArgs& a, bool pv8, const void* k, const void* v, int B, cudaStream_t st) {
+  const bool masks = a.window > 0 || a.q_offset != 0 || a.kv_seg != nullptr || a.logit_cap2 > 0.0f;
+  return masks ? dispatch_modes<D, true>(a, pv8, k, v, B, st) : dispatch_modes<D, false>(a, pv8, k, v, B, st);
 }
 
 }  // namespace
@@ -721,20 +875,28 @@ int dispatch(const Args& a, bool pv8, const void* k, const void* v, int B, cudaS
 //      2, INT8 PV) with v_scale [B, Hk, D] f32.
 //   q_scale: [B, H, Sq] f32, already times sm_scale*log2e (q_mode 0 only).
 //   k_scale: [B, Hk, Sk] f32 (q_mode 0-2).   v_mean: [B, Hk, D] f32 or null.
+//   q_seg: [B, Sq] int32 and kv_seg: [B, Sk] int32 segment ids, or both null.
 //   o: [B, H, Sq, D] bf16 (out_f32 = 0) or f32.   lse: [B, H, Sq] f32 (base 2) or null.
+//   window: 0 (none) or the keys a causal row sees, itself included; sink:
+//   the leading keys every row sees under a window; q_offset: added to every
+//   query's position (causal only); logit_cap2: cap * log2(e), 0 for none.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for an unsupported D or
 // mode, or a tensor map the driver refuses).
 extern "C" int lowbit_attn_fwd_wgmma(const void* q, const void* k, const void* v, const float* q_scale,
-                                     const float* k_scale, const float* v_scale, const float* v_mean, void* o,
-                                     float* lse, int B, int H, int Hk, int Sq, int Sk, int D, int q_mode, int k_bits,
-                                     int v_mode, int out_f32, int causal, float sm_scale_log2e, void* stream) {
+                                     const float* k_scale, const float* v_scale, const float* v_mean, const int* q_seg,
+                                     const int* kv_seg, void* o, float* lse, int B, int H, int Hk, int Sq, int Sk,
+                                     int D, int q_mode, int k_bits, int v_mode, int out_f32, int causal, int window,
+                                     int sink, int q_offset, float sm_scale_log2e, float logit_cap2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool k_ok = q_mode == Q_FP ? k_bits == 16 : (k_bits == 8 || k_bits == 4 || k_bits == 2);
   if (!k_ok || q_mode < Q_INT8 || q_mode > Q_FP || v_mode < 0 || v_mode > 2 || (v_mode != 0 && v_scale == nullptr) ||
-      (q_mode != Q_FP && k_scale == nullptr) || (q_mode == Q_INT8 && q_scale == nullptr))
+      (q_mode != Q_FP && k_scale == nullptr) || (q_mode == Q_INT8 && q_scale == nullptr) ||
+      ((q_seg == nullptr) != (kv_seg == nullptr)) || window < 0 || sink < 0 || logit_cap2 < 0.0f ||
+      (!causal && (window != 0 || q_offset != 0)))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, q_scale, k_scale, v_scale, v_mean, o, lse, H, Hk, Sq, Sk, causal, q_mode, k_bits, v_mode != 0,
-               out_f32, sm_scale_log2e};
+  const MaskedArgs a{{q, q_scale, k_scale, v_scale, v_mean, o, lse, H, Hk, Sq, Sk, causal, q_mode, k_bits,
+                      v_mode != 0, out_f32, sm_scale_log2e},
+                     q_seg, kv_seg, window, window > 0 ? sink : 0, q_offset, logit_cap2};
   if (D == 64) return dispatch<64>(a, v_mode == 2, k, v, B, st);
   if (D == 128) return dispatch<128>(a, v_mode == 2, k, v, B, st);
   return (int)cudaErrorInvalidValue;

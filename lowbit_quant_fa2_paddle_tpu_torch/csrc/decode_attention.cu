@@ -14,9 +14,12 @@
 //            qa = fma(max|q|, 1/127, 1e-7), q8 = round_away(q / qa)
 //            s  = ((f32(q8 . k8) * (qa * sm_scale)) * ks) * log2e
 //   float:   s  = (((q . k) * sm_scale) * ks) * log2e          (f32 sums)
+//   with a logit cap c: s = c tanh(s / c) in natural units, before log2e;
 //   s = -0.7 * FLT_MAX where pos >= length;  online softmax in base 2 with
 //   f32 P (P is NOT rounded to bf16); l sums P; an int8 V's scale is folded
 //   into P after that; acc += P V in f32; o = acc / l, lse = m + log2 l.
+//   A sliding window keeps pos >= length - window, and its sinks pos < sink
+//   (the TPU kernel's window/sink compacted walk).
 //
 // Bound on the H100: memory. Decode streams the whole cache once per token
 // (at b4 hk8 s32768 d128: 268 MB of int8 K/V, 537 MB of bf16) for ~2
@@ -25,8 +28,14 @@
 // KV head, rows) to finish, found by an atomic ticket, merges the splits in
 // a fixed order (the same bits whichever CTA finished last) and writes o and
 // the LSE. One launch per call. The split count comes from the cache size
-// and the kernel's occupancy on the host, never from the lengths (reading
-// them there would sync the decode loop). Rows at or past a sequence's
+// (with a window: from the window, sink tiles + ceil(window / 64) + 1 tiles
+// of 64 keys, whatever the cache size) and the kernel's occupancy on the
+// host, never from the lengths (reading them there would sync the decode
+// loop); each split maps its logical keys onto the rows of the sink and the
+// window phase on the device, from the length. The window and the cap are a
+// template parameter (kMasks): calls without them run kernels that carry
+// none of their code (with it in every kernel, the integer chain at 4-bit K
+// ran 7-8% slower on an H100). Rows at or past a sequence's
 // length are never loaded: after a rollback they may hold stale data. A
 // split wholly past the length gives m = -1e30, l = 0 and no weight.
 //
@@ -300,13 +309,13 @@ __device__ __forceinline__ void k_words(const unsigned char* p, uint32_t* w) {
 // The kernel. Grid: (n_splits, Hk * groups, B), groups = (H / Hk) / R.
 // ---------------------------------------------------------------------------
 
-template <int D, typename KT, typename VT, bool kIntQK>
+template <int D, typename KT, typename VT, bool kIntQK, bool kMasks>
 __global__ void __launch_bounds__(NT) decode_kernel(
     const void* __restrict__ q, const KT* __restrict__ k, const VT* __restrict__ v,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale, const int* __restrict__ lengths,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int* __restrict__ tickets, void* __restrict__ o,
     float* __restrict__ lse, int H, int Hk, int S, int R, int n_splits, int chunk, int q_bf16, int out_code,
-    float sm_scale) {
+    int window, int sink, float sm_scale, float logit_cap) {
   using C = Cfg<D, KT, VT, kIntQK>;
   constexpr int BK = C::BK, CPL = C::CPL;
   constexpr bool kVQuant = C::kVNib || sizeof(VT) == 1;  // per-token V scales
@@ -325,9 +334,28 @@ __global__ void __launch_bounds__(NT) decode_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
   const long long kh = (long long)b * Hk + hk;
   const int len = min(max(lengths[b], 0), S);
+  // This split's keys: one range [a0, a1), or with a window two, [a0, a1)
+  // of the sink phase and [b0, b1) of the window phase (the TPU kernel's
+  // compacted walk). The splits cut a logical key axis: sink_keys keys of
+  // the sink tiles, then 64-key tiles from ws, the window's first tile; a
+  // logical key maps to itself in the sink phase and to ws + (l - sink_keys)
+  // in the window phase. Each phase keeps only its visible keys, pos <
+  // min(sink, len) and max(len - window, sink) <= pos < len, so the two
+  // partition the visible keys and no row below the window is loaded.
   const int start = split * chunk;
-  const int end = min(start + chunk, len);
-  const int n_tiles = end > start ? (end - start + BK - 1) / BK : 0;
+  int a0 = start, a1 = min(start + chunk, len), b0 = 0, b1 = 0;
+  if (kMasks && window > 0) {
+    const int sink_keys = (sink + 63) / 64 * 64;
+    const int lo_w = max(len - window, sink), ws = lo_w / 64 * 64;
+    a1 = min(min(start + chunk, sink_keys), min(sink, len));
+    b0 = max(ws + max(start - sink_keys, 0), lo_w);
+    b1 = min(ws + start + chunk - sink_keys, len);
+  }
+  const int n_a = a1 > a0 ? (a1 - a0 + BK - 1) / BK : 0;
+  const int n_tiles = n_a + (kMasks && b1 > b0 ? (b1 - b0 + BK - 1) / BK : 0);
+  // Tile j's first key and the end of its range.
+  auto tile_key0 = [&](int j) { return !kMasks || j < n_a ? a0 + j * BK : b0 + (j - n_a) * BK; };
+  auto tile_end = [&](int j) { return !kMasks || j < n_a ? a1 : b1; };
   const int n_parts = n_splits * NW;
 
   if (tid == 0) {
@@ -340,13 +368,13 @@ __global__ void __launch_bounds__(NT) decode_kernel(
   __syncthreads();
 
   if (warp == NW) {
-    // ---- producer warp: stage j % NST takes tile j; nothing at or past `end` is read ----
+    // ---- producer warp: stage j % NST takes tile j; nothing past its range is read ----
     const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + kh * S * C::kKRow;
     const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + kh * S * C::kVRow;
     const float* ksg = k_scale + kh * S;
     const float* vsg = kVQuant ? v_scale + kh * S : nullptr;
     for (int j = 0; j < n_tiles; ++j) {
-      const int st = j % NST, key0 = start + j * BK, n = min(BK, end - key0);
+      const int st = j % NST, key0 = tile_key0(j), n = min(BK, tile_end(j) - key0);
       mbar_wait(&empty[st], ((j / NST) & 1) ^ 1);
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[st], n * (C::kKRow + C::kVRow));
@@ -430,7 +458,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       for (int c = 0; c < CPL; ++c) acc[r][c] = 0.0f;
 
     for (int j = warp; j < n_tiles; j += NW) {
-      const int st = j % NST, key0 = start + j * BK, nv = min(BK, end - key0);
+      const int st = j % NST, key0 = tile_key0(j), nv = min(BK, tile_end(j) - key0);
       mbar_wait(&full[st], (j / NST) & 1);
       const unsigned char* Kt = smem + C::kKOff + st * BK * C::kKRow;
       const unsigned char* Vt = smem + C::kVOff + st * BK * C::kVRow;
@@ -477,13 +505,33 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[mt][e] *= 0.0625f;  // the codes came as 16 n: exact
         }
+        if constexpr (kMasks) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = mt * 16 + g + 8 * (e >> 1);
-          float x = __fmul_rn(s[mt][e], qsc_r[e & 1]);
-          x = __fmul_rn(__fmul_rn(x, ks_t[kl]), LOG2E);
-          s[mt][e] = kl < nv ? x : MASK_VALUE;
+          for (int e = 0; e < 4; ++e)
+            s[mt][e] = __fmul_rn(__fmul_rn(s[mt][e], qsc_r[e & 1]), ks_t[mt * 16 + g + 8 * (e >> 1)]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kl = mt * 16 + g + 8 * (e >> 1);
+            float x = __fmul_rn(s[mt][e], qsc_r[e & 1]);
+            x = __fmul_rn(__fmul_rn(x, ks_t[kl]), LOG2E);
+            s[mt][e] = kl < nv ? x : MASK_VALUE;
+          }
         }
+      }
+      if constexpr (kMasks) {
+        // The logit cap in natural units, then log2(e) and the mask.
+        if (logit_cap > 0.0f) {
+#pragma unroll
+          for (int mt = 0; mt < BK / 16; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[mt][e] = __fmul_rn(logit_cap, tanhf(__fdiv_rn(s[mt][e], logit_cap)));
+        }
+#pragma unroll
+        for (int mt = 0; mt < BK / 16; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[mt][e] = mt * 16 + g + 8 * (e >> 1) < nv ? __fmul_rn(s[mt][e], LOG2E) : MASK_VALUE;
       }
 
       // ---- online softmax of queries 2t, 2t + 1 (a column's keys lie on the 8 lanes of one t) ----
@@ -658,20 +706,22 @@ struct Launch {
   int* tickets;
   void* o;
   float* lse;
-  int B, H, Hk, S, R, n_splits, chunk, q_bf16, out_code;
-  float sm_scale;
+  int B, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window, sink;
+  float sm_scale, logit_cap;
   cudaStream_t st;
 
   template <int D, typename KT, typename VT, bool kIntQK>
   int run() const {
     constexpr int smem = Cfg<D, KT, VT, kIntQK>::kTotal;
     if (n_splits * NW > Cfg<D, KT, VT, kIntQK>::kMaxParts) return (int)cudaErrorInvalidValue;
-    auto kern = decode_kernel<D, KT, VT, kIntQK>;
+    const bool masks = window > 0 || logit_cap > 0.0f;
+    auto kern = masks ? decode_kernel<D, KT, VT, kIntQK, true> : decode_kernel<D, KT, VT, kIntQK, false>;
     const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(n_splits, Hk * ((H / Hk) / R), B);
     kern<<<grid, NT, smem, st>>>(q, static_cast<const KT*>(k), static_cast<const VT*>(v), ks, vs, lengths, part_acc,
-                                 part_ml, tickets, o, lse, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, sm_scale);
+                                 part_ml, tickets, o, lse, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window,
+                                 sink, sm_scale, logit_cap);
     return (int)cudaGetLastError();
   }
 };
@@ -679,11 +729,12 @@ struct Launch {
 // How many CTAs of one variant an SM holds at once.
 struct Occupancy {
   int* ctas_per_sm;
+  bool masks;
 
   template <int D, typename KT, typename VT, bool kIntQK>
   int run() const {
     constexpr int smem = Cfg<D, KT, VT, kIntQK>::kTotal;
-    auto kern = decode_kernel<D, KT, VT, kIntQK>;
+    auto kern = masks ? decode_kernel<D, KT, VT, kIntQK, true> : decode_kernel<D, KT, VT, kIntQK, false>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kern, NT, smem);
     return (int)err;
@@ -735,25 +786,31 @@ int with_variant(const Op& op, int D, int k_bits, int v_bits, int int_qk) {
 //   them run one after another).   o: [B, H, D] f32 (out_code 0), bf16 (1)
 //   or f16 (2).   lse: [B, H] f32 (base 2) or null.
 // R query rows (a divisor of H / Hk, at most 8) per CTA; splits of `chunk`
-// keys (a multiple of 64), at most 64 splits. One launch. Returns
+// keys (a multiple of 64), at most 64 splits, over the cache's rows, or with
+// window > 0 over the logical keys of the compacted walk (sink rounded up to
+// 64, then the window phase); sink counts only under a window; logit_cap 0
+// is none. One launch. Returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported D, mode or
 // output type, or too many splits).
 extern "C" int lowbit_decode_attn(const void* q, const void* k, const void* v, const float* k_scale,
                                   const float* v_scale, const int* lengths, float* part_acc, float* part_ml,
                                   int* tickets, void* o, float* lse, int B, int H, int Hk, int S, int D, int R,
                                   int k_bits, int v_bits, int int_qk, int q_bf16, int out_code, int n_splits,
-                                  int chunk, float sm_scale, void* stream) {
-  if (R < 1 || R > RMAX || (H / Hk) % R || chunk % 64 || out_code < 0 || out_code > 2 || n_splits < 1)
+                                  int chunk, int window, int sink, float sm_scale, float logit_cap, void* stream) {
+  if (R < 1 || R > RMAX || (H / Hk) % R || chunk % 64 || out_code < 0 || out_code > 2 || n_splits < 1 ||
+      window < 0 || sink < 0 || logit_cap < 0.0f)
     return (int)cudaErrorInvalidValue;
-  const Launch launch{q,    k_scale, v_scale, k,        v,     lengths, part_acc,  part_ml,
-                      tickets, o,    lse,     B,        H,     Hk,      S,         R,
-                      n_splits, chunk, q_bf16, out_code, sm_scale, static_cast<cudaStream_t>(stream)};
+  const Launch launch{q,       k_scale, v_scale, k,        v,      lengths, part_acc, part_ml,
+                      tickets, o,       lse,     B,        H,      Hk,      S,        R,
+                      n_splits, chunk,  q_bf16,  out_code, window, window > 0 ? sink : 0, sm_scale, logit_cap,
+                      static_cast<cudaStream_t>(stream)};
   return with_variant(launch, D, k_bits, v_bits, int_qk);
 }
 
-// How many CTAs of the variant (D, k_bits, v_bits, int_qk) one SM of the
-// current device holds at once, into *ctas_per_sm. Returns a cudaError_t.
-// Host-side only: it does not touch the stream.
-extern "C" int lowbit_decode_ctas_per_sm(int D, int k_bits, int v_bits, int int_qk, int* ctas_per_sm) {
-  return with_variant(Occupancy{ctas_per_sm}, D, k_bits, v_bits, int_qk);
+// How many CTAs of the variant (D, k_bits, v_bits, int_qk; with the window
+// and cap, masks) one SM of the current device holds at once, into
+// *ctas_per_sm. Returns a cudaError_t. Host-side only: it does not touch the
+// stream.
+extern "C" int lowbit_decode_ctas_per_sm(int D, int k_bits, int v_bits, int int_qk, int masks, int* ctas_per_sm) {
+  return with_variant(Occupancy{ctas_per_sm, masks != 0}, D, k_bits, v_bits, int_qk);
 }

@@ -20,8 +20,14 @@ activation memory. On the card :func:`decode_tokens` runs its steps as one
 captured CUDA graph, replayed once a token (the JAX package's jitted
 ``lax.scan``); CPU tensors take a Python loop over the plain versions.
 
-Not ported yet, each raising ``NotImplementedError``: ``window_size``/
-``sink_size`` (ROADMAP Queue 1, item 2e) and speculative decoding (item 2d).
+``window_size`` makes it the Mistral-class sliding-window LM: each position
+attends its last ``window_size`` tokens, itself included, at prefill (kernel
+A's band) and at decode (kernel D's compacted window walk, which reads
+O(window) cache rows a token), plus StreamingLLM's ``sink_size`` leading
+tokens. The chunked prefill takes full causal attention only.
+
+Not ported yet, raising ``NotImplementedError``: speculative decoding (ROADMAP
+Queue 1, item 2d).
 """
 
 from __future__ import annotations
@@ -63,8 +69,6 @@ class LLMConfig:
     sink_size: int = 0
 
     def __post_init__(self):
-        if self.window_size is not None or self.sink_size:
-            raise _not_ported("sliding-window / sink LLM", "2e")
         dec._check_bits(self.eff_k_bits, self.eff_v_bits)
 
     @property
@@ -240,11 +244,11 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
-def _attn_prefill(q, k, v, attn_impl: str):
+def _attn_prefill(q, k, v, attn_impl: str, window=None, sink=0):
     if attn_impl in ("int8", "int8_t"):
-        return lowbit_fa_qk_int8_pv_fp16(q, k, v, is_causal=True)
+        return lowbit_fa_qk_int8_pv_fp16(q, k, v, is_causal=True, window_size=window, sink_size=sink)
     if attn_impl in ("ref", "exact"):
-        return attention_reference(q, k, v, is_causal=True)
+        return attention_reference(q, k, v, is_causal=True, window_size=window, sink_size=sink)
     raise ValueError(f"unknown attn_impl {attn_impl!r}")
 
 
@@ -283,7 +287,7 @@ def llm_prefill(
         q, k, v = _qkv(blk, x, cfg)
         q = _rope(q, pos, cfg.rope_theta)
         k = _rope(k, pos, cfg.rope_theta)
-        o = _attn_prefill(q, k, v, attn_impl)
+        o = _attn_prefill(q, k, v, attn_impl, cfg.window_size, cfg.sink_size)
         x = x + _mm(o.transpose(1, 2).reshape(b, s, -1).to(x.dtype), blk.wo)
         x = _mlp(blk, x)
 
@@ -348,6 +352,8 @@ def llm_prefill_chunked(
     last-token logits to cos > 0.999 (0.995), as in JAX. Returns
     ``(last-token logits [B, vocab], caches)``."""
     b, s = tokens.shape
+    if cfg.window_size is not None:
+        raise ValueError("the chunked prefill takes full causal attention: window_size must be None")
     if s > cfg.max_seq:
         raise ValueError(f"a {s}-token prompt does not fit max_seq {cfg.max_seq}")
     if chunk < 1:
@@ -435,6 +441,7 @@ def llm_decode_step(
         o = dec.decode_attention(
             q, cache["k"], cache["v"], cache["k_scale"], cache["length"],
             v_scale=cache["v_scale"], k_bits=cfg.eff_k_bits, v_bits=cfg.eff_v_bits,
+            window_size=cfg.window_size, sink_size=cfg.sink_size,
         )  # [B, H, hd]
         x = x + _mm(o.reshape(b, 1, -1).to(x.dtype), blk.wo)
         x = _mlp(blk, x)

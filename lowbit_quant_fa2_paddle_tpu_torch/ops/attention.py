@@ -26,6 +26,12 @@ to bf16 exactly, or with ``pv_int8`` multiply as an exact INT8 dot against P
 requantized to [0, 127]. The LSE comes back in base 2, ``-1e30`` for rows
 with no visible key.
 
+Every mode takes the TPU kernel's masks: a causal sliding window with
+attention sinks, a query position offset, segment ids and a logit cap.
+Causal calls visit only the KV tiles of each q block's band
+(:func:`kv_visits`, the TPU kernel's ``_tri_schedule``), sink tiles first;
+the kernel and the plain version walk the same list.
+
 Every mode of kernel A (the DiT's int8, fp, int4 and int8_v8 impls, the LLM
 prefill, the training forward, INT8 PV) runs on one Hopper design
 (``kernel_design``): ``csrc/attention_fwd_wgmma.cu`` (TMA, ``wgmma``,
@@ -75,6 +81,68 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1, item {item})")
 
 
+def kv_visits(q_lo: int, q_hi: int, s_k: int, tile: int, *, causal: bool, window: int = 0, sink: int = 0,
+              q_offset: int = 0) -> list:
+    """The KV tiles kernel A visits, in order, for the query rows ``[q_lo,
+    q_hi)`` (one CTA's block): ``_tri_schedule``'s semantics in the JAX
+    package. Non-causal: every tile. Causal: the tiles up to the diagonal of
+    the block's last row (positions shifted by ``q_offset``); with a
+    ``window``, from the tile of the block's first row's lowest visible key
+    ``q_lo + q_offset - window + 1``, after the ``sink`` tiles below that
+    band (keys ``[0, sink)`` stay visible). A block whose band is empty still
+    gets one visit, fully masked, so its rows come out ``o = 0``, ``lse =
+    -1e30``. The result does not depend on the tiles visited beyond those
+    that hold a visible key: a fully masked tile leaves every row's running
+    maximum and sums as they are."""
+    nk = -(-s_k // tile)
+    if not causal:
+        return list(range(nk))
+    lo, hi = q_lo + q_offset, q_hi - 1 + q_offset
+    j_max = min(nk, -(-(hi + 1) // tile))
+    j_min = max(0, (lo - window + 1) // tile) if window > 0 else 0
+    if j_min >= j_max:
+        j_max = max(j_max, 1)
+        j_min = j_max - 1
+    sink_tiles = -(-sink // tile) if window > 0 and sink > 0 else 0
+    return list(range(min(sink_tiles, j_min))) + list(range(j_min, j_max))
+
+
+def _mask_args(s_q: int, causal: bool, window_size, sink_size: int, q_position_offset: int):
+    """``(window, sink, q_offset)`` as the kernel takes them, with the JAX
+    launcher's rules: a window (or an offset) needs ``causal``; a window that
+    covers every key of every row (``>= Sq + offset``) is none; sinks count
+    only under a window."""
+    q_offset = int(q_position_offset)
+    if q_offset and not causal:
+        raise ValueError("q_position_offset is a causal-mask shift: it needs is_causal")
+    window = 0
+    if window_size is not None:
+        if not causal:
+            raise ValueError("window_size needs is_causal (a causal sliding window)")
+        if window_size < 1:
+            raise ValueError(f"window_size must be at least 1, got {window_size}")
+        window = int(window_size) if window_size < s_q + q_offset else 0
+    if sink_size < 0:
+        raise ValueError(f"sink_size must be >= 0, got {sink_size}")
+    return window, int(sink_size) if window > 0 else 0, q_offset
+
+
+def _visible(rows: torch.Tensor, cols: torch.Tensor, s_k: int, causal: bool, window: int, sink: int):
+    """``[n, c]`` mask of the keys at positions ``cols`` that the query rows
+    at (offset) positions ``rows`` see: the KV edge, the causal diagonal, the
+    window ``(r - window, r]`` and the sinks ``[0, sink)`` (the TPU kernel's
+    per-element masks)."""
+    vis = (cols < s_k)[None, :].expand(rows.shape[0], -1)
+    if causal:
+        vis = vis & (cols[None, :] <= rows[:, None])
+        if window > 0:
+            inw = cols[None, :] + window > rows[:, None]
+            if sink > 0:
+                inw = inw | (cols < sink)[None, :]
+            vis = vis & inw
+    return vis
+
+
 def attention_fwd_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -89,18 +157,29 @@ def attention_fwd_plain(
     k_bits: int = 8,
     v_scale: Optional[torch.Tensor] = None,
     pv_int8: bool = False,
+    window: int = 0,
+    sink: int = 0,
+    q_offset: int = 0,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    logit_cap: float = 0.0,
 ):
     """Plain PyTorch version of kernel A on the kernel's own inputs.
 
     ``q_scale`` (int8 ``q`` only) already carries ``sm_scale * log2(e)``;
     ``k_bits`` 4 or 2 says ``k`` holds packed codes; int8 ``v`` comes with
-    ``v_scale``. Works through q-row chunks so the f32 logits stay within
-    1 GiB. The softmax follows the kernel's online recurrence over KV tiles of
-    ``kv_tile`` keys (those of the design that runs the mode), in closed
+    ``v_scale``. ``window``/``sink``/``q_offset`` as :func:`_mask_args`
+    returns them; segment ids ``[B, Sq]`` / ``[B, Sk]``; ``logit_cap``
+    applies ``c·tanh(s/c)`` to the base-2 logits with ``c = cap·log2(e)``,
+    before the mask. Works through q-row chunks so the f32 logits stay
+    within 1 GiB, each over the KV tiles :func:`kv_visits` lists for its
+    rows. The softmax follows the kernel's online recurrence over KV tiles
+    of ``kv_tile`` keys (those of the design that runs the mode), in closed
     form: tile ``j`` rounds its P against the running maximum ``m_j`` and is
     weighted by ``2^(m_j - m_last)``, so P rounds to bf16 (or to ``p8`` with
     ``pv_int8``) exactly where the kernel rounds it and the two differ only
-    in summation order. Returns ``(o, lse2)``.
+    in summation order. A row no key is visible to gives ``o = 0`` (no
+    ``v_mean``) and ``lse = -1e30``. Returns ``(o, lse2)``.
     """
     b, h, s_q, _ = q.shape
     s_k = k.shape[2]
@@ -111,19 +190,38 @@ def attention_fwd_plain(
     if k_bits != 8:
         k = _UNPACK[k_bits](k)
     n_tiles = -(-s_k // tile)
+    pad = n_tiles * tile - s_k
     kf = _repeat_kv(k if quant else k.to(torch.bfloat16), h).float()
+    kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
     vf = _repeat_kv(v if v.dtype == torch.int8 else v.to(torch.bfloat16), h).float()
-    vf = torch.nn.functional.pad(vf, (0, 0, 0, n_tiles * tile - s_k))
-    ks = _repeat_kv(k_scale.float()[:, :, None, :], h) if quant else None
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
+    ks = torch.nn.functional.pad(_repeat_kv(k_scale.float()[:, :, None, :], h), (0, pad)) if quant else None
     vs = _repeat_kv(v_scale.float()[:, :, None, :], h) if v_scale is not None else None
     vm = _repeat_kv(v_mean.float()[:, :, None, :], h) if v_mean is not None else None
-    col = torch.arange(s_k, device=dev)
-    rows = max(1, _PLAIN_CHUNK_ELEMS // (b * h * n_tiles * tile))
+    segs = q_segment_ids is not None
+    if segs:
+        kseg = torch.nn.functional.pad(kv_segment_ids.to(torch.int64), (0, pad), value=-1)
+    cap2 = torch.tensor(logit_cap * LOG2E, dtype=torch.float32, device=dev) if logit_cap > 0 else None
+    # Rows a chunk takes: its visited keys grow with its rows under a window.
+    per_row = b * h * tile
+    rows = max(1, _PLAIN_CHUNK_ELEMS // (per_row * n_tiles))
+    if window > 0:
+        sink_tiles = -(-sink // tile)
+        most = lambda r: min(n_tiles, sink_tiles + (r + window - 1) // tile + 2)  # noqa: E731
+        while rows < s_q and most(2 * rows) * per_row * 2 * rows <= _PLAIN_CHUNK_ELEMS:
+            rows *= 2
     outs, lses = [], []
     for lo in range(0, s_q, rows):
         qc = q[:, :, lo : lo + rows]
+        n = qc.shape[2]
+        visits = kv_visits(lo, lo + n, s_k, tile, causal=causal, window=window, sink=sink, q_offset=q_offset)
+        cols = (torch.tensor(visits, device=dev)[:, None] * tile + torch.arange(tile, device=dev)).reshape(-1)
+        contiguous = visits == list(range(visits[0], visits[-1] + 1))
+        take = (lambda x, dim: x.narrow(dim, visits[0] * tile, len(visits) * tile)) if contiguous else (
+            lambda x, dim: x.index_select(dim, cols))
+        kc = take(kf, 2)
         if not quant:
-            s = (qc.to(torch.bfloat16).float() @ kf.transpose(-1, -2)) * c
+            s = (qc.to(torch.bfloat16).float() @ kc.transpose(-1, -2)) * c
         else:
             if qc.dtype == torch.int8:
                 codes, qs = qc.float(), q_scale[:, :, lo : lo + rows].float()
@@ -131,13 +229,18 @@ def attention_fwd_plain(
                 sc = absmax_scale(qc.float().abs().amax(dim=-1, keepdim=True))
                 codes, qs = quant_codes(qc.float(), sc).float(), sc[..., 0] * c
             # Integer-valued f32 products: exact while |sum| < 2^24.
-            s = ((codes @ kf.transpose(-1, -2)) * ks) * qs[..., None]
-        if causal:
-            row = lo + torch.arange(qc.shape[2], device=dev)
-            s = s.masked_fill(col[None, :] > row[:, None], MASK_VALUE)
-        n = qc.shape[2]
-        s = torch.nn.functional.pad(s, (0, n_tiles * tile - s_k), value=MASK_VALUE)
-        s = s.view(b, h, n, n_tiles, tile)
+            s = ((codes @ kc.transpose(-1, -2)) * take(ks, 3)) * qs[..., None]
+        del kc
+        if cap2 is not None:
+            s = cap2 * torch.tanh(s / cap2)
+        pos = torch.arange(lo, lo + n, device=dev) + q_offset
+        vis = _visible(pos, cols, s_k, causal, window, sink)[None, None]
+        if segs:
+            vis = vis & (q_segment_ids[:, lo : lo + n, None].to(torch.int64) == take(kseg, 1)[:, None, :])[:, None]
+        s = s.masked_fill(~vis, MASK_VALUE)
+        del vis
+        nt = len(visits)
+        s = s.view(b, h, n, nt, tile)
         m_run = torch.cummax(s.amax(dim=-1), dim=-1).values.clamp_min(NEG_INIT)  # [b,h,n,T]
         shift = m_run - LOG2_127 if pv_int8 else m_run
         p = torch.exp2((s - shift[..., None]).to(torch.bfloat16).float()).to(torch.bfloat16).float()
@@ -148,7 +251,7 @@ def attention_fwd_plain(
         m = m_run[..., -1:]
         w = torch.exp2(m_run - m)
         l = (p.sum(dim=-1) * w).sum(dim=-1, keepdim=True)
-        o = (p * w[..., None]).view(b, h, n, n_tiles * tile) @ vf
+        o = (p * w[..., None]).view(b, h, n, nt * tile) @ take(vf, 2)
         del p
         empty = l == 0.0
         ls = torch.where(empty, torch.ones_like(l), l)
@@ -166,7 +269,8 @@ def attention_fwd_plain(
 
 
 def _attention_fwd_cuda(
-    q, k, v, q_scale, k_scale, v_mean, *, causal, sm_scale_log2e, out_dtype, need_lse, k_bits, v_scale, pv_int8
+    q, k, v, q_scale, k_scale, v_mean, *, causal, sm_scale_log2e, out_dtype, need_lse, k_bits, v_scale, pv_int8,
+    window=0, sink=0, q_offset=0, q_segment_ids=None, kv_segment_ids=None, logit_cap=0.0,
 ):
     """Launch kernel A (``csrc/attention_fwd_wgmma.cu``). Head dims below 64
     (or between 64 and 128) are zero-padded: zero Q/K columns leave QK^T and
@@ -194,7 +298,11 @@ def _attention_fwd_cuda(
     if dp != d:
         pad = lambda x: torch.nn.functional.pad(x, (0, dp - d)) if x is not None else None  # noqa: E731
         q, k, v, v_scale, v_mean = pad(q), pad(k), pad(v), pad(v_scale), pad(v_mean)
-    tensors = [q, k, v] + [x for x in (q_scale, k_scale, v_scale, v_mean) if x is not None]
+    if q_segment_ids is not None:
+        q_segment_ids = q_segment_ids.to(torch.int32).contiguous()
+        kv_segment_ids = kv_segment_ids.to(torch.int32).contiguous()
+    tensors = [q, k, v] + [x for x in (q_scale, k_scale, v_scale, v_mean, q_segment_ids, kv_segment_ids)
+                           if x is not None]
     if any(x.device != q.device for x in tensors):
         raise ValueError("attention inputs must all be on one device")
     design = kernel_design(pv_int8)
@@ -209,10 +317,11 @@ def _attention_fwd_cuda(
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device) if need_lse else None
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = [x.data_ptr() if x is not None else None for x in (q, k, v, q_scale, k_scale, v_scale, v_mean, o, lse)]
+    ptrs = [x.data_ptr() if x is not None else None
+            for x in (q, k, v, q_scale, k_scale, v_scale, v_mean, q_segment_ids, kv_segment_ids, o, lse)]
     with torch.cuda.device(q.device):
-        err = lib.lowbit_attn_fwd_wgmma(*ptrs, b, h, hk, s_q, s_k, dp, mode, k_bits, v_mode, int(out_f32), int(causal), sm_scale_log2e,
-                    stream)
+        err = lib.lowbit_attn_fwd_wgmma(*ptrs, b, h, hk, s_q, s_k, dp, mode, k_bits, v_mode, int(out_f32), int(causal),
+                                        window, sink, q_offset, sm_scale_log2e, logit_cap * LOG2E, stream)
     _build.check(err, "lowbit_attention")
     lowbit_attention.launches += 1
     lowbit_attention.launches_by_design[design] += 1
@@ -253,23 +362,22 @@ def lowbit_attention(
     takes per-channel ``v_scale`` ``[B,Hk,D]``; ``pv_int8`` then runs PV as
     an INT8 dot. ``v_mean`` ``[B,Hk,D]`` is added back to rows with at least
     one visible key (smooth-V). ``sm_scale`` defaults to ``1/sqrt(D)``.
-    Causal masking is top-left aligned: key ``c`` is visible to query ``r``
-    iff ``c <= r``.
+
+    Masks, as the TPU kernel takes them: causal masking is top-left aligned,
+    key ``c`` visible to query ``r`` iff ``c <= r + q_position_offset``;
+    ``window_size`` (causal only) keeps keys ``c + window > r + offset``,
+    plus the ``sink_size`` leading keys (sinks count only under a window);
+    ``q_segment_ids`` ``[B,Sq]`` / ``kv_segment_ids`` ``[B,Sk]`` keep keys
+    of the query's segment; ``logit_cap`` caps the logits as ``cap·tanh(s /
+    cap)`` (in base 2, after the scale, before the mask). A row that sees no
+    key gives ``o = 0`` and ``lse = -1e30``.
 
     Returns ``o`` ``[B,H,Sq,D]`` (bf16 when QK is quantized or V is int8,
     else ``v.dtype``, unless ``out_dtype``) and, with ``return_lse``, the
     base-2 LSE ``[B,H,Sq]``.
     """
-    if window_size is not None or sink_size:
-        raise _not_ported("window_size/sink_size", "3f")
-    if q_segment_ids is not None or kv_segment_ids is not None:
-        raise _not_ported("segment ids", "3f")
     if bias is not None:
         raise _not_ported("bias", "3f")
-    if logit_cap:
-        raise _not_ported("logit_cap", "3f")
-    if q_position_offset:
-        raise _not_ported("q_position_offset", "3f")
     if pv_dtype != torch.bfloat16:
         raise _not_ported("fp32 PV operands", "3g")
 
@@ -312,6 +420,15 @@ def lowbit_attention(
     for name, x in (("v_scale", v_scale), ("v_mean", v_mean)):
         if x is not None and tuple(x.shape) != (b, hk, d):
             raise ValueError(f"{name} must be [B, Hk, D], got {tuple(x.shape)}")
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("q_segment_ids and kv_segment_ids go together")
+    if q_segment_ids is not None and (tuple(q_segment_ids.shape) != (b, s_q)
+                                      or tuple(kv_segment_ids.shape) != (b, s_k)):
+        raise ValueError(f"segment ids must be [B, Sq] and [B, Sk]: {tuple(q_segment_ids.shape)}, "
+                         f"{tuple(kv_segment_ids.shape)}")
+    if logit_cap < 0:
+        raise ValueError(f"logit_cap must be >= 0, got {logit_cap}")
+    window, sink, q_offset = _mask_args(s_q, is_causal, window_size, sink_size, q_position_offset)
 
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -323,7 +440,8 @@ def lowbit_attention(
 
     args = (q, k, v, q_scale, k_scale, v_mean)
     kw = dict(causal=is_causal, sm_scale_log2e=sm_scale_log2e, out_dtype=out_dtype, k_bits=k_bits,
-              v_scale=v_scale, pv_int8=pv_int8)
+              v_scale=v_scale, pv_int8=pv_int8, window=window, sink=sink, q_offset=q_offset,
+              q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, logit_cap=float(logit_cap))
     if q.device.type == "cpu":
         o, lse = attention_fwd_plain(*args, **kw)
     elif q.device.type == "cuda":

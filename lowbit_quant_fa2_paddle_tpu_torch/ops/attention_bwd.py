@@ -284,27 +284,31 @@ def _sm_scale(sm_scale: Optional[float], q: torch.Tensor) -> float:
 
 class _FlashAttentionFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, is_causal, sm_scale):
-        o, lse2 = flash_attention_fp(q, k, v, is_causal=is_causal, sm_scale=sm_scale, return_lse=True)
+    def forward(ctx, q, k, v, is_causal, sm_scale, window_size):
+        o, lse2 = flash_attention_fp(q, k, v, is_causal=is_causal, window_size=window_size, sm_scale=sm_scale,
+                                     return_lse=True)
         o = o.to(q.dtype)
         ctx.save_for_backward(q, k, v, o, lse2)
-        ctx.is_causal, ctx.sm_scale = is_causal, sm_scale
+        ctx.is_causal, ctx.sm_scale, ctx.window = is_causal, sm_scale, int(window_size) if window_size else 0
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse2 = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse2, do, is_causal=ctx.is_causal, sm_scale=_sm_scale(ctx.sm_scale, q))
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_bwd(q, k, v, o, lse2, do, is_causal=ctx.is_causal, sm_scale=_sm_scale(ctx.sm_scale, q),
+                               window=ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 class _LowbitAttentionFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, is_causal, sm_scale, bwd_quantized):
-        o, lse = lowbit_fa_qk_int8_pv_fp16(q, k, v, is_causal=is_causal, sm_scale=sm_scale, return_lse=True)
+    def forward(ctx, q, k, v, is_causal, sm_scale, bwd_quantized, window_size):
+        o, lse = lowbit_fa_qk_int8_pv_fp16(q, k, v, is_causal=is_causal, window_size=window_size, sm_scale=sm_scale,
+                                           return_lse=True)
         o = o.to(q.dtype)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.is_causal, ctx.sm_scale, ctx.bwd_quantized = is_causal, sm_scale, bwd_quantized
+        ctx.window = int(window_size) if window_size else 0
         return o
 
     @staticmethod
@@ -312,8 +316,8 @@ class _LowbitAttentionFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         lse2 = lse.float() * LOG2E  # natural log -> base 2 for G1/G2
         dq, dk, dv = flash_bwd(q, k, v, o, lse2, do, is_causal=ctx.is_causal, sm_scale=_sm_scale(ctx.sm_scale, q),
-                               quantized=ctx.bwd_quantized)
-        return dq, dk, dv, None, None, None
+                               quantized=ctx.bwd_quantized, window=ctx.window)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_trainable(q, k, v, is_causal=False, sm_scale=None, block_q=None, block_kv=None,
@@ -323,11 +327,10 @@ def flash_attention_trainable(q, k, v, is_causal=False, sm_scale=None, block_q=N
     and G2 on the saved ``(q, k, v, o, lse2)``. Returns ``o`` in q's dtype.
     ``block_q``/``block_kv`` are accepted for parity and change nothing on
     the GPU: the tiles are the kernels' own (the TPU package's tuned backward
-    blocks are a TPU table). ``window_size`` needs kernel A's window, not
-    ported yet."""
-    if window_size is not None:
-        raise _not_ported("window_size", "3f")
-    return _FlashAttentionFn.apply(q, k, v, bool(is_causal), sm_scale)
+    blocks are a TPU table). ``window_size`` (causal only) trains a
+    sliding-window model: kernel A's band in the forward, G1/G2 masking the
+    same ``(r - window, r]`` keys in the backward."""
+    return _FlashAttentionFn.apply(q, k, v, bool(is_causal), sm_scale, window_size)
 
 
 def lowbit_attention_trainable(q, k, v, is_causal=False, sm_scale=None, block_q=None, block_kv=None,
@@ -339,6 +342,4 @@ def lowbit_attention_trainable(q, k, v, is_causal=False, sm_scale=None, block_q=
     straight through the quantizer. ``bwd_quantized`` runs the backward's
     QK^T and dO·V^T on INT8 codes (four more C1 launches). ``block_q``,
     ``block_kv`` and ``window_size`` as in :func:`flash_attention_trainable`."""
-    if window_size is not None:
-        raise _not_ported("window_size", "3f")
-    return _LowbitAttentionFn.apply(q, k, v, bool(is_causal), sm_scale, bool(bwd_quantized))
+    return _LowbitAttentionFn.apply(q, k, v, bool(is_causal), sm_scale, bool(bwd_quantized), window_size)

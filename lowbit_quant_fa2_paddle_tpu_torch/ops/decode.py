@@ -24,7 +24,10 @@ Semantics of one query token per sequence, as the TPU kernel computes them:
   exact; ``s = sI·(qa·sm_scale)·ks·log2e``;
 * float chain (bf16 K, 4-bit K by default, or ``compute_mode="f32"``):
   ``s = (q·k)·sm_scale·ks·log2e`` in f32;
-* keys at ``pos >= length`` get ``-0.7·FLT_MAX``; softmax in base 2 with f32
+* ``logit_cap`` c: ``s = c·tanh(s / c)`` in natural units, before ``·log2e``;
+* keys at ``pos >= length`` get ``-0.7·FLT_MAX``, and with ``window_size`` W
+  those below ``length - W`` too, but for the ``sink_size`` leading keys
+  (StreamingLLM's sinks); softmax in base 2 with f32
   P (not rounded to bf16, unlike kernel A); a quantized V's scale is folded
   into P after ``l`` is summed; PV in f32;
 * ``o = acc / l`` in ``q.dtype``, base-2 LSE ``m + log2 l``; a row with no
@@ -180,13 +183,18 @@ def decode_attention_plain(
     sm_scale: float,
     int_qk: bool,
     out_dtype: torch.dtype,
+    window: int = 0,
+    sink: int = 0,
+    logit_cap: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel D on its own inputs: ``q [B,H,D]``,
     contiguous ``k``/``v [B,Hk,S,D]`` (``[B,Hk,S,D/2]`` for a 4-bit side,
     read from its width as ``cache_bits`` does), ``k_scale [B,Hk,S]``,
-    ``v_scale`` (quantized V only), ``lengths [B]``. One softmax over the
-    whole cache in closed form; the kernel and the TPU kernel run it online
-    over tiles, so they differ only in summation order. Returns
+    ``v_scale`` (quantized V only), ``lengths [B]``; ``window`` (0: none)
+    keeps each sequence's keys ``[max(len - window, 0), len) ∪ [0, sink)``;
+    ``logit_cap`` (0: none) caps the logits in natural units. One softmax
+    over the whole cache in closed form; the kernel and the TPU kernel run
+    it online over tiles, so they differ only in summation order. Returns
     ``(o [B,H,D], lse2 [B,H])``.
     """
     b, h, d = q.shape
@@ -203,8 +211,14 @@ def decode_attention_plain(
     else:
         s = (qg @ kt) * f32(sm_scale)
     s = s * k_scale.float()[:, :, None, :]
+    if logit_cap > 0:
+        s = f32(logit_cap) * torch.tanh(s / f32(logit_cap))
     s = s * f32(LOG2E)
-    valid = torch.arange(s_max, device=dev)[None, :] < lengths.long().clamp(0, s_max)[:, None]
+    pos = torch.arange(s_max, device=dev)[None, :]
+    length = lengths.long().clamp(0, s_max)[:, None]
+    valid = pos < length
+    if window > 0:
+        valid = valid & ((pos >= length - window) | (pos < sink))
     s = torch.where(valid[:, None, None, :], s, f32(MASK_VALUE))
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INIT)
     p = torch.exp2(s - m)
@@ -221,14 +235,15 @@ def decode_attention_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_ctas(device_index: int, d: int, k_bits: int, v_bits: int, int_qk: bool) -> int:
-    """CTAs of this split-pass variant (cache bits 16, 8 or 4 a side) the
-    whole card holds at once: the kernel's occupancy per SM (a host-side
-    query) times the SM count."""
+def _resident_ctas(device_index: int, d: int, k_bits: int, v_bits: int, int_qk: bool, masks: bool = False) -> int:
+    """CTAs of this split-pass variant (cache bits 16, 8 or 4 a side; with
+    ``masks``, the kernel that takes a window or a cap) the whole card holds
+    at once: the kernel's occupancy per SM (a host-side query) times the SM
+    count."""
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = _build.library().lowbit_decode_ctas_per_sm(
-            d, int(k_bits), int(v_bits), int(int_qk), ctypes.byref(per_sm)
+            d, int(k_bits), int(v_bits), int(int_qk), int(masks), ctypes.byref(per_sm)
         )
     _build.check(err, "decode_attention occupancy")
     return max(1, per_sm.value) * torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -246,6 +261,22 @@ def num_splits(s_max: int, ctas: int, slots: int) -> Tuple[int, int]:
     want = max(1, min(WAVES * slots // ctas, tiles, MAX_SPLITS))
     per = cdiv(tiles, want)
     return cdiv(tiles, per), per * KV_TILE
+
+
+def window_keys(window: int, sink: int) -> int:
+    """Keys of the compacted walk a windowed call plans its splits over: the
+    sink tiles, then ``ceil(window / KV_TILE) + 1`` tiles from the window's
+    first tile (the window's rows straddle one more tile), ``KV_TILE`` keys
+    each, whatever the cache size (the TPU kernel's ``n_band``)."""
+    return (cdiv(sink, KV_TILE) + cdiv(window, KV_TILE) + 1) * KV_TILE
+
+
+def split_plan(s_max: int, ctas: int, slots: int, window: int = 0, sink: int = 0) -> Tuple[int, int]:
+    """The split plan of a call: :func:`num_splits` over the cache's rows,
+    or with a window over the compacted walk's keys (:func:`window_keys`),
+    which the kernel maps onto each sequence's sink and window rows on the
+    device. Never from the lengths: the decode loop must not sync."""
+    return num_splits(window_keys(window, sink) if window else s_max, ctas, slots)
 
 
 def rows_per_cta(group: int) -> int:
@@ -277,7 +308,8 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     return t
 
 
-def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_qk, out_dtype, need_lse):
+def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_qk, out_dtype, need_lse, window=0,
+                           sink=0, logit_cap=0.0):
     b, h, d = q.shape
     hk, s_max = k.shape[1], k.shape[2]
     if d not in (32, 64, 128):
@@ -306,8 +338,8 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
     # A side's bits from its dtype and width: a 4-bit row is D/2 bytes.
     k_bits, v_bits = cache_bits(k, q), cache_bits(v, q)
     design = kernel_design(k_bits != 16, v_bits != 16, int_qk)
-    slots = _resident_ctas(q.device.index or 0, d, k_bits, v_bits, int_qk)
-    n_splits, chunk = num_splits(s_max, b * row_groups, slots)
+    slots = _resident_ctas(q.device.index or 0, d, k_bits, v_bits, int_qk, bool(window or logit_cap))
+    n_splits, chunk = split_plan(s_max, b * row_groups, slots, window, sink)
     # bf16 queries go in as they are; others as f32.
     qk = q.contiguous() if q.dtype in (torch.float32, torch.bfloat16) else q.float().contiguous()
     part_acc = torch.empty((b, h, n_splits * WARPS, d), dtype=torch.float32, device=q.device)
@@ -323,7 +355,8 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
             part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             b, h, hk, s_max, d, rows, k_bits, v_bits, int(int_qk), int(qk.dtype == torch.bfloat16),
-            _OUT_CODES[out_dtype], n_splits, chunk, float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+            _OUT_CODES[out_dtype], n_splits, chunk, window, sink, float(sm_scale), float(logit_cap),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
@@ -359,6 +392,10 @@ def decode_attention(
     ``compute_mode`` "auto" takes the integer QK chain for 8-bit K and the
     float chain otherwise; "int_qk" takes the integer chain for 4-bit K too.
 
+    ``window_size`` W attends each sequence's last W rows (itself
+    included) and, under a window, its first ``sink_size`` rows too;
+    ``logit_cap`` c caps the logits as ``c·tanh(s / c)``.
+
     Returns ``o [B, H, D]`` in ``q.dtype`` and, with ``return_lse``, the
     base-2 LSE ``[B, H]``. Lengths past ``S`` count as ``S``. The TPU
     function's tiling knobs (``block_kv``, ``heads_per_step``,
@@ -369,10 +406,6 @@ def decode_attention(
         raise _not_ported("the paged KV cache (page_table)", "5")
     if q.dim() == 4:
         raise _not_ported("multi-token decode q [B, T, H, D] (speculative verify)", "2d")
-    if window_size or sink_size:
-        raise _not_ported("decode window_size/sink_size", "2e")
-    if logit_cap:
-        raise _not_ported("decode logit_cap", "2e")
     if compute_mode == "int":
         raise _not_ported("compute_mode='int' (INT8 PV)", "2e")
     if compute_mode not in ("auto", "int_qk", "f32"):
@@ -404,13 +437,19 @@ def decode_attention(
     int_qk = k_cache.dtype == torch.int8 and (compute_mode == "int_qk" or (compute_mode == "auto" and k_bits == 8))
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    window = int(window_size) if window_size else 0
+    if window < 0 or sink_size < 0 or logit_cap < 0:
+        raise ValueError(f"window_size, sink_size and logit_cap must be >= 0: {window_size}, {sink_size}, {logit_cap}")
+    # A window as long as the cache hides no row (lengths count at most S).
+    window = window if window < s_max else 0
+    masks = dict(window=window, sink=int(sink_size) if window else 0, logit_cap=float(logit_cap))
 
     args = (q, k_cache, v_cache, k_scale, v_scale if v_quantized else None, lengths)
     if q.device.type == "cpu":
-        o, lse = decode_attention_plain(*args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype)
+        o, lse = decode_attention_plain(*args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, **masks)
     elif q.device.type == "cuda":
         o, lse = _decode_attention_cuda(
-            *args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, need_lse=return_lse
+            *args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, need_lse=return_lse, **masks
         )
     else:
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, not {q.device}")

@@ -1,7 +1,7 @@
 """Kernel A's wgmma design against variants of its own source and against
 another tree's build, on one CUDA card.
 
-    python3 script/torch_attention_ab.py [--base DIR] [VARIANT ...]
+    python3 script/torch_attention_ab.py [--base DIR] [--sass] [--pairs N] [all | VARIANT ...]
 
 Each variant is a patch of ``csrc/attention_fwd_wgmma.cu`` or of the shared
 header ``csrc/sm90.cuh`` (see VARIANTS),
@@ -15,13 +15,19 @@ s32704 d128 causal (one batch row of the LLM prefill), with
 ``utils.benchmark.cuda_time_ms``; main and base also time packed INT4/INT2
 K, INT8 V and INT8 V with INT8 PV at the DiT shape. The processes run in
 turns main, base, v1, v2, ..., then the same in reverse, so each build is
-compared with main within one call. Prints the card's name and power limit
-first. With no variant, every variant runs.
+compared with main within one call; ``--pairs N`` repeats that N times.
+``--sass`` first compares, kernel by kernel, the SASS (``cuobjdump -sass``,
+addresses and encodings dropped) of main's kernels without masks with
+base's kernels of the same template arguments, where base predates the
+masks' template argument. Prints the card's name and power limit
+first. Named variants run; ``all`` runs every variant; with none named, main
+runs against base alone.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -116,7 +122,62 @@ def prepare(name: str) -> str:
     return root
 
 
-def main(names, base=None) -> None:
+def sass_kernels(binary: str) -> dict:
+    """Kernel A's kernels in a built library or cubin: {(D, int8, staged,
+    pv8, masks): (instructions without addresses, encodings)}. A kernel of
+    a build from before the masks counts as one without them."""
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    dump = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass", binary], capture_output=True, text=True,
+                          check=True).stdout
+    kernels, key = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            # attn_fwd_wgmma_kernel<D, kInt8, kStaged, kPV8[, kMasks]>, mangled
+            m = re.search(r"attn_fwd_wgmma_kernelILi(\d+)E((?:Lb[01]E){3,4})E", line)
+            key = None
+            if m:
+                flags = tuple(f == "1" for f in re.findall(r"Lb([01])E", m.group(2)))
+                key = (int(m.group(1)), *flags, *(() if len(flags) == 4 else (False,)))
+                kernels[key] = ([], [])
+        elif key is not None:
+            kernels[key][1].extend(re.findall(r"/\*\s*(0x[0-9a-f]{16})\s*\*/", line))
+            if re.search(r"/\*[0-9a-f]{4,}\*/", line):  # an instruction, after its address
+                text = re.sub(r"/\*[0-9a-f]+\*/", "", line.split(";")[0]).strip()
+                kernels[key][0].append(re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "(anonymous)", text))
+    return kernels
+
+
+def library_of(root: str) -> str:
+    """The path of the kernel library built from the package under ``root``."""
+    return subprocess.run([sys.executable, "-c", "from lowbit_quant_fa2_paddle_tpu_torch.ops import _build; "
+                           "print(_build.library_path())"], cwd=root, capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def sass_diff(main_bin: str, base_bin: str) -> bool:
+    """Prints, for each kernel without masks that both binaries hold, whether
+    its instructions (and their encodings, with the scheduling bits) are the
+    same, and the first differing instructions where they are not. True when
+    every such kernel's instructions are the same."""
+    a, b = sass_kernels(main_bin), sass_kernels(base_bin)
+    same = True
+    for key in sorted(k for k in a if not k[4] and k in b):
+        (la, ea), (lb, eb) = a[key], b[key]
+        name = "attn_fwd_wgmma_kernel<{}, int8={}, staged={}, pv8={}>".format(*key[:4])
+        if la == lb:
+            print(f"sass {name}: instructions identical ({len(la)}), encodings "
+                  f"{'identical' if ea == eb else 'differ'}", flush=True)
+            continue
+        same = False
+        diff = [(i, x, y) for i, (x, y) in enumerate(zip(la, lb)) if x != y]
+        print(f"sass {name}: DIFFERS, main {len(la)} / base {len(lb)} instructions, {len(diff)} of the common "
+              f"positions differ", flush=True)
+        for i, x, y in diff[:8]:
+            print(f"    {i}: main {x} | base {y}", flush=True)
+    return same
+
+
+def main(names, base=None, sass=False, pairs=1) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dirs = {"main": REPO}
@@ -130,10 +191,12 @@ def main(names, base=None) -> None:
             raise RuntimeError("a build failed")
     if base:
         print(f"base: the package of {base}", flush=True)
+        if sass:
+            sass_diff(library_of(REPO), library_of(dirs["base"]))
     for name in names:
         print(f"{name}: {VARIANTS[name][0]}", flush=True)
     order = list(dirs)
-    for tag in order + order[::-1]:
+    for tag in (order + order[::-1]) * pairs:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tag], cwd=dirs[tag], check=True)
 
 
@@ -145,8 +208,14 @@ if __name__ == "__main__":
         base = None
         if args[:1] == ["--base"]:
             base, args = args[1], args[2:]
-        names = args or list(VARIANTS)
+        sass = "--sass" in args
+        args = [a for a in args if a != "--sass"]
+        pairs = 1
+        if "--pairs" in args:
+            i = args.index("--pairs")
+            pairs, args = int(args[i + 1]), args[:i] + args[i + 2:]
+        names = list(VARIANTS) if args == ["all"] else args
         unknown = [n for n in names if n not in VARIANTS]
         if unknown:
             sys.exit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
-        main(names, base)
+        main(names, base, sass, pairs)

@@ -1,7 +1,7 @@
 """Kernels G1/G2's wgmma design against variants of its own source, and against
 another tree's build, on one CUDA card.
 
-    python3 script/torch_attention_bwd_ab.py [--base DIR] [VARIANT ...]
+    python3 script/torch_attention_bwd_ab.py [--base DIR] [all | VARIANT ...]
 
 Each variant is a patch of ``csrc/attention_bwd_wgmma.cu`` or of the shared
 header ``csrc/sm90.cuh`` (see VARIANTS), built in its own copy of the package
@@ -15,8 +15,8 @@ step's shape), and bf16 causal GQA 32q/8kv d128 at s8192; main also times
 aten's flash-attention backward (dq, dk, dv in one call; at the GQA shape on
 K and V repeated to 32 heads). The processes run in turns main, base, v1,
 v2, ..., then the same in reverse, so each build is compared with main within
-one call. Prints the card's name and power limit first. With no variant,
-every variant runs.
+one call. Prints the card's name and power limit first. Named variants run;
+``all`` runs every variant; with none named, main runs against base alone.
 """
 
 from __future__ import annotations
@@ -129,7 +129,7 @@ if __name__ == "__main__":
         base = None
         if args[:1] == ["--base"]:
             base, args = args[1], args[2:]
-        names = args or list(VARIANTS)
+        names = list(VARIANTS) if args == ["all"] else args
         unknown = [n for n in names if n not in VARIANTS]
         if unknown:
             sys.exit(f"unknown variants {unknown}; known: {list(VARIANTS)}")

@@ -2,7 +2,7 @@
 variants of their own sources, and against another tree's build, on one CUDA
 card.
 
-    python3 script/torch_decode_ab.py [--base DIR] [--step] [VARIANT ...]
+    python3 script/torch_decode_ab.py [--base DIR] [--step] [all | VARIANT ...]
 
 Each variant is a patch of ``csrc/decode_attention.cu`` or
 ``csrc/fused_kv_attention_wgmma.cu`` (see VARIANTS), built in its own copy of
@@ -12,7 +12,8 @@ archive`` into a directory that ``.gitignore`` lists). Every build (the
 checkout's as "main", then base and each variant) times, in its own process
 with ``utils.benchmark.cuda_time_ms``: D at b4 h32 hk8 s32768 d128 (every
 length 32768) with the int8 and the bf16 cache, and the int4 and k4v8 caches
-where the build has them, with the GB/s of cache bytes streamed, and E with
+where the build has them (on both QK chains), with the GB/s of cache bytes
+streamed, and E with
 4-bit K/V at b4 h32 s8192 d64 (group 256), with its TFLOP/s; main also times
 SDPA (one query per head over the bf16 cache, and on E's K/V dequantized to
 bf16). ``--step`` adds the whole decode step: the full-width LLM (dim 4096,
@@ -25,7 +26,8 @@ the replays of the graph its first call captured); main
 also times the eager loop of ``llm_decode_step`` itself from the same
 caches. The processes run in turns main, base, v1, v2, ..., then the same in
 reverse, so each build is compared with main within one call. Prints the
-card's name and power limit first. With no variant, every variant runs. The
+card's name and power limit first. Named variants run; ``all`` runs every
+variant; with none named, main runs against base alone. The
 probes give wrong results on purpose: they time a part of the kernel.
 """
 
@@ -143,6 +145,10 @@ def worker(tag: str, main: bool, step: bool) -> None:
                           reps=50)
         cache = sum(t.numel() * t.element_size() for t in (kq, vq, ks)) + (vs.numel() * 4 if v_bits != 16 else 0)
         out.append(f"D {name} {ms:.4f} ({cache / ms / 1e6:.0f} GB/s)")
+        if k_bits == 4:  # the integer QK chain at 4-bit K
+            ms = cuda_time_ms(lambda: DD.decode_attention(q, kq, vq, ks, lens, v_scale=vs, compute_mode="int_qk",
+                                                          **sides), warmup=5, reps=50)
+            out.append(f"D {name} int_qk {ms:.4f}")
         if main and name == "int8":  # a yardstick of the card's streaming rate: one device copy (read + write)
             dst = torch.empty_like(kq)
             cp = cuda_time_ms(lambda: dst.copy_(kq), warmup=3, reps=20)
@@ -227,7 +233,7 @@ if __name__ == "__main__":
             base, args = args[1], args[2:]
         step = "--step" in args
         args = [a for a in args if a != "--step"]
-        names = args or list(VARIANTS)
+        names = list(VARIANTS) if args == ["all"] else args
         unknown = [n for n in names if n not in VARIANTS]
         if unknown:
             sys.exit(f"unknown variants {unknown}; known: {list(VARIANTS)}")

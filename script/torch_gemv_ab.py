@@ -1,7 +1,7 @@
 """Kernels F1 and F2 (packed-weight GEMV) against variants of their own
 source and against another tree's build, on one CUDA card.
 
-    python3 script/torch_gemv_ab.py [--base DIR] [--modes MODE,...] [VARIANT ...]
+    python3 script/torch_gemv_ab.py [--base DIR] [--modes MODE,...] [all | VARIANT ...]
     python3 script/torch_gemv_ab.py --build VARIANT     (build one variant's copy, print its directory)
 
 Each variant is a patch of ``csrc/gemv.cu`` (see VARIANTS), built in its own
@@ -20,8 +20,9 @@ all) so that every call streams them from HBM; it prints the TB/s of packed
 bytes (weights and scales). Main also times ``torch.matmul`` on the dense
 bf16 weight at the decode shapes. The processes run in turns main, base,
 v1, v2, ..., then the same in reverse, so each build is compared with main
-within one call. Prints the card's name and power limit first. With no
-variant, every variant runs; ``--modes`` times only the cases of those modes
+within one call. Prints the card's name and power limit first. Named
+variants run; ``all`` runs every variant (none named: main against base
+alone); ``--modes`` times only the cases of those modes
 (e.g. ``w8,w8a8k``). The probes give wrong results on purpose: they
 time a part of the kernel. The two copy-only probes time the two load
 structures alone: "copy-only" F2's (a per-warp ring of TMA tiles; its g8
@@ -287,7 +288,7 @@ if __name__ == "__main__":
             base, args = args[1], args[2:]
         if args[:1] == ["--modes"]:
             modes, args = tuple(args[1].split(",")) + ("dense",), args[2:]
-        names = args or list(VARIANTS)
+        names = list(VARIANTS) if args == ["all"] else args
         unknown = [n for n in names if n not in VARIANTS]
         if unknown:
             sys.exit(f"unknown variants {unknown}; known: {list(VARIANTS)}")

@@ -1,7 +1,7 @@
 """Kernels C1/C2/C3 (quant_int8, quant_int4, quant_int2) against variants of
 their own source and against another tree's build, on one CUDA card.
 
-    python3 script/torch_quant_ab.py [--base DIR] [--profile] [VARIANT ...]
+    python3 script/torch_quant_ab.py [--base DIR] [--profile] [all | VARIANT ...]
 
 Each variant is a patch of ``csrc/quant.cu`` (see VARIANTS), built in its own
 copy of the package under ``build/quant_ab/<name>/``; ``--base DIR`` adds the
@@ -21,7 +21,8 @@ base, v1, v2, ..., then the same in reverse. With ``--profile``, main and
 base each then run one int8 denoise step of the full-width CogVideoX-2b DiT
 under ``torch.profiler`` (chip_smoke.py's ``dit_step_profile``: device ms and
 kernel counts of A, C1/C2, copies, means, GEMMs and the rest). Prints the
-card's name and power limit first. With no variant, every variant runs. The
+card's name and power limit first. Named variants run; ``all`` runs every
+variant; with none named, main runs against base alone. The
 probes give wrong results on purpose: they time a part of the kernel.
 """
 
@@ -250,7 +251,7 @@ if __name__ == "__main__":
         args = [a for a in args if a != "--profile"]
         if args[:1] == ["--base"]:
             base, args = args[1], args[2:]
-        names = args or list(VARIANTS)
+        names = list(VARIANTS) if args == ["all"] else args
         unknown = [n for n in names if n not in VARIANTS]
         if unknown:
             sys.exit(f"unknown variants {unknown}; known: {list(VARIANTS)}")

@@ -196,10 +196,6 @@ def test_external_int8_q_matches_fused_quant():
 @pytest.mark.parametrize(
     "kw,exc",
     [
-        (dict(window_size=8, is_causal=True), NotImplementedError),
-        (dict(sink_size=4), NotImplementedError),
-        (dict(logit_cap=30.0), NotImplementedError),
-        (dict(q_position_offset=4), NotImplementedError),
         (dict(pv_dtype=torch.float32), NotImplementedError),
         (dict(bias=torch.zeros(1, 1, 1, 8)), NotImplementedError),
     ],
@@ -207,6 +203,27 @@ def test_external_int8_q_matches_fused_quant():
 def test_unported_flags_raise(kw, exc):
     q = torch.randn(1, 1, 8, 64)
     with pytest.raises(exc, match="ROADMAP"):
+        lowbit_attention(q, q, q, **kw)
+
+
+@pytest.mark.parametrize(
+    "kw,match",
+    [
+        (dict(window_size=8), "is_causal"),
+        (dict(q_position_offset=4), "is_causal"),
+        (dict(window_size=0, is_causal=True), "at least 1"),
+        (dict(sink_size=-1), "sink_size"),
+        (dict(logit_cap=-1.0), "logit_cap"),
+        (dict(q_segment_ids=torch.zeros(1, 8, dtype=torch.int32)), "together"),
+        (dict(q_segment_ids=torch.zeros(1, 8), kv_segment_ids=torch.zeros(1, 7)), r"\[B, Sq\]"),
+    ],
+)
+def test_bad_mask_options_raise(kw, match):
+    """The JAX launcher's asserts, as ValueErrors: a window or a query
+    offset needs causal masking, a window is at least one key, segment ids
+    come in pairs of the batch's shapes."""
+    q = torch.randn(1, 1, 8, 64)
+    with pytest.raises(ValueError, match=match):
         lowbit_attention(q, q, q, **kw)
 
 
@@ -456,3 +473,238 @@ def test_bad_low_bit_inputs_raise(case):
     }[case]
     with pytest.raises(ValueError):
         lowbit_attention(*args[0], **args[1])
+
+
+# ---------------------------------------------------------------------------
+# Kernel A's masks: the visit list, the window / sinks / q offset / segment
+# ids / logit cap against JAX's lowbit_attention_km (interpret mode), the
+# empty-row contract, and lowbit_fa_varlen.
+# ---------------------------------------------------------------------------
+
+from lowbit_quant_fa2_paddle_tpu.ops import attention as jattn  # noqa: E402
+from lowbit_quant_fa2_paddle_tpu.ops import quant as jquant  # noqa: E402
+from lowbit_quant_fa2_paddle_tpu_torch.ops import attention as tattn  # noqa: E402
+
+SCHEDULES = [
+    # (nq, nk, block_q, block_kv, window, sink, q_offset)
+    (4, 4, 128, 128, 0, 0, 0), (5, 3, 128, 256, 0, 0, 0), (6, 6, 128, 128, 200, 0, 0),
+    (6, 6, 128, 128, 128, 0, 0), (8, 8, 64, 128, 100, 0, 0), (6, 6, 128, 128, 200, 70, 0),
+    (6, 6, 128, 128, 150, 200, 0), (6, 6, 128, 128, 300, 130, 0), (4, 8, 128, 128, 0, 0, 384),
+    (4, 8, 128, 128, 256, 0, 384), (4, 8, 128, 128, 256, 64, 400), (3, 2, 128, 128, 100, 0, 1000),
+    (3, 2, 128, 128, 100, 10, 1000), (3, 4, 192, 128, 64, 0, 700), (7, 7, 192, 128, 500, 300, 0),
+    (2, 5, 128, 128, 1, 0, 0), (2, 5, 128, 128, 1, 1, 200), (4, 4, 128, 128, 129, 0, -100),
+]
+
+
+@pytest.mark.parametrize("nq,nk,bq,bk,window,sink,q_offset", SCHEDULES)
+def test_visit_list_equals_tri_schedule(nq, nk, bq, bk, window, sink, q_offset):
+    """The port's visit list per q block is the JAX package's causal
+    triangular/band schedule: the same (i, j) entries in the same order and
+    the same first/last flags, for windows below, at and above the tile,
+    sinks below and past the window, query offsets (one that empties every
+    band: one masked visit each) and a negative one."""
+    i_tbl, j_tbl, flags, n = jattn._tri_schedule(nq, nk, bq, bk, window, q_offset, sink)
+    i_want, j_want, f_want = (np.asarray(x).tolist() for x in (i_tbl, j_tbl, flags))
+    i_got, j_got, f_got = [], [], []
+    for qi in range(nq):
+        js = tattn.kv_visits(qi * bq, (qi + 1) * bq, nk * bk, bk, causal=True, window=window, sink=sink,
+                             q_offset=q_offset)
+        i_got += [qi] * len(js)
+        j_got += js
+        f_got += [(2 if p == 0 else 0) | (1 if p == len(js) - 1 else 0) for p in range(len(js))]
+    assert (i_got, j_got, f_got) == (i_want, j_want, f_want) and len(i_got) == n
+
+
+def test_visit_list_of_a_non_causal_call_is_every_tile():
+    assert tattn.kv_visits(0, 128, 777, 128, causal=False, window=0) == list(range(7))
+
+
+def _codes(k, bits):
+    """JAX's K codes (jitted, as the TPU launcher's callers run it) for both
+    sides: int8, or packed INT4 in halves of D."""
+    quant = {8: jquant.quant_int8, 4: jquant.quant_int4}[bits]
+    kc, ks = jax.jit(lambda x: quant(x, gran="per_token"))(_jax(k))
+    return kc, ks, torch.from_numpy(np.array(kc)), torch.from_numpy(np.array(ks))
+
+
+def _masked_pair(mode, q, k, v, causal, mask):
+    """(port o, port lse2, JAX o, JAX lse2) of kernel A on the same inputs:
+    JAX's lowbit_attention_km (Q quantized in the kernel for the int8 and
+    int4 modes, bf16 Q/K for fp) against the port's lowbit_attention."""
+    jmask, tmask = dict(mask), dict(mask)
+    for key in ("q_segment_ids", "kv_segment_ids"):
+        if key in mask:
+            jmask[key], tmask[key] = _jax(mask[key], jnp.int32), torch.from_numpy(mask[key])
+    vT = jnp.swapaxes(_jax(v, jnp.bfloat16), 2, 3)
+    if mode == "fp":
+        b16 = lambda x: _jax(x, jnp.bfloat16)  # noqa: E731
+        jo, jl = jattn.lowbit_attention_km(jnp.swapaxes(b16(q), 2, 3), b16(k), vT, is_causal=causal,
+                                           return_lse=True, **jmask)
+        to, tl = lowbit_attention(_torch(q, torch.bfloat16), _torch(k, torch.bfloat16), _torch(v, torch.bfloat16),
+                                  is_causal=causal, return_lse=True, **tmask)
+    else:
+        bits = 4 if mode == "int4" else 8
+        jkc, jks, tkc, tks = _codes(k, bits)
+        jo, jl = jattn.lowbit_attention_km(_jax(q), jkc, vT, None, jks, fused_quant_q=True, k_pack_bits=bits,
+                                           is_causal=causal, return_lse=True, **jmask)
+        to, tl = lowbit_attention(_torch(q), tkc, _torch(v, torch.bfloat16), None, tks, k_pack_bits=bits,
+                                  is_causal=causal, return_lse=True, **tmask)
+    return to, tl, jnp.swapaxes(jo, 2, 3), jl
+
+
+def _segments(s, cuts):
+    ids = np.zeros((1, s), np.int32)
+    for c in cuts:
+        ids[:, c:] += 1
+    return ids
+
+
+MASKS = {
+    "window200": (True, dict(window_size=200)),
+    "window200-sink70": (True, dict(window_size=200, sink_size=70)),
+    "segments": (False, dict(q_segment_ids=_segments(640, (100, 333, 500)),
+                             kv_segment_ids=_segments(640, (100, 333, 500)))),
+    "segments-causal-window64": (True, dict(q_segment_ids=_segments(640, (100, 333)),
+                                            kv_segment_ids=_segments(640, (100, 333)), window_size=64)),
+    "q-offset100-window150": (True, dict(q_position_offset=100, window_size=150)),
+    "logit-cap2": (False, dict(logit_cap=2.0)),
+    "logit-cap3-causal-window256": (True, dict(logit_cap=3.0, window_size=256)),
+}
+
+
+@pytest.mark.parametrize("mask", list(MASKS))
+@pytest.mark.parametrize("mode", ["int8", "fp", "int4"])
+def test_masks_match_jax(mode, mask):
+    """Kernel A's masks in the int8 (Q quantized in the kernel), fp and
+    packed-INT4 K modes, GQA 4q/2kv, d64, s 640 (five 128-key tiles, the
+    band over several), against JAX's lowbit_attention_km at the
+    port-vs-JAX bounds. The q offset shifts the queries past the keys' start
+    (Sq 512 over Sk 640)."""
+    causal, kw = MASKS[mask]
+    q, k, v = _qkv(h=4, hk=2, s=640, seed=31)
+    if "q_position_offset" in kw:
+        q = q[:, :, :512]
+    to, tl, jo, jl = _masked_pair(mode, q, k, v, causal, kw)
+    _close(to, jo, tl, jl)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp"])
+def test_masks_d128_match_jax(mode):
+    """A d128 case: a causal window with sinks, segments and the cap
+    together, MHA."""
+    q, k, v = _qkv(h=2, hk=2, s=600, d=128, seed=32)
+    kw = dict(window_size=130, sink_size=20, logit_cap=4.0, q_segment_ids=_segments(600, (250,)),
+              kv_segment_ids=_segments(600, (250,)))
+    to, tl, jo, jl = _masked_pair(mode, q, k, v, True, kw)
+    _close(to, jo, tl, jl)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp"])
+def test_empty_rows_give_zero_output_and_neg_init_lse(mode):
+    """Rows that no key is visible to, from a query offset past every key's
+    window and from a q segment that no key shares, come out o = 0 and
+    lse = -1e30 on both sides (the zero-weight contract of the ring merge)."""
+    q, k, v = _qkv(h=2, hk=2, s=300, seed=33)
+    cases = [(dict(window_size=100, q_position_offset=1000), slice(None)),
+             (dict(q_segment_ids=_segments(300, (250,)) * 7, kv_segment_ids=_segments(300, (250,))),
+              slice(250, None))]
+    for kw, empty in cases:
+        to, tl, jo, jl = _masked_pair(mode, q, k, v, "window_size" in kw, kw)
+        jo, jl = torch.from_numpy(np.array(jnp.asarray(jo, jnp.float32))), torch.from_numpy(np.array(jl))
+        for o, lse in ((to.float(), tl), (jo, jl)):
+            assert float(o[:, :, empty].abs().max()) == 0.0
+            assert bool((lse[:, :, empty] == -1e30).all())
+        if empty != slice(None):
+            _close(to[:, :, :250], jo[:, :, :250].numpy(), tl[:, :, :250], jl[:, :, :250].numpy())
+
+
+def test_sinks_without_a_window_change_nothing():
+    q, k, v = (_torch(x) for x in _qkv(s=200, seed=34))
+    kc, ks = _codes(k.numpy(), 8)[2:]
+    for causal in (False, True):
+        a = lowbit_attention(q, kc, v, None, ks, is_causal=causal, return_lse=True)
+        b = lowbit_attention(q, kc, v, None, ks, is_causal=causal, sink_size=16, return_lse=True)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_window_covering_every_key_is_no_window():
+    """A window of at least Sq + offset keys masks nothing (the JAX
+    launcher drops it): the same bits as plain causal attention."""
+    q, k, v = (_torch(x) for x in _qkv(s=200, seed=35))
+    a = lowbit_attention(q, k, v, is_causal=True, return_lse=True)
+    b = lowbit_attention(q, k, v, is_causal=True, window_size=200, sink_size=8, return_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+VARLEN_CU = [0, 37, 300, 301, 520, 640]
+
+
+@pytest.mark.parametrize(
+    "causal,kw", [(False, {}), (True, {}), (True, dict(window_size=64)), (False, dict(qk_quant_gran="per_block"))],
+    ids=["non-causal", "causal", "causal-window64", "per-block"])
+def test_varlen_matches_jax(causal, kw):
+    """lowbit_fa_varlen (and its sageattn_varlen name) on ragged cu_seqlens
+    (a one-token sequence among them), packed [T, H, D], against the JAX
+    package's: the output at the port-vs-JAX bounds; the LSE against JAX's
+    kernel LSE with its smooth-K correction (JAX's varlen returns none)."""
+    q, k, v = _qkv(h=4, hk=2, s=640, seed=36)
+    packed = lambda x: np.ascontiguousarray(x[0].transpose(1, 0, 2))  # noqa: E731
+    q, k, v = packed(q), packed(k), packed(v)
+    cu = np.array(VARLEN_CU, np.int32)
+    jo = jlq.lowbit_fa_varlen(_jax(q), _jax(k), _jax(v), jnp.asarray(cu), jnp.asarray(cu), is_causal=causal, **kw)
+    to, tl = tlq.sageattn_varlen(_torch(q), _torch(k), _torch(v), torch.from_numpy(cu), torch.from_numpy(cu),
+                                 is_causal=causal, return_lse=True, **kw)
+    assert tlq.sageattn_varlen is tlq.lowbit_fa_varlen
+    assert to.shape == q.shape and to.dtype == torch.float32 and tl.shape == (4, 640)
+    _close(to, jo)
+    # JAX's LSE for the same call: its kernel's base-2 LSE, corrected as its varlen entry would.
+    from lowbit_quant_fa2_paddle_tpu import core as jcore
+
+    seg = jnp.searchsorted(jnp.asarray(cu)[1:], jnp.arange(640), side="right")[None]
+    qh, kh, vh = (jnp.swapaxes(_jax(x), 0, 1)[None] for x in (q, k, v))
+    km = jquant.k_mean(kh)
+    gran = kw.get("qk_quant_gran", "per_token")
+    kc, ks = jquant.quant_int8(kh, km, gran=gran, block=128 if gran == "per_token" else 64)
+    if gran == "per_token":
+        q_in, q_scale, fused = qh, None, True
+    else:
+        q_in, q_scale = jquant.quant_int8(qh, gran=gran, block=128, layout="ds")
+        fused = False
+    _, jl2 = jattn.lowbit_attention_km(q_in, kc, jnp.swapaxes(vh, 2, 3), q_scale, ks, fused_quant_q=fused,
+                                       q_segment_ids=seg, kv_segment_ids=seg, is_causal=causal,
+                                       window_size=kw.get("window_size"), sm_scale=0.125, out_dtype=jnp.float32,
+                                       return_lse=True)
+    jl = jcore._finish_lse(jl2, qh, km, 0.125)[0]
+    assert float((tl - torch.from_numpy(np.array(jl))).abs().max()) <= MAX_DLSE
+
+
+def test_varlen_keeps_sequences_apart():
+    """Each sequence of a varlen call equals a dense call on that sequence
+    alone, up to the smooth-K mean (over the whole packed batch in varlen):
+    cos >= 0.999 against the fp32 oracle per sequence."""
+    q, k, v = _qkv(h=2, hk=2, s=640, seed=37)
+    packed = lambda x: _torch(np.ascontiguousarray(x[0].transpose(1, 0, 2)))  # noqa: E731
+    cu = torch.tensor(VARLEN_CU, dtype=torch.int32)
+    o = tlq.lowbit_fa_varlen(packed(q), packed(k), packed(v), cu, cu, is_causal=True)
+    for a, b in zip(VARLEN_CU[:-1], VARLEN_CU[1:]):
+        ref = attention_reference(*(_torch(x[:, :, a:b]) for x in (q, k, v)), is_causal=True)
+        got = o[a:b].transpose(0, 1)[None]
+        if b - a == 1:
+            torch.testing.assert_close(got, ref, rtol=0, atol=2e-2)
+        else:
+            assert float(cosine_similarity(got, ref)) >= 0.999
+
+
+@pytest.mark.parametrize("bits", ["int8", "int8_v8", "int4", "int2", "fp"])
+def test_entry_points_run_the_window(bits):
+    """Every entry that passes window_size/sink_size on to kernel A now runs
+    them: lowbit_fa_attn by bits, each held to the fp32 oracle with the same
+    window and sinks at its mode's bound."""
+    q, k, v = (_torch(x) for x in _qkv(h=4, hk=2, s=400, seed=38))
+    kw = dict(is_causal=True, window_size=100, sink_size=20)
+    o = tlq.lowbit_fa_attn(q, k, v, bits=bits, **kw)
+    ref = attention_reference(q, k, v, **kw)
+    bound = {"int4": 0.99, "int2": 0.9}.get(bits, 0.999)
+    assert float(cosine_similarity(o, ref)) >= bound
+    full = attention_reference(q, k, v, is_causal=True)
+    assert float(cosine_similarity(ref, full)) < 0.99  # the window changes the answer

@@ -115,6 +115,30 @@ TRAINABLE = {
 }
 
 
+@pytest.mark.parametrize("window", [32, 100])
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("fn", list(TRAINABLE))
+def test_trainable_window_grads_match_jax(fn, dtype, window):
+    """Both trainable functions with a causal sliding window (kernel A's
+    band forward, G1/G2's window backward), GQA 4q/2kv, s 256, against
+    ``jax.grad`` of the JAX functions at test_trainable_grads_match_jax's
+    bounds."""
+    jfn, tfn, _ = TRAINABLE[fn]
+    # The positional arguments before window_size: sm_scale, block_q, block_kv (and bwd_quantized).
+    extra = {"flash": (None,) * 3, "lowbit": (None,) * 3 + (False,), "lowbit-bwd-quantized": (None,) * 3 + (True,)}[fn]
+    q, k, v, tgt = _inputs(5, 4, 2, 256, 64, dtype)
+    tgt = tgt.astype(jnp.float32)
+    want = jax.grad(lambda q, k, v: jnp.sum(jfn(q, k, v, True, *extra, window).astype(jnp.float32) * tgt),
+                    (0, 1, 2))(q, k, v)
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    got = _port_grads(tfn, q, k, v, tgt, tdt, True, *extra, window)
+    for grad, a, b in zip("qkv", got, want):
+        b = _t(b)
+        assert a.dtype == tdt and a.shape == b.shape, grad
+        assert float(cosine_similarity(a, b)) >= 0.9999, grad
+        assert _ulps(a, b) <= 4.0, grad
+
+
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("fn", list(TRAINABLE))
@@ -148,11 +172,22 @@ def test_trainable_grads_track_the_fp32_oracle(causal):
 
 
 def test_window_size_raises_and_blocks_change_nothing():
+    """``window_size`` runs on both trainable functions (it raised before
+    kernel A took the window): its gradients equal JAX's at the bounds of
+    test_trainable_grads_match_jax and differ from full causal ones; the
+    backward tile sizes change nothing."""
     q, k, v, tgt = _inputs(3, 2, 2, 130, 64, jnp.bfloat16)
-    for fn in (tbwd.flash_attention_trainable, tbwd.lowbit_attention_trainable):
-        with pytest.raises(NotImplementedError, match="3f"):
-            fn(_t(q), _t(k), _t(v), True, None, None, None, window_size=64)
+    tgt32 = tgt.astype(jnp.float32)
+    for jfn, fn, extra in ((jbwd.flash_attention_trainable, tbwd.flash_attention_trainable, (None,) * 3 + (64,)),
+                           (jbwd.lowbit_attention_trainable, tbwd.lowbit_attention_trainable,
+                            (None,) * 3 + (False, 64))):
+        got = _port_grads(fn, q, k, v, tgt, torch.bfloat16, True, *extra)
+        want = jax.grad(lambda q, k, v: jnp.sum(jfn(q, k, v, True, *extra).astype(jnp.float32) * tgt32),
+                        (0, 1, 2))(q, k, v)
+        for a, b in zip(got, want):
+            assert float(cosine_similarity(a, _t(b))) >= 0.9999 and _ulps(a, _t(b)) <= 4.0
         base = _port_grads(fn, q, k, v, tgt, torch.bfloat16, True)
+        assert not torch.equal(got[0], base[0])
         tiled = _port_grads(fn, q, k, v, tgt, torch.bfloat16, True, None, 64, 128)
         assert all(torch.equal(a, b) for a, b in zip(base, tiled))
 

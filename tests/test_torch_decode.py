@@ -282,9 +282,6 @@ def test_decode_attention_ignores_rows_past_length():
     "kw,item",
     [
         (dict(page_table=torch.zeros(4, 2, dtype=torch.int32)), "5"),
-        (dict(window_size=64), "2e"),
-        (dict(sink_size=4, window_size=64), "2e"),
-        (dict(logit_cap=30.0), "2e"),
         (dict(compute_mode="int"), "2e"),
     ],
 )
@@ -421,3 +418,99 @@ def test_cache_bits_matches_jax(buf_dtype, width, bits):
     j_buf = jnp.zeros((1, 1, 2, width), jnp.int8 if buf_dtype == torch.int8 else jnp.bfloat16)
     assert jd.cache_bits(j_buf, jnp.zeros((1, 1, 64))) == bits
     assert td.cache_bits(torch.zeros(1, 1, 2, width, dtype=buf_dtype), torch.zeros(1, 1, 64)) == bits
+
+
+# ---------------------------------------------------------------------------
+# Kernel D's window / sink walk and its logit cap
+# ---------------------------------------------------------------------------
+
+WINDOW_MODES = {"int8": (8, 8, "auto"), "bf16": (16, 16, "auto"), "int4": (4, 4, "auto"),
+                "int4-int-qk": (4, 4, "int_qk"), "k4v8": (4, 8, "auto"), "k4v8-int-qk": (4, 8, "int_qk")}
+WINDOW_OPTIONS = {
+    "window64": dict(window_size=64),
+    "window64-sink4": dict(window_size=64, sink_size=4),
+    "window100-sink150": dict(window_size=100, sink_size=150),  # the sinks at and past the window's start
+    "cap1.5": dict(logit_cap=1.5),
+    "window100-sink8-cap2": dict(window_size=100, sink_size=8, logit_cap=2.0),
+}
+
+
+@pytest.mark.parametrize("opts", list(WINDOW_OPTIONS))
+@pytest.mark.parametrize("mode", list(WINDOW_MODES))
+def test_decode_window_and_cap_match_jax(mode, opts):
+    """decode_attention with a window, window + sinks and the logit cap, on
+    the int8, bf16, int4 and k4v8 caches and both QK chains, against JAX's
+    kernel in interpret mode (its compacted walk), at the file's bounds.
+    Lengths: shorter than the window, a window start inside a 64-key tile
+    (300 - 64 = 236), one at a tile edge (192 - 64 = 128), and 0."""
+    k_bits, v_bits, compute_mode = WINDOW_MODES[mode]
+    q, kq, vq, ks, vs, _ = _decode_inputs(4, 8, 2, 64, 300, k_bits, v_bits, seed=k_bits + 5 * v_bits)
+    lengths = np.array([40, 300, 192, 0], np.int32)
+    kw = dict(k_bits=k_bits, v_bits=v_bits, compute_mode=compute_mode, return_lse=True, **WINDOW_OPTIONS[opts])
+    jo, jl = jd.decode_attention(jnp.asarray(q), kq, vq, ks, jnp.asarray(lengths), v_scale=vs, **kw)
+    to, tl = td.decode_attention(torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths),
+                                 v_scale=_torch(vs), **kw)
+    jo, jl = torch.from_numpy(_np(jo)), torch.from_numpy(_np(jl))
+    assert to.shape == (4, 8, 64) and torch.isfinite(to).all()
+    assert float(cosine_similarity(to, jo)) >= COS_MIN
+    assert float((to - jo).abs().max()) <= MAX_DO
+    assert float((tl - jl).abs().max()) <= MAX_DLSE
+    assert float(to[3].abs().max()) == 0.0 and torch.all(tl[3] == torch.tensor(-1e30))
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_decode_window_matches_jax_at_other_head_dims(d):
+    q, kq, vq, ks, vs, _ = _decode_inputs(4, 8, 2, d, 500, 8, 8, seed=d)
+    lengths = np.array([500, 129, 64, 65], np.int32)
+    kw = dict(window_size=128, sink_size=64, return_lse=True)
+    jo, jl = jd.decode_attention(jnp.asarray(q), kq, vq, ks, jnp.asarray(lengths), v_scale=vs, **kw)
+    to, tl = td.decode_attention(torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths),
+                                 v_scale=_torch(vs), **kw)
+    assert float((to - torch.from_numpy(_np(jo))).abs().max()) <= MAX_DO
+    assert float((tl - torch.from_numpy(_np(jl))).abs().max()) <= MAX_DLSE
+
+
+def test_decode_window_reads_only_the_window_and_the_sinks():
+    """Rows outside [len - W, len) and [0, sink) change nothing, whatever
+    they hold (the kernel never loads them)."""
+    q, kq, vq, ks, vs, _ = _decode_inputs(4, 8, 2, 64, 300, 16, 16, seed=9)
+    lengths = np.array([300, 200, 100, 50], np.int32)
+    args = [torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths)]
+    kw = dict(kv_bits=16, window_size=40, sink_size=8)
+    clean = td.decode_attention(*args, **kw)
+    k2, v2 = args[1].clone(), args[2].clone()
+    for i, n in enumerate(lengths):
+        k2[i, :, 8 : n - 40] = float("nan")
+        v2[i, :, 8 : n - 40] = float("inf")
+    stale = td.decode_attention(args[0], k2, v2, *args[3:], **kw)
+    torch.testing.assert_close(stale, clean, rtol=0, atol=0)
+
+
+def test_decode_window_as_long_as_the_cache_is_no_window():
+    q, kq, vq, ks, vs, lengths = _decode_inputs(4, 8, 2, 64, 300, 8, 8, seed=10)
+    args = [torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths)]
+    a = td.decode_attention(*args, v_scale=_torch(vs), return_lse=True)
+    b = td.decode_attention(*args, v_scale=_torch(vs), window_size=300, sink_size=4, return_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("window,sink,want", [(64, 0, 2 * 64), (100, 0, 3 * 64), (4096, 0, 65 * 64),
+                                              (4096, 4, 66 * 64), (8192, 128, 131 * 64), (100, 200, 7 * 64)])
+def test_windowed_split_plan_depends_on_the_window_not_the_cache(window, sink, want):
+    """A windowed call plans its splits over sink tiles + ceil(W / 64) + 1
+    tiles of 64 keys: the same plan for a 32K and a 128K cache (it reads no
+    length), unlike the full walk's, which covers S_max."""
+    assert td.window_keys(window, sink) == want
+    plans = {s_max: td.split_plan(s_max, 32, 396, window, sink) for s_max in (32768, 131072)}
+    assert len(set(plans.values())) == 1
+    n, chunk = plans[32768]
+    assert (n - 1) * chunk < want <= n * chunk and chunk % td.KV_TILE == 0
+    assert td.split_plan(32768, 32, 396) != td.split_plan(131072, 32, 396)
+
+
+@pytest.mark.parametrize("kw,match", [(dict(window_size=-1), "window_size"), (dict(logit_cap=-2.0), "logit_cap")])
+def test_bad_decode_options_raise(kw, match):
+    q, kq, vq, ks, vs, lengths = _decode_inputs(4, 4, 4, 32, 64, 8, 8, seed=5)
+    with pytest.raises(ValueError, match=match):
+        td.decode_attention(torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths),
+                            v_scale=_torch(vs), **kw)

@@ -213,7 +213,6 @@ def test_task_alphabet_matches_jax():
 @pytest.mark.parametrize(
     "make,item",
     [
-        (lambda: TL.LLMConfig(window_size=16), "2e"),
         (lambda: TL.llm_verify_step(None, None, None, None), "2d"),
         (lambda: TL.speculative_generate(None, None, 4, None), "2d"),
     ],
@@ -635,3 +634,81 @@ def test_launch_counts_add_and_restore():
     assert td.decode_attention.launches_by_design["bulk_ring"] == before[(td.decode_attention, "bulk_ring")] + 15
     TL._add_launch_counts(delta, -5)
     assert TL._launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The sliding-window / sink LLM (window 16, sink 4 on the tiny model)
+# ---------------------------------------------------------------------------
+
+WINDOW = dict(window_size=16, sink_size=4)
+
+
+@pytest.mark.parametrize("impl", ["int8", "ref"])
+def test_window_prefill_matches_jax(tiny, impl):
+    """Prefill with a 16-token window and 4 sinks: kernel A's band (int8)
+    or the exact oracle (ref), logits and cache values at the file's cosine
+    bound; the window changes the logits."""
+    params, _, model, tokens = tiny
+    cfg_j, cfg_t = _cfgs(**WINDOW)
+    j_logits, j_caches = JL.llm_prefill(params, jnp.asarray(tokens), cfg_j, attn_impl=impl)
+    t_logits, t_caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg_t, attn_impl=impl)
+    assert _cos(t_logits, j_logits) >= COS_MIN
+    for jc, tc in zip(j_caches, t_caches):
+        values = tc["k"].float() * tc["k_scale"][..., None]
+        assert _cos(values, np.asarray(jc["k"]).astype(np.float32) * np.asarray(jc["k_scale"])[..., None]) >= COS_MIN
+    full, _ = TL.llm_prefill(model, torch.from_numpy(tokens), _cfgs()[1], attn_impl=impl)
+    assert _cos(t_logits[:, -1], full[:, -1].float().numpy()) < 0.9999
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_window_decode_steps_match_jax(tiny, bits):
+    """Decode steps through kernel D's window walk (the sinks and the last
+    16 rows of a 40- to 48-token context), from the exact prefill, at the
+    file's cosine bound."""
+    params, _, model, tokens = tiny
+    cfg_j, cfg_t = _cfgs(kv_bits=bits, **WINDOW)
+    _, j_caches = JL.llm_prefill(params, jnp.asarray(tokens), cfg_j, attn_impl="ref")
+    _, t_caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg_t, attn_impl="ref")
+    feed = np.random.default_rng(2).integers(0, 256, (8, 2)).astype(np.int32)
+    step = jax.jit(lambda p, t, c: JL.llm_decode_step(p, t, c, cfg_j))
+    for i in range(8):
+        j_logits, j_caches = step(params, jnp.asarray(feed[i]), j_caches)
+        t_logits, t_caches = TL.llm_decode_step(model, torch.from_numpy(feed[i]), t_caches, cfg_t)
+        assert _cos(t_logits, j_logits) >= COS_MIN, i
+
+
+def test_window_generate_matches_jax(tiny):
+    """Greedy generation of the windowed tiny model (int8 prefill and cache)
+    gives JAX's tokens."""
+    params, _, model, tokens = tiny
+    cfg_j, cfg_t = _cfgs(**WINDOW)
+    j_out = np.asarray(JL.generate(params, jnp.asarray(tokens), 8, cfg_j))
+    t_out = TL.generate(model, torch.from_numpy(tokens), 8, cfg_t)
+    np.testing.assert_array_equal(t_out.numpy(), j_out)
+
+
+def test_window_decode_tokens_equals_stepping(tiny):
+    _, _, model, tokens = tiny
+    _, cfg = _cfgs(kv_bits=8, k_bits=4, **WINDOW)
+    logits, caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg)
+    copy = [{k: v.clone() for k, v in c.items()} for c in caches]
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    got, _ = TL.decode_tokens(model, tok, caches, 5, cfg)
+    want = []
+    for _ in range(5):
+        step_logits, copy = TL.llm_decode_step(model, tok, copy, cfg)
+        tok = torch.argmax(step_logits, dim=-1).to(torch.int32)
+        want.append(tok)
+    assert torch.equal(got, torch.stack(want, dim=1))
+
+
+def test_chunked_prefill_raises_on_a_window(tiny):
+    """As JAX asserts: the chunked prefill takes full causal attention."""
+    _, _, model, tokens = tiny
+    with pytest.raises(ValueError, match="window_size"):
+        TL.llm_prefill_chunked(model, torch.from_numpy(tokens), _cfgs(**WINDOW)[1])
+
+
+def test_window_config_is_accepted():
+    cfg = TL.LLMConfig(window_size=4096, sink_size=4)
+    assert (cfg.window_size, cfg.sink_size) == (4096, 4)

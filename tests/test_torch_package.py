@@ -23,6 +23,7 @@ import torch
 
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+from lowbit_quant_fa2_paddle_tpu_torch.utils import mask_cases
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd import (
     attention_bwd_dkv,
     attention_bwd_dq,
@@ -984,3 +985,130 @@ def test_wgmma_pv_int8_matches_plain(cuda, case):
     assert float(cosine_similarity(o, o_ref)) >= 0.99999
     assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
     assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("edge", list(mask_cases.EDGES))
+def test_mask_cases_give_the_plain_version_one_call(edge):
+    """On the CPU, a mask case's options for ``lowbit_attention`` and its
+    arguments for ``attention_fwd_plain`` describe the same call, and its
+    rows that see no key are those the case expects."""
+    case = mask_cases.make_case("fused-d64", edge, torch.Generator().manual_seed(21), "cpu")
+    o, lse = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+    o_ref, lse_ref = attention_fwd_plain(*case["plain_args"], **case["plain_kw"])
+    assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
+    r = mask_cases.masked_stats(o, lse, o_ref, lse_ref)
+    assert r["empty_ok"] and r["empty_rows"] == case["empty_rows"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", list(mask_cases.EDGES))
+@pytest.mark.parametrize("mode", list(mask_cases.MODES))
+def test_attention_masks_match_plain(cuda, mode, edge):
+    """Kernel A's masks in every mode, against the plain version (which walks
+    the same KV tiles), over the grid of ``utils/mask_cases.py``: a window
+    below and not a multiple of the 128-key tile, sinks not a tile multiple
+    and past the window's start, a q_position_offset that empties every
+    row's band (o = 0, lse = -1e30) and one with Sq != Sk, segment ids
+    splitting inside tiles (with a q segment no key shares), segments under
+    a causal window, the logit cap; GQA 4q/2kv. Phase 4's bounds, the same
+    bits on a second run, every launch on the wgmma design."""
+    case = mask_cases.make_case(mode, edge, torch.Generator(device=cuda).manual_seed(21), cuda)
+    n = lowbit_attention.launches_by_design["wgmma"]
+    o, lse = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+    o2, lse2 = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+    o_ref, lse_ref = attention_fwd_plain(*case["plain_args"], **case["plain_kw"])
+    torch.cuda.synchronize()
+    assert lowbit_attention.launches_by_design["wgmma"] == n + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    r = mask_cases.masked_stats(o, lse, o_ref, lse_ref)
+    assert r["finite"] and r["empty_ok"], r
+    assert r["cos"] >= 0.99999 and r["max_do"] <= 2e-2 and r["max_dlse"] <= 1e-3, r
+    assert r["empty_rows"] == case["empty_rows"]
+
+
+# Kernel D's windowed modes: (k_bits, v_bits, compute_mode) by name, and the
+# edges (b4 h32 hk8, S, head_dim, lengths, decode_attention's options).
+DECODE_WINDOW_MODES = {"int8": (8, 8, "auto"), "bf16": (16, 16, "auto"), "int4": (4, 4, "auto"),
+                       "int4-int-qk": (4, 4, "int_qk"), "k4v8": (4, 8, "auto"), "k4v8-int-qk": (4, 8, "int_qk")}
+DECODE_WINDOW_EDGES = {
+    # lengths: shorter than the window, its start inside a 64-key tile, at a tile edge, none
+    "window256": (2048, 128, [100, 1000, 1280, 0], dict(window_size=256)),
+    "window256-sink4": (2048, 128, [100, 1000, 1280, 2048], dict(window_size=256, sink_size=4)),
+    # sink at and past the window's start (1000 >= 1200 - 300), a length inside the sinks
+    "window300-sink1000": (2048, 128, [1200, 700, 2000, 1], dict(window_size=300, sink_size=1000)),
+    "cap2": (2048, 128, [2048, 1, 1500, 0], dict(logit_cap=2.0)),
+    "window512-sink64-cap3-d64": (4500, 64, [4500, 577, 4097, 64], dict(window_size=512, sink_size=64, logit_cap=3.0)),
+    "window100-sink10-d32": (1000, 32, [1000, 50, 333, 99], dict(window_size=100, sink_size=10)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", list(DECODE_WINDOW_EDGES))
+@pytest.mark.parametrize("mode", list(DECODE_WINDOW_MODES))
+def test_decode_window_modes_match_plain(cuda, mode, edge):
+    """Kernel D's compacted window walk, its sinks and the logit cap, on
+    every cache type and both QK chains, against the plain version at
+    phase 9's bounds (cos >= 0.99999, max|do| <= one bf16 ulp of max|o|,
+    max|dlse| <= 1e-4, empty rows 0 / -1e30); the same bits on a second
+    run, every launch on the design."""
+    k_bits, v_bits, compute_mode = DECODE_WINDOW_MODES[mode]
+    s, d, lengths, kw = DECODE_WINDOW_EDGES[edge]
+    b, h, hk = 4, 32, 8
+    int_qk = compute_mode == "int_qk" or k_bits == 8
+    g = torch.Generator(device=cuda).manual_seed(23)
+    k = torch.randn(b, hk, s, d, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, hk, s, d, generator=g, device=cuda).bfloat16()
+    q = torch.randn(b, h, d, generator=g, device=cuda).bfloat16()
+    (kq, ks), (vq, vs) = quantize_token(k, bits=k_bits), quantize_token(v, bits=v_bits)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n = decode_attention.launches_by_design["bulk_ring"]
+    args = dict(v_scale=vs, k_bits=k_bits, v_bits=v_bits, compute_mode=compute_mode, return_lse=True, **kw)
+    o, lse = decode_attention(q, kq, vq, ks, lens, **args)
+    o2, lse2 = decode_attention(q, kq, vq, ks, lens, **args)
+    window = kw.get("window_size", 0)
+    o_ref, lse_ref = decode_attention_plain(
+        q, kq, vq, ks, vs if v_bits != 16 else None, lens, sm_scale=1.0 / math.sqrt(d), int_qk=int_qk,
+        out_dtype=q.dtype, window=window, sink=kw.get("sink_size", 0) if window else 0,
+        logit_cap=kw.get("logit_cap", 0.0))
+    torch.cuda.synchronize()
+    assert decode_attention.launches_by_design["bulk_ring"] == n + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ulp = 2.0 ** (math.floor(math.log2(float(o_ref.float().abs().max()))) - 7)
+    assert float(cosine_similarity(o, o_ref)) >= 0.99999
+    assert float((o.float() - o_ref.float()).abs().max()) <= ulp
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    for i, n_keys in enumerate(lengths):
+        if n_keys == 0:
+            assert float(o[i].float().abs().max()) == 0.0 and bool((lse[i] == -1e30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "bf16", "k4v8"])
+def test_windowed_decode_tokens_graph_equals_eager_stepping(cuda, mode):
+    """The sliding-window / sink LLM (window 16, sink 4) on the card: its
+    prefill runs kernel A's band, and ``decode_tokens`` (one captured step,
+    replayed) gives the tokens and the bit-equal caches of a loop of
+    ``llm_decode_step`` from cloned caches, with depth D launches a step
+    and D's merge tickets back at zero."""
+    cfg = llm.tiny_llm_config(dim=256, depth=2, num_heads=4, num_kv_heads=2, max_seq=128, dtype=torch.bfloat16,
+                              window_size=16, sink_size=4, **GRAPH_CACHES[mode])
+    model = llm.init_llm_params(cfg, torch.Generator(device=cuda).manual_seed(5))
+    prompt = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    n_a = lowbit_attention.launches
+    logits, caches = llm.llm_prefill(model, prompt, cfg)
+    assert lowbit_attention.launches - n_a == cfg.depth
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    copy = [{k: v.clone() for k, v in c.items()} for c in caches]
+    n_d = decode_attention.launches
+    got, out_caches = llm.decode_tokens(model, tok, caches, 6, cfg)
+    torch.cuda.synchronize()
+    assert decode_attention.launches - n_d == 6 * cfg.depth
+    want, t = [], tok
+    for _ in range(6):
+        step_logits, copy = llm.llm_decode_step(model, t, copy, cfg)
+        t = torch.argmax(step_logits, dim=-1).to(torch.int32)
+        want.append(t)
+    assert torch.equal(got, torch.stack(want, dim=1))
+    for c, w in zip(out_caches, copy):
+        assert all(torch.equal(c[k], w[k]) for k in c), mode
+    assert not decode_ops._TICKETS[got.device].any()
