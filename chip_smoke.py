@@ -196,7 +196,35 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (StreamingLLM); depth A / C1 launches a prefill and depth x 32 D a
    decode, first-step logits int8 vs bf16 cache cos >= 0.999, 16 graph
    tokens equal to the eager loop's with bit-equal caches, one profiled
-   decode step (D's share), window vs full-causal logits printed.
+   decode step (D's share), window vs full-causal logits printed;
+16. kernel D's multi-token (verify) and INT8-PV instances and speculative
+   decoding (run after phase 15, on phase 13's model, before phase 14): the
+   edge grid of utils/decode_cases.py (T rows straddling a tile and a split,
+   a window whose band start moves with t, lengths below T + window, INT8
+   PV with all-masked tiles; int8, bf16, int4 and k4v8 caches, both QK
+   chains, d32/64/128) against the plain version on the kernel's own tiles
+   at phase 9's bounds, the same bits twice; D over T = 1, 2, 4, 8 tokens at
+   b1 and b4 (h32 hk8 S_max 32768 d128, int8 cache) timed with GB/s and its
+   bound (the cache read once, whatever T) beside SDPA over the bf16 cache
+   with the causal tail mask (a baseline), INT8 PV against "auto" at b4, T 4
+   at b4 with lengths 4-131, the int4 cache at b1, every launch counted on
+   its variant (ops.decode.launch_variant); then at full width, b1, the
+   first row of phase 13's prompt, the int8 cache, 64 new tokens:
+   generate's prefill and graph
+   decode (the reference tokens and ms per token), and speculative_generate
+   with spec_k 4 and two drafts (the same weights through an int4 cache; w4
+   weights through an int4 cache), each token-equal to generate, with
+   rounds, mean accepted, ms per emitted token and launch counts (depth D a
+   verify step on the T-token variant at T = its drafts, depth D a drafted
+   token on the single-token int4 variant, 6 x depth F2 a drafted token for
+   w4), one 4-token verify step's host wall and device ms, and its rows
+   against 4 sequential decode steps (same argmax; cos >= 0.9999 in bf16
+   at the 32K context, where the two split the keys otherwise, and >=
+   0.99999 after a 16-token prompt and in f32 at depth 2 after 16 and
+   1,000 tokens); then the
+   trained checkpoint: speculative_generate of 8 tokens on each of 64
+   prompts with the int4-cache and the w4 self-drafts, equal to generate on
+   every prompt, exact-match >= 0.98.
 
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
@@ -268,7 +296,12 @@ def bf16_ulp(x):
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
+#: The card's name and power limit as nvidia-smi reports them (device_phase).
+CARD = "not read"
+
+
 def device_phase():
+    global CARD
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     out = subprocess.run(
@@ -276,6 +309,7 @@ def device_phase():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     log(out[0])
+    CARD = out[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
@@ -1306,6 +1340,13 @@ def count_reset():
         w.launches = 0
         for key in getattr(w, "launches_by_design", {}):
             w.launches_by_design[key] = 0
+        getattr(w, "launches_by_variant", {}).clear()
+
+
+def variant_counts():
+    """Kernel D's launches per variant (``ops.decode.launch_variant``) since
+    the last count_reset()."""
+    return {k: n for k, n in _wrappers()["D"].launches_by_variant.items() if n}
 
 
 def design_counts(name="A"):
@@ -1938,7 +1979,7 @@ def full_width_phase():
             f"({time.perf_counter() - t0:.1f} s with its prefill)")
     del packed
     # Phase 15's windowed LLM runs on this model (no second init).
-    res["_model"], res["_first_logits_int8"] = model, first_int8
+    res["_model"], res["_first_logits_int8"], res["_prompt"] = model, first_int8, prompt
     return res
 
 
@@ -2643,6 +2684,358 @@ def window_llm_phase(model, full_logits):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: kernel D's multi-token (verify) and INT8-PV modes, speculative decoding
+# ---------------------------------------------------------------------------
+
+SPEC_T = (1, 2, 4, 8)
+
+
+def spec_record(tag, q, kq, vq, ks, vs, lens, k_bits, v_bits, mode, kv_bf16=None):
+    """Kernel D over ``q [B, T, H, D]`` against its plain version on the
+    kernel's own tiles at phase 9's bounds, the same bits twice, every
+    launch on its design; timed beside the plain version and, given the
+    cache's bf16 K/V (``kv_bf16``), beside SDPA with T queries a head and the
+    causal tail mask (a baseline: SDPA reads the bf16 cache, not the
+    kernel's). Bound: the cache rows the call reads, once, whatever T."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    b, t, h, d = q.shape
+    hk, s_max = kq.shape[1], kq.shape[2]
+    int_qk = k_bits != 16 and (mode in ("int", "int_qk") or (mode == "auto" and k_bits == 8))
+    int_pv = mode == "int" and v_bits == 8
+    kw = dict(v_scale=vs, k_bits=k_bits, v_bits=v_bits, compute_mode=mode)
+    plan = DD.kernel_partition(q, kq, vq, int_qk=int_qk, int_pv=int_pv)
+    pkw = dict(sm_scale=1.0 / math.sqrt(d), int_qk=int_qk, out_dtype=q.dtype, int_pv=int_pv,
+               split_keys=plan["split_keys"], warps=plan["warps"])
+    vs_p = vs if v_bits != 16 else None
+    variant = DD.launch_variant(plan["multi"], t, k_bits, v_bits, b)
+    n = DD.decode_attention.launches_by_design[DD.kernel_design()]
+    n_variant = DD.decode_attention.launches_by_variant.get(variant, 0)
+    o, lse = DD.decode_attention(q, kq, vq, ks, lens, **kw, return_lse=True)
+    o2, lse2 = DD.decode_attention(q, kq, vq, ks, lens, **kw, return_lse=True)
+    o_ref, lse_ref = DD.decode_attention_plain(q, kq, vq, ks, vs_p, lens, **pkw)
+    torch.cuda.synchronize()
+    r = stats(o, o_ref, lse, lse_ref)
+    ulp = bf16_ulp(float(o_ref.float().abs().max()))
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    on_design = (DD.decode_attention.launches_by_design[DD.kernel_design()] == n + 2
+                 and DD.decode_attention.launches_by_variant.get(variant, 0) == n_variant + 2)
+    log(f"[D16] {tag} (lengths {lens.tolist()}; {plan['rows']} rows a CTA, {plan['row_groups'] // hk} CTAs a KV "
+        f"head and split, {plan['n_splits']} splits of {plan['split_keys']} keys): " +
+        " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items()) +
+        f" bf16_ulp={ulp:.3g} same_bits_twice={same} design={DD.kernel_design()}, {variant}:{on_design}")
+    if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= ulp and r["max_dlse"] <= 1e-4 and same
+            and on_design):
+        raise AssertionError(f"kernel D ({tag}) disagrees with its plain version: {r}")
+    del o, o2, o_ref
+    ms = cuda_time_ms(lambda: DD.decode_attention(q, kq, vq, ks, lens, **kw), warmup=5, reps=50)
+    plain_ms = cuda_time_ms(lambda: DD.decode_attention_plain(q, kq, vq, ks, vs_p, lens, **pkw), warmup=1, reps=3)
+    cache_bytes = nbytes(kq, vq, ks, vs_p) * int(lens.clamp(max=s_max).sum()) // (b * s_max)
+    lim = bound(cache_bytes + nbytes(q, lens) + nbytes(q))  # q and lengths read, o written
+    library_ms = None
+    if kv_bf16 is not None:
+        k16, v16 = kv_bf16
+        pos = torch.arange(s_max, device="cuda")
+        tail = pos[None, :] <= (s_max - t + torch.arange(t, device="cuda"))[:, None]  # [T, S]
+        q4 = q.transpose(1, 2)
+        library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k16, v16, attn_mask=tail, enable_gqa=True), warmup=3, reps=20)
+    gbps = cache_bytes / (ms * 1e-3) / 1e9
+    log(f"[D16] {CARD}: {tag}: kernel {ms:.4f} ms ({gbps:.1f} GB/s of {cache_bytes / 1e6:.1f} MB cache), plain "
+        f"{plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.1%} of it), SDPA on the bf16 "
+        f"cache {library_ms}")
+    return {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": library_ms,
+            "gbps": gbps, "design": DD.kernel_design(), "variant": variant}
+
+
+def spec_kernel_phase(gen):
+    """Phase 16, kernels: the edge grid of utils/decode_cases.py (T rows
+    straddling a tile and a split, a window whose band start moves with t,
+    lengths below T + window, INT8 PV with all-masked tiles) at phase 9's
+    bounds; then D over T = 1, 2, 4, 8 tokens at b1 and b4 (h32 hk8 S_max
+    32768 d128, int8 cache, every length 32768) beside SDPA on the bf16
+    cache with the causal tail mask; INT8 PV against "auto" at b4 (T 1 and
+    4); T 4 at b4 with lengths 4-131; the draft's int4 cache at b1, one
+    token."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import quantize_token
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases
+
+    for name in decode_cases.CASES:
+        r = decode_cases.check_case(name, gen)
+        log(f"[D16] edge {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                              for k, v in r.items()))
+        if not r["ok"]:
+            raise AssertionError(f"kernel D's edge case {name} disagrees with its plain version: {r}")
+    h, hk, d, s = 32, 8, 128, 32768
+    k = torch.randn(4, hk, s, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(4, hk, s, d, generator=gen, device="cuda").bfloat16()
+    (kq, ks), (vq, vs) = quantize_token(k, bits=8), quantize_token(v, bits=8)
+    rec = {}
+    for b in (1, 4):
+        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        for t in SPEC_T:
+            q = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+            rec[f"int8 T{t} b{b}"] = spec_record(f"int8 cache, T {t}, b{b} h{h} hk{hk} S_max {s} d{d}", q, kq[:b],
+                                                 vq[:b], ks[:b], vs[:b], lens, 8, 8, "auto", (k[:b], v[:b]))
+            if b == 4 and t in (1, 4):
+                rec[f"int8 INT8 PV T{t} b{b}"] = spec_record(
+                    f"int8 cache, INT8 PV, T {t}, b{b} h{h} hk{hk} S_max {s} d{d}", q, kq, vq, ks, vs, lens, 8, 8,
+                    "int")
+                log(f"[D16] {CARD}: INT8 PV vs auto, T {t} b{b}: {rec[f'int8 INT8 PV T{t} b{b}']['ms']:.4f} ms vs "
+                    f"{rec[f'int8 T{t} b{b}']['ms']:.4f} ms")
+    # T 4 at the same shape with short lengths: a key more or less in a row
+    # (an off-by-one of a row's limit) moves o far past the bound, which a
+    # length of 32768 would hide.
+    lens = torch.tensor([4, 9, 66, 131], dtype=torch.int32, device="cuda")
+    q = torch.randn(4, 4, h, d, generator=gen, device="cuda").bfloat16()
+    rec["int8 T4 b4, lengths 4-131"] = spec_record(f"int8 cache, T 4, b4 h{h} hk{hk} S_max {s} d{d}, lengths 4-131",
+                                                  q, kq, vq, ks, vs, lens, 8, 8, "auto")
+    del kq, vq, ks, vs
+    (kq, ks), (vq, vs) = quantize_token(k[:1], bits=4), quantize_token(v[:1], bits=4)
+    q = torch.randn(1, 1, h, d, generator=gen, device="cuda").bfloat16()
+    lens = torch.full((1,), s, dtype=torch.int32, device="cuda")
+    rec["int4 T1 b1"] = spec_record(f"int4 cache (the drafts'), T 1, b1 h{h} hk{hk} S_max {s} d{d}", q, kq, vq, ks,
+                                    vs, lens, 4, 4, "auto")
+    return rec
+
+
+def spec_variants(cfg, draft_cfg, stats):
+    """Kernel D's launches by variant in one speculative_generate of one
+    sequence: a verify step of k drafts runs the target's layers on the
+    T-token kernel at T = k (the single-token kernel at k = 1), each drafted
+    token the draft's layers on the single-token kernel."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import launch_variant
+
+    want = {}
+    steps = [(0, 1, draft_cfg, sum(stats["k_per_round"]))] + [(int(k > 1), k, cfg, 1) for k in stats["k_per_round"]]
+    for multi, t, c, n in steps:
+        key = launch_variant(multi, t, c.eff_k_bits, c.eff_v_bits, 1)
+        want[key] = want.get(key, 0) + c.depth * n
+    return {k: n for k, n in want.items() if n}
+
+
+def check_spec_counts(where, got, variants, cfg, draft_cfg, stats, f2_per_token=0):
+    """The launches of one speculative_generate: A and C1 once a layer of
+    each prefill, D once a layer of the target a verify step and once a
+    layer of the draft a drafted token, each on its variant
+    (``spec_variants``), F2 ``f2_per_token`` a drafted token (a w4 draft)."""
+    depth, draft_depth = cfg.depth, draft_cfg.depth
+    drafted = sum(stats["k_per_round"])
+    want = {"A": depth + draft_depth, "C1": depth + draft_depth, "C2": 0, "C3": 0,
+            "D": depth * stats["rounds"] + draft_depth * drafted, "E": 0, "F1": 0, "F2": f2_per_token * drafted,
+            "G1": 0, "G2": 0}
+    want_v = spec_variants(cfg, draft_cfg, stats)
+    d_designs = design_counts("D")
+    log(f"[{where}] launches {got} (want {want}: {stats['rounds']} verify steps, {drafted} drafted tokens), "
+        f"kernel D by design {d_designs}, by variant {variants} (want {want_v})")
+    if got != want or d_designs != {"bulk_ring": want["D"]} or variants != want_v:
+        raise AssertionError(f"{where}: launch counts {got} != {want}, or {d_designs}, or {variants} != {want_v}")
+
+
+def spec_full_width_phase(model, prompt):
+    """Phase 16, the full-width verify path: phase 13's model at b1 on the
+    first row of its 32,704-token prompt, the int8 cache, 64 new tokens.
+    generate's two stages (llm_prefill, then the graph decode of 63 tokens)
+    give the reference tokens and ms per token; then speculative_generate
+    with spec_k 4 and two drafts: the same weights through an int4 cache
+    (example/llm_generate.py --spec-k), and w4 weights (quantize_llm_params)
+    through an int4 cache. Each must give generate's tokens; prints rounds,
+    mean accepted, ms per emitted token (wall, whole call, and without the
+    two prefills measured alone), launch counts (depth D a verify step,
+    draft depth D a drafted token, F2 6 x depth a drafted token for w4).
+    Then one verify step of 4 tokens at the end of the 32K context: host
+    wall, and device ms by kernel class under torch.profiler; and its rows
+    against 4 sequential decode steps (verify_rows_check) there and after a
+    16-token prompt, and in f32 at depth 2."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+
+    n_new, spec_k = 64, 4
+    cfg = dataclasses.replace(model.cfg, max_seq=32768, kv_bits=8)
+    draft_cfg = dataclasses.replace(cfg, kv_bits=4)
+    p1 = prompt[:1]
+    res = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = llm.llm_prefill(model, p1, cfg)
+    token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    del logits
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    count_reset()
+    steps, caches, wall_ms, replay_ms, call_s = graph_decode(model, token, caches, n_new - 1, cfg)
+    ref = torch.cat([token[:, None], steps], dim=1)
+    del caches, steps
+    res["generate"] = {"prefill_s": prefill_s, "ms_per_token": wall_ms, "replay_ms": statistics.median(replay_ms),
+                       "launches": counts(), "variants": variant_counts()}
+    log(f"[spec] {CARD}: generate's tokens {ref[0].tolist()}")
+    log(f"[spec] {CARD}: generate b1, int8 cache: prefill {prefill_s:.3f} s, graph decode {wall_ms:.3f} ms/token wall "
+        f"(single replay median {statistics.median(replay_ms):.3f} ms device)")
+    w4 = llm.quantize_llm_params(model, bits=4)
+    llm.generate(w4, p1[:, :64], 2, dataclasses.replace(draft_cfg, max_seq=512))  # warm-up of F2, not counted
+    for name, draft in (("self, int4 cache", model), ("w4 weights, int4 cache", w4)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, dc = llm.llm_prefill(draft, p1, draft_cfg)
+        torch.cuda.synchronize()
+        draft_prefill_s = time.perf_counter() - t0
+        del dc
+        torch.cuda.empty_cache()
+        count_reset()
+        t0 = time.perf_counter()
+        toks, st = llm.speculative_generate(model, p1, n_new, cfg, draft_params=draft, draft_cfg=draft_cfg,
+                                            spec_k=spec_k, return_stats=True)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        got, variants = counts(), variant_counts()
+        equal = torch.equal(toks, ref)
+        decode_ms = (total_s - prefill_s - draft_prefill_s) / (n_new - 1) * 1e3
+        log(f"[spec] {CARD}: {name}: {n_new} tokens equal to generate's: {equal}; {st['rounds']} rounds, mean accepted "
+            f"{st['mean_accepted']:.3f} of {spec_k} (k per round {st['k_per_round']}); whole call {total_s:.3f} s "
+            f"({total_s / n_new * 1e3:.3f} ms per emitted token), without the two prefills (target "
+            f"{prefill_s:.3f} s, draft {draft_prefill_s:.3f} s, each measured alone) {decode_ms:.3f} ms per token "
+            f"vs generate's graph decode {wall_ms:.3f}")
+        if not equal:
+            raise AssertionError(f"speculative_generate ({name}) differs from generate: {toks} vs {ref}")
+        check_spec_counts(f"spec {name}", got, variants, cfg, draft_cfg, st, 6 * cfg.depth if draft is w4 else 0)
+        res[name] = {"rounds": st["rounds"], "mean_accepted": st["mean_accepted"], "total_s": total_s,
+                     "decode_ms_per_token": decode_ms, "draft_prefill_s": draft_prefill_s, "launches": got,
+                     "variants": variants, "k_per_round": st["k_per_round"]}
+    del w4
+    # One verify step of 4 tokens at the end of the 32K context, host wall and device time.
+    _, caches = llm.llm_prefill(model, p1, cfg)
+    length = caches[0]["length"].clone()
+    fed = ref[:, :4].contiguous()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, caches = llm.llm_verify_step(model, fed, caches, cfg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        caches = llm.rollback_caches(caches, length)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, caches = llm.llm_verify_step(model, fed, caches, cfg)
+        torch.cuda.synchronize()
+    cats = {"D": 0.0, "GEMM": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        kind = "D" if "decode" in name else "GEMM" if any(t in name for t in GEMM_NAMES) else "other"
+        cats[kind] += e.device_time_total / 1e3
+    res["verify"] = {"host_wall_ms": statistics.median(walls), "device_ms": cats}
+    log(f"[spec] {CARD}: verify step (4 tokens, b1, 32K int8 cache, depth {cfg.depth}): host wall median "
+        f"{statistics.median(walls):.3f} ms (of {[round(w, 3) for w in walls]}), device ms " +
+        ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) + f"; total {sum(cats.values()):.3f}")
+    # The verify step's rows against sequential decode steps: the same argmax,
+    # and cos >= 0.99999, but 0.9999 at the end of the 32K context in bf16.
+    # There kernel D's T-token variant splits the keys otherwise than the
+    # single-token kernel (other row groups, so another split plan and merge
+    # order): within a bf16 ulp a layer, which 32 bf16 layers carry to 1-2
+    # ulps of the logits (cos 0.99994-0.99996 on an H100 80GB HBM3). After a
+    # 16-token prompt (one split holds keys) the two give the same bits.
+    verify_rows_check(model, llm.rollback_caches(caches, length), fed, cfg, "bf16, 32K context", 0.9999)
+    del caches
+    _, caches = llm.llm_prefill(model, p1[:, :16].contiguous(), cfg)
+    verify_rows_check(model, caches, p1[:, 16:20].to(torch.int32).contiguous(), cfg, "bf16, 16-token context",
+                      COS_MIN)
+    del caches
+    # The same width in f32 (depth cut to 2, weights from a seed), where the
+    # rows lie far apart (a decode step's logits against the next's: cos
+    # 0.65-0.81), after 16 and 1,000 prompt tokens (T g = 16 rows a KV head,
+    # 2 CTAs, d128).
+    cfg32 = dataclasses.replace(cfg, depth=2, dtype=torch.float32, max_seq=2048)
+    model32 = llm.init_llm_params(cfg32, torch.Generator(device="cuda").manual_seed(5))
+    for n in (16, 1000):
+        _, caches = llm.llm_prefill(model32, p1[:, :n].contiguous(), cfg32)
+        verify_rows_check(model32, caches, p1[:, n:n + 4].to(torch.int32).contiguous(), cfg32,
+                          f"f32, depth 2, {n}-token context", COS_MIN)
+        del caches
+    del model32
+    return res
+
+
+def verify_rows_check(model, caches, fed, cfg, where, cos_min):
+    """Row t of one llm_verify_step over ``fed [1, T]`` against the t-th
+    sequential llm_decode_step from the same caches: cos >= ``cos_min`` and
+    the same argmax (tests/test_torch_speculative.py's
+    test_verify_step_rows_match_decode_steps). Logs, for scale, the cos of
+    each decode step's logits with the next step's (what a row off by one
+    would show)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+
+    length = caches[0]["length"].clone()
+    v_logits, caches = llm.llm_verify_step(model, fed, caches, cfg)
+    caches = llm.rollback_caches(caches, length)
+    rows, steps = [], []
+    for t in range(fed.shape[1]):
+        s_logits, caches = llm.llm_decode_step(model, fed[:, t], caches, cfg)
+        steps.append(s_logits)
+        rows.append({"cos": float(cosine_similarity(v_logits[:, t], s_logits)),
+                     "max_d": float((v_logits[:, t].float() - s_logits.float()).abs().max()),
+                     "same_argmax": torch.equal(torch.argmax(v_logits[:, t], -1), torch.argmax(s_logits, -1))})
+    next_cos = [round(float(cosine_similarity(steps[t], steps[t + 1])), 6) for t in range(len(steps) - 1)]
+    log(f"[spec] verify rows vs decode steps ({where}, T {fed.shape[1]}, cos >= {cos_min}): {rows}; each decode "
+        f"step's logits against the next step's: cos {next_cos}, max|logits| {float(steps[0].abs().max()):.4g}")
+    if not all(r["cos"] >= cos_min and r["same_argmax"] for r in rows):
+        raise AssertionError(f"llm_verify_step's rows differ from sequential decode steps ({where}): {rows}")
+
+
+def spec_launches(variant, spec_r):
+    """D's launches of one variant (``ops.decode.launch_variant``) on phase
+    16's full-width path, as its runs counted them: generate, then
+    speculative_generate with each draft."""
+    return sum(r["variants"].get(variant, 0) for r in spec_r.values() if "variants" in r)
+
+
+def spec_checkpoint_phase():
+    """Phase 16 on the trained checkpoint: speculative_generate of ANS_LEN x
+    2 tokens on 64 three-shot prompts, one sequence at a time, with the
+    target through an int4 cache and with w4 weights through an int4 cache
+    as drafts (spec_k 4), each equal to generate on the same prompt alone;
+    exact-match of the answers >= 0.98; launch counts per run."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm, train
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.checkpoint import load_params_npz
+
+    tree = load_params_npz(os.path.join(REPO, "eval_out", "arith_llm.npz"))
+    prompts, answers = train.make_eval_prompts(64, few_shot=3)
+    cfg = train.arith_llm_config(kv_bits=8)
+    draft_cfg = train.arith_llm_config(kv_bits=4)
+    model = llm.params_from_jax(tree, cfg)
+    w4 = llm.quantize_llm_params(model, bits=4)
+    n_new = 2 * train.ANS_LEN
+    refs = [llm.generate(model, torch.from_numpy(p[None]).cuda(), n_new, cfg) for p in prompts]
+    res = {}
+    for name, draft in (("self, int4 cache", model), ("w4 weights, int4 cache", w4)):
+        rounds = accepted = 0
+        correct, equal = 0, 0
+        for p, a, ref in zip(prompts, answers, refs):
+            count_reset()
+            toks, st = llm.speculative_generate(model, torch.from_numpy(p[None]).cuda(), n_new, cfg,
+                                                draft_params=draft, draft_cfg=draft_cfg, spec_k=4, return_stats=True)
+            got, variants = counts(), variant_counts()
+            want_d = cfg.depth * (st["rounds"] + sum(st["k_per_round"]))
+            want_v = spec_variants(cfg, draft_cfg, st)
+            if got["D"] != want_d or got["A"] != 2 * cfg.depth or variants != want_v:
+                raise AssertionError(f"ckpt spec {name}: launches {got}, want D {want_d} and A {2 * cfg.depth}; "
+                                     f"D by variant {variants}, want {want_v}")
+            equal += int(torch.equal(toks, ref))
+            correct += int(train.grade_answer(toks[0].cpu().numpy(), a))
+            rounds += st["rounds"]
+            accepted += st["mean_accepted"] * st["rounds"]
+        acc = correct / len(prompts)
+        log(f"[spec ckpt] {CARD}: {name}: {equal}/{len(prompts)} prompts equal to generate's tokens, task exact-match "
+            f"{acc:.4f}, {rounds} rounds, mean accepted {accepted / rounds:.3f} of 4")
+        if equal != len(prompts) or acc < 0.98:
+            raise AssertionError(f"checkpoint speculative_generate ({name}): {equal} equal, exact-match {acc}")
+        res[name] = {"exact_match": acc, "rounds": rounds, "mean_accepted": accepted / rounds}
+    return res
+
+
 def cuda_event_ms(fn):
     """Device ms of one call between two CUDA events."""
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2690,7 +3083,13 @@ def main():
     timed(mask_edge_phase, gen)
     win_a = timed(window_attention_phase, gen)
     win_d = timed(window_decode_phase, gen)
-    win_llm = timed(window_llm_phase, llm_r.pop("_model"), llm_r.pop("_first_logits_int8"))
+    model_13, prompt_13 = llm_r.pop("_model"), llm_r.pop("_prompt")
+    win_llm = timed(window_llm_phase, model_13, llm_r.pop("_first_logits_int8"))
+    # Phase 16 (kernels, then phase 13's model at b1, then the checkpoint).
+    spec_d = timed(spec_kernel_phase, gen)
+    spec_r = timed(spec_full_width_phase, model_13, prompt_13)
+    del model_13, prompt_13
+    timed(spec_checkpoint_phase)
     long_r = timed(long_context_phase)
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
@@ -2801,6 +3200,20 @@ def main():
              source=f"{src}/decode_attention.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
              launches=0, **{k: long_r["D_window"][key][k] for k in timing + ("design",)})
         for key in long_r["D_window"]
+    ] + [
+        # Phase 16: D over T tokens and with INT8 PV. A row's launches are what
+        # the full-width runs (generate, speculative_generate with each draft)
+        # counted for its variant (kernel instance, T, cache bits, batch): the
+        # int8 b1 rows generate's graph decode (T 1) and the verify steps of T
+        # drafts, the int4 row the drafts' decode. The b4 rows and INT8 PV (an
+        # entry-point mode, as in JAX) are on no model path.
+        dict(name=f"decode_attention ({key}; h32 hk8 S_max 32768 d128)",
+             route="cuda", source=f"{src}/" + ("decode_attention.cu" if spec_d[key]["variant"].startswith("single")
+                                               else "decode_attention_multi.cu"),
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
+             launches=spec_launches(spec_d[key]["variant"], spec_r),
+             **{k: spec_d[key][k] for k in timing + ("design",)})
+        for key in spec_d
     ] + [
         dict(name="fused_packed_kv_attention (int4 K/V)", route="cuda", source=f"{src}/fused_kv_attention_wgmma.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py:377", launches=fkv["launches"],

@@ -10,7 +10,8 @@ window with sinks, segment ids, query offset, logit cap), its quantizers
 dispatching API with mixed-bit and multi-precision selection and the
 ragged-batch ``lowbit_fa_varlen``, the DiT denoiser that runs them, LLM
 generation (full causal or sliding-window with sinks) over an int8, 4-bit or
-bf16 KV cache with single-token decode attention (kernel D), weight-quantized models over packed-weight matmuls
+bf16 KV cache with decode attention over one or T query tokens (kernel D;
+greedy speculative decoding through a multi-token verify step), weight-quantized models over packed-weight matmuls
 (kernels F1/F2, ``ops/gemv.py``, ``ops/pack.py``), attention over
 KIVI-grouped packed K/V (kernel E, ``ops/fused_kv.py``), and the FA-2
 backward (kernels G1/G2, ``ops/attention_bwd.py``) under the trainable

@@ -1,0 +1,776 @@
+// Kernel D's device code, shared by its single-token instances
+// (decode_attention.cu) and its multi-token / INT8-PV instances
+// (decode_attention_multi.cu); the design note is in decode_attention.cu.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "sm90.cuh"
+
+namespace {
+
+using namespace sm90;
+
+constexpr int NW = 4;          // consumer warps
+constexpr int NT = 32 * (NW + 1);
+constexpr int RMAX = 8;        // query rows per CTA, at most (the mma's n)
+// Ring stages, a multiple of NW: the tiles of a stage all go to one warp, so
+// a warp never waits on a phase that another warp's tile still holds.
+constexpr int NST = 2 * NW;
+constexpr float MASK_VALUE = (float)(-0.7 * 3.4028234663852886e38);
+constexpr float NEG_INIT = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// Helpers
+// ---------------------------------------------------------------------------
+
+// A bulk copy global -> shared, completion in bytes on bar, with an L2
+// evict-first policy: the cache is read once a call (measured 1.5% faster
+// on the bf16 cache than the default policy).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 pol;\ncreatepolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], pol;\n}\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// Arrives on bar once this thread's earlier cp.async copies have landed
+// (the barrier's expected count includes this arrival).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Four int8 codes of a word to exact floats: each byte, biased by 128, is
+// placed in the mantissa of 2^23 and the bias subtracted.
+__device__ __forceinline__ void widen_i8(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388736.0f;
+}
+
+// N contiguous bytes of shared memory (N = 1, 2, 4, 8, 16) as words.
+template <int N>
+__device__ __forceinline__ void lds(const unsigned char* p, uint32_t* w) {
+  if constexpr (N == 16) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+  } else if constexpr (N == 8) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x, w[1] = x.y;
+  } else if constexpr (N == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (N == 2) {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  } else {
+    w[0] = *p;
+  }
+}
+
+// The element type of a 4-bit cache side: two codes a byte, halves of D.
+struct Nib4 {};
+
+template <typename T>
+struct IsNib4 {
+  static constexpr bool value = false;
+};
+template <>
+struct IsNib4<Nib4> {
+  static constexpr bool value = true;
+};
+
+// Bytes of a cache row of D elements.
+template <typename T, int D>
+constexpr int row_bytes() {
+  return IsNib4<T>::value ? D / 2 : D * (int)sizeof(T);
+}
+
+// The CPL elements of a V row a lane owns, as floats. For a 4-bit V, p
+// points at the CPL bytes that hold them and `nib_shift` is 0 for the low
+// nibbles (the first half of D) or 4 for the high ones.
+template <typename VT, int CPL>
+__device__ __forceinline__ void v_cols(const unsigned char* p, float* f, int nib_shift) {
+  if constexpr (IsNib4<VT>::value) {
+    uint32_t w[1];
+    lds<CPL>(p, w);
+    const uint32_t u = ((w[0] >> nib_shift) & 0x0F0F0F0Fu) ^ 0x08080808u;  // n + 8 a byte
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388616.0f;
+  } else if constexpr (sizeof(VT) == 1) {
+    uint32_t w[1];
+    lds<CPL>(p, w);
+    if constexpr (CPL == 4) {
+      widen_i8(w[0], f);
+    } else {
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) f[i] = (float)(int8_t)(w[0] >> (8 * i));
+    }
+  } else {
+    uint32_t w[CPL >= 2 ? CPL / 2 : 1];
+    lds<2 * CPL>(p, w);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) f[i] = i & 1 ? bf16_hi(w[i / 2]) : bf16_lo(w[i / 2]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Shapes and shared memory of one variant
+// ---------------------------------------------------------------------------
+
+template <int D, typename KT, typename VT, bool kIntQK>
+struct Cfg {
+  static constexpr bool kKNib = IsNib4<KT>::value, kVNib = IsNib4<VT>::value;
+  static constexpr int kKRow = row_bytes<KT, D>();  // bytes of a cache row
+  static constexpr int kVRow = row_bytes<VT, D>();
+  // Keys per tile: 16 KB of K/V at most (measured faster than 8 KB for the
+  // bf16 cache), 16 at least.
+  static constexpr int BK = 64 * (kKRow + kVRow) <= 16384 ? 64 : 32 * (kKRow + kVRow) <= 16384 ? 32 : 16;
+  // QK operands: per window of WB bytes of a K row each thread (t = lane &
+  // 3) reads LB contiguous bytes, which give 2 MMA operand words a row: MMA
+  // products per window. An integer-chain word carries 4 dimensions (s8),
+  // a float-chain word 2 (bf16x2); a 4-bit row's LB bytes carry LB low and
+  // LB high nibbles.
+  static constexpr int LB = kIntQK ? (D >= 64 ? (kKNib ? 8 : 16) : (kKNib ? 4 : 8)) : (kKNib ? 4 : 8 * (int)sizeof(KT));
+  static constexpr int WB = 4 * LB;
+  static constexpr int NWIN = kKRow / WB;
+  static constexpr int MMA = kIntQK ? (kKNib ? LB / 4 : LB / 8) : 2;
+  static constexpr int CPL = D / 32;  // output columns a lane owns in PV
+  // The first dimension of operand word u of thread t in window w. A 4-bit
+  // row's words hold the low nibbles (dimensions b0 ..) first, then the high
+  // ones (D/2 + b0 ..), b0 the thread's first byte.
+  __device__ static constexpr int qdim(int w, int t, int u) {
+    constexpr int per = kIntQK ? 4 : 2;
+    if constexpr (kKNib) {
+      const int b0 = w * WB + t * LB;
+      return u < MMA ? b0 + per * u : D / 2 + b0 + per * (u - MMA);
+    } else {
+      return (w * WB + t * LB) / (int)sizeof(KT) + per * u;
+    }
+  }
+  static constexpr int kKOff = 0;
+  static constexpr int kVOff = kKOff + NST * BK * kKRow;
+  static constexpr int kKsOff = kVOff + NST * BK * kVRow;  // NST x BK f32 K scales
+  static constexpr int kVsOff = kKsOff + NST * BK * 4;     // NST x BK f32 V scales
+  // Per consumer warp: BK x 8 f32 P and 8 alphas. The prologue's query
+  // buffers (RMAX x D f32, RMAX x D int8 codes, RMAX scales) live here first.
+  static constexpr int kPWarp = BK * RMAX * 4 + RMAX * 4;
+  static constexpr int kPOff = kVsOff + NST * BK * 4;
+  static constexpr int kQf = kPOff, kQ8 = kQf + RMAX * D * 4, kQs = kQ8 + RMAX * D;
+  static constexpr int kQBytes = RMAX * D * 5 + RMAX * 4;
+  static constexpr int kBarOff = kPOff + (NW * kPWarp > kQBytes ? NW * kPWarp : (kQBytes + 15) / 16 * 16);
+  static constexpr int kTotal = kBarOff + 2 * NST * 8 + 16;  // + the ticket
+  // The merge's part weights, (NW + 1) x n_parts f32, reuse the ring.
+  static constexpr int kMaxParts = kVOff / ((NW + 1) * 4);
+  static_assert(kKRow % 16 == 0 && kVRow % 16 == 0, "bulk copies move 16-byte multiples");
+  static_assert(NWIN * WB == kKRow, "the QK windows cover a K row");
+};
+
+// bf16x2 of the biased nibbles (u = n + 8) in bits 0-3 and 16-19 of t: the
+// pair (128 + u) - 136 = n, exact.
+__device__ __forceinline__ uint32_t nib_pair_to_bf16x2(uint32_t t) {
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"((t & 0x000F000Fu) | 0x43004300u), "r"(0x3F803F80u),
+      "r"(0xC308C308u));  // x * 1.0 - 136.0
+  return r;
+}
+
+// The 2 MMA operand words of one K row that a thread takes for a window, from
+// its LB bytes at p: s8 codes for the integer chain (a 4-bit row's 16 times
+// too large, see the note), exact bf16 pairs for the float chain.
+template <typename KT, bool kIntQK, int LB>
+__device__ __forceinline__ void k_words(const unsigned char* p, uint32_t* w) {
+  if constexpr (IsNib4<KT>::value && kIntQK) {
+    uint32_t x[LB / 4];
+    lds<LB>(p, x);
+#pragma unroll
+    for (int i = 0; i < LB / 4; ++i) w[i] = (x[i] << 4) & 0xF0F0F0F0u, w[LB / 4 + i] = x[i] & 0xF0F0F0F0u;
+  } else if constexpr (IsNib4<KT>::value) {  // LB == 4: one packed word, 4 bf16 pairs
+    uint32_t x[1];
+    lds<4>(p, x);
+    const uint32_t u = x[0] ^ 0x88888888u;
+    const uint32_t t01 = __byte_perm(u, 0, 0x4140), t23 = __byte_perm(u, 0, 0x4342);  // bytes 0, 1 / 2, 3 at bits 0, 16
+    w[0] = nib_pair_to_bf16x2(t01), w[1] = nib_pair_to_bf16x2(t23);
+    w[2] = nib_pair_to_bf16x2(t01 >> 4), w[3] = nib_pair_to_bf16x2(t23 >> 4);
+  } else if constexpr (kIntQK) {
+    lds<LB>(p, w);
+  } else if constexpr (sizeof(KT) == 1) {
+    uint32_t x[2];
+    lds<8>(p, x);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) w[2 * i] = i8x2_to_bf16x2<0>(x[i]), w[2 * i + 1] = i8x2_to_bf16x2<2>(x[i]);
+  } else {
+    lds<16>(p, w);
+  }
+}
+
+// The causal limits of a thread's two query rows in the multi-token kernels
+// (kExt > 0): keys pos < lim, and in the window phase pos >= lo.
+struct RowLimits {
+  int lim[2], lo[2];
+};
+struct NoRowLimits {};
+
+// ---------------------------------------------------------------------------
+// The kernel. Grid: (n_splits, Hk * groups, B), groups = (H / Hk) / R.
+//
+// kExt 0: one query token a sequence (H query heads). kExt 1: T tokens
+// (the single int of `ext`); H counts the rows T * Hk * g, KV head by KV
+// head and token-major (row t * g + gh of a KV head, as the TPU kernel's
+// r = t * g + gh), each row masked at its own limit len - (T - 1 - t), and
+// `window` is the union band W + T - 1 that the walk covers (row t keeps
+// pos >= len - window + t in the window phase). kExt 2: kExt 1 with INT8 PV
+// on an int8 V. The multi-token kernels are all kMasks instances. Their
+// code sits in `if constexpr (kExt ...)` branches and their extra argument
+// in a parameter pack that is empty for kExt 0, so the single-token
+// kernels compile from the same source as before.
+// ---------------------------------------------------------------------------
+
+template <int D, typename KT, typename VT, bool kIntQK, bool kMasks, int kExt = 0, typename... Ext>
+__global__ void __launch_bounds__(NT) decode_kernel(
+    const void* __restrict__ q, const KT* __restrict__ k, const VT* __restrict__ v,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, const int* __restrict__ lengths,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int* __restrict__ tickets, void* __restrict__ o,
+    float* __restrict__ lse, int H, int Hk, int S, int R, int n_splits, int chunk, int q_bf16, int out_code,
+    int window, int sink, float sm_scale, float logit_cap, Ext... ext) {
+  static_assert(kExt == 0 || (kMasks && sizeof...(Ext) == 1), "the multi-token kernels take masks and T");
+  static_assert(kExt != 2 || std::is_same<VT, int8_t>::value, "INT8 PV takes an int8 V");
+  using C = Cfg<D, KT, VT, kIntQK>;
+  constexpr int BK = C::BK, CPL = C::CPL;
+  constexpr bool kVQuant = C::kVNib || sizeof(VT) == 1;  // per-token V scales
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* empty = full + NST;
+  int* ticket_s = reinterpret_cast<int*>(empty + NST);
+  float* ks_s = reinterpret_cast<float*>(smem + C::kKsOff);
+  float* vs_s = reinterpret_cast<float*>(smem + C::kVsOff);
+
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int groups = (H / Hk) / R;
+  const int hk = blockIdx.y / groups;
+  const int h0 = hk * (H / Hk) + (blockIdx.y % groups) * R;  // first query head of this CTA
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  const long long kh = (long long)b * Hk + hk;
+  const int len = min(max(lengths[b], 0), S);
+  // This split's keys: one range [a0, a1), or with a window two, [a0, a1)
+  // of the sink phase and [b0, b1) of the window phase (the TPU kernel's
+  // compacted walk). The splits cut a logical key axis: sink_keys keys of
+  // the sink tiles, then 64-key tiles from ws, the window's first tile; a
+  // logical key maps to itself in the sink phase and to ws + (l - sink_keys)
+  // in the window phase. Each phase keeps only its visible keys, pos <
+  // min(sink, len) and max(len - window, sink) <= pos < len, so the two
+  // partition the visible keys and no row below the window is loaded.
+  const int start = split * chunk;
+  int a0 = start, a1 = min(start + chunk, len), b0 = 0, b1 = 0;
+  if (kMasks && window > 0) {
+    const int sink_keys = (sink + 63) / 64 * 64;
+    const int lo_w = max(len - window, sink), ws = lo_w / 64 * 64;
+    a1 = min(min(start + chunk, sink_keys), min(sink, len));
+    b0 = max(ws + max(start - sink_keys, 0), lo_w);
+    b1 = min(ws + start + chunk - sink_keys, len);
+  }
+  const int n_a = a1 > a0 ? (a1 - a0 + BK - 1) / BK : 0;
+  const int n_tiles = n_a + (kMasks && b1 > b0 ? (b1 - b0 + BK - 1) / BK : 0);
+  // Tile j's first key and the end of its range.
+  auto tile_key0 = [&](int j) { return !kMasks || j < n_a ? a0 + j * BK : b0 + (j - n_a) * BK; };
+  auto tile_end = [&](int j) { return !kMasks || j < n_a ? a1 : b1; };
+  const int n_parts = n_splits * NW;
+
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the bulk copies' thread, then every lane's scale copies
+      mbar_init(&empty[s], 1);      // lane 0 of the warp that owns the tile
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == NW) {
+    // ---- producer warp: stage j % NST takes tile j; nothing past its range is read ----
+    const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + kh * S * C::kKRow;
+    const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + kh * S * C::kVRow;
+    const float* ksg = k_scale + kh * S;
+    const float* vsg = kVQuant ? v_scale + kh * S : nullptr;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % NST, key0 = tile_key0(j), n = min(BK, tile_end(j) - key0);
+      mbar_wait(&empty[st], ((j / NST) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[st], n * (C::kKRow + C::kVRow));
+        bulk_copy(smem + C::kKOff + st * BK * C::kKRow, kg + (long long)key0 * C::kKRow, n * C::kKRow, &full[st]);
+        bulk_copy(smem + C::kVOff + st * BK * C::kVRow, vg + (long long)key0 * C::kVRow, n * C::kVRow, &full[st]);
+      }
+      for (int i = lane; i < n; i += 32) {
+        cp_async4(ks_s + st * BK + i, ksg + key0 + i);
+        if constexpr (kVQuant) cp_async4(vs_s + st * BK + i, vsg + key0 + i);
+      }
+      cp_async_mbar_arrive(&full[st]);
+    }
+  } else {
+    // ---- consumer warps ----
+    const int g = lane >> 2, t = lane & 3;
+    // The CTA's query rows (zeros past R), then per row the int8 codes:
+    // qa = fma(max|q|, 1/127, 1e-7), code = clamp(round_away(q / qa)).
+    float* q_f = reinterpret_cast<float*>(smem + C::kQf);
+    int8_t* q8 = reinterpret_cast<int8_t*>(smem + C::kQ8);
+    float* qsc_s = reinterpret_cast<float*>(smem + C::kQs);
+    for (int i = tid; i < RMAX * D; i += 32 * NW) {
+      const int r = i / D;
+      float x = 0.0f;
+      if (r < R) {
+        const long long at = ((long long)b * H + h0 + r) * D + i % D;
+        x = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at]) : static_cast<const float*>(q)[at];
+      }
+      q_f[i] = x;
+    }
+    named_bar_sync(1, 32 * NW);
+    if constexpr (kIntQK) {
+      for (int r = warp; r < RMAX; r += NW) {
+        float amax = 0.0f;
+        for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(q_f[r * D + d]));
+        const float sc = __fmaf_rn(warp_max(amax), 1.0f / 127.0f, 1e-7f);
+        for (int d = lane; d < D; d += 32) {
+          const float c = fminf(fmaxf(roundf(__fdiv_rn(q_f[r * D + d], sc)), -127.0f), 127.0f);
+          q8[r * D + d] = static_cast<int8_t>(c);
+        }
+        if (lane == 0) qsc_s[r] = __fmul_rn(sc, sm_scale);
+      }
+      named_bar_sync(1, 32 * NW);
+    }
+    // B fragments of the query rows (n = g), in the dimension order of the
+    // K operand words (Cfg::qdim): product c of window w takes words 2c and
+    // 2c + 1. f32 queries: three bf16 terms.
+    const int nqs = kIntQK || q_bf16 ? 1 : 3;
+    uint32_t bq[C::NWIN][C::MMA][kIntQK ? 1 : 3][2];
+#pragma unroll
+    for (int w = 0; w < C::NWIN; ++w)
+#pragma unroll
+      for (int u = 0; u < 2 * C::MMA; ++u) {
+        const int d0 = C::qdim(w, t, u);
+        if constexpr (kIntQK) {
+          bq[w][u / 2][0][u % 2] = *reinterpret_cast<const uint32_t*>(q8 + g * D + d0);
+        } else {
+          float rem[2] = {q_f[g * D + d0], q_f[g * D + d0 + 1]};
+#pragma unroll
+          for (int qs = 0; qs < 3; ++qs) {
+            float tr[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              tr[i] = __bfloat162float(__float2bfloat16_rn(rem[i]));
+              rem[i] -= tr[i];  // exact
+            }
+            bq[w][u / 2][qs][u % 2] = pack_bf16x2(tr[0], tr[1]);
+          }
+        }
+      }
+    float qsc_r[2] = {sm_scale, sm_scale};
+    if constexpr (kIntQK) qsc_r[0] = qsc_s[2 * t], qsc_r[1] = qsc_s[2 * t + 1];
+    named_bar_sync(1, 32 * NW);  // the query buffers become P scratch
+
+    float* p_s = reinterpret_cast<float*>(smem + C::kPOff + warp * C::kPWarp);  // [BK][RMAX]
+    float* alpha_s = p_s + BK * RMAX;
+    std::conditional_t<(kExt > 0), RowLimits, NoRowLimits> rl;
+    if constexpr (kExt > 0) {
+      const int n_tok = (ext + ...), grp = (H / Hk) / n_tok;
+#pragma unroll
+      for (int qi = 0; qi < 2; ++qi) {
+        const int tok = ((blockIdx.y % groups) * R + 2 * t + qi) / grp;  // this row's query token
+        rl.lim[qi] = len - (n_tok - 1) + tok;
+        rl.lo[qi] = len - window + tok;
+      }
+    }
+    float m_run[2] = {NEG_INIT, NEG_INIT}, l_run[2] = {0.0f, 0.0f};  // queries 2t, 2t + 1
+    float acc[RMAX][CPL];  // rows x columns [CPL lane, CPL lane + CPL)
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[r][c] = 0.0f;
+
+    for (int j = warp; j < n_tiles; j += NW) {
+      const int st = j % NST, key0 = tile_key0(j), nv = min(BK, tile_end(j) - key0);
+      mbar_wait(&full[st], (j / NST) & 1);
+      const unsigned char* Kt = smem + C::kKOff + st * BK * C::kKRow;
+      const unsigned char* Vt = smem + C::kVOff + st * BK * C::kVRow;
+      const float* ks_t = ks_s + st * BK;
+      const float* vs_t = vs_s + st * BK;
+
+      // ---- S = K Q^T: keys 16 mt + g (+ 8) x queries 2t, 2t + 1 ----
+      float s[BK / 16][4];
+#pragma unroll
+      for (int mt = 0; mt < BK / 16; ++mt) {
+        const unsigned char* r0 = Kt + (mt * 16 + g) * C::kKRow;
+        const unsigned char* r1 = r0 + 8 * C::kKRow;
+        if constexpr (kIntQK) {
+          int c4[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int w = 0; w < C::NWIN; ++w) {
+            uint32_t w0[2 * C::MMA], w1[2 * C::MMA];
+            k_words<KT, true, C::LB>(r0 + w * C::WB + t * C::LB, w0);
+            k_words<KT, true, C::LB>(r1 + w * C::WB + t * C::LB, w1);
+#pragma unroll
+            for (int c = 0; c < C::MMA; ++c)
+              mma_s8(c4, w0[2 * c], w1[2 * c], w0[2 * c + 1], w1[2 * c + 1], bq[w][c][0][0], bq[w][c][0][1]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][e] = (float)c4[e];  // |dot| < 2^24: exact
+        } else {
+          float c4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int w = 0; w < C::NWIN; ++w) {
+            uint32_t w0[4], w1[4];  // 8 elements of each row as bf16x2
+            k_words<KT, false, C::LB>(r0 + w * C::WB + t * C::LB, w0);
+            k_words<KT, false, C::LB>(r1 + w * C::WB + t * C::LB, w1);
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+#pragma unroll
+              for (int qs = 0; qs < 3; ++qs)
+                if (qs < nqs)
+                  mma_bf16(c4, w0[2 * c], w1[2 * c], w0[2 * c + 1], w1[2 * c + 1], bq[w][c][qs][0], bq[w][c][qs][1]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][e] = c4[e];
+        }
+        if constexpr (C::kKNib && kIntQK) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][e] *= 0.0625f;  // the codes came as 16 n: exact
+        }
+        if constexpr (kMasks) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[mt][e] = __fmul_rn(__fmul_rn(s[mt][e], qsc_r[e & 1]), ks_t[mt * 16 + g + 8 * (e >> 1)]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kl = mt * 16 + g + 8 * (e >> 1);
+            float x = __fmul_rn(s[mt][e], qsc_r[e & 1]);
+            x = __fmul_rn(__fmul_rn(x, ks_t[kl]), LOG2E);
+            s[mt][e] = kl < nv ? x : MASK_VALUE;
+          }
+        }
+      }
+      if constexpr (kMasks) {
+        // The logit cap in natural units, then log2(e) and the mask.
+        if (logit_cap > 0.0f) {
+#pragma unroll
+          for (int mt = 0; mt < BK / 16; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[mt][e] = __fmul_rn(logit_cap, tanhf(__fdiv_rn(s[mt][e], logit_cap)));
+        }
+        if constexpr (kExt > 0) {
+          // Each row at its own causal limit, and in the window phase at its
+          // own band start.
+          const bool in_band = window > 0 && j >= n_a;
+#pragma unroll
+          for (int mt = 0; mt < BK / 16; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kl = mt * 16 + g + 8 * (e >> 1), pos = key0 + kl;
+              const bool ok = kl < nv && pos < rl.lim[e & 1] && (!in_band || pos >= rl.lo[e & 1]);
+              s[mt][e] = ok ? __fmul_rn(s[mt][e], LOG2E) : MASK_VALUE;
+            }
+        } else {
+#pragma unroll
+        for (int mt = 0; mt < BK / 16; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[mt][e] = mt * 16 + g + 8 * (e >> 1) < nv ? __fmul_rn(s[mt][e], LOG2E) : MASK_VALUE;
+        }
+      }
+
+      // ---- online softmax of queries 2t, 2t + 1 (a column's keys lie on the 8 lanes of one t) ----
+      float alpha[2];
+#pragma unroll
+      for (int qi = 0; qi < 2; ++qi) {
+        float mx = MASK_VALUE;
+#pragma unroll
+        for (int mt = 0; mt < BK / 16; ++mt) mx = fmaxf(mx, fmaxf(s[mt][qi], s[mt][qi + 2]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m_run[qi], mx);
+        alpha[qi] = exp2f(m_run[qi] - m_new);
+        float sum = 0.0f;
+#pragma unroll
+        for (int mt = 0; mt < BK / 16; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float p = exp2f(s[mt][qi + 2 * hf] - m_new);
+            s[mt][qi + 2 * hf] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+        l_run[qi] = alpha[qi] * l_run[qi] + sum;
+        m_run[qi] = m_new;
+      }
+      // P (times an int8 V's scale) and alpha into the warp's scratch.
+#pragma unroll
+      for (int mt = 0; mt < BK / 16; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int kl = mt * 16 + g + 8 * hf;
+          float p0 = s[mt][2 * hf], p1 = s[mt][2 * hf + 1];
+          if constexpr (kVQuant) {
+            const float vsc = vs_t[kl];
+            p0 = __fmul_rn(p0, vsc);
+            p1 = __fmul_rn(p1, vsc);
+          }
+          store2(p_s + kl * RMAX + 2 * t, p0, p1);
+        }
+      if (g == 0) store2(alpha_s + 2 * t, alpha[0], alpha[1]);
+      __syncwarp();
+
+      if constexpr (kExt == 2) {
+        // ---- INT8 PV: per query row, pa = fma(max p, 1/127, 1e-7) over the
+        // tile and p8 = trunc(p / pa + 0.5) (the V scale is already in p);
+        // acc = alpha acc + (p8 . V codes) pa, the product in s32 by dp4a ----
+        // Lane: row pr, quarter pq of the tile's keys. Keys past nv hold
+        // p = 0, so their codes are 0. Rows past R (zero query rows, p > 0)
+        // carry codes that nothing reads: every use below is under r < R.
+        constexpr int KQ = BK / 4;
+        const int pr = lane & 7, pq = lane >> 3;
+        float pv[KQ];
+        float mx = 0.0f;
+#pragma unroll
+        for (int i = 0; i < KQ; ++i) {
+          pv[i] = p_s[(pq * KQ + i) * RMAX + pr];
+          mx = fmaxf(mx, pv[i]);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float pa = __fmaf_rn(mx, 1.0f / 127.0f, 1e-7f);
+        __syncwarp();  // P is read; its codes [RMAX][BK] and the RMAX pa take its place
+        unsigned char* p8_s = reinterpret_cast<unsigned char*>(p_s);
+        float* pa_s = reinterpret_cast<float*>(p8_s + RMAX * BK);
+#pragma unroll
+        for (int i = 0; i < KQ; i += 4) {
+          uint32_t w = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            w |= (uint32_t)__float2int_rz(__fadd_rn(__fdiv_rn(pv[i + e], pa), 0.5f)) << (8 * e);
+          *reinterpret_cast<uint32_t*>(p8_s + pr * BK + pq * KQ + i) = w;
+        }
+        if (pq == 0) pa_s[pr] = pa;
+        __syncwarp();
+        // Four keys at a time: the lane's CPL V columns of 4 rows, regrouped
+        // into one word of 4 keys a column, against each row's word of codes.
+        int acc_i[RMAX][CPL];
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r)
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) acc_i[r][c] = 0;
+        const unsigned char* vcol = Vt + lane * CPL;
+#pragma unroll 4
+        for (int k4 = 0; k4 < BK; k4 += 4) {
+          uint32_t x[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) lds<CPL>(vcol + (k4 + e) * C::kVRow, &x[e]);
+          uint32_t col[CPL];
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            const uint32_t sel = c | (c + 4) << 4;  // byte c of the first word, then of the second
+            col[c] = __byte_perm(__byte_perm(x[0], x[1], sel), __byte_perm(x[2], x[3], sel), 0x5410);
+          }
+#pragma unroll
+          for (int r = 0; r < RMAX; ++r) {
+            if (r < R) {
+              const int pw = *reinterpret_cast<const int*>(p8_s + r * BK + k4);
+#pragma unroll
+              for (int c = 0; c < CPL; ++c) acc_i[r][c] = __dp4a((int)col[c], pw, acc_i[r][c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) {
+          if (r < R) {
+            const float a = alpha_s[r], pa_r = pa_s[r];
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) acc[r][c] = fmaf(acc[r][c], a, __fmul_rn((float)acc_i[r][c], pa_r));
+          }
+        }
+      } else {
+      // ---- acc = alpha acc + P V on the CUDA cores, in f32 ----
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        if (r < R) {
+          const float a = alpha_s[r];
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) acc[r][c] *= a;
+        }
+      }
+      // A 4-bit V: lanes 0-15 take the low nibbles (columns lane * CPL ..),
+      // lanes 16-31 the high ones of the same bytes.
+      const unsigned char* vcol = Vt + (C::kVNib ? (lane & 15) * CPL : lane * CPL * (int)sizeof(VT));
+      const int nib_shift = lane >= 16 ? 4 : 0;
+      auto pv_key = [&](int kl) {
+        float vf[CPL];
+        v_cols<VT, CPL>(vcol + kl * C::kVRow, vf, nib_shift);
+        const float4 pa = *reinterpret_cast<const float4*>(p_s + kl * RMAX);
+        const float4 pb = R > 4 ? *reinterpret_cast<const float4*>(p_s + kl * RMAX + 4) : make_float4(0, 0, 0, 0);
+        const float p[RMAX] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) {
+          if (r < R) {
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) acc[r][c] = fmaf(p[r], vf[c], acc[r][c]);
+          }
+        }
+      };
+      if (nv == BK) {
+#pragma unroll 8  // measured 6% faster than 4 on the int8 cache
+        for (int kl = 0; kl < BK; ++kl) pv_key(kl);
+      } else {
+        for (int kl = 0; kl < nv; ++kl) pv_key(kl);
+      }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    // ---- this warp's unnormalised (acc, m, l): part split * NW + warp ----
+    const int part = split * NW + warp;
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      if (r < R) {
+        float* dst = part_acc + (((long long)b * H + h0 + r) * n_parts + part) * D + lane * CPL;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) dst[c] = acc[r][c];
+      }
+    }
+    if (g == 0) {
+#pragma unroll
+      for (int qi = 0; qi < 2; ++qi) {
+        const int r = 2 * t + qi;
+        if (r < R) {
+          float* ml = part_ml + (((long long)b * H + h0 + r) * n_parts + part) * 2;
+          ml[0] = m_run[qi];
+          ml[1] = l_run[qi];
+        }
+      }
+    }
+  }
+
+  // ---- the last CTA of this (batch, KV head, rows) merges every part ----
+  // One warp per row: its lanes take parts lane, lane + 32, ... for m and l
+  // (warp reductions in a fixed order), leave each part's weight in shared
+  // memory (the ring, idle now), then sum the weighted parts column by
+  // column with the loads of all parts in flight.
+  const int idx = blockIdx.z * gridDim.y + blockIdx.y;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *ticket_s = atomicAdd(&tickets[idx], 1);
+  __syncthreads();
+  if (*ticket_s != n_splits - 1) return;
+  __threadfence();
+  float* w_s = reinterpret_cast<float*>(smem) + warp * n_parts;
+  for (int r = warp; r < R; r += NW + 1) {
+    const long long row = (long long)b * H + h0 + r;
+    const float* ml = part_ml + row * n_parts * 2;
+    float m = NEG_INIT;
+    for (int p = lane; p < n_parts; p += 32)
+      if (__ldcg(ml + 2 * p + 1) > 0.0f) m = fmaxf(m, __ldcg(ml + 2 * p));
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int p = lane; p < n_parts; p += 32) {
+      const float ls = __ldcg(ml + 2 * p + 1);
+      const float w = ls > 0.0f ? exp2f(__ldcg(ml + 2 * p) - m) : 0.0f;  // an empty part has no weight
+      l = fmaf(w, ls, l);
+      w_s[p] = w;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    __syncwarp();
+    const float ls = l == 0.0f ? 1.0f : l;
+    const float* pa = part_acc + row * n_parts * D + lane * CPL;
+    float a[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) a[c] = 0.0f;
+#pragma unroll 4
+    for (int p = 0; p < n_parts; ++p) {
+      const float w = w_s[p];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) a[c] = fmaf(w, __ldcg(pa + (long long)p * D + c), a[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const long long at = row * D + lane * CPL + c;
+      const float out = __fdiv_rn(a[c], ls);
+      if (out_code == 0)
+        static_cast<float*>(o)[at] = out;
+      else if (out_code == 1)
+        static_cast<__nv_bfloat16*>(o)[at] = __float2bfloat16_rn(out);
+      else
+        static_cast<__half*>(o)[at] = __float2half_rn(out);
+    }
+    if (lse && lane == 0) lse[row] = m + log2f(ls);
+    __syncwarp();
+  }
+  if (tid == 0) tickets[idx] = 0;  // ready for the next call on the stream
+}
+
+// Runs op.run<D, KT, VT, kIntQK>() for the variant the bit widths name
+// (16: bf16 rows, 8: int8 codes, 4: packed 4-bit codes).
+template <int D, typename KT, bool kIntQK, typename Op>
+int with_v(const Op& op, int v_bits) {
+  switch (v_bits) {
+    case 8: return op.template run<D, KT, int8_t, kIntQK>();
+    case 4: return op.template run<D, KT, Nib4, kIntQK>();
+    case 16: return op.template run<D, KT, __nv_bfloat16, kIntQK>();
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int D, typename Op>
+int with_k(const Op& op, int k_bits, int v_bits, int int_qk) {
+  switch (k_bits) {
+    case 8: return int_qk ? with_v<D, int8_t, true>(op, v_bits) : with_v<D, int8_t, false>(op, v_bits);
+    case 4: return int_qk ? with_v<D, Nib4, true>(op, v_bits) : with_v<D, Nib4, false>(op, v_bits);
+    case 16: return int_qk ? (int)cudaErrorInvalidValue : with_v<D, __nv_bfloat16, false>(op, v_bits);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename Op>
+int with_variant(const Op& op, int D, int k_bits, int v_bits, int int_qk) {
+  switch (D) {
+    case 32: return with_k<32>(op, k_bits, v_bits, int_qk);
+    case 64: return with_k<64>(op, k_bits, v_bits, int_qk);
+    case 128: return with_k<128>(op, k_bits, v_bits, int_qk);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace

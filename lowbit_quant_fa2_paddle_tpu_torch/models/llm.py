@@ -26,8 +26,12 @@ A's band) and at decode (kernel D's compacted window walk, which reads
 O(window) cache rows a token), plus StreamingLLM's ``sink_size`` leading
 tokens. The chunked prefill takes full causal attention only.
 
-Not ported yet, raising ``NotImplementedError``: speculative decoding (ROADMAP
-Queue 1, item 2d).
+Greedy speculative decoding (:func:`speculative_generate`): a draft model
+proposes ``spec_k`` tokens through :func:`decode_tokens` (its captured step
+replayed once a token), the target scores them all in one
+:func:`llm_verify_step` (kernel D over T query tokens, which streams each
+cache once), and the caches roll back in place past the first mismatch, so
+the output is the target's own greedy generation.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from lowbit_quant_fa2_paddle_tpu_torch.core import lowbit_fa_qk_int8_pv_fp16
 from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd, fused_kv, gemv
 from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as dec
 from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as quant_ops
-from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import _not_ported, flash_attention_fp, lowbit_attention
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import flash_attention_fp, lowbit_attention
 from lowbit_quant_fa2_paddle_tpu_torch.ops.gemv import WQWeight
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
 
@@ -457,21 +461,26 @@ def _counted_wrappers() -> tuple:
 
 
 def _launch_counts() -> dict:
-    """The launch counters, in all (key None) and per design."""
+    """The launch counters, in all (key None), per design (the design's
+    name) and, for kernel D, per variant (``("variant", key)``)."""
     out = {}
     for w in _counted_wrappers():
         out[(w, None)] = w.launches
         for design, n in getattr(w, "launches_by_design", {}).items():
             out[(w, design)] = n
+        for variant, n in getattr(w, "launches_by_variant", {}).items():
+            out[(w, ("variant", variant))] = n
     return out
 
 
 def _add_launch_counts(counts: dict, times: int = 1) -> None:
-    for (w, design), n in counts.items():
-        if design is None:
+    for (w, key), n in counts.items():
+        if key is None:
             w.launches += n * times
+        elif isinstance(key, tuple):
+            w.launches_by_variant[key[1]] = w.launches_by_variant.get(key[1], 0) + n * times
         else:
-            w.launches_by_design[design] += n * times
+            w.launches_by_design[key] += n * times
 
 
 def _graph_step(params: LLM, tok: torch.Tensor, caches: List[dict], cfg: LLMConfig) -> None:
@@ -536,7 +545,7 @@ def _decode_tokens_graph(params, token, caches, n, cfg):
             _graph_step(params, tok, caches, cfg)
         after = _launch_counts()
         # The capture recorded the launches; none ran. Each replay runs them.
-        launches = {k: after[k] - before[k] for k in after}
+        launches = {k: after[k] - before.get(k, 0) for k in after}
         _add_launch_counts(launches, -1)
         _last_graph = entry = _DecodeGraph(key, params, graph, tok, launches)
     else:
@@ -600,14 +609,129 @@ def generate(
 
 
 def rollback_caches(caches: List[dict], lengths: torch.Tensor) -> List[dict]:
-    """Set every layer cache's length: rows past it are dead (every consumer
-    masks ``pos < length``) and the next append overwrites them."""
-    return [{**c, "length": lengths} for c in caches]
+    """Set every layer cache's length IN PLACE: each cache's own ``length``
+    buffer takes ``lengths``, and the caches come back as they are. Rows
+    past it are dead (every consumer masks ``pos < length``) and the next
+    append overwrites them. Since the buffers stay the same tensors, a
+    :func:`decode_tokens` call on rolled-back caches replays the step it
+    captured for them (its key holds the buffers' addresses) instead of
+    capturing a new one."""
+    for c in caches:
+        c["length"].copy_(lengths)
+    return caches
 
 
-def llm_verify_step(*args, **kwargs):
-    raise _not_ported("llm_verify_step (multi-token verify)", "2d")
+@torch.no_grad()
+def llm_verify_step(
+    params: LLM,
+    tokens: torch.Tensor,  # [B, T]: the last accepted token, then the drafts
+    caches: List[dict],
+    cfg: LLMConfig,
+) -> Tuple[torch.Tensor, List[dict]]:
+    """The speculative verify step: feeds T tokens at once at positions
+    ``length .. length + T - 1``, appends their K/V to every layer's cache
+    (in place, ``ops.decode.append_kv_multi``; ``length += T``) and runs
+    kernel D over the T query tokens, token ``t`` seeing its causal prefix
+    (under ``window_size``/``sink_size`` its own window), so each cache is
+    streamed once for all T. Returns ``(logits [B, T, vocab], caches)``:
+    row ``t`` scores the successor of fed token ``t``. On a rejection the
+    caller rolls the lengths back with :func:`rollback_caches`. Runs
+    eagerly."""
+    b, t = tokens.shape
+    x = params.embed(tokens)  # [B, T, D]
+    pos = caches[0]["length"][:, None] + torch.arange(t, device=tokens.device)  # [B, T]
+    new_caches = []
+    for blk, cache in zip(params.blocks, caches):
+        q, k, v = _qkv(blk, x, cfg)
+        q = _rope(q, pos, cfg.rope_theta)  # [B, H, T, hd]
+        k = _rope(k, pos, cfg.rope_theta)
+        cache = dec.append_kv_multi(cache, k, v)
+        o = dec.decode_attention(
+            q.transpose(1, 2), cache["k"], cache["v"], cache["k_scale"], cache["length"],
+            v_scale=cache["v_scale"], k_bits=cfg.eff_k_bits, v_bits=cfg.eff_v_bits,
+            window_size=cfg.window_size, sink_size=cfg.sink_size,
+        )  # [B, T, H, hd]
+        x = x + _mm(o.reshape(b, t, -1).to(x.dtype), blk.wo)
+        x = _mlp(blk, x)
+        new_caches.append(cache)
+    return params.logits(x), new_caches
 
 
-def speculative_generate(*args, **kwargs):
-    raise _not_ported("speculative_generate", "2d")
+@torch.no_grad()
+def speculative_generate(
+    params: LLM,
+    prompt: torch.Tensor,  # [1, S]
+    n_new: int,
+    cfg: LLMConfig,
+    *,
+    draft_params: LLM,
+    draft_cfg: LLMConfig,
+    spec_k: int = 4,
+    attn_impl: str = "int8",
+    return_stats: bool = False,
+):
+    """Greedy speculative decoding of one sequence: each round the draft
+    model proposes ``k`` tokens (:func:`decode_tokens`, one replay of its
+    captured step a token on the card), the target scores the last emitted
+    token and the first ``k - 1`` drafts in one :func:`llm_verify_step`,
+    keeps the drafts up to the first mismatch and emits its own token
+    there, and both caches roll back in place to the kept rows. The output
+    is the target's greedy generation (``generate``) whatever the draft
+    proposes; the host reads the drafts and the target's choices once a
+    round. The draft may be any model of the same vocabulary, the target's
+    own weights at fewer bits included. ``max_seq`` must hold prompt +
+    ``n_new`` + ``spec_k`` rows in both models, else ``ValueError``.
+
+    Returns ``[1, n_new]`` int32 tokens and, with ``return_stats``, a dict
+    of ``rounds``, ``mean_accepted`` (drafts accepted a round), ``spec_k``
+    and ``k_per_round`` (the drafts of each round, which its verify step
+    feeds; fewer than ``spec_k`` only near ``max_seq``)."""
+    if prompt.shape[0] != 1:
+        raise ValueError(f"speculative_generate is single-sequence, got a batch of {prompt.shape[0]}")
+    if draft_cfg.vocab != cfg.vocab:
+        raise ValueError(f"the draft's vocab {draft_cfg.vocab} is not the target's {cfg.vocab}")
+    logits, caches = llm_prefill(params, prompt, cfg, attn_impl=attn_impl)
+    _, dcaches = llm_prefill(draft_params, prompt, draft_cfg, attn_impl=attn_impl)
+    cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)  # the target picks every emitted token
+    del logits
+    dev = prompt.device
+    out = [int(cur[0])]
+    length = prompt.shape[1]  # both caches' length, kept on the host
+    accepted, k_per_round = 0, []
+    while len(out) < n_new:
+        # A round appends k rows to each cache: past max_seq a write would
+        # clamp onto accepted rows.
+        k = min(spec_k, cfg.max_seq - length, draft_cfg.max_seq - length)
+        if k < 1:
+            raise ValueError(f"speculative_generate: cache capacity exhausted (target {length}/{cfg.max_seq}, "
+                             f"draft {length}/{draft_cfg.max_seq}); size max_seq >= prompt + n_new + spec_k")
+        drafts, dcaches = decode_tokens(draft_params, cur, dcaches, k, draft_cfg)  # [1, k]
+        fed = torch.cat([cur[:, None], drafts[:, :-1]], dim=1)
+        vlogits, caches = llm_verify_step(params, fed, caches, cfg)
+        dtoks, greedy = torch.stack([drafts[0], torch.argmax(vlogits[0], dim=-1).to(torch.int32)]).tolist()
+        m = 0
+        while m < k and dtoks[m] == greedy[m]:
+            m += 1
+        k_per_round.append(k)
+        accepted += m
+        if m == k:
+            # Every draft matched; the last was never fed, so it is the next
+            # round's first token. All k fed rows stay in both caches.
+            out.extend(dtoks)
+            cur = drafts[:, -1]
+            length += k
+        else:
+            # Keep the fed rows up to the last match; the target's own token
+            # at the mismatch is emitted and fed next round.
+            out.extend(dtoks[:m] + [greedy[m]])
+            length += m + 1
+            keep = torch.full((1,), length, dtype=torch.int32, device=dev)
+            rollback_caches(caches, keep)
+            rollback_caches(dcaches, keep)
+            cur = torch.full((1,), greedy[m], dtype=torch.int32, device=dev)
+    tokens = torch.tensor([out[:n_new]], dtype=torch.int32, device=dev)
+    if return_stats:
+        rounds = len(k_per_round)
+        return tokens, {"rounds": rounds, "mean_accepted": accepted / max(rounds, 1), "spec_k": spec_k,
+                        "k_per_round": k_per_round}
+    return tokens

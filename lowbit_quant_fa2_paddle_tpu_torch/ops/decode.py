@@ -1,5 +1,5 @@
-"""Single-token decode attention over the quantized KV cache (kernel D), and
-the cache ops.
+"""Decode attention over the quantized KV cache (kernel D), one query token a
+sequence or T of them (the speculative verify step), and the cache ops.
 
 PyTorch/CUDA counterpart of ``lowbit_quant_fa2_paddle_tpu/ops/decode.py``.
 The cache is a dict of tensors with the JAX package's keys: ``k``/``v``
@@ -14,7 +14,10 @@ the CPU and launches ``csrc/decode_attention.cu`` for CUDA tensors (one
 launch: a split-KV pass whose last CTA per row group merges the splits; one
 design, ``kernel_design``: a producer warp's ring of bulk copies on
 mbarriers, consumer warps that each own whole tiles, QK on ``mma.sync``, PV
-in f32); nothing falls back.
+in f32, or with ``compute_mode="int"`` on an int8 V as an integer product);
+nothing falls back. T query tokens ``q [B, T, H, D]`` and INT8 PV run the
+kernel's multi-token instances (``csrc/decode_attention_multi.cu``); one
+token without INT8 PV runs the single-token ones (``csrc/decode_attention.cu``).
 
 Semantics of one query token per sequence, as the TPU kernel computes them:
 
@@ -32,6 +35,19 @@ Semantics of one query token per sequence, as the TPU kernel computes them:
   into P after ``l`` is summed; PV in f32;
 * ``o = acc / l`` in ``q.dtype``, base-2 LSE ``m + log2 l``; a row with no
   visible key gives ``o = 0`` and ``lse = -1e30``.
+
+T query tokens (``q [B, T, H, D]``, ``lengths`` counting all T new rows):
+token ``t`` sees ``pos < limit_t = length - (T - 1 - t)``, and under a
+window its band ``[limit_t - W, limit_t)`` plus the sinks. The kernel takes
+the query rows of one KV head token-major (row ``t·g + gh``, the TPU
+kernel's layout), so all T tokens stream the cache once.
+
+INT8 PV (``compute_mode="int"``, int8 V only; as in JAX it also puts a 4-bit
+K on the integer QK chain): per tile of the kernel's walk and per query row,
+after ``l`` has summed P and the V scale is folded in, ``pa = fma(max p,
+1/127, 1e-7)``, ``p8 = trunc(p / pa + 0.5)`` and ``acc = acc·alpha + (p8 ·
+V codes)·pa``. The result depends on the tiles (the TPU function says so),
+so the plain version walks the kernel's tiles (:func:`walk_tiles`).
 """
 
 from __future__ import annotations
@@ -68,7 +84,7 @@ MAX_SPLITS = 64
 #: Consumer warps per CTA of kernel D; each leaves one partial state per split.
 WARPS = 4
 #: Designs of kernel D: one, for every mode (int8/4-bit/bf16 K and V, both
-#: QK chains, d32/64/128).
+#: QK chains, d32/64/128, one or T query tokens, f32 or INT8 PV).
 DESIGNS = ("bulk_ring",)
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -164,12 +180,115 @@ def append_kv(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
 
 
 def append_kv_multi(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
-    raise _not_ported("append_kv_multi (speculative verify)", "2d")
+    """Quantize T tokens' K/V ``[B, Hk, T, D]`` and write them at each
+    sequence's ``length``; returns the cache with ``length + T``. The codes
+    and scales are those of T single appends (per-token scales do not depend
+    on the position).
+
+    In place, as :func:`append_kv`. JAX's ``dynamic_update_slice`` clamps the
+    START of the T rows to ``[0, S_max - T]``, so near the end all T rows
+    shift back together (``append_kv`` clamps its one row to ``S_max - 1``);
+    so does this. Nothing is read back to the host."""
+    t = k_new.shape[2]
+    kq, ks = quantize_token(k_new, bits=cache_bits(cache["k"], k_new))
+    vq, vs = quantize_token(v_new, bits=cache_bits(cache["v"], v_new))
+    length = cache["length"]
+    s_max = cache["k"].shape[2]
+    if t > s_max:
+        raise ValueError(f"{t} new rows do not fit a cache of {s_max}")
+    pos = length.long().clamp(0, s_max - t)[:, None] + torch.arange(t, device=length.device)  # [B, T]
+    bi = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    cache["k"][bi, :, pos] = kq.transpose(1, 2)
+    cache["v"][bi, :, pos] = vq.transpose(1, 2)
+    cache["k_scale"][bi, :, pos] = ks.transpose(1, 2)
+    cache["v_scale"][bi, :, pos] = vs.transpose(1, 2)
+    return {**cache, "length": length + t}
 
 
 # ---------------------------------------------------------------------------
 # Kernel D
 # ---------------------------------------------------------------------------
+
+
+def tile_keys(d: int, k_bits: int, v_bits: int) -> int:
+    """Keys of one tile of kernel D's walk (``Cfg::BK`` in
+    csrc/decode_attention.cuh): 64 while 64 rows of K and V fit 16 KB, else
+    32, else 16."""
+    row = sum(d // 2 if bits == 4 else d * (2 if bits == 16 else 1) for bits in (k_bits, v_bits))
+    return 64 if 64 * row <= 16384 else 32 if 32 * row <= 16384 else 16
+
+
+def walk_tiles(length: int, s_max: int, *, tile: int, window: int = 0, sink: int = 0, q_tokens: int = 1,
+               split_keys: Optional[int] = None, warps: int = 1) -> list:
+    """The tiles kernel D walks for one sequence, as ``(first key, end,
+    part)`` in the order each part visits them: the walk's logical keys
+    (the cache's rows, or with a window :func:`window_keys` of the union
+    band ``W + T - 1``) cut into splits of ``split_keys`` (None: one split),
+    each split's sink-phase rows ``[start, min(sink, length))`` and
+    window-phase rows (from the first visible row, not from an aligned
+    tile) in tiles of ``tile`` keys, tile ``j`` of a split going to part
+    ``split·warps + j % warps`` (its consumer warp). Reads ``length`` on the
+    host: the plain version's walk, not the kernel's."""
+    w = window + q_tokens - 1 if window else 0
+    keys = window_keys(w, sink) if w else s_max
+    chunk = split_keys or cdiv(keys, KV_TILE) * KV_TILE
+    length = min(max(length, 0), s_max)
+    tiles = []
+    for split in range(cdiv(keys, chunk)):
+        start = split * chunk
+        ranges = [(start, min(start + chunk, length))]
+        if w:
+            sink_keys = cdiv(sink, KV_TILE) * KV_TILE
+            lo_w = max(length - w, sink)
+            ws = lo_w // KV_TILE * KV_TILE
+            ranges = [(start, min(start + chunk, sink_keys, sink, length)),
+                      (max(ws + max(start - sink_keys, 0), lo_w), min(ws + start + chunk - sink_keys, length))]
+        j = 0
+        for lo, hi in ranges:
+            for k0 in range(lo, hi, tile):
+                tiles.append((k0, min(k0 + tile, hi), split * warps + j % warps))
+                j += 1
+    return tiles
+
+
+def _pv8_attention(s, m, vf, v_scale, lengths, *, tile, window, sink, q_tokens, split_keys, warps):
+    """INT8 PV over kernel D's tiles for logits ``s [B, Hk, R, S]`` (base 2,
+    masked) with row maxima ``m``: returns ``(o·l [B, Hk, R, D], l)``. Each
+    part (split, warp) keeps its running maximum over its tiles in order
+    (a cumulative maximum), so a tile's P is ``exp2(s - m_tile)`` as the
+    kernel forms it; its codes and ``pa`` follow; the tiles' sums are
+    weighted by ``exp2(m_tile - m)``, which is what the kernel's alphas and
+    split merge multiply out to."""
+    b, hk, rows, s_max = s.shape
+    dev = s.device
+    nums, ls = [], []
+    for i, length in enumerate(lengths.tolist()):
+        tiles = walk_tiles(length, s_max, tile=tile, window=window, sink=sink, q_tokens=q_tokens,
+                           split_keys=split_keys, warps=warps)
+        n = len(tiles)
+        tile_of = torch.full((s_max,), n, dtype=torch.long)  # n: a key no tile holds
+        by_part: dict = {}
+        for j, (k0, k1, part) in enumerate(tiles):
+            tile_of[k0:k1] = j
+            by_part.setdefault(part, []).append(j)
+        tile_of = tile_of.to(dev).expand(hk, rows, s_max)
+        longest = max((len(js) for js in by_part.values()), default=0)
+        seq = torch.tensor([js + [n] * (longest - len(js)) for js in by_part.values()] or [[n]], device=dev)
+        si = s[i]
+        t_max = torch.full((hk, rows, n + 1), MASK_VALUE, device=dev).scatter_reduce(-1, tile_of, si, "amax")
+        m_tile = torch.full((hk, rows, n + 1), NEG_INIT, device=dev)
+        m_tile[..., seq] = torch.cummax(t_max[..., seq], dim=-1).values.clamp_min(NEG_INIT)
+        m_tile[..., n] = NEG_INIT
+        m_key = torch.gather(m_tile, -1, tile_of)
+        p = torch.exp2(si - m_key)
+        c = torch.exp2(m_key - m[i])
+        ls.append((p * c).sum(dim=-1, keepdim=True))
+        pv = p * v_scale[i].float()[:, None, :]  # the V scale folded in after l
+        p_max = torch.zeros((hk, rows, n + 1), device=dev).scatter_reduce(-1, tile_of, pv, "amax")
+        pa = torch.gather(absmax_scale(p_max), -1, tile_of)
+        p8 = torch.floor(pv / pa + 0.5)  # p >= 0: trunc(p / pa + 0.5)
+        nums.append((p8 * torch.where(p8 > 0, pa * c, 0.0)) @ vf[i])
+    return torch.stack(nums), torch.stack(ls)
 
 
 def decode_attention_plain(
@@ -186,23 +305,36 @@ def decode_attention_plain(
     window: int = 0,
     sink: int = 0,
     logit_cap: float = 0.0,
+    int_pv: bool = False,
+    split_keys: Optional[int] = None,
+    warps: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of kernel D on its own inputs: ``q [B,H,D]``,
-    contiguous ``k``/``v [B,Hk,S,D]`` (``[B,Hk,S,D/2]`` for a 4-bit side,
-    read from its width as ``cache_bits`` does), ``k_scale [B,Hk,S]``,
-    ``v_scale`` (quantized V only), ``lengths [B]``; ``window`` (0: none)
-    keeps each sequence's keys ``[max(len - window, 0), len) ∪ [0, sink)``;
-    ``logit_cap`` (0: none) caps the logits in natural units. One softmax
-    over the whole cache in closed form; the kernel and the TPU kernel run
-    it online over tiles, so they differ only in summation order. Returns
-    ``(o [B,H,D], lse2 [B,H])``.
+    """Plain PyTorch version of kernel D on its own inputs: ``q [B,H,D]`` or
+    ``[B,T,H,D]`` (token ``t`` sees ``pos < length - (T-1-t)``), contiguous
+    ``k``/``v [B,Hk,S,D]`` (``[B,Hk,S,D/2]`` for a 4-bit side, read from its
+    width as ``cache_bits`` does), ``k_scale [B,Hk,S]``, ``v_scale``
+    (quantized V only), ``lengths [B]``; ``window`` (0: none) keeps each
+    token's keys ``[max(limit - window, 0), limit) ∪ [0, sink)``;
+    ``logit_cap`` (0: none) caps the logits in natural units. Without
+    ``int_pv`` one softmax over the whole cache in closed form; the kernel
+    and the TPU kernel run it online over tiles, so they differ only in
+    summation order. With ``int_pv`` (an int8 V) P is requantized per tile
+    of kernel D's walk: ``split_keys`` and ``warps`` give the kernel's
+    partition (on the card: :func:`kernel_partition`; the CPU default, one
+    split and one warp, walks the tiles in order as the TPU kernel walks its
+    blocks). Returns ``(o [B,(T,)H,D], lse2 [B,(T,)H])``.
     """
-    b, h, d = q.shape
+    single = q.dim() == 3
+    q4 = q[:, None] if single else q
+    b, t, h, d = q4.shape
     hk, s_max = k.shape[1], k.shape[2]
+    g = h // hk
+    rows = t * g
     dev = q.device
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
     values = lambda x: _unpack4_cols(x) if cache_bits(x, q) == 4 else x.float()  # noqa: E731
-    qg = q.float().reshape(b, hk, h // hk, d)
+    # Rows of one KV head token-major (row t·g + gh), as the kernels take them.
+    qg = q4.float().reshape(b, t, hk, g, d).transpose(1, 2).reshape(b, hk, rows, d)
     kt = values(k).transpose(-1, -2)
     if int_qk:
         qa = absmax_scale(qg.abs().amax(dim=-1, keepdim=True))
@@ -214,37 +346,50 @@ def decode_attention_plain(
     if logit_cap > 0:
         s = f32(logit_cap) * torch.tanh(s / f32(logit_cap))
     s = s * f32(LOG2E)
-    pos = torch.arange(s_max, device=dev)[None, :]
-    length = lengths.long().clamp(0, s_max)[:, None]
-    valid = pos < length
+    pos = torch.arange(s_max, device=dev)
+    limit = lengths.long().clamp(0, s_max)[:, None, None] - (t - 1) + (torch.arange(rows, device=dev) // g)[:, None]
+    valid = pos < limit  # [B, rows, S]
     if window > 0:
-        valid = valid & ((pos >= length - window) | (pos < sink))
-    s = torch.where(valid[:, None, None, :], s, f32(MASK_VALUE))
+        valid = valid & ((pos >= limit - window) | (pos < sink))
+    s = torch.where(valid[:, None], s, f32(MASK_VALUE))
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INIT)
-    p = torch.exp2(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    if v.dtype == torch.int8:
-        p = p * v_scale.float()[:, :, None, :]
-    # Rows past the length are zeros here, as the kernel never loads them.
-    vf = values(v).masked_fill(~valid[:, None, :, None], 0.0)
+    # Rows no token sees are zeros here, as the kernel never loads them.
+    vf = values(v).masked_fill(~valid.any(dim=1)[:, None, :, None], 0.0)
+    if int_pv:
+        if v.dtype != torch.int8 or cache_bits(v, q) != 8:
+            raise ValueError("INT8 PV takes an int8 V cache")
+        o, l = _pv8_attention(s, m, vf, v_scale, lengths, tile=tile_keys(d, cache_bits(k, q), 8), window=window,
+                              sink=sink, q_tokens=t, split_keys=split_keys, warps=warps)
+    else:
+        p = torch.exp2(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        if v.dtype == torch.int8:
+            p = p * v_scale.float()[:, :, None, :]
+        o = p @ vf
     empty = l == 0.0
     ls = torch.where(empty, torch.ones_like(l), l)
-    o = (p @ vf) / ls
-    lse = m + torch.log2(ls)
-    return o.to(out_dtype).reshape(b, h, d), lse[..., 0].reshape(b, h)
+    o = (o / ls).to(out_dtype).reshape(b, hk, t, g, d).transpose(1, 2).reshape(b, t, h, d)
+    lse = (m + torch.log2(ls))[..., 0].reshape(b, hk, t, g).transpose(1, 2).reshape(b, t, h)
+    return (o[:, 0], lse[:, 0]) if single else (o, lse)
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_ctas(device_index: int, d: int, k_bits: int, v_bits: int, int_qk: bool, masks: bool = False) -> int:
+def _resident_ctas(device_index: int, d: int, k_bits: int, v_bits: int, int_qk: bool, masks: bool = False,
+                   multi: int = 0) -> int:
     """CTAs of this split-pass variant (cache bits 16, 8 or 4 a side; with
-    ``masks``, the kernel that takes a window or a cap) the whole card holds
-    at once: the kernel's occupancy per SM (a host-side query) times the SM
-    count."""
+    ``masks``, the kernel that takes a window or a cap; ``multi`` 1 the
+    multi-token kernel, 2 the multi-token kernel with INT8 PV) the whole
+    card holds at once: the kernel's occupancy per SM (a host-side query)
+    times the SM count."""
     per_sm = ctypes.c_int(0)
+    lib = _build.library()
     with torch.cuda.device(device_index):
-        err = _build.library().lowbit_decode_ctas_per_sm(
-            d, int(k_bits), int(v_bits), int(int_qk), int(masks), ctypes.byref(per_sm)
-        )
+        if multi:
+            err = lib.lowbit_decode_multi_ctas_per_sm(d, int(k_bits), int(v_bits), int(int_qk), int(multi == 2),
+                                                      ctypes.byref(per_sm))
+        else:
+            err = lib.lowbit_decode_ctas_per_sm(d, int(k_bits), int(v_bits), int(int_qk), int(masks),
+                                                ctypes.byref(per_sm))
     _build.check(err, "decode_attention occupancy")
     return max(1, per_sm.value) * torch.cuda.get_device_properties(device_index).multi_processor_count
 
@@ -308,12 +453,43 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     return t
 
 
+def kernel_partition(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, int_qk: bool, int_pv: bool = False,
+                     window: int = 0, sink: int = 0, logit_cap: float = 0.0) -> dict:
+    """How kernel D cuts a call on the card: the variant (``multi`` 0 for
+    the single-token kernels, 1 for T tokens, 2 with INT8 PV), rows a CTA
+    (``rows``), the grid's row groups, the split plan (``n_splits``,
+    ``split_keys``) and the warps a split's tiles go to; the last two are
+    what :func:`decode_attention_plain` takes to walk the same tiles. T
+    tokens plan their window splits over the union band ``W + T - 1``."""
+    t = q.shape[1] if q.dim() == 4 else 1
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    hk, s_max = k.shape[1], k.shape[2]
+    multi = 2 if int_pv else 1 if t > 1 else 0
+    rows = rows_per_cta(t * (h // hk))
+    row_groups = hk * (t * (h // hk) // rows)
+    walk = window + t - 1 if window else 0
+    slots = _resident_ctas(q.device.index or 0, d, cache_bits(k, q), cache_bits(v, q), int_qk,
+                           bool(window or logit_cap), multi)
+    n_splits, chunk = split_plan(s_max, b * row_groups, slots, walk, sink)
+    return dict(multi=multi, rows=rows, row_groups=row_groups, n_splits=n_splits, split_keys=chunk, warps=WARPS,
+                walk_window=walk)
+
+
+def launch_variant(multi: int, t: int, k_bits: int, v_bits: int, b: int) -> str:
+    """The key of :attr:`decode_attention.launches_by_variant` for a launch:
+    the kernel instance (``multi`` of :func:`kernel_partition`), the tokens
+    T, each side's bits and the batch."""
+    kind = ("single-token", "T-token", "T-token INT8 PV")[multi]
+    return f"{kind} T{t} k{k_bits}v{v_bits} b{b}"
+
+
 def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_qk, out_dtype, need_lse, window=0,
-                           sink=0, logit_cap=0.0):
-    b, h, d = q.shape
+                           sink=0, logit_cap=0.0, int_pv=False):
+    single = q.dim() == 3
+    b, t, h, d = (q.shape[0], 1, *q.shape[1:]) if single else q.shape
     hk, s_max = k.shape[1], k.shape[2]
     if d not in (32, 64, 128):
-        raise _not_ported(f"decode head_dim {d} (kernel D takes 32, 64, 128)", "2d")
+        raise _not_ported(f"decode head_dim {d} (kernel D takes 32, 64, 128)", "3")
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"decode output dtype must be f32/bf16/f16, not {out_dtype}")
     if k.dtype not in (torch.int8, torch.bfloat16) or v.dtype not in (torch.int8, torch.bfloat16):
@@ -331,36 +507,49 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
         raise TypeError("cache scales must be f32")
     if lengths.dtype != torch.int32 or not lengths.is_contiguous():
         raise TypeError("lengths must be a contiguous int32 tensor")
-    rows = rows_per_cta(h // hk)
-    row_groups = hk * (h // hk // rows)
+    plan = kernel_partition(q, k, v, int_qk=int_qk, int_pv=int_pv, window=window, sink=sink, logit_cap=logit_cap)
+    rows, row_groups, n_splits = plan["rows"], plan["row_groups"], plan["n_splits"]
     if b > 65535 or row_groups > 65535:
-        raise ValueError(f"batch and KV heads x row groups are CUDA grid dims (at most 65535): {b}, {h}")
+        raise ValueError(f"batch and KV heads x row groups are CUDA grid dims (at most 65535): {b}, {t * h}")
     # A side's bits from its dtype and width: a 4-bit row is D/2 bytes.
     k_bits, v_bits = cache_bits(k, q), cache_bits(v, q)
     design = kernel_design(k_bits != 16, v_bits != 16, int_qk)
-    slots = _resident_ctas(q.device.index or 0, d, k_bits, v_bits, int_qk, bool(window or logit_cap))
-    n_splits, chunk = split_plan(s_max, b * row_groups, slots, window, sink)
-    # bf16 queries go in as they are; others as f32.
-    qk = q.contiguous() if q.dtype in (torch.float32, torch.bfloat16) else q.float().contiguous()
-    part_acc = torch.empty((b, h, n_splits * WARPS, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, h, n_splits * WARPS, 2), dtype=torch.float32, device=q.device)
-    o = torch.empty((b, h, d), dtype=out_dtype, device=q.device)
-    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if need_lse else None
+    # bf16 queries go in as they are; others as f32. T tokens go in as the
+    # kernel's rows: KV head by KV head, token-major ([B, Hk·T·g, D]).
+    qk = q if q.dtype in (torch.float32, torch.bfloat16) else q.float()
+    h_rows = t * h
+    if not single:
+        qk = qk.reshape(b, t, hk, h // hk, d).transpose(1, 2).reshape(b, h_rows, d)
+    qk = qk.contiguous()
+    part_acc = torch.empty((b, h_rows, n_splits * WARPS, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, h_rows, n_splits * WARPS, 2), dtype=torch.float32, device=q.device)
+    o = torch.empty((b, h_rows, d), dtype=out_dtype, device=q.device)
+    lse = torch.empty((b, h_rows), dtype=torch.float32, device=q.device) if need_lse else None
     tickets = _tickets(q.device, b * row_groups)
     lib = _build.library()
+    common = (qk.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+              v_scale.data_ptr() if v_scale is not None else None, lengths.data_ptr(),
+              part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), o.data_ptr(),
+              lse.data_ptr() if lse is not None else None,
+              b, h_rows, hk, s_max, d, rows, k_bits, v_bits, int(int_qk), int(qk.dtype == torch.bfloat16),
+              _OUT_CODES[out_dtype], n_splits, plan["split_keys"])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.lowbit_decode_attn(
-            qk.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr() if v_scale is not None else None, lengths.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            b, h, hk, s_max, d, rows, k_bits, v_bits, int(int_qk), int(qk.dtype == torch.bfloat16),
-            _OUT_CODES[out_dtype], n_splits, chunk, window, sink, float(sm_scale), float(logit_cap),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if plan["multi"]:
+            err = lib.lowbit_decode_attn_multi(*common, plan["walk_window"], sink, t, int(int_pv), float(sm_scale),
+                                               float(logit_cap), stream)
+        else:
+            err = lib.lowbit_decode_attn(*common, window, sink, float(sm_scale), float(logit_cap), stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     decode_attention.launches_by_design[design] += 1
+    variant = launch_variant(plan["multi"], t, k_bits, v_bits, b)
+    decode_attention.launches_by_variant[variant] = decode_attention.launches_by_variant.get(variant, 0) + 1
+    if single:
+        return o, lse
+    o = o.reshape(b, hk, t, h // hk, d).transpose(1, 2).reshape(b, t, h, d)
+    if lse is not None:
+        lse = lse.reshape(b, hk, t, h // hk).transpose(1, 2).reshape(b, t, h)
     return o, lse
 
 
@@ -383,39 +572,40 @@ def decode_attention(
     return_lse: bool = False,
     compute_mode: str = "auto",
 ):
-    """Single-token decode attention over a contiguous int8, 4-bit or bf16
-    KV cache (GQA/MQA): ``q [B, H, D]`` float, ``k_cache``/``v_cache
+    """Decode attention over a contiguous int8, 4-bit or bf16 KV cache
+    (GQA/MQA): ``q [B, H, D]`` float, or ``[B, T, H, D]`` for T query tokens
+    (the speculative verify step: ``lengths`` counts all T new rows, and
+    token ``t`` sees ``pos < lengths - (T - 1 - t)``), ``k_cache``/``v_cache
     [B, Hk, S, D]`` (``[B, Hk, S, D/2]`` for a side of 4 bits: ``kv_bits=4``,
     or ``k_bits=4, v_bits=8`` for k4v8), ``k_scale``/``v_scale [B, Hk, S]``,
     ``lengths [B]`` int32 on q's device. Query head ``h`` reads KV head
     ``h // (H / Hk)``. ``sm_scale`` defaults to ``1/sqrt(D)``.
     ``compute_mode`` "auto" takes the integer QK chain for 8-bit K and the
-    float chain otherwise; "int_qk" takes the integer chain for 4-bit K too.
+    float chain otherwise; "int_qk" takes the integer chain for 4-bit K too;
+    "int" does too and, on an int8 V, runs PV on int8 P codes (INT8 PV; a
+    bf16 or 4-bit V keeps the f32 PV); "f32" takes the float chain.
 
-    ``window_size`` W attends each sequence's last W rows (itself
-    included) and, under a window, its first ``sink_size`` rows too;
-    ``logit_cap`` c caps the logits as ``c·tanh(s / c)``.
+    ``window_size`` W attends each token's last W rows (itself included)
+    and, under a window, its first ``sink_size`` rows too; ``logit_cap`` c
+    caps the logits as ``c·tanh(s / c)``.
 
-    Returns ``o [B, H, D]`` in ``q.dtype`` and, with ``return_lse``, the
-    base-2 LSE ``[B, H]``. Lengths past ``S`` count as ``S``. The TPU
-    function's tiling knobs (``block_kv``, ``heads_per_step``,
+    Returns ``o`` shaped as ``q`` in ``q.dtype`` and, with ``return_lse``,
+    the base-2 LSE ``[B, (T,) H]``. Lengths past ``S`` count as ``S``. The
+    TPU function's tiling knobs (``block_kv``, ``heads_per_step``,
     ``compact_window``, ``clamp_walk``, ``fast_interior``, ``interpret``) are
     not ported.
     """
     if page_table is not None:
         raise _not_ported("the paged KV cache (page_table)", "5")
-    if q.dim() == 4:
-        raise _not_ported("multi-token decode q [B, T, H, D] (speculative verify)", "2d")
-    if compute_mode == "int":
-        raise _not_ported("compute_mode='int' (INT8 PV)", "2e")
-    if compute_mode not in ("auto", "int_qk", "f32"):
+    if compute_mode not in ("auto", "int", "int_qk", "f32"):
         raise ValueError(f"unknown compute_mode {compute_mode!r}")
     k_bits = kv_bits if k_bits is None else k_bits
     v_bits = kv_bits if v_bits is None else v_bits
     _check_bits(k_bits, v_bits)
-    if q.dim() != 3 or k_cache.dim() != 4:
-        raise ValueError(f"q must be [B, H, D] and the caches [B, Hk, S, D]: {tuple(q.shape)}, {tuple(k_cache.shape)}")
-    b, h, d = q.shape
+    if q.dim() not in (3, 4) or k_cache.dim() != 4:
+        raise ValueError(f"q must be [B, H, D] or [B, T, H, D] and the caches [B, Hk, S, D]: {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}")
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
     _, hk, s_max, _ = k_cache.shape
     width = lambda bits: d // 2 if bits == 4 else d  # noqa: E731
     if tuple(k_cache.shape) != (b, hk, s_max, width(k_bits)) or tuple(v_cache.shape) != (b, hk, s_max, width(v_bits)):
@@ -434,7 +624,9 @@ def decode_attention(
         raise ValueError("a quantized V cache needs v_scale [B, Hk, S]")
     if tuple(lengths.shape) != (b,):
         raise ValueError(f"lengths must be [B], got {tuple(lengths.shape)}")
-    int_qk = k_cache.dtype == torch.int8 and (compute_mode == "int_qk" or (compute_mode == "auto" and k_bits == 8))
+    int_qk = k_cache.dtype == torch.int8 and (compute_mode in ("int", "int_qk") or (compute_mode == "auto"
+                                                                                    and k_bits == 8))
+    int_pv = compute_mode == "int" and v_bits == 8
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     window = int(window_size) if window_size else 0
@@ -442,21 +634,28 @@ def decode_attention(
         raise ValueError(f"window_size, sink_size and logit_cap must be >= 0: {window_size}, {sink_size}, {logit_cap}")
     # A window as long as the cache hides no row (lengths count at most S).
     window = window if window < s_max else 0
-    masks = dict(window=window, sink=int(sink_size) if window else 0, logit_cap=float(logit_cap))
+    opts = dict(window=window, sink=int(sink_size) if window else 0, logit_cap=float(logit_cap), int_pv=int_pv)
+    if q.dim() == 4 and q.shape[1] == 1 and not int_pv:  # one token: the single-token kernels
+        out = decode_attention(q[:, 0], k_cache, v_cache, k_scale, lengths, v_scale=v_scale, sm_scale=sm_scale,
+                               logit_cap=logit_cap, k_bits=k_bits, v_bits=v_bits, window_size=window_size,
+                               sink_size=sink_size, return_lse=return_lse, compute_mode=compute_mode)
+        return tuple(x[:, None] for x in out) if return_lse else out[:, None]
 
     args = (q, k_cache, v_cache, k_scale, v_scale if v_quantized else None, lengths)
     if q.device.type == "cpu":
-        o, lse = decode_attention_plain(*args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, **masks)
+        o, lse = decode_attention_plain(*args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, **opts)
     elif q.device.type == "cuda":
         o, lse = _decode_attention_cuda(
-            *args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, need_lse=return_lse, **masks
+            *args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, need_lse=return_lse, **opts
         )
     else:
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, not {q.device}")
     return (o, lse) if return_lse else o
 
 
-#: Launches of kernel D in this process (one per call), in all and per
-#: design. CPU calls do not count.
+#: Launches of kernel D in this process (one per call), in all, per design
+#: and per :func:`launch_variant` (keys appear at their first launch). CPU
+#: calls do not count.
 decode_attention.launches = 0
 decode_attention.launches_by_design = {design: 0 for design in DESIGNS}
+decode_attention.launches_by_variant = {}

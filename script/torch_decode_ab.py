@@ -2,7 +2,7 @@
 variants of their own sources, and against another tree's build, on one CUDA
 card.
 
-    python3 script/torch_decode_ab.py [--base DIR] [--step] [all | VARIANT ...]
+    python3 script/torch_decode_ab.py [--base DIR] [--sass] [--step] [all | VARIANT ...]
 
 Each variant is a patch of ``csrc/decode_attention.cu`` or
 ``csrc/fused_kv_attention_wgmma.cu`` (see VARIANTS), built in its own copy of
@@ -25,8 +25,14 @@ host clock, 32 more (a build whose ``decode_tokens`` is a loop of
 the replays of the graph its first call captured); main
 also times the eager loop of ``llm_decode_step`` itself from the same
 caches. The processes run in turns main, base, v1, v2, ..., then the same in
-reverse, so each build is compared with main within one call. Prints the
-card's name and power limit first. Named variants run; ``all`` runs every
+reverse, so each build is compared with main within one call. ``--sass``
+first compares, kernel by kernel, the SASS (``cuobjdump -sass``, addresses
+and encodings dropped) of main's single-token D kernels with base's kernels
+of the same template arguments (a build from before the multi-token
+instances has only those); it exits with an error unless both builds hold
+all 90 and each pair is identical, and then prints its verdict again as the
+last line. Prints the card's name and power limit first. Named variants
+run; ``all`` runs every
 variant; with none named, main runs against base alone. The
 probes give wrong results on purpose: they time a part of the kernel.
 """
@@ -71,6 +77,71 @@ VARIANTS = {
                   [(E_SRC, "#pragma unroll 1\n      for (int r = r0; r < BKV; r += RPP) {\n        const uint2 x",
                     "#pragma unroll 2\n      for (int r = r0; r < BKV; r += RPP) {\n        const uint2 x")]),
 }
+
+
+def d_sass_kernels(binary: str) -> dict:
+    """Kernel D's single-token kernels in a built library: {(D, K and V
+    types, int_qk, masks): (instructions without addresses, encodings)}."""
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    dump = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass", binary], capture_output=True, text=True,
+                          check=True).stdout
+    kernels, key = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            # decode_kernel<D, KT, VT, kIntQK, kMasks[, kExt, Ext...]>, mangled; kExt 0 is single-token
+            m = re.search(r"decode_kernelILi(\d+)E(.+?)Lb([01])ELb([01])E(?:Li(\d)E)?", line)
+            key = (m.group(1), m.group(2), m.group(3), m.group(4)) if m and m.group(5) in (None, "0") else None
+            if key is not None:
+                kernels[key] = ([], [])
+        elif key is not None:
+            kernels[key][1].extend(re.findall(r"/\*\s*(0x[0-9a-f]{16})\s*\*/", line))
+            if re.search(r"/\*[0-9a-f]{4,}\*/", line):  # an instruction, after its address
+                text = re.sub(r"/\*[0-9a-f]+\*/", "", line.split(";")[0]).strip()
+                kernels[key][0].append(re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "(anonymous)", text))
+    return kernels
+
+
+def library_of(root: str) -> str:
+    """The path of the kernel library built from the package under ``root``."""
+    return subprocess.run([sys.executable, "-c", "from lowbit_quant_fa2_paddle_tpu_torch.ops import _build; "
+                           "print(_build.library_path())"], cwd=root, capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+#: Kernel D's single-token instances in a build: head dims 32/64/128 x
+#: (K bf16 on the float chain, K int8 or 4-bit on either chain) x V
+#: bf16/int8/4-bit x with and without masks.
+D_SINGLE_TOKEN_KERNELS = 3 * 5 * 3 * 2
+
+
+def sass_diff(main_bin: str, base_bin: str) -> tuple:
+    """Prints, for each single-token D kernel of base, whether main's kernel
+    of the same template arguments has the same instructions (and
+    encodings). Returns (ok, verdict line): ok only when both builds hold
+    all D_SINGLE_TOKEN_KERNELS of them and each pair is identical."""
+    a, b = d_sass_kernels(main_bin), d_sass_kernels(base_bin)
+    same = len(a) == len(b) == D_SINGLE_TOKEN_KERNELS
+    for key in sorted(b):
+        name = "decode_kernel<D={}, {}, int_qk={}, masks={}>".format(*key)
+        if key not in a:
+            print(f"sass {name}: MISSING in main", flush=True)
+            same = False
+            continue
+        (la, ea), (lb, eb) = a[key], b[key]
+        if la == lb:
+            print(f"sass {name}: instructions identical ({len(la)}), encodings "
+                  f"{'identical' if ea == eb else 'differ'}", flush=True)
+            continue
+        same = False
+        diff = [(i, x, y) for i, (x, y) in enumerate(zip(la, lb)) if x != y]
+        print(f"sass {name}: DIFFERS, main {len(la)} / base {len(lb)} instructions, {len(diff)} of the common "
+              f"positions differ", flush=True)
+        for i, x, y in diff[:8]:
+            print(f"    {i}: main {x} | base {y}", flush=True)
+    verdict = (f"sass: {len(b)} single-token D kernels of base and {len(a)} of main compared (a build holds "
+               f"{D_SINGLE_TOKEN_KERNELS}), {'all identical' if same else 'NOT all identical'}")
+    print(verdict, flush=True)
+    return same, verdict
 
 
 def step_worker(main: bool) -> str:
@@ -192,7 +263,7 @@ def prepare(name: str) -> str:
     return root
 
 
-def main(names, base=None, step=False) -> None:
+def main(names, base=None, step=False, sass=False) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dirs = {"main": REPO}
@@ -210,17 +281,24 @@ def main(names, base=None, step=False) -> None:
         text = open(max(logs, key=os.path.getmtime)).read() if logs else ""
         for name, spill, regs in re.findall(
                 r"Function properties for (\S+)\n\s+(.*spill loads)\n.*?Used (\d+) registers", text):
-            if "decode_kernel" in name or "fused_kv" in name:
+            if re.search(r"decode_kernelI.*?Lb[01]ELb[01]E(?!Li[12]E)", name) or "fused_kv" in name:  # single-token D
                 kind = re.search(r"(decode_kernelILi\d+E\w{1,40}?Lb[01]E|fused_kv_wgmma_kernelILi\d+ELi\d)", name)
                 print(f"[{tag}] regs={regs} {spill.strip()} {kind.group(1) if kind else name[:60]}", flush=True)
+    verdict = None
     if base:
         print(f"base: the package of {base}", flush=True)
+        if sass:
+            ok, verdict = sass_diff(library_of(REPO), library_of(dirs["base"]))
+            if not ok:
+                sys.exit(verdict)
     for name in names:
         print(f"{name}: {VARIANTS[name][0]}", flush=True)
     order = list(dirs)
     for tag in order + order[::-1]:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tag] + (["--step"] if step else []),
                        cwd=dirs[tag], check=True)
+    if verdict:
+        print(verdict, flush=True)  # the last line
 
 
 if __name__ == "__main__":
@@ -231,10 +309,10 @@ if __name__ == "__main__":
         base = None
         if args[:1] == ["--base"]:
             base, args = args[1], args[2:]
-        step = "--step" in args
-        args = [a for a in args if a != "--step"]
+        step, sass = "--step" in args, "--sass" in args
+        args = [a for a in args if a not in ("--step", "--sass")]
         names = list(VARIANTS) if args == ["all"] else args
         unknown = [n for n in names if n not in VARIANTS]
         if unknown:
             sys.exit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
-        main(names, base, step)
+        main(names, base, step, sass)

@@ -278,28 +278,12 @@ def test_decode_attention_ignores_rows_past_length():
     torch.testing.assert_close(stale, clean, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize(
-    "kw,item",
-    [
-        (dict(page_table=torch.zeros(4, 2, dtype=torch.int32)), "5"),
-        (dict(compute_mode="int"), "2e"),
-    ],
-)
+@pytest.mark.parametrize("kw,item", [(dict(page_table=torch.zeros(4, 2, dtype=torch.int32)), "5")])
 def test_unported_decode_options_raise(kw, item):
     q, kq, vq, ks, vs, lengths = _decode_inputs(4, 4, 4, 32, 64, 8, 8, seed=5)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         td.decode_attention(torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths),
                             v_scale=_torch(vs), **kw)
-
-
-def test_unported_cache_ops_raise():
-    with pytest.raises(NotImplementedError, match="item 2d"):
-        td.decode_attention(torch.zeros(1, 2, 4, 64), torch.zeros(1, 2, 8, 64, dtype=torch.int8),
-                            torch.zeros(1, 2, 8, 64, dtype=torch.int8), torch.ones(1, 2, 8),
-                            torch.ones(1, dtype=torch.int32))
-    cache = td.init_kv_cache(1, 2, 8, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2d"):
-        td.append_kv_multi(cache, torch.zeros(1, 2, 3, 64), torch.zeros(1, 2, 3, 64))
 
 
 @pytest.mark.parametrize("bad", [dict(kv_bits=2), dict(k_bits=4, v_bits=6)])

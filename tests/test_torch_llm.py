@@ -162,9 +162,12 @@ def test_rollback_caches_sets_lengths_only(tiny):
     _, _, model, tokens = tiny
     _, cfg = _cfgs()
     _, caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg)
+    buffers = [c["length"] for c in caches]
     back = TL.rollback_caches(caches, torch.tensor([3, 5], dtype=torch.int32))
     assert all(c["length"].tolist() == [3, 5] for c in back)
     assert all(b["k"] is c["k"] for b, c in zip(back, caches))
+    # In place: each cache keeps its own length buffer (a captured decode step replays on it).
+    assert back is caches and all(c["length"] is buf for c, buf in zip(caches, buffers))
 
 
 @pytest.fixture(scope="module")
@@ -208,18 +211,6 @@ def test_task_alphabet_matches_jax():
     s = TT.fact(7, 42) + TT.fact(99, 99)
     assert s == JT.fact(7, 42) + JT.fact(99, 99) == "07+42=049;99+99=198;"
     assert TT.encode(s) == JT.encode(s) and TT.decode_ids(TT.encode(s)) == s
-
-
-@pytest.mark.parametrize(
-    "make,item",
-    [
-        (lambda: TL.llm_verify_step(None, None, None, None), "2d"),
-        (lambda: TL.speculative_generate(None, None, 4, None), "2d"),
-    ],
-)
-def test_unported_llm_paths_raise(make, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        make()
 
 
 def test_unknown_prefill_impl_raises(tiny):
@@ -624,16 +615,20 @@ def test_decode_tokens_advances_the_callers_caches_in_place(tiny, mode):
 
 
 def test_launch_counts_add_and_restore():
-    """The graph decode adds a captured step's launches once a replay."""
+    """The graph decode adds a captured step's launches once a replay, in
+    all, per design and per kernel D variant (a key the capture added)."""
     before = TL._launch_counts()
     delta = {key: 0 for key in before}
     d_key = (td.decode_attention, None)
-    delta[d_key], delta[(td.decode_attention, "bulk_ring")] = 3, 3
+    variant = td.launch_variant(1, 4, 8, 8, 1)
+    v_key = (td.decode_attention, ("variant", variant))
+    delta[d_key], delta[(td.decode_attention, "bulk_ring")], delta[v_key] = 3, 3, 3
     TL._add_launch_counts(delta, 5)
     assert td.decode_attention.launches == before[d_key] + 15
     assert td.decode_attention.launches_by_design["bulk_ring"] == before[(td.decode_attention, "bulk_ring")] + 15
+    assert td.decode_attention.launches_by_variant[variant] == before.get(v_key, 0) + 15
     TL._add_launch_counts(delta, -5)
-    assert TL._launch_counts() == before
+    assert TL._launch_counts() == {**before, v_key: before.get(v_key, 0)}
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ import torch
 
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
-from lowbit_quant_fa2_paddle_tpu_torch.utils import mask_cases
+from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases, mask_cases
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd import (
     attention_bwd_dkv,
     attention_bwd_dq,
@@ -118,10 +118,11 @@ def test_build_command_targets_sm90a_from_repo_sources():
     assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
     assert sorted(os.path.basename(s) for s in srcs) == [
         "attention_bwd_wgmma.cu", "attention_fwd_wgmma.cu",
-        "decode_attention.cu", "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
+        "decode_attention.cu", "decode_attention_multi.cu", "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert all(f"-I{_build.CSRC_DIR}" in cmd for cmd in compiles)  # the shared headers, e.g. sm90.cuh
     assert os.path.join(_build.CSRC_DIR, "sm90.cuh") in _build.hashed_files()
+    assert os.path.join(_build.CSRC_DIR, "decode_attention.cuh") in _build.hashed_files()
     assert "-shared" in link and link[-len(compiles):] == [cmd[-1] for cmd in compiles]
     assert _build.CSRC_DIR.startswith(os.path.join(REPO, "lowbit_quant_fa2_paddle_tpu_torch"))
     assert os.path.dirname(_build.library_path()) == _build.BUILD_DIR
@@ -1112,3 +1113,49 @@ def test_windowed_decode_tokens_graph_equals_eager_stepping(cuda, mode):
     for c, w in zip(out_caches, copy):
         assert all(torch.equal(c[k], w[k]) for k in c), mode
     assert not decode_ops._TICKETS[got.device].any()
+
+
+# ---------------------------------------------------------------------------
+# Kernel D's multi-token (verify) and INT8-PV modes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", list(decode_cases.CASES))
+def test_decode_cases_run_the_plain_version_on_the_cpu(case, monkeypatch):
+    """Each card case of ``utils/decode_cases.py`` built on the CPU (the
+    occupancy query stubbed at 396 resident CTAs, 3 an SM of an H100's 132):
+    the plain version on the kernel's tiles gives finite outputs of q's
+    shape, rows that see no key o = 0 and lse = -1e30, and each T-row of a
+    call without INT8 PV is the single-token call at its own length: bit for
+    bit on the integer QK chain (exact dots); on the float chain, where the
+    matmul may sum each row in another order for another row count, the LSE
+    within 2e-6 and o within one ulp of its type (bf16 here: 2^-7 of it)."""
+    monkeypatch.setattr(decode_ops, "_resident_ctas", lambda *a, **k: 396)
+    q, kq, vq, ks, vs, lens, opts, plain = decode_cases.case_inputs(case, torch.Generator().manual_seed(12), "cpu")
+    o, lse = decode_attention_plain(q, kq, vq, ks, vs, lens, **plain)
+    t = q.shape[1]
+    assert o.shape == q.shape and lse.shape == q.shape[:-1] and torch.isfinite(o.float()).all()
+    limits = lens.long()[:, None] - (t - 1) + torch.arange(t)
+    assert bool((o[limits <= 0].float() == 0).all()) and bool((lse[limits <= 0] == -1e30).all())
+    assert bool((lse[limits > 0] > -1e30).all())
+    if not plain["int_pv"]:
+        for i in range(t):
+            single = decode_attention_plain(q[:, i], kq, vq, ks, vs, (limits[:, i]).clamp(min=0).int(), **plain)
+            exact = plain["int_qk"]
+            ulp = 2.0 ** -7 if q.dtype == torch.bfloat16 else 2e-6
+            torch.testing.assert_close(single[0].float(), o[:, i].float(), rtol=0 if exact else ulp,
+                                       atol=0 if exact else 2e-6)
+            torch.testing.assert_close(single[1], lse[:, i], rtol=0, atol=0 if exact else 2e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(decode_cases.CASES))
+def test_decode_multitoken_and_int8_pv_match_plain(cuda, case):
+    """Kernel D's T-token and INT8-PV instances against the plain version on
+    the kernel's own tiles at the edges of ``utils/decode_cases.py`` (T rows
+    straddling a tile and a split, a window whose band start moves with t,
+    lengths below T + window, INT8 PV with all-masked tiles): phase 9's
+    bounds, empty rows 0 / -1e30, the same bits twice, every launch on the
+    design."""
+    r = decode_cases.check_case(case, torch.Generator(device=cuda).manual_seed(12))
+    assert r["ok"], r
