@@ -224,7 +224,36 @@ Phases, each of which raises on failure (exit code 1, no result line):
    1,000 tokens); then the
    trained checkpoint: speculative_generate of 8 tokens on each of 64
    prompts with the int4-cache and the w4 self-drafts, equal to generate on
-   every prompt, exact-match >= 0.98.
+   every prompt, exact-match >= 0.98;
+17. kernel A's rest and kernel D at head_dim 256 (run last, after phase
+   14): A at d256 in every mode (int8, Q codes given or quantized in the
+   kernel, fp, packed INT4/INT2 K, INT8 V, INT8 PV) and at d192 (padded),
+   unmasked and at the masks' edges, and the bias (vector and matrix, with
+   causal masking, a window and the cap) and fp32 PV (pv_dtype float32, f32
+   V or int8 codes, d64/d128/d256) at their edges, over the grids of
+   utils/mask_cases.py, against the plain version at phase 4's bounds
+   (fp32 PV's f32 output within 1e-4), the same bits twice, every launch on
+   the kernel of its head dim; A timed in every mode at bench.py:119's b4
+   h8 s4096 d256 (SDPA bf16 at d256 under its own dispatch beside fp),
+   int8 at the hd256 LLM's
+   prefill (b4 h16 hk8 s32704 d256 causal), the bias vector at the DiT
+   shape and the matrix at b1 h8 s4096 d128 (SDPA with a float attn_mask
+   beside them), fp32 PV at the DiT shape (SDPA on f32 inputs beside it);
+   D at d256 in every cache mode of phase 9 at b4 h16 hk8 S_max 32768
+   (lengths 32768/1/4097/0), a split boundary +- 1, f32 queries and a
+   window of 300 + 8 sinks with the cap 2, at phase 9's bounds, timed at
+   every length 32768 (SDPA beside bf16); C1 on the hd256 LLM's K (b4 h8
+   d256, per token, over 32,704 and 4,096 tokens) bit-equal to its plain
+   version on the vector design, timed. Then the full-width LLM with
+   256-wide heads (bench/llm_e2e_bench.py --heads 16 --kv-heads 8
+   --head-dim 256: dim 4096, depth 32, Gemma 2 9B's attention geometry,
+   random seeded weights), b4 from a 32,704-token prompt: llm_prefill and
+   63 graph-decoded tokens on the int8 and then the bf16 cache (depth A and
+   C1 launches a prefill, depth x 63 D, all A and D at d256), first-step
+   logits int8 vs bf16 cache cos >= 0.999, then llm_prefill_chunked
+   (4096) into a k4v8 cache against the one-shot prefill's last-token
+   logits (cos >= 0.995) and A on its last chunk (packed INT4 K over the
+   cache's 28,672 rows) against the plain version, timed.
 
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
@@ -1341,6 +1370,8 @@ def count_reset():
         for key in getattr(w, "launches_by_design", {}):
             w.launches_by_design[key] = 0
         getattr(w, "launches_by_variant", {}).clear()
+        for key in getattr(w, "launches_by_dim", {}):
+            w.launches_by_dim[key] = 0
 
 
 def variant_counts():
@@ -2004,7 +2035,7 @@ def cache_step_profile(model, token, caches, cfg):
     return cats
 
 
-def long_prefill_attention_check(model, toks, cache, c0, cfg):
+def long_prefill_attention_check(model, toks, cache, c0, cfg, where="128K chunked prefill", tag="long"):
     """Kernel A as the chunked prefill runs it on its chunk at ``c0``, on
     layer 0's queries (GQA, d128): the in-chunk causal attention (K codes
     per token from C1, Sq = Sk = chunk) and, in the packed-INT4 mode, the
@@ -2046,8 +2077,7 @@ def long_prefill_attention_check(model, toks, cache, c0, cfg):
             r = {"cos": min(r["cos"], ri["cos"]), "max_do": max(r["max_do"], ri["max_do"]),
                  "finite": r["finite"] and ri["finite"], "max_dlse": max(r["max_dlse"], ri["max_dlse"])}
             del o_ref, lse_ref
-        check_close(f"{name}, 128K chunked prefill's chunk at c0 {c0} (b{b} h{h} hk{hk} sq{sc} sk{k.shape[2]} d{d})",
-                    r)
+        check_close(f"{name}, {where}'s chunk at c0 {c0} (b{b} h{h} hk{hk} sq{sc} sk{k.shape[2]} d{d})", r)
         return r, plain_ms
 
     kc, kcs = qo.quant_int8(k, gran="per_token")
@@ -2062,7 +2092,7 @@ def long_prefill_attention_check(model, toks, cache, c0, cfg):
     ms = cuda_time_ms(lambda: lowbit_attention(q, k, v, k_scale=ks, k_pack_bits=4, return_lse=True), warmup=1, reps=3)
     flops = attention_flops(b, h, d, sc, c0, False)
     lim = bound(nbytes(q, k, ks, v) + nbytes(q) + b * h * sc * 4, {"int8": flops // 2, "bf16": flops // 2})
-    log(f"[long] kernel A packed int4 K at c0 {c0}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (its {b} batch "
+    log(f"[{tag}] kernel A packed int4 K at c0 {c0}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (its {b} batch "
         f"rows), bound {lim['bound_ms']:.3f} ms ({lim['bound_by']})")
     return {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None,
             "exp_floor_ms": exp_floor_ms(b * h * sc * c0), "design": kernel_design(False)}
@@ -2267,8 +2297,8 @@ def long_context_phase():
 # Phase 15: kernel A's masks and kernel D's window walk
 # ---------------------------------------------------------------------------
 
-def check_masked(tag, r):
-    log(f"[A15] {tag}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items()))
+def check_masked(tag, r, prefix="A15"):
+    log(f"[{prefix}] {tag}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items()))
     if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= MAX_DO and r["max_dlse"] <= MAX_DLSE
             and r["empty_ok"] and r.get("same_bits_twice", True) and r.get("on_design", True)):
         raise AssertionError(f"kernel A's masks disagree with the plain version ({tag}): {r}")
@@ -2324,13 +2354,15 @@ def visible_pairs(s_q, s_k, causal=True, window=0, sink=0, q_offset=0, cu=None):
     return int(n.sum())
 
 
-def a_record(name, call, plain, pairs, h, d, mode, byte_tensors, out_bytes, library=None):
+def a_record(name, call, plain, pairs, h, d, mode, byte_tensors, out_bytes, library=None, prefix="A15",
+             library_backend="efficient"):
     """Kernel A on one windowed/segmented/capped call: the same bits twice,
     against the plain version at phase 4's bounds, timed beside the plain
     version (one call between CUDA events) and a library call where one
-    computes the same function; bound: 4·D operations per visible pair (QK
-    in int8 for the int8 mode, PV in bf16) and the bytes of its inputs and
-    output."""
+    computes the same function (under SDPA's memory-efficient backend, or
+    its own dispatch with ``library_backend`` None); bound: 4·D operations per visible pair (QK in int8
+    for the int8 modes, PV in bf16, or in int8 for "int8-PV") and the bytes
+    of its inputs and output."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
     from lowbit_quant_fa2_paddle_tpu_torch.utils import mask_cases
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms, tflops
@@ -2348,17 +2380,20 @@ def a_record(name, call, plain, pairs, h, d, mode, byte_tensors, out_bytes, libr
     r = mask_cases.masked_stats(o, lse, o_ref, lse_ref)
     r["same_bits_twice"] = torch.equal(o, o2) and torch.equal(lse, lse2)
     r["on_design"] = lowbit_attention.launches_by_design["wgmma"] == n + 2
-    check_masked(name, r)
+    check_masked(name, r, prefix)
     del o, o2, lse, lse2, o_ref, lse_ref
     ms = cuda_time_ms(lambda: call(False), warmup=2, reps=10)
     flops = 4 * d * pairs * h
-    ops = {"int8": flops // 2, "bf16": flops // 2} if mode != "fp" else {"bf16": flops}
+    ops = {"bf16": flops} if mode == "fp" else {"int8": flops} if mode == "int8-PV" else {
+        "int8": flops // 2, "bf16": flops // 2}
     lim = bound(nbytes(*byte_tensors) + out_bytes, ops)
     library_ms = None
-    if library is not None:  # the memory-efficient backend: SDPA's math one would materialise [B, H, S, S]
+    if library is not None and library_backend is None:
+        library_ms = cuda_time_ms(library, warmup=1, reps=3)
+    elif library is not None:  # with a mask: SDPA's math backend would materialise [B, H, S, S]
         with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION):
             library_ms = cuda_time_ms(library, warmup=1, reps=3)
-    log(f"[A15] {name}: kernel {ms:.3f} ms ({tflops(flops, ms / 1e3):.1f} TFLOP/s over {pairs * h:.4g} visible "
+    log(f"[{prefix}] {name}: kernel {ms:.3f} ms ({tflops(flops, ms / 1e3):.1f} TFLOP/s over {pairs * h:.4g} visible "
         f"pairs), plain {plain_ms:.3f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}, "
         f"{lim['bound_ms'] / ms:.1%} of it), exp2 floor {exp_floor_ms(pairs * h):.4f} ms, library {library_ms}")
     return {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": library_ms,
@@ -3036,6 +3071,331 @@ def spec_checkpoint_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: kernel A at head_dim 256, its bias and fp32 PV; kernel D at
+# head_dim 256; the head_dim-256 LLM at full width.
+# ---------------------------------------------------------------------------
+
+#: fp32 PV's output (f32) against the plain version's: three bf16 products
+#: carry about 16 bits of P and of V.
+PV32_MAX_DO = 1e-4
+
+
+def hd256_edge_phase(gen):
+    """Kernel A's head_dim-256 grid (every mode at d256 and 192, unmasked and
+    at the masks' edges) and the bias / fp32 PV grid (d64, d128, d256) of
+    utils/mask_cases.py against attention_fwd_plain at phase 4's bounds
+    (fp32 PV: max|do| <= PV32_MAX_DO), the same bits twice, every launch on
+    the wgmma design and the kernel of its head dim. Returns the worst
+    max|do| per group."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import attention_fwd_plain, kernel_dim, lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import mask_cases
+
+    worst = {}
+    for mode, edge in mask_cases.extra_cases():
+        case = mask_cases.make_case(mode, edge, gen, "cuda")
+        pv32 = case["kw"].get("pv_dtype") == torch.float32
+        dp = kernel_dim(case["args"][0].shape[-1])
+        n, n_dim = lowbit_attention.launches_by_design["wgmma"], lowbit_attention.launches_by_dim[dp]
+        o, lse = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+        o2, lse2 = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+        o_ref, lse_ref = attention_fwd_plain(*case["plain_args"], **case["plain_kw"])
+        torch.cuda.synchronize()
+        r = mask_cases.masked_stats(o, lse, o_ref, lse_ref)
+        r["same_bits_twice"] = torch.equal(o, o2) and torch.equal(lse, lse2)
+        r["on_design"] = (lowbit_attention.launches_by_design["wgmma"] == n + 2
+                          and lowbit_attention.launches_by_dim[dp] == n_dim + 2)
+        check_masked(f"{mode} {edge}", r, "A17")
+        if pv32 and r["max_do"] > PV32_MAX_DO:
+            raise AssertionError(f"fp32 PV max|do| {r['max_do']} > {PV32_MAX_DO} ({mode} {edge})")
+        group = "fp32 PV" if pv32 else "bias" if "bias" in case["kw"] else "d256"
+        worst[group] = max(worst.get(group, 0.0), r["max_do"])
+        del case, o, o2, lse, lse2, o_ref, lse_ref
+    log(f"[A17] {len(mask_cases.extra_cases())} cases; worst max|do| by group: " +
+        ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    return worst
+
+
+#: Kernel A at head_dim 256 at bench.py:119's shape (b4 h8 s4096 d256,
+#: non-causal) in each mode: (K bits, V mode) on C1/C2/C3 codes, Q
+#: quantized in the kernel; "fp" bf16 Q/K.
+def hd256_quant_phase(gen):
+    """Kernel C1 at the shapes the hd256 LLM's prefills give it: K of b4, 8
+    KV heads, 256 wide, per token with its mean, over the one-shot prompt
+    (32,704 tokens) and over one chunk of the chunked prefill (4,096): codes
+    and scales bit-equal to quant_int8_plain, on the vector design, then
+    timed as phase 3 times it."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import k_mean, kernel_design, quant_int8, quant_int8_plain
+
+    recs = {}
+    for tag, s in (("prefill", 32704), ("chunk", 4096)):
+        k = (torch.randn(4, 8, s, 256, generator=gen, device="cuda") + 0.5).bfloat16()
+        km = k_mean(k)
+        n = quant_int8.launches_by_design["vector"]
+        codes, scale = quant_int8(k, km, gran="per_token")
+        on_vector = quant_int8.launches_by_design["vector"] == n + 1
+        want_c, want_s = quant_int8_plain(k, km, per_token=True, block=128)
+        torch.cuda.synchronize()
+        same = torch.equal(codes, want_c) and torch.equal(scale, want_s)
+        log(f"[C1-17] hd256 K b4 h8 s{s} d256 per_token ({kernel_design(k, 8, True, 128)}): "
+            f"codes_equal={torch.equal(codes, want_c)} scales_equal={torch.equal(scale, want_s)} vector={on_vector}")
+        if not (same and on_vector):
+            raise AssertionError(f"kernel C1 differs from its plain version (or left the vector design) at the "
+                                 f"hd256 LLM's K b4 h8 s{s} d256")
+        del k, km, codes, scale, want_c, want_s
+        ks = [torch.randn(4, 8, s, 256, generator=gen, device="cuda").bfloat16() for _ in range(2)]
+        recs[tag] = {"max_abs_err": 0.0, **time_quant("C1-17", f"b4 h8 s{s} d256 contiguous K", quant_int8,
+                                                      quant_int8_plain, ks, "per_token", 128, 8)}
+        del ks
+    return recs
+
+
+A17_MODES = {"int8": (8, "bf16"), "fp": (16, "bf16"), "int4-K": (4, "bf16"), "int2-K": (2, "bf16"),
+             "int8-V": (8, "int8"), "int8-PV": (8, "int8_pv")}
+
+
+def hd256_attention_phase(gen):
+    """Kernel A at head_dim 256 in every mode at bench.py:119's b4 h8 s4096
+    d256 (SDPA bf16 at d256 beside the fp mode), int8 at the hd256 LLM's
+    prefill (b4 h16 hk8 s32704 d256 causal); the bias at the DiT shape (a
+    per-key vector) and at b1 h8 s4096 d128 (a matrix; a DiT-shape matrix
+    would be 38 GB), int8, beside SDPA with a float attn_mask; fp32 PV at the
+    DiT shape (int8 QK, f32 V, f32 out) beside SDPA on f32 inputs. Each
+    against the plain version, the same bits twice, timed (a_record)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as qo
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    records = {}
+
+    def run(name, b, h, hk, s, d, causal, k_bits, v_mode, bias=None, pv32=False, library=None):
+        q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+        k = (torch.randn(b, hk, s, d, generator=gen, device="cuda") + 0.3).bfloat16()
+        v = torch.randn(b, hk, s, d, generator=gen, device="cuda")
+        v = v if pv32 else v.bfloat16()
+        c = 1.0 / math.sqrt(d) * LOG2E
+        ks = vs = vm = None
+        if k_bits != 16:
+            quant = {8: qo.quant_int8, 4: qo.quant_int4, 2: qo.quant_int2}[k_bits]
+            k, ks = quant(k, qo.k_mean(k), gran="per_token")
+        if v_mode != "bf16":
+            v, vs, vm = qo.quant_v_int8_per_channel(v, smooth_v=True)
+        kb, pv8 = 8 if k_bits == 16 else k_bits, v_mode == "int8_pv"
+        extra = dict(pv_dtype=torch.float32, out_dtype=torch.float32) if pv32 else {}
+        out = torch.float32 if pv32 else torch.bfloat16
+
+        def call(lse):
+            return lowbit_attention(q, k, v, None, ks, v_scale=vs, v_mean=vm, k_pack_bits=kb, pv_int8=pv8,
+                                    is_causal=causal, bias=bias, return_lse=lse, **extra)
+
+        def plain():
+            return attention_fwd_plain(q, k, v, None, ks, vm, causal=causal, sm_scale_log2e=c, out_dtype=out,
+                                       k_bits=kb, v_scale=vs, pv_int8=pv8, bias=bias, pv_f32=pv32)
+
+        pairs = b * (s * (s + 1) // 2 if causal else s * s)
+        lib = None if library is None else library(q, k, v, bias)
+        r = a_record(name, call, plain, pairs, h, d, "fp" if k_bits == 16 else "int8-PV" if pv8 else "int8",
+                     (q, k, v, ks, vs, vm, bias), b * h * s * d * (4 if pv32 else 2), lib, "A17",
+                     library_backend=None if bias is None and not pv32 else "efficient")
+        if pv32:
+            if r["max_abs_err"] > PV32_MAX_DO:
+                raise AssertionError(f"{name}: fp32 PV max|do| {r['max_abs_err']} > {PV32_MAX_DO}")
+            # The PV product as the kernel runs it: three bf16 products.
+            r.update(bound(nbytes(q, k, v, ks, vs, vm) + b * h * s * d * 4,
+                           {"int8": 2 * d * pairs * h, "bf16": 3 * 2 * d * pairs * h}))
+        records[name] = r
+
+    def sdpa_with(dtype, mask):
+        """A library call (built before it is timed): SDPA on q and random K
+        and V of q's shape in ``dtype`` (MHA calls), with ``mask`` (the
+        bias, broadcast over the rows of a vector) as its float attn_mask."""
+        def make(q, k, v, bias):
+            q2 = q.to(dtype)
+            k2, v2 = torch.randn_like(q2), torch.randn_like(q2)
+            m = None
+            if mask:
+                m = bias.to(dtype)
+                m = m.expand(-1, -1, q.shape[2], -1) if m.shape[2] == 1 else m
+            return lambda: sdpa(q2, k2, v2, attn_mask=m)
+        return make
+
+    bench = (4, 8, 8, 4096, 256, False)
+    for mode, (k_bits, v_mode) in A17_MODES.items():
+        # SDPA computes the fp mode's function (bf16 at d256, under its own
+        # dispatch: no mask, so its flash backend takes it); the others have
+        # no library call.
+        run(f"d256 {mode}; b4 h8 s4096 d256", *bench, k_bits, v_mode,
+            library=(lambda q, k, v, _: (lambda: sdpa(q, k, v))) if mode == "fp" else None)
+    run("d256 int8; hd256 LLM prefill b4 h16 hk8 s32704 d256 causal", 4, 16, 8, 32704, 256, True, 8, "bf16")
+    vec = torch.randn(B, H, 1, S, generator=gen, device="cuda")
+    run(f"int8 bias vector; DiT shape b{B} h{H} s{S} d{D}", B, H, H, S, D, False, 8, "bf16", bias=vec,
+        library=sdpa_with(torch.bfloat16, True))
+    mat = torch.randn(1, 8, 4096, 4096, generator=gen, device="cuda")
+    run("int8 bias matrix; b1 h8 s4096 d128", 1, 8, 8, 4096, 128, False, 8, "bf16", bias=mat,
+        library=sdpa_with(torch.bfloat16, True))
+    del vec, mat
+    run(f"int8 QK fp32 PV (f32 V); DiT shape b{B} h{H} s{S} d{D}", B, H, H, S, D, False, 8, "bf16", pv32=True,
+        library=sdpa_with(torch.float32, False))
+    return records
+
+
+def hd256_decode_phase(gen):
+    """Kernel D at head_dim 256 (decode_attention_d256.cu) in every cache
+    mode of DECODE_MODES against its plain version at phase 9's bounds, the
+    same bits twice: at b4 h16 hk8 S_max 32768 (lengths 32768, 1, 4097, 0),
+    at a split boundary +- 1, with f32 queries, and with a window of 300 +
+    8 sinks and the cap 2; then timed at every length 32768 (SDPA, one
+    query per head, beside the bf16 cache)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    b, h, hk, d, s = 4, 16, 8, 256, 32768
+    records = {}
+    for mode, (kb, vb, cm) in DECODE_MODES.items():
+        chunk = DD.num_splits(4096, b * hk, DD._resident_ctas(0, d, kb, vb, kb == 8 or cm == "int_qk"))[1]
+        cases = [("lengths 32768/1/4097/0", dict(s=s, lengths=[s, 1, 4097, 0]), {}),
+                 ("split boundary +-1", dict(s=4096, lengths=[chunk - 1, chunk, chunk + 1, 2 * chunk + 1]), {}),
+                 ("f32 queries", dict(s=777, lengths=[777, 1, 0, 500], q_dtype=torch.float32), {}),
+                 ("window 300 + 8 sinks, cap 2", dict(s=4096, lengths=[4096, 100, 1300, 0]),
+                  dict(window_size=300, sink_size=8, logit_cap=2.0))]
+        worst = 0.0
+        for name, kw, opts in cases:
+            kargs, kkw, pargs, pkw = decode_inputs(gen, b, h, hk, d, mode=mode, **kw)
+            n = DD.decode_attention.launches_by_dim[256]
+            o, lse = DD.decode_attention(*kargs, **kkw, **opts, return_lse=True)
+            o2, lse2 = DD.decode_attention(*kargs, **kkw, **opts, return_lse=True)
+            window = opts.get("window_size", 0)
+            o_ref, lse_ref = DD.decode_attention_plain(*pargs, **pkw, window=window, sink=opts.get("sink_size", 0),
+                                                       logit_cap=opts.get("logit_cap", 0.0))
+            torch.cuda.synchronize()
+            r = stats(o, o_ref, lse, lse_ref)
+            ulp = bf16_ulp(float(o_ref.float().abs().max()))
+            empty = [i for i, n_ in enumerate(kw["lengths"]) if n_ == 0]
+            empty_ok = all(float(o[i].float().abs().max()) == 0.0 and bool((lse[i] == -1e30).all()) for i in empty)
+            same = torch.equal(o, o2) and torch.equal(lse, lse2)
+            on_kernel = DD.decode_attention.launches_by_dim[256] == n + 2
+            log(f"[D17] {mode} d256 {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                                       for k, v in r.items()) +
+                f" bf16_ulp={ulp:.3g} empty_rows_ok={empty_ok} same_bits_twice={same} d256_kernel={on_kernel}")
+            if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= ulp and r["max_dlse"] <= 1e-4 and empty_ok
+                    and same and on_kernel):
+                raise AssertionError(f"kernel D at d256 disagrees with its plain version ({mode}, {name}): {r}")
+            worst = max(worst, r["max_do"])
+            del kargs, pargs, o, o2, o_ref
+        kargs, kkw, pargs, pkw = decode_inputs(gen, b, h, hk, d, s, mode, [s] * b)
+        ms = cuda_time_ms(lambda: DD.decode_attention(*kargs, **kkw), warmup=5, reps=50)
+        plain_ms = cuda_time_ms(lambda: DD.decode_attention_plain(*pargs, **pkw), warmup=1, reps=3)
+        q, kq, vq, ks, lens = kargs
+        cache_bytes = nbytes(kq, vq, ks, pargs[4])
+        lim = bound(cache_bytes + nbytes(q, lens) * 2)
+        library_ms = None
+        if mode == "bf16":
+            library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kq, vq, enable_gqa=True), warmup=3, reps=20)
+        log(f"[D17] {mode} b{b} h{h} hk{hk} d{d} s{s}: kernel {ms:.4f} ms "
+            f"({cache_bytes / (ms * 1e-3) / 1e9:.1f} GB/s of {cache_bytes / 1e6:.1f} MB cache), plain "
+            f"{plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms, SDPA {library_ms}")
+        records[mode] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": library_ms,
+                         "design": DD.kernel_design()}
+        del kargs, pargs
+    return records
+
+
+def hd256_llm_phase():
+    """The full-width LLM with 256-wide heads (bench/llm_e2e_bench.py --heads
+    16 --kv-heads 8 --head-dim 256: dim 4096, depth 32, Gemma 2 9B's
+    attention geometry), random seeded weights, b4 from a 32,704-token
+    prompt: llm_prefill then 63 graph-decoded tokens (64 with the prefill's)
+    on the int8 and then the bf16 cache, one cache alive at a time; the
+    first decode step's logits int8 vs bf16 cache cos >= 0.999; then
+    llm_prefill_chunked (chunks of 4096) into a k4v8 cache against the
+    one-shot prefill's last-token logits, cos >= 0.995, and kernel A on its
+    last chunk (packed INT4 K over the cache) against the plain version.
+    Launches: depth A (all at d256) and C1 a prefill, depth x 63 D (all at
+    d256) a decode."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+
+    b, prompt_len, n_new, chunk = 4, 32704, 64, 4096
+    cfg = llm.LLMConfig(vocab=256, dim=4096, depth=32, num_heads=16, num_kv_heads=8, max_seq=32768,
+                        dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = llm.init_llm_params(cfg, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab, (b, prompt_len), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[hd256] dim {cfg.dim} depth {cfg.depth} heads {cfg.num_heads}x{cfg.head_dim} kv heads "
+        f"{cfg.num_kv_heads} bf16: {n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
+    llm.generate(model, prompt[:, :256], 2, dataclasses.replace(cfg, max_seq=512))  # warm-up, not counted
+    res = {}
+    for mode, bits in (("int8", 8), ("bf16", 16)):
+        cfg_m = dataclasses.replace(cfg, kv_bits=bits)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        first = FirstLogits(model)
+        count_reset()
+        t0 = time.perf_counter()
+        logits, caches = llm.llm_prefill(model, prompt, cfg_m)
+        token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        last = logits[:, -1].float()
+        del logits
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        steps, caches, wall_ms, replay_ms, call_s = graph_decode(model, token, caches, n_new - 1, cfg_m)
+        got, a_dim, d_dim = counts(), dict(lowbit_attention.launches_by_dim), dict(DD.decode_attention.launches_by_dim)
+        first.remove()
+        peak = torch.cuda.max_memory_allocated()
+        cache_gb = sum(nbytes(*c.values()) for c in caches) / 1e9
+        log(f"[hd256] {mode} cache ({cache_gb:.2f} GB over {cfg.depth} layers): prefill {prefill_s:.3f} s, graph "
+            f"decode {wall_ms:.3f} ms/token wall over {n_new - 11} replays in one call (single-replay device ms "
+            f"median {statistics.median(replay_ms):.3f}, min {min(replay_ms):.3f}, max {max(replay_ms):.3f}; the "
+            f"first call {call_s:.2f} s), peak {peak / 2**30:.2f} GiB; kernel A by head dim {a_dim}, kernel D by "
+            f"head dim {d_dim}")
+        check_counts(f"hd256 {mode}", got, cfg.depth, n_new - 1)
+        if a_dim[256] != cfg.depth or d_dim[256] != cfg.depth * (n_new - 1):
+            raise AssertionError(f"hd256 {mode}: A/D launches by head dim {a_dim} / {d_dim}")
+        if first.logits is None or not bool(torch.isfinite(first.logits).all()) or steps.shape != (b, n_new - 1):
+            raise AssertionError("hd256: no or non-finite first-step logits, or bad tokens")
+        res[mode] = {"prefill_s": prefill_s, "decode_ms_per_token": wall_ms, "replay_ms": replay_ms,
+                     "peak_gib": peak / 2**30, "launches": got, "a_d256": a_dim[256], "d_d256": d_dim[256],
+                     "logits": first.logits, "last": last}
+        del caches, steps, first
+    cos = float(cosine_similarity(res["int8"]["logits"], res["bf16"]["logits"]))
+    log(f"[hd256] first decode step logits cos int8 vs bf16 cache {cos:.6f} (>= 0.999)")
+    if cos < 0.999:
+        raise AssertionError(f"hd256: int8 vs bf16 cache first-step logits cos {cos} < 0.999")
+    full_last = res["int8"]["last"]
+    for mode in ("int8", "bf16"):
+        del res[mode]["logits"], res[mode]["last"]
+    cfg_c = dataclasses.replace(cfg, kv_bits=8, k_bits=4)
+    torch.cuda.empty_cache()
+    count_reset()
+    t0 = time.perf_counter()
+    last, caches = llm.llm_prefill_chunked(model, prompt, cfg_c, chunk=chunk)
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    got, a256 = counts(), lowbit_attention.launches_by_dim[256]
+    cos = float(cosine_similarity(last.float(), full_last))
+    n_chunks = -(-prompt_len // chunk)
+    log(f"[hd256] k4v8 chunked prefill (chunk {chunk}) {chunked_s:.3f} s vs one-shot last-token logits cos "
+        f"{cos:.6f} (>= 0.995); launches {got}, kernel A at d256 {a256}")
+    if cos < 0.995:
+        raise AssertionError(f"hd256: chunked vs one-shot prefill cos {cos} < 0.995")
+    if got["A"] != a256 or a256 != cfg.depth * (2 * n_chunks - 1) or got["C1"] != cfg.depth * n_chunks:
+        raise AssertionError(f"hd256 chunked prefill launches {got}, A at d256 {a256}")
+    c0 = (n_chunks - 1) * chunk
+    res["A_cross"] = long_prefill_attention_check(model, prompt[:, c0:], caches[0], c0, cfg_c,
+                                                  where="hd256 chunked prefill", tag="hd256")
+    res["chunked"] = {"prefill_s": chunked_s, "cos": cos, "a_d256": a256, "cross_launches": a256 - got["C1"],
+                      "c1": got["C1"]}
+    del caches, model
+    return res
+
+
 def cuda_event_ms(fn):
     """Device ms of one call between two CUDA events."""
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3091,6 +3451,12 @@ def main():
     del model_13, prompt_13
     timed(spec_checkpoint_phase)
     long_r = timed(long_context_phase)
+    # Phase 17 (its kernels, then the head_dim-256 model at full width).
+    edge17 = timed(hd256_edge_phase, gen)
+    c1_17 = timed(hd256_quant_phase, gen)
+    a17 = timed(hd256_attention_phase, gen)
+    d17 = timed(hd256_decode_phase, gen)
+    llm17 = timed(hd256_llm_phase)
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
     replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
@@ -3228,6 +3594,42 @@ def main():
             ("quantized", "int8 codes", qz_launches[kern]),
         )
     ]
+    # Phase 17: kernel A at head_dim 256 (its own source) in every mode, the
+    # bias and fp32 PV; the hd256 LLM's prefills run the int8 causal row (its
+    # two one-shot prefills and the chunked prefill's in-chunk calls) and the
+    # chunked prefill's cross-attention row; kernel D at head_dim 256, whose
+    # int8 and bf16 rows the hd256 LLM's graph decodes run.
+    d256_src = f"{src}/attention_fwd_wgmma_d256.cu"
+    chunked = llm17["chunked"]
+    a17_launches = {"d256 int8; hd256 LLM prefill b4 h16 hk8 s32704 d256 causal":
+                    llm17["int8"]["a_d256"] + llm17["bf16"]["a_d256"] + chunked["a_d256"] - chunked["cross_launches"]}
+    a17_source = {key: d256_src if "d256" in key else f"{src}/attention_fwd_wgmma_pv32.cu" if "fp32 PV" in key
+                  else f"{src}/attention_fwd_wgmma_bias.cu" for key in a17}
+    kernels += [
+        dict(name=f"attention_fwd ({key})", route="cuda", source=a17_source[key], replaces=replaces_a,
+             launches=a17_launches.get(key, 0), **{k: a17[key][k] for k in a_keys})
+        for key in a17
+    ] + [
+        dict(name="attention_fwd (packed int4 K d256; hd256 chunked prefill's last chunk over the cache, b4 h16 hk8 "
+             "sq4096 sk28672 d256)", route="cuda", source=d256_src, replaces=replaces_a,
+             launches=chunked["cross_launches"], **{k: llm17["A_cross"][k] for k in a_keys}),
+    ] + [
+        # C1 on the hd256 LLM's K: its one-shot prefills (int8 and bf16 cache)
+        # and its chunked prefill's chunks.
+        dict(name="quant_int8 (hd256 LLM prefill K b4 h8 s32704 d256)", **quant_src, replaces=replaces_c + "215",
+             launches=llm17["int8"]["launches"]["C1"] + llm17["bf16"]["launches"]["C1"], **c1_17["prefill"]),
+        dict(name="quant_int8 (hd256 LLM chunked prefill's chunk K b4 h8 s4096 d256)", **quant_src,
+             replaces=replaces_c + "215", launches=chunked["c1"], **c1_17["chunk"]),
+    ] + [
+        dict(name=f"decode_attention ({mode} cache; b4 h16 hk8 S_max 32768 d256)", route="cuda",
+             source=f"{src}/decode_attention_d256.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
+             launches=llm17[mode]["d_d256"] if mode in ("int8", "bf16") else 0,
+             **{k: d17[mode][k] for k in timing + ("design",)})
+        for mode in d17
+    ]
+    log(f"[hd256] phase 17 A edge grid worst max|do| by group {edge17}; launches at d256: A "
+        f"{sum(r['launches'] for r in kernels if 'd256' in r['name'] and r['name'].startswith('attention'))}, D "
+        f"{sum(r['launches'] for r in kernels if 'd256' in r['name'] and r['name'].startswith('decode'))}")
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))

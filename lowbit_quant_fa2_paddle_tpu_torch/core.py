@@ -27,8 +27,8 @@ import torch
 from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as quant_ops
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import (
     LOG2E,
-    _not_ported,
     flash_attention_fp,
+    kernel_dim,
     lowbit_attention,
 )
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import _repeat_kv, attention_reference
@@ -102,6 +102,41 @@ def _finish_lse(lse2: torch.Tensor, q: torch.Tensor, km: Optional[torch.Tensor],
     return lse
 
 
+def _smooth_q_bias(qm: torch.Tensor, kp: torch.Tensor, km: Optional[torch.Tensor], sm_scale: float):
+    """Per-key smooth-Q correction ``qm · (K - km)ᵀ · sm_scale`` ``[B, H, 1,
+    Sk]`` (GQA-aware), in f32: the bias that makes attention over ``q - qm``
+    exact, the remaining ``qm · km`` term being constant along each row."""
+    b, h = qm.shape[0], qm.shape[1]
+    hk = kp.shape[1]
+    kf = kp.float()
+    if km is not None:
+        kf = kf - km.float()
+    qm_g = qm[:, :, 0, :].reshape(b, hk, h // hk, -1)
+    corr = torch.einsum("bkgd,bksd->bkgs", qm_g, kf).reshape(b, h, -1)
+    return (corr * sm_scale)[:, :, None, :]
+
+
+def _smooth_q(qp: torch.Tensor, kp: torch.Tensor, km: Optional[torch.Tensor], sm_scale: float, smooth_q: bool):
+    """Q for quantization and the attention bias: with ``smooth_q``, Q minus
+    its per-channel mean over the sequence (in ``qp.dtype``) and the bias
+    that adds the mean's logits back; else ``(qp, None)``."""
+    if not smooth_q:
+        return qp, None
+    qm = qp.float().mean(dim=2, keepdim=True)  # [B, H, 1, D]
+    return (qp.float() - qm).to(qp.dtype), _smooth_q_bias(qm, kp, km, sm_scale)
+
+
+def _pv_dtype(pv_accum_dtype: str) -> torch.dtype:
+    """The PV operand type of a ``pv_accum_dtype``: "fp16", "fp16+fp32" and
+    "fp32" take bf16 P/V operands with an f32 accumulator, "fp32+fp32" f32
+    operands."""
+    if pv_accum_dtype == "fp32+fp32":
+        return torch.float32
+    if pv_accum_dtype not in ("fp16", "fp16+fp32", "fp32"):
+        raise ValueError(f"unknown pv_accum_dtype {pv_accum_dtype!r}")
+    return torch.bfloat16
+
+
 def _quant_q(qp: torch.Tensor, qk_quant_gran: str):
     """Q for the kernel: float Q quantized per token inside it, or external
     per-block codes from kernel C1."""
@@ -149,15 +184,12 @@ def lowbit_fa_qk_int8_pv_fp16(
     epilogue), per-token or per-block scales, causal or not, GQA.
 
     ``pv_accum_dtype`` "fp16", "fp16+fp32" and "fp32" all mean bf16 P/V
-    operands with an fp32 accumulator; "fp32+fp32" (fp32 operands) is not
-    ported yet. ``smooth_q`` needs the bias path and is not ported yet.
+    operands with an fp32 accumulator; "fp32+fp32" runs P and V in f32
+    (kernel A's fp32 PV). ``smooth_q`` takes Q's per-channel mean out
+    before quantization and adds its logits back as a per-key bias (exact);
+    the LSE still uses the original Q.
     """
-    if smooth_q:
-        raise _not_ported("smooth_q (per-key bias)", "3f")
-    if pv_accum_dtype == "fp32+fp32":
-        raise _not_ported("pv_accum_dtype='fp32+fp32'", "3g")
-    if pv_accum_dtype not in ("fp16", "fp16+fp32", "fp32"):
-        raise ValueError(f"unknown pv_accum_dtype {pv_accum_dtype!r}")
+    pv_dtype = _pv_dtype(pv_accum_dtype)
     q, k, v = (_to_hnd(x, tensor_layout) for x in (q, k, v))
     d_og = q.shape[-1]
     if sm_scale is None:
@@ -167,7 +199,8 @@ def lowbit_fa_qk_int8_pv_fp16(
     km = quant_ops.k_mean(kp) if smooth_k else None
     gk, bk = _gran_block(qk_quant_gran, "k")
     k_codes, k_scale = quant_ops.quant_int8(kp, km, gran=gk, block=bk)
-    q_in, q_scale = _quant_q(qp, qk_quant_gran)
+    qq, bias = _smooth_q(qp, kp, km, sm_scale, smooth_q)
+    q_in, q_scale = _quant_q(qq, qk_quant_gran)
     v_in, v_mean = v, None
     if smooth_v:
         v_mean = v.float().mean(dim=2)  # [B, Hk, D]
@@ -175,8 +208,8 @@ def lowbit_fa_qk_int8_pv_fp16(
         v_mean = _pad_head_dim(v_mean)
     out = lowbit_attention(
         q_in, k_codes, _pad_head_dim(v_in), q_scale, k_scale,
-        v_mean=v_mean, is_causal=is_causal, window_size=window_size, sink_size=sink_size,
-        sm_scale=sm_scale, out_dtype=v.dtype, return_lse=return_lse,
+        v_mean=v_mean, bias=bias, is_causal=is_causal, window_size=window_size, sink_size=sink_size,
+        sm_scale=sm_scale, pv_dtype=pv_dtype, out_dtype=v.dtype, return_lse=return_lse,
     )
     return _finish(out, qp, km, sm_scale, d_og, tensor_layout, return_lse)
 
@@ -228,8 +261,11 @@ def lowbit_fa_qk_int8_pv_int8(
 
 
 def _packed_k_attention(q, k, v, bits, tensor_layout, is_causal, sm_scale, qk_quant_gran, smooth_k,
-                        return_lse, window_size, sink_size):
-    """INT8 Q × packed INT4/INT2 K (kernel C2 or C3, then A), bf16 PV."""
+                        return_lse, window_size, sink_size, smooth_q=False):
+    """INT8 Q × packed INT4/INT2 K (kernel C2 or C3, then A), bf16 PV. K is
+    quantized at the JAX package's padding (a multiple of 64: the INT2 scale
+    is an RMS over the row); where kernel A's head dim is wider (192 -> 256)
+    the codes are repacked with zero columns, and Q and V padded to it."""
     q, k, v = (_to_hnd(x, tensor_layout) for x in (q, k, v))
     d_og = q.shape[-1]
     if sm_scale is None:
@@ -239,10 +275,17 @@ def _packed_k_attention(q, k, v, bits, tensor_layout, is_causal, sm_scale, qk_qu
     gk, bk = _gran_block(qk_quant_gran, "k")
     quant_k = quant_ops.quant_int4 if bits == 4 else quant_ops.quant_int2
     k_packed, k_scale = quant_k(kp, km, gran=gk, block=bk)
-    q_in, q_scale = _quant_q(qp, qk_quant_gran)
+    qq, bias = _smooth_q(qp, kp, km, sm_scale, smooth_q)
+    q_in, q_scale = _quant_q(qq, qk_quant_gran)
+    v_in = _pad_head_dim(v)
+    dp = kernel_dim(kp.shape[-1])
+    if dp != kp.shape[-1]:
+        unpack = quant_ops.unpack_int4 if bits == 4 else quant_ops.unpack_int2
+        k_packed = quant_ops.pack_codes(_pad_head_dim(unpack(k_packed), dp), bits)
+        q_in, v_in = _pad_head_dim(q_in, dp), _pad_head_dim(v_in, dp)
     out = lowbit_attention(
-        q_in, k_packed, _pad_head_dim(v), q_scale, k_scale,
-        k_pack_bits=bits, is_causal=is_causal, window_size=window_size, sink_size=sink_size,
+        q_in, k_packed, v_in, q_scale, k_scale,
+        k_pack_bits=bits, bias=bias, is_causal=is_causal, window_size=window_size, sink_size=sink_size,
         sm_scale=sm_scale, out_dtype=v.dtype, return_lse=return_lse,
     )
     return _finish(out, qp, km, sm_scale, d_og, tensor_layout, return_lse)
@@ -271,12 +314,10 @@ def lowbit_fa_qk_int4_pv_fp16(
     """INT8-Q × INT4-K attention with bf16 PV (reference
     ``sageattn_qk_int4_pv_fp16_triton``): smooth-K, then K quantized per
     token (or per block of 64) to INT4 codes packed two per byte (kernel
-    C2), unpacked inside kernel A. ``smooth_q`` needs the bias path and is
-    not ported yet."""
-    if smooth_q:
-        raise _not_ported("smooth_q (per-key bias)", "3f")
+    C2), unpacked inside kernel A. ``smooth_q`` as in
+    :func:`lowbit_fa_qk_int8_pv_fp16`."""
     return _packed_k_attention(q, k, v, 4, tensor_layout, is_causal, sm_scale, qk_quant_gran, smooth_k,
-                               return_lse, window_size, sink_size)
+                               return_lse, window_size, sink_size, smooth_q)
 
 
 def lowbit_fa_qk_int2_pv_fp16(

@@ -81,55 +81,6 @@
 
 #include "decode_attention.cuh"
 
-namespace {
-
-// The launch of one variant.
-struct Launch {
-  const void* q;
-  const float *ks, *vs;
-  const void *k, *v;
-  const int* lengths;
-  float *part_acc, *part_ml;
-  int* tickets;
-  void* o;
-  float* lse;
-  int B, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window, sink;
-  float sm_scale, logit_cap;
-  cudaStream_t st;
-
-  template <int D, typename KT, typename VT, bool kIntQK>
-  int run() const {
-    constexpr int smem = Cfg<D, KT, VT, kIntQK>::kTotal;
-    if (n_splits * NW > Cfg<D, KT, VT, kIntQK>::kMaxParts) return (int)cudaErrorInvalidValue;
-    const bool masks = window > 0 || logit_cap > 0.0f;
-    auto kern = masks ? decode_kernel<D, KT, VT, kIntQK, true> : decode_kernel<D, KT, VT, kIntQK, false>;
-    const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(n_splits, Hk * ((H / Hk) / R), B);
-    kern<<<grid, NT, smem, st>>>(q, static_cast<const KT*>(k), static_cast<const VT*>(v), ks, vs, lengths, part_acc,
-                                 part_ml, tickets, o, lse, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window,
-                                 sink, sm_scale, logit_cap);
-    return (int)cudaGetLastError();
-  }
-};
-
-// How many CTAs of one variant an SM holds at once.
-struct Occupancy {
-  int* ctas_per_sm;
-  bool masks;
-
-  template <int D, typename KT, typename VT, bool kIntQK>
-  int run() const {
-    constexpr int smem = Cfg<D, KT, VT, kIntQK>::kTotal;
-    auto kern = masks ? decode_kernel<D, KT, VT, kIntQK, true> : decode_kernel<D, KT, VT, kIntQK, false>;
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kern, NT, smem);
-    return (int)err;
-  }
-};
-
-}  // namespace
-
 // All tensors contiguous, natural layout.
 //   q: [B, H, D] f32 (q_bf16 0) or bf16 (1).   k, v: [B, Hk, S, D] int8
 //   codes (k_bits / v_bits 8), [B, Hk, S, D/2] packed 4-bit codes (4) or

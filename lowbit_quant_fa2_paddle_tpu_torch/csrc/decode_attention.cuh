@@ -123,7 +123,22 @@ constexpr int row_bytes() {
 // nibbles (the first half of D) or 4 for the high ones.
 template <typename VT, int CPL>
 __device__ __forceinline__ void v_cols(const unsigned char* p, float* f, int nib_shift) {
-  if constexpr (IsNib4<VT>::value) {
+  if constexpr (CPL == 8 && (IsNib4<VT>::value || sizeof(VT) == 1)) {
+    // d256: two words of 4 codes (int8) or of 4 bytes of nibbles.
+    uint32_t w[2];
+    lds<8>(p, w);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (IsNib4<VT>::value) {
+        const uint32_t u = ((w[h] >> nib_shift) & 0x0F0F0F0Fu) ^ 0x08080808u;  // n + 8 a byte
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          f[4 * h + i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388616.0f;
+      } else {
+        widen_i8(w[h], f + 4 * h);
+      }
+    }
+  } else if constexpr (IsNib4<VT>::value) {
     uint32_t w[1];
     lds<CPL>(p, w);
     const uint32_t u = ((w[0] >> nib_shift) & 0x0F0F0F0Fu) ^ 0x08080808u;  // n + 8 a byte
@@ -772,5 +787,52 @@ int with_variant(const Op& op, int D, int k_bits, int v_bits, int int_qk) {
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+
+// The launch of one single-token variant (decode_attention.cu and, at
+// head_dim 256, decode_attention_d256.cu).
+struct Launch {
+  const void* q;
+  const float *ks, *vs;
+  const void *k, *v;
+  const int* lengths;
+  float *part_acc, *part_ml;
+  int* tickets;
+  void* o;
+  float* lse;
+  int B, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window, sink;
+  float sm_scale, logit_cap;
+  cudaStream_t st;
+
+  template <int D, typename KT, typename VT, bool kIntQK>
+  int run() const {
+    constexpr int smem = Cfg<D, KT, VT, kIntQK>::kTotal;
+    if (n_splits * NW > Cfg<D, KT, VT, kIntQK>::kMaxParts) return (int)cudaErrorInvalidValue;
+    const bool masks = window > 0 || logit_cap > 0.0f;
+    auto kern = masks ? decode_kernel<D, KT, VT, kIntQK, true> : decode_kernel<D, KT, VT, kIntQK, false>;
+    const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(n_splits, Hk * ((H / Hk) / R), B);
+    kern<<<grid, NT, smem, st>>>(q, static_cast<const KT*>(k), static_cast<const VT*>(v), ks, vs, lengths, part_acc,
+                                 part_ml, tickets, o, lse, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window,
+                                 sink, sm_scale, logit_cap);
+    return (int)cudaGetLastError();
+  }
+};
+
+// How many CTAs of one variant an SM holds at once.
+struct Occupancy {
+  int* ctas_per_sm;
+  bool masks;
+
+  template <int D, typename KT, typename VT, bool kIntQK>
+  int run() const {
+    constexpr int smem = Cfg<D, KT, VT, kIntQK>::kTotal;
+    auto kern = masks ? decode_kernel<D, KT, VT, kIntQK, true> : decode_kernel<D, KT, VT, kIntQK, false>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kern, NT, smem);
+    return (int)err;
+  }
+};
 
 }  // namespace

@@ -382,9 +382,9 @@ def _attend_cache(q: torch.Tensor, cache: dict, c0: int, cfg: LLMConfig):
     if kb == 16:
         return flash_attention_fp(q, k_pre, v_pre, return_lse=True)
     pack = kb
-    if kb == 4 and cfg.head_dim % 64:
-        # Kernel A takes packed K at head_dim 64 or 128 only; the unpacked
-        # codes are the same values in its int8 mode.
+    if kb == 4 and cfg.head_dim not in (64, 128, 256):
+        # Kernel A takes packed K at head_dim 64, 128 or 256 only; the
+        # unpacked codes are the same values in its int8 mode.
         k_pre, pack = quant_ops.unpack_int4(k_pre), 8
     return lowbit_attention(q, k_pre, v_pre, k_scale=cache["k_scale"][:, :, :c0], k_pack_bits=pack,
                             return_lse=True)
@@ -462,7 +462,8 @@ def _counted_wrappers() -> tuple:
 
 def _launch_counts() -> dict:
     """The launch counters, in all (key None), per design (the design's
-    name) and, for kernel D, per variant (``("variant", key)``)."""
+    name), for kernel D per variant (``("variant", key)``) and for kernels
+    A and D per head dim (``("dim", d)``)."""
     out = {}
     for w in _counted_wrappers():
         out[(w, None)] = w.launches
@@ -470,6 +471,8 @@ def _launch_counts() -> dict:
             out[(w, design)] = n
         for variant, n in getattr(w, "launches_by_variant", {}).items():
             out[(w, ("variant", variant))] = n
+        for d, n in getattr(w, "launches_by_dim", {}).items():
+            out[(w, ("dim", d))] = n
     return out
 
 
@@ -478,7 +481,8 @@ def _add_launch_counts(counts: dict, times: int = 1) -> None:
         if key is None:
             w.launches += n * times
         elif isinstance(key, tuple):
-            w.launches_by_variant[key[1]] = w.launches_by_variant.get(key[1], 0) + n * times
+            by = w.launches_by_variant if key[0] == "variant" else w.launches_by_dim
+            by[key[1]] = by.get(key[1], 0) + n * times
         else:
             w.launches_by_design[key] += n * times
 

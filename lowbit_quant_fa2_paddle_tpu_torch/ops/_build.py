@@ -34,9 +34,11 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "lowbit_quant": [_P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "lowbit_quant_vec": [_P, _I, _LL, _LL, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "lowbit_attn_fwd_wgmma": [_P] * 11 + [_I] * 14 + [_F, _F, _P],
+    "lowbit_attn_fwd_wgmma": [_P] * 12 + [_I] * 16 + [_F, _F, _P],
     "lowbit_decode_attn": [_P] * 11 + [_I] * 15 + [_F, _F, _P],
+    "lowbit_decode_attn_d256": [_P] * 11 + [_I] * 15 + [_F, _F, _P],
     "lowbit_decode_ctas_per_sm": [_I, _I, _I, _I, _I, _P],
+    "lowbit_decode_ctas_per_sm_d256": [_I, _I, _I, _I, _I, _P],
     "lowbit_decode_attn_multi": [_P] * 11 + [_I] * 17 + [_F, _F, _P],
     "lowbit_decode_multi_ctas_per_sm": [_I, _I, _I, _I, _I, _P],
     "lowbit_gemv": [_P] * 5 + [_I] * 9 + [_P],

@@ -23,21 +23,34 @@ The operand types select the mode:
 PV runs bf16 × bf16 → f32, V rounded to bf16 as the TPU kernel's default
 ``pv_dtype`` does; int8 V codes (per-channel ``v_scale`` ``[B,Hk,D]``) widen
 to bf16 exactly, or with ``pv_int8`` multiply as an exact INT8 dot against P
-requantized to [0, 127]. The LSE comes back in base 2, ``-1e30`` for rows
-with no visible key.
+requantized to [0, 127]. ``pv_dtype=torch.float32`` keeps the softmax chain
+in f32 (no bf16 rounding of ``s - m`` or of P) and V as given: the kernel
+splits P and V into bf16 hi + lo terms and sums three bf16 products per
+tile (``P_hi V_hi + P_lo V_hi + P_hi V_lo``); ``pv_int8`` keeps its bf16
+chain, as in JAX. The LSE comes back in base 2, ``-1e30`` for rows with no
+visible key.
 
 Every mode takes the TPU kernel's masks: a causal sliding window with
-attention sinks, a query position offset, segment ids and a logit cap.
+attention sinks, a query position offset, segment ids and a logit cap; and
+an additive ``bias`` in natural-log units, a per-key vector ``[B,H,1,Sk]``
+or a full matrix ``[B,H,Sq,Sk]``, scaled by log2(e) in f32 and added to
+the base-2 logits after the scale, before the cap and the masks.
 Causal calls visit only the KV tiles of each q block's band
 (:func:`kv_visits`, the TPU kernel's ``_tri_schedule``), sink tiles first;
 the kernel and the plain version walk the same list.
 
 Every mode of kernel A (the DiT's int8, fp, int4 and int8_v8 impls, the LLM
 prefill, the training forward, INT8 PV) runs on one Hopper design
-(``kernel_design``): ``csrc/attention_fwd_wgmma.cu`` (TMA, ``wgmma``,
-warp-specialised, KV tiles of 128 keys). The tile is part of the rounding (P
-rounds against the running maximum of each tile), so the plain version takes
-the design's tile (``kv_tile``).
+(``kernel_design``): ``csrc/attention_fwd_wgmma.cuh`` (TMA, ``wgmma``,
+warp-specialised), instantiated at head dims 64 and 128 in
+``attention_fwd_wgmma.cu`` (KV tiles of 128 keys), with the bias in
+``attention_fwd_wgmma_bias.cu``, with fp32 PV in
+``attention_fwd_wgmma_pv32.cu``, and at head_dim 256 in
+``attention_fwd_wgmma_d256.cu`` (KV tiles of 64 keys), all behind the one C
+entry ``lowbit_attn_fwd_wgmma``. Smaller head dims are
+zero-padded to the next of 64, 128 and 256. The tile is part of the rounding
+(P rounds against the running maximum of each tile), so the plain version
+takes the tile of the kernel that runs the call (``kv_tile``).
 
 ``lowbit_attention`` takes the plain PyTorch version below for tensors on the
 CPU and launches the kernel for CUDA tensors; nothing falls back.
@@ -59,8 +72,14 @@ LOG2_127 = math.log2(127.0)
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 NEG_INIT = -1e30
 
-#: Keys per KV tile of kernel A's design (``BKV`` in its source).
+#: Keys per KV tile of kernel A's design (``BKV`` in its source) up to head_dim
+#: 128.
 KV_TILE = {"wgmma": 128}
+#: Keys per KV tile of the head_dim-256 kernels (``kBKV<256>``).
+KV_TILE_D256 = 64
+#: The head dims kernel A is built for; a call pads its head dim up to the
+#: next of them.
+KERNEL_DIMS = (64, 128, 256)
 #: Elements of one chunk of f32 logits in the plain version (1 GiB).
 _PLAIN_CHUNK_ELEMS = 1 << 28
 _UNPACK = {4: unpack_int4, 2: unpack_int2}
@@ -72,9 +91,19 @@ def kernel_design(pv_int8: bool = False) -> str:
     return "wgmma"
 
 
-def kv_tile(pv_int8: bool = False) -> int:
-    """Keys per KV tile of the design that runs the mode."""
-    return KV_TILE[kernel_design(pv_int8)]
+def kernel_dim(head_dim: int) -> int:
+    """The head dim of the kernel that runs a call: the next of 64, 128 and
+    256 (zero columns pad the rest)."""
+    for dp in KERNEL_DIMS:
+        if head_dim <= dp:
+            return dp
+    raise _not_ported(f"head_dim {head_dim} > 256 on the GPU", "3h")
+
+
+def kv_tile(pv_int8: bool = False, head_dim: int = 128) -> int:
+    """Keys per KV tile of the kernel that runs the mode at ``head_dim``:
+    the design's 128, or 64 above head_dim 128 (the head_dim-256 kernels)."""
+    return KV_TILE_D256 if head_dim > 128 else KV_TILE[kernel_design(pv_int8)]
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -163,6 +192,8 @@ def attention_fwd_plain(
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     logit_cap: float = 0.0,
+    bias: Optional[torch.Tensor] = None,
+    pv_f32: bool = False,
 ):
     """Plain PyTorch version of kernel A on the kernel's own inputs.
 
@@ -171,14 +202,17 @@ def attention_fwd_plain(
     ``v_scale``. ``window``/``sink``/``q_offset`` as :func:`_mask_args`
     returns them; segment ids ``[B, Sq]`` / ``[B, Sk]``; ``logit_cap``
     applies ``c·tanh(s/c)`` to the base-2 logits with ``c = cap·log2(e)``,
-    before the mask. Works through q-row chunks so the f32 logits stay
-    within 1 GiB, each over the KV tiles :func:`kv_visits` lists for its
-    rows. The softmax follows the kernel's online recurrence over KV tiles
+    before the mask; ``bias`` ``[B, H, 1 or Sq, Sk]`` in natural-log units is
+    taken to base 2 in f32 (as the TPU launcher and the kernel do) and added
+    after the scale and before the cap. Works through q-row chunks
+    so the f32 logits stay within 1 GiB, each over the KV tiles
+    :func:`kv_visits` lists for its rows. The softmax follows the kernel's online recurrence over KV tiles
     of ``kv_tile`` keys (those of the design that runs the mode), in closed
     form: tile ``j`` rounds its P against the running maximum ``m_j`` and is
     weighted by ``2^(m_j - m_last)``, so P rounds to bf16 (or to ``p8`` with
     ``pv_int8``) exactly where the kernel rounds it and the two differ only
-    in summation order. A row no key is visible to gives ``o = 0`` (no
+    in summation order. With ``pv_f32`` nothing rounds to bf16: P is f32 and
+    V is taken as given. A row no key is visible to gives ``o = 0`` (no
     ``v_mean``) and ``lse = -1e30``. Returns ``(o, lse2)``.
     """
     b, h, s_q, _ = q.shape
@@ -186,14 +220,14 @@ def attention_fwd_plain(
     dev = q.device
     c = torch.tensor(sm_scale_log2e, dtype=torch.float32, device=dev)
     quant = k.dtype == torch.int8
-    tile = kv_tile(pv_int8)
+    tile = kv_tile(pv_int8, q.shape[-1])
     if k_bits != 8:
         k = _UNPACK[k_bits](k)
     n_tiles = -(-s_k // tile)
     pad = n_tiles * tile - s_k
     kf = _repeat_kv(k if quant else k.to(torch.bfloat16), h).float()
     kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
-    vf = _repeat_kv(v if v.dtype == torch.int8 else v.to(torch.bfloat16), h).float()
+    vf = _repeat_kv(v if v.dtype == torch.int8 or pv_f32 else v.to(torch.bfloat16), h).float()
     vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
     ks = torch.nn.functional.pad(_repeat_kv(k_scale.float()[:, :, None, :], h), (0, pad)) if quant else None
     vs = _repeat_kv(v_scale.float()[:, :, None, :], h) if v_scale is not None else None
@@ -202,6 +236,8 @@ def attention_fwd_plain(
     if segs:
         kseg = torch.nn.functional.pad(kv_segment_ids.to(torch.int64), (0, pad), value=-1)
     cap2 = torch.tensor(logit_cap * LOG2E, dtype=torch.float32, device=dev) if logit_cap > 0 else None
+    if bias is not None:
+        bias = torch.nn.functional.pad(bias.float() * torch.tensor(LOG2E, dtype=torch.float32, device=dev), (0, pad))
     # Rows a chunk takes: its visited keys grow with its rows under a window.
     per_row = b * h * tile
     rows = max(1, _PLAIN_CHUNK_ELEMS // (per_row * n_tiles))
@@ -231,6 +267,8 @@ def attention_fwd_plain(
             # Integer-valued f32 products: exact while |sum| < 2^24.
             s = ((codes @ kc.transpose(-1, -2)) * take(ks, 3)) * qs[..., None]
         del kc
+        if bias is not None:
+            s = s + take(bias if bias.shape[2] == 1 else bias[:, :, lo : lo + n], 3)
         if cap2 is not None:
             s = cap2 * torch.tanh(s / cap2)
         pos = torch.arange(lo, lo + n, device=dev) + q_offset
@@ -243,7 +281,10 @@ def attention_fwd_plain(
         s = s.view(b, h, n, nt, tile)
         m_run = torch.cummax(s.amax(dim=-1), dim=-1).values.clamp_min(NEG_INIT)  # [b,h,n,T]
         shift = m_run - LOG2_127 if pv_int8 else m_run
-        p = torch.exp2((s - shift[..., None]).to(torch.bfloat16).float()).to(torch.bfloat16).float()
+        if pv_f32:
+            p = torch.exp2(s - shift[..., None])
+        else:
+            p = torch.exp2((s - shift[..., None]).to(torch.bfloat16).float()).to(torch.bfloat16).float()
         del s
         if pv_int8:
             # p8 = int8(bf16(P + 0.5)), saturating at 127 as XLA's convert does.
@@ -270,19 +311,21 @@ def attention_fwd_plain(
 
 def _attention_fwd_cuda(
     q, k, v, q_scale, k_scale, v_mean, *, causal, sm_scale_log2e, out_dtype, need_lse, k_bits, v_scale, pv_int8,
-    window=0, sink=0, q_offset=0, q_segment_ids=None, kv_segment_ids=None, logit_cap=0.0,
+    window=0, sink=0, q_offset=0, q_segment_ids=None, kv_segment_ids=None, logit_cap=0.0, bias=None, pv_f32=False,
 ):
-    """Launch kernel A (``csrc/attention_fwd_wgmma.cu``). Head dims below 64
-    (or between 64 and 128) are zero-padded: zero Q/K columns leave QK^T and
-    the Q absmax unchanged, and zero V columns are sliced off. Packed K
-    cannot be padded; its D is 64 or 128 (the wrapper checks)."""
+    """Launch kernel A (``csrc/attention_fwd_wgmma*.cu``). Head dims below 64,
+    between 64 and 128, or between 128 and 256 are zero-padded to the next
+    (:func:`kernel_dim`): zero Q/K columns leave QK^T and the Q absmax
+    unchanged, and zero V columns are sliced off. Packed K cannot be padded;
+    its D is 64, 128 or 256. fp32 PV hands the kernel V as bf16 hi and lo
+    halves of one ``[.., 2D]`` row (int8 codes are exact in the hi half)."""
     b, h, s_q, d = q.shape
     hk, s_k = k.shape[1], k.shape[2]
-    if d > 128:
-        raise _not_ported(f"head_dim {d} > 128 on the GPU", "3h")
+    dp = kernel_dim(d)
     if b > 65535 or h > 65535:
         raise ValueError(f"batch and heads are CUDA grid dims (at most 65535): {b}, {h}")
-    dp = 64 if d <= 64 else 128
+    if k_bits != 8 and dp != d:
+        raise ValueError(f"packed K on the GPU needs head_dim 64, 128 or 256 (pad before quantizing), got {d}")
     quant = k.dtype == torch.int8
     if q.dtype == torch.int8:
         mode = 0
@@ -292,16 +335,24 @@ def _attention_fwd_cuda(
     else:
         mode, k_bits = 3, 16
         q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    if pv_f32 and mode == 3 and dp == 256:
+        # Two stages of bf16 K (32 KB) and hi/lo V (64 KB) and the bf16 Q
+        # tile (64 KB) exceed the 227 KB of shared memory.
+        raise _not_ported("fp32 PV with bf16 QK at head_dim 256", "3g")
     v_mode = 0 if v.dtype != torch.int8 else 2 if pv_int8 else 1
-    if v_mode == 0:
+    if v_mode == 0 and not pv_f32:
         v = v.to(torch.bfloat16)
     if dp != d:
         pad = lambda x: torch.nn.functional.pad(x, (0, dp - d)) if x is not None else None  # noqa: E731
         q, k, v, v_scale, v_mean = pad(q), pad(k), pad(v), pad(v_scale), pad(v_mean)
+    if pv_f32:
+        vf = v.float()
+        hi = vf.to(torch.bfloat16)
+        v = torch.cat([hi, (vf - hi.float()).to(torch.bfloat16)], dim=-1)
     if q_segment_ids is not None:
         q_segment_ids = q_segment_ids.to(torch.int32).contiguous()
         kv_segment_ids = kv_segment_ids.to(torch.int32).contiguous()
-    tensors = [q, k, v] + [x for x in (q_scale, k_scale, v_scale, v_mean, q_segment_ids, kv_segment_ids)
+    tensors = [q, k, v] + [x for x in (q_scale, k_scale, v_scale, v_mean, q_segment_ids, kv_segment_ids, bias)
                            if x is not None]
     if any(x.device != q.device for x in tensors):
         raise ValueError("attention inputs must all be on one device")
@@ -312,19 +363,22 @@ def _attention_fwd_cuda(
     q, k, v = aligned(q), aligned(k), aligned(v)
     q_scale, k_scale, v_scale, v_mean = (
         aligned(x.float()) if x is not None else None for x in (q_scale, k_scale, v_scale, v_mean))
+    bias = bias.float().contiguous() if bias is not None else None
     out_f32 = out_dtype != torch.bfloat16
     o = torch.empty((b, h, s_q, dp), dtype=torch.float32 if out_f32 else torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device) if need_lse else None
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [x.data_ptr() if x is not None else None
-            for x in (q, k, v, q_scale, k_scale, v_scale, v_mean, q_segment_ids, kv_segment_ids, o, lse)]
+            for x in (q, k, v, q_scale, k_scale, v_scale, v_mean, q_segment_ids, kv_segment_ids, bias, o, lse)]
     with torch.cuda.device(q.device):
-        err = lib.lowbit_attn_fwd_wgmma(*ptrs, b, h, hk, s_q, s_k, dp, mode, k_bits, v_mode, int(out_f32), int(causal),
-                                        window, sink, q_offset, sm_scale_log2e, logit_cap * LOG2E, stream)
+        err = lib.lowbit_attn_fwd_wgmma(*ptrs, b, h, hk, s_q, s_k, dp, mode, k_bits, v_mode, int(out_f32),
+                                        int(causal), window, sink, q_offset, bias.shape[2] if bias is not None else 0,
+                                        int(pv_f32), sm_scale_log2e, logit_cap * LOG2E, stream)
     _build.check(err, "lowbit_attention")
     lowbit_attention.launches += 1
     lowbit_attention.launches_by_design[design] += 1
+    lowbit_attention.launches_by_dim[dp] += 1
     o = o[..., :d]
     return (o if o.dtype == out_dtype else o.to(out_dtype)), lse
 
@@ -369,18 +423,19 @@ def lowbit_attention(
     plus the ``sink_size`` leading keys (sinks count only under a window);
     ``q_segment_ids`` ``[B,Sq]`` / ``kv_segment_ids`` ``[B,Sk]`` keep keys
     of the query's segment; ``logit_cap`` caps the logits as ``cap·tanh(s /
-    cap)`` (in base 2, after the scale, before the mask). A row that sees no
-    key gives ``o = 0`` and ``lse = -1e30``.
+    cap)`` (in base 2, after the scale, before the mask). ``bias`` (natural
+    log units, a per-key vector ``[B,H,1,Sk]`` or a matrix ``[B,H,Sq,Sk]``,
+    per query head) is added to the logits after the scale, before the cap
+    and the masks. A row that sees no key gives ``o = 0`` and ``lse =
+    -1e30``. ``pv_dtype=torch.float32`` runs P in f32 against V as given
+    (``pv_int8`` keeps its bf16 chain, as in JAX).
 
     Returns ``o`` ``[B,H,Sq,D]`` (bf16 when QK is quantized or V is int8,
     else ``v.dtype``, unless ``out_dtype``) and, with ``return_lse``, the
     base-2 LSE ``[B,H,Sq]``.
     """
-    if bias is not None:
-        raise _not_ported("bias", "3f")
-    if pv_dtype != torch.bfloat16:
-        raise _not_ported("fp32 PV operands", "3g")
-
+    if pv_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"pv_dtype must be torch.bfloat16 or torch.float32, got {pv_dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be [B, H, S, D]")
     k_bits = 4 if k_packed_int4 else k_pack_bits
@@ -394,6 +449,7 @@ def lowbit_attention(
         raise ValueError(f"k must be [B, Hk, Sk, D*{k_bits}/8] with D={d}: {tuple(k.shape)}")
     if hk == 0 or h % hk:
         raise ValueError(f"query heads {h} not a multiple of kv heads {hk}")
+    kernel_dim(d)  # head dims above 256 have no kernel (raises)
     if s_k < 1:
         raise ValueError("need at least one key")
     q_int8, k_int8, v_int8 = q.dtype == torch.int8, k.dtype == torch.int8, v.dtype == torch.int8
@@ -428,6 +484,10 @@ def lowbit_attention(
                          f"{tuple(kv_segment_ids.shape)}")
     if logit_cap < 0:
         raise ValueError(f"logit_cap must be >= 0, got {logit_cap}")
+    if bias is not None and (bias.dim() != 4 or tuple(bias.shape[:2]) != (b, h) or bias.shape[2] not in (1, s_q)
+                             or bias.shape[3] != s_k):
+        raise ValueError(f"bias must be [B, H, 1, Sk] or [B, H, Sq, Sk] = [{b}, {h}, 1 or {s_q}, {s_k}], got "
+                         f"{tuple(bias.shape)}")
     window, sink, q_offset = _mask_args(s_q, is_causal, window_size, sink_size, q_position_offset)
 
     if sm_scale is None:
@@ -441,7 +501,8 @@ def lowbit_attention(
     args = (q, k, v, q_scale, k_scale, v_mean)
     kw = dict(causal=is_causal, sm_scale_log2e=sm_scale_log2e, out_dtype=out_dtype, k_bits=k_bits,
               v_scale=v_scale, pv_int8=pv_int8, window=window, sink=sink, q_offset=q_offset,
-              q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, logit_cap=float(logit_cap))
+              q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, logit_cap=float(logit_cap), bias=bias,
+              pv_f32=pv_dtype == torch.float32 and not pv_int8)
     if q.device.type == "cpu":
         o, lse = attention_fwd_plain(*args, **kw)
     elif q.device.type == "cuda":
@@ -455,6 +516,8 @@ def lowbit_attention(
 #: per design.
 lowbit_attention.launches = 0
 lowbit_attention.launches_by_design = {design: 0 for design in KV_TILE}
+#: Launches per kernel head dim (the padded one, :func:`kernel_dim`).
+lowbit_attention.launches_by_dim = {dp: 0 for dp in KERNEL_DIMS}
 
 
 def flash_attention_fp(

@@ -17,7 +17,9 @@ mbarriers, consumer warps that each own whole tiles, QK on ``mma.sync``, PV
 in f32, or with ``compute_mode="int"`` on an int8 V as an integer product);
 nothing falls back. T query tokens ``q [B, T, H, D]`` and INT8 PV run the
 kernel's multi-token instances (``csrc/decode_attention_multi.cu``); one
-token without INT8 PV runs the single-token ones (``csrc/decode_attention.cu``).
+token without INT8 PV runs the single-token ones (``csrc/decode_attention.cu``
+at head dims 32, 64 and 128, ``csrc/decode_attention_d256.cu`` at 256, which
+has no multi-token instances yet).
 
 Semantics of one query token per sequence, as the TPU kernel computes them:
 
@@ -84,7 +86,7 @@ MAX_SPLITS = 64
 #: Consumer warps per CTA of kernel D; each leaves one partial state per split.
 WARPS = 4
 #: Designs of kernel D: one, for every mode (int8/4-bit/bf16 K and V, both
-#: QK chains, d32/64/128, one or T query tokens, f32 or INT8 PV).
+#: QK chains, d32/64/128/256, one or T query tokens, f32 or INT8 PV).
 DESIGNS = ("bulk_ring",)
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -384,7 +386,10 @@ def _resident_ctas(device_index: int, d: int, k_bits: int, v_bits: int, int_qk: 
     per_sm = ctypes.c_int(0)
     lib = _build.library()
     with torch.cuda.device(device_index):
-        if multi:
+        if d == 256:
+            err = lib.lowbit_decode_ctas_per_sm_d256(d, int(k_bits), int(v_bits), int(int_qk), int(masks),
+                                                     ctypes.byref(per_sm))
+        elif multi:
             err = lib.lowbit_decode_multi_ctas_per_sm(d, int(k_bits), int(v_bits), int(int_qk), int(multi == 2),
                                                       ctypes.byref(per_sm))
         else:
@@ -488,8 +493,10 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
     single = q.dim() == 3
     b, t, h, d = (q.shape[0], 1, *q.shape[1:]) if single else q.shape
     hk, s_max = k.shape[1], k.shape[2]
-    if d not in (32, 64, 128):
-        raise _not_ported(f"decode head_dim {d} (kernel D takes 32, 64, 128)", "3")
+    if d not in (32, 64, 128, 256):
+        raise _not_ported(f"decode head_dim {d} (kernel D takes 32, 64, 128, 256)", "3")
+    if d == 256 and (t > 1 or int_pv):
+        raise _not_ported("kernel D's T-token and INT8-PV instances at head_dim 256", "3")
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"decode output dtype must be f32/bf16/f16, not {out_dtype}")
     if k.dtype not in (torch.int8, torch.bfloat16) or v.dtype not in (torch.int8, torch.bfloat16):
@@ -535,7 +542,9 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
               _OUT_CODES[out_dtype], n_splits, plan["split_keys"])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        if plan["multi"]:
+        if d == 256:
+            err = lib.lowbit_decode_attn_d256(*common, window, sink, float(sm_scale), float(logit_cap), stream)
+        elif plan["multi"]:
             err = lib.lowbit_decode_attn_multi(*common, plan["walk_window"], sink, t, int(int_pv), float(sm_scale),
                                                float(logit_cap), stream)
         else:
@@ -545,6 +554,7 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
     decode_attention.launches_by_design[design] += 1
     variant = launch_variant(plan["multi"], t, k_bits, v_bits, b)
     decode_attention.launches_by_variant[variant] = decode_attention.launches_by_variant.get(variant, 0) + 1
+    decode_attention.launches_by_dim[d] += 1
     if single:
         return o, lse
     o = o.reshape(b, hk, t, h // hk, d).transpose(1, 2).reshape(b, t, h, d)
@@ -659,3 +669,5 @@ def decode_attention(
 decode_attention.launches = 0
 decode_attention.launches_by_design = {design: 0 for design in DESIGNS}
 decode_attention.launches_by_variant = {}
+#: Launches per head dim (the head_dim-256 instances live in their own source).
+decode_attention.launches_by_dim = {d: 0 for d in (32, 64, 128, 256)}

@@ -9,7 +9,11 @@ from C1), "fused" (bf16 Q quantized in the kernel) or "fp"; ``V mode``
 Sk, options)`` with :func:`~..ops.attention.lowbit_attention`'s mask
 options; ``seg`` asks for segment ids of varlen sequences that split inside
 the 128-key tiles, the last :data:`NO_KEY_ROWS` query rows in a segment no
-key has.
+key has; ``bias`` ("vector" or "matrix") for a random bias of that shape;
+``pv32`` for fp32 PV on f32 V (out f32). Three grids: :data:`MODES` ×
+:data:`EDGES` (the masks), :data:`MODES_D256` × :data:`EDGES_D256` (head_dim
+256 and a padded 192) and :data:`EXTRA_MODES` × :data:`EXTRA_EDGES` (the bias
+and fp32 PV; :func:`runs` drops the pairs that raise).
 """
 
 from __future__ import annotations
@@ -40,6 +44,56 @@ EDGES = {
     "cap5": (False, 500, 600, dict(logit_cap=5.0)),
     "cap2-causal-window200-sink8": (True, 600, 600, dict(logit_cap=2.0, window_size=200, sink_size=8)),
 }
+#: Kernel A at head_dim 256 in every mode, and head_dim 192 (padded to 256).
+MODES_D256 = {
+    "int8-d256": ("int8", 8, "bf16", 256), "fused-d256": ("fused", 8, "bf16", 256), "fp-d256": ("fp", 16, "bf16", 256),
+    "int4-k-d256": ("fused", 4, "bf16", 256), "int2-k-d256": ("fused", 2, "bf16", 256),
+    "int8-v-d256": ("fused", 8, "int8", 256), "int8-pv-d256": ("fused", 8, "int8_pv", 256),
+    "fused-d192": ("fused", 8, "bf16", 192),
+    "fp-d192": ("fp", 16, "bf16", 192),
+}
+#: The head_dim-256 edges: unmasked (non-causal, causal, ragged against the
+#: 64-key tile) and masked.
+EDGES_D256 = {
+    "plain": (False, 300, 333, {}),
+    "causal": (True, 333, 333, {}),
+    "causal-sq130-sk777": (True, 130, 777, dict(q_position_offset=647)),
+    "window100-sink70": (True, 400, 400, dict(window_size=100, sink_size=70)),
+    "segments": (False, 400, 400, dict(seg=True)),
+    "cap5": (False, 300, 300, dict(logit_cap=5.0)),
+}
+#: The bias (a per-key vector or a full matrix, natural-log units) alone and
+#: with causal masking, a window and the cap; and fp32 PV (pv_dtype f32:
+#: f32 V given, or int8 V codes) at its edges. Each runs in the modes of
+#: :data:`EXTRA_MODES`.
+EXTRA_EDGES = {
+    "bias-vector": (False, 300, 333, dict(bias="vector")),
+    "bias-matrix": (False, 300, 333, dict(bias="matrix")),
+    "bias-vector-causal-window100-cap3": (True, 400, 400, dict(bias="vector", window_size=100, logit_cap=3.0)),
+    "bias-matrix-causal-cap2": (True, 333, 333, dict(bias="matrix", logit_cap=2.0)),
+    "pv32": (False, 300, 333, dict(pv32=True)),
+    "pv32-causal-window100-sink8": (True, 400, 400, dict(pv32=True, window_size=100, sink_size=8)),
+    "pv32-bias-matrix-causal": (True, 333, 333, dict(pv32=True, bias="matrix")),
+}
+EXTRA_MODES = {
+    "fused-d64": ("fused", 8, "bf16", 64), "fp-d128": ("fp", 16, "bf16", 128), "int4-k-d128": ("fused", 4, "bf16", 128),
+    "int8-v-d64": ("fused", 8, "int8", 64), "fused-d256": ("fused", 8, "bf16", 256),
+    "int4-k-d256": ("fused", 4, "bf16", 256), "int8-v-d256": ("fused", 8, "int8", 256),
+}
+#: The (mode, edge) pairs of the head_dim-256 and the bias / fp32 PV grids.
+def extra_cases() -> list:
+    return [(m, e) for m in MODES_D256 for e in EDGES_D256] + [
+        (m, e) for m in EXTRA_MODES for e in EXTRA_EDGES if runs(m, e)]
+
+
+def runs(mode: str, edge: str) -> bool:
+    """Whether a mode and an edge go together: not fp32 PV with bf16 QK at
+    head_dim 256 (it raises: shared memory)."""
+    spec = {**MODES, **MODES_D256, **EXTRA_MODES}[mode]
+    opts = {**EDGES, **EDGES_D256, **EXTRA_EDGES}[edge][3]
+    return not (opts.get("pv32") and spec[0] == "fp" and spec[3] > 128)
+
+
 HEADS, KV_HEADS = 4, 2
 SEG_CUTS = (50, 200, 333)
 NO_KEY_ROWS = 20
@@ -67,12 +121,18 @@ def make_case(mode: str, edge: str, gen: torch.Generator, device) -> dict:
     ``args`` and ``kw`` for ``lowbit_attention`` (without ``return_lse``),
     ``plain_args`` and ``plain_kw`` for ``attention_fwd_plain``, and
     ``empty_rows``, the rows no key is visible to."""
-    q_mode, k_bits, v_mode, d = MODES[mode]
-    causal, sq, sk, opts = EDGES[edge]
+    q_mode, k_bits, v_mode, d = {**MODES, **MODES_D256, **EXTRA_MODES}[mode]
+    causal, sq, sk, opts = {**EDGES, **EDGES_D256, **EXTRA_EDGES}[edge]
     opts = dict(opts)
     q = torch.randn(1, HEADS, sq, d, generator=gen, device=device).bfloat16()
     k = (torch.randn(1, KV_HEADS, sk, d, generator=gen, device=device) + 0.3).bfloat16()
-    v = torch.randn(1, KV_HEADS, sk, d, generator=gen, device=device).bfloat16()
+    v = torch.randn(1, KV_HEADS, sk, d, generator=gen, device=device)
+    pv32 = opts.pop("pv32", False)
+    if not pv32:
+        v = v.bfloat16()
+    bias = opts.pop("bias", None)
+    if bias is not None:
+        opts["bias"] = torch.randn(1, HEADS, 1 if bias == "vector" else sq, sk, generator=gen, device=device)
     seg = opts.pop("seg", False)
     if seg:
         opts["kv_segment_ids"] = segment_ids(sk, SEG_CUTS, device)
@@ -92,11 +152,17 @@ def make_case(mode: str, edge: str, gen: torch.Generator, device) -> dict:
     pv_int8 = v_mode == "int8_pv"
     window = plain_masks(causal, sq, opts)
     empty = HEADS * sq if edge == "offset-empty-band" else HEADS * NO_KEY_ROWS if seg else 0
+    out = torch.float32 if pv32 else torch.bfloat16
+    extra, plain_extra = {}, {}
+    if pv32:
+        extra, plain_extra = dict(pv_dtype=torch.float32, out_dtype=out), dict(pv_f32=not pv_int8)
+    if bias is not None:
+        plain_extra["bias"] = opts["bias"]
     return dict(args=(q, k, v, q_scale, k_scale),
-                kw=dict(v_scale=vs, v_mean=vm, pv_int8=pv_int8, is_causal=causal, k_pack_bits=kbits, **opts),
+                kw=dict(v_scale=vs, v_mean=vm, pv_int8=pv_int8, is_causal=causal, k_pack_bits=kbits, **opts, **extra),
                 plain_args=(q, k, v, qs, k_scale, vm),
-                plain_kw=dict(causal=causal, sm_scale_log2e=c, out_dtype=torch.bfloat16, k_bits=kbits, v_scale=vs,
-                              pv_int8=pv_int8, **window),
+                plain_kw=dict(causal=causal, sm_scale_log2e=c, out_dtype=out, k_bits=kbits, v_scale=vs,
+                              pv_int8=pv_int8, **window, **plain_extra),
                 empty_rows=empty)
 
 

@@ -1,7 +1,7 @@
 """Kernel A's wgmma design against variants of its own source and against
 another tree's build, on one CUDA card.
 
-    python3 script/torch_attention_ab.py [--base DIR] [--sass] [--pairs N] [all | VARIANT ...]
+    python3 script/torch_attention_ab.py [--base DIR] [--sass] [--masked] [--pairs N] [all | VARIANT ...]
 
 Each variant is a patch of ``csrc/attention_fwd_wgmma.cu`` or of the shared
 header ``csrc/sm90.cuh`` (see VARIANTS),
@@ -17,9 +17,11 @@ K, INT8 V and INT8 V with INT8 PV at the DiT shape. The processes run in
 turns main, base, v1, v2, ..., then the same in reverse, so each build is
 compared with main within one call; ``--pairs N`` repeats that N times.
 ``--sass`` first compares, kernel by kernel, the SASS (``cuobjdump -sass``,
-addresses and encodings dropped) of main's kernels without masks with
-base's kernels of the same template arguments, where base predates the
-masks' template argument. Prints the card's name and power limit
+addresses and encodings dropped) of main's kernels (without fp32 PV or the
+bias) with base's kernels of the same template arguments, where base
+predates the masks', fp32 PV's or the bias's template argument. ``--masked`` times
+the masked kernels (kMasks) at chip_smoke.py phase 15's shapes instead
+(``masked_worker``). Prints the card's name and power limit
 first. Named variants run; ``all`` runs every variant; with none named, main
 runs against base alone.
 """
@@ -34,7 +36,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "lowbit_quant_fa2_paddle_tpu_torch"
-SRC = os.path.join("csrc", "attention_fwd_wgmma.cu")
+SRC = os.path.join("csrc", "attention_fwd_wgmma.cuh")
 
 # name: (what it changes, [(old, new), ...] on csrc/attention_fwd_wgmma.cu, or
 # (file under csrc/, old, new))
@@ -63,6 +65,40 @@ VARIANTS = {
                    ("          s0 = ex2(bf16_lo(dd));\n          s1 = ex2(bf16_hi(dd));",
                     "          s0 = bf16_lo(dd);\n          s1 = bf16_hi(dd);")]),
 }
+
+
+def masked_worker(tag: str) -> None:
+    """Time kernel A's masked kernels (kMasks) from the package in the
+    current directory at chip_smoke.py phase 15's shapes: int8 (Q quantized
+    in the kernel) at b4 h32 s32768 d64 causal with a window of 4096 and of
+    1024 + 128 sinks, fp with the window of 4096, int8 at the window LLM's
+    prefill (b4 h32 hk8 s32704 d128, window 4096) and the logit cap 50 at
+    the DiT shape."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as qo
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    out = []
+    rows = (("window4096", (4, 32, 32, 32768, 64, True), dict(window_size=4096), "int8"),
+            ("window1024+sink128", (4, 32, 32, 32768, 64, True), dict(window_size=1024, sink_size=128), "int8"),
+            ("fp window4096", (4, 32, 32, 32768, 64, True), dict(window_size=4096), "fp"),
+            ("llm window4096", (4, 32, 8, 32704, 128, True), dict(window_size=4096), "int8"),
+            ("dit cap50", (1, 30, 30, 17776, 64, False), dict(logit_cap=50.0), "int8"))
+    for name, (b, h, hk, s, d, causal), opts, mode in rows:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q = torch.randn(b, h, s, d, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(b, hk, s, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+        if mode == "int8":
+            kc, ks = qo.quant_int8(k, qo.k_mean(k), gran="per_token")
+            call = lambda q=q, kc=kc, ks=ks, v=v: lowbit_attention(q, kc, v, None, ks, is_causal=causal, **opts)  # noqa: E731
+        else:
+            call = lambda q=q, k=k, v=v: lowbit_attention(q, k, v, is_causal=causal, **opts)  # noqa: E731
+        out.append(f"{name} {cuda_time_ms(call, warmup=2, reps=10):.3f}")
+        del q, k, v, call
+        torch.cuda.empty_cache()
+    print(f"[{tag} masked] " + " | ".join(out) + " (ms)", flush=True)
 
 
 def worker(tag: str, lowbit: bool) -> None:
@@ -124,20 +160,21 @@ def prepare(name: str) -> str:
 
 def sass_kernels(binary: str) -> dict:
     """Kernel A's kernels in a built library or cubin: {(D, int8, staged,
-    pv8, masks): (instructions without addresses, encodings)}. A kernel of
-    a build from before the masks counts as one without them."""
+    pv8, masks, pv32, bias): (instructions without addresses, encodings)}.
+    A kernel of a build from before the masks (or fp32 PV, or the bias)
+    counts as one without them."""
     cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     dump = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass", binary], capture_output=True, text=True,
                           check=True).stdout
     kernels, key = {}, None
     for line in dump.splitlines():
         if "Function :" in line:
-            # attn_fwd_wgmma_kernel<D, kInt8, kStaged, kPV8[, kMasks]>, mangled
-            m = re.search(r"attn_fwd_wgmma_kernelILi(\d+)E((?:Lb[01]E){3,4})E", line)
+            # attn_fwd_wgmma_kernel<D, kInt8, kStaged, kPV8[, kMasks[, kPV32, kBias]]>, mangled
+            m = re.search(r"attn_fwd_wgmma_kernelILi(\d+)E((?:Lb[01]E){3,6})E", line)
             key = None
             if m:
                 flags = tuple(f == "1" for f in re.findall(r"Lb([01])E", m.group(2)))
-                key = (int(m.group(1)), *flags, *(() if len(flags) == 4 else (False,)))
+                key = (int(m.group(1)), *flags, *((False,) * (6 - len(flags))))
                 kernels[key] = ([], [])
         elif key is not None:
             kernels[key][1].extend(re.findall(r"/\*\s*(0x[0-9a-f]{16})\s*\*/", line))
@@ -155,15 +192,16 @@ def library_of(root: str) -> str:
 
 
 def sass_diff(main_bin: str, base_bin: str) -> bool:
-    """Prints, for each kernel without masks that both binaries hold, whether
-    its instructions (and their encodings, with the scheduling bits) are the
+    """Prints, for each kernel that both binaries hold (with and without the
+    masks; main's fp32-PV and bias kernels are new), whether its
+    instructions (and their encodings, with the scheduling bits) are the
     same, and the first differing instructions where they are not. True when
     every such kernel's instructions are the same."""
     a, b = sass_kernels(main_bin), sass_kernels(base_bin)
     same = True
-    for key in sorted(k for k in a if not k[4] and k in b):
+    for key in sorted(k for k in a if not k[5] and not k[6] and k in b):
         (la, ea), (lb, eb) = a[key], b[key]
-        name = "attn_fwd_wgmma_kernel<{}, int8={}, staged={}, pv8={}>".format(*key[:4])
+        name = "attn_fwd_wgmma_kernel<{}, int8={}, staged={}, pv8={}, masks={}>".format(*key[:5])
         if la == lb:
             print(f"sass {name}: instructions identical ({len(la)}), encodings "
                   f"{'identical' if ea == eb else 'differ'}", flush=True)
@@ -174,10 +212,13 @@ def sass_diff(main_bin: str, base_bin: str) -> bool:
               f"positions differ", flush=True)
         for i, x, y in diff[:8]:
             print(f"    {i}: main {x} | base {y}", flush=True)
+    n = sum(1 for k in a if not k[5] and not k[6] and k in b)
+    print(f"sass: {n} of base's {len(b)} kernels of A compared with main's (main holds {len(a)}), "
+          f"{'all identical' if same and n == len(b) else 'NOT all identical'}", flush=True)
     return same
 
 
-def main(names, base=None, sass=False, pairs=1) -> None:
+def main(names, base=None, sass=False, pairs=1, masked=False) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     dirs = {"main": REPO}
@@ -197,19 +238,22 @@ def main(names, base=None, sass=False, pairs=1) -> None:
         print(f"{name}: {VARIANTS[name][0]}", flush=True)
     order = list(dirs)
     for tag in (order + order[::-1]) * pairs:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tag], cwd=dirs[tag], check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--masked-worker" if masked else "--worker", tag],
+                       cwd=dirs[tag], check=True)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         worker(sys.argv[2], lowbit=sys.argv[2] in ("main", "base"))
+    elif sys.argv[1:2] == ["--masked-worker"]:
+        masked_worker(sys.argv[2])
     else:
         args = sys.argv[1:]
         base = None
         if args[:1] == ["--base"]:
             base, args = args[1], args[2:]
-        sass = "--sass" in args
-        args = [a for a in args if a != "--sass"]
+        sass, masked = "--sass" in args, "--masked" in args
+        args = [a for a in args if a not in ("--sass", "--masked")]
         pairs = 1
         if "--pairs" in args:
             i = args.index("--pairs")
@@ -218,4 +262,4 @@ if __name__ == "__main__":
         unknown = [n for n in names if n not in VARIANTS]
         if unknown:
             sys.exit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
-        main(names, base, sass, pairs)
+        main(names, base, sass, pairs, masked)

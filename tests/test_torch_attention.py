@@ -193,17 +193,51 @@ def test_external_int8_q_matches_fused_quant():
     torch.testing.assert_close(l_ext, l_fused, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize(
-    "kw,exc",
-    [
-        (dict(pv_dtype=torch.float32), NotImplementedError),
-        (dict(bias=torch.zeros(1, 1, 1, 8)), NotImplementedError),
-    ],
-)
-def test_unported_flags_raise(kw, exc):
-    q = torch.randn(1, 1, 8, 64)
-    with pytest.raises(exc, match="ROADMAP"):
-        lowbit_attention(q, q, q, **kw)
+def _unported_call(case):
+    """A call this slice does not take on the GPU; each raises before any
+    CUDA work (the launchers check first), so the CPU reaches the raise."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd as tbwd
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as tdec
+
+    if case == "a-head-dim-320":
+        q = torch.randn(1, 1, 8, 320)
+        return lambda: lowbit_attention(q, q, q)
+    if case == "a-fp32-pv-bf16-qk-d256":
+        q = torch.randn(1, 1, 8, 256)
+        return lambda: tattn._attention_fwd_cuda(
+            q, q, q, None, None, None, causal=False, sm_scale_log2e=0.09, out_dtype=torch.float32, need_lse=False,
+            k_bits=8, v_scale=None, pv_int8=False, pv_f32=True)
+    if case == "g-head-dim-256":
+        q = torch.randn(1, 1, 8, 256)
+        lse = torch.zeros(1, 1, 8)
+        return lambda: tbwd._attention_bwd_cuda(q, q, q, q, lse, lse, None, None, None, None, causal=False, window=0,
+                                                scale2=0.09, ds_scale=0.0625, dq_dtype=torch.float32,
+                                                dkv_dtype=torch.float32)
+    cache = torch.zeros(1, 1, 16, {"d-head-dim-96": 96, "d-t-tokens-d256": 256}[case], dtype=torch.int8)
+    q = torch.randn(1, 1, 1, cache.shape[-1]) if case == "d-head-dim-96" else torch.randn(1, 2, 1, 256)
+    ones, lens = torch.ones(1, 1, 16), torch.full((1,), 16, dtype=torch.int32)
+    return lambda: tdec._decode_attention_cuda(q[:, 0] if q.shape[1] == 1 else q, cache, cache, ones, ones, lens,
+                                               sm_scale=0.1, int_qk=True, out_dtype=torch.float32, need_lse=False)
+
+
+@pytest.mark.parametrize("case", ["a-head-dim-320", "a-fp32-pv-bf16-qk-d256", "g-head-dim-256", "d-head-dim-96",
+                                  "d-t-tokens-d256"])
+def test_unported_flags_raise(case):
+    """What the port still raises for, each naming its ROADMAP item: kernel
+    A above head_dim 256 (and fp32 PV with bf16 QK at 256, which does not
+    fit shared memory), G1/G2 above head_dim 128, kernel D at head dims
+    other than 32, 64, 128 and 256, and D's T-token instances at 256."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _unported_call(case)()
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 8), (1, 2, 4, 8), (1, 2, 1, 7), (2, 8)])
+def test_bad_bias_shapes_raise(shape):
+    """A bias is a per-key vector [B, H, 1, Sk] or a matrix [B, H, Sq, Sk]
+    of the call's query heads: other shapes are ValueErrors."""
+    q = torch.randn(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="bias"):
+        lowbit_attention(q, q, q, bias=torch.zeros(shape))
 
 
 @pytest.mark.parametrize(
@@ -228,10 +262,16 @@ def test_bad_mask_options_raise(kw, match):
 
 
 def test_unported_entry_points_raise():
+    """The entry points take smooth_q and "fp32+fp32" now; a head dim above
+    256 still raises (ROADMAP), an unknown accumulation policy and int8 q
+    without K codes are ValueErrors."""
     q = torch.randn(1, 1, 8, 64)
     for fn in (tlq.lowbit_fa_qk_int8_pv_fp16, tlq.lowbit_fa_qk_int4_pv_fp16):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(q, q, q, smooth_q=True)
+            fn(*(torch.randn(1, 1, 8, 320),) * 3, smooth_q=True)
+        assert fn(q, q, q, smooth_q=True).shape == q.shape
+    with pytest.raises(ValueError, match="pv_accum_dtype"):
+        tlq.lowbit_fa_qk_int8_pv_fp16(q, q, q, pv_accum_dtype="fp64")
     with pytest.raises(ValueError):
         lowbit_attention(q.to(torch.int8), q, q)
 

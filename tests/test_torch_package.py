@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
+from lowbit_quant_fa2_paddle_tpu_torch.ops import attention as lowbit_attention_ops
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
 from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases, mask_cases
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd import (
@@ -117,12 +118,14 @@ def test_build_command_targets_sm90a_from_repo_sources():
     srcs = [a for cmd in compiles for a in cmd if a.endswith(".cu")]
     assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "attention_bwd_wgmma.cu", "attention_fwd_wgmma.cu",
-        "decode_attention.cu", "decode_attention_multi.cu", "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
+        "attention_bwd_wgmma.cu", "attention_fwd_wgmma.cu", "attention_fwd_wgmma_bias.cu",
+        "attention_fwd_wgmma_d256.cu", "attention_fwd_wgmma_pv32.cu", "decode_attention.cu", "decode_attention_d256.cu",
+        "decode_attention_multi.cu", "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert all(f"-I{_build.CSRC_DIR}" in cmd for cmd in compiles)  # the shared headers, e.g. sm90.cuh
     assert os.path.join(_build.CSRC_DIR, "sm90.cuh") in _build.hashed_files()
     assert os.path.join(_build.CSRC_DIR, "decode_attention.cuh") in _build.hashed_files()
+    assert os.path.join(_build.CSRC_DIR, "attention_fwd_wgmma.cuh") in _build.hashed_files()
     assert "-shared" in link and link[-len(compiles):] == [cmd[-1] for cmd in compiles]
     assert _build.CSRC_DIR.startswith(os.path.join(REPO, "lowbit_quant_fa2_paddle_tpu_torch"))
     assert os.path.dirname(_build.library_path()) == _build.BUILD_DIR
@@ -600,6 +603,13 @@ DECODE_EDGES = {
     "gqa-group8-bf16": (16, 2, 64, 8, 128, 3000, [3000, 1999], torch.bfloat16),
     "f32-q-d32-int8": (8, 3, 8, 2, 32, 777, [777, 1, 500], torch.float32),
     "f32-q-d32-bf16": (16, 3, 8, 2, 32, 777, [777, 1, 0], torch.float32),
+    # head_dim 256 (decode_attention_d256.cu): 32-key int8 tiles, 16-key bf16 tiles
+    "d256-int8": (8, 4, 16, 8, 256, 2048, [2048, 1, 129, 0], torch.bfloat16),
+    "d256-bf16": (16, 4, 16, 8, 256, 2048, [2048, 1, 129, 0], torch.bfloat16),
+    "d256-split-boundary-int8": (8, 4, 16, 8, 256, 4096, None, torch.bfloat16),
+    "d256-split-boundary-bf16": (16, 4, 16, 8, 256, 4096, None, torch.bfloat16),
+    "d256-f32-q-int8": (8, 3, 8, 2, 256, 777, [777, 1, 500], torch.float32),
+    "d256-f32-q-bf16": (16, 3, 8, 2, 256, 777, [777, 1, 0], torch.float32),
 }
 
 
@@ -652,6 +662,9 @@ DECODE_4BIT_SHAPES = {
     "gqa-group8": (2, 64, 8, 128, 3000, [3000, 1999], torch.bfloat16),
     "d64-mha": (2, 8, 8, 64, 1000, [1000, 77], torch.bfloat16),
     "f32-q-d32": (3, 8, 2, 32, 777, [777, 1, 0], torch.float32),
+    "d256-gqa": (4, 16, 8, 256, 3000, [3000, 1, 1025, 0], torch.bfloat16),
+    "d256-split-boundary": (4, 16, 8, 256, 4096, None, torch.bfloat16),
+    "d256-f32-q": (3, 8, 2, 256, 777, [777, 1, 0], torch.float32),
 }
 
 
@@ -1027,6 +1040,80 @@ def test_attention_masks_match_plain(cuda, mode, edge):
     assert r["empty_rows"] == case["empty_rows"]
 
 
+@pytest.mark.parametrize("mode,edge", mask_cases.extra_cases())
+def test_extra_cases_give_the_plain_version_one_call(mode, edge):
+    """On the CPU, each case of the head_dim-256 grid and of the bias / fp32
+    PV grid describes one call: ``lowbit_attention`` with the case's options
+    equals ``attention_fwd_plain`` with the case's arguments bit for bit
+    (both take the bias in natural-log units)."""
+    case = mask_cases.make_case(mode, edge, torch.Generator().manual_seed(22), "cpu")
+    o, lse = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+    o_ref, lse_ref = attention_fwd_plain(*case["plain_args"], **case["plain_kw"])
+    assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
+    assert o.dtype == (torch.float32 if case["kw"].get("pv_dtype") == torch.float32 else torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,edge", mask_cases.extra_cases())
+def test_attention_d256_bias_and_fp32_pv_match_plain(cuda, mode, edge):
+    """Kernel A at head_dim 256 in every mode (and 192, padded), unmasked
+    and at the masks' edges; the bias (vector and matrix, with causal
+    masking, a window and the cap) and fp32 PV at d64/d128/d256: against
+    the plain version at phase 4's bounds, fp32 PV's output (f32) within
+    1e-4, the same bits on a second run, every launch on the wgmma design
+    and on the kernel of its head dim."""
+    case = mask_cases.make_case(mode, edge, torch.Generator(device=cuda).manual_seed(22), cuda)
+    dp = lowbit_attention_ops.kernel_dim(case["args"][0].shape[-1])
+    n, n_dim = lowbit_attention.launches_by_design["wgmma"], lowbit_attention.launches_by_dim[dp]
+    o, lse = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+    o2, lse2 = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+    o_ref, lse_ref = attention_fwd_plain(*case["plain_args"], **case["plain_kw"])
+    torch.cuda.synchronize()
+    assert lowbit_attention.launches_by_design["wgmma"] == n + 2 and lowbit_attention.launches_by_dim[dp] == n_dim + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    r = mask_cases.masked_stats(o, lse, o_ref, lse_ref)
+    assert r["finite"] and r["empty_ok"], r
+    max_do = 1e-4 if case["kw"].get("pv_dtype") == torch.float32 else 2e-2
+    assert r["cos"] >= 0.99999 and r["max_do"] <= max_do and r["max_dlse"] <= 1e-3, r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "bf16", "k4v8"])
+def test_hd256_llm_on_the_card(cuda, mode):
+    """A head_dim-256 model (dim 512, 2 query heads, 1 KV head): its prefill
+    runs kernel A at d256 (one launch a layer), ``decode_tokens`` gives the
+    tokens and bit-equal caches of a loop of ``llm_decode_step`` (kernel D
+    at d256), and ``llm_prefill_chunked`` (A's packed INT4 K at d256 for
+    k4v8) meets the one-shot prefill's last-token logits at cos >= 0.999
+    (0.995 at 4-bit K)."""
+    cfg = llm.tiny_llm_config(dim=512, depth=2, num_heads=2, num_kv_heads=1, max_seq=300, dtype=torch.bfloat16,
+                              **GRAPH_CACHES[mode])
+    assert cfg.head_dim == 256
+    model = llm.init_llm_params(cfg, torch.Generator(device=cuda).manual_seed(7))
+    prompt = torch.randint(0, cfg.vocab, (2, 280), generator=torch.Generator(device=cuda).manual_seed(8), device=cuda)
+    n_a, n_a256 = lowbit_attention.launches, lowbit_attention.launches_by_dim[256]
+    logits, caches = llm.llm_prefill(model, prompt[:, :200], cfg)
+    assert lowbit_attention.launches - n_a == cfg.depth and lowbit_attention.launches_by_dim[256] - n_a256 == cfg.depth
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    copy = [{k: v.clone() for k, v in c.items()} for c in caches]
+    n_d, n_d256 = decode_attention.launches, decode_attention.launches_by_dim[256]
+    got, out_caches = llm.decode_tokens(model, tok, caches, 6, cfg)
+    torch.cuda.synchronize()
+    assert decode_attention.launches - n_d == 6 * cfg.depth == decode_attention.launches_by_dim[256] - n_d256
+    want, t = [], tok
+    for _ in range(6):
+        step_logits, copy = llm.llm_decode_step(model, t, copy, cfg)
+        t = torch.argmax(step_logits, dim=-1).to(torch.int32)
+        want.append(t)
+    assert torch.equal(got, torch.stack(want, dim=1))
+    for c, w in zip(out_caches, copy):
+        assert all(torch.equal(c[k], w[k]) for k in c), mode
+    full, _ = llm.llm_prefill(model, prompt, cfg)
+    last, _ = llm.llm_prefill_chunked(model, prompt, cfg, chunk=128)
+    bound = 0.995 if cfg.eff_k_bits == 4 else 0.999
+    assert float(cosine_similarity(last.float(), full[:, -1].float())) >= bound
+
+
 # Kernel D's windowed modes: (k_bits, v_bits, compute_mode) by name, and the
 # edges (b4 h32 hk8, S, head_dim, lengths, decode_attention's options).
 DECODE_WINDOW_MODES = {"int8": (8, 8, "auto"), "bf16": (16, 16, "auto"), "int4": (4, 4, "auto"),
@@ -1040,6 +1127,7 @@ DECODE_WINDOW_EDGES = {
     "cap2": (2048, 128, [2048, 1, 1500, 0], dict(logit_cap=2.0)),
     "window512-sink64-cap3-d64": (4500, 64, [4500, 577, 4097, 64], dict(window_size=512, sink_size=64, logit_cap=3.0)),
     "window100-sink10-d32": (1000, 32, [1000, 50, 333, 99], dict(window_size=100, sink_size=10)),
+    "window300-sink8-cap2-d256": (2048, 256, [2048, 100, 1300, 0], dict(window_size=300, sink_size=8, logit_cap=2.0)),
 }
 
 
