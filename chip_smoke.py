@@ -253,7 +253,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
    logits int8 vs bf16 cache cos >= 0.999, then llm_prefill_chunked
    (4096) into a k4v8 cache against the one-shot prefill's last-token
    logits (cos >= 0.995) and A on its last chunk (packed INT4 K over the
-   cache's 28,672 rows) against the plain version, timed.
+   cache's 28,672 rows) against the plain version, timed;
+18. kernels G1/G2 and D's T-token / INT8-PV instances at head_dim 256 (run
+   after phase 17, on its model): G1/G2 over utils/bwd_cases.py (d256 and
+   d192, bf16 and int8 codes, ragged Sq/Sk, causal GQA, windows, f32) at
+   phase 6's bounds, the same bits twice, every launch at head dim 256;
+   both trainable functions at d256 (with and without a causal window)
+   against a dense fp32 oracle; G1/G2 timed at b1 h8 s17776 d256 beside
+   aten's flash backward; D over utils/decode_cases.py's d256 cases (T
+   1-8, every cache mode, both chains, window / sink, cap, INT8 PV) at
+   phase 9's bounds, and timed at h16 hk8 S_max 32768 d256 (T 1-8 at b1 and
+   b4 on the int8 cache beside SDPA with the causal tail mask, T 4 on the
+   bf16, int4 and k4v8 caches, INT8 PV at b4); phase 16's full-width
+   verify path on phase 17's model (b1, 32K, spec_k 4, the int4-cache and
+   w4 drafts token-equal to generate); then the DiT with 256-wide heads
+   (CogVideoX-2b's depth 30 and latent with Gemma-2B's 8 x 256 attention,
+   hidden 2048): per training impl a warm-up backward, block 0's attention
+   on its own q, k, v against the fp32 oracle, 3 SGD steps with launch
+   counts (every G1/G2 at head dim 256), peak memory and a profiled step.
 
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
@@ -990,12 +1007,6 @@ def bwd_phase(gen):
     (dq, dk and dv together, given SDPA's own forward outputs: a baseline,
     never on the path)."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd as AB
-    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import (
-        attention_bwd_flops,
-        attention_product_flops,
-        cuda_time_ms,
-        tflops,
-    )
 
     cases = [
         ("float b1 h30 s17776 d64", dict(h=H, hk=H, s=S, d=D, causal=False, window=0, quantized=False)),
@@ -1047,40 +1058,52 @@ def bwd_phase(gen):
         worst[quantized] = max(worst[quantized], check_bwd(name, got, want))
         del q, k, v, o, lse2, do, got, want, args
 
-    records = {}
-    flops = attention_product_flops(B, H, D, S, S, False)
-    for quantized in (False, True):
-        mode = "quantized" if quantized else "float"
-        q, k, v, o, lse2, do = bwd_inputs(gen, H, H, S, D, False, 0, torch.bfloat16)
-        args, kargs = AB.bwd_operands(q, k, v, o, lse2, do, is_causal=False, sm_scale=1.0 / math.sqrt(D),
-                                      quantized=quantized)
-        design = AB.kernel_design(quantized)
-        ms1 = cuda_time_ms(lambda: AB.attention_bwd_dq(*args, **kargs, dq_dtype=torch.bfloat16), warmup=2, reps=10)
-        ms2 = cuda_time_ms(lambda: AB.attention_bwd_dkv(*args, **kargs, dkv_dtype=torch.bfloat16), warmup=2, reps=10)
-        plain_ms = cuda_time_ms(lambda: AB.attention_bwd_plain(*args, **kargs, dq_dtype=torch.bfloat16,
-                                                               dkv_dtype=torch.bfloat16), warmup=1, reps=3)
-        # QK^T and dO V^T run on int8 codes in the quantized mode; the rest is bf16.
-        lim1 = bound(nbytes(*args) + nbytes(q), {"int8": 2 * flops, "bf16": flops} if quantized else {"bf16": 3 * flops})
-        lim2 = bound(nbytes(*args) + nbytes(k, v),
-                     {"int8": 2 * flops, "bf16": 2 * flops} if quantized else {"bf16": 4 * flops})
-        library_ms = None
-        if not quantized:  # the same float backward, dq, dk and dv in one call
-            fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, False, False)
-            out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
-            library_ms = cuda_time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset), warmup=2, reps=10)
-            del fwd, out, lse
-        pair_tf = tflops(attention_bwd_flops(B, H, D, S, S, False), (ms1 + ms2) / 1e3)
-        log(f"[G] {mode} b{B} h{H} s{S} d{D} ({design}): G1 {ms1:.3f} ms (bound {lim1['bound_ms']:.3f}), G2 "
-            f"{ms2:.3f} ms (bound {lim2['bound_ms']:.3f}), G1 + G2 {pair_tf:.1f} TFLOP/s at the 2.5x-forward "
-            f"convention, plain (both) {plain_ms:.3f} ms, aten flash backward (dq, dk, dv) {library_ms}")
-        common = {"max_abs_err": worst[quantized], "plain_ms": plain_ms, "library_ms": library_ms, "design": design}
-        records[mode] = {
-            "G1": {**common, "ms": ms1, **lim1},
-            "G2": {**common, "ms": ms2, **lim2},
-        }
-        del q, k, v, o, lse2, do, args
-    return records
+    return {"quantized" if quantized else "float": bwd_timed(gen, H, S, D, quantized, worst[quantized], "G")
+            for quantized in (False, True)}
+
+
+def bwd_timed(gen, h, s, d, quantized, max_abs_err, tag):
+    """G1 and G2 timed one by one at b1 h s d (non-causal, bf16 inputs, in
+    the mode ``quantized`` says) beside the plain version (which computes
+    the pair) and, for bf16 operands, aten's flash-attention backward (dq,
+    dk and dv together, given SDPA's own forward outputs: a baseline, never
+    on the path); each kernel's bound counts the products the function needs
+    (3 for dq, 4 for dk and dv). Returns {"G1": record, "G2": record}."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd as AB
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import (
+        attention_bwd_flops,
+        attention_product_flops,
+        cuda_time_ms,
+        tflops,
+    )
+
+    flops = attention_product_flops(1, h, d, s, s, False)
+    mode = "quantized" if quantized else "float"
+    q, k, v, o, lse2, do = bwd_inputs(gen, h, h, s, d, False, 0, torch.bfloat16)
+    args, kargs = AB.bwd_operands(q, k, v, o, lse2, do, is_causal=False, sm_scale=1.0 / math.sqrt(d),
+                                  quantized=quantized)
+    design = AB.kernel_design(quantized)
+    ms1 = cuda_time_ms(lambda: AB.attention_bwd_dq(*args, **kargs, dq_dtype=torch.bfloat16), warmup=2, reps=10)
+    ms2 = cuda_time_ms(lambda: AB.attention_bwd_dkv(*args, **kargs, dkv_dtype=torch.bfloat16), warmup=2, reps=10)
+    plain_ms = cuda_time_ms(lambda: AB.attention_bwd_plain(*args, **kargs, dq_dtype=torch.bfloat16,
+                                                           dkv_dtype=torch.bfloat16), warmup=1, reps=3)
+    # QK^T and dO V^T run on int8 codes in the quantized mode; the rest is bf16.
+    lim1 = bound(nbytes(*args) + nbytes(q), {"int8": 2 * flops, "bf16": flops} if quantized else {"bf16": 3 * flops})
+    lim2 = bound(nbytes(*args) + nbytes(k, v),
+                 {"int8": 2 * flops, "bf16": 2 * flops} if quantized else {"bf16": 4 * flops})
+    library_ms = None
+    if not quantized:  # the same float backward, dq, dk and dv in one call
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, False, False)
+        out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+        library_ms = cuda_time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset), warmup=2, reps=10)
+        del fwd, out, lse
+    pair_tf = tflops(attention_bwd_flops(1, h, d, s, s, False), (ms1 + ms2) / 1e3)
+    log(f"[{tag}] {CARD}: {mode} b1 h{h} s{s} d{d} ({design}): G1 {ms1:.3f} ms (bound {lim1['bound_ms']:.3f}), G2 "
+        f"{ms2:.3f} ms (bound {lim2['bound_ms']:.3f}), G1 + G2 {pair_tf:.1f} TFLOP/s at the 2.5x-forward "
+        f"convention, plain (both) {plain_ms:.3f} ms, aten flash backward (dq, dk, dv) {library_ms}")
+    common = {"max_abs_err": max_abs_err, "plain_ms": plain_ms, "library_ms": library_ms, "design": design}
+    return {"G1": {**common, "ms": ms1, **lim1}, "G2": {**common, "ms": ms2, **lim2}}
 
 
 def bwd_accuracy_phase(gen):
@@ -2726,7 +2749,7 @@ def window_llm_phase(model, full_logits):
 SPEC_T = (1, 2, 4, 8)
 
 
-def spec_record(tag, q, kq, vq, ks, vs, lens, k_bits, v_bits, mode, kv_bf16=None):
+def spec_record(tag, q, kq, vq, ks, vs, lens, k_bits, v_bits, mode, kv_bf16=None, prefix="D16"):
     """Kernel D over ``q [B, T, H, D]`` against its plain version on the
     kernel's own tiles at phase 9's bounds, the same bits twice, every
     launch on its design; timed beside the plain version and, given the
@@ -2757,7 +2780,7 @@ def spec_record(tag, q, kq, vq, ks, vs, lens, k_bits, v_bits, mode, kv_bf16=None
     same = torch.equal(o, o2) and torch.equal(lse, lse2)
     on_design = (DD.decode_attention.launches_by_design[DD.kernel_design()] == n + 2
                  and DD.decode_attention.launches_by_variant.get(variant, 0) == n_variant + 2)
-    log(f"[D16] {tag} (lengths {lens.tolist()}; {plan['rows']} rows a CTA, {plan['row_groups'] // hk} CTAs a KV "
+    log(f"[{prefix}] {tag} (lengths {lens.tolist()}; {plan['rows']} rows a CTA, {plan['row_groups'] // hk} CTAs a KV "
         f"head and split, {plan['n_splits']} splits of {plan['split_keys']} keys): " +
         " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items()) +
         f" bf16_ulp={ulp:.3g} same_bits_twice={same} design={DD.kernel_design()}, {variant}:{on_design}")
@@ -2778,7 +2801,7 @@ def spec_record(tag, q, kq, vq, ks, vs, lens, k_bits, v_bits, mode, kv_bf16=None
         library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k16, v16, attn_mask=tail, enable_gqa=True), warmup=3, reps=20)
     gbps = cache_bytes / (ms * 1e-3) / 1e9
-    log(f"[D16] {CARD}: {tag}: kernel {ms:.4f} ms ({gbps:.1f} GB/s of {cache_bytes / 1e6:.1f} MB cache), plain "
+    log(f"[{prefix}] {CARD}: {tag}: kernel {ms:.4f} ms ({gbps:.1f} GB/s of {cache_bytes / 1e6:.1f} MB cache), plain "
         f"{plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.1%} of it), SDPA on the bf16 "
         f"cache {library_ms}")
     return {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": library_ms,
@@ -2797,7 +2820,7 @@ def spec_kernel_phase(gen):
     from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import quantize_token
     from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases
 
-    for name in decode_cases.CASES:
+    for name in (n for n in decode_cases.CASES if not n.startswith("d256-")):  # phase 18 runs the d256 ones
         r = decode_cases.check_case(name, gen)
         log(f"[D16] edge {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                                               for k, v in r.items()))
@@ -2869,7 +2892,7 @@ def check_spec_counts(where, got, variants, cfg, draft_cfg, stats, f2_per_token=
         raise AssertionError(f"{where}: launch counts {got} != {want}, or {d_designs}, or {variants} != {want_v}")
 
 
-def spec_full_width_phase(model, prompt):
+def spec_full_width_phase(model, prompt, tag="spec"):
     """Phase 16, the full-width verify path: phase 13's model at b1 on the
     first row of its 32,704-token prompt, the int8 cache, 64 new tokens.
     generate's two stages (llm_prefill, then the graph decode of 63 tokens)
@@ -2883,7 +2906,7 @@ def spec_full_width_phase(model, prompt):
     Then one verify step of 4 tokens at the end of the 32K context: host
     wall, and device ms by kernel class under torch.profiler; and its rows
     against 4 sequential decode steps (verify_rows_check) there and after a
-    16-token prompt, and in f32 at depth 2."""
+    16-token prompt, and in f32 at depth 2. ``tag`` marks its log lines."""
     from lowbit_quant_fa2_paddle_tpu_torch.models import llm
 
     n_new, spec_k = 64, 4
@@ -2904,8 +2927,8 @@ def spec_full_width_phase(model, prompt):
     del caches, steps
     res["generate"] = {"prefill_s": prefill_s, "ms_per_token": wall_ms, "replay_ms": statistics.median(replay_ms),
                        "launches": counts(), "variants": variant_counts()}
-    log(f"[spec] {CARD}: generate's tokens {ref[0].tolist()}")
-    log(f"[spec] {CARD}: generate b1, int8 cache: prefill {prefill_s:.3f} s, graph decode {wall_ms:.3f} ms/token wall "
+    log(f"[{tag}] {CARD}: generate's tokens {ref[0].tolist()}")
+    log(f"[{tag}] {CARD}: generate b1, int8 cache: prefill {prefill_s:.3f} s, graph decode {wall_ms:.3f} ms/token wall "
         f"(single replay median {statistics.median(replay_ms):.3f} ms device)")
     w4 = llm.quantize_llm_params(model, bits=4)
     llm.generate(w4, p1[:, :64], 2, dataclasses.replace(draft_cfg, max_seq=512))  # warm-up of F2, not counted
@@ -2926,14 +2949,14 @@ def spec_full_width_phase(model, prompt):
         got, variants = counts(), variant_counts()
         equal = torch.equal(toks, ref)
         decode_ms = (total_s - prefill_s - draft_prefill_s) / (n_new - 1) * 1e3
-        log(f"[spec] {CARD}: {name}: {n_new} tokens equal to generate's: {equal}; {st['rounds']} rounds, mean accepted "
+        log(f"[{tag}] {CARD}: {name}: {n_new} tokens equal to generate's: {equal}; {st['rounds']} rounds, mean accepted "
             f"{st['mean_accepted']:.3f} of {spec_k} (k per round {st['k_per_round']}); whole call {total_s:.3f} s "
             f"({total_s / n_new * 1e3:.3f} ms per emitted token), without the two prefills (target "
             f"{prefill_s:.3f} s, draft {draft_prefill_s:.3f} s, each measured alone) {decode_ms:.3f} ms per token "
             f"vs generate's graph decode {wall_ms:.3f}")
         if not equal:
             raise AssertionError(f"speculative_generate ({name}) differs from generate: {toks} vs {ref}")
-        check_spec_counts(f"spec {name}", got, variants, cfg, draft_cfg, st, 6 * cfg.depth if draft is w4 else 0)
+        check_spec_counts(f"{tag} {name}", got, variants, cfg, draft_cfg, st, 6 * cfg.depth if draft is w4 else 0)
         res[name] = {"rounds": st["rounds"], "mean_accepted": st["mean_accepted"], "total_s": total_s,
                      "decode_ms_per_token": decode_ms, "draft_prefill_s": draft_prefill_s, "launches": got,
                      "variants": variants, "k_per_round": st["k_per_round"]}
@@ -2962,7 +2985,7 @@ def spec_full_width_phase(model, prompt):
         kind = "D" if "decode" in name else "GEMM" if any(t in name for t in GEMM_NAMES) else "other"
         cats[kind] += e.device_time_total / 1e3
     res["verify"] = {"host_wall_ms": statistics.median(walls), "device_ms": cats}
-    log(f"[spec] {CARD}: verify step (4 tokens, b1, 32K int8 cache, depth {cfg.depth}): host wall median "
+    log(f"[{tag}] {CARD}: verify step (4 tokens, b1, 32K int8 cache, depth {cfg.depth}): host wall median "
         f"{statistics.median(walls):.3f} ms (of {[round(w, 3) for w in walls]}), device ms " +
         ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) + f"; total {sum(cats.values()):.3f}")
     # The verify step's rows against sequential decode steps: the same argmax,
@@ -3077,7 +3100,11 @@ def spec_checkpoint_phase():
 # ---------------------------------------------------------------------------
 
 #: fp32 PV's output (f32) against the plain version's: three bf16 products
-#: carry about 16 bits of P and of V.
+#: carry about 16 bits of P and of V, and the tensor cores' f32 sums of them
+#: lose more (script/torch_pv32_terms.py: at b1 h8 s4096 the kernel is
+#: 2.7-3.5e-6 off the exact sum of its own three products, which are 0.7-0.9e-6
+#: off the f32 one), so the card reads 3e-6 to 2.1e-5 where JAX's f32 PV and
+#: the plain version agree to 1e-5.
 PV32_MAX_DO = 1e-4
 
 
@@ -3392,8 +3419,271 @@ def hd256_llm_phase():
                                                   where="hd256 chunked prefill", tag="hd256")
     res["chunked"] = {"prefill_s": chunked_s, "cos": cos, "a_d256": a256, "cross_launches": a256 - got["C1"],
                       "c1": got["C1"]}
-    del caches, model
+    del caches
+    res["_model"], res["_prompt"] = model, prompt  # phase 18's speculative decoding runs on them
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: kernels G1/G2 at head_dim 256 and DiT training on 256-wide heads;
+# kernel D's T-token and INT8-PV instances at head_dim 256 and the hd256
+# LLM's speculative decoding.
+# ---------------------------------------------------------------------------
+
+
+def hd256_bwd_phase(gen):
+    """G1/G2's head_dim-256 instances: the edge grid of utils/bwd_cases.py
+    (d256 and d192, bf16 and int8 codes, ragged Sq/Sk, causal GQA, windows,
+    f32) at phase 6's bounds, the same bits twice, every launch at kernel
+    head dim 256; then both trainable functions at d256 (b1 h4 s1024, with
+    and without causal masking and with a causal window of 256) against a
+    dense fp32 oracle under autograd at phase 7's bounds; then G1 and G2
+    timed at the DiT with 256-wide heads' shape, b1 h8 s17776 d256, as phase
+    6 times them at d64. Returns (records, the quantized backward's
+    launches)."""
+    import lowbit_quant_fa2_paddle_tpu_torch as lq
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd as AB
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import bwd_cases
+
+    worst = {False: 0.0, True: 0.0}
+    for name in bwd_cases.CASES:
+        r = bwd_cases.check_case(name, gen)
+        log(f"[G18] edge {name}: launches_ok={r['launches_ok']} " + "; ".join(
+            f"{g} cos={r[g]['cos']:.7f} max_d={r[g]['max_d']:.4g} (bound {r[g]['bound']:.3g}) "
+            f"same_bits_twice={r[g]['same_bits_twice']}" for g in ("dq", "dk", "dv")))
+        if not r["ok"]:
+            raise AssertionError(f"kernels G1/G2 at head_dim 256 disagree with their plain version ({name}): {r}")
+        quantized = bwd_cases.CASES[name][0]
+        worst[quantized] = max([worst[quantized]] + [r[g]["max_d"] for g in ("dq", "dk", "dv")])
+    b, h, s, d = 1, 4, 1024, 256
+    q, k, v, g = (torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16() for _ in range(4))
+    quantized_launches = {"G1": 0, "G2": 0}
+    for causal, window in ((False, None), (True, None), (True, 256)):
+        xs = [x.float().requires_grad_() for x in (q, k, v)]
+        oracle = torch.autograd.grad((attention_reference(*xs, is_causal=causal, window_size=window)
+                                      * g.float()).sum(), xs)
+        for name, fn, extra, cos_min, c1 in (("flash", lq.flash_attention_trainable, (), 0.999, 0),
+                                             ("lowbit", lq.lowbit_attention_trainable, (None, None, None, False),
+                                              0.99, 1),
+                                             ("lowbit bwd_quantized", lq.lowbit_attention_trainable,
+                                              (None, None, None, True), 0.999, 5)):
+            extra = extra or (None, None, None)
+            xs = [x.detach().requires_grad_() for x in (q, k, v)]
+            count_reset()
+            o = fn(*xs, causal, *extra, window)
+            grads = torch.autograd.grad((o.float() * g.float()).sum(), xs)
+            torch.cuda.synchronize()
+            got = counts()
+            dims = {kern: dict(_wrappers()[kern].launches_by_dim) for kern in ("G1", "G2")}
+            want = {key: 0 for key in got} | {"A": 1, "G1": 1, "G2": 1, "C1": c1}
+            cos = [float(cosine_similarity(a, r)) for a, r in zip(grads, oracle)]
+            log(f"[G18] grad cos vs fp32 oracle, {name} d{d} causal={causal} window={window}: dq {cos[0]:.6f} dk "
+                f"{cos[1]:.6f} dv {cos[2]:.6f}; launches {got}, G1/G2 by head dim {dims}")
+            if min(cos) < cos_min or got != want or any(n[256] != 1 for n in dims.values()):
+                raise AssertionError(f"{name} d{d} causal={causal} window={window}: grad cos {cos} (>= {cos_min}), "
+                                     f"launches {got} != {want} or by head dim {dims}")
+            if extra[-1]:
+                quantized_launches = {key: quantized_launches[key] + got[key] for key in quantized_launches}
+    del q, k, v, g, xs, oracle
+    shape = (8, S, 256)
+    records = {"quantized" if qz else "float": bwd_timed(gen, *shape, qz, worst[qz], "G18") for qz in (False, True)}
+    return records, quantized_launches
+
+
+class AttnCapture:
+    """Keeps the first DiT block's attention inputs (q, k, v) on the next
+    forward and, in its backward, the cotangent of the attention output and
+    the gradients of q, k and v: ``models.dit._attention`` wrapped until
+    ``remove()``."""
+
+    def __init__(self):
+        from lowbit_quant_fa2_paddle_tpu_torch.models import dit
+
+        self.dit, self.orig, self.got = dit, dit._attention, {}
+        dit._attention = self
+
+    def __call__(self, q, k, v, impl):
+        o = self.orig(q, k, v, impl)
+        if not self.got:
+            self.got.update(q=q.detach(), k=k.detach(), v=v.detach())
+            for name, x in (("dq", q), ("dk", k), ("dv", v), ("do", o)):
+                x.register_hook(lambda grad, name=name: self.got.__setitem__(name, grad.detach()))
+        return o
+
+    def remove(self):
+        self.dit._attention = self.orig
+
+
+def oracle_attention_grads(q, k, v, do):
+    """dq, dk, dv of non-causal attention in fp32 under autograd (the dense
+    oracle of ops/reference.py), one head at a time."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
+
+    grads = [torch.empty(x.shape, dtype=torch.float32, device=x.device) for x in (q, k, v)]
+    for i in range(q.shape[1]):
+        xs = [x[:, i:i + 1].float().requires_grad_() for x in (q, k, v)]
+        gs = torch.autograd.grad((attention_reference(*xs) * do[:, i:i + 1].float()).sum(), xs)
+        for out, gi in zip(grads, gs):
+            out[:, i:i + 1] = gi
+        del xs, gs
+    return grads
+
+
+def hd256_train_phase():
+    """The DiT's training path on 256-wide heads: CogVideoX-2b's depth 30,
+    time embedding 512 and 17,776-token latent with Gemma-2B's attention
+    width (hidden 2048 = 8 heads x 256; google/gemma-2b config.json), random
+    weights from a seeded generator, full depth. For flash_train, then
+    int8_train on a fresh copy: a warm-up forward and backward (gradients
+    finite) that keeps the first block's attention inputs q, k, v; the
+    impl's trainable function on them (b1 h8 s17776 d256, G1/G2 at d256)
+    with a unit-normal cotangent, its gradients held to a dense fp32 oracle
+    (cos >= 0.999; int8_train >= 0.99, its forward being the quantized
+    softmax). The model's own cotangent there (the loss's, max|do| ~1e-6)
+    leaves the attention gradients a residue of cancelling terms below the
+    operands' bf16 rounding: the kernels, the plain version and the oracle
+    disagree on it at d64 as at d256 (cos 0.04-0.97), so those are logged,
+    not held. Then 3 sgd_train_steps at lr 1e-4, counted step by step
+    (every G1 and G2 launch at kernel head dim 256: depth x 3 each), then
+    one step under torch.profiler."""
+    import lowbit_quant_fa2_paddle_tpu_torch as lq
+    from lowbit_quant_fa2_paddle_tpu_torch.models import dit
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+
+    cfg = dit.cogvideox_2b_config(dim=2048, num_heads=8)
+    x0 = torch.randn(1, S, cfg.dim, generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    x0 = x0.to(cfg.dtype)
+    res = {}
+    for impl, cos_min in (("flash_train", 0.999), ("int8_train", 0.99)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = dit.init_dit_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        params = list(model.parameters())
+        n_params = sum(p.numel() for p in params)
+        t, noise = dit.draw_t_noise(x0, torch.Generator(device="cuda").manual_seed(6))
+        cap = AttnCapture()
+        try:
+            loss = dit.diffusion_loss(model, x0, t, noise, impl)
+            grads = torch.autograd.grad(loss, params)
+        finally:
+            cap.remove()
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        warm_loss = float(loss.detach())
+        del grads, loss
+        got = cap.got
+        q, k, v = got["q"], got["k"], got["v"]
+        own = oracle_attention_grads(q, k, v, got["do"])
+        own_cos = [float(cosine_similarity(got[n], o)) for n, o in zip(("dq", "dk", "dv"), own)]
+        del own
+        fn = lq.flash_attention_trainable if impl == "flash_train" else lq.lowbit_attention_trainable
+        gco = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda").bfloat16()
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        count_reset()
+        grads = torch.autograd.grad((fn(*xs).float() * gco.float()).sum(), xs)
+        g_dims = {kern: _wrappers()[kern].launches_by_dim[256] for kern in ("G1", "G2")}
+        oracle = oracle_attention_grads(q, k, v, gco)
+        cos = [float(cosine_similarity(a, o)) for a, o in zip(grads, oracle)]
+        del cap, got, q, k, v, xs, grads, oracle, gco
+        torch.cuda.synchronize()
+        log(f"[train18] {impl} (dim {cfg.dim}, {cfg.num_heads} heads x {cfg.head_dim}, depth {cfg.depth}): "
+            f"{n_params / 1e9:.3f} B params; init and warm-up {time.perf_counter() - t0:.1f} s, warm-up loss "
+            f"{warm_loss:.6f}, gradients finite={finite}; on block 0's q, k, v with a unit-normal cotangent, "
+            f"gradients vs the fp32 oracle: dq {cos[0]:.6f} dk {cos[1]:.6f} dv {cos[2]:.6f} (>= {cos_min}), G1/G2 "
+            f"at d256 {g_dims}; with the model's own cotangent (not held): dq {own_cos[0]:.4f} dk {own_cos[1]:.4f} "
+            f"dv {own_cos[2]:.4f}")
+        if not finite or min(cos) < cos_min or g_dims != {"G1": 1, "G2": 1}:
+            raise AssertionError(f"{impl} at head_dim 256: warm-up gradients finite={finite}, block 0 attention "
+                                 f"gradient cos {cos} (>= {cos_min}), G1/G2 at d256 {g_dims}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tgen = torch.Generator(device="cuda").manual_seed(7)
+        losses, step_ms, launches, dims = [], [], [], []
+        for _ in range(STEPS):
+            t, noise = dit.draw_t_noise(x0, tgen)
+            torch.cuda.synchronize()
+            count_reset()
+            t1 = time.perf_counter()
+            loss = dit.sgd_train_step(model, x0, t, noise, lr=TRAIN_LR, attn_impl=impl)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            launches.append(counts())
+            dims.append({kern: _wrappers()[kern].launches_by_dim[256] for kern in ("A", "G1", "G2")})
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated()
+        params_finite = all(bool(torch.isfinite(p).all()) for p in params)
+        cats, top = train_step_profile(model, x0, tgen, impl)
+        log(f"[train18] {CARD}: {impl} b1 s{S} d256: ms/step " + ", ".join(f"{x:.1f}" for x in step_ms)
+            + "; losses " + ", ".join(f"{x:.6f}" for x in losses) + f"; peak {peak / 2**30:.2f} GiB; parameters "
+            f"finite={params_finite}")
+        log(f"[train18] {CARD}: {impl} step device ms (profiler): " + ", ".join(f"{k} {v:.1f}" for k, v in cats.items())
+            + f"; total {sum(cats.values()):.1f}; G1 + G2 share {(cats['G1'] + cats['G2']) / sum(cats.values()):.1%};"
+            f" largest other: {top}")
+        want = {"A": cfg.depth, "C1": cfg.depth if impl == "int8_train" else 0, "C2": 0, "C3": 0, "D": 0, "E": 0,
+                "F1": 0, "F2": 0, "G1": cfg.depth, "G2": cfg.depth}
+        want_dim = {"A": cfg.depth, "G1": cfg.depth, "G2": cfg.depth}
+        log(f"[train18] {impl} launches per step {launches} (want {want}); at kernel head dim 256 {dims}; G1/G2 at "
+            f"d256 over the {STEPS} steps: {sum(x['G1'] for x in dims)} / {sum(x['G2'] for x in dims)}")
+        if any(x != want for x in launches) or any(x != want_dim for x in dims):
+            raise AssertionError(f"{impl} at head_dim 256: launches per step {launches} != {want} or at d256 {dims}")
+        if not (params_finite and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"{impl} at head_dim 256: non-finite loss or parameters: {losses}")
+        res[impl] = {"ms_per_step": step_ms, "losses": losses, "warm_loss": warm_loss, "peak_gib": peak / 2**30,
+                     "profile": cats, "launches": launches, "oracle_cos": cos, "own_cotangent_cos": own_cos,
+                     "g_d256": {kern: sum(x[kern] for x in dims) for kern in ("G1", "G2")}}
+        del model, params
+    return res
+
+
+def hd256_spec_phase(model, prompt):
+    """Phase 16's full-width verify path (spec_full_width_phase) on phase
+    17's model with 256-wide heads: b1 from the first row of its 32,704-token
+    prompt, int8 cache, spec_k 4, the int4-cache and w4 self-drafts, each
+    token-equal to generate, every verify step on the T-token d256 variant."""
+    return spec_full_width_phase(model, prompt, "spec18")
+
+
+def hd256_spec_kernel_phase(gen):
+    """Kernel D's T-token and INT8-PV instances at head_dim 256
+    (decode_attention_multi_d256.cu): the d256 cases of utils/decode_cases.py
+    (T 1-8 on the int8, bf16, int4 and k4v8 caches, both QK chains, the
+    window / sink walk, the cap, INT8 PV with masked tiles) at phase 9's
+    bounds, the same bits twice; then timed as phase 16 times them, at the
+    hd256 LLM's shape (h16 hk8 S_max 32768 d256, every length 32768): the
+    int8 cache at T 1, 2, 4, 8 at b1 and b4, the bf16, int4 and k4v8 caches
+    at T 4 b1 (the bf16 rows beside SDPA with the causal tail mask), INT8 PV
+    at T 1 and 4 b4."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import quantize_token
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases
+
+    for name in (n for n in decode_cases.CASES if n.startswith("d256-")):
+        r = decode_cases.check_case(name, gen)
+        log(f"[D18] edge {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                              for k, v in r.items()))
+        if not r["ok"]:
+            raise AssertionError(f"kernel D's head_dim-256 edge case {name} disagrees with its plain version: {r}")
+    h, hk, d, s = 16, 8, 256, 32768
+    k = torch.randn(4, hk, s, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(4, hk, s, d, generator=gen, device="cuda").bfloat16()
+    rec = {}
+    shape = f"h{h} hk{hk} S_max {s} d{d}"
+    for cache, k_bits, v_bits in (("int8", 8, 8), ("bf16", 16, 16), ("int4", 4, 4), ("k4v8", 4, 8)):
+        (kq, ks), (vq, vs) = quantize_token(k, bits=k_bits), quantize_token(v, bits=v_bits)
+        for b in (1, 4) if cache == "int8" else (1,):
+            lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+            for t in SPEC_T if cache == "int8" else (4,):
+                q = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+                rec[f"d256 {cache} T{t} b{b}"] = spec_record(
+                    f"d256 {cache} cache, T {t}, b{b} {shape}", q, kq[:b], vq[:b], ks[:b], vs[:b], lens, k_bits,
+                    v_bits, "auto", (k[:b], v[:b]) if cache in ("int8", "bf16") else None, "D18")
+                if cache == "int8" and b == 4 and t in (1, 4):
+                    rec[f"d256 int8 INT8 PV T{t} b{b}"] = spec_record(
+                        f"d256 int8 cache, INT8 PV, T {t}, b{b} {shape}", q, kq, vq, ks, vs, lens, 8, 8, "int",
+                        None, "D18")
+        del kq, vq, ks, vs
+    return rec
+
 
 
 def cuda_event_ms(fn):
@@ -3457,6 +3747,14 @@ def main():
     a17 = timed(hd256_attention_phase, gen)
     d17 = timed(hd256_decode_phase, gen)
     llm17 = timed(hd256_llm_phase)
+    # Phase 18 (G1/G2 and D's T-token instances at head_dim 256, then the hd256
+    # model's speculative decoding, then the DiT on 256-wide heads).
+    bwd18, qz18 = timed(hd256_bwd_phase, gen)
+    d18 = timed(hd256_spec_kernel_phase, gen)
+    model_17, prompt_17 = llm17.pop("_model"), llm17.pop("_prompt")
+    spec18 = timed(hd256_spec_phase, model_17, prompt_17)
+    del model_17, prompt_17
+    train18 = timed(hd256_train_phase)
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
     replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
@@ -3627,9 +3925,36 @@ def main():
              **{k: d17[mode][k] for k in timing + ("design",)})
         for mode in d17
     ]
+    # Phase 18: G1/G2 at head_dim 256 (their own source), whose float rows the
+    # DiT with 256-wide heads' training steps run (flash_train and int8_train
+    # both take the float backward) and whose int8-code rows the trainable
+    # functions' bwd_quantized checks run; kernel D's T-token and INT8-PV
+    # instances at head_dim 256, whose rows the hd256 model's generate and
+    # speculative_generate counted per variant (the single-token rows are
+    # decode_attention_d256.cu's).
+    kernels += [
+        dict(name=f"{fn} ({kern}, {desc}; DiT with 256-wide heads b1 h8 s{S} d256)", route="cuda",
+             source=f"{src}/attention_bwd_wgmma_d256.cu",
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/attention_bwd.py:" + ("302" if kern == "G1" else "346"),
+             launches=launches, **{k: bwd18[mode][kern][k] for k in timing + ("design",)})
+        for fn, kern in (("attention_bwd_dq", "G1"), ("attention_bwd_dkv", "G2"))
+        for mode, desc, launches in (
+            ("float", "bf16 operands", sum(train18[impl]["g_d256"][kern] for impl in TRAIN_IMPLS)),
+            ("quantized", "int8 codes", qz18[kern]),
+        )
+    ] + [
+        dict(name=f"decode_attention ({key}; h16 hk8 S_max 32768 d256)", route="cuda",
+             source=f"{src}/" + ("decode_attention_d256.cu" if d18[key]["variant"].startswith("single")
+                                 else "decode_attention_multi_d256.cu"),
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727", launches=spec_launches(d18[key]["variant"], spec18),
+             **{k: d18[key][k] for k in timing + ("design",)})
+        for key in d18
+    ]
     log(f"[hd256] phase 17 A edge grid worst max|do| by group {edge17}; launches at d256: A "
         f"{sum(r['launches'] for r in kernels if 'd256' in r['name'] and r['name'].startswith('attention'))}, D "
-        f"{sum(r['launches'] for r in kernels if 'd256' in r['name'] and r['name'].startswith('decode'))}")
+        f"{sum(r['launches'] for r in kernels if 'd256' in r['name'] and r['name'].startswith('decode'))}, G1 "
+        f"{sum(r['launches'] for r in kernels if 'd256' in r['name'] and r['name'].startswith('attention_bwd_dq'))}, G2 "
+        f"{sum(r['launches'] for r in kernels if 'd256' in r['name'] and r['name'].startswith('attention_bwd_dkv'))}")
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))

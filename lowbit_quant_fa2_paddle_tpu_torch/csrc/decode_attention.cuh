@@ -1,6 +1,7 @@
 // Kernel D's device code, shared by its single-token instances
-// (decode_attention.cu) and its multi-token / INT8-PV instances
-// (decode_attention_multi.cu); the design note is in decode_attention.cu.
+// (decode_attention.cu, decode_attention_d256.cu) and its multi-token /
+// INT8-PV instances (decode_attention_multi.cu, decode_attention_multi_d256.cu);
+// the design note is in decode_attention.cu.
 
 #pragma once
 
@@ -610,14 +611,28 @@ __global__ void __launch_bounds__(NT) decode_kernel(
         const unsigned char* vcol = Vt + lane * CPL;
 #pragma unroll 4
         for (int k4 = 0; k4 < BK; k4 += 4) {
+          uint32_t col[CPL];
+          if constexpr (CPL == 8) {
+            // d256: a key's 8 columns are two words; column c is byte c % 4
+            // of word c / 4.
+            uint32_t x[4][2];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) lds<8>(vcol + (k4 + e) * C::kVRow, x[e]);
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) {
+              const int wd = c >> 2;
+              const uint32_t sel = (c & 3) | ((c & 3) + 4) << 4;
+              col[c] = __byte_perm(__byte_perm(x[0][wd], x[1][wd], sel), __byte_perm(x[2][wd], x[3][wd], sel), 0x5410);
+            }
+          } else {
           uint32_t x[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) lds<CPL>(vcol + (k4 + e) * C::kVRow, &x[e]);
-          uint32_t col[CPL];
 #pragma unroll
           for (int c = 0; c < CPL; ++c) {
             const uint32_t sel = c | (c + 4) << 4;  // byte c of the first word, then of the second
             col[c] = __byte_perm(__byte_perm(x[0], x[1], sel), __byte_perm(x[2], x[3], sel), 0x5410);
+          }
           }
 #pragma unroll
           for (int r = 0; r < RMAX; ++r) {
@@ -831,6 +846,68 @@ struct Occupancy {
     auto kern = masks ? decode_kernel<D, KT, VT, kIntQK, true> : decode_kernel<D, KT, VT, kIntQK, false>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kern, NT, smem);
+    return (int)err;
+  }
+};
+
+// The multi-token launches (decode_attention_multi.cu and, at head_dim 256,
+// decode_attention_multi_d256.cu). The multi-token instance a call takes, its dynamic shared memory allowed:
+// kExt 1, or with int_pv kExt 2 (INT8 PV), which exists for an int8 V with K
+// on the integer chain or a bf16 K (which has no integer chain). *err is
+// cudaErrorInvalidValue where there is no such instance.
+template <int D, typename KT, typename VT, bool kIntQK>
+auto multi_kernel(int int_pv, cudaError_t* err) {
+  auto kern = decode_kernel<D, KT, VT, kIntQK, true, 1, int>;
+  if (int_pv) {
+    if constexpr (std::is_same<VT, int8_t>::value && (kIntQK || std::is_same<KT, __nv_bfloat16>::value)) {
+      kern = decode_kernel<D, KT, VT, kIntQK, true, 2, int>;
+    } else {
+      *err = cudaErrorInvalidValue;
+      return kern;
+    }
+  }
+  *err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D, KT, VT, kIntQK>::kTotal);
+  return kern;
+}
+
+struct LaunchMulti {
+  const void* q;
+  const float *ks, *vs;
+  const void *k, *v;
+  const int* lengths;
+  float *part_acc, *part_ml;
+  int* tickets;
+  void* o;
+  float* lse;
+  int B, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window, sink, q_tokens, int_pv;
+  float sm_scale, logit_cap;
+  cudaStream_t st;
+
+  template <int D, typename KT, typename VT, bool kIntQK>
+  int run() const {
+    using C = Cfg<D, KT, VT, kIntQK>;
+    if (n_splits * NW > C::kMaxParts) return (int)cudaErrorInvalidValue;
+    cudaError_t err;
+    const auto kern = multi_kernel<D, KT, VT, kIntQK>(int_pv, &err);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(n_splits, Hk * ((H / Hk) / R), B);
+    kern<<<grid, NT, C::kTotal, st>>>(q, static_cast<const KT*>(k), static_cast<const VT*>(v), ks, vs, lengths,
+                                      part_acc, part_ml, tickets, o, lse, H, Hk, S, R, n_splits, chunk, q_bf16,
+                                      out_code, window, sink, sm_scale, logit_cap, q_tokens);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct OccupancyMulti {
+  int* ctas_per_sm;
+  int int_pv;
+
+  template <int D, typename KT, typename VT, bool kIntQK>
+  int run() const {
+    cudaError_t err;
+    const auto kern = multi_kernel<D, KT, VT, kIntQK>(int_pv, &err);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kern, NT, Cfg<D, KT, VT, kIntQK>::kTotal);
     return (int)err;
   }
 };

@@ -11,8 +11,8 @@
 // (CPL), the QK windows walk 4 (integer chain) or 8 (float chain) 64- or
 // 32-byte steps of a K row. These instances live in their own translation
 // unit so that nvcc builds them beside the d32/64/128 ones (decode_attention.cu),
-// which keep their code; the multi-token and INT8-PV instances are not
-// built at 256.
+// which keep their code; the multi-token and INT8-PV instances at 256 are
+// decode_attention_multi_d256.cu's.
 
 #include "decode_attention.cuh"
 

@@ -37,71 +37,6 @@
 
 #include "decode_attention.cuh"
 
-namespace {
-
-// The multi-token instance a call takes, its dynamic shared memory allowed:
-// kExt 1, or with int_pv kExt 2 (INT8 PV), which exists for an int8 V with K
-// on the integer chain or a bf16 K (which has no integer chain). *err is
-// cudaErrorInvalidValue where there is no such instance.
-template <int D, typename KT, typename VT, bool kIntQK>
-auto multi_kernel(int int_pv, cudaError_t* err) {
-  auto kern = decode_kernel<D, KT, VT, kIntQK, true, 1, int>;
-  if (int_pv) {
-    if constexpr (std::is_same<VT, int8_t>::value && (kIntQK || std::is_same<KT, __nv_bfloat16>::value)) {
-      kern = decode_kernel<D, KT, VT, kIntQK, true, 2, int>;
-    } else {
-      *err = cudaErrorInvalidValue;
-      return kern;
-    }
-  }
-  *err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D, KT, VT, kIntQK>::kTotal);
-  return kern;
-}
-
-struct LaunchMulti {
-  const void* q;
-  const float *ks, *vs;
-  const void *k, *v;
-  const int* lengths;
-  float *part_acc, *part_ml;
-  int* tickets;
-  void* o;
-  float* lse;
-  int B, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window, sink, q_tokens, int_pv;
-  float sm_scale, logit_cap;
-  cudaStream_t st;
-
-  template <int D, typename KT, typename VT, bool kIntQK>
-  int run() const {
-    using C = Cfg<D, KT, VT, kIntQK>;
-    if (n_splits * NW > C::kMaxParts) return (int)cudaErrorInvalidValue;
-    cudaError_t err;
-    const auto kern = multi_kernel<D, KT, VT, kIntQK>(int_pv, &err);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(n_splits, Hk * ((H / Hk) / R), B);
-    kern<<<grid, NT, C::kTotal, st>>>(q, static_cast<const KT*>(k), static_cast<const VT*>(v), ks, vs, lengths,
-                                      part_acc, part_ml, tickets, o, lse, H, Hk, S, R, n_splits, chunk, q_bf16,
-                                      out_code, window, sink, sm_scale, logit_cap, q_tokens);
-    return (int)cudaGetLastError();
-  }
-};
-
-struct OccupancyMulti {
-  int* ctas_per_sm;
-  int int_pv;
-
-  template <int D, typename KT, typename VT, bool kIntQK>
-  int run() const {
-    cudaError_t err;
-    const auto kern = multi_kernel<D, KT, VT, kIntQK>(int_pv, &err);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kern, NT, Cfg<D, KT, VT, kIntQK>::kTotal);
-    return (int)err;
-  }
-};
-
-}  // namespace
-
 // lowbit_decode_attn's arguments (decode_attention.cu), with H the query
 // rows T * Hk * g (q [B, H, D] KV head by KV head, token-major; o, lse and
 // the partials in the same row order), `window` the union band W + T - 1

@@ -6,7 +6,7 @@ train.py``: a character-level LM over fixed-format zero-padded addition
 facts ``"07+42=049;"``, 10 characters each, so a few-shot prompt is
 ``k*10 + 6`` tokens ending in ``"ab+cd="`` and the answer is always 3 digits
 and ``";"``. The committed checkpoint ``eval_out/arith_llm.npz`` was trained
-on it. Training the toy LLM is not ported yet (ROADMAP item 10); the DiT's
+on it. Training the toy LLM is not ported yet (ROADMAP item 4); the DiT's
 training is (``models/dit.sgd_train_step``).
 """
 

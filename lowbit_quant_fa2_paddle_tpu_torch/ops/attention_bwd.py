@@ -11,7 +11,9 @@ and ``di = rowsum(dO·O)``:
 
 G1 and G2 run on the Hopper design of ``csrc/attention_bwd_wgmma.cu`` (TMA,
 ``wgmma``, warp-specialised; ``kernel_design``), whose note says what bounds
-them on the H100. Their operands are bf16 (f32 inputs are rounded to bf16 for
+them on the H100; its head_dim-256 instances are
+``csrc/attention_bwd_wgmma_d256.cu``'s (head dims 129-255 padded to 256).
+Their operands are bf16 (f32 inputs are rounded to bf16 for
 the tensor cores, as kernel A does) or, with ``quantized``, int8 per-token
 codes from kernel C1 with the dequant scales folded into the per-pair chain,
 as in the TPU kernels. ``p`` and ``ds`` are f32 and round to bf16 only as
@@ -36,7 +38,7 @@ import torch
 
 from lowbit_quant_fa2_paddle_tpu_torch.core import lowbit_fa_qk_int8_pv_fp16
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
-from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, MASK_VALUE, _not_ported, flash_attention_fp
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, MASK_VALUE, flash_attention_fp, kernel_dim
 from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int8
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import _repeat_kv
 
@@ -134,8 +136,8 @@ def attention_bwd_plain(
 def _check_kernel_inputs(q, k, v, do, lse2, di, scales):
     b, h, s_q, d = q.shape
     hk, s_k = k.shape[1], k.shape[2]
-    if d not in (64, 128):
-        raise ValueError(f"G1/G2 take head_dim 64 or 128 (pad first), got {d}")
+    if d not in (64, 128, 256):
+        raise ValueError(f"G1/G2 take head_dim 64, 128 or 256 (pad first), got {d}")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch and heads are CUDA grid dims (at most 65535): {b}, {h}")
     quant = q.dtype == torch.int8
@@ -178,13 +180,14 @@ def _launch(parts, q, k, v, do, lse2, di, scales, *, causal, window, scale2, ds_
 def attention_bwd_dq(q, k, v, do, lse2, di, q_scale=None, k_scale=None, v_scale=None, do_scale=None, *, causal,
                      window=0, scale2, ds_scale, dq_dtype):
     """Kernel G1 on CUDA tensors: ``dq`` from the operands
-    :func:`bwd_operands` forms (contiguous, head_dim 64 or 128). Returns
+    :func:`bwd_operands` forms (contiguous, head_dim 64, 128 or 256). Returns
     ``dq`` in ``dq_dtype`` (the kernel writes bf16 or f32; other types are
     cast)."""
     dq, _, _, design = _launch(1, q, k, v, do, lse2, di, (q_scale, k_scale, v_scale, do_scale), causal=causal,
                                window=window, scale2=scale2, ds_scale=ds_scale, dq_dtype=dq_dtype, dkv_dtype=dq_dtype)
     attention_bwd_dq.launches += 1
     attention_bwd_dq.launches_by_design[design] += 1
+    attention_bwd_dq.launches_by_dim[q.shape[-1]] += 1
     return dq.to(dq_dtype)
 
 
@@ -197,15 +200,19 @@ def attention_bwd_dkv(q, k, v, do, lse2, di, q_scale=None, k_scale=None, v_scale
                                 dkv_dtype=dkv_dtype)
     attention_bwd_dkv.launches += 1
     attention_bwd_dkv.launches_by_design[design] += 1
+    attention_bwd_dkv.launches_by_dim[q.shape[-1]] += 1
     return dk.to(dkv_dtype), dv.to(dkv_dtype)
 
 
 #: Launches of kernels G1 and G2 in this process (CPU calls do not count), in
-#: all and per design.
+#: all, per design and per kernel head dim (the head_dim-256 instances live in
+#: their own source).
 attention_bwd_dq.launches = 0
 attention_bwd_dkv.launches = 0
 attention_bwd_dq.launches_by_design = {design: 0 for design in DESIGNS}
 attention_bwd_dkv.launches_by_design = {design: 0 for design in DESIGNS}
+attention_bwd_dq.launches_by_dim = {d: 0 for d in (64, 128, 256)}
+attention_bwd_dkv.launches_by_dim = {d: 0 for d in (64, 128, 256)}
 
 
 def bwd_operands(q, k, v, o, lse2, do, *, is_causal: bool, sm_scale: float, quantized: bool = False, window: int = 0):
@@ -229,14 +236,12 @@ def bwd_operands(q, k, v, o, lse2, do, *, is_causal: bool, sm_scale: float, quan
 
 
 def _attention_bwd_cuda(q, k, v, do, lse2, di, *scales, causal, window, scale2, ds_scale, dq_dtype, dkv_dtype):
-    """Launch G1, then G2. Head dims below 64 (or between 64 and 128) are
-    zero-padded: zero columns of q, k, v and dO leave every product (and
-    the codes' scales) unchanged, and the padded columns of dq, dk and dv
-    are sliced off."""
+    """Launch G1, then G2. Head dims below 64, 128 or 256 are zero-padded to
+    the next of them (``kernel_dim``, which refuses above 256): zero columns
+    of q, k, v and dO leave every product (and the codes' scales)
+    unchanged, and the padded columns of dq, dk and dv are sliced off."""
     d = q.shape[-1]
-    if d > 128:
-        raise _not_ported(f"head_dim {d} > 128 on the GPU", "3h")
-    dp = 64 if d <= 64 else 128
+    dp = kernel_dim(d)
     if dp != d:
         q, k, v, do = (torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k, v, do))
     # TMA and the kernels' row loads move 16-byte chunks: rows must start on 16-byte boundaries.

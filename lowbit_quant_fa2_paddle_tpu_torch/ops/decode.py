@@ -16,10 +16,10 @@ design, ``kernel_design``: a producer warp's ring of bulk copies on
 mbarriers, consumer warps that each own whole tiles, QK on ``mma.sync``, PV
 in f32, or with ``compute_mode="int"`` on an int8 V as an integer product);
 nothing falls back. T query tokens ``q [B, T, H, D]`` and INT8 PV run the
-kernel's multi-token instances (``csrc/decode_attention_multi.cu``); one
+kernel's multi-token instances (``csrc/decode_attention_multi.cu`` at head
+dims 32, 64 and 128, ``csrc/decode_attention_multi_d256.cu`` at 256); one
 token without INT8 PV runs the single-token ones (``csrc/decode_attention.cu``
-at head dims 32, 64 and 128, ``csrc/decode_attention_d256.cu`` at 256, which
-has no multi-token instances yet).
+at head dims 32, 64 and 128, ``csrc/decode_attention_d256.cu`` at 256).
 
 Semantics of one query token per sequence, as the TPU kernel computes them:
 
@@ -386,7 +386,10 @@ def _resident_ctas(device_index: int, d: int, k_bits: int, v_bits: int, int_qk: 
     per_sm = ctypes.c_int(0)
     lib = _build.library()
     with torch.cuda.device(device_index):
-        if d == 256:
+        if d == 256 and multi:
+            err = lib.lowbit_decode_multi_ctas_per_sm_d256(d, int(k_bits), int(v_bits), int(int_qk),
+                                                           int(multi == 2), ctypes.byref(per_sm))
+        elif d == 256:
             err = lib.lowbit_decode_ctas_per_sm_d256(d, int(k_bits), int(v_bits), int(int_qk), int(masks),
                                                      ctypes.byref(per_sm))
         elif multi:
@@ -495,8 +498,6 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
     hk, s_max = k.shape[1], k.shape[2]
     if d not in (32, 64, 128, 256):
         raise _not_ported(f"decode head_dim {d} (kernel D takes 32, 64, 128, 256)", "3")
-    if d == 256 and (t > 1 or int_pv):
-        raise _not_ported("kernel D's T-token and INT8-PV instances at head_dim 256", "3")
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"decode output dtype must be f32/bf16/f16, not {out_dtype}")
     if k.dtype not in (torch.int8, torch.bfloat16) or v.dtype not in (torch.int8, torch.bfloat16):
@@ -542,11 +543,11 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
               _OUT_CODES[out_dtype], n_splits, plan["split_keys"])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        if d == 256:
+        if plan["multi"]:
+            multi = lib.lowbit_decode_attn_multi_d256 if d == 256 else lib.lowbit_decode_attn_multi
+            err = multi(*common, plan["walk_window"], sink, t, int(int_pv), float(sm_scale), float(logit_cap), stream)
+        elif d == 256:
             err = lib.lowbit_decode_attn_d256(*common, window, sink, float(sm_scale), float(logit_cap), stream)
-        elif plan["multi"]:
-            err = lib.lowbit_decode_attn_multi(*common, plan["walk_window"], sink, t, int(int_pv), float(sm_scale),
-                                               float(logit_cap), stream)
         else:
             err = lib.lowbit_decode_attn(*common, window, sink, float(sm_scale), float(logit_cap), stream)
     _build.check(err, "decode_attention")

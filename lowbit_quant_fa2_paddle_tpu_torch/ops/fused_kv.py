@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
-from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, MASK_VALUE, NEG_INIT
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, MASK_VALUE, NEG_INIT, _not_ported
 from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import cdiv, pack_codes
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import round_away
 
@@ -145,7 +145,7 @@ def _fused_kv_cuda(q, kp, vp, ks, km, vs, vm, *, bits, group, causal, sm_scale_l
     b, h, sq, d = q.shape
     hk, sk = kp.shape[1], kp.shape[2]
     if d not in (64, 128):
-        raise ValueError(f"kernel E takes head_dim 64 or 128, not {d}")
+        raise _not_ported(f"kernel E at head_dim {d} (it takes 64 and 128)", "3")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel E writes f32 or bf16, not {out_dtype}")
     tensors = (kp, vp, ks, km, vs, vm)

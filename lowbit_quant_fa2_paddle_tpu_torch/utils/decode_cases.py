@@ -5,8 +5,10 @@ of the kernel with the plain version on its own tiles. The card tests
 this grid.
 
 A case is ``(T, cache mode, compute_mode, d, b, h, hk, S_max, lengths,
-window, sink, q dtype)``; ``lengths`` None asks for lengths around a split
-boundary of the call's own plan. The bounds are phase 9's: cos >= 0.99999,
+window, sink, q dtype[, logit cap])``; ``lengths`` None asks for lengths
+around a split boundary of the call's own plan. The ``d256-`` cases run the
+head_dim-256 instances (``csrc/decode_attention_multi_d256.cu``), the hd256
+LLM's 16 query and 8 KV heads. The bounds are phase 9's: cos >= 0.99999,
 max|do| <= one bf16 ulp of max|o|, max|dlse| <= 1e-4, rows that see no key
 o = 0 and lse = -1e30, the same bits on a second run, every launch on D's
 design and on the case's variant (``ops.decode.launch_variant``).
@@ -47,13 +49,26 @@ CASES = {
     "pv8-t2-k4v8-d64": (2, "k4v8", "int", 64, 2, 8, 2, 1000, [1000, 3], 0, 0, torch.bfloat16),
     "pv8-t1-bf16-k-d128": (1, "k16v8", "int", 128, 2, 32, 8, 1000, [1000, 65], 0, 0, torch.bfloat16),
     "pv8-t3-d32-f32-q": (3, "int8", "int", 32, 2, 8, 2, 500, [500, 0], 0, 0, torch.float32),
+    # Head_dim 256: T 1-8 on every cache mode and both chains, the window / sink walk, the cap, INT8 PV.
+    "d256-t4-int8-split-edge": (4, "int8", "auto", 256, 2, 16, 8, 2048, None, 0, 0, torch.bfloat16),
+    "d256-t8-bf16": (8, "bf16", "auto", 256, 2, 16, 8, 1000, [1000, 130], 0, 0, torch.bfloat16),
+    "d256-t3-int4": (3, "int4", "auto", 256, 2, 16, 8, 1000, [777, 2], 0, 0, torch.bfloat16),
+    "d256-t2-k4v8-int-qk-window256-sink4": (2, "k4v8", "int_qk", 256, 2, 16, 8, 1000, [577, 1000], 256, 4,
+                                            torch.bfloat16),
+    "d256-t4-int8-window256-cap30": (4, "int8", "auto", 256, 2, 16, 8, 1000, [577, 1000], 256, 0, torch.bfloat16,
+                                     30.0),
+    "d256-t8-k4v8-f32-q": (8, "k4v8", "auto", 256, 1, 16, 8, 700, [700], 0, 0, torch.float32),
+    "d256-pv8-t4-masked-tiles": (4, "int8", "int", 256, 2, 16, 8, 1000, [1000, 33], 0, 0, torch.bfloat16),
+    "d256-pv8-t1-window300-sink8": (1, "int8", "int", 256, 2, 16, 8, 1000, [1000, 310], 300, 8, torch.bfloat16),
+    "d256-pv8-t2-bf16-k": (2, "k16v8", "int", 256, 2, 16, 8, 600, [600, 3], 0, 0, torch.bfloat16),
 }
 
 
 def case_inputs(name: str, gen: torch.Generator, device="cuda") -> tuple:
     """``(q, k, v, k_scale, v_scale, lengths, options, plain options)`` of a
     case: random bf16 K/V quantized per token into its cache mode."""
-    t, cache, mode, d, b, h, hk, s, lengths, window, sink, q_dtype = CASES[name]
+    t, cache, mode, d, b, h, hk, s, lengths, window, sink, q_dtype, *cap = CASES[name]
+    cap = cap[0] if cap else 0.0
     k_bits, v_bits = CACHES[cache]
     k = torch.randn(b, hk, s, d, generator=gen, device=device).bfloat16()
     v = torch.randn(b, hk, s, d, generator=gen, device=device).bfloat16()
@@ -61,14 +76,15 @@ def case_inputs(name: str, gen: torch.Generator, device="cuda") -> tuple:
     q = torch.randn(b, t, h, d, generator=gen, device=device).to(q_dtype)
     int_qk = k_bits != 16 and (mode in ("int", "int_qk") or (mode == "auto" and k_bits == 8))
     int_pv = mode == "int" and v_bits == 8
-    plan = DD.kernel_partition(q, kq, vq, int_qk=int_qk, int_pv=int_pv, window=window, sink=sink)
+    plan = DD.kernel_partition(q, kq, vq, int_qk=int_qk, int_pv=int_pv, window=window, sink=sink, logit_cap=cap)
     if lengths is None:
         lengths = [plan["split_keys"] + i for i in (1, 2, 3)] + [2 * plan["split_keys"] + 1]
     lens = torch.tensor(lengths[:b], dtype=torch.int32, device=device)
     opts = dict(v_scale=vs, k_bits=k_bits, v_bits=v_bits, compute_mode=mode, window_size=window or None,
-                sink_size=sink)
+                sink_size=sink, logit_cap=cap)
     plain = dict(sm_scale=1.0 / math.sqrt(d), int_qk=int_qk, out_dtype=q.dtype, window=window,
-                 sink=sink if window else 0, int_pv=int_pv, split_keys=plan["split_keys"], warps=plan["warps"])
+                 sink=sink if window else 0, int_pv=int_pv, split_keys=plan["split_keys"], warps=plan["warps"],
+                 logit_cap=cap)
     return q, kq, vq, ks, vs if v_bits != 16 else None, lens, opts, plain
 
 

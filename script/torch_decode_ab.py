@@ -27,11 +27,13 @@ also times the eager loop of ``llm_decode_step`` itself from the same
 caches. The processes run in turns main, base, v1, v2, ..., then the same in
 reverse, so each build is compared with main within one call. ``--sass``
 first compares, kernel by kernel, the SASS (``cuobjdump -sass``, addresses
-and encodings dropped) of main's single-token D kernels with base's kernels
-of the same template arguments (a build from before the multi-token
-instances has only those); it exits with an error unless both builds hold
-all 90 and each pair is identical, and then prints its verdict again as the
-last line. Prints the card's name and power limit first. Named variants
+and encodings dropped) of main's D kernels at head dims 32-128 with base's
+kernels of the same template arguments: the 90 single-token ones, and the
+54 multi-token / INT8-PV ones where base has them (a build from before the
+multi-token instances has only the single-token ones); it exits with an
+error unless both builds hold all 90 single-token kernels, main holds
+every kernel of base's, and each pair is identical, and then prints its
+verdict again as the last line. Prints the card's name and power limit first. Named variants
 run; ``all`` runs every
 variant; with none named, main runs against base alone. The
 probes give wrong results on purpose: they time a part of the kernel.
@@ -80,8 +82,9 @@ VARIANTS = {
 
 
 def d_sass_kernels(binary: str) -> dict:
-    """Kernel D's single-token kernels in a built library: {(D, K and V
-    types, int_qk, masks): (instructions without addresses, encodings)}."""
+    """Kernel D's kernels in a built library: {(D, K and V types, int_qk,
+    masks, kExt): (instructions without addresses, encodings)}, kExt "0" for
+    the single-token kernels, "1" T-token, "2" T-token with INT8 PV."""
     cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     dump = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass", binary], capture_output=True, text=True,
                           check=True).stdout
@@ -90,7 +93,7 @@ def d_sass_kernels(binary: str) -> dict:
         if "Function :" in line:
             # decode_kernel<D, KT, VT, kIntQK, kMasks[, kExt, Ext...]>, mangled; kExt 0 is single-token
             m = re.search(r"decode_kernelILi(\d+)E(.+?)Lb([01])ELb([01])E(?:Li(\d)E)?", line)
-            key = (m.group(1), m.group(2), m.group(3), m.group(4)) if m and m.group(5) in (None, "0") else None
+            key = (m.group(1), m.group(2), m.group(3), m.group(4), m.group(5) or "0") if m else None
             if key is not None:
                 kernels[key] = ([], [])
         elif key is not None:
@@ -112,6 +115,10 @@ def library_of(root: str) -> str:
 #: (K bf16 on the float chain, K int8 or 4-bit on either chain) x V
 #: bf16/int8/4-bit x with and without masks.
 D_SINGLE_TOKEN_KERNELS = 3 * 5 * 3 * 2
+#: ... and its multi-token instances at those head dims: with masks, every
+#: (K, chain) x V (kExt 1), and INT8 PV on an int8 V with K on the integer
+#: chain or bf16 (kExt 2).
+D_MULTI_KERNELS = 3 * (5 * 3 + 3)
 
 
 def sass_diff(main_bin: str, base_bin: str) -> tuple:
@@ -120,13 +127,15 @@ def sass_diff(main_bin: str, base_bin: str) -> tuple:
     encodings). Returns (ok, verdict line): ok only when both builds hold
     all D_SINGLE_TOKEN_KERNELS of them and each pair is identical."""
     a, b = d_sass_kernels(main_bin), d_sass_kernels(base_bin)
-    # A build with head_dim 256 holds its single-token kernels too
-    # (decode_attention_d256.cu); base's head dims are compared.
+    # A build with head_dim 256 holds its kernels too (decode_attention_d256.cu,
+    # decode_attention_multi_d256.cu); base's head dims are compared.
     a256 = sum(key[0] == "256" for key in a)
     a = {key: v for key, v in a.items() if key[0] != "256"}
-    same = len(a) == len(b) == D_SINGLE_TOKEN_KERNELS
+    b = {key: v for key, v in b.items() if key[0] != "256"}
+    singles = lambda ks: sum(key[4] == "0" for key in ks)  # noqa: E731
+    same = singles(a) == singles(b) == D_SINGLE_TOKEN_KERNELS
     for key in sorted(b):
-        name = "decode_kernel<D={}, {}, int_qk={}, masks={}>".format(*key)
+        name = "decode_kernel<D={}, {}, int_qk={}, masks={}, kExt={}>".format(*key)
         if key not in a:
             print(f"sass {name}: MISSING in main", flush=True)
             same = False
@@ -142,9 +151,9 @@ def sass_diff(main_bin: str, base_bin: str) -> tuple:
               f"positions differ", flush=True)
         for i, x, y in diff[:8]:
             print(f"    {i}: main {x} | base {y}", flush=True)
-    verdict = (f"sass: {len(b)} single-token D kernels of base and {len(a)} of main compared (a build holds "
-               f"{D_SINGLE_TOKEN_KERNELS} at head dims 32/64/128; main also {a256} at 256), "
-               f"{'all identical' if same else 'NOT all identical'}")
+    verdict = (f"sass: {len(b)} D kernels of base at head dims 32/64/128 ({singles(b)} single-token) compared with "
+               f"main's {len(a)} (a build holds {D_SINGLE_TOKEN_KERNELS} single-token and {D_MULTI_KERNELS} "
+               f"multi-token kernels there; main also {a256} at 256), {'all identical' if same else 'NOT all identical'}")
     print(verdict, flush=True)
     return same, verdict
 

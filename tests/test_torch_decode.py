@@ -30,6 +30,10 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as td
 from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import absmax_scale
 
+# One intra-op thread: the suite runs a worker per core, and torch's thread
+# pool, spinning under that load, slowed small CPU ops up to 50-fold.
+torch.set_num_threads(1)
+
 COS_MIN, MAX_DO, MAX_DLSE = 0.999999, 2e-6, 1e-5
 
 

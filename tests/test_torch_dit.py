@@ -23,6 +23,10 @@ from lowbit_quant_fa2_paddle_tpu.models import dit as jdit
 from lowbit_quant_fa2_paddle_tpu_torch.models import dit as tdit
 from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity, mse
 
+# One intra-op thread: the suite runs a worker per core, and torch's thread
+# pool, spinning under that load, slowed small CPU ops up to 50-fold.
+torch.set_num_threads(1)
+
 STEPS, SEQ = 3, 256
 
 

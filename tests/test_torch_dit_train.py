@@ -1,5 +1,7 @@
 """Port parity: DiT training (``diffusion_loss``, ``sgd_train_step``) against
-the JAX package on tiny_config at b2 s64, with the JAX package's random
+the JAX package on tiny_config at b2 s64 (and on tiny_config(dim=512,
+num_heads=2), whose heads are 256 wide: the kernels' head_dim-256 backward
+on the card), with the JAX package's random
 parameters (loaded through ``params_from_jax``), the same numpy latents, and
 ``t`` and ``noise`` drawn exactly as JAX's ``diffusion_loss`` draws them from
 its key.
@@ -29,6 +31,10 @@ import torch
 from lowbit_quant_fa2_paddle_tpu.models import dit as jdit
 from lowbit_quant_fa2_paddle_tpu_torch.models import dit as tdit
 
+# One intra-op thread: the suite runs a worker per core, and torch's thread
+# pool, spinning under that load, slowed small CPU ops up to 50-fold.
+torch.set_num_threads(1)
+
 LR = 1e-2
 IMPLS = ["exact", "flash_train", "int8_train"]
 
@@ -37,9 +43,12 @@ def _t(x):
     return torch.from_numpy(np.array(jnp.asarray(x).astype(jnp.float32)))
 
 
-@pytest.fixture(scope="module")
-def setup():
-    cfg_j = jdit.tiny_config()
+#: tiny_config with 256-wide heads.
+HD256 = dict(dim=512, num_heads=2)
+
+
+def _setup(**kw):
+    cfg_j = jdit.tiny_config(**kw)
     params = jdit.init_dit_params(jax.random.PRNGKey(0), cfg_j)
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a.astype(jnp.float32)), params)
     x0 = jnp.asarray(np.random.default_rng(1).standard_normal((2, 64, cfg_j.dim)).astype(np.float32), cfg_j.dtype)
@@ -52,8 +61,18 @@ def setup():
     return cfg_j, params, tree, x0, key, port
 
 
-def _model(tree):
-    return tdit.params_from_jax(tree, tdit.tiny_config(), device="cpu")
+@pytest.fixture(scope="module")
+def setup():
+    return _setup()
+
+
+@pytest.fixture(scope="module")
+def setup256():
+    return _setup(**HD256)
+
+
+def _model(tree, **kw):
+    return tdit.params_from_jax(tree, tdit.tiny_config(**kw), device="cpu")
 
 
 def _leaves(model, jtree):
@@ -71,15 +90,15 @@ def _cos64(a, b):
     return float(torch.nn.functional.cosine_similarity(a.double().reshape(-1), b.double().reshape(-1), dim=0))
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_sgd_train_step_matches_jax(setup, impl):
+def _check_step(setup, impl, **kw):
     cfg_j, params, tree, x0, key, (xb, t, noise) = setup
     new, loss_j = jax.jit(lambda p: jdit.sgd_train_step(p, x0, key, cfg_j, lr=LR, attn_impl=impl))(params)
-    model = _model(tree)
+    model = _model(tree, **kw)
+    assert model.cfg.head_dim == cfg_j.head_dim
     loss = tdit.sgd_train_step(model, xb, t, noise, lr=LR, attn_impl=impl)
     assert loss.dtype == torch.float32 and loss.dim() == 0
     assert abs(float(loss) / float(loss_j) - 1.0) <= 2e-3
-    old = {name: _t(p) for name, _, p in _leaves(_model(tree), params)}
+    old = {name: _t(p) for name, _, p in _leaves(_model(tree, **kw), params)}
     for name, got, want in _leaves(model, new):
         want = _t(want)
         if float(old[name].abs().max()) > 0:
@@ -87,6 +106,18 @@ def test_sgd_train_step_matches_jax(setup, impl):
             assert float((got - want).abs().max()) <= ulp, name
         else:
             assert _cos64(got / LR, want / LR) >= 0.8, name
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_sgd_train_step_matches_jax(setup, impl):
+    _check_step(setup, impl)
+
+
+@pytest.mark.parametrize("impl", ["flash_train", "int8_train"])
+def test_sgd_train_step_matches_jax_at_head_dim_256(setup256, impl):
+    """One step of the tiny DiT with two 256-wide heads, at the bounds of
+    test_sgd_train_step_matches_jax."""
+    _check_step(setup256, impl, **HD256)
 
 
 @pytest.mark.parametrize("impl", IMPLS)

@@ -22,6 +22,10 @@ from lowbit_quant_fa2_paddle_tpu.ops import fused_kv as JF
 from lowbit_quant_fa2_paddle_tpu_torch.ops import fused_kv as TF
 from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 
+# One intra-op thread: the suite runs a worker per core, and torch's thread
+# pool, spinning under that load, slowed small CPU ops up to 50-fold.
+torch.set_num_threads(1)
+
 
 def _qkv(seed, b, h, hk, sq, sk, d=64):
     rng = np.random.default_rng(seed)

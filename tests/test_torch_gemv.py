@@ -24,6 +24,10 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv as TG
 from lowbit_quant_fa2_paddle_tpu_torch.ops import pack as TP
 from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 
+# One intra-op thread: the suite runs a worker per core, and torch's thread
+# pool, spinning under that load, slowed small CPU ops up to 50-fold.
+torch.set_num_threads(1)
+
 N, K = 384, 512
 
 

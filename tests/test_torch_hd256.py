@@ -24,6 +24,8 @@ Bounds, with the measured values on a CPU:
   test_torch_llm.py's bounds, logits cos >= 0.9999 (4-bit cache 0.999).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +45,10 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as td
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
 from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
+
+# One intra-op thread: the suite runs a worker per core, and torch's thread
+# pool, spinning under that load, slowed small CPU ops up to 50-fold.
+torch.set_num_threads(1)
 
 COS_MIN, MAX_DO, MAX_DLSE = 0.9999, 2e-2, 2e-2
 F32_MAX_DO, F32_MAX_DLSE = 1e-5, 1e-5
@@ -288,6 +294,7 @@ def test_fp32_pv_entry_point_matches_jax():
 # ---------------------------------------------------------------------------
 
 D_COS, D_MAX_DO, D_MAX_DLSE = 0.999999, 2e-6, 1e-5
+PV8_COS_MIN, PV8_MAX_DO = 0.9999, 3e-2
 DECODE_MODES = {
     "int8": (8, 8, "auto", {}), "bf16": (16, 16, "auto", {}), "int4": (4, 4, "auto", {}),
     "int4-int-qk": (4, 4, "int_qk", {}), "k4v8": (4, 8, "auto", {}),
@@ -322,6 +329,71 @@ def test_decode_head_dim_256_matches_jax(mode):
     assert float(to[1].abs().max()) == 0.0 and torch.all(tl[1] == torch.tensor(-1e30))
 
 
+#: T-token modes at head_dim 256: (k_bits, v_bits, compute_mode, T, options).
+MULTI_MODES = {
+    "int8-t2": (8, 8, "auto", 2, {}), "bf16-t3": (16, 16, "auto", 3, {}), "int4-t4": (4, 4, "auto", 4, {}),
+    "k4v8-int-qk-t4-window64-sink4": (4, 8, "int_qk", 4, dict(window_size=64, sink_size=4)),
+    "int8-f32-t2-cap2": (8, 8, "f32", 2, dict(logit_cap=2.0)),
+}
+
+
+def _decode_both(t, k_bits, v_bits, seed, **kw):
+    """Kernel D's inputs at head_dim 256 (GQA 8q/2kv, lengths [300, 1, T,
+    137]) through JAX's jitted decode_attention and the port's; returns
+    (port o, port lse, JAX o, JAX lse)."""
+    rng = np.random.default_rng(seed)
+    k, v = (rng.standard_normal((4, 2, 300, 256)).astype(np.float32) for _ in range(2))
+    q = rng.standard_normal((4, t, 8, 256)).astype(np.float32)
+    q = q[:, 0] if t == 1 else q  # one token as [B, H, D]: JAX returns that shape for it
+    quant = jax.jit(jd.quantize_token, static_argnames="bits")
+    kq, ks = quant(_j(k), bits=k_bits)
+    vq, vs = quant(_j(v), bits=v_bits)
+    lengths = np.array([300, 1, t, 137], np.int32)
+    kw = dict(k_bits=k_bits, v_bits=v_bits, return_lse=True, **kw)
+    jo, jl = jax.jit(lambda q_, l_: jd.decode_attention(q_, kq, vq, ks, l_, v_scale=vs, **kw))(_j(q),
+                                                                                              jnp.asarray(lengths))
+    kw.pop("block_kv", None)
+    tt = lambda x: _t(np.array(x.astype(jnp.float32)), torch.bfloat16) if x.dtype == jnp.bfloat16 else _t(  # noqa: E731
+        np.array(x), torch.int8 if x.dtype == jnp.int8 else torch.float32)
+    to, tl = td.decode_attention(_t(q), tt(kq), tt(vq), tt(ks), torch.from_numpy(lengths), v_scale=tt(vs), **kw)
+    return to, tl, _np(jo), _np(jl)
+
+
+@pytest.mark.parametrize("mode", list(MULTI_MODES))
+def test_decode_head_dim_256_multitoken_matches_jax(mode):
+    """Kernel D's T-token mode at head_dim 256 (T 2-4; the card's
+    decode_attention_multi_d256.cu) on every cache type and both QK chains,
+    a window with sinks, the cap, against JAX's decode_attention at
+    test_torch_decode.py's bounds; rows that see no key give o = 0 and lse =
+    -1e30 on both sides."""
+    k_bits, v_bits, compute_mode, t, opts = MULTI_MODES[mode]
+    to, tl, jo, jl = _decode_both(t, k_bits, v_bits, 80 + t + k_bits, compute_mode=compute_mode, **opts)
+    assert to.shape == (4, t, 8, 256) and torch.isfinite(to).all()
+    assert float(cosine_similarity(to, jo)) >= D_COS
+    assert float((to - jo).abs().max()) <= D_MAX_DO
+    assert float((tl - jl).abs().max()) <= D_MAX_DLSE
+    assert float(to[1, : t - 1].abs().max()) == 0.0 and torch.all(tl[1, : t - 1] == torch.tensor(-1e30))
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_decode_head_dim_256_int8_pv_matches_jax(t):
+    """INT8 PV (compute_mode "int") at head_dim 256 on the int8 cache against
+    JAX at block_kv=32, the port's tile there (``tile_keys``): the same tiles
+    in the same order. A p whose p / pa + 0.5 lies within rounding of an
+    integer takes the neighbouring code on one side (measured: none at T 1,
+    max|do| 2.7e-7; one at T 3, 7.9e-4 in the row of length 137), so the
+    bounds are test_torch_speculative.py's for INT8 PV (cos >= 0.9999,
+    max|do| <= 3e-2) and the LSE, which no code enters, test_torch_decode.py's
+    1e-5; the codes matter (the f32 PV differs by more than 1e-4)."""
+    assert td.tile_keys(256, 8, 8) == 32
+    to, tl, jo, jl = _decode_both(t, 8, 8, 90 + t, compute_mode="int", block_kv=32)
+    assert float(cosine_similarity(to, jo)) >= PV8_COS_MIN
+    assert float((to - jo).abs().max()) <= PV8_MAX_DO
+    assert float((tl - jl).abs().max()) <= D_MAX_DLSE
+    f32_pv, _, _, _ = _decode_both(t, 8, 8, 90 + t, compute_mode="int_qk")
+    assert float((to - f32_pv).abs().max()) > 1e-4
+
+
 # ---------------------------------------------------------------------------
 # A head_dim-256 LLM
 # ---------------------------------------------------------------------------
@@ -340,6 +412,21 @@ def hd256():
     return params, tree, model, tokens
 
 
+def _cfgs(cache):
+    return (JL.tiny_llm_config(**HD256, dtype=jnp.bfloat16, **CACHES[cache]),
+            TL.tiny_llm_config(**HD256, dtype=torch.bfloat16, **CACHES[cache]))
+
+
+@pytest.fixture(scope="module")
+def jax_prefill(hd256):
+    """JAX's (eager) llm_prefill of the fixture's tokens into a cache mode,
+    once per module and mode: the tests that start from it share it (JAX's
+    arrays are immutable; no step here donates them)."""
+    params, _, _, tokens = hd256
+    return functools.lru_cache(maxsize=None)(lambda cache: JL.llm_prefill(params, jnp.asarray(tokens),
+                                                                          _cfgs(cache)[0]))
+
+
 def test_hd256_params_from_jax(hd256):
     """params_from_jax carries the head_dim-256 model's weights where JAX has
     them (nn.Linear is [out, in]: wk is [1 x 256, 512])."""
@@ -352,15 +439,14 @@ def test_hd256_params_from_jax(hd256):
 
 
 @pytest.mark.parametrize("cache", list(CACHES))
-def test_hd256_prefill_and_decode_match_jax(hd256, cache):
+def test_hd256_prefill_and_decode_match_jax(hd256, jax_prefill, cache):
     """The int8 prefill (kernels C1 and A at head_dim 256) and 4 decode steps
     (kernel D at head_dim 256) on the int8, bf16 and k4v8 caches: logits cos
     >= 0.9999 against JAX's (0.999 with 4-bit K)."""
     params, _, model, tokens = hd256
-    cfg_j = JL.tiny_llm_config(**HD256, dtype=jnp.bfloat16, **CACHES[cache])
-    cfg_t = TL.tiny_llm_config(**HD256, dtype=torch.bfloat16, **CACHES[cache])
+    cfg_j, cfg_t = _cfgs(cache)
     bound = LLM_COS_4BIT if cfg_t.eff_k_bits == 4 else LLM_COS
-    j_logits, j_caches = JL.llm_prefill(params, jnp.asarray(tokens), cfg_j)
+    j_logits, j_caches = jax_prefill(cache)
     t_logits, t_caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg_t)
     assert t_logits.shape == (2, 40, 256)
     assert float(cosine_similarity(t_logits.float(), _np(j_logits))) >= LLM_COS
@@ -371,3 +457,47 @@ def test_hd256_prefill_and_decode_match_jax(hd256, cache):
         t_logits, t_caches = TL.llm_decode_step(model, torch.from_numpy(feed[i]), t_caches, cfg_t)
         assert float(cosine_similarity(t_logits.float(), _np(j_logits))) >= bound, i
     assert t_caches[0]["length"].tolist() == [44, 44]
+
+
+@pytest.mark.parametrize("cache", ["int8", "k4v8"])
+def test_hd256_verify_step_matches_jax(hd256, jax_prefill, cache):
+    """llm_verify_step of 4 fed tokens over the prefilled caches (kernel D's
+    T-token mode at head_dim 256 on the card): logits against JAX's jitted
+    verify step at the LLM bounds (cos >= 0.9999; 0.999 with 4-bit K), and
+    each row against the port's sequential llm_decode_step from the same
+    prefill (cos >= 0.99999, the same argmax)."""
+    params, _, model, tokens = hd256
+    cfg_j, cfg_t = _cfgs(cache)
+    bound = LLM_COS_4BIT if cfg_t.eff_k_bits == 4 else LLM_COS
+    _, j_caches = jax_prefill(cache)
+    _, t_caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg_t)
+    _, step_caches = TL.llm_prefill(model, torch.from_numpy(tokens), cfg_t)
+    fed = np.random.default_rng(5).integers(0, 256, (2, 4)).astype(np.int32)
+    j_logits, _ = jax.jit(lambda p, t, c: JL.llm_verify_step(p, t, c, cfg_j))(params, jnp.asarray(fed), j_caches)
+    t_logits, t_caches = TL.llm_verify_step(model, torch.from_numpy(fed), t_caches, cfg_t)
+    assert t_logits.shape == (2, 4, 256) and t_caches[0]["length"].tolist() == [44, 44]
+    assert float(cosine_similarity(t_logits.float(), _np(j_logits))) >= bound
+    for i in range(4):
+        s_logits, step_caches = TL.llm_decode_step(model, torch.from_numpy(fed[:, i]), step_caches, cfg_t)
+        assert float(cosine_similarity(t_logits[:, i].float(), s_logits.float())) >= 0.99999, i
+        assert torch.equal(torch.argmax(t_logits[:, i], -1), torch.argmax(s_logits, -1)), i
+
+
+def test_hd256_speculative_generate_matches_jax(hd256):
+    """speculative_generate on the hd256 model (spec_k 4, the model itself
+    through an int4 cache as the draft; the card's verify steps run kernel
+    D's T-token instances at head_dim 256): the tokens and the rounds equal
+    JAX's speculative_generate of the same inputs, and the port's
+    generate."""
+    params, _, model, tokens = hd256
+    cfg_j, cfg_t = _cfgs("int8")
+    draft_j, draft_t = JL.tiny_llm_config(**HD256, dtype=jnp.bfloat16, kv_bits=4), TL.tiny_llm_config(
+        **HD256, dtype=torch.bfloat16, kv_bits=4)
+    prompt = tokens[:1, :12]
+    j_toks, j_stats = JL.speculative_generate(params, jnp.asarray(prompt), 6, cfg_j, draft_params=params,
+                                              draft_cfg=draft_j, spec_k=4, return_stats=True)
+    t_toks, t_stats = TL.speculative_generate(model, torch.from_numpy(prompt), 6, cfg_t, draft_params=model,
+                                              draft_cfg=draft_t, spec_k=4, return_stats=True)
+    np.testing.assert_array_equal(t_toks.numpy(), np.asarray(j_toks))
+    assert t_stats["rounds"] == j_stats["rounds"] and t_stats["mean_accepted"] == j_stats["mean_accepted"]
+    assert torch.equal(t_toks, TL.generate(model, torch.from_numpy(prompt), 6, cfg_t))

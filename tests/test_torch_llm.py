@@ -47,6 +47,10 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as td
 from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 from lowbit_quant_fa2_paddle_tpu_torch.utils.checkpoint import load_params_npz
 
+# One intra-op thread: the suite runs a worker per core, and torch's thread
+# pool, spinning under that load, slowed small CPU ops up to 50-fold.
+torch.set_num_threads(1)
+
 CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "eval_out", "arith_llm.npz")
 COS_MIN = 0.9999
 TINY = dict(dim=256, depth=2, num_heads=8, num_kv_heads=2, max_seq=64)

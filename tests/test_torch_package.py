@@ -24,7 +24,7 @@ import torch
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
 from lowbit_quant_fa2_paddle_tpu_torch.ops import attention as lowbit_attention_ops
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
-from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases, mask_cases
+from lowbit_quant_fa2_paddle_tpu_torch.utils import bwd_cases, decode_cases, mask_cases
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd import (
     attention_bwd_dkv,
     attention_bwd_dq,
@@ -59,6 +59,10 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import (
     quant_int8_plain,
     quant_v_int8_per_channel,
 )
+
+# One intra-op thread: the suite runs a worker per core, and torch's thread
+# pool, spinning under that load, slowed small CPU ops up to 50-fold.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -118,14 +122,16 @@ def test_build_command_targets_sm90a_from_repo_sources():
     srcs = [a for cmd in compiles for a in cmd if a.endswith(".cu")]
     assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "attention_bwd_wgmma.cu", "attention_fwd_wgmma.cu", "attention_fwd_wgmma_bias.cu",
-        "attention_fwd_wgmma_d256.cu", "attention_fwd_wgmma_pv32.cu", "decode_attention.cu", "decode_attention_d256.cu",
-        "decode_attention_multi.cu", "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
+        "attention_bwd_wgmma.cu", "attention_bwd_wgmma_d256.cu", "attention_fwd_wgmma.cu",
+        "attention_fwd_wgmma_bias.cu", "attention_fwd_wgmma_d256.cu", "attention_fwd_wgmma_pv32.cu",
+        "decode_attention.cu", "decode_attention_d256.cu", "decode_attention_multi.cu",
+        "decode_attention_multi_d256.cu", "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert all(f"-I{_build.CSRC_DIR}" in cmd for cmd in compiles)  # the shared headers, e.g. sm90.cuh
     assert os.path.join(_build.CSRC_DIR, "sm90.cuh") in _build.hashed_files()
     assert os.path.join(_build.CSRC_DIR, "decode_attention.cuh") in _build.hashed_files()
     assert os.path.join(_build.CSRC_DIR, "attention_fwd_wgmma.cuh") in _build.hashed_files()
+    assert os.path.join(_build.CSRC_DIR, "attention_bwd_wgmma.cuh") in _build.hashed_files()
     assert "-shared" in link and link[-len(compiles):] == [cmd[-1] for cmd in compiles]
     assert _build.CSRC_DIR.startswith(os.path.join(REPO, "lowbit_quant_fa2_paddle_tpu_torch"))
     assert os.path.dirname(_build.library_path()) == _build.BUILD_DIR
@@ -539,6 +545,39 @@ def test_wgmma_attention_bwd_edges_match_plain(cuda, case):
         top = float(b.float().abs().max())
         assert float(cosine_similarity(a, b)) >= 0.99999, name
         assert float((a.float() - b.float()).abs().max()) <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7), name
+
+
+@pytest.mark.parametrize("case", list(bwd_cases.CASES))
+def test_bwd_cases_run_the_plain_version_on_the_cpu(case):
+    """Each head_dim-256 card case of ``utils/bwd_cases.py`` built on the
+    CPU: the plain version gives finite gradients of the inputs' shapes and
+    dtypes, and the same gradients (to 1e-6 in f32) on the operands
+    zero-padded to 256 columns and sliced back, as the card pads 129-255."""
+    q, k, v, o, lse2, do, opts = bwd_cases.case_inputs(case, torch.Generator().manual_seed(9), "cpu")
+    args, kw = bwd_operands(q, k, v, o, lse2, do, **opts)
+    want = attention_bwd_plain(*args, **kw, dq_dtype=torch.float32, dkv_dtype=torch.float32)
+    for x, ref in zip(want, (q, k, v)):
+        assert x.shape == ref.shape and bool(torch.isfinite(x).all())
+    got = flash_bwd(q, k, v, o, lse2, do, **opts)
+    assert [x.dtype for x in got] == [q.dtype, k.dtype, v.dtype]
+    d = q.shape[-1]
+    padded = [torch.nn.functional.pad(x, (0, 256 - d)) if i < 4 else x for i, x in enumerate(args)]
+    again = attention_bwd_plain(*padded, **kw, dq_dtype=torch.float32, dkv_dtype=torch.float32)
+    for a, b in zip(again, want):
+        torch.testing.assert_close(a[..., :d], b, rtol=1e-6, atol=1e-6)
+        assert not bool(a[..., d:].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(bwd_cases.CASES))
+def test_attention_bwd_d256_cases_match_plain(cuda, case):
+    """G1/G2's head_dim-256 instances (and d192 padded to them) against the
+    plain version at the edges of ``utils/bwd_cases.py`` (ragged Sq/Sk of 1,
+    127, 129 and 777, causal GQA, windows, f32, int8 codes): phase 6's
+    bounds, the same bits twice, every launch at kernel head dim 256 on the
+    wgmma design."""
+    r = bwd_cases.check_case(case, torch.Generator(device=cuda).manual_seed(9))
+    assert r["ok"], r
 
 
 WGMMA_EDGES = {

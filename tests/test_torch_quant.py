@@ -18,6 +18,10 @@ import torch
 from lowbit_quant_fa2_paddle_tpu.ops import quant as jq
 from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as tq
 
+# One intra-op thread: the suite runs a worker per core, and torch's thread
+# pool, spinning under that load, slowed small CPU ops up to 50-fold.
+torch.set_num_threads(1)
+
 
 def _both(x, km, gran, block):
     jc, js = jq.quant_int8(jnp.asarray(x), None if km is None else jnp.asarray(km), gran=gran, block=block)
