@@ -109,10 +109,12 @@
 // masked kernels with P = ex2(s - m) in f32, l summed in f32, P split into
 // bf16 hi = bf16(P) and lo = bf16(P - hi), and V given by the host as bf16
 // hi and lo halves of one 2D-wide row (int8 codes are exact in the hi half):
-// O += P_hi V_hi + P_lo V_hi + P_hi V_lo, three bf16 products into the f32
-// O (about 16 bits of each factor; the dropped P_lo V_lo is below 2^-16 of
-// the product). At d64 it runs two consumer warpgroups (P's two fragments
-// beside S need the registers).
+// P_hi V_hi + P_lo V_hi + P_hi V_lo, three bf16 products a 16-key step
+// (about 16 bits of each factor; the dropped P_lo V_lo is below 2^-16 of
+// the product) into a tile's own f32 accumulator that its first product
+// starts at zero, which the CUDA cores then add to the running O (the tensor
+// cores' f32 sums across tiles had cost 2.7-3.5e-6 of O). At d64 it runs two
+// consumer warpgroups (P's two fragments beside S need the registers).
 
 #include "attention_fwd_wgmma.cuh"
 

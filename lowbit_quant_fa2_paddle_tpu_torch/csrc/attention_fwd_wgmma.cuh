@@ -280,6 +280,9 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
   // INT8 PV at d256 multiplies in two halves of 128 columns, one after the
   // other: a 64 x 256 s32 tile beside the f32 O would not fit the registers.
   constexpr bool kSplitPV8 = kPV8 && D == 256;
+  // fp32 PV at d128 sums each tile in a second accumulator (kTileSum below):
+  // beside the next tile's S its registers spill, so PV and S take turns.
+  constexpr bool kSerialPV = kSplitPV8 || (kPV32 && D == 128);
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -489,8 +492,17 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
     uint32_t a8[kPV8 ? BKV / 32 : 1][4];  // INT8 PV: p8 as s8 A fragments of each 32-key chunk
     int pv[kPV8 ? (kSplitPV8 ? D / 4 : D / 2) : 1];  // INT8 PV: one tile's (half's) i32 p8 V8
     uint32_t pl[kPV32 ? BKV / 8 : 1][2];  // fp32 PV: P - bf16(P) as bf16x2, as pk
+    // fp32 PV at d64/d128: one tile's products, added to O on the CUDA cores
+    // (at d256 a second 128-column accumulator does not fit: the products go
+    // to O).
+    constexpr bool kTileSum = kPV32 && D <= 128;
+    float pacc[kTileSum ? D / 2 : 1];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] = 0.0f;
+    if constexpr (kTileSum) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) pacc[i] = 0.0f;
+    }
     if constexpr (kPV8) {
 #pragma unroll
       for (int i = 0; i < BKV / 32; ++i) a8[i][0] = a8[i][1] = a8[i][2] = a8[i][3] = 0u;
@@ -547,6 +559,18 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
                                        make_desc(vk + 2 * BKV * 128, BKV * 128, 1024, 128), 1);
       }
     };
+    // fp32 PV: a (16 keys of a P term) times the 16 V rows at vk into the
+    // tile's own accumulator, which the tile's first product starts at zero.
+    auto pv32 = [&](const uint32_t(&a)[4], uint32_t vk, int accumulate) {
+      if constexpr (kTileSum) {
+        if constexpr (D == 64)
+          wgmma_m64n64k16_f32_bf16_rs(*reinterpret_cast<float(*)[32]>(&pacc[0]), a,
+                                      make_desc(vk, BKV * 128, 1024, 128), accumulate);
+        else
+          wgmma_m64n128k16_f32_bf16_rs(*reinterpret_cast<float(*)[64]>(&pacc[0]), a,
+                                       make_desc(vk, BKV * 128, 1024, 128), accumulate);
+      }
+    };
     auto issue_pv = [&](int st) {
       if constexpr (kSplitPV8) {
         // (pv8_split multiplies INT8 PV at d256.)
@@ -574,11 +598,21 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
         for (int kk = 0; kk < BKV / 16; ++kk) {
           const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
           const uint32_t vk = v_addr + st * L::kVBytes + kk * 16 * 128;
-          pv_bf16(a, vk);
-          if constexpr (kPV32) {
+          if constexpr (kTileSum) {
+            // The tile's products summed on the tensor cores from zero; O adds
+            // them in f32 on the CUDA cores (o_ready), so no tile's rounding
+            // rides on the running O.
             const uint32_t al[4] = {pl[2 * kk][0], pl[2 * kk][1], pl[2 * kk + 1][0], pl[2 * kk + 1][1]};
-            pv_bf16(al, vk);
-            pv_bf16(a, vk + (D / 64) * BKV * 128);
+            pv32(a, vk, kk > 0);
+            pv32(al, vk, 1);
+            pv32(a, vk + (D / 64) * BKV * 128, 1);
+          } else {
+            pv_bf16(a, vk);
+            if constexpr (kPV32) {
+              const uint32_t al[4] = {pl[2 * kk][0], pl[2 * kk][1], pl[2 * kk + 1][0], pl[2 * kk + 1][1]};
+              pv_bf16(al, vk);
+              pv_bf16(a, vk + (D / 64) * BKV * 128);
+            }
           }
         }
       } else {
@@ -619,6 +653,12 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
 #pragma unroll
           for (int i = 0; i < BKV / 8; ++i) pin(pl[i][0]), pin(pl[i][1]);
         }
+        if constexpr (kTileSum) {
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) pin(pacc[i]);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) oacc[i] += pacc[i];
+        }
       }
     };
     // INT8 PV at d256: the tile's p8 (a8) times V^T (K-major rows of BKV
@@ -644,6 +684,20 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
 #pragma unroll
         for (int i = 0; i < 64; ++i) oacc[64 * half + i] += (float)pv[i];
       }
+      }
+    };
+
+    // PV of tile j with nothing else in flight: INT8 PV at d256, fp32 PV at
+    // d128 (its tile sum folded into O once in).
+    auto pv_serial = [&](int st) {
+      if constexpr (kSplitPV8) {
+        pv8_split(st);
+      } else {
+        wgmma_fence();
+        issue_pv(st);
+        wgmma_commit();
+        wgmma_wait<0>();
+        o_ready();
       }
     };
 
@@ -877,13 +931,14 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
     else
       softmax_s(0, 0);
     softmax_o();
-    if constexpr (kSplitPV8) {
-      // INT8 PV at d256, one product at a time: PV of tile j, then S of
-      // tile j + 1 (in its turn) and its softmax. The turns order S alone;
-      // the last one is empty, as the other loop's last PV turn.
+    if constexpr (kSerialPV) {
+      // One product at a time (INT8 PV at d256, fp32 PV at d128): PV of
+      // tile j, then S of tile j + 1 (in its turn) and its softmax. The
+      // turns order S alone; the last one is empty, as the other loop's last
+      // PV turn.
       for (int j = 0; j + 1 < n_tiles; ++j) {
         const int st = j % S, st1 = (j + 1) % S;
-        pv8_split(st);
+        pv_serial(st);
         if (lane == 0) mbar_arrive(&empty[st]);
         mbar_wait(&full[st1], ((j + 1) / S) & 1);
         named_bar_sync(bar_mine, 256);
@@ -901,7 +956,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
       }
       named_bar_sync(bar_mine, 256);
       if (wg != NWG - 1) named_bar_arrive(bar_other, 256);
-      pv8_split((n_tiles - 1) % S);
+      pv_serial((n_tiles - 1) % S);
     } else {
     // The last tile is peeled off so that no product is issued, and no
     // accumulator written, on a path the compiler cannot prove uniform.

@@ -7,7 +7,9 @@
 // product. The device code is attention_fwd_wgmma.cuh's kernel with kPV32
 // (the design note is in attention_fwd_wgmma.cu): the masked kernels, INT8
 // or bf16 QK, packed K through the staging ring, three bf16 products a
-// 16-key step (P_hi V_hi + P_lo V_hi + P_hi V_lo) into the f32 O. Its
+// 16-key step (P_hi V_hi + P_lo V_hi + P_hi V_lo) into a per-tile f32
+// accumulator (its first product at scale-d 0), added to the f32 O on the
+// CUDA cores once the tile's products are in. Its
 // instances live in their own translation unit so that nvcc builds them
 // beside the others.
 

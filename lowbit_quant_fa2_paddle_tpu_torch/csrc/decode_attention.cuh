@@ -252,6 +252,16 @@ __device__ __forceinline__ void k_words(const unsigned char* p, uint32_t* w) {
   }
 }
 
+// The paged cache's arguments (kExt 3 and 4): the tokens T, the pool's pages
+// and page size (a power of two, log2 in page_shift), the table [B, width]
+// of each sequence's physical pages. Converts to T, so that the kernel reads
+// its tokens as it reads the multi-token kernels' int.
+struct PagedExt {
+  int q_tokens, n_pages, page_shift, width;
+  const int* table;
+  __device__ __forceinline__ operator int() const { return q_tokens; }
+};
+
 // The causal limits of a thread's two query rows in the multi-token kernels
 // (kExt > 0): keys pos < lim, and in the window phase pos >= lo.
 struct RowLimits {
@@ -268,7 +278,11 @@ struct NoRowLimits {};
 // r = t * g + gh), each row masked at its own limit len - (T - 1 - t), and
 // `window` is the union band W + T - 1 that the walk covers (row t keeps
 // pos >= len - window + t in the window phase). kExt 2: kExt 1 with INT8 PV
-// on an int8 V. The multi-token kernels are all kMasks instances. Their
+// on an int8 V. kExt 3 and 4: kExt 1 and 2 over the paged cache (k, v
+// [Hk, n_pages, page, Dc], the scales [Hk, n_pages, page], `ext` a
+// PagedExt, S the table's W * page rows a sequence): only the producer
+// differs, forming each tile from one pair of bulk copies per page it
+// touches. The multi-token kernels are all kMasks instances. Their
 // code sits in `if constexpr (kExt ...)` branches and their extra argument
 // in a parameter pack that is empty for kExt 0, so the single-token
 // kernels compile from the same source as before.
@@ -282,7 +296,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     float* __restrict__ lse, int H, int Hk, int S, int R, int n_splits, int chunk, int q_bf16, int out_code,
     int window, int sink, float sm_scale, float logit_cap, Ext... ext) {
   static_assert(kExt == 0 || (kMasks && sizeof...(Ext) == 1), "the multi-token kernels take masks and T");
-  static_assert(kExt != 2 || std::is_same<VT, int8_t>::value, "INT8 PV takes an int8 V");
+  static_assert(kExt % 2 || kExt == 0 || std::is_same<VT, int8_t>::value, "INT8 PV takes an int8 V");
+  constexpr bool kPaged = kExt >= 3;
   using C = Cfg<D, KT, VT, kIntQK>;
   constexpr int BK = C::BK, CPL = C::CPL;
   constexpr bool kVQuant = C::kVNib || sizeof(VT) == 1;  // per-token V scales
@@ -335,24 +350,71 @@ __global__ void __launch_bounds__(NT) decode_kernel(
   __syncthreads();
 
   if (warp == NW) {
-    // ---- producer warp: stage j % NST takes tile j; nothing past its range is read ----
-    const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + kh * S * C::kKRow;
-    const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + kh * S * C::kVRow;
-    const float* ksg = k_scale + kh * S;
-    const float* vsg = kVQuant ? v_scale + kh * S : nullptr;
-    for (int j = 0; j < n_tiles; ++j) {
-      const int st = j % NST, key0 = tile_key0(j), n = min(BK, tile_end(j) - key0);
-      mbar_wait(&empty[st], ((j / NST) & 1) ^ 1);
-      if (lane == 0) {
-        mbar_arrive_expect_tx(&full[st], n * (C::kKRow + C::kVRow));
-        bulk_copy(smem + C::kKOff + st * BK * C::kKRow, kg + (long long)key0 * C::kKRow, n * C::kKRow, &full[st]);
-        bulk_copy(smem + C::kVOff + st * BK * C::kVRow, vg + (long long)key0 * C::kVRow, n * C::kVRow, &full[st]);
+    if constexpr (kPaged) {
+      // ---- producer warp over the paged cache: tile j's keys [key0, key0 + n)
+      // are a run of each page they touch, one bulk copy of K and one of V a
+      // run, the scales a key at a time. Lane l looks up the cache rows of
+      // keys l and l + 32 before the stage frees (the table reads wait while
+      // the ring is full, not after); lane 0 takes each run's first row by a
+      // shuffle. No table entry past the tile is read ----
+      static_assert(BK <= 64, "a lane holds the rows of two keys of a tile");
+      const PagedExt pg{ext...};
+      const int page = 1 << pg.page_shift;
+      const int* tbl = pg.table + (long long)b * pg.width;
+      const long long head_rows = (long long)hk * pg.n_pages * page;
+      const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + head_rows * C::kKRow;
+      const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + head_rows * C::kVRow;
+      const float* ksg = k_scale + head_rows;
+      const float* vsg = kVQuant ? v_scale + head_rows : nullptr;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NST, key0 = tile_key0(j), n = min(BK, tile_end(j) - key0);
+        long long rows[2] = {0, 0};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int key = key0 + lane + 32 * u;
+          if (lane + 32 * u < n) rows[u] = (long long)__ldg(tbl + (key >> pg.page_shift)) * page + (key & (page - 1));
+        }
+        mbar_wait(&empty[st], ((j / NST) & 1) ^ 1);
+        if (lane == 0) mbar_arrive_expect_tx(&full[st], n * (C::kKRow + C::kVRow));
+        for (int i = 0; i < n;) {  // warp-uniform
+          const int run = min(n - i, page - ((key0 + i) & (page - 1)));
+          const long long row = __shfl_sync(0xffffffffu, i < 32 ? rows[0] : rows[1], i & 31);
+          if (lane == 0) {
+            bulk_copy(smem + C::kKOff + (st * BK + i) * C::kKRow, kg + row * C::kKRow, run * C::kKRow, &full[st]);
+            bulk_copy(smem + C::kVOff + (st * BK + i) * C::kVRow, vg + row * C::kVRow, run * C::kVRow, &full[st]);
+          }
+          i += run;
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = lane + 32 * u;
+          if (i < n) {
+            cp_async4(ks_s + st * BK + i, ksg + rows[u]);
+            if constexpr (kVQuant) cp_async4(vs_s + st * BK + i, vsg + rows[u]);
+          }
+        }
+        cp_async_mbar_arrive(&full[st]);
       }
-      for (int i = lane; i < n; i += 32) {
-        cp_async4(ks_s + st * BK + i, ksg + key0 + i);
-        if constexpr (kVQuant) cp_async4(vs_s + st * BK + i, vsg + key0 + i);
+    } else {
+      // ---- producer warp: stage j % NST takes tile j; nothing past its range is read ----
+      const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + kh * S * C::kKRow;
+      const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + kh * S * C::kVRow;
+      const float* ksg = k_scale + kh * S;
+      const float* vsg = kVQuant ? v_scale + kh * S : nullptr;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NST, key0 = tile_key0(j), n = min(BK, tile_end(j) - key0);
+        mbar_wait(&empty[st], ((j / NST) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[st], n * (C::kKRow + C::kVRow));
+          bulk_copy(smem + C::kKOff + st * BK * C::kKRow, kg + (long long)key0 * C::kKRow, n * C::kKRow, &full[st]);
+          bulk_copy(smem + C::kVOff + st * BK * C::kVRow, vg + (long long)key0 * C::kVRow, n * C::kVRow, &full[st]);
+        }
+        for (int i = lane; i < n; i += 32) {
+          cp_async4(ks_s + st * BK + i, ksg + key0 + i);
+          if constexpr (kVQuant) cp_async4(vs_s + st * BK + i, vsg + key0 + i);
+        }
+        cp_async_mbar_arrive(&full[st]);
       }
-      cp_async_mbar_arrive(&full[st]);
     }
   } else {
     // ---- consumer warps ----
@@ -569,7 +631,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       if (g == 0) store2(alpha_s + 2 * t, alpha[0], alpha[1]);
       __syncwarp();
 
-      if constexpr (kExt == 2) {
+      if constexpr (kExt == 2 || kExt == 4) {
         // ---- INT8 PV: per query row, pa = fma(max p, 1/127, 1e-7) over the
         // tile and p8 = trunc(p / pa + 0.5) (the V scale is already in p);
         // acc = alpha acc + (p8 . V codes) pa, the product in s32 by dp4a ----
@@ -849,6 +911,89 @@ struct Occupancy {
     return (int)err;
   }
 };
+
+// The paged launches (decode_attention_paged.cu and, at head_dim 256,
+// decode_attention_paged_d256.cu): kExt 3, or with int_pv kExt 4, on the
+// same terms as multi_kernel's.
+template <int D, typename KT, typename VT, bool kIntQK>
+auto paged_kernel(int int_pv, cudaError_t* err) {
+  auto kern = decode_kernel<D, KT, VT, kIntQK, true, 3, PagedExt>;
+  if (int_pv) {
+    if constexpr (std::is_same<VT, int8_t>::value && (kIntQK || std::is_same<KT, __nv_bfloat16>::value)) {
+      kern = decode_kernel<D, KT, VT, kIntQK, true, 4, PagedExt>;
+    } else {
+      *err = cudaErrorInvalidValue;
+      return kern;
+    }
+  }
+  *err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D, KT, VT, kIntQK>::kTotal);
+  return kern;
+}
+
+struct LaunchPaged {
+  const void* q;
+  const float *ks, *vs;
+  const void *k, *v;
+  const int* lengths;
+  float *part_acc, *part_ml;
+  int* tickets;
+  void* o;
+  float* lse;
+  int B, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window, sink, int_pv;
+  PagedExt pg;
+  float sm_scale, logit_cap;
+  cudaStream_t st;
+
+  template <int D, typename KT, typename VT, bool kIntQK>
+  int run() const {
+    using C = Cfg<D, KT, VT, kIntQK>;
+    if (n_splits * NW > C::kMaxParts) return (int)cudaErrorInvalidValue;
+    cudaError_t err;
+    const auto kern = paged_kernel<D, KT, VT, kIntQK>(int_pv, &err);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(n_splits, Hk * ((H / Hk) / R), B);
+    kern<<<grid, NT, C::kTotal, st>>>(q, static_cast<const KT*>(k), static_cast<const VT*>(v), ks, vs, lengths,
+                                      part_acc, part_ml, tickets, o, lse, H, Hk, S, R, n_splits, chunk, q_bf16,
+                                      out_code, window, sink, sm_scale, logit_cap, pg);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct OccupancyPaged {
+  int* ctas_per_sm;
+  int int_pv;
+
+  template <int D, typename KT, typename VT, bool kIntQK>
+  int run() const {
+    cudaError_t err;
+    const auto kern = paged_kernel<D, KT, VT, kIntQK>(int_pv, &err);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kern, NT, Cfg<D, KT, VT, kIntQK>::kTotal);
+    return (int)err;
+  }
+};
+
+// Checks a paged call's arguments (lowbit_decode_attn_paged and its d256
+// twin) and fills its launch; returns cudaErrorInvalidValue for what it does
+// not take.
+inline int paged_launch(LaunchPaged* l, const void* q, const void* k, const void* v, const float* k_scale,
+                        const float* v_scale, const int* lengths, const int* table, float* part_acc, float* part_ml,
+                        int* tickets, void* o, float* lse, int B, int H, int Hk, int S, int R, int q_bf16,
+                        int out_code, int n_splits, int chunk, int window, int sink, int q_tokens, int int_pv,
+                        int n_pages, int page, int width, int v_bits, float sm_scale, float logit_cap, void* stream) {
+  int shift = 0;
+  while ((1 << shift) < page) ++shift;
+  if (R < 1 || R > RMAX || (H / Hk) % R || q_tokens < 1 || (H / Hk) % q_tokens || chunk % 64 || out_code < 0 ||
+      out_code > 2 || n_splits < 1 || window < 0 || sink < 0 || logit_cap < 0.0f || (int_pv && v_bits != 8) ||
+      page < 1 || (1 << shift) != page || width < 1 || S != width * page || n_pages < 1 || table == nullptr)
+    return (int)cudaErrorInvalidValue;
+  *l = LaunchPaged{q,        k_scale, v_scale, k,        v,      lengths, part_acc, part_ml,
+                   tickets,  o,       lse,     B,        H,      Hk,      S,        R,
+                   n_splits, chunk,   q_bf16,  out_code, window, window > 0 ? sink : 0, int_pv,
+                   PagedExt{q_tokens, n_pages, shift, width, table},
+                   sm_scale, logit_cap, static_cast<cudaStream_t>(stream)};
+  return 0;
+}
 
 // The multi-token launches (decode_attention_multi.cu and, at head_dim 256,
 // decode_attention_multi_d256.cu). The multi-token instance a call takes, its dynamic shared memory allowed:

@@ -38,6 +38,20 @@ Semantics of one query token per sequence, as the TPU kernel computes them:
 * ``o = acc / l`` in ``q.dtype``, base-2 LSE ``m + log2 l``; a row with no
   visible key gives ``o = 0`` and ``lse = -1e30``.
 
+The paged cache (``page_table``, the serving engine's pool): ``k``/``v``
+``[Hk, n_pages, page, Dc]``, scales ``[Hk, n_pages, page]``, ``page_table
+[B, W]`` int32; row ``r`` of sequence ``b`` lives at page ``page_table[b, r //
+page]``, offset ``r % page``, so a sequence holds at most ``W·page`` rows.
+Every mode above runs paged. On the card the paged calls take the
+multi-token instances' paged twins (``csrc/decode_attention_paged.cu``,
+``csrc/decode_attention_paged_d256.cu``), one token as T = 1: the producer
+forms each tile from one pair of bulk copies per page the tile touches,
+reading the table on the device; the tiles, the consumers, the split plan
+and the merge are the contiguous kernels'. Only the pages of rows the walk
+visits are read, by the kernel and by the plain version alike: a table
+entry past a sequence's used pages, or below its window, may name a page
+that another sequence owns.
+
 T query tokens (``q [B, T, H, D]``, ``lengths`` counting all T new rows):
 token ``t`` sees ``pos < limit_t = length - (T - 1 - t)``, and under a
 window its band ``[limit_t - W, limit_t)`` plus the sinks. The kernel takes
@@ -375,18 +389,73 @@ def decode_attention_plain(
     return (o[:, 0], lse[:, 0]) if single else (o, lse)
 
 
+def walk_rows(length: int, rows: int, *, window: int = 0, sink: int = 0, q_tokens: int = 1) -> list:
+    """The row ranges ``[lo, hi)`` of one sequence that kernel D's walk
+    visits, of a cache of ``rows`` rows: ``[0, length)``, or under a window
+    the sinks ``[0, min(sink, length))`` and the union band from the first
+    token's window start (``length - (T - 1) - window``) to ``length``."""
+    length = min(max(int(length), 0), rows)
+    if not window:
+        return [(0, length)]
+    lo = max(length - (q_tokens - 1) - window, 0)
+    return [(0, min(sink, length)), (lo, length)]
+
+
+def gather_pages(k, v, k_scale, v_scale, lengths, page_table, *, window: int = 0, sink: int = 0,
+                 q_tokens: int = 1):
+    """A paged cache ``[Hk, n_pages, page, Dc]`` as the contiguous cache
+    ``[B, Hk, W·page, Dc]`` of the rows kernel D's walk visits
+    (:func:`walk_rows`, whole pages): only the table entries of those pages
+    are read, every other row is zero (codes and scales alike). Reads the
+    lengths and the table on the host: the plain version's gather."""
+    hk, _, page, _ = k.shape
+    b, width = page_table.shape
+    rows = width * page
+
+    def empty(x):
+        return torch.zeros((b, hk, rows) + tuple(x.shape[3:]), dtype=x.dtype, device=x.device)
+
+    out = [empty(x) if x is not None else None for x in (k, v, k_scale, v_scale)]
+    table = page_table.cpu()
+    for i, length in enumerate(lengths.tolist()):
+        logical = sorted({p for lo, hi in walk_rows(length, rows, window=window, sink=sink, q_tokens=q_tokens)
+                          if hi > lo for p in range(lo // page, cdiv(hi, page))})
+        if not logical:
+            continue
+        src = table[i, logical].long().to(k.device)
+        dst = (torch.tensor(logical, device=k.device)[:, None] * page + torch.arange(page, device=k.device)).reshape(-1)
+        for o, x in zip(out, (k, v, k_scale, v_scale)):
+            if x is not None:
+                o[i][:, dst] = x[:, src].reshape((hk, -1) + tuple(x.shape[3:]))
+    return out
+
+
+def decode_attention_paged_plain(q, k, v, k_scale, v_scale, lengths, page_table, *, window: int = 0, sink: int = 0,
+                                 **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention_plain` over a paged cache: the visited pages
+    gathered into a contiguous cache of ``W·page`` rows a sequence
+    (:func:`gather_pages`), whose walk, splits included, is the kernel's."""
+    t = q.shape[1] if q.dim() == 4 else 1
+    kc, vc, ksc, vsc = gather_pages(k, v, k_scale, v_scale, lengths, page_table, window=window, sink=sink,
+                                    q_tokens=t)
+    return decode_attention_plain(q, kc, vc, ksc, vsc, lengths, window=window, sink=sink, **kw)
+
+
 @functools.lru_cache(maxsize=None)
 def _resident_ctas(device_index: int, d: int, k_bits: int, v_bits: int, int_qk: bool, masks: bool = False,
-                   multi: int = 0) -> int:
+                   multi: int = 0, paged: bool = False) -> int:
     """CTAs of this split-pass variant (cache bits 16, 8 or 4 a side; with
     ``masks``, the kernel that takes a window or a cap; ``multi`` 1 the
-    multi-token kernel, 2 the multi-token kernel with INT8 PV) the whole
-    card holds at once: the kernel's occupancy per SM (a host-side query)
-    times the SM count."""
+    multi-token kernel, 2 the multi-token kernel with INT8 PV; ``paged``
+    their paged twins) the whole card holds at once: the kernel's occupancy
+    per SM (a host-side query) times the SM count."""
     per_sm = ctypes.c_int(0)
     lib = _build.library()
     with torch.cuda.device(device_index):
-        if d == 256 and multi:
+        if paged:
+            query = lib.lowbit_decode_paged_ctas_per_sm_d256 if d == 256 else lib.lowbit_decode_paged_ctas_per_sm
+            err = query(d, int(k_bits), int(v_bits), int(int_qk), int(multi == 2), ctypes.byref(per_sm))
+        elif d == 256 and multi:
             err = lib.lowbit_decode_multi_ctas_per_sm_d256(d, int(k_bits), int(v_bits), int(int_qk),
                                                            int(multi == 2), ctypes.byref(per_sm))
         elif d == 256:
@@ -462,40 +531,53 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 
 
 def kernel_partition(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, int_qk: bool, int_pv: bool = False,
-                     window: int = 0, sink: int = 0, logit_cap: float = 0.0) -> dict:
+                     window: int = 0, sink: int = 0, logit_cap: float = 0.0,
+                     page_table: Optional[torch.Tensor] = None) -> dict:
     """How kernel D cuts a call on the card: the variant (``multi`` 0 for
-    the single-token kernels, 1 for T tokens, 2 with INT8 PV), rows a CTA
+    the single-token kernels, 1 for T tokens, 2 with INT8 PV; ``paged``
+    the paged twins of 1 and 2, which take one token as T = 1), rows a CTA
     (``rows``), the grid's row groups, the split plan (``n_splits``,
     ``split_keys``) and the warps a split's tiles go to; the last two are
     what :func:`decode_attention_plain` takes to walk the same tiles. T
-    tokens plan their window splits over the union band ``W + T - 1``."""
+    tokens plan their window splits over the union band ``W + T - 1``; a
+    paged cache over its ``W·page`` logical rows a sequence."""
     t = q.shape[1] if q.dim() == 4 else 1
     b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
-    hk, s_max = k.shape[1], k.shape[2]
-    multi = 2 if int_pv else 1 if t > 1 else 0
+    paged = page_table is not None
+    if paged:
+        hk, s_max = k.shape[0], page_table.shape[1] * k.shape[2]
+    else:
+        hk, s_max = k.shape[1], k.shape[2]
+    multi = 2 if int_pv else 1 if t > 1 or paged else 0
     rows = rows_per_cta(t * (h // hk))
     row_groups = hk * (t * (h // hk) // rows)
     walk = window + t - 1 if window else 0
     slots = _resident_ctas(q.device.index or 0, d, cache_bits(k, q), cache_bits(v, q), int_qk,
-                           bool(window or logit_cap), multi)
+                           bool(window or logit_cap), multi, paged)
     n_splits, chunk = split_plan(s_max, b * row_groups, slots, walk, sink)
-    return dict(multi=multi, rows=rows, row_groups=row_groups, n_splits=n_splits, split_keys=chunk, warps=WARPS,
-                walk_window=walk)
+    return dict(multi=multi, paged=paged, rows=rows, row_groups=row_groups, n_splits=n_splits, split_keys=chunk,
+                warps=WARPS, walk_window=walk)
 
 
-def launch_variant(multi: int, t: int, k_bits: int, v_bits: int, b: int) -> str:
+def launch_variant(multi: int, t: int, k_bits: int, v_bits: int, b: int, paged: bool = False) -> str:
     """The key of :attr:`decode_attention.launches_by_variant` for a launch:
-    the kernel instance (``multi`` of :func:`kernel_partition`), the tokens
-    T, each side's bits and the batch."""
+    the kernel instance (``multi`` and ``paged`` of
+    :func:`kernel_partition`), the tokens T, each side's bits and the
+    batch."""
     kind = ("single-token", "T-token", "T-token INT8 PV")[multi]
-    return f"{kind} T{t} k{k_bits}v{v_bits} b{b}"
+    return f"{'paged ' if paged else ''}{kind} T{t} k{k_bits}v{v_bits} b{b}"
 
 
 def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_qk, out_dtype, need_lse, window=0,
-                           sink=0, logit_cap=0.0, int_pv=False):
+                           sink=0, logit_cap=0.0, int_pv=False, page_table=None):
     single = q.dim() == 3
     b, t, h, d = (q.shape[0], 1, *q.shape[1:]) if single else q.shape
-    hk, s_max = k.shape[1], k.shape[2]
+    paged = page_table is not None
+    if paged:
+        hk, n_pages, page = k.shape[:3]
+        s_max = page_table.shape[1] * page
+    else:
+        hk, s_max = k.shape[1], k.shape[2]
     if d not in (32, 64, 128, 256):
         raise _not_ported(f"decode head_dim {d} (kernel D takes 32, 64, 128, 256)", "3")
     if out_dtype not in _OUT_CODES:
@@ -515,7 +597,11 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
         raise TypeError("cache scales must be f32")
     if lengths.dtype != torch.int32 or not lengths.is_contiguous():
         raise TypeError("lengths must be a contiguous int32 tensor")
-    plan = kernel_partition(q, k, v, int_qk=int_qk, int_pv=int_pv, window=window, sink=sink, logit_cap=logit_cap)
+    if paged and (page_table.dtype != torch.int32 or not page_table.is_contiguous()
+                  or page_table.device != q.device):
+        raise TypeError("page_table must be a contiguous int32 tensor on q's device")
+    plan = kernel_partition(q, k, v, int_qk=int_qk, int_pv=int_pv, window=window, sink=sink, logit_cap=logit_cap,
+                            page_table=page_table)
     rows, row_groups, n_splits = plan["rows"], plan["row_groups"], plan["n_splits"]
     if b > 65535 or row_groups > 65535:
         raise ValueError(f"batch and KV heads x row groups are CUDA grid dims (at most 65535): {b}, {t * h}")
@@ -543,7 +629,11 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
               _OUT_CODES[out_dtype], n_splits, plan["split_keys"])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        if plan["multi"]:
+        if paged:
+            fn = lib.lowbit_decode_attn_paged_d256 if d == 256 else lib.lowbit_decode_attn_paged
+            err = fn(*common, plan["walk_window"], sink, t, int(int_pv), page_table.data_ptr(), n_pages, page,
+                     page_table.shape[1], float(sm_scale), float(logit_cap), stream)
+        elif plan["multi"]:
             multi = lib.lowbit_decode_attn_multi_d256 if d == 256 else lib.lowbit_decode_attn_multi
             err = multi(*common, plan["walk_window"], sink, t, int(int_pv), float(sm_scale), float(logit_cap), stream)
         elif d == 256:
@@ -553,7 +643,7 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     decode_attention.launches_by_design[design] += 1
-    variant = launch_variant(plan["multi"], t, k_bits, v_bits, b)
+    variant = launch_variant(plan["multi"], t, k_bits, v_bits, b, paged)
     decode_attention.launches_by_variant[variant] = decode_attention.launches_by_variant.get(variant, 0) + 1
     decode_attention.launches_by_dim[d] += 1
     if single:
@@ -583,13 +673,17 @@ def decode_attention(
     return_lse: bool = False,
     compute_mode: str = "auto",
 ):
-    """Decode attention over a contiguous int8, 4-bit or bf16 KV cache
-    (GQA/MQA): ``q [B, H, D]`` float, or ``[B, T, H, D]`` for T query tokens
+    """Decode attention over a contiguous or paged int8, 4-bit or bf16 KV
+    cache (GQA/MQA): ``q [B, H, D]`` float, or ``[B, T, H, D]`` for T query tokens
     (the speculative verify step: ``lengths`` counts all T new rows, and
     token ``t`` sees ``pos < lengths - (T - 1 - t)``), ``k_cache``/``v_cache
     [B, Hk, S, D]`` (``[B, Hk, S, D/2]`` for a side of 4 bits: ``kv_bits=4``,
     or ``k_bits=4, v_bits=8`` for k4v8), ``k_scale``/``v_scale [B, Hk, S]``,
-    ``lengths [B]`` int32 on q's device. Query head ``h`` reads KV head
+    ``lengths [B]`` int32 on q's device; with ``page_table [B, W]`` int32 the
+    caches are the pool ``[Hk, n_pages, page, D]`` (page a power of two)
+    and the scales ``[Hk, n_pages, page]``, and a sequence's row ``r`` lives at
+    page ``page_table[b, r // page]`` (see the module note; only the pages of
+    rows the walk visits are read). Query head ``h`` reads KV head
     ``h // (H / Hk)``. ``sm_scale`` defaults to ``1/sqrt(D)``.
     ``compute_mode`` "auto" takes the integer QK chain for 8-bit K and the
     float chain otherwise; "int_qk" takes the integer chain for 4-bit K too;
@@ -606,33 +700,44 @@ def decode_attention(
     ``compact_window``, ``clamp_walk``, ``fast_interior``, ``interpret``) are
     not ported.
     """
-    if page_table is not None:
-        raise _not_ported("the paged KV cache (page_table)", "5")
     if compute_mode not in ("auto", "int", "int_qk", "f32"):
         raise ValueError(f"unknown compute_mode {compute_mode!r}")
     k_bits = kv_bits if k_bits is None else k_bits
     v_bits = kv_bits if v_bits is None else v_bits
     _check_bits(k_bits, v_bits)
+    paged = page_table is not None
     if q.dim() not in (3, 4) or k_cache.dim() != 4:
-        raise ValueError(f"q must be [B, H, D] or [B, T, H, D] and the caches [B, Hk, S, D]: {tuple(q.shape)}, "
-                         f"{tuple(k_cache.shape)}")
+        raise ValueError(f"q must be [B, H, D] or [B, T, H, D] and the caches [B, Hk, S, D] (paged: [Hk, n_pages, "
+                         f"page, D]): {tuple(q.shape)}, {tuple(k_cache.shape)}")
     b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
-    _, hk, s_max, _ = k_cache.shape
+    if paged:
+        hk, n_pages, page, _ = k_cache.shape
+        lead, scale_shape = (hk, n_pages, page), (hk, n_pages, page)
+        if page_table.dim() != 2 or page_table.shape[0] != b or page_table.dtype != torch.int32:
+            raise ValueError(f"page_table must be [B, W] int32 with B={b}: {tuple(page_table.shape)}, "
+                             f"{page_table.dtype}")
+        if page < 1 or page & (page - 1):
+            raise ValueError(f"the page size must be a power of two, got {page}")
+        s_max = page_table.shape[1] * page
+    else:
+        _, hk, s_max, _ = k_cache.shape
+        lead, scale_shape = (b, hk, s_max), (b, hk, s_max)
     width = lambda bits: d // 2 if bits == 4 else d  # noqa: E731
-    if tuple(k_cache.shape) != (b, hk, s_max, width(k_bits)) or tuple(v_cache.shape) != (b, hk, s_max, width(v_bits)):
-        raise ValueError(f"caches must be [B, Hk, S, D] (D/2 at 4 bits) with D={d}, k_bits={k_bits}, "
-                         f"v_bits={v_bits}: {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    if tuple(k_cache.shape) != lead + (width(k_bits),) or tuple(v_cache.shape) != lead + (width(v_bits),):
+        raise ValueError(f"caches must be {'[Hk, n_pages, page, D]' if paged else '[B, Hk, S, D]'} (D/2 at 4 bits) "
+                         f"with D={d}, k_bits={k_bits}, v_bits={v_bits}: {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
     for side, cache, bits in (("k", k_cache, k_bits), ("v", v_cache, v_bits)):
         if (cache.dtype == torch.int8) != (bits != 16):
             raise TypeError(f"a {bits}-bit {side} cache holds {'bf16 rows' if bits == 16 else 'int8 bytes'}, "
                             f"not {cache.dtype}")
     if hk == 0 or h % hk:
         raise ValueError(f"query heads {h} not a multiple of kv heads {hk}")
-    if tuple(k_scale.shape) != (b, hk, s_max):
-        raise ValueError(f"k_scale must be [B, Hk, S], got {tuple(k_scale.shape)}")
+    if tuple(k_scale.shape) != scale_shape:
+        raise ValueError(f"k_scale must be {list(scale_shape)}, got {tuple(k_scale.shape)}")
     v_quantized = v_cache.dtype == torch.int8
-    if v_quantized and (v_scale is None or tuple(v_scale.shape) != (b, hk, s_max)):
-        raise ValueError("a quantized V cache needs v_scale [B, Hk, S]")
+    if v_quantized and (v_scale is None or tuple(v_scale.shape) != scale_shape):
+        raise ValueError(f"a quantized V cache needs v_scale {list(scale_shape)}")
     if tuple(lengths.shape) != (b,):
         raise ValueError(f"lengths must be [B], got {tuple(lengths.shape)}")
     int_qk = k_cache.dtype == torch.int8 and (compute_mode in ("int", "int_qk") or (compute_mode == "auto"
@@ -646,7 +751,7 @@ def decode_attention(
     # A window as long as the cache hides no row (lengths count at most S).
     window = window if window < s_max else 0
     opts = dict(window=window, sink=int(sink_size) if window else 0, logit_cap=float(logit_cap), int_pv=int_pv)
-    if q.dim() == 4 and q.shape[1] == 1 and not int_pv:  # one token: the single-token kernels
+    if q.dim() == 4 and q.shape[1] == 1 and not int_pv and not paged:  # one token: the single-token kernels
         out = decode_attention(q[:, 0], k_cache, v_cache, k_scale, lengths, v_scale=v_scale, sm_scale=sm_scale,
                                logit_cap=logit_cap, k_bits=k_bits, v_bits=v_bits, window_size=window_size,
                                sink_size=sink_size, return_lse=return_lse, compute_mode=compute_mode)
@@ -654,10 +759,15 @@ def decode_attention(
 
     args = (q, k_cache, v_cache, k_scale, v_scale if v_quantized else None, lengths)
     if q.device.type == "cpu":
-        o, lse = decode_attention_plain(*args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, **opts)
+        if paged:
+            o, lse = decode_attention_paged_plain(*args, page_table, sm_scale=sm_scale, int_qk=int_qk,
+                                                  out_dtype=q.dtype, **opts)
+        else:
+            o, lse = decode_attention_plain(*args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, **opts)
     elif q.device.type == "cuda":
         o, lse = _decode_attention_cuda(
-            *args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, need_lse=return_lse, **opts
+            *args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, need_lse=return_lse, page_table=page_table,
+            **opts
         )
     else:
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, not {q.device}")

@@ -119,3 +119,137 @@ def check_case(name: str, gen: torch.Generator) -> dict:
     r["ok"] = (r["finite"] and r["cos"] >= 0.99999 and r["max_do"] <= r["bf16_ulp"] and r["max_dlse"] <= 1e-4
                and r["same_bits_twice"] and r["empty_rows_ok"] and r["on_design"] and r["on_variant"] and r["shape_ok"])
     return r
+
+
+#: Kernel D over the paged cache: ``(T, cache mode, compute_mode, d, b, h,
+#: hk, page, W, lengths, window, sink, q dtype[, logit cap])``, W the table's
+#: pages a sequence. Tiles that span pages (page 8-32 under 64-key tiles) and
+#: pages that hold several tiles (64-256), lengths 0 and at page edges, the
+#: window / sink walk, INT8 PV, every cache mode and head dim.
+PAGED_CASES = {
+    "paged-t1-int8-p16": (1, "int8", "auto", 128, 4, 32, 8, 16, 40, [0, 80, 640, 115], 0, 0, torch.bfloat16),
+    "paged-t4-int8-p64-window256-sink4": (4, "int8", "auto", 128, 4, 32, 8, 64, 12, [577, 578, 768, 3], 256, 4,
+                                          torch.bfloat16),
+    "paged-t1-bf16-p8-d64": (1, "bf16", "auto", 64, 3, 8, 2, 8, 50, [400, 1, 64], 0, 0, torch.bfloat16),
+    "paged-t2-int4-p8-d64": (2, "int4", "auto", 64, 2, 8, 8, 8, 40, [320, 17], 0, 0, torch.bfloat16),
+    "paged-t1-k4v8-p256": (1, "k4v8", "auto", 128, 2, 32, 8, 256, 4, [1024, 257], 0, 0, torch.bfloat16),
+    "paged-t3-k4v8-int-qk-p8-d32": (3, "k4v8", "int_qk", 32, 3, 8, 2, 8, 30, [240, 2, 100], 0, 0, torch.float32),
+    "paged-t1-int4-int-qk-p32-window100": (1, "int4", "int_qk", 128, 2, 32, 8, 32, 16, [512, 150], 100, 0,
+                                           torch.bfloat16),
+    "paged-t1-int8-p16-window256-cap30": (1, "int8", "auto", 128, 2, 32, 8, 16, 40, [640, 300], 256, 0,
+                                          torch.bfloat16, 30.0),
+    "paged-pv8-t4-p16": (4, "int8", "int", 128, 4, 32, 8, 16, 40, [1, 65, 640, 333], 0, 0, torch.bfloat16),
+    "paged-pv8-t1-p8-window100-sink8-d64": (1, "int8", "int", 64, 2, 8, 2, 8, 40, [320, 110], 100, 8,
+                                            torch.bfloat16),
+    "paged-d256-t1-int8-p16": (1, "int8", "auto", 256, 2, 16, 8, 16, 32, [512, 33], 0, 0, torch.bfloat16),
+    "paged-d256-t4-k4v8-p64": (4, "k4v8", "auto", 256, 2, 16, 8, 64, 8, [512, 70], 0, 0, torch.bfloat16),
+    "paged-d256-pv8-t2-p8": (2, "int8", "int", 256, 2, 16, 8, 8, 40, [320, 9], 0, 0, torch.bfloat16),
+    "paged-d256-t1-bf16-p32-window100": (1, "bf16", "auto", 256, 2, 16, 8, 32, 10, [320, 64], 100, 0,
+                                         torch.bfloat16),
+}
+
+
+def paged_pool(k, v, k_bits, v_bits, page, gen, lengths=None, window=0, sink=0, q_tokens=1):
+    """Contiguous K/V ``[B, Hk, W·page, D]`` quantized per token and written
+    into a pool of pages ``[Hk, n_pages, page, Dc]`` through a shuffled table
+    ``[B, W]`` (two pages more than the table names). With
+    ``lengths``, every page no sequence's walk visits gets NaN scales (and
+    NaN rows in a bf16 cache), so a read of one shows. Returns ``(pool
+    dict of k, v, k_scale, v_scale, the table, the contiguous quantized
+    cache as (kq, vq, ks, vs))``."""
+    b, hk, rows, _ = k.shape
+    width = rows // page
+    (kq, ks), (vq, vs) = DD.quantize_token(k, bits=k_bits), DD.quantize_token(v, bits=v_bits)
+    n_pages = b * width + 2
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(int(torch.randint(
+        0, 2**31 - 1, (1,), generator=gen, device=gen.device))))
+    table = perm[: b * width].reshape(b, width).to(torch.int32)
+
+    def to_pool(x):
+        pool = torch.zeros((hk, n_pages, page) + tuple(x.shape[3:]), dtype=x.dtype, device=x.device)
+        src = x.reshape((b, hk, width, page) + tuple(x.shape[3:])).transpose(0, 1)  # [Hk, B, W, page, ..]
+        pool[:, table.long().to(x.device)] = src
+        return pool
+
+    pool = {"k": to_pool(kq), "v": to_pool(vq), "k_scale": to_pool(ks), "v_scale": to_pool(vs)}
+    if lengths is not None:
+        visited = set()
+        for i, n in enumerate(lengths):
+            for lo, hi in DD.walk_rows(int(n), rows, window=window, sink=sink, q_tokens=q_tokens):
+                if hi > lo:
+                    visited |= {int(table[i, p]) for p in range(lo // page, -(-hi // page))}
+        dead = torch.tensor(sorted(set(range(n_pages)) - visited), dtype=torch.long, device=k.device)
+        for name, bits in (("k", k_bits), ("v", v_bits), ("k_scale", 0), ("v_scale", 0)):
+            if bits in (0, 16):
+                pool[name][:, dead] = float("nan")
+    return pool, table.to(k.device), (kq, vq, ks, vs)
+
+
+def paged_case_inputs(name: str, gen: torch.Generator, device="cuda") -> tuple:
+    """``(q, pool, table, lengths, options, plain options, contiguous
+    cache)`` of a paged case (:func:`paged_pool`, unvisited pages NaN)."""
+    t, cache, mode, d, b, h, hk, page, width, lengths, window, sink, q_dtype, *cap = PAGED_CASES[name]
+    cap = cap[0] if cap else 0.0
+    k_bits, v_bits = CACHES[cache]
+    k = torch.randn(b, hk, width * page, d, generator=gen, device=device).bfloat16()
+    v = torch.randn(b, hk, width * page, d, generator=gen, device=device).bfloat16()
+    pool, table, contiguous = paged_pool(k, v, k_bits, v_bits, page, gen, lengths=lengths, window=window, sink=sink,
+                                         q_tokens=t)
+    q = torch.randn(b, t, h, d, generator=gen, device=device).to(q_dtype)
+    int_qk = k_bits != 16 and (mode in ("int", "int_qk") or (mode == "auto" and k_bits == 8))
+    int_pv = mode == "int" and v_bits == 8
+    plan = DD.kernel_partition(q, pool["k"], pool["v"], int_qk=int_qk, int_pv=int_pv, window=window, sink=sink,
+                               logit_cap=cap, page_table=table)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    opts = dict(v_scale=pool["v_scale"] if v_bits != 16 else None, k_bits=k_bits, v_bits=v_bits, compute_mode=mode,
+                window_size=window or None, sink_size=sink, logit_cap=cap)
+    plain = dict(sm_scale=1.0 / math.sqrt(d), int_qk=int_qk, out_dtype=q.dtype, window=window,
+                 sink=sink if window else 0, int_pv=int_pv, split_keys=plan["split_keys"], warps=plan["warps"],
+                 logit_cap=cap)
+    return q, pool, table, lens, opts, plain, contiguous
+
+
+def check_paged_case(name: str, gen: torch.Generator) -> dict:
+    """A paged case twice through the kernel and once through the plain
+    version on the kernel's tiles (the visited pages gathered), at
+    :func:`check_case`'s bounds; also whether the contiguous kernel on the
+    same rows (``W·page`` a sequence, so the same plan) gives the same bits
+    (reported, not required: one paged token runs the T-token kernel at
+    T = 1, the contiguous call the single-token one)."""
+    q, pool, table, lens, opts, plain, (kq, vq, ks, vs) = paged_case_inputs(name, gen)
+    b, t = q.shape[:2]
+    k_bits, v_bits = opts["k_bits"], opts["v_bits"]
+    multi = 2 if plain["int_pv"] else 1
+    variant = DD.launch_variant(multi, t, k_bits, v_bits, b, paged=True)
+    n = DD.decode_attention.launches_by_design["bulk_ring"]
+    n_variant = DD.decode_attention.launches_by_variant.get(variant, 0)
+    o, lse = DD.decode_attention(q, pool["k"], pool["v"], pool["k_scale"], lens, page_table=table, **opts,
+                                 return_lse=True)
+    o2, lse2 = DD.decode_attention(q, pool["k"], pool["v"], pool["k_scale"], lens, page_table=table, **opts,
+                                   return_lse=True)
+    o_ref, lse_ref = DD.decode_attention_paged_plain(q, pool["k"], pool["v"], pool["k_scale"], opts["v_scale"], lens,
+                                                     table, **plain)
+    on_design = DD.decode_attention.launches_by_design["bulk_ring"] == n + 2
+    on_variant = DD.decode_attention.launches_by_variant.get(variant, 0) == n_variant + 2
+    copts = {**opts, "v_scale": vs if v_bits != 16 else None}
+    oc, lc = DD.decode_attention(q, kq, vq, ks, lens, **copts, return_lse=True)
+    torch.cuda.synchronize()
+    limits = lens.long()[:, None] - (t - 1) + torch.arange(t, device=lens.device)
+    empty = limits <= 0
+    r = {
+        "cos": float(cosine_similarity(o, o_ref)),
+        "max_do": float((o.float() - o_ref.float()).abs().max()),
+        "max_dlse": float((lse - lse_ref).abs().max()),
+        "bf16_ulp": 2.0 ** (math.floor(math.log2(float(o_ref.float().abs().max()))) - 7),
+        "finite": bool(torch.isfinite(o.float()).all()),
+        "same_bits_twice": torch.equal(o, o2) and torch.equal(lse, lse2),
+        "empty_rows_ok": bool((o[empty].float() == 0).all()) and bool((lse[empty] == -1e30).all()),
+        "on_design": on_design,
+        "on_variant": on_variant,
+        "shape_ok": tuple(o.shape) == tuple(q.shape) and tuple(lse.shape) == tuple(q.shape[:-1]),
+        "contiguous_bits_equal": torch.equal(o, oc) and torch.equal(lse, lc),
+        "lengths": lens.tolist(),
+    }
+    r["ok"] = (r["finite"] and r["cos"] >= 0.99999 and r["max_do"] <= r["bf16_ulp"] and r["max_dlse"] <= 1e-4
+               and r["same_bits_twice"] and r["empty_rows_ok"] and r["on_design"] and r["on_variant"] and r["shape_ok"])
+    return r

@@ -26,6 +26,13 @@ from ..ops.attention import LOG2E, _mask_args
 from ..ops.metrics import cosine_similarity
 from ..ops.quant import quant_int2, quant_int4, quant_int8, quant_v_int8_per_channel
 
+#: The card's bound on fp32 PV's output against the plain version (f32):
+#: twice the worst of the extra grid's edges on an H100 (2.1e-5 at d256, where
+#: the tensor cores still sum across tiles; 1.5e-5 at d64/d128), where rows
+#: that see few keys meet the 3-product split's dropped terms (each below
+#: 2^-18 of |P V|); chip_smoke.py's PV32_MAX_DO.
+PV32_MAX_DO = 4.3e-5
+
 MODES = {
     "int8-d64": ("int8", 8, "bf16", 64), "fused-d64": ("fused", 8, "bf16", 64), "fused-d128": ("fused", 8, "bf16", 128),
     "fp-d64": ("fp", 16, "bf16", 64), "fp-d128": ("fp", 16, "bf16", 128), "int4-k-d64": ("fused", 4, "bf16", 64),

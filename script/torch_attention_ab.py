@@ -17,8 +17,8 @@ K, INT8 V and INT8 V with INT8 PV at the DiT shape. The processes run in
 turns main, base, v1, v2, ..., then the same in reverse, so each build is
 compared with main within one call; ``--pairs N`` repeats that N times.
 ``--sass`` first compares, kernel by kernel, the SASS (``cuobjdump -sass``,
-addresses and encodings dropped) of main's kernels (without fp32 PV or the
-bias) with base's kernels of the same template arguments, where base
+addresses and encodings dropped) of main's kernels (without fp32 PV) with
+base's kernels of the same template arguments, where base
 predates the masks', fp32 PV's or the bias's template argument. ``--masked`` times
 the masked kernels (kMasks) at chip_smoke.py phase 15's shapes instead
 (``masked_worker``). Prints the card's name and power limit
@@ -192,16 +192,16 @@ def library_of(root: str) -> str:
 
 
 def sass_diff(main_bin: str, base_bin: str) -> bool:
-    """Prints, for each kernel that both binaries hold (with and without the
-    masks; main's fp32-PV and bias kernels are new), whether its
-    instructions (and their encodings, with the scheduling bits) are the
-    same, and the first differing instructions where they are not. True when
-    every such kernel's instructions are the same."""
+    """Prints, for each kernel without fp32 PV that both binaries hold (with
+    and without the masks and the bias), whether its instructions (and their
+    encodings, with the scheduling bits) are the same, and the first
+    differing instructions where they are not. True when every such kernel's
+    instructions are the same."""
     a, b = sass_kernels(main_bin), sass_kernels(base_bin)
     same = True
-    for key in sorted(k for k in a if not k[5] and not k[6] and k in b):
+    for key in sorted(k for k in a if not k[5] and k in b):
         (la, ea), (lb, eb) = a[key], b[key]
-        name = "attn_fwd_wgmma_kernel<{}, int8={}, staged={}, pv8={}, masks={}>".format(*key[:5])
+        name = "attn_fwd_wgmma_kernel<{}, int8={}, staged={}, pv8={}, masks={}, bias={}>".format(*key[:5], key[6])
         if la == lb:
             print(f"sass {name}: instructions identical ({len(la)}), encodings "
                   f"{'identical' if ea == eb else 'differ'}", flush=True)
@@ -212,10 +212,11 @@ def sass_diff(main_bin: str, base_bin: str) -> bool:
               f"positions differ", flush=True)
         for i, x, y in diff[:8]:
             print(f"    {i}: main {x} | base {y}", flush=True)
-    n = sum(1 for k in a if not k[5] and not k[6] and k in b)
-    print(f"sass: {n} of base's {len(b)} kernels of A compared with main's (main holds {len(a)}), "
-          f"{'all identical' if same and n == len(b) else 'NOT all identical'}", flush=True)
-    return same
+    n = sum(1 for k in a if not k[5] and k in b)
+    want = sum(1 for k in b if not k[5])
+    print(f"sass: {n} of base's {want} kernels of A without fp32 PV ({len(b)} in all) compared with main's (main "
+          f"holds {len(a)}), {'all identical' if same and n == want else 'NOT all identical'}", flush=True)
+    return same and n == want
 
 
 def main(names, base=None, sass=False, pairs=1, masked=False) -> None:

@@ -282,14 +282,6 @@ def test_decode_attention_ignores_rows_past_length():
     torch.testing.assert_close(stale, clean, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(page_table=torch.zeros(4, 2, dtype=torch.int32)), "5")])
-def test_unported_decode_options_raise(kw, item):
-    q, kq, vq, ks, vs, lengths = _decode_inputs(4, 4, 4, 32, 64, 8, 8, seed=5)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        td.decode_attention(torch.from_numpy(q), _torch(kq), _torch(vq), _torch(ks), torch.from_numpy(lengths),
-                            v_scale=_torch(vs), **kw)
-
-
 @pytest.mark.parametrize("bad", [dict(kv_bits=2), dict(k_bits=4, v_bits=6)])
 def test_unknown_cache_bits_raise(bad):
     with pytest.raises(ValueError, match="16, 8 or 4"):

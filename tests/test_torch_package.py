@@ -125,7 +125,8 @@ def test_build_command_targets_sm90a_from_repo_sources():
         "attention_bwd_wgmma.cu", "attention_bwd_wgmma_d256.cu", "attention_fwd_wgmma.cu",
         "attention_fwd_wgmma_bias.cu", "attention_fwd_wgmma_d256.cu", "attention_fwd_wgmma_pv32.cu",
         "decode_attention.cu", "decode_attention_d256.cu", "decode_attention_multi.cu",
-        "decode_attention_multi_d256.cu", "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
+        "decode_attention_multi_d256.cu", "decode_attention_paged.cu", "decode_attention_paged_d256.cu",
+        "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert all(f"-I{_build.CSRC_DIR}" in cmd for cmd in compiles)  # the shared headers, e.g. sm90.cuh
     assert os.path.join(_build.CSRC_DIR, "sm90.cuh") in _build.hashed_files()
@@ -1099,8 +1100,8 @@ def test_attention_d256_bias_and_fp32_pv_match_plain(cuda, mode, edge):
     and at the masks' edges; the bias (vector and matrix, with causal
     masking, a window and the cap) and fp32 PV at d64/d128/d256: against
     the plain version at phase 4's bounds, fp32 PV's output (f32) within
-    1e-4, the same bits on a second run, every launch on the wgmma design
-    and on the kernel of its head dim."""
+    ``mask_cases.PV32_MAX_DO``, the same bits on a second run, every launch
+    on the wgmma design and on the kernel of its head dim."""
     case = mask_cases.make_case(mode, edge, torch.Generator(device=cuda).manual_seed(22), cuda)
     dp = lowbit_attention_ops.kernel_dim(case["args"][0].shape[-1])
     n, n_dim = lowbit_attention.launches_by_design["wgmma"], lowbit_attention.launches_by_dim[dp]
@@ -1112,7 +1113,7 @@ def test_attention_d256_bias_and_fp32_pv_match_plain(cuda, mode, edge):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     r = mask_cases.masked_stats(o, lse, o_ref, lse_ref)
     assert r["finite"] and r["empty_ok"], r
-    max_do = 1e-4 if case["kw"].get("pv_dtype") == torch.float32 else 2e-2
+    max_do = mask_cases.PV32_MAX_DO if case["kw"].get("pv_dtype") == torch.float32 else 2e-2
     assert r["cos"] >= 0.99999 and r["max_do"] <= max_do and r["max_dlse"] <= 1e-3, r
 
 
@@ -1285,4 +1286,40 @@ def test_decode_multitoken_and_int8_pv_match_plain(cuda, case):
     bounds, empty rows 0 / -1e30, the same bits twice, every launch on the
     design."""
     r = decode_cases.check_case(case, torch.Generator(device=cuda).manual_seed(12))
+    assert r["ok"], r
+
+
+# ---------------------------------------------------------------------------
+# Kernel D over the paged cache
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", list(decode_cases.PAGED_CASES))
+def test_paged_cases_run_the_plain_version_on_the_cpu(case, monkeypatch):
+    """Each paged card case of ``utils/decode_cases.py`` built on the CPU
+    (occupancy stubbed as above): the paged call, which reads only the pages
+    its walk visits (every other page NaN), equals the contiguous call on the
+    same rows bit for bit, and rows that see no key give o = 0, lse =
+    -1e30."""
+    monkeypatch.setattr(decode_ops, "_resident_ctas", lambda *a, **k: 396)
+    q, pool, table, lens, opts, plain, (kq, vq, ks, vs) = decode_cases.paged_case_inputs(
+        case, torch.Generator().manual_seed(12), "cpu")
+    o, lse = decode_attention(q, pool["k"], pool["v"], pool["k_scale"], lens, page_table=table, **opts,
+                              return_lse=True)
+    oc, lc = decode_attention(q, kq, vq, ks, lens, **{**opts, "v_scale": vs if opts["v_bits"] != 16 else None},
+                              return_lse=True)
+    assert o.shape == q.shape and torch.isfinite(o.float()).all()
+    assert torch.equal(o, oc) and torch.equal(lse, lc)
+    limits = lens.long()[:, None] - (q.shape[1] - 1) + torch.arange(q.shape[1])
+    assert bool((o[limits <= 0].float() == 0).all()) and bool((lse[limits <= 0] == -1e30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(decode_cases.PAGED_CASES))
+def test_decode_paged_cases_match_plain(cuda, case):
+    """Kernel D's paged instances against the paged plain version on the
+    kernel's tiles (``utils/decode_cases.py``: tiles across pages, pages of
+    several tiles, every unvisited page NaN): phase 9's bounds, empty rows,
+    the same bits twice, every launch on the design and the paged variant."""
+    r = decode_cases.check_paged_case(case, torch.Generator(device=cuda).manual_seed(12))
     assert r["ok"], r
