@@ -230,15 +230,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    kernel, fp, packed INT4/INT2 K, INT8 V, INT8 PV) and at d192 (padded),
    unmasked and at the masks' edges, and the bias (vector and matrix, with
    causal masking, a window and the cap) and fp32 PV (pv_dtype float32, f32
-   V or int8 codes, d64/d128/d256) at their edges, over the grids of
-   utils/mask_cases.py, against the plain version at phase 4's bounds
-   (fp32 PV's f32 output within PV32_MAX_DO, 4.3e-5), the same bits twice, every launch on
-   the kernel of its head dim; A timed in every mode at bench.py:119's b4
+   V or int8 codes, d64/d128/d256, INT8 and bf16 QK) at their edges, over
+   the grids of utils/mask_cases.py, against the plain version at phase 4's
+   bounds (fp32 PV's f32 output within PV32_MAX_DO, 1e-5), the same bits
+   twice, every launch on the kernel of its head dim; A timed in every mode at bench.py:119's b4
    h8 s4096 d256 (SDPA bf16 at d256 under its own dispatch beside fp),
    int8 at the hd256 LLM's
    prefill (b4 h16 hk8 s32704 d256 causal), the bias vector at the DiT
    shape and the matrix at b1 h8 s4096 d128 (SDPA with a float attn_mask
-   beside them), fp32 PV at the DiT shape (SDPA on f32 inputs beside it);
+   beside them), fp32 PV at the DiT shape and at d256 with INT8 and with
+   bf16 QK at bench.py:119's shape (SDPA on f32 inputs beside each);
    D at d256 in every cache mode of phase 9 at b4 h16 hk8 S_max 32768
    (lengths 32768/1/4097/0), a split boundary +- 1, f32 queries and a
    window of 300 + 8 sinks with the cap 2, at phase 9's bounds, timed at
@@ -300,6 +301,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
    generate's; (i) the trained checkpoint's 64 prompts through the engine
    on int8, int4 and k4v8 pages: exact-match equal to generate's on the
    same cache mode.
+
+20. kernel D at head dims 80 and 96 and the Phi-3-mini-geometry LLM (run
+   last): D over utils/decode_cases.py's d80/d96 cases, contiguous and
+   paged (T 1-8, every cache mode and both chains, tile and split edges, a
+   window with sinks, the cap, INT8 PV, 40-byte 4-bit rows, pages of
+   8-64) at phase 9's bounds, every launch at its head dim; C1 at the d96
+   prefill's K (padded to 128 by the entry point: vector; left 96 wide:
+   scalar), bit-equal and timed; D timed in every cache mode at b8 h32 hk32
+   S_max 4096 d96 (Phi-3-mini's decode) and S_max 2048 d80 (Phi-2's),
+   with the byte bound and SDPA (one query a head over the bf16 cache)
+   beside, and its T-token (T 4) and paged (pages of 64) instances at d96;
+   F1 w8 at the model's MLP matrices (M 8); then the model (dim 3072, 32
+   heads and 32 KV heads of 96, depth 32, vocab 32064, 3.72 B random
+   seeded parameters) at b8 from 3,968-token prompts: llm_prefill and 63
+   graph-decoded tokens on the int8, bf16, int4 and k4v8 caches and with
+   w8 weights (launch counts, every D at head dim 96; first-step logits
+   int8 vs bf16 cache cos >= 0.999; an int8 decode step profiled);
+   speculative_generate (b1, spec_k 4, int4 self-draft) token-equal to
+   generate; ServingEngine (pages of 64, 8 slots, 8 requests of
+   1,024-3,968 tokens, 32 new each, int8 pages) with each stream equal to
+   generate's on its prompt alone or parting at a near-tie (generate's row
+   puts the engine's token at most 4 times the b1-vs-b8 step's largest
+   |logit difference| below its own); the int8 cache saved and reloaded
+   (utils/checkpoint.py) decodes the same tokens.
 
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
@@ -422,7 +447,8 @@ def stats(o, o_ref, lse=None, lse_ref=None):
 
 
 def check_close(name, r, max_dlse=MAX_DLSE):
-    ok = r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= MAX_DO and r.get("max_dlse", 0.0) <= max_dlse
+    ok = (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= MAX_DO and r.get("max_dlse", 0.0) <= max_dlse
+          and r.get("same_bits_twice", True) and r.get("on_dim", True))
     log(f"[A] {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items()))
     if not ok:
         raise AssertionError(f"kernel A disagrees with its plain version in case {name}: {r}")
@@ -623,7 +649,8 @@ def attention_phase(gen):
             if not torch.equal(o2, o):
                 raise AssertionError("kernel A output differs with return_lse=False")
             log("[A] return_lse=False: output identical")
-    return {f"{mode} {shape}": time_attention(gen, mode, shape) for shape in A_SHAPES for mode in ("fused", "fp")}
+    return {f"{mode} {shape}": time_attention(gen, mode, *A_SHAPES[shape], plain_reps=3 if shape == "dit" else 1)
+            for shape in A_SHAPES for mode in ("fused", "fp")}
 
 
 # The shapes kernel A is timed at: the DiT's (b1 h30 s17776 d64) and one
@@ -631,17 +658,21 @@ def attention_phase(gen):
 A_SHAPES = {"dit": (H, H, S, D, False), "prefill": (32, 8, 32704, 128, True)}
 
 
-def time_attention(gen, mode, shape):
+def time_attention(gen, mode, h, hk, s, d, causal, plain_reps=1):
     """Kernel A (``mode`` "fused": int8 with Q quantized in the kernel, or
-    "fp") at one of A_SHAPES: held to its plain version, then timed beside
-    the plain version and SDPA in bf16."""
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import attention_fwd_plain, kernel_design, lowbit_attention
+    "fp") at b1 ``h``/``hk`` heads, ``s`` rows of ``d`` (padded to the
+    kernel's head dim by the entry point): the same bits twice, held to its
+    plain version at phase 4's bounds, then timed beside the plain version
+    and SDPA in bf16."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import (attention_fwd_plain, kernel_design, kernel_dim,
+                                                                 lowbit_attention)
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import attention_flops, cuda_time_ms, tflops
 
-    h, hk, s, d, causal = A_SHAPES[shape]
     name = f"{mode} b1 h{h} hk{hk} s{s} d{d}{' causal' if causal else ''}"
     kargs, pargs, opts, c = attn_inputs(gen, h, hk, s, d, mode, causal=causal)
+    n = lowbit_attention.launches_by_dim[kernel_dim(d)]
     o, lse = lowbit_attention(*kargs, **opts, return_lse=True)
+    o2, lse2 = lowbit_attention(*kargs, **opts, return_lse=True)
 
     def plain():
         return attention_fwd_plain(*pargs, causal=causal, sm_scale_log2e=c, out_dtype=torch.bfloat16)
@@ -649,11 +680,13 @@ def time_attention(gen, mode, shape):
     o_ref, lse_ref = plain()
     torch.cuda.synchronize()
     r = stats(o, o_ref, lse, lse_ref)
+    r["same_bits_twice"] = torch.equal(o, o2) and torch.equal(lse, lse2)
+    r["on_dim"] = lowbit_attention.launches_by_dim[kernel_dim(d)] == n + 2
     check_close(name, r)
-    del o, lse, o_ref, lse_ref
+    del o, lse, o2, lse2, o_ref, lse_ref
     ms = cuda_time_ms(lambda: lowbit_attention(*kargs, **opts), warmup=2, reps=10)
     mhz = sm_clock_mhz()
-    plain_ms = cuda_time_ms(plain, warmup=1, reps=3 if shape == "dit" else 1)
+    plain_ms = cuda_time_ms(plain, warmup=1, reps=plain_reps)
     flops = attention_flops(1, h, d, s, s, causal)
     pairs = h * (s * (s + 1) // 2 if causal else s * s)
     q_, k_, v_, _, ks_ = kargs
@@ -859,6 +892,42 @@ def entry_point_phase(gen):
 
 DIT_IMPLS = ("int8", "int8_v8", "int4", "fp")
 GEMM_NAMES = ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")
+#: The port's gemv kernels (F1/F2), which GEMM_NAMES would also take.
+F_NAMES = ("::gemv_kernel", "::gemv_tc_kernel", "::gemv_w8_kernel", "::gemv_w8_direct_kernel")
+
+
+def profile_classes(fn, classes, ranges=()):
+    """Runs ``fn`` once under torch.profiler and sums its kernels' device ms
+    by class: ``classes`` maps a class to the pieces of a lower-case kernel
+    name that put a kernel in it (the first class that matches takes it;
+    no match: "other"). Each name in ``ranges`` is a record_function range
+    that ``fn`` opens; its entry is the device ms of the kernels launched
+    inside it, which their classes count as well. Returns (ms by class and
+    range, kernels by class, the "other" kernels as (ms, count, name),
+    largest first)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    keys = list(classes) + ["other"]
+    ms, n, other = dict.fromkeys(keys + list(ranges), 0.0), dict.fromkeys(keys, 0), []
+    for e in prof.key_averages():
+        if e.key in ranges:
+            # The range's CPU entry sums the kernels launched inside it.
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                ms[e.key] += e.device_time_total / 1e3
+            continue
+        # Kernels only: a CPU op's entry repeats its kernels' device time.
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        key = next((c for c, pieces in classes.items() if any(piece in name for piece in pieces)), "other")
+        ms[key] += e.device_time_total / 1e3
+        n[key] += e.count
+        if key == "other":
+            other.append((e.device_time_total / 1e3, e.count, e.key[:70]))
+    return ms, n, sorted(other, reverse=True)
 
 
 def dit_step_profile(model, x, t, impl):
@@ -869,25 +938,10 @@ def dit_step_profile(model, x, t, impl):
     rest's largest kernels. Runs under the caller's inference mode."""
     from lowbit_quant_fa2_paddle_tpu_torch.models import dit
 
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        dit.dit_forward(model, x, t, attn_impl=impl)
-        torch.cuda.synchronize()
-    keys = ("A", "C1/C2", "copy", "mean", "GEMM", "other")
-    cats, n = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0)
-    other = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms, name = e.device_time_total / 1e3, e.key.lower()
-        key = ("A" if "attn_fwd" in name else "C1/C2" if "quant_per" in name else "copy" if "copy" in name
-               else "mean" if "meanops" in name else "GEMM" if any(w in name for w in GEMM_NAMES) else "other")
-        cats[key] += ms
-        n[key] += e.count
-        if key == "other":
-            other.append((ms, e.count, e.key[:60]))
-    top = ", ".join(f"{name} x{c} {ms:.2f}" for ms, c, name in sorted(other, reverse=True)[:4])
+    cats, n, other = profile_classes(
+        lambda: dit.dit_forward(model, x, t, attn_impl=impl),
+        {"A": ("attn_fwd",), "C1/C2": ("quant_per",), "copy": ("copy",), "mean": ("meanops",), "GEMM": GEMM_NAMES})
+    top = ", ".join(f"{name} x{c} {ms:.2f}" for ms, c, name in other[:4])
     return cats, n, top
 
 
@@ -1188,24 +1242,11 @@ def train_step_profile(model, x0, tgen, impl):
     from lowbit_quant_fa2_paddle_tpu_torch.models import dit
 
     t, noise = dit.draw_t_noise(x0, tgen)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        dit.sgd_train_step(model, x0, t, noise, lr=TRAIN_LR, attn_impl=impl)
-        torch.cuda.synchronize()
-    cats = dict.fromkeys(("G1", "G2", "A", "C1", "GEMM", "other"), 0.0)
-    other = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms, name = e.device_time_total / 1e3, e.key.lower()
-        key = ("G1" if "attn_bwd_dq" in name else "G2" if "attn_bwd_dkv" in name else "A" if "attn_fwd" in name
-               else "C1" if "quant_per" in name
-               else "GEMM" if any(w in name for w in ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")) else "other")
-        cats[key] += ms
-        if key == "other":
-            other.append((ms, e.count, e.key[:60]))
-    top = ", ".join(f"{n} x{c} {ms:.1f}" for ms, c, n in sorted(other, reverse=True)[:4])
+    cats, _, other = profile_classes(
+        lambda: dit.sgd_train_step(model, x0, t, noise, lr=TRAIN_LR, attn_impl=impl),
+        {"G1": ("attn_bwd_dq",), "G2": ("attn_bwd_dkv",), "A": ("attn_fwd",), "C1": ("quant_per",),
+         "GEMM": GEMM_NAMES})
+    top = ", ".join(f"{n} x{c} {ms:.1f}" for ms, c, n in other[:4])
     return cats, top
 
 
@@ -1872,29 +1913,9 @@ def decode_step_profile(model, prompt, cfg):
     del logits
     for _ in range(2):
         _, caches = llm.llm_decode_step(model, tok, caches, cfg)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        llm.llm_decode_step(model, tok, caches, cfg)
-        torch.cuda.synchronize()
-    cats = {"F": 0.0, "GEMM": 0.0, "D": 0.0, "other": 0.0}
-    other = []
-    for e in prof.key_averages():
-        # Kernels only: a CPU op's entry repeats its kernels' device time.
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.device_time_total
-        name = e.key.lower()
-        if re.search(r"::gemv_(tc_|w8_|w8_direct_)?kernel", name):
-            cats["F"] += us / 1e3
-        elif any(t in name for t in ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")):
-            cats["GEMM"] += us / 1e3
-        elif "decode" in name:
-            cats["D"] += us / 1e3
-        else:
-            cats["other"] += us / 1e3
-            other.append((us / 1e3, e.count, e.key[:70]))
-    top = ", ".join(f"{name} x{n} {ms:.3f}" for ms, n, name in sorted(other, reverse=True)[:5])
+    cats, _, other = profile_classes(lambda: llm.llm_decode_step(model, tok, caches, cfg),
+                                     {"F": F_NAMES, "GEMM": GEMM_NAMES, "D": ("decode",)})
+    top = ", ".join(f"{name} x{n} {ms:.3f}" for ms, n, name in other[:5])
     return cats, f"{len(other)} other kernel names; top: {top}"
 
 
@@ -2072,19 +2093,8 @@ def cache_step_profile(model, token, caches, cfg):
     from lowbit_quant_fa2_paddle_tpu_torch.models import llm
 
     _, caches = llm.llm_decode_step(model, token, caches, cfg)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        llm.llm_decode_step(model, token, caches, cfg)
-        torch.cuda.synchronize()
-    cats = {"F": 0.0, "GEMM": 0.0, "D": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.key.lower()
-        key = ("D" if "decode" in name else "GEMM" if any(t in name for t in GEMM_NAMES) else "other")
-        cats[key] += e.device_time_total / 1e3
-    return cats
+    return profile_classes(lambda: llm.llm_decode_step(model, token, caches, cfg),
+                           {"F": F_NAMES, "GEMM": GEMM_NAMES, "D": ("decode",)})[0]
 
 
 def long_prefill_attention_check(model, toks, cache, c0, cfg, where="128K chunked prefill", tag="long"):
@@ -2316,18 +2326,8 @@ def long_context_phase():
         f"V dequantization {dequant_s:.3f} s ({100 * dequant_s / prefill_s:.2f}%)")
     # One chunk of the prefill under torch.profiler: the last one again (c0
     # = ctx - chunk: the largest cache slice; it rewrites the same rows).
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        llm._prefill_chunk(model, prompt[:, ctx - chunk:], caches, ctx - chunk, cfg)
-        torch.cuda.synchronize()
-    chunk_ms = dict.fromkeys(("A", "C1", "GEMM", "copy", "other"), 0.0)
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.key.lower()
-            key = ("A" if "attn_fwd" in name else "C1" if "quant_per" in name else "copy" if "copy" in name
-                   else "GEMM" if any(w in name for w in GEMM_NAMES) else "other")
-            chunk_ms[key] += e.device_time_total / 1e3
+    chunk_ms = profile_classes(lambda: llm._prefill_chunk(model, prompt[:, ctx - chunk:], caches, ctx - chunk, cfg),
+                               {"A": ("attn_fwd",), "C1": ("quant_per",), "copy": ("copy",), "GEMM": GEMM_NAMES})[0]
     log(f"[long] the last prefill chunk (c0 {ctx - chunk}) device ms: " +
         ", ".join(f"{k} {v:.2f}" for k, v in chunk_ms.items()) + f"; total {sum(chunk_ms.values()):.2f}")
     cats = cache_step_profile(model, toks[:, -1], caches, cfg)
@@ -2921,9 +2921,10 @@ def check_spec_counts(where, got, variants, cfg, draft_cfg, stats, f2_per_token=
         raise AssertionError(f"{where}: launch counts {got} != {want}, or {d_designs}, or {variants} != {want_v}")
 
 
-def spec_full_width_phase(model, prompt, tag="spec"):
+def spec_full_width_phase(model, prompt, tag="spec", max_seq=32768):
     """Phase 16, the full-width verify path: phase 13's model at b1 on the
-    first row of its 32,704-token prompt, the int8 cache, 64 new tokens.
+    first row of its 32,704-token prompt (or another model's on its own,
+    with caches of ``max_seq`` rows), the int8 cache, 64 new tokens.
     generate's two stages (llm_prefill, then the graph decode of 63 tokens)
     give the reference tokens and ms per token; then speculative_generate
     with spec_k 4 and two drafts: the same weights through an int4 cache
@@ -2932,16 +2933,17 @@ def spec_full_width_phase(model, prompt, tag="spec"):
     mean accepted, ms per emitted token (wall, whole call, and without the
     two prefills measured alone), launch counts (depth D a verify step,
     draft depth D a drafted token, F2 6 x depth a drafted token for w4).
-    Then one verify step of 4 tokens at the end of the 32K context: host
+    Then one verify step of 4 tokens at the end of the prompt: host
     wall, and device ms by kernel class under torch.profiler; and its rows
     against 4 sequential decode steps (verify_rows_check) there and after a
     16-token prompt, and in f32 at depth 2. ``tag`` marks its log lines."""
     from lowbit_quant_fa2_paddle_tpu_torch.models import llm
 
     n_new, spec_k = 64, 4
-    cfg = dataclasses.replace(model.cfg, max_seq=32768, kv_bits=8)
+    cfg = dataclasses.replace(model.cfg, max_seq=max_seq, kv_bits=8)
     draft_cfg = dataclasses.replace(cfg, kv_bits=4)
     p1 = prompt[:1]
+    ctx = f"{p1.shape[1]}-token"
     res = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2990,7 +2992,7 @@ def spec_full_width_phase(model, prompt, tag="spec"):
                      "decode_ms_per_token": decode_ms, "draft_prefill_s": draft_prefill_s, "launches": got,
                      "variants": variants, "k_per_round": st["k_per_round"]}
     del w4
-    # One verify step of 4 tokens at the end of the 32K context, host wall and device time.
+    # One verify step of 4 tokens at the end of the prompt, host wall and device time.
     _, caches = llm.llm_prefill(model, p1, cfg)
     length = caches[0]["length"].clone()
     fed = ref[:, :4].contiguous()
@@ -3002,29 +3004,22 @@ def spec_full_width_phase(model, prompt, tag="spec"):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         caches = llm.rollback_caches(caches, length)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        _, caches = llm.llm_verify_step(model, fed, caches, cfg)
-        torch.cuda.synchronize()
-    cats = {"D": 0.0, "GEMM": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.key.lower()
-        kind = "D" if "decode" in name else "GEMM" if any(t in name for t in GEMM_NAMES) else "other"
-        cats[kind] += e.device_time_total / 1e3
+    after = []
+    cats = profile_classes(lambda: after.append(llm.llm_verify_step(model, fed, caches, cfg)[1]),
+                           {"D": ("decode",), "GEMM": GEMM_NAMES})[0]
+    caches = after[0]
     res["verify"] = {"host_wall_ms": statistics.median(walls), "device_ms": cats}
-    log(f"[{tag}] {CARD}: verify step (4 tokens, b1, 32K int8 cache, depth {cfg.depth}): host wall median "
+    log(f"[{tag}] {CARD}: verify step (4 tokens, b1, {ctx} int8 cache, depth {cfg.depth}): host wall median "
         f"{statistics.median(walls):.3f} ms (of {[round(w, 3) for w in walls]}), device ms " +
         ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) + f"; total {sum(cats.values()):.3f}")
     # The verify step's rows against sequential decode steps: the same argmax,
-    # and cos >= 0.99999, but 0.9999 at the end of the 32K context in bf16.
+    # and cos >= 0.99999, but 0.9999 at the end of phase 13's 32K context in bf16.
     # There kernel D's T-token variant splits the keys otherwise than the
     # single-token kernel (other row groups, so another split plan and merge
     # order): within a bf16 ulp a layer, which 32 bf16 layers carry to 1-2
     # ulps of the logits (cos 0.99994-0.99996 on an H100 80GB HBM3). After a
     # 16-token prompt (one split holds keys) the two give the same bits.
-    verify_rows_check(model, llm.rollback_caches(caches, length), fed, cfg, "bf16, 32K context", 0.9999)
+    verify_rows_check(model, llm.rollback_caches(caches, length), fed, cfg, f"bf16, {ctx} context", 0.9999)
     del caches
     _, caches = llm.llm_prefill(model, p1[:, :16].contiguous(), cfg)
     verify_rows_check(model, caches, p1[:, 16:20].to(torch.int32).contiguous(), cfg, "bf16, 16-token context",
@@ -3128,17 +3123,13 @@ def spec_checkpoint_phase():
 # head_dim 256; the head_dim-256 LLM at full width.
 # ---------------------------------------------------------------------------
 
-#: fp32 PV's output (f32) against the plain version's: three bf16 products
-#: carry about 16 bits of P and of V. At d64/d128 each KV tile's products sum
-#: on the tensor cores from zero and the CUDA cores add the tiles in f32
-#: (script/torch_pv32_terms.py, b1 h8 s4096: the kernel is 0.12-0.14e-6 off
-#: the exact sum of its own products, 0.7-1.0e-6 off the plain version); at
-#: d256 the products still accumulate on the tensor cores (2.7e-6). At the
-#: edges of utils/mask_cases.py's grid, rows that see few keys put one large
-#: P against a large V, and the dropped P_lo V_lo and the split residuals
-#: (each below 2^-18 of |P V|) reach 1.2-1.5e-5 at d64/d128 and 2.1e-5 at
-#: d256: twice the worst measured, so not JAX's 1e-5.
-PV32_MAX_DO = 4.3e-5
+#: fp32 PV's output (f32) against the plain version's: JAX's f32 grade, the
+#: bound the plain version meets against JAX (tests/test_torch_hd256.py's
+#: F32_MAX_DO). The kernel splits P and V into three bf16 terms each (all 24
+#: bits) and sums the six products whose terms' orders add to at most 2 (the
+#: dropped ones below 2^-24 of |P V|) for each 64-column block of a tile from
+#: zero on the tensor cores, the blocks added to O on the CUDA cores.
+PV32_MAX_DO = 1e-5
 
 
 def hd256_edge_phase(gen):
@@ -3260,9 +3251,10 @@ def hd256_attention_phase(gen):
         if pv32:
             if r["max_abs_err"] > PV32_MAX_DO:
                 raise AssertionError(f"{name}: fp32 PV max|do| {r['max_abs_err']} > {PV32_MAX_DO}")
-            # The PV product as the kernel runs it: three bf16 products.
-            r.update(bound(nbytes(q, k, v, ks, vs, vm) + b * h * s * d * 4,
-                           {"int8": 2 * d * pairs * h, "bf16": 3 * 2 * d * pairs * h}))
+            # The products as the kernel runs them: QK in its type, PV as six bf16 products.
+            qk = {"int8": 2 * d * pairs * h} if k_bits != 16 else {"bf16": 2 * d * pairs * h}
+            pv = 6 * 2 * d * pairs * h
+            r.update(bound(nbytes(q, k, v, ks, vs, vm) + b * h * s * d * 4, {**qk, "bf16": qk.get("bf16", 0) + pv}))
         records[name] = r
 
     def sdpa_with(dtype, mask):
@@ -3296,6 +3288,11 @@ def hd256_attention_phase(gen):
     del vec, mat
     run(f"int8 QK fp32 PV (f32 V); DiT shape b{B} h{H} s{S} d{D}", B, H, H, S, D, False, 8, "bf16", pv32=True,
         library=sdpa_with(torch.float32, False))
+    # fp32 PV at head_dim 256 (attention_fwd_wgmma_pv32_d256.cu: one stage of
+    # the ring) with INT8 and with bf16 QK, at bench.py:119's shape.
+    for qk_bits, qk_name in ((8, "int8"), (16, "bf16")):
+        run(f"d256 {qk_name} QK fp32 PV (f32 V); b4 h8 s4096 d256", *bench, qk_bits, "bf16", pv32=True,
+            library=sdpa_with(torch.float32, False))
     return records
 
 
@@ -4071,18 +4068,7 @@ def tick_measure(model, cfg, prompts):
     if prog.graph is None:
         raise AssertionError("the decode tick was not captured as a CUDA graph")
     replay = [cuda_event_ms(prog.graph.replay) for _ in range(5)]
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        eng.step()
-        torch.cuda.synchronize()
-    cats = {"D": 0.0, "GEMM": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.key.lower()
-        key = "D" if "decode_kernel" in name else "GEMM" if any(
-            t in name for t in ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")) else "other"
-        cats[key] += e.device_time_total / 1e3
+    cats = profile_classes(eng.step, {"D": ("decode_kernel",), "GEMM": GEMM_NAMES})[0]
     res = {"host_wall_ms": statistics.median(walls), "replay_ms": statistics.median(replay), "profile": cats}
     log(f"[serve] decode tick at {SERVE_BATCH} live slots (contexts ~2K): host wall of step() median "
         f"{res['host_wall_ms']:.3f} ms (min {min(walls):.3f}), one graph replay {res['replay_ms']:.3f} ms on the "
@@ -4282,6 +4268,460 @@ def serving_checkpoint_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: kernel D at head dims 80 and 96, and a full-width LLM with
+# Phi-3-mini's attention geometry (generate, speculative decoding, serving,
+# the quantized cache's checkpoint).
+# ---------------------------------------------------------------------------
+
+#: microsoft/Phi-3-mini-4k-instruct's config.json: hidden_size 3072, 32
+#: attention heads and 32 KV heads (head dim 96), 32 layers, vocab_size
+#: 32064, max_position_embeddings 4096, rope_theta 10000. The MLP is
+#: LLMConfig's 4·d, so the model has Phi-3-mini's attention geometry and the
+#: repo's MLP (3.72 B parameters).
+PHI3 = dict(vocab=32064, dim=3072, depth=32, num_heads=32, num_kv_heads=32, max_seq=4096, rope_theta=10000.0)
+PHI3_BATCH, PHI3_PROMPT, PHI3_NEW = 8, 3968, 64
+#: Kernel D's timed shapes off the ladder, (b, h, hk, S_max): Phi-3-mini's
+#: decode at b8 (head dim 96) and Phi-2's (32 query and 32 KV heads of 80,
+#: its 2K context).
+OFFLADDER_SHAPES = {96: (8, 32, 32, 4096), 80: (8, 32, 32, 2048)}
+#: The engine's traffic: 8 requests of 1,024-3,968 tokens, 32 new each, over
+#: pages of 64 in 8 slots.
+PHI3_SERVE_LENS, PHI3_SERVE_NEW = (1024, 1500, 2000, 2500, 3000, 3333, 3700, 3968), 32
+#: Where an engine stream parts from generate's, generate's row may put the
+#: engine's token at most this many times the largest |logit difference|
+#: between a decode step at b1 and the same step at b8 (the engine's 8
+#: slots) below its own token (phase 19 (e)'s rule).
+PHI3_TIE = 4.0
+
+
+def offladder_edge_phase(gen):
+    """Kernel D at head dims 80 and 96 (decode_attention*_d80_96.cu) on the
+    d80/d96 cases of utils/decode_cases.py, contiguous and paged: every cache
+    mode and both QK chains, T 1-8 at tile and split edges, a window with
+    sinks, the cap, INT8 PV, 4-bit rows of 40 bytes with window phases that
+    start at odd keys, pages of 8-64; phase 9's bounds, the same bits twice,
+    every launch on the case's variant and at the case's head dim. Returns
+    the worst max|do| by head dim."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases
+
+    worst = {}
+    cases = [(n, False) for n, c in decode_cases.CASES.items() if c[3] in (80, 96)] + [
+        (n, True) for n, c in decode_cases.PAGED_CASES.items() if c[3] in (80, 96)]
+    for name, paged in cases:
+        d = (decode_cases.PAGED_CASES if paged else decode_cases.CASES)[name][3]
+        n = DD.decode_attention.launches_by_dim[d]
+        r = (decode_cases.check_paged_case if paged else decode_cases.check_case)(name, gen)
+        # Two kernel calls a case (and the paged case's contiguous call on the same rows).
+        r["on_dim"] = DD.decode_attention.launches_by_dim[d] - n == (3 if paged else 2)
+        log(f"[D20] {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                         for k, v in r.items()))
+        if not (r["ok"] and r["on_dim"]):
+            raise AssertionError(f"kernel D at d{d} disagrees with its plain version ({name}): {r}")
+        worst[d] = max(worst.get(d, 0.0), r["max_do"])
+    log(f"[D20] {len(cases)} cases at head dims 80/96; worst max|do| by head dim {worst}")
+    return worst
+
+
+def offladder_quant_phase(gen):
+    """Kernel C1 at the Phi-3-mini-geometry prefill's K (b8, 32 KV heads,
+    3,968 rows of 96): the int8 entry point pads K to 128 columns first (the
+    JAX launcher's multiple of 64), so the model's C1 runs on 128-wide rows,
+    the vector design; a K left 96 wide (192-byte rows, not 4-32 lanes of 16
+    bytes) takes the scalar design. Each: codes and scales bit-equal to
+    quant_int8_plain, the launch on the design, then timed."""
+    from lowbit_quant_fa2_paddle_tpu_torch.core import _pad_head_dim
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import k_mean, kernel_design, quant_int8, quant_int8_plain
+
+    recs = {}
+    for tag, pad in (("padded to 128", True), ("96 wide", False)):
+        def make():
+            k = (torch.randn(PHI3_BATCH, 32, PHI3_PROMPT, 96, generator=gen, device="cuda") + 0.5).bfloat16()
+            return _pad_head_dim(k) if pad else k
+        k = make()
+        km = k_mean(k)
+        design = kernel_design(k, 8, True, 128)
+        n = quant_int8.launches_by_design[design]
+        codes, scale = quant_int8(k, km, gran="per_token")
+        on_design = quant_int8.launches_by_design[design] == n + 1
+        want_c, want_s = quant_int8_plain(k, km, per_token=True, block=128)
+        torch.cuda.synchronize()
+        same = torch.equal(codes, want_c) and torch.equal(scale, want_s)
+        log(f"[C1-20] Phi-3 prefill K b8 h32 s{PHI3_PROMPT} d96 {tag} ({design}): codes_equal="
+            f"{torch.equal(codes, want_c)} scales_equal={torch.equal(scale, want_s)} on_design={on_design}")
+        if not (same and on_design and (design == "vector") == pad):
+            raise AssertionError(f"kernel C1 at the Phi-3 prefill's K ({tag}): design {design}, equal {same}")
+        del k, km, codes, scale, want_c, want_s
+        recs[tag] = {"max_abs_err": 0.0, **time_quant("C1-20", f"b8 h32 s{PHI3_PROMPT} d96 {tag}", quant_int8,
+                                                      quant_int8_plain, [make(), make()], "per_token", 128, 8)}
+    return recs
+
+
+def phi3_prefill_attention_phase(gen):
+    """Kernel A at one batch row of the Phi-3-mini-geometry prefill (b1 h32
+    hk32 s3968 causal; int8 K codes, Q quantized in the kernel), head dim 96
+    zero-padded to the d128 kernel by the entry point, as llm_prefill calls
+    it: the same bits twice and every launch at kernel dim 128, against
+    attention_fwd_plain at d96 at phase 4's bounds, then timed beside the
+    plain version and SDPA in bf16 (time_attention)."""
+    return time_attention(gen, "fused", PHI3["num_heads"], PHI3["num_kv_heads"], PHI3_PROMPT,
+                          PHI3["dim"] // PHI3["num_heads"], True)
+
+
+def offladder_decode_phase(gen):
+    """Kernel D timed at head dims 96 and 80 in every cache mode of
+    DECODE_MODES at OFFLADDER_SHAPES (every length S_max), against its plain
+    version at phase 9's bounds, with the cache's byte bound and SDPA's time
+    (one query a head over the bf16 cache of that shape) as the library
+    baseline; then at d96 the T-token instance (T 4, b1, int8: the
+    speculative verify step) and the paged one (b8, pages of 64 in a
+    shuffled pool, int8: the serving engine's tick)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    records = {}
+
+    def record(key, call, plain, byte_tensors, q, library_ms):
+        o, lse = call()
+        o2, lse2 = call()
+        o_ref, lse_ref = plain()
+        torch.cuda.synchronize()
+        r = stats(o, o_ref, lse, lse_ref)
+        ulp = bf16_ulp(float(o_ref.float().abs().max()))
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        log(f"[D20] {key}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items())
+            + f" bf16_ulp={ulp:.3g} same_bits_twice={same}")
+        if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= ulp and r["max_dlse"] <= 1e-4 and same):
+            raise AssertionError(f"kernel D disagrees with its plain version ({key}): {r}")
+        ms = cuda_time_ms(call, warmup=5, reps=50)
+        plain_ms = cuda_time_ms(plain, warmup=1, reps=3)
+        moved = nbytes(*byte_tensors) + nbytes(q) * 2
+        lim = bound(moved)
+        log(f"[D20] {key}: kernel {ms:.4f} ms ({moved / (ms * 1e-3) / 1e9:.1f} GB/s of {moved / 1e6:.1f} MB), plain "
+            f"{plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.0%}), SDPA {library_ms}")
+        records[key] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": library_ms,
+                        "design": DD.kernel_design()}
+
+    for d, (b, h, hk, s) in OFFLADDER_SHAPES.items():
+        qb = torch.randn(b, h, d, generator=gen, device="cuda").bfloat16()
+        kb, vb = (torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+        lib = cuda_time_ms(lambda: sdpa(qb[:, :, None], kb, vb, enable_gqa=True), warmup=3, reps=20)
+        del qb, kb, vb
+        for mode in DECODE_MODES:
+            kargs, kkw, pargs, pkw = decode_inputs(gen, b, h, hk, d, s, mode, [s] * b)
+            n = DD.decode_attention.launches_by_dim[d]
+            record(f"d{d} {mode} cache b{b} h{h} hk{hk} S_max {s}",
+                   lambda: DD.decode_attention(*kargs, **kkw, return_lse=True),
+                   lambda: DD.decode_attention_plain(*pargs, **pkw), [x for x in pargs[1:5] if x is not None],
+                   pargs[0], lib)
+            if DD.decode_attention.launches_by_dim[d] == n:
+                raise AssertionError(f"kernel D at d{d} was not launched")
+            del kargs, pargs
+    # The T-token (verify) and paged (engine tick) instances at d96, int8.
+    b, h, hk, s = 1, 32, 32, 4096
+    k = torch.randn(b, hk, s, 96, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, hk, s, 96, generator=gen, device="cuda").bfloat16()
+    (kq, ks), (vq, vs) = DD.quantize_token(k, bits=8), DD.quantize_token(v, bits=8)
+    q = torch.randn(b, 4, h, 96, generator=gen, device="cuda").bfloat16()
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    plan = DD.kernel_partition(q, kq, vq, int_qk=True)
+    record("d96 T4 int8 cache b1 h32 hk32 S_max 4096 (verify step)",
+           lambda: DD.decode_attention(q, kq, vq, ks, lens, v_scale=vs, return_lse=True),
+           lambda: DD.decode_attention_plain(q, kq, vq, ks, vs, lens, sm_scale=96 ** -0.5, int_qk=True,
+                                             out_dtype=q.dtype, split_keys=plan["split_keys"], warps=plan["warps"]),
+           [kq, vq, ks, vs], q,
+           cuda_time_ms(lambda: sdpa(q.transpose(1, 2), k, v, enable_gqa=True), warmup=3, reps=20))
+    del k, v, kq, vq, ks, vs, q
+    b, s, page = PHI3_BATCH, 4096, 64
+    k = torch.randn(b, 32, s, 96, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, 32, s, 96, generator=gen, device="cuda").bfloat16()
+    pool, table, _ = decode_cases.paged_pool(k, v, 8, 8, page, gen)
+    del k, v
+    q = torch.randn(b, 1, 32, 96, generator=gen, device="cuda").bfloat16()
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    plan = DD.kernel_partition(q, pool["k"], pool["v"], int_qk=True, page_table=table)
+    record(f"d96 paged int8 cache, pages of {page}, b8 h32 hk32 4096 rows a sequence (engine tick)",
+           lambda: DD.decode_attention(q, pool["k"], pool["v"], pool["k_scale"], lens, v_scale=pool["v_scale"],
+                                       page_table=table, return_lse=True),
+           lambda: DD.decode_attention_paged_plain(q, pool["k"], pool["v"], pool["k_scale"], pool["v_scale"], lens,
+                                                   table, sm_scale=96 ** -0.5, int_qk=True, out_dtype=q.dtype,
+                                                   split_keys=plan["split_keys"], warps=plan["warps"]),
+           [x[:, table.long().flatten()] for x in (pool["k"], pool["v"], pool["k_scale"], pool["v_scale"])], q, None)
+    del pool, q
+    return records
+
+
+def phi3_f1_phase(gen):
+    """Kernel F1 (w8, bf16 x) at the Phi-3-mini-geometry model's w8 decode
+    (M 8): its MLP matrices N 12288 K 3072 and N 3072 K 12288, against the
+    plain version at phase 10's bound, timed over copies of the weights
+    (more than the L2) beside torch.matmul on dense bf16 W."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv as G
+
+    recs = {}
+    for n, k in ((12288, 3072), (3072, 12288)):
+        x = torch.randn(PHI3_BATCH, k, generator=gen, device="cuda").bfloat16()
+        copies = [gemv_weights(gen, "w8", n, k) for _ in range(4)]
+        wt, w = copies[0]
+        n_tc = G.wq_matmul_per_channel.launches_by_design["tensor_core"]
+        y = gemv_call("w8", x, wt)
+        err = check_gemv(f"F1 w8 M8 N{n} K{k}", y, gemv_plain("w8", x, wt))
+        if G.wq_matmul_per_channel.launches_by_design["tensor_core"] != n_tc + 1:
+            raise AssertionError(f"F1 w8 M8 N{n} K{k} did not run on the tensor_core design")
+        ms = cycle_ms([functools.partial(gemv_call, "w8", x, c[0]) for c in copies])
+        plain_ms = cycle_ms([functools.partial(gemv_plain, "w8", x, c[0]) for c in copies], reps=5)
+        dense = [c[1].bfloat16() for c in copies]
+        lib = cycle_ms([functools.partial(torch.matmul, x, wd.T) for wd in dense])
+        lim = bound(nbytes(x, wt["packed"], wt["scale"], y))
+        log(f"[F20] F1 w8 M8 N{n} K{k} (tensor_core): kernel {ms:.4f} ms, plain {plain_ms:.4f}, bound "
+            f"{lim['bound_ms']:.4f} ({lim['bound_ms'] / ms:.0%}), torch.matmul dense bf16 {lib:.4f}")
+        recs[(n, k)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": lib,
+                        "design": "tensor_core"}
+        del copies, dense, wt, w, x, y
+    return recs
+
+
+def phi3_decode_profile(model, token, caches, cfg):
+    """One eager decode step of the Phi-3 model under torch.profiler: device
+    ms by kernel class (D, dense GEMMs, the rest) and of the kernels that
+    the cache appends (ops.decode.append_kv: the new token's K/V quantized
+    by plain ops and written at each sequence's length), which the rest
+    holds."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+
+    for _ in range(2):
+        _, caches = llm.llm_decode_step(model, token, caches, cfg)
+    append = DD.append_kv
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function("append_kv"):
+            return append(*args, **kw)
+
+    DD.append_kv = ranged
+    try:
+        cats, _, _ = profile_classes(lambda: llm.llm_decode_step(model, token, caches, cfg),
+                                     {"D": ("decode",), "GEMM": GEMM_NAMES}, ranges=("append_kv",))
+    finally:
+        DD.append_kv = append
+    return cats
+
+
+def phi3_llm_phase():
+    """The LLM with Phi-3-mini's attention geometry (PHI3), random weights
+    from a seed, bf16: b8 prompts of 3,968 tokens, 64 new tokens through
+    generate's two stages (llm_prefill, then the CUDA-graph decode_tokens)
+    on the int8, bf16, int4 and k4v8 caches and with w8 weights (int8
+    cache), one cache alive at a time; launches per run (A and C1 a layer at
+    prefill, on the wgmma and vector designs; D a layer and step, all at
+    head dim 96; F1 six a layer and step with w8); the first decode step's
+    logits cos int8 vs bf16 cache >= 0.999; a decode step profiled on the
+    int8 cache. Returns the model and prompt for the phases that follow."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+
+    cfg = llm.LLMConfig(**PHI3, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    t0 = time.perf_counter()
+    model = llm.init_llm_params(cfg, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab, (PHI3_BATCH, PHI3_PROMPT), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[phi3] dim {cfg.dim} depth {cfg.depth} heads {cfg.num_heads}x{cfg.head_dim} kv heads {cfg.num_kv_heads} "
+        f"vocab {cfg.vocab} bf16: {n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
+    w8 = llm.quantize_llm_params(model, bits=8)
+    small = dataclasses.replace(cfg, max_seq=512)
+    llm.generate(model, prompt[:, :256], 2, small)  # warm-up, not counted
+    llm.generate(w8, prompt[:, :64], 2, small)  # warm-up of F1, not counted
+    res, n_new = {}, PHI3_NEW
+    runs = (("int8", dict(kv_bits=8), model, 0), ("bf16", dict(kv_bits=16), model, 0),
+            ("int4", dict(kv_bits=4), model, 0), ("k4v8", dict(kv_bits=8, k_bits=4), model, 0),
+            ("w8", dict(kv_bits=8), w8, 6 * cfg.depth * (n_new - 1)))
+    for mode, bits, m_run, f1 in runs:
+        cfg_m = dataclasses.replace(cfg, **bits)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        first = FirstLogits(m_run)
+        count_reset()
+        t0 = time.perf_counter()
+        logits, caches = llm.llm_prefill(m_run, prompt, cfg_m)
+        token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        del logits
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        steps, caches, wall_ms, replay_ms, call_s = graph_decode(m_run, token, caches, n_new - 1, cfg_m)
+        got, d_dim, variants = counts(), dict(DD.decode_attention.launches_by_dim), variant_counts()
+        a_dim = dict(lowbit_attention.launches_by_dim)
+        first.remove()
+        peak = torch.cuda.max_memory_allocated()
+        cache_gb = sum(nbytes(*c.values()) for c in caches) / 1e9
+        log(f"[phi3] {mode} ({cache_gb:.2f} GB of cache over {cfg.depth} layers): prefill {prefill_s:.3f} s, graph "
+            f"decode {wall_ms:.3f} ms/token wall over {n_new - 11} replays in one call (single-replay device ms "
+            f"median {statistics.median(replay_ms):.3f}, min {min(replay_ms):.3f}, max {max(replay_ms):.3f}; the "
+            f"first call {call_s:.2f} s), peak {peak / 2**30:.2f} GiB; kernel D by head dim {d_dim}, variants "
+            f"{variants}")
+        check_counts(f"phi3 {mode}", got, cfg.depth, n_new - 1, f1=f1)
+        if d_dim[96] != cfg.depth * (n_new - 1) or a_dim[128] != cfg.depth:
+            raise AssertionError(f"phi3 {mode}: D launches by head dim {d_dim}, A by kernel dim {a_dim}")
+        if first.logits is None or not bool(torch.isfinite(first.logits).all()) or steps.shape != (
+                PHI3_BATCH, n_new - 1) or not bool(((steps >= 0) & (steps < cfg.vocab)).all()):
+            raise AssertionError(f"phi3 {mode}: no or non-finite first-step logits, or bad tokens")
+        res[mode] = {"prefill_s": prefill_s, "decode_ms_per_token": wall_ms, "replay_ms": statistics.median(replay_ms),
+                     "peak_gib": peak / 2**30, "launches": got, "variants": variants, "logits": first.logits,
+                     "cache_gb": cache_gb}
+        if mode == "int8":
+            res["profile"] = phi3_decode_profile(model, steps[:, -1].contiguous(), caches, cfg_m)
+            prof = res["profile"]
+            log(f"[phi3] one eager decode step at ~4K (int8 cache, b8), device ms: D {prof['D']:.3f}, GEMM "
+                f"{prof['GEMM']:.3f}, other {prof['other']:.3f} (of it the cache appends {prof['append_kv']:.3f}); "
+                f"total {prof['D'] + prof['GEMM'] + prof['other']:.3f}")
+        del caches, steps, first
+    del w8
+    cos = float(cosine_similarity(res["int8"]["logits"], res["bf16"]["logits"]))
+    log(f"[phi3] first decode step logits cos int8 vs bf16 cache {cos:.6f} (>= 0.999)")
+    if cos < 0.999:
+        raise AssertionError(f"phi3: int8 vs bf16 cache first-step logits cos {cos} < 0.999")
+    for mode in ("int8", "bf16", "int4", "k4v8", "w8"):
+        del res[mode]["logits"]
+    res["_model"], res["_prompt"] = model, prompt
+    return res
+
+
+def phi3_spec_phase(model, prompt):
+    """Phase 16's full-width verify path (spec_full_width_phase) on the Phi-3
+    model: b1 from the first of its 3,968-token prompts, int8 cache, spec_k
+    4, the int4-cache and w4 self-drafts, each token-equal to generate,
+    every verify step on the T-token d96 variant."""
+    return spec_full_width_phase(model, prompt, "spec20", max_seq=PHI3["max_seq"])
+
+
+def phi3_tie_bound(model, prompt, cfg):
+    """PHI3_TIE times the largest |logit difference| between one decode step
+    of a sequence at b1 and the same step with the sequence's cache
+    repeated 8 times (M = 8 rows in every matmul, as the engine's 8 slots
+    run them)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+
+    logits, caches = llm.llm_prefill(model, prompt, cfg)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    del logits
+    wide = [{k: v.repeat_interleave(PHI3_BATCH, dim=0) for k, v in c.items()} for c in caches]
+    one, _ = llm.llm_decode_step(model, tok, caches, cfg)
+    eight, _ = llm.llm_decode_step(model, tok.repeat(PHI3_BATCH), wide, cfg)
+    delta = float((one[0].float() - eight[0].float()).abs().max())
+    del caches, wide
+    return PHI3_TIE * delta, delta
+
+
+def phi3_serving_phase(model):
+    """ServingEngine on the Phi-3 model: pages of 64, 8 slots, int8 pages,
+    PHI3_SERVE_LENS requests (prompts from the model's vocab, a seed), 32 new
+    tokens each; every stream against generate on its prompt alone (b1):
+    equal, or parting at a near-tie (generate's own row puts the engine's
+    token at most PHI3_TIE x the b1-vs-b8 row difference below generate's);
+    every D launch on the paged variant at head dim 96."""
+    from lowbit_quant_fa2_paddle_tpu_torch import serving
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+
+    cfg = dataclasses.replace(model.cfg, kv_bits=8)
+    g = torch.Generator().manual_seed(20)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist() for n in PHI3_SERVE_LENS]
+    worst = [-(-(len(p) + PHI3_SERVE_NEW + 4) // 64) for p in prompts]
+    scfg = serving.ServingConfig(page_size=64, num_pages=sum(worst), max_batch=PHI3_BATCH,
+                                 max_pages_per_seq=max(worst), prefix_caching=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    count_reset()
+    eng = serving.ServingEngine(model, cfg, scfg)
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, PHI3_SERVE_NEW) for p in prompts]
+    steps = 0
+    while len(eng.finished) < len(rids):
+        eng.step()
+        steps += 1
+        if steps > 5000:
+            raise AssertionError("phi3 serving: the engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, variants, d_dim = counts(), variant_counts(), dict(DD.decode_attention.launches_by_dim)
+    streams = [eng.finished[r] for r in rids]
+    out = sum(len(s) for s in streams)
+    log(f"[phi3] engine: {len(rids)} requests, {out} tokens out in {wall:.2f} s ({out / wall:.1f} tokens/s), "
+        f"{eng.decode_ticks} decode ticks, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got}, "
+        f"D by variant {variants}, by head dim {d_dim}")
+    tick_variant = f"paged T-token T1 k8v8 b{PHI3_BATCH}"
+    if set(variants) != {tick_variant} or d_dim[96] != got["D"] or not (got["A"] and got["C1"]):
+        raise AssertionError(f"phi3 serving: launches {got}, variants {variants}, by head dim {d_dim}")
+    del eng
+    tie, delta = phi3_tie_bound(model, torch.tensor([prompts[0]], device="cuda"), cfg)
+    parted = []
+    for i, (p, s) in enumerate(zip(prompts, streams)):
+        ids = torch.tensor([p], device="cuda")
+        ref = llm.generate(model, ids, PHI3_SERVE_NEW, cfg)[0].tolist()
+        at = next((j for j, (x, y) in enumerate(zip(s, ref)) if x != y), None)
+        if at is None:
+            continue
+        # generate's own row at the parting token (eager steps from the prefill).
+        logits, caches = llm.llm_prefill(model, ids, cfg)
+        row, tok = logits[0, -1], torch.tensor([ref[0]], dtype=torch.int32, device="cuda")
+        del logits
+        for j in range(at):
+            row, caches = llm.llm_decode_step(model, tok, caches, cfg)
+            row, tok = row[0], torch.tensor([ref[j + 1]], dtype=torch.int32, device="cuda")
+        gap = float(row[ref[at]].float() - row[s[at]].float())
+        parted.append((i, at, gap))
+        del caches
+    log(f"[phi3] engine streams equal generate's on {len(prompts) - len(parted)} of {len(prompts)}; partings "
+        f"(request, token, generate's row's logit of its token over the engine's): {parted}; near-tie bound "
+        f"{tie:.4g} ({PHI3_TIE} x the b1-vs-b8 step's largest |logit difference| {delta:.4g})")
+    if any(gap > tie for _, _, gap in parted):
+        raise AssertionError(f"phi3 serving: streams part from generate's above the near-tie bound {tie}: {parted}")
+    return {"wall_s": wall, "tokens_per_s": out / wall, "launches": got, "variants": variants,
+            "parted": parted, "tie": tie, "decode_ticks": steps}
+
+
+def phi3_checkpoint_phase(model, prompt):
+    """The Phi-3 model's int8 cache after a b1 prefill of the first prompt
+    written with utils.checkpoint.save_quantized_cache (a layer a file, in a
+    temporary directory), read back with load_quantized_cache: the same
+    bits, and decode_tokens on it gives the tokens it gives on the cache
+    the prefill made."""
+    import tempfile
+
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import checkpoint
+
+    cfg = dataclasses.replace(model.cfg, kv_bits=8)
+    logits, caches = llm.llm_prefill(model, prompt[:1], cfg)
+    token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    del logits
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for i, c in enumerate(caches):
+            checkpoint.save_quantized_cache(os.path.join(tmp, f"layer{i}.npz"), c)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        t0 = time.perf_counter()
+        loaded = [checkpoint.load_quantized_cache(os.path.join(tmp, f"layer{i}.npz")) for i in range(len(caches))]
+        load_s = time.perf_counter() - t0
+    same = all(torch.equal(c[k], l[k]) for c, l in zip(caches, loaded) for k in c)
+    a, _ = llm.decode_tokens(model, token, caches, 16, cfg)
+    b, _ = llm.decode_tokens(model, token, loaded, 16, cfg)
+    equal = torch.equal(a, b)
+    log(f"[phi3] int8 cache checkpoint (b1, {cfg.depth} layers, {size / 1e9:.3f} GB on disk): save {save_s:.2f} s, "
+        f"load {load_s:.2f} s, same bits {same}, 16 decoded tokens equal {equal}")
+    if not (same and equal):
+        raise AssertionError(f"phi3: the reloaded cache differs (bits {same}, tokens {equal})")
+    return {"save_s": save_s, "load_s": load_s, "bytes": size}
+
+
 def cuda_event_ms(fn):
     """Device ms of one call between two CUDA events."""
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4357,6 +4797,20 @@ def main():
     spec18 = timed(hd256_spec_phase, model_17, prompt_17)
     del model_17, prompt_17
     train18 = timed(hd256_train_phase)
+    # Phase 20 (kernel D at head dims 80 and 96, then the Phi-3-mini-geometry
+    # model: generate in every cache mode and w8, speculative decoding, the
+    # serving engine, the quantized cache's checkpoint).
+    edge20 = timed(offladder_edge_phase, gen)
+    c1_20 = timed(offladder_quant_phase, gen)
+    a20 = timed(phi3_prefill_attention_phase, gen)
+    d20 = timed(offladder_decode_phase, gen)
+    f1_20 = timed(phi3_f1_phase, gen)
+    phi3 = timed(phi3_llm_phase)
+    model_20, prompt_20 = phi3.pop("_model"), phi3.pop("_prompt")
+    spec20 = timed(phi3_spec_phase, model_20, prompt_20)
+    serve20 = timed(phi3_serving_phase, model_20)
+    timed(phi3_checkpoint_phase, model_20, prompt_20)
+    del model_20, prompt_20
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
     replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
@@ -4503,8 +4957,9 @@ def main():
     chunked = llm17["chunked"]
     a17_launches = {"d256 int8; hd256 LLM prefill b4 h16 hk8 s32704 d256 causal":
                     llm17["int8"]["a_d256"] + llm17["bf16"]["a_d256"] + chunked["a_d256"] - chunked["cross_launches"]}
-    a17_source = {key: d256_src if "d256" in key else f"{src}/attention_fwd_wgmma_pv32.cu" if "fp32 PV" in key
-                  else f"{src}/attention_fwd_wgmma_bias.cu" for key in a17}
+    a17_source = {key: (f"{src}/attention_fwd_wgmma_pv32_d256.cu" if "d256" in key else
+                        f"{src}/attention_fwd_wgmma_pv32.cu") if "fp32 PV" in key else
+                  d256_src if "d256" in key else f"{src}/attention_fwd_wgmma_bias.cu" for key in a17}
     kernels += [
         dict(name=f"attention_fwd ({key})", route="cuda", source=a17_source[key], replaces=replaces_a,
              launches=a17_launches.get(key, 0), **{k: a17[key][k] for k in a_keys})
@@ -4565,6 +5020,52 @@ def main():
              **{k: d19[(mode, page)][k] for k in timing + ("design", "contiguous_ms")})
         for mode in PAGED_MODES for page in PAGED_PAGES
     ]
+    # Phase 20: kernel D at head dims 80 and 96 (their own sources). The Phi-3
+    # model's generate runs the d96 rows of its cache modes (int8 twice: the
+    # dense and the w8 run), speculative_generate the T-token row (its T 4
+    # verify steps) and the engine the paged row (its ticks); the integer
+    # chain at 4-bit K and head dim 80 (Phi-2's shape) are on no model path.
+    # C1 runs the prefill's K padded to 128 columns; F1 the w8 run's MLP
+    # matrices (one launch each a layer and step).
+    d20_launches = {f"d96 {mode} cache b8 h32 hk32 S_max 4096": phi3[mode]["launches"]["D"]
+                    for mode in ("bf16", "int4", "k4v8")}
+    d20_launches["d96 int8 cache b8 h32 hk32 S_max 4096"] = phi3["int8"]["launches"]["D"] + phi3["w8"]["launches"]["D"]
+    d20_launches["d96 T4 int8 cache b1 h32 hk32 S_max 4096 (verify step)"] = spec_launches("T-token T4 k8v8 b1",
+                                                                                            spec20)
+    d20_launches[f"d96 paged int8 cache, pages of 64, b8 h32 hk32 4096 rows a sequence (engine tick)"] = serve20[
+        "variants"].get(f"paged T-token T1 k8v8 b{PHI3_BATCH}", 0)
+    # A runs every prefill of the Phi-3 model's runs at kernel dim 128:
+    # generate's (b8) in each mode, speculative_generate's (b1, target and
+    # draft) and the engine's (1,024-3,968 tokens).
+    a20_launches = (sum(phi3[m]["launches"]["A"] for m in ("int8", "bf16", "int4", "k4v8", "w8"))
+                    + sum(r["launches"]["A"] for r in spec20.values() if "launches" in r) + serve20["launches"]["A"])
+    kernels += [
+        dict(name=f"attention_fwd (int8, Q quantized in-kernel; Phi-3-mini-geometry prefill b1 h32 hk32 "
+             f"s{PHI3_PROMPT} d96 padded to 128 causal)", launches=a20_launches, **wgmma_src,
+             **{k: a20[k] for k in a_keys}),
+    ] + [
+        dict(name=f"decode_attention ({key})", route="cuda",
+             source=f"{src}/decode_attention_" + ("paged_" if "paged" in key else "multi_" if "T4" in key else "")
+             + "d80_96.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
+             launches=d20_launches.get(key, 0), **{k: d20[key][k] for k in timing + ("design",)})
+        for key in d20
+    ] + [
+        dict(name=f"quant_int8 (Phi-3-mini-geometry prefill K b8 h32 s{PHI3_PROMPT} d96, {tag})", **quant_src,
+             replaces=replaces_c + "215",
+             launches=sum(phi3[m]["launches"]["C1"] for m in ("int8", "bf16", "int4", "k4v8", "w8")) if c1_20[tag][
+                 "design"] == "vector" else 0, **c1_20[tag])
+        for tag in c1_20
+    ] + [
+        dict(name=f"wq_matmul_per_channel (F1: w8, bf16 x; Phi-3-mini-geometry decode M8 N{n} K{k})", route="cuda",
+             source=f"{src}/gemv.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/gemv.py:255",
+             launches=phi3["w8"]["launches"]["F1"] // 6, **f1_20[(n, k)])
+        for n, k in f1_20
+    ]
+    log(f"[phi3] phase 20 D edge grid worst max|do| by head dim {edge20}; generate ms/token by cache "
+        + ", ".join(f"{m} {phi3[m]['decode_ms_per_token']:.3f}" for m in ("int8", "bf16", "int4", "k4v8", "w8"))
+        + f"; speculative (int4 self-draft) {spec20['self, int4 cache']['decode_ms_per_token']:.3f} ms per token "
+        f"without its prefills; engine {serve20['tokens_per_s']:.1f} "
+        f"tokens/s")
     log(f"[hd256] phase 17 A edge grid worst max|do| by group {edge17}; launches at d256: A "
         f"{sum(r['launches'] for r in kernels if 'd256' in r['name'] and r['name'].startswith('attention'))}, D "
         f"{sum(r['launches'] for r in kernels if 'd256' in r['name'] and r['name'].startswith('decode'))}, G1 "

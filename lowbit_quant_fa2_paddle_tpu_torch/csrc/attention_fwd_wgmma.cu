@@ -105,16 +105,21 @@
 // the next (a 64 x 256 s32 tile beside O would not fit), without the overlap
 // of S and PV. Head dims 129-255 are zero-padded to 256 by the caller.
 //
-// fp32 PV (kPV32, attention_fwd_wgmma_pv32.cu and the d256 source): the
-// masked kernels with P = ex2(s - m) in f32, l summed in f32, P split into
-// bf16 hi = bf16(P) and lo = bf16(P - hi), and V given by the host as bf16
-// hi and lo halves of one 2D-wide row (int8 codes are exact in the hi half):
-// P_hi V_hi + P_lo V_hi + P_hi V_lo, three bf16 products a 16-key step
-// (about 16 bits of each factor; the dropped P_lo V_lo is below 2^-16 of
-// the product) into a tile's own f32 accumulator that its first product
-// starts at zero, which the CUDA cores then add to the running O (the tensor
-// cores' f32 sums across tiles had cost 2.7-3.5e-6 of O). At d64 it runs two
-// consumer warpgroups (P's two fragments beside S need the registers).
+// fp32 PV (kPV32, attention_fwd_wgmma_pv32.cu and attention_fwd_wgmma_pv32_d256.cu):
+// the masked kernels with 64-key tiles, P = ex2(s - m) in f32, l summed in
+// f32, P split into three bf16 terms P1 = bf16(P), P2 = bf16(P - P1), P3 =
+// bf16(P - P1 - P2), and V given by the host as three bf16 terms of one
+// 3D-wide row (V1 | V2 | V3 the same way; int8 codes are exact in V1): for
+// each 16-key step the six products P3 V1, P2 V2, P1 V3, P2 V1, P1 V2, P1
+// V1 (each factor's 24 bits; the dropped terms are below 2^-24 of P V) into
+// a 64-column block's own f32 accumulator that its first product starts at
+// zero, which the CUDA cores then add to the running O (the tensor cores'
+// f32 sums across tiles had cost 2.7-3.5e-6 of O), one block after another,
+// without the overlap of S and PV. Two terms each (three products) would
+// leave P_lo V_lo and V's split residual, each up to 2^-16 of P V, which
+// rows that see few keys (one P near 1 against |V| up to 4) show at
+// 1.5-2.1e-5 on an H100. At d64 it runs two consumer warpgroups (P's three
+// fragments beside S need the registers); at d256 the ring has one stage.
 
 #include "attention_fwd_wgmma.cuh"
 
@@ -123,9 +128,9 @@
 //   k: q_mode 0-2: [B, Hk, Sk, D*k_bits/8] int8, codes (k_bits 8) or packed
 //      INT4 (4) / INT2 (2) codes; q_mode 3: [B, Hk, Sk, D] bf16 (k_bits 16).
 //   v: [B, Hk, Sk, D] bf16 (v_mode 0) or int8 codes (v_mode 1, bf16 PV; v_mode
-//      2, INT8 PV) with v_scale [B, Hk, D] f32; with pv32, [B, Hk, Sk, 2D]
-//      bf16, V's hi and lo halves (v_mode 1: int8 codes in the hi half, lo
-//      zero, v_scale applied in the epilogue).
+//      2, INT8 PV) with v_scale [B, Hk, D] f32; with pv32, [B, Hk, Sk, 3D]
+//      bf16, V's three bf16 terms V1 | V2 | V3 (v_mode 1: int8 codes in V1,
+//      the others zero, v_scale applied in the epilogue).
 //   q_scale: [B, H, Sq] f32, already times sm_scale*log2e (q_mode 0 only).
 //   k_scale: [B, Hk, Sk] f32 (q_mode 0-2).   v_mean: [B, Hk, D] f32 or null.
 //   q_seg: [B, Sq] int32 and kv_seg: [B, Sk] int32 segment ids, or both null.
@@ -137,8 +142,9 @@
 //   query's position (causal only); logit_cap2: cap * log2(e), 0 for none;
 //   pv32: fp32 PV (not with v_mode 2).
 //   D: 64, 128 (this source's kernels) or 256 (attention_fwd_wgmma_d256.cu);
-//   fp32 PV at 64/128 runs attention_fwd_wgmma_pv32.cu's kernels and a bias
-//   without it attention_fwd_wgmma_bias.cu's.
+//   fp32 PV runs attention_fwd_wgmma_pv32.cu's kernels (64/128) or
+//   attention_fwd_wgmma_pv32_d256.cu's, and a bias without it
+//   attention_fwd_wgmma_bias.cu's.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for a D, mode or pv32
 // no kernel takes, or a tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int lowbit_attn_fwd_wgmma(const void* q, const void* k, const void* v, const float* q_scale,
@@ -151,8 +157,8 @@ extern "C" int lowbit_attn_fwd_wgmma(const void* q, const void* k, const void* v
                       q_mode, k_bits, v_mode, out_f32, causal, window, sink, q_offset, bias_rows, pv32,
                       sm_scale_log2e, logit_cap2, static_cast<cudaStream_t>(stream)};
   if (const int bad = attn_check(c)) return bad;
+  if (pv32) return D == 256 ? attn_fwd_pv32_d256(c) : attn_fwd_pv32(c);
   if (D == 256) return attn_fwd_d256(c);
-  if (pv32) return attn_fwd_pv32(c);
   if (bias) return attn_fwd_bias(c);
   const BiasArgs a = args_of(c);
   return D == 64 ? dispatch<64>(a, v_mode == 2, k, v, B, c.stream) : dispatch<128>(a, v_mode == 2, k, v, B, c.stream);

@@ -1,8 +1,9 @@
 // Kernel A's device code and launch, shared by its instances:
 // attention_fwd_wgmma.cu (head dims 64 and 128, and the one C entry),
 // attention_fwd_wgmma_bias.cu (the bias at 64 and 128),
-// attention_fwd_wgmma_pv32.cu (fp32 PV at 64 and 128) and
-// attention_fwd_wgmma_d256.cu (head_dim 256, every mode). The design note is
+// attention_fwd_wgmma_pv32.cu (fp32 PV at 64 and 128),
+// attention_fwd_wgmma_pv32_d256.cu (fp32 PV at 256) and
+// attention_fwd_wgmma_d256.cu (head_dim 256, every other mode). The design note is
 // in attention_fwd_wgmma.cu.
 
 #pragma once
@@ -26,11 +27,13 @@ struct AttnFwdCall {
   cudaStream_t stream;
 };
 // The instances of the other sources, which the C entry routes a checked
-// call to: D 256 (attention_fwd_wgmma_d256.cu); fp32 PV at D 64/128
-// (attention_fwd_wgmma_pv32.cu); a bias at D 64/128 without fp32 PV
+// call to: D 256 without fp32 PV (attention_fwd_wgmma_d256.cu); fp32 PV at
+// D 64/128 (attention_fwd_wgmma_pv32.cu) and at 256
+// (attention_fwd_wgmma_pv32_d256.cu); a bias at D 64/128 without fp32 PV
 // (attention_fwd_wgmma_bias.cu).
 int attn_fwd_d256(const AttnFwdCall& c);
 int attn_fwd_pv32(const AttnFwdCall& c);
+int attn_fwd_pv32_d256(const AttnFwdCall& c);
 int attn_fwd_bias(const AttnFwdCall& c);
 
 namespace {
@@ -38,12 +41,13 @@ namespace {
 using namespace sm90;
 
 // Keys per KV tile: 128, or 64 at d256 (the registers of its 64 x 256 O
-// accumulator beside S; two stages of bf16 K and V beside its Q tile).
-template <int D>
-constexpr int kBKV = D == 256 ? 64 : 128;
+// accumulator beside S; two stages of bf16 K and V beside its Q tile) and
+// with fp32 PV (V's three bf16 terms, 6 bytes an element in the ring).
+template <int D, bool kPV32 = false>
+constexpr int kBKV = D == 256 || kPV32 ? 64 : 128;
 // Consumer warpgroups per CTA, each owning 64 query rows: three at d64 (more
 // softmax warps to hide its latency), two at d128 and d256 (the registers of
-// the O accumulator), and two at d64 with fp32 PV (P's hi and lo fragments).
+// the O accumulator), and two at d64 with fp32 PV (P's three fragments).
 template <int D, bool kPV32 = false>
 constexpr int kNWG = D == 64 && !kPV32 ? 3 : 2;
 constexpr float MASK_VALUE = (float)(-0.7 * 3.4028234663852886e38);
@@ -99,11 +103,11 @@ using ArgsOf = typename std::conditional<kBias, BiasArgs, typename std::conditio
 // read, so their stage counts stay.
 template <int D, bool kInt8, bool kStaged, bool kMasks, bool kPV32 = false, bool kBias = false>
 struct Layout {
-  static constexpr int BKV = kBKV<D>;
+  static constexpr int BKV = kBKV<D, kPV32>;
   static constexpr int BQ = 64 * kNWG<D, kPV32>;  // query rows per CTA
-  // Columns of a V row in shared memory: D, or with fp32 PV its bf16 hi and
-  // lo halves.
-  static constexpr int kVCols = kPV32 ? 2 * D : D;
+  // Columns of a V row in shared memory: D, or with fp32 PV its three bf16
+  // terms V1 | V2 | V3.
+  static constexpr int kVCols = kPV32 ? 3 * D : D;
   static constexpr int kRowBytes = D * (kInt8 ? 1 : 2);  // bytes of a Q/K row
   static constexpr int kSw = kRowBytes >= 128 ? 128 : 64;  // swizzle width = bytes per row of a column block
   static constexpr int kQBytes = BQ * kRowBytes;  // Q, NWG x 64 rows
@@ -117,7 +121,9 @@ struct Layout {
   static constexpr int kQsBytes = kInt8 || !kMasks ? BQ * 4 : 0;
   static constexpr int kStageBytes = kKBytes + kVBytes + kPBytes + kV8Bytes + kSBytes + kGBytes + kBBytes;
   static constexpr int kFixed = kQBytes + kQsBytes + 9 * 8 + 1024;  // + barriers + alignment slack
-  static constexpr int kStages = 3 * kStageBytes + kFixed <= 232448 ? 3 : 2;
+  // (One stage only for fp32 PV at d256: 16-32 KB of K and 96 KB of V's
+  // terms a stage beside a 32-64 KB Q tile.)
+  static constexpr int kStages = 3 * kStageBytes + kFixed <= 232448 ? 3 : 2 * kStageBytes + kFixed <= 232448 ? 2 : 1;
   static constexpr int kKOff = 0;
   static constexpr int kVOff = kKOff + kStages * kKBytes;
   static constexpr int kQOff = kVOff + kStages * kVBytes;
@@ -280,9 +286,10 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
   // INT8 PV at d256 multiplies in two halves of 128 columns, one after the
   // other: a 64 x 256 s32 tile beside the f32 O would not fit the registers.
   constexpr bool kSplitPV8 = kPV8 && D == 256;
-  // fp32 PV at d128 sums each tile in a second accumulator (kTileSum below):
-  // beside the next tile's S its registers spill, so PV and S take turns.
-  constexpr bool kSerialPV = kSplitPV8 || (kPV32 && D == 128);
+  // fp32 PV sums each tile's products in 64-column blocks, one block waited
+  // for and added to O before the next (pv32_blocks below), so PV and S take
+  // turns.
+  constexpr bool kSerialPV = kSplitPV8 || kPV32;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -491,17 +498,16 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
     uint32_t pk[kPV8 ? 1 : BKV / 8][2];  // P as bf16x2: [8-key column tile][row g, row g + 8]
     uint32_t a8[kPV8 ? BKV / 32 : 1][4];  // INT8 PV: p8 as s8 A fragments of each 32-key chunk
     int pv[kPV8 ? (kSplitPV8 ? D / 4 : D / 2) : 1];  // INT8 PV: one tile's (half's) i32 p8 V8
-    uint32_t pl[kPV32 ? BKV / 8 : 1][2];  // fp32 PV: P - bf16(P) as bf16x2, as pk
-    // fp32 PV at d64/d128: one tile's products, added to O on the CUDA cores
-    // (at d256 a second 128-column accumulator does not fit: the products go
-    // to O).
-    constexpr bool kTileSum = kPV32 && D <= 128;
-    float pacc[kTileSum ? D / 2 : 1];
+    uint32_t pl[kPV32 ? BKV / 8 : 1][2];  // fp32 PV: P's second bf16 term, as pk
+    uint32_t p3[kPV32 ? BKV / 8 : 1][2];  // ... and its third
+    // fp32 PV: one tile's products of one 64-column block, added to O on the
+    // CUDA cores.
+    float pacc[kPV32 ? 32 : 1];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] = 0.0f;
-    if constexpr (kTileSum) {
+    if constexpr (kPV32) {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) pacc[i] = 0.0f;
+      for (int i = 0; i < 32; ++i) pacc[i] = 0.0f;
     }
     if constexpr (kPV8) {
 #pragma unroll
@@ -559,17 +565,13 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
                                        make_desc(vk + 2 * BKV * 128, BKV * 128, 1024, 128), 1);
       }
     };
-    // fp32 PV: a (16 keys of a P term) times the 16 V rows at vk into the
-    // tile's own accumulator, which the tile's first product starts at zero.
+    // fp32 PV: a (16 keys of a P term) times 64 columns of the 16 V rows at
+    // vk into the block's own accumulator, which its first product starts at
+    // zero.
     auto pv32 = [&](const uint32_t(&a)[4], uint32_t vk, int accumulate) {
-      if constexpr (kTileSum) {
-        if constexpr (D == 64)
-          wgmma_m64n64k16_f32_bf16_rs(*reinterpret_cast<float(*)[32]>(&pacc[0]), a,
-                                      make_desc(vk, BKV * 128, 1024, 128), accumulate);
-        else
-          wgmma_m64n128k16_f32_bf16_rs(*reinterpret_cast<float(*)[64]>(&pacc[0]), a,
-                                       make_desc(vk, BKV * 128, 1024, 128), accumulate);
-      }
+      if constexpr (kPV32)
+        wgmma_m64n64k16_f32_bf16_rs(*reinterpret_cast<float(*)[32]>(&pacc[0]), a,
+                                    make_desc(vk, BKV * 128, 1024, 128), accumulate);
     };
     auto issue_pv = [&](int st) {
       if constexpr (kSplitPV8) {
@@ -591,29 +593,14 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
               wgmma_m64n128k32_s32_s8_rs(pv, a8[kk], db, 1);
           }
         }
-      } else if constexpr (D == 256 || kPV32) {
-        // fp32 PV: P_hi V_hi + P_lo V_hi + P_hi V_lo, V_lo in the column
-        // blocks after V_hi's.
+      } else if constexpr (kPV32) {
+        // (pv32_blocks multiplies fp32 PV.)
+      } else if constexpr (D == 256) {
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk) {
           const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
           const uint32_t vk = v_addr + st * L::kVBytes + kk * 16 * 128;
-          if constexpr (kTileSum) {
-            // The tile's products summed on the tensor cores from zero; O adds
-            // them in f32 on the CUDA cores (o_ready), so no tile's rounding
-            // rides on the running O.
-            const uint32_t al[4] = {pl[2 * kk][0], pl[2 * kk][1], pl[2 * kk + 1][0], pl[2 * kk + 1][1]};
-            pv32(a, vk, kk > 0);
-            pv32(al, vk, 1);
-            pv32(a, vk + (D / 64) * BKV * 128, 1);
-          } else {
-            pv_bf16(a, vk);
-            if constexpr (kPV32) {
-              const uint32_t al[4] = {pl[2 * kk][0], pl[2 * kk][1], pl[2 * kk + 1][0], pl[2 * kk + 1][1]};
-              pv_bf16(al, vk);
-              pv_bf16(a, vk + (D / 64) * BKV * 128);
-            }
-          }
+          pv_bf16(a, vk);
         }
       } else {
 #pragma unroll
@@ -649,16 +636,6 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
         for (int i = 0; i < D / 2; ++i) pin(oacc[i]);
 #pragma unroll
         for (int i = 0; i < BKV / 8; ++i) pin(pk[i][0]), pin(pk[i][1]);
-        if constexpr (kPV32) {
-#pragma unroll
-          for (int i = 0; i < BKV / 8; ++i) pin(pl[i][0]), pin(pl[i][1]);
-        }
-        if constexpr (kTileSum) {
-#pragma unroll
-          for (int i = 0; i < D / 2; ++i) pin(pacc[i]);
-#pragma unroll
-          for (int i = 0; i < D / 2; ++i) oacc[i] += pacc[i];
-        }
       }
     };
     // INT8 PV at d256: the tile's p8 (a8) times V^T (K-major rows of BKV
@@ -687,11 +664,53 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
       }
     };
 
-    // PV of tile j with nothing else in flight: INT8 PV at d256, fp32 PV at
-    // d128 (its tile sum folded into O once in).
+    // fp32 PV: the tile's P (three bf16 terms: pk, pl, p3) times V (three
+    // bf16 terms V1 | V2 | V3, D columns each) in 64-column blocks, one at a
+    // time: for each 16-key step the six products whose terms' orders add
+    // to at most 2 (P3 V1, P2 V2, P1 V3, P2 V1, P1 V2, P1 V1, the smallest
+    // first; the dropped ones are below 2^-24 of P V) into the block's own
+    // f32 accumulator from zero, which the CUDA cores add to O once in, so
+    // no tile's rounding rides on the running O.
+    auto pv32_blocks = [&](int st) {
+      if constexpr (kPV32) {
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb) {
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BKV / 16; ++kk) {
+            const uint32_t a1[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
+            const uint32_t a2[4] = {pl[2 * kk][0], pl[2 * kk][1], pl[2 * kk + 1][0], pl[2 * kk + 1][1]};
+            const uint32_t a3[4] = {p3[2 * kk][0], p3[2 * kk][1], p3[2 * kk + 1][0], p3[2 * kk + 1][1]};
+            const uint32_t v1 = v_addr + st * L::kVBytes + cb * BKV * 128 + kk * 16 * 128;
+            const uint32_t v2 = v1 + (D / 64) * BKV * 128, v3 = v2 + (D / 64) * BKV * 128;
+            pv32(a3, v1, kk > 0);
+            pv32(a2, v2, 1);
+            pv32(a1, v3, 1);
+            pv32(a2, v1, 1);
+            pv32(a1, v2, 1);
+            pv32(a1, v1, 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int i = 0; i < 32; ++i) pin(pacc[i]);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) oacc[32 * cb + i] += pacc[i];
+        }
+#pragma unroll
+        for (int i = 0; i < BKV / 8; ++i) {
+          pin(pk[i][0]), pin(pk[i][1]), pin(pl[i][0]), pin(pl[i][1]), pin(p3[i][0]), pin(p3[i][1]);
+        }
+      }
+    };
+
+    // PV of tile j with nothing else in flight: INT8 PV at d256, fp32 PV (a
+    // block at a time).
     auto pv_serial = [&](int st) {
       if constexpr (kSplitPV8) {
         pv8_split(st);
+      } else if constexpr (kPV32) {
+        pv32_blocks(st);
       } else {
         wgmma_fence();
         issue_pv(st);
@@ -878,7 +897,9 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
       } else if constexpr (kPV32) {
-        // l sums P in f32; P goes to the products as bf16 hi + lo (16 bits).
+        // l sums P in f32; P goes to the products as three bf16 terms, P1 =
+        // bf16(P), P2 = bf16(P - P1), P3 = bf16(P - P1 - P2) (each
+        // difference exact in f32): all 24 bits of P.
         float lsum[2] = {0.0f, 0.0f};
 #pragma unroll
         for (int nt = 0; nt < BKV / 8; ++nt)
@@ -886,8 +907,11 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
           for (int hf = 0; hf < 2; ++hf) {
             const float p0 = s[4 * nt + 2 * hf], p1 = s[4 * nt + 2 * hf + 1];
             const uint32_t p = pack_bf16x2(p0, p1);
+            const float r0 = p0 - bf16_lo(p), r1 = p1 - bf16_hi(p);
+            const uint32_t q = pack_bf16x2(r0, r1);
             pk[nt][hf] = p;
-            pl[nt][hf] = pack_bf16x2(p0 - bf16_lo(p), p1 - bf16_hi(p));
+            pl[nt][hf] = q;
+            p3[nt][hf] = pack_bf16x2(r0 - bf16_lo(q), r1 - bf16_hi(q));
             lsum[hf] += p0 + p1;
           }
 #pragma unroll
@@ -932,7 +956,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
       softmax_s(0, 0);
     softmax_o();
     if constexpr (kSerialPV) {
-      // One product at a time (INT8 PV at d256, fp32 PV at d128): PV of
+      // One product at a time (INT8 PV at d256, fp32 PV): PV of
       // tile j, then S of tile j + 1 (in its turn) and its softmax. The
       // turns order S alone; the last one is empty, as the other loop's last
       // PV turn.
@@ -1110,17 +1134,12 @@ int dispatch_bias(const BiasArgs& a, bool pv8, const void* k, const void* v, int
 }
 
 // fp32 PV (kPV32): the bias kernels, INT8 or bf16 QK, packed K through the
-// staging ring; V always comes as bf16 hi and lo halves (int8 codes exact
-// in the hi half). At d256 bf16 QK does not fit (two stages of bf16 K and
-// hi/lo V beside the bf16 Q tile exceed 227 KB).
+// staging ring; V always comes as three bf16 terms (int8 codes exact in the
+// first). At d256 a stage of bf16 K (32 KB) and V's terms (96 KB) beside the
+// 64 KB bf16 Q tile fits once: one stage.
 template <int D>
 int dispatch_pv32(const BiasArgs& a, const void* k, const void* v, int B, cudaStream_t st) {
-  if (a.q_mode == Q_FP) {
-    if constexpr (D == 256)
-      return (int)cudaErrorInvalidValue;
-    else
-      return launch<D, false, false, false, true, true, true>(a, k, v, B, st);
-  }
+  if (a.q_mode == Q_FP) return launch<D, false, false, false, true, true, true>(a, k, v, B, st);
   return a.k_bits < 8 ? launch<D, true, true, false, true, true, true>(a, k, v, B, st)
                       : launch<D, true, false, false, true, true, true>(a, k, v, B, st);
 }
@@ -1135,7 +1154,7 @@ inline int attn_check(const AttnFwdCall& c) {
       (c.q_mode == Q_INT8 && c.q_scale == nullptr) || ((c.q_seg == nullptr) != (c.kv_seg == nullptr)) ||
       c.window < 0 || c.sink < 0 || c.logit_cap2 < 0.0f || (!c.causal && (c.window != 0 || c.q_offset != 0)) ||
       (c.bias == nullptr) != (c.bias_rows == 0) || (c.bias != nullptr && c.bias_rows != 1 && c.bias_rows != c.Sq) ||
-      (c.pv32 && c.v_mode == 2) || (c.pv32 && c.D == 256 && c.q_mode == Q_FP))
+      (c.pv32 && c.v_mode == 2))
     return (int)cudaErrorInvalidValue;
   return 0;
 }

@@ -6,12 +6,12 @@
 // (:327, :454-455): the softmax chain in f32, P and V in f32 in the PV
 // product. The device code is attention_fwd_wgmma.cuh's kernel with kPV32
 // (the design note is in attention_fwd_wgmma.cu): the masked kernels, INT8
-// or bf16 QK, packed K through the staging ring, three bf16 products a
-// 16-key step (P_hi V_hi + P_lo V_hi + P_hi V_lo) into a per-tile f32
-// accumulator (its first product at scale-d 0), added to the f32 O on the
-// CUDA cores once the tile's products are in. Its
-// instances live in their own translation unit so that nvcc builds them
-// beside the others.
+// or bf16 QK, packed K through the staging ring, 64-key tiles, P and V in
+// three bf16 terms each and six bf16 products a 16-key step (the terms'
+// orders adding to at most 2) into a 64-column block's own f32 accumulator
+// (its first product at scale-d 0), added to the f32 O on the CUDA cores
+// once the block's products are in. Its instances live in their own
+// translation unit so that nvcc builds them beside the others.
 
 #include "attention_fwd_wgmma.cuh"
 

@@ -1,7 +1,9 @@
 // Kernel D's device code, shared by its single-token instances
-// (decode_attention.cu, decode_attention_d256.cu) and its multi-token /
-// INT8-PV instances (decode_attention_multi.cu, decode_attention_multi_d256.cu);
-// the design note is in decode_attention.cu.
+// (decode_attention.cu, decode_attention_d256.cu, decode_attention_d80_96.cu),
+// its multi-token / INT8-PV instances (decode_attention_multi.cu,
+// decode_attention_multi_d256.cu, decode_attention_multi_d80_96.cu) and their
+// paged twins (decode_attention_paged*.cu); the design note is in
+// decode_attention.cu.
 
 #pragma once
 
@@ -45,6 +47,10 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
 // Arrives on bar once this thread's earlier cp.async copies have landed
@@ -171,6 +177,11 @@ struct Cfg {
   static constexpr bool kKNib = IsNib4<KT>::value, kVNib = IsNib4<VT>::value;
   static constexpr int kKRow = row_bytes<KT, D>();  // bytes of a cache row
   static constexpr int kVRow = row_bytes<VT, D>();
+  // Head dims off the power-of-two ladder (80 and 96, decode_attention_d80_96.cu
+  // and its twins): their rows need not fill whole QK windows, and a lane
+  // cannot own D / 32 columns. Everything they change is under
+  // `if constexpr (kOffLadder)` or a constant the ladder dims keep.
+  static constexpr bool kOffLadder = (D & (D - 1)) != 0;
   // Keys per tile: 16 KB of K/V at most (measured faster than 8 KB for the
   // bf16 cache), 16 at least.
   static constexpr int BK = 64 * (kKRow + kVRow) <= 16384 ? 64 : 32 * (kKRow + kVRow) <= 16384 ? 32 : 16;
@@ -178,12 +189,22 @@ struct Cfg {
   // 3) reads LB contiguous bytes, which give 2 MMA operand words a row: MMA
   // products per window. An integer-chain word carries 4 dimensions (s8),
   // a float-chain word 2 (bf16x2); a 4-bit row's LB bytes carry LB low and
-  // LB high nibbles.
-  static constexpr int LB = kIntQK ? (D >= 64 ? (kKNib ? 8 : 16) : (kKNib ? 4 : 8)) : (kKNib ? 4 : 8 * (int)sizeof(KT));
+  // LB high nibbles. Off the ladder the integer chain takes the small
+  // windows (d96: 3 windows of 32 bytes of int8 K, of 16 of 4-bit K) and a
+  // bf16 row that 64-byte windows do not cover (d80) 8 bytes a thread.
+  static constexpr int LB = kIntQK ? (D >= 64 && !kOffLadder ? (kKNib ? 8 : 16) : (kKNib ? 4 : 8))
+                                   : (kKNib ? 4 : sizeof(KT) == 2 && kKRow % 64 ? 8 : 8 * (int)sizeof(KT));
   static constexpr int WB = 4 * LB;
-  static constexpr int NWIN = kKRow / WB;
-  static constexpr int MMA = kIntQK ? (kKNib ? LB / 4 : LB / 8) : 2;
-  static constexpr int CPL = D / 32;  // output columns a lane owns in PV
+  // Windows a row takes. At d80 an int8 or 4-bit row ends inside its last
+  // window (80 of 96 bytes, 40 of 48): the words past the row's end read
+  // the next row's bytes (or the V ring's: all in shared memory), and their
+  // query words are zero (kOverRead), so the dot is exact.
+  static constexpr int NWIN = (kKRow + WB - 1) / WB;
+  static constexpr bool kOverRead = NWIN * WB != kKRow;
+  static constexpr int MMA = kIntQK ? (kKNib ? LB / 4 : LB / 8) : kKNib || sizeof(KT) == 1 ? 2 : LB / 8;
+  // Output columns a lane owns in PV: D / 32, or 4 off the ladder, where the
+  // lanes whose columns lie past the row's (pv_lane) idle in PV.
+  static constexpr int CPL = kOffLadder ? 4 : D / 32;
   // The first dimension of operand word u of thread t in window w. A 4-bit
   // row's words hold the low nibbles (dimensions b0 ..) first, then the high
   // ones (D/2 + b0 ..), b0 the thread's first byte.
@@ -196,6 +217,30 @@ struct Cfg {
       return (w * WB + t * LB) / (int)sizeof(KT) + per * u;
     }
   }
+  // The byte of a K row where operand word u of thread t in window w starts
+  // (a word never straddles the row's end: 80 and 40 are multiples of 4).
+  __device__ static constexpr int qbyte(int w, int t, int u) {
+    constexpr int per = kIntQK ? 4 : 2;
+    if constexpr (kKNib)
+      return w * WB + t * LB + per * (u % MMA);
+    else
+      return qdim(w, t, u) * (int)sizeof(KT);
+  }
+  // Off the ladder: whether a lane owns PV columns, and its first column (a
+  // 4-bit V's lanes 0-15 take the low nibbles, columns 4 (lane & 15) ..,
+  // lanes 16-31 the high ones, D/2 + 4 (lane & 15) ..).
+  __device__ static constexpr bool pv_lane(int lane) {
+    return kVNib ? (lane & 15) * CPL < D / 2 : lane * CPL < D;
+  }
+  __device__ static constexpr int pv_col(int lane) {
+    return kVNib ? (lane >= 16 ? D / 2 : 0) + (lane & 15) * CPL : lane * CPL;
+  }
+  // Sides whose rows are not 16-byte multiples (4-bit rows at d80, 40
+  // bytes) come by 8-byte cp.async from every producer lane instead of one
+  // bulk copy: a bulk copy moves 16-byte multiples from 16-byte aligned
+  // rows, which a window's first row need not be.
+  static constexpr bool kKBulk = kKRow % 16 == 0, kVBulk = kVRow % 16 == 0;
+  static constexpr int kBulkRow = (kKBulk ? kKRow : 0) + (kVBulk ? kVRow : 0);  // bulk-copied bytes a key
   static constexpr int kKOff = 0;
   static constexpr int kVOff = kKOff + NST * BK * kKRow;
   static constexpr int kKsOff = kVOff + NST * BK * kVRow;  // NST x BK f32 K scales
@@ -210,8 +255,9 @@ struct Cfg {
   static constexpr int kTotal = kBarOff + 2 * NST * 8 + 16;  // + the ticket
   // The merge's part weights, (NW + 1) x n_parts f32, reuse the ring.
   static constexpr int kMaxParts = kVOff / ((NW + 1) * 4);
-  static_assert(kKRow % 16 == 0 && kVRow % 16 == 0, "bulk copies move 16-byte multiples");
-  static_assert(NWIN * WB == kKRow, "the QK windows cover a K row");
+  static_assert(kKRow % 8 == 0 && kVRow % 8 == 0, "rows come in 16-byte bulk copies or 8-byte cp.async");
+  static_assert(NWIN * WB >= kKRow && (!kOverRead || kOffLadder), "the QK windows cover a K row");
+  static_assert(!kOffLadder || (D == 80 || D == 96), "off the ladder: head dims 80 and 96");
 };
 
 // bf16x2 of the biased nibbles (u = n + 8) in bits 0-3 and 16-19 of t: the
@@ -248,7 +294,7 @@ __device__ __forceinline__ void k_words(const unsigned char* p, uint32_t* w) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) w[2 * i] = i8x2_to_bf16x2<0>(x[i]), w[2 * i + 1] = i8x2_to_bf16x2<2>(x[i]);
   } else {
-    lds<16>(p, w);
+    lds<LB>(p, w);
   }
 }
 
@@ -375,15 +421,34 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           if (lane + 32 * u < n) rows[u] = (long long)__ldg(tbl + (key >> pg.page_shift)) * page + (key & (page - 1));
         }
         mbar_wait(&empty[st], ((j / NST) & 1) ^ 1);
-        if (lane == 0) mbar_arrive_expect_tx(&full[st], n * (C::kKRow + C::kVRow));
+        if (lane == 0) mbar_arrive_expect_tx(&full[st], n * C::kBulkRow);
         for (int i = 0; i < n;) {  // warp-uniform
           const int run = min(n - i, page - ((key0 + i) & (page - 1)));
           const long long row = __shfl_sync(0xffffffffu, i < 32 ? rows[0] : rows[1], i & 31);
           if (lane == 0) {
-            bulk_copy(smem + C::kKOff + (st * BK + i) * C::kKRow, kg + row * C::kKRow, run * C::kKRow, &full[st]);
-            bulk_copy(smem + C::kVOff + (st * BK + i) * C::kVRow, vg + row * C::kVRow, run * C::kVRow, &full[st]);
+            if constexpr (C::kKBulk)
+              bulk_copy(smem + C::kKOff + (st * BK + i) * C::kKRow, kg + row * C::kKRow, run * C::kKRow, &full[st]);
+            if constexpr (C::kVBulk)
+              bulk_copy(smem + C::kVOff + (st * BK + i) * C::kVRow, vg + row * C::kVRow, run * C::kVRow, &full[st]);
           }
           i += run;
+        }
+        if constexpr (!C::kKBulk || !C::kVBulk) {
+          // 40-byte rows (4-bit at d80) in 8-byte pieces, piece e of the tile
+          // on lane e % 32, each key's row taken from the lane that looked it
+          // up.
+          auto pieces = [&](unsigned char* dst, const unsigned char* src, int row_bytes) {
+            const int per = row_bytes / 8;
+            for (int e0 = 0; e0 < n * per; e0 += 32) {  // warp-uniform
+              const int e = e0 + lane, i = e / per;
+              const long long r0 = __shfl_sync(0xffffffffu, rows[0], i & 31);
+              const long long r1 = __shfl_sync(0xffffffffu, rows[1], i & 31);
+              if (e < n * per)
+                cp_async8(dst + (st * BK + i) * row_bytes + 8 * (e % per), src + (i < 32 ? r0 : r1) * row_bytes + 8 * (e % per));
+            }
+          };
+          if constexpr (!C::kKBulk) pieces(smem + C::kKOff, kg, C::kKRow);
+          if constexpr (!C::kVBulk) pieces(smem + C::kVOff, vg, C::kVRow);
         }
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
@@ -405,9 +470,22 @@ __global__ void __launch_bounds__(NT) decode_kernel(
         const int st = j % NST, key0 = tile_key0(j), n = min(BK, tile_end(j) - key0);
         mbar_wait(&empty[st], ((j / NST) & 1) ^ 1);
         if (lane == 0) {
-          mbar_arrive_expect_tx(&full[st], n * (C::kKRow + C::kVRow));
-          bulk_copy(smem + C::kKOff + st * BK * C::kKRow, kg + (long long)key0 * C::kKRow, n * C::kKRow, &full[st]);
-          bulk_copy(smem + C::kVOff + st * BK * C::kVRow, vg + (long long)key0 * C::kVRow, n * C::kVRow, &full[st]);
+          mbar_arrive_expect_tx(&full[st], n * C::kBulkRow);
+          if constexpr (C::kKBulk)
+            bulk_copy(smem + C::kKOff + st * BK * C::kKRow, kg + (long long)key0 * C::kKRow, n * C::kKRow, &full[st]);
+          if constexpr (C::kVBulk)
+            bulk_copy(smem + C::kVOff + st * BK * C::kVRow, vg + (long long)key0 * C::kVRow, n * C::kVRow, &full[st]);
+        }
+        if constexpr (!C::kKBulk || !C::kVBulk) {
+          // 40-byte rows (4-bit at d80): a tile of them starts 16-byte
+          // aligned only at an even key, so that side comes in 8-byte
+          // pieces from every lane.
+          if constexpr (!C::kKBulk)
+            for (int e = lane; e < n * C::kKRow / 8; e += 32)
+              cp_async8(smem + C::kKOff + st * BK * C::kKRow + 8 * e, kg + (long long)key0 * C::kKRow + 8 * e);
+          if constexpr (!C::kVBulk)
+            for (int e = lane; e < n * C::kVRow / 8; e += 32)
+              cp_async8(smem + C::kVOff + st * BK * C::kVRow + 8 * e, vg + (long long)key0 * C::kVRow + 8 * e);
         }
         for (int i = lane; i < n; i += 32) {
           cp_async4(ks_s + st * BK + i, ksg + key0 + i);
@@ -457,6 +535,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 #pragma unroll
       for (int u = 0; u < 2 * C::MMA; ++u) {
         const int d0 = C::qdim(w, t, u);
+        if constexpr (C::kOverRead) {
+          // A word past the K row's end meets zero query words.
+          if (C::qbyte(w, t, u) >= C::kKRow) {
+#pragma unroll
+            for (int qs = 0; qs < (kIntQK ? 1 : 3); ++qs) bq[w][u / 2][qs][u % 2] = 0u;
+            continue;
+          }
+        }
         if constexpr (kIntQK) {
           bq[w][u / 2][0][u % 2] = *reinterpret_cast<const uint32_t*>(q8 + g * D + d0);
         } else {
@@ -527,11 +613,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           float c4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
           for (int w = 0; w < C::NWIN; ++w) {
-            uint32_t w0[4], w1[4];  // 8 elements of each row as bf16x2
+            uint32_t w0[2 * C::MMA], w1[2 * C::MMA];  // 4 MMA elements of each row as bf16x2
             k_words<KT, false, C::LB>(r0 + w * C::WB + t * C::LB, w0);
             k_words<KT, false, C::LB>(r1 + w * C::WB + t * C::LB, w1);
 #pragma unroll
-            for (int c = 0; c < 2; ++c)
+            for (int c = 0; c < C::MMA; ++c)
 #pragma unroll
               for (int qs = 0; qs < 3; ++qs)
                 if (qs < nqs)
@@ -670,7 +756,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(
         for (int r = 0; r < RMAX; ++r)
 #pragma unroll
           for (int c = 0; c < CPL; ++c) acc_i[r][c] = 0;
-        const unsigned char* vcol = Vt + lane * CPL;
+        // (Off the ladder an idle lane reads lane 0's columns; nothing keeps
+        // what it sums.)
+        const unsigned char* vcol = Vt + (C::kOffLadder && !C::pv_lane(lane) ? 0 : lane) * CPL;
 #pragma unroll 4
         for (int k4 = 0; k4 < BK; k4 += 4) {
           uint32_t col[CPL];
@@ -725,8 +813,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       }
       // A 4-bit V: lanes 0-15 take the low nibbles (columns lane * CPL ..),
       // lanes 16-31 the high ones of the same bytes.
-      const unsigned char* vcol = Vt + (C::kVNib ? (lane & 15) * CPL : lane * CPL * (int)sizeof(VT));
-      const int nib_shift = lane >= 16 ? 4 : 0;
+      // Off the ladder an idle lane reads lane 0's columns; nothing keeps
+      // what it sums.
+      const int vl = C::kOffLadder && !C::pv_lane(lane) ? 0 : lane;
+      const unsigned char* vcol = Vt + (C::kVNib ? (vl & 15) * CPL : vl * CPL * (int)sizeof(VT));
+      const int nib_shift = vl >= 16 ? 4 : 0;
       auto pv_key = [&](int kl) {
         float vf[CPL];
         v_cols<VT, CPL>(vcol + kl * C::kVRow, vf, nib_shift);
@@ -754,6 +845,18 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 
     // ---- this warp's unnormalised (acc, m, l): part split * NW + warp ----
     const int part = split * NW + warp;
+    if constexpr (C::kOffLadder) {
+      if (C::pv_lane(lane)) {
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) {
+          if (r < R) {
+            float* dst = part_acc + (((long long)b * H + h0 + r) * n_parts + part) * D + C::pv_col(lane);
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) dst[c] = acc[r][c];
+          }
+        }
+      }
+    } else {
 #pragma unroll
     for (int r = 0; r < RMAX; ++r) {
       if (r < R) {
@@ -761,6 +864,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 #pragma unroll
         for (int c = 0; c < CPL; ++c) dst[c] = acc[r][c];
       }
+    }
     }
     if (g == 0) {
 #pragma unroll
@@ -806,7 +910,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
     __syncwarp();
     const float ls = l == 0.0f ? 1.0f : l;
-    const float* pa = part_acc + row * n_parts * D + lane * CPL;
+    // Off the ladder the lanes past the row's columns redo lane 0's columns
+    // and store nothing.
+    const int mcol = C::kOffLadder && lane * CPL >= D ? 0 : lane * CPL;
+    const float* pa = part_acc + row * n_parts * D + mcol;
     float a[CPL];
 #pragma unroll
     for (int c = 0; c < CPL; ++c) a[c] = 0.0f;
@@ -818,6 +925,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     }
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
+      if (C::kOffLadder && lane * CPL >= D) break;
       const long long at = row * D + lane * CPL + c;
       const float out = __fdiv_rn(a[c], ls);
       if (out_code == 0)
@@ -861,6 +969,16 @@ int with_variant(const Op& op, int D, int k_bits, int v_bits, int int_qk) {
     case 32: return with_k<32>(op, k_bits, v_bits, int_qk);
     case 64: return with_k<64>(op, k_bits, v_bits, int_qk);
     case 128: return with_k<128>(op, k_bits, v_bits, int_qk);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The head dims off the ladder (the d80_96 sources' instances).
+template <typename Op>
+int with_variant_d80_96(const Op& op, int D, int k_bits, int v_bits, int int_qk) {
+  switch (D) {
+    case 80: return with_k<80>(op, k_bits, v_bits, int_qk);
+    case 96: return with_k<96>(op, k_bits, v_bits, int_qk);
     default: return (int)cudaErrorInvalidValue;
   }
 }

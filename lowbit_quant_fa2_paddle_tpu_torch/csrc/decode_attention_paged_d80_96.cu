@@ -1,0 +1,34 @@
+// Kernel D over the paged KV cache at head dims 80 and 96: the paged
+// instances of decode_attention_paged.cu (design note there) at D = 80 or
+// 96, as decode_attention_d80_96.cu instantiates the contiguous ones. A
+// 4-bit side at d80 (40-byte rows) comes in 8-byte cp.async pieces, a key's
+// row looked up in the table by one lane and shuffled to the lanes that copy
+// its pieces; every other side by one bulk copy a page run.
+//
+// Replaces the TPU kernel lowbit_quant_fa2_paddle_tpu/ops/decode.py:
+// _decode_kernel (pallas_call at :727) with a page_table at head dims 80
+// and 96. These instances live in their own translation unit so that nvcc
+// builds them beside the other sources.
+
+#include "decode_attention.cuh"
+
+// lowbit_decode_attn_paged's arguments (decode_attention_paged.cu) with D = 80 or 96.
+extern "C" int lowbit_decode_attn_paged_d80_96(const void* q, const void* k, const void* v, const float* k_scale,
+                                               const float* v_scale, const int* lengths, float* part_acc,
+                                               float* part_ml, int* tickets, void* o, float* lse, int B, int H,
+                                               int Hk, int S, int D, int R, int k_bits, int v_bits, int int_qk,
+                                               int q_bf16, int out_code, int n_splits, int chunk, int window,
+                                               int sink, int q_tokens, int int_pv, const int* table, int n_pages,
+                                               int page, int width, float sm_scale, float logit_cap, void* stream) {
+  LaunchPaged launch;
+  const int err = paged_launch(&launch, q, k, v, k_scale, v_scale, lengths, table, part_acc, part_ml, tickets, o, lse,
+                               B, H, Hk, S, R, q_bf16, out_code, n_splits, chunk, window, sink, q_tokens, int_pv,
+                               n_pages, page, width, v_bits, sm_scale, logit_cap, stream);
+  return err ? err : with_variant_d80_96(launch, D, k_bits, v_bits, int_qk);
+}
+
+// lowbit_decode_paged_ctas_per_sm (decode_attention_paged.cu) at D = 80 or 96.
+extern "C" int lowbit_decode_paged_ctas_per_sm_d80_96(int D, int k_bits, int v_bits, int int_qk, int int_pv,
+                                                      int* ctas_per_sm) {
+  return with_variant_d80_96(OccupancyPaged{ctas_per_sm, int_pv}, D, k_bits, v_bits, int_qk);
+}

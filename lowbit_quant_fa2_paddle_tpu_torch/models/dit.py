@@ -231,6 +231,26 @@ def params_from_jax(tree: Mapping[str, Any], cfg: DiTConfig, device="cuda") -> D
     return model
 
 
+@torch.no_grad()
+def params_to_jax(model: DiT) -> dict:
+    """The TPU package's parameter tree of ``model`` as numpy f32 arrays
+    (each dense ``{"w": [d_in, d_out], "b": [d_out]}``), the inverse of
+    :func:`params_from_jax`: what ``utils.checkpoint.save_params`` writes.
+    Packed-weight layers raise."""
+    def dense(lin: nn.Module) -> dict:
+        if not isinstance(lin, nn.Linear):
+            raise TypeError(f"a packed {type(lin).__name__}: JAX's parameter files hold dense weights")
+        return {"w": np.ascontiguousarray(lin.weight.detach().float().cpu().T.numpy()),
+                "b": lin.bias.detach().float().cpu().numpy()}
+
+    return {
+        "t_embed": {"in": dense(model.t_in), "out": dense(model.t_out)},
+        "blocks": [{name: dense(getattr(blk, name)) for name in ("qkv", "proj", "mlp_in", "mlp_out", "ada")}
+                   for blk in model.blocks],
+        "final": dense(model.final),
+    }
+
+
 _WQ_DIT_KEYS = ("qkv", "proj", "mlp_in", "mlp_out")
 
 

@@ -209,6 +209,28 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LLMConfig, device="cuda") -> L
     return model
 
 
+@torch.no_grad()
+def params_to_jax(model: LLM) -> dict:
+    """The JAX package's parameter tree of ``model`` as numpy f32 arrays
+    (dense weights ``[in, out]``), the inverse of :func:`params_from_jax`:
+    what ``utils.checkpoint.save_params`` writes. Packed-weight layers raise."""
+    def arr(t: torch.Tensor, transpose=False) -> np.ndarray:
+        x = t.detach().float().cpu()
+        return np.ascontiguousarray((x.T if transpose else x).numpy())
+
+    blocks = []
+    for blk in model.blocks:
+        entry = {}
+        for key in _WQ_KEYS:
+            lin = getattr(blk, key)
+            if not isinstance(lin, nn.Linear):
+                raise TypeError(f"{key} is a packed {type(lin).__name__}: JAX's parameter files hold dense weights")
+            entry[key] = arr(lin.weight, transpose=True)
+        entry["ln1"], entry["ln2"] = arr(blk.ln1.weight), arr(blk.ln2.weight)
+        blocks.append(entry)
+    return {"embed": arr(model.embed.weight), "blocks": blocks, "ln_f": arr(model.ln_f.weight)}
+
+
 def quantize_llm_params(params: LLM, *, bits: int = 8) -> LLM:
     """A model whose six block matrices are per-channel packed ``WQWeight``
     layers (``bits`` 8 or 4, packed on the weights' device) and whose

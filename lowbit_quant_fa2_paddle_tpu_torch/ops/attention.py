@@ -25,9 +25,9 @@ PV runs bf16 × bf16 → f32, V rounded to bf16 as the TPU kernel's default
 to bf16 exactly, or with ``pv_int8`` multiply as an exact INT8 dot against P
 requantized to [0, 127]. ``pv_dtype=torch.float32`` keeps the softmax chain
 in f32 (no bf16 rounding of ``s - m`` or of P) and V as given: the kernel
-splits P and V into bf16 hi + lo terms and sums three bf16 products per
-tile (``P_hi V_hi + P_lo V_hi + P_hi V_lo``); ``pv_int8`` keeps its bf16
-chain, as in JAX. The LSE comes back in base 2, ``-1e30`` for rows with no
+splits P and V into three bf16 terms each (all 24 bits) and sums the six
+products whose terms' orders add to at most 2 per 16 keys, over tiles of 64
+keys; ``pv_int8`` keeps its bf16 chain, as in JAX. The LSE comes back in base 2, ``-1e30`` for rows with no
 visible key.
 
 Every mode takes the TPU kernel's masks: a causal sliding window with
@@ -45,9 +45,9 @@ prefill, the training forward, INT8 PV) runs on one Hopper design
 warp-specialised), instantiated at head dims 64 and 128 in
 ``attention_fwd_wgmma.cu`` (KV tiles of 128 keys), with the bias in
 ``attention_fwd_wgmma_bias.cu``, with fp32 PV in
-``attention_fwd_wgmma_pv32.cu``, and at head_dim 256 in
-``attention_fwd_wgmma_d256.cu`` (KV tiles of 64 keys), all behind the one C
-entry ``lowbit_attn_fwd_wgmma``. Smaller head dims are
+``attention_fwd_wgmma_pv32.cu`` and ``attention_fwd_wgmma_pv32_d256.cu`` (KV
+tiles of 64 keys), and at head_dim 256 in ``attention_fwd_wgmma_d256.cu``
+(KV tiles of 64 keys), all behind the one C entry ``lowbit_attn_fwd_wgmma``. Smaller head dims are
 zero-padded to the next of 64, 128 and 256. The tile is part of the rounding
 (P rounds against the running maximum of each tile), so the plain version
 takes the tile of the kernel that runs the call (``kv_tile``).
@@ -75,7 +75,8 @@ NEG_INIT = -1e30
 #: Keys per KV tile of kernel A's design (``BKV`` in its source) up to head_dim
 #: 128.
 KV_TILE = {"wgmma": 128}
-#: Keys per KV tile of the head_dim-256 kernels (``kBKV<256>``).
+#: Keys per KV tile of the head_dim-256 kernels and of the fp32-PV ones
+#: (``kBKV<D, kPV32>``).
 KV_TILE_D256 = 64
 #: The head dims kernel A is built for; a call pads its head dim up to the
 #: next of them.
@@ -100,10 +101,11 @@ def kernel_dim(head_dim: int) -> int:
     raise _not_ported(f"head_dim {head_dim} > 256 on the GPU", "3h")
 
 
-def kv_tile(pv_int8: bool = False, head_dim: int = 128) -> int:
+def kv_tile(pv_int8: bool = False, head_dim: int = 128, pv_f32: bool = False) -> int:
     """Keys per KV tile of the kernel that runs the mode at ``head_dim``:
-    the design's 128, or 64 above head_dim 128 (the head_dim-256 kernels)."""
-    return KV_TILE_D256 if head_dim > 128 else KV_TILE[kernel_design(pv_int8)]
+    the design's 128, or 64 above head_dim 128 (the head_dim-256 kernels)
+    and with fp32 PV."""
+    return KV_TILE_D256 if head_dim > 128 or pv_f32 else KV_TILE[kernel_design(pv_int8)]
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -220,7 +222,7 @@ def attention_fwd_plain(
     dev = q.device
     c = torch.tensor(sm_scale_log2e, dtype=torch.float32, device=dev)
     quant = k.dtype == torch.int8
-    tile = kv_tile(pv_int8, q.shape[-1])
+    tile = kv_tile(pv_int8, q.shape[-1], pv_f32)
     if k_bits != 8:
         k = _UNPACK[k_bits](k)
     n_tiles = -(-s_k // tile)
@@ -309,6 +311,18 @@ def attention_fwd_plain(
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
+def bf16_terms(x: torch.Tensor) -> list:
+    """``x`` (f32) as the three bf16 terms ``t1 = bf16(x)``, ``t2 = bf16(x -
+    t1)``, ``t3 = bf16(x - t1 - t2)`` that kernel A's fp32 PV reads as one
+    ``[.., 3D]`` V row (``Layout::kVCols`` in ``csrc/attention_fwd_wgmma.cuh``):
+    each difference is exact in f32, and the three carry all 24 bits of
+    ``x``'s significand (the kernel splits P the same way)."""
+    t1 = x.to(torch.bfloat16)
+    r = x - t1.float()
+    t2 = r.to(torch.bfloat16)
+    return [t1, t2, (r - t2.float()).to(torch.bfloat16)]
+
+
 def _attention_fwd_cuda(
     q, k, v, q_scale, k_scale, v_mean, *, causal, sm_scale_log2e, out_dtype, need_lse, k_bits, v_scale, pv_int8,
     window=0, sink=0, q_offset=0, q_segment_ids=None, kv_segment_ids=None, logit_cap=0.0, bias=None, pv_f32=False,
@@ -317,8 +331,9 @@ def _attention_fwd_cuda(
     between 64 and 128, or between 128 and 256 are zero-padded to the next
     (:func:`kernel_dim`): zero Q/K columns leave QK^T and the Q absmax
     unchanged, and zero V columns are sliced off. Packed K cannot be padded;
-    its D is 64, 128 or 256. fp32 PV hands the kernel V as bf16 hi and lo
-    halves of one ``[.., 2D]`` row (int8 codes are exact in the hi half)."""
+    its D is 64, 128 or 256. fp32 PV hands the kernel V as three bf16 terms
+    of one ``[.., 3D]`` row (:func:`bf16_terms`; int8 codes are exact in the
+    first)."""
     b, h, s_q, d = q.shape
     hk, s_k = k.shape[1], k.shape[2]
     dp = kernel_dim(d)
@@ -335,10 +350,6 @@ def _attention_fwd_cuda(
     else:
         mode, k_bits = 3, 16
         q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
-    if pv_f32 and mode == 3 and dp == 256:
-        # Two stages of bf16 K (32 KB) and hi/lo V (64 KB) and the bf16 Q
-        # tile (64 KB) exceed the 227 KB of shared memory.
-        raise _not_ported("fp32 PV with bf16 QK at head_dim 256", "3g")
     v_mode = 0 if v.dtype != torch.int8 else 2 if pv_int8 else 1
     if v_mode == 0 and not pv_f32:
         v = v.to(torch.bfloat16)
@@ -346,9 +357,7 @@ def _attention_fwd_cuda(
         pad = lambda x: torch.nn.functional.pad(x, (0, dp - d)) if x is not None else None  # noqa: E731
         q, k, v, v_scale, v_mean = pad(q), pad(k), pad(v), pad(v_scale), pad(v_mean)
     if pv_f32:
-        vf = v.float()
-        hi = vf.to(torch.bfloat16)
-        v = torch.cat([hi, (vf - hi.float()).to(torch.bfloat16)], dim=-1)
+        v = torch.cat(bf16_terms(v.float()), dim=-1)
     if q_segment_ids is not None:
         q_segment_ids = q_segment_ids.to(torch.int32).contiguous()
         kv_segment_ids = kv_segment_ids.to(torch.int32).contiguous()

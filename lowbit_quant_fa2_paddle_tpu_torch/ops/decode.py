@@ -17,9 +17,13 @@ mbarriers, consumer warps that each own whole tiles, QK on ``mma.sync``, PV
 in f32, or with ``compute_mode="int"`` on an int8 V as an integer product);
 nothing falls back. T query tokens ``q [B, T, H, D]`` and INT8 PV run the
 kernel's multi-token instances (``csrc/decode_attention_multi.cu`` at head
-dims 32, 64 and 128, ``csrc/decode_attention_multi_d256.cu`` at 256); one
-token without INT8 PV runs the single-token ones (``csrc/decode_attention.cu``
-at head dims 32, 64 and 128, ``csrc/decode_attention_d256.cu`` at 256).
+dims 32, 64 and 128, ``csrc/decode_attention_multi_d256.cu`` at 256,
+``csrc/decode_attention_multi_d80_96.cu`` at 80 and 96); one token without
+INT8 PV runs the single-token ones (``csrc/decode_attention.cu`` at head dims
+32, 64 and 128, ``csrc/decode_attention_d256.cu`` at 256,
+``csrc/decode_attention_d80_96.cu`` at 80 and 96: Phi-2's and Phi-3-mini's
+head dims, whose rows the kernel keeps at the cache's own width). Other head
+dims raise.
 
 Semantics of one query token per sequence, as the TPU kernel computes them:
 
@@ -100,8 +104,12 @@ MAX_SPLITS = 64
 #: Consumer warps per CTA of kernel D; each leaves one partial state per split.
 WARPS = 4
 #: Designs of kernel D: one, for every mode (int8/4-bit/bf16 K and V, both
-#: QK chains, d32/64/128/256, one or T query tokens, f32 or INT8 PV).
+#: QK chains, every head dim of :data:`HEAD_DIMS`, one or T query tokens, f32
+#: or INT8 PV).
 DESIGNS = ("bulk_ring",)
+#: The head dims kernel D is built for: the power-of-two ladder, and 80 and
+#: 96 (the ``_d80_96`` sources).
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -232,6 +240,12 @@ def tile_keys(d: int, k_bits: int, v_bits: int) -> int:
     32, else 16."""
     row = sum(d // 2 if bits == 4 else d * (2 if bits == 16 else 1) for bits in (k_bits, v_bits))
     return 64 if 64 * row <= 16384 else 32 if 32 * row <= 16384 else 16
+
+
+def _entry(lib, name: str, d: int):
+    """The C entry of kernel D's instances at head dim ``d``: ``name`` for
+    d32-d128, its ``_d256`` or ``_d80_96`` twin in their own sources."""
+    return getattr(lib, name + ("_d256" if d == 256 else "_d80_96" if d in (80, 96) else ""))
 
 
 def walk_tiles(length: int, s_max: int, *, tile: int, window: int = 0, sink: int = 0, q_tokens: int = 1,
@@ -381,7 +395,10 @@ def decode_attention_plain(
         l = p.sum(dim=-1, keepdim=True)
         if v.dtype == torch.int8:
             p = p * v_scale.float()[:, :, None, :]
-        o = p @ vf
+        # A product per token (its g rows): the matmul's summation order
+        # may depend on its row count, and each token then gets the bits of
+        # the single-token call at its own length.
+        o = torch.cat([p[:, :, i * g:(i + 1) * g] @ vf for i in range(t)], dim=2)
     empty = l == 0.0
     ls = torch.where(empty, torch.ones_like(l), l)
     o = (o / ls).to(out_dtype).reshape(b, hk, t, g, d).transpose(1, 2).reshape(b, t, h, d)
@@ -453,20 +470,14 @@ def _resident_ctas(device_index: int, d: int, k_bits: int, v_bits: int, int_qk: 
     lib = _build.library()
     with torch.cuda.device(device_index):
         if paged:
-            query = lib.lowbit_decode_paged_ctas_per_sm_d256 if d == 256 else lib.lowbit_decode_paged_ctas_per_sm
-            err = query(d, int(k_bits), int(v_bits), int(int_qk), int(multi == 2), ctypes.byref(per_sm))
-        elif d == 256 and multi:
-            err = lib.lowbit_decode_multi_ctas_per_sm_d256(d, int(k_bits), int(v_bits), int(int_qk),
-                                                           int(multi == 2), ctypes.byref(per_sm))
-        elif d == 256:
-            err = lib.lowbit_decode_ctas_per_sm_d256(d, int(k_bits), int(v_bits), int(int_qk), int(masks),
-                                                     ctypes.byref(per_sm))
+            err = _entry(lib, "lowbit_decode_paged_ctas_per_sm", d)(d, int(k_bits), int(v_bits), int(int_qk),
+                                                                    int(multi == 2), ctypes.byref(per_sm))
         elif multi:
-            err = lib.lowbit_decode_multi_ctas_per_sm(d, int(k_bits), int(v_bits), int(int_qk), int(multi == 2),
-                                                      ctypes.byref(per_sm))
+            err = _entry(lib, "lowbit_decode_multi_ctas_per_sm", d)(d, int(k_bits), int(v_bits), int(int_qk),
+                                                                    int(multi == 2), ctypes.byref(per_sm))
         else:
-            err = lib.lowbit_decode_ctas_per_sm(d, int(k_bits), int(v_bits), int(int_qk), int(masks),
-                                                ctypes.byref(per_sm))
+            err = _entry(lib, "lowbit_decode_ctas_per_sm", d)(d, int(k_bits), int(v_bits), int(int_qk), int(masks),
+                                                              ctypes.byref(per_sm))
     _build.check(err, "decode_attention occupancy")
     return max(1, per_sm.value) * torch.cuda.get_device_properties(device_index).multi_processor_count
 
@@ -578,8 +589,8 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
         s_max = page_table.shape[1] * page
     else:
         hk, s_max = k.shape[1], k.shape[2]
-    if d not in (32, 64, 128, 256):
-        raise _not_ported(f"decode head_dim {d} (kernel D takes 32, 64, 128, 256)", "3")
+    if d not in HEAD_DIMS:
+        raise _not_ported(f"decode head_dim {d} (kernel D takes {', '.join(map(str, HEAD_DIMS))})", "3")
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"decode output dtype must be f32/bf16/f16, not {out_dtype}")
     if k.dtype not in (torch.int8, torch.bfloat16) or v.dtype not in (torch.int8, torch.bfloat16):
@@ -630,16 +641,15 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if paged:
-            fn = lib.lowbit_decode_attn_paged_d256 if d == 256 else lib.lowbit_decode_attn_paged
-            err = fn(*common, plan["walk_window"], sink, t, int(int_pv), page_table.data_ptr(), n_pages, page,
-                     page_table.shape[1], float(sm_scale), float(logit_cap), stream)
+            err = _entry(lib, "lowbit_decode_attn_paged", d)(
+                *common, plan["walk_window"], sink, t, int(int_pv), page_table.data_ptr(), n_pages, page,
+                page_table.shape[1], float(sm_scale), float(logit_cap), stream)
         elif plan["multi"]:
-            multi = lib.lowbit_decode_attn_multi_d256 if d == 256 else lib.lowbit_decode_attn_multi
-            err = multi(*common, plan["walk_window"], sink, t, int(int_pv), float(sm_scale), float(logit_cap), stream)
-        elif d == 256:
-            err = lib.lowbit_decode_attn_d256(*common, window, sink, float(sm_scale), float(logit_cap), stream)
+            err = _entry(lib, "lowbit_decode_attn_multi", d)(*common, plan["walk_window"], sink, t, int(int_pv),
+                                                             float(sm_scale), float(logit_cap), stream)
         else:
-            err = lib.lowbit_decode_attn(*common, window, sink, float(sm_scale), float(logit_cap), stream)
+            err = _entry(lib, "lowbit_decode_attn", d)(*common, window, sink, float(sm_scale), float(logit_cap),
+                                                       stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     decode_attention.launches_by_design[design] += 1
@@ -780,5 +790,6 @@ def decode_attention(
 decode_attention.launches = 0
 decode_attention.launches_by_design = {design: 0 for design in DESIGNS}
 decode_attention.launches_by_variant = {}
-#: Launches per head dim (the head_dim-256 instances live in their own source).
-decode_attention.launches_by_dim = {d: 0 for d in (32, 64, 128, 256)}
+#: Launches per head dim (the head_dim-256 and the 80/96 instances live in
+#: sources of their own).
+decode_attention.launches_by_dim = {d: 0 for d in HEAD_DIMS}

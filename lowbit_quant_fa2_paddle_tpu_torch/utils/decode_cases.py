@@ -8,7 +8,11 @@ A case is ``(T, cache mode, compute_mode, d, b, h, hk, S_max, lengths,
 window, sink, q dtype[, logit cap])``; ``lengths`` None asks for lengths
 around a split boundary of the call's own plan. The ``d256-`` cases run the
 head_dim-256 instances (``csrc/decode_attention_multi_d256.cu``), the hd256
-LLM's 16 query and 8 KV heads. The bounds are phase 9's: cos >= 0.99999,
+LLM's 16 query and 8 KV heads; the ``d96-`` and ``d80-`` cases the
+instances off the ladder (``csrc/decode_attention*_d80_96.cu``: T 1 takes
+the single-token kernels), every cache mode and both QK chains, 4-bit rows
+of 40 bytes at d80 (copied in 8-byte pieces) with window phases that start
+at odd keys. The bounds are phase 9's: cos >= 0.99999,
 max|do| <= one bf16 ulp of max|o|, max|dlse| <= 1e-4, rows that see no key
 o = 0 and lse = -1e30, the same bits on a second run, every launch on D's
 design and on the case's variant (``ops.decode.launch_variant``).
@@ -61,6 +65,32 @@ CASES = {
     "d256-pv8-t4-masked-tiles": (4, "int8", "int", 256, 2, 16, 8, 1000, [1000, 33], 0, 0, torch.bfloat16),
     "d256-pv8-t1-window300-sink8": (1, "int8", "int", 256, 2, 16, 8, 1000, [1000, 310], 300, 8, torch.bfloat16),
     "d256-pv8-t2-bf16-k": (2, "k16v8", "int", 256, 2, 16, 8, 600, [600, 3], 0, 0, torch.bfloat16),
+    # Head dims 96 (Phi-3-mini) and 80 (Phi-2): T 1-8, tile and split edges, every cache mode and both chains,
+    # the window / sink walk, the cap, INT8 PV.
+    "d96-t1-int8-split-edge": (1, "int8", "auto", 96, 2, 8, 8, 2048, None, 0, 0, torch.bfloat16),
+    "d96-t4-bf16-tile-edge": (4, "bf16", "auto", 96, 2, 8, 2, 1000, [129, 34], 0, 0, torch.bfloat16),
+    "d96-t8-int4": (8, "int4", "auto", 96, 2, 8, 8, 700, [700, 9], 0, 0, torch.bfloat16),
+    "d96-t1-int4-int-qk": (1, "int4", "int_qk", 96, 2, 8, 8, 700, [700, 9], 0, 0, torch.bfloat16),
+    "d96-t4-int4-int-qk": (4, "int4", "int_qk", 96, 2, 8, 8, 700, [700, 9], 0, 0, torch.bfloat16),
+    "d96-t2-k4v8-window256-sink4": (2, "k4v8", "auto", 96, 2, 8, 2, 1000, [577, 1000], 256, 4, torch.bfloat16),
+    "d96-t4-int8-window256-cap30": (4, "int8", "auto", 96, 2, 8, 2, 1000, [577, 1000], 256, 0, torch.bfloat16,
+                                    30.0),
+    "d96-t1-k4v8-f32-q": (1, "k4v8", "auto", 96, 2, 8, 2, 777, [777, 1], 0, 0, torch.float32),
+    "d96-pv8-t4-masked-tiles": (4, "int8", "int", 96, 2, 8, 2, 1000, [1000, 65], 0, 0, torch.bfloat16),
+    "d96-pv8-t1-bf16-k": (1, "k16v8", "int", 96, 2, 8, 8, 600, [600, 3], 0, 0, torch.bfloat16),
+    "d80-t1-int8-split-edge": (1, "int8", "auto", 80, 2, 8, 8, 2048, None, 0, 0, torch.bfloat16),
+    "d80-t3-bf16-tile-edge": (3, "bf16", "auto", 80, 2, 8, 2, 1000, [129, 33], 0, 0, torch.bfloat16),
+    "d80-t1-int4-window101-sink3": (1, "int4", "auto", 80, 2, 8, 2, 1000, [578, 1000], 101, 3, torch.bfloat16),
+    "d80-t1-int4-int-qk-window100-sink8": (1, "int4", "int_qk", 80, 2, 8, 8, 777, [400, 777], 100, 8,
+                                           torch.bfloat16),
+    "d80-t4-k4v8-int-qk-window100-sink8": (4, "k4v8", "int_qk", 80, 2, 8, 8, 777, [400, 777], 100, 8,
+                                           torch.bfloat16),
+    "d80-t4-int4-int-qk-window100-sink8": (4, "int4", "int_qk", 80, 2, 8, 8, 777, [400, 777], 100, 8,
+                                           torch.bfloat16),
+    "d80-t2-k4v8-cap20": (2, "k4v8", "auto", 80, 2, 8, 2, 700, [700, 65], 0, 0, torch.bfloat16, 20.0),
+    "d80-t1-int8-f32-chain-f32-q": (1, "int8", "f32", 80, 2, 8, 2, 777, [777, 2], 0, 0, torch.float32),
+    "d80-t8-k16v8": (8, "k16v8", "auto", 80, 1, 8, 1, 500, [500], 0, 0, torch.bfloat16),
+    "d80-pv8-t2-window300-sink8": (2, "int8", "int", 80, 2, 8, 2, 1000, [1000, 310], 300, 8, torch.bfloat16),
 }
 
 
@@ -146,6 +176,14 @@ PAGED_CASES = {
     "paged-d256-pv8-t2-p8": (2, "int8", "int", 256, 2, 16, 8, 8, 40, [320, 9], 0, 0, torch.bfloat16),
     "paged-d256-t1-bf16-p32-window100": (1, "bf16", "auto", 256, 2, 16, 8, 32, 10, [320, 64], 100, 0,
                                          torch.bfloat16),
+    "paged-d96-t1-int8-p16": (1, "int8", "auto", 96, 2, 8, 8, 16, 32, [512, 33], 0, 0, torch.bfloat16),
+    "paged-d96-t4-bf16-p8": (4, "bf16", "auto", 96, 2, 8, 2, 8, 40, [320, 9], 0, 0, torch.bfloat16),
+    "paged-d96-pv8-t2-p64-window100-sink8": (2, "int8", "int", 96, 2, 8, 2, 64, 8, [512, 120], 100, 8,
+                                             torch.bfloat16),
+    "paged-d80-t1-int4-p8": (1, "int4", "auto", 80, 2, 8, 2, 8, 40, [320, 17], 0, 0, torch.bfloat16),
+    "paged-d80-t4-k4v8-int-qk-p32-window101": (4, "k4v8", "int_qk", 80, 2, 8, 2, 32, 16, [512, 150], 101, 0,
+                                               torch.bfloat16),
+    "paged-d80-t1-k16v8-p64-cap30": (1, "k16v8", "auto", 80, 2, 8, 8, 64, 8, [512, 70], 0, 0, torch.bfloat16, 30.0),
 }
 
 

@@ -27,13 +27,13 @@ also times the eager loop of ``llm_decode_step`` itself from the same
 caches. The processes run in turns main, base, v1, v2, ..., then the same in
 reverse, so each build is compared with main within one call. ``--sass``
 first compares, kernel by kernel, the SASS (``cuobjdump -sass``, addresses
-and encodings dropped) of main's D kernels at head dims 32-128 with base's
-kernels of the same template arguments: the 90 single-token ones, and the
-54 multi-token / INT8-PV ones where base has them (a build from before the
-multi-token instances has only the single-token ones); it exits with an
-error unless both builds hold all 90 single-token kernels, main holds
-every kernel of base's, and each pair is identical, and then prints its
-verdict again as the last line. Prints the card's name and power limit first. Named variants
+and encodings dropped) of every D kernel of base (single-token,
+multi-token / INT8-PV and paged, at every head dim base has) with main's
+kernel of the same template arguments; main's kernels at head dims base
+lacks are counted; it exits with an error unless both builds hold all 90
+single-token kernels at head dims 32-128, main holds every kernel of
+base's, and each pair is identical, and then prints its verdict again as
+the last line. Prints the card's name and power limit first. Named variants
 run; ``all`` runs every
 variant; with none named, main runs against base alone. The
 probes give wrong results on purpose: they time a part of the kernel.
@@ -115,25 +115,21 @@ def library_of(root: str) -> str:
 #: (K bf16 on the float chain, K int8 or 4-bit on either chain) x V
 #: bf16/int8/4-bit x with and without masks.
 D_SINGLE_TOKEN_KERNELS = 3 * 5 * 3 * 2
-#: ... and its multi-token instances at those head dims: with masks, every
-#: (K, chain) x V (kExt 1), and INT8 PV on an int8 V with K on the integer
-#: chain or bf16 (kExt 2).
-D_MULTI_KERNELS = 3 * (5 * 3 + 3)
 
 
 def sass_diff(main_bin: str, base_bin: str) -> tuple:
-    """Prints, for each single-token D kernel of base, whether main's kernel
-    of the same template arguments has the same instructions (and
-    encodings). Returns (ok, verdict line): ok only when both builds hold
-    all D_SINGLE_TOKEN_KERNELS of them and each pair is identical."""
+    """Prints, for each D kernel of base (every head dim, single-token,
+    multi-token and paged), whether main's kernel of the same template
+    arguments has the same instructions (and encodings). Returns (ok,
+    verdict line): ok only when both builds hold all D_SINGLE_TOKEN_KERNELS
+    single-token kernels at head dims 32-128, main holds every kernel of
+    base's and each pair is identical. Main's kernels at head dims base
+    lacks (80 and 96) are counted, not compared."""
     a, b = d_sass_kernels(main_bin), d_sass_kernels(base_bin)
-    # A build with head_dim 256 holds its kernels too (decode_attention_d256.cu,
-    # decode_attention_multi_d256.cu); base's head dims are compared.
-    a256 = sum(key[0] == "256" for key in a)
-    a = {key: v for key, v in a.items() if key[0] != "256"}
-    b = {key: v for key, v in b.items() if key[0] != "256"}
-    singles = lambda ks: sum(key[4] == "0" for key in ks)  # noqa: E731
-    same = singles(a) == singles(b) == D_SINGLE_TOKEN_KERNELS
+    new_dims = sorted({key[0] for key in a} - {key[0] for key in b}, key=int)
+    n_new = sum(key[0] in new_dims for key in a)
+    ladder = lambda ks: sum(key[4] == "0" and key[0] in ("32", "64", "128") for key in ks)  # noqa: E731
+    same = ladder(a) == ladder(b) == D_SINGLE_TOKEN_KERNELS
     for key in sorted(b):
         name = "decode_kernel<D={}, {}, int_qk={}, masks={}, kExt={}>".format(*key)
         if key not in a:
@@ -151,9 +147,10 @@ def sass_diff(main_bin: str, base_bin: str) -> tuple:
               f"positions differ", flush=True)
         for i, x, y in diff[:8]:
             print(f"    {i}: main {x} | base {y}", flush=True)
-    verdict = (f"sass: {len(b)} D kernels of base at head dims 32/64/128 ({singles(b)} single-token) compared with "
-               f"main's {len(a)} (a build holds {D_SINGLE_TOKEN_KERNELS} single-token and {D_MULTI_KERNELS} "
-               f"multi-token kernels there; main also {a256} at 256), {'all identical' if same else 'NOT all identical'}")
+    dims = sorted({key[0] for key in b}, key=int)
+    verdict = (f"sass: all {len(b)} D kernels of base (head dims {'/'.join(dims)}; {ladder(b)} single-token at "
+               f"32-128) compared with main's (main holds {len(a)}, {n_new} of them at head dims "
+               f"{'/'.join(new_dims) or 'none'} new), {'all identical' if same else 'NOT all identical'}")
     print(verdict, flush=True)
     return same, verdict
 

@@ -206,11 +206,6 @@ def _unported_call(case):
     if case == "a-head-dim-320":
         q = torch.randn(1, 1, 8, 320)
         return lambda: lowbit_attention(q, q, q)
-    if case == "a-fp32-pv-bf16-qk-d256":
-        q = torch.randn(1, 1, 8, 256)
-        return lambda: tattn._attention_fwd_cuda(
-            q, q, q, None, None, None, causal=False, sm_scale_log2e=0.09, out_dtype=torch.float32, need_lse=False,
-            k_bits=8, v_scale=None, pv_int8=False, pv_f32=True)
     if case == "g-head-dim-320":
         q = torch.randn(1, 1, 8, 320)
         lse = torch.zeros(1, 1, 8)
@@ -223,21 +218,20 @@ def _unported_call(case):
         q, kp, ks = torch.randn(1, 1, 8, 96), torch.zeros(1, 1, 8, 48, dtype=torch.int8), torch.ones(1, 1, 8, 1)
         return lambda: tfkv._fused_kv_cuda(q, kp, kp, ks, ks, ks, ks, bits=4, group=8, causal=False,
                                            sm_scale_log2e=0.15, out_dtype=torch.float32)
-    cache = torch.zeros(1, 1, 16, 96, dtype=torch.int8)
-    q = torch.randn(1, 1, 1, 96) if case == "d-head-dim-96" else torch.randn(1, 2, 1, 96)
+    cache = torch.zeros(1, 1, 16, 112, dtype=torch.int8)
+    q = torch.randn(1, 1, 1, 112) if case == "d-head-dim-112" else torch.randn(1, 2, 1, 112)
     ones, lens = torch.ones(1, 1, 16), torch.full((1,), 16, dtype=torch.int32)
     return lambda: tdec._decode_attention_cuda(q[:, 0] if q.shape[1] == 1 else q, cache, cache, ones, ones, lens,
                                                sm_scale=0.1, int_qk=True, out_dtype=torch.float32, need_lse=False)
 
 
-@pytest.mark.parametrize("case", ["a-head-dim-320", "a-fp32-pv-bf16-qk-d256", "g-head-dim-320", "d-head-dim-96",
-                                  "d-t-tokens-head-dim-96", "e-head-dim-96"])
+@pytest.mark.parametrize("case", ["a-head-dim-320", "g-head-dim-320", "d-head-dim-112", "d-t-tokens-head-dim-112",
+                                  "e-head-dim-96"])
 def test_unported_flags_raise(case):
     """What the port still raises for, each naming its ROADMAP item: kernel
-    A above head_dim 256 (and fp32 PV with bf16 QK at 256, which does not
-    fit shared memory), G1/G2 above head_dim 256, kernel D at head dims
-    other than 32, 64, 128 and 256 (one token or T), and kernel E at head
-    dims other than 64 and 128 (which JAX takes: not a bad input)."""
+    A and G1/G2 above head_dim 256, kernel D at head dims other than 32, 64,
+    80, 96, 128 and 256 (one token or T), and kernel E at head dims other
+    than 64 and 128 (which JAX takes: not a bad input)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _unported_call(case)()
 

@@ -124,9 +124,10 @@ def test_build_command_targets_sm90a_from_repo_sources():
     assert sorted(os.path.basename(s) for s in srcs) == [
         "attention_bwd_wgmma.cu", "attention_bwd_wgmma_d256.cu", "attention_fwd_wgmma.cu",
         "attention_fwd_wgmma_bias.cu", "attention_fwd_wgmma_d256.cu", "attention_fwd_wgmma_pv32.cu",
-        "decode_attention.cu", "decode_attention_d256.cu", "decode_attention_multi.cu",
-        "decode_attention_multi_d256.cu", "decode_attention_paged.cu", "decode_attention_paged_d256.cu",
-        "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
+        "attention_fwd_wgmma_pv32_d256.cu", "decode_attention.cu", "decode_attention_d256.cu",
+        "decode_attention_d80_96.cu", "decode_attention_multi.cu", "decode_attention_multi_d256.cu",
+        "decode_attention_multi_d80_96.cu", "decode_attention_paged.cu", "decode_attention_paged_d256.cu",
+        "decode_attention_paged_d80_96.cu", "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert all(f"-I{_build.CSRC_DIR}" in cmd for cmd in compiles)  # the shared headers, e.g. sm90.cuh
     assert os.path.join(_build.CSRC_DIR, "sm90.cuh") in _build.hashed_files()
@@ -1169,6 +1170,38 @@ DECODE_WINDOW_EDGES = {
     "window100-sink10-d32": (1000, 32, [1000, 50, 333, 99], dict(window_size=100, sink_size=10)),
     "window300-sink8-cap2-d256": (2048, 256, [2048, 100, 1300, 0], dict(window_size=300, sink_size=8, logit_cap=2.0)),
 }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,mode", [(96, "int8"), (96, "k4v8"), (80, "bf16"), (80, "k4v8")])
+def test_off_ladder_llm_on_the_card(cuda, d, mode):
+    """A model at head_dim 96 (dim 384) or 80 (dim 320), 4 query and 2 KV
+    heads: its prefill runs kernel A padded to 128 (one launch a layer), and
+    ``decode_tokens`` gives the tokens and bit-equal caches of a loop of
+    ``llm_decode_step``, every kernel D launch at the head dim itself
+    (``csrc/decode_attention*_d80_96.cu``)."""
+    cfg = llm.tiny_llm_config(dim=4 * d, depth=2, num_heads=4, num_kv_heads=2, max_seq=300, dtype=torch.bfloat16,
+                              **GRAPH_CACHES[mode])
+    assert cfg.head_dim == d
+    model = llm.init_llm_params(cfg, torch.Generator(device=cuda).manual_seed(7))
+    prompt = torch.randint(0, cfg.vocab, (2, 200), generator=torch.Generator(device=cuda).manual_seed(8), device=cuda)
+    n_a, n_a128 = lowbit_attention.launches, lowbit_attention.launches_by_dim[128]
+    logits, caches = llm.llm_prefill(model, prompt, cfg)
+    assert lowbit_attention.launches - n_a == cfg.depth == lowbit_attention.launches_by_dim[128] - n_a128
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    copy = [{k: v.clone() for k, v in c.items()} for c in caches]
+    n_d, n_dd = decode_attention.launches, decode_attention.launches_by_dim[d]
+    got, out_caches = llm.decode_tokens(model, tok, caches, 6, cfg)
+    torch.cuda.synchronize()
+    assert decode_attention.launches - n_d == 6 * cfg.depth == decode_attention.launches_by_dim[d] - n_dd
+    want, t = [], tok
+    for _ in range(6):
+        step_logits, copy = llm.llm_decode_step(model, t, copy, cfg)
+        t = torch.argmax(step_logits, dim=-1).to(torch.int32)
+        want.append(t)
+    assert torch.equal(got, torch.stack(want, dim=1))
+    for c, w in zip(out_caches, copy):
+        assert all(torch.equal(c[k], w[k]) for k in c), mode
 
 
 @pytest.mark.gpu
