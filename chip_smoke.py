@@ -303,7 +303,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    same cache mode.
 
 20. kernel D at head dims 80 and 96 and the Phi-3-mini-geometry LLM (run
-   last): D over utils/decode_cases.py's d80/d96 cases, contiguous and
+   after phase 18): D over utils/decode_cases.py's d80/d96 cases, contiguous and
    paged (T 1-8, every cache mode and both chains, tile and split edges, a
    window with sinks, the cap, INT8 PV, 40-byte 4-bit rows, pages of
    8-64) at phase 9's bounds, every launch at its head dim; C1 at the d96
@@ -325,6 +325,33 @@ Phases, each of which raises on failure (exit code 1, no result line):
    puts the engine's token at most 4 times the b1-vs-b8 step's largest
    |logit difference| below its own); the int8 cache saved and reloaded
    (utils/checkpoint.py) decodes the same tokens.
+
+21. kernels D and E at the head dims they take at run time and the
+   MPT-30B-geometry LLM (run last): D over utils/decode_cases.py's d16, d48,
+   d112, d144, d192 and d240 cases, contiguous and paged (T 1-8, every cache
+   mode and both chains, tile and split edges, a window with sinks, the
+   cap, INT8 PV, rows that end inside a QK window, 4-bit rows of 8-120
+   bytes, Nemotron-4's GQA group of 12) at phase 9's bounds, every launch at
+   its head dim; C1 at the d112 prefill's K (padded to 128 by the entry
+   point), bit-equal and timed; A at one row of that prefill (b1 h64 hk64
+   s4032 d112 padded to 128, causal, int8) beside SDPA; D timed in every
+   cache mode at b8 h64 hk64 S_max 4096 d112 (MPT-30B's decode) and b8 h96
+   hk8 S_max 4096 d192 (Nemotron-4-340B's), with the byte bound and SDPA
+   beside, and its T-token (T 4) and paged (pages of 64) instances at d112;
+   E at d48, d112 and d192 (bits 4 and 2, causal and not) at phase 11's
+   bounds, timed at b4 h32 s8192 d112 int4 beside SDPA on the dequantized
+   K/V, with the wrapper's padded copy of the packed rows timed alone; F1
+   w8 at the model's MLP matrices (M 8); then the model (dim 7168, 64 heads
+   and 64 KV heads of 112, depth 24 of MPT-30B's 48, vocab 50432, 15.2 B
+   random seeded parameters) at b8 from 4,032-token prompts into caches of
+   4,096 rows: llm_prefill and 63 graph-decoded tokens on the int8, bf16,
+   int4 and k4v8 caches and with w8 weights (every D at head dim 112, A at
+   kernel dim 128; first-step logits int8 vs bf16 cache cos >= 0.999; an
+   int8 decode step profiled); speculative_generate (b1, spec_k 4, int4 and
+   w4 self-drafts) token-equal to generate; ServingEngine (pages of 64, 8
+   slots, 8 requests of 1,024-4,032 tokens, 32 new each, int8 pages) with
+   each stream equal to generate's or parting at a near-tie (phase 20's
+   rule).
 
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
@@ -4295,49 +4322,55 @@ PHI3_SERVE_LENS, PHI3_SERVE_NEW = (1024, 1500, 2000, 2500, 3000, 3333, 3700, 396
 PHI3_TIE = 4.0
 
 
-def offladder_edge_phase(gen):
-    """Kernel D at head dims 80 and 96 (decode_attention*_d80_96.cu) on the
-    d80/d96 cases of utils/decode_cases.py, contiguous and paged: every cache
-    mode and both QK chains, T 1-8 at tile and split edges, a window with
-    sinks, the cap, INT8 PV, 4-bit rows of 40 bytes with window phases that
-    start at odd keys, pages of 8-64; phase 9's bounds, the same bits twice,
-    every launch on the case's variant and at the case's head dim. Returns
-    the worst max|do| by head dim."""
+def dim_edge_phase(gen, dims, tag):
+    """Kernel D's edge cases of utils/decode_cases.py at the head dims
+    ``dims``, contiguous and paged: every cache mode and both QK chains, T
+    1-8 at tile and split edges, a window with sinks, the cap, INT8 PV, rows
+    that end inside a QK window or are not 16-byte multiples; phase 9's
+    bounds, the same bits twice, every launch on the case's variant and at
+    the case's head dim. Returns the worst max|do| by head dim."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
     from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases
 
     worst = {}
-    cases = [(n, False) for n, c in decode_cases.CASES.items() if c[3] in (80, 96)] + [
-        (n, True) for n, c in decode_cases.PAGED_CASES.items() if c[3] in (80, 96)]
+    cases = [(n, False) for n, c in decode_cases.CASES.items() if c[3] in dims] + [
+        (n, True) for n, c in decode_cases.PAGED_CASES.items() if c[3] in dims]
     for name, paged in cases:
         d = (decode_cases.PAGED_CASES if paged else decode_cases.CASES)[name][3]
         n = DD.decode_attention.launches_by_dim[d]
         r = (decode_cases.check_paged_case if paged else decode_cases.check_case)(name, gen)
         # Two kernel calls a case (and the paged case's contiguous call on the same rows).
         r["on_dim"] = DD.decode_attention.launches_by_dim[d] - n == (3 if paged else 2)
-        log(f"[D20] {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-                                         for k, v in r.items()))
+        log(f"[{tag}] {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                           for k, v in r.items()))
         if not (r["ok"] and r["on_dim"]):
             raise AssertionError(f"kernel D at d{d} disagrees with its plain version ({name}): {r}")
         worst[d] = max(worst.get(d, 0.0), r["max_do"])
-    log(f"[D20] {len(cases)} cases at head dims 80/96; worst max|do| by head dim {worst}")
+    log(f"[{tag}] {len(cases)} cases at head dims {dims}; worst max|do| by head dim {worst}")
     return worst
 
 
-def offladder_quant_phase(gen):
-    """Kernel C1 at the Phi-3-mini-geometry prefill's K (b8, 32 KV heads,
-    3,968 rows of 96): the int8 entry point pads K to 128 columns first (the
-    JAX launcher's multiple of 64), so the model's C1 runs on 128-wide rows,
-    the vector design; a K left 96 wide (192-byte rows, not 4-32 lanes of 16
-    bytes) takes the scalar design. Each: codes and scales bit-equal to
-    quant_int8_plain, the launch on the design, then timed."""
+def offladder_edge_phase(gen):
+    """dim_edge_phase at head dims 80 and 96 (decode_attention*_d80_96.cu):
+    4-bit rows of 40 bytes with window phases that start at odd keys, pages
+    of 8-64."""
+    return dim_edge_phase(gen, (80, 96), "D20")
+
+
+def prefill_k_quant_phase(gen, b, hk, s, d, tag, unpadded=True):
+    """Kernel C1 at a prefill's K (b, hk KV heads, s rows of d): the int8
+    entry point pads K to 128 columns first (the JAX launcher's multiple of
+    64), so the model's C1 runs on 128-wide rows, the vector design; with
+    ``unpadded``, a K left d wide (not 4-32 lanes of 16 bytes) takes the
+    scalar design. Each: codes and scales bit-equal to quant_int8_plain, the
+    launch on the design, then timed."""
     from lowbit_quant_fa2_paddle_tpu_torch.core import _pad_head_dim
     from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import k_mean, kernel_design, quant_int8, quant_int8_plain
 
     recs = {}
-    for tag, pad in (("padded to 128", True), ("96 wide", False)):
+    for vtag, pad in (("padded to 128", True),) + (((f"{d} wide", False),) if unpadded else ()):
         def make():
-            k = (torch.randn(PHI3_BATCH, 32, PHI3_PROMPT, 96, generator=gen, device="cuda") + 0.5).bfloat16()
+            k = (torch.randn(b, hk, s, d, generator=gen, device="cuda") + 0.5).bfloat16()
             return _pad_head_dim(k) if pad else k
         k = make()
         km = k_mean(k)
@@ -4348,14 +4381,20 @@ def offladder_quant_phase(gen):
         want_c, want_s = quant_int8_plain(k, km, per_token=True, block=128)
         torch.cuda.synchronize()
         same = torch.equal(codes, want_c) and torch.equal(scale, want_s)
-        log(f"[C1-20] Phi-3 prefill K b8 h32 s{PHI3_PROMPT} d96 {tag} ({design}): codes_equal="
+        log(f"[{tag}] prefill K b{b} h{hk} s{s} d{d} {vtag} ({design}): codes_equal="
             f"{torch.equal(codes, want_c)} scales_equal={torch.equal(scale, want_s)} on_design={on_design}")
         if not (same and on_design and (design == "vector") == pad):
-            raise AssertionError(f"kernel C1 at the Phi-3 prefill's K ({tag}): design {design}, equal {same}")
+            raise AssertionError(f"kernel C1 at the prefill's K ({vtag}): design {design}, equal {same}")
         del k, km, codes, scale, want_c, want_s
-        recs[tag] = {"max_abs_err": 0.0, **time_quant("C1-20", f"b8 h32 s{PHI3_PROMPT} d96 {tag}", quant_int8,
-                                                      quant_int8_plain, [make(), make()], "per_token", 128, 8)}
+        recs[vtag] = {"max_abs_err": 0.0, **time_quant(tag, f"b{b} h{hk} s{s} d{d} {vtag}", quant_int8,
+                                                       quant_int8_plain, [make(), make()], "per_token", 128, 8)}
     return recs
+
+
+def offladder_quant_phase(gen):
+    """prefill_k_quant_phase at the Phi-3-mini-geometry prefill's K (b8, 32
+    KV heads, 3,968 rows of 96), padded and left 96 wide (192-byte rows)."""
+    return prefill_k_quant_phase(gen, PHI3_BATCH, 32, PHI3_PROMPT, 96, "C1-20")
 
 
 def phi3_prefill_attention_phase(gen):
@@ -4369,13 +4408,14 @@ def phi3_prefill_attention_phase(gen):
                           PHI3["dim"] // PHI3["num_heads"], True)
 
 
-def offladder_decode_phase(gen):
-    """Kernel D timed at head dims 96 and 80 in every cache mode of
-    DECODE_MODES at OFFLADDER_SHAPES (every length S_max), against its plain
-    version at phase 9's bounds, with the cache's byte bound and SDPA's time
-    (one query a head over the bf16 cache of that shape) as the library
-    baseline; then at d96 the T-token instance (T 4, b1, int8: the
-    speculative verify step) and the paged one (b8, pages of 64 in a
+def decode_rows_phase(gen, shapes, tag, spec_shape, paged_shape):
+    """Kernel D timed in every cache mode of DECODE_MODES at ``shapes`` ({d:
+    (b, h, hk, S_max)}, every length S_max), against its plain version at
+    phase 9's bounds, with the cache's byte bound and SDPA's time (one
+    query a head over the bf16 cache of that shape) as the library
+    baseline; then the T-token instance at ``spec_shape`` (d, b, h, hk,
+    S_max; T 4, int8: the speculative verify step) and the paged one at
+    ``paged_shape`` (d, b, h, hk, rows a sequence; pages of 64 in a
     shuffled pool, int8: the serving engine's tick)."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
     from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases
@@ -4392,20 +4432,20 @@ def offladder_decode_phase(gen):
         r = stats(o, o_ref, lse, lse_ref)
         ulp = bf16_ulp(float(o_ref.float().abs().max()))
         same = torch.equal(o, o2) and torch.equal(lse, lse2)
-        log(f"[D20] {key}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in r.items())
-            + f" bf16_ulp={ulp:.3g} same_bits_twice={same}")
+        log(f"[{tag}] {key}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                          for k, v in r.items()) + f" bf16_ulp={ulp:.3g} same_bits_twice={same}")
         if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= ulp and r["max_dlse"] <= 1e-4 and same):
             raise AssertionError(f"kernel D disagrees with its plain version ({key}): {r}")
         ms = cuda_time_ms(call, warmup=5, reps=50)
         plain_ms = cuda_time_ms(plain, warmup=1, reps=3)
         moved = nbytes(*byte_tensors) + nbytes(q) * 2
         lim = bound(moved)
-        log(f"[D20] {key}: kernel {ms:.4f} ms ({moved / (ms * 1e-3) / 1e9:.1f} GB/s of {moved / 1e6:.1f} MB), plain "
+        log(f"[{tag}] {key}: kernel {ms:.4f} ms ({moved / (ms * 1e-3) / 1e9:.1f} GB/s of {moved / 1e6:.1f} MB), plain "
             f"{plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.0%}), SDPA {library_ms}")
         records[key] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": library_ms,
                         "design": DD.kernel_design()}
 
-    for d, (b, h, hk, s) in OFFLADDER_SHAPES.items():
+    for d, (b, h, hk, s) in shapes.items():
         qb = torch.randn(b, h, d, generator=gen, device="cuda").bfloat16()
         kb, vb = (torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
         lib = cuda_time_ms(lambda: sdpa(qb[:, :, None], kb, vb, enable_gqa=True), warmup=3, reps=20)
@@ -4420,63 +4460,70 @@ def offladder_decode_phase(gen):
             if DD.decode_attention.launches_by_dim[d] == n:
                 raise AssertionError(f"kernel D at d{d} was not launched")
             del kargs, pargs
-    # The T-token (verify) and paged (engine tick) instances at d96, int8.
-    b, h, hk, s = 1, 32, 32, 4096
-    k = torch.randn(b, hk, s, 96, generator=gen, device="cuda").bfloat16()
-    v = torch.randn(b, hk, s, 96, generator=gen, device="cuda").bfloat16()
+    # The T-token (verify) and paged (engine tick) instances, int8.
+    d, b, h, hk, s = spec_shape
+    k = torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
     (kq, ks), (vq, vs) = DD.quantize_token(k, bits=8), DD.quantize_token(v, bits=8)
-    q = torch.randn(b, 4, h, 96, generator=gen, device="cuda").bfloat16()
+    q = torch.randn(b, 4, h, d, generator=gen, device="cuda").bfloat16()
     lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
     plan = DD.kernel_partition(q, kq, vq, int_qk=True)
-    record("d96 T4 int8 cache b1 h32 hk32 S_max 4096 (verify step)",
+    record(f"d{d} T4 int8 cache b{b} h{h} hk{hk} S_max {s} (verify step)",
            lambda: DD.decode_attention(q, kq, vq, ks, lens, v_scale=vs, return_lse=True),
-           lambda: DD.decode_attention_plain(q, kq, vq, ks, vs, lens, sm_scale=96 ** -0.5, int_qk=True,
+           lambda: DD.decode_attention_plain(q, kq, vq, ks, vs, lens, sm_scale=d ** -0.5, int_qk=True,
                                              out_dtype=q.dtype, split_keys=plan["split_keys"], warps=plan["warps"]),
            [kq, vq, ks, vs], q,
            cuda_time_ms(lambda: sdpa(q.transpose(1, 2), k, v, enable_gqa=True), warmup=3, reps=20))
     del k, v, kq, vq, ks, vs, q
-    b, s, page = PHI3_BATCH, 4096, 64
-    k = torch.randn(b, 32, s, 96, generator=gen, device="cuda").bfloat16()
-    v = torch.randn(b, 32, s, 96, generator=gen, device="cuda").bfloat16()
+    d, b, h, hk, s = paged_shape
+    page = 64
+    k = torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
     pool, table, _ = decode_cases.paged_pool(k, v, 8, 8, page, gen)
     del k, v
-    q = torch.randn(b, 1, 32, 96, generator=gen, device="cuda").bfloat16()
+    q = torch.randn(b, 1, h, d, generator=gen, device="cuda").bfloat16()
     lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
     plan = DD.kernel_partition(q, pool["k"], pool["v"], int_qk=True, page_table=table)
-    record(f"d96 paged int8 cache, pages of {page}, b8 h32 hk32 4096 rows a sequence (engine tick)",
+    record(f"d{d} paged int8 cache, pages of {page}, b{b} h{h} hk{hk} {s} rows a sequence (engine tick)",
            lambda: DD.decode_attention(q, pool["k"], pool["v"], pool["k_scale"], lens, v_scale=pool["v_scale"],
                                        page_table=table, return_lse=True),
            lambda: DD.decode_attention_paged_plain(q, pool["k"], pool["v"], pool["k_scale"], pool["v_scale"], lens,
-                                                   table, sm_scale=96 ** -0.5, int_qk=True, out_dtype=q.dtype,
+                                                   table, sm_scale=d ** -0.5, int_qk=True, out_dtype=q.dtype,
                                                    split_keys=plan["split_keys"], warps=plan["warps"]),
            [x[:, table.long().flatten()] for x in (pool["k"], pool["v"], pool["k_scale"], pool["v_scale"])], q, None)
     del pool, q
     return records
 
 
-def phi3_f1_phase(gen):
-    """Kernel F1 (w8, bf16 x) at the Phi-3-mini-geometry model's w8 decode
-    (M 8): its MLP matrices N 12288 K 3072 and N 3072 K 12288, against the
-    plain version at phase 10's bound, timed over copies of the weights
-    (more than the L2) beside torch.matmul on dense bf16 W."""
+def offladder_decode_phase(gen):
+    """decode_rows_phase at OFFLADDER_SHAPES (head dims 96 and 80), its
+    T-token and paged rows at d96 (b1 and b8, h32 hk32, 4,096 rows)."""
+    return decode_rows_phase(gen, OFFLADDER_SHAPES, "D20", (96, 1, 32, 32, 4096), (96, PHI3_BATCH, 32, 32, 4096))
+
+
+def f1_rows_phase(gen, shapes, m, tag):
+    """Kernel F1 (w8, bf16 x) at a model's w8 decode (M ``m``): its MLP
+    matrices ``shapes`` ((N, K) pairs), against the plain version at phase
+    10's bound, timed over copies of the weights (more than the L2) beside
+    torch.matmul on dense bf16 W."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv as G
 
     recs = {}
-    for n, k in ((12288, 3072), (3072, 12288)):
-        x = torch.randn(PHI3_BATCH, k, generator=gen, device="cuda").bfloat16()
+    for n, k in shapes:
+        x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
         copies = [gemv_weights(gen, "w8", n, k) for _ in range(4)]
         wt, w = copies[0]
         n_tc = G.wq_matmul_per_channel.launches_by_design["tensor_core"]
         y = gemv_call("w8", x, wt)
-        err = check_gemv(f"F1 w8 M8 N{n} K{k}", y, gemv_plain("w8", x, wt))
+        err = check_gemv(f"F1 w8 M{m} N{n} K{k}", y, gemv_plain("w8", x, wt))
         if G.wq_matmul_per_channel.launches_by_design["tensor_core"] != n_tc + 1:
-            raise AssertionError(f"F1 w8 M8 N{n} K{k} did not run on the tensor_core design")
+            raise AssertionError(f"F1 w8 M{m} N{n} K{k} did not run on the tensor_core design")
         ms = cycle_ms([functools.partial(gemv_call, "w8", x, c[0]) for c in copies])
         plain_ms = cycle_ms([functools.partial(gemv_plain, "w8", x, c[0]) for c in copies], reps=5)
         dense = [c[1].bfloat16() for c in copies]
         lib = cycle_ms([functools.partial(torch.matmul, x, wd.T) for wd in dense])
         lim = bound(nbytes(x, wt["packed"], wt["scale"], y))
-        log(f"[F20] F1 w8 M8 N{n} K{k} (tensor_core): kernel {ms:.4f} ms, plain {plain_ms:.4f}, bound "
+        log(f"[{tag}] F1 w8 M{m} N{n} K{k} (tensor_core): kernel {ms:.4f} ms, plain {plain_ms:.4f}, bound "
             f"{lim['bound_ms']:.4f} ({lim['bound_ms'] / ms:.0%}), torch.matmul dense bf16 {lib:.4f}")
         recs[(n, k)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": lib,
                         "design": "tensor_core"}
@@ -4484,12 +4531,17 @@ def phi3_f1_phase(gen):
     return recs
 
 
-def phi3_decode_profile(model, token, caches, cfg):
-    """One eager decode step of the Phi-3 model under torch.profiler: device
-    ms by kernel class (D, dense GEMMs, the rest) and of the kernels that
-    the cache appends (ops.decode.append_kv: the new token's K/V quantized
-    by plain ops and written at each sequence's length), which the rest
-    holds."""
+def phi3_f1_phase(gen):
+    """f1_rows_phase at the Phi-3-mini-geometry model's MLP matrices, N
+    12288 K 3072 and N 3072 K 12288, M 8."""
+    return f1_rows_phase(gen, ((12288, 3072), (3072, 12288)), PHI3_BATCH, "F20")
+
+
+def decode_step_classes(model, token, caches, cfg):
+    """One eager decode step under torch.profiler: device ms by kernel class
+    (D, dense GEMMs, the rest) and of the kernels that the cache appends
+    (ops.decode.append_kv: the new token's K/V quantized by plain ops and
+    written at each sequence's length), which the rest holds."""
     from lowbit_quant_fa2_paddle_tpu_torch.models import llm
     from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
 
@@ -4510,40 +4562,48 @@ def phi3_decode_profile(model, token, caches, cfg):
     return cats
 
 
-def phi3_llm_phase():
-    """The LLM with Phi-3-mini's attention geometry (PHI3), random weights
-    from a seed, bf16: b8 prompts of 3,968 tokens, 64 new tokens through
-    generate's two stages (llm_prefill, then the CUDA-graph decode_tokens)
-    on the int8, bf16, int4 and k4v8 caches and with w8 weights (int8
-    cache), one cache alive at a time; launches per run (A and C1 a layer at
-    prefill, on the wgmma and vector designs; D a layer and step, all at
-    head dim 96; F1 six a layer and step with w8); the first decode step's
-    logits cos int8 vs bf16 cache >= 0.999; a decode step profiled on the
-    int8 cache. Returns the model and prompt for the phases that follow."""
+def geometry_llm_phase(config, batch, prompt_len, n_new, seed, tag, max_seq=None):
+    """An LLM of ``config`` (LLMConfig's fields), random weights from a seed,
+    bf16: b``batch`` prompts of ``prompt_len`` tokens, ``n_new`` new tokens
+    through generate's two stages (llm_prefill, then the CUDA-graph
+    decode_tokens) on the int8, bf16, int4 and k4v8 caches (of ``max_seq``
+    rows, else the config's) and with w8 weights (int8 cache; made after
+    the other runs, so that only one extra copy of the weights and one cache
+    are alive at a time); launches per run (A and C1 a layer at prefill, on
+    the wgmma and vector designs; D a layer and step, all at the head dim; F1
+    six a layer and step with w8); the first decode step's logits cos int8
+    vs bf16 cache >= 0.999; a decode step profiled on the int8 cache.
+    Returns the model and prompt for the phases that follow."""
     from lowbit_quant_fa2_paddle_tpu_torch.models import llm
     from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import kernel_dim, lowbit_attention
     from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 
-    cfg = llm.LLMConfig(**PHI3, dtype=torch.bfloat16)
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    cfg = llm.LLMConfig(**config, dtype=torch.bfloat16)
+    run_cfg = dataclasses.replace(cfg, max_seq=max_seq or cfg.max_seq)
+    hd, dp = cfg.head_dim, kernel_dim(cfg.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     model = llm.init_llm_params(cfg, gen)
     n_params = sum(p.numel() for p in model.parameters())
-    prompt = torch.randint(0, cfg.vocab, (PHI3_BATCH, PHI3_PROMPT), generator=gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen, device="cuda")
     torch.cuda.synchronize()
-    log(f"[phi3] dim {cfg.dim} depth {cfg.depth} heads {cfg.num_heads}x{cfg.head_dim} kv heads {cfg.num_kv_heads} "
-        f"vocab {cfg.vocab} bf16: {n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
-    w8 = llm.quantize_llm_params(model, bits=8)
+    log(f"[{tag}] dim {cfg.dim} depth {cfg.depth} heads {cfg.num_heads}x{hd} kv heads {cfg.num_kv_heads} "
+        f"vocab {cfg.vocab} bf16: {n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s; caches of "
+        f"{run_cfg.max_seq} rows")
     small = dataclasses.replace(cfg, max_seq=512)
     llm.generate(model, prompt[:, :256], 2, small)  # warm-up, not counted
-    llm.generate(w8, prompt[:, :64], 2, small)  # warm-up of F1, not counted
-    res, n_new = {}, PHI3_NEW
-    runs = (("int8", dict(kv_bits=8), model, 0), ("bf16", dict(kv_bits=16), model, 0),
-            ("int4", dict(kv_bits=4), model, 0), ("k4v8", dict(kv_bits=8, k_bits=4), model, 0),
-            ("w8", dict(kv_bits=8), w8, 6 * cfg.depth * (n_new - 1)))
-    for mode, bits, m_run, f1 in runs:
-        cfg_m = dataclasses.replace(cfg, **bits)
+    res = {}
+    runs = (("int8", dict(kv_bits=8)), ("bf16", dict(kv_bits=16)), ("int4", dict(kv_bits=4)),
+            ("k4v8", dict(kv_bits=8, k_bits=4)), ("w8", dict(kv_bits=8)))
+    m_run = model
+    for mode, bits in runs:
+        cfg_m = dataclasses.replace(run_cfg, **bits)
+        f1 = 0
+        if mode == "w8":
+            m_run = llm.quantize_llm_params(model, bits=8)
+            llm.generate(m_run, prompt[:, :64], 2, small)  # warm-up of F1, not counted
+            f1 = 6 * cfg.depth * (n_new - 1)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4561,36 +4621,42 @@ def phi3_llm_phase():
         first.remove()
         peak = torch.cuda.max_memory_allocated()
         cache_gb = sum(nbytes(*c.values()) for c in caches) / 1e9
-        log(f"[phi3] {mode} ({cache_gb:.2f} GB of cache over {cfg.depth} layers): prefill {prefill_s:.3f} s, graph "
+        log(f"[{tag}] {mode} ({cache_gb:.2f} GB of cache over {cfg.depth} layers): prefill {prefill_s:.3f} s, graph "
             f"decode {wall_ms:.3f} ms/token wall over {n_new - 11} replays in one call (single-replay device ms "
             f"median {statistics.median(replay_ms):.3f}, min {min(replay_ms):.3f}, max {max(replay_ms):.3f}; the "
-            f"first call {call_s:.2f} s), peak {peak / 2**30:.2f} GiB; kernel D by head dim {d_dim}, variants "
-            f"{variants}")
-        check_counts(f"phi3 {mode}", got, cfg.depth, n_new - 1, f1=f1)
-        if d_dim[96] != cfg.depth * (n_new - 1) or a_dim[128] != cfg.depth:
-            raise AssertionError(f"phi3 {mode}: D launches by head dim {d_dim}, A by kernel dim {a_dim}")
+            f"first call {call_s:.2f} s), peak {peak / 2**30:.2f} GiB; kernel D by head dim "
+            f"{ {k: v for k, v in d_dim.items() if v} }, variants {variants}")
+        check_counts(f"{tag} {mode}", got, cfg.depth, n_new - 1, f1=f1)
+        if d_dim[hd] != cfg.depth * (n_new - 1) or a_dim[dp] != cfg.depth:
+            raise AssertionError(f"{tag} {mode}: D launches by head dim {d_dim}, A by kernel dim {a_dim}")
         if first.logits is None or not bool(torch.isfinite(first.logits).all()) or steps.shape != (
-                PHI3_BATCH, n_new - 1) or not bool(((steps >= 0) & (steps < cfg.vocab)).all()):
-            raise AssertionError(f"phi3 {mode}: no or non-finite first-step logits, or bad tokens")
+                batch, n_new - 1) or not bool(((steps >= 0) & (steps < cfg.vocab)).all()):
+            raise AssertionError(f"{tag} {mode}: no or non-finite first-step logits, or bad tokens")
         res[mode] = {"prefill_s": prefill_s, "decode_ms_per_token": wall_ms, "replay_ms": statistics.median(replay_ms),
                      "peak_gib": peak / 2**30, "launches": got, "variants": variants, "logits": first.logits,
                      "cache_gb": cache_gb}
         if mode == "int8":
-            res["profile"] = phi3_decode_profile(model, steps[:, -1].contiguous(), caches, cfg_m)
+            res["profile"] = decode_step_classes(model, steps[:, -1].contiguous(), caches, cfg_m)
             prof = res["profile"]
-            log(f"[phi3] one eager decode step at ~4K (int8 cache, b8), device ms: D {prof['D']:.3f}, GEMM "
-                f"{prof['GEMM']:.3f}, other {prof['other']:.3f} (of it the cache appends {prof['append_kv']:.3f}); "
-                f"total {prof['D'] + prof['GEMM'] + prof['other']:.3f}")
+            log(f"[{tag}] one eager decode step at ~{prompt_len} tokens (int8 cache, b{batch}), device ms: D "
+                f"{prof['D']:.3f}, GEMM {prof['GEMM']:.3f}, other {prof['other']:.3f} (of it the cache appends "
+                f"{prof['append_kv']:.3f}); total {prof['D'] + prof['GEMM'] + prof['other']:.3f}")
         del caches, steps, first
-    del w8
+    del m_run
     cos = float(cosine_similarity(res["int8"]["logits"], res["bf16"]["logits"]))
-    log(f"[phi3] first decode step logits cos int8 vs bf16 cache {cos:.6f} (>= 0.999)")
+    log(f"[{tag}] first decode step logits cos int8 vs bf16 cache {cos:.6f} (>= 0.999)")
     if cos < 0.999:
-        raise AssertionError(f"phi3: int8 vs bf16 cache first-step logits cos {cos} < 0.999")
-    for mode in ("int8", "bf16", "int4", "k4v8", "w8"):
+        raise AssertionError(f"{tag}: int8 vs bf16 cache first-step logits cos {cos} < 0.999")
+    for mode, _ in runs:
         del res[mode]["logits"]
     res["_model"], res["_prompt"] = model, prompt
     return res
+
+
+def phi3_llm_phase():
+    """geometry_llm_phase on PHI3 (3.72 B parameters), b8 prompts of 3,968
+    tokens, 64 new tokens, seed 3."""
+    return geometry_llm_phase(PHI3, PHI3_BATCH, PHI3_PROMPT, PHI3_NEW, 3, "phi3")
 
 
 def phi3_spec_phase(model, prompt):
@@ -4601,70 +4667,72 @@ def phi3_spec_phase(model, prompt):
     return spec_full_width_phase(model, prompt, "spec20", max_seq=PHI3["max_seq"])
 
 
-def phi3_tie_bound(model, prompt, cfg):
-    """PHI3_TIE times the largest |logit difference| between one decode step
+def tie_bound(model, prompt, cfg, batch, tie):
+    """``tie`` times the largest |logit difference| between one decode step
     of a sequence at b1 and the same step with the sequence's cache
-    repeated 8 times (M = 8 rows in every matmul, as the engine's 8 slots
-    run them)."""
+    repeated ``batch`` times (M = batch rows in every matmul, as the
+    engine's slots run them)."""
     from lowbit_quant_fa2_paddle_tpu_torch.models import llm
 
     logits, caches = llm.llm_prefill(model, prompt, cfg)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     del logits
-    wide = [{k: v.repeat_interleave(PHI3_BATCH, dim=0) for k, v in c.items()} for c in caches]
+    wide = [{k: v.repeat_interleave(batch, dim=0) for k, v in c.items()} for c in caches]
     one, _ = llm.llm_decode_step(model, tok, caches, cfg)
-    eight, _ = llm.llm_decode_step(model, tok.repeat(PHI3_BATCH), wide, cfg)
-    delta = float((one[0].float() - eight[0].float()).abs().max())
+    many, _ = llm.llm_decode_step(model, tok.repeat(batch), wide, cfg)
+    delta = float((one[0].float() - many[0].float()).abs().max())
     del caches, wide
-    return PHI3_TIE * delta, delta
+    return tie * delta, delta
 
 
-def phi3_serving_phase(model):
-    """ServingEngine on the Phi-3 model: pages of 64, 8 slots, int8 pages,
-    PHI3_SERVE_LENS requests (prompts from the model's vocab, a seed), 32 new
-    tokens each; every stream against generate on its prompt alone (b1):
-    equal, or parting at a near-tie (generate's own row puts the engine's
-    token at most PHI3_TIE x the b1-vs-b8 row difference below generate's);
-    every D launch on the paged variant at head dim 96."""
+def geometry_serving_phase(model, lens, n_new, batch, tie_factor, tag, seed, max_seq=None):
+    """ServingEngine on a model: pages of 64, ``batch`` slots, int8 pages,
+    requests of ``lens`` tokens (prompts from the model's vocab, a seed),
+    ``n_new`` new tokens each; every stream against generate on its prompt
+    alone (b1, caches of ``max_seq`` rows): equal, or parting at a near-tie
+    (generate's own row puts the engine's token at most ``tie_factor`` x
+    the b1-vs-batch row difference below generate's); every D launch on the
+    paged variant at the model's head dim."""
     from lowbit_quant_fa2_paddle_tpu_torch import serving
     from lowbit_quant_fa2_paddle_tpu_torch.models import llm
     from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
 
-    cfg = dataclasses.replace(model.cfg, kv_bits=8)
-    g = torch.Generator().manual_seed(20)
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist() for n in PHI3_SERVE_LENS]
-    worst = [-(-(len(p) + PHI3_SERVE_NEW + 4) // 64) for p in prompts]
-    scfg = serving.ServingConfig(page_size=64, num_pages=sum(worst), max_batch=PHI3_BATCH,
+    cfg = dataclasses.replace(model.cfg, kv_bits=8, max_seq=max_seq or model.cfg.max_seq)
+    hd = cfg.head_dim
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist() for n in lens]
+    worst = [-(-(len(p) + n_new + 4) // 64) for p in prompts]
+    scfg = serving.ServingConfig(page_size=64, num_pages=sum(worst), max_batch=batch,
                                  max_pages_per_seq=max(worst), prefix_caching=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     count_reset()
     eng = serving.ServingEngine(model, cfg, scfg)
     t0 = time.perf_counter()
-    rids = [eng.add_request(p, PHI3_SERVE_NEW) for p in prompts]
+    rids = [eng.add_request(p, n_new) for p in prompts]
     steps = 0
     while len(eng.finished) < len(rids):
         eng.step()
         steps += 1
         if steps > 5000:
-            raise AssertionError("phi3 serving: the engine did not drain")
+            raise AssertionError(f"{tag} serving: the engine did not drain")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got, variants, d_dim = counts(), variant_counts(), dict(DD.decode_attention.launches_by_dim)
     streams = [eng.finished[r] for r in rids]
     out = sum(len(s) for s in streams)
-    log(f"[phi3] engine: {len(rids)} requests, {out} tokens out in {wall:.2f} s ({out / wall:.1f} tokens/s), "
+    log(f"[{tag}] engine: {len(rids)} requests, {out} tokens out in {wall:.2f} s ({out / wall:.1f} tokens/s), "
         f"{eng.decode_ticks} decode ticks, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got}, "
-        f"D by variant {variants}, by head dim {d_dim}")
-    tick_variant = f"paged T-token T1 k8v8 b{PHI3_BATCH}"
-    if set(variants) != {tick_variant} or d_dim[96] != got["D"] or not (got["A"] and got["C1"]):
-        raise AssertionError(f"phi3 serving: launches {got}, variants {variants}, by head dim {d_dim}")
+        f"D by variant {variants}, by head dim { {k: v for k, v in d_dim.items() if v} }")
+    tick_variant = f"paged T-token T1 k8v8 b{batch}"
+    if set(variants) != {tick_variant} or d_dim[hd] != got["D"] or not (got["A"] and got["C1"]):
+        raise AssertionError(f"{tag} serving: launches {got}, variants {variants}, by head dim {d_dim}")
     del eng
-    tie, delta = phi3_tie_bound(model, torch.tensor([prompts[0]], device="cuda"), cfg)
+    tie, delta = tie_bound(model, torch.tensor([prompts[0]], device="cuda"), cfg, batch, tie_factor)
     parted = []
     for i, (p, s) in enumerate(zip(prompts, streams)):
         ids = torch.tensor([p], device="cuda")
-        ref = llm.generate(model, ids, PHI3_SERVE_NEW, cfg)[0].tolist()
+        ref = llm.generate(model, ids, n_new, cfg)[0].tolist()
         at = next((j for j, (x, y) in enumerate(zip(s, ref)) if x != y), None)
         if at is None:
             continue
@@ -4678,13 +4746,19 @@ def phi3_serving_phase(model):
         gap = float(row[ref[at]].float() - row[s[at]].float())
         parted.append((i, at, gap))
         del caches
-    log(f"[phi3] engine streams equal generate's on {len(prompts) - len(parted)} of {len(prompts)}; partings "
+    log(f"[{tag}] engine streams equal generate's on {len(prompts) - len(parted)} of {len(prompts)}; partings "
         f"(request, token, generate's row's logit of its token over the engine's): {parted}; near-tie bound "
-        f"{tie:.4g} ({PHI3_TIE} x the b1-vs-b8 step's largest |logit difference| {delta:.4g})")
+        f"{tie:.4g} ({tie_factor} x the b1-vs-b{batch} step's largest |logit difference| {delta:.4g})")
     if any(gap > tie for _, _, gap in parted):
-        raise AssertionError(f"phi3 serving: streams part from generate's above the near-tie bound {tie}: {parted}")
+        raise AssertionError(f"{tag} serving: streams part from generate's above the near-tie bound {tie}: {parted}")
     return {"wall_s": wall, "tokens_per_s": out / wall, "launches": got, "variants": variants,
             "parted": parted, "tie": tie, "decode_ticks": steps}
+
+
+def phi3_serving_phase(model):
+    """geometry_serving_phase on the Phi-3 model: 8 slots, PHI3_SERVE_LENS
+    requests of 32 new tokens (seed 20), PHI3_TIE."""
+    return geometry_serving_phase(model, PHI3_SERVE_LENS, PHI3_SERVE_NEW, PHI3_BATCH, PHI3_TIE, "phi3", 20)
 
 
 def phi3_checkpoint_phase(model, prompt):
@@ -4720,6 +4794,160 @@ def phi3_checkpoint_phase(model, prompt):
     if not (same and equal):
         raise AssertionError(f"phi3: the reloaded cache differs (bits {same}, tokens {equal})")
     return {"save_s": save_s, "load_s": load_s, "bytes": size}
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: kernels D and E at the head dims they take at run time (every
+# multiple of 16 up to 256 without an instance of its own), and a full-width
+# LLM with MPT-30B's attention geometry (generate, speculative decoding,
+# serving).
+# ---------------------------------------------------------------------------
+
+#: mosaicml/mpt-30b's config.json: d_model 7168, n_heads 64 (head dim 112),
+#: n_layers 48, expansion_ratio 4, max_seq_len 8192, vocab_size 50432.
+#: LLMConfig's 4·d MLP is MPT's width; its RoPE and SiLU stand in for MPT's
+#: ALiBi and GELU. Depth 24 of 48, for memory (48 bf16 layers take 59 GB),
+#: random weights from a seed (15.2 B parameters); the runs' caches hold
+#: 4,096 rows (4,032-token prompts and 64 new tokens: the bf16 cache at b8
+#: takes 22.5 GB).
+MPT30B = dict(vocab=50432, dim=7168, depth=24, num_heads=64, num_kv_heads=64, max_seq=8192, rope_theta=10000.0)
+MPT_BATCH, MPT_PROMPT, MPT_NEW, MPT_CACHE_ROWS = 8, 4032, 64, 4096
+#: Kernel D's timed shapes at run-time head dims, (b, h, hk, S_max): MPT-30B's
+#: decode (64 query and 64 KV heads of 112) and Nemotron-4-340B's (hidden
+#: 18432: 96 query and 8 KV heads of 192, NVIDIA's technical report), b8 at 4K.
+RT_DECODE_SHAPES = {112: (8, 64, 64, 4096), 192: (8, 96, 8, 4096)}
+#: The head dims of utils/decode_cases.py's run-time cases.
+RT_EDGE_DIMS = (16, 48, 112, 144, 192, 240)
+#: The engine's traffic: 8 requests of 1,024-4,032 tokens, 32 new each, over
+#: pages of 64 in 8 slots.
+MPT_SERVE_LENS, MPT_SERVE_NEW = (1024, 1500, 2000, 2500, 3000, 3333, 3700, 4032), 32
+
+
+def rt_dim_edge_phase(gen):
+    """dim_edge_phase at the run-time head dims 16, 48, 112, 144, 192 and 240
+    (decode_attention*_dyn.cu): rows that end inside a QK window, 4-bit rows
+    of 8-120 bytes in 8-byte pieces, Nemotron-4's GQA group of 12."""
+    return dim_edge_phase(gen, RT_EDGE_DIMS, "D21")
+
+
+def mpt_quant_phase(gen):
+    """prefill_k_quant_phase at the MPT-30B-geometry prefill's K (b8, 64 KV
+    heads, 4,032 rows of 112, padded to 128 as the model's C1 runs it)."""
+    return prefill_k_quant_phase(gen, MPT_BATCH, MPT30B["num_kv_heads"], MPT_PROMPT, 112, "C1-21", unpadded=False)
+
+
+def mpt_prefill_attention_phase(gen):
+    """Kernel A at one batch row of the MPT-30B-geometry prefill (b1 h64 hk64
+    s4032 causal, int8 K codes, Q quantized in the kernel), head dim 112
+    zero-padded to the d128 kernel by the entry point (time_attention)."""
+    return time_attention(gen, "fused", MPT30B["num_heads"], MPT30B["num_kv_heads"], MPT_PROMPT, 112, True)
+
+
+def rt_dim_decode_phase(gen):
+    """decode_rows_phase at RT_DECODE_SHAPES (MPT-30B's d112 and
+    Nemotron-4's d192 decode), its T-token and paged rows at d112 (b1 and
+    b8, h64 hk64, 4,096 rows)."""
+    return decode_rows_phase(gen, RT_DECODE_SHAPES, "D21", (112, 1, 64, 64, 4096), (112, MPT_BATCH, 64, 64, 4096))
+
+
+def rt_dim_fused_kv_phase(gen):
+    """Kernel E at head dims 48, 112 and 192 (the kernels of widths 64, 128
+    and 256 with the head dim at run time, fused_kv_attention_wgmma_pad.cu)
+    against its plain version at phase 11's bounds, bits 4 and 2, causal
+    and not (GQA 8q/2kv, Sq 300 / Sk 1000, group 128; 2-bit rows of 12, 28
+    and 48 bytes and 4-bit rows of 24 and 56 bytes, padded to 16 for TMA by
+    the wrapper), the same bits twice, every launch at its head dim; then
+    timed at b4 h32 s8192 d112 int4 (group 256) beside SDPA on the
+    dequantized bf16 K/V, with the wrapper's padded copy of the packed K and
+    V timed alone; then its entry point once with the counters at 0."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import fused_kv as FK
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import attention_flops, cuda_time_ms, tflops
+
+    worst = {}
+    design = FK.kernel_design()
+    for d in (48, 112, 192):
+        for bits in (4, 2):
+            for causal in (False, True):
+                name = f"d{d} int{bits} {'causal ' if causal else ''}GQA 8q/2kv sq300 sk1000 group128"
+                args = fused_kv_inputs(gen, 1, 8, 2, 300, 1000, d, bits, 128)
+                n = FK.fused_packed_kv_attention.launches_by_dim[d]
+                o = FK.fused_packed_kv_attention(*args, bits=bits, is_causal=causal, group=128)
+                o2 = FK.fused_packed_kv_attention(*args, bits=bits, is_causal=causal, group=128)
+                o_ref = FK.fused_kv_attention_plain(*args, bits=bits, group=128, causal=causal,
+                                                    sm_scale_log2e=LOG2E / math.sqrt(d), out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                r = stats(o, o_ref)
+                same = torch.equal(o, o2)
+                on_dim = FK.fused_packed_kv_attention.launches_by_dim[d] == n + 2
+                log(f"[E21] {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                                 for k, v in r.items()) + f" same_bits_twice={same} on_dim={on_dim}")
+                if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= MAX_DO and same and on_dim):
+                    raise AssertionError(f"kernel E disagrees with its plain version in case {name}: {r}")
+                worst[d] = max(worst.get(d, 0.0), r["max_do"])
+                del args, o, o2, o_ref
+    b, h, s, d, bits, group = 4, 32, 8192, 112, 4, 256
+    args = fused_kv_inputs(gen, b, h, h, s, s, d, bits, group)
+    flops = attention_flops(b, h, d, s, s, False)
+    ms = cuda_time_ms(lambda: FK.fused_packed_kv_attention(*args, bits=bits), warmup=2, reps=10)
+    causal_ms = cuda_time_ms(lambda: FK.fused_packed_kv_attention(*args, bits=bits, is_causal=True), warmup=2, reps=10)
+    row = FK.pack_row_bytes(d, bits)
+    pad_ms = cuda_time_ms(lambda: [torch.nn.functional.pad(x, (0, row - x.shape[-1])) for x in args[1:3]], warmup=2,
+                          reps=10)
+    plain_ms = cuda_time_ms(lambda: FK.fused_kv_attention_plain(*args, bits=bits, group=group, causal=False,
+                                                                 sm_scale_log2e=LOG2E / math.sqrt(d),
+                                                                 out_dtype=torch.bfloat16), warmup=1, reps=2)
+    kd = FK.dequant_kv_grouped(args[1], args[3], args[4], bits=bits, group=group)
+    vd = FK.dequant_kv_grouped(args[2], args[5], args[6], bits=bits, group=group)
+    sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(args[0], kd, vd), warmup=2,
+                           reps=10)
+    del kd, vd
+    lim = bound(nbytes(*args) + nbytes(args[0]), {"bf16": flops})
+    log(f"[E21] int4 b{b} h{h} s{s} d{d}: kernel {ms:.3f} ms ({tflops(flops, ms / 1e3):.1f} TFLOP/s; of it the "
+        f"wrapper's copy of the packed K and V to {row}-byte rows {pad_ms:.4f} ms), causal {causal_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {lim['bound_ms']:.3f} ms ({lim['bound_by']}); SDPA on the dequantized bf16 K/V "
+        f"{sdpa_ms:.3f} ms ({tflops(flops, sdpa_ms / 1e3):.1f} TFLOP/s)")
+    count_reset()
+    o = FK.fused_packed_kv_attention(*args, bits=bits)
+    torch.cuda.synchronize()
+    got = counts()
+    by_dim = {k: v for k, v in FK.fused_packed_kv_attention.launches_by_dim.items() if v}
+    log(f"[E21] entry point fused_packed_kv_attention(bits=4) b{b} h{h} s{s} d{d}: launches {got}, E by head dim "
+        f"{by_dim}")
+    if got != {key: int(key == "E") for key in got} or by_dim != {d: 1} or not bool(torch.isfinite(o.float()).all()):
+        raise AssertionError(f"kernel E entry point at d{d}: launches {got}, by head dim {by_dim}")
+    return {"max_abs_err": max(worst.values()), "worst_by_dim": worst, "ms": ms, "plain_ms": plain_ms, **lim,
+            "library_ms": sdpa_ms, "causal_ms": causal_ms, "pad_ms": pad_ms, "launches": got["E"], "design": design}
+
+
+def mpt_f1_phase(gen):
+    """f1_rows_phase at the MPT-30B-geometry model's MLP matrices, N 28672
+    K 7168 and N 7168 K 28672, M 8."""
+    return f1_rows_phase(gen, ((28672, 7168), (7168, 28672)), MPT_BATCH, "F21")
+
+
+def mpt_llm_phase():
+    """geometry_llm_phase on MPT30B at depth 24, b8 prompts of 4,032 tokens,
+    64 new tokens, caches of 4,096 rows, seed 21: every D at head dim 112
+    (the run-time instances), A at kernel dim 128."""
+    return geometry_llm_phase(MPT30B, MPT_BATCH, MPT_PROMPT, MPT_NEW, 21, "mpt", max_seq=MPT_CACHE_ROWS)
+
+
+def mpt_spec_phase(model, prompt):
+    """spec_full_width_phase on the MPT-30B-geometry model: b1 from the first
+    of its 4,032-token prompts, int8 cache of 4,160 rows (the prompt, 64 new
+    tokens and spec_k more, which speculative_generate asks for, rounded to
+    a page), spec_k 4, the int4-cache and w4 self-drafts token-equal to
+    generate, every verify step on the T-token run-time variant at d112."""
+    return spec_full_width_phase(model, prompt, "spec21", max_seq=MPT_CACHE_ROWS + 64)
+
+
+def mpt_serving_phase(model):
+    """geometry_serving_phase on the MPT-30B-geometry model: 8 slots, int8
+    pages of 64, MPT_SERVE_LENS requests of 32 new tokens (seed 21),
+    PHI3_TIE's near-tie rule, every D launch on the paged variant at d112."""
+    return geometry_serving_phase(model, MPT_SERVE_LENS, MPT_SERVE_NEW, MPT_BATCH, PHI3_TIE, "mpt", 21,
+                                  max_seq=MPT_CACHE_ROWS)
 
 
 def cuda_event_ms(fn):
@@ -4811,6 +5039,20 @@ def main():
     serve20 = timed(phi3_serving_phase, model_20)
     timed(phi3_checkpoint_phase, model_20, prompt_20)
     del model_20, prompt_20
+    # Phase 21 (kernels D and E at the run-time head dims, A, C1 and F1 at the
+    # MPT-30B geometry's shapes, then the MPT-30B-geometry model: generate in
+    # every cache mode and w8, speculative decoding, the serving engine).
+    edge21 = timed(rt_dim_edge_phase, gen)
+    c1_21 = timed(mpt_quant_phase, gen)
+    a21 = timed(mpt_prefill_attention_phase, gen)
+    d21 = timed(rt_dim_decode_phase, gen)
+    e21 = timed(rt_dim_fused_kv_phase, gen)
+    f1_21 = timed(mpt_f1_phase, gen)
+    mpt = timed(mpt_llm_phase)
+    model_21, prompt_21 = mpt.pop("_model"), mpt.pop("_prompt")
+    spec21 = timed(mpt_spec_phase, model_21, prompt_21)
+    serve21 = timed(mpt_serving_phase, model_21)
+    del model_21, prompt_21
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
     replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
@@ -5061,6 +5303,51 @@ def main():
              launches=phi3["w8"]["launches"]["F1"] // 6, **f1_20[(n, k)])
         for n, k in f1_20
     ]
+    # Phase 21: kernel D at the run-time head dims (the _dyn sources). The MPT
+    # model's generate runs the d112 rows of its cache modes (int8 twice: the
+    # dense and the w8 run), speculative_generate the T-token row and the
+    # engine the paged row; Nemotron-4's d192 rows are on no model path. A
+    # runs every prefill of the MPT runs at kernel dim 128, C1 their K padded
+    # to 128 columns, F1 the w8 run's MLP matrices; kernel E at d112 its
+    # entry point's one launch.
+    mpt_modes = ("int8", "bf16", "int4", "k4v8", "w8")
+    d21_launches = {f"d112 {mode} cache b8 h64 hk64 S_max 4096": mpt[mode]["launches"]["D"]
+                    for mode in ("bf16", "int4", "k4v8")}
+    d21_launches["d112 int8 cache b8 h64 hk64 S_max 4096"] = mpt["int8"]["launches"]["D"] + mpt["w8"]["launches"]["D"]
+    d21_launches["d112 T4 int8 cache b1 h64 hk64 S_max 4096 (verify step)"] = spec_launches("T-token T4 k8v8 b1",
+                                                                                            spec21)
+    d21_launches[f"d112 paged int8 cache, pages of 64, b8 h64 hk64 4096 rows a sequence (engine tick)"] = serve21[
+        "variants"].get(f"paged T-token T1 k8v8 b{MPT_BATCH}", 0)
+    a21_launches = (sum(mpt[m]["launches"]["A"] for m in mpt_modes)
+                    + sum(r["launches"]["A"] for r in spec21.values() if "launches" in r) + serve21["launches"]["A"])
+    kernels += [
+        dict(name=f"attention_fwd (int8, Q quantized in-kernel; MPT-30B-geometry prefill b1 h64 hk64 s{MPT_PROMPT} "
+             f"d112 padded to 128 causal)", launches=a21_launches, **wgmma_src, **{k: a21[k] for k in a_keys}),
+    ] + [
+        dict(name=f"decode_attention ({key})", route="cuda",
+             source=f"{src}/decode_attention_" + ("paged_" if "paged" in key else "multi_" if "T4" in key else "")
+             + "dyn.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
+             launches=d21_launches.get(key, 0), **{k: d21[key][k] for k in timing + ("design",)})
+        for key in d21
+    ] + [
+        dict(name=f"quant_int8 (MPT-30B-geometry prefill K b8 h64 s{MPT_PROMPT} d112, {tag})", **quant_src,
+             replaces=replaces_c + "215", launches=sum(mpt[m]["launches"]["C1"] for m in mpt_modes), **c1_21[tag])
+        for tag in c1_21
+    ] + [
+        dict(name=f"wq_matmul_per_channel (F1: w8, bf16 x; MPT-30B-geometry decode M8 N{n} K{k})", route="cuda",
+             source=f"{src}/gemv.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/gemv.py:255",
+             launches=mpt["w8"]["launches"]["F1"] // 6, **f1_21[(n, k)])
+        for n, k in f1_21
+    ] + [
+        dict(name="fused_packed_kv_attention (int4 K/V, b4 h32 s8192 d112: the d128 kernel with the head dim at run "
+             "time)", route="cuda", source=f"{src}/fused_kv_attention_wgmma_pad.cu",
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py:377", launches=e21["launches"],
+             **{k: e21[k] for k in timing + ("design",)}),
+    ]
+    log(f"[mpt] phase 21 D edge grid worst max|do| by head dim {edge21}; E worst by head dim {e21['worst_by_dim']}; "
+        f"generate ms/token by cache " + ", ".join(f"{m} {mpt[m]['decode_ms_per_token']:.3f}" for m in mpt_modes)
+        + f"; speculative (int4 self-draft) {spec21['self, int4 cache']['decode_ms_per_token']:.3f} ms per token "
+        f"without its prefills; engine {serve21['tokens_per_s']:.1f} tokens/s")
     log(f"[phi3] phase 20 D edge grid worst max|do| by head dim {edge20}; generate ms/token by cache "
         + ", ".join(f"{m} {phi3[m]['decode_ms_per_token']:.3f}" for m in ("int8", "bf16", "int4", "k4v8", "w8"))
         + f"; speculative (int4 self-draft) {spec20['self, int4 cache']['decode_ms_per_token']:.3f} ms per token "

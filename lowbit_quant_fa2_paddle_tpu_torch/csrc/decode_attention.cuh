@@ -1,7 +1,8 @@
 // Kernel D's device code, shared by its single-token instances
-// (decode_attention.cu, decode_attention_d256.cu, decode_attention_d80_96.cu),
-// its multi-token / INT8-PV instances (decode_attention_multi.cu,
-// decode_attention_multi_d256.cu, decode_attention_multi_d80_96.cu) and their
+// (decode_attention.cu, decode_attention_d256.cu, decode_attention_d80_96.cu,
+// decode_attention_dyn.cu), its multi-token / INT8-PV instances
+// (decode_attention_multi.cu, decode_attention_multi_d256.cu,
+// decode_attention_multi_d80_96.cu, decode_attention_multi_dyn.cu) and their
 // paged twins (decode_attention_paged*.cu); the design note is in
 // decode_attention.cu.
 
@@ -172,16 +173,29 @@ __device__ __forceinline__ void v_cols(const unsigned char* p, float* f, int nib
 // Shapes and shared memory of one variant
 // ---------------------------------------------------------------------------
 
+// The template D of the instances that take the head dim at run time
+// (decode_attention*_dyn.cu): kDynD | W takes every head dim d that is a
+// multiple of 16 with 16 <= d <= W, its rows at the cache's own width (d
+// bytes of int8, d/2 of 4-bit codes, 2d of bf16) and its shared memory laid
+// out for W.
+constexpr int kDynD = 1 << 12;
+
 template <int D, typename KT, typename VT, bool kIntQK>
 struct Cfg {
   static constexpr bool kKNib = IsNib4<KT>::value, kVNib = IsNib4<VT>::value;
-  static constexpr int kKRow = row_bytes<KT, D>();  // bytes of a cache row
-  static constexpr int kVRow = row_bytes<VT, D>();
+  // Head dim at run time (kDynD), at most W; else D itself.
+  static constexpr bool kDyn = (D & kDynD) != 0;
+  static constexpr int W = D & (kDynD - 1);
+  static constexpr int kKRow = row_bytes<KT, W>();  // bytes of a cache row (the widest one, kDyn)
+  static constexpr int kVRow = row_bytes<VT, W>();
   // Head dims off the power-of-two ladder (80 and 96, decode_attention_d80_96.cu
   // and its twins): their rows need not fill whole QK windows, and a lane
   // cannot own D / 32 columns. Everything they change is under
   // `if constexpr (kOffLadder)` or a constant the ladder dims keep.
-  static constexpr bool kOffLadder = (D & (D - 1)) != 0;
+  static constexpr bool kOffLadder = !kDyn && (W & (W - 1)) != 0;
+  // The lanes whose PV columns lie past the row's idle (pv_lane): off the
+  // ladder, and at a head dim below W.
+  static constexpr bool kPartial = kOffLadder || kDyn;
   // Keys per tile: 16 KB of K/V at most (measured faster than 8 KB for the
   // bf16 cache), 16 at least.
   static constexpr int BK = 64 * (kKRow + kVRow) <= 16384 ? 64 : 32 * (kKRow + kVRow) <= 16384 ? 32 : 16;
@@ -191,28 +205,38 @@ struct Cfg {
   // a float-chain word 2 (bf16x2); a 4-bit row's LB bytes carry LB low and
   // LB high nibbles. Off the ladder the integer chain takes the small
   // windows (d96: 3 windows of 32 bytes of int8 K, of 16 of 4-bit K) and a
-  // bf16 row that 64-byte windows do not cover (d80) 8 bytes a thread.
-  static constexpr int LB = kIntQK ? (D >= 64 && !kOffLadder ? (kKNib ? 8 : 16) : (kKNib ? 4 : 8))
-                                   : (kKNib ? 4 : sizeof(KT) == 2 && kKRow % 64 ? 8 : 8 * (int)sizeof(KT));
+  // bf16 row that 64-byte windows do not cover (d80) 8 bytes a thread. At a
+  // head dim taken at run time int8 K on the integer chain takes the
+  // ladder's 64-byte windows (the last one read on past the row's end), the
+  // rest the small ones (32 bytes, 16 of 4-bit K), which a bf16 row fills
+  // exactly (2d bytes, d % 16 == 0).
+  static constexpr int LB = kDyn ? (kKNib ? 4 : kIntQK ? 16 : 8)
+                        : kIntQK ? (W >= 64 && !kOffLadder ? (kKNib ? 8 : 16) : (kKNib ? 4 : 8))
+                                 : (kKNib ? 4 : sizeof(KT) == 2 && kKRow % 64 ? 8 : 8 * (int)sizeof(KT));
   static constexpr int WB = 4 * LB;
-  // Windows a row takes. At d80 an int8 or 4-bit row ends inside its last
-  // window (80 of 96 bytes, 40 of 48): the words past the row's end read
-  // the next row's bytes (or the V ring's: all in shared memory), and their
-  // query words are zero (kOverRead), so the dot is exact.
+  // Windows a row takes (at most, kDyn: a call's row skips those past its
+  // end). At d80 an int8 or 4-bit row ends inside its last window (80 of 96
+  // bytes, 40 of 48), and so may one at run time: the words past the row's
+  // end read the next row's bytes (or the V ring's: all in shared memory,
+  // and integer codes, never NaN), and their query words are zero
+  // (kOverRead, or a word's qbyte past the row at run time), so the dot is
+  // exact.
   static constexpr int NWIN = (kKRow + WB - 1) / WB;
   static constexpr bool kOverRead = NWIN * WB != kKRow;
   static constexpr int MMA = kIntQK ? (kKNib ? LB / 4 : LB / 8) : kKNib || sizeof(KT) == 1 ? 2 : LB / 8;
-  // Output columns a lane owns in PV: D / 32, or 4 off the ladder, where the
+  // Output columns a lane owns in PV: W / 32, or 4 off the ladder, where the
   // lanes whose columns lie past the row's (pv_lane) idle in PV.
-  static constexpr int CPL = kOffLadder ? 4 : D / 32;
-  // The first dimension of operand word u of thread t in window w. A 4-bit
-  // row's words hold the low nibbles (dimensions b0 ..) first, then the high
-  // ones (D/2 + b0 ..), b0 the thread's first byte.
-  __device__ static constexpr int qdim(int w, int t, int u) {
+  static constexpr int CPL = kOffLadder ? 4 : W / 32;
+  // The head dim of a call: the run-time one (kDyn), else D.
+  __device__ static int dim(int head_dim) { return kDyn ? head_dim : W; }
+  // The first dimension of operand word u of thread t in window w, at head
+  // dim dh. A 4-bit row's words hold the low nibbles (dimensions b0 ..)
+  // first, then the high ones (dh/2 + b0 ..), b0 the thread's first byte.
+  __device__ static constexpr int qdim(int w, int t, int u, int dh = W) {
     constexpr int per = kIntQK ? 4 : 2;
     if constexpr (kKNib) {
       const int b0 = w * WB + t * LB;
-      return u < MMA ? b0 + per * u : D / 2 + b0 + per * (u - MMA);
+      return u < MMA ? b0 + per * u : dh / 2 + b0 + per * (u - MMA);
     } else {
       return (w * WB + t * LB) / (int)sizeof(KT) + per * u;
     }
@@ -226,21 +250,38 @@ struct Cfg {
     else
       return qdim(w, t, u) * (int)sizeof(KT);
   }
-  // Off the ladder: whether a lane owns PV columns, and its first column (a
-  // 4-bit V's lanes 0-15 take the low nibbles, columns 4 (lane & 15) ..,
-  // lanes 16-31 the high ones, D/2 + 4 (lane & 15) ..).
-  __device__ static constexpr bool pv_lane(int lane) {
-    return kVNib ? (lane & 15) * CPL < D / 2 : lane * CPL < D;
+  // Off the ladder and at run time: whether a lane owns PV columns at head
+  // dim dh, and its first column (a 4-bit V's lanes 0-15 take the low
+  // nibbles, columns CPL (lane & 15) .., lanes 16-31 the high ones, dh/2 +
+  // CPL (lane & 15) ..).
+  __device__ static constexpr bool pv_lane(int lane, int dh = W) {
+    return kVNib ? (lane & 15) * CPL < dh / 2 : lane * CPL < dh;
   }
-  __device__ static constexpr int pv_col(int lane) {
-    return kVNib ? (lane >= 16 ? D / 2 : 0) + (lane & 15) * CPL : lane * CPL;
+  __device__ static constexpr int pv_col(int lane, int dh = W) {
+    return kVNib ? (lane >= 16 ? dh / 2 : 0) + (lane & 15) * CPL : lane * CPL;
   }
   // Sides whose rows are not 16-byte multiples (4-bit rows at d80, 40
-  // bytes) come by 8-byte cp.async from every producer lane instead of one
-  // bulk copy: a bulk copy moves 16-byte multiples from 16-byte aligned
-  // rows, which a window's first row need not be.
+  // bytes; at run time 4-bit rows at d % 32 == 16) come by 8-byte cp.async
+  // from every producer lane instead of one bulk copy: a bulk copy moves
+  // 16-byte multiples from 16-byte aligned rows, which a window's first row
+  // need not be.
   static constexpr bool kKBulk = kKRow % 16 == 0, kVBulk = kVRow % 16 == 0;
   static constexpr int kBulkRow = (kKBulk ? kKRow : 0) + (kVBulk ? kVRow : 0);  // bulk-copied bytes a key
+  // A call's rows: the bytes of a K and a V row at head dim dh, and whether
+  // each side comes by bulk copies (the compile-time values but at run time).
+  struct Rows {
+    int k, v;
+    bool k_bulk, v_bulk;
+    __device__ int bulk() const { return (k_bulk ? k : 0) + (v_bulk ? v : 0); }
+  };
+  __device__ static Rows rows(int dh) {
+    if constexpr (kDyn) {
+      const int k = kKNib ? dh / 2 : dh * (int)sizeof(KT), v = kVNib ? dh / 2 : dh * (int)sizeof(VT);
+      return Rows{k, v, k % 16 == 0, v % 16 == 0};
+    } else {
+      return Rows{kKRow, kVRow, kKBulk, kVBulk};
+    }
+  }
   static constexpr int kKOff = 0;
   static constexpr int kVOff = kKOff + NST * BK * kKRow;
   static constexpr int kKsOff = kVOff + NST * BK * kVRow;  // NST x BK f32 K scales
@@ -249,15 +290,16 @@ struct Cfg {
   // buffers (RMAX x D f32, RMAX x D int8 codes, RMAX scales) live here first.
   static constexpr int kPWarp = BK * RMAX * 4 + RMAX * 4;
   static constexpr int kPOff = kVsOff + NST * BK * 4;
-  static constexpr int kQf = kPOff, kQ8 = kQf + RMAX * D * 4, kQs = kQ8 + RMAX * D;
-  static constexpr int kQBytes = RMAX * D * 5 + RMAX * 4;
+  static constexpr int kQf = kPOff, kQ8 = kQf + RMAX * W * 4, kQs = kQ8 + RMAX * W;
+  static constexpr int kQBytes = RMAX * W * 5 + RMAX * 4;
   static constexpr int kBarOff = kPOff + (NW * kPWarp > kQBytes ? NW * kPWarp : (kQBytes + 15) / 16 * 16);
   static constexpr int kTotal = kBarOff + 2 * NST * 8 + 16;  // + the ticket
   // The merge's part weights, (NW + 1) x n_parts f32, reuse the ring.
   static constexpr int kMaxParts = kVOff / ((NW + 1) * 4);
   static_assert(kKRow % 8 == 0 && kVRow % 8 == 0, "rows come in 16-byte bulk copies or 8-byte cp.async");
   static_assert(NWIN * WB >= kKRow && (!kOverRead || kOffLadder), "the QK windows cover a K row");
-  static_assert(!kOffLadder || (D == 80 || D == 96), "off the ladder: head dims 80 and 96");
+  static_assert(!kOffLadder || (W == 80 || W == 96), "off the ladder: head dims 80 and 96");
+  static_assert(!kDyn || W == 128 || W == 256, "head dims at run time: up to 128 (4 columns a lane) or 256 (8)");
 };
 
 // bf16x2 of the biased nibbles (u = n + 8) in bits 0-3 and 16-19 of t: the
@@ -340,13 +382,17 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     const float* __restrict__ k_scale, const float* __restrict__ v_scale, const int* __restrict__ lengths,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int* __restrict__ tickets, void* __restrict__ o,
     float* __restrict__ lse, int H, int Hk, int S, int R, int n_splits, int chunk, int q_bf16, int out_code,
-    int window, int sink, float sm_scale, float logit_cap, Ext... ext) {
+    int window, int sink, float sm_scale, float logit_cap, int head_dim, Ext... ext) {
   static_assert(kExt == 0 || (kMasks && sizeof...(Ext) == 1), "the multi-token kernels take masks and T");
   static_assert(kExt % 2 || kExt == 0 || std::is_same<VT, int8_t>::value, "INT8 PV takes an int8 V");
   constexpr bool kPaged = kExt >= 3;
   using C = Cfg<D, KT, VT, kIntQK>;
   constexpr int BK = C::BK, CPL = C::CPL;
   constexpr bool kVQuant = C::kVNib || sizeof(VT) == 1;  // per-token V scales
+  // The head dim and the rows of this call (the instance's own but at run
+  // time, kDyn). Rows lie at their own width in a stage laid out for W.
+  const int dh = C::dim(head_dim);
+  const typename C::Rows rw = C::rows(dh);
 
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
@@ -408,8 +454,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       const int page = 1 << pg.page_shift;
       const int* tbl = pg.table + (long long)b * pg.width;
       const long long head_rows = (long long)hk * pg.n_pages * page;
-      const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + head_rows * C::kKRow;
-      const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + head_rows * C::kVRow;
+      const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + head_rows * rw.k;
+      const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + head_rows * rw.v;
       const float* ksg = k_scale + head_rows;
       const float* vsg = kVQuant ? v_scale + head_rows : nullptr;
       for (int j = 0; j < n_tiles; ++j) {
@@ -421,19 +467,19 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           if (lane + 32 * u < n) rows[u] = (long long)__ldg(tbl + (key >> pg.page_shift)) * page + (key & (page - 1));
         }
         mbar_wait(&empty[st], ((j / NST) & 1) ^ 1);
-        if (lane == 0) mbar_arrive_expect_tx(&full[st], n * C::kBulkRow);
+        if (lane == 0) mbar_arrive_expect_tx(&full[st], n * rw.bulk());
         for (int i = 0; i < n;) {  // warp-uniform
           const int run = min(n - i, page - ((key0 + i) & (page - 1)));
           const long long row = __shfl_sync(0xffffffffu, i < 32 ? rows[0] : rows[1], i & 31);
           if (lane == 0) {
-            if constexpr (C::kKBulk)
-              bulk_copy(smem + C::kKOff + (st * BK + i) * C::kKRow, kg + row * C::kKRow, run * C::kKRow, &full[st]);
-            if constexpr (C::kVBulk)
-              bulk_copy(smem + C::kVOff + (st * BK + i) * C::kVRow, vg + row * C::kVRow, run * C::kVRow, &full[st]);
+            if (rw.k_bulk)
+              bulk_copy(smem + C::kKOff + st * BK * C::kKRow + i * rw.k, kg + row * rw.k, run * rw.k, &full[st]);
+            if (rw.v_bulk)
+              bulk_copy(smem + C::kVOff + st * BK * C::kVRow + i * rw.v, vg + row * rw.v, run * rw.v, &full[st]);
           }
           i += run;
         }
-        if constexpr (!C::kKBulk || !C::kVBulk) {
+        if constexpr (C::kDyn || !C::kKBulk || !C::kVBulk) {
           // 40-byte rows (4-bit at d80) in 8-byte pieces, piece e of the tile
           // on lane e % 32, each key's row taken from the lane that looked it
           // up.
@@ -444,11 +490,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(
               const long long r0 = __shfl_sync(0xffffffffu, rows[0], i & 31);
               const long long r1 = __shfl_sync(0xffffffffu, rows[1], i & 31);
               if (e < n * per)
-                cp_async8(dst + (st * BK + i) * row_bytes + 8 * (e % per), src + (i < 32 ? r0 : r1) * row_bytes + 8 * (e % per));
+                cp_async8(dst + i * row_bytes + 8 * (e % per), src + (i < 32 ? r0 : r1) * row_bytes + 8 * (e % per));
             }
           };
-          if constexpr (!C::kKBulk) pieces(smem + C::kKOff, kg, C::kKRow);
-          if constexpr (!C::kVBulk) pieces(smem + C::kVOff, vg, C::kVRow);
+          if (!rw.k_bulk) pieces(smem + C::kKOff + st * BK * C::kKRow, kg, rw.k);
+          if (!rw.v_bulk) pieces(smem + C::kVOff + st * BK * C::kVRow, vg, rw.v);
         }
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
@@ -462,30 +508,30 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       }
     } else {
       // ---- producer warp: stage j % NST takes tile j; nothing past its range is read ----
-      const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + kh * S * C::kKRow;
-      const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + kh * S * C::kVRow;
+      const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + kh * S * rw.k;
+      const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + kh * S * rw.v;
       const float* ksg = k_scale + kh * S;
       const float* vsg = kVQuant ? v_scale + kh * S : nullptr;
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % NST, key0 = tile_key0(j), n = min(BK, tile_end(j) - key0);
         mbar_wait(&empty[st], ((j / NST) & 1) ^ 1);
         if (lane == 0) {
-          mbar_arrive_expect_tx(&full[st], n * C::kBulkRow);
-          if constexpr (C::kKBulk)
-            bulk_copy(smem + C::kKOff + st * BK * C::kKRow, kg + (long long)key0 * C::kKRow, n * C::kKRow, &full[st]);
-          if constexpr (C::kVBulk)
-            bulk_copy(smem + C::kVOff + st * BK * C::kVRow, vg + (long long)key0 * C::kVRow, n * C::kVRow, &full[st]);
+          mbar_arrive_expect_tx(&full[st], n * rw.bulk());
+          if (rw.k_bulk)
+            bulk_copy(smem + C::kKOff + st * BK * C::kKRow, kg + (long long)key0 * rw.k, n * rw.k, &full[st]);
+          if (rw.v_bulk)
+            bulk_copy(smem + C::kVOff + st * BK * C::kVRow, vg + (long long)key0 * rw.v, n * rw.v, &full[st]);
         }
-        if constexpr (!C::kKBulk || !C::kVBulk) {
-          // 40-byte rows (4-bit at d80): a tile of them starts 16-byte
-          // aligned only at an even key, so that side comes in 8-byte
-          // pieces from every lane.
-          if constexpr (!C::kKBulk)
-            for (int e = lane; e < n * C::kKRow / 8; e += 32)
-              cp_async8(smem + C::kKOff + st * BK * C::kKRow + 8 * e, kg + (long long)key0 * C::kKRow + 8 * e);
-          if constexpr (!C::kVBulk)
-            for (int e = lane; e < n * C::kVRow / 8; e += 32)
-              cp_async8(smem + C::kVOff + st * BK * C::kVRow + 8 * e, vg + (long long)key0 * C::kVRow + 8 * e);
+        if constexpr (C::kDyn || !C::kKBulk || !C::kVBulk) {
+          // 40-byte rows (4-bit at d80; 8 bytes more than a 16-byte multiple
+          // at run time): a tile of them starts 16-byte aligned only at an
+          // even key, so that side comes in 8-byte pieces from every lane.
+          if (!rw.k_bulk)
+            for (int e = lane; e < n * rw.k / 8; e += 32)
+              cp_async8(smem + C::kKOff + st * BK * C::kKRow + 8 * e, kg + (long long)key0 * rw.k + 8 * e);
+          if (!rw.v_bulk)
+            for (int e = lane; e < n * rw.v / 8; e += 32)
+              cp_async8(smem + C::kVOff + st * BK * C::kVRow + 8 * e, vg + (long long)key0 * rw.v + 8 * e);
         }
         for (int i = lane; i < n; i += 32) {
           cp_async4(ks_s + st * BK + i, ksg + key0 + i);
@@ -502,11 +548,13 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     float* q_f = reinterpret_cast<float*>(smem + C::kQf);
     int8_t* q8 = reinterpret_cast<int8_t*>(smem + C::kQ8);
     float* qsc_s = reinterpret_cast<float*>(smem + C::kQs);
-    for (int i = tid; i < RMAX * D; i += 32 * NW) {
-      const int r = i / D;
+    // (Rows of W floats; at run time the columns past dh stay zero.)
+    constexpr int W = C::W;
+    for (int i = tid; i < RMAX * W; i += 32 * NW) {
+      const int r = i / W;
       float x = 0.0f;
-      if (r < R) {
-        const long long at = ((long long)b * H + h0 + r) * D + i % D;
+      if (r < R && (!C::kDyn || i % W < dh)) {
+        const long long at = ((long long)b * H + h0 + r) * dh + i % W;
         x = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at]) : static_cast<const float*>(q)[at];
       }
       q_f[i] = x;
@@ -515,11 +563,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     if constexpr (kIntQK) {
       for (int r = warp; r < RMAX; r += NW) {
         float amax = 0.0f;
-        for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(q_f[r * D + d]));
+        for (int d = lane; d < W; d += 32) amax = fmaxf(amax, fabsf(q_f[r * W + d]));
         const float sc = __fmaf_rn(warp_max(amax), 1.0f / 127.0f, 1e-7f);
-        for (int d = lane; d < D; d += 32) {
-          const float c = fminf(fmaxf(roundf(__fdiv_rn(q_f[r * D + d], sc)), -127.0f), 127.0f);
-          q8[r * D + d] = static_cast<int8_t>(c);
+        for (int d = lane; d < W; d += 32) {
+          const float c = fminf(fmaxf(roundf(__fdiv_rn(q_f[r * W + d], sc)), -127.0f), 127.0f);
+          q8[r * W + d] = static_cast<int8_t>(c);
         }
         if (lane == 0) qsc_s[r] = __fmul_rn(sc, sm_scale);
       }
@@ -534,19 +582,19 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     for (int w = 0; w < C::NWIN; ++w)
 #pragma unroll
       for (int u = 0; u < 2 * C::MMA; ++u) {
-        const int d0 = C::qdim(w, t, u);
-        if constexpr (C::kOverRead) {
+        const int d0 = C::qdim(w, t, u, dh);
+        if constexpr (C::kOverRead || C::kDyn) {
           // A word past the K row's end meets zero query words.
-          if (C::qbyte(w, t, u) >= C::kKRow) {
+          if (C::qbyte(w, t, u) >= rw.k) {
 #pragma unroll
             for (int qs = 0; qs < (kIntQK ? 1 : 3); ++qs) bq[w][u / 2][qs][u % 2] = 0u;
             continue;
           }
         }
         if constexpr (kIntQK) {
-          bq[w][u / 2][0][u % 2] = *reinterpret_cast<const uint32_t*>(q8 + g * D + d0);
+          bq[w][u / 2][0][u % 2] = *reinterpret_cast<const uint32_t*>(q8 + g * W + d0);
         } else {
-          float rem[2] = {q_f[g * D + d0], q_f[g * D + d0 + 1]};
+          float rem[2] = {q_f[g * W + d0], q_f[g * W + d0 + 1]};
 #pragma unroll
           for (int qs = 0; qs < 3; ++qs) {
             float tr[2];
@@ -594,12 +642,13 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       float s[BK / 16][4];
 #pragma unroll
       for (int mt = 0; mt < BK / 16; ++mt) {
-        const unsigned char* r0 = Kt + (mt * 16 + g) * C::kKRow;
-        const unsigned char* r1 = r0 + 8 * C::kKRow;
+        const unsigned char* r0 = Kt + (mt * 16 + g) * rw.k;
+        const unsigned char* r1 = r0 + 8 * rw.k;
         if constexpr (kIntQK) {
           int c4[4] = {0, 0, 0, 0};
 #pragma unroll
           for (int w = 0; w < C::NWIN; ++w) {
+            if (C::kDyn && w * C::WB >= rw.k) break;  // the row's windows (warp-uniform)
             uint32_t w0[2 * C::MMA], w1[2 * C::MMA];
             k_words<KT, true, C::LB>(r0 + w * C::WB + t * C::LB, w0);
             k_words<KT, true, C::LB>(r1 + w * C::WB + t * C::LB, w1);
@@ -613,6 +662,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           float c4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
           for (int w = 0; w < C::NWIN; ++w) {
+            if (C::kDyn && w * C::WB >= rw.k) break;  // the row's windows (warp-uniform)
             uint32_t w0[2 * C::MMA], w1[2 * C::MMA];  // 4 MMA elements of each row as bf16x2
             k_words<KT, false, C::LB>(r0 + w * C::WB + t * C::LB, w0);
             k_words<KT, false, C::LB>(r1 + w * C::WB + t * C::LB, w1);
@@ -756,9 +806,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(
         for (int r = 0; r < RMAX; ++r)
 #pragma unroll
           for (int c = 0; c < CPL; ++c) acc_i[r][c] = 0;
-        // (Off the ladder an idle lane reads lane 0's columns; nothing keeps
+        // (Off the ladder and at run time an idle lane reads lane 0's columns; nothing keeps
         // what it sums.)
-        const unsigned char* vcol = Vt + (C::kOffLadder && !C::pv_lane(lane) ? 0 : lane) * CPL;
+        const unsigned char* vcol = Vt + (C::kPartial && !C::pv_lane(lane, dh) ? 0 : lane) * CPL;
 #pragma unroll 4
         for (int k4 = 0; k4 < BK; k4 += 4) {
           uint32_t col[CPL];
@@ -767,7 +817,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
             // of word c / 4.
             uint32_t x[4][2];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) lds<8>(vcol + (k4 + e) * C::kVRow, x[e]);
+            for (int e = 0; e < 4; ++e) lds<8>(vcol + (k4 + e) * rw.v, x[e]);
 #pragma unroll
             for (int c = 0; c < CPL; ++c) {
               const int wd = c >> 2;
@@ -777,7 +827,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           } else {
           uint32_t x[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) lds<CPL>(vcol + (k4 + e) * C::kVRow, &x[e]);
+          for (int e = 0; e < 4; ++e) lds<CPL>(vcol + (k4 + e) * rw.v, &x[e]);
 #pragma unroll
           for (int c = 0; c < CPL; ++c) {
             const uint32_t sel = c | (c + 4) << 4;  // byte c of the first word, then of the second
@@ -813,14 +863,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       }
       // A 4-bit V: lanes 0-15 take the low nibbles (columns lane * CPL ..),
       // lanes 16-31 the high ones of the same bytes.
-      // Off the ladder an idle lane reads lane 0's columns; nothing keeps
+      // Off the ladder and at run time an idle lane reads lane 0's columns; nothing keeps
       // what it sums.
-      const int vl = C::kOffLadder && !C::pv_lane(lane) ? 0 : lane;
+      const int vl = C::kPartial && !C::pv_lane(lane, dh) ? 0 : lane;
       const unsigned char* vcol = Vt + (C::kVNib ? (vl & 15) * CPL : vl * CPL * (int)sizeof(VT));
       const int nib_shift = vl >= 16 ? 4 : 0;
       auto pv_key = [&](int kl) {
         float vf[CPL];
-        v_cols<VT, CPL>(vcol + kl * C::kVRow, vf, nib_shift);
+        v_cols<VT, CPL>(vcol + kl * rw.v, vf, nib_shift);
         const float4 pa = *reinterpret_cast<const float4*>(p_s + kl * RMAX);
         const float4 pb = R > 4 ? *reinterpret_cast<const float4*>(p_s + kl * RMAX + 4) : make_float4(0, 0, 0, 0);
         const float p[RMAX] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
@@ -845,12 +895,12 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 
     // ---- this warp's unnormalised (acc, m, l): part split * NW + warp ----
     const int part = split * NW + warp;
-    if constexpr (C::kOffLadder) {
-      if (C::pv_lane(lane)) {
+    if constexpr (C::kPartial) {
+      if (C::pv_lane(lane, dh)) {
 #pragma unroll
         for (int r = 0; r < RMAX; ++r) {
           if (r < R) {
-            float* dst = part_acc + (((long long)b * H + h0 + r) * n_parts + part) * D + C::pv_col(lane);
+            float* dst = part_acc + (((long long)b * H + h0 + r) * n_parts + part) * dh + C::pv_col(lane, dh);
 #pragma unroll
             for (int c = 0; c < CPL; ++c) dst[c] = acc[r][c];
           }
@@ -860,7 +910,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 #pragma unroll
     for (int r = 0; r < RMAX; ++r) {
       if (r < R) {
-        float* dst = part_acc + (((long long)b * H + h0 + r) * n_parts + part) * D + lane * CPL;
+        float* dst = part_acc + (((long long)b * H + h0 + r) * n_parts + part) * dh + lane * CPL;
 #pragma unroll
         for (int c = 0; c < CPL; ++c) dst[c] = acc[r][c];
       }
@@ -910,10 +960,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
     __syncwarp();
     const float ls = l == 0.0f ? 1.0f : l;
-    // Off the ladder the lanes past the row's columns redo lane 0's columns
+    // Off the ladder and at run time the lanes past the row's columns redo lane 0's columns
     // and store nothing.
-    const int mcol = C::kOffLadder && lane * CPL >= D ? 0 : lane * CPL;
-    const float* pa = part_acc + row * n_parts * D + mcol;
+    const int mcol = C::kPartial && lane * CPL >= dh ? 0 : lane * CPL;
+    const float* pa = part_acc + row * n_parts * dh + mcol;
     float a[CPL];
 #pragma unroll
     for (int c = 0; c < CPL; ++c) a[c] = 0.0f;
@@ -921,12 +971,12 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     for (int p = 0; p < n_parts; ++p) {
       const float w = w_s[p];
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) a[c] = fmaf(w, __ldcg(pa + (long long)p * D + c), a[c]);
+      for (int c = 0; c < CPL; ++c) a[c] = fmaf(w, __ldcg(pa + (long long)p * dh + c), a[c]);
     }
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
-      if (C::kOffLadder && lane * CPL >= D) break;
-      const long long at = row * D + lane * CPL + c;
+      if (C::kPartial && lane * CPL >= dh) break;
+      const long long at = row * dh + lane * CPL + c;
       const float out = __fdiv_rn(a[c], ls);
       if (out_code == 0)
         static_cast<float*>(o)[at] = out;
@@ -983,6 +1033,15 @@ int with_variant_d80_96(const Op& op, int D, int k_bits, int v_bits, int int_qk)
   }
 }
 
+// The head dims taken at run time (the _dyn sources' instances): every
+// multiple of 16 from 16 to 256, on the instance laid out for 128 (4
+// columns a lane) or for 256 (8). The op carries the head dim (head_dim).
+template <typename Op>
+int with_variant_dyn(const Op& op, int D, int k_bits, int v_bits, int int_qk) {
+  if (D < 16 || D > 256 || D % 16) return (int)cudaErrorInvalidValue;
+  return D <= 128 ? with_k<kDynD | 128>(op, k_bits, v_bits, int_qk) : with_k<kDynD | 256>(op, k_bits, v_bits, int_qk);
+}
+
 
 // The launch of one single-token variant (decode_attention.cu and, at
 // head_dim 256, decode_attention_d256.cu).
@@ -998,6 +1057,7 @@ struct Launch {
   int B, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window, sink;
   float sm_scale, logit_cap;
   cudaStream_t st;
+  int head_dim = 0;  // the head dim of the instances that take it at run time
 
   template <int D, typename KT, typename VT, bool kIntQK>
   int run() const {
@@ -1010,7 +1070,7 @@ struct Launch {
     const dim3 grid(n_splits, Hk * ((H / Hk) / R), B);
     kern<<<grid, NT, smem, st>>>(q, static_cast<const KT*>(k), static_cast<const VT*>(v), ks, vs, lengths, part_acc,
                                  part_ml, tickets, o, lse, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window,
-                                 sink, sm_scale, logit_cap);
+                                 sink, sm_scale, logit_cap, head_dim);
     return (int)cudaGetLastError();
   }
 };
@@ -1061,6 +1121,7 @@ struct LaunchPaged {
   PagedExt pg;
   float sm_scale, logit_cap;
   cudaStream_t st;
+  int head_dim = 0;  // as Launch's
 
   template <int D, typename KT, typename VT, bool kIntQK>
   int run() const {
@@ -1072,7 +1133,7 @@ struct LaunchPaged {
     const dim3 grid(n_splits, Hk * ((H / Hk) / R), B);
     kern<<<grid, NT, C::kTotal, st>>>(q, static_cast<const KT*>(k), static_cast<const VT*>(v), ks, vs, lengths,
                                       part_acc, part_ml, tickets, o, lse, H, Hk, S, R, n_splits, chunk, q_bf16,
-                                      out_code, window, sink, sm_scale, logit_cap, pg);
+                                      out_code, window, sink, sm_scale, logit_cap, head_dim, pg);
     return (int)cudaGetLastError();
   }
 };
@@ -1145,6 +1206,7 @@ struct LaunchMulti {
   int B, H, Hk, S, R, n_splits, chunk, q_bf16, out_code, window, sink, q_tokens, int_pv;
   float sm_scale, logit_cap;
   cudaStream_t st;
+  int head_dim = 0;  // as Launch's
 
   template <int D, typename KT, typename VT, bool kIntQK>
   int run() const {
@@ -1156,7 +1218,7 @@ struct LaunchMulti {
     const dim3 grid(n_splits, Hk * ((H / Hk) / R), B);
     kern<<<grid, NT, C::kTotal, st>>>(q, static_cast<const KT*>(k), static_cast<const VT*>(v), ks, vs, lengths,
                                       part_acc, part_ml, tickets, o, lse, H, Hk, S, R, n_splits, chunk, q_bf16,
-                                      out_code, window, sink, sm_scale, logit_cap, q_tokens);
+                                      out_code, window, sink, sm_scale, logit_cap, head_dim, q_tokens);
     return (int)cudaGetLastError();
   }
 };

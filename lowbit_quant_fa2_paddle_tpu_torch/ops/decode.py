@@ -18,12 +18,16 @@ in f32, or with ``compute_mode="int"`` on an int8 V as an integer product);
 nothing falls back. T query tokens ``q [B, T, H, D]`` and INT8 PV run the
 kernel's multi-token instances (``csrc/decode_attention_multi.cu`` at head
 dims 32, 64 and 128, ``csrc/decode_attention_multi_d256.cu`` at 256,
-``csrc/decode_attention_multi_d80_96.cu`` at 80 and 96); one token without
-INT8 PV runs the single-token ones (``csrc/decode_attention.cu`` at head dims
-32, 64 and 128, ``csrc/decode_attention_d256.cu`` at 256,
-``csrc/decode_attention_d80_96.cu`` at 80 and 96: Phi-2's and Phi-3-mini's
-head dims, whose rows the kernel keeps at the cache's own width). Other head
-dims raise.
+``csrc/decode_attention_multi_d80_96.cu`` at 80 and 96,
+``csrc/decode_attention_multi_dyn.cu`` at the other multiples of 16 up to
+256); one token without INT8 PV runs the single-token ones
+(``csrc/decode_attention.cu`` at head dims 32, 64 and 128,
+``csrc/decode_attention_d256.cu`` at 256, ``csrc/decode_attention_d80_96.cu``
+at 80 and 96: Phi-2's and Phi-3-mini's head dims, whose rows the kernel keeps
+at the cache's own width; ``csrc/decode_attention_dyn.cu`` at every other
+multiple of 16 from 16 to 256, e.g. MPT-30B's 112 and Nemotron-4's 192,
+instances that take the head dim at run time, laid out for 128 or for 256).
+Head dims that are not multiples of 16, and those above 256, raise.
 
 Semantics of one query token per sequence, as the TPU kernel computes them:
 
@@ -104,12 +108,16 @@ MAX_SPLITS = 64
 #: Consumer warps per CTA of kernel D; each leaves one partial state per split.
 WARPS = 4
 #: Designs of kernel D: one, for every mode (int8/4-bit/bf16 K and V, both
-#: QK chains, every head dim of :data:`HEAD_DIMS`, one or T query tokens, f32
-#: or INT8 PV).
+#: QK chains, every head dim of :data:`CARD_HEAD_DIMS`, one or T query
+#: tokens, f32 or INT8 PV).
 DESIGNS = ("bulk_ring",)
-#: The head dims kernel D is built for: the power-of-two ladder, and 80 and
-#: 96 (the ``_d80_96`` sources).
+#: The head dims with instances of their own: the power-of-two ladder, and
+#: 80 and 96 (the ``_d80_96`` sources).
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+#: Every head dim kernel D takes on the card: the multiples of 16 from 16 to
+#: 256. Those outside :data:`HEAD_DIMS` run the instances that take the head
+#: dim at run time (the ``_dyn`` sources), laid out for 128 or for 256.
+CARD_HEAD_DIMS = tuple(range(16, 257, 16))
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -234,18 +242,37 @@ def append_kv_multi(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> di
 # ---------------------------------------------------------------------------
 
 
+def instance_dim(d: int) -> int:
+    """The head dim the instance that runs head dim ``d`` is laid out for:
+    ``d`` itself in :data:`HEAD_DIMS`, else 128 (``d <= 128``) or 256 (the
+    instances that take the head dim at run time)."""
+    return d if d in HEAD_DIMS else 128 if d <= 128 else 256
+
+
 def tile_keys(d: int, k_bits: int, v_bits: int) -> int:
-    """Keys of one tile of kernel D's walk (``Cfg::BK`` in
-    csrc/decode_attention.cuh): 64 while 64 rows of K and V fit 16 KB, else
-    32, else 16."""
-    row = sum(d // 2 if bits == 4 else d * (2 if bits == 16 else 1) for bits in (k_bits, v_bits))
+    """Keys of one tile of kernel D's walk at head dim ``d`` (``Cfg::BK`` in
+    csrc/decode_attention.cuh, of the instance :func:`instance_dim` names):
+    64 while 64 rows of K and V fit 16 KB, else 32, else 16."""
+    w = instance_dim(d)
+    row = sum(w // 2 if bits == 4 else w * (2 if bits == 16 else 1) for bits in (k_bits, v_bits))
     return 64 if 64 * row <= 16384 else 32 if 32 * row <= 16384 else 16
 
 
 def _entry(lib, name: str, d: int):
     """The C entry of kernel D's instances at head dim ``d``: ``name`` for
-    d32-d128, its ``_d256`` or ``_d80_96`` twin in their own sources."""
-    return getattr(lib, name + ("_d256" if d == 256 else "_d80_96" if d in (80, 96) else ""))
+    d32-d128, its ``_d256`` or ``_d80_96`` twin in their own sources, its
+    ``_dyn`` twin (the head dim at run time) at the other multiples of 16."""
+    suffix = "" if d in (32, 64, 128) else "_d256" if d == 256 else "_d80_96" if d in (80, 96) else "_dyn"
+    return getattr(lib, name + suffix)
+
+
+def check_head_dim(d: int) -> None:
+    """Raises, naming its ROADMAP item, for a head dim kernel D does not take
+    on the card: above 256 ("3h"), or not a multiple of 16 ("3")."""
+    if d > 256:
+        raise _not_ported(f"decode head_dim {d} > 256 on the GPU", "3h")
+    if d not in CARD_HEAD_DIMS:
+        raise _not_ported(f"decode head_dim {d} (kernel D takes the multiples of 16 from 16 to 256)", "3")
 
 
 def walk_tiles(length: int, s_max: int, *, tile: int, window: int = 0, sink: int = 0, q_tokens: int = 1,
@@ -589,8 +616,7 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
         s_max = page_table.shape[1] * page
     else:
         hk, s_max = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise _not_ported(f"decode head_dim {d} (kernel D takes {', '.join(map(str, HEAD_DIMS))})", "3")
+    check_head_dim(d)
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"decode output dtype must be f32/bf16/f16, not {out_dtype}")
     if k.dtype not in (torch.int8, torch.bfloat16) or v.dtype not in (torch.int8, torch.bfloat16):
@@ -790,6 +816,6 @@ def decode_attention(
 decode_attention.launches = 0
 decode_attention.launches_by_design = {design: 0 for design in DESIGNS}
 decode_attention.launches_by_variant = {}
-#: Launches per head dim (the head_dim-256 and the 80/96 instances live in
-#: sources of their own).
-decode_attention.launches_by_dim = {d: 0 for d in HEAD_DIMS}
+#: Launches per head dim (the head_dim-256, the 80/96 and the run-time head
+#: dim instances live in sources of their own).
+decode_attention.launches_by_dim = {d: 0 for d in CARD_HEAD_DIMS}

@@ -13,10 +13,14 @@ PyTorch/CUDA counterpart of ``lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py``:
   attention with K and V resident as those codes, dequantized inside the
   kernel (one Hopper design, ``kernel_design``: TMA of the packed tiles, a
   producer warpgroup that widens them to bf16 in shared memory, ``wgmma``
-  products on 128-key tiles). GQA, causal (top-left aligned: query row ``r`` sees keys
-  ``0..r``, also when Sq != Sk), any Sk. Q, K and V enter the two products
-  as bf16 (the TPU kernel dots f32 Q and K); P is f32 for the softmax and
-  bf16 in PV; a row with no visible weight gives 0.
+  products on 128-key tiles, 64 at head dim 256). GQA, causal (top-left
+  aligned: query row ``r`` sees keys ``0..r``, also when Sq != Sk), any Sk,
+  every head dim that is a multiple of 16 from 16 to 256 (64, 128 and 256
+  on kernels of their own; the others on the kernel of the next of those
+  widths, the columns past the head dim zeros, ``csrc/fused_kv_attention_wgmma_pad.cu``).
+  Q, K and V enter the two products as bf16 (the TPU kernel dots f32 Q and
+  K); P is f32 for the softmax and bf16 in PV; a row with no visible weight
+  gives 0.
 
 The wrapper takes the plain PyTorch version below for CPU tensors and
 launches the kernel for CUDA tensors; nothing falls back.
@@ -36,8 +40,10 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import round_away
 
 #: Elements of one chunk of f32 logits in the plain version (1 GiB).
 _PLAIN_CHUNK_ELEMS = 1 << 28
-#: Designs of kernel E: one, for every mode (bits 4 and 2, d64 and d128).
+#: Designs of kernel E: one, for every mode (bits 4 and 2, every head dim).
 DESIGNS = ("wgmma",)
+#: The head dims kernel E takes on the card: the multiples of 16 from 16 to 256.
+HEAD_DIMS = tuple(range(16, 257, 16))
 
 
 def kernel_design(bits: int = 4) -> str:
@@ -141,11 +147,19 @@ def fused_kv_attention_plain(
     return out.reshape(b, h, sq, d)
 
 
+def pack_row_bytes(d: int, bits: int) -> int:
+    """Bytes between the packed rows kernel E reads: the row's ``d·bits/8``
+    rounded up to a multiple of 16 (a TMA box row)."""
+    return cdiv(d * bits // 8, 16) * 16
+
+
 def _fused_kv_cuda(q, kp, vp, ks, km, vs, vm, *, bits, group, causal, sm_scale_log2e, out_dtype):
     b, h, sq, d = q.shape
     hk, sk = kp.shape[1], kp.shape[2]
-    if d not in (64, 128):
-        raise _not_ported(f"kernel E at head_dim {d} (it takes 64 and 128)", "3")
+    if d > 256:
+        raise _not_ported(f"kernel E at head_dim {d} > 256", "3h")
+    if d not in HEAD_DIMS:
+        raise _not_ported(f"kernel E at head_dim {d} (it takes the multiples of 16 from 16 to 256)", "3")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel E writes f32 or bf16, not {out_dtype}")
     tensors = (kp, vp, ks, km, vs, vm)
@@ -157,6 +171,11 @@ def _fused_kv_cuda(q, kp, vp, ks, km, vs, vm, *, bits, group, causal, sm_scale_l
         q = q.float()
     q = q.contiguous()
     kp, vp = kp.contiguous(), vp.contiguous()
+    row = pack_row_bytes(d, bits)
+    if row != kp.shape[-1]:
+        # Rows that are not 16-byte multiples, padded for the TMA boxes: a
+        # copy of the packed K and V.
+        kp, vp = (torch.nn.functional.pad(x, (0, row - x.shape[-1])) for x in (kp, vp))
     ks, km, vs, vm = (t.float().contiguous() for t in (ks, km, vs, vm))
     # TMA and 16-byte loads want 16-byte aligned starts.
     q, kp, vp, ks, km, vs, vm = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, kp, vp, ks, km, vs, vm))
@@ -167,12 +186,13 @@ def _fused_kv_cuda(q, kp, vp, ks, km, vs, vm, *, bits, group, causal, sm_scale_l
         err = lib.lowbit_fused_kv_attn_wgmma(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), km.data_ptr(), vs.data_ptr(),
             vm.data_ptr(), o.data_ptr(), b, h, hk, sq, sk, d, bits, group, ks.shape[2], int(causal),
-            int(q.dtype == torch.float32), int(out_dtype == torch.float32), float(sm_scale_log2e),
+            int(q.dtype == torch.float32), int(out_dtype == torch.float32), row, float(sm_scale_log2e),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "fused_packed_kv_attention")
     fused_packed_kv_attention.launches += 1
     fused_packed_kv_attention.launches_by_design[design] += 1
+    fused_packed_kv_attention.launches_by_dim[d] += 1
     return o
 
 
@@ -238,3 +258,5 @@ def fused_packed_kv_attention(
 #: and per design.
 fused_packed_kv_attention.launches = 0
 fused_packed_kv_attention.launches_by_design = {design: 0 for design in DESIGNS}
+#: Launches per head dim.
+fused_packed_kv_attention.launches_by_dim = {d: 0 for d in HEAD_DIMS}

@@ -12,7 +12,12 @@ LLM's 16 query and 8 KV heads; the ``d96-`` and ``d80-`` cases the
 instances off the ladder (``csrc/decode_attention*_d80_96.cu``: T 1 takes
 the single-token kernels), every cache mode and both QK chains, 4-bit rows
 of 40 bytes at d80 (copied in 8-byte pieces) with window phases that start
-at odd keys. The bounds are phase 9's: cos >= 0.99999,
+at odd keys; the ``d16-``, ``d48-``, ``d112-``, ``d144-``, ``d192-`` and
+``d240-`` cases the instances that take the head dim at run time
+(``csrc/decode_attention*_dyn.cu``, laid out for 128 or 256): every cache
+mode and both chains, rows that end inside a QK window and 4-bit rows of
+8, 24, 56, 72 and 120 bytes (copied in 8-byte pieces), Nemotron-4's GQA
+group of 12 at d192. The bounds are phase 9's: cos >= 0.99999,
 max|do| <= one bf16 ulp of max|o|, max|dlse| <= 1e-4, rows that see no key
 o = 0 and lse = -1e30, the same bits on a second run, every launch on D's
 design and on the case's variant (``ops.decode.launch_variant``).
@@ -91,6 +96,40 @@ CASES = {
     "d80-t1-int8-f32-chain-f32-q": (1, "int8", "f32", 80, 2, 8, 2, 777, [777, 2], 0, 0, torch.float32),
     "d80-t8-k16v8": (8, "k16v8", "auto", 80, 1, 8, 1, 500, [500], 0, 0, torch.bfloat16),
     "d80-pv8-t2-window300-sink8": (2, "int8", "int", 80, 2, 8, 2, 1000, [1000, 310], 300, 8, torch.bfloat16),
+    # Head dims at run time: 112 (MPT-30B) and 192 (Nemotron-4-340B, 12 query heads a KV head) in every cache
+    # mode and on both chains, 16, 48, 144 and 240 at their row edges; T 1-8, tile and split edges, a window
+    # with sinks, the cap, INT8 PV.
+    "d112-t1-int8-split-edge": (1, "int8", "auto", 112, 2, 8, 8, 2048, None, 0, 0, torch.bfloat16),
+    "d112-t4-bf16-tile-edge": (4, "bf16", "auto", 112, 2, 8, 2, 1000, [129, 34], 0, 0, torch.bfloat16),
+    "d112-t8-int4": (8, "int4", "auto", 112, 2, 8, 8, 700, [700, 9], 0, 0, torch.bfloat16),
+    "d112-t1-int4-int-qk-window100-sink8": (1, "int4", "int_qk", 112, 2, 8, 8, 777, [400, 777], 100, 8,
+                                            torch.bfloat16),
+    "d112-t4-k4v8-int-qk-window101-sink3": (4, "k4v8", "int_qk", 112, 2, 8, 2, 777, [578, 777], 101, 3,
+                                            torch.bfloat16),
+    "d112-t2-int8-window256-cap30": (2, "int8", "auto", 112, 2, 8, 2, 1000, [577, 1000], 256, 0, torch.bfloat16,
+                                     30.0),
+    "d112-t1-int8-f32-chain-f32-q": (1, "int8", "f32", 112, 2, 8, 2, 777, [777, 2], 0, 0, torch.float32),
+    "d112-t1-k4v8-f32-q": (1, "k4v8", "auto", 112, 2, 8, 2, 777, [777, 1], 0, 0, torch.float32),
+    "d112-pv8-t4-masked-tiles": (4, "int8", "int", 112, 2, 8, 2, 1000, [1000, 65], 0, 0, torch.bfloat16),
+    "d112-pv8-t1-bf16-k": (1, "k16v8", "int", 112, 2, 8, 8, 600, [600, 3], 0, 0, torch.bfloat16),
+    "d192-t1-int8-group12-split-edge": (1, "int8", "auto", 192, 2, 24, 2, 2048, None, 0, 0, torch.bfloat16),
+    "d192-t4-bf16-group12": (4, "bf16", "auto", 192, 1, 24, 2, 600, [600], 0, 0, torch.bfloat16),
+    "d192-t2-int4-int-qk-group12": (2, "int4", "int_qk", 192, 2, 12, 1, 700, [700, 9], 0, 0, torch.bfloat16),
+    "d192-t1-k4v8-window256-sink4": (1, "k4v8", "auto", 192, 2, 12, 1, 1000, [577, 1000], 256, 4, torch.bfloat16),
+    "d192-t3-int4-cap30": (3, "int4", "auto", 192, 2, 12, 1, 700, [700, 65], 0, 0, torch.bfloat16, 30.0),
+    "d192-t1-int8-f32-chain-f32-q": (1, "int8", "f32", 192, 2, 12, 1, 500, [500, 2], 0, 0, torch.float32),
+    "d192-pv8-t4-window300-sink8": (4, "int8", "int", 192, 2, 12, 1, 1000, [1000, 310], 300, 8, torch.bfloat16),
+    "d192-pv8-t1-k4v8": (1, "k4v8", "int", 192, 2, 12, 1, 600, [600, 33], 0, 0, torch.bfloat16),
+    "d16-t4-int8-tile-edge": (4, "int8", "auto", 16, 2, 8, 2, 777, [129, 66], 0, 0, torch.bfloat16),
+    "d16-t1-k4v8-window100-sink8": (1, "k4v8", "auto", 16, 2, 8, 8, 777, [400, 777], 100, 8, torch.bfloat16),
+    "d16-pv8-t2-bf16-k": (2, "k16v8", "int", 16, 2, 8, 2, 500, [500, 3], 0, 0, torch.bfloat16),
+    "d48-t8-int4-int-qk": (8, "int4", "int_qk", 48, 1, 8, 1, 700, [700], 0, 0, torch.bfloat16),
+    "d48-t1-bf16-f32-q-split-edge": (1, "bf16", "auto", 48, 2, 8, 8, 2048, None, 0, 0, torch.float32),
+    "d144-t1-int4-window101-sink3": (1, "int4", "auto", 144, 2, 8, 2, 1000, [578, 1000], 101, 3, torch.bfloat16),
+    "d144-t4-k4v8-int-qk": (4, "k4v8", "int_qk", 144, 2, 8, 2, 700, [700, 9], 0, 0, torch.bfloat16),
+    "d240-t2-int8-cap20": (2, "int8", "auto", 240, 2, 8, 2, 700, [700, 65], 0, 0, torch.bfloat16, 20.0),
+    "d240-t1-int4-int-qk-split-edge": (1, "int4", "int_qk", 240, 2, 8, 8, 2048, None, 0, 0, torch.bfloat16),
+    "d240-pv8-t4-masked-tiles": (4, "int8", "int", 240, 2, 8, 2, 1000, [1000, 33], 0, 0, torch.bfloat16),
 }
 
 
@@ -184,6 +223,17 @@ PAGED_CASES = {
     "paged-d80-t4-k4v8-int-qk-p32-window101": (4, "k4v8", "int_qk", 80, 2, 8, 2, 32, 16, [512, 150], 101, 0,
                                                torch.bfloat16),
     "paged-d80-t1-k16v8-p64-cap30": (1, "k16v8", "auto", 80, 2, 8, 8, 64, 8, [512, 70], 0, 0, torch.bfloat16, 30.0),
+    "paged-d112-t1-int8-p64": (1, "int8", "auto", 112, 2, 8, 8, 64, 8, [512, 70], 0, 0, torch.bfloat16),
+    "paged-d112-t4-int4-p8": (4, "int4", "auto", 112, 2, 8, 2, 8, 40, [320, 9], 0, 0, torch.bfloat16),
+    "paged-d112-pv8-t2-p16-window100-sink8": (2, "int8", "int", 112, 2, 8, 2, 16, 32, [512, 120], 100, 8,
+                                              torch.bfloat16),
+    "paged-d192-t4-int8-p64-group12": (4, "int8", "auto", 192, 1, 24, 2, 64, 8, [500], 0, 0, torch.bfloat16),
+    "paged-d192-t1-k4v8-int-qk-p32-window101": (1, "k4v8", "int_qk", 192, 2, 12, 1, 32, 16, [512, 150], 101, 0,
+                                                torch.bfloat16),
+    "paged-d16-t1-int4-p8": (1, "int4", "auto", 16, 2, 8, 2, 8, 40, [320, 17], 0, 0, torch.bfloat16),
+    "paged-d48-t2-bf16-p32-cap30": (2, "bf16", "auto", 48, 2, 8, 8, 32, 16, [512, 33], 0, 0, torch.bfloat16, 30.0),
+    "paged-d144-t1-int4-int-qk-p16": (1, "int4", "int_qk", 144, 2, 8, 2, 16, 32, [512, 33], 0, 0, torch.bfloat16),
+    "paged-d240-t3-k16v8-p64": (3, "k16v8", "auto", 240, 2, 8, 8, 64, 8, [512, 70], 0, 0, torch.bfloat16),
 }
 
 

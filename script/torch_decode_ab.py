@@ -4,8 +4,8 @@ card.
 
     python3 script/torch_decode_ab.py [--base DIR] [--sass] [--step] [all | VARIANT ...]
 
-Each variant is a patch of ``csrc/decode_attention.cu`` or
-``csrc/fused_kv_attention_wgmma.cu`` (see VARIANTS), built in its own copy of
+Each variant is a patch of ``csrc/decode_attention.cuh`` or
+``csrc/fused_kv_attention_wgmma.cuh`` (see VARIANTS), built in its own copy of
 the package under ``build/decode_ab/<name>/``; ``--base DIR`` adds the package
 of another tree as "base" (for example the parent commit unpacked by ``git
 archive`` into a directory that ``.gitignore`` lists). Every build (the
@@ -49,8 +49,8 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "lowbit_quant_fa2_paddle_tpu_torch"
-D_SRC = "decode_attention.cu"
-E_SRC = "fused_kv_attention_wgmma.cu"
+D_SRC = "decode_attention.cuh"
+E_SRC = "fused_kv_attention_wgmma.cuh"
 
 # name: (what it changes, [(file under csrc/, old, new), ...])
 VARIANTS = {
@@ -70,8 +70,9 @@ VARIANTS = {
                     [(D_SRC, "        cp_async4(ks_s + st * BK + i, ksg + key0 + i);\n", ""),
                      (D_SRC, "        if constexpr (kVQuant) cp_async4(vs_s + st * BK + i, vsg + key0 + i);\n", "")]),
     "e-nowiden": ("probe, wrong results: E's producer lands the packed tiles but widens nothing",
-                  [(E_SRC, "      widen<D, BITS>(pk, smem", "      if (false) widen<D, BITS>(pk, smem"),
-                   (E_SRC, "      widen<D, BITS>(pk + L::kPackBytes", "      if (false) widen<D, BITS>(pk + L::kPackBytes")]),
+                  [(E_SRC, "        widen<D, BITS>(pk, smem", "        if (false) widen<D, BITS>(pk, smem"),
+                   (E_SRC, "        widen<D, BITS>(pk + L::kPackBytes",
+                    "        if (false) widen<D, BITS>(pk + L::kPackBytes")]),
     "e-regs160": ("E at d64 with 160 registers a consumer thread and 32 a producer thread (not 152 / 56)",
                   [(E_SRC, "constexpr int kRegC = D == 64 ? 152 : 232;", "constexpr int kRegC = D == 64 ? 160 : 232;"),
                    (E_SRC, "constexpr int kRegP = D == 64 ? 56 : 40;", "constexpr int kRegP = D == 64 ? 32 : 40;")]),

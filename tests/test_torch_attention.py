@@ -212,27 +212,32 @@ def _unported_call(case):
         return lambda: tbwd._attention_bwd_cuda(q, q, q, q, lse, lse, None, None, None, None, causal=False, window=0,
                                                 scale2=0.09, ds_scale=0.0625, dq_dtype=torch.float32,
                                                 dkv_dtype=torch.float32)
-    if case == "e-head-dim-96":
+    if case == "e-head-dim-320":
         from lowbit_quant_fa2_paddle_tpu_torch.ops import fused_kv as tfkv
 
-        q, kp, ks = torch.randn(1, 1, 8, 96), torch.zeros(1, 1, 8, 48, dtype=torch.int8), torch.ones(1, 1, 8, 1)
+        q, kp, ks = torch.randn(1, 1, 8, 320), torch.zeros(1, 1, 8, 160, dtype=torch.int8), torch.ones(1, 1, 8, 1)
         return lambda: tfkv._fused_kv_cuda(q, kp, kp, ks, ks, ks, ks, bits=4, group=8, causal=False,
                                            sm_scale_log2e=0.15, out_dtype=torch.float32)
-    cache = torch.zeros(1, 1, 16, 112, dtype=torch.int8)
-    q = torch.randn(1, 1, 1, 112) if case == "d-head-dim-112" else torch.randn(1, 2, 1, 112)
+    d = 104 if case == "d-head-dim-104" else 320
+    cache = torch.zeros(1, 1, 16, d, dtype=torch.int8)
+    q = torch.randn(1, 2, 1, d) if case.startswith("d-t-tokens") else torch.randn(1, 1, 1, d)
     ones, lens = torch.ones(1, 1, 16), torch.full((1,), 16, dtype=torch.int32)
     return lambda: tdec._decode_attention_cuda(q[:, 0] if q.shape[1] == 1 else q, cache, cache, ones, ones, lens,
                                                sm_scale=0.1, int_qk=True, out_dtype=torch.float32, need_lse=False)
 
 
-@pytest.mark.parametrize("case", ["a-head-dim-320", "g-head-dim-320", "d-head-dim-112", "d-t-tokens-head-dim-112",
-                                  "e-head-dim-96"])
+#: The calls of _unported_call and the ROADMAP item each names.
+UNPORTED = {"a-head-dim-320": "3h", "g-head-dim-320": "3h", "d-head-dim-320": "3h", "d-t-tokens-head-dim-320": "3h",
+            "e-head-dim-320": "3h", "d-head-dim-104": "3"}
+
+
+@pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_flags_raise(case):
-    """What the port still raises for, each naming its ROADMAP item: kernel
-    A and G1/G2 above head_dim 256, kernel D at head dims other than 32, 64,
-    80, 96, 128 and 256 (one token or T), and kernel E at head dims other
-    than 64 and 128 (which JAX takes: not a bad input)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """What the port still raises for, each naming its ROADMAP item (which
+    JAX takes: not a bad input): kernels A, G1/G2, D (one token or T) and E
+    above head_dim 256 ("3h"), and kernel D at a head dim that is not a
+    multiple of 16 ("3")."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, item {UNPORTED[case]}\\)"):
         _unported_call(case)()
 
 

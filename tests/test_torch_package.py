@@ -125,15 +125,18 @@ def test_build_command_targets_sm90a_from_repo_sources():
         "attention_bwd_wgmma.cu", "attention_bwd_wgmma_d256.cu", "attention_fwd_wgmma.cu",
         "attention_fwd_wgmma_bias.cu", "attention_fwd_wgmma_d256.cu", "attention_fwd_wgmma_pv32.cu",
         "attention_fwd_wgmma_pv32_d256.cu", "decode_attention.cu", "decode_attention_d256.cu",
-        "decode_attention_d80_96.cu", "decode_attention_multi.cu", "decode_attention_multi_d256.cu",
-        "decode_attention_multi_d80_96.cu", "decode_attention_paged.cu", "decode_attention_paged_d256.cu",
-        "decode_attention_paged_d80_96.cu", "fused_kv_attention_wgmma.cu", "gemv.cu", "quant.cu"]
+        "decode_attention_d80_96.cu", "decode_attention_dyn.cu", "decode_attention_multi.cu",
+        "decode_attention_multi_d256.cu", "decode_attention_multi_d80_96.cu", "decode_attention_multi_dyn.cu",
+        "decode_attention_paged.cu", "decode_attention_paged_d256.cu", "decode_attention_paged_d80_96.cu",
+        "decode_attention_paged_dyn.cu", "fused_kv_attention_wgmma.cu", "fused_kv_attention_wgmma_pad.cu", "gemv.cu",
+        "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert all(f"-I{_build.CSRC_DIR}" in cmd for cmd in compiles)  # the shared headers, e.g. sm90.cuh
     assert os.path.join(_build.CSRC_DIR, "sm90.cuh") in _build.hashed_files()
     assert os.path.join(_build.CSRC_DIR, "decode_attention.cuh") in _build.hashed_files()
     assert os.path.join(_build.CSRC_DIR, "attention_fwd_wgmma.cuh") in _build.hashed_files()
     assert os.path.join(_build.CSRC_DIR, "attention_bwd_wgmma.cuh") in _build.hashed_files()
+    assert os.path.join(_build.CSRC_DIR, "fused_kv_attention_wgmma.cuh") in _build.hashed_files()
     assert "-shared" in link and link[-len(compiles):] == [cmd[-1] for cmd in compiles]
     assert _build.CSRC_DIR.startswith(os.path.join(REPO, "lowbit_quant_fa2_paddle_tpu_torch"))
     assert os.path.dirname(_build.library_path()) == _build.BUILD_DIR
@@ -838,6 +841,19 @@ FUSED_KV_EDGES = {
     "causal-sq700-sk1000-d128": (2, True, 1, 16, 4, 700, 1000, 128, 128, torch.bfloat16, torch.bfloat16),
     "causal-sq1000-sk300-d128-group32": (4, True, 1, 8, 8, 1000, 300, 128, 32, torch.bfloat16, torch.bfloat16),
     "f32-q-f32-out": (4, False, 1, 4, 4, 300, 300, 64, 256, torch.float32, torch.float32),
+    # Head dim 256 (64-key tiles) and the head dims below a kernel's width (the columns past the head dim
+    # zeros; 4-bit rows of 24 and 56 bytes and 2-bit rows of 4, 12, 28 and 36 bytes padded to 16 for TMA).
+    "d256": (4, True, 1, 8, 2, 700, 1000, 256, 128, torch.bfloat16, torch.bfloat16),
+    "d256-int2-sk129": (2, False, 1, 4, 4, 300, 129, 256, 64, torch.bfloat16, torch.float32),
+    "d16-int2": (2, False, 1, 4, 2, 300, 300, 16, 64, torch.bfloat16, torch.bfloat16),
+    "d48-int4-causal": (4, True, 1, 4, 2, 500, 500, 48, 128, torch.bfloat16, torch.bfloat16),
+    "d48-int2-group100": (2, False, 1, 8, 4, 300, 777, 48, 100, torch.bfloat16, torch.bfloat16),
+    "d112-int4-causal": (4, True, 1, 8, 2, 700, 1000, 112, 128, torch.bfloat16, torch.bfloat16),
+    "d112-int2-f32-q-f32-out": (2, False, 1, 4, 4, 300, 300, 112, 256, torch.float32, torch.float32),
+    "d144-int2-causal-sq1000-sk300": (2, True, 1, 8, 8, 1000, 300, 144, 32, torch.bfloat16, torch.bfloat16),
+    "d192-int4-gqa12": (4, False, 1, 12, 1, 300, 1000, 192, 256, torch.bfloat16, torch.bfloat16),
+    "d192-int2-causal": (2, True, 1, 4, 2, 500, 500, 192, 128, torch.bfloat16, torch.bfloat16),
+    "d240-int4-sk777": (4, False, 1, 4, 2, 300, 777, 240, 64, torch.bfloat16, torch.bfloat16),
 }
 
 
@@ -846,9 +862,10 @@ FUSED_KV_EDGES = {
 def test_wgmma_fused_kv_edges_match_plain(cuda, case):
     """Kernel E's wgmma design at its edges: groups smaller and larger than
     its 128-key tile (and 100, which crosses tiles), Sk just past a tile and
-    ragged, causal Sq != Sk at d128, f32 q and output. Every launch on the
-    design; the plain version's bounds (cos >= 0.99999, max|do| <= 2e-2); the
-    same bits on a second run."""
+    ragged, causal Sq != Sk at d128, f32 q and output, head dim 256 and the
+    head dims below a kernel's width (16-240). Every launch on the design
+    and at the head dim; the plain version's bounds (cos >= 0.99999, max|do|
+    <= 2e-2); the same bits on a second run."""
     bits, causal, b, h, hk, sq, sk, d, group, q_dtype, out_dtype = FUSED_KV_EDGES[case]
     g = torch.Generator(device=cuda).manual_seed(11)
     q = torch.randn(b, h, sq, d, generator=g, device=cuda).to(q_dtype)
@@ -857,7 +874,7 @@ def test_wgmma_fused_kv_edges_match_plain(cuda, case):
     args = (q, *quant_kv_grouped(k, bits=bits, group=group), *quant_kv_grouped(v, bits=bits, group=group))
     args = (args[0], args[1], args[4], args[2], args[3], args[5], args[6])  # q, kp, vp, ks, km, vs, vm
     design = fused_kv_ops.kernel_design(bits)
-    n = fused_packed_kv_attention.launches_by_design[design]
+    n, n_dim = fused_packed_kv_attention.launches_by_design[design], fused_packed_kv_attention.launches_by_dim[d]
     kw = dict(bits=bits, is_causal=causal, group=group, out_dtype=out_dtype)
     o = fused_packed_kv_attention(*args, **kw)
     o2 = fused_packed_kv_attention(*args, **kw)
@@ -865,6 +882,7 @@ def test_wgmma_fused_kv_edges_match_plain(cuda, case):
                                      sm_scale_log2e=LOG2E / math.sqrt(d), out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert fused_packed_kv_attention.launches_by_design[design] == n + 2
+    assert fused_packed_kv_attention.launches_by_dim[d] == n_dim + 2
     assert o.shape == (b, h, sq, d) and o.dtype == out_dtype and torch.equal(o, o2)
     assert bool(torch.isfinite(o.float()).all())
     assert float(cosine_similarity(o, o_ref)) >= 0.99999
@@ -1188,6 +1206,42 @@ def test_off_ladder_llm_on_the_card(cuda, d, mode):
     n_a, n_a128 = lowbit_attention.launches, lowbit_attention.launches_by_dim[128]
     logits, caches = llm.llm_prefill(model, prompt, cfg)
     assert lowbit_attention.launches - n_a == cfg.depth == lowbit_attention.launches_by_dim[128] - n_a128
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    copy = [{k: v.clone() for k, v in c.items()} for c in caches]
+    n_d, n_dd = decode_attention.launches, decode_attention.launches_by_dim[d]
+    got, out_caches = llm.decode_tokens(model, tok, caches, 6, cfg)
+    torch.cuda.synchronize()
+    assert decode_attention.launches - n_d == 6 * cfg.depth == decode_attention.launches_by_dim[d] - n_dd
+    want, t = [], tok
+    for _ in range(6):
+        step_logits, copy = llm.llm_decode_step(model, t, copy, cfg)
+        t = torch.argmax(step_logits, dim=-1).to(torch.int32)
+        want.append(t)
+    assert torch.equal(got, torch.stack(want, dim=1))
+    for c, w in zip(out_caches, copy):
+        assert all(torch.equal(c[k], w[k]) for k in c), mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,heads,mode", [(112, (4, 4), "int8"), (112, (4, 4), "int4"), (192, (12, 1), "k4v8"),
+                                          (48, (4, 2), "bf16")])
+def test_run_time_head_dim_llm_on_the_card(cuda, d, heads, mode):
+    """A model at a head dim kernel D takes at run time (112: MPT-30B's; 192
+    with 12 query heads a KV head: Nemotron-4's; 48): its prefill runs kernel
+    A padded to its kernel dim (one launch a layer), and ``decode_tokens``
+    gives the tokens and bit-equal caches of a loop of ``llm_decode_step``,
+    every kernel D launch at the head dim itself
+    (``csrc/decode_attention*_dyn.cu``)."""
+    h, hk = heads
+    cfg = llm.tiny_llm_config(dim=h * d, depth=2, num_heads=h, num_kv_heads=hk, max_seq=300, dtype=torch.bfloat16,
+                              **GRAPH_CACHES[mode])
+    assert cfg.head_dim == d
+    model = llm.init_llm_params(cfg, torch.Generator(device=cuda).manual_seed(9))
+    prompt = torch.randint(0, cfg.vocab, (2, 200), generator=torch.Generator(device=cuda).manual_seed(10), device=cuda)
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    n_a, n_adp = lowbit_attention.launches, lowbit_attention.launches_by_dim[dp]
+    logits, caches = llm.llm_prefill(model, prompt, cfg)
+    assert lowbit_attention.launches - n_a == cfg.depth == lowbit_attention.launches_by_dim[dp] - n_adp
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     copy = [{k: v.clone() for k, v in c.items()} for c in caches]
     n_d, n_dd = decode_attention.launches, decode_attention.launches_by_dim[d]
