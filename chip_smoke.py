@@ -100,8 +100,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    launch on D's design (csrc/decode_attention.cu). Timed at every length
    32768 in every mode, with the GB/s of cache bytes streamed (SDPA, one
    query per head, beside the bf16 cache);
-10. kernels F1/F2 (wq_matmul_per_channel, wq_matmul_fused) against their
-   plain versions: w8, w8a8, w4 per-channel and grouped 2/4/8-bit (group
+10. (run after phase 13) kernels F1/F2 (wq_matmul_per_channel,
+   wq_matmul_fused) against their plain versions: w8, w8a8, w4
+   per-channel and grouped 2/4/8-bit (group
    128) at the full-width decode shapes M=4 x (N, K) in {(4096, 4096),
    (1024, 4096), (16384, 4096), (4096, 16384)} bf16, w8/w4 at the
    checkpoint's shapes with M=64 f32 x, and M=1000; cos >= 0.99999 and
@@ -149,14 +150,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    tensor-core design, and none at prefill. Then one decode step per weight format under torch.profiler at
    a 256-token context, and one per cache mode at the full 32K context with
    dense weights: device ms of F, the dense GEMMs, D and the rest;
-14. long context at the same full width (bench/llm_e2e_bench.py at its
-   --ctx 131072): first, at phase 13's 32K b4 prompt, llm_prefill_chunked
+14. long context at the same full width, depth cut to 8 of 32 for the
+   run's time limit (bench/llm_e2e_bench.py at its --ctx 131072): first,
+   at phase 13's 32K b4 prompt, llm_prefill_chunked
    (chunks of 4096) against the one-shot llm_prefill with the int8 and the
    k4v8 cache (last-token logits cos >= 0.999 / 0.995, the JAX package's
    test bounds), and 16 graph-decoded tokens against a loop of
    llm_decode_step from cloned k4v8 caches (identical tokens, bit-equal
    caches), both timed; then b4, a 131,072-token prompt, max_seq 133,120,
-   the k4v8 cache (~27 GB): the chunked prefill (per layer one C1 and one A
+   the k4v8 cache (~6.8 GB over the 8 layers): the chunked prefill (per
+   layer one C1 and one A
    a chunk, one more A for every chunk after the first) and 32 graph-decoded
    tokens (depth x 32 D launches, all on bulk_ring), with prefill seconds,
    decode ms per token, cache GB and peak memory; the strided cache-slice
@@ -247,8 +250,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    d256, per token, over 32,704 and 4,096 tokens) bit-equal to its plain
    version on the vector design, timed. Then the full-width LLM with
    256-wide heads (bench/llm_e2e_bench.py --heads 16 --kv-heads 8
-   --head-dim 256: dim 4096, depth 32, Gemma 2 9B's attention geometry,
-   random seeded weights), b4 from a 32,704-token prompt: llm_prefill and
+   --head-dim 256: dim 4096, depth 16 of 32 for the run's time limit,
+   Gemma 2 9B's attention geometry, random seeded weights), b4 from a
+   32,704-token prompt: llm_prefill and
    63 graph-decoded tokens on the int8 and then the bf16 cache (depth A and
    C1 launches a prefill, depth x 63 D, all A and D at d256), first-step
    logits int8 vs bf16 cache cos >= 0.999, then llm_prefill_chunked
@@ -352,6 +356,37 @@ Phases, each of which raises on failure (exit code 1, no result line):
    slots, 8 requests of 1,024-4,032 tokens, 32 new each, int8 pages) with
    each stream equal to generate's or parting at a near-tie (phase 20's
    rule).
+
+22. the parallel layer (run last; parallel/ over torch.distributed): four
+   rank processes (utils/parallel_cases.py, suite "card") share the card
+   (cuda:0) and exchange over gloo through host memory, the kernels built
+   by this process first, so no rank runs nvcc: (a) ring attention at the
+   DiT shape b1 h30 s17776 d64 (4,444 tokens a rank), int8 non-causal and
+   causal and k_bits=4/v_bits=8, gathered O and LSE against the
+   single-process lowbit_fa_qk_int8_pv_fp16 (cos > 0.999, > 0.99 with INT4
+   K; LSE within 5e-2 + 1e-2·|lse|: JAX's test_parallel.py bounds against
+   its oracle); (b) Ulysses at degree 2 (15 heads a rank) over a data-2
+   mesh (a CFG batch of 2), wire_bits None and 8; (c) the facade at model 2
+   x ring 2; (d) context-sharded decode over 4 shards of the full-width
+   LLM's 32K int8 cache (b4 h32 hk8 d128, lengths 32768/1/4097/20000:
+   shards whole, partly and wholly empty; cos >= 0.99999, max|do| <= 2 bf16
+   ulps of max|o|) and head-sharded decode over 4 head shards (1 ulp)
+   against single-process D; (e) one CogVideoX-2b denoise step (depth 30,
+   dim 1920) with ring-4 attention (b1) and one with Ulysses-2 attention (a
+   CFG batch of 2 over data 2), each rank running the token-wise layers on
+   its sequence shard: frames x - 0.1·eps cos >= 0.999 and eps cos >= 0.99
+   against the single-process int8 step; (f) the pipelined DiT at pp 2 (15
+   blocks a stage) over data 2, a CFG batch of 2 a data rank in 2
+   microbatches: eps cos >= 0.999 against the sequential forward. Each
+   rank's launches are counted per case from zero (A on the wgmma design,
+   C1/C2 on vector, D on its design; none of another kernel), with its
+   bytes on the wire per call site; a failing rank fails the phase. The
+   ranks share one card, so their seconds are no scaling figure. Then, in
+   this process alone, kernel A at the ring's hop shape (b1 h30 sq4444
+   sk4444 d64, int8 codes, f32 output: the diagonal shard causal, an
+   earlier rank's shard unmasked) beside SDPA and kernel D at the context
+   shard (b4 h32 hk8 S_max 8192 d128, int8) against their plain versions,
+   timed with their bounds.
 
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
@@ -1659,8 +1694,10 @@ _probe_build = {}
 
 
 def start_gemv_probe_build():
-    _probe_build["proc"] = subprocess.Popen([sys.executable, GEMV_AB, "--build", "copy-only"], cwd=REPO,
-                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # At the lowest priority: its ~25 nvcc processes would otherwise take the
+    # CPU from the phases that run beside it.
+    _probe_build["proc"] = subprocess.Popen(["nice", "-n", "19", sys.executable, GEMV_AB, "--build", "copy-only"],
+                                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def gemv_copy_only_probe():
@@ -2237,7 +2274,8 @@ def long_decode_check(gen, cache, cfg):
 
 
 def long_context_phase():
-    """Phase 14: the full-width LLM (phase 13's shapes) prefills a b4
+    """Phase 14: the full-width LLM (phase 13's widths; depth 8 of its 32,
+    cut for the run's time limit) prefills a b4
     131,072-token prompt in chunks of 4096 into a k4v8 cache (max_seq
     133,120: the prompt and llm_e2e_bench's gen-block of 2048) and decodes
     32 tokens through the CUDA graph; launch counts, peak memory, the
@@ -2252,7 +2290,7 @@ def long_context_phase():
     from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 
     b, ctx, chunk, n_new = 4, 131072, 4096, 32
-    cfg = llm.LLMConfig(vocab=256, dim=4096, depth=32, num_heads=32, num_kv_heads=8, max_seq=ctx + 2048,
+    cfg = llm.LLMConfig(vocab=256, dim=4096, depth=8, num_heads=32, num_kv_heads=8, max_seq=ctx + 2048,
                         dtype=torch.bfloat16, kv_bits=8, k_bits=4)
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = llm.init_llm_params(cfg, gen)
@@ -3387,8 +3425,9 @@ def hd256_decode_phase(gen):
 
 def hd256_llm_phase():
     """The full-width LLM with 256-wide heads (bench/llm_e2e_bench.py --heads
-    16 --kv-heads 8 --head-dim 256: dim 4096, depth 32, Gemma 2 9B's
-    attention geometry), random seeded weights, b4 from a 32,704-token
+    16 --kv-heads 8 --head-dim 256: dim 4096, depth 16 of its 32, cut for
+    the run's time limit; Gemma 2 9B's attention geometry), random seeded
+    weights, b4 from a 32,704-token
     prompt: llm_prefill then 63 graph-decoded tokens (64 with the prefill's)
     on the int8 and then the bf16 cache, one cache alive at a time; the
     first decode step's logits int8 vs bf16 cache cos >= 0.999; then
@@ -3403,7 +3442,7 @@ def hd256_llm_phase():
     from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 
     b, prompt_len, n_new, chunk = 4, 32704, 64, 4096
-    cfg = llm.LLMConfig(vocab=256, dim=4096, depth=32, num_heads=16, num_kv_heads=8, max_seq=32768,
+    cfg = llm.LLMConfig(vocab=256, dim=4096, depth=16, num_heads=16, num_kv_heads=8, max_seq=32768,
                         dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -4950,6 +4989,119 @@ def mpt_serving_phase(model):
                                   max_seq=MPT_CACHE_ROWS)
 
 
+def parallel_phase():
+    """Phase 22 (see the module note): the card suite of
+    utils/parallel_cases.py in four rank processes; returns each case's
+    launches summed over the ranks that ran it, rank 0's bytes on the wire
+    and the ranks' seconds."""
+    import tempfile
+
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import kernel_design as d_design
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import parallel_cases as pc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = pc.spawn("card", pc.CARD_WORLD, tmp)
+        try:
+            pc.wait(procs, tmp, timeout_s=600)
+        finally:
+            for r in range(pc.CARD_WORLD):
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    for line in f:
+                        if line.startswith("[parallel]"):
+                            log(line.rstrip())
+        reports = []
+        for r in range(pc.CARD_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+    summary = {}
+    for name in reports[0]["cases"]:
+        ranks = [rep["cases"][name] for rep in reports if name in rep["cases"]]
+        # Every rank that ran the case launched its kernels, each on its design, and no other.
+        want = {"D"} if " decode" in name else {"A", "C1", "C2"} if "k4v8" in name else {"A", "C1"}
+        designs = {"A": "wgmma", "C1": "vector", "C2": "vector", "D": d_design()}
+        for r, c in enumerate(ranks):
+            for kern, got in c["launches"].items():
+                on_design = got["by_design"].get(designs[kern], 0) == got["launches"]
+                if (got["launches"] > 0) != (kern in want) or not on_design:
+                    raise AssertionError(f"parallel {name}: rank {r} launched {kern} {got} (want {sorted(want)} "
+                                         f"on {designs})")
+        launches = {kern: sum(c["launches"][kern]["launches"] for c in ranks) for kern in designs}
+        wire = ranks[0]["wire"]
+        per_call = {site: {dt: n // w["calls"] for dt, n in w["bytes"].items()} for site, w in wire.items()}
+        log(f"[parallel] {name}: {len(ranks)} ranks, launches {launches}, host s by rank "
+            f"{[round(c['host_s'], 2) for c in ranks]} (ranks share one card: no scaling figure); rank 0's bytes a "
+            f"call by site {per_call} ({ {site: w['calls'] for site, w in wire.items()} } calls)")
+        summary[name] = {"launches": launches, "wire": wire, "ranks": len(ranks)}
+    log(f"[parallel] ranks' seconds {[round(rep['seconds'], 1) for rep in reports]}, peak GiB "
+        f"{[round(rep['peak_gib'], 2) for rep in reports]}")
+    return summary
+
+
+RING_HOP = (30, 4444, 64)  # the ring's hop at the DiT shape: heads, tokens a rank, head dim
+
+
+def parallel_rows_phase(gen):
+    """Phase 22's kernel rows, in this process alone: kernel A as a ring hop
+    runs it (int8 Q and K codes, bf16 V, f32 output and the LSE) at
+    RING_HOP, over the diagonal shard (causal) and an earlier rank's
+    (unmasked), beside SDPA in bf16; kernel D at the context shard of
+    phase 22's decode (b4 h32 hk8 S_max 8192 d128, int8 cache, every length
+    8192) against its plain version at phase 9's bounds, with its byte
+    bound."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import k_mean, quant_int8
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    h, s, d = RING_HOP
+    rows = {}
+    q = torch.randn(1, h, s, d, generator=gen, device="cuda").bfloat16()
+    k = (torch.randn(1, h, s, d, generator=gen, device="cuda") + 1.0).bfloat16()
+    v = torch.randn(1, h, s, d, generator=gen, device="cuda").bfloat16()
+    qc, qs = quant_int8(q, gran="per_token")
+    kc, ks = quant_int8(k, k_mean(k), gran="per_token")
+    c = LOG2E / math.sqrt(d)
+    for causal, what in ((True, "the diagonal shard, causal"), (False, "an earlier rank's shard, unmasked")):
+        def call(lse, causal=causal):
+            return lowbit_attention(qc, kc, v, qs, ks, is_causal=causal, out_dtype=torch.float32, return_lse=lse)
+
+        def plain(causal=causal):
+            return attention_fwd_plain(qc, kc, v, qs * c, ks, None, causal=causal, sm_scale_log2e=c,
+                                       out_dtype=torch.float32)
+
+        rows[what] = a_record(f"ring hop ({what}) b1 h{h} sq{s} sk{s} d{d}", call, plain,
+                              visible_pairs(s, s, causal), h, d, "int8", [qc, qs, kc, ks, v], h * s * (d + 1) * 4,
+                              library=lambda causal=causal: torch.nn.functional.scaled_dot_product_attention(
+                                  q, k, v, is_causal=causal), prefix="P22", library_backend=None)
+    del q, k, v, qc, kc
+    b, h, hk, d, s = 4, 32, 8, 128, 8192
+    kargs, kkw, pargs, pkw = decode_inputs(gen, b, h, hk, d, s, "int8", [s] * b)
+    n = DD.decode_attention.launches_by_design[DD.kernel_design()]
+    o, lse = DD.decode_attention(*kargs, **kkw, return_lse=True)
+    o2, lse2 = DD.decode_attention(*kargs, **kkw, return_lse=True)
+    o_ref, lse_ref = DD.decode_attention_plain(*pargs, **pkw)
+    torch.cuda.synchronize()
+    r = stats(o, o_ref, lse, lse_ref)
+    ulp = bf16_ulp(float(o_ref.float().abs().max()))
+    r["same_bits_twice"] = torch.equal(o, o2) and torch.equal(lse, lse2)
+    r["on_design"] = DD.decode_attention.launches_by_design[DD.kernel_design()] == n + 2
+    log(f"[P22] context shard: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                            for k, v in r.items()) + f" bf16_ulp={ulp:.3g}")
+    if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= ulp and r["max_dlse"] <= 1e-4
+            and r["same_bits_twice"] and r["on_design"]):
+        raise AssertionError(f"kernel D disagrees with its plain version at the context shard: {r}")
+    ms = cuda_time_ms(lambda: DD.decode_attention(*kargs, **kkw), warmup=5, reps=50)
+    plain_ms = cuda_time_ms(lambda: DD.decode_attention_plain(*pargs, **pkw), warmup=1, reps=3)
+    q_, kq, vq, ks_, lens = kargs
+    lim = bound(nbytes(kq, vq, ks_, pargs[4]) + nbytes(q_, lens) * 2)
+    log(f"[P22] D int8 context shard b{b} h{h} hk{hk} S_max {s} d{d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}, {lim['bound_ms'] / ms:.0%} of it)")
+    # No PyTorch call decodes int8 codes: no library time.
+    rows["context shard"] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None,
+                             "design": DD.kernel_design()}
+    return rows
+
+
 def cuda_event_ms(fn):
     """Device ms of one call between two CUDA events."""
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4988,11 +5140,13 @@ def main():
     _, qz_launches = timed(bwd_accuracy_phase, gen)
     train_r = timed(train_phase)
     dec = timed(decode_phase, gen)
-    gemv = timed(gemv_phase, gen)
     fkv = timed(fused_kv_phase, gen)
     ckpt = timed(checkpoint_phase)
     timed(checkpoint_wq_phase)
     llm_r = timed(full_width_phase)
+    # Phase 10 after phase 13: by then the copy-only probe's package copy,
+    # built at the lowest priority beside the phases before, is ready.
+    gemv = timed(gemv_phase, gen)
     # Phase 15 (its 128K decode rows run in phase 14, on that phase's cache).
     timed(mask_edge_phase, gen)
     win_a = timed(window_attention_phase, gen)
@@ -5053,6 +5207,10 @@ def main():
     spec21 = timed(mpt_spec_phase, model_21, prompt_21)
     serve21 = timed(mpt_serving_phase, model_21)
     del model_21, prompt_21
+    # Phase 22 (the parallel layer in four ranks on the card, then its kernel
+    # rows timed in this process alone).
+    par = timed(parallel_phase)
+    par_rows = timed(parallel_rows_phase, gen)
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
     replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
@@ -5343,6 +5501,25 @@ def main():
              "time)", route="cuda", source=f"{src}/fused_kv_attention_wgmma_pad.cu",
              replaces="lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py:377", launches=e21["launches"],
              **{k: e21[k] for k in timing + ("design",)}),
+    ]
+    # Phase 22: kernel A at the ring's hop shape, launched by the ranks' ring
+    # hops at that shape (phase (a)'s int8 rings and the ring-4 denoise step's
+    # b1 hops: one diagonal hop a rank in the causal ring, the rest
+    # unmasked), and kernel D at the context shard (one launch a rank).
+    diag = par["a ring int8 causal"]["ranks"]
+    hop_launches = {"the diagonal shard, causal": diag,
+                    "an earlier rank's shard, unmasked": par["a ring int8"]["launches"]["A"]
+                    + par["a ring int8 causal"]["launches"]["A"] - diag + par["e dit ring4 step"]["launches"]["A"]}
+    h_, s_, d_ = RING_HOP
+    kernels += [
+        dict(name=f"attention_fwd (int8 codes, f32 out; ring hop over {what}, b1 h{h_} sq{s_} sk{s_} d{d_})",
+             launches=n, **wgmma_src, **{k: par_rows[what][k] for k in a_keys})
+        for what, n in hop_launches.items()
+    ] + [
+        dict(name="decode_attention (int8 cache; context shard of 4, b4 h32 hk8 S_max 8192 d128)", route="cuda",
+             source=f"{src}/decode_attention.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
+             launches=par["d context decode"]["launches"]["D"],
+             **{k: par_rows["context shard"][k] for k in timing + ("design",)}),
     ]
     log(f"[mpt] phase 21 D edge grid worst max|do| by head dim {edge21}; E worst by head dim {e21['worst_by_dim']}; "
         f"generate ms/token by cache " + ", ".join(f"{m} {mpt[m]['decode_ms_per_token']:.3f}" for m in mpt_modes)
