@@ -134,8 +134,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    layer and decode step, none in the 2,304-row prefill; f32 x, so all on
    the CUDA-core design);
 13. LLM main path at full width (dim 4096, 32 query heads x 128, 8 KV
-   heads, vocab 256, bf16, depth 32, random weights from a seeded
-   generator): generate 64 tokens at b4 from a 32,704-token prompt with
+   heads, vocab 256, bf16, depth LLM13_DEPTH = 16 of the geometry's 32 for
+   the run's time limit, random weights from a seeded generator): generate 64 tokens at b4 from a 32,704-token prompt with
    max_seq 32768, with the int8 cache, the bf16 cache, and then w8 and w4
    weights (quantize_llm_params of the same model) on the int8 cache, each
    as llm_prefill then decode_tokens, whose steps run as one captured CUDA
@@ -146,7 +146,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    decode step's int8-vs-bf16 logits cos must be >=
    0.999 and w8-vs-dense >= 0.99 (w4 printed); the counters must show depth
    A (wgmma design) and C1 (vector design) launches per prefill, depth x 63 D launches (all
-   on D's design), and 192 x 63 F1 (w8) or F2 (w4) launches, all on the
+   on D's design), and 6 x depth x 63 F1 (w8) or F2 (w4) launches, all on the
    tensor-core design, and none at prefill. Then one decode step per weight format under torch.profiler at
    a 256-token context, and one per cache mode at the full 32K context with
    dense weights: device ms of F, the dense GEMMs, D and the rest;
@@ -357,7 +357,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    each stream equal to generate's or parting at a near-tie (phase 20's
    rule).
 
-22. the parallel layer (run last; parallel/ over torch.distributed): four
+22. the parallel layer (parallel/ over torch.distributed): four
    rank processes (utils/parallel_cases.py, suite "card") share the card
    (cuda:0) and exchange over gloo through host memory, the kernels built
    by this process first, so no rank runs nvcc: (a) ring attention at the
@@ -387,6 +387,40 @@ Phases, each of which raises on failure (exit code 1, no result line):
    earlier rank's shard unmasked) beside SDPA and kernel D at the context
    shard (b4 h32 hk8 S_max 8192 d128, int8) against their plain versions,
    timed with their bounds.
+
+23. the training paths (run last): the same four rank processes as
+   phase 22's (suite "train", run after suite "card" in those processes,
+   which start once for both) share the card: (a) one int8_train step of the
+   CogVideoX-2b DiT at full width (dim 1920, 30 heads x 64, 17,776 tokens a
+   sample; depth TRAIN_DEPTH, the width whole) sharded over data 1 x seq 2
+   x model 2 at batch 2 (parallel/dryrun.py: qkv/mlp_in column-parallel
+   with qkv cut by whole heads, proj/mlp_out row-parallel, K and V gathered
+   over seq so each rank attends its 8,888 query rows against all 17,776
+   keys, the gradients summed over data x seq), the loss and the updated
+   shards gathered back whole held by rank 0 to the single-process
+   sgd_train_step on the same weights, latents, t and noise at
+   tests/test_torch_dit_train.py's bounds (loss within 2e-3 relative, each
+   tensor that starts nonzero within one bf16 ulp of its max|p|, each
+   zero-initialised bias at an update cosine >= 0.8), every rank launching
+   A, C1, G1 and G2 once a block (A and G on wgmma, C1 on vector) and no
+   other kernel; (b) the FSDP-sharded DiT forward (parallel/sharded.py:
+   each parameter a quarter a rank, a block's tensors gathered on use) over
+   data 4 at batch 4, attn_impl="int8", against the single-process forward
+   of the same rows (a row at a time, as each rank runs them) within JAX's
+   test_fsdp bound (|d| <= 2e-2 + 2e-2·|y|; the same bits expected and
+   reported), A and C1 once a block a rank. Then, in this process alone, kernel A's int8 forward and
+   G1/G2 at a rank's attention shape (b2 h15 sq8888 sk17776 d64) against
+   their plain versions, timed beside SDPA and aten's flash backward, and
+   kernel C1 on the gathered K (b2 h15 s17776 d64, contiguous) against its
+   plain version, timed;
+   (c) the toy LLM trained on the card at JAX's recipe (models/train.py:
+   train_toy_llm, arith_llm_config, 3000 steps of AdamW at batch 64 x 64
+   tokens, lr 1e-3): the loss must fall below 0.8x its first chunk's; then
+   eval_accuracy on 128 held-out prompts through the bf16, int8, int4 and
+   k4v8 caches (C1 and A prefill, D decodes, counted), every answer three
+   digits, the accuracies reported beside the committed checkpoint's on the
+   same prompts; the parameters saved with utils/checkpoint.save_params and
+   loaded back equal.
 
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
@@ -1103,18 +1137,18 @@ def main_path_phase():
 # ---------------------------------------------------------------------------
 
 
-def bwd_inputs(gen, h, hk, s, d, causal, window, dtype, sk=None):
-    """q, k, v, dO (Sq = s, Sk = sk or s) and the forward's o and base-2 LSE
-    (kernel A; the dense reference for the window, which A does not take
-    yet)."""
+def bwd_inputs(gen, h, hk, s, d, causal, window, dtype, sk=None, b=1):
+    """q, k, v, dO (Sq = s, Sk = sk or s, batch b) and the forward's o and
+    base-2 LSE (kernel A; the dense reference for the window, which A does
+    not take yet)."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, flash_attention_fp
     from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
 
     sk = sk or s
-    q = torch.randn(1, h, s, d, generator=gen, device="cuda").to(dtype)
-    k = (torch.randn(1, hk, sk, d, generator=gen, device="cuda") + 0.3).to(dtype)
-    v = torch.randn(1, hk, sk, d, generator=gen, device="cuda").to(dtype)
-    do = torch.randn(1, h, s, d, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
+    k = (torch.randn(b, hk, sk, d, generator=gen, device="cuda") + 0.3).to(dtype)
+    v = torch.randn(b, hk, sk, d, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
     if window:
         o, lse = attention_reference(q, k, v, is_causal=causal, window_size=window, return_lse=True)
         lse2 = lse * LOG2E
@@ -1207,13 +1241,14 @@ def bwd_phase(gen):
             for quantized in (False, True)}
 
 
-def bwd_timed(gen, h, s, d, quantized, max_abs_err, tag):
-    """G1 and G2 timed one by one at b1 h s d (non-causal, bf16 inputs, in
-    the mode ``quantized`` says) beside the plain version (which computes
-    the pair) and, for bf16 operands, aten's flash-attention backward (dq,
-    dk and dv together, given SDPA's own forward outputs: a baseline, never
-    on the path); each kernel's bound counts the products the function needs
-    (3 for dq, 4 for dk and dv). Returns {"G1": record, "G2": record}."""
+def bwd_timed(gen, h, s, d, quantized, max_abs_err, tag, b=1, sk=None, inputs=None):
+    """G1 and G2 timed one by one at b h s d (Sk = sk or s; non-causal, bf16
+    inputs, in the mode ``quantized`` says; ``inputs`` bwd_inputs' tuple to
+    reuse) beside the plain version (which computes the pair) and, for bf16
+    operands, aten's flash-attention backward (dq, dk and dv together, given
+    SDPA's own forward outputs: a baseline, never on the path); each
+    kernel's bound counts the products the function needs (3 for dq, 4 for
+    dk and dv). Returns {"G1": record, "G2": record}."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd as AB
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import (
         attention_bwd_flops,
@@ -1222,9 +1257,10 @@ def bwd_timed(gen, h, s, d, quantized, max_abs_err, tag):
         tflops,
     )
 
-    flops = attention_product_flops(1, h, d, s, s, False)
+    sk = sk or s
+    flops = attention_product_flops(b, h, d, s, sk, False)
     mode = "quantized" if quantized else "float"
-    q, k, v, o, lse2, do = bwd_inputs(gen, h, h, s, d, False, 0, torch.bfloat16)
+    q, k, v, o, lse2, do = inputs or bwd_inputs(gen, h, h, s, d, False, 0, torch.bfloat16, sk=sk, b=b)
     args, kargs = AB.bwd_operands(q, k, v, o, lse2, do, is_causal=False, sm_scale=1.0 / math.sqrt(d),
                                   quantized=quantized)
     design = AB.kernel_design(quantized)
@@ -1243,8 +1279,9 @@ def bwd_timed(gen, h, s, d, quantized, max_abs_err, tag):
         library_ms = cuda_time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
             do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset), warmup=2, reps=10)
         del fwd, out, lse
-    pair_tf = tflops(attention_bwd_flops(1, h, d, s, s, False), (ms1 + ms2) / 1e3)
-    log(f"[{tag}] {CARD}: {mode} b1 h{h} s{s} d{d} ({design}): G1 {ms1:.3f} ms (bound {lim1['bound_ms']:.3f}), G2 "
+    pair_tf = tflops(attention_bwd_flops(b, h, d, s, sk, False), (ms1 + ms2) / 1e3)
+    shape = f"b{b} h{h} s{s} d{d}" if sk == s else f"b{b} h{h} sq{s} sk{sk} d{d}"
+    log(f"[{tag}] {CARD}: {mode} {shape} ({design}): G1 {ms1:.3f} ms (bound {lim1['bound_ms']:.3f}), G2 "
         f"{ms2:.3f} ms (bound {lim2['bound_ms']:.3f}), G1 + G2 {pair_tf:.1f} TFLOP/s at the 2.5x-forward "
         f"convention, plain (both) {plain_ms:.3f} ms, aten flash backward (dq, dk, dv) {library_ms}")
     common = {"max_abs_err": max_abs_err, "plain_ms": plain_ms, "library_ms": library_ms, "design": design}
@@ -1569,6 +1606,11 @@ def check_counts(where, got, depth, decode_steps, f1=0, f2=0, f_design="tensor_c
                              f"or {c1_designs}")
 
 
+#: The checkpoint's cache modes by their LLMConfig fields (phases 12 and 23).
+CKPT_MODES = (("int8", dict(kv_bits=8)), ("bf16", dict(kv_bits=16)), ("int4", dict(kv_bits=4)),
+              ("k4v8", dict(kv_bits=8, k_bits=4)))
+
+
 def checkpoint_phase():
     from lowbit_quant_fa2_paddle_tpu_torch.models import llm, train
     from lowbit_quant_fa2_paddle_tpu_torch.utils.checkpoint import load_params_npz
@@ -1577,8 +1619,7 @@ def checkpoint_phase():
     prompts, answers = train.make_eval_prompts(64, few_shot=3)
     prompt = torch.from_numpy(prompts).cuda()
     out, launches = {}, {}
-    for mode, sides in (("int8", dict(kv_bits=8)), ("bf16", dict(kv_bits=16)), ("int4", dict(kv_bits=4)),
-                        ("k4v8", dict(kv_bits=8, k_bits=4))):
+    for mode, sides in CKPT_MODES:
         cfg = train.arith_llm_config(**sides)
         model = llm.params_from_jax(tree, cfg)
         count_reset()
@@ -2044,12 +2085,17 @@ def graph_decode(model, token, caches, n, cfg, spread=8):
     return torch.cat(parts, dim=1), caches, wall_ms, replay_ms, t1 - t0
 
 
+#: Phase 13's model depth: 16 of its geometry's 32, for the run's time limit
+#: (the widths whole). Phases 15, 16 and 19 run the same model.
+LLM13_DEPTH = 16
+
+
 def full_width_phase():
     from lowbit_quant_fa2_paddle_tpu_torch.models import llm
     from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 
     b, prompt_len, n_new = 4, 32704, 64
-    cfg = llm.LLMConfig(vocab=256, dim=4096, depth=32, num_heads=32, num_kv_heads=8, max_seq=32768,
+    cfg = llm.LLMConfig(vocab=256, dim=4096, depth=LLM13_DEPTH, num_heads=32, num_kv_heads=8, max_seq=32768,
                         dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -4989,18 +5035,19 @@ def mpt_serving_phase(model):
                                   max_seq=MPT_CACHE_ROWS)
 
 
-def parallel_phase():
-    """Phase 22 (see the module note): the card suite of
-    utils/parallel_cases.py in four rank processes; returns each case's
-    launches summed over the ranks that ran it, rank 0's bytes on the wire
-    and the ranks' seconds."""
+def rank_suites_phase():
+    """Phases 22 and 23 (a)/(b) (see the module note): utils/parallel_cases.py's
+    card suites "card" and "train", in turn in the same four rank processes
+    on the card (the kernels built by this process first; the ranks start
+    once for both); their ``[parallel]`` lines logged, each suite's reports
+    returned by rank."""
     import tempfile
 
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import kernel_design as d_design
     from lowbit_quant_fa2_paddle_tpu_torch.utils import parallel_cases as pc
 
+    suites = ("card", "train")
     with tempfile.TemporaryDirectory() as tmp:
-        procs = pc.spawn("card", pc.CARD_WORLD, tmp)
+        procs = pc.spawn(",".join(suites), pc.CARD_WORLD, tmp)
         try:
             pc.wait(procs, tmp, timeout_s=600)
         finally:
@@ -5009,29 +5056,50 @@ def parallel_phase():
                     for line in f:
                         if line.startswith("[parallel]"):
                             log(line.rstrip())
-        reports = []
-        for r in range(pc.CARD_WORLD):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                reports.append(json.load(f))
+        reports = {}
+        for suite in suites:
+            reports[suite] = []
+            for r in range(pc.CARD_WORLD):
+                with open(os.path.join(tmp, f"rank{r}.{suite}.json")) as f:
+                    reports[suite].append(json.load(f))
+    return reports
+
+
+def rank_case_summary(reports, name, want, tag="parallel"):
+    """One case of the rank suites: every rank that ran it launched exactly
+    the kernels of ``want`` (a set, or a dict of launches each rank must
+    count), each on its design, and no other; its launches summed over the
+    ranks, rank 0's bytes a call by wire site and each rank's host seconds
+    logged."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import kernel_design as d_design
+
+    ranks = [rep["cases"][name] for rep in reports if name in rep["cases"]]
+    designs = {"A": "wgmma", "C1": "vector", "C2": "vector", "D": d_design(), "G1": "wgmma", "G2": "wgmma"}
+    for r, c in enumerate(ranks):
+        for kern, got in c["launches"].items():
+            on_design = got["by_design"].get(designs[kern], 0) == got["launches"]
+            count_ok = want.get(kern, 0) == got["launches"] if isinstance(want, dict) else (
+                (got["launches"] > 0) == (kern in want))
+            if not count_ok or not on_design:
+                raise AssertionError(f"{tag} {name}: rank {r} launched {kern} {got} (want {want} on {designs})")
+    launches = {kern: sum(c["launches"][kern]["launches"] for c in ranks) for kern in designs}
+    wire = ranks[0]["wire"]
+    per_call = {site: {dt: n // w["calls"] for dt, n in w["bytes"].items()} for site, w in wire.items()}
+    log(f"[{tag}] {name}: {len(ranks)} ranks, launches {launches} (each on {designs}), host s by rank "
+        f"{[round(c['host_s'], 2) for c in ranks]} (ranks share one card: no scaling figure); rank 0's bytes a "
+        f"call by site {per_call} ({ {site: w['calls'] for site, w in wire.items()} } calls)")
+    return {"launches": launches, "wire": wire, "ranks": len(ranks), "host_s": [c["host_s"] for c in ranks]}
+
+
+def parallel_phase(reports):
+    """Phase 22 (see the module note) from the ranks' reports of the card
+    suite: each case's launches summed over the ranks that ran it, rank 0's
+    bytes on the wire and the ranks' seconds."""
     summary = {}
     for name in reports[0]["cases"]:
-        ranks = [rep["cases"][name] for rep in reports if name in rep["cases"]]
         # Every rank that ran the case launched its kernels, each on its design, and no other.
         want = {"D"} if " decode" in name else {"A", "C1", "C2"} if "k4v8" in name else {"A", "C1"}
-        designs = {"A": "wgmma", "C1": "vector", "C2": "vector", "D": d_design()}
-        for r, c in enumerate(ranks):
-            for kern, got in c["launches"].items():
-                on_design = got["by_design"].get(designs[kern], 0) == got["launches"]
-                if (got["launches"] > 0) != (kern in want) or not on_design:
-                    raise AssertionError(f"parallel {name}: rank {r} launched {kern} {got} (want {sorted(want)} "
-                                         f"on {designs})")
-        launches = {kern: sum(c["launches"][kern]["launches"] for c in ranks) for kern in designs}
-        wire = ranks[0]["wire"]
-        per_call = {site: {dt: n // w["calls"] for dt, n in w["bytes"].items()} for site, w in wire.items()}
-        log(f"[parallel] {name}: {len(ranks)} ranks, launches {launches}, host s by rank "
-            f"{[round(c['host_s'], 2) for c in ranks]} (ranks share one card: no scaling figure); rank 0's bytes a "
-            f"call by site {per_call} ({ {site: w['calls'] for site, w in wire.items()} } calls)")
-        summary[name] = {"launches": launches, "wire": wire, "ranks": len(ranks)}
+        summary[name] = rank_case_summary(reports, name, want)
     log(f"[parallel] ranks' seconds {[round(rep['seconds'], 1) for rep in reports]}, peak GiB "
         f"{[round(rep['peak_gib'], 2) for rep in reports]}")
     return summary
@@ -5100,6 +5168,155 @@ def parallel_rows_phase(gen):
     rows["context shard"] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None,
                              "design": DD.kernel_design()}
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the training paths (the sharded DiT step, FSDP, the toy LLM)
+# ---------------------------------------------------------------------------
+
+#: The sharded step's attention on a rank: batch 2, 15 of CogVideoX-2b's 30
+#: heads (model 2), 8,888 query rows (seq 2) against all 17,776 keys, d64.
+SHARD_ATTN = (2, 15, 8888, 17776, 64)
+
+
+def train_parallel_phase(reports):
+    """Phase 23 (a) and (b) (see the module note) from the ranks' reports of
+    the training suite: each case's launches summed over the ranks, rank 0's
+    bytes on the wire and its comparison."""
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import parallel_cases as pc
+
+    n = pc.TRAIN_DEPTH
+    summary = {}
+    for key, name, want in (("a", "a sharded int8_train step", {"A": n, "C1": n, "G1": n, "G2": n}),
+                            ("b", "b fsdp forward", {"A": n, "C1": n})):
+        summary[key] = rank_case_summary(reports, name, want, tag="train")
+        summary[key]["check"] = {k: v for k, v in reports[0]["cases"][name].items()
+                                 if k not in ("launches", "wire", "host_s")}
+        log(f"[train] {name}: rank 0's comparison {summary[key]['check']}")
+    summary["seconds"] = [rep["seconds"] for rep in reports]
+    summary["peak_gib"] = [rep["peak_gib"] for rep in reports]
+    log(f"[train] ranks' seconds {[round(x, 1) for x in summary['seconds']]}, peak GiB "
+        f"{[round(x, 2) for x in summary['peak_gib']]} (depth {n}; the ranks share one card)")
+    return summary
+
+
+def train_rows_phase(gen):
+    """Phase 23's kernel rows, in this process alone, at a rank's attention
+    shape in the sharded step (SHARD_ATTN, Sq != Sk): kernel A's int8
+    forward as the trainable forward runs it (Q quantized in the kernel, K
+    codes with the whole sequence's mean, bf16 V, the LSE) against its plain
+    version, timed beside SDPA in bf16; G1 and G2 on bf16 operands (the
+    int8_train backward) through flash_bwd against attention_bwd_plain,
+    counted, then timed beside aten's flash backward; C1 on the K that the
+    rank gathers over seq (contiguous, the whole sequence) against its plain
+    version, timed."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd as AB
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import k_mean, kernel_design, quant_int8, quant_int8_plain
+
+    b, h, sq, sk, d = SHARD_ATTN
+    shape = f"b{b} h{h} sq{sq} sk{sk} d{d}"
+    q = torch.randn(b, h, sq, d, generator=gen, device="cuda").bfloat16()
+    k = (torch.randn(b, h, sk, d, generator=gen, device="cuda") + 0.3).bfloat16()
+    v = torch.randn(b, h, sk, d, generator=gen, device="cuda").bfloat16()
+    km = k_mean(k)
+    n_vec = quant_int8.launches_by_design["vector"]
+    kc, ks = quant_int8(k, km, gran="per_token")
+    want_c, want_s = quant_int8_plain(k, km, per_token=True, block=128)
+    torch.cuda.synchronize()
+    c1_err = max(int((kc.int() - want_c.int()).abs().max()), float((ks - want_s).abs().max()))
+    on_vector = quant_int8.launches_by_design["vector"] == n_vec + 1
+    log(f"[C1] gathered K b{b} h{h} s{sk} d{d} per_token ({kernel_design(k, 8, True, 128)}): "
+        f"codes_equal={torch.equal(kc, want_c)} scales_equal={torch.equal(ks, want_s)} vector={on_vector}")
+    if not (torch.equal(kc, want_c) and torch.equal(ks, want_s) and on_vector):
+        raise AssertionError(f"kernel C1 differs from its plain version (or left the vector design) on the "
+                             f"gathered K b{b} h{h} s{sk} d{d}: {c1_err}")
+    del km, want_c, want_s
+    c1_rec = {"max_abs_err": c1_err, **time_quant(
+        "C1", f"b{b} h{h} s{sk} d{d} contiguous (gathered) K", quant_int8, quant_int8_plain,
+        [k, torch.randn(b, h, sk, d, generator=gen, device="cuda").bfloat16()], "per_token", 128, 8)}
+    c = LOG2E / math.sqrt(d)
+
+    def call(lse):
+        return lowbit_attention(q, kc, v, None, ks, out_dtype=torch.bfloat16, return_lse=lse)
+
+    def plain():
+        return attention_fwd_plain(q, kc, v, None, ks, None, causal=False, sm_scale_log2e=c, out_dtype=torch.bfloat16)
+
+    rows = {"A": a_record(f"int8 forward, Q quantized in-kernel, {shape}", call, plain, b * sq * sk, h, d, "int8",
+                          [q, kc, ks, v], b * h * sq * (d * 2 + 4),
+                          library=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                          prefix="P23", library_backend=None), "C1": c1_rec}
+    del q, k, v, kc, ks
+    inputs = bwd_inputs(gen, h, h, sq, d, False, 0, torch.bfloat16, sk=sk, b=b)
+    count_reset()
+    got = AB.flash_bwd(*inputs, is_causal=False, sm_scale=1.0 / math.sqrt(d))
+    torch.cuda.synchronize()
+    launches, designs = counts(), g_design_counts()
+    want_l = {key: 0 for key in launches} | {"G1": 1, "G2": 1}
+    if launches != want_l or designs != {"G1": {"wgmma": 1}, "G2": {"wgmma": 1}}:
+        raise AssertionError(f"flash_bwd at {shape}: launches {launches} != {want_l} or designs {designs}")
+    args, kargs = AB.bwd_operands(*inputs, is_causal=False, sm_scale=1.0 / math.sqrt(d))
+    want = AB.attention_bwd_plain(*args, **kargs, dq_dtype=torch.bfloat16, dkv_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    worst = check_bwd(f"float {shape}", got, want)
+    del got, want, args
+    rows.update(bwd_timed(gen, h, sq, d, False, worst, "P23", b=b, sk=sk, inputs=inputs))
+    return rows
+
+
+#: Phase 23 (c): the toy LLM's recipe (JAX's bench/llm_train_arith.py) and
+#: its held-out prompts.
+TOY_STEPS, TOY_BATCH, TOY_SEQ, TOY_LR, TOY_PROMPTS = 3000, 64, 64, 1e-3, 128
+
+
+def toy_llm_phase():
+    """Phase 23 (c) (see the module note)."""
+    import tempfile
+
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm, train
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.checkpoint import load_params, load_params_npz, save_params
+
+    cfg = train.arith_llm_config()
+    count_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, losses = train.train_toy_llm(cfg, steps=TOY_STEPS, batch=TOY_BATCH, seq_len=TOY_SEQ, lr=TOY_LR, seed=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = counts()
+    log(f"[toy] train_toy_llm {TOY_STEPS} steps b{TOY_BATCH} x {TOY_SEQ} tokens lr {TOY_LR}: {train_s:.1f} s "
+        f"({train_s / TOY_STEPS * 1e3:.2f} ms a step on the host clock); chunk losses first {losses[0]:.6f}, "
+        f"last {losses[-1]:.6f} ({len(losses)} chunks); launches {train_launches} (the exact attention trains: none)")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < 0.8 * losses[0]):
+        raise AssertionError(f"toy LLM: the loss did not fall below 0.8x its first chunk's: {losses}")
+    if any(train_launches.values()):
+        raise AssertionError(f"toy LLM training launched a kernel: {train_launches}")
+    prompts, answers = train.make_eval_prompts(TOY_PROMPTS, few_shot=3)
+    ckpt = load_params_npz(os.path.join(REPO, "eval_out", "arith_llm.npz"))
+    n_calls = -(-TOY_PROMPTS // 32)
+    res = {"losses": losses, "train_s": train_s, "acc": {}, "ckpt_acc": {}, "launches": {}}
+    for mode, sides in CKPT_MODES:
+        cfg_m = train.arith_llm_config(**sides)
+        count_reset()
+        acc, preds = train.eval_accuracy(params, cfg_m, prompts, answers, batch=32)
+        res["launches"][mode] = counts()
+        check_counts(f"toy {mode}", res["launches"][mode], n_calls * cfg.depth, train.ANS_LEN - 1)
+        acc_ckpt, _ = train.eval_accuracy(llm.params_from_jax(ckpt, cfg_m), cfg_m, prompts, answers, batch=32)
+        res["acc"][mode], res["ckpt_acc"][mode] = acc, acc_ckpt
+        log(f"[toy] {mode} cache: exact-match {acc:.4f} on {TOY_PROMPTS} held-out prompts (the committed "
+            f"checkpoint {acc_ckpt:.4f}); first answers {preds[:6]} for {answers[:6]}")
+        if not all(len(p) == 3 and p.isdigit() for p in preds):
+            raise AssertionError(f"toy LLM {mode}: answers that are not three digits: {preds}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "toy_llm.npz")
+        save_params(path, params)
+        back = load_params(path, params)
+        same = all(torch.equal(a, b_) for a, b_ in zip(params.parameters(), back.parameters()))
+    log(f"[toy] save_params / load_params round trip: parameters equal={same}")
+    if not same:
+        raise AssertionError("toy LLM: the saved and loaded parameters differ")
+    return res
 
 
 def cuda_event_ms(fn):
@@ -5207,10 +5424,17 @@ def main():
     spec21 = timed(mpt_spec_phase, model_21, prompt_21)
     serve21 = timed(mpt_serving_phase, model_21)
     del model_21, prompt_21
-    # Phase 22 (the parallel layer in four ranks on the card, then its kernel
-    # rows timed in this process alone).
-    par = timed(parallel_phase)
+    # Phases 22 and 23 (a)/(b): the parallel layer, then the sharded DiT
+    # training step and the FSDP forward, in the same four ranks on the card.
+    ranks = timed(rank_suites_phase)
+    # Phase 22's cases, then its kernel rows timed in this process alone.
+    par = timed(parallel_phase, ranks["card"])
     par_rows = timed(parallel_rows_phase, gen)
+    # Phase 23: (a)/(b)'s cases, their kernel rows in this process, then the
+    # toy LLM trained and graded.
+    tr = timed(train_parallel_phase, ranks["train"])
+    tr_rows = timed(train_rows_phase, gen)
+    toy = timed(toy_llm_phase)
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
     replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
@@ -5224,7 +5448,9 @@ def main():
         # C1/C2 on the DiT's K as it hands it over (a strided view of qkv), then
         # on a contiguous K of the same shape (no model path), the LLM
         # prefill's K and per block 64 (no model path).
-        dict(name="quant_int8", **quant_src, replaces=replaces_c + "215", launches=dl["int8"]["C1"], **c1["view"]),
+        # Phase 23 (b)'s FSDP forward runs C1 and A at these shapes too (b1 a rank).
+        dict(name="quant_int8", **quant_src, replaces=replaces_c + "215",
+             launches=dl["int8"]["C1"] + tr["b"]["launches"]["C1"], **c1["view"]),
         dict(name="quant_int8 (contiguous DiT-shape K)", **quant_src, replaces=replaces_c + "215", launches=0,
              **c1["contiguous"]),
         dict(name="quant_int8 (LLM prefill K b4 h8 s32704 d128)", **quant_src, replaces=replaces_c + "215",
@@ -5242,8 +5468,8 @@ def main():
         dict(name="quant_int2 (DiT K view)", **quant_src, replaces=replaces_c + "406", launches=0, **lowq[(2, "view")]),
         dict(name="quant_int2 (per block 64, DiT-shape K)", **quant_src, replaces=replaces_c + "406", launches=0,
              **lowq[(2, "block64")]),
-        dict(name="attention_fwd (int8, Q quantized in-kernel)", launches=dl["int8"]["A"], **wgmma_src,
-             **{k: attn["fused dit"][k] for k in a_keys}),
+        dict(name="attention_fwd (int8, Q quantized in-kernel)", launches=dl["int8"]["A"] + tr["b"]["launches"]["A"],
+             **wgmma_src, **{k: attn["fused dit"][k] for k in a_keys}),
         dict(name="attention_fwd (fp)", launches=dl["fp"]["A"], **wgmma_src, **{k: attn["fp dit"][k] for k in a_keys}),
         dict(name=f"attention_fwd (int8, Q quantized in-kernel; {prefill})", launches=llm_r["int8"]["launches"]["A"],
              **wgmma_src, **{k: attn["fused prefill"][k] for k in a_keys}),
@@ -5263,7 +5489,8 @@ def main():
              replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727", launches=launches, **dec[mode])
         for mode, launches in (
             ("int8", llm_r["int8"]["launches"]["D"]), ("bf16", llm_r["bf16"]["launches"]["D"]),
-            ("int4", ckpt["launches"]["int4"]["D"]),
+            # The int4 decodes of the checkpoint (phase 12) and of the toy LLM's grading (phase 23 (c)).
+            ("int4", ckpt["launches"]["int4"]["D"] + toy["launches"]["int4"]["D"]),
             # k4v8 at this shape is on no model path (the 128K decode's row follows); the
             # integer QK chain at 4-bit K on none ("auto" takes the float chain).
             ("k4v8", 0), ("int4 int_qk", 0), ("k4v8 int_qk", 0))
@@ -5521,6 +5748,25 @@ def main():
              launches=par["d context decode"]["launches"]["D"],
              **{k: par_rows["context shard"][k] for k in timing + ("design",)}),
     ]
+    # Phase 23: A and G1/G2 at a rank's attention shape in the sharded step,
+    # and C1 on the K a rank gathers over seq, launched by every rank of (a)
+    # once a block.
+    shard = "sharded DiT step's rank shape b{} h{} sq{} sk{} d{}".format(*SHARD_ATTN)
+    gb, gh, _, gsk, gd = SHARD_ATTN
+    kernels += [
+        dict(name=f"quant_int8 (sharded DiT step's gathered K b{gb} h{gh} s{gsk} d{gd}, contiguous)", **quant_src,
+             replaces=replaces_c + "215", launches=tr["a"]["launches"]["C1"],
+             **{k: tr_rows["C1"][k] for k in timing + ("design",)}),
+        dict(name=f"attention_fwd (int8, Q quantized in-kernel; {shard})", launches=tr["a"]["launches"]["A"],
+             **wgmma_src, **{k: tr_rows["A"][k] for k in a_keys}),
+    ] + [
+        dict(name=f"{fn} ({kern}, bf16 operands; {shard})", route="cuda", source=f"{src}/attention_bwd_wgmma.cu",
+             replaces="lowbit_quant_fa2_paddle_tpu/ops/attention_bwd.py:" + ("302" if kern == "G1" else "346"),
+             launches=tr["a"]["launches"][kern], **{k: tr_rows[kern][k] for k in timing + ("design",)})
+        for fn, kern in (("attention_bwd_dq", "G1"), ("attention_bwd_dkv", "G2"))
+    ]
+    log(f"[toy] phase 23 toy LLM: loss {toy['losses'][0]:.4f} -> {toy['losses'][-1]:.4f} in {toy['train_s']:.1f} s; "
+        f"exact-match by cache {toy['acc']} (checkpoint {toy['ckpt_acc']})")
     log(f"[mpt] phase 21 D edge grid worst max|do| by head dim {edge21}; E worst by head dim {e21['worst_by_dim']}; "
         f"generate ms/token by cache " + ", ".join(f"{m} {mpt[m]['decode_ms_per_token']:.3f}" for m in mpt_modes)
         + f"; speculative (int4 self-draft) {spec21['self, int4 cache']['decode_ms_per_token']:.3f} ms per token "

@@ -251,6 +251,21 @@ def params_to_jax(model: DiT) -> dict:
     }
 
 
+def jax_param_paths(cfg: DiTConfig):
+    """``(JAX path, port parameter name, transposed)`` for every leaf of the
+    TPU package's parameter tree (paths as ``"blocks/0/qkv/w"``): each dense
+    ``w`` [d_in, d_out] is the port's ``weight`` [d_out, d_in] transposed,
+    each ``b`` its ``bias``. The layouts of ``parallel/`` read their specs on
+    JAX's side through it."""
+    dense = [("t_embed/in", "t_in"), ("t_embed/out", "t_out")]
+    dense += [(f"blocks/{i}/{n}", f"blocks.{i}.{n}") for i in range(cfg.depth)
+              for n in ("qkv", "proj", "mlp_in", "mlp_out", "ada")]
+    dense.append(("final", "final"))
+    for jax_path, name in dense:
+        yield jax_path + "/w", name + ".weight", True
+        yield jax_path + "/b", name + ".bias", False
+
+
 _WQ_DIT_KEYS = ("qkv", "proj", "mlp_in", "mlp_out")
 
 

@@ -6,8 +6,10 @@ Counterpart of ``lowbit_quant_fa2_paddle_tpu/models/llm.py`` as an
 ``nn.Module``. Blocks hold bias-free ``wq``/``wk``/``wv``/``wo``/``w1``/``w2``
 (``nn.Linear``, or ``ops.gemv.WQWeight`` after :func:`quantize_llm_params`)
 and RMS norms ``ln1``/``ln2``; the model holds ``embed`` (tied with the
-output projection) and ``ln_f``. Everything runs without autograd. Models
-are built on the CUDA card unless the caller passes another ``device``.
+output projection) and ``ln_f``. Inference runs without autograd; the one
+differentiable entry is :func:`llm_logits`, which ``models/train.py`` trains
+through. Models are built on the CUDA card unless the caller passes another
+``device``.
 
 Cache precision per side is ``kv_bits``/``k_bits``/``v_bits`` in {16, 8, 4}
 (bf16 rows, int8 codes or nibble-packed 4-bit codes; ``k_bits=4, v_bits=8``
@@ -292,6 +294,35 @@ def _mlp(blk: LLMBlock, x: torch.Tensor) -> torch.Tensor:
     return x + _mm(F.silu(_mm(blk.ln2(x), blk.w1)), blk.w2)
 
 
+def _forward(params: LLM, tokens: torch.Tensor, cfg: LLMConfig, attn_impl: str, on_kv=None) -> torch.Tensor:
+    """All-position logits ``[B, S, vocab]``; ``on_kv(k, v)`` sees each
+    layer's roped K and V after the layer has run. Records autograd wherever
+    the caller does."""
+    b, s = tokens.shape
+    x = params.embed(tokens)
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    for blk in params.blocks:
+        q, k, v = _qkv(blk, x, cfg)
+        q = _rope(q, pos, cfg.rope_theta)
+        k = _rope(k, pos, cfg.rope_theta)
+        o = _attn_prefill(q, k, v, attn_impl, cfg.window_size, cfg.sink_size)
+        x = x + _mm(o.transpose(1, 2).reshape(b, s, -1).to(x.dtype), blk.wo)
+        x = _mlp(blk, x)
+        if on_kv is not None:
+            on_kv(k, v)
+        del q, k, v, o
+    return params.logits(x)
+
+
+def llm_logits(params: LLM, tokens: torch.Tensor, cfg: LLMConfig, *, attn_impl: str = "ref") -> torch.Tensor:
+    """The prompt's all-position logits ``[B, S, vocab]`` with no cache, and
+    differentiable: what the JAX package's training differentiates through
+    ``llm_prefill(..., attn_impl="ref")`` (``models/train.py``). ``attn_impl``
+    as :func:`llm_prefill`'s; ``"ref"``, the exact fp32 attention, is the
+    one that trains (the int8 path has no gradient)."""
+    return _forward(params, tokens, cfg, attn_impl)
+
+
 @torch.no_grad()
 def llm_prefill(
     params: LLM,
@@ -303,23 +334,16 @@ def llm_prefill(
     """Run the prompt through the model; returns ``(logits [B, S, vocab],
     per-layer quantized KV caches)`` with every cache at ``max_seq`` rows and
     ``length = S``. ``attn_impl``: ``"int8"`` (kernels C1 and A; ``"int8_t"``
-    is the same) or ``"ref"`` (the exact fp32 oracle)."""
+    is the same) or ``"ref"`` (the exact fp32 oracle). Inference: records no
+    autograd graph, whether or not the parameters ask for gradients
+    (:func:`llm_logits` is the differentiable forward)."""
     b, s = tokens.shape
     hk, hd = cfg.num_kv_heads, cfg.head_dim
-    x = params.embed(tokens)
-    pos = torch.arange(s, device=tokens.device).expand(b, s)
     caches = []
-    for blk in params.blocks:
-        q, k, v = _qkv(blk, x, cfg)
-        q = _rope(q, pos, cfg.rope_theta)
-        k = _rope(k, pos, cfg.rope_theta)
-        o = _attn_prefill(q, k, v, attn_impl, cfg.window_size, cfg.sink_size)
-        x = x + _mm(o.transpose(1, 2).reshape(b, s, -1).to(x.dtype), blk.wo)
-        x = _mlp(blk, x)
 
-        # The layer's cache from the prefill K/V, quantized per token.
+    def keep(k, v):  # the layer's cache from the prefill K/V, quantized per token
         cache = dec.init_kv_cache(b, hk, cfg.max_seq, hd, k_bits=cfg.eff_k_bits, v_bits=cfg.eff_v_bits,
-                                  device=x.device)
+                                  device=k.device)
         kq, ks = dec.quantize_token(k, bits=cfg.eff_k_bits)
         vq, vs = dec.quantize_token(v, bits=cfg.eff_v_bits)
         cache["k"][:, :, :s] = kq
@@ -328,8 +352,8 @@ def llm_prefill(
         cache["v_scale"][:, :, :s] = vs
         cache["length"].fill_(s)
         caches.append(cache)
-        del q, k, v, o, kq, vq
-    return params.logits(x), caches
+
+    return _forward(params, tokens, cfg, attn_impl, keep), caches
 
 
 def merge_lse(o1: torch.Tensor, l1: torch.Tensor, o2: torch.Tensor, l2: torch.Tensor) -> torch.Tensor:

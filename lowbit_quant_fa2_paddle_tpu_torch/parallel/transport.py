@@ -14,6 +14,11 @@ tensors travel follows the group's backend, which the caller picks:
 The route is decided from the backend once per group and logged once; it is
 never a reaction to a failure.
 
+:func:`copy_to`, :func:`reduce_from` and :func:`gather_from` are the
+exchanges that carry a gradient (``torch.autograd.Function``\\ s over the
+ones above), for the tensor-, sequence- and FSDP-sharded DiT: each counts
+its backward's exchange under its own site with ``.bwd`` appended.
+
 A group of ``None`` is one rank alone: every exchange is the identity and
 nothing is counted. ``Wire`` counts what this process sends, per call site
 (``site``): calls, and bytes per dtype. The CPU tests read it to hold the
@@ -138,6 +143,80 @@ def all_gather(x: torch.Tensor, group, *, dim: int, site: str) -> torch.Tensor:
     parts = [torch.empty_like(buf) for _ in range(n)]
     dist.all_gather(parts, buf, group=group)
     return torch.cat(parts, dim=dim).to(x.device)
+
+
+def reduce_scatter(x: torch.Tensor, group, *, dim: int, site: str) -> torch.Tensor:
+    """The sum of the ranks' ``x`` over ``group``, cut into ``size(group)``
+    chunks along ``dim``; rank ``i`` gets chunk ``i`` (the inverse layout of
+    :func:`all_gather`). Runs as an all-to-all of the chunks and a local sum
+    in f32, rounded once to ``x``'s dtype: gloo has no reduce-scatter."""
+    n = size(group)
+    if n == 1:
+        return x
+    dim %= x.dim()
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not split into {n} ranks")
+    got = all_to_all(x, group, split_dim=dim, concat_dim=dim, site=site)  # [.., n·chunk, ..], source-major
+    return got.unflatten(dim, (n, x.shape[dim] // n)).float().sum(dim=dim).to(x.dtype)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced (summed) over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group, site):
+        ctx.group, ctx.site = group, site
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, site=ctx.site + ".bwd"), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce (sum, in f32) forward; the gradient passed on as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group, site):
+        return all_reduce(x.float(), group, site=site)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """All-gather forward along ``dim``; the gradient reduce-scattered back
+    to this rank's chunk."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, site):
+        ctx.group, ctx.dim, ctx.site = group, dim, site
+        return all_gather(x, group, dim=dim, site=site)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, dim=ctx.dim, site=ctx.site + ".bwd"), None, None, None
+
+
+def copy_to(x: torch.Tensor, group, *, site: str) -> torch.Tensor:
+    """Megatron's ``f``: ``x`` as it is, the same on every rank of ``group``;
+    in the backward the ranks' gradients are summed (``site + ".bwd"``). The
+    input of a column-parallel product."""
+    return x if size(group) == 1 else _CopyTo.apply(x, group, site)
+
+
+def reduce_from(x: torch.Tensor, group, *, site: str) -> torch.Tensor:
+    """Megatron's ``g``: the sum of the ranks' partial ``x`` over ``group``,
+    taken in f32; the gradient goes back to each rank as it is. The output
+    of a row-parallel product."""
+    return x.float() if size(group) == 1 else _ReduceFrom.apply(x, group, site)
+
+
+def gather_from(x: torch.Tensor, group, *, dim: int, site: str) -> torch.Tensor:
+    """:func:`all_gather` with a gradient: the backward reduce-scatters the
+    whole tensor's gradient back to this rank's chunk (``site + ".bwd"``)."""
+    return x if size(group) == 1 else _GatherFrom.apply(x, group, dim, site)
 
 
 def ring_shift(tensors: Sequence[Optional[torch.Tensor]], group, *, site: str) -> List[Optional[torch.Tensor]]:

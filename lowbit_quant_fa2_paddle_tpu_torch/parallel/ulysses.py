@@ -46,7 +46,8 @@ def ulysses_attention(
     over ``group``. ``attn_fn(q, k, v)`` runs on the head shards (default:
     ``lowbit_fa_qk_int8_pv_fp16`` with ``is_causal`` and ``attn_kw``);
     ``wire_bits=8`` sends codes instead and runs kernel A on them, and takes
-    no ``attn_fn``."""
+    no ``attn_fn``. ``smooth_k`` is read by the int8 wire alone: the default
+    ``attn_fn`` always smooths K, as JAX's does."""
     del kernel_space
     n = transport.size(group)
     for name, x in (("query", q), ("key/value", k)):
@@ -84,7 +85,9 @@ def ulysses_attention(
         return bwd(o)
 
     if attn_fn is None:
-        attn_fn = functools.partial(lowbit_fa_qk_int8_pv_fp16, is_causal=is_causal, smooth_k=smooth_k, **attn_kw)
+        # As JAX builds it: without smooth_k, so K is smoothed here whatever
+        # smooth_k says (only the int8 wire above reads it).
+        attn_fn = functools.partial(lowbit_fa_qk_int8_pv_fp16, is_causal=is_causal, **attn_kw)
     return bwd(attn_fn(fwd(q, "ulysses.q"), fwd(k, "ulysses.k"), fwd(v, "ulysses.v")))
 
 

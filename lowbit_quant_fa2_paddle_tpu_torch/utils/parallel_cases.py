@@ -2,7 +2,7 @@
 
 Each case names a mesh, a strategy and its inputs. A rank takes its shard of
 the inputs, runs the strategy over gloo, and the shards of the result are
-gathered; rank 0 keeps them. Two suites:
+gathered; rank 0 keeps them. The suites:
 
 * ``cpu``: the CPU tests (``tests/test_torch_parallel.py``) at small sizes,
   inputs from numpy with a seed, so the test can put the same inputs through
@@ -17,6 +17,11 @@ gathered; rank 0 keeps them. Two suites:
   Every result is held to the single-process port on the card, each rank
   counts its kernel launches, and the whole runs with every launch counter
   zeroed first; rank 0 writes the report.
+* ``dryrun`` (CPU, ``tests/test_torch_dryrun.py``) and ``train`` (the card,
+  ``chip_smoke.py``'s phase 23): the DiT's training layouts.
+
+Card suites joined by commas (``--suite card,train``) run in turn in the
+same ranks, which then start once; each writes ``rank<r>.<suite>.json``.
 
 Run one rank: ``python -m lowbit_quant_fa2_paddle_tpu_torch.utils.parallel_cases
 --suite cpu --world 8 --rank 0 --init file:///tmp/rdv --out DIR``; :func:`spawn`
@@ -27,6 +32,7 @@ fails. This module imports no JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import math
@@ -45,13 +51,15 @@ from lowbit_quant_fa2_paddle_tpu_torch.core import lowbit_fa_qk_int8_pv_fp16
 from lowbit_quant_fa2_paddle_tpu_torch.models import dit
 from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
 from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention_bwd import attention_bwd_dkv, attention_bwd_dq
 from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
 from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int4, quant_int8
-from lowbit_quant_fa2_paddle_tpu_torch.parallel import mesh as M, sharded, transport
+from lowbit_quant_fa2_paddle_tpu_torch.parallel import dryrun, mesh as M, sharded, transport
 from lowbit_quant_fa2_paddle_tpu_torch.parallel.pipeline import make_pipelined_dit
+from lowbit_quant_fa2_paddle_tpu_torch.parallel.ulysses import ulysses_attention
 
 SEQ = (None, None, "seq", None)
-ATTN_SPECS = {"ring": SEQ, "ulysses": SEQ, "head_parallel": ("data", "model", None, None),
+ATTN_SPECS = {"ring": SEQ, "ulysses": SEQ, "ulysses_fn": SEQ, "head_parallel": ("data", "model", None, None),
               "facade": ("data", "model", "seq", None)}
 
 # name: (kind, mesh degrees, inputs, strategy keywords). Inputs: ("qkv", seed,
@@ -76,6 +84,13 @@ CPU_CASES = {
     "ulysses-wire8-causal": ("ulysses", {"seq": 4}, ("qkv", 6, 2, 8, 8, 256, 64, 0.5, "float32"),
                              {"wire_bits": 8, "is_causal": True}),
     "ulysses-gqa": ("ulysses", {"seq": 2}, ("qkv", 1, 1, 8, 4, 256, 64, 0.0, "float32"), {}),
+    # smooth_k=False on the float route, through the facade and through
+    # ulysses_attention itself: K is smoothed all the same, as in JAX. A K
+    # mean of 8 makes unsmoothed codes differ beyond the bounds.
+    "ulysses-smooth_k-false-facade": ("facade", {"seq": 4}, ("qkv", 8, 2, 8, 8, 256, 64, 8.0, "float32"),
+                                      {"seq_strategy": "ulysses", "smooth_k": False}),
+    "ulysses-smooth_k-false": ("ulysses_fn", {"seq": 4}, ("qkv", 8, 2, 8, 8, 256, 64, 8.0, "float32"),
+                               {"smooth_k": False}),
     "head-parallel": ("head_parallel", {"data": 2, "model": 4}, ("qkv", 4, 2, 8, 8, 256, 64, 0.0, "float32"), {}),
     "facade-ulysses": ("facade", {"data": 2, "seq": 2, "model": 2}, ("qkv", 5, 2, 8, 8, 256, 64, 0.0, "float32"),
                        {"seq_strategy": "ulysses"}),
@@ -149,6 +164,8 @@ def _attention_fn(kind, mesh, kw):
         return P.make_ring_attention(mesh, **kw)
     if kind == "ulysses":
         return P.make_ulysses_attention(mesh, **kw)
+    if kind == "ulysses_fn":
+        return functools.partial(ulysses_attention, group=mesh.group("seq"), **kw)
     if kind == "head_parallel":
         return sharded.make_head_parallel_attention(mesh, **kw)
     return sharded.make_parallel_attention(mesh, **kw)
@@ -211,7 +228,7 @@ def run_cpu_case(name: str, mesh) -> dict:
     return r
 
 
-def cpu_suite(rank: int) -> dict:
+def cpu_suite(rank: int, out_dir: str) -> dict:
     results = {}
     for name, (_, degrees, _, _) in CPU_CASES.items():
         mesh = M.make_mesh(degrees)
@@ -227,7 +244,7 @@ def cpu_suite(rank: int) -> dict:
     return results
 
 
-def init_suite(rank: int) -> dict:
+def init_suite(rank: int, out_dir: str) -> dict:
     """The two-process bring-up: an all-reduce of ``rank + 1``, then causal
     ring attention over both processes."""
     mesh = M.make_mesh({"seq": -1})
@@ -266,7 +283,8 @@ FRAME_COS, EPS_COS, PIPELINE_COS = 0.999, 0.99, 0.999
 
 
 def _wrappers():
-    return {"A": lowbit_attention, "C1": quant_int8, "C2": quant_int4, "D": DD.decode_attention}
+    return {"A": lowbit_attention, "C1": quant_int8, "C2": quant_int4, "D": DD.decode_attention,
+            "G1": attention_bwd_dq, "G2": attention_bwd_dkv}
 
 
 def launch_reset() -> None:
@@ -431,7 +449,7 @@ def card_dit_cases(run: CardRun) -> None:
         run.check(name, ok, **stats)
 
 
-def card_suite(rank: int) -> dict:
+def card_suite(rank: int, out_dir: str) -> dict:
     run = CardRun(rank)
     t0 = time.perf_counter()
     card_attention_cases(run)
@@ -442,7 +460,204 @@ def card_suite(rank: int) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-SUITES = {"cpu": cpu_suite, "init": init_suite, "card": card_suite}
+# ---------------------------------------------------------------------------
+# The training layouts: the CPU dry-run suite and the card's training suite
+# ---------------------------------------------------------------------------
+
+DRYRUN_WORLD = 8
+#: The learning rate of the sharded step's comparisons, the one of
+#: tests/test_torch_dit_train.py's bounds.
+STEP_LR = 1e-2
+ROWS = ("data", "seq", None)
+#: The data degrees of the FSDP training step's cases: at 4 every leaf of
+#: tiny_config is sharded; at 3 the time embedding, the 128-wide biases and
+#: mlp_in's bias stay whole on every rank.
+FSDP_STEP_DATA = (4, 3)
+
+
+def _check_step(loss, loss_ref, got: dit.DiT, want: dit.DiT, before: dict, lr: float) -> dict:
+    """tests/test_torch_dit_train.py's bounds on a training step: the loss
+    within 2e-3 relative; every updated tensor that starts nonzero within one
+    bf16 ulp of its max|p|; every zero-initialised bias, whose new value is
+    the whole update, at a cosine of the updates >= 0.8. Returns the worst
+    of each and whether all hold."""
+    want_p = dict(want.named_parameters())
+    rel = abs(float(loss) / float(loss_ref) - 1.0)
+    worst_ulps, worst_cos, ok = 0.0, 1.0, rel <= 2e-3
+    for name, p in got.named_parameters():
+        a, b = p.detach().double(), want_p[name].detach().double()
+        if float(before[name].abs().max()) > 0:
+            ulp = _bf16_ulp(float(b.abs().max()))
+            worst_ulps = max(worst_ulps, float((a - b).abs().max()) / ulp)
+        else:
+            c = float(torch.nn.functional.cosine_similarity((a / lr).reshape(-1), (b / lr).reshape(-1), dim=0))
+            worst_cos = min(worst_cos, c)
+    ok = ok and worst_ulps <= 1.0 and worst_cos >= 0.8
+    return {"loss": float(loss), "loss_ref": float(loss_ref), "loss_rel": rel, "worst_ulps": worst_ulps,
+            "worst_zero_bias_cos": worst_cos, "ok": ok}
+
+
+def _fsdp_step(fs: sharded.FSDPDiT, mesh, x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """One int8_train SGD step through the FSDP layout, a test of its
+    backward: this rank's share of the loss as the sharded step takes it,
+    the shards' gradients as the gathers' and copies' backwards leave them
+    (summed over ``data``), then JAX's update ``p - bf16(lr·g)``. Returns the
+    global loss."""
+    n_global = x0.numel() * mesh.size("data")
+    loss = dryrun.sharded_diffusion_loss(fs, x0, t, noise, n_global, "int8_train")
+    grads = torch.autograd.grad(loss, list(fs.shards))
+    with torch.no_grad():
+        for p, g in zip(fs.shards, grads):
+            p.sub_(STEP_LR * g.to(p.dtype))
+    return transport.all_reduce(loss.detach(), mesh.group("data"), site="loss")
+
+
+def dryrun_suite(rank: int, out_dir: str) -> dict:
+    """The CPU tests' training layouts (``tests/test_torch_dryrun.py``), on
+    inputs the test writes to ``out_dir/inputs.pt`` from the JAX package:
+    (1) the FSDP forward of tiny_config over data 4, a batch row a rank;
+    (2) one int8_train step through the FSDP layout over each of
+    ``FSDP_STEP_DATA``, a batch row a rank; (3) one sharded int8_train step
+    over data 2 × seq 2 × model 2 at JAX's dry-run shapes; (4)
+    ``run_training_step_dryrun(8)``. Rank 0 keeps the gathered outputs, the
+    updated parameters in JAX's tree and what was sent."""
+    inputs = torch.load(os.path.join(out_dir, "inputs.pt"))
+    results = {}
+    f = inputs["fsdp"]
+    mesh = M.make_mesh({"data": 4})
+    if mesh.member:
+        cfg = dit.tiny_config()
+        fs = sharded.FSDPDiT.from_model(dit.params_from_jax(f["tree"], cfg, device="cpu"), mesh)
+        transport.WIRE.reset()
+        with torch.no_grad():
+            o = fs(M.shard(f["x"].to(cfg.dtype), mesh, ("data", None, None)), M.shard(f["t"], mesh, ("data",)),
+                   attn_impl="exact")
+        results["fsdp"] = {"o": M.gather(o, mesh, ("data", None, None)), "wire": transport.WIRE.summary(),
+                           "shard_shapes": {n: tuple(p.shape) for n, p in zip(fs.names, fs.shards)},
+                           "gathered": dit.params_to_jax(fs.gathered())}
+    fst = inputs["fsdp_step"]
+    for n in FSDP_STEP_DATA:
+        mesh = M.make_mesh({"data": n})
+        if not mesh.member:
+            continue
+        cfg = dit.tiny_config()
+        fs = sharded.FSDPDiT.from_model(dit.params_from_jax(f["tree"], cfg, device="cpu"), mesh)
+        rows = ("data", None, None)
+        transport.WIRE.reset()
+        loss = _fsdp_step(fs, mesh, M.shard(fst["x0"][:n].to(cfg.dtype), mesh, rows),
+                          M.shard(fst["t"][:n], mesh, ("data",)), M.shard(fst["noise"][:n].to(cfg.dtype), mesh, rows))
+        wire = transport.WIRE.summary()
+        whole = [name for name in fs.names if fs.dims[name] is None]
+        # A replicated leaf must come out of the step the same on every rank.
+        differ = [name for name, p in zip(fs.names, fs.shards) if fs.dims[name] is None
+                  and not all(torch.equal(p, q) for q in transport.all_gather(p.detach()[None], mesh.group("data"),
+                                                                               dim=0, site="check"))]
+        results[f"fsdp step data{n}"] = {"loss": float(loss), "tree": dit.params_to_jax(fs.gathered()),
+                                         "wire": wire, "replicated": whole, "replicated_differ": differ}
+    st = inputs["step"]
+    mesh = M.make_mesh(dryrun._factor(DRYRUN_WORLD))
+    if mesh.member:
+        cfg = dit.tiny_config(num_heads=st["num_heads"], dim=st["dim"])
+        tp = dryrun.TPDiT.from_model(dit.params_from_jax(st["tree"], cfg, device="cpu"), mesh)
+        transport.WIRE.reset()
+        loss = dryrun.sharded_sgd_train_step(tp, M.shard(st["x0"].bfloat16(), mesh, ROWS),
+                                             M.shard(st["t"], mesh, ("data",)),
+                                             M.shard(st["noise"].bfloat16(), mesh, ROWS), lr=STEP_LR,
+                                             attn_impl="int8_train")
+        wire = transport.WIRE.summary()
+        new = dit.params_to_jax(tp.gathered())
+        results["step"] = {"loss": float(loss), "tree": new, "wire": wire,
+                           "n_params": sum(p.numel() for p in tp.parameters())}
+    results["dryrun"] = dryrun.run_training_step_dryrun(DRYRUN_WORLD, device="cpu")
+    return results
+
+
+#: Phase 23's mesh for the sharded step (data 1 × seq 2 × model 2: both
+#: exchanging axes lit; _factor(4) would leave model at 1), its batch, the
+#: FSDP forward's batch, and the depth of both at CogVideoX-2b's full width:
+#: 4 of 30, for the smoke's time (depth 8 added ~27 s and left the whole
+#: smoke 110 s short of its limit) and the card's memory (rank 0 runs the
+#: single-process reference step beside its shard: 14.6 GiB at depth 4).
+TRAIN_DEGREES = {"seq": 2, "model": 2}
+TRAIN_BATCH, FSDP_BATCH = 2, 4
+TRAIN_DEPTH = 4
+#: The FSDP forward against the single-process forward of the same rows (a
+#: batch row at a time, as the ranks run them): JAX's test_fsdp bound, |d| <=
+#: 2e-2 + 2e-2·|y| elementwise. The gathered weights are the same bits and
+#: the products the same shapes, so the outputs are expected equal (the
+#: bit-equality is reported); against a b4 forward, whose GEMMs sum in
+#: another order, four blocks of bf16 roundings put single elements past
+#: this bound (max|d| 0.031, cos 0.999985).
+FSDP_ATOL = FSDP_RTOL = 2e-2
+
+
+def train_suite(rank: int, out_dir: str) -> dict:
+    """Phase 23 (a) and (b) on the card: (a) one int8_train step of the
+    CogVideoX-2b DiT (dim 1920, 30 heads × 64, depth ``TRAIN_DEPTH``,
+    17,776 tokens a sample) over data 1 × seq 2 × model 2 at batch 2, held by
+    rank 0 to the single-process ``sgd_train_step`` on the same weights,
+    latents, t and noise at ``_check_step``'s bounds (the updated shards
+    gathered back whole); (b) the FSDP forward over data 4 at batch 4
+    (``attn_impl="int8"``), held by rank 0 to the single-process forward of
+    the same rows.
+    Each run's launches, bytes by wire site and host seconds per rank."""
+    run = CardRun(rank)
+    torch.cuda.reset_peak_memory_stats()  # the card suite may have run first in this process
+    t0 = time.perf_counter()
+    cfg = dit.cogvideox_2b_config(depth=TRAIN_DEPTH)
+    s = DIT_SHAPE[2]
+
+    mesh = M.make_mesh(TRAIN_DEGREES)
+    model = dit.init_dit_params(cfg, torch.Generator(device=CARD).manual_seed(0), device=CARD)
+    x0 = run.randn(TRAIN_BATCH, s, cfg.dim, seed=600)
+    t, noise = dit.draw_t_noise(x0, torch.Generator(device=CARD).manual_seed(601))
+    tp = dryrun.TPDiT.from_model(model, mesh)
+    if rank != 0:
+        del model
+    local = (M.shard(x0, mesh, ROWS), M.shard(t, mesh, ("data",)), M.shard(noise, mesh, ROWS))
+    loss = run.run("a sharded int8_train step", lambda: dryrun.sharded_sgd_train_step(
+        tp, *local, lr=STEP_LR, attn_impl="int8_train"), mesh)
+    got = tp.gathered()
+    del tp, local
+    if rank == 0:
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        loss_ref = dit.sgd_train_step(model, x0, t, noise, lr=STEP_LR, attn_impl="int8_train")
+        r = _check_step(loss, loss_ref, got, model, before, STEP_LR)
+        run.check("a sharded int8_train step", r.pop("ok") and bool(torch.isfinite(loss)), **r)
+        del model, before
+    del got, x0, noise
+    torch.cuda.empty_cache()
+
+    mesh = M.make_mesh({"data": 4})
+    model = dit.init_dit_params(cfg, torch.Generator(device=CARD).manual_seed(0), device=CARD)
+    x = run.randn(FSDP_BATCH, s, cfg.dim, seed=610)
+    t = torch.tensor([50.0, 300.0, 600.0, 950.0], device=CARD)
+    fs = sharded.FSDPDiT.from_model(model, mesh)
+    if rank != 0:
+        del model
+    rows = ("data", None, None)
+    xl, tl = M.shard(x, mesh, rows), M.shard(t, mesh, ("data",))
+
+    def fsdp_forward():
+        with torch.no_grad():
+            return M.gather(fs(xl, tl, attn_impl="int8"), mesh, rows)
+
+    out = run.run("b fsdp forward", fsdp_forward, mesh)
+    if rank == 0:
+        with torch.no_grad():  # each rank's rows as that rank ran them: a batch row at a time
+            want = torch.cat([model(x[i:i + 1], t[i:i + 1], attn_impl="int8") for i in range(FSDP_BATCH)])
+        d = (out.float() - want.float()).abs()
+        stats = {"max_d": float(d.max()), "cos": _cos(out, want), "bit_equal": bool(torch.equal(out, want)),
+                 "finite": bool(torch.isfinite(out.float()).all()),
+                 "worst_of_bound": float((d / (FSDP_ATOL + FSDP_RTOL * want.float().abs())).max())}
+        run.check("b fsdp forward", stats["finite"] and stats["worst_of_bound"] <= 1.0, **stats)
+    torch.cuda.synchronize()
+    return {"rank": rank, "seconds": time.perf_counter() - t0, "cases": run.cases,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+SUITES = {"cpu": cpu_suite, "init": init_suite, "card": card_suite, "dryrun": dryrun_suite, "train": train_suite}
+CARD_SUITES = ("card", "train")
 
 
 # ---------------------------------------------------------------------------
@@ -507,24 +722,30 @@ def wait(procs: List[subprocess.Popen], out_dir: str, timeout_s: float) -> None:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--suite", choices=sorted(SUITES), required=True)
+    p.add_argument("--suite", required=True,
+                   help=f"one of {sorted(SUITES)}, or card suites {CARD_SUITES} joined by commas (run in turn)")
     p.add_argument("--init", required=True, help="init_method, e.g. file:///tmp/rendezvous")
     p.add_argument("--out", required=True, help="directory for the results")
     p.add_argument("--rank", type=int, default=None)
     p.add_argument("--world", type=int, default=None)
     args = p.parse_args(argv)
+    suites = args.suite.split(",")
+    card = all(s in CARD_SUITES for s in suites)
+    if not (card or (len(suites) == 1 and suites[0] in SUITES)):
+        p.error(f"--suite {args.suite!r}: one of {sorted(SUITES)}, or card suites joined by commas")
     torch.set_num_threads(1)
-    if args.suite == "card":
+    if card:
         torch.cuda.set_device(0)  # every rank shares the one card
     M.init_distributed("gloo", init_method=args.init, rank=args.rank, world_size=args.world)
     rank = dist.get_rank()
     logging.basicConfig(level=logging.INFO, format=f"[parallel] rank {rank}: %(message)s")
-    results = SUITES[args.suite](rank)
-    if args.suite == "card":
-        with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
-            json.dump(results, f)
-    elif rank == 0:
-        torch.save(results, os.path.join(args.out, "results.pt"))
+    for suite in suites:
+        results = SUITES[suite](rank, args.out)
+        if card:
+            with open(os.path.join(args.out, f"rank{rank}.{suite}.json"), "w") as f:
+                json.dump(results, f)
+        elif rank == 0:
+            torch.save(results, os.path.join(args.out, "results.pt"))
     dist.barrier()
     dist.destroy_process_group()
 

@@ -88,6 +88,7 @@ def test_port_imports_no_jax():
         "import lowbit_quant_fa2_paddle_tpu_torch.parallel.sharded\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.parallel.serving\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.parallel.pipeline\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.parallel.dryrun\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.utils.parallel_cases\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lowbit_quant_fa2_paddle_tpu')]\n"
         "assert not bad, bad\n"

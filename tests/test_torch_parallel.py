@@ -19,12 +19,14 @@ within 5e-2 + 1e-2·|lse|; and the pipeline within 5e-2 + 5e-2·|y| of the
 port's sequential forward.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import Mesh
+from jax.sharding import Mesh, PartitionSpec as P
 
 from lowbit_quant_fa2_paddle_tpu.models import dit as jdit
 from lowbit_quant_fa2_paddle_tpu.parallel import mesh as jmesh, ring as jring, ulysses as julysses
@@ -93,12 +95,20 @@ def _close(port, want, lse_port=None, lse_want=None, cos_min=COS_MIN, max_do=MAX
         assert float((lse_port - lse_want).abs().max()) <= max_dlse
 
 
+def _jax_ulysses_fn(mesh, **kw):
+    """JAX's ``ulysses_attention`` itself under shard_map (sequence-sharded)."""
+    spec = P(None, None, "seq", None)
+    fn = functools.partial(julysses.ulysses_attention, axis_name="seq", **kw)
+    return jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec, check_vma=False))
+
+
 def _jax_attention(name):
     kind, degrees, spec, kw = pc.CPU_CASES[name]
     q, k, v = (jnp.asarray(x, getattr(jnp, spec[-1])) for x in pc.case_inputs(name))
     mesh = jmesh.make_mesh(degrees)
     make = {"ring": jring.make_ring_attention, "ulysses": julysses.make_ulysses_attention,
-            "head_parallel": jsharded.make_head_parallel_attention, "facade": jsharded.make_parallel_attention}[kind]
+            "ulysses_fn": _jax_ulysses_fn, "head_parallel": jsharded.make_head_parallel_attention,
+            "facade": jsharded.make_parallel_attention}[kind]
     out = make(mesh, **kw)(q, k, v)
     return out if kw.get("return_lse") else (out, None)
 
@@ -116,7 +126,9 @@ ATTENTION_CASES = [n for n, c in pc.CPU_CASES.items() if c[0] in pc.ATTN_SPECS a
 @pytest.mark.parametrize("name", ATTENTION_CASES)
 def test_attention_matches_jax(ranks, name):
     """Ring (non-causal, causal, k_bits=4/v_bits=8, a window, GQA with the
-    LSE, degree 8), Ulysses (both wires, GQA), head-parallel and the 3-D
+    LSE, degree 8), Ulysses (both wires, GQA, and ``smooth_k=False`` on the
+    float route through the facade and through ``ulysses_attention``
+    itself: K smoothed all the same, as JAX's), head-parallel and the 3-D
     facade (data x seq x model, both strategies) against JAX's wrappers, and
     against the dense oracle at JAX's bounds."""
     r = ranks["cpu"][name]
