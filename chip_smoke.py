@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure (exit code 1, no result line):
+First, before any module of the port is imported, the tuning cache
+(LOWBIT_FA_TORCH_TUNING_CACHE) is pointed at a file in a temp dir of this
+run, printed and removed at the end: no user's cache moves a figure, and
+only phase 24 records entries. Phases, each of which raises on failure
+(exit code 1, no result line):
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
 2. build: compiles the port's kernels (csrc/*.cu) with nvcc, prints seconds
@@ -57,7 +61,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    torch.profiler: device ms and kernel counts of A, C1/C2, PyTorch's copy
    and mean kernels, the GEMMs and the rest. Then one step with per-channel
    w8 weights (quantize_dit_params) and int8 attention: eps cos vs the dense
-   step >= 0.99, and no F launch (17,776 rows take the dense route);
+   step >= 0.99, and no F launch (17,776 rows take the dense route), and
+   its other 2 steps (frame cos vs fp printed); every impl's frames kept for
+   phase 24's perceptual scores;
 6. kernels G1/G2 (attention_bwd_dq, attention_bwd_dkv) through flash_bwd
    against attention_bwd_plain: float and quantized (int8 codes) at b1 h30
    s17776 d64 bf16, causal GQA 8q/2kv d128 at a ragged s1000 (both modes),
@@ -127,12 +133,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    b4 h32 s8192 d64 beside SDPA on the dequantized bf16 K/V; its entry
    point once, counted;
 12. the trained checkpoint eval_out/arith_llm.npz: greedy generate of 4
-   tokens on 64 three-shot addition prompts, with the int8, bf16, int4 and
-   k4v8 caches, then with per-channel w8 and w4 weights on the int8 cache; task
-   exact-match >= 0.98 in every run (printed beside the JAX package's CPU
-   figures 1.0 and 0.984375 for w8 and w4), launch counts per run (6 F per
-   layer and decode step, none in the 2,304-row prefill; f32 x, so all on
-   the CUDA-core design);
+   tokens on 64 three-shot addition prompts with per-channel w8 and w4
+   weights on the int8 cache; task exact-match >= 0.98 in every run (printed
+   beside the JAX package's CPU figures 1.0 and 0.984375 for w8 and w4),
+   launch counts per run (6 F per layer and decode step, none in the
+   2,304-row prefill; f32 x, so all on the CUDA-core design). Its runs with
+   the int8, bf16, int4 and k4v8 caches are phase 24's ladder;
 13. LLM main path at full width (dim 4096, 32 query heads x 128, 8 KV
    heads, vocab 256, bf16, depth LLM13_DEPTH = 16 of the geometry's 32 for
    the run's time limit, random weights from a seeded generator): generate 64 tokens at b4 from a 32,704-token prompt with
@@ -147,9 +153,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    0.999 and w8-vs-dense >= 0.99 (w4 printed); the counters must show depth
    A (wgmma design) and C1 (vector design) launches per prefill, depth x 63 D launches (all
    on D's design), and 6 x depth x 63 F1 (w8) or F2 (w4) launches, all on the
-   tensor-core design, and none at prefill. Then one decode step per weight format under torch.profiler at
-   a 256-token context, and one per cache mode at the full 32K context with
-   dense weights: device ms of F, the dense GEMMs, D and the rest;
+   tensor-core design, and none at prefill. Then one decode step per weight
+   format at a 256-token context through utils.profiling.trace (a
+   torch.profiler session that writes a Chrome trace into the run's temp
+   dir, which must name D's kernel and, with w8 / w4 weights, F's), and one
+   per cache mode at the full 32K context with dense weights under
+   torch.profiler: device ms of F, the dense GEMMs, D and the rest;
 14. long context at the same full width, depth cut to 8 of 32 for the
    run's time limit (bench/llm_e2e_bench.py at its --ctx 131072): first,
    at phase 13's 32K b4 prompt, llm_prefill_chunked
@@ -346,8 +355,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    bounds, timed at b4 h32 s8192 d112 int4 beside SDPA on the dequantized
    K/V, with the wrapper's padded copy of the packed rows timed alone; F1
    w8 at the model's MLP matrices (M 8); then the model (dim 7168, 64 heads
-   and 64 KV heads of 112, depth 24 of MPT-30B's 48, vocab 50432, 15.2 B
-   random seeded parameters) at b8 from 4,032-token prompts into caches of
+   and 64 KV heads of 112, depth 12 of MPT-30B's 48 for the run's time
+   limit, vocab 50432, random seeded parameters) at b8 from 4,032-token prompts into caches of
    4,096 rows: llm_prefill and 63 graph-decoded tokens on the int8, bf16,
    int4 and k4v8 caches and with w8 weights (every D at head dim 112, A at
    kernel dim 128; first-step logits int8 vs bf16 cache cos >= 0.999; an
@@ -422,6 +431,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
    same prompts; the parameters saved with utils/checkpoint.save_params and
    loaded back equal.
 
+24. the tooling (run last): tools.autotune in this process, each sweep
+   timed in turns (5 rounds of 20 calls back to back between CUDA events;
+   median and spread) and saved into the run's cache: kernel D's waves (0.5,
+   1, 2, 4; 1 is the heuristic) for the int8, bf16, int4 and k4v8 caches at
+   phase 13's decode shape (b4 h32 hk8 S_max 32768 d128), F1's (w8) and
+   F2's (w4) K-split caps (1, 2, 4, 8, and 16 for w8; the largest is the
+   heuristic) at phase 10's four decode shapes (M 4), then --space k and
+   --space bwd at b4 h32 s4096 d64 (one row each: A and G1/G2 run one tile
+   plan). Then, counted from 0, decode_attention in each cache mode under
+   the saved waves (lengths 32768/1/4097/0): every launch on the tuned split
+   count, against the plain version walking the same split_keys at phase
+   9's bounds, the same bits twice; wq_matmul_per_channel (w8, w4) under the
+   saved caps at the four shapes: every launch on the tuned K splits,
+   against the plain version at phase 10's bounds, the same bits twice.
+   Then tools.llm_accuracy_eval's trained ladder on the checkpoint (64
+   prompts; bf16, int8, k4v8, int4 caches, the window ladder at 16 + 4
+   sinks, the engine's plain and n-gram runs): each row beside the JAX
+   package's CPU figure (JAX_LADDER*), none more than 1/64 below it, the
+   cache rows >= 0.98, each cache and window row one generate's launches
+   (A, C1 a layer, D a layer and step), every launch on its design. Then
+   evalkit.perceptual's scores (SSIM, random-feature cos, band MSEs) of
+   phase 5's int8, int8_v8, int4 and w8 frames against its fp frames, beside
+   the frame cos; and phase 13's traces listed.
+
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
 their type, and a library call's time where one PyTorch call computes the
@@ -438,8 +471,10 @@ import math
 import os
 import statistics
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -987,25 +1022,33 @@ def entry_point_phase(gen):
 
 
 DIT_IMPLS = ("int8", "int8_v8", "int4", "fp")
+#: The Chrome trace profile_classes wrote last (with a trace_dir).
+PROFILED = {"trace": None}
 GEMM_NAMES = ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")
 #: The port's gemv kernels (F1/F2), which GEMM_NAMES would also take.
 F_NAMES = ("::gemv_kernel", "::gemv_tc_kernel", "::gemv_w8_kernel", "::gemv_w8_direct_kernel")
 
 
-def profile_classes(fn, classes, ranges=()):
+def profile_classes(fn, classes, ranges=(), trace_dir=None):
     """Runs ``fn`` once under torch.profiler and sums its kernels' device ms
     by class: ``classes`` maps a class to the pieces of a lower-case kernel
     name that put a kernel in it (the first class that matches takes it;
     no match: "other"). Each name in ``ranges`` is a record_function range
     that ``fn`` opens; its entry is the device ms of the kernels launched
-    inside it, which their classes count as well. Returns (ms by class and
+    inside it, which their classes count as well. With ``trace_dir`` the
+    session is the port's ``utils.profiling.trace``, which writes a Chrome
+    trace there (the path: ``PROFILED["trace"]``). Returns (ms by class and
     range, kernels by class, the "other" kernels as (ms, count, name),
     largest first)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import profiling
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    session = profiling.trace(trace_dir) if trace_dir else torch.profiler.profile(activities=acts)
+    with session as prof:
         fn()
         torch.cuda.synchronize()
+    PROFILED["trace"] = getattr(prof, "trace_path", None)
     keys = list(classes) + ["other"]
     ms, n, other = dict.fromkeys(keys + list(ranges), 0.0), dict.fromkeys(keys, 0), []
     for e in prof.key_averages():
@@ -1042,6 +1085,7 @@ def dit_step_profile(model, x, t, impl):
 
 
 def main_path_phase():
+    from lowbit_quant_fa2_paddle_tpu_torch.evalkit.perceptual import latent_to_frames
     from lowbit_quant_fa2_paddle_tpu_torch.models import dit
     from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity, mse
 
@@ -1109,8 +1153,9 @@ def main_path_phase():
         if launches[impl] != want or designs[impl] != want_designs:
             raise AssertionError(f"DiT {impl}: launch counts {launches[impl]} != {want} or {designs[impl]}")
 
-    # Per-channel w8 weights with int8 attention, one step: 17,776 rows take
-    # the dequantize-once dense route, so no F kernel runs.
+    # Per-channel w8 weights with int8 attention, one step counted: 17,776
+    # rows take the dequantize-once dense route, so no F kernel runs. Then
+    # its other steps, for its frames (phase 24's perceptual scores).
     qmodel = dit.quantize_dit_params(model, bits=8)
     with torch.inference_mode():
         dit.dit_forward(qmodel, x0, ts[0], attn_impl="int8")  # warm-up
@@ -1121,6 +1166,16 @@ def main_path_phase():
         torch.cuda.synchronize()
         w8_ms = (time.perf_counter() - t1) * 1e3
         got, got_c1 = counts(), design_counts("C1")
+        x = x0 - 0.1 * eps
+        for t in ts[1:]:
+            x = x - 0.1 * dit.dit_forward(qmodel, x, t, attn_impl="int8")
+        frames["w8"] = x.float()
+    # The frames evalkit's perceptual scorers read (4 channel planes of the
+    # 101 x 176 token grid), kept on the host for phase 24.
+    res["frames"] = {impl: latent_to_frames(f[..., :4].cpu().numpy()) for impl, f in frames.items()}
+    res["frame_cos"]["w8"] = float(cosine_similarity(frames["w8"], frames["fp"]))
+    log(f"[dit] w8 weights + int8 attention vs fp after {STEPS} steps: frame cos {res['frame_cos']['w8']:.6f}")
+    del frames
     cos = float(cosine_similarity(eps.float(), eps0["int8"]))
     want = {"A": cfg.depth, "C1": cfg.depth, "C2": 0, "C3": 0, "D": 0, "E": 0, "F1": 0, "F2": 0, "G1": 0, "G2": 0}
     log(f"[dit] w8 weights + int8 attention: {w8_ms:.1f} ms/step, eps cos vs dense weights {cos:.6f}, "
@@ -1606,35 +1661,10 @@ def check_counts(where, got, depth, decode_steps, f1=0, f2=0, f_design="tensor_c
                              f"or {c1_designs}")
 
 
-#: The checkpoint's cache modes by their LLMConfig fields (phases 12 and 23).
+#: The checkpoint's cache modes by their LLMConfig fields (phase 23 (c)).
 CKPT_MODES = (("int8", dict(kv_bits=8)), ("bf16", dict(kv_bits=16)), ("int4", dict(kv_bits=4)),
               ("k4v8", dict(kv_bits=8, k_bits=4)))
 
-
-def checkpoint_phase():
-    from lowbit_quant_fa2_paddle_tpu_torch.models import llm, train
-    from lowbit_quant_fa2_paddle_tpu_torch.utils.checkpoint import load_params_npz
-
-    tree = load_params_npz(os.path.join(REPO, "eval_out", "arith_llm.npz"))
-    prompts, answers = train.make_eval_prompts(64, few_shot=3)
-    prompt = torch.from_numpy(prompts).cuda()
-    out, launches = {}, {}
-    for mode, sides in CKPT_MODES:
-        cfg = train.arith_llm_config(**sides)
-        model = llm.params_from_jax(tree, cfg)
-        count_reset()
-        toks = llm.generate(model, prompt, train.ANS_LEN, cfg).cpu().numpy()
-        launches[mode] = counts()
-        check_counts(f"ckpt {mode}", launches[mode], cfg.depth, train.ANS_LEN - 1)
-        acc = sum(train.grade_answer(row, a) for row, a in zip(toks, answers)) / len(answers)
-        log(f"[ckpt] {mode} cache: task exact-match {acc:.4f} on {len(answers)} prompts; "
-            f"first answers {[train.decode_ids(r) for r in toks[:4]]}")
-        if acc < 0.98:
-            raise AssertionError(f"checkpoint exact-match {acc} < 0.98 with the {mode} cache")
-        out[mode] = (acc, toks)
-    agree = {m: float((out[m][1] == out["bf16"][1]).mean()) for m in ("int8", "int4", "k4v8")}
-    log(f"[ckpt] token agreement with the bf16 cache: {agree}")
-    return {"exact_match": {m: out[m][0] for m in out}, "token_agreement": agree, "launches": launches}
 
 # ---------------------------------------------------------------------------
 # Kernels F1/F2 (packed-weight matmul) and E (packed-KV attention)
@@ -2007,10 +2037,12 @@ def checkpoint_wq_phase():
     return out
 
 
-def decode_step_profile(model, prompt, cfg):
+def decode_step_profile(model, prompt, cfg, trace_dir=None):
     """Device ms of one decode step by kernel class, from the kernel events
     of torch.profiler: F (our gemv kernels), dense GEMMs (cuBLAS), D, and
-    the rest, with the rest's largest kernels by name."""
+    the rest, with the rest's largest kernels by name; with ``trace_dir``
+    through ``utils.profiling.trace``, which writes the step's Chrome trace
+    there."""
     from lowbit_quant_fa2_paddle_tpu_torch.models import llm
 
     logits, caches = llm.llm_prefill(model, prompt, cfg)
@@ -2019,9 +2051,24 @@ def decode_step_profile(model, prompt, cfg):
     for _ in range(2):
         _, caches = llm.llm_decode_step(model, tok, caches, cfg)
     cats, _, other = profile_classes(lambda: llm.llm_decode_step(model, tok, caches, cfg),
-                                     {"F": F_NAMES, "GEMM": GEMM_NAMES, "D": ("decode",)})
+                                     {"F": F_NAMES, "GEMM": GEMM_NAMES, "D": ("decode",)}, trace_dir=trace_dir)
     top = ", ".join(f"{name} x{n} {ms:.3f}" for ms, n, name in other[:5])
     return cats, f"{len(other)} other kernel names; top: {top}"
+
+
+def check_trace(path, f):
+    """The kernel names of a Chrome trace that utils.profiling.trace wrote:
+    it must name kernel D's kernel and, with ``f``, one of F's (F1/F2)."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    d_names = [n for n in names if "decode" in n.lower()]
+    f_names = [n for n in names if any(piece in n.lower() for piece in F_NAMES)]
+    log(f"[trace] {path}: {os.path.getsize(path)} bytes, {len(events)} events, {len(names)} kernel names; D "
+        f"{[n[:60] for n in d_names]}; F {[n[:60] for n in f_names]}")
+    if not d_names or bool(f_names) != f:
+        raise AssertionError(f"the trace {path} names D's kernel {d_names} and F's {f_names} (want F: {f})")
+    return {"path": path, "D": d_names, "F": f_names}
 
 
 class FirstLogits:
@@ -2174,13 +2221,15 @@ def full_width_phase():
     first_int8 = res["int8"]["logits"]
     for mode in res:
         del res[mode]["tokens"], res[mode]["logits"]
-    # One decode step under torch.profiler per weight format (a 256-token
-    # context: F and the GEMMs do not depend on it).
+    # One decode step per weight format (a 256-token context: F and the
+    # GEMMs do not depend on it) through utils.profiling.trace, whose Chrome
+    # trace must name kernel D's kernel and, with packed weights, F's.
     for mode, m_run in (("dense", model), ("w8", packed[8]), ("w4", packed[4])):
-        cats, top = decode_step_profile(m_run, prompt[:, :256], small)
+        cats, top = decode_step_profile(m_run, prompt[:, :256], small, trace_dir=os.path.join(TMP, "traces"))
         res.setdefault("profile", {})[mode] = cats
         log(f"[llm] decode step device ms at a 256-token context, {mode} weights: " +
             ", ".join(f"{k} {v:.3f}" for k, v in cats.items()) + f"; total {sum(cats.values()):.3f}; {top}")
+        res.setdefault("traces", {})[mode] = check_trace(PROFILED["trace"], f=mode != "dense")
     # The same at the full context (a 32,704-token prompt, S_max 32768), dense
     # weights, per cache mode: D streams the whole cache there.
     for mode, bits in (("int8", 8), ("bf16", 16)):
@@ -4891,11 +4940,12 @@ def phi3_checkpoint_phase(model, prompt):
 #: mosaicml/mpt-30b's config.json: d_model 7168, n_heads 64 (head dim 112),
 #: n_layers 48, expansion_ratio 4, max_seq_len 8192, vocab_size 50432.
 #: LLMConfig's 4·d MLP is MPT's width; its RoPE and SiLU stand in for MPT's
-#: ALiBi and GELU. Depth 24 of 48, for memory (48 bf16 layers take 59 GB),
-#: random weights from a seed (15.2 B parameters); the runs' caches hold
+#: ALiBi and GELU. Depth 12 of 48, for the run's time limit (48 bf16 layers
+#: would take 59 GB; the widths are whole), random weights from a seed;
+#: the runs' caches hold
 #: 4,096 rows (4,032-token prompts and 64 new tokens: the bf16 cache at b8
-#: takes 22.5 GB).
-MPT30B = dict(vocab=50432, dim=7168, depth=24, num_heads=64, num_kv_heads=64, max_seq=8192, rope_theta=10000.0)
+#: takes 11.3 GB).
+MPT30B = dict(vocab=50432, dim=7168, depth=12, num_heads=64, num_kv_heads=64, max_seq=8192, rope_theta=10000.0)
 MPT_BATCH, MPT_PROMPT, MPT_NEW, MPT_CACHE_ROWS = 8, 4032, 64, 4096
 #: Kernel D's timed shapes at run-time head dims, (b, h, hk, S_max): MPT-30B's
 #: decode (64 query and 64 KV heads of 112) and Nemotron-4-340B's (hidden
@@ -5012,7 +5062,7 @@ def mpt_f1_phase(gen):
 
 
 def mpt_llm_phase():
-    """geometry_llm_phase on MPT30B at depth 24, b8 prompts of 4,032 tokens,
+    """geometry_llm_phase on MPT30B at depth 12, b8 prompts of 4,032 tokens,
     64 new tokens, caches of 4,096 rows, seed 21: every D at head dim 112
     (the run-time instances), A at kernel dim 128."""
     return geometry_llm_phase(MPT30B, MPT_BATCH, MPT_PROMPT, MPT_NEW, 21, "mpt", max_seq=MPT_CACHE_ROWS)
@@ -5319,6 +5369,245 @@ def toy_llm_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the tooling (the tuning cache and its autotuner, the cache-accuracy
+# ladder, evalkit's perceptual scores; phase 13 ran the profiling helper)
+# ---------------------------------------------------------------------------
+
+#: This run's temp dir (main): the tuning cache's file, the traces, the ladder's JSON.
+TMP = None
+#: Rounds of turns and calls a timed sample of the autotuner's sweeps.
+TOOL_ROUNDS, TOOL_CALLS = 5, 20
+#: Kernel D's sweep shape (phase 13's decode: b4 h32 hk8 d128, S_max 32768) and
+#: the caches swept, by --kv-bits.
+TUNE_D = dict(b=4, h=32, hk=8, d=128, s=32768)
+TUNE_KV_BITS = {"int8": "8", "bf16": "16", "int4": "4", "k4v8": "k4v8"}
+#: The gemv sweep: per-channel w8 (F1) and w4 (F2) at phase 10's decode shapes, M 4.
+TUNE_GEMV_BITS = {"w8": 8, "w4": 4}
+#: The attention spaces' shape: b4 h32 s4096 d64.
+TUNE_ATTN = ["--batch", "4", "--heads", "32", "--seq", "4096", "--head_dim", "64"]
+#: The JAX package's figures for the trained ladder's 64 prompts, from
+#: bench/llm_accuracy_eval.py run on a CPU: the cache rows, the window rows
+#: (window 16 + 4 sinks) and the engine rung (16 prompts; spec_tokens_per_round
+#: 1.021 there).
+JAX_LADDER = {"bf16": 1.0, "int8": 1.0, "k4v8": 1.0, "int4": 1.0}
+JAX_LADDER_WINDOW = {"bf16": 1.0, "int8": 1.0, "k4v8": 0.984375}
+JAX_LADDER_ENGINE = {"engine_plain": 1.0, "engine_spec_ngram": 1.0}
+
+
+def tool_args(*args):
+    return [str(a) for a in args] + ["--rounds", str(TOOL_ROUNDS), "--calls", str(TOOL_CALLS)]
+
+
+def tuning_sweeps():
+    """The autotuner in this process, each sweep saved into the run's
+    cache: D's waves per cache at TUNE_D, F1's and F2's K-split caps at
+    phase 10's decode shapes, then the k and bwd spaces (one row each,
+    nothing to tune)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.tools import autotune
+
+    b, h, hk, d, s = (TUNE_D[k] for k in "b h hk d s".split())
+    out = {"decode": {}, "gemv": {}, "attn": {}}
+    for mode, kv in TUNE_KV_BITS.items():
+        r = autotune.main(tool_args("--space", "decode", "--kv-bits", kv, "--batch", b, "--heads", h, "--kv-heads", hk,
+                                    "--head_dim", d, "--seq", s) + ["--save"])
+        out["decode"][mode] = r
+        log(f"[tool] decode {mode} cache b{b} h{h} hk{hk} d{d} S_max {s}, {TOOL_ROUNDS} rounds of {TOOL_CALLS} calls: "
+            + "; ".join(f"waves {x['waves']:g} ({x['n_splits']} splits) median {x['ms']:.4f} ms spread "
+                        f"{x['spread_ms']:.4f}{' [heuristic]' if x['heuristic'] else ''}" for x in r["rows"])
+            + f" -> saved waves {r['best']['waves']:g}")
+    for mode, bits in TUNE_GEMV_BITS.items():
+        for n, k in DECODE_NK:
+            r = autotune.main(tool_args("--space", "gemv", "--gemv-bits", bits, "--gemv-m", 4, "--gemv-n", n,
+                                        "--gemv-k", k) + ["--save"])
+            out["gemv"][(mode, n, k)] = r
+            log(f"[tool] gemv {mode} M4 N{n} K{k}: " + "; ".join(
+                f"max_splits {x['max_splits']} ({x['structure']}, {x['ksplit']} splits) median {x['ms'] * 1e3:.2f} us "
+                f"spread {x['spread_ms'] * 1e3:.2f}{' [heuristic]' if x['heuristic'] else ''}" for x in r["rows"])
+                + f" -> saved max_splits {r['best']['max_splits']}")
+    for space in ("k", "bwd"):
+        r = autotune.main(tool_args("--space", space, *TUNE_ATTN) + ["--save"])
+        out["attn"][space] = r["best"]
+        log(f"[tool] --space {space} b4 h32 s4096 d64: {r['best']['ms']:.4f} ms ({r['best']['tflops']:.1f} TFLOP/s, "
+            f"design {r['best']['design']}, spread {r['best']['spread_ms']:.4f}); {r.get('not_saved')}")
+    return out
+
+
+def tuned_decode_check(gen, sweeps):
+    """Kernel D through decode_attention under the saved waves, per cache:
+    the launches on the tuned split count, the output against the plain
+    version walking the same split_keys at phase 9's bounds, the same bits
+    twice; the kernels-line record (ms: the sweep's median for the winner)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    b, h, hk, d, s = (TUNE_D[k] for k in "b h hk d s".split())
+    records = {}
+    for mode in TUNE_KV_BITS:
+        best = sweeps[mode]["best"]
+        kargs, kkw, pargs, pkw = decode_inputs(gen, b, h, hk, d, s, mode, [s, 1, 4097, 0])
+        q, kq, vq, ks, lens = kargs
+        waves = DD.tuned_waves(*DECODE_MODES[mode][:2], d, s, q.device)
+        plan = DD.kernel_partition(q, kq, vq, int_qk=pkw["int_qk"])
+        before = dict(DD.decode_attention.launches_by_splits)
+        o, lse = DD.decode_attention(*kargs, **kkw, return_lse=True)
+        o2, lse2 = DD.decode_attention(*kargs, **kkw, return_lse=True)
+        o_ref, lse_ref = DD.decode_attention_plain(*pargs, **pkw, split_keys=plan["split_keys"], warps=plan["warps"])
+        torch.cuda.synchronize()
+        by_splits = {n: c - before.get(n, 0) for n, c in DD.decode_attention.launches_by_splits.items()
+                     if c != before.get(n, 0)}
+        r = stats(o, o_ref, lse, lse_ref)
+        ulp = bf16_ulp(float(o_ref.float().abs().max()))
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        log(f"[D24] {mode} cache under the saved waves {waves:g}: plan {plan['n_splits']} splits of "
+            f"{plan['split_keys']} keys, launches by split count {by_splits}; cos={r['cos']:.7f} max_do={r['max_do']:.4g} "
+            f"(bound {ulp:.3g}) max_dlse={r['max_dlse']:.3g} same_bits_twice={same}")
+        if not (waves == best["waves"] and plan["n_splits"] == best["n_splits"] and by_splits == {best["n_splits"]: 2}
+                and r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= ulp and r["max_dlse"] <= 1e-4 and same):
+            raise AssertionError(f"kernel D under the tuned plan ({mode}): waves {waves}, plan {plan}, launches "
+                                 f"{by_splits}, {r}, same bits {same}; the sweep's winner {best}")
+        full = torch.full_like(lens, s)
+        plain_ms = cuda_time_ms(lambda: DD.decode_attention_plain(*pargs[:5], full, **pkw), warmup=1, reps=3)
+        cache_bytes = nbytes(kq, vq, ks, pargs[4])
+        library_ms = None
+        if mode == "bf16":  # one SDPA call, one query per head, over the same bf16 cache
+            library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kq, vq, enable_gqa=True), warmup=3, reps=20)
+        heuristic = next(x for x in sweeps[mode]["rows"] if x["heuristic"])
+        records[mode] = {"max_abs_err": r["max_do"], "ms": best["ms"], "spread_ms": best["spread_ms"],
+                         "plain_ms": plain_ms, **bound(cache_bytes + nbytes(q, lens) * 2), "library_ms": library_ms,
+                         "design": DD.kernel_design(), "waves": waves, "n_splits": plan["n_splits"],
+                         "launches": by_splits[best["n_splits"]], "heuristic_ms": heuristic["ms"],
+                         "heuristic_spread_ms": heuristic["spread_ms"], "heuristic_splits": heuristic["n_splits"]}
+        del kargs, pargs, o, o2, o_ref
+    return records
+
+
+def tuned_gemv_check(gen, sweeps):
+    """F1 (w8) and F2 (w4) through wq_matmul_per_channel under the saved
+    K-split caps at phase 10's decode shapes: the launches on the tuned
+    split count, the output against the plain version at phase 10's
+    bounds, the same bits twice; the kernels-line records."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import gemv as G
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
+
+    records = {}
+    library = {}
+    for mode, bits in TUNE_GEMV_BITS.items():
+        wrapper = G.wq_matmul_fused if bits == 4 else G.wq_matmul_per_channel  # w4 runs F2
+        for n, k in DECODE_NK:
+            best = sweeps[(mode, n, k)]["best"]
+            x = torch.randn(4, k, generator=gen, device="cuda").bfloat16()
+            wt, w = gemv_weights(gen, mode, n, k)
+            cap = G.tuned_max_splits(bits, n, k, x.device)
+            before = dict(wrapper.launches_by_splits)
+            y, y2, y_ref = gemv_call(mode, x, wt), gemv_call(mode, x, wt), gemv_plain(mode, x, wt)
+            torch.cuda.synchronize()
+            by_splits = {c: v - before.get(c, 0) for c, v in wrapper.launches_by_splits.items() if v != before.get(c, 0)}
+            same = torch.equal(y, y2)
+            err = check_gemv(f"{mode} M4 N{n} K{k} under the saved max_splits {cap} (launches by K splits "
+                             f"{by_splits}, same bits twice {same})", y, y_ref, gemv_dot_max(mode, x, wt))
+            if cap != best["max_splits"] or by_splits != {best["ksplit"]: 2} or not same:
+                raise AssertionError(f"{mode} N{n} K{k} under the tuned plan: cap {cap}, launches {by_splits}, same "
+                                     f"bits {same}; the sweep's winner {best}")
+            if (n, k) not in library:
+                wd = w.bfloat16()
+                wds = [wd.clone() for _ in range(max(2, math.ceil(128e6 / nbytes(wd))))]
+                library[(n, k)] = cycle_ms([functools.partial(torch.matmul, x, c.T) for c in wds])
+                del wds
+            heuristic = next(r for r in sweeps[(mode, n, k)]["rows"] if r["heuristic"])
+            wbytes = nbytes(wt["packed"], wt["scale"])
+            records[(mode, n, k)] = {
+                "max_abs_err": err, "ms": best["ms"], "spread_ms": best["spread_ms"],
+                "plain_ms": cuda_time_ms(lambda: gemv_plain(mode, x, wt), warmup=1, reps=3),
+                **bound(wbytes + nbytes(x) + 4 * n * 2), "library_ms": library[(n, k)],
+                "design": G.kernel_design(x.dtype), "max_splits": cap, "ksplit": best["ksplit"],
+                "launches": by_splits[best["ksplit"]], "heuristic_ms": heuristic["ms"],
+                "heuristic_spread_ms": heuristic["spread_ms"], "heuristic_ksplit": heuristic["ksplit"]}
+    return records
+
+
+def ladder_phase():
+    """The trained ladder of tools.llm_accuracy_eval on the checkpoint (64
+    prompts): every row beside the JAX package's CPU figure, none more than
+    1/64 below it, the four cache rows at >= 0.98 (phase 12's bound), each
+    cache and window row's launches one generate's (A and C1 once a layer at
+    prefill, D once a layer and decode step; A on wgmma, C1 on vector, D on
+    its design)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import train
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import kernel_design as d_design
+    from lowbit_quant_fa2_paddle_tpu_torch.tools import llm_accuracy_eval as E
+
+    depth = train.arith_llm_config().depth
+    count_reset()
+    out = E.main(["--checkpoint", os.path.join(REPO, "eval_out", "arith_llm.npz"),
+                  "--json", os.path.join(TMP, "torch_llm_result.json")])
+    designs = {name: design_counts(name) for name in ("A", "C1", "D")}
+    want_row = {"A": depth, "C1": depth, "D": depth * (train.ANS_LEN - 1)}
+    rows = [(f"{m} cache", out["table"][m], JAX_LADDER[m]) for m in E.MODES]
+    rows += [(f"{m} cache, window {E.WINDOW} + {E.SINK} sinks", out["window_table"][m], JAX_LADDER_WINDOW[m])
+             for m in E.WINDOW_MODES]
+    rows += [(key, out["serving_spec"][key], JAX_LADDER_ENGINE[key]) for key in JAX_LADDER_ENGINE]
+    for name, row, jax_acc in rows:
+        extra = {k: row[k] for k in ("generation_agreement_vs_bf16", "spec_tokens_per_round", "token_agreement")
+                 if k in row}
+        log(f"[ladder] {name}: task exact-match {row['task_accuracy']:.6f} (the JAX package on a CPU: {jax_acc}) "
+            f"{extra} launches {row['launches']}")
+        if row["task_accuracy"] < jax_acc - 1 / 64:
+            raise AssertionError(f"ladder row {name}: {row['task_accuracy']} is more than 1/64 below JAX's {jax_acc}")
+        if not name.startswith("engine") and row["launches"] != want_row:
+            raise AssertionError(f"ladder row {name}: launches {row['launches']} != {want_row}")
+    for m in E.MODES:
+        if out["table"][m]["task_accuracy"] < 0.98:
+            raise AssertionError(f"checkpoint exact-match {out['table'][m]['task_accuracy']} < 0.98 with the {m} cache")
+    got = counts()
+    log(f"[ladder] launches over the ladder {got}, by design {designs}")
+    if (designs["A"] != {"wgmma": got["A"]} or designs["C1"] != {"vector": got["C1"], "scalar": 0}
+            or designs["D"] != {d_design(): got["D"]}):
+        raise AssertionError(f"the ladder's launches by design {designs} (all {got})")
+    return out
+
+
+def perceptual_phase(frames, frame_cos):
+    """evalkit.perceptual's scores of phase 5's per-impl frames (after its 3
+    steps; w8 weights with int8 attention) against its fp run, beside the
+    frame cos; no bound yet."""
+    from lowbit_quant_fa2_paddle_tpu_torch.evalkit.perceptual import perceptual_report
+
+    out = {}
+    for impl in ("int8", "int8_v8", "int4", "w8"):
+        rep = perceptual_report(frames[impl], frames["fp"])
+        if not all(math.isfinite(v) for v in rep.values()):
+            raise AssertionError(f"non-finite perceptual scores for {impl}: {rep}")
+        out[impl] = rep
+        log(f"[perceptual] DiT {impl} vs fp, {frames[impl].shape[0]} frames of {frames[impl].shape[1]} x "
+            f"{frames[impl].shape[2]}: frame cos {frame_cos[impl]:.6f}; " + ", ".join(f"{k} {v:.6g}" for k, v in rep.items()))
+    return out
+
+
+def tooling_phase(gen, dit_r, llm_r):
+    """Phase 24 (see the module note)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import tuning
+
+    log(f"[tool] the tuning cache: {tuning.cache_path()} (entries before the sweeps: {len(tuning._load())})")
+    sweeps = tuning_sweeps()
+    with open(tuning.cache_path()) as f:
+        saved = json.load(f)
+    log(f"[tool] {len(saved)} entries saved: " + ", ".join(f"{k}: " + json.dumps({x: v[x] for x in v if x in
+                                                                                   ("waves", "max_splits", "us")})
+                                                       for k, v in sorted(saved.items())))
+    # The path: D and F under the saved plans, then the ladder, counted from 0.
+    count_reset()
+    dec = tuned_decode_check(gen, sweeps["decode"])
+    gemv = tuned_gemv_check(gen, sweeps["gemv"])
+    ladder = ladder_phase()
+    perceptual = perceptual_phase(dit_r.pop("frames"), dit_r["frame_cos"])
+    log(f"[trace] phase 13's decode-step traces: " + "; ".join(
+        f"{mode}: {os.path.basename(t['path'])} D {len(t['D'])} F {len(t['F'])} kernel names"
+        for mode, t in llm_r["traces"].items()))
+    return {"decode": dec, "gemv": gemv, "attn": sweeps["attn"], "ladder": ladder, "perceptual": perceptual}
+
+
 def cuda_event_ms(fn):
     """Device ms of one call between two CUDA events."""
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -5340,6 +5629,19 @@ def timed(phase, *args):
 
 
 def main():
+    global TMP
+    # Before any module of the port is imported: the tuning cache is this
+    # run's own file, so no user's cache moves a phase's figures.
+    TMP = tempfile.mkdtemp(prefix="chip_smoke_")
+    os.environ["LOWBIT_FA_TORCH_TUNING_CACHE"] = os.path.join(TMP, "tuning.json")
+    log(f"[tool] LOWBIT_FA_TORCH_TUNING_CACHE={os.environ['LOWBIT_FA_TORCH_TUNING_CACHE']}")
+    try:
+        run()
+    finally:
+        shutil.rmtree(TMP, ignore_errors=True)
+
+
+def run():
     smi = device_phase()
     sys.path.insert(0, REPO)
     if not os.path.isdir(os.path.join(REPO, PKG)):
@@ -5358,7 +5660,7 @@ def main():
     train_r = timed(train_phase)
     dec = timed(decode_phase, gen)
     fkv = timed(fused_kv_phase, gen)
-    ckpt = timed(checkpoint_phase)
+    # Phase 12's w8 and w4 runs (its cache rows are phase 24's ladder).
     timed(checkpoint_wq_phase)
     llm_r = timed(full_width_phase)
     # Phase 10 after phase 13: by then the copy-only probe's package copy,
@@ -5435,6 +5737,8 @@ def main():
     tr = timed(train_parallel_phase, ranks["train"])
     tr_rows = timed(train_rows_phase, gen)
     toy = timed(toy_llm_phase)
+    # Phase 24: the tooling.
+    tool = timed(tooling_phase, gen, dit_r, llm_r)
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
     replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
@@ -5489,8 +5793,8 @@ def main():
              replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727", launches=launches, **dec[mode])
         for mode, launches in (
             ("int8", llm_r["int8"]["launches"]["D"]), ("bf16", llm_r["bf16"]["launches"]["D"]),
-            # The int4 decodes of the checkpoint (phase 12) and of the toy LLM's grading (phase 23 (c)).
-            ("int4", ckpt["launches"]["int4"]["D"] + toy["launches"]["int4"]["D"]),
+            # The int4 decodes of the checkpoint's ladder (phase 24) and of the toy LLM's grading (phase 23 (c)).
+            ("int4", tool["ladder"]["table"]["int4"]["launches"]["D"] + toy["launches"]["int4"]["D"]),
             # k4v8 at this shape is on no model path (the 128K decode's row follows); the
             # integer QK chain at 4-bit K on none ("auto" takes the float chain).
             ("k4v8", 0), ("int4 int_qk", 0), ("k4v8 int_qk", 0))
@@ -5764,6 +6068,27 @@ def main():
              replaces="lowbit_quant_fa2_paddle_tpu/ops/attention_bwd.py:" + ("302" if kern == "G1" else "346"),
              launches=tr["a"]["launches"][kern], **{k: tr_rows[kern][k] for k in timing + ("design",)})
         for fn, kern in (("attention_bwd_dq", "G1"), ("attention_bwd_dkv", "G2"))
+    ]
+    # Phase 24: kernel D and F1/F2 under the plans the autotuner saved, as
+    # decode_attention and wq_matmul_per_channel launch them after a --save.
+    d_keys = timing + ("design", "waves", "n_splits", "heuristic_ms", "heuristic_splits", "spread_ms",
+                       "heuristic_spread_ms")
+    kernels += [
+        dict(name=f"decode_attention ({mode} cache, tuned waves {r['waves']:g}: {r['n_splits']} splits; b{TUNE_D['b']} "
+             f"h{TUNE_D['h']} hk{TUNE_D['hk']} S_max {TUNE_D['s']} d{TUNE_D['d']})", route="cuda",
+             source=f"{src}/decode_attention.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
+             launches=r["launches"], **{k: r[k] for k in d_keys})
+        for mode, r in tool["decode"].items()
+    ]
+    f_keys = timing + ("design", "max_splits", "ksplit", "heuristic_ms", "heuristic_ksplit", "spread_ms",
+                       "heuristic_spread_ms")
+    kernels += [
+        dict(name=f"{'wq_matmul_per_channel (F1: w8' if mode == 'w8' else 'wq_matmul_fused (F2: w4 per-channel'}, "
+             f"bf16 x, tuned max_splits {r['max_splits']}: {r['ksplit']} K splits; M4 N{n} K{k})", route="cuda",
+             source=f"{src}/gemv.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/gemv.py:" + ("255" if mode == "w8"
+                                                                                           else "368"),
+             launches=r["launches"], **{k_: r[k_] for k_ in f_keys})
+        for (mode, n, k), r in tool["gemv"].items()
     ]
     log(f"[toy] phase 23 toy LLM: loss {toy['losses'][0]:.4f} -> {toy['losses'][-1]:.4f} in {toy['train_s']:.1f} s; "
         f"exact-match by cache {toy['acc']} (checkpoint {toy['ckpt_acc']})")

@@ -38,7 +38,9 @@ the output is the target's own greedy generation.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import math
 import weakref
 from typing import Any, List, Mapping, Optional, Tuple
@@ -506,19 +508,24 @@ def _counted_wrappers() -> tuple:
             fused_kv.fused_packed_kv_attention, attention_bwd.attention_bwd_dq, attention_bwd.attention_bwd_dkv)
 
 
+#: The per-key launch counters a wrapper may keep beside its per-design
+#: ones: kernel D per variant, kernels A, D, E, G1/G2 per head dim, kernels
+#: D and F1/F2 per split count of their plan.
+_BY_KEYS = ("variant", "dim", "splits")
+
+
 def _launch_counts() -> dict:
     """The launch counters, in all (key None), per design (the design's
-    name), for kernel D per variant (``("variant", key)``) and for kernels
-    A and D per head dim (``("dim", d)``)."""
+    name) and per :data:`_BY_KEYS` key (``(kind, key)``, e.g. ``("variant",
+    key)`` for kernel D's variants, ``("dim", d)`` per head dim)."""
     out = {}
     for w in _counted_wrappers():
         out[(w, None)] = w.launches
         for design, n in getattr(w, "launches_by_design", {}).items():
             out[(w, design)] = n
-        for variant, n in getattr(w, "launches_by_variant", {}).items():
-            out[(w, ("variant", variant))] = n
-        for d, n in getattr(w, "launches_by_dim", {}).items():
-            out[(w, ("dim", d))] = n
+        for kind in _BY_KEYS:
+            for key, n in getattr(w, f"launches_by_{kind}", {}).items():
+                out[(w, (kind, key))] = n
     return out
 
 
@@ -527,7 +534,7 @@ def _add_launch_counts(counts: dict, times: int = 1) -> None:
         if key is None:
             w.launches += n * times
         elif isinstance(key, tuple):
-            by = w.launches_by_variant if key[0] == "variant" else w.launches_by_dim
+            by = getattr(w, f"launches_by_{key[0]}")
             by[key[1]] = by.get(key[1], 0) + n * times
         else:
             w.launches_by_design[key] += n * times
@@ -540,6 +547,23 @@ def _graph_step(params: LLM, tok: torch.Tensor, caches: List[dict], cfg: LLMConf
     tok.copy_(torch.argmax(logits, dim=-1))
     for cache, nc in zip(caches, new):
         cache["length"].copy_(nc["length"])
+
+
+@contextlib.contextmanager
+def capture_graph(graph: "torch.cuda.CUDAGraph"):
+    """``torch.cuda.graph(graph)`` with Python's cyclic garbage collector
+    paused until the capture ends: a CUDA graph that the collector frees
+    during a capture (one of an engine dropped earlier, whose programs sit
+    in a reference cycle) resets itself there, which CUDA forbids while a
+    stream captures, and the capture fails. The collector frees it after."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class _DecodeGraph:
@@ -591,7 +615,7 @@ def _decode_tokens_graph(params, token, caches, n, cfg):
             return out, caches
         graph = torch.cuda.CUDAGraph()
         before = _launch_counts()
-        with torch.cuda.graph(graph):
+        with capture_graph(graph):
             _graph_step(params, tok, caches, cfg)
         after = _launch_counts()
         # The capture recorded the launches; none ran. Each replay runs them.

@@ -214,7 +214,7 @@ class _Step:
                 self._body()
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            with L.capture_graph(self.graph):
                 self._body()
         self.count += 1
         return self.loss

@@ -94,13 +94,15 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import (
     quant_codes,
     unpack_int4,
 )
+from lowbit_quant_fa2_paddle_tpu_torch.utils import tuning
 
 #: Keys a split of kernel D is a whole multiple of (its tiles hold 64, 32
 #: or 16 keys: ``BK`` in csrc/decode_attention.cu).
 KV_TILE = 64
 #: Query rows (heads of one KV group) per CTA of kernel D, at most.
 MAX_ROWS = 8
-#: Waves of resident CTAs the split-KV pass aims for.
+#: Waves of resident CTAs the split-KV pass aims for, unless the tuning
+#: cache holds ``waves`` for the call (:func:`tuned_waves`).
 WAVES = 1
 #: Splits of one row group, at most (the merging CTA keeps a weight per
 #: split and warp in shared memory).
@@ -509,16 +511,16 @@ def _resident_ctas(device_index: int, d: int, k_bits: int, v_bits: int, int_qk: 
     return max(1, per_sm.value) * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def num_splits(s_max: int, ctas: int, slots: int) -> Tuple[int, int]:
+def num_splits(s_max: int, ctas: int, slots: int, waves: float = WAVES) -> Tuple[int, int]:
     """Split-KV plan ``(n_splits, keys per split)`` for ``ctas`` (batch, KV
     head, row group) rows on a card that holds ``slots`` CTAs at once: as
-    many splits as fill ``WAVES`` whole waves (every CTA does the same work,
-    so a partial last wave costs a whole CTA time), each split a whole
-    number of ``KV_TILE`` tiles, at most ``MAX_SPLITS`` splits. It depends
-    on the cache size, never on the lengths: reading them would sync the
-    decode loop."""
+    many splits as fill ``waves`` waves (every CTA does the same work, so a
+    partial last wave costs a whole CTA time; 0.5 fills half of one), each
+    split a whole number of ``KV_TILE`` tiles, at most ``MAX_SPLITS``
+    splits. It depends on the cache size, never on the lengths: reading
+    them would sync the decode loop."""
     tiles = cdiv(s_max, KV_TILE)
-    want = max(1, min(WAVES * slots // ctas, tiles, MAX_SPLITS))
+    want = max(1, min(int(waves * slots) // ctas, tiles, MAX_SPLITS))
     per = cdiv(tiles, want)
     return cdiv(tiles, per), per * KV_TILE
 
@@ -531,12 +533,26 @@ def window_keys(window: int, sink: int) -> int:
     return (cdiv(sink, KV_TILE) + cdiv(window, KV_TILE) + 1) * KV_TILE
 
 
-def split_plan(s_max: int, ctas: int, slots: int, window: int = 0, sink: int = 0) -> Tuple[int, int]:
+def split_plan(s_max: int, ctas: int, slots: int, window: int = 0, sink: int = 0,
+               waves: float = WAVES) -> Tuple[int, int]:
     """The split plan of a call: :func:`num_splits` over the cache's rows,
     or with a window over the compacted walk's keys (:func:`window_keys`),
     which the kernel maps onto each sequence's sink and window rows on the
     device. Never from the lengths: the decode loop must not sync."""
-    return num_splits(window_keys(window, sink) if window else s_max, ctas, slots)
+    return num_splits(window_keys(window, sink) if window else s_max, ctas, slots, waves)
+
+
+def tuned_waves(k_bits: int, v_bits: int, d: int, s_max: int, device=None) -> Optional[float]:
+    """The ``waves`` of the tuning cache's ``decode_k{k_bits}v{v_bits}``
+    entry at head dim ``d`` and ``pow2_bucket(s_max)`` for ``device``'s
+    kind (``utils/tuning.py``; the bits are the cache's own, 16 for bf16),
+    or None: no entry, or one without a positive number of waves."""
+    ent = tuning.lookup_entry(f"decode_k{k_bits}v{v_bits}", d, tuning.pow2_bucket(s_max), False,
+                              device=tuning.device_kind(device))
+    waves = ent.get("waves") if ent else None
+    if isinstance(waves, (int, float)) and not isinstance(waves, bool) and 0 < waves < math.inf:
+        return float(waves)
+    return None
 
 
 def rows_per_cta(group: int) -> int:
@@ -570,15 +586,20 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 
 def kernel_partition(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, int_qk: bool, int_pv: bool = False,
                      window: int = 0, sink: int = 0, logit_cap: float = 0.0,
-                     page_table: Optional[torch.Tensor] = None) -> dict:
+                     page_table: Optional[torch.Tensor] = None, waves: Optional[float] = None,
+                     slots: Optional[int] = None) -> dict:
     """How kernel D cuts a call on the card: the variant (``multi`` 0 for
     the single-token kernels, 1 for T tokens, 2 with INT8 PV; ``paged``
     the paged twins of 1 and 2, which take one token as T = 1), rows a CTA
     (``rows``), the grid's row groups, the split plan (``n_splits``,
-    ``split_keys``) and the warps a split's tiles go to; the last two are
-    what :func:`decode_attention_plain` takes to walk the same tiles. T
-    tokens plan their window splits over the union band ``W + T - 1``; a
-    paged cache over its ``W·page`` logical rows a sequence."""
+    ``split_keys``, over ``waves`` waves) and the warps a split's tiles go
+    to; the last two are what :func:`decode_attention_plain` takes to walk
+    the same tiles. T tokens plan their window splits over the union band
+    ``W + T - 1``; a paged cache over its ``W·page`` logical rows a
+    sequence. ``waves`` None takes the tuning cache's entry for a
+    contiguous, unwindowed call (:func:`tuned_waves`, keyed by ``q``'s
+    device), else :data:`WAVES`. ``slots`` (the CTAs the card holds at
+    once) is queried from the card unless given."""
     t = q.shape[1] if q.dim() == 4 else 1
     b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
     paged = page_table is not None
@@ -590,11 +611,15 @@ def kernel_partition(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, int_q
     rows = rows_per_cta(t * (h // hk))
     row_groups = hk * (t * (h // hk) // rows)
     walk = window + t - 1 if window else 0
-    slots = _resident_ctas(q.device.index or 0, d, cache_bits(k, q), cache_bits(v, q), int_qk,
-                           bool(window or logit_cap), multi, paged)
-    n_splits, chunk = split_plan(s_max, b * row_groups, slots, walk, sink)
+    k_bits, v_bits = cache_bits(k, q), cache_bits(v, q)
+    if slots is None:
+        slots = _resident_ctas(q.device.index or 0, d, k_bits, v_bits, int_qk, bool(window or logit_cap), multi,
+                               paged)
+    if waves is None:
+        waves = (None if window or paged else tuned_waves(k_bits, v_bits, d, s_max, q.device)) or WAVES
+    n_splits, chunk = split_plan(s_max, b * row_groups, slots, walk, sink, waves)
     return dict(multi=multi, paged=paged, rows=rows, row_groups=row_groups, n_splits=n_splits, split_keys=chunk,
-                warps=WARPS, walk_window=walk)
+                warps=WARPS, walk_window=walk, waves=waves)
 
 
 def launch_variant(multi: int, t: int, k_bits: int, v_bits: int, b: int, paged: bool = False) -> str:
@@ -607,7 +632,7 @@ def launch_variant(multi: int, t: int, k_bits: int, v_bits: int, b: int, paged: 
 
 
 def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_qk, out_dtype, need_lse, window=0,
-                           sink=0, logit_cap=0.0, int_pv=False, page_table=None):
+                           sink=0, logit_cap=0.0, int_pv=False, page_table=None, waves=None):
     single = q.dim() == 3
     b, t, h, d = (q.shape[0], 1, *q.shape[1:]) if single else q.shape
     paged = page_table is not None
@@ -638,7 +663,7 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
                   or page_table.device != q.device):
         raise TypeError("page_table must be a contiguous int32 tensor on q's device")
     plan = kernel_partition(q, k, v, int_qk=int_qk, int_pv=int_pv, window=window, sink=sink, logit_cap=logit_cap,
-                            page_table=page_table)
+                            page_table=page_table, waves=waves)
     rows, row_groups, n_splits = plan["rows"], plan["row_groups"], plan["n_splits"]
     if b > 65535 or row_groups > 65535:
         raise ValueError(f"batch and KV heads x row groups are CUDA grid dims (at most 65535): {b}, {t * h}")
@@ -682,6 +707,7 @@ def _decode_attention_cuda(q, k, v, k_scale, v_scale, lengths, *, sm_scale, int_
     variant = launch_variant(plan["multi"], t, k_bits, v_bits, b, paged)
     decode_attention.launches_by_variant[variant] = decode_attention.launches_by_variant.get(variant, 0) + 1
     decode_attention.launches_by_dim[d] += 1
+    decode_attention.launches_by_splits[n_splits] = decode_attention.launches_by_splits.get(n_splits, 0) + 1
     if single:
         return o, lse
     o = o.reshape(b, hk, t, h // hk, d).transpose(1, 2).reshape(b, t, h, d)
@@ -708,6 +734,7 @@ def decode_attention(
     sink_size: int = 0,
     return_lse: bool = False,
     compute_mode: str = "auto",
+    waves: Optional[float] = None,
 ):
     """Decode attention over a contiguous or paged int8, 4-bit or bf16 KV
     cache (GQA/MQA): ``q [B, H, D]`` float, or ``[B, T, H, D]`` for T query tokens
@@ -730,12 +757,20 @@ def decode_attention(
     and, under a window, its first ``sink_size`` rows too; ``logit_cap`` c
     caps the logits as ``c·tanh(s / c)``.
 
+    ``waves`` sets how many waves of resident CTAs the card's split-KV plan
+    fills (:func:`num_splits`); None takes the tuning cache's entry for a
+    contiguous, unwindowed call (``utils/tuning.py``, as JAX's ``block_kv``
+    None does), else :data:`WAVES`. The plan moves only the order in which
+    the splits are summed. CPU tensors ignore it.
+
     Returns ``o`` shaped as ``q`` in ``q.dtype`` and, with ``return_lse``,
     the base-2 LSE ``[B, (T,) H]``. Lengths past ``S`` count as ``S``. The
     TPU function's tiling knobs (``block_kv``, ``heads_per_step``,
     ``compact_window``, ``clamp_walk``, ``fast_interior``, ``interpret``) are
     not ported.
     """
+    if waves is not None and not 0 < waves < math.inf:
+        raise ValueError(f"waves must be a positive number, got {waves}")
     if compute_mode not in ("auto", "int", "int_qk", "f32"):
         raise ValueError(f"unknown compute_mode {compute_mode!r}")
     k_bits = kv_bits if k_bits is None else k_bits
@@ -790,7 +825,7 @@ def decode_attention(
     if q.dim() == 4 and q.shape[1] == 1 and not int_pv and not paged:  # one token: the single-token kernels
         out = decode_attention(q[:, 0], k_cache, v_cache, k_scale, lengths, v_scale=v_scale, sm_scale=sm_scale,
                                logit_cap=logit_cap, k_bits=k_bits, v_bits=v_bits, window_size=window_size,
-                               sink_size=sink_size, return_lse=return_lse, compute_mode=compute_mode)
+                               sink_size=sink_size, return_lse=return_lse, compute_mode=compute_mode, waves=waves)
         return tuple(x[:, None] for x in out) if return_lse else out[:, None]
 
     args = (q, k_cache, v_cache, k_scale, v_scale if v_quantized else None, lengths)
@@ -803,7 +838,7 @@ def decode_attention(
     elif q.device.type == "cuda":
         o, lse = _decode_attention_cuda(
             *args, sm_scale=sm_scale, int_qk=int_qk, out_dtype=q.dtype, need_lse=return_lse, page_table=page_table,
-            **opts
+            waves=waves, **opts
         )
     else:
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, not {q.device}")
@@ -819,3 +854,5 @@ decode_attention.launches_by_variant = {}
 #: Launches per head dim (the head_dim-256, the 80/96 and the run-time head
 #: dim instances live in sources of their own).
 decode_attention.launches_by_dim = {d: 0 for d in CARD_HEAD_DIMS}
+#: Launches per split count of the plan (keys appear at their first launch).
+decode_attention.launches_by_splits = {}

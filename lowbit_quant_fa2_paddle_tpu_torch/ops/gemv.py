@@ -53,6 +53,7 @@ from torch import nn
 
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import round_away
+from lowbit_quant_fa2_paddle_tpu_torch.utils import tuning
 
 #: Rows of x from which the matmul dequantizes W once and runs a dense
 #: matmul (the JAX package's threshold).
@@ -63,7 +64,8 @@ DESIGNS = ("tensor_core", "cuda_core")
 #: 64-byte chunks a split; by m-tiles a CTA, the x values of a staged row
 #: (``tc_x_values`` in the source) and the CTAs an SM holds.
 TC_WARPS, TC_ROWS, TC_MIN_CHUNKS = 4, 32, 2
-#: Most K splits (the merge loads every split's partial at once).
+#: Most K splits (the merge loads every split's partial at once); the
+#: tuning cache's ``max_splits`` may lower it (:func:`tuned_max_splits`).
 TC_MAX_SPLITS = 8
 TC_X_VALUES = {1: 1024, 4: 512}
 TC_CTAS_PER_SM = {1: 3, 4: 2}
@@ -250,13 +252,15 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def tc_plan(m: int, n: int, k: int, bits: int, n_sms: int) -> Tuple[int, int, int, int, int]:
+def tc_plan(m: int, n: int, k: int, bits: int, n_sms: int,
+            max_splits: int = TC_MAX_SPLITS) -> Tuple[int, int, int, int, int]:
     """The tensor-core design's launch plan ``(mt, ksplit, cps, spc, gx)``
     for ``x [m, k] @ W^T [k, n]`` on ``n_sms`` SMs: ``mt`` m-tiles of 8 x
     rows a CTA (1 up to 8 rows, else 4); with one m-tile the packed row is
     split over CTAs into ``ksplit`` ranges of ``cps`` 64-byte chunks, as
     many as fill the card's warp slots once with items of 32 rows (at least
-    ``TC_MIN_CHUNKS`` chunks a range, at most ``TC_MAX_SPLITS`` ranges),
+    ``TC_MIN_CHUNKS`` chunks a range, at most ``max_splits`` ranges, itself
+    at most ``TC_MAX_SPLITS``),
     with four (M > 8) it is not split, since each split's partial sums would
     be M x N floats; a CTA stages x
     for slices of ``spc`` chunks of its range (``TC_X_VALUES[mt]`` values a
@@ -269,7 +273,8 @@ def tc_plan(m: int, n: int, k: int, bits: int, n_sms: int) -> Tuple[int, int, in
     chunks = _cdiv(kb, 64)
     items = _cdiv(n, TC_ROWS)
     slots = n_sms * TC_CTAS_PER_SM[mt] * TC_WARPS
-    ksplit = min(max(1, slots // (items * mblocks)), _cdiv(chunks, TC_MIN_CHUNKS), TC_MAX_SPLITS) if mt == 1 else 1
+    cap = max(1, min(max_splits, TC_MAX_SPLITS))
+    ksplit = min(max(1, slots // (items * mblocks)), _cdiv(chunks, TC_MIN_CHUNKS), cap) if mt == 1 else 1
     cps = _cdiv(chunks, ksplit)
     ksplit = _cdiv(chunks, cps)
     spc = min(cps, max(1, TC_X_VALUES[mt] // fpb // 64))
@@ -277,7 +282,8 @@ def tc_plan(m: int, n: int, k: int, bits: int, n_sms: int) -> Tuple[int, int, in
     return mt, ksplit, cps, spc, _cdiv(items, TC_WARPS * per_warp)
 
 
-def w8_plan(m: int, n: int, k: int, n_sms: int, x_int8: bool = False) -> Tuple[str, int, int, int, int]:
+def w8_plan(m: int, n: int, k: int, n_sms: int, x_int8: bool = False,
+            max_splits: int = W8_MAX_SPLITS) -> Tuple[str, int, int, int, int]:
     """F1's tensor-core plan ``(structure, mt, ksplit, tps, grid)`` for ``x
     [m, k] @ W^T [k, n]`` on ``n_sms`` SMs (``structure`` one of
     ``W8_STRUCTURES``). ``"direct"``: up to 8 x rows, K up to ``W8D_MAX_K``
@@ -291,7 +297,8 @@ def w8_plan(m: int, n: int, k: int, n_sms: int, x_int8: bool = False) -> Tuple[s
     rows, else 4); with one m-tile K is split into ``ksplit`` ranges of
     ``tps`` tiles of ``W8_KT`` values, as many as fill the card's CTA slots
     once with units of ``W8_ROWS`` rows (at least ``W8_MIN_TILES`` tiles a
-    range unless K has fewer, at most ``W8_MAX_SPLITS``); with four it is not
+    range unless K has fewer, at most ``max_splits``, itself at most
+    ``W8_MAX_SPLITS``; the other structures ignore it); with four it is not
     split, since each split's partial dots would be M x N; ``grid`` CTAs, at
     most one a slot, each walking its units. It depends on shapes only."""
     ktiles = _cdiv(k, W8_KT)
@@ -302,10 +309,20 @@ def w8_plan(m: int, n: int, k: int, n_sms: int, x_int8: bool = False) -> Tuple[s
     if x_int8 and mt == 1 and 3 * n_sms <= 4 * units <= 4 * n_sms:
         return "deep", 1, 1, ktiles, units
     slots = n_sms * W8_CTAS_PER_SM[mt]
-    ksplit = min(max(1, slots // units), _cdiv(ktiles, W8_MIN_TILES), W8_MAX_SPLITS) if mt == 1 else 1
+    cap = max(1, min(max_splits, W8_MAX_SPLITS))
+    ksplit = min(max(1, slots // units), _cdiv(ktiles, W8_MIN_TILES), cap) if mt == 1 else 1
     tps = _cdiv(ktiles, ksplit)
     ksplit = _cdiv(ktiles, tps)
     return "ring", mt, ksplit, tps, min(units * ksplit, slots)
+
+
+def tuned_max_splits(bits: int, n: int, k: int, device=None) -> Optional[int]:
+    """The ``max_splits`` of the tuning cache's ``gemv_w{bits}`` entry at K
+    ``k`` and ``pow2_bucket(n)`` for ``device``'s kind (``utils/tuning.py``),
+    or None: no entry, or one without a positive integer cap."""
+    ent = tuning.lookup_entry(f"gemv_w{bits}", k, tuning.pow2_bucket(n), False, device=tuning.device_kind(device))
+    cap = ent.get("max_splits") if ent else None
+    return cap if isinstance(cap, int) and not isinstance(cap, bool) and cap > 0 else None
 
 
 _TICKETS: dict = {}
@@ -326,14 +343,14 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _gemv_tc_cuda(x2, packed, scale, mn, *, bits, group_size, neg7, s_row, s_group):
+def _gemv_tc_cuda(x2, packed, scale, mn, *, bits, group_size, neg7, s_row, s_group, max_splits=TC_MAX_SPLITS):
     """Launch F2's tensor-core design on bf16 ``x2 [M, K]`` (checked by
-    ``_gemv_cuda``); returns bf16 ``y [M, N]``."""
+    ``_gemv_cuda``); returns bf16 ``y [M, N]`` and the plan's K splits."""
     m, k = x2.shape
     n = packed.shape[0]
     dev = x2.device
     mt, ksplit, cps, spc, gx = tc_plan(m, n, k, bits, _sm_count(dev.index if dev.index is not None else
-                                                                torch.cuda.current_device()))
+                                                                torch.cuda.current_device()), max_splits)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     part = tickets = None
     if ksplit > 1:  # the splits' partial sums and their merge tickets
@@ -347,17 +364,18 @@ def _gemv_tc_cuda(x2, packed, scale, mn, *, bits, group_size, neg7, s_row, s_gro
             int(neg7), mt, ksplit, cps, spc, gx, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "wq_matmul_fused")
-    return y
+    return y, ksplit
 
 
-def _gemv_w8_cuda(x2, x_scale, packed, scale, *, out_dtype):
+def _gemv_w8_cuda(x2, x_scale, packed, scale, *, out_dtype, max_splits=W8_MAX_SPLITS):
     """Launch F1's tensor-core design on bf16 x or int8 codes ``x2 [M, K]``
-    (with ``x_scale [M]``; checked by ``_gemv_cuda``); returns ``y [M, N]``."""
+    (with ``x_scale [M]``; checked by ``_gemv_cuda``); returns ``y [M, N]``
+    and the plan's K splits."""
     m, k = x2.shape
     n = packed.shape[0]
     dev = x2.device
     n_sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
-    structure, mt, ksplit, tps, grid = w8_plan(m, n, k, n_sms, x_int8=x2.dtype == torch.int8)
+    structure, mt, ksplit, tps, grid = w8_plan(m, n, k, n_sms, x_int8=x2.dtype == torch.int8, max_splits=max_splits)
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
     part = tickets = None
     if ksplit > 1:  # the splits' partial dots and their merge tickets
@@ -372,11 +390,13 @@ def _gemv_w8_cuda(x2, x_scale, packed, scale, *, out_dtype):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "wq_matmul_per_channel")
-    return y
+    return y, ksplit
 
 
-def _gemv_cuda(x2, x_scale, packed, scale, mn, *, bits, grouped, group_size, neg7, out_dtype, wrapper):
-    """Launch F1, or F2, on its design for ``x2``'s type."""
+def _gemv_cuda(x2, x_scale, packed, scale, mn, *, bits, grouped, group_size, neg7, out_dtype, wrapper,
+               max_splits=None):
+    """Launch F1, or F2, on its design for ``x2``'s type; ``max_splits``
+    (None: the plan's own cap) caps the tensor-core plans' K splits."""
     name = wrapper.__name__
     m, k = x2.shape
     n, kb = packed.shape
@@ -395,11 +415,13 @@ def _gemv_cuda(x2, x_scale, packed, scale, mn, *, bits, grouped, group_size, neg
         raise ValueError(f"{name} kernel needs 16-byte aligned x and weights")
     s_row, s_group = (1, 0) if scale.dim() == 1 else (scale.shape[1], 1)
     design = kernel_design(x2.dtype)
+    ksplit = 1
     if design == "tensor_core" and not grouped:
-        y = _gemv_w8_cuda(x2, x_scale, packed, scale, out_dtype=out_dtype)
+        y, ksplit = _gemv_w8_cuda(x2, x_scale, packed, scale, out_dtype=out_dtype,
+                                  max_splits=max_splits or W8_MAX_SPLITS)
     elif design == "tensor_core":
-        y = _gemv_tc_cuda(x2, packed, scale, mn, bits=bits, group_size=group_size, neg7=neg7, s_row=s_row,
-                          s_group=s_group)
+        y, ksplit = _gemv_tc_cuda(x2, packed, scale, mn, bits=bits, group_size=group_size, neg7=neg7, s_row=s_row,
+                                  s_group=s_group, max_splits=max_splits or TC_MAX_SPLITS)
     else:
         y = torch.empty((m, n), dtype=torch.float32, device=x2.device)
         with torch.cuda.device(x2.device):
@@ -411,6 +433,7 @@ def _gemv_cuda(x2, x_scale, packed, scale, mn, *, bits, grouped, group_size, neg
         _build.check(err, name)
     wrapper.launches += 1
     wrapper.launches_by_design[design] += 1
+    wrapper.launches_by_splits[ksplit] = wrapper.launches_by_splits.get(ksplit, 0) + 1
     return y
 
 
@@ -440,13 +463,19 @@ def wq_matmul_per_channel(
     *,
     bits: int = 8,
     activation: str = "bf16",
+    max_splits: Optional[int] = None,
 ) -> torch.Tensor:
     """``x @ W^T`` with symmetric per-channel W (:func:`pack_weights_per_channel`),
     ``x [..., K]`` -> ``[..., N]`` in ``x.dtype``. Kernel F1 for 8 bits
     (``activation="int8"`` quantizes x per token and takes the integer dot);
     4 bits run kernel F2 with two groups per row and zero-points ``-7·scale``
     (``activation`` does not apply, as in JAX). ``M >= 1024`` rows take the
-    dense route. The TPU function's ``block_n`` and ``interpret`` are not
+    dense route. ``max_splits`` caps the K splits of F1's ring plan
+    (``w8_plan``) or F2's tensor-core plan (``tc_plan``) on the card; None
+    takes the tuning cache's ``gemv_w{bits}`` entry (``utils/tuning.py``, as
+    JAX's ``block_n`` None does), else the plan's own cap. It moves only the
+    order in which the splits are summed; the other plans and CPU tensors
+    ignore it. The TPU function's ``block_n`` and ``interpret`` are not
     ported."""
     _check_device(x, "wq_matmul_per_channel")
     if bits not in (4, 8):
@@ -458,10 +487,14 @@ def wq_matmul_per_channel(
     if tuple(packed.shape) != (n, k * bits // 8) or tuple(scale.shape) != (n,):
         raise ValueError(f"packed [N, K*bits/8] and scale [N] expected for K={k}: "
                          f"{tuple(packed.shape)}, {tuple(scale.shape)}")
+    if max_splits is not None and max_splits < 1:
+        raise ValueError(f"max_splits must be a positive number of K splits, got {max_splits}")
     m = math.prod(lead)
     if m >= DENSE_ROUTE_M:
         return _dense_route(x, dequant_weights(packed, scale, bits=bits))
     x2 = x.reshape(m, k)
+    if x.device.type == "cuda" and max_splits is None:
+        max_splits = tuned_max_splits(bits, n, k, x.device)
     if bits == 4:
         if x.device.type == "cpu":
             sc = scale.float()[:, None].repeat(1, 2)
@@ -469,7 +502,7 @@ def wq_matmul_per_channel(
             return wq_matmul_fused(x, packed, sc, mn, bits=4, group_size=k // 2)
         y = _gemv_cuda(x2.to(_x_dtype(x.dtype)).contiguous(), None, packed, scale.float().contiguous(), None,
                        bits=4, grouped=True, group_size=k // 2, neg7=True, out_dtype=x.dtype,
-                       wrapper=wq_matmul_fused)
+                       wrapper=wq_matmul_fused, max_splits=max_splits)
         return y.reshape(*lead, n)
     if activation == "int8":
         xk, xs = quant_activations(x2)
@@ -479,7 +512,8 @@ def wq_matmul_per_channel(
         y = wq_matmul_per_channel_plain(xk, packed, scale, x_scale=xs, out_dtype=x.dtype)
     else:
         y = _gemv_cuda(xk.contiguous(), xs, packed, scale.float().contiguous(), None, bits=8, grouped=False,
-                       group_size=0, neg7=False, out_dtype=x.dtype, wrapper=wq_matmul_per_channel)
+                       group_size=0, neg7=False, out_dtype=x.dtype, wrapper=wq_matmul_per_channel,
+                       max_splits=max_splits)
     return y.reshape(*lead, n)
 
 
@@ -532,6 +566,9 @@ wq_matmul_per_channel.launches = 0
 wq_matmul_fused.launches = 0
 wq_matmul_per_channel.launches_by_design = {design: 0 for design in DESIGNS}
 wq_matmul_fused.launches_by_design = {design: 0 for design in DESIGNS}
+#: Launches per K splits of the plan (1: unsplit; keys appear at their first launch).
+wq_matmul_per_channel.launches_by_splits = {}
+wq_matmul_fused.launches_by_splits = {}
 
 
 # ---------------------------------------------------------------------------

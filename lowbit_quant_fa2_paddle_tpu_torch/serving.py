@@ -473,7 +473,7 @@ class _TickProgram:
             return out
         graph = torch.cuda.CUDAGraph()
         before = L._launch_counts()
-        with torch.cuda.graph(graph):
+        with L.capture_graph(graph):
             self.out = self._call()
         after = L._launch_counts()
         self.launches = {k: after[k] - before.get(k, 0) for k in after}

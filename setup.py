@@ -25,11 +25,15 @@ setup(
         "lowbit_quant_fa2_paddle_tpu_torch.models",
         "lowbit_quant_fa2_paddle_tpu_torch.utils",
         "lowbit_quant_fa2_paddle_tpu_torch.host",
+        "lowbit_quant_fa2_paddle_tpu_torch.parallel",
+        "lowbit_quant_fa2_paddle_tpu_torch.evalkit",
+        "lowbit_quant_fa2_paddle_tpu_torch.tools",
     ],
     # Bundled measured autotune defaults (utils/tuning._bundled_path) must
     # ship in built distributions, not just the repo checkout.
     package_data={
         "lowbit_quant_fa2_paddle_tpu.utils": ["tuning_defaults.json"],
+        "lowbit_quant_fa2_paddle_tpu_torch.utils": ["tuning_defaults.json"],
         "lowbit_quant_fa2_paddle_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/lowbit_host.cpp"],
     },
     ext_modules=[

@@ -154,6 +154,48 @@ def test_decode_tokens_equals_stepping(tiny):
     assert torch.equal(got, torch.stack(want, dim=1))
 
 
+def test_graph_capture_pauses_the_cyclic_gc(monkeypatch):
+    """Every CUDA graph capture of the port (decode_tokens, the serving
+    engine's programs, the toy LLM's step) goes through capture_graph: the
+    cyclic garbage collector is off while the stream captures (a graph it
+    freed there would reset during the capture, which fails it) and on
+    again after, also when the capture raises."""
+    import contextlib
+    import gc
+
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph):
+        seen.append(("enter", graph, gc.isenabled()))
+        yield
+        seen.append(("exit", graph, gc.isenabled()))
+
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    assert gc.isenabled()
+    with TL.capture_graph("g"):
+        seen.append(("body", None, gc.isenabled()))
+    assert seen == [("enter", "g", False), ("body", None, False), ("exit", "g", False)] and gc.isenabled()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        with TL.capture_graph("h"):
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
+    gc.disable()
+    try:  # a caller that had it off keeps it off
+        with TL.capture_graph("k"):
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+    import inspect
+
+    from lowbit_quant_fa2_paddle_tpu_torch import serving as TS
+
+    for src in (inspect.getsource(TL._decode_tokens_graph), inspect.getsource(TS._TickProgram.__call__),
+                inspect.getsource(TT._Step)):
+        assert "capture_graph(" in src and "torch.cuda.graph(" not in src
+
+
 def test_generate_one_token_is_the_prefill_argmax(tiny):
     _, _, model, tokens = tiny
     _, cfg = _cfgs()

@@ -90,6 +90,19 @@ def test_port_imports_no_jax():
         "import lowbit_quant_fa2_paddle_tpu_torch.parallel.pipeline\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.parallel.dryrun\n"
         "import lowbit_quant_fa2_paddle_tpu_torch.utils.parallel_cases\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.utils.tuning\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.utils.profiling\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.utils.logger\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.utils.parser\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.evalkit\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.evalkit.config\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.evalkit.datasets\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.evalkit.grader\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.evalkit.inference\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.evalkit.perceptual\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.tools\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.tools.autotune\n"
+        "import lowbit_quant_fa2_paddle_tpu_torch.tools.llm_accuracy_eval\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lowbit_quant_fa2_paddle_tpu')]\n"
         "assert not bad, bad\n"
     )
