@@ -326,7 +326,7 @@ only phase 24 records entries. Phases, each of which raises on failure
    with the byte bound and SDPA (one query a head over the bf16 cache)
    beside, and its T-token (T 4) and paged (pages of 64) instances at d96;
    F1 w8 at the model's MLP matrices (M 8); then the model (dim 3072, 32
-   heads and 32 KV heads of 96, depth 32, vocab 32064, 3.72 B random
+   heads and 32 KV heads of 96, depth 16 of 32, vocab 32064, 1.91 B random
    seeded parameters) at b8 from 3,968-token prompts: llm_prefill and 63
    graph-decoded tokens on the int8, bf16, int4 and k4v8 caches and with
    w8 weights (launch counts, every D at head dim 96; first-step logits
@@ -454,6 +454,28 @@ only phase 24 records entries. Phases, each of which raises on failure
    evalkit.perceptual's scores (SSIM, random-feature cos, band MSEs) of
    phase 5's int8, int8_v8, int4 and w8 frames against its fp frames, beside
    the frame cos; and phase 13's traces listed.
+25. kernels A, D and E above head_dim 256 (up to 512) and an LLM of 8 heads
+   of 512 (run last): kernel A's head_dim-512 grid of utils/mask_cases.py
+   (every mode but fp32 PV at 512, and 320 and 448 padded to 512; unmasked,
+   the masks' edges, the bias) against attention_fwd_plain at phase 4's
+   bounds; kernel D's d272/d320/d400/d512 cases of utils/decode_cases.py,
+   contiguous and paged, at phase 9's bounds; kernel E at d320 and d512,
+   bits 4 and 2, at phase 11's; each the same bits twice and every launch
+   at its (kernel) head dim. Timed: C1 at the prefill's K (b4 h2 s32704
+   d512, the scalar design, bit-equal), A d512 in every mode at b4 h8 s4096
+   (SDPA bf16 beside the fp mode, the backend it picked named) and int8 at
+   the LLM's prefill shape, E d512 int4 at b4 h8 s4096 (SDPA on the
+   dequantized K/V), D d512 in every cache mode at b4 h8 hk2 S_max 32768,
+   its T-token row at b1 and its paged row at b8. Then the LLM (dim 4096,
+   8 query heads of 512 over 2 KV heads, depth 8, random seeded weights):
+   geometry_llm_phase at b4 from 32,704-token prompts (every cache and w8,
+   A at kernel dim 512, D at head dim 512, C1 on the scalar design, D's
+   share of a profiled decode step), llm_prefill_chunked in chunks of
+   4,096 against the one-shot prefill (cos >= 0.999 int8, >= 0.995 k4v8,
+   A over the cache's int8 codes and packed INT4 K against the plain
+   version), phase 16's speculative path at b1 (tokens equal to generate),
+   and the serving engine (8 requests, 32 new, pages of 64; phase 20's
+   near-tie rule).
 
 Then one JSON line of kernel records (each with its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the H100 SXM's peak for
@@ -1636,17 +1658,17 @@ def counts():
     return {name: w.launches for name, w in _wrappers().items()}
 
 
-def check_counts(where, got, depth, decode_steps, f1=0, f2=0, f_design="tensor_core"):
-    """The launches of one generate: A and C1 once per layer at prefill, D
-    once per layer and decode step, and the given F1/F2 counts, all on
-    ``f_design``."""
+def check_counts(where, got, depth, decode_steps, f1=0, f2=0, f_design="tensor_core", c1_design="vector"):
+    """The launches of one generate: A and C1 once per layer at prefill (C1
+    on ``c1_design``), D once per layer and decode step, and the given F1/F2
+    counts, all on ``f_design``."""
     want = {"A": depth, "C1": depth, "C2": 0, "C3": 0, "D": depth * decode_steps, "E": 0, "F1": f1, "F2": f2,
             "G1": 0, "G2": 0}
     from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import kernel_design as d_design
 
     designs = design_counts()  # the prefill's A on the wgmma design
     d_designs = design_counts("D")  # every decode launch on D's one design
-    c1_designs = design_counts("C1")  # the prefill's K quantization on the vector design
+    c1_designs = design_counts("C1")  # the prefill's K quantization, on the vector design but for wide rows
     log(f"[{where}] launches {got} (want {want}), kernel A by design {designs}, kernel D by design {d_designs}, "
         f"kernel C1 by design {c1_designs}")
     # F1 and F2 run bf16 activations on the tensor cores, f32 ones (the checkpoint) on the CUDA cores.
@@ -1656,7 +1678,8 @@ def check_counts(where, got, depth, decode_steps, f1=0, f2=0, f_design="tensor_c
     if f1 or f2:
         log(f"[{where}] kernels F1/F2 by design {f_designs}")
     if (got != want or designs != {"wgmma": depth} or d_designs != {d_design(): want["D"]}
-            or f_designs != f_want or c1_designs != {"vector": depth, "scalar": 0}):
+            or f_designs != f_want or c1_designs != {c1_design: depth, ("scalar" if c1_design == "vector" else
+                                                                          "vector"): 0}):
         raise AssertionError(f"{where}: launch counts {got} != {want} or {designs} or {d_designs} or {f_designs} "
                              f"or {c1_designs}")
 
@@ -1926,6 +1949,38 @@ def fused_kv_inputs(gen, b, h, hk, sq, sk, d, bits, group):
     kp, ks, km = quant_kv_grouped(k, bits=bits, group=group)
     vp, vs, vm = quant_kv_grouped(v, bits=bits, group=group)
     return q, kp, vp, ks, km, vs, vm
+
+
+def fused_kv_edges(gen, dims, tag):
+    """Kernel E against its plain version at head dims ``dims``, bits 4 and
+    2, causal and not (GQA 8q/2kv, Sq 300 / Sk 1000, group 128), at phase
+    11's bounds, the same bits twice, every launch at its head dim. Returns
+    the worst max|do| by head dim."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import fused_kv as FK
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E
+
+    worst = {}
+    for d in dims:
+        for bits in (4, 2):
+            for causal in (False, True):
+                name = f"d{d} int{bits} {'causal ' if causal else ''}GQA 8q/2kv sq300 sk1000 group128"
+                args = fused_kv_inputs(gen, 1, 8, 2, 300, 1000, d, bits, 128)
+                n = FK.fused_packed_kv_attention.launches_by_dim[d]
+                o = FK.fused_packed_kv_attention(*args, bits=bits, is_causal=causal, group=128)
+                o2 = FK.fused_packed_kv_attention(*args, bits=bits, is_causal=causal, group=128)
+                o_ref = FK.fused_kv_attention_plain(*args, bits=bits, group=128, causal=causal,
+                                                    sm_scale_log2e=LOG2E / math.sqrt(d), out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                r = stats(o, o_ref)
+                same = torch.equal(o, o2)
+                on_dim = FK.fused_packed_kv_attention.launches_by_dim[d] == n + 2
+                log(f"[{tag}] {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                                   for k, v in r.items()) + f" same_bits_twice={same} on_dim={on_dim}")
+                if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= MAX_DO and same and on_dim):
+                    raise AssertionError(f"kernel E disagrees with its plain version in case {name}: {r}")
+                worst[d] = max(worst.get(d, 0.0), r["max_do"])
+                del args, o, o2, o_ref
+    return worst
 
 
 def fused_kv_phase(gen):
@@ -2261,8 +2316,8 @@ def long_prefill_attention_check(model, toks, cache, c0, cfg, where="128K chunke
     layer 0's queries (GQA, d128): the in-chunk causal attention (K codes
     per token from C1, Sq = Sk = chunk) and, in the packed-INT4 mode, the
     non-causal attention over the cache's first c0 rows
-    (``llm._attend_cache``: 4-bit K codes with their per-token scales, V
-    dequantized to bf16), each against attention_fwd_plain on the same
+    (``llm._attend_cache``: 4-bit or int8 K codes with their per-token
+    scales, V dequantized to bf16), each against attention_fwd_plain on the same
     inputs, one batch row at a time, at phase 4's bounds; the second timed,
     with its bound. Returns the second's record."""
     from lowbit_quant_fa2_paddle_tpu_torch.models import llm
@@ -2309,11 +2364,13 @@ def long_prefill_attention_check(model, toks, cache, c0, cfg, where="128K chunke
     o, lse = llm._attend_cache(q, cache, c0, cfg)
     k, ks = cache["k"][:, :, :c0].contiguous(), cache["k_scale"][:, :, :c0].contiguous()
     v = llm._dequant_cache_rows(cache["v"][:, :, :c0], cache["v_scale"][:, :, :c0], cfg.eff_v_bits, torch.bfloat16)
-    r, plain_ms = check("packed int4 K over the cache, non-causal", o, lse, k, v, ks, False, 4)
-    ms = cuda_time_ms(lambda: lowbit_attention(q, k, v, k_scale=ks, k_pack_bits=4, return_lse=True), warmup=1, reps=3)
+    kb = cfg.eff_k_bits
+    r, plain_ms = check(f"{'packed int4' if kb == 4 else 'int8'} K over the cache, non-causal", o, lse, k, v, ks,
+                        False, kb)
+    ms = cuda_time_ms(lambda: lowbit_attention(q, k, v, k_scale=ks, k_pack_bits=kb, return_lse=True), warmup=1, reps=3)
     flops = attention_flops(b, h, d, sc, c0, False)
     lim = bound(nbytes(q, k, ks, v) + nbytes(q) + b * h * sc * 4, {"int8": flops // 2, "bf16": flops // 2})
-    log(f"[{tag}] kernel A packed int4 K at c0 {c0}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (its {b} batch "
+    log(f"[{tag}] kernel A {'packed int4' if kb == 4 else 'int8'} K at c0 {c0}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (its {b} batch "
         f"rows), bound {lim['bound_ms']:.3f} ms ({lim['bound_by']})")
     return {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": None,
             "exp_floor_ms": exp_floor_ms(b * h * sc * c0), "design": kernel_design(False)}
@@ -3009,7 +3066,8 @@ def spec_kernel_phase(gen):
     from lowbit_quant_fa2_paddle_tpu_torch.ops.decode import quantize_token
     from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases
 
-    for name in (n for n in decode_cases.CASES if not n.startswith("d256-")):  # phase 18 runs the d256 ones
+    # Phase 18 runs the d256 ones, phase 25 those above 256.
+    for name in (n for n, c in decode_cases.CASES.items() if not n.startswith("d256-") and c[3] <= 256):
         r = decode_cases.check_case(name, gen)
         log(f"[D16] edge {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                                               for k, v in r.items()))
@@ -3365,6 +3423,55 @@ A17_MODES = {"int8": (8, "bf16"), "fp": (16, "bf16"), "int4-K": (4, "bf16"), "in
              "int8-V": (8, "int8"), "int8-PV": (8, "int8_pv")}
 
 
+def a_mode_record(gen, name, b, h, hk, s, d, causal, k_bits, v_mode, bias=None, pv32=False, library=None,
+                  prefix="A17"):
+    """Kernel A in one mode (K bits 16/8/4/2 on C1/C2/C3 codes with Q
+    quantized in the kernel, or bf16 Q/K at 16; V "bf16", "int8" or
+    "int8_pv") on random inputs of one shape, with a bias or fp32 PV:
+    a_record's check against the plain version and its times; ``library``
+    makes the library call from (q, k, v, bias), run under its own
+    dispatch or, with a bias or fp32 PV, SDPA's efficient backend."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as qo
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
+
+    q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+    k = (torch.randn(b, hk, s, d, generator=gen, device="cuda") + 0.3).bfloat16()
+    v = torch.randn(b, hk, s, d, generator=gen, device="cuda")
+    v = v if pv32 else v.bfloat16()
+    c = 1.0 / math.sqrt(d) * LOG2E
+    ks = vs = vm = None
+    if k_bits != 16:
+        quant = {8: qo.quant_int8, 4: qo.quant_int4, 2: qo.quant_int2}[k_bits]
+        k, ks = quant(k, qo.k_mean(k), gran="per_token")
+    if v_mode != "bf16":
+        v, vs, vm = qo.quant_v_int8_per_channel(v, smooth_v=True)
+    kb, pv8 = 8 if k_bits == 16 else k_bits, v_mode == "int8_pv"
+    extra = dict(pv_dtype=torch.float32, out_dtype=torch.float32) if pv32 else {}
+    out = torch.float32 if pv32 else torch.bfloat16
+
+    def call(lse):
+        return lowbit_attention(q, k, v, None, ks, v_scale=vs, v_mean=vm, k_pack_bits=kb, pv_int8=pv8,
+                                is_causal=causal, bias=bias, return_lse=lse, **extra)
+
+    def plain():
+        return attention_fwd_plain(q, k, v, None, ks, vm, causal=causal, sm_scale_log2e=c, out_dtype=out,
+                                   k_bits=kb, v_scale=vs, pv_int8=pv8, bias=bias, pv_f32=pv32)
+
+    pairs = b * (s * (s + 1) // 2 if causal else s * s)
+    lib = None if library is None else library(q, k, v, bias)
+    r = a_record(name, call, plain, pairs, h, d, "fp" if k_bits == 16 else "int8-PV" if pv8 else "int8",
+                 (q, k, v, ks, vs, vm, bias), b * h * s * d * (4 if pv32 else 2), lib, prefix,
+                 library_backend=None if bias is None and not pv32 else "efficient")
+    if pv32:
+        if r["max_abs_err"] > PV32_MAX_DO:
+            raise AssertionError(f"{name}: fp32 PV max|do| {r['max_abs_err']} > {PV32_MAX_DO}")
+        # The products as the kernel runs them: QK in its type, PV as six bf16 products.
+        qk = {"int8": 2 * d * pairs * h} if k_bits != 16 else {"bf16": 2 * d * pairs * h}
+        pv = 6 * 2 * d * pairs * h
+        r.update(bound(nbytes(q, k, v, ks, vs, vm) + b * h * s * d * 4, {**qk, "bf16": qk.get("bf16", 0) + pv}))
+    return r
+
+
 def hd256_attention_phase(gen):
     """Kernel A at head_dim 256 in every mode at bench.py:119's b4 h8 s4096
     d256 (SDPA bf16 at d256 beside the fp mode), int8 at the hd256 LLM's
@@ -3373,49 +3480,11 @@ def hd256_attention_phase(gen):
     would be 38 GB), int8, beside SDPA with a float attn_mask; fp32 PV at the
     DiT shape (int8 QK, f32 V, f32 out) beside SDPA on f32 inputs. Each
     against the plain version, the same bits twice, timed (a_record)."""
-    from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as qo
-    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, attention_fwd_plain, lowbit_attention
-
     sdpa = torch.nn.functional.scaled_dot_product_attention
     records = {}
 
-    def run(name, b, h, hk, s, d, causal, k_bits, v_mode, bias=None, pv32=False, library=None):
-        q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
-        k = (torch.randn(b, hk, s, d, generator=gen, device="cuda") + 0.3).bfloat16()
-        v = torch.randn(b, hk, s, d, generator=gen, device="cuda")
-        v = v if pv32 else v.bfloat16()
-        c = 1.0 / math.sqrt(d) * LOG2E
-        ks = vs = vm = None
-        if k_bits != 16:
-            quant = {8: qo.quant_int8, 4: qo.quant_int4, 2: qo.quant_int2}[k_bits]
-            k, ks = quant(k, qo.k_mean(k), gran="per_token")
-        if v_mode != "bf16":
-            v, vs, vm = qo.quant_v_int8_per_channel(v, smooth_v=True)
-        kb, pv8 = 8 if k_bits == 16 else k_bits, v_mode == "int8_pv"
-        extra = dict(pv_dtype=torch.float32, out_dtype=torch.float32) if pv32 else {}
-        out = torch.float32 if pv32 else torch.bfloat16
-
-        def call(lse):
-            return lowbit_attention(q, k, v, None, ks, v_scale=vs, v_mean=vm, k_pack_bits=kb, pv_int8=pv8,
-                                    is_causal=causal, bias=bias, return_lse=lse, **extra)
-
-        def plain():
-            return attention_fwd_plain(q, k, v, None, ks, vm, causal=causal, sm_scale_log2e=c, out_dtype=out,
-                                       k_bits=kb, v_scale=vs, pv_int8=pv8, bias=bias, pv_f32=pv32)
-
-        pairs = b * (s * (s + 1) // 2 if causal else s * s)
-        lib = None if library is None else library(q, k, v, bias)
-        r = a_record(name, call, plain, pairs, h, d, "fp" if k_bits == 16 else "int8-PV" if pv8 else "int8",
-                     (q, k, v, ks, vs, vm, bias), b * h * s * d * (4 if pv32 else 2), lib, "A17",
-                     library_backend=None if bias is None and not pv32 else "efficient")
-        if pv32:
-            if r["max_abs_err"] > PV32_MAX_DO:
-                raise AssertionError(f"{name}: fp32 PV max|do| {r['max_abs_err']} > {PV32_MAX_DO}")
-            # The products as the kernel runs them: QK in its type, PV as six bf16 products.
-            qk = {"int8": 2 * d * pairs * h} if k_bits != 16 else {"bf16": 2 * d * pairs * h}
-            pv = 6 * 2 * d * pairs * h
-            r.update(bound(nbytes(q, k, v, ks, vs, vm) + b * h * s * d * 4, {**qk, "bf16": qk.get("bf16", 0) + pv}))
-        records[name] = r
+    def run(name, *args, **kw):
+        records[name] = a_mode_record(gen, name, *args, **kw)
 
     def sdpa_with(dtype, mask):
         """A library call (built before it is timed): SDPA on q and random K
@@ -3904,7 +3973,8 @@ def paged_decode_phase(gen):
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
 
     worst = 0.0
-    for case in decode_cases.PAGED_CASES:
+    # (Phase 25 runs the cases above head dim 256.)
+    for case in (n for n, c in decode_cases.PAGED_CASES.items() if c[3] <= 256):
         r = decode_cases.check_paged_case(case, gen)
         log(f"[D19] {case}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                                          for k, v in r.items()))
@@ -4439,8 +4509,9 @@ def serving_checkpoint_phase():
 #: attention heads and 32 KV heads (head dim 96), 32 layers, vocab_size
 #: 32064, max_position_embeddings 4096, rope_theta 10000. The MLP is
 #: LLMConfig's 4·d, so the model has Phi-3-mini's attention geometry and the
-#: repo's MLP (3.72 B parameters).
-PHI3 = dict(vocab=32064, dim=3072, depth=32, num_heads=32, num_kv_heads=32, max_seq=4096, rope_theta=10000.0)
+#: repo's MLP. Depth 16 of its 32 layers, for the run's time limit (the
+#: widths whole; 1.91 B parameters).
+PHI3 = dict(vocab=32064, dim=3072, depth=16, num_heads=32, num_kv_heads=32, max_seq=4096, rope_theta=10000.0)
 PHI3_BATCH, PHI3_PROMPT, PHI3_NEW = 8, 3968, 64
 #: Kernel D's timed shapes off the ladder, (b, h, hk, S_max): Phi-3-mini's
 #: decode at b8 (head dim 96) and Phi-2's (32 query and 32 KV heads of 80,
@@ -4547,10 +4618,11 @@ def decode_rows_phase(gen, shapes, tag, spec_shape, paged_shape):
     (b, h, hk, S_max)}, every length S_max), against its plain version at
     phase 9's bounds, with the cache's byte bound and SDPA's time (one
     query a head over the bf16 cache of that shape) as the library
-    baseline; then the T-token instance at ``spec_shape`` (d, b, h, hk,
-    S_max; T 4, int8: the speculative verify step) and the paged one at
-    ``paged_shape`` (d, b, h, hk, rows a sequence; pages of 64 in a
-    shuffled pool, int8: the serving engine's tick)."""
+    baseline, with the backend SDPA's dispatch picked for that call; then
+    the T-token instance at ``spec_shape`` (d, b, h, hk, S_max; T 4, int8:
+    the speculative verify step) and the paged one at ``paged_shape`` (d,
+    b, h, hk, rows a sequence; pages of 64 in a shuffled pool, int8: the
+    serving engine's tick; no library call)."""
     from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as DD
     from lowbit_quant_fa2_paddle_tpu_torch.utils import decode_cases
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import cuda_time_ms
@@ -4558,7 +4630,7 @@ def decode_rows_phase(gen, shapes, tag, spec_shape, paged_shape):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     records = {}
 
-    def record(key, call, plain, byte_tensors, q, library_ms):
+    def record(key, call, plain, byte_tensors, q, library_ms, library_backend):
         o, lse = call()
         o2, lse2 = call()
         o_ref, lse_ref = plain()
@@ -4577,12 +4649,13 @@ def decode_rows_phase(gen, shapes, tag, spec_shape, paged_shape):
         log(f"[{tag}] {key}: kernel {ms:.4f} ms ({moved / (ms * 1e-3) / 1e9:.1f} GB/s of {moved / 1e6:.1f} MB), plain "
             f"{plain_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms ({lim['bound_ms'] / ms:.0%}), SDPA {library_ms}")
         records[key] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": library_ms,
-                        "design": DD.kernel_design()}
+                        "library_backend": library_backend, "design": DD.kernel_design()}
 
     for d, (b, h, hk, s) in shapes.items():
         qb = torch.randn(b, h, d, generator=gen, device="cuda").bfloat16()
         kb, vb = (torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
         lib = cuda_time_ms(lambda: sdpa(qb[:, :, None], kb, vb, enable_gqa=True), warmup=3, reps=20)
+        lib_backend = sdpa_picked(qb[:, :, None], kb, vb, enable_gqa=True)
         del qb, kb, vb
         for mode in DECODE_MODES:
             kargs, kkw, pargs, pkw = decode_inputs(gen, b, h, hk, d, s, mode, [s] * b)
@@ -4590,7 +4663,7 @@ def decode_rows_phase(gen, shapes, tag, spec_shape, paged_shape):
             record(f"d{d} {mode} cache b{b} h{h} hk{hk} S_max {s}",
                    lambda: DD.decode_attention(*kargs, **kkw, return_lse=True),
                    lambda: DD.decode_attention_plain(*pargs, **pkw), [x for x in pargs[1:5] if x is not None],
-                   pargs[0], lib)
+                   pargs[0], lib, lib_backend)
             if DD.decode_attention.launches_by_dim[d] == n:
                 raise AssertionError(f"kernel D at d{d} was not launched")
             del kargs, pargs
@@ -4607,7 +4680,8 @@ def decode_rows_phase(gen, shapes, tag, spec_shape, paged_shape):
            lambda: DD.decode_attention_plain(q, kq, vq, ks, vs, lens, sm_scale=d ** -0.5, int_qk=True,
                                              out_dtype=q.dtype, split_keys=plan["split_keys"], warps=plan["warps"]),
            [kq, vq, ks, vs], q,
-           cuda_time_ms(lambda: sdpa(q.transpose(1, 2), k, v, enable_gqa=True), warmup=3, reps=20))
+           cuda_time_ms(lambda: sdpa(q.transpose(1, 2), k, v, enable_gqa=True), warmup=3, reps=20),
+           sdpa_picked(q.transpose(1, 2), k, v, enable_gqa=True))
     del k, v, kq, vq, ks, vs, q
     d, b, h, hk, s = paged_shape
     page = 64
@@ -4624,7 +4698,8 @@ def decode_rows_phase(gen, shapes, tag, spec_shape, paged_shape):
            lambda: DD.decode_attention_paged_plain(q, pool["k"], pool["v"], pool["k_scale"], pool["v_scale"], lens,
                                                    table, sm_scale=d ** -0.5, int_qk=True, out_dtype=q.dtype,
                                                    split_keys=plan["split_keys"], warps=plan["warps"]),
-           [x[:, table.long().flatten()] for x in (pool["k"], pool["v"], pool["k_scale"], pool["v_scale"])], q, None)
+           [x[:, table.long().flatten()] for x in (pool["k"], pool["v"], pool["k_scale"], pool["v_scale"])], q, None,
+           None)
     del pool, q
     return records
 
@@ -4696,7 +4771,7 @@ def decode_step_classes(model, token, caches, cfg):
     return cats
 
 
-def geometry_llm_phase(config, batch, prompt_len, n_new, seed, tag, max_seq=None):
+def geometry_llm_phase(config, batch, prompt_len, n_new, seed, tag, max_seq=None, c1_design="vector"):
     """An LLM of ``config`` (LLMConfig's fields), random weights from a seed,
     bf16: b``batch`` prompts of ``prompt_len`` tokens, ``n_new`` new tokens
     through generate's two stages (llm_prefill, then the CUDA-graph
@@ -4704,7 +4779,7 @@ def geometry_llm_phase(config, batch, prompt_len, n_new, seed, tag, max_seq=None
     rows, else the config's) and with w8 weights (int8 cache; made after
     the other runs, so that only one extra copy of the weights and one cache
     are alive at a time); launches per run (A and C1 a layer at prefill, on
-    the wgmma and vector designs; D a layer and step, all at the head dim; F1
+    the wgmma design and ``c1_design``; D a layer and step, all at the head dim; F1
     six a layer and step with w8); the first decode step's logits cos int8
     vs bf16 cache >= 0.999; a decode step profiled on the int8 cache.
     Returns the model and prompt for the phases that follow."""
@@ -4760,7 +4835,7 @@ def geometry_llm_phase(config, batch, prompt_len, n_new, seed, tag, max_seq=None
             f"median {statistics.median(replay_ms):.3f}, min {min(replay_ms):.3f}, max {max(replay_ms):.3f}; the "
             f"first call {call_s:.2f} s), peak {peak / 2**30:.2f} GiB; kernel D by head dim "
             f"{ {k: v for k, v in d_dim.items() if v} }, variants {variants}")
-        check_counts(f"{tag} {mode}", got, cfg.depth, n_new - 1, f1=f1)
+        check_counts(f"{tag} {mode}", got, cfg.depth, n_new - 1, f1=f1, c1_design=c1_design)
         if d_dim[hd] != cfg.depth * (n_new - 1) or a_dim[dp] != cfg.depth:
             raise AssertionError(f"{tag} {mode}: D launches by head dim {d_dim}, A by kernel dim {a_dim}")
         if first.logits is None or not bool(torch.isfinite(first.logits).all()) or steps.shape != (
@@ -4788,7 +4863,7 @@ def geometry_llm_phase(config, batch, prompt_len, n_new, seed, tag, max_seq=None
 
 
 def phi3_llm_phase():
-    """geometry_llm_phase on PHI3 (3.72 B parameters), b8 prompts of 3,968
+    """geometry_llm_phase on PHI3 (1.91 B parameters), b8 prompts of 3,968
     tokens, 64 new tokens, seed 3."""
     return geometry_llm_phase(PHI3, PHI3_BATCH, PHI3_PROMPT, PHI3_NEW, 3, "phi3")
 
@@ -4999,28 +5074,8 @@ def rt_dim_fused_kv_phase(gen):
     from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E
     from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import attention_flops, cuda_time_ms, tflops
 
-    worst = {}
     design = FK.kernel_design()
-    for d in (48, 112, 192):
-        for bits in (4, 2):
-            for causal in (False, True):
-                name = f"d{d} int{bits} {'causal ' if causal else ''}GQA 8q/2kv sq300 sk1000 group128"
-                args = fused_kv_inputs(gen, 1, 8, 2, 300, 1000, d, bits, 128)
-                n = FK.fused_packed_kv_attention.launches_by_dim[d]
-                o = FK.fused_packed_kv_attention(*args, bits=bits, is_causal=causal, group=128)
-                o2 = FK.fused_packed_kv_attention(*args, bits=bits, is_causal=causal, group=128)
-                o_ref = FK.fused_kv_attention_plain(*args, bits=bits, group=128, causal=causal,
-                                                    sm_scale_log2e=LOG2E / math.sqrt(d), out_dtype=torch.bfloat16)
-                torch.cuda.synchronize()
-                r = stats(o, o_ref)
-                same = torch.equal(o, o2)
-                on_dim = FK.fused_packed_kv_attention.launches_by_dim[d] == n + 2
-                log(f"[E21] {name}: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-                                                 for k, v in r.items()) + f" same_bits_twice={same} on_dim={on_dim}")
-                if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= MAX_DO and same and on_dim):
-                    raise AssertionError(f"kernel E disagrees with its plain version in case {name}: {r}")
-                worst[d] = max(worst.get(d, 0.0), r["max_do"])
-                del args, o, o2, o_ref
+    worst = fused_kv_edges(gen, (48, 112, 192), "E21")
     b, h, s, d, bits, group = 4, 32, 8192, 112, 4, 256
     args = fused_kv_inputs(gen, b, h, h, s, s, d, bits, group)
     flops = attention_flops(b, h, d, s, s, False)
@@ -5083,6 +5138,248 @@ def mpt_serving_phase(model):
     PHI3_TIE's near-tie rule, every D launch on the paged variant at d112."""
     return geometry_serving_phase(model, MPT_SERVE_LENS, MPT_SERVE_NEW, MPT_BATCH, PHI3_TIE, "mpt", 21,
                                   max_seq=MPT_CACHE_ROWS)
+
+# ---------------------------------------------------------------------------
+# Phase 25: kernels A, D and E above head_dim 256 (up to 512), and an LLM of
+# 8 heads of 512 at full width (generate, chunked prefill, speculative
+# decoding, serving).
+# ---------------------------------------------------------------------------
+
+#: Phase 13's width (dim 4096) as 8 query heads of 512 over 2 KV heads: the
+#: cache holds phase 13's bytes a token (2 x 512 = 8 x 128 a side), so kernel
+#: D's rows read against phase 9's d128 rows. No public model the port runs
+#: has heads this wide. Depth 8 (the 128K phase's cut, for the run's time
+#: limit; the widths are whole), random weights from a seed, caches of
+#: 32,768 rows.
+HD512 = dict(vocab=256, dim=4096, depth=8, num_heads=8, num_kv_heads=2, max_seq=32768)
+HD512_BATCH, HD512_PROMPT, HD512_NEW, HD512_CHUNK = 4, 32704, 64, 4096
+#: Kernel D's edge cases above 256 (utils/decode_cases.py) and its timed
+#: decode shape: the hd512 LLM's b4 at 32K.
+HD512_EDGE_DIMS = (272, 320, 400, 512)
+HD512_DECODE_SHAPES = {512: (4, 8, 2, 32768)}
+#: The engine's traffic: 8 requests of 1,024-4,032 tokens, 32 new each, over
+#: pages of 64 in 8 slots (phases 20-21's), caches of 4,096 rows.
+HD512_SERVE_LENS, HD512_SERVE_NEW, HD512_SERVE_ROWS = (1024, 1500, 2000, 2500, 3000, 3333, 3700, 4032), 32, 4096
+
+
+def sdpa_picked(q, k, v, **kw):
+    """The backend SDPA's own dispatch picks for a call on q, k, v (its
+    keyword arguments ``kw``), as the dispatcher names it
+    (``torch._fused_sdp_choice``), or "refuses" where it has none."""
+    from torch.nn.attention import SDPBackend
+
+    name = SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
+    return "refuses" if name == "ERROR" else name.lower().replace("_attention", "")
+
+
+def hd512_edge_phase(gen):
+    """Kernel A's head_dim-512 grid of utils/mask_cases.py (every mode at
+    512, and 320 and 448 padded to 512, unmasked, at the masks' edges and
+    with the bias) against attention_fwd_plain at phase 4's bounds, the same
+    bits twice, every launch on the wgmma design at kernel dim 512; kernel D
+    at head dims 272, 320, 400 and 512 (dim_edge_phase); kernel E at 320
+    and 512 (fused_kv_edges). Returns the worst max|do| of each."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import attention_fwd_plain, lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.utils import mask_cases
+
+    worst_a = 0.0
+    for mode, edge in mask_cases.d512_cases():
+        case = mask_cases.make_case(mode, edge, gen, "cuda")
+        n, n_dim = lowbit_attention.launches_by_design["wgmma"], lowbit_attention.launches_by_dim[512]
+        o, lse = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+        o2, lse2 = lowbit_attention(*case["args"], **case["kw"], return_lse=True)
+        o_ref, lse_ref = attention_fwd_plain(*case["plain_args"], **case["plain_kw"])
+        torch.cuda.synchronize()
+        r = mask_cases.masked_stats(o, lse, o_ref, lse_ref)
+        r["same_bits_twice"] = torch.equal(o, o2) and torch.equal(lse, lse2)
+        r["on_design"] = (lowbit_attention.launches_by_design["wgmma"] == n + 2
+                          and lowbit_attention.launches_by_dim[512] == n_dim + 2)
+        r["empty_ok"] = r["empty_ok"] and r["empty_rows"] == case["empty_rows"]
+        check_masked(f"{mode} {edge}", r, "A25")
+        worst_a = max(worst_a, r["max_do"])
+        del case, o, o2, lse, lse2, o_ref, lse_ref
+    log(f"[A25] {len(mask_cases.d512_cases())} cases at kernel dim 512; worst max|do| {worst_a:.4g}")
+    worst_d = dim_edge_phase(gen, HD512_EDGE_DIMS, "D25")
+    worst_e = fused_kv_edges(gen, (320, 512), "E25")
+    return {"A": worst_a, "D": worst_d, "E": worst_e}
+
+
+def hd512_quant_phase(gen):
+    """Kernel C1 at the hd512 LLM's prefill K (b4, 2 KV heads, 32,704 rows of
+    512, per token with its mean): rows of 1,024 bytes are 64 lanes of 16,
+    past the vector design's 32, so the scalar design runs it; codes and
+    scales bit-equal to quant_int8_plain, then timed as phase 3 times it."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import k_mean, kernel_design, quant_int8, quant_int8_plain
+
+    b, hk, s, d = HD512_BATCH, HD512["num_kv_heads"], HD512_PROMPT, 512
+    k = (torch.randn(b, hk, s, d, generator=gen, device="cuda") + 0.5).bfloat16()
+    km = k_mean(k)
+    design = kernel_design(k, 8, True, 128)
+    n = quant_int8.launches_by_design[design]
+    codes, scale = quant_int8(k, km, gran="per_token")
+    on_design = quant_int8.launches_by_design[design] == n + 1
+    want_c, want_s = quant_int8_plain(k, km, per_token=True, block=128)
+    torch.cuda.synchronize()
+    same = torch.equal(codes, want_c) and torch.equal(scale, want_s)
+    log(f"[C1-25] prefill K b{b} h{hk} s{s} d{d} ({design}): codes_equal={torch.equal(codes, want_c)} "
+        f"scales_equal={torch.equal(scale, want_s)} on_design={on_design}")
+    if not (same and on_design and design == "scalar"):
+        raise AssertionError(f"kernel C1 at the hd512 prefill's K: design {design}, equal {same}")
+    del k, km, codes, scale, want_c, want_s
+    ks = [(torch.randn(b, hk, s, d, generator=gen, device="cuda") + 0.5).bfloat16() for _ in range(2)]
+    rec = {"max_abs_err": 0.0, **time_quant("C1-25", f"b{b} h{hk} s{s} d{d}", quant_int8, quant_int8_plain, ks,
+                                            "per_token", 128, 8)}
+    del ks
+    return rec
+
+
+def hd512_attention_phase(gen):
+    """Kernel A at head_dim 512 in every mode at bench.py:119's b4 h8 s4096
+    (SDPA bf16 at the fp mode's shape, under its own dispatch, the backend
+    it picked named), and int8 at the hd512 LLM's prefill (b4 h8 hk2 s32704
+    causal); then kernel E at b4 h8 s4096 d512 int4 (group 256) beside SDPA
+    on the dequantized bf16 K/V. Each against its plain version, the same
+    bits twice, timed."""
+    from lowbit_quant_fa2_paddle_tpu_torch.ops import fused_kv as FK
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E
+    from lowbit_quant_fa2_paddle_tpu_torch.utils.benchmark import attention_flops, cuda_time_ms, tflops
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    records = {}
+    backends = {}
+
+    def fp_library(q, k, v, _):
+        backends["fp"] = sdpa_picked(q, k, v)
+        log(f"[A25] SDPA bf16 at b4 h8 s4096 d512: {backends['fp']}")
+        return None if backends["fp"] == "refuses" else (lambda: sdpa(q, k, v))
+
+    bench = (4, 8, 8, 4096, 512, False)
+    for mode, (k_bits, v_mode) in A17_MODES.items():
+        name = f"d512 {mode}; b4 h8 s4096 d512"
+        records[name] = a_mode_record(gen, name, *bench, k_bits, v_mode, prefix="A25",
+                                      library=fp_library if mode == "fp" else None)
+        records[name]["library_backend"] = backends.get("fp") if mode == "fp" else None
+    b, h, hk, s = HD512_BATCH, HD512["num_heads"], HD512["num_kv_heads"], HD512_PROMPT
+    name = f"d512 int8; hd512 LLM prefill b{b} h{h} hk{hk} s{s} d512 causal"
+    records[name] = a_mode_record(gen, name, b, h, hk, s, 512, True, 8, "bf16", prefix="A25")
+    # Kernel E at d512.
+    b, h, s, d, bits, group = 4, 8, 4096, 512, 4, 256
+    args = fused_kv_inputs(gen, b, h, h, s, s, d, bits, group)
+    o = FK.fused_packed_kv_attention(*args, bits=bits)
+    o2 = FK.fused_packed_kv_attention(*args, bits=bits)
+    o_ref = FK.fused_kv_attention_plain(*args, bits=bits, group=group, causal=False,
+                                        sm_scale_log2e=LOG2E / math.sqrt(d), out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    r = stats(o, o_ref)
+    if not (r["finite"] and r["cos"] >= COS_MIN and r["max_do"] <= MAX_DO and torch.equal(o, o2)):
+        raise AssertionError(f"kernel E at d512 disagrees with its plain version: {r}")
+    del o, o2, o_ref
+    flops = attention_flops(b, h, d, s, s, False)
+    ms = cuda_time_ms(lambda: FK.fused_packed_kv_attention(*args, bits=bits), warmup=2, reps=10)
+    plain_ms = cuda_time_ms(lambda: FK.fused_kv_attention_plain(*args, bits=bits, group=group, causal=False,
+                                                                 sm_scale_log2e=LOG2E / math.sqrt(d),
+                                                                 out_dtype=torch.bfloat16), warmup=1, reps=2)
+    kd = FK.dequant_kv_grouped(args[1], args[3], args[4], bits=bits, group=group)
+    vd = FK.dequant_kv_grouped(args[2], args[5], args[6], bits=bits, group=group)
+    backend = sdpa_picked(args[0], kd, vd)
+    sdpa_ms = None if backend == "refuses" else cuda_time_ms(lambda: sdpa(args[0], kd, vd), warmup=2, reps=10)
+    del kd, vd
+    lim = bound(nbytes(*args) + nbytes(args[0]), {"bf16": flops})
+    log(f"[E25] int4 b{b} h{h} s{s} d{d}: {r}; kernel {ms:.3f} ms ({tflops(flops, ms / 1e3):.1f} TFLOP/s), plain "
+        f"{plain_ms:.3f} ms, bound {lim['bound_ms']:.3f} ms ({lim['bound_by']}); SDPA on the dequantized bf16 K/V "
+        f"({backend}) {sdpa_ms}")
+    count_reset()
+    o = FK.fused_packed_kv_attention(*args, bits=bits)
+    torch.cuda.synchronize()
+    got = counts()
+    by_dim = {k: v for k, v in FK.fused_packed_kv_attention.launches_by_dim.items() if v}
+    log(f"[E25] entry point fused_packed_kv_attention(bits=4) b{b} h{h} s{s} d{d}: launches {got}, E by head dim "
+        f"{by_dim}")
+    if got != {key: int(key == "E") for key in got} or by_dim != {d: 1} or not bool(torch.isfinite(o.float()).all()):
+        raise AssertionError(f"kernel E entry point at d{d}: launches {got}, by head dim {by_dim}")
+    records["E"] = {"max_abs_err": r["max_do"], "ms": ms, "plain_ms": plain_ms, **lim, "library_ms": sdpa_ms,
+                    "library_backend": backend, "launches": got["E"], "design": FK.kernel_design()}
+    return records
+
+
+def hd512_decode_phase(gen):
+    """decode_rows_phase at HD512_DECODE_SHAPES (the hd512 LLM's decode: b4
+    h8 hk2 S_max 32768, every cache mode), its T-token row at b1 (the
+    verify step) and its paged row at b8 with 4,096 rows a sequence (the
+    engine's tick), each timed SDPA call with the backend it picked."""
+    _, h, hk, s = HD512_DECODE_SHAPES[512]
+    recs = decode_rows_phase(gen, HD512_DECODE_SHAPES, "D25", (512, 1, h, hk, s), (512, 8, h, hk, HD512_SERVE_ROWS))
+    for key, r in recs.items():
+        log(f"[D25] {key}: SDPA bf16 {r['library_backend']}")
+    return recs
+
+
+def hd512_llm_phase():
+    """geometry_llm_phase on HD512 at depth 8, b4 prompts of 32,704 tokens,
+    64 new tokens, seed 25: every A at kernel dim 512, every D at head dim
+    512 (the instances laid out for 512), C1 on the scalar design (rows of
+    1,024 bytes), D's share of one profiled decode step."""
+    return geometry_llm_phase(HD512, HD512_BATCH, HD512_PROMPT, HD512_NEW, 25, "hd512", c1_design="scalar")
+
+
+def hd512_chunked_phase(model, prompt):
+    """llm_prefill_chunked (chunks of 4,096) of the hd512 LLM's prompts into
+    the int8 and the k4v8 cache against the one-shot llm_prefill's
+    last-token logits (cos >= 0.999 int8, >= 0.995 k4v8), launches (A a
+    layer a chunk in-chunk and over the cache's codes from the second, all
+    at kernel dim 512; C1 a layer a chunk); then kernel A on the last chunk
+    (in-chunk, and over the cache's int8 codes or packed INT4 K) against the
+    plain version (long_prefill_attention_check)."""
+    from lowbit_quant_fa2_paddle_tpu_torch.models import llm
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import lowbit_attention
+    from lowbit_quant_fa2_paddle_tpu_torch.ops.metrics import cosine_similarity
+
+    res = {}
+    chunk = HD512_CHUNK
+    n_chunks = -(-prompt.shape[1] // chunk)
+    for mode, bits, cos_min in (("int8", dict(kv_bits=8), 0.999), ("k4v8", dict(kv_bits=8, k_bits=4), 0.995)):
+        cfg = dataclasses.replace(model.cfg, **bits)
+        torch.cuda.empty_cache()
+        logits, caches = llm.llm_prefill(model, prompt, cfg)
+        full_last = logits[:, -1].float()
+        del logits, caches
+        count_reset()
+        t0 = time.perf_counter()
+        last, caches = llm.llm_prefill_chunked(model, prompt, cfg, chunk=chunk)
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - t0
+        got, a512 = counts(), lowbit_attention.launches_by_dim[512]
+        cos = float(cosine_similarity(last.float(), full_last))
+        log(f"[hd512] {mode} chunked prefill (chunk {chunk}) {chunked_s:.3f} s vs one-shot last-token logits cos "
+            f"{cos:.6f} (>= {cos_min}); launches {got}, kernel A at d512 {a512}")
+        if cos < cos_min:
+            raise AssertionError(f"hd512 {mode}: chunked vs one-shot prefill cos {cos} < {cos_min}")
+        if got["A"] != a512 or a512 != model.cfg.depth * (2 * n_chunks - 1) or got["C1"] != model.cfg.depth * n_chunks:
+            raise AssertionError(f"hd512 {mode} chunked prefill launches {got}, A at d512 {a512}")
+        c0 = (n_chunks - 1) * chunk
+        cross = long_prefill_attention_check(model, prompt[:, c0:], caches[0], c0, cfg,
+                                             where=f"hd512 {mode} chunked prefill", tag="hd512")
+        res[mode] = {"prefill_s": chunked_s, "cos": cos, "a_d512": a512, "c1": got["C1"], "A_cross": cross,
+                     "cross_launches": a512 - got["C1"]}
+        del caches, last, full_last
+    return res
+
+
+def hd512_spec_phase(model, prompt):
+    """spec_full_width_phase on the hd512 model: b1 from the first of its
+    32,704-token prompts, int8 cache of 32,832 rows (the prompt, 64 new
+    tokens and spec_k more, rounded to a page), spec_k 4, the int4-cache and
+    w4 self-drafts token-equal to generate, every verify step on kernel D's
+    T-token instance laid out for 512."""
+    return spec_full_width_phase(model, prompt, "spec25", max_seq=HD512["max_seq"] + 64)
+
+
+def hd512_serving_phase(model):
+    """geometry_serving_phase on the hd512 model: 8 slots, int8 pages of 64,
+    HD512_SERVE_LENS requests of 32 new tokens (seed 25), PHI3_TIE's
+    near-tie rule, every D launch on the paged variant at d512."""
+    return geometry_serving_phase(model, HD512_SERVE_LENS, HD512_SERVE_NEW, 8, PHI3_TIE, "hd512", 25,
+                                  max_seq=HD512_SERVE_ROWS)
 
 
 def rank_suites_phase():
@@ -5739,6 +6036,19 @@ def run():
     toy = timed(toy_llm_phase)
     # Phase 24: the tooling.
     tool = timed(tooling_phase, gen, dit_r, llm_r)
+    # Phase 25: A, D and E above head_dim 256 (their edge grids, then timed
+    # rows), then the LLM of 8 heads of 512: generate in every cache mode and
+    # w8, the chunked prefill, speculative decoding, the serving engine.
+    edge25 = timed(hd512_edge_phase, gen)
+    c1_25 = timed(hd512_quant_phase, gen)
+    a25 = timed(hd512_attention_phase, gen)
+    d25 = timed(hd512_decode_phase, gen)
+    hd512 = timed(hd512_llm_phase)
+    model_25, prompt_25 = hd512.pop("_model"), hd512.pop("_prompt")
+    chunked25 = timed(hd512_chunked_phase, model_25, prompt_25)
+    spec25 = timed(hd512_spec_phase, model_25, prompt_25)
+    serve25 = timed(hd512_serving_phase, model_25)
+    del model_25, prompt_25
     src = f"{PKG}/csrc"
     dl = dit_r["launches"]
     replaces_a = "lowbit_quant_fa2_paddle_tpu/ops/attention.py:1502"
@@ -6090,8 +6400,68 @@ def run():
              launches=r["launches"], **{k_: r[k_] for k_ in f_keys})
         for (mode, n, k), r in tool["gemv"].items()
     ]
+    # Phase 25: A at kernel dim 512 launched by every prefill of the hd512
+    # runs (the one-shot prefills at b4 32,704 tokens, the chunked prefill's
+    # in-chunk calls, the speculative and engine prefills), in the int8 mode
+    # with Q quantized in the kernel, and by the chunked prefill over the
+    # cache's int8 codes or packed INT4 K (rows of their own); the other
+    # modes are on no model path. D at d512: each cache's generate, the
+    # verify steps and the engine's ticks. C1 the hd512 prefills' K (scalar
+    # design); E its entry point's launch.
+    hd512_modes = ("int8", "bf16", "int4", "k4v8", "w8")
+    a25_launches = (sum(hd512[m]["launches"]["A"] for m in hd512_modes)
+                    + sum(r["a_d512"] - r["cross_launches"] for r in chunked25.values())
+                    + sum(r["launches"]["A"] for r in spec25.values() if "launches" in r) + serve25["launches"]["A"])
+    c0_25 = (-(-HD512_PROMPT // HD512_CHUNK) - 1) * HD512_CHUNK
+    c1_25_launches = (sum(hd512[m]["launches"]["C1"] for m in hd512_modes) + sum(r["c1"] for r in chunked25.values())
+                      + sum(r["launches"]["C1"] for r in spec25.values() if "launches" in r)
+                      + serve25["launches"]["C1"])
+    b5, h5, hk5 = HD512_BATCH, HD512["num_heads"], HD512["num_kv_heads"]
+    prefill25 = f"hd512 LLM prefill b{b5} h{h5} hk{hk5} s{HD512_PROMPT} d512 causal"
+    a5_src = dict(route="cuda", source=f"{src}/attention_fwd_wgmma_d512.cu", replaces=replaces_a)
+    a25_keys = a_keys + ("library_backend",)
+    d25_launches = {f"d512 {mode} cache b{b5} h{h5} hk{hk5} S_max 32768": hd512[mode]["launches"]["D"]
+                    for mode in ("bf16", "int4", "k4v8")}
+    d25_launches[f"d512 int8 cache b{b5} h{h5} hk{hk5} S_max 32768"] = (hd512["int8"]["launches"]["D"]
+                                                                        + hd512["w8"]["launches"]["D"])
+    d25_launches[f"d512 T4 int8 cache b1 h{h5} hk{hk5} S_max 32768 (verify step)"] = spec_launches(
+        "T-token T4 k8v8 b1", spec25)
+    d25_launches[f"d512 paged int8 cache, pages of 64, b8 h{h5} hk{hk5} {HD512_SERVE_ROWS} rows a sequence (engine "
+                 f"tick)"] = serve25["variants"].get("paged T-token T1 k8v8 b8", 0)
+    kernels += [
+        dict(name=f"attention_fwd (d512 {mode}; b4 h8 s4096 d512)",
+             launches=0, **a5_src, **{k: a25[f"d512 {mode}; b4 h8 s4096 d512"].get(k) for k in a25_keys})
+        for mode in A17_MODES
+    ] + [
+        dict(name=f"attention_fwd (int8, Q quantized in-kernel; {prefill25})", launches=a25_launches, **a5_src,
+             **{k: a25[f"d512 int8; {prefill25}"].get(k) for k in a_keys}),
+    ] + [
+        dict(name=f"attention_fwd ({'int8' if mode == 'int8' else 'packed int4'} K d512; hd512 chunked prefill's last "
+             f"chunk over the cache, b{b5} h{h5} hk{hk5} sq{HD512_PROMPT - c0_25} sk{c0_25} d512)",
+             launches=r["cross_launches"], **a5_src, **{k: r["A_cross"][k] for k in a_keys})
+        for mode, r in chunked25.items()
+    ] + [
+        dict(name=f"quant_int8 (hd512 LLM prefill K b{b5} h{hk5} s{HD512_PROMPT} d512)", **quant_src,
+             replaces=replaces_c + "215", launches=c1_25_launches, **c1_25),
+        dict(name="fused_packed_kv_attention (int4 K/V, b4 h8 s4096 d512: the width-512 kernel)", route="cuda",
+             source=f"{src}/fused_kv_attention_wgmma_d512.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py:377",
+             launches=a25["E"]["launches"], **{k: a25["E"][k] for k in timing + ("design", "library_backend")}),
+    ] + [
+        dict(name=f"decode_attention ({key})", route="cuda",
+             source=f"{src}/decode_attention_" + ("paged_" if "paged" in key else "multi_" if "T4" in key else "")
+             + "dyn512.cu", replaces="lowbit_quant_fa2_paddle_tpu/ops/decode.py:727",
+             launches=d25_launches.get(key, 0), **{k: d25[key][k] for k in timing + ("design", "library_backend")})
+        for key in d25
+    ]
     log(f"[toy] phase 23 toy LLM: loss {toy['losses'][0]:.4f} -> {toy['losses'][-1]:.4f} in {toy['train_s']:.1f} s; "
         f"exact-match by cache {toy['acc']} (checkpoint {toy['ckpt_acc']})")
+    log(f"[hd512] phase 25 edge grids worst max|do| {edge25}; generate ms/token by cache "
+        + ", ".join(f"{m} {hd512[m]['decode_ms_per_token']:.3f}" for m in hd512_modes)
+        + f"; D {hd512['profile']['D']:.3f} of "
+        f"{hd512['profile']['D'] + hd512['profile']['GEMM'] + hd512['profile']['other']:.3f} device ms of an eager "
+        f"int8 decode step; chunked vs one-shot cos " + ", ".join(f"{m} {r['cos']:.6f}" for m, r in chunked25.items())
+        + f"; speculative (int4 self-draft) {spec25['self, int4 cache']['decode_ms_per_token']:.3f} ms per token "
+        f"without its prefills; engine {serve25['tokens_per_s']:.1f} tokens/s")
     log(f"[mpt] phase 21 D edge grid worst max|do| by head dim {edge21}; E worst by head dim {e21['worst_by_dim']}; "
         f"generate ms/token by cache " + ", ".join(f"{m} {mpt[m]['decode_ms_per_token']:.3f}" for m in mpt_modes)
         + f"; speculative (int4 self-draft) {spec21['self, int4 cache']['decode_ms_per_token']:.3f} ms per token "

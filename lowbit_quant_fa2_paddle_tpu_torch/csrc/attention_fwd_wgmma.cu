@@ -105,6 +105,26 @@
 // the next (a 64 x 256 s32 tile beside O would not fit), without the overlap
 // of S and PV. Head dims 129-255 are zero-padded to 256 by the caller.
 //
+// Head_dim 512 (attention_fwd_wgmma_d512.cu and _d512_masked.cu): a 64 x
+// 512 f32 O is 256 registers a thread, above the 255 one can have, so the
+// two consumer warpgroups share one block of 64 query rows (kCS = 2), each
+// owning 256 of O's columns as the d256 kernel's warpgroup does (PV as two
+// m64n128k16 products a 16-key step, INT8 PV in two 128-column halves).
+// Each computes the whole S = Q K^T (m64n64, 16 int8 or 32 bf16 steps of
+// depth) and the same softmax from it, rather than one computing S and
+// handing P over through shared memory: the same instructions on the same
+// inputs give both the same P, no barrier or buffer sits between S and PV,
+// and the price is QK's products twice (1.5 times the tensor work of one
+// S, 3 x 2 x 64 x 64 x 512 a tile). Both fill the Q tile together and wait
+// on one named barrier. KV tiles of 64 keys; the ring has two stages for
+// int8 K with bf16 V (98-99 KB a stage beside the 32 KB int8 Q tile) and
+// one for bf16 K (64 KB K + 64 KB V a stage beside the 64 KB bf16 Q tile)
+// and for staged packed K or INT8 V, where PV of a tile runs before the
+// next tile's S (kSerialPV): the next tile lands in the stage PV reads. INT8 V rows of 512 bytes come as two
+// 256-byte boxes of a 4-d tensor map (a box row holds 256 elements at
+// most). fp32 PV has no d512 kernel: its V terms (192 KB a 64-key stage)
+// do not fit beside Q.
+//
 // fp32 PV (kPV32, attention_fwd_wgmma_pv32.cu and attention_fwd_wgmma_pv32_d256.cu):
 // the masked kernels with 64-key tiles, P = ex2(s - m) in f32, l summed in
 // f32, P split into three bf16 terms P1 = bf16(P), P2 = bf16(P - P1), P3 =
@@ -141,8 +161,9 @@
 //   the leading keys every row sees under a window; q_offset: added to every
 //   query's position (causal only); logit_cap2: cap * log2(e), 0 for none;
 //   pv32: fp32 PV (not with v_mode 2).
-//   D: 64, 128 (this source's kernels) or 256 (attention_fwd_wgmma_d256.cu);
-//   fp32 PV runs attention_fwd_wgmma_pv32.cu's kernels (64/128) or
+//   D: 64, 128 (this source's kernels), 256 (attention_fwd_wgmma_d256.cu)
+//   or 512 (attention_fwd_wgmma_d512.cu, with masks or a bias
+//   attention_fwd_wgmma_d512_masked.cu; not with pv32); fp32 PV runs attention_fwd_wgmma_pv32.cu's kernels (64/128) or
 //   attention_fwd_wgmma_pv32_d256.cu's, and a bias without it
 //   attention_fwd_wgmma_bias.cu's.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for a D, mode or pv32
@@ -159,7 +180,8 @@ extern "C" int lowbit_attn_fwd_wgmma(const void* q, const void* k, const void* v
   if (const int bad = attn_check(c)) return bad;
   if (pv32) return D == 256 ? attn_fwd_pv32_d256(c) : attn_fwd_pv32(c);
   if (D == 256) return attn_fwd_d256(c);
-  if (bias) return attn_fwd_bias(c);
   const BiasArgs a = args_of(c);
+  if (D == 512) return bias || has_masks(a) ? attn_fwd_d512_masked(c) : attn_fwd_d512(c);
+  if (bias) return attn_fwd_bias(c);
   return D == 64 ? dispatch<64>(a, v_mode == 2, k, v, B, c.stream) : dispatch<128>(a, v_mode == 2, k, v, B, c.stream);
 }

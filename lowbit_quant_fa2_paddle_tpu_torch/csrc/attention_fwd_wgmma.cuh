@@ -2,9 +2,11 @@
 // attention_fwd_wgmma.cu (head dims 64 and 128, and the one C entry),
 // attention_fwd_wgmma_bias.cu (the bias at 64 and 128),
 // attention_fwd_wgmma_pv32.cu (fp32 PV at 64 and 128),
-// attention_fwd_wgmma_pv32_d256.cu (fp32 PV at 256) and
-// attention_fwd_wgmma_d256.cu (head_dim 256, every other mode). The design note is
-// in attention_fwd_wgmma.cu.
+// attention_fwd_wgmma_pv32_d256.cu (fp32 PV at 256),
+// attention_fwd_wgmma_d256.cu (head_dim 256, every other mode) and
+// attention_fwd_wgmma_d512.cu / attention_fwd_wgmma_d512_masked.cu (head_dim
+// 512 without and with masks or a bias). The design note is in
+// attention_fwd_wgmma.cu.
 
 #pragma once
 
@@ -35,21 +37,30 @@ int attn_fwd_d256(const AttnFwdCall& c);
 int attn_fwd_pv32(const AttnFwdCall& c);
 int attn_fwd_pv32_d256(const AttnFwdCall& c);
 int attn_fwd_bias(const AttnFwdCall& c);
+int attn_fwd_d512(const AttnFwdCall& c);
+int attn_fwd_d512_masked(const AttnFwdCall& c);
 
 namespace {
 
 using namespace sm90;
 
-// Keys per KV tile: 128, or 64 at d256 (the registers of its 64 x 256 O
-// accumulator beside S; two stages of bf16 K and V beside its Q tile) and
-// with fp32 PV (V's three bf16 terms, 6 bytes an element in the ring).
+// Keys per KV tile: 128, or 64 at d256 and d512 (the registers of a 64 x
+// 256 O accumulator beside S; two stages of bf16 K and V beside its Q tile)
+// and with fp32 PV (V's three bf16 terms, 6 bytes an element in the ring).
 template <int D, bool kPV32 = false>
-constexpr int kBKV = D == 256 || kPV32 ? 64 : 128;
+constexpr int kBKV = D >= 256 || kPV32 ? 64 : 128;
 // Consumer warpgroups per CTA, each owning 64 query rows: three at d64 (more
 // softmax warps to hide its latency), two at d128 and d256 (the registers of
-// the O accumulator), and two at d64 with fp32 PV (P's three fragments).
+// the O accumulator), and two at d64 with fp32 PV (P's three fragments). At
+// d512 the two share 64 rows (kCS).
 template <int D, bool kPV32 = false>
 constexpr int kNWG = D == 64 && !kPV32 ? 3 : 2;
+// Warpgroups that split one 64-row block's O by columns: 2 at d512, each
+// owning 256 columns (a 64 x 512 f32 O is 256 registers a thread, above
+// the 255 a thread can have), each computing the whole S itself and the
+// same softmax from it; 1 below.
+template <int D>
+constexpr int kCS = D > 256 ? 2 : 1;
 constexpr float MASK_VALUE = (float)(-0.7 * 3.4028234663852886e38);
 constexpr float NEG_INIT = -1e30f;
 constexpr float LOG2_127 = 6.9886846867721655f;
@@ -104,7 +115,7 @@ using ArgsOf = typename std::conditional<kBias, BiasArgs, typename std::conditio
 template <int D, bool kInt8, bool kStaged, bool kMasks, bool kPV32 = false, bool kBias = false>
 struct Layout {
   static constexpr int BKV = kBKV<D, kPV32>;
-  static constexpr int BQ = 64 * kNWG<D, kPV32>;  // query rows per CTA
+  static constexpr int BQ = 64 * kNWG<D, kPV32> / kCS<D>;  // query rows per CTA
   // Columns of a V row in shared memory: D, or with fp32 PV its three bf16
   // terms V1 | V2 | V3.
   static constexpr int kVCols = kPV32 ? 3 * D : D;
@@ -219,7 +230,7 @@ __device__ __forceinline__ void widen_k(const uint32_t* src, unsigned char* Kt, 
 // halves of swizzled 128-byte rows), one of 128 producer threads.
 template <int D, int BKV>
 __device__ __forceinline__ void widen_v(const uint2* src, unsigned char* Vt, int ptid) {
-  if constexpr (D == 256) {
+  if constexpr (D >= 256) {
     // Four 8-byte groups at a time (as widen_k at d256).
 #pragma unroll 4
     for (int i = 0; i < BKV * D / 8 / 128; ++i) {
@@ -283,13 +294,18 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
   constexpr int kSw = L::kSw;
   using SAcc = typename std::conditional<kInt8, int, float>::type;
   constexpr int NWG = kNWG<D, kPV32>, BQ = L::BQ, BKV = L::BKV;
-  // INT8 PV at d256 multiplies in two halves of 128 columns, one after the
-  // other: a 64 x 256 s32 tile beside the f32 O would not fit the registers.
-  constexpr bool kSplitPV8 = kPV8 && D == 256;
+  // O columns a consumer warpgroup owns (kCS warpgroups share 64 rows).
+  constexpr int CS = kCS<D>, DV = D / CS;
+  static_assert(CS == 1 || !kPV32, "fp32 PV has no column split");
+  // INT8 PV at d256 (and on d512's 256-column halves) multiplies in two
+  // halves of 128 columns, one after the other: a 64 x 256 s32 tile beside
+  // the f32 O would not fit the registers.
+  constexpr bool kSplitPV8 = kPV8 && DV == 256;
   // fp32 PV sums each tile's products in 64-column blocks, one block waited
   // for and added to O before the next (pv32_blocks below), so PV and S take
-  // turns.
-  constexpr bool kSerialPV = kSplitPV8 || kPV32;
+  // turns. A ring of one stage (d512's bf16 QK and staged modes) also runs
+  // PV before the next tile's S: the next tile lands in the stage PV reads.
+  constexpr bool kSerialPV = kSplitPV8 || kPV32 || S == 1;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -374,7 +390,11 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
               tma_load_3d(Kt + c * BKV * kSw, &k_map, &full[st], c * kSw / (kInt8 ? 1 : 2), key0, kh);
           }
           if (v_int8) {
-            tma_load_3d(smem + L::kV8Off + st * L::kV8Bytes, &v_map, &staged[st], 0, key0, kh);
+            // (Rows wider than a 256-byte box come as two boxes of a 4-d map.)
+            if constexpr (D > 256)
+              tma_load_4d(smem + L::kV8Off + st * L::kV8Bytes, &v_map, &staged[st], 0, 0, key0, kh);
+            else
+              tma_load_3d(smem + L::kV8Off + st * L::kV8Bytes, &v_map, &staged[st], 0, key0, kh);
           } else {
 #pragma unroll
             for (int c = 0; c < L::kVCols / 64; ++c)
@@ -421,11 +441,12 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
       }
     }
   } else {
-    // ---- consumers: warpgroup wg owns CTA rows 64*wg .. 64*wg + 63 ----
+    // ---- consumers: warpgroup wg owns CTA rows 64*(wg/CS) .. + 63 and O
+    // columns DV*(wg%CS) .. + DV - 1 ----
     setmaxnreg_inc<NWG == 2 ? 232 : 160>();
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int r_base = 64 * wg;
+    const int r_base = 64 * (wg / CS), cb = wg % CS;
     unsigned char* Qs = smem + L::kQOff;
     float* qs_s = reinterpret_cast<float*>(smem + L::kQsOff);
     const long long qh = (long long)b * H + h;
@@ -435,21 +456,22 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
     // quantized per row (the TPU kernel's fused_quant_q):
     // scale = fma(amax, 1/127, 1e-7), code = clamp(roundf(q / scale)), and
     // the row scale carries sm_scale * log2(e).
+    // (With CS > 1 the row block's warpgroups share the work and the Q tile.)
     if (!kInt8 || args.q_mode == Q_INT8) {
       const unsigned char* qg = static_cast<const unsigned char*>(args.q) + qh * Sq * L::kRowBytes;
       constexpr int CPR = L::kRowBytes / 16;
-      for (int c = tid; c < 64 * CPR; c += 128) {
+      for (int c = tid + 128 * cb; c < 64 * CPR; c += 128 * CS) {
         const int r = r_base + c / CPR, byte = (c % CPR) * 16;
         int4 val = make_int4(0, 0, 0, 0);
         if (q0 + r < Sq) val = *reinterpret_cast<const int4*>(qg + (long long)(q0 + r) * L::kRowBytes + byte);
         *reinterpret_cast<int4*>(Qs + (byte / kSw) * BQ * kSw + swizzle_offset<kSw>(r * kSw + byte % kSw)) = val;
       }
-      if (kInt8 && tid < 64)
+      if (kInt8 && tid < 64 && cb == 0)
         qs_s[r_base + tid] = q0 + r_base + tid < Sq ? args.q_scale[qh * Sq + q0 + r_base + tid] : 0.0f;
     } else {
       constexpr int E = D / 32;  // contiguous elements per lane
       const bool q_f32 = args.q_mode == Q_FUSED_F32;
-      for (int rr = 0; rr < 16; ++rr) {
+      for (int rr = cb * (16 / CS); rr < (cb + 1) * (16 / CS); ++rr) {
         const int r = r_base + warp * 16 + rr;
         const bool ok = q0 + r < Sq;
         const long long at = (qh * Sq + q0 + r) * D + lane * E;
@@ -463,15 +485,21 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
           amax = fmaxf(amax, fabsf(x[i]));
         }
         const float sc = __fmaf_rn(warp_max(amax), 1.0f / 127.0f, 1e-7f);
-        typename std::conditional<E == 8, uint64_t, uint32_t>::type packed = 0;
+        typename std::conditional<E >= 8, uint64_t, uint32_t>::type packed = 0, packed_hi = 0;
 #pragma unroll
         for (int i = 0; i < E; ++i) {
           const float c = fminf(fmaxf(roundf(__fdiv_rn(x[i], sc)), -127.0f), 127.0f);
-          packed |= (decltype(packed))(uint8_t)(int8_t)c << (8 * i);
+          if (i < 8)
+            packed |= (decltype(packed))(uint8_t)(int8_t)c << (8 * i);
+          else
+            packed_hi |= (decltype(packed))(uint8_t)(int8_t)c << (8 * (i - 8));
         }
         const int byte = lane * E;
         unsigned char* dst = Qs + (byte / kSw) * BQ * kSw + swizzle_offset<kSw>(r * kSw + byte % kSw);
-        if constexpr (E == 2)
+        if constexpr (E == 16)
+          *reinterpret_cast<uint4*>(dst) =
+              make_uint4((uint32_t)packed, (uint32_t)(packed >> 32), (uint32_t)packed_hi, (uint32_t)(packed_hi >> 32));
+        else if constexpr (E == 2)
           *reinterpret_cast<uint16_t*>(dst) = (uint16_t)packed;
         else if constexpr (E == 8)
           *reinterpret_cast<uint64_t*>(dst) = packed;
@@ -481,7 +509,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
       }
     }
     fence_proxy_async();
-    named_bar_sync(kBarTurn + NWG + wg, 128);
+    named_bar_sync(kBarTurn + NWG + wg / CS, 128 * CS);
     float qsc[2] = {0.0f, 0.0f};
     if constexpr (kInt8) {
       qsc[0] = qs_s[r_base + warp * 16 + g];
@@ -490,21 +518,23 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
 
     const uint32_t q_addr = smem_u32(Qs) + r_base * kSw;
     const uint32_t k_addr = smem_u32(smem + L::kKOff);
-    const uint32_t v_addr = smem_u32(smem + L::kVOff);
+    // V's tiles at this warpgroup's first O column (bf16: 64-column blocks
+    // of BKV 128-byte rows; INT8 PV's V^T: rows of BKV bytes).
+    const uint32_t v_addr = smem_u32(smem + L::kVOff) + cb * (kPV8 ? DV * BKV : DV / 64 * BKV * 128);
     constexpr int KSTEPS = L::kRowBytes / 32;  // 32 bytes of K depth per product
 
     SAcc sacc[BKV / 2];
-    float oacc[D / 2];
+    float oacc[DV / 2];
     uint32_t pk[kPV8 ? 1 : BKV / 8][2];  // P as bf16x2: [8-key column tile][row g, row g + 8]
     uint32_t a8[kPV8 ? BKV / 32 : 1][4];  // INT8 PV: p8 as s8 A fragments of each 32-key chunk
-    int pv[kPV8 ? (kSplitPV8 ? D / 4 : D / 2) : 1];  // INT8 PV: one tile's (half's) i32 p8 V8
+    int pv[kPV8 ? (kSplitPV8 ? DV / 4 : DV / 2) : 1];  // INT8 PV: one tile's (half's) i32 p8 V8
     uint32_t pl[kPV32 ? BKV / 8 : 1][2];  // fp32 PV: P's second bf16 term, as pk
     uint32_t p3[kPV32 ? BKV / 8 : 1][2];  // ... and its third
     // fp32 PV: one tile's products of one 64-column block, added to O on the
     // CUDA cores.
     float pacc[kPV32 ? 32 : 1];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.0f;
+    for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.0f;
     if constexpr (kPV32) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) pacc[i] = 0.0f;
@@ -560,7 +590,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
       } else {
         wgmma_m64n128k16_f32_bf16_rs(*reinterpret_cast<float(*)[64]>(&oacc[0]), a,
                                      make_desc(vk, BKV * 128, 1024, 128), 1);
-        if constexpr (D == 256)
+        if constexpr (DV == 256)
           wgmma_m64n128k16_f32_bf16_rs(*reinterpret_cast<float(*)[64]>(&oacc[64]), a,
                                        make_desc(vk + 2 * BKV * 128, BKV * 128, 1024, 128), 1);
       }
@@ -595,7 +625,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
         }
       } else if constexpr (kPV32) {
         // (pv32_blocks multiplies fp32 PV.)
-      } else if constexpr (D == 256) {
+      } else if constexpr (DV == 256) {
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk) {
           const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
@@ -626,14 +656,14 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
       if constexpr (kPV8 && !kSplitPV8) {
         // Fold the tile's i32 product into O (|p8 V8| sums < 2^24: exact).
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) pin(pv[i]);
+        for (int i = 0; i < DV / 2; ++i) pin(pv[i]);
 #pragma unroll
         for (int i = 0; i < BKV / 32; ++i) pin(a8[i][0]), pin(a8[i][1]), pin(a8[i][2]), pin(a8[i][3]);
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) oacc[i] += (float)pv[i];
+        for (int i = 0; i < DV / 2; ++i) oacc[i] += (float)pv[i];
       } else {
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) pin(oacc[i]);
+        for (int i = 0; i < DV / 2; ++i) pin(oacc[i]);
 #pragma unroll
         for (int i = 0; i < BKV / 8; ++i) pin(pk[i][0]), pin(pk[i][1]);
       }
@@ -674,14 +704,14 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
     auto pv32_blocks = [&](int st) {
       if constexpr (kPV32) {
 #pragma unroll
-        for (int cb = 0; cb < D / 64; ++cb) {
+        for (int blk = 0; blk < D / 64; ++blk) {
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < BKV / 16; ++kk) {
             const uint32_t a1[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
             const uint32_t a2[4] = {pl[2 * kk][0], pl[2 * kk][1], pl[2 * kk + 1][0], pl[2 * kk + 1][1]};
             const uint32_t a3[4] = {p3[2 * kk][0], p3[2 * kk][1], p3[2 * kk + 1][0], p3[2 * kk + 1][1]};
-            const uint32_t v1 = v_addr + st * L::kVBytes + cb * BKV * 128 + kk * 16 * 128;
+            const uint32_t v1 = v_addr + st * L::kVBytes + blk * BKV * 128 + kk * 16 * 128;
             const uint32_t v2 = v1 + (D / 64) * BKV * 128, v3 = v2 + (D / 64) * BKV * 128;
             pv32(a3, v1, kk > 0);
             pv32(a2, v2, 1);
@@ -695,7 +725,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
 #pragma unroll
           for (int i = 0; i < 32; ++i) pin(pacc[i]);
 #pragma unroll
-          for (int i = 0; i < 32; ++i) oacc[32 * cb + i] += pacc[i];
+          for (int i = 0; i < 32; ++i) oacc[32 * blk + i] += pacc[i];
         }
 #pragma unroll
         for (int i = 0; i < BKV / 8; ++i) {
@@ -895,7 +925,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) l_run[hf] = alpha[hf] * l_run[hf] + (float)lsum[hf];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < DV / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
       } else if constexpr (kPV32) {
         // l sums P in f32; P goes to the products as three bf16 terms, P1 =
         // bf16(P), P2 = bf16(P - P1), P3 = bf16(P - P1 - P2) (each
@@ -917,7 +947,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) l_run[hf] = alpha[hf] * l_run[hf] + lsum[hf];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < DV / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
       } else {
         float lsum[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -931,7 +961,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) l_run[hf] = alpha[hf] * l_run[hf] + lsum[hf];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < DV / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
       }
     };
 
@@ -956,8 +986,8 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
       softmax_s(0, 0);
     softmax_o();
     if constexpr (kSerialPV) {
-      // One product at a time (INT8 PV at d256, fp32 PV): PV of
-      // tile j, then S of tile j + 1 (in its turn) and its softmax. The
+      // One product at a time (INT8 PV at d256, fp32 PV, one ring stage): PV
+      // of tile j, then S of tile j + 1 (in its turn) and its softmax. The
       // turns order S alone; the last one is empty, as the other loop's last
       // PV turn.
       for (int j = 0; j + 1 < n_tiles; ++j) {
@@ -1020,17 +1050,17 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
       l_run[hf] += __shfl_xor_sync(0xffffffffu, l_run[hf], 1);
       l_run[hf] += __shfl_xor_sync(0xffffffffu, l_run[hf], 2);
     }
-    const float* vm = args.v_mean ? args.v_mean + (long long)kh * D : nullptr;
-    const float* vs = args.v_int8 ? args.v_scale + (long long)kh * D : nullptr;
+    const float* vm = args.v_mean ? args.v_mean + (long long)kh * D + cb * DV : nullptr;
+    const float* vs = args.v_int8 ? args.v_scale + (long long)kh * D + cb * DV : nullptr;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int row = q0 + r_base + warp * 16 + g + 8 * hf;
       if (row >= Sq) continue;
       const bool empty_row = l_run[hf] == 0.0f;
       const float ls = empty_row ? 1.0f : l_run[hf];
-      const long long obase = (qh * Sq + row) * D;
+      const long long obase = (qh * Sq + row) * D + cb * DV;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
+      for (int dt = 0; dt < DV / 8; ++dt) {
         const int d = dt * 8 + 2 * t;
         float o0 = __fdiv_rn(oacc[4 * dt + 2 * hf], ls);
         float o1 = __fdiv_rn(oacc[4 * dt + 2 * hf + 1], ls);
@@ -1047,7 +1077,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D, kPV32> + 1), 1)
         else
           store2(static_cast<__nv_bfloat16*>(args.o) + obase + d, o0, o1);
       }
-      if (args.lse && t == 0)
+      if (args.lse && t == 0 && cb == 0)
         args.lse[qh * Sq + row] = empty_row ? NEG_INIT : m_run[hf] + log2f(ls) - (kPV8 ? LOG2_127 : 0.0f);
     }
   }
@@ -1074,7 +1104,14 @@ int launch(const BiasArgs& a, const void* k, const void* v, int B, cudaStream_t 
     ok = make_tensor_map(&k_map, kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, k, dims,
                          strides, box, L::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
   }
-  if (a.v_int8 && !kPV32) {
+  if (a.v_int8 && !kPV32 && D > 256) {
+    // A box row holds at most 256 elements: rows of D bytes as D / 256
+    // boxes of 256, which land row after row as the 3-d map's would.
+    const cuuint64_t dims[4] = {256, D / 256, sk, rows}, strides[3] = {256, D, sk * D};
+    const cuuint32_t box[4] = {256, D / 256, BKV, 1};
+    ok = ok && make_tensor_map(&v_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, v, dims, strides, box,
+                               CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else if (a.v_int8 && !kPV32) {
     const cuuint64_t dims[3] = {D, sk, rows}, strides[2] = {D, sk * D};
     const cuuint32_t box[3] = {D, BKV, 1};
     ok = ok && make_tensor_map(&v_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, v, dims, strides, box,
@@ -1111,11 +1148,14 @@ int dispatch_modes(const BiasArgs& a, bool pv8, const void* k, const void* v, in
 // The masked kernels (kMasks) take a window, a q offset, segment ids or a
 // logit cap; every other call runs the kernels without them (with the
 // masks' state in every kernel, the d64 kernels spilled). A call with a
-// bias runs the bias kernels (dispatch_bias); at d256 the masked kernels
-// are the bias kernels.
+// bias runs the bias kernels (dispatch_bias); at d256 and d512 the masked
+// kernels are the bias kernels.
+inline bool has_masks(const BiasArgs& a) {
+  return a.window > 0 || a.q_offset != 0 || a.kv_seg != nullptr || a.logit_cap2 > 0.0f;
+}
 template <int D>
 int dispatch(const BiasArgs& a, bool pv8, const void* k, const void* v, int B, cudaStream_t st) {
-  const bool masks = a.window > 0 || a.q_offset != 0 || a.kv_seg != nullptr || a.logit_cap2 > 0.0f;
+  const bool masks = has_masks(a);
   if constexpr (D == 256) {
     if (masks || a.bias != nullptr) return dispatch_modes<D, true, true>(a, pv8, k, v, B, st);
     return dispatch_modes<D, false>(a, pv8, k, v, B, st);
@@ -1148,13 +1188,13 @@ int dispatch_pv32(const BiasArgs& a, const void* k, const void* v, int B, cudaSt
 // takes, else 0.
 inline int attn_check(const AttnFwdCall& c) {
   const bool k_ok = c.q_mode == Q_FP ? c.k_bits == 16 : (c.k_bits == 8 || c.k_bits == 4 || c.k_bits == 2);
-  const bool d_ok = c.D == 64 || c.D == 128 || c.D == 256;
+  const bool d_ok = c.D == 64 || c.D == 128 || c.D == 256 || c.D == 512;
   if (!k_ok || !d_ok || c.q_mode < Q_INT8 || c.q_mode > Q_FP || c.v_mode < 0 || c.v_mode > 2 ||
       (c.v_mode != 0 && c.v_scale == nullptr) || (c.q_mode != Q_FP && c.k_scale == nullptr) ||
       (c.q_mode == Q_INT8 && c.q_scale == nullptr) || ((c.q_seg == nullptr) != (c.kv_seg == nullptr)) ||
       c.window < 0 || c.sink < 0 || c.logit_cap2 < 0.0f || (!c.causal && (c.window != 0 || c.q_offset != 0)) ||
       (c.bias == nullptr) != (c.bias_rows == 0) || (c.bias != nullptr && c.bias_rows != 1 && c.bias_rows != c.Sq) ||
-      (c.pv32 && c.v_mode == 2))
+      (c.pv32 && (c.v_mode == 2 || c.D == 512)))
     return (int)cudaErrorInvalidValue;
   return 0;
 }

@@ -24,9 +24,11 @@ using namespace sm90;
 constexpr int NW = 4;          // consumer warps
 constexpr int NT = 32 * (NW + 1);
 constexpr int RMAX = 8;        // query rows per CTA, at most (the mma's n)
-// Ring stages, a multiple of NW: the tiles of a stage all go to one warp, so
-// a warp never waits on a phase that another warp's tile still holds.
-constexpr int NST = 2 * NW;
+// Ring stages (Cfg::NST), a multiple of NW: the tiles of a stage all go to
+// one warp, so a warp never waits on a phase that another warp's tile still
+// holds. 2 NW, or NW where 2 NW stages of the widest rows (bf16 at d512)
+// would pass 128 KB.
+constexpr int NST_MAX = 2 * NW;
 constexpr float MASK_VALUE = (float)(-0.7 * 3.4028234663852886e38);
 constexpr float NEG_INIT = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -126,7 +128,7 @@ constexpr int row_bytes() {
   return IsNib4<T>::value ? D / 2 : D * (int)sizeof(T);
 }
 
-// The CPL elements of a V row a lane owns, as floats. For a 4-bit V, p
+// The CPL (at most 8) elements of a V row a lane owns, as floats. For a 4-bit V, p
 // points at the CPL bytes that hold them and `nib_shift` is 0 for the low
 // nibbles (the first half of D) or 4 for the high ones.
 template <typename VT, int CPL>
@@ -174,10 +176,10 @@ __device__ __forceinline__ void v_cols(const unsigned char* p, float* f, int nib
 // ---------------------------------------------------------------------------
 
 // The template D of the instances that take the head dim at run time
-// (decode_attention*_dyn.cu): kDynD | W takes every head dim d that is a
-// multiple of 16 with 16 <= d <= W, its rows at the cache's own width (d
-// bytes of int8, d/2 of 4-bit codes, 2d of bf16) and its shared memory laid
-// out for W.
+// (decode_attention*_dyn.cu, and at W 512 decode_attention*_dyn512.cu):
+// kDynD | W takes every head dim d that is a multiple of 16 with 16 <= d <=
+// W, its rows at the cache's own width (d bytes of int8, d/2 of 4-bit codes,
+// 2d of bf16) and its shared memory laid out for W.
 constexpr int kDynD = 1 << 12;
 
 template <int D, typename KT, typename VT, bool kIntQK>
@@ -225,8 +227,17 @@ struct Cfg {
   static constexpr bool kOverRead = NWIN * WB != kKRow;
   static constexpr int MMA = kIntQK ? (kKNib ? LB / 4 : LB / 8) : kKNib || sizeof(KT) == 1 ? 2 : LB / 8;
   // Output columns a lane owns in PV: W / 32, or 4 off the ladder, where the
-  // lanes whose columns lie past the row's (pv_lane) idle in PV.
+  // lanes whose columns lie past the row's (pv_lane) idle in PV. They come
+  // in NCG groups of CG (at most 8): at W 512 a lane owns columns 8 lane ..
+  // and 256 + 8 lane .. (a 4-bit V: the nibbles of bytes 8 (lane & 15) ..
+  // and 128 + 8 (lane & 15) ..), so that every head dim that is a multiple
+  // of 16 fills whole groups, and INT8 PV sums one group at a time.
   static constexpr int CPL = kOffLadder ? 4 : W / 32;
+  static constexpr int CG = CPL > 8 ? 8 : CPL, NCG = CPL / CG;
+  // The float chain's query fragments (3 bf16 terms a word) at W 512 would
+  // take 192 registers beside the 128 of the accumulator: they live in
+  // shared memory, read once a window and tile.
+  static constexpr bool kQSmem = !kIntQK && W > 256;
   // The head dim of a call: the run-time one (kDyn), else D.
   __device__ static int dim(int head_dim) { return kDyn ? head_dim : W; }
   // The first dimension of operand word u of thread t in window w, at head
@@ -250,15 +261,15 @@ struct Cfg {
     else
       return qdim(w, t, u) * (int)sizeof(KT);
   }
-  // Off the ladder and at run time: whether a lane owns PV columns at head
-  // dim dh, and its first column (a 4-bit V's lanes 0-15 take the low
-  // nibbles, columns CPL (lane & 15) .., lanes 16-31 the high ones, dh/2 +
-  // CPL (lane & 15) ..).
-  __device__ static constexpr bool pv_lane(int lane, int dh = W) {
-    return kVNib ? (lane & 15) * CPL < dh / 2 : lane * CPL < dh;
+  // Off the ladder and at run time: whether a lane owns PV columns of group
+  // cg at head dim dh, and their first column (a 4-bit V's lanes 0-15 take
+  // the low nibbles, columns 16 CG cg + CG (lane & 15) .., lanes 16-31 the
+  // high ones, dh/2 + 16 CG cg + CG (lane & 15) ..).
+  __device__ static constexpr bool pv_lane(int lane, int dh = W, int cg = 0) {
+    return kVNib ? 16 * CG * cg + (lane & 15) * CG < dh / 2 : 32 * CG * cg + lane * CG < dh;
   }
-  __device__ static constexpr int pv_col(int lane, int dh = W) {
-    return kVNib ? (lane >= 16 ? dh / 2 : 0) + (lane & 15) * CPL : lane * CPL;
+  __device__ static constexpr int pv_col(int lane, int dh = W, int cg = 0) {
+    return kVNib ? (lane >= 16 ? dh / 2 : 0) + 16 * CG * cg + (lane & 15) * CG : 32 * CG * cg + lane * CG;
   }
   // Sides whose rows are not 16-byte multiples (4-bit rows at d80, 40
   // bytes; at run time 4-bit rows at d % 32 == 16) come by 8-byte cp.async
@@ -282,6 +293,7 @@ struct Cfg {
       return Rows{kKRow, kVRow, kKBulk, kVBulk};
     }
   }
+  static constexpr int NST = 8 * BK * (kKRow + kVRow) <= 131072 ? NST_MAX : NW;
   static constexpr int kKOff = 0;
   static constexpr int kVOff = kKOff + NST * BK * kKRow;
   static constexpr int kKsOff = kVOff + NST * BK * kVRow;  // NST x BK f32 K scales
@@ -292,14 +304,18 @@ struct Cfg {
   static constexpr int kPOff = kVsOff + NST * BK * 4;
   static constexpr int kQf = kPOff, kQ8 = kQf + RMAX * W * 4, kQs = kQ8 + RMAX * W;
   static constexpr int kQBytes = RMAX * W * 5 + RMAX * 4;
-  static constexpr int kBarOff = kPOff + (NW * kPWarp > kQBytes ? NW * kPWarp : (kQBytes + 15) / 16 * 16);
+  // kQSmem: the query fragments, [NWIN][MMA][3 terms][32 lanes] words x 2.
+  static constexpr int kBqOff = kPOff + (NW * kPWarp > kQBytes ? NW * kPWarp : (kQBytes + 15) / 16 * 16);
+  static constexpr int kBqBytes = kQSmem ? NWIN * MMA * 3 * 32 * 8 : 0;
+  static constexpr int kBarOff = kBqOff + kBqBytes;
   static constexpr int kTotal = kBarOff + 2 * NST * 8 + 16;  // + the ticket
   // The merge's part weights, (NW + 1) x n_parts f32, reuse the ring.
   static constexpr int kMaxParts = kVOff / ((NW + 1) * 4);
   static_assert(kKRow % 8 == 0 && kVRow % 8 == 0, "rows come in 16-byte bulk copies or 8-byte cp.async");
   static_assert(NWIN * WB >= kKRow && (!kOverRead || kOffLadder), "the QK windows cover a K row");
   static_assert(!kOffLadder || (W == 80 || W == 96), "off the ladder: head dims 80 and 96");
-  static_assert(!kDyn || W == 128 || W == 256, "head dims at run time: up to 128 (4 columns a lane) or 256 (8)");
+  static_assert(!kDyn || W == 128 || W == 256 || W == 512,
+                "head dims at run time: up to 128 (4 columns a lane), 256 (8) or 512 (16)");
 };
 
 // bf16x2 of the biased nibbles (u = n + 8) in bits 0-3 and 16-19 of t: the
@@ -387,7 +403,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
   static_assert(kExt % 2 || kExt == 0 || std::is_same<VT, int8_t>::value, "INT8 PV takes an int8 V");
   constexpr bool kPaged = kExt >= 3;
   using C = Cfg<D, KT, VT, kIntQK>;
-  constexpr int BK = C::BK, CPL = C::CPL;
+  constexpr int BK = C::BK, CPL = C::CPL, CG = C::CG, NCG = C::NCG, NST = C::NST;
   constexpr bool kVQuant = C::kVNib || sizeof(VT) == 1;  // per-token V scales
   // The head dim and the rows of this call (the instance's own but at run
   // time, kDyn). Rows lie at their own width in a stage laid out for W.
@@ -577,7 +593,16 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     // K operand words (Cfg::qdim): product c of window w takes words 2c and
     // 2c + 1. f32 queries: three bf16 terms.
     const int nqs = kIntQK || q_bf16 ? 1 : 3;
-    uint32_t bq[C::NWIN][C::MMA][kIntQK ? 1 : 3][2];
+    uint32_t bq[C::kQSmem ? 1 : C::NWIN][C::MMA][kIntQK ? 1 : 3][2];
+    // (kQSmem: the fragments go to shared memory, warp 0 writing them.)
+    uint32_t* bq_s = reinterpret_cast<uint32_t*>(smem + C::kBqOff);
+    auto put_bq = [&](int w, int u, int qs, uint32_t x) {
+      if constexpr (C::kQSmem) {
+        if (warp == 0) bq_s[(((w * C::MMA + u / 2) * 3 + qs) * 32 + lane) * 2 + u % 2] = x;
+      } else {
+        bq[w][u / 2][qs][u % 2] = x;
+      }
+    };
 #pragma unroll
     for (int w = 0; w < C::NWIN; ++w)
 #pragma unroll
@@ -587,12 +612,12 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           // A word past the K row's end meets zero query words.
           if (C::qbyte(w, t, u) >= rw.k) {
 #pragma unroll
-            for (int qs = 0; qs < (kIntQK ? 1 : 3); ++qs) bq[w][u / 2][qs][u % 2] = 0u;
+            for (int qs = 0; qs < (kIntQK ? 1 : 3); ++qs) put_bq(w, u, qs, 0u);
             continue;
           }
         }
         if constexpr (kIntQK) {
-          bq[w][u / 2][0][u % 2] = *reinterpret_cast<const uint32_t*>(q8 + g * W + d0);
+          put_bq(w, u, 0, *reinterpret_cast<const uint32_t*>(q8 + g * W + d0));
         } else {
           float rem[2] = {q_f[g * W + d0], q_f[g * W + d0 + 1]};
 #pragma unroll
@@ -603,7 +628,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
               tr[i] = __bfloat162float(__float2bfloat16_rn(rem[i]));
               rem[i] -= tr[i];  // exact
             }
-            bq[w][u / 2][qs][u % 2] = pack_bf16x2(tr[0], tr[1]);
+            put_bq(w, u, qs, pack_bf16x2(tr[0], tr[1]));
           }
         }
       }
@@ -670,8 +695,15 @@ __global__ void __launch_bounds__(NT) decode_kernel(
             for (int c = 0; c < C::MMA; ++c)
 #pragma unroll
               for (int qs = 0; qs < 3; ++qs)
-                if (qs < nqs)
-                  mma_bf16(c4, w0[2 * c], w1[2 * c], w0[2 * c + 1], w1[2 * c + 1], bq[w][c][qs][0], bq[w][c][qs][1]);
+                if (qs < nqs) {
+                  if constexpr (C::kQSmem) {
+                    const uint2 bb = reinterpret_cast<const uint2*>(bq_s)[((w * C::MMA + c) * 3 + qs) * 32 + lane];
+                    mma_bf16(c4, w0[2 * c], w1[2 * c], w0[2 * c + 1], w1[2 * c + 1], bb.x, bb.y);
+                  } else {
+                    mma_bf16(c4, w0[2 * c], w1[2 * c], w0[2 * c + 1], w1[2 * c + 1], bq[w][c][qs][0],
+                             bq[w][c][qs][1]);
+                  }
+                }
           }
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[mt][e] = c4[e];
@@ -799,27 +831,30 @@ __global__ void __launch_bounds__(NT) decode_kernel(
         }
         if (pq == 0) pa_s[pr] = pa;
         __syncwarp();
-        // Four keys at a time: the lane's CPL V columns of 4 rows, regrouped
-        // into one word of 4 keys a column, against each row's word of codes.
-        int acc_i[RMAX][CPL];
+        // Four keys at a time: the lane's CG V columns of 4 rows, regrouped
+        // into one word of 4 keys a column, against each row's word of codes;
+        // one column group after the other.
+#pragma unroll
+        for (int cg = 0; cg < NCG; ++cg) {
+        int acc_i[RMAX][CG];
 #pragma unroll
         for (int r = 0; r < RMAX; ++r)
 #pragma unroll
-          for (int c = 0; c < CPL; ++c) acc_i[r][c] = 0;
+          for (int c = 0; c < CG; ++c) acc_i[r][c] = 0;
         // (Off the ladder and at run time an idle lane reads lane 0's columns; nothing keeps
         // what it sums.)
-        const unsigned char* vcol = Vt + (C::kPartial && !C::pv_lane(lane, dh) ? 0 : lane) * CPL;
+        const unsigned char* vcol = Vt + (C::kPartial && !C::pv_lane(lane, dh, cg) ? 0 : C::pv_col(lane, dh, cg));
 #pragma unroll 4
         for (int k4 = 0; k4 < BK; k4 += 4) {
-          uint32_t col[CPL];
-          if constexpr (CPL == 8) {
+          uint32_t col[CG];
+          if constexpr (CG == 8) {
             // d256: a key's 8 columns are two words; column c is byte c % 4
             // of word c / 4.
             uint32_t x[4][2];
 #pragma unroll
             for (int e = 0; e < 4; ++e) lds<8>(vcol + (k4 + e) * rw.v, x[e]);
 #pragma unroll
-            for (int c = 0; c < CPL; ++c) {
+            for (int c = 0; c < CG; ++c) {
               const int wd = c >> 2;
               const uint32_t sel = (c & 3) | ((c & 3) + 4) << 4;
               col[c] = __byte_perm(__byte_perm(x[0][wd], x[1][wd], sel), __byte_perm(x[2][wd], x[3][wd], sel), 0x5410);
@@ -827,9 +862,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           } else {
           uint32_t x[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) lds<CPL>(vcol + (k4 + e) * rw.v, &x[e]);
+          for (int e = 0; e < 4; ++e) lds<CG>(vcol + (k4 + e) * rw.v, &x[e]);
 #pragma unroll
-          for (int c = 0; c < CPL; ++c) {
+          for (int c = 0; c < CG; ++c) {
             const uint32_t sel = c | (c + 4) << 4;  // byte c of the first word, then of the second
             col[c] = __byte_perm(__byte_perm(x[0], x[1], sel), __byte_perm(x[2], x[3], sel), 0x5410);
           }
@@ -839,7 +874,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
             if (r < R) {
               const int pw = *reinterpret_cast<const int*>(p8_s + r * BK + k4);
 #pragma unroll
-              for (int c = 0; c < CPL; ++c) acc_i[r][c] = __dp4a((int)col[c], pw, acc_i[r][c]);
+              for (int c = 0; c < CG; ++c) acc_i[r][c] = __dp4a((int)col[c], pw, acc_i[r][c]);
             }
           }
         }
@@ -848,8 +883,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(
           if (r < R) {
             const float a = alpha_s[r], pa_r = pa_s[r];
 #pragma unroll
-            for (int c = 0; c < CPL; ++c) acc[r][c] = fmaf(acc[r][c], a, __fmul_rn((float)acc_i[r][c], pa_r));
+            for (int c = 0; c < CG; ++c)
+              acc[r][cg * CG + c] = fmaf(acc[r][cg * CG + c], a, __fmul_rn((float)acc_i[r][c], pa_r));
           }
+        }
         }
       } else {
       // ---- acc = alpha acc + P V on the CUDA cores, in f32 ----
@@ -866,11 +903,20 @@ __global__ void __launch_bounds__(NT) decode_kernel(
       // Off the ladder and at run time an idle lane reads lane 0's columns; nothing keeps
       // what it sums.
       const int vl = C::kPartial && !C::pv_lane(lane, dh) ? 0 : lane;
-      const unsigned char* vcol = Vt + (C::kVNib ? (vl & 15) * CPL : vl * CPL * (int)sizeof(VT));
+      const unsigned char* vcol = Vt + (C::kVNib ? (vl & 15) * CG : vl * CG * (int)sizeof(VT));
       const int nib_shift = vl >= 16 ? 4 : 0;
+      // Column group cg's bytes lie 16 CG cg (4-bit) or 32 CG cg elements
+      // on; a lane idle in a group (at run time) reads group 0's.
+      int vgrp[NCG];
+#pragma unroll
+      for (int cg = 0; cg < NCG; ++cg)
+        vgrp[cg] = C::kPartial && !C::pv_lane(lane, dh, cg) ? 0
+                   : C::kVNib                               ? 16 * CG * cg
+                                                            : 32 * CG * cg * (int)sizeof(VT);
       auto pv_key = [&](int kl) {
         float vf[CPL];
-        v_cols<VT, CPL>(vcol + kl * rw.v, vf, nib_shift);
+#pragma unroll
+        for (int cg = 0; cg < NCG; ++cg) v_cols<VT, CG>(vcol + vgrp[cg] + kl * rw.v, vf + cg * CG, nib_shift);
         const float4 pa = *reinterpret_cast<const float4*>(p_s + kl * RMAX);
         const float4 pb = R > 4 ? *reinterpret_cast<const float4*>(p_s + kl * RMAX + 4) : make_float4(0, 0, 0, 0);
         const float p[RMAX] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
@@ -896,15 +942,18 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     // ---- this warp's unnormalised (acc, m, l): part split * NW + warp ----
     const int part = split * NW + warp;
     if constexpr (C::kPartial) {
-      if (C::pv_lane(lane, dh)) {
+#pragma unroll
+      for (int cg = 0; cg < NCG; ++cg) {
+      if (C::pv_lane(lane, dh, cg)) {
 #pragma unroll
         for (int r = 0; r < RMAX; ++r) {
           if (r < R) {
-            float* dst = part_acc + (((long long)b * H + h0 + r) * n_parts + part) * dh + C::pv_col(lane, dh);
+            float* dst = part_acc + (((long long)b * H + h0 + r) * n_parts + part) * dh + C::pv_col(lane, dh, cg);
 #pragma unroll
-            for (int c = 0; c < CPL; ++c) dst[c] = acc[r][c];
+            for (int c = 0; c < CG; ++c) dst[c] = acc[r][cg * CG + c];
           }
         }
+      }
       }
     } else {
 #pragma unroll
@@ -961,22 +1010,26 @@ __global__ void __launch_bounds__(NT) decode_kernel(
     __syncwarp();
     const float ls = l == 0.0f ? 1.0f : l;
     // Off the ladder and at run time the lanes past the row's columns redo lane 0's columns
-    // and store nothing.
-    const int mcol = C::kPartial && lane * CPL >= dh ? 0 : lane * CPL;
+    // and store nothing. (Column groups of CG, 32 CG apart, one after the
+    // other.)
+#pragma unroll 1
+    for (int cg = 0; cg < NCG; ++cg) {
+    const int col0 = 32 * CG * cg + lane * CG;
+    const int mcol = C::kPartial && col0 >= dh ? 0 : col0;
     const float* pa = part_acc + row * n_parts * dh + mcol;
-    float a[CPL];
+    float a[CG];
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) a[c] = 0.0f;
+    for (int c = 0; c < CG; ++c) a[c] = 0.0f;
 #pragma unroll 4
     for (int p = 0; p < n_parts; ++p) {
       const float w = w_s[p];
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) a[c] = fmaf(w, __ldcg(pa + (long long)p * dh + c), a[c]);
+      for (int c = 0; c < CG; ++c) a[c] = fmaf(w, __ldcg(pa + (long long)p * dh + c), a[c]);
     }
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      if (C::kPartial && lane * CPL >= dh) break;
-      const long long at = row * dh + lane * CPL + c;
+    for (int c = 0; c < CG; ++c) {
+      if (C::kPartial && col0 >= dh) break;
+      const long long at = row * dh + col0 + c;
       const float out = __fdiv_rn(a[c], ls);
       if (out_code == 0)
         static_cast<float*>(o)[at] = out;
@@ -984,6 +1037,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(
         static_cast<__nv_bfloat16*>(o)[at] = __float2bfloat16_rn(out);
       else
         static_cast<__half*>(o)[at] = __float2half_rn(out);
+    }
     }
     if (lse && lane == 0) lse[row] = m + log2f(ls);
     __syncwarp();
@@ -1040,6 +1094,15 @@ template <typename Op>
 int with_variant_dyn(const Op& op, int D, int k_bits, int v_bits, int int_qk) {
   if (D < 16 || D > 256 || D % 16) return (int)cudaErrorInvalidValue;
   return D <= 128 ? with_k<kDynD | 128>(op, k_bits, v_bits, int_qk) : with_k<kDynD | 256>(op, k_bits, v_bits, int_qk);
+}
+
+// The head dims above 256 (the _dyn512 sources' instances): every multiple
+// of 16 from 272 to 512, on the instance laid out for 512 (16 columns a
+// lane in two groups of 8).
+template <typename Op>
+int with_variant_dyn512(const Op& op, int D, int k_bits, int v_bits, int int_qk) {
+  if (D <= 256 || D > 512 || D % 16) return (int)cudaErrorInvalidValue;
+  return with_k<kDynD | 512>(op, k_bits, v_bits, int_qk);
 }
 
 

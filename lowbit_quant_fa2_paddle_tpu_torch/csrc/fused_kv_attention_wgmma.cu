@@ -16,7 +16,7 @@
 //   first D*bits/8 bytes of each row; pack_row is D*bits/8 rounded up to a
 //   multiple of 16.
 //   k_scale, k_mn, v_scale, v_mn: [B, Hk, n_groups, D] f32, n_groups * group >= Sk.
-// D: a multiple of 16 from 16 to 256. Returns cudaGetLastError()
+// D: a multiple of 16 from 16 to 512. Returns cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported D, bits or pack_row, or a
 // tensor map the driver refuses).
 extern "C" int lowbit_fused_kv_attn_wgmma(const void* q, const void* k, const void* v, const float* k_scale,
@@ -26,7 +26,7 @@ extern "C" int lowbit_fused_kv_attn_wgmma(const void* q, const void* k, const vo
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || Hk < 1 || H % Hk || Sq < 1 || Sk < 1 || group < 1 || (long long)n_groups * group < Sk ||
-      B > 65535 || H > 65535 || (long long)B * Hk * n_groups * D >= (1LL << 31) || D < 16 || D > 256 || D % 16 ||
+      B > 65535 || H > 65535 || (long long)B * Hk * n_groups * D >= (1LL << 31) || D < 16 || D > 512 || D % 16 ||
       (bits != 4 && bits != 2) || pack_row != (D * bits / 8 + 15) / 16 * 16)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k_scale, k_mn, v_scale, v_mn, o, H, Hk, Sq, Sk, group, n_groups, causal, q_f32, out_f32, D,
@@ -35,5 +35,6 @@ extern "C" int lowbit_fused_kv_attn_wgmma(const void* q, const void* k, const vo
   if (D == 64 && bits == 2) return launch<64, 2, false>(a, k, v, B, st);
   if (D == 128 && bits == 4) return launch<128, 4, false>(a, k, v, B, st);
   if (D == 128 && bits == 2) return launch<128, 2, false>(a, k, v, B, st);
+  if (D > 256) return fused_kv_d512(a, k, v, B, bits, st);
   return fused_kv_pad(a, k, v, B, bits, st);
 }

@@ -1,6 +1,8 @@
 // Kernel E's device code (instances in fused_kv_attention_wgmma.cu: the C
 // entry and head dims 64 and 128; fused_kv_attention_wgmma_pad.cu: head dim
-// 256 and every head dim below its kernel's width).
+// 256 and every head dim below its kernel's width up to 256;
+// fused_kv_attention_wgmma_d512.cu: head dims 272-512 on the width-512
+// kernel).
 //
 // Kernel E on Hopper's own machinery: attention over K and V kept as packed
 // 4- or 2-bit codes with per-(token group, channel) scales and zero-points
@@ -68,6 +70,16 @@
 // 64 != 0) cannot be a TMA box row: the host hands those rows over padded
 // to 16 bytes (args.pack_row), a copy of the packed K and V.
 //
+// Head dims 272-512 (fused_kv_attention_wgmma_d512.cu) run the width-512
+// kernel, kernel A's d512 design: a CTA of 64 query rows whose two consumer
+// warpgroups each own 256 of O's columns (kCS; a 64 x 512 f32 O would be
+// 256 registers a thread) and each compute the whole S themselves. A
+// 64-key bf16 K and V tile is 64 KB a side beside a 64 KB bf16 Q tile, so
+// the ring has one stage, and one staging slot for 4-bit codes (16 KB a
+// side) or two for 2-bit: the producer's TMA of tile j + 1 waits for its
+// widening of tile j, and the consumers finish PV of tile j (freeing the
+// stage) before the next tile's S.
+//
 // Measured on an H100 80GB HBM3 at 700 W (script/torch_decode_ab.py): 7.8
 // ms at b4 h32 s8192 d64 int4 (SDPA on K/V dequantized to bf16: 4.36); with
 // the widening left out the consumers alone take 4.6 ms at 160 registers
@@ -97,11 +109,16 @@ namespace {
 
 using namespace sm90;
 
-// Keys per tile: 128, or 64 at d256 (the registers of its O accumulator).
+// Keys per tile: 128, or 64 at d256 and d512 (the registers of its O
+// accumulator).
 template <int D>
-constexpr int kBKV = D == 256 ? 64 : 128;
+constexpr int kBKV = D >= 256 ? 64 : 128;
 template <int D>
 constexpr int kNWG = D == 64 ? 3 : 2;
+// Warpgroups that split one 64-row block's O by columns (2 at d512, as
+// kernel A's kCS).
+template <int D>
+constexpr int kCS = D > 256 ? 2 : 1;
 // Registers a thread keeps after setmaxnreg (NWG C + P <= 512 per lane
 // across the warpgroups). At d64 kernel A's 160 / 32 leaves the widening
 // producer spilling (9.4 ms at b4 h32 s8192 int4); 152 / 56 measured 7.8.
@@ -124,15 +141,18 @@ using Args = FusedKvArgs;
 template <int D, int BITS>
 struct Layout {
   static constexpr int BKV = kBKV<D>;
-  static constexpr int BQ = 64 * kNWG<D>;
+  static constexpr int BQ = 64 * kNWG<D> / kCS<D>;
   static constexpr int kRowBytes = D * 2;
   static constexpr int kPackRow = D * BITS / 8;  // bytes of a packed row
   static constexpr int kQBytes = BQ * kRowBytes;
   static constexpr int kTileBytes = BKV * kRowBytes;
   static constexpr int kPackBytes = BKV * kPackRow;
-  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kStages = D == 64 ? 3 : D == 512 ? 1 : 2;
   static constexpr int kFixed = 2 * kStages * kTileBytes + kQBytes + 1024 + 256;  // + alignment slack, barriers
-  static constexpr int kSlots = kFixed + 8 * kPackBytes <= 232448 ? 4 : kFixed + 6 * kPackBytes <= 232448 ? 3 : 2;
+  static constexpr int kSlots = kFixed + 8 * kPackBytes <= 232448   ? 4
+                                : kFixed + 6 * kPackBytes <= 232448 ? 3
+                                : kFixed + 4 * kPackBytes <= 232448 ? 2
+                                                                    : 1;
   static constexpr int kKOff = 0;
   static constexpr int kVOff = kKOff + kStages * kTileBytes;
   static constexpr int kQOff = kVOff + kStages * kTileBytes;
@@ -307,6 +327,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
   constexpr int BKV = L::BKV;
   constexpr int S = L::kStages, NS = L::kSlots;
   constexpr int NWG = kNWG<D>, BQ = L::BQ;
+  constexpr int CS = kCS<D>, DV = D / CS;  // O columns a consumer warpgroup owns
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -388,21 +409,23 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
       mbar_arrive(&full[st]);
     }
   } else {
-    // ---- consumers: warpgroup wg owns CTA rows 64*wg .. 64*wg + 63 ----
+    // ---- consumers: warpgroup wg owns CTA rows 64*(wg/CS) .. + 63 and O
+    // columns DV*(wg%CS) .. + DV - 1 ----
     setmaxnreg_inc<kRegC<D>>();
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int r_base = 64 * wg;
+    const int r_base = 64 * (wg / CS), cb = wg % CS;
     unsigned char* Qs = smem + L::kQOff;
     const long long qh = (long long)b * H + h;
     const float sm_scale_log2e = args.sm_scale_log2e;
     const int dh = kPad ? args.d : D;
 
     // Q rounded to bf16 into swizzled shared memory (16 bytes a step); the
-    // columns past dh are zeros.
+    // columns past dh are zeros. (With CS > 1 the row block's warpgroups
+    // share the work and the tile.)
     {
       constexpr int CPR = L::kRowBytes / 16;
-      for (int c = tid; c < 64 * CPR; c += 128) {
+      for (int c = tid + 128 * cb; c < 64 * CPR; c += 128 * CS) {
         const int r = r_base + c / CPR, e0 = (c % CPR) * 8, byte = 2 * e0;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
         if (q0 + r < Sq && (!kPad || e0 < dh)) {
@@ -420,18 +443,19 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
       }
     }
     fence_proxy_async();
-    named_bar_sync(kBarTurn + NWG + wg, 128);
+    named_bar_sync(kBarTurn + NWG + wg / CS, 128 * CS);
 
     const uint32_t q_addr = smem_u32(Qs) + r_base * 128;
     const uint32_t k_addr = smem_u32(smem + L::kKOff);
-    const uint32_t v_addr = smem_u32(smem + L::kVOff);
+    // V's 64-column blocks from this warpgroup's first O column.
+    const uint32_t v_addr = smem_u32(smem + L::kVOff) + cb * (DV / 64) * BKV * 128;
     constexpr int KSTEPS = L::kRowBytes / 32;  // 16 bf16 of depth per product
 
     float sacc[BKV / 2];  // S, then P in f32 in place
-    float oacc[D / 2];
+    float oacc[DV / 2];
     uint32_t pk[BKV / 8][2];  // P as bf16x2: [8-key column tile][row g, row g + 8]
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.0f;
+    for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.0f;
 #pragma unroll
     for (int i = 0; i < BKV / 8; ++i) pk[i][0] = pk[i][1] = 0u;
     float m_run[2] = {NEG_INIT, NEG_INIT};
@@ -465,9 +489,10 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
         if constexpr (D == 64) {
           wgmma_m64n64k16_f32_bf16_rs(oacc, a, db, 1);
         } else {
-          // At d256 two products of 128 columns (column blocks 0-1, 2-3).
+          // At d256 (and d512's halves) two products of 128 columns (column
+          // blocks 0-1, 2-3).
           wgmma_m64n128k16_f32_bf16_rs(*reinterpret_cast<float(*)[64]>(&oacc[0]), a, db, 1);
-          if constexpr (D == 256)
+          if constexpr (DV == 256)
             wgmma_m64n128k16_f32_bf16_rs(*reinterpret_cast<float(*)[64]>(&oacc[64]), a,
                                          make_desc(vk + 2 * BKV * 128, BKV * 128, 1024, 128), 1);
         }
@@ -479,7 +504,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
     };
     auto o_ready = [&]() {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) pin(oacc[i]);
+      for (int i = 0; i < DV / 2; ++i) pin(oacc[i]);
 #pragma unroll
       for (int i = 0; i < BKV / 8; ++i) pin(pk[i][0]), pin(pk[i][1]);
     };
@@ -532,7 +557,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) l_run[hf] = alpha[hf] * l_run[hf] + lsum[hf];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DV / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
     };
 
     // Turns as in kernel A: each block of one warpgroup's products (S of
@@ -550,6 +575,35 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
     s_ready();
     softmax_s(0);
     softmax_o();
+    if constexpr (S == 1) {
+      // One ring stage (d512): PV of tile j and the stage freed before the
+      // next tile, which lands in that stage, is waited for; the turns
+      // order S alone, the last one empty.
+      auto pv_serial = [&](int st) {
+        wgmma_fence();
+        issue_pv(st);
+        wgmma_commit();
+        wgmma_wait<0>();
+        o_ready();
+      };
+      for (int j = 0; j + 1 < n_tiles; ++j) {
+        pv_serial(0);
+        if (lane == 0) mbar_arrive(&empty[0]);
+        mbar_wait(&full[0], (j + 1) & 1);
+        named_bar_sync(bar_mine, 256);
+        wgmma_fence();
+        issue_s(0);
+        wgmma_commit();
+        named_bar_arrive(bar_other, 256);
+        wgmma_wait<0>();
+        s_ready();
+        softmax_s(j + 1);
+        softmax_o();
+      }
+      named_bar_sync(bar_mine, 256);
+      if (wg != NWG - 1) named_bar_arrive(bar_other, 256);
+      pv_serial(0);
+    } else {
     // The last tile is peeled off so that no product is issued on a path
     // the compiler cannot prove uniform.
     for (int j = 0; j + 1 < n_tiles; ++j) {
@@ -577,6 +631,7 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
     if (wg != NWG - 1) named_bar_arrive(bar_other, 256);
     wgmma_wait<0>();
     o_ready();
+    }
 
     // ---- epilogue ----
 #pragma unroll
@@ -591,9 +646,9 @@ __global__ void __launch_bounds__(128 * (kNWG<D> + 1), 1)
       const float ls = l_run[hf] == 0.0f ? 1.0f : l_run[hf];
       const long long obase = (qh * Sq + row) * dh;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        if (kPad && dt * 8 >= dh) break;  // columns past the head dim
-        const int d = dt * 8 + 2 * t;
+      for (int dt = 0; dt < DV / 8; ++dt) {
+        if (kPad && cb * DV + dt * 8 >= dh) break;  // columns past the head dim
+        const int d = cb * DV + dt * 8 + 2 * t;
         const float o0 = __fdiv_rn(oacc[4 * dt + 2 * hf], ls);
         const float o1 = __fdiv_rn(oacc[4 * dt + 2 * hf + 1], ls);
         if (args.out_f32)
@@ -631,3 +686,5 @@ int launch(const Args& a, const void* k, const void* v, int B, cudaStream_t stre
 // The calls of fused_kv_attention_wgmma_pad.cu: head dim 256, and every
 // head dim below its kernel's width (64, 128 or 256).
 int fused_kv_pad(const FusedKvArgs& a, const void* k, const void* v, int B, int bits, cudaStream_t stream);
+// The calls of fused_kv_attention_wgmma_d512.cu: head dims 272-512.
+int fused_kv_d512(const FusedKvArgs& a, const void* k, const void* v, int B, int bits, cudaStream_t stream);

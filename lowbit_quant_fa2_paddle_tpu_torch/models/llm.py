@@ -54,7 +54,7 @@ from lowbit_quant_fa2_paddle_tpu_torch.core import lowbit_fa_qk_int8_pv_fp16
 from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd, fused_kv, gemv
 from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as dec
 from lowbit_quant_fa2_paddle_tpu_torch.ops import quant as quant_ops
-from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import flash_attention_fp, lowbit_attention
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import KERNEL_DIMS, flash_attention_fp, lowbit_attention
 from lowbit_quant_fa2_paddle_tpu_torch.ops.gemv import WQWeight
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import attention_reference
 
@@ -430,9 +430,9 @@ def _attend_cache(q: torch.Tensor, cache: dict, c0: int, cfg: LLMConfig):
     if kb == 16:
         return flash_attention_fp(q, k_pre, v_pre, return_lse=True)
     pack = kb
-    if kb == 4 and cfg.head_dim not in (64, 128, 256):
-        # Kernel A takes packed K at head_dim 64, 128 or 256 only; the
-        # unpacked codes are the same values in its int8 mode.
+    if kb == 4 and cfg.head_dim not in KERNEL_DIMS:
+        # Kernel A takes packed K at its own head dims (64, 128, 256, 512)
+        # only; the unpacked codes are the same values in its int8 mode.
         k_pre, pack = quant_ops.unpack_int4(k_pre), 8
     return lowbit_attention(q, k_pre, v_pre, k_scale=cache["k_scale"][:, :, :c0], k_pack_bits=pack,
                             return_lse=True)

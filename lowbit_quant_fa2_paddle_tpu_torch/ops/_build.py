@@ -59,6 +59,12 @@ _SIGNATURES = {
     "lowbit_decode_multi_ctas_per_sm_dyn": [_I, _I, _I, _I, _I, _P],
     "lowbit_decode_attn_paged_dyn": [_P] * 11 + [_I] * 17 + [_P] + [_I] * 3 + [_F, _F, _P],
     "lowbit_decode_paged_ctas_per_sm_dyn": [_I, _I, _I, _I, _I, _P],
+    "lowbit_decode_attn_dyn512": [_P] * 11 + [_I] * 15 + [_F, _F, _P],
+    "lowbit_decode_ctas_per_sm_dyn512": [_I, _I, _I, _I, _I, _P],
+    "lowbit_decode_attn_multi_dyn512": [_P] * 11 + [_I] * 17 + [_F, _F, _P],
+    "lowbit_decode_multi_ctas_per_sm_dyn512": [_I, _I, _I, _I, _I, _P],
+    "lowbit_decode_attn_paged_dyn512": [_P] * 11 + [_I] * 17 + [_P] + [_I] * 3 + [_F, _F, _P],
+    "lowbit_decode_paged_ctas_per_sm_dyn512": [_I, _I, _I, _I, _I, _P],
     "lowbit_gemv": [_P] * 5 + [_I] * 9 + [_P],
     "lowbit_gemv_w8": [_P] * 7 + [_I] * 10 + [_P],
     "lowbit_gemv_tc": [_P] * 7 + [_I] * 13 + [_P],

@@ -47,8 +47,11 @@ warp-specialised), instantiated at head dims 64 and 128 in
 ``attention_fwd_wgmma_bias.cu``, with fp32 PV in
 ``attention_fwd_wgmma_pv32.cu`` and ``attention_fwd_wgmma_pv32_d256.cu`` (KV
 tiles of 64 keys), and at head_dim 256 in ``attention_fwd_wgmma_d256.cu``
-(KV tiles of 64 keys), all behind the one C entry ``lowbit_attn_fwd_wgmma``. Smaller head dims are
-zero-padded to the next of 64, 128 and 256. The tile is part of the rounding
+(KV tiles of 64 keys), and at head_dim 512 in ``attention_fwd_wgmma_d512.cu``
+and ``attention_fwd_wgmma_d512_masked.cu`` (KV tiles of 64 keys, O's columns
+split between two warpgroups; no fp32 PV), all behind the one C entry
+``lowbit_attn_fwd_wgmma``. Smaller head dims are zero-padded to the next of
+64, 128, 256 and 512; above 512 the port raises. The tile is part of the rounding
 (P rounds against the running maximum of each tile), so the plain version
 takes the tile of the kernel that runs the call (``kv_tile``).
 
@@ -75,12 +78,13 @@ NEG_INIT = -1e30
 #: Keys per KV tile of kernel A's design (``BKV`` in its source) up to head_dim
 #: 128.
 KV_TILE = {"wgmma": 128}
-#: Keys per KV tile of the head_dim-256 kernels and of the fp32-PV ones
-#: (``kBKV<D, kPV32>``).
+#: Keys per KV tile of the head_dim-256 and -512 kernels and of the fp32-PV
+#: ones (``kBKV<D, kPV32>``).
 KV_TILE_D256 = 64
 #: The head dims kernel A is built for; a call pads its head dim up to the
-#: next of them.
-KERNEL_DIMS = (64, 128, 256)
+#: next of them. 257-511 pad to 512 (one set of instances, not one for each
+#: multiple of 64 that the JAX launcher pads to).
+KERNEL_DIMS = (64, 128, 256, 512)
 #: Elements of one chunk of f32 logits in the plain version (1 GiB).
 _PLAIN_CHUNK_ELEMS = 1 << 28
 _UNPACK = {4: unpack_int4, 2: unpack_int2}
@@ -93,18 +97,21 @@ def kernel_design(pv_int8: bool = False) -> str:
 
 
 def kernel_dim(head_dim: int) -> int:
-    """The head dim of the kernel that runs a call: the next of 64, 128 and
-    256 (zero columns pad the rest)."""
+    """The head dim of the kernel that runs a call: the next of 64, 128, 256
+    and 512 (zero columns pad the rest). Above 512 it raises: a 64-row bf16
+    Q tile and one stage of 64-key bf16 K and V would pass the 227 KB of
+    shared memory a block can have, and O split over two warpgroups would
+    pass the registers."""
     for dp in KERNEL_DIMS:
         if head_dim <= dp:
             return dp
-    raise _not_ported(f"head_dim {head_dim} > 256 on the GPU", "3h")
+    raise _not_ported(f"head_dim {head_dim} > 512 on the GPU", "3h")
 
 
 def kv_tile(pv_int8: bool = False, head_dim: int = 128, pv_f32: bool = False) -> int:
     """Keys per KV tile of the kernel that runs the mode at ``head_dim``:
-    the design's 128, or 64 above head_dim 128 (the head_dim-256 kernels)
-    and with fp32 PV."""
+    the design's 128, or 64 above head_dim 128 (the head_dim-256 and -512
+    kernels) and with fp32 PV."""
     return KV_TILE_D256 if head_dim > 128 or pv_f32 else KV_TILE[kernel_design(pv_int8)]
 
 
@@ -331,7 +338,7 @@ def _attention_fwd_cuda(
     between 64 and 128, or between 128 and 256 are zero-padded to the next
     (:func:`kernel_dim`): zero Q/K columns leave QK^T and the Q absmax
     unchanged, and zero V columns are sliced off. Packed K cannot be padded;
-    its D is 64, 128 or 256. fp32 PV hands the kernel V as three bf16 terms
+    its D is 64, 128, 256 or 512. fp32 PV has no kernel above 256. fp32 PV hands the kernel V as three bf16 terms
     of one ``[.., 3D]`` row (:func:`bf16_terms`; int8 codes are exact in the
     first)."""
     b, h, s_q, d = q.shape
@@ -340,7 +347,9 @@ def _attention_fwd_cuda(
     if b > 65535 or h > 65535:
         raise ValueError(f"batch and heads are CUDA grid dims (at most 65535): {b}, {h}")
     if k_bits != 8 and dp != d:
-        raise ValueError(f"packed K on the GPU needs head_dim 64, 128 or 256 (pad before quantizing), got {d}")
+        raise ValueError(f"packed K on the GPU needs head_dim 64, 128, 256 or 512 (pad before quantizing), got {d}")
+    if pv_f32 and dp > 256:
+        raise _not_ported(f"fp32 PV at head_dim {d} > 256 on the GPU", "3h")
     quant = k.dtype == torch.int8
     if q.dtype == torch.int8:
         mode = 0
@@ -421,7 +430,7 @@ def lowbit_attention(
     for the modes. ``q_scale`` ``[B,H,Sq]`` / ``k_scale`` ``[B,Hk,Sk]`` are
     per-row dequant scales (``sm_scale·log2e`` is folded into ``q_scale``
     here, as in the TPU launcher). ``k_packed_int4`` (or ``k_pack_bits=4``)
-    and ``k_pack_bits=2`` take packed K codes, with D 64 or 128. int8 ``v``
+    and ``k_pack_bits=2`` take packed K codes, with D a multiple of 64. int8 ``v``
     takes per-channel ``v_scale`` ``[B,Hk,D]``; ``pv_int8`` then runs PV as
     an INT8 dot. ``v_mean`` ``[B,Hk,D]`` is added back to rows with at least
     one visible key (smooth-V). ``sm_scale`` defaults to ``1/sqrt(D)``.
@@ -458,7 +467,7 @@ def lowbit_attention(
         raise ValueError(f"k must be [B, Hk, Sk, D*{k_bits}/8] with D={d}: {tuple(k.shape)}")
     if hk == 0 or h % hk:
         raise ValueError(f"query heads {h} not a multiple of kv heads {hk}")
-    kernel_dim(d)  # head dims above 256 have no kernel (raises)
+    kernel_dim(d)  # head dims above 512 have no kernel (raises)
     if s_k < 1:
         raise ValueError("need at least one key")
     q_int8, k_int8, v_int8 = q.dtype == torch.int8, k.dtype == torch.int8, v.dtype == torch.int8

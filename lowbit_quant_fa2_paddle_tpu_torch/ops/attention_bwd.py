@@ -38,7 +38,8 @@ import torch
 
 from lowbit_quant_fa2_paddle_tpu_torch.core import lowbit_fa_qk_int8_pv_fp16
 from lowbit_quant_fa2_paddle_tpu_torch.ops import _build
-from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import LOG2E, MASK_VALUE, flash_attention_fp, kernel_dim
+from lowbit_quant_fa2_paddle_tpu_torch.ops.attention import (
+    LOG2E, MASK_VALUE, _not_ported, flash_attention_fp, kernel_dim)
 from lowbit_quant_fa2_paddle_tpu_torch.ops.quant import quant_int8
 from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import _repeat_kv
 
@@ -235,12 +236,21 @@ def bwd_operands(q, k, v, o, lse2, do, *, is_causal: bool, sm_scale: float, quan
     return (q, k, v, do, lse2.float(), di, *scales), kw
 
 
+def check_bwd_head_dim(d: int) -> None:
+    """Raises for a head dim G1/G2 have no kernel for: above 256 ("3h"),
+    though kernel A's forward takes up to 512 (:func:`kernel_dim`)."""
+    if d > 256:
+        raise _not_ported(f"backward (G1/G2) at head_dim {d} > 256 on the GPU", "3h")
+
+
 def _attention_bwd_cuda(q, k, v, do, lse2, di, *scales, causal, window, scale2, ds_scale, dq_dtype, dkv_dtype):
     """Launch G1, then G2. Head dims below 64, 128 or 256 are zero-padded to
-    the next of them (``kernel_dim``, which refuses above 256): zero columns
+    the next of them (``kernel_dim``); above 256 it raises
+    (:func:`check_bwd_head_dim`): zero columns
     of q, k, v and dO leave every product (and the codes' scales)
     unchanged, and the padded columns of dq, dk and dv are sliced off."""
     d = q.shape[-1]
+    check_bwd_head_dim(d)
     dp = kernel_dim(d)
     if dp != d:
         q, k, v, do = (torch.nn.functional.pad(x, (0, dp - d)) for x in (q, k, v, do))
@@ -334,7 +344,10 @@ def flash_attention_trainable(q, k, v, is_causal=False, sm_scale=None, block_q=N
     the GPU: the tiles are the kernels' own (the TPU package's tuned backward
     blocks are a TPU table). ``window_size`` (causal only) trains a
     sliding-window model: kernel A's band in the forward, G1/G2 masking the
-    same ``(r - window, r]`` keys in the backward."""
+    same ``(r - window, r]`` keys in the backward. On the card it raises
+    above head_dim 256 before any launch (:func:`check_bwd_head_dim`)."""
+    if q.device.type == "cuda":
+        check_bwd_head_dim(q.shape[-1])
     return _FlashAttentionFn.apply(q, k, v, bool(is_causal), sm_scale, window_size)
 
 
@@ -346,5 +359,8 @@ def lowbit_attention_trainable(q, k, v, is_causal=False, sm_scale=None, block_q=
     corrected for smooth-K; the backward turns it to base 2 and runs G1/G2
     straight through the quantizer. ``bwd_quantized`` runs the backward's
     QK^T and dO·V^T on INT8 codes (four more C1 launches). ``block_q``,
-    ``block_kv`` and ``window_size`` as in :func:`flash_attention_trainable`."""
+    ``block_kv``, ``window_size`` and the head dims as in
+    :func:`flash_attention_trainable`."""
+    if q.device.type == "cuda":
+        check_bwd_head_dim(q.shape[-1])
     return _LowbitAttentionFn.apply(q, k, v, bool(is_causal), sm_scale, bool(bwd_quantized), window_size)

@@ -26,8 +26,10 @@ dims 32, 64 and 128, ``csrc/decode_attention_multi_d256.cu`` at 256,
 at 80 and 96: Phi-2's and Phi-3-mini's head dims, whose rows the kernel keeps
 at the cache's own width; ``csrc/decode_attention_dyn.cu`` at every other
 multiple of 16 from 16 to 256, e.g. MPT-30B's 112 and Nemotron-4's 192,
-instances that take the head dim at run time, laid out for 128 or for 256).
-Head dims that are not multiples of 16, and those above 256, raise.
+instances that take the head dim at run time, laid out for 128 or for 256;
+``csrc/decode_attention_dyn512.cu`` and its ``_multi``/``_paged`` twins at
+every multiple of 16 from 272 to 512, laid out for 512). Head dims that are
+not multiples of 16, and those above 512, raise.
 
 Semantics of one query token per sequence, as the TPU kernel computes them:
 
@@ -117,9 +119,10 @@ DESIGNS = ("bulk_ring",)
 #: 80 and 96 (the ``_d80_96`` sources).
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 #: Every head dim kernel D takes on the card: the multiples of 16 from 16 to
-#: 256. Those outside :data:`HEAD_DIMS` run the instances that take the head
-#: dim at run time (the ``_dyn`` sources), laid out for 128 or for 256.
-CARD_HEAD_DIMS = tuple(range(16, 257, 16))
+#: 512. Those outside :data:`HEAD_DIMS` run the instances that take the head
+#: dim at run time (the ``_dyn`` sources, laid out for 128 or for 256; the
+#: ``_dyn512`` ones, laid out for 512).
+CARD_HEAD_DIMS = tuple(range(16, 513, 16))
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -246,9 +249,9 @@ def append_kv_multi(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> di
 
 def instance_dim(d: int) -> int:
     """The head dim the instance that runs head dim ``d`` is laid out for:
-    ``d`` itself in :data:`HEAD_DIMS`, else 128 (``d <= 128``) or 256 (the
-    instances that take the head dim at run time)."""
-    return d if d in HEAD_DIMS else 128 if d <= 128 else 256
+    ``d`` itself in :data:`HEAD_DIMS`, else 128 (``d <= 128``), 256 or 512
+    (the instances that take the head dim at run time)."""
+    return d if d in HEAD_DIMS else 128 if d <= 128 else 256 if d <= 256 else 512
 
 
 def tile_keys(d: int, k_bits: int, v_bits: int) -> int:
@@ -263,18 +266,22 @@ def tile_keys(d: int, k_bits: int, v_bits: int) -> int:
 def _entry(lib, name: str, d: int):
     """The C entry of kernel D's instances at head dim ``d``: ``name`` for
     d32-d128, its ``_d256`` or ``_d80_96`` twin in their own sources, its
-    ``_dyn`` twin (the head dim at run time) at the other multiples of 16."""
-    suffix = "" if d in (32, 64, 128) else "_d256" if d == 256 else "_d80_96" if d in (80, 96) else "_dyn"
+    ``_dyn`` twin (the head dim at run time) at the other multiples of 16 up
+    to 256, its ``_dyn512`` twin above."""
+    suffix = ("" if d in (32, 64, 128) else "_d256" if d == 256 else "_d80_96" if d in (80, 96)
+              else "_dyn" if d < 256 else "_dyn512")
     return getattr(lib, name + suffix)
 
 
 def check_head_dim(d: int) -> None:
     """Raises, naming its ROADMAP item, for a head dim kernel D does not take
-    on the card: above 256 ("3h"), or not a multiple of 16 ("3")."""
-    if d > 256:
-        raise _not_ported(f"decode head_dim {d} > 256 on the GPU", "3h")
+    on the card: above 512 ("3h": 16 f32 PV columns a lane for 8 rows are
+    already 128 of a thread's 255 registers, and the widest rows' 16-key
+    tiles 32 KB a stage), or not a multiple of 16 ("3")."""
+    if d > 512:
+        raise _not_ported(f"decode head_dim {d} > 512 on the GPU", "3h")
     if d not in CARD_HEAD_DIMS:
-        raise _not_ported(f"decode head_dim {d} (kernel D takes the multiples of 16 from 16 to 256)", "3")
+        raise _not_ported(f"decode head_dim {d} (kernel D takes the multiples of 16 from 16 to 512)", "3")
 
 
 def walk_tiles(length: int, s_max: int, *, tile: int, window: int = 0, sink: int = 0, q_tokens: int = 1,

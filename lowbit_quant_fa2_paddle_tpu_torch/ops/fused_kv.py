@@ -13,11 +13,13 @@ PyTorch/CUDA counterpart of ``lowbit_quant_fa2_paddle_tpu/ops/fused_kv.py``:
   attention with K and V resident as those codes, dequantized inside the
   kernel (one Hopper design, ``kernel_design``: TMA of the packed tiles, a
   producer warpgroup that widens them to bf16 in shared memory, ``wgmma``
-  products on 128-key tiles, 64 at head dim 256). GQA, causal (top-left
+  products on 128-key tiles, 64 at head dims 256 and 512). GQA, causal (top-left
   aligned: query row ``r`` sees keys ``0..r``, also when Sq != Sk), any Sk,
-  every head dim that is a multiple of 16 from 16 to 256 (64, 128 and 256
-  on kernels of their own; the others on the kernel of the next of those
-  widths, the columns past the head dim zeros, ``csrc/fused_kv_attention_wgmma_pad.cu``).
+  every head dim that is a multiple of 16 from 16 to 512 (64, 128, 256 and
+  512 on kernels of their own; the others on the kernel of the next of those
+  widths, the columns past the head dim zeros, ``csrc/fused_kv_attention_wgmma_pad.cu``
+  and, above 256, ``csrc/fused_kv_attention_wgmma_d512.cu``, whose two
+  consumer warpgroups split O's columns as kernel A's d512 kernel's do).
   Q, K and V enter the two products as bf16 (the TPU kernel dots f32 Q and
   K); P is f32 for the softmax and bf16 in PV; a row with no visible weight
   gives 0.
@@ -42,8 +44,8 @@ from lowbit_quant_fa2_paddle_tpu_torch.ops.reference import round_away
 _PLAIN_CHUNK_ELEMS = 1 << 28
 #: Designs of kernel E: one, for every mode (bits 4 and 2, every head dim).
 DESIGNS = ("wgmma",)
-#: The head dims kernel E takes on the card: the multiples of 16 from 16 to 256.
-HEAD_DIMS = tuple(range(16, 257, 16))
+#: The head dims kernel E takes on the card: the multiples of 16 from 16 to 512.
+HEAD_DIMS = tuple(range(16, 513, 16))
 
 
 def kernel_design(bits: int = 4) -> str:
@@ -156,10 +158,12 @@ def pack_row_bytes(d: int, bits: int) -> int:
 def _fused_kv_cuda(q, kp, vp, ks, km, vs, vm, *, bits, group, causal, sm_scale_log2e, out_dtype):
     b, h, sq, d = q.shape
     hk, sk = kp.shape[1], kp.shape[2]
-    if d > 256:
-        raise _not_ported(f"kernel E at head_dim {d} > 256", "3h")
+    if d > 512:
+        # A 64-key bf16 K and V tile beside a 64-row bf16 Q tile is already
+        # 192 of the 227 KB of shared memory at 512.
+        raise _not_ported(f"kernel E at head_dim {d} > 512", "3h")
     if d not in HEAD_DIMS:
-        raise _not_ported(f"kernel E at head_dim {d} (it takes the multiples of 16 from 16 to 256)", "3")
+        raise _not_ported(f"kernel E at head_dim {d} (it takes the multiples of 16 from 16 to 512)", "3")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel E writes f32 or bf16, not {out_dtype}")
     tensors = (kp, vp, ks, km, vs, vm)

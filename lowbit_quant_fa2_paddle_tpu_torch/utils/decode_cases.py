@@ -17,7 +17,11 @@ at odd keys; the ``d16-``, ``d48-``, ``d112-``, ``d144-``, ``d192-`` and
 (``csrc/decode_attention*_dyn.cu``, laid out for 128 or 256): every cache
 mode and both chains, rows that end inside a QK window and 4-bit rows of
 8, 24, 56, 72 and 120 bytes (copied in 8-byte pieces), Nemotron-4's GQA
-group of 12 at d192. The bounds are phase 9's: cos >= 0.99999,
+group of 12 at d192; the ``d272-``, ``d320-``, ``d400-`` and ``d512-`` cases
+the instances laid out for 512 (``csrc/decode_attention*_dyn512.cu``): every
+cache mode and both chains, GQA 8q/2kv (the hd512 LLM's group of 4), 4-bit
+rows of 136 and 200 bytes (copied in 8-byte pieces), lanes idle in the
+second column group. The bounds are phase 9's: cos >= 0.99999,
 max|do| <= one bf16 ulp of max|o|, max|dlse| <= 1e-4, rows that see no key
 o = 0 and lse = -1e30, the same bits on a second run, every launch on D's
 design and on the case's variant (``ops.decode.launch_variant``).
@@ -130,6 +134,33 @@ CASES = {
     "d240-t2-int8-cap20": (2, "int8", "auto", 240, 2, 8, 2, 700, [700, 65], 0, 0, torch.bfloat16, 20.0),
     "d240-t1-int4-int-qk-split-edge": (1, "int4", "int_qk", 240, 2, 8, 8, 2048, None, 0, 0, torch.bfloat16),
     "d240-pv8-t4-masked-tiles": (4, "int8", "int", 240, 2, 8, 2, 1000, [1000, 33], 0, 0, torch.bfloat16),
+    # Head dims above 256 (the instances laid out for 512): every cache mode and both chains, T 1-4, tile and
+    # split edges, a window with sinks, the cap, INT8 PV.
+    "d512-t1-int8-split-edge": (1, "int8", "auto", 512, 2, 8, 2, 2048, None, 0, 0, torch.bfloat16),
+    "d512-t4-bf16-tile-edge": (4, "bf16", "auto", 512, 2, 8, 2, 1000, [129, 34], 0, 0, torch.bfloat16),
+    "d512-t1-int4": (1, "int4", "auto", 512, 2, 8, 2, 700, [700, 9], 0, 0, torch.bfloat16),
+    "d512-t4-int4-int-qk": (4, "int4", "int_qk", 512, 2, 8, 2, 700, [700, 9], 0, 0, torch.bfloat16),
+    "d512-t1-k4v8-int-qk-window100-sink8": (1, "k4v8", "int_qk", 512, 2, 8, 2, 777, [400, 777], 100, 8,
+                                            torch.bfloat16),
+    "d512-t4-k4v8-window256-sink4": (4, "k4v8", "auto", 512, 2, 8, 2, 1000, [577, 1000], 256, 4, torch.bfloat16),
+    "d512-t2-int8-window256-cap30": (2, "int8", "auto", 512, 2, 8, 2, 1000, [577, 1000], 256, 0, torch.bfloat16,
+                                     30.0),
+    "d512-t1-int8-f32-chain-f32-q": (1, "int8", "f32", 512, 2, 8, 2, 777, [777, 2], 0, 0, torch.float32),
+    "d512-t1-bf16-f32-q": (1, "bf16", "auto", 512, 2, 8, 8, 500, [500, 1], 0, 0, torch.float32),
+    "d512-pv8-t1": (1, "int8", "int", 512, 2, 8, 2, 1000, [1000, 65], 0, 0, torch.bfloat16),
+    "d512-pv8-t4-masked-tiles": (4, "int8", "int", 512, 2, 8, 2, 1000, [1000, 33], 0, 0, torch.bfloat16),
+    "d512-pv8-t2-bf16-k": (2, "k16v8", "int", 512, 2, 8, 2, 600, [600, 3], 0, 0, torch.bfloat16),
+    "d272-t1-int4-window101-sink3": (1, "int4", "auto", 272, 2, 8, 2, 1000, [578, 1000], 101, 3, torch.bfloat16),
+    "d272-t4-k4v8-int-qk": (4, "k4v8", "int_qk", 272, 2, 8, 2, 700, [700, 9], 0, 0, torch.bfloat16),
+    "d272-t2-bf16": (2, "bf16", "auto", 272, 2, 8, 2, 600, [600, 65], 0, 0, torch.bfloat16),
+    "d272-pv8-t4-masked-tiles": (4, "int8", "int", 272, 2, 8, 2, 1000, [1000, 33], 0, 0, torch.bfloat16),
+    "d320-t1-int8-split-edge": (1, "int8", "auto", 320, 2, 8, 8, 2048, None, 0, 0, torch.bfloat16),
+    "d320-t4-int4": (4, "int4", "auto", 320, 2, 8, 2, 700, [700, 9], 0, 0, torch.bfloat16),
+    "d320-t1-bf16-cap20": (1, "bf16", "auto", 320, 2, 8, 2, 700, [700, 65], 0, 0, torch.bfloat16, 20.0),
+    "d400-t2-int8-cap20": (2, "int8", "auto", 400, 2, 8, 2, 700, [700, 65], 0, 0, torch.bfloat16, 20.0),
+    "d400-t1-k4v8-int-qk-window100-sink8": (1, "k4v8", "int_qk", 400, 2, 8, 2, 777, [400, 777], 100, 8,
+                                            torch.bfloat16),
+    "d400-pv8-t1-bf16-k": (1, "k16v8", "int", 400, 2, 8, 8, 600, [600, 3], 0, 0, torch.bfloat16),
 }
 
 
@@ -234,6 +265,15 @@ PAGED_CASES = {
     "paged-d48-t2-bf16-p32-cap30": (2, "bf16", "auto", 48, 2, 8, 8, 32, 16, [512, 33], 0, 0, torch.bfloat16, 30.0),
     "paged-d144-t1-int4-int-qk-p16": (1, "int4", "int_qk", 144, 2, 8, 2, 16, 32, [512, 33], 0, 0, torch.bfloat16),
     "paged-d240-t3-k16v8-p64": (3, "k16v8", "auto", 240, 2, 8, 8, 64, 8, [512, 70], 0, 0, torch.bfloat16),
+    "paged-d512-t1-int8-p64": (1, "int8", "auto", 512, 2, 8, 2, 64, 8, [512, 70], 0, 0, torch.bfloat16),
+    "paged-d512-t4-k4v8-p16": (4, "k4v8", "auto", 512, 2, 8, 2, 16, 32, [512, 33], 0, 0, torch.bfloat16),
+    "paged-d512-pv8-t2-p8": (2, "int8", "int", 512, 2, 8, 2, 8, 40, [320, 9], 0, 0, torch.bfloat16),
+    "paged-d512-t1-bf16-p32-window100": (1, "bf16", "auto", 512, 2, 8, 2, 32, 10, [320, 64], 100, 0,
+                                         torch.bfloat16),
+    "paged-d272-t4-int4-p8": (4, "int4", "auto", 272, 2, 8, 2, 8, 40, [320, 9], 0, 0, torch.bfloat16),
+    "paged-d320-t1-int4-int-qk-p16": (1, "int4", "int_qk", 320, 2, 8, 2, 16, 32, [512, 33], 0, 0, torch.bfloat16),
+    "paged-d400-t1-k16v8-p64-cap30": (1, "k16v8", "auto", 400, 2, 8, 8, 64, 8, [512, 70], 0, 0, torch.bfloat16,
+                                      30.0),
 }
 
 

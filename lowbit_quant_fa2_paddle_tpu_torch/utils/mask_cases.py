@@ -10,10 +10,12 @@ Sk, options)`` with :func:`~..ops.attention.lowbit_attention`'s mask
 options; ``seg`` asks for segment ids of varlen sequences that split inside
 the 128-key tiles, the last :data:`NO_KEY_ROWS` query rows in a segment no
 key has; ``bias`` ("vector" or "matrix") for a random bias of that shape;
-``pv32`` for fp32 PV on f32 V (out f32). Three grids: :data:`MODES` ×
+``pv32`` for fp32 PV on f32 V (out f32). Four grids: :data:`MODES` ×
 :data:`EDGES` (the masks), :data:`MODES_D256` × :data:`EDGES_D256` (head_dim
-256 and a padded 192) and :data:`EXTRA_MODES` × :data:`EXTRA_EDGES` (the bias
-and fp32 PV, at head dims 64, 128 and 256 with INT8 and bf16 QK).
+256 and a padded 192), :data:`EXTRA_MODES` × :data:`EXTRA_EDGES` (the bias
+and fp32 PV, at head dims 64, 128 and 256 with INT8 and bf16 QK) and
+:data:`MODES_D512` × :data:`EDGES_D512` (head_dim 512 in every mode but
+fp32 PV, and 320 and 448 padded to 512, with the masks and the bias).
 """
 
 from __future__ import annotations
@@ -69,6 +71,27 @@ EDGES_D256 = {
     "segments": (False, 400, 400, dict(seg=True)),
     "cap5": (False, 300, 300, dict(logit_cap=5.0)),
 }
+#: Kernel A at head_dim 512 in every mode (fp32 PV has no d512 kernel), and
+#: head dims 320 and 448 (padded to 512).
+MODES_D512 = {
+    "int8-d512": ("int8", 8, "bf16", 512), "fused-d512": ("fused", 8, "bf16", 512), "fp-d512": ("fp", 16, "bf16", 512),
+    "int4-k-d512": ("fused", 4, "bf16", 512), "int2-k-d512": ("fused", 2, "bf16", 512),
+    "int8-v-d512": ("fused", 8, "int8", 512), "int8-pv-d512": ("fused", 8, "int8_pv", 512),
+    "fused-d320": ("fused", 8, "bf16", 320), "fp-d448": ("fp", 16, "bf16", 448),
+    "int8-pv-d320": ("fused", 8, "int8_pv", 320),
+}
+#: The head_dim-512 edges: unmasked (non-causal, causal, ragged against the
+#: 64-key tile, a q offset), the masks and the bias.
+EDGES_D512 = {
+    "plain": (False, 300, 333, {}),
+    "causal": (True, 333, 333, {}),
+    "causal-sq130-sk777": (True, 130, 777, dict(q_position_offset=647)),
+    "window100-sink70": (True, 400, 400, dict(window_size=100, sink_size=70)),
+    "segments": (False, 400, 400, dict(seg=True)),
+    "cap5": (False, 300, 300, dict(logit_cap=5.0)),
+    "bias-vector": (False, 300, 333, dict(bias="vector")),
+    "bias-matrix-causal-cap2": (True, 333, 333, dict(bias="matrix", logit_cap=2.0)),
+}
 #: The bias (a per-key vector or a full matrix, natural-log units) alone and
 #: with causal masking, a window and the cap; and fp32 PV (pv_dtype f32:
 #: f32 V given, or int8 V codes) at its edges. Each runs in the modes of
@@ -93,6 +116,11 @@ EXTRA_MODES = {
 #: The (mode, edge) pairs of the head_dim-256 and the bias / fp32 PV grids.
 def extra_cases() -> list:
     return [(m, e) for m in MODES_D256 for e in EDGES_D256] + [(m, e) for m in EXTRA_MODES for e in EXTRA_EDGES]
+
+
+#: The (mode, edge) pairs of the head_dim-512 grid.
+def d512_cases() -> list:
+    return [(m, e) for m in MODES_D512 for e in EDGES_D512]
 
 
 HEADS, KV_HEADS = 4, 2
@@ -122,8 +150,8 @@ def make_case(mode: str, edge: str, gen: torch.Generator, device) -> dict:
     ``args`` and ``kw`` for ``lowbit_attention`` (without ``return_lse``),
     ``plain_args`` and ``plain_kw`` for ``attention_fwd_plain``, and
     ``empty_rows``, the rows no key is visible to."""
-    q_mode, k_bits, v_mode, d = {**MODES, **MODES_D256, **EXTRA_MODES}[mode]
-    causal, sq, sk, opts = {**EDGES, **EDGES_D256, **EXTRA_EDGES}[edge]
+    q_mode, k_bits, v_mode, d = {**MODES, **MODES_D256, **EXTRA_MODES, **MODES_D512}[mode]
+    causal, sq, sk, opts = {**EDGES, **EDGES_D256, **EXTRA_EDGES, **EDGES_D512}[edge]
     opts = dict(opts)
     q = torch.randn(1, HEADS, sq, d, generator=gen, device=device).bfloat16()
     k = (torch.randn(1, KV_HEADS, sk, d, generator=gen, device=device) + 0.3).bfloat16()

@@ -203,22 +203,31 @@ def _unported_call(case):
     from lowbit_quant_fa2_paddle_tpu_torch.ops import attention_bwd as tbwd
     from lowbit_quant_fa2_paddle_tpu_torch.ops import decode as tdec
 
-    if case == "a-head-dim-320":
-        q = torch.randn(1, 1, 8, 320)
+    if case == "a-head-dim-576":
+        q = torch.randn(1, 1, 8, 576)
         return lambda: lowbit_attention(q, q, q)
+    if case == "a-fp32-pv-head-dim-320":
+        from lowbit_quant_fa2_paddle_tpu_torch.ops import attention as tattn
+
+        q = torch.randn(1, 1, 8, 320)
+        return lambda: tattn._attention_fwd_cuda(q, q, q, None, None, None, causal=False, sm_scale_log2e=0.08,
+                                                 out_dtype=torch.float32, need_lse=False, k_bits=8, v_scale=None,
+                                                 pv_int8=False, pv_f32=True)
+    if case == "g-trainable-head-dim-320":
+        return lambda: tbwd.check_bwd_head_dim(320)
     if case == "g-head-dim-320":
         q = torch.randn(1, 1, 8, 320)
         lse = torch.zeros(1, 1, 8)
         return lambda: tbwd._attention_bwd_cuda(q, q, q, q, lse, lse, None, None, None, None, causal=False, window=0,
                                                 scale2=0.09, ds_scale=0.0625, dq_dtype=torch.float32,
                                                 dkv_dtype=torch.float32)
-    if case == "e-head-dim-320":
+    if case == "e-head-dim-528":
         from lowbit_quant_fa2_paddle_tpu_torch.ops import fused_kv as tfkv
 
-        q, kp, ks = torch.randn(1, 1, 8, 320), torch.zeros(1, 1, 8, 160, dtype=torch.int8), torch.ones(1, 1, 8, 1)
+        q, kp, ks = torch.randn(1, 1, 8, 528), torch.zeros(1, 1, 8, 264, dtype=torch.int8), torch.ones(1, 1, 8, 1)
         return lambda: tfkv._fused_kv_cuda(q, kp, kp, ks, ks, ks, ks, bits=4, group=8, causal=False,
                                            sm_scale_log2e=0.15, out_dtype=torch.float32)
-    d = 104 if case == "d-head-dim-104" else 320
+    d = 104 if case == "d-head-dim-104" else 528
     cache = torch.zeros(1, 1, 16, d, dtype=torch.int8)
     q = torch.randn(1, 2, 1, d) if case.startswith("d-t-tokens") else torch.randn(1, 1, 1, d)
     ones, lens = torch.ones(1, 1, 16), torch.full((1,), 16, dtype=torch.int32)
@@ -227,16 +236,18 @@ def _unported_call(case):
 
 
 #: The calls of _unported_call and the ROADMAP item each names.
-UNPORTED = {"a-head-dim-320": "3h", "g-head-dim-320": "3h", "d-head-dim-320": "3h", "d-t-tokens-head-dim-320": "3h",
-            "e-head-dim-320": "3h", "d-head-dim-104": "3"}
+UNPORTED = {"a-head-dim-576": "3h", "a-fp32-pv-head-dim-320": "3h", "g-head-dim-320": "3h",
+            "g-trainable-head-dim-320": "3h", "d-head-dim-528": "3h", "d-t-tokens-head-dim-528": "3h",
+            "e-head-dim-528": "3h", "d-head-dim-104": "3"}
 
 
 @pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_flags_raise(case):
     """What the port still raises for, each naming its ROADMAP item (which
-    JAX takes: not a bad input): kernels A, G1/G2, D (one token or T) and E
-    above head_dim 256 ("3h"), and kernel D at a head dim that is not a
-    multiple of 16 ("3")."""
+    JAX takes: not a bad input): kernels A, D (one token or T) and E above
+    their ceiling of head_dim 512, fp32 PV and G1/G2 (and the trainable
+    entry points' check) above 256 ("3h"), and kernel D at a head dim that
+    is not a multiple of 16 ("3")."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, item {UNPORTED[case]}\\)"):
         _unported_call(case)()
 
@@ -273,12 +284,12 @@ def test_bad_mask_options_raise(kw, match):
 
 def test_unported_entry_points_raise():
     """The entry points take smooth_q and "fp32+fp32" now; a head dim above
-    256 still raises (ROADMAP), an unknown accumulation policy and int8 q
+    512 still raises (ROADMAP), an unknown accumulation policy and int8 q
     without K codes are ValueErrors."""
     q = torch.randn(1, 1, 8, 64)
     for fn in (tlq.lowbit_fa_qk_int8_pv_fp16, tlq.lowbit_fa_qk_int4_pv_fp16):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(*(torch.randn(1, 1, 8, 320),) * 3, smooth_q=True)
+            fn(*(torch.randn(1, 1, 8, 576),) * 3, smooth_q=True)
         assert fn(q, q, q, smooth_q=True).shape == q.shape
     with pytest.raises(ValueError, match="pv_accum_dtype"):
         tlq.lowbit_fa_qk_int8_pv_fp16(q, q, q, pv_accum_dtype="fp64")

@@ -152,18 +152,18 @@ def test_paged_decode_d112_matches_jax(case):
 
 
 def test_card_head_dims_and_labels():
-    """Kernel D takes every multiple of 16 from 16 to 256 on the card, the
-    ones outside HEAD_DIMS on the run-time instances (laid out for 128 or
-    256); the rest raise naming ROADMAP item 3 (not a multiple of 16) or 3h
-    (above 256). Kernel E takes the same head dims."""
-    assert td.CARD_HEAD_DIMS == tuple(range(16, 257, 16)) == TF.HEAD_DIMS
+    """Kernel D takes every multiple of 16 from 16 to 512 on the card, the
+    ones outside HEAD_DIMS on the run-time instances (laid out for 128, 256
+    or 512); the rest raise naming ROADMAP item 3 (not a multiple of 16) or
+    3h (above 512). Kernel E takes the same head dims."""
+    assert td.CARD_HEAD_DIMS == tuple(range(16, 513, 16)) == TF.HEAD_DIMS
     assert set(td.HEAD_DIMS) < set(td.CARD_HEAD_DIMS)
     assert set(td.decode_attention.launches_by_dim) == set(td.CARD_HEAD_DIMS)
-    assert [td.instance_dim(d) for d in (16, 48, 80, 112, 128, 144, 192, 240, 256)] == [128, 128, 80, 128, 128,
-                                                                                         256, 256, 256, 256]
+    assert [td.instance_dim(d) for d in (16, 48, 80, 112, 128, 144, 192, 240, 256, 272, 400, 512)] == [
+        128, 128, 80, 128, 128, 256, 256, 256, 256, 512, 512, 512]
     for d in td.CARD_HEAD_DIMS:
         td.check_head_dim(d)
-    for d, item in ((104, "3"), (8, "3"), (200, "3"), (272, "3h"), (320, "3h")):
+    for d, item in ((104, "3"), (8, "3"), (200, "3"), (264, "3"), (528, "3h"), (640, "3h")):
         with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             td.check_head_dim(d)
     assert [TF.pack_row_bytes(d, bits) for d, bits in ((48, 2), (112, 2), (112, 4), (128, 4), (192, 2))] == [

@@ -146,13 +146,14 @@ def test_build_command_targets_sm90a_from_repo_sources():
     assert len(srcs) == len(compiles)  # one nvcc per source, run side by side
     assert sorted(os.path.basename(s) for s in srcs) == [
         "attention_bwd_wgmma.cu", "attention_bwd_wgmma_d256.cu", "attention_fwd_wgmma.cu",
-        "attention_fwd_wgmma_bias.cu", "attention_fwd_wgmma_d256.cu", "attention_fwd_wgmma_pv32.cu",
-        "attention_fwd_wgmma_pv32_d256.cu", "decode_attention.cu", "decode_attention_d256.cu",
-        "decode_attention_d80_96.cu", "decode_attention_dyn.cu", "decode_attention_multi.cu",
-        "decode_attention_multi_d256.cu", "decode_attention_multi_d80_96.cu", "decode_attention_multi_dyn.cu",
+        "attention_fwd_wgmma_bias.cu", "attention_fwd_wgmma_d256.cu", "attention_fwd_wgmma_d512.cu",
+        "attention_fwd_wgmma_d512_masked.cu", "attention_fwd_wgmma_pv32.cu", "attention_fwd_wgmma_pv32_d256.cu",
+        "decode_attention.cu", "decode_attention_d256.cu", "decode_attention_d80_96.cu", "decode_attention_dyn.cu",
+        "decode_attention_dyn512.cu", "decode_attention_multi.cu", "decode_attention_multi_d256.cu",
+        "decode_attention_multi_d80_96.cu", "decode_attention_multi_dyn.cu", "decode_attention_multi_dyn512.cu",
         "decode_attention_paged.cu", "decode_attention_paged_d256.cu", "decode_attention_paged_d80_96.cu",
-        "decode_attention_paged_dyn.cu", "fused_kv_attention_wgmma.cu", "fused_kv_attention_wgmma_pad.cu", "gemv.cu",
-        "quant.cu"]
+        "decode_attention_paged_dyn.cu", "decode_attention_paged_dyn512.cu", "fused_kv_attention_wgmma.cu",
+        "fused_kv_attention_wgmma_d512.cu", "fused_kv_attention_wgmma_pad.cu", "gemv.cu", "quant.cu"]
     assert all(os.path.dirname(s) == _build.CSRC_DIR for s in srcs)
     assert all(f"-I{_build.CSRC_DIR}" in cmd for cmd in compiles)  # the shared headers, e.g. sm90.cuh
     assert os.path.join(_build.CSRC_DIR, "sm90.cuh") in _build.hashed_files()
